@@ -1,0 +1,317 @@
+// Cylinder dispersion determinant, one thread per (omega, k, m) candidate.
+//
+// Port of the XLA program `jit(vmap(disp))` of
+// `eigensolver_tpu/physics/cylinder.py::CylinderPhysics.make_dispersion`
+// (cylinder.py:236-385) with the mode as a per-candidate column
+// (`eigensolver_tpu/sweep.py::make_dispersion_moded`), for the non-twisted,
+// real-omega cases with the analytic ("bessel") exterior. On the TPU the
+// interior was an XLA-fused `lax.scan` and the exterior either fused XLA or
+// the Pallas kernel `kernels/bessel.py::kve_ratio_pallas`; here the whole
+// candidate runs in registers of one thread:
+//   two-basis state (P1, w1, P2, w2) from u0 = (1, 0, 0, F(1));
+//   n_interior RK4 steps of `_rk4_linear2` from r = 1 to eps, the
+//   coefficient chain evaluated at the 3 distinct abscissae per step;
+//   the log tail of n_axis_log steps in t = ln r down to eps_final, with
+//   coefficients (r iF, r g);
+//   the axis condition, the interface values, m_e, sqrt(m_e), the exterior
+//   ratio from the inlined device function of kve_ratio.cuh, xi_e, the
+//   determinant and the % mismatch.
+//
+// What bounds it on Hopper: per candidate, (n_interior + n_axis_log) * 3
+// evaluations of the Hain-Lust chain (~10 divisions, 3 square roots and an
+// exp each) plus the RK4 updates, against 24 bytes in and 17 bytes out.
+// It is arithmetic- and latency-bound (f64 divisions and square roots are
+// multi-instruction sequences); memory traffic is negligible, so there is no
+// tiling, shared memory, TMA or wgmma: nothing here is a matrix product.
+// The design keeps every temporary in registers and reads the equilibrium
+// as scalars from the kernel parameters, evaluating the profile closed
+// forms inline (no tables in device memory).
+//
+// Arithmetic order follows the JAX code expression for expression (no
+// algebraic simplification), and the build disables FMA contraction
+// (--fmad=false): the NaN/inf pattern at pole points and agreement with the
+// plain PyTorch version to rounding level depend on it. Constants the JAX
+// code forms from Python floats arrive as doubles and are rounded to T at
+// use, as JAX's weakly typed scalars are.
+//
+// For these cases v_phi == B_phi == 0, so C1 == B == C3diff == 0 and the
+// chain reduces to (cylinder.py:110-208)
+//   D  = rho (c^2 + vA^2) (s^2 - wA^2) (s^2 - wc^2),   A = rho (s^2 - wA^2),
+//   C2 = s^4 - (c^2 + vA^2) (m^2/r^2 + k^2) (s^2 - wc^2),   C3 = D A + B,
+//   1/F = A/r + B/(r D),   g = -d(r C1/C3)/dr - r (C2 - C1^2/C3)/D,
+// where every zero-valued term is kept only as what it does to the NaN
+// pattern (`zero_over`).
+#include <cmath>
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+#include "kve_ratio.cuh"
+
+namespace eigk {
+
+// config.ProfileKind
+enum ProfileKindId : int { kUniform = 0, kGaussian = 1, kEpstein = 2, kPowerLaw = 3 };
+
+// profiles.make_profile(cfg, f0, fe); mirrored by kernels/cylinder.py
+struct ProfileParams {
+  int kind;
+  double f0, fe;
+  double f0_minus_fe;  // (f0 - fe), a Python float in the JAX code
+  double center;       // Gaussian x0
+  double width;        // Epstein a
+  double w2;           // Gaussian width ** 2
+  double amplitude, power;
+};
+
+// Everything of the case the determinant reads; mirrored by
+// kernels/cylinder.py::_CylParams. Doubles are rounded to T at use.
+struct CylDispParams {
+  ProfileParams rho;     // density rho_i(r): f0 = rho_i0, fe = rho_e
+  ProfileParams flow;    // axial flow U_i(r)
+  int uniform_density;   // vA_i, c_i are the regime constants
+  int zero_flow;         // U_i == 0 identically
+  double vA_i0, c_i0, rho_i0, B_0;
+  double c2_num;         // rho_e (c_e^2 + g/2 vA_e^2)
+  double half_g;         // 0.5 g
+  double vA_e2, c_e2, cT_e2, vAc_e2;  // vA_e^2, c_e^2, cT_e^2, vA_e^2 + c_e^2
+  double rho_e;
+  double m_e_floor;      // 1e-300 (0 once rounded to float)
+  double axis_eps, axis_eps_final;
+  int n_interior, n_axis_log;
+  int log_tail;          // integrate the t = ln r tail eps -> eps_final
+};
+
+template <class T>
+__device__ __forceinline__ T profile(const ProfileParams& p, T x) {
+  switch (p.kind) {
+    case kGaussian: {
+      const T d = x - T(p.center);
+      return T(p.fe) + T(p.f0_minus_fe) * exp(-(d * d) / T(p.w2));
+    }
+    case kEpstein: {
+      const T c = cosh(x / T(p.width));
+      const T c2 = c * c;
+      const T c4 = c2 * c2;
+      return T(p.fe) + T(p.f0_minus_fe) / (c4 * c4);
+    }
+    case kPowerLaw:
+      return T(p.amplitude) * pow(x, T(p.power));
+    default:
+      return T(p.f0);  // f0 + 0.0 * x, for the finite x > 0 visited here
+  }
+}
+
+// 0 / x without a division: NaN where x is 0 or NaN, else zero.
+template <class T>
+__device__ __forceinline__ T zero_over(T x) {
+  return (x == T(0) || x != x) ? T(NAN) : T(0);
+}
+
+// jnp.maximum: NaN if either operand is NaN
+template <class T>
+__device__ __forceinline__ T nan_max(T a, T b) {
+  if (a != a || b != b) return a + b;
+  return a > b ? a : b;
+}
+
+// D, A, C2 of the Hain-Lust chain at radius r (cylinder.py:110-168 with
+// v_phi == B_phi == 0; equilibrium.py:225-242 inline).
+template <class T>
+__device__ __forceinline__ void hain_lust(const CylDispParams& p, T omega, T k,
+                                          T m, T r, T& D, T& A, T& C2) {
+  const T rho = profile(p.rho, r);
+  T vA, ci;
+  if (p.uniform_density) {
+    vA = T(p.vA_i0);
+    ci = T(p.c_i0);
+  } else {
+    vA = T(p.vA_i0) * sqrt(T(p.rho_i0) / rho);
+    ci = sqrt(T(p.c2_num) / rho - T(p.half_g) * (vA * vA));
+  }
+  const T U = p.zero_flow ? T(0) : profile(p.flow, r);
+
+  const T shift = omega - k * U;            // omega - m v_phi/r - k U
+  const T alf = k * T(p.B_0) / sqrt(rho);   // m B_phi/r + k B_z/sqrt(rho)
+  const T csum = ci * ci + vA * vA;
+  const T cusp = alf * ci / sqrt(csum);
+  const T s2 = shift * shift;
+  const T da = s2 - alf * alf;
+  const T dc = s2 - cusp * cusp;
+  D = rho * csum * da * dc;
+  A = rho * da;                             // + r dC3diff/dr == 0
+  C2 = s2 * s2 - csum * (m * m / (r * r) + k * k) * dc;
+}
+
+// invF_g (cylinder.py:189-208): (1/F, g) at radius r
+template <class T>
+__device__ __forceinline__ void invF_g(const CylDispParams& p, T omega, T k,
+                                       T m, T r, T& iF, T& g) {
+  T D, A, C2;
+  hain_lust(p, omega, k, m, r, D, A, C2);
+  const T C3 = D * A + T(0);               // + B, B == 0
+  const T c1c3 = zero_over(C3);            // C1^2/C3 and d(r C1/C3)/dr
+  iF = A / r + zero_over(r * D);           // A/r + B/(r D)
+  g = -c1c3 - r * (C2 - c1c3) / D;
+}
+
+// Coefficients of the linear system at abscissa x: (iF, g) in r, or
+// (r iF, r g) at r = exp(t) on the log tail (cylinder.py:273-279).
+template <class T, bool kLog>
+__device__ __forceinline__ void coef(const CylDispParams& p, T omega, T k, T m,
+                                     T x, T& iF, T& g) {
+  if (kLog) {
+    const T r = exp(x);
+    invF_g(p, omega, k, m, r, iF, g);
+    iF = r * iF;
+    g = r * g;
+  } else {
+    invF_g(p, omega, k, m, x, iF, g);
+  }
+}
+
+// `_rk4_linear2` (cylinder.py:50-85): classical RK4 for the two-basis linear
+// system d(P, w)/dx = (w iF, g P), coefficients at x, x + h/2, x + h.
+template <class T, bool kLog>
+__device__ __forceinline__ void rk4_linear2(const CylDispParams& p, T omega,
+                                            T k, T m, T x0, T x1, int n,
+                                            T& P1, T& w1, T& P2, T& w2) {
+  const T h = (x1 - x0) / T(n);
+  const T hh = T(0.5) * h;
+  const T h6 = h / T(6);
+  for (int i = 0; i < n; ++i) {
+    const T x = x0 + T(i) * h;              // not an accumulated x += h
+    T iFA, gA, iFM, gM, iFB, gB;
+    coef<T, kLog>(p, omega, k, m, x, iFA, gA);
+    coef<T, kLog>(p, omega, k, m, x + hh, iFM, gM);
+    coef<T, kLog>(p, omega, k, m, x + h, iFB, gB);
+
+    const T k1P1 = w1 * iFA, k1w1 = gA * P1, k1P2 = w2 * iFA, k1w2 = gA * P2;
+    T yP1 = P1 + hh * k1P1, yw1 = w1 + hh * k1w1;
+    T yP2 = P2 + hh * k1P2, yw2 = w2 + hh * k1w2;
+    const T k2P1 = yw1 * iFM, k2w1 = gM * yP1, k2P2 = yw2 * iFM, k2w2 = gM * yP2;
+    yP1 = P1 + hh * k2P1;
+    yw1 = w1 + hh * k2w1;
+    yP2 = P2 + hh * k2P2;
+    yw2 = w2 + hh * k2w2;
+    const T k3P1 = yw1 * iFM, k3w1 = gM * yP1, k3P2 = yw2 * iFM, k3w2 = gM * yP2;
+    yP1 = P1 + h * k3P1;
+    yw1 = w1 + h * k3w1;
+    yP2 = P2 + h * k3P2;
+    yw2 = w2 + h * k3w2;
+    const T k4P1 = yw1 * iFB, k4w1 = gB * yP1, k4P2 = yw2 * iFB, k4w2 = gB * yP2;
+
+    P1 = P1 + h6 * (k1P1 + T(2) * k2P1 + T(2) * k3P1 + k4P1);
+    w1 = w1 + h6 * (k1w1 + T(2) * k2w1 + T(2) * k3w1 + k4w1);
+    P2 = P2 + h6 * (k1P2 + T(2) * k2P2 + T(2) * k3P2 + k4P2);
+    w2 = w2 + h6 * (k1w2 + T(2) * k2w2 + T(2) * k3w2 + k4w2);
+  }
+}
+
+template <class T>
+__global__ void __launch_bounds__(128)
+cylinder_disp_kernel(const T* __restrict__ omega_, const T* __restrict__ k_,
+                     const T* __restrict__ m_, T* __restrict__ det_,
+                     T* __restrict__ mism_, bool* __restrict__ valid_,
+                     int64_t n, const __grid_constant__ CylDispParams p) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const T omega = omega_[i];
+  const T k = k_[i];
+  const T m = m_[i];
+  const T zero = T(0);
+  const T one = T(1);
+
+  // interface chain at r = 1: F(1) = r D / C3 and C1(1)/C3(1)
+  T D1, A1, C2_1;
+  hain_lust(p, omega, k, m, one, D1, A1, C2_1);
+  const T C3_1 = D1 * A1 + zero;
+  const T F1 = one * D1 / C3_1;
+
+  // u1: P(1)=1, P'(1)=0  |  u2: P(1)=0, P'(1)=1  (w = F P')
+  T P1 = one, w1 = zero, P2 = zero, w2 = F1 * one;
+  const T eps = T(p.axis_eps);
+  rk4_linear2<T, false>(p, omega, k, m, one, eps, p.n_interior, P1, w1, P2, w2);
+  if (p.log_tail) {
+    rk4_linear2<T, true>(p, omega, k, m, log(eps), log(T(p.axis_eps_final)),
+                         p.n_axis_log, P1, w1, P2, w2);
+  }
+
+  // axis condition: m=0: w(eps)=0; m>=1: P(eps)=0
+  const bool is_sausage = m < T(0.5);
+  const T a1 = is_sausage ? w1 : P1;
+  const T a2 = is_sausage ? w2 : P2;
+
+  // interface values: xi_r = C1 P / C3 + w / r
+  const T xi1 = zero_over(C3_1) + zero;    // C1(1) * 1.0 / C3(1) + zero
+  const T xi2 = F1 / one;
+
+  // exterior: P_e = K_m(sqrt(m_e) r), logarithmic derivative at r = 1
+  const T k2 = k * k;
+  const T om2 = omega * omega;
+  const T m_e = (k2 * T(p.vA_e2) - om2) * (k2 * T(p.c_e2) - om2)
+              / (T(p.vAc_e2) * (k2 * T(p.cT_e2) - om2));
+  // jnp.maximum(m_e, 1e-300); the floor is 0 in float
+  const T sq = sqrt(nan_max(m_e, T(p.m_e_floor)));
+  T r0, r1;
+  kve_ratio_both(sq, r0, r1);
+  const T dP_e = sq * (is_sausage ? r0 : r1);
+  const T P_e = one;
+  const T xi_e = dP_e / (T(p.rho_e) * (om2 - k2 * T(p.vA_e2)));
+
+  // determinant; the twisted jump term J is 0 for these cases
+  const T J = zero;
+  const T m1 = xi1 * P_e - xi_e * one;
+  const T m2 = xi2 * P_e - xi_e * zero;
+  det_[i] = a1 * m2 - a2 * m1 + J * xi_e * xi2;
+
+  // % mismatch of xi_r for the combination meeting the axis condition
+  const T B = -(a1 + J * xi_e) / a2;
+  const T xi_i = xi1 + B * xi2;
+  const T num = fabs(xi_e - xi_i);
+  const T den = nan_max(fabs(xi_e), fabs(xi_i));
+  mism_[i] = T(100) * num / den;
+  valid_[i] = m_e > zero;
+}
+
+template <class T>
+int launch(const void* omega, const void* k, const void* m, void* det,
+           void* mism, void* valid, long long n, const CylDispParams* p,
+           int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int kThreads = 128;
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  cylinder_disp_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(omega), static_cast<const T*>(k),
+      static_cast<const T*>(m), static_cast<T*>(det), static_cast<T*>(mism),
+      static_cast<bool*>(valid), n, *p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace eigk
+
+extern "C" {
+
+// Each entry returns the cudaError_t of the launch (0 on success); n > 0.
+int eigk_cylinder_disp_f32(const void* omega, const void* k, const void* m,
+                           void* det, void* mism, void* valid, long long n,
+                           const eigk::CylDispParams* p, int device,
+                           void* stream) {
+  return eigk::launch<float>(omega, k, m, det, mism, valid, n, p, device, stream);
+}
+
+int eigk_cylinder_disp_f64(const void* omega, const void* k, const void* m,
+                           void* det, void* mism, void* valid, long long n,
+                           const eigk::CylDispParams* p, int device,
+                           void* stream) {
+  return eigk::launch<double>(omega, k, m, det, mism, valid, n, p, device, stream);
+}
+
+// sizeof(CylDispParams), for the Python mirror's layout check
+long long eigk_cylinder_params_size() {
+  return static_cast<long long>(sizeof(eigk::CylDispParams));
+}
+
+}  // extern "C"

@@ -1,0 +1,70 @@
+"""Root-set container and dedup (PyTorch port).
+
+A copy of `eigensolver_tpu.roots:RootBranch, RootSet, dedup_roots` - host-side
+numpy, no framework - held here because importing the JAX package loads jax.
+Merging (needle pass, ROADMAP A11), complex dedup (A10) and the
+reference-pickle formats (A12) are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class RootBranch:
+    """Roots of one mode family (e.g. sausage or kink): parallel (omega, k)."""
+
+    omegas: np.ndarray
+    ks: np.ndarray
+    omegas_imag: Optional[np.ndarray] = None  # KH growth rates (complex runs)
+
+    def __len__(self):
+        return len(self.omegas)
+
+    def phase_speeds(self) -> np.ndarray:
+        return self.omegas / self.ks
+
+    def sorted_by_k(self) -> "RootBranch":
+        order = np.argsort(self.ks, kind="stable")
+        return RootBranch(
+            omegas=self.omegas[order],
+            ks=self.ks[order],
+            omegas_imag=None if self.omegas_imag is None else self.omegas_imag[order],
+        )
+
+
+@dataclasses.dataclass
+class RootSet:
+    """All branches of one case sweep, keyed by mode name ('sausage'/'kink')."""
+
+    branches: Dict[str, RootBranch]
+    case_name: str = ""
+
+    def __getitem__(self, name: str) -> RootBranch:
+        return self.branches[name]
+
+    def counts(self) -> Dict[str, int]:
+        return {k: len(v) for k, v in self.branches.items()}
+
+
+def dedup_roots(omegas: np.ndarray, ks: np.ndarray, rel_tol: float = 1e-4,
+                extras: Optional[list] = None):
+    """Collapse duplicate roots: same k (exact - k comes from a shared grid) and
+    omega within rel_tol relative. Replaces the reference behaviour of letting
+    duplicates from adjacent speed bands coexist (SURVEY.md P2)."""
+    if len(omegas) == 0:
+        return (omegas, ks) if extras is None else (omegas, ks, *[e for e in extras])
+    order = np.lexsort((omegas, ks))
+    om, kk = omegas[order], ks[order]
+    keep = np.ones(len(om), dtype=bool)
+    for i in range(1, len(om)):
+        if kk[i] == kk[i - 1] and abs(om[i] - om[i - 1]) <= rel_tol * max(
+            abs(om[i]), 1e-30
+        ):
+            keep[i] = False
+    if extras is None:
+        return om[keep], kk[keep]
+    return (om[keep], kk[keep], *[np.asarray(e)[order][keep] for e in extras])

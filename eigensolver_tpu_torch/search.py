@@ -1,0 +1,228 @@
+"""Batched root search over the (omega, k) plane, in PyTorch.
+
+Port of the real-omega path of `eigensolver_tpu.search`:
+
+1. ladder scan:  evaluate D(omega, k) on dense omega ladders for every
+                 (k, band, mode) row at once (scan dtype);
+2. bracketing:   sign changes in-array, a fixed budget of brackets per row,
+                 chosen by smallest endpoint residual;
+3. polish:       fixed-count bisection of every bracket at once (polish
+                 dtype), then acceptance by the % residual.
+
+PyTorch runs eagerly, so the JAX package's fused-pipeline cache, the
+128-row padding (which bounded XLA recompiles) and the 1.2M-cell chunking
+(which bounded TPU VMEM) have no counterpart here. Not ported yet: the
+reference-parity fuzz acceptance, continuum masks and the pole pre-filter
+(ROADMAP A11), host f64 refinement (A5), the complex-omega search (A10).
+"""
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+
+class BracketBatch(NamedTuple):
+    lo: torch.Tensor        # (B,) lower omega of bracket
+    hi: torch.Tensor        # (B,) upper omega
+    k: torch.Tensor         # (B,) wavenumber of the cell
+    mask: torch.Tensor      # (B,) bool - real bracket vs filler
+    mode: Optional[torch.Tensor] = None  # (B,) mode id when fused sweeps
+    n_in_row: Optional[torch.Tensor] = None  # (rows,) sign changes per row
+    #   (before the top-K budget cut - saturation diagnostic)
+
+
+class PolishResult(NamedTuple):
+    omega: torch.Tensor     # (B,) converged root candidates
+    k: torch.Tensor
+    mismatch: torch.Tensor  # (B,) reference-style % residual at the root
+    mask: torch.Tensor      # (B,) bracket validity / acceptance
+    mode: Optional[torch.Tensor] = None
+    # (B,) bool: entry is a reference-parity fuzz record; None = all polished
+    # (always, until fuzz acceptance is ported: ROADMAP A11)
+    fuzz: Optional[torch.Tensor] = None
+
+
+def _call_disp(disp_batch, omega, k, mode):
+    return disp_batch(omega, k) if mode is None else disp_batch(omega, k, mode)
+
+
+def ladder_scan(disp_batch: Callable, omegas: torch.Tensor, ks: torch.Tensor,
+                modes: Optional[torch.Tensor] = None):
+    """Evaluate the dispersion function on a (rows, n_omega) ladder grid.
+
+    disp_batch: batched disp over flat (omega, k[, mode]) -> .det/.valid/...
+    Returns (det, valid, mismatch) as (rows, n_omega) tensors."""
+    rows, n_omega = omegas.shape
+    flat_om = omegas.reshape(-1)
+    flat_k = ks.repeat_interleave(n_omega)
+    flat_m = None if modes is None else modes.repeat_interleave(n_omega)
+    res = _call_disp(disp_batch, flat_om, flat_k, flat_m)
+    det = res.det.reshape(rows, n_omega)
+    valid = res.valid.reshape(rows, n_omega)
+    mism = res.mismatch_pct.reshape(rows, n_omega)
+    return det, valid, mism
+
+
+def find_brackets(omegas: torch.Tensor, ks: torch.Tensor, det: torch.Tensor,
+                  valid: torch.Tensor, max_per_row: int,
+                  modes: Optional[torch.Tensor] = None,
+                  pole_det_factor: Optional[float] = None,
+                  mism: Optional[torch.Tensor] = None) -> BracketBatch:
+    """Select up to `max_per_row` sign-change brackets per ladder row.
+
+    mism: optional (rows, n_omega) residual %. When given, a saturated row
+    keeps the `max_per_row` brackets with the smallest endpoint residual;
+    otherwise the lowest-omega ones. Ties go to the lower index, as XLA's
+    TopK breaks them in the JAX package (a stable sort here; `torch.topk`
+    promises no order among ties). Rows with fewer brackets are filled with
+    the lowest-index non-bracket columns, mask False.
+    """
+    if pole_det_factor is not None:
+        raise NotImplementedError("pole_det_factor: ROADMAP A11")
+    finite = torch.isfinite(det)
+    ok = valid & finite
+    neg = torch.signbit(det)
+    is_br = (neg[:, :-1] != neg[:, 1:]) & ok[:, :-1] & ok[:, 1:]
+    n_in_row = is_br.sum(dim=1)
+    max_per_row = min(max_per_row, is_br.shape[1])
+    if mism is not None:
+        inf = torch.full((), torch.inf, dtype=mism.dtype, device=mism.device)
+        big = torch.where(torch.isfinite(mism), mism, inf)
+        score = torch.minimum(big[:, :-1], big[:, 1:])
+        # genuine brackets clamp to a large FINITE score so one whose both
+        # endpoint residuals are non-finite still outranks every non-bracket
+        # column (which carries inf)
+        cap = torch.full((), 1e30, dtype=mism.dtype, device=mism.device)
+        score = torch.where(is_br, torch.minimum(score, cap), inf)
+        key = score
+    else:
+        key = (~is_br).to(torch.int8)
+    order = torch.sort(key, dim=1, stable=True).indices[:, :max_per_row]
+    lo = omegas.gather(1, order)
+    hi = omegas.gather(1, order + 1)
+    mask = is_br.gather(1, order)
+    kcol = ks[:, None].expand_as(lo)
+    mcol = (None if modes is None
+            else modes[:, None].expand_as(lo).reshape(-1))
+    return BracketBatch(lo=lo.reshape(-1), hi=hi.reshape(-1),
+                        k=kcol.reshape(-1), mask=mask.reshape(-1), mode=mcol,
+                        n_in_row=n_in_row)
+
+
+def bisect(disp_batch: Callable, br: BracketBatch, n_iter: int,
+           dtype=torch.float64) -> PolishResult:
+    """Fixed-count bisection of every bracket at once, then one evaluation
+    at the midpoint for the residual."""
+    lo = br.lo.to(dtype)
+    hi = br.hi.to(dtype)
+    k = br.k.to(dtype)
+    md = br.mode
+
+    f_lo = _call_disp(disp_batch, lo, k, md).det
+    lo_neg = torch.signbit(f_lo)
+    for _ in range(n_iter):
+        mid = 0.5 * (lo + hi)
+        f_mid = _call_disp(disp_batch, mid, k, md).det
+        go_right = torch.signbit(f_mid) == lo_neg   # root in [mid, hi]
+        lo = torch.where(go_right, mid, lo)
+        hi = torch.where(go_right, hi, mid)
+    root = 0.5 * (lo + hi)
+    res = _call_disp(disp_batch, root, k, md)
+    return PolishResult(omega=root, k=k, mismatch=res.mismatch_pct,
+                        mask=br.mask, mode=md)
+
+
+@dataclasses.dataclass(frozen=True)
+class SearchConfig:
+    """Field for field `eigensolver_tpu.search.SearchConfig`, same defaults
+    (see the comments there). The fields marked below are not ported yet
+    and raise when set."""
+    n_omega: int = 256
+    max_brackets_per_row: int = 8
+    n_bisect: int = 60
+    accept_pct: float = 1.0
+    accept_pct_refined: Optional[float] = None   # needs refine_f64 (A5)
+    scan_dtype: str = "float64"
+    polish_dtype: str = "float64"
+    fuzz_accept_pct: Optional[float] = None      # A11
+    fuzz_stride: int = 1
+    fuzz_v_ranges: Optional[tuple] = None
+    pole_det_factor: Optional[float] = None      # A11
+    exclude_v_ranges: Optional[tuple] = None     # A11
+    exclude_omega_rowfn: Optional[Callable] = None  # A11
+
+    @classmethod
+    def from_jax(cls, cfg) -> "SearchConfig":
+        """The port's SearchConfig equal to a JAX-package SearchConfig."""
+        return cls(**{f.name: getattr(cfg, f.name)
+                      for f in dataclasses.fields(cls)})
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "float64": torch.float64}[name]
+
+
+def _check_supported(cfg: SearchConfig):
+    for name in ("fuzz_accept_pct", "pole_det_factor", "exclude_v_ranges",
+                 "exclude_omega_rowfn"):
+        if getattr(cfg, name) is not None:
+            raise NotImplementedError(f"SearchConfig.{name}: ROADMAP A11")
+
+
+def search_rows(disp_batch_scan: Callable, disp_batch_polish: Callable,
+                omegas: torch.Tensor, ks: torch.Tensor, cfg: SearchConfig,
+                modes: Optional[torch.Tensor] = None) -> PolishResult:
+    """Scan -> bracket -> bisect -> accept for one ladder batch.
+
+    omegas: (rows, n_omega) ladders; ks: (rows,); modes: optional (rows,)
+    mode column (fused sausage+kink sweep). Returns a PolishResult of
+    rows * max_brackets_per_row entries whose mask includes acceptance."""
+    _check_supported(cfg)
+    det, valid, mism = ladder_scan(disp_batch_scan, omegas, ks, modes)
+    br = find_brackets(omegas, ks, det, valid, cfg.max_brackets_per_row,
+                       modes, mism=mism)
+    n_sat = int((br.n_in_row > cfg.max_brackets_per_row).sum())
+    if n_sat:
+        warnings.warn(
+            f"{n_sat} ladder rows found more sign changes than "
+            f"max_brackets_per_row={cfg.max_brackets_per_row}; only the "
+            f"{cfg.max_brackets_per_row} smallest-residual brackets per row "
+            f"were polished - raise max_brackets_per_row if dense bands "
+            f"matter", stacklevel=2)
+    pr = bisect(disp_batch_polish, br, cfg.n_bisect,
+                dtype=torch_dtype(cfg.polish_dtype))
+    accepted = (pr.mask & torch.isfinite(pr.mismatch)
+                & (pr.mismatch < cfg.accept_pct))
+    return pr._replace(mask=accepted)
+
+
+def collect(pr: PolishResult, with_fuzz: bool = False):
+    """Device->host gather of accepted roots: (omega, k, mismatch[, mode]
+    [, fuzz_flag]). All leaves travel in ONE stacked transfer."""
+    leaves = [pr.omega, pr.k, pr.mismatch, pr.mask]
+    if pr.mode is not None:
+        leaves.append(pr.mode)
+    if pr.fuzz is not None:
+        leaves.append(pr.fuzz)
+    dt = torch.promote_types(torch.promote_types(pr.omega.dtype, pr.k.dtype),
+                             pr.mismatch.dtype)
+    host = list(torch.stack([x.to(dt) for x in leaves]).cpu().numpy())
+    om, kk, mm = host[0], host[1], host[2]
+    mask = host[3].astype(bool)
+    i = 4
+    md = None
+    if pr.mode is not None:
+        md = host[i]
+        i += 1
+    fz = host[i].astype(bool) if pr.fuzz is not None else None
+    out = (om[mask], kk[mask], mm[mask])
+    if md is not None:
+        out = out + (md[mask],)
+    if with_fuzz:
+        out = out + ((np.zeros(int(mask.sum()), bool) if fz is None
+                      else fz[mask]),)
+    return out

@@ -1,0 +1,83 @@
+"""Port K_m-ratio (plain and kernel wrapper) vs the JAX package's, including
+the Pallas kernel in interpret mode."""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from eigensolver_tpu import special as jspecial
+from eigensolver_tpu_torch import special
+from eigensolver_tpu_torch.kernels import bessel
+
+ZS = np.concatenate([np.geomspace(0.05, 200.0, 193), [1.99, 2.0, 2.01]])
+
+
+@pytest.mark.parametrize("dtype, rtol", [(np.float64, 1e-13),
+                                         (np.float32, 1e-5)])
+def test_kve_ratio_both_real_matches_jax(dtype, rtol):
+    z = ZS.astype(dtype)
+    w0, w1 = (np.asarray(x) for x in jspecial.kve_ratio_both(jnp.asarray(z)))
+    g0, g1 = (x.numpy() for x in special.kve_ratio_both(torch.from_numpy(z)))
+    assert g0.dtype == dtype and g1.dtype == dtype
+    np.testing.assert_allclose(g0, w0, rtol=rtol)
+    np.testing.assert_allclose(g1, w1, rtol=rtol)
+
+
+def test_kve_ratio_both_complex_matches_jax():
+    rng = np.random.default_rng(0)
+    z = rng.uniform(0.05, 20, 64) + 1j * rng.uniform(-10, 10, 64)
+    w0, w1 = (np.asarray(x) for x in jspecial.kve_ratio_both(jnp.asarray(z)))
+    g0, g1 = (x.numpy() for x in special.kve_ratio_both(torch.from_numpy(z)))
+    np.testing.assert_allclose(g0, w0, rtol=1e-12)
+    np.testing.assert_allclose(g1, w1, rtol=1e-12)
+
+
+@pytest.mark.parametrize("m", [0, 1])
+def test_kve_ratio_selects_order(m):
+    z = torch.from_numpy(ZS)
+    both = special.kve_ratio_both(z)
+    assert torch.equal(special.kve_ratio(m, z), both[m])
+
+
+def test_wrapper_on_cpu_is_the_plain_version():
+    z = torch.from_numpy(np.random.default_rng(1).uniform(0.05, 30, 300))
+    before = bessel.launches
+    got = bessel.kve_ratio_both(z)
+    want = special.kve_ratio_both(z)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bessel.launches == before
+
+
+def test_wrapper_rejects_other_devices():
+    with pytest.raises(ValueError, match="unsupported device"):
+        bessel.kve_ratio_both(torch.empty(4, device="meta"))
+
+
+def test_matches_pallas_kernel_interpret():
+    from eigensolver_tpu.kernels.bessel import kve_ratio_pallas
+    z = np.random.default_rng(1).uniform(0.05, 30, 1024).astype(np.float32)
+    p0, p1 = (np.asarray(x) for x in kve_ratio_pallas(jnp.asarray(z),
+                                                       interpret=True))
+    g0, g1 = (x.numpy() for x in bessel.kve_ratio_both(torch.from_numpy(z)))
+    np.testing.assert_allclose(g0, p0, rtol=1e-5)
+    np.testing.assert_allclose(g1, p1, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA card")
+@pytest.mark.parametrize("dtype, rtol", [(torch.float64, 1e-12),
+                                         (torch.float32, 1e-5)])
+def test_kernel_matches_plain_on_card(dtype, rtol):
+    z = torch.from_numpy(np.random.default_rng(2).uniform(0.05, 200, 4099))
+    z = z.to(device="cuda", dtype=dtype)
+    before = bessel.launches
+    k0, k1 = bessel.kve_ratio_both(z)
+    torch.cuda.synchronize()
+    assert bessel.launches == before + 1
+    p0, p1 = special.kve_ratio_both(z)
+    torch.testing.assert_close(k0, p0, rtol=rtol, atol=0)
+    torch.testing.assert_close(k1, p1, rtol=rtol, atol=0)
+    with pytest.raises(ValueError, match="contiguous"):
+        bessel.kve_ratio_both(z[::2])
+    with pytest.raises(TypeError):
+        bessel.kve_ratio_both(z.to(torch.complex128))
