@@ -7,21 +7,37 @@ Run from the repository root. Phases, one line each; any failure raises and
 the script exits non-zero:
 
 1. device: a CUDA card is required; its nvidia-smi name and power limit.
-2. build: the CUDA kernels, compiled with nvcc from eigensolver_tpu_torch/csrc.
-3. kve_ratio kernel vs its plain PyTorch version, 552,960 arguments.
+2. build: the CUDA kernels, compiled with nvcc from eigensolver_tpu_torch/csrc
+   (one nvcc per source, in parallel).
+3. kve_ratio: the standalone kernel once on the exterior arguments
+   sqrt(m_e) > 0 of the cyl_co_09 ladder (552,600 of 552,960; launch
+   counters reset just before), then held against its plain PyTorch
+   version on 552,960 arguments spanning both of its branches. No sweep
+   launches it: its math runs inside cylinder_disp.
 4. cylinder_disp kernel vs its plain PyTorch version, 8,192 candidates of
    the full cyl_co_09 ladder (n_interior=2048, n_axis_log=128); at the full
    sweep's 552,960 candidates, the kernel's time and, at float32, the plain
    version's time and agreement.
-5. the sweep: run_case(cylinder_density_coronal(0.9), n_omega=256,
+5. the cylinder sweep: run_case(cylinder_density_coronal(0.9), n_omega=256,
    n_bisect=18, float32) on the card - once with the launch counters reset
    (it must run through the cylinder_disp kernel and never the plain
-   dispersion), then 3 timed runs, then once at float64; root counts held
-   against the JAX package's own counts for the same configuration; a
+   dispersion), then 3 timed runs, then once at float64; root counts per
+   branch held against the JAX package's for the same configuration; a
    reduced sweep on the card held against the same sweep on the CPU.
+6. slab_disp kernel vs its plain version, 8,192 candidates of the full
+   slab_ph_09 ladder (flux form) and of slab_flow_gaussian_coronal (shear
+   form); at slab_ph_09's 161,280 candidates, the kernel's time and, at
+   float32, the plain version's time and agreement.
+7. the slab sweep: run_case(slab_density_photospheric(0.9), n_omega=256,
+   n_bisect=18, float32) with the counters reset (through slab_disp, never
+   the plain dispersion), 3 timed runs, one float64 run, float64 sweeps of
+   the two flow cases, one float32 sweep with refine_f64=True; counts per
+   branch held against the JAX package's; reduced
+   sweeps on the card (float64, and float32 refined in float64) held against
+   the same sweeps on the CPU.
 
-Then one JSON line of the kernels the sweep ran, the nvidia-smi line, and
-last `{"ok": true, "device": {...}}`. Imports nothing of JAX.
+Then one JSON line of the kernels, the nvidia-smi line, and last
+`{"ok": true, "device": {...}}`. Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -39,21 +55,50 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 
 N_SWEEP = 90 * 12 * 256 * 2     # cyl_co_09 candidates per sweep: 552,960
+N_SLAB = 35 * 9 * 256 * 2       # slab_ph_09 candidates per sweep: 161,280
 N_DISP_CHECK = 8192
-# Root counts of eigensolver_tpu.sweep.run_case on the same case and config,
-# measured with the JAX package on a CPU (JAX 0.9.0, x64):
+# Root counts per branch of run_case on the same case and config, each with
+# the band per branch that the evidence supports (None: printed beside, not
+# held). All measured with the JAX package on a CPU (JAX 0.9.0, x64):
+#   python tests/test_torch_ieee.py counts      (the f32 counts)
 #   python -c "import jax; jax.config.update('jax_platforms', 'cpu');
 #     jax.config.update('jax_enable_x64', True)
 #     from eigensolver_tpu import cases; from eigensolver_tpu.sweep import run_case
 #     from eigensolver_tpu.search import SearchConfig
-#     print(run_case(cases.cylinder_density_coronal(width=0.9), SearchConfig(
-#       n_omega=256, n_bisect=18, scan_dtype=DT, polish_dtype=DT))[0].counts())"
-# f64: a difference can come only from determinant signs that flip within
-# ~1e-12 of a zero, so the band is +-0.25%. f32: marginal acceptances flip
-# at the ulp level (the TPU's f32 count was 2377), so +-3%.
-JAX_COUNTS = {
-    "float64": ({"sausage": 1709, "kink": 2238}, 0.0025),
-    "float32": ({"sausage": 919, "kink": 1487}, 0.03),
+#     print(run_case(CASE, SearchConfig(n_omega=256, n_bisect=18,
+#       scan_dtype=DT, polish_dtype=DT))[0].counts())"     (the f64 counts)
+# "jax_ieee": the JAX package compiled with XLA_FLAGS="--xla_cpu_max_isa=AVX
+# --xla_disable_hlo_passes=algsimp", which rounds every f32 operation once,
+# as the port's kernels (--fmad=false) and plain version do. With the same
+# exp and log the two are bit-equal on every f32 dispersion value
+# (tests/test_torch_ieee.py), so the card's f32 counts differ from these only
+# through its exp/log ulps. Bands per branch: 1% (cylinder, ~1000 roots a
+# branch) and 5% (slab, 60-95 roots: 3-4 roots); measured on an H100 (NVIDIA
+# H100 80GB HBM3, 700 W): cylinder +2/+6 roots (0.2%/0.4%), slab 0/0, slab
+# refined 0/0.
+# "jax": the JAX package as XLA compiles it by default, with fused
+# multiply-adds and algebraic rewrites; its f32 counts are printed, not held
+# (slab_ph_09 kink 68 against 59 rounded as IEEE does, -13%).
+# float64: only sign flips within ~1e-12 of a zero can differ: +-0.25%
+# (every f64 count below is met exactly on an H100).
+CYL_COUNTS = {
+    "float64": [("jax", {"sausage": 1709, "kink": 2238}, 0.0025)],
+    "float32": [("jax_ieee", {"sausage": 880, "kink": 1477}, 0.01),
+                ("jax", {"sausage": 919, "kink": 1487}, None)],
+}
+SLAB_COUNTS = {
+    "float64": [("jax", {"sausage": 289, "kink": 238}, 0.0025)],
+    "float32": [("jax_ieee", {"sausage": 94, "kink": 59}, 0.05),
+                ("jax", {"sausage": 97, "kink": 68}, None)],
+    # refine_f64=True keeps the f32 roots that its f64 window brackets
+    "float32_refined": [("jax_ieee", {"sausage": 94, "kink": 59}, 0.05),
+                        ("jax", {"sausage": 97, "kink": 68}, None)],
+}
+FLOW_COUNTS = {     # float64
+    "slab_flow_gaussian_coronal": [("jax", {"sausage": 452, "kink": 454},
+                                    0.0025)],
+    "slab_flow_uniform_photospheric": [("jax", {"sausage": 208, "kink": 183},
+                                        0.0025)],
 }
 # reduced sweep (k in {0.5, 2}, n_interior=256, n_axis_log=32, n_omega=64,
 # n_bisect=30, f64): same JAX measurement, and tests/test_torch_sweep.py
@@ -79,6 +124,22 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def reset_counters() -> None:
+    """Set every kernel launch counter and plain-dispersion count to 0."""
+    from eigensolver_tpu_torch.kernels import bessel, cylinder, slab
+    from eigensolver_tpu_torch.physics import cylinder as pcyl, slab as pslab
+    bessel.launches = cylinder.launches = slab.launches = 0
+    pcyl.plain_calls = pslab.plain_calls = 0
+
+
+def read_counters() -> dict:
+    from eigensolver_tpu_torch.kernels import bessel, cylinder, slab
+    from eigensolver_tpu_torch.physics import cylinder as pcyl, slab as pslab
+    return {"cylinder_disp": cylinder.launches, "slab_disp": slab.launches,
+            "kve_ratio": bessel.launches, "plain_cylinder": pcyl.plain_calls,
+            "plain_slab": pslab.plain_calls}
+
+
 def phase_device():
     import torch
     smi = subprocess.run(
@@ -102,18 +163,34 @@ def phase_build():
     seconds = time.perf_counter() - t0
     log = so.with_suffix(".log").read_text() if so.with_suffix(".log").is_file() else ""
     ptxas = [ln.split("ptxas info    :")[-1].strip() for ln in log.splitlines()
-             if "Used" in ln or "spill" in ln]
+             if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
     line("phase 2 build", seconds=seconds, library=so.name, ptxas=ptxas)
 
 
 def phase_kve_ratio(out: dict):
     import torch
-    from eigensolver_tpu_torch import special
+    from eigensolver_tpu_torch import cases, special, sweep
     from eigensolver_tpu_torch.kernels import bessel
+    from eigensolver_tpu_torch.physics.cylinder import CylinderPhysics
+    # the exterior arguments sqrt(m_e) the cylinder sweep evaluates (valid
+    # candidates of the cyl_co_09 ladder, both modes), at the sweep's float32
+    case = cases.cylinder_density_coronal(width=0.9)
+    om, ks = sweep.build_ladders(case, 256)
+    om = torch.from_numpy(np.concatenate([om.ravel()] * 2)).cuda()
+    kk = torch.from_numpy(np.repeat(np.concatenate([ks] * 2), 256)).cuda()
+    m_e = CylinderPhysics.from_case(case).exterior_m(om, kk)
+    z_path = torch.sqrt(m_e[m_e > 0]).to(torch.float32).contiguous()
+    reset_counters()
+    r_path = bessel.kve_ratio_both(z_path)
+    torch.cuda.synchronize()
+    standalone = read_counters()["kve_ratio"]
+    if standalone != 1 or not all(bool(r.isfinite().all()) for r in r_path):
+        raise AssertionError("kve_ratio standalone run failed")
+
     rng = np.random.default_rng(0)
     # both branches: series for |z| < 2, CF2 above
     z64 = torch.from_numpy(10.0 ** rng.uniform(-2.0, 2.3, N_SWEEP)).cuda()
-    res = {}
+    res = {"standalone": dict(n=z_path.numel(), launches=standalone)}
     for dtype, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
         z = z64.to(dtype)
         k0, k1 = bessel.kve_ratio_both(z)
@@ -135,6 +212,7 @@ def phase_kve_ratio(out: dict):
 
 
 def _ladder_candidates(case, n, seed):
+    """n (omega, k, mode) candidates drawn from the case's full ladder."""
     import torch
     from eigensolver_tpu_torch import sweep
     om, ks = sweep.build_ladders(case, 256)
@@ -146,18 +224,21 @@ def _ladder_candidates(case, n, seed):
 
 
 def _compare_disp(what: str, kres, pres, f64: bool) -> dict:
-    """Hold the kernel's CylinderInterface against the plain version's.
+    """Hold a dispersion kernel's (det, mismatch, valid) against the plain
+    version's.
 
     f64: det and mismatch to rtol 1e-9 away from poles (|det| > 1e6 x the
-    median is masked). f32: det signs agree wherever |det| > 1e-3 x the
-    median, above the f32 noise floor of the shoot."""
+    median is masked). f32: det and mismatch bit-equal everywhere (NaN where
+    the plain version has NaN), as the kernels are designed to be (no FMA,
+    the plain version's expression order); the det signs where |det| > 1e-3
+    x the median are counted as well."""
     import torch
     kdet, kmis, kval = kres
     pdet, pmis, pval = pres
     if not torch.equal(kval, pval):
-        raise AssertionError(f"cylinder_disp ({what}): valid masks differ")
+        raise AssertionError(f"{what}: valid masks differ")
     if not torch.equal(kdet.isfinite(), pdet.isfinite()):
-        raise AssertionError(f"cylinder_disp ({what}): finite masks differ")
+        raise AssertionError(f"{what}: finite masks differ")
     kd, pd = kdet.cpu().numpy(), pdet.cpu().numpy()
     fin = np.isfinite(pd)
     med = float(np.median(np.abs(pd[fin])))
@@ -171,16 +252,22 @@ def _compare_disp(what: str, kres, pres, f64: bool) -> dict:
             np.abs(km - pm)[ok] / np.abs(pm)[ok]))
         if not (r["max_rel_err_det"] <= 1e-9
                 and r["max_rel_err_mismatch"] <= 1e-9):
-            raise AssertionError(f"cylinder_disp ({what}) vs plain beyond "
-                                 f"rtol 1e-9: {r}")
+            raise AssertionError(f"{what} vs plain beyond rtol 1e-9: {r}")
     else:
+        km, pm = kmis.cpu().numpy(), pmis.cpu().numpy()
+        r["det_bits_differ"] = int((~_same_bits(kd, pd)).sum())
+        r["mismatch_bits_differ"] = int((~_same_bits(km, pm)).sum())
         big = ok & (np.abs(pd) > 1e-3 * med)
-        agree = np.signbit(kd[big]) == np.signbit(pd[big])
         r["sign_checked"] = int(big.sum())
-        r["sign_disagree"] = int((~agree).sum())
-        if not agree.all():
-            raise AssertionError(f"cylinder_disp ({what}) det signs differ: {r}")
+        r["sign_disagree"] = int(
+            (np.signbit(kd[big]) != np.signbit(pd[big])).sum())
+        if r["det_bits_differ"] or r["mismatch_bits_differ"]:
+            raise AssertionError(f"{what} not bit-equal to plain: {r}")
     return r
+
+
+def _same_bits(a, b):
+    return (a == b) | (np.isnan(a) & np.isnan(b))
 
 
 def phase_cylinder_disp(out: dict):
@@ -202,7 +289,8 @@ def phase_cylinder_disp(out: dict):
         pres = plain(*args)
         torch.cuda.synchronize()
         plain_ms = 1e3 * (time.perf_counter() - t0)
-        r = _compare_disp(name, kres, pres, f64=dtype == torch.float64)
+        r = _compare_disp(f"cylinder_disp {name}", kres, pres,
+                          f64=dtype == torch.float64)
         r.update(ms=cuda_ms(lambda: kern(*args), 5), plain_ms=plain_ms)
         res[name] = r
     # the full sweep's scan size: the kernel at both dtypes; the plain
@@ -222,20 +310,27 @@ def phase_cylinder_disp(out: dict):
     pres = plain(*args)
     torch.cuda.synchronize()
     full["plain_float32"] = 1e3 * (time.perf_counter() - t0)
-    full["check_float32"] = _compare_disp("full float32", kres, pres, f64=False)
+    full["check_float32"] = _compare_disp("cylinder_disp full float32", kres,
+                                          pres, f64=False)
     res["full_ms"] = full
     out["cylinder_disp"] = res
     line("phase 4 cylinder_disp vs plain", **res)
 
 
-def _check_counts(counts: dict, dtype: str):
-    want, band = JAX_COUNTS[dtype]
-    total, want_total = sum(counts.values()), sum(want.values())
-    if abs(total - want_total) > band * want_total:
-        raise AssertionError(f"{dtype} sweep: {total} roots {counts}, JAX "
-                             f"package {want_total} {want} (band "
-                             f"+-{band:.2%})")
-    return total - want_total
+def _check_counts(what: str, counts: dict, refs) -> dict:
+    """Hold per-branch root counts against each (source, counts, band) of
+    refs (band None: not held); return the differences per source and
+    branch."""
+    diff = {}
+    for source, want, band in refs:
+        for branch, n in want.items():
+            got = counts[branch]
+            if band is not None and abs(got - n) > band * n:
+                raise AssertionError(
+                    f"{what}: {branch} {got} roots, {source} {n} (band "
+                    f"+-{band:.2%} per branch); all counts {counts}")
+            diff[f"{source}_{branch}"] = got - n
+    return diff
 
 
 def _check_roots(rs, case):
@@ -248,9 +343,7 @@ def _check_roots(rs, case):
 
 
 def phase_sweep(out: dict):
-    import torch
     from eigensolver_tpu_torch import cases, search, sweep
-    from eigensolver_tpu_torch.kernels import bessel
     from eigensolver_tpu_torch.kernels import cylinder as kcyl
     from eigensolver_tpu_torch.physics import cylinder as pcyl
     from eigensolver_tpu_torch.utils import StageTimer
@@ -260,18 +353,16 @@ def phase_sweep(out: dict):
     cfg = search.SearchConfig(n_omega=256, n_bisect=18, scan_dtype="float32",
                               polish_dtype="float32")
 
-    # the main path, with every launch counter reset just before
-    kcyl.launches = 0
-    bessel.launches = 0
-    pcyl.plain_calls = 0
+    # the cylinder path, with every launch counter reset just before
+    reset_counters()
     rs, st = sweep.run_case(case, cfg, device="cuda")
-    launches = {"cylinder_disp": kcyl.launches, "kve_ratio": bessel.launches,
-                "plain_dispersion": pcyl.plain_calls}
+    launches = read_counters()
     if launches["cylinder_disp"] < cfg.n_bisect + 2:
-        raise AssertionError(f"main path launched cylinder_disp "
+        raise AssertionError(f"cylinder path launched cylinder_disp "
                              f"{launches['cylinder_disp']} times")
-    if launches["plain_dispersion"] != 0:
-        raise AssertionError("main path ran the plain dispersion")
+    if launches["plain_cylinder"] or launches["plain_slab"]:
+        raise AssertionError(f"cylinder path ran a plain dispersion: "
+                             f"{launches}")
     if st.n_candidates != N_SWEEP:
         raise AssertionError(f"{st.n_candidates} candidates")
     _check_roots(rs, case)
@@ -289,7 +380,8 @@ def phase_sweep(out: dict):
     if any(c != counts[0] for c in counts):
         raise AssertionError(f"f32 root counts differ between runs: {counts}")
     f32 = dict(counts=counts[0], total=sum(counts[0].values()),
-               minus_jax=_check_counts(counts[0], "float32"),
+               minus_refs=_check_counts("cyl_co_09 float32", counts[0],
+                                        CYL_COUNTS["float32"]),
                wall_s=walls, median_wall_s=statistics.median(walls),
                candidates_per_s=N_SWEEP / statistics.median(walls),
                stages_median_s={k: statistics.median(s[k] for s in stages)
@@ -300,7 +392,8 @@ def phase_sweep(out: dict):
     rs64, st64 = sweep.run_case(case, cfg64, device="cuda")
     _check_roots(rs64, case)
     f64 = dict(counts=rs64.counts(), total=sum(rs64.counts().values()),
-               minus_jax=_check_counts(rs64.counts(), "float64"),
+               minus_refs=_check_counts("cyl_co_09 float64", rs64.counts(),
+                                        CYL_COUNTS["float64"]),
                wall_s=st64.wall_s)
 
     # a small input against the reference: the same reduced sweep on the
@@ -326,6 +419,182 @@ def phase_sweep(out: dict):
     return launches
 
 
+def phase_slab_disp(out: dict):
+    import torch
+    from eigensolver_tpu_torch import cases
+    from eigensolver_tpu_torch.physics.slab import SlabPhysics
+    res = {}
+    for name, case in (("flux slab_ph_09", cases.slab_density_photospheric(0.9)),
+                       ("shear flow_gauss", cases.slab_flow_gaussian_coronal())):
+        ph = SlabPhysics.from_case(case)
+        om, k, par = _ladder_candidates(case, N_DISP_CHECK, seed=3)
+        for dtype in (torch.float64, torch.float32):
+            dname = str(dtype).split(".")[-1]
+            args = [x.to(dtype) for x in (om, k, par)]
+            kern = ph.make_dispersion(parity=None, dtype=dtype)
+            plain = ph.make_dispersion_plain(parity=None, dtype=dtype)
+            kres = kern(*args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pres = plain(*args)
+            torch.cuda.synchronize()
+            plain_ms = 1e3 * (time.perf_counter() - t0)
+            r = _compare_disp(f"slab_disp {name} {dname}", kres, pres,
+                              f64=dtype == torch.float64)
+            r.update(ms=cuda_ms(lambda: kern(*args), 5), plain_ms=plain_ms)
+            res[f"{name} {dname}"] = r
+    # slab_ph_09's scan size: the kernel at both dtypes; the plain version
+    # once at float32, held against the kernel on the same candidates
+    case = cases.slab_density_photospheric(0.9)
+    ph = SlabPhysics.from_case(case)
+    om_f, k_f, p_f = _ladder_candidates(case, N_SLAB, seed=4)
+    full = {}
+    for dtype in (torch.float32, torch.float64):
+        args = [x.to(dtype) for x in (om_f, k_f, p_f)]
+        kern = ph.make_dispersion(parity=None, dtype=dtype)
+        full[str(dtype).split(".")[-1]] = cuda_ms(lambda: kern(*args), 5)
+    args = [x.to(torch.float32) for x in (om_f, k_f, p_f)]
+    kres = ph.make_dispersion(parity=None, dtype=torch.float32)(*args)
+    plain = ph.make_dispersion_plain(parity=None, dtype=torch.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pres = plain(*args)
+    torch.cuda.synchronize()
+    full["plain_float32"] = 1e3 * (time.perf_counter() - t0)
+    full["check_float32"] = _compare_disp("slab_disp full float32", kres,
+                                          pres, f64=False)
+    res["full_ms"] = full
+    out["slab_disp"] = res
+    line("phase 6 slab_disp vs plain", **res)
+
+
+def phase_slab_sweep(out: dict):
+    from eigensolver_tpu_torch import cases, search, sweep
+    from eigensolver_tpu_torch.kernels import slab as kslab
+    from eigensolver_tpu_torch.physics import slab as pslab
+    from eigensolver_tpu_torch.utils import StageTimer
+    import warnings
+    warnings.simplefilter("ignore")     # saturated-row notices, as expected
+    case = cases.slab_density_photospheric(0.9)
+    cfg = search.SearchConfig(n_omega=256, n_bisect=18, scan_dtype="float32",
+                              polish_dtype="float32")
+
+    # the slab path, with every launch counter reset just before
+    reset_counters()
+    rs, st = sweep.run_case(case, cfg, device="cuda")
+    launches = read_counters()
+    if launches["slab_disp"] < cfg.n_bisect + 2:
+        raise AssertionError(f"slab path launched slab_disp "
+                             f"{launches['slab_disp']} times")
+    if launches["plain_slab"] or launches["plain_cylinder"]:
+        raise AssertionError(f"slab path ran a plain dispersion: {launches}")
+    if st.n_candidates != N_SLAB:
+        raise AssertionError(f"{st.n_candidates} candidates")
+    _check_roots(rs, case)
+
+    walls, stages, counts = [], [], []
+    for _ in range(3):
+        before = kslab.launches
+        timer = StageTimer()
+        rs, st = sweep.run_case(case, cfg, device="cuda", timer=timer)
+        if kslab.launches - before < cfg.n_bisect + 2 or pslab.plain_calls:
+            raise AssertionError("timed run did not go through the kernel")
+        walls.append(st.wall_s)
+        stages.append(timer.report())
+        counts.append(rs.counts())
+    if any(c != counts[0] for c in counts):
+        raise AssertionError(f"f32 root counts differ between runs: {counts}")
+    f32 = dict(counts=counts[0],
+               minus_refs=_check_counts("slab_ph_09 float32", counts[0],
+                                        SLAB_COUNTS["float32"]),
+               wall_s=walls, median_wall_s=statistics.median(walls),
+               candidates_per_s=N_SLAB / statistics.median(walls),
+               stages_median_s={k: statistics.median(s[k] for s in stages)
+                                for k in stages[0]})
+
+    cfg64 = dataclasses.replace(cfg, scan_dtype="float64",
+                                polish_dtype="float64")
+    rs64, st64 = sweep.run_case(case, cfg64, device="cuda")
+    _check_roots(rs64, case)
+    f64 = dict(counts=rs64.counts(),
+               minus_refs=_check_counts("slab_ph_09 float64", rs64.counts(),
+                                        SLAB_COUNTS["float64"]),
+               wall_s=st64.wall_s)
+
+    flows = {}
+    for name, refs in FLOW_COUNTS.items():
+        fcase = getattr(cases, name)()
+        frs, fst = sweep.run_case(fcase, cfg64, device="cuda")
+        _check_roots(frs, fcase)
+        flows[name] = dict(counts=frs.counts(), wall_s=fst.wall_s,
+                           minus_refs=_check_counts(f"{name} float64",
+                                                    frs.counts(), refs))
+
+    # f32 sweep refined in f64 on the card: every refine launch is slab_disp
+    before = dict(kslab=kslab.launches, plain=pslab.plain_calls)
+    timer = StageTimer()
+    rsr, str_ = sweep.run_case(case, cfg, device="cuda", refine_f64=True,
+                               timer=timer)
+    if pslab.plain_calls != before["plain"]:
+        raise AssertionError("refined sweep ran the plain dispersion")
+    _check_roots(rsr, case)
+    if rsr.counts() != counts[0]:
+        raise AssertionError(f"refined counts {rsr.counts()} differ from the "
+                             f"f32 sweep's {counts[0]}")
+    refined = dict(counts=rsr.counts(), wall_s=str_.wall_s,
+                   stages_s=timer.report(),
+                   launches=kslab.launches - before["kslab"],
+                   minus_refs=_check_counts(
+                       "slab_ph_09 float32 refined", rsr.counts(),
+                       SLAB_COUNTS["float32_refined"]))
+
+    # a small input against the reference: the same reduced sweep on the
+    # card and on the CPU (plain version, held equal to the JAX package by
+    # tests/test_torch_sweep.py)
+    small = dataclasses.replace(
+        case, k_values=(0.5, 1.5, 2.5, 3.5),
+        grid=dataclasses.replace(case.grid, n_interior=256))
+    scfg = search.SearchConfig(n_omega=64, n_bisect=30)
+    rs_gpu, _ = sweep.run_case(small, scfg, device="cuda")
+    rs_cpu, _ = sweep.run_case(small, scfg, device="cpu")
+    if rs_gpu.counts() != rs_cpu.counts():
+        raise AssertionError(f"reduced slab sweep: card {rs_gpu.counts()}, "
+                             f"cpu {rs_cpu.counts()}")
+    dev = max(float(np.max(np.abs(rs_gpu[b].omegas / rs_cpu[b].omegas - 1)))
+              for b in rs_cpu.branches)
+    if not dev <= 1e-10:
+        raise AssertionError(f"reduced slab sweep roots card vs cpu: {dev:.3e}")
+
+    # the refinement on the card against the same on the CPU: a reduced
+    # uniform-flow sweep (shear form) at f32, refined in f64 (the CPU run is
+    # held equal to the JAX package's by tests/test_torch_sweep.py)
+    flow = cases.slab_flow_uniform_photospheric()
+    small = dataclasses.replace(
+        flow, k_values=(0.5, 1.5, 2.5, 3.5),
+        grid=dataclasses.replace(flow.grid, n_interior=256))
+    scfg = search.SearchConfig(n_omega=64, n_bisect=18, scan_dtype="float32",
+                               polish_dtype="float32")
+    rf_gpu, _ = sweep.run_case(small, scfg, device="cuda", refine_f64=True)
+    rf_cpu, _ = sweep.run_case(small, scfg, device="cpu", refine_f64=True)
+    if rf_gpu.counts() != rf_cpu.counts():
+        raise AssertionError(f"reduced refined sweep: card {rf_gpu.counts()}, "
+                             f"cpu {rf_cpu.counts()}")
+    rdev = max(float(np.max(np.abs(rf_gpu[b].omegas / rf_cpu[b].omegas - 1)))
+               for b in rf_cpu.branches)
+    if not rdev <= 1e-12:
+        raise AssertionError(f"reduced refined roots card vs cpu: {rdev:.3e}")
+
+    out["slab_sweep"] = dict(main_path_launches=launches, float32=f32,
+                             float64=f64, flows_float64=flows,
+                             float32_refined=refined,
+                             reduced_counts=rs_gpu.counts(),
+                             reduced_max_rel_dev=dev,
+                             reduced_refined_counts=rf_gpu.counts(),
+                             reduced_refined_max_rel_dev=rdev)
+    line("phase 7 sweep slab_ph_09", **out["slab_sweep"])
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json-out", help="also write the full report here")
@@ -342,23 +611,53 @@ def main() -> int:
     phase_build()
     phase_kve_ratio(out)
     phase_cylinder_disp(out)
-    launches = phase_sweep(out)
+    cyl_launches = phase_sweep(out)
+    phase_slab_disp(out)
+    slab_launches = phase_slab_sweep(out)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
-    disp = out["cylinder_disp"]
+    kve = out["kve_ratio"]
+    cyl = out["cylinder_disp"]["full_ms"]
+    slab = out["slab_disp"]["full_ms"]
     kernels = [{
         "name": "cylinder_disp",
         "route": "cuda",
         "source": "eigensolver_tpu_torch/csrc/cylinder_disp.cu",
-        # the Pallas kernel runs inlined here (csrc/kve_ratio.cuh); the rest
-        # of the kernel is the XLA-fused program of physics/cylinder.py:236
-        "replaces": "eigensolver_tpu/kernels/bessel.py:125",
-        "launches": launches["cylinder_disp"],
+        # the XLA-fused program of physics/cylinder.py, with the Pallas
+        # kernel's math (csrc/kve_ratio.cuh) inlined for the exterior
+        "replaces": "eigensolver_tpu/physics/cylinder.py:236",
+        "launches": cyl_launches["cylinder_disp"],
         # det, poles masked, on the candidates that "ms" and "plain_ms" time
-        "max_abs_err": disp["full_ms"]["check_float32"]["max_abs_err_det"],
-        "ms": disp["full_ms"]["float32"],
-        "plain_ms": disp["full_ms"]["plain_float32"],
+        "max_abs_err": cyl["check_float32"]["max_abs_err_det"],
+        "ms": cyl["float32"],
+        "plain_ms": cyl["plain_float32"],
+    }, {
+        "name": "kve_ratio",
+        "route": "cuda",
+        "source": "eigensolver_tpu_torch/csrc/kve_ratio.cu",
+        "replaces": "eigensolver_tpu/kernels/bessel.py:125",
+        # no main path launches it: its math (csrc/kve_ratio.cuh) runs inside
+        # cylinder_disp's thread. Its own launch is phase 3's standalone run
+        # on the cylinder sweep's exterior arguments, which the other numbers
+        # here are from.
+        "launches": cyl_launches["kve_ratio"] + slab_launches["kve_ratio"],
+        "inlined_in": "cylinder_disp",
+        "standalone_launches": kve["standalone"]["launches"],
+        "max_abs_err": kve["float32"]["max_abs_err"],
+        "ms": kve["float32"]["ms"],
+        "plain_ms": kve["float32"]["plain_ms"],
+    }, {
+        "name": "slab_disp",
+        "route": "cuda",
+        "source": "eigensolver_tpu_torch/csrc/slab_disp.cu",
+        # the XLA-fused lax.scan program of physics/slab.py (no Pallas
+        # original), flux and shear forms
+        "replaces": "eigensolver_tpu/physics/slab.py:285",
+        "launches": slab_launches["slab_disp"],
+        "max_abs_err": slab["check_float32"]["max_abs_err_det"],
+        "ms": slab["float32"],
+        "plain_ms": slab["plain_float32"],
     }]
     if args.json_out:
         Path(args.json_out).parent.mkdir(parents=True, exist_ok=True)

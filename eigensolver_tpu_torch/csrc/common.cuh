@@ -1,0 +1,138 @@
+// Device code shared by the dispersion kernels (cylinder_disp.cu,
+// slab_disp.cu): the equilibrium profiles of `profiles.make_profile`, their
+// closed-form derivatives (`profiles.make_profile_derivative`), the
+// pressure-balanced speeds of `equilibrium.make_equilibrium`, and two
+// helpers that keep the JAX code's NaN pattern.
+//
+// Every expression follows the plain PyTorch version operation for
+// operation; the build disables FMA contraction (--fmad=false), so kernel
+// and plain version agree bit for bit. Constants arrive as doubles, formed
+// on the host as the Python code forms them, and are rounded to T at use.
+#pragma once
+
+#include <cmath>
+
+#include <cuda_runtime.h>
+
+namespace eigk {
+
+// config.ProfileKind
+enum ProfileKindId : int { kUniform = 0, kGaussian = 1, kEpstein = 2, kPowerLaw = 3 };
+
+// profiles.make_profile(cfg, f0, fe) and its derivatives; mirrored by
+// kernels/common.py::ProfileParams
+struct ProfileParams {
+  int kind;
+  double f0, fe;
+  double f0_minus_fe;  // (f0 - fe), a Python float in the JAX code
+  double center;       // Gaussian x0
+  double width;        // Epstein a
+  double w2;           // Gaussian width ** 2
+  double amplitude, power;
+  // profiles.derivative_coefs: f' and f'' constants (a1, a2, b2), and the
+  // power-law exponents p - 1, p - 2
+  double d1, d2, d2_shift;
+  double power_m1, power_m2;
+};
+
+template <class T>
+__device__ __forceinline__ T profile(const ProfileParams& p, T x) {
+  switch (p.kind) {
+    case kGaussian: {
+      const T d = x - T(p.center);
+      return T(p.fe) + T(p.f0_minus_fe) * exp(-(d * d) / T(p.w2));
+    }
+    case kEpstein: {
+      const T c = cosh(x / T(p.width));
+      const T c2 = c * c;
+      const T c4 = c2 * c2;
+      return T(p.fe) + T(p.f0_minus_fe) / (c4 * c4);
+    }
+    case kPowerLaw:
+      return T(p.amplitude) * pow(x, T(p.power));
+    default:
+      return T(p.f0);  // f0 + 0.0 * x, for the finite x visited here
+  }
+}
+
+// d profile / dx (profiles.make_profile_derivative, order 1)
+template <class T>
+__device__ __forceinline__ T profile_d1(const ProfileParams& p, T x) {
+  switch (p.kind) {
+    case kGaussian: {
+      const T d = x - T(p.center);
+      const T e = exp(-(d * d) / T(p.w2));
+      return T(p.d1) * d * e;
+    }
+    case kEpstein: {
+      const T y = x / T(p.width);
+      const T c = cosh(y);
+      const T t = tanh(y);
+      const T c2 = c * c;
+      const T c4 = c2 * c2;
+      return T(p.d1) * t / (c4 * c4);
+    }
+    case kPowerLaw:
+      return T(p.d1) * pow(x, T(p.power_m1));
+    default:
+      return T(0);
+  }
+}
+
+// d^2 profile / dx^2 (profiles.make_profile_derivative, order 2)
+template <class T>
+__device__ __forceinline__ T profile_d2(const ProfileParams& p, T x) {
+  switch (p.kind) {
+    case kGaussian: {
+      const T d = x - T(p.center);
+      const T e = exp(-(d * d) / T(p.w2));
+      return e * (T(p.d2) * (d * d) - T(p.d2_shift));
+    }
+    case kEpstein: {
+      const T y = x / T(p.width);
+      const T c = cosh(y);
+      const T t = tanh(y);
+      const T c2 = c * c;
+      const T c4 = c2 * c2;
+      return T(p.d2) * (T(8) * (t * t) - T(1) / c2) / (c4 * c4);
+    }
+    case kPowerLaw:
+      return T(p.d2) * pow(x, T(p.power_m2));
+    default:
+      return T(0);
+  }
+}
+
+// The density branch of equilibrium.make_equilibrium at x: rho_i, vA_i and
+// the pressure-balanced c_i (the regime constants for a uniform density).
+template <class T>
+__device__ __forceinline__ void density_speeds(const ProfileParams& rho_p,
+                                               int uniform_density,
+                                               double vA_i0, double c_i0,
+                                               double rho_i0, double c2_num,
+                                               double half_g, T x, T& rho,
+                                               T& vA, T& ci) {
+  rho = profile(rho_p, x);
+  if (uniform_density) {
+    vA = T(vA_i0);
+    ci = T(c_i0);
+  } else {
+    vA = T(vA_i0) * sqrt(T(rho_i0) / rho);
+    ci = sqrt(T(c2_num) / rho - T(half_g) * (vA * vA));
+  }
+}
+
+// 0 / x without a division: NaN where x is 0 or NaN, else zero.
+template <class T>
+__device__ __forceinline__ T zero_over(T x) {
+  return (x == T(0) || x != x) ? T(NAN) : T(0);
+}
+
+// jnp.maximum / torch.maximum: NaN if either operand is NaN
+template <class T>
+__device__ __forceinline__ T nan_max(T a, T b) {
+  if (a != a || b != b) return a + b;
+  return a > b ? a : b;
+}
+
+}  // namespace eigk

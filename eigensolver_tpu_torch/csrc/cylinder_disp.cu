@@ -46,23 +46,10 @@
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"
 #include "kve_ratio.cuh"
 
 namespace eigk {
-
-// config.ProfileKind
-enum ProfileKindId : int { kUniform = 0, kGaussian = 1, kEpstein = 2, kPowerLaw = 3 };
-
-// profiles.make_profile(cfg, f0, fe); mirrored by kernels/cylinder.py
-struct ProfileParams {
-  int kind;
-  double f0, fe;
-  double f0_minus_fe;  // (f0 - fe), a Python float in the JAX code
-  double center;       // Gaussian x0
-  double width;        // Epstein a
-  double w2;           // Gaussian width ** 2
-  double amplitude, power;
-};
 
 // Everything of the case the determinant reads; mirrored by
 // kernels/cylinder.py::_CylParams. Doubles are rounded to T at use.
@@ -82,53 +69,14 @@ struct CylDispParams {
   int log_tail;          // integrate the t = ln r tail eps -> eps_final
 };
 
-template <class T>
-__device__ __forceinline__ T profile(const ProfileParams& p, T x) {
-  switch (p.kind) {
-    case kGaussian: {
-      const T d = x - T(p.center);
-      return T(p.fe) + T(p.f0_minus_fe) * exp(-(d * d) / T(p.w2));
-    }
-    case kEpstein: {
-      const T c = cosh(x / T(p.width));
-      const T c2 = c * c;
-      const T c4 = c2 * c2;
-      return T(p.fe) + T(p.f0_minus_fe) / (c4 * c4);
-    }
-    case kPowerLaw:
-      return T(p.amplitude) * pow(x, T(p.power));
-    default:
-      return T(p.f0);  // f0 + 0.0 * x, for the finite x > 0 visited here
-  }
-}
-
-// 0 / x without a division: NaN where x is 0 or NaN, else zero.
-template <class T>
-__device__ __forceinline__ T zero_over(T x) {
-  return (x == T(0) || x != x) ? T(NAN) : T(0);
-}
-
-// jnp.maximum: NaN if either operand is NaN
-template <class T>
-__device__ __forceinline__ T nan_max(T a, T b) {
-  if (a != a || b != b) return a + b;
-  return a > b ? a : b;
-}
-
 // D, A, C2 of the Hain-Lust chain at radius r (cylinder.py:110-168 with
 // v_phi == B_phi == 0; equilibrium.py:225-242 inline).
 template <class T>
 __device__ __forceinline__ void hain_lust(const CylDispParams& p, T omega, T k,
                                           T m, T r, T& D, T& A, T& C2) {
-  const T rho = profile(p.rho, r);
-  T vA, ci;
-  if (p.uniform_density) {
-    vA = T(p.vA_i0);
-    ci = T(p.c_i0);
-  } else {
-    vA = T(p.vA_i0) * sqrt(T(p.rho_i0) / rho);
-    ci = sqrt(T(p.c2_num) / rho - T(p.half_g) * (vA * vA));
-  }
+  T rho, vA, ci;
+  density_speeds(p.rho, p.uniform_density, p.vA_i0, p.c_i0, p.rho_i0,
+                 p.c2_num, p.half_g, r, rho, vA, ci);
   const T U = p.zero_flow ? T(0) : profile(p.flow, r);
 
   const T shift = omega - k * U;            // omega - m v_phi/r - k U
@@ -275,7 +223,7 @@ cylinder_disp_kernel(const T* __restrict__ omega_, const T* __restrict__ k_,
 }
 
 template <class T>
-int launch(const void* omega, const void* k, const void* m, void* det,
+int launch_cylinder(const void* omega, const void* k, const void* m, void* det,
            void* mism, void* valid, long long n, const CylDispParams* p,
            int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -299,14 +247,14 @@ int eigk_cylinder_disp_f32(const void* omega, const void* k, const void* m,
                            void* det, void* mism, void* valid, long long n,
                            const eigk::CylDispParams* p, int device,
                            void* stream) {
-  return eigk::launch<float>(omega, k, m, det, mism, valid, n, p, device, stream);
+  return eigk::launch_cylinder<float>(omega, k, m, det, mism, valid, n, p, device, stream);
 }
 
 int eigk_cylinder_disp_f64(const void* omega, const void* k, const void* m,
                            void* det, void* mism, void* valid, long long n,
                            const eigk::CylDispParams* p, int device,
                            void* stream) {
-  return eigk::launch<double>(omega, k, m, det, mism, valid, n, p, device, stream);
+  return eigk::launch_cylinder<double>(omega, k, m, det, mism, valid, n, p, device, stream);
 }
 
 // sizeof(CylDispParams), for the Python mirror's layout check

@@ -22,7 +22,7 @@ import dataclasses
 import torch
 
 from .config import CaseConfig, ProfileKind, Regime
-from .profiles import Profile, div, make_profile, rdiv
+from .profiles import Profile, div, make_profile, rdiv, sqrt
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,13 +84,13 @@ def make_equilibrium(case: CaseConfig) -> Equilibrium:
 
         def B_i(r):
             # pressure-balanced B_z when an azimuthal field is present
-            return rg.B_0 * torch.sqrt(1.0 - 2.0 * div(B_phi(r) ** 2, rg.B_0 ** 2))
+            return rg.B_0 * sqrt(1.0 - 2.0 * div(B_phi(r) ** 2, rg.B_0 ** 2))
 
         def c_i(r):
-            return torch.sqrt(P_i(r) * g / rho_u(r))
+            return sqrt(P_i(r) * g / rho_u(r))
 
         def vA_i(r):
-            return (B_i(r) + B_phi(r)) / torch.sqrt(rho_u(r))
+            return (B_i(r) + B_phi(r)) / sqrt(rho_u(r))
 
         rho_fn = rho_u
     else:
@@ -104,10 +104,10 @@ def make_equilibrium(case: CaseConfig) -> Equilibrium:
             c_i = _const(rg.c_i0)
         else:
             def vA_i(x):
-                return rg.vA_i0 * torch.sqrt(rdiv(rg.rho_i0, rho_i(x)))
+                return rg.vA_i0 * sqrt(rdiv(rg.rho_i0, rho_i(x)))
 
             def c_i(x):
-                return torch.sqrt(
+                return sqrt(
                     rdiv(rho_e * (rg.c_e ** 2 + 0.5 * g * rg.vA_e ** 2), rho_i(x))
                     - 0.5 * g * vA_i(x) ** 2
                 )
@@ -120,7 +120,7 @@ def make_equilibrium(case: CaseConfig) -> Equilibrium:
     def cT_i(x):
         c2 = c_i(x) ** 2
         a2 = vA_i(x) ** 2
-        return torch.sqrt(c2 * a2 / (c2 + a2))
+        return sqrt(c2 * a2 / (c2 + a2))
 
     # --- longitudinal flow profile (slab flow / cylinder axial flow) --------
     if case.flow_profile.kind == ProfileKind.UNIFORM and rg.U_i0 == rg.U_e == 0.0:

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-All of `csrc/*.cu` is compiled by nvcc into one shared library with a plain
-C interface, loaded with ctypes (no `torch.utils.cpp_extension`, no PyTorch
-headers: the build takes seconds). The library is built at first use into
+Every `csrc/*.cu` is compiled by nvcc (one process each, in parallel) and
+linked into one shared library with a plain C interface, loaded with ctypes
+(no `torch.utils.cpp_extension`, no PyTorch headers: the build takes
+seconds). The library is built at first use into
 `eigensolver_tpu_torch/_build/` (git-ignored), under a name hashed from the
 sources and flags, so an edited source rebuilds. Nothing here runs when the
 package is imported.
@@ -14,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 
@@ -24,8 +26,7 @@ BUILD_DIR = _PKG / "_build"
 # sm_90a: Hopper. --fmad=false keeps a*b+c as two roundings, as the JAX code
 # and the plain PyTorch versions evaluate it (see csrc/cylinder_disp.cu).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
@@ -39,6 +40,11 @@ _SIGNATURES = {
     "eigk_cylinder_disp_f64": ((_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P,
                                 ctypes.c_int, _P), ctypes.c_int),
     "eigk_cylinder_params_size": ((), ctypes.c_longlong),
+    "eigk_slab_disp_f32": ((_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P,
+                            ctypes.c_int, _P), ctypes.c_int),
+    "eigk_slab_disp_f64": ((_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P,
+                            ctypes.c_int, _P), ctypes.c_int),
+    "eigk_slab_params_size": ((), ctypes.c_longlong),
     "eigk_error_string": ((ctypes.c_int,), ctypes.c_char_p),
 }
 
@@ -77,22 +83,31 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile the sources unless the library for them exists; return its
-    path. The compiler's report (`-Xptxas -v`: registers, spills) is kept
-    beside it as `<name>.log`."""
+    path. Each `.cu` is compiled by its own nvcc process, all started
+    together, then linked into one shared library. The compilers' report
+    (`-Xptxas -v`: registers, spills) is kept beside it as `<name>.log`."""
     so = library_path()
     if so.is_file():
         return so
     nvcc = _nvcc()
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in _sources() if p.suffix == ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, so)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        srcs = [p for p in _sources() if p.suffix == ".cu"]
+        objs = [str(Path(tmp) / f"{p.stem}.o") for p in srcs]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, str(p)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for p, o in zip(srcs, objs)]
+        log = "".join(p.communicate()[0] for p in procs)
+        if any(p.returncode for p in procs):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        lib = str(Path(tmp) / so.name)
+        link = subprocess.run([nvcc, "-shared", *NVCC_FLAGS[:2], "-o", lib,
+                               *objs], capture_output=True, text=True)
+        if link.returncode:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+        so.with_suffix(".log").write_text(log)
+        os.replace(lib, so)
     return so
 
 

@@ -19,31 +19,19 @@ import dataclasses
 
 import torch
 
-from ..config import CaseConfig, ProfileConfig, ProfileKind
-from . import _build
+from ..config import CaseConfig, ProfileKind
+from .common import ProfileParams, launch_disp, profile_params
 
 # launches of the kernel since the last reset (one per kernel launch)
 launches = 0
 
 _ENTRY = {torch.float32: "eigk_cylinder_disp_f32",
           torch.float64: "eigk_cylinder_disp_f64"}
-_KIND_ID = {ProfileKind.UNIFORM: 0, ProfileKind.GAUSSIAN: 1,
-            ProfileKind.EPSTEIN: 2, ProfileKind.POWER_LAW: 3}
-
-
-class _ProfileParams(ctypes.Structure):
-    """Mirror of eigk::ProfileParams."""
-    _fields_ = [("kind", ctypes.c_int),
-                ("f0", ctypes.c_double), ("fe", ctypes.c_double),
-                ("f0_minus_fe", ctypes.c_double),
-                ("center", ctypes.c_double), ("width", ctypes.c_double),
-                ("w2", ctypes.c_double),
-                ("amplitude", ctypes.c_double), ("power", ctypes.c_double)]
 
 
 class _CylParams(ctypes.Structure):
     """Mirror of eigk::CylDispParams."""
-    _fields_ = [("rho", _ProfileParams), ("flow", _ProfileParams),
+    _fields_ = [("rho", ProfileParams), ("flow", ProfileParams),
                 ("uniform_density", ctypes.c_int), ("zero_flow", ctypes.c_int),
                 ("vA_i0", ctypes.c_double), ("c_i0", ctypes.c_double),
                 ("rho_i0", ctypes.c_double), ("B_0", ctypes.c_double),
@@ -55,14 +43,6 @@ class _CylParams(ctypes.Structure):
                 ("axis_eps_final", ctypes.c_double),
                 ("n_interior", ctypes.c_int), ("n_axis_log", ctypes.c_int),
                 ("log_tail", ctypes.c_int)]
-
-
-def _profile(cfg: ProfileConfig, f0: float, fe: float) -> _ProfileParams:
-    # every value a Python float in profiles.make_profile, formed in double
-    return _ProfileParams(kind=_KIND_ID[cfg.kind], f0=f0, fe=fe,
-                          f0_minus_fe=f0 - fe, center=cfg.center,
-                          width=cfg.width, w2=cfg.width ** 2,
-                          amplitude=cfg.amplitude, power=cfg.power)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,8 +61,8 @@ def disp_params(case: CaseConfig) -> DispParams:
     zero_flow = (case.flow_profile.kind == ProfileKind.UNIFORM
                  and rg.U_i0 == rg.U_e == 0.0)
     s = _CylParams(
-        rho=_profile(case.density_profile, rg.rho_i0, rg.rho_e),
-        flow=_profile(case.flow_profile, rg.U_i0, rg.U_e),
+        rho=profile_params(case.density_profile, rg.rho_i0, rg.rho_e),
+        flow=profile_params(case.flow_profile, rg.U_i0, rg.U_e),
         uniform_density=int(case.density_profile.kind == ProfileKind.UNIFORM),
         zero_flow=int(zero_flow),
         vA_i0=rg.vA_i0, c_i0=rg.c_i0, rho_i0=rg.rho_i0, B_0=rg.B_0,
@@ -108,34 +88,8 @@ def cylinder_disp(omega: torch.Tensor, k: torch.Tensor, m: torch.Tensor,
             m=None, dtype=omega.dtype)
         return disp(omega, k, m)
     from ..physics.cylinder import CylinderInterface
-    if omega.device.type != "cuda":
-        raise ValueError(f"cylinder_disp: unsupported device {omega.device}")
-    if omega.dtype not in _ENTRY:
-        raise TypeError(f"cylinder_disp kernel takes float32/float64, "
-                        f"not {omega.dtype}")
-    for name, t in (("k", k), ("m", m)):
-        if (t.device != omega.device or t.dtype != omega.dtype
-                or t.shape != omega.shape):
-            raise ValueError(f"cylinder_disp: {name} must match omega in "
-                             f"device, dtype and shape")
-    if omega.dim() != 1 or not all(t.is_contiguous() for t in (omega, k, m)):
-        raise ValueError("cylinder_disp kernel needs contiguous 1-D tensors")
-    det = torch.empty_like(omega)
-    mism = torch.empty_like(omega)
-    valid = torch.empty(omega.shape, dtype=torch.bool, device=omega.device)
-    n = omega.numel()
-    if n:
-        lib = _build.library()
-        if lib.eigk_cylinder_params_size() != ctypes.sizeof(_CylParams):
-            raise RuntimeError("cylinder_disp: parameter struct layout "
-                               "differs between Python and CUDA")
-        stream = torch.cuda.current_stream(omega.device).cuda_stream
-        code = getattr(lib, _ENTRY[omega.dtype])(
-            ctypes.c_void_p(omega.data_ptr()), ctypes.c_void_p(k.data_ptr()),
-            ctypes.c_void_p(m.data_ptr()), ctypes.c_void_p(det.data_ptr()),
-            ctypes.c_void_p(mism.data_ptr()), ctypes.c_void_p(valid.data_ptr()),
-            n, ctypes.byref(params.struct), omega.device.index,
-            ctypes.c_void_p(stream))
-        _build.check(code, "cylinder_disp kernel")
-        launches += 1
+    det, mism, valid = launch_disp(
+        "cylinder_disp", _ENTRY, "eigk_cylinder_params_size", params.struct,
+        omega, k, m)
+    launches += omega.numel() > 0
     return CylinderInterface(det=det, mismatch_pct=mism, valid=valid)

@@ -1,0 +1,97 @@
+"""Slab dispersion determinant: wrapper of the CUDA kernel `slab_disp`.
+
+The kernel (`csrc/slab_disp.cu`) is the port of the XLA-fused
+`jit(vmap(disp))` of `eigensolver_tpu/physics/slab.py` (slab.py:285-406,
+real omega, exact exterior): one thread per (omega, k, parity) candidate
+carries the whole RK4 shoot from the slab centre to its edge in registers,
+in the flux form (density cases) or the shear form (flow cases).
+
+A CPU tensor goes to the plain version
+(`physics.slab.SlabPhysics.make_dispersion_plain`); CUDA float32/float64
+contiguous tensors go to the kernel; anything else raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import torch
+
+from ..config import CaseConfig, ProfileKind
+from .common import ProfileParams, launch_disp, profile_params
+
+# launches of the kernel since the last reset (one per kernel launch)
+launches = 0
+
+_ENTRY = {torch.float32: "eigk_slab_disp_f32",
+          torch.float64: "eigk_slab_disp_f64"}
+
+
+class _SlabParams(ctypes.Structure):
+    """Mirror of eigk::SlabDispParams."""
+    _fields_ = [("rho", ProfileParams), ("flow", ProfileParams),
+                ("uniform_density", ctypes.c_int), ("zero_flow", ctypes.c_int),
+                ("vA_i0", ctypes.c_double), ("c_i0", ctypes.c_double),
+                ("rho_i0", ctypes.c_double), ("c2_num", ctypes.c_double),
+                ("half_g", ctypes.c_double), ("U_e", ctypes.c_double),
+                ("vA_e2", ctypes.c_double), ("c_e2", ctypes.c_double),
+                ("cT_e2", ctypes.c_double), ("vAc_e2", ctypes.c_double),
+                ("pe_coef", ctypes.c_double),
+                ("sc2", ctypes.c_double), ("sa2", ctypes.c_double),
+                ("scT2", ctypes.c_double), ("sca", ctypes.c_double),
+                ("n_interior", ctypes.c_int), ("shear", ctypes.c_int),
+                ("legacy_D", ctypes.c_int), ("shear_pressure", ctypes.c_int)]
+
+
+@dataclasses.dataclass(frozen=True)
+class DispParams:
+    """A case as the kernel reads it: the case and the shear-pressure switch
+    (for the plain version) and its scalars, formed in double on the host as
+    the JAX code forms them from Python floats."""
+    case: CaseConfig
+    include_shear_pressure: bool
+    struct: _SlabParams
+
+
+def disp_params(case: CaseConfig, include_shear_pressure: bool = False
+                ) -> DispParams:
+    rg = case.regime
+    g = rg.gamma
+    zero_flow = (case.flow_profile.kind == ProfileKind.UNIFORM
+                 and rg.U_i0 == rg.U_e == 0.0)
+    c2, a2 = rg.c_i0 ** 2, rg.vA_i0 ** 2
+    s = _SlabParams(
+        rho=profile_params(case.density_profile, rg.rho_i0, rg.rho_e),
+        flow=profile_params(case.flow_profile, rg.U_i0, rg.U_e),
+        uniform_density=int(case.density_profile.kind == ProfileKind.UNIFORM),
+        zero_flow=int(zero_flow),
+        vA_i0=rg.vA_i0, c_i0=rg.c_i0, rho_i0=rg.rho_i0,
+        c2_num=rg.rho_e * (rg.c_e ** 2 + 0.5 * g * rg.vA_e ** 2),
+        half_g=0.5 * g, U_e=rg.U_e,
+        vA_e2=rg.vA_e ** 2, c_e2=rg.c_e ** 2, cT_e2=rg.cT_e ** 2,
+        vAc_e2=rg.vA_e ** 2 + rg.c_e ** 2,
+        pe_coef=rg.rho_e * (rg.vA_e ** 2 + rg.c_e ** 2),
+        sc2=c2, sa2=a2, scT2=c2 * a2 / (c2 + a2), sca=c2 + a2,
+        n_interior=case.grid.n_interior, shear=int(not zero_flow),
+        legacy_D=int(case.shear_D_legacy),
+        shear_pressure=int(include_shear_pressure))
+    return DispParams(case=case, include_shear_pressure=include_shear_pressure,
+                      struct=s)
+
+
+def slab_disp(omega: torch.Tensor, k: torch.Tensor, parity: torch.Tensor,
+              params: DispParams):
+    """SlabInterface(det, mismatch_pct, valid) of 1-D candidate tensors
+    (omega, k, parity) of one dtype and device."""
+    global launches
+    from ..physics.slab import SlabInterface, SlabPhysics
+    if omega.device.type == "cpu":
+        disp = SlabPhysics.from_case(params.case).make_dispersion_plain(
+            parity=None, dtype=omega.dtype,
+            include_shear_pressure=params.include_shear_pressure)
+        return disp(omega, k, parity)
+    det, mism, valid = launch_disp(
+        "slab_disp", _ENTRY, "eigk_slab_params_size", params.struct,
+        omega, k, parity)
+    launches += omega.numel() > 0
+    return SlabInterface(det=det, mismatch_pct=mism, valid=valid)

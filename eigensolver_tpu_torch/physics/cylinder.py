@@ -31,7 +31,7 @@ import torch
 from ..config import CaseConfig
 from ..equilibrium import Equilibrium, make_equilibrium
 from .. import special
-from ..profiles import div
+from ..profiles import div, sqrt
 
 # plain (eager PyTorch) dispersion evaluations since the last reset
 plain_calls = 0
@@ -115,9 +115,9 @@ class CylinderPhysics:
             ci = eq.c_i(r)
             vA = eq.vA_i(r)
             shift = omega - k * eq.U_i(r)          # omega - m v_phi/r - k U
-            alf = k * eq.B_i(r) / torch.sqrt(rho)  # m B_phi/r + k B_z/sqrt(rho)
+            alf = k * eq.B_i(r) / sqrt(rho)  # m B_phi/r + k B_z/sqrt(rho)
             csum = ci * ci + vA * vA
-            cusp = alf * ci / torch.sqrt(csum)
+            cusp = alf * ci / sqrt(csum)
             s2 = shift * shift
             da = s2 - alf * alf
             dc = s2 - cusp * cusp
@@ -214,7 +214,7 @@ class CylinderPhysics:
             # ---- exterior: decaying K_m solution, log-derivative at r=1 -----
             m_e = self.exterior_m(omega, k)
             floor = torch.tensor(1e-300, dtype=dtype, device=dev)  # 0 in f32
-            sq = torch.sqrt(torch.maximum(m_e, floor))
+            sq = sqrt(torch.maximum(m_e, floor))
             r0, r1_ = special.kve_ratio_both(sq)
             dP_e = sq * torch.where(is_sausage, r0, r1_)
             P_e = torch.ones_like(dP_e)

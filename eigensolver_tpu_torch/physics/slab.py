@@ -1,0 +1,305 @@
+"""Slab dispersion function (vx formulation) in PyTorch.
+
+Port of `eigensolver_tpu.physics.slab` for the real-omega cases with the
+exact exponential exterior. From the slab centre x = 0 to the edge x = 1
+the interior is integrated in one of two forms:
+
+- density cases (no flow): the self-adjoint flux form, state (vx, w = F vx'),
+  d(vx, w)/dx = (w / F, F m0 vx); parity sets the start (sausage (0, F(0)),
+  kink (1, 0 F(0)));
+- flow cases: the direct form with the shear terms, state (vx, vx'),
+  vx'' = -D(x) vx' - coeff(x) vx, where D and coeff carry U' and U''
+  (hand-written derivatives, `profiles.make_profile_derivative`, in place of
+  the JAX code's `jax.grad`); start (0, 1) for sausage, (1, 0) for kink.
+
+The determinant matches xi = vx / Omega and the total pressure against the
+decaying exterior vx_e = exp(-sqrt(m_e) (x - 1)).
+
+`make_dispersion` returns the batched function the search calls; it hands
+its inputs to `kernels.slab.slab_disp`, which launches the CUDA kernel on a
+CUDA tensor and runs the plain version here (`make_dispersion_plain`) on a
+CPU tensor. The plain version is the JAX code's arithmetic, expression for
+expression, with a Python loop over RK4 steps on tensors of candidates in
+place of `lax.scan` over a vmapped scalar.
+
+Not ported yet: complex omega (ROADMAP A10), the numeric exterior (A8/B6).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from ..config import CaseConfig, ProfileKind
+from ..equilibrium import Equilibrium, make_equilibrium
+from ..profiles import div, make_profile_derivative, rdiv, sqrt
+
+# plain (eager PyTorch) dispersion evaluations since the last reset
+plain_calls = 0
+
+
+def _rk4_linear(apply, coef, y0, x0, x1, n_steps: int):
+    """Classical RK4 for a linear two-component system with a tuple state:
+    `coef(x)` at the 3 distinct abscissae (x, x + h/2, x + h) of each step,
+    `apply(c, y)` the right-hand side; the abscissa is x0 + i h, not an
+    accumulated sum (slab.py:41-113, both forms)."""
+    h = div(x1 - x0, n_steps)
+
+    def axpy(a, y, k):
+        return tuple(yi + a * ki for yi, ki in zip(y, k))
+
+    y = y0
+    for i in range(n_steps):
+        x = x0 + i * h
+        cA = coef(x)
+        cM = coef(x + 0.5 * h)
+        cB = coef(x + h)
+        k1 = apply(cA, y)
+        k2 = apply(cM, axpy(0.5 * h, y, k1))
+        k3 = apply(cM, axpy(0.5 * h, y, k2))
+        k4 = apply(cB, axpy(h, y, k3))
+        y = tuple(
+            yi + div(h, 6.0) * (a + 2 * b + 2 * c_ + d)
+            for yi, a, b, c_, d in zip(y, k1, k2, k3, k4))
+    return y
+
+
+def _apply_flux(c, y):
+    """d(vx, w)/dx = (w invF, w_rate vx), c = (invF, w_rate)."""
+    invF, w_rate = c
+    vx, w = y
+    return (w * invF, w_rate * vx)
+
+
+def _apply_shear(c, y):
+    """d(vx, dvx)/dx = (dvx, -D dvx - coeff vx), c = (D, coeff)."""
+    Dx, coeff = c
+    vx, dvx = y
+    return (dvx, -Dx * dvx - coeff * vx)
+
+
+class SlabInterface(NamedTuple):
+    det: torch.Tensor
+    mismatch_pct: torch.Tensor
+    valid: torch.Tensor
+
+
+def _check_supported(case: CaseConfig):
+    if case.complex_omega:
+        raise NotImplementedError("complex omega (KH growth rates): ROADMAP A10")
+    if case.grid.exterior_method == "numeric":
+        raise NotImplementedError(
+            "exterior_method='numeric' (slab): ROADMAP A8/B6")
+
+
+def _sq(x):
+    # k**2, Om**2: integer powers lower to products in XLA, as here
+    return x * x
+
+
+@dataclasses.dataclass(frozen=True)
+class SlabPhysics:
+    case: CaseConfig
+    eq: Equilibrium
+
+    @classmethod
+    def from_case(cls, case: CaseConfig) -> "SlabPhysics":
+        return cls(case=case, eq=make_equilibrium(case))
+
+    @property
+    def has_flow(self) -> bool:
+        case = self.case
+        return (case.regime.U_i0 != 0.0 or case.regime.U_e != 0.0
+                or case.flow_profile.kind != ProfileKind.UNIFORM)
+
+    def flow_derivative(self, order: int):
+        """U_i' or U_i'' (closed form; the JAX code's elementwise_grad)."""
+        rg = self.case.regime
+        if not self.has_flow:
+            return torch.zeros_like
+        return make_profile_derivative(self.case.flow_profile, rg.U_i0,
+                                       rg.U_e, order)
+
+    # -- coefficient functions (slab.py:146-184) ------------------------------
+
+    def exterior_m(self, omega, k):
+        rg = self.eq.regime
+        Om = omega - k * rg.U_e
+        num = (k ** 2 * rg.vA_e ** 2 - Om ** 2) * (k ** 2 * rg.c_e ** 2 - Om ** 2)
+        den = (rg.vA_e ** 2 + rg.c_e ** 2) * (k ** 2 * rg.cT_e ** 2 - Om ** 2)
+        return num / den
+
+    def exterior_PT_coeff(self, omega, k):
+        rg = self.eq.regime
+        Om = omega - k * rg.U_e
+        return (rg.rho_e * (rg.vA_e ** 2 + rg.c_e ** 2)
+                * (k ** 2 * rg.cT_e ** 2 - Om ** 2)
+                / (Om * (k ** 2 * rg.c_e ** 2 - Om ** 2)))
+
+    def interior_F(self, x, omega, k):
+        eq = self.eq
+        Om = omega - k * eq.U_i(x)
+        c2 = eq.c_i(x) ** 2
+        a2 = eq.vA_i(x) ** 2
+        cT2 = c2 * a2 / (c2 + a2)
+        return (eq.rho_i(x) * (c2 + a2) * (k ** 2 * cT2 - Om ** 2)
+                / (k ** 2 * c2 - Om ** 2))
+
+    def interior_m0(self, x, omega, k):
+        eq = self.eq
+        Om = omega - k * eq.U_i(x)
+        c2 = eq.c_i(x) ** 2
+        a2 = eq.vA_i(x) ** 2
+        cT2 = c2 * a2 / (c2 + a2)
+        return ((k ** 2 * c2 - Om ** 2) * (k ** 2 * a2 - Om ** 2)
+                / ((c2 + a2) * (k ** 2 * cT2 - Om ** 2)))
+
+    def make_flux_coef(self, omega, k):
+        """coef(x) -> (1/F, F m0) of the flux form (slab.py:215-230)."""
+        eq = self.eq
+
+        def coef(x):
+            Om = omega - k * eq.U_i(x)
+            rho = eq.rho_i(x)
+            c2 = eq.c_i(x) ** 2
+            a2 = eq.vA_i(x) ** 2
+            cT2 = c2 * a2 / (c2 + a2)
+            inv_F = (k ** 2 * c2 - Om ** 2) / (
+                rho * (c2 + a2) * (k ** 2 * cT2 - Om ** 2))
+            w_rate = rho * (k ** 2 * a2 - Om ** 2)
+            return inv_F, w_rate
+
+        return coef
+
+    def make_shear_coef(self, omega, k):
+        """coef(x) -> (D(x), coeff(x)) of the shear form (slab.py:247-281):
+        the regime's c_i0^2, vA_i0^2 and cT^2 are Python floats there,
+        rounded at use, and k**4 is (k k)(k k) as XLA lowers it."""
+        case, eq = self.case, self.eq
+        dU = self.flow_derivative(1)
+        ddU = self.flow_derivative(2)
+        rgl = eq.regime
+        c2 = rgl.c_i0 ** 2
+        a2 = rgl.vA_i0 ** 2
+        cT2 = c2 * a2 / (c2 + a2)
+
+        def coef(x):
+            Om = omega - k * eq.U_i(x)
+            dUx = dU(x)
+            ddUx = ddU(x)
+            k2 = _sq(k)
+            Om2 = _sq(Om)
+            m0 = ((k2 * c2 - Om2) * (k2 * a2 - Om2)
+                  / ((c2 + a2) * (k2 * cT2 - Om2)))
+            if case.shear_D_legacy:
+                Dx = (2.0 * k * dUx
+                      * ((Om2 - k2 * cT2)
+                         + (_sq(k2) * cT2 * c2)
+                         / ((c2 + a2) * (Om2 - k2 * cT2)))
+                      / (Om * (Om2 - k2 * c2)))
+            else:
+                Dx = (2.0 * k * dUx
+                      * (Om2 / (Om2 - k2 * c2)
+                         - (k2 * cT2) / (Om2 - k2 * cT2)) / Om)
+            coeff = (k * ddUx / Om) + (k * dUx * Dx / Om) - m0
+            return Dx, coeff
+
+        return coef
+
+    # -- dispersion function (slab.py:285-406) ----------------------------------
+
+    def make_dispersion_plain(self, parity: Optional[int] = None,
+                              dtype=torch.float64,
+                              include_shear_pressure: Optional[bool] = None
+                              ) -> Callable:
+        """The plain version: disp(omega, k[, parity]) -> SlabInterface on
+        tensors of candidates, on any device, in eager PyTorch. parity 0 =
+        sausage (vx odd), 1 = kink (vx even); with parity=None it is a third
+        tensor argument."""
+        _check_supported(self.case)
+        case, eq = self.case, self.eq
+        n_steps = case.grid.n_interior
+        has_flow = self.has_flow
+        if include_shear_pressure is None:
+            include_shear_pressure = case.complex_omega
+        dU = self.flow_derivative(1)
+
+        def disp(omega, k, parity_arg):
+            global plain_calls
+            plain_calls += 1
+            dev = omega.device
+            omega = omega.to(dtype)
+            k = k.to(dtype)
+            par = torch.as_tensor(parity_arg, dtype=dtype, device=dev)
+            zero = torch.zeros((), dtype=dtype, device=dev)
+            one = torch.ones((), dtype=dtype, device=dev)
+
+            m_e = self.exterior_m(omega, k)
+            p_e = self.exterior_PT_coeff(omega, k)
+            sqm = sqrt(torch.maximum(m_e, torch.zeros_like(m_e)))
+
+            if not has_flow:
+                coef = self.make_flux_coef(omega, k)
+                F0 = self.interior_F(zero, omega, k)
+                # sausage (par=0): vx odd => y0 = (0, F0); kink: (1, 0 F0)
+                y0 = (par * torch.ones_like(F0), (1.0 - par) * F0)
+                vx_b, w_b = _rk4_linear(_apply_flux, coef, y0, zero, one,
+                                        n_steps)
+                Om_i = omega - k * eq.U_i(one)
+                PT_i = w_b / Om_i
+            else:
+                coef = self.make_shear_coef(omega, k)
+                y0 = (par, 1.0 - par)
+                vx_b, dvx_b = _rk4_linear(_apply_shear, coef, y0, zero, one,
+                                          n_steps)
+                Om_i = omega - k * eq.U_i(one)
+                F1 = self.interior_F(one, omega, k)
+                PT_i = (F1 / Om_i) * dvx_b
+                if include_shear_pressure:
+                    add = -(k * dU(one)) / Om_i
+                    PT_i = (F1 / Om_i) * (dvx_b - add * vx_b)
+
+            Om_e = omega - k * eq.regime.U_e
+            PT_e = p_e * (-sqm)                 # vx_e = exp(-sqm (x - 1))
+            xi_e = rdiv(1.0, Om_e)
+            xi_i = vx_b / Om_i
+            det = xi_i * PT_e - xi_e * PT_i
+
+            # reference-style % mismatch of PT once xi is matched
+            s = xi_e / xi_i
+            num = torch.abs(PT_e - s * PT_i)
+            den = torch.maximum(torch.abs(PT_e), torch.abs(s * PT_i))
+            mismatch = 100.0 * num / den
+            valid = m_e > 0
+            return SlabInterface(det=det, mismatch_pct=mismatch, valid=valid)
+
+        if parity is None:
+            return disp
+        p_const = float(parity)
+        return lambda omega, k: disp(omega, k, p_const)
+
+    def make_dispersion(self, parity: Optional[int] = None, dtype=torch.float64,
+                        include_shear_pressure: Optional[bool] = None
+                        ) -> Callable:
+        """disp(omega, k[, parity]) -> SlabInterface on 1-D tensors of
+        candidates. With parity=None the parity is a third tensor argument,
+        so one call serves both mode families. CUDA tensors run the
+        `slab_disp` kernel, CPU tensors the plain version."""
+        _check_supported(self.case)
+        from ..kernels.slab import disp_params, slab_disp
+        if include_shear_pressure is None:
+            include_shear_pressure = self.case.complex_omega
+        params = disp_params(self.case, include_shear_pressure)
+
+        def disp(omega, k, parity_arg):
+            omega = omega.to(dtype)
+            k = k.to(dtype)
+            par = torch.as_tensor(parity_arg, dtype=dtype, device=omega.device)
+            return slab_disp(omega, k, par.expand_as(omega).contiguous(),
+                             params)
+
+        if parity is None:
+            return disp
+        p_const = float(parity)
+        return lambda omega, k: disp(omega, k, p_const)

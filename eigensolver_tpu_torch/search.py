@@ -11,9 +11,11 @@ Port of the real-omega path of `eigensolver_tpu.search`:
 
 PyTorch runs eagerly, so the JAX package's fused-pipeline cache, the
 128-row padding (which bounded XLA recompiles) and the 1.2M-cell chunking
-(which bounded TPU VMEM) have no counterpart here. Not ported yet: the
-reference-parity fuzz acceptance, continuum masks and the pole pre-filter
-(ROADMAP A11), host f64 refinement (A5), the complex-omega search (A10).
+(which bounded TPU VMEM) have no counterpart here. The f64 re-bisection of
+f32 roots (`refine_on_cpu` there, `refine_roots_f64` here) runs on the
+sweep's own device. Not ported yet: the reference-parity fuzz acceptance,
+continuum masks and the pole pre-filter (ROADMAP A11), the complex-omega
+search (A10).
 """
 from __future__ import annotations
 
@@ -145,7 +147,7 @@ class SearchConfig:
     max_brackets_per_row: int = 8
     n_bisect: int = 60
     accept_pct: float = 1.0
-    accept_pct_refined: Optional[float] = None   # needs refine_f64 (A5)
+    accept_pct_refined: Optional[float] = None   # with refine_f64
     scan_dtype: str = "float64"
     polish_dtype: str = "float64"
     fuzz_accept_pct: Optional[float] = None      # A11
@@ -226,3 +228,41 @@ def collect(pr: PolishResult, with_fuzz: bool = False):
         out = out + ((np.zeros(int(mask.sum()), bool) if fz is None
                       else fz[mask]),)
     return out
+
+
+def refine_roots_f64(disp64: Callable, omega: torch.Tensor, k: torch.Tensor,
+                     mode: Optional[torch.Tensor] = None, n_iter: int = 30,
+                     rel_halfwidth: float = 4e-7):
+    """Float64 re-bisection of converged roots, on the device of `omega`
+    (port of `eigensolver_tpu.search.refine_on_cpu`, search.py:468-522).
+
+    Each root is bracketed within +-rel_halfwidth relative, the window
+    widened x8 per round for 4 rounds (to ~2e-3) where the f64 signs do not
+    yet bracket, then bisected n_iter times. Returns (root, bracketed):
+    an entry whose window never brackets keeps its input value and is
+    marked False - it is not a zero of the f64 dispersion (f32 scan noise),
+    and callers drop it. disp64: batched float64 disp(omega, k[, mode])."""
+    om = omega.to(torch.float64)
+    kk = k.to(torch.float64)
+
+    def neg(x):
+        return torch.signbit(_call_disp(disp64, x, kk, mode).det)
+
+    lo = om * (1.0 - rel_halfwidth)
+    hi = om * (1.0 + rel_halfwidth)
+    w = rel_halfwidth
+    for _ in range(4):
+        bad = neg(lo) == neg(hi)
+        w = 8.0 * w
+        lo = torch.where(bad, om * (1.0 - w), lo)
+        hi = torch.where(bad, om * (1.0 + w), hi)
+    bad = neg(lo) == neg(hi)
+    lo = torch.where(bad, om, lo)
+    hi = torch.where(bad, om, hi)
+    lo_neg = neg(lo)
+    for _ in range(n_iter):
+        mid = 0.5 * (lo + hi)
+        go_right = neg(mid) == lo_neg
+        lo = torch.where(go_right, mid, lo)
+        hi = torch.where(go_right, hi, mid)
+    return 0.5 * (lo + hi), ~bad

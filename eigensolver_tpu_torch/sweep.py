@@ -6,10 +6,10 @@ all families fused into one batch with a mode column, searched on the given
 device, then gathered, deduplicated and sorted on the host.
 
 Every public entry takes an explicit `device` ("cpu", "cuda", ...): on a
-CUDA device the dispersion runs the `cylinder_disp` kernel, on the CPU its
-plain version. Not ported yet: slab geometry (ROADMAP A3), f64 refinement
-(A5), the complex-omega sweep (A10), the needle pass (A11), checkpointed
-sweeps (A12).
+CUDA device the dispersion runs the `slab_disp` or `cylinder_disp` kernel,
+on the CPU its plain version. The f64 refinement (`refine_f64=True`) runs on
+the same device. Not ported yet: the complex-omega sweep (ROADMAP A10), the
+needle pass (A11), checkpointed sweeps (A12).
 """
 from __future__ import annotations
 
@@ -22,8 +22,10 @@ import torch
 
 from .config import CaseConfig, Geometry
 from .physics.cylinder import CylinderPhysics
+from .physics.slab import SlabPhysics
 from .roots import RootBranch, RootSet, dedup_roots
-from .search import SearchConfig, collect, search_rows, torch_dtype
+from .search import (SearchConfig, collect, refine_roots_f64, search_rows,
+                     torch_dtype)
 from .utils import StageTimer, synchronize
 
 MODE_NAMES = {0: "sausage", 1: "kink"}
@@ -31,19 +33,24 @@ MODE_NAMES = {0: "sausage", 1: "kink"}
 
 def make_physics(case: CaseConfig):
     if case.geometry == Geometry.SLAB:
-        raise NotImplementedError("slab geometry: ROADMAP A3")
+        return SlabPhysics.from_case(case)
     return CylinderPhysics.from_case(case)
 
 
-def make_dispersion(case: CaseConfig, mode: int,
+def make_dispersion(case: CaseConfig, mode: Optional[int],
                     dtype=torch.float64) -> Callable:
-    return make_physics(case).make_dispersion(m=mode, dtype=dtype)
+    """disp(omega, k) for one mode family (slab parity / cylinder azimuthal
+    order), or disp(omega, k, mode) with mode=None."""
+    ph = make_physics(case)
+    if case.geometry == Geometry.SLAB:
+        return ph.make_dispersion(parity=mode, dtype=dtype)
+    return ph.make_dispersion(m=mode, dtype=dtype)
 
 
 def make_dispersion_moded(case: CaseConfig, dtype) -> Callable:
     """Batched disp(omega, k, mode) with the mode family as a per-candidate
     column: one call covers sausage AND kink."""
-    return make_physics(case).make_dispersion(m=None, dtype=dtype)
+    return make_dispersion(case, None, dtype)
 
 
 def build_ladders(case: CaseConfig, n_omega: Optional[int] = None,
@@ -94,15 +101,59 @@ class SweepStats:
 
 
 def finalize_branches(pr, modes, case: CaseConfig, search: SearchConfig,
-                      refine_f64: bool = False) -> Dict[str, RootBranch]:
-    """Host gather of accepted roots, per-mode dedup, sort by k."""
+                      refine_f64: bool = False,
+                      timer: Optional[StageTimer] = None
+                      ) -> Dict[str, RootBranch]:
+    """Host gather of accepted roots, per-mode dedup, sort by k.
+
+    refine_f64: re-bisect the polished roots in float64 on the sweep's own
+    device (`search.refine_roots_f64`, the port of `refine_on_cpu`), drop
+    the ones the f64 dispersion never brackets, re-judge acceptance at the
+    refined root when `search.accept_pct_refined` is set, and dedup again
+    (eigensolver_tpu/sweep.py:440-475). All modes go through one batch with
+    a mode column; the arithmetic per root is that of a per-mode call."""
+    om, kk, _, md, fz = collect(pr, with_fuzz=True)
+    sel = {mode: np.abs(md - float(mode)) < 0.5 for mode in modes}
     if refine_f64:
-        raise NotImplementedError("refine_f64: ROADMAP A5")
-    om, kk, _, md = collect(pr)
+        # only polished roots are refined; fuzz records (ROADMAP A11, none
+        # yet) would keep their scan seeds
+        parts = [dedup_roots(om[sel[m] & ~fz], kk[sel[m] & ~fz],
+                             rel_tol=case.tol.dedup_rel) for m in modes]
+        om_r = np.concatenate([p[0] for p in parts])
+        kk_r = np.concatenate([p[1] for p in parts])
+        md_r = np.concatenate([np.full(len(p[0]), float(m))
+                               for p, m in zip(parts, modes)])
+        if len(om_r):
+            device = pr.omega.device
+            with (timer or StageTimer()).stage("refine"):
+                disp64 = make_dispersion_moded(case, torch.float64)
+
+                def to_dev(a):
+                    return torch.from_numpy(
+                        np.asarray(a, np.float64)).to(device)
+
+                om_t, k_t, md_t = to_dev(om_r), to_dev(kk_r), to_dev(md_r)
+                root, bracketed = refine_roots_f64(disp64, om_t, k_t, md_t)
+                keep = bracketed
+                if search.accept_pct_refined is not None:
+                    res = disp64(root, k_t, md_t)
+                    keep = keep & (res.mismatch_pct
+                                   < search.accept_pct_refined) & res.valid
+                root = root.cpu().numpy()
+                keep = keep.cpu().numpy()
+            # never-bracketed entries are f32 scan noise, not roots
+            om_r, kk_r, md_r = root[keep], kk_r[keep], md_r[keep]
     branches: Dict[str, RootBranch] = {}
     for mode in modes:
-        sel = np.abs(md - float(mode)) < 0.5
-        om_m, kk_m = dedup_roots(om[sel], kk[sel], rel_tol=case.tol.dedup_rel)
+        if refine_f64:
+            s = np.abs(md_r - float(mode)) < 0.5
+            f = sel[mode] & fz
+            om_m, kk_m = dedup_roots(np.concatenate([om_r[s], om[f]]),
+                                     np.concatenate([kk_r[s], kk[f]]),
+                                     rel_tol=case.tol.dedup_rel)
+        else:
+            om_m, kk_m = dedup_roots(om[sel[mode]], kk[sel[mode]],
+                                     rel_tol=case.tol.dedup_rel)
         name = MODE_NAMES.get(mode, f"m{mode}")
         branches[name] = RootBranch(omegas=om_m, ks=kk_m).sorted_by_k()
     return branches
@@ -152,7 +203,7 @@ def run_case(case: CaseConfig, search: Optional[SearchConfig] = None,
         synchronize(device)
     with timer.stage("finalize"):
         branches = finalize_branches(pr, modes, case, search,
-                                     refine_f64=refine_f64)
+                                     refine_f64=refine_f64, timer=timer)
     stats.n_roots = sum(len(b) for b in branches.values())
     stats.n_candidates = omegas_f.size
     stats.wall_s = time.time() - t0

@@ -59,24 +59,37 @@ def test_unported_cylinder_variants_raise(make_case, what):
         CylinderPhysics.from_case(make_case()).make_dispersion(m=None)
 
 
-@pytest.mark.parametrize("kwargs, search_kw, what", [
-    ({}, {"fuzz_accept_pct": 3.0}, "A11"),
-    ({}, {"exclude_v_ranges": ((0.1, 0.2),)}, "A11"),
-    ({}, {"pole_det_factor": 1e3}, "A11"),
-    ({"refine_f64": True}, {}, "A5"),
-])
-def test_unported_sweep_options_raise(kwargs, search_kw, what):
-    case = dataclasses.replace(
+def _tiny_cylinder():
+    return dataclasses.replace(
         _reduced(cases.cylinder_density_coronal(), n_interior=8, n_axis_log=4),
         k_values=(1.0,))
+
+
+def _tiny_slab(**grid):
+    return dataclasses.replace(
+        _reduced(cases.slab_density_photospheric(), n_interior=8, **grid),
+        k_values=(1.0,))
+
+
+@pytest.mark.parametrize("make_case, search_kw, what", [
+    (_tiny_cylinder, {"fuzz_accept_pct": 3.0}, "A11"),
+    (_tiny_cylinder, {"exclude_v_ranges": ((0.1, 0.2),)}, "A11"),
+    (_tiny_cylinder, {"pole_det_factor": 1e3}, "A11"),
+    (lambda: _tiny_slab(exterior_method="numeric"), {}, "A8"),
+])
+def test_unported_sweep_options_raise(make_case, search_kw, what):
     cfg = search.SearchConfig(n_omega=8, n_bisect=2, **search_kw)
     with pytest.raises(NotImplementedError, match=what):
-        sweep.run_case(case, cfg, device="cpu", **kwargs)
+        sweep.run_case(make_case(), cfg, device="cpu", refine_f64=True)
 
 
-def test_unported_geometry_and_ladder_raise():
-    with pytest.raises(NotImplementedError, match="A3"):
-        sweep.run_case(cases.slab_density_photospheric(), device="cpu")
+@pytest.mark.parametrize("make_case", [
+    lambda: dataclasses.replace(_tiny_slab(), complex_omega=True),
+    lambda: cases.slab_flow_complex_coronal(),
+])
+def test_unported_geometry_and_ladder_raise(make_case):
+    with pytest.raises(NotImplementedError, match="A10"):
+        sweep.run_case(make_case(), device="cpu")
     cheb = _reduced(cases.cylinder_density_coronal(), ladder_shape="chebyshev")
     with pytest.raises(NotImplementedError, match="chebyshev"):
         sweep.build_ladders(cheb)
