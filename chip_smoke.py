@@ -20,23 +20,32 @@ the script exits non-zero:
    version's time and agreement.
 5. the cylinder sweep: run_case(cylinder_density_coronal(0.9), n_omega=256,
    n_bisect=18, float32) on the card - once with the launch counters reset
-   (it must run through the cylinder_disp kernel and never the plain
-   dispersion), then 3 timed runs, then once at float64; root counts per
-   branch held against the JAX package's for the same configuration; a
-   reduced sweep on the card held against the same sweep on the CPU.
+   (exactly one cylinder_disp launch, the ladder scan, and one
+   cylinder_bisect launch, the bracket stage; never the plain dispersion),
+   then 3 timed runs, then once at float64; root counts per branch held
+   against the JAX package's for the same configuration; a reduced sweep on
+   the card held against the same sweep on the CPU.
 6. slab_disp kernel vs its plain version, 8,192 candidates of the full
    slab_ph_09 ladder (flux form) and of slab_flow_gaussian_coronal (shear
    form); at slab_ph_09's 161,280 candidates, the kernel's time and, at
    float32, the plain version's time and agreement.
 7. the slab sweep: run_case(slab_density_photospheric(0.9), n_omega=256,
-   n_bisect=18, float32) with the counters reset (through slab_disp, never
-   the plain dispersion), 3 timed runs, one float64 run, float64 sweeps of
-   the two flow cases, one float32 sweep with refine_f64=True; counts per
-   branch held against the JAX package's; reduced
-   sweeps on the card (float64, and float32 refined in float64) held against
-   the same sweeps on the CPU.
+   n_bisect=18, float32) with the counters reset (one slab_disp and one
+   slab_bisect launch, never the plain dispersion), 3 timed runs, one
+   float64 run, float64 sweeps of the two flow cases, one float32 sweep
+   with refine_f64=True (4 launches: the scan, the bracket stage, the f64
+   refine windows and the f64 refine bisection); counts per branch held
+   against the JAX package's; reduced sweeps on the card (float64, and
+   float32 refined in float64) held against the same sweeps on the CPU.
+8. cylinder_bisect and 9. slab_bisect, the fused bracket stage, on the full
+   sweeps' own brackets (17,280 and 5,040) at float32 and float64: (root,
+   mismatch) bit-equal to search.bisect_loop over the one-thread kernel
+   (n_iter + 2 launches), both timed; at float32 and n_iter=4, bit-equal to
+   the same loop over the plain PyTorch dispersion, which is timed too.
 
-Then one JSON line of the kernels, the nvidia-smi line, and last
+Then one JSON line of the kernels (with each one's bound: operations counted
+from the sources over the card's peak rate, or bytes over its memory rate,
+whichever is longer), the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -103,6 +112,24 @@ FLOW_COUNTS = {     # float64
 # reduced sweep (k in {0.5, 2}, n_interior=256, n_axis_log=32, n_omega=64,
 # n_bisect=30, f64): same JAX measurement, and tests/test_torch_sweep.py
 JAX_COUNTS_REDUCED = {"sausage": 29, "kink": 43}
+# brackets of the full sweeps' bracket stage: rows x 8 per row
+N_BR_CYL = 90 * 12 * 2 * 8      # 17,280
+N_BR_SLAB = 35 * 9 * 2 * 8      # 5,040
+N_BISECT = 18
+PLAIN_N_ITER = 4                # the plain loop's iterations in phases 8, 9
+
+# Operations, counted from the sources for the Gaussian density profile of
+# slab_ph_09 and cyl_co_09, each IEEE division, square root, exp and log as
+# one operation: per RK4 step (3 chain evaluations, the state update and the
+# 3 abscissae: csrc/slab_disp.cu flux form, csrc/cylinder_disp.cu in r and on
+# the log tail), per evaluation outside the steps (start state and epilogue,
+# the cylinder's with the inlined K_m ratio), and per kve_ratio argument
+# (csrc/kve_ratio.cuh runs both branches).
+OPS = {"slab_step": 143, "slab_ends": 92, "cyl_step": 234,
+       "cyl_log_step": 243, "cyl_ends": 890, "kve": 795}
+# NVIDIA H100 SXM data sheet, outside the tensor cores, at 700 W; HBM3 rate
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+HBM_BYTES_S = 3.35e12
 
 
 def line(phase: str, **fields) -> None:
@@ -129,15 +156,48 @@ def reset_counters() -> None:
     from eigensolver_tpu_torch.kernels import bessel, cylinder, slab
     from eigensolver_tpu_torch.physics import cylinder as pcyl, slab as pslab
     bessel.launches = cylinder.launches = slab.launches = 0
+    cylinder.bisect_launches = slab.bisect_launches = 0
     pcyl.plain_calls = pslab.plain_calls = 0
 
 
 def read_counters() -> dict:
     from eigensolver_tpu_torch.kernels import bessel, cylinder, slab
     from eigensolver_tpu_torch.physics import cylinder as pcyl, slab as pslab
-    return {"cylinder_disp": cylinder.launches, "slab_disp": slab.launches,
+    return {"cylinder_disp": cylinder.launches,
+            "cylinder_bisect": cylinder.bisect_launches,
+            "slab_disp": slab.launches, "slab_bisect": slab.bisect_launches,
             "kve_ratio": bessel.launches, "plain_cylinder": pcyl.plain_calls,
             "plain_slab": pslab.plain_calls}
+
+
+def counts_since(before: dict) -> dict:
+    now = read_counters()
+    return {k: now[k] - before[k] for k in now}
+
+
+def check_launches(what: str, got: dict, want: dict) -> None:
+    """Every counter of got equal to want's entry, 0 where want has none."""
+    bad = {k: v for k, v in got.items() if v != want.get(k, 0)}
+    if bad:
+        raise AssertionError(f"{what}: launches {got}, want {want}")
+
+
+def bound(n_ops: float, n_bytes: float, dtype: str) -> dict:
+    """The least time the card could take: operations over the peak rate of
+    their type, or bytes over the memory rate, whichever is longer."""
+    t_ops = n_ops / PEAK_FLOPS[dtype]
+    t_bytes = n_bytes / HBM_BYTES_S
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def slab_eval_ops(n_interior: int) -> int:
+    return n_interior * OPS["slab_step"] + OPS["slab_ends"]
+
+
+def cyl_eval_ops(n_interior: int, n_axis_log: int) -> int:
+    return (n_interior * OPS["cyl_step"] + n_axis_log * OPS["cyl_log_step"]
+            + OPS["cyl_ends"])
 
 
 def phase_device():
@@ -206,9 +266,20 @@ def phase_kve_ratio(out: dict):
         res[name] = dict(
             max_rel_err=rel, max_abs_err=abs_err, rtol=rtol,
             ms=cuda_ms(lambda: bessel.kve_ratio_both(z), 20),
-            plain_ms=cuda_ms(lambda: special.kve_ratio_both(z), 3))
+            plain_ms=cuda_ms(lambda: special.kve_ratio_both(z), 3),
+            library_ms=cuda_ms(lambda: _library_kve_ratio(z), 20))
     out["kve_ratio"] = res
     line("phase 3 kve_ratio vs plain", n=N_SWEEP, **res)
+
+
+def _library_kve_ratio(z):
+    """(K_0'/K_0, K_1'/K_1) from PyTorch's K_0 and K_1: the yardstick of
+    kve_ratio (the port never calls it; its K underflow at large z in
+    float32 is not the kernel's concern)."""
+    import torch
+    k0 = torch.special.modified_bessel_k0(z)
+    k1 = torch.special.modified_bessel_k1(z)
+    return -k1 / k0, -k0 / k1 - 1.0 / z
 
 
 def _ladder_candidates(case, n, seed):
@@ -344,8 +415,6 @@ def _check_roots(rs, case):
 
 def phase_sweep(out: dict):
     from eigensolver_tpu_torch import cases, search, sweep
-    from eigensolver_tpu_torch.kernels import cylinder as kcyl
-    from eigensolver_tpu_torch.physics import cylinder as pcyl
     from eigensolver_tpu_torch.utils import StageTimer
     import warnings
     warnings.simplefilter("ignore")     # saturated-row notices, as expected
@@ -353,27 +422,24 @@ def phase_sweep(out: dict):
     cfg = search.SearchConfig(n_omega=256, n_bisect=18, scan_dtype="float32",
                               polish_dtype="float32")
 
-    # the cylinder path, with every launch counter reset just before
+    # the cylinder path, with every launch counter reset just before: one
+    # ladder scan launch and one fused bracket-stage launch, nothing else
     reset_counters()
     rs, st = sweep.run_case(case, cfg, device="cuda")
     launches = read_counters()
-    if launches["cylinder_disp"] < cfg.n_bisect + 2:
-        raise AssertionError(f"cylinder path launched cylinder_disp "
-                             f"{launches['cylinder_disp']} times")
-    if launches["plain_cylinder"] or launches["plain_slab"]:
-        raise AssertionError(f"cylinder path ran a plain dispersion: "
-                             f"{launches}")
+    check_launches("cylinder path", launches,
+                   {"cylinder_disp": 1, "cylinder_bisect": 1})
     if st.n_candidates != N_SWEEP:
         raise AssertionError(f"{st.n_candidates} candidates")
     _check_roots(rs, case)
 
     walls, stages, counts = [], [], []
     for _ in range(3):
-        before = kcyl.launches
+        before = read_counters()
         timer = StageTimer()
         rs, st = sweep.run_case(case, cfg, device="cuda", timer=timer)
-        if kcyl.launches - before < cfg.n_bisect + 2 or pcyl.plain_calls:
-            raise AssertionError("timed run did not go through the kernel")
+        check_launches("timed cylinder run", counts_since(before),
+                       {"cylinder_disp": 1, "cylinder_bisect": 1})
         walls.append(st.wall_s)
         stages.append(timer.report())
         counts.append(rs.counts())
@@ -470,8 +536,6 @@ def phase_slab_disp(out: dict):
 
 def phase_slab_sweep(out: dict):
     from eigensolver_tpu_torch import cases, search, sweep
-    from eigensolver_tpu_torch.kernels import slab as kslab
-    from eigensolver_tpu_torch.physics import slab as pslab
     from eigensolver_tpu_torch.utils import StageTimer
     import warnings
     warnings.simplefilter("ignore")     # saturated-row notices, as expected
@@ -479,26 +543,23 @@ def phase_slab_sweep(out: dict):
     cfg = search.SearchConfig(n_omega=256, n_bisect=18, scan_dtype="float32",
                               polish_dtype="float32")
 
-    # the slab path, with every launch counter reset just before
+    # the slab path, with every launch counter reset just before: one
+    # ladder scan launch and one fused bracket-stage launch, nothing else
     reset_counters()
     rs, st = sweep.run_case(case, cfg, device="cuda")
     launches = read_counters()
-    if launches["slab_disp"] < cfg.n_bisect + 2:
-        raise AssertionError(f"slab path launched slab_disp "
-                             f"{launches['slab_disp']} times")
-    if launches["plain_slab"] or launches["plain_cylinder"]:
-        raise AssertionError(f"slab path ran a plain dispersion: {launches}")
+    check_launches("slab path", launches, {"slab_disp": 1, "slab_bisect": 1})
     if st.n_candidates != N_SLAB:
         raise AssertionError(f"{st.n_candidates} candidates")
     _check_roots(rs, case)
 
     walls, stages, counts = [], [], []
     for _ in range(3):
-        before = kslab.launches
+        before = read_counters()
         timer = StageTimer()
         rs, st = sweep.run_case(case, cfg, device="cuda", timer=timer)
-        if kslab.launches - before < cfg.n_bisect + 2 or pslab.plain_calls:
-            raise AssertionError("timed run did not go through the kernel")
+        check_launches("timed slab run", counts_since(before),
+                       {"slab_disp": 1, "slab_bisect": 1})
         walls.append(st.wall_s)
         stages.append(timer.report())
         counts.append(rs.counts())
@@ -530,20 +591,23 @@ def phase_slab_sweep(out: dict):
                            minus_refs=_check_counts(f"{name} float64",
                                                     frs.counts(), refs))
 
-    # f32 sweep refined in f64 on the card: every refine launch is slab_disp
-    before = dict(kslab=kslab.launches, plain=pslab.plain_calls)
+    # f32 sweep refined in f64 on the card: the scan and the bracket stage,
+    # then the f64 refine windows (one slab_disp launch) and the f64 refine
+    # bisection (one slab_bisect launch)
+    before = read_counters()
     timer = StageTimer()
     rsr, str_ = sweep.run_case(case, cfg, device="cuda", refine_f64=True,
                                timer=timer)
-    if pslab.plain_calls != before["plain"]:
-        raise AssertionError("refined sweep ran the plain dispersion")
+    refined_launches = counts_since(before)
+    check_launches("refined slab path", refined_launches,
+                   {"slab_disp": 2, "slab_bisect": 2})
     _check_roots(rsr, case)
     if rsr.counts() != counts[0]:
         raise AssertionError(f"refined counts {rsr.counts()} differ from the "
                              f"f32 sweep's {counts[0]}")
     refined = dict(counts=rsr.counts(), wall_s=str_.wall_s,
                    stages_s=timer.report(),
-                   launches=kslab.launches - before["kslab"],
+                   launches=refined_launches,
                    minus_refs=_check_counts(
                        "slab_ph_09 float32 refined", rsr.counts(),
                        SLAB_COUNTS["float32_refined"]))
@@ -595,6 +659,78 @@ def phase_slab_sweep(out: dict):
     return launches
 
 
+def sweep_brackets(case, dtype):
+    """The brackets of the case's bracket stage (n_omega=256, 8 per row,
+    scan in `dtype` on the card), as CUDA tensors (lo, hi, k, mode)."""
+    import torch
+    from eigensolver_tpu_torch import search, sweep
+    omegas, ks = sweep.build_ladders(case, 256)
+    rows = omegas.shape[0]
+
+    def dev(a):
+        return torch.from_numpy(a).to(device="cuda", dtype=dtype)
+
+    om, kk = dev(np.concatenate([omegas] * 2)), dev(np.concatenate([ks] * 2))
+    md = dev(np.repeat([0.0, 1.0], rows))
+    disp = sweep.make_dispersion_moded(case, dtype)
+    det, valid, mism = search.ladder_scan(disp, om, kk, md)
+    br = search.find_brackets(om, kk, det, valid, 8, md, mism=mism)
+    return [x.contiguous() for x in (br.lo, br.hi, br.k, br.mode)]
+
+
+def phase_bisect(out: dict, phase: str, name: str, case, plain, n_br: int):
+    """The fused bracket stage `name` on the case's own brackets: (root,
+    mismatch) bit-equal to the loop of one-thread launches at float32 and
+    float64 (both timed), and at float32 with n_iter=PLAIN_N_ITER to the
+    loop over the plain dispersion `plain(dtype)` (timed once)."""
+    import torch
+    from eigensolver_tpu_torch import search, sweep
+    res = {}
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[-1]
+        br = sweep_brackets(case, dtype)
+        if br[0].numel() != n_br:
+            raise AssertionError(f"{name}: {br[0].numel()} brackets")
+        disp = sweep.make_dispersion_moded(case, dtype)
+        before = read_counters()
+        fused = disp.bisect(*br, N_BISECT)
+        loop = search.bisect_loop(disp, *br, N_BISECT)
+        torch.cuda.synchronize()
+        check_launches(f"{name} {dname}", counts_since(before),
+                       {name: 1, name.replace("bisect", "disp"): N_BISECT + 2})
+        differ = [int((~_same_bits(a.cpu().numpy(), b.cpu().numpy())).sum())
+                  for a, b in zip(fused, loop)]
+        if any(differ):
+            raise AssertionError(f"{name} {dname}: {differ} (root, mismatch) "
+                                 f"values differ from the launch loop")
+        r = dict(n=n_br, root_bits_differ=differ[0],
+                 mismatch_bits_differ=differ[1],
+                 ms=cuda_ms(lambda: disp.bisect(*br, N_BISECT), 5),
+                 loop_ms=cuda_ms(lambda: search.bisect_loop(disp, *br,
+                                                            N_BISECT), 2))
+        if dtype == torch.float32:
+            pdisp = plain(dtype)
+            fused4 = disp.bisect(*br, PLAIN_N_ITER)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain4 = search.bisect_loop(pdisp, *br, PLAIN_N_ITER)
+            torch.cuda.synchronize()
+            r["plain_ms"] = 1e3 * (time.perf_counter() - t0)
+            r["plain_n_iter"] = PLAIN_N_ITER
+            r["ms_plain_n_iter"] = cuda_ms(
+                lambda: disp.bisect(*br, PLAIN_N_ITER), 5)
+            a, b = fused4[0].cpu().numpy(), plain4[0].cpu().numpy()
+            r["max_abs_err_vs_plain"] = float(np.nanmax(np.abs(a - b)))
+            differ = [int((~_same_bits(x.cpu().numpy(), y.cpu().numpy())).sum())
+                      for x, y in zip(fused4, plain4)]
+            if any(differ):
+                raise AssertionError(f"{name}: {differ} (root, mismatch) "
+                                     f"values differ from the plain loop")
+        res[dname] = r
+    out[name] = res
+    line(phase, **res)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json-out", help="also write the full report here")
@@ -614,12 +750,29 @@ def main() -> int:
     cyl_launches = phase_sweep(out)
     phase_slab_disp(out)
     slab_launches = phase_slab_sweep(out)
+    from eigensolver_tpu_torch import cases
+    from eigensolver_tpu_torch.physics.cylinder import CylinderPhysics
+    from eigensolver_tpu_torch.physics.slab import SlabPhysics
+    cyl_case = cases.cylinder_density_coronal(0.9)
+    slab_case = cases.slab_density_photospheric(0.9)
+    phase_bisect(out, "phase 8 cylinder_bisect", "cylinder_bisect", cyl_case,
+                 lambda dt: CylinderPhysics.from_case(
+                     cyl_case).make_dispersion_plain(m=None, dtype=dt),
+                 N_BR_CYL)
+    phase_bisect(out, "phase 9 slab_bisect", "slab_bisect", slab_case,
+                 lambda dt: SlabPhysics.from_case(
+                     slab_case).make_dispersion_plain(parity=None, dtype=dt),
+                 N_BR_SLAB)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
     kve = out["kve_ratio"]
     cyl = out["cylinder_disp"]["full_ms"]
     slab = out["slab_disp"]["full_ms"]
+    cbis = out["cylinder_bisect"]["float32"]
+    sbis = out["slab_bisect"]["float32"]
+    cg, sg = cyl_case.grid, slab_case.grid
+    n_evals = N_BISECT + 2
     kernels = [{
         "name": "cylinder_disp",
         "route": "cuda",
@@ -632,6 +785,9 @@ def main() -> int:
         "max_abs_err": cyl["check_float32"]["max_abs_err_det"],
         "ms": cyl["float32"],
         "plain_ms": cyl["plain_float32"],
+        **bound(N_SWEEP * cyl_eval_ops(cg.n_interior, cg.n_axis_log),
+                N_SWEEP * (5 * 4 + 1), "float32"),
+        "library_ms": None,
     }, {
         "name": "kve_ratio",
         "route": "cuda",
@@ -647,6 +803,9 @@ def main() -> int:
         "max_abs_err": kve["float32"]["max_abs_err"],
         "ms": kve["float32"]["ms"],
         "plain_ms": kve["float32"]["plain_ms"],
+        **bound(N_SWEEP * OPS["kve"], N_SWEEP * 3 * 4, "float32"),
+        # torch.special.modified_bessel_k0/_k1 and the ratios, a yardstick
+        "library_ms": kve["float32"]["library_ms"],
     }, {
         "name": "slab_disp",
         "route": "cuda",
@@ -658,6 +817,43 @@ def main() -> int:
         "max_abs_err": slab["check_float32"]["max_abs_err_det"],
         "ms": slab["float32"],
         "plain_ms": slab["plain_float32"],
+        **bound(N_SLAB * slab_eval_ops(sg.n_interior), N_SLAB * (5 * 4 + 1),
+                "float32"),
+        "library_ms": None,
+    }, {
+        "name": "cylinder_bisect",
+        "route": "cuda",
+        "source": "eigensolver_tpu_torch/csrc/cylinder_disp.cu",
+        # the XLA fori_loop of search.bisect over physics/cylinder.py
+        "replaces": "eigensolver_tpu/search.py:142",
+        "launches": cyl_launches["cylinder_bisect"],
+        # roots against the plain loop at plain_n_iter (bit-equal)
+        "max_abs_err": cbis["max_abs_err_vs_plain"],
+        "ms": cbis["ms"],
+        "plain_ms": cbis["plain_ms"],
+        "plain_n_iter": PLAIN_N_ITER,
+        "ms_plain_n_iter": cbis["ms_plain_n_iter"],
+        "launch_loop_ms": cbis["loop_ms"],
+        **bound(N_BR_CYL * n_evals * cyl_eval_ops(cg.n_interior,
+                                                   cg.n_axis_log),
+                N_BR_CYL * 6 * 4, "float32"),
+        "library_ms": None,
+    }, {
+        "name": "slab_bisect",
+        "route": "cuda",
+        "source": "eigensolver_tpu_torch/csrc/slab_disp.cu",
+        # the XLA fori_loop of search.bisect over physics/slab.py
+        "replaces": "eigensolver_tpu/search.py:142",
+        "launches": slab_launches["slab_bisect"],
+        "max_abs_err": sbis["max_abs_err_vs_plain"],
+        "ms": sbis["ms"],
+        "plain_ms": sbis["plain_ms"],
+        "plain_n_iter": PLAIN_N_ITER,
+        "ms_plain_n_iter": sbis["ms_plain_n_iter"],
+        "launch_loop_ms": sbis["loop_ms"],
+        **bound(N_BR_SLAB * n_evals * slab_eval_ops(sg.n_interior),
+                N_BR_SLAB * 6 * 4, "float32"),
+        "library_ms": None,
     }]
     if args.json_out:
         Path(args.json_out).parent.mkdir(parents=True, exist_ok=True)

@@ -1,0 +1,245 @@
+// Fused bracket stage: the whole fixed-count bisection of a batch of
+// brackets in one launch, shared by slab_bisect (slab_disp.cu) and
+// cylinder_bisect (cylinder_disp.cu).
+//
+// Port of `eigensolver_tpu/search.py::bisect` (search.py:142-169) and of the
+// bisection half of `refine_on_cpu` (search.py:468-522), over the dispersion
+// chains of `physics/slab.py` / `physics/cylinder.py`. On the TPU that was an
+// XLA `fori_loop` around the vmapped dispersion; the port first ran it as
+// n_iter + 2 launches of the one-thread dispersion kernels. Per bracket:
+//   f(lo) -> lo_neg; n_iter times mid = 0.5 (lo + hi), det(mid),
+//   go_right = signbit(det) == lo_neg, select; root = 0.5 (lo + hi);
+//   optionally one last evaluation at the root for the % mismatch.
+//
+// What bounds it on Hopper. One evaluation is an RK4 chain of n_steps
+// (2048, +128 for the cylinder's log tail) steps. Each step is ~85-90% a
+// coefficient chain at 3 abscissae (divisions, square roots, an exp) that
+// does not depend on the ODE state, and ~15 dependent flops of state update.
+// With one thread per bracket (the one-thread kernels) a bracket batch of
+// 5,040 (slab) or 17,280 (cylinder) fills 1-4 warps per SM, so each launch
+// lasts one thread's serial chain of dependent divisions: latency-bound at
+// a few percent of the card's issue rate. Bound by operations: 3 chain
+// evaluations per step per bracket per evaluation.
+//
+// The design: a warp-specialised block serves B brackets (B divides 32).
+//   Consumer warp (warp 0): lane j carries bracket j's state in registers
+//     and runs the serial update in exactly the one-thread kernel's order
+//     (the same __device__ step function), reading each step's 6
+//     coefficients from shared memory; it also runs the start state, the
+//     epilogue (det, mismatch), the sign test and the bracket update, and
+//     publishes the next omega of each bracket to shared memory.
+//   Producer warps (P of them): compute the coefficients of C steps x 3
+//     abscissae x B brackets per ring stage with the one-thread kernel's
+//     coefficient functions, a step's 3 abscissae per thread at once (3
+//     independent chains in flight, as in the one-thread kernel's loop),
+//     into a ring of S stages in dynamic shared memory, and run up to S
+//     stages ahead of the consumer.
+//   Hand-off: named barriers (bar.sync / bar.arrive, which order the shared
+//     memory accesses of the threads that take part): per stage a "full"
+//     barrier (producers arrive, consumer waits) and an "empty" barrier
+//     (consumer arrives, producers wait), and an "omega" barrier per
+//     evaluation (consumer arrives, producers wait).
+// Shared memory holds the ring (C x 6 x B values per stage) and the B
+// omegas; registers hold the state; no tensor cores and no TMA (no matrix
+// product, and a bracket's input is 4 scalars). B, P, C and S are launch
+// arguments, chosen by the wrapper (kernels/common.py::bisect_shape). The
+// register budget is chosen at launch from the card's occupancy: of two
+// instantiations, 128 registers a thread (no spills; taken when the whole
+// batch is resident on the card at once with it: a small batch, whose
+// serial consumer chain sets the pace) and 64 (2 blocks of 512 threads per
+// SM: a batch of several waves, where the producers' throughput does).
+// The coefficients are the one-thread kernel's values and the update is its
+// code, built with --fmad=false, so (root, mismatch) are bit-equal to the
+// loop of one-thread launches, and so to the plain PyTorch version.
+#pragma once
+
+#include <cmath>
+#include <cstdint>
+#include <initializer_list>
+
+#include <cuda_runtime.h>
+
+namespace eigk {
+
+// 1 consumer + up to 15 producer warps
+constexpr int kBisectMaxThreads = 512;
+constexpr int kBisectMaxStages = 6;     // barrier ids 1 + 2 S <= 15
+
+namespace bar {
+constexpr int kOmega = 1;  // next omega of every bracket published
+constexpr int kFull = 2;   // + slot: stage written; kFull + S + slot: stage read
+
+// bar.sync / bar.arrive without .aligned: every thread of the block takes
+// part; the memory clobber keeps shared memory accesses on their side
+__device__ __forceinline__ void sync(int id, int n) {
+  asm volatile("barrier.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void arrive(int id, int n) {
+  asm volatile("barrier.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+}  // namespace bar
+
+// Model: the dispersion chain of one geometry, with
+//   T, Params, kState, Ctx (per-evaluation values of the consumer);
+//   Model(p); n_steps();
+//   coef(omega, k, mode, i, a, c0, c1): the chain at abscissa a of step i;
+//   start(omega, k, mode, y, ctx); step(i, c, stride, y) with the step's 6
+//   coefficients at c[0], c[stride], ..., c[5 stride];
+//   finish(omega, k, mode, y, ctx, det, mismatch).
+// kMinBlocks: blocks of kBisectMaxThreads per SM the registers must allow
+// (2: 64 registers a thread, 1: 128)
+template <class Model, int kMinBlocks>
+__global__ void __launch_bounds__(kBisectMaxThreads, kMinBlocks)
+bisect_kernel(const typename Model::T* __restrict__ lo_,
+              const typename Model::T* __restrict__ hi_,
+              const typename Model::T* __restrict__ k_,
+              const typename Model::T* __restrict__ mode_,
+              typename Model::T* __restrict__ root_,
+              typename Model::T* __restrict__ mism_, int64_t n, int n_iter,
+              int final_eval, int B, int C, int S,
+              const __grid_constant__ typename Model::Params p) {
+  using T = typename Model::T;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* om_s = reinterpret_cast<T*>(smem_raw);  // [32] omega of each bracket
+  T* ring = om_s + 32;                       // [S][C][6][B]
+  const int nthr = blockDim.x;
+  const int stage_len = C * 6 * B;
+  const Model m(p);
+  const int n_steps = m.n_steps();
+  const int n_stages = (n_steps + C - 1) / C;
+  const int e0 = n_iter > 0 ? 1 : 0;         // f(lo) only if it is used
+  const int n_evals = e0 + n_iter + (final_eval ? 1 : 0);
+  const int total = n_evals * n_stages;      // ring stages in the launch
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * B;
+
+  if (threadIdx.x < 32) {
+    // consumer: lane j <-> bracket j; lanes j >= B shadow column j % B
+    const int j = threadIdx.x;
+    const int col = j % B;
+    const int64_t idx = base + col < n ? base + col : n - 1;
+    T lo = lo_[idx], hi = hi_[idx];
+    const T k = k_[idx], md = mode_[idx];
+    bool lo_neg = false;
+    T mism = T(0);
+    int g = 0;
+    for (int e = 0; e < n_evals; ++e) {
+      const bool at_lo = e < e0;
+      const T om = at_lo ? lo : T(0.5) * (lo + hi);
+      if (j < B) om_s[j] = om;
+      bar::arrive(bar::kOmega, nthr);
+      T y[Model::kState];
+      typename Model::Ctx ctx;
+      m.start(om, k, md, y, ctx);
+      for (int s = 0; s < n_stages; ++s, ++g) {
+        const int slot = g % S;
+        bar::sync(bar::kFull + slot, nthr);
+        const T* st = ring + slot * stage_len + col;
+        const int i0 = s * C;
+        const int c_end = min(C, n_steps - i0);
+#pragma unroll 2
+        for (int c = 0; c < c_end; ++c) m.step(i0 + c, st + c * 6 * B, B, y);
+        if (g < total - S) bar::arrive(bar::kFull + S + slot, nthr);
+      }
+      T det, r;
+      m.finish(om, k, md, y, ctx, det, r);
+      const bool neg = signbit(det) != 0;   // NaN's sign too, as torch.signbit
+      if (at_lo) {
+        lo_neg = neg;
+      } else if (e < e0 + n_iter) {
+        const bool go_right = neg == lo_neg;  // root in [mid, hi]
+        lo = go_right ? om : lo;
+        hi = go_right ? hi : om;
+      } else {
+        mism = r;
+      }
+    }
+    if (j < B && base + j < n) {
+      root_[base + j] = T(0.5) * (lo + hi);
+      if (final_eval) mism_[base + j] = mism;
+    }
+  } else {
+    // producers: thread t fills column t % B (B divides 32 P) of each stage,
+    // the steps c = t / B, t / B + 32 P / B, ..., all 3 abscissae of a step
+    // at once (3 independent chains in flight per thread)
+    const int t = threadIdx.x - 32;
+    const int col = t % B;
+    const int c0 = t / B;
+    const int c_step = (nthr - 32) / B;
+    const int64_t idx = base + col < n ? base + col : n - 1;
+    const T k = k_[idx], md = mode_[idx];
+    int g = 0;
+    for (int e = 0; e < n_evals; ++e) {
+      bar::sync(bar::kOmega, nthr);
+      const T om = om_s[col];
+      for (int s = 0; s < n_stages; ++s, ++g) {
+        const int slot = g % S;
+        if (g >= S) bar::sync(bar::kFull + S + slot, nthr);
+        T* st = ring + slot * stage_len + col;
+        const int i0 = s * C;
+        const int c_end = min(C, n_steps - i0);
+        for (int c = c0; c < c_end; c += c_step) {
+          T v[6];
+#pragma unroll
+          for (int a = 0; a < 3; ++a) m.coef(om, k, md, i0 + c, a, v[2 * a], v[2 * a + 1]);
+          T* dst = st + c * 6 * B;
+#pragma unroll
+          for (int q = 0; q < 6; ++q) dst[q * B] = v[q];
+        }
+        bar::arrive(bar::kFull + slot, nthr);
+      }
+    }
+  }
+}
+
+// Launch the fused bisection of n brackets: B brackets per block, P
+// producer warps, C steps per stage, S stages, the register budget of
+// min_blocks (1 or 2) blocks of 512 threads per SM, or with min_blocks = 0
+// the wider budget if it keeps every block resident at once, else the
+// narrower. Returns the cudaError_t.
+template <class Model>
+int launch_bisect(const void* lo, const void* hi, const void* k,
+                  const void* mode, void* root, void* mism, long long n,
+                  int n_iter, int final_eval, int B, int P, int C, int S,
+                  int min_blocks, const typename Model::Params* p, int device,
+                  void* stream) {
+  using T = typename Model::T;
+  if (n <= 0 || n_iter < 0 || B < 1 || B > 32 || 32 % B != 0 || P < 1
+      || 32 * (P + 1) > kBisectMaxThreads || C < 1 || S < 1
+      || S > kBisectMaxStages || min_blocks < 0 || min_blocks > 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int threads = 32 * (P + 1);
+  const long long blocks = (n + B - 1) / B;
+  const size_t smem = (32 + static_cast<size_t>(S) * C * 6 * B) * sizeof(T);
+  auto* wide = bisect_kernel<Model, 1>;    // up to 128 registers a thread
+  auto* narrow = bisect_kernel<Model, 2>;  // up to 64
+  if (smem > 48 * 1024) {
+    for (auto* kern : {wide, narrow}) {
+      err = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+  }
+  if (min_blocks == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wide, threads,
+                                                        smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    min_blocks = blocks <= static_cast<long long>(sms) * per_sm ? 1 : 2;
+  }
+  auto* kern = min_blocks == 1 ? wide : narrow;
+  kern<<<static_cast<unsigned>(blocks), threads, smem,
+         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(lo), static_cast<const T*>(hi),
+      static_cast<const T*>(k), static_cast<const T*>(mode),
+      static_cast<T*>(root), static_cast<T*>(mism), n, n_iter, final_eval, B,
+      C, S, *p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace eigk

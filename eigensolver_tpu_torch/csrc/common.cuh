@@ -1,8 +1,8 @@
 // Device code shared by the dispersion kernels (cylinder_disp.cu,
 // slab_disp.cu): the equilibrium profiles of `profiles.make_profile`, their
 // closed-form derivatives (`profiles.make_profile_derivative`), the
-// pressure-balanced speeds of `equilibrium.make_equilibrium`, and two
-// helpers that keep the JAX code's NaN pattern.
+// pressure-balanced speeds of `equilibrium.make_equilibrium`, the RK4 grid,
+// and two helpers that keep the JAX code's NaN pattern.
 //
 // Every expression follows the plain PyTorch version operation for
 // operation; the build disables FMA contraction (--fmad=false), so kernel
@@ -126,6 +126,24 @@ __device__ __forceinline__ void density_speeds(const ProfileParams& rho_p,
 template <class T>
 __device__ __forceinline__ T zero_over(T x) {
   return (x == T(0) || x != x) ? T(NAN) : T(0);
+}
+
+// RK4 step sizes (h, h/2, h/6) of n steps from x0 to x1
+template <class T>
+__device__ __forceinline__ void rk4_spacing(T x0, T x1, int n, T& h, T& hh,
+                                            T& h6) {
+  h = (x1 - x0) / T(n);
+  hh = T(0.5) * h;
+  h6 = h / T(6);
+}
+
+// Abscissa a (0: x, 1: x + h/2, 2: x + h) of RK4 step i from x0, formed as
+// the one-thread kernels' loops form it: x = x0 + i h, not an accumulated
+// sum.
+template <class T>
+__device__ __forceinline__ T rk4_abscissa(T x0, T h, T hh, int i, int a) {
+  const T x = x0 + T(i) * h;
+  return a == 0 ? x : (a == 1 ? x + hh : x + h);
 }
 
 // jnp.maximum / torch.maximum: NaN if either operand is NaN

@@ -41,11 +41,24 @@
 //   1/F = A/r + B/(r D),   g = -d(r C1/C3)/dr - r (C2 - C1^2/C3)/D,
 // where every zero-valued term is kept only as what it does to the NaN
 // pattern (`zero_over`).
+//
+// cylinder_bisect, the second kernel here, is the fused bracket stage over
+// the same chain: it replaces `eigensolver_tpu/search.py::bisect`
+// (:142-169) and the bisection of `refine_on_cpu` (:468-522) over
+// `physics/cylinder.py`, which the port ran as n_iter + 2 launches of
+// cylinder_disp on cyl_co_09's 17,280 brackets (~4 warps per SM, each
+// launch one thread's 2176-step chain long). Bound by operations (3 chain
+// evaluations per RK4 step per bracket per evaluation); the design
+// (bisect.cuh) computes the chain in producer warps, which do not depend
+// on the ODE state, and runs the serial two-basis update in one consumer
+// lane per bracket, in this file's order (interface1, rk4_step2, finish),
+// so its (root, mismatch) are bit-equal to the launch loop's.
 #include <cmath>
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "bisect.cuh"
 #include "common.cuh"
 #include "kve_ratio.cuh"
 
@@ -118,72 +131,71 @@ __device__ __forceinline__ void coef(const CylDispParams& p, T omega, T k, T m,
   }
 }
 
-// `_rk4_linear2` (cylinder.py:50-85): classical RK4 for the two-basis linear
-// system d(P, w)/dx = (w iF, g P), coefficients at x, x + h/2, x + h.
+// One step of `_rk4_linear2` (cylinder.py:50-85): classical RK4 for the
+// two-basis linear system d(P, w)/dx = (w iF, g P) with the coefficients at
+// the step's 3 abscissae (A: x, M: x + h/2, B: x + h); shared by the
+// one-thread kernel and the consumer warp of the fused bisection.
+template <class T>
+__device__ __forceinline__ void rk4_step2(T h, T hh, T h6, T iFA, T gA, T iFM,
+                                          T gM, T iFB, T gB, T& P1, T& w1,
+                                          T& P2, T& w2) {
+  const T k1P1 = w1 * iFA, k1w1 = gA * P1, k1P2 = w2 * iFA, k1w2 = gA * P2;
+  T yP1 = P1 + hh * k1P1, yw1 = w1 + hh * k1w1;
+  T yP2 = P2 + hh * k1P2, yw2 = w2 + hh * k1w2;
+  const T k2P1 = yw1 * iFM, k2w1 = gM * yP1, k2P2 = yw2 * iFM, k2w2 = gM * yP2;
+  yP1 = P1 + hh * k2P1;
+  yw1 = w1 + hh * k2w1;
+  yP2 = P2 + hh * k2P2;
+  yw2 = w2 + hh * k2w2;
+  const T k3P1 = yw1 * iFM, k3w1 = gM * yP1, k3P2 = yw2 * iFM, k3w2 = gM * yP2;
+  yP1 = P1 + h * k3P1;
+  yw1 = w1 + h * k3w1;
+  yP2 = P2 + h * k3P2;
+  yw2 = w2 + h * k3w2;
+  const T k4P1 = yw1 * iFB, k4w1 = gB * yP1, k4P2 = yw2 * iFB, k4w2 = gB * yP2;
+
+  P1 = P1 + h6 * (k1P1 + T(2) * k2P1 + T(2) * k3P1 + k4P1);
+  w1 = w1 + h6 * (k1w1 + T(2) * k2w1 + T(2) * k3w1 + k4w1);
+  P2 = P2 + h6 * (k1P2 + T(2) * k2P2 + T(2) * k3P2 + k4P2);
+  w2 = w2 + h6 * (k1w2 + T(2) * k2w2 + T(2) * k3w2 + k4w2);
+}
+
+// `_rk4_linear2` from x0 to x1 in n steps, coefficients at x, x + h/2, x + h
 template <class T, bool kLog>
 __device__ __forceinline__ void rk4_linear2(const CylDispParams& p, T omega,
                                             T k, T m, T x0, T x1, int n,
                                             T& P1, T& w1, T& P2, T& w2) {
-  const T h = (x1 - x0) / T(n);
-  const T hh = T(0.5) * h;
-  const T h6 = h / T(6);
+  T h, hh, h6;
+  rk4_spacing(x0, x1, n, h, hh, h6);
   for (int i = 0; i < n; ++i) {
     const T x = x0 + T(i) * h;              // not an accumulated x += h
     T iFA, gA, iFM, gM, iFB, gB;
     coef<T, kLog>(p, omega, k, m, x, iFA, gA);
     coef<T, kLog>(p, omega, k, m, x + hh, iFM, gM);
     coef<T, kLog>(p, omega, k, m, x + h, iFB, gB);
-
-    const T k1P1 = w1 * iFA, k1w1 = gA * P1, k1P2 = w2 * iFA, k1w2 = gA * P2;
-    T yP1 = P1 + hh * k1P1, yw1 = w1 + hh * k1w1;
-    T yP2 = P2 + hh * k1P2, yw2 = w2 + hh * k1w2;
-    const T k2P1 = yw1 * iFM, k2w1 = gM * yP1, k2P2 = yw2 * iFM, k2w2 = gM * yP2;
-    yP1 = P1 + hh * k2P1;
-    yw1 = w1 + hh * k2w1;
-    yP2 = P2 + hh * k2P2;
-    yw2 = w2 + hh * k2w2;
-    const T k3P1 = yw1 * iFM, k3w1 = gM * yP1, k3P2 = yw2 * iFM, k3w2 = gM * yP2;
-    yP1 = P1 + h * k3P1;
-    yw1 = w1 + h * k3w1;
-    yP2 = P2 + h * k3P2;
-    yw2 = w2 + h * k3w2;
-    const T k4P1 = yw1 * iFB, k4w1 = gB * yP1, k4P2 = yw2 * iFB, k4w2 = gB * yP2;
-
-    P1 = P1 + h6 * (k1P1 + T(2) * k2P1 + T(2) * k3P1 + k4P1);
-    w1 = w1 + h6 * (k1w1 + T(2) * k2w1 + T(2) * k3w1 + k4w1);
-    P2 = P2 + h6 * (k1P2 + T(2) * k2P2 + T(2) * k3P2 + k4P2);
-    w2 = w2 + h6 * (k1w2 + T(2) * k2w2 + T(2) * k3w2 + k4w2);
+    rk4_step2(h, hh, h6, iFA, gA, iFM, gM, iFB, gB, P1, w1, P2, w2);
   }
 }
 
+// interface chain at r = 1: C3(1) and F(1) = r D / C3
 template <class T>
-__global__ void __launch_bounds__(128)
-cylinder_disp_kernel(const T* __restrict__ omega_, const T* __restrict__ k_,
-                     const T* __restrict__ m_, T* __restrict__ det_,
-                     T* __restrict__ mism_, bool* __restrict__ valid_,
-                     int64_t n, const __grid_constant__ CylDispParams p) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const T omega = omega_[i];
-  const T k = k_[i];
-  const T m = m_[i];
-  const T zero = T(0);
+__device__ __forceinline__ void interface1(const CylDispParams& p, T omega,
+                                           T k, T m, T& C3_1, T& F1) {
   const T one = T(1);
-
-  // interface chain at r = 1: F(1) = r D / C3 and C1(1)/C3(1)
   T D1, A1, C2_1;
   hain_lust(p, omega, k, m, one, D1, A1, C2_1);
-  const T C3_1 = D1 * A1 + zero;
-  const T F1 = one * D1 / C3_1;
+  C3_1 = D1 * A1 + T(0);
+  F1 = one * D1 / C3_1;
+}
 
-  // u1: P(1)=1, P'(1)=0  |  u2: P(1)=0, P'(1)=1  (w = F P')
-  T P1 = one, w1 = zero, P2 = zero, w2 = F1 * one;
-  const T eps = T(p.axis_eps);
-  rk4_linear2<T, false>(p, omega, k, m, one, eps, p.n_interior, P1, w1, P2, w2);
-  if (p.log_tail) {
-    rk4_linear2<T, true>(p, omega, k, m, log(eps), log(T(p.axis_eps_final)),
-                         p.n_axis_log, P1, w1, P2, w2);
-  }
+// The axis condition, the interface values, the K_m exterior, det, the %
+// mismatch and valid from the basis states at eps_final (cylinder.py:352-385)
+template <class T>
+__device__ __forceinline__ void finish(const CylDispParams& p, T omega, T k,
+                                       T m, T C3_1, T F1, T P1, T w1, T P2,
+                                       T w2, T& det, T& mism, bool& valid) {
+  const T zero = T(0);
+  const T one = T(1);
 
   // axis condition: m=0: w(eps)=0; m>=1: P(eps)=0
   const bool is_sausage = m < T(0.5);
@@ -211,16 +223,104 @@ cylinder_disp_kernel(const T* __restrict__ omega_, const T* __restrict__ k_,
   const T J = zero;
   const T m1 = xi1 * P_e - xi_e * one;
   const T m2 = xi2 * P_e - xi_e * zero;
-  det_[i] = a1 * m2 - a2 * m1 + J * xi_e * xi2;
+  det = a1 * m2 - a2 * m1 + J * xi_e * xi2;
 
   // % mismatch of xi_r for the combination meeting the axis condition
   const T B = -(a1 + J * xi_e) / a2;
   const T xi_i = xi1 + B * xi2;
   const T num = fabs(xi_e - xi_i);
   const T den = nan_max(fabs(xi_e), fabs(xi_i));
-  mism_[i] = T(100) * num / den;
-  valid_[i] = m_e > zero;
+  mism = T(100) * num / den;
+  valid = m_e > zero;
 }
+
+template <class T>
+__global__ void __launch_bounds__(128)
+cylinder_disp_kernel(const T* __restrict__ omega_, const T* __restrict__ k_,
+                     const T* __restrict__ m_, T* __restrict__ det_,
+                     T* __restrict__ mism_, bool* __restrict__ valid_,
+                     int64_t n, const __grid_constant__ CylDispParams p) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const T omega = omega_[i];
+  const T k = k_[i];
+  const T m = m_[i];
+  const T zero = T(0);
+  const T one = T(1);
+
+  T C3_1, F1;
+  interface1(p, omega, k, m, C3_1, F1);
+
+  // u1: P(1)=1, P'(1)=0  |  u2: P(1)=0, P'(1)=1  (w = F P')
+  T P1 = one, w1 = zero, P2 = zero, w2 = F1 * one;
+  const T eps = T(p.axis_eps);
+  rk4_linear2<T, false>(p, omega, k, m, one, eps, p.n_interior, P1, w1, P2, w2);
+  if (p.log_tail) {
+    rk4_linear2<T, true>(p, omega, k, m, log(eps), log(T(p.axis_eps_final)),
+                         p.n_axis_log, P1, w1, P2, w2);
+  }
+  T det, mism;
+  bool valid;
+  finish(p, omega, k, m, C3_1, F1, P1, w1, P2, w2, det, mism, valid);
+  det_[i] = det;
+  mism_[i] = mism;
+  valid_[i] = valid;
+}
+
+// The cylinder chain as the fused bisection (bisect.cuh) runs it: steps
+// 0 .. n_interior - 1 in r from 1 to eps, then the log tail in t = ln r;
+// the producers call coef<T, kLog>, the consumer interface1 / rk4_step2 /
+// finish.
+template <class T_>
+struct BisectChain {
+  using T = T_;
+  using Params = CylDispParams;
+  static constexpr int kState = 4;  // (P1, w1, P2, w2)
+  struct Ctx {
+    T C3_1, F1;
+  };
+  const Params& p;
+  int n_int, n_log;
+  T x0i, hi, hhi, h6i;  // r: 1 -> eps
+  T x0l, hl, hhl, h6l;  // t: ln eps -> ln eps_final
+
+  __device__ explicit BisectChain(const Params& p_)
+      : p(p_), n_int(p_.n_interior), n_log(p_.log_tail ? p_.n_axis_log : 0) {
+    const T eps = T(p.axis_eps);
+    x0i = T(1);
+    rk4_spacing(x0i, eps, n_int, hi, hhi, h6i);
+    x0l = log(eps);
+    rk4_spacing(x0l, log(T(p.axis_eps_final)), p.n_axis_log, hl, hhl, h6l);
+  }
+  __device__ int n_steps() const { return n_int + n_log; }
+  __device__ void coef(T omega, T k, T m, int i, int a, T& c0, T& c1) const {
+    if (i < n_int) {
+      eigk::coef<T, false>(p, omega, k, m, rk4_abscissa(x0i, hi, hhi, i, a),
+                           c0, c1);
+    } else {
+      eigk::coef<T, true>(p, omega, k, m,
+                          rk4_abscissa(x0l, hl, hhl, i - n_int, a), c0, c1);
+    }
+  }
+  __device__ void start(T omega, T k, T m, T* y, Ctx& ctx) const {
+    interface1(p, omega, k, m, ctx.C3_1, ctx.F1);
+    y[0] = T(1);
+    y[1] = T(0);
+    y[2] = T(0);
+    y[3] = ctx.F1 * T(1);
+  }
+  __device__ void step(int i, const T* c, int s, T* y) const {
+    const bool in_r = i < n_int;
+    rk4_step2(in_r ? hi : hl, in_r ? hhi : hhl, in_r ? h6i : h6l, c[0], c[s],
+              c[2 * s], c[3 * s], c[4 * s], c[5 * s], y[0], y[1], y[2], y[3]);
+  }
+  __device__ void finish(T omega, T k, T m, const T* y, const Ctx& ctx, T& det,
+                         T& mism) const {
+    bool valid;
+    eigk::finish(p, omega, k, m, ctx.C3_1, ctx.F1, y[0], y[1], y[2], y[3], det,
+                 mism, valid);
+  }
+};
 
 template <class T>
 int launch_cylinder(const void* omega, const void* k, const void* m, void* det,
@@ -255,6 +355,32 @@ int eigk_cylinder_disp_f64(const void* omega, const void* k, const void* m,
                            const eigk::CylDispParams* p, int device,
                            void* stream) {
   return eigk::launch_cylinder<double>(omega, k, m, det, mism, valid, n, p, device, stream);
+}
+
+// Fused bisection of n brackets (lo, hi, k, m): root, and the % mismatch at
+// the root when final_eval (mism may be null otherwise); B brackets per
+// block, P producer warps, C steps per stage, S stages, the register budget
+// of min_blocks blocks of 512 threads per SM.
+int eigk_cylinder_bisect_f32(const void* lo, const void* hi, const void* k,
+                             const void* m, void* root, void* mism,
+                             long long n, int n_iter, int final_eval, int B,
+                             int P, int C, int S, int min_blocks,
+                             const eigk::CylDispParams* p, int device,
+                             void* stream) {
+  return eigk::launch_bisect<eigk::BisectChain<float>>(
+      lo, hi, k, m, root, mism, n, n_iter, final_eval, B, P, C, S, min_blocks,
+      p, device, stream);
+}
+
+int eigk_cylinder_bisect_f64(const void* lo, const void* hi, const void* k,
+                             const void* m, void* root, void* mism,
+                             long long n, int n_iter, int final_eval, int B,
+                             int P, int C, int S, int min_blocks,
+                             const eigk::CylDispParams* p, int device,
+                             void* stream) {
+  return eigk::launch_bisect<eigk::BisectChain<double>>(
+      lo, hi, k, m, root, mism, n, n_iter, final_eval, B, P, C, S, min_blocks,
+      p, device, stream);
 }
 
 // sizeof(CylDispParams), for the Python mirror's layout check

@@ -30,11 +30,24 @@
 // algebraic simplification; c_i(x)^2 is a square root squared), and the
 // build disables FMA contraction (--fmad=false), so the kernel agrees bit
 // for bit with the plain PyTorch version (physics/slab.py) on the card.
+//
+// slab_bisect, the second kernel here, is the fused bracket stage over the
+// same chain: it replaces `eigensolver_tpu/search.py::bisect` (:142-169)
+// and the bisection of `refine_on_cpu` (:468-522) over
+// `physics/slab.py`, which the port ran as n_iter + 2 launches of
+// slab_disp on 5,040 (slab_ph_09) or ~150 (refinement) brackets, each
+// launch one thread's serial chain long. Bound by operations (3 chain
+// evaluations per RK4 step per bracket per evaluation); the design
+// (bisect.cuh) computes the chain in producer warps, which do not depend
+// on the ODE state, and runs the serial update in one consumer lane per
+// bracket, in this file's order (rk4_step, start, finish), so its (root,
+// mismatch) are bit-equal to the launch loop's.
 #include <cmath>
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "bisect.cuh"
 #include "common.cuh"
 
 namespace eigk {
@@ -147,69 +160,95 @@ __device__ __forceinline__ void apply(T a, T b, T y0, T y1, T& f0, T& f1) {
   }
 }
 
+// One RK4 step of the linear system with the chain (a, b) at the step's 3
+// abscissae (A: x, M: x + h/2, B: x + h); shared by the one-thread kernel
+// and the consumer warp of the fused bisection
+template <class T, bool kShear>
+__device__ __forceinline__ void rk4_step(T h, T hh, T h6, T aA, T bA, T aM,
+                                         T bM, T aB, T bB, T& y0, T& y1) {
+  T k10, k11, k20, k21, k30, k31, k40, k41;
+  apply<T, kShear>(aA, bA, y0, y1, k10, k11);
+  apply<T, kShear>(aM, bM, y0 + hh * k10, y1 + hh * k11, k20, k21);
+  apply<T, kShear>(aM, bM, y0 + hh * k20, y1 + hh * k21, k30, k31);
+  apply<T, kShear>(aB, bB, y0 + h * k30, y1 + h * k31, k40, k41);
+  y0 = y0 + h6 * (k10 + T(2) * k20 + T(2) * k30 + k40);
+  y1 = y1 + h6 * (k11 + T(2) * k21 + T(2) * k31 + k41);
+}
+
 // `_rk4_linear_flux` / `_rk4_linear_shear` (slab.py:41-113) from x = 0 to 1
 template <class T, bool kShear>
 __device__ __forceinline__ void rk4(const SlabDispParams& p, T omega, T k,
                                     int n, T& y0, T& y1) {
   const T x0 = T(0);
-  const T h = (T(1) - x0) / T(n);
-  const T hh = T(0.5) * h;
-  const T h6 = h / T(6);
+  T h, hh, h6;
+  rk4_spacing(x0, T(1), n, h, hh, h6);
   for (int i = 0; i < n; ++i) {
     const T x = x0 + T(i) * h;              // not an accumulated x += h
     T aA, bA, aM, bM, aB, bB;
     coef<T, kShear>(p, omega, k, x, aA, bA);
     coef<T, kShear>(p, omega, k, x + hh, aM, bM);
     coef<T, kShear>(p, omega, k, x + h, aB, bB);
-    T k10, k11, k20, k21, k30, k31, k40, k41;
-    apply<T, kShear>(aA, bA, y0, y1, k10, k11);
-    apply<T, kShear>(aM, bM, y0 + hh * k10, y1 + hh * k11, k20, k21);
-    apply<T, kShear>(aM, bM, y0 + hh * k20, y1 + hh * k21, k30, k31);
-    apply<T, kShear>(aB, bB, y0 + h * k30, y1 + h * k31, k40, k41);
-    y0 = y0 + h6 * (k10 + T(2) * k20 + T(2) * k30 + k40);
-    y1 = y1 + h6 * (k11 + T(2) * k21 + T(2) * k31 + k41);
+    rk4_step<T, kShear>(h, hh, h6, aA, bA, aM, bM, aB, bB, y0, y1);
   }
 }
 
+// Start state at the slab centre: flux (vx, w): sausage (par = 0) vx odd,
+// (0, F(0)); kink (1, 0 F(0)), NaN where F(0) is not finite. Shear (vx,
+// vx'): (par, 1 - par).
 template <class T, bool kShear>
-__global__ void __launch_bounds__(128)
-slab_disp_kernel(const T* __restrict__ omega_, const T* __restrict__ k_,
-                 const T* __restrict__ par_, T* __restrict__ det_,
-                 T* __restrict__ mism_, bool* __restrict__ valid_, int64_t n,
-                 const __grid_constant__ SlabDispParams p) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const T omega = omega_[i];
-  const T k = k_[i];
-  const T par = par_[i];
+__device__ __forceinline__ void start(const SlabDispParams& p, T omega, T k,
+                                      T par, T& y0, T& y1) {
+  const T one = T(1);
+  if (!kShear) {
+    const T F0 = interior_F(p, omega, k, T(0));
+    y0 = par * one;
+    y1 = (one - par) * F0;
+  } else {
+    y0 = par;
+    y1 = one - par;
+  }
+}
+
+// What the interface reads besides the state: the exterior coefficients
+// (slab.py:146-165) and the interior Omega at x = 1
+template <class T>
+struct Edge {
+  T Om_e, m_e, p_e, sqm, Om_i;
+};
+
+template <class T>
+__device__ __forceinline__ Edge<T> edge(const SlabDispParams& p, T omega,
+                                        T k) {
+  const T zero = T(0);
+  const T k2 = k * k;
+  Edge<T> e;
+  e.Om_e = omega - k * T(p.U_e);
+  const T Om_e2 = e.Om_e * e.Om_e;
+  e.m_e = (k2 * T(p.vA_e2) - Om_e2) * (k2 * T(p.c_e2) - Om_e2)
+          / (T(p.vAc_e2) * (k2 * T(p.cT_e2) - Om_e2));
+  e.p_e = T(p.pe_coef) * (k2 * T(p.cT_e2) - Om_e2)
+          / (e.Om_e * (k2 * T(p.c_e2) - Om_e2));
+  e.sqm = sqrt(nan_max(e.m_e, zero));
+  T rho1, c2_1, a2_1;
+  local(p, omega, k, T(1), e.Om_i, rho1, c2_1, a2_1);
+  return e;
+}
+
+// The interface at x = 1 from the state (vx_b, y1_b) there: PT_i, the
+// exact decaying exterior, det, the % mismatch and valid (slab.py:383-406)
+template <class T, bool kShear>
+__device__ __forceinline__ void finish(const SlabDispParams& p, T omega, T k,
+                                       const Edge<T>& e, T vx_b, T y1_b,
+                                       T& det, T& mism, bool& valid) {
   const T zero = T(0);
   const T one = T(1);
-  const T k2 = k * k;
+  const T Om_e = e.Om_e, m_e = e.m_e, p_e = e.p_e, sqm = e.sqm;
+  const T Om_i = e.Om_i;
 
-  // exterior coefficients (slab.py:146-165)
-  const T Om_e = omega - k * T(p.U_e);
-  const T Om_e2 = Om_e * Om_e;
-  const T m_e = (k2 * T(p.vA_e2) - Om_e2) * (k2 * T(p.c_e2) - Om_e2)
-              / (T(p.vAc_e2) * (k2 * T(p.cT_e2) - Om_e2));
-  const T p_e = T(p.pe_coef) * (k2 * T(p.cT_e2) - Om_e2)
-              / (Om_e * (k2 * T(p.c_e2) - Om_e2));
-  const T sqm = sqrt(nan_max(m_e, zero));
-
-  T vx_b, y1_b, PT_i;
-  T Om_i, rho1, c2_1, a2_1;
-  local(p, omega, k, one, Om_i, rho1, c2_1, a2_1);
+  T PT_i;
   if (!kShear) {
-    // sausage (par = 0): vx odd, (0, F(0)); kink: (1, 0 F(0)), NaN where
-    // F(0) is not finite
-    const T F0 = interior_F(p, omega, k, zero);
-    vx_b = par * one;
-    y1_b = (one - par) * F0;
-    rk4<T, false>(p, omega, k, p.n_interior, vx_b, y1_b);
     PT_i = y1_b / Om_i;                     // PT = F vx' / Omega = w / Omega
   } else {
-    vx_b = par;
-    y1_b = one - par;
-    rk4<T, true>(p, omega, k, p.n_interior, vx_b, y1_b);
     const T F1 = interior_F(p, omega, k, one);
     if (p.shear_pressure) {
       const T add = -(k * profile_d1(p.flow, one)) / Om_i;
@@ -223,15 +262,73 @@ slab_disp_kernel(const T* __restrict__ omega_, const T* __restrict__ k_,
   const T PT_e = p_e * (-sqm);
   const T xi_e = one / Om_e;
   const T xi_i = vx_b / Om_i;
-  det_[i] = xi_i * PT_e - xi_e * PT_i;
+  det = xi_i * PT_e - xi_e * PT_i;
 
   // reference-style % mismatch of PT once xi is matched
   const T s = xi_e / xi_i;
   const T num = fabs(PT_e - s * PT_i);
   const T den = nan_max(fabs(PT_e), fabs(s * PT_i));
-  mism_[i] = T(100) * num / den;
-  valid_[i] = m_e > zero;
+  mism = T(100) * num / den;
+  valid = m_e > zero;
 }
+
+template <class T, bool kShear>
+__global__ void __launch_bounds__(128)
+slab_disp_kernel(const T* __restrict__ omega_, const T* __restrict__ k_,
+                 const T* __restrict__ par_, T* __restrict__ det_,
+                 T* __restrict__ mism_, bool* __restrict__ valid_, int64_t n,
+                 const __grid_constant__ SlabDispParams p) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const T omega = omega_[i];
+  const T k = k_[i];
+  // the edge values first, as the JAX code orders them: nvcc then keeps
+  // the chain's loop-invariant parameter conversions out of the RK4 loop
+  const Edge<T> e = edge(p, omega, k);
+  T y0, y1;
+  start<T, kShear>(p, omega, k, par_[i], y0, y1);
+  rk4<T, kShear>(p, omega, k, p.n_interior, y0, y1);
+  T det, mism;
+  bool valid;
+  finish<T, kShear>(p, omega, k, e, y0, y1, det, mism, valid);
+  det_[i] = det;
+  mism_[i] = mism;
+  valid_[i] = valid;
+}
+
+// The slab chain as the fused bisection (bisect.cuh) runs it: the
+// producers call coef<T, kShear>, the consumer start / rk4_step / finish.
+template <class T_, bool kShear>
+struct BisectChain {
+  using T = T_;
+  using Params = SlabDispParams;
+  static constexpr int kState = 2;  // (vx, w) flux, (vx, vx') shear
+  struct Ctx {};
+  const Params& p;
+  int n;
+  T h, hh, h6;
+
+  __device__ explicit BisectChain(const Params& p_) : p(p_), n(p_.n_interior) {
+    rk4_spacing(T(0), T(1), n, h, hh, h6);
+  }
+  __device__ int n_steps() const { return n; }
+  __device__ void coef(T omega, T k, T, int i, int a, T& c0, T& c1) const {
+    slab::coef<T, kShear>(p, omega, k, rk4_abscissa(T(0), h, hh, i, a), c0, c1);
+  }
+  __device__ void start(T omega, T k, T par, T* y, Ctx&) const {
+    slab::start<T, kShear>(p, omega, k, par, y[0], y[1]);
+  }
+  __device__ void step(int, const T* c, int s, T* y) const {
+    rk4_step<T, kShear>(h, hh, h6, c[0], c[s], c[2 * s], c[3 * s], c[4 * s],
+                        c[5 * s], y[0], y[1]);
+  }
+  __device__ void finish(T omega, T k, T, const T* y, const Ctx&, T& det,
+                         T& mism) const {
+    bool valid;
+    slab::finish<T, kShear>(p, omega, k, edge(p, omega, k), y[0], y[1], det,
+                            mism, valid);
+  }
+};
 
 template <class T>
 int launch(const void* omega, const void* k, const void* par, void* det,
@@ -258,6 +355,22 @@ int launch(const void* omega, const void* k, const void* par, void* det,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <class T>
+int launch_bisect_slab(const void* lo, const void* hi, const void* k,
+                       const void* par, void* root, void* mism, long long n,
+                       int n_iter, int final_eval, int B, int P, int C, int S,
+                       int min_blocks, const SlabDispParams* p, int device,
+                       void* stream) {
+  if (p->shear) {
+    return launch_bisect<BisectChain<T, true>>(lo, hi, k, par, root, mism, n,
+                                               n_iter, final_eval, B, P, C, S,
+                                               min_blocks, p, device, stream);
+  }
+  return launch_bisect<BisectChain<T, false>>(lo, hi, k, par, root, mism, n,
+                                              n_iter, final_eval, B, P, C, S,
+                                              min_blocks, p, device, stream);
+}
+
 }  // namespace slab
 }  // namespace eigk
 
@@ -276,6 +389,30 @@ int eigk_slab_disp_f64(const void* omega, const void* k, const void* par,
                        const eigk::SlabDispParams* p, int device, void* stream) {
   return eigk::slab::launch<double>(omega, k, par, det, mism, valid, n, p,
                                     device, stream);
+}
+
+// Fused bisection of n brackets (lo, hi, k, parity): root, and the %
+// mismatch at the root when final_eval (mism may be null otherwise); B
+// brackets per block, P producer warps, C steps per stage, S stages, the
+// register budget of min_blocks blocks of 512 threads per SM.
+int eigk_slab_bisect_f32(const void* lo, const void* hi, const void* k,
+                         const void* par, void* root, void* mism, long long n,
+                         int n_iter, int final_eval, int B, int P, int C,
+                         int S, int min_blocks, const eigk::SlabDispParams* p,
+                         int device, void* stream) {
+  return eigk::slab::launch_bisect_slab<float>(lo, hi, k, par, root, mism, n,
+                                               n_iter, final_eval, B, P, C, S,
+                                               min_blocks, p, device, stream);
+}
+
+int eigk_slab_bisect_f64(const void* lo, const void* hi, const void* k,
+                         const void* par, void* root, void* mism, long long n,
+                         int n_iter, int final_eval, int B, int P, int C,
+                         int S, int min_blocks, const eigk::SlabDispParams* p,
+                         int device, void* stream) {
+  return eigk::slab::launch_bisect_slab<double>(lo, hi, k, par, root, mism, n,
+                                                n_iter, final_eval, B, P, C, S,
+                                                min_blocks, p, device, stream);
 }
 
 // sizeof(SlabDispParams), for the Python mirror's layout check

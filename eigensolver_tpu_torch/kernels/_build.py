@@ -29,6 +29,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
+# (lo, hi, k, mode, root, mism, n, n_iter, final_eval, B, P, C, S,
+#  min_blocks, params, device, stream)
+_BISECT_ARGS = ((_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I,
+                 _I, _I, _I, _P, _I, _P), _I)
 _SIGNATURES = {
     # name: (argtypes, restype)
     "eigk_kve_ratio_f32": ((_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P),
@@ -45,6 +50,10 @@ _SIGNATURES = {
     "eigk_slab_disp_f64": ((_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P,
                             ctypes.c_int, _P), ctypes.c_int),
     "eigk_slab_params_size": ((), ctypes.c_longlong),
+    "eigk_slab_bisect_f32": _BISECT_ARGS,
+    "eigk_slab_bisect_f64": _BISECT_ARGS,
+    "eigk_cylinder_bisect_f32": _BISECT_ARGS,
+    "eigk_cylinder_bisect_f64": _BISECT_ARGS,
     "eigk_error_string": ((ctypes.c_int,), ctypes.c_char_p),
 }
 

@@ -1,8 +1,10 @@
 """Host mirror of `csrc/common.cuh::ProfileParams`, shared by the kernel
-wrappers, and the launch checks they share."""
+wrappers, the launch checks they share, and the block shape of the fused
+bisection kernels (`csrc/bisect.cuh`)."""
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -75,3 +77,98 @@ def launch_disp(name: str, entries: dict, size_fn: str, struct,
             ctypes.c_void_p(stream))
         _build.check(code, f"{name} kernel")
     return det, mism, valid
+
+
+class BisectShape(NamedTuple):
+    """Block shape of a fused bisection launch (`csrc/bisect.cuh`)."""
+    brackets: int    # B: brackets per block, one consumer lane each; divides 32
+    producers: int   # P: producer warps, 1..15
+    steps: int       # C: RK4 steps per ring stage
+    stages: int      # S: ring stages, 1..6
+    min_blocks: int  # register budget: 1 (128 a thread) or 2 (64) blocks of
+                     # 512 threads per SM; 0: chosen at launch (bisect.cuh)
+
+
+# SMs of an H100; the bracket batch is cut into at least two blocks per SM
+# where it can be
+_SMS = 132
+# dynamic shared memory a block may use on Hopper
+MAX_SMEM = 227 * 1024
+
+
+def bisect_shape(n: int, dtype: torch.dtype) -> BisectShape:
+    """The block shape for n brackets, from timings on an H100
+    (`tools_torch/tune_bisect.py`, PERF.md section 6): the largest B <= 32
+    that still gives two blocks per SM (B = 1 below 264 brackets); P = 15
+    producer warps for B = 32, 7 for B = 8, 16, else B; 2 stages of C steps,
+    the largest multiple of the producers' rows (32 P / B steps, so that no
+    pass over a stage is partial) up to 64 that lets as many blocks share
+    an SM's shared memory as 64 registers a thread allow; the register
+    budget chosen at launch."""
+    b = 32
+    while b > 1 and -(-n // b) < 2 * _SMS:
+        b //= 2
+    p = 15 if b == 32 else 7 if b >= 8 else b
+    blocks = min(32, 65536 // (64 * 32 * (p + 1)))
+    rows = 32 * p // b
+    c = rows * max(1, 64 // rows)
+    while c > rows and blocks * bisect_smem(BisectShape(b, p, c, 2, 0),
+                                            dtype) > MAX_SMEM:
+        c -= rows
+    return BisectShape(brackets=b, producers=p, steps=c, stages=2,
+                       min_blocks=0)
+
+
+def bisect_smem(shape: BisectShape, dtype: torch.dtype) -> int:
+    """Bytes of dynamic shared memory of a block: 32 omegas and the ring of
+    S stages of C steps x 6 coefficients x B brackets."""
+    b, _, c, s, _ = shape
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return (32 + s * c * 6 * b) * itemsize
+
+
+def _check_shape(name: str, shape: BisectShape, dtype: torch.dtype) -> None:
+    b, p, c, s, min_blocks = shape
+    if not (1 <= b <= 32 and 32 % b == 0 and 1 <= p <= 15 and c >= 1
+            and 1 <= s <= 6 and min_blocks in (0, 1, 2)
+            and bisect_smem(shape, dtype) <= MAX_SMEM):
+        raise ValueError(f"{name}: unsupported block shape {shape}")
+
+
+def launch_bisect(name: str, entries: dict, size_fn: str, struct,
+                  lo: torch.Tensor, hi: torch.Tensor, k: torch.Tensor,
+                  mode: torch.Tensor, n_iter: int, final_eval: bool,
+                  shape: Optional[BisectShape] = None):
+    """Check the bracket tensors of a fused bisection kernel, allocate its
+    outputs and launch it on the current stream (no launch for 0
+    brackets): (root, mismatch), mismatch None unless final_eval."""
+    if lo.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {lo.device}")
+    if lo.dtype not in entries:
+        raise TypeError(f"{name} kernel takes float32/float64, not {lo.dtype}")
+    for arg, t in (("hi", hi), ("k", k), ("mode", mode)):
+        if t.device != lo.device or t.dtype != lo.dtype or t.shape != lo.shape:
+            raise ValueError(f"{name}: {arg} must match lo in device, dtype "
+                             f"and shape")
+    if lo.dim() != 1 or not all(t.is_contiguous() for t in (lo, hi, k, mode)):
+        raise ValueError(f"{name} kernel needs contiguous 1-D tensors")
+    if n_iter < 0:
+        raise ValueError(f"{name}: n_iter must be >= 0, not {n_iter}")
+    n = lo.numel()
+    shape = BisectShape(*(shape or bisect_shape(n, lo.dtype)))
+    _check_shape(name, shape, lo.dtype)
+    root = torch.empty_like(lo)
+    mism = torch.empty_like(lo) if final_eval else None
+    if n:
+        lib = _build.library()
+        if getattr(lib, size_fn)() != ctypes.sizeof(struct):
+            raise RuntimeError(f"{name}: parameter struct layout differs "
+                               f"between Python and CUDA")
+        stream = torch.cuda.current_stream(lo.device).cuda_stream
+        code = getattr(lib, entries[lo.dtype])(
+            *(ctypes.c_void_p(t.data_ptr()) for t in (lo, hi, k, mode, root)),
+            ctypes.c_void_p(None if mism is None else mism.data_ptr()),
+            n, n_iter, int(final_eval), *shape, ctypes.byref(struct),
+            lo.device.index, ctypes.c_void_p(stream))
+        _build.check(code, f"{name} kernel")
+    return root, mism

@@ -1,32 +1,42 @@
-"""Cylinder dispersion determinant: wrapper of the CUDA kernel `cylinder_disp`.
+"""Cylinder dispersion determinant and bisection: wrappers of the CUDA
+kernels `cylinder_disp` and `cylinder_bisect`.
 
-The kernel (`csrc/cylinder_disp.cu`) is the port of the XLA-fused
+`cylinder_disp` (`csrc/cylinder_disp.cu`) is the port of the XLA-fused
 `jit(vmap(disp))` of `eigensolver_tpu/physics/cylinder.py` (cylinder.py:
 236-385, non-twisted, real omega, "bessel" exterior): one thread per
 (omega, k, m) candidate carries the whole interior shoot, the axis tail, the
 inlined K_m-ratio exterior (`csrc/kve_ratio.cuh`, the port of the Pallas
 kernel `kernels/bessel.py::kve_ratio_pallas`) and the determinant in
-registers.
+registers. `cylinder_bisect` (same file, `csrc/bisect.cuh`) runs a whole
+fixed-count bisection of a bracket batch over the same chain in one launch
+(`eigensolver_tpu/search.py:142-169`, :468-522).
 
 A CPU tensor goes to the plain version
-(`physics.cylinder.CylinderPhysics.make_dispersion_plain`); CUDA
-float32/float64 contiguous tensors go to the kernel; anything else raises.
+(`physics.cylinder.CylinderPhysics.make_dispersion_plain`, and
+`search.bisect_loop` over it); CUDA float32/float64 contiguous tensors go to
+the kernels; anything else raises.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import Optional
 
 import torch
 
 from ..config import CaseConfig, ProfileKind
-from .common import ProfileParams, launch_disp, profile_params
+from .common import (BisectShape, ProfileParams, launch_bisect,
+                     launch_disp, profile_params)
 
-# launches of the kernel since the last reset (one per kernel launch)
+# launches of the kernels since the last reset (one per kernel launch):
+# cylinder_disp, and the fused bisection cylinder_bisect
 launches = 0
+bisect_launches = 0
 
 _ENTRY = {torch.float32: "eigk_cylinder_disp_f32",
           torch.float64: "eigk_cylinder_disp_f64"}
+_BISECT_ENTRY = {torch.float32: "eigk_cylinder_bisect_f32",
+                 torch.float64: "eigk_cylinder_bisect_f64"}
 
 
 class _CylParams(ctypes.Structure):
@@ -83,13 +93,41 @@ def cylinder_disp(omega: torch.Tensor, k: torch.Tensor, m: torch.Tensor,
     (omega, k, m) of one dtype and device."""
     global launches
     if omega.device.type == "cpu":
-        from ..physics.cylinder import CylinderPhysics
-        disp = CylinderPhysics.from_case(params.case).make_dispersion_plain(
-            m=None, dtype=omega.dtype)
-        return disp(omega, k, m)
+        return _plain(params, omega.dtype)(omega, k, m)
     from ..physics.cylinder import CylinderInterface
     det, mism, valid = launch_disp(
         "cylinder_disp", _ENTRY, "eigk_cylinder_params_size", params.struct,
         omega, k, m)
     launches += omega.numel() > 0
     return CylinderInterface(det=det, mismatch_pct=mism, valid=valid)
+
+
+def _plain(params: DispParams, dtype: torch.dtype):
+    from ..physics.cylinder import CylinderPhysics
+    return CylinderPhysics.from_case(params.case).make_dispersion_plain(
+        m=None, dtype=dtype)
+
+
+def cylinder_bisect(lo: torch.Tensor, hi: torch.Tensor, k: torch.Tensor,
+                    m: torch.Tensor, n_iter: int, params: DispParams,
+                    final_eval: bool = True,
+                    shape: Optional[BisectShape] = None):
+    """Fixed-count bisection of the brackets [lo, hi] at (k, m), 1-D
+    tensors of one dtype and device: (root, mismatch at the root), mismatch
+    None without final_eval. A CUDA tensor launches the fused kernel
+    `cylinder_bisect` once (block shape `shape`, default
+    `common.bisect_shape`); a CPU tensor runs `search.bisect_loop` over the
+    plain dispersion."""
+    global bisect_launches
+    if lo.dtype not in _BISECT_ENTRY:
+        raise TypeError(f"cylinder_bisect takes float32/float64, not "
+                        f"{lo.dtype}")
+    if lo.device.type == "cpu":
+        from ..search import bisect_loop
+        return bisect_loop(_plain(params, lo.dtype), lo, hi, k, m, n_iter,
+                           final_eval)
+    out = launch_bisect("cylinder_bisect", _BISECT_ENTRY,
+                        "eigk_cylinder_params_size", params.struct, lo, hi, k,
+                        m, n_iter, final_eval, shape)
+    bisect_launches += lo.numel() > 0
+    return out

@@ -1,30 +1,41 @@
-"""Slab dispersion determinant: wrapper of the CUDA kernel `slab_disp`.
+"""Slab dispersion determinant and bisection: wrappers of the CUDA kernels
+`slab_disp` and `slab_bisect`.
 
-The kernel (`csrc/slab_disp.cu`) is the port of the XLA-fused
+`slab_disp` (`csrc/slab_disp.cu`) is the port of the XLA-fused
 `jit(vmap(disp))` of `eigensolver_tpu/physics/slab.py` (slab.py:285-406,
 real omega, exact exterior): one thread per (omega, k, parity) candidate
 carries the whole RK4 shoot from the slab centre to its edge in registers,
 in the flux form (density cases) or the shear form (flow cases).
+`slab_bisect` (same file, `csrc/bisect.cuh`) runs a whole fixed-count
+bisection of a bracket batch over the same chain in one launch
+(`eigensolver_tpu/search.py:142-169`, :468-522).
 
 A CPU tensor goes to the plain version
-(`physics.slab.SlabPhysics.make_dispersion_plain`); CUDA float32/float64
-contiguous tensors go to the kernel; anything else raises.
+(`physics.slab.SlabPhysics.make_dispersion_plain`, and `search.bisect_loop`
+over it); CUDA float32/float64 contiguous tensors go to the kernels;
+anything else raises.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import Optional
 
 import torch
 
 from ..config import CaseConfig, ProfileKind
-from .common import ProfileParams, launch_disp, profile_params
+from .common import (BisectShape, ProfileParams, launch_bisect,
+                     launch_disp, profile_params)
 
-# launches of the kernel since the last reset (one per kernel launch)
+# launches of the kernels since the last reset (one per kernel launch):
+# slab_disp, and the fused bisection slab_bisect
 launches = 0
+bisect_launches = 0
 
 _ENTRY = {torch.float32: "eigk_slab_disp_f32",
           torch.float64: "eigk_slab_disp_f64"}
+_BISECT_ENTRY = {torch.float32: "eigk_slab_bisect_f32",
+                 torch.float64: "eigk_slab_bisect_f64"}
 
 
 class _SlabParams(ctypes.Structure):
@@ -84,14 +95,41 @@ def slab_disp(omega: torch.Tensor, k: torch.Tensor, parity: torch.Tensor,
     """SlabInterface(det, mismatch_pct, valid) of 1-D candidate tensors
     (omega, k, parity) of one dtype and device."""
     global launches
-    from ..physics.slab import SlabInterface, SlabPhysics
+    from ..physics.slab import SlabInterface
     if omega.device.type == "cpu":
-        disp = SlabPhysics.from_case(params.case).make_dispersion_plain(
-            parity=None, dtype=omega.dtype,
-            include_shear_pressure=params.include_shear_pressure)
-        return disp(omega, k, parity)
+        return _plain(params, omega.dtype)(omega, k, parity)
     det, mism, valid = launch_disp(
         "slab_disp", _ENTRY, "eigk_slab_params_size", params.struct,
         omega, k, parity)
     launches += omega.numel() > 0
     return SlabInterface(det=det, mismatch_pct=mism, valid=valid)
+
+
+def _plain(params: DispParams, dtype: torch.dtype):
+    from ..physics.slab import SlabPhysics
+    return SlabPhysics.from_case(params.case).make_dispersion_plain(
+        parity=None, dtype=dtype,
+        include_shear_pressure=params.include_shear_pressure)
+
+
+def slab_bisect(lo: torch.Tensor, hi: torch.Tensor, k: torch.Tensor,
+                parity: torch.Tensor, n_iter: int, params: DispParams,
+                final_eval: bool = True, shape: Optional[BisectShape] = None):
+    """Fixed-count bisection of the brackets [lo, hi] at (k, parity), 1-D
+    tensors of one dtype and device: (root, mismatch at the root), mismatch
+    None without final_eval. A CUDA tensor launches the fused kernel
+    `slab_bisect` once (block shape `shape`, default
+    `common.bisect_shape`); a CPU tensor runs `search.bisect_loop` over the
+    plain dispersion."""
+    global bisect_launches
+    if lo.dtype not in _BISECT_ENTRY:
+        raise TypeError(f"slab_bisect takes float32/float64, not {lo.dtype}")
+    if lo.device.type == "cpu":
+        from ..search import bisect_loop
+        return bisect_loop(_plain(params, lo.dtype), lo, hi, k, parity,
+                           n_iter, final_eval)
+    out = launch_bisect("slab_bisect", _BISECT_ENTRY, "eigk_slab_params_size",
+                        params.struct, lo, hi, k, parity, n_iter, final_eval,
+                        shape)
+    bisect_launches += lo.numel() > 0
+    return out

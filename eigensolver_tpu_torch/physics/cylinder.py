@@ -250,19 +250,40 @@ class CylinderPhysics:
         (0 = sausage, 1 = kink), on 1-D tensors of candidates. With m=None
         the azimuthal order is a third tensor argument, so one call serves
         both mode families. CUDA tensors run the `cylinder_disp` kernel, CPU
-        tensors the plain version."""
+        tensors the plain version.
+
+        The callable carries `disp.bisect(lo, hi, k, m, n_iter,
+        final_eval=True) -> (root, mismatch)`, the whole bisection of a
+        bracket batch (`search.bisect_loop`'s result): one `cylinder_bisect`
+        launch on CUDA tensors (m None for a fixed-m disp)."""
         _check_supported(self.case)
-        from ..kernels.cylinder import cylinder_disp, disp_params
+        from ..kernels.cylinder import cylinder_bisect, cylinder_disp, disp_params
         params = disp_params(self.case)
+
+        def column(m_arg, like):
+            mm = torch.as_tensor(m_arg, dtype=dtype, device=like.device)
+            return mm.expand_as(like).contiguous()
 
         def disp(omega, k, m_arg):
             omega = omega.to(dtype)
-            k = k.to(dtype)
-            mm = torch.as_tensor(m_arg, dtype=dtype, device=omega.device)
-            return cylinder_disp(omega, k, mm.expand_as(omega).contiguous(),
+            return cylinder_disp(omega, k.to(dtype), column(m_arg, omega),
                                  params)
 
+        def bisect(lo, hi, k, m_arg, n_iter, final_eval=True):
+            lo = lo.to(dtype).contiguous()
+            return cylinder_bisect(lo, hi.to(dtype).contiguous(),
+                                   k.to(dtype).contiguous(),
+                                   column(m_arg, lo), n_iter, params,
+                                   final_eval)
+
         if m is None:
+            disp.bisect = bisect
             return disp
         m_const = float(m)
-        return lambda omega, k: disp(omega, k, m_const)
+
+        def fixed(omega, k):
+            return disp(omega, k, m_const)
+
+        fixed.bisect = (lambda lo, hi, k, _none, n_iter, final_eval=True:
+                        bisect(lo, hi, k, m_const, n_iter, final_eval))
+        return fixed

@@ -285,21 +285,42 @@ class SlabPhysics:
         """disp(omega, k[, parity]) -> SlabInterface on 1-D tensors of
         candidates. With parity=None the parity is a third tensor argument,
         so one call serves both mode families. CUDA tensors run the
-        `slab_disp` kernel, CPU tensors the plain version."""
+        `slab_disp` kernel, CPU tensors the plain version.
+
+        The callable carries `disp.bisect(lo, hi, k, parity, n_iter,
+        final_eval=True) -> (root, mismatch)`, the whole bisection of a
+        bracket batch (`search.bisect_loop`'s result): one `slab_bisect`
+        launch on CUDA tensors (parity None for a fixed-parity disp)."""
         _check_supported(self.case)
-        from ..kernels.slab import disp_params, slab_disp
+        from ..kernels.slab import disp_params, slab_bisect, slab_disp
         if include_shear_pressure is None:
             include_shear_pressure = self.case.complex_omega
         params = disp_params(self.case, include_shear_pressure)
 
+        def column(parity_arg, like):
+            par = torch.as_tensor(parity_arg, dtype=dtype, device=like.device)
+            return par.expand_as(like).contiguous()
+
         def disp(omega, k, parity_arg):
             omega = omega.to(dtype)
-            k = k.to(dtype)
-            par = torch.as_tensor(parity_arg, dtype=dtype, device=omega.device)
-            return slab_disp(omega, k, par.expand_as(omega).contiguous(),
+            return slab_disp(omega, k.to(dtype), column(parity_arg, omega),
                              params)
 
+        def bisect(lo, hi, k, parity_arg, n_iter, final_eval=True):
+            lo = lo.to(dtype).contiguous()
+            return slab_bisect(lo, hi.to(dtype).contiguous(),
+                               k.to(dtype).contiguous(),
+                               column(parity_arg, lo), n_iter, params,
+                               final_eval)
+
         if parity is None:
+            disp.bisect = bisect
             return disp
         p_const = float(parity)
-        return lambda omega, k: disp(omega, k, p_const)
+
+        def fixed(omega, k):
+            return disp(omega, k, p_const)
+
+        fixed.bisect = (lambda lo, hi, k, _none, n_iter, final_eval=True:
+                        bisect(lo, hi, k, p_const, n_iter, final_eval))
+        return fixed

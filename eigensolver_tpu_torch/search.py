@@ -115,27 +115,41 @@ def find_brackets(omegas: torch.Tensor, ks: torch.Tensor, det: torch.Tensor,
                         n_in_row=n_in_row)
 
 
-def bisect(disp_batch: Callable, br: BracketBatch, n_iter: int,
-           dtype=torch.float64) -> PolishResult:
-    """Fixed-count bisection of every bracket at once, then one evaluation
-    at the midpoint for the residual."""
-    lo = br.lo.to(dtype)
-    hi = br.hi.to(dtype)
-    k = br.k.to(dtype)
-    md = br.mode
-
-    f_lo = _call_disp(disp_batch, lo, k, md).det
+def bisect_loop(disp_batch: Callable, lo: torch.Tensor, hi: torch.Tensor,
+                k: torch.Tensor, mode: Optional[torch.Tensor], n_iter: int,
+                final_eval: bool = True):
+    """Fixed-count sign bisection of every bracket as a loop of dispersion
+    calls (the JAX package's fori_loop, search.py:152-167): f(lo), n_iter
+    midpoints, root = 0.5 (lo + hi), and with final_eval one evaluation at
+    the root for the % residual. Returns (root, mismatch or None). The
+    fused kernels (`disp.bisect`) compute the same, bit for bit."""
+    f_lo = _call_disp(disp_batch, lo, k, mode).det
     lo_neg = torch.signbit(f_lo)
     for _ in range(n_iter):
         mid = 0.5 * (lo + hi)
-        f_mid = _call_disp(disp_batch, mid, k, md).det
+        f_mid = _call_disp(disp_batch, mid, k, mode).det
         go_right = torch.signbit(f_mid) == lo_neg   # root in [mid, hi]
         lo = torch.where(go_right, mid, lo)
         hi = torch.where(go_right, hi, mid)
     root = 0.5 * (lo + hi)
-    res = _call_disp(disp_batch, root, k, md)
-    return PolishResult(omega=root, k=k, mismatch=res.mismatch_pct,
-                        mask=br.mask, mode=md)
+    if not final_eval:
+        return root, None
+    return root, _call_disp(disp_batch, root, k, mode).mismatch_pct
+
+
+def bisect(disp_batch: Callable, br: BracketBatch, n_iter: int,
+           dtype=torch.float64) -> PolishResult:
+    """Fixed-count bisection of every bracket at once, then one evaluation
+    at the midpoint for the residual, through the dispersion's own entry
+    (`make_dispersion(...).bisect`: one fused launch on the card,
+    `bisect_loop` on the CPU)."""
+    lo = br.lo.to(dtype)
+    hi = br.hi.to(dtype)
+    k = br.k.to(dtype)
+    md = br.mode
+    root, mism = disp_batch.bisect(lo, hi, k, md, n_iter)
+    return PolishResult(omega=root, k=k, mismatch=mism, mask=br.mask,
+                        mode=md)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -241,28 +255,38 @@ def refine_roots_f64(disp64: Callable, omega: torch.Tensor, k: torch.Tensor,
     yet bracket, then bisected n_iter times. Returns (root, bracketed):
     an entry whose window never brackets keeps its input value and is
     marked False - it is not a zero of the f64 dispersion (f32 scan noise),
-    and callers drop it. disp64: batched float64 disp(omega, k[, mode])."""
+    and callers drop it. disp64: a batched float64 `make_dispersion`
+    callable disp(omega, k[, mode]) with its `.bisect` entry.
+
+    The 5 windows' 10 endpoints per root go through one dispersion call and
+    each root takes the first window that brackets, which is what the 4
+    rounds of widening give; then one bisection call (one fused launch on
+    the card) without the final evaluation."""
     om = omega.to(torch.float64)
     kk = k.to(torch.float64)
+    lo, hi, bad = refine_windows(disp64, om, kk, mode, rel_halfwidth)
+    root, _ = disp64.bisect(lo, hi, kk, mode, n_iter, final_eval=False)
+    return root, ~bad
 
-    def neg(x):
-        return torch.signbit(_call_disp(disp64, x, kk, mode).det)
 
-    lo = om * (1.0 - rel_halfwidth)
-    hi = om * (1.0 + rel_halfwidth)
-    w = rel_halfwidth
+def refine_windows(disp64: Callable, om: torch.Tensor, kk: torch.Tensor,
+                   mode: Optional[torch.Tensor], rel_halfwidth: float = 4e-7):
+    """The first of the windows om (1 -+ w), w = rel_halfwidth 8^j, j = 0..4,
+    whose float64 signs bracket, from one dispersion call on all 10
+    endpoints: (lo, hi, bad); a root with none is bad, lo = hi = om."""
+    ws = [rel_halfwidth]
     for _ in range(4):
-        bad = neg(lo) == neg(hi)
-        w = 8.0 * w
-        lo = torch.where(bad, om * (1.0 - w), lo)
-        hi = torch.where(bad, om * (1.0 + w), hi)
-    bad = neg(lo) == neg(hi)
-    lo = torch.where(bad, om, lo)
-    hi = torch.where(bad, om, hi)
-    lo_neg = neg(lo)
-    for _ in range(n_iter):
-        mid = 0.5 * (lo + hi)
-        go_right = neg(mid) == lo_neg
-        lo = torch.where(go_right, mid, lo)
-        hi = torch.where(go_right, hi, mid)
-    return 0.5 * (lo + hi), ~bad
+        ws.append(8.0 * ws[-1])
+    los = torch.stack([om * (1.0 - w) for w in ws])
+    his = torch.stack([om * (1.0 + w) for w in ws])
+    n_w = len(ws)
+    ends = torch.cat([los, his]).reshape(-1)
+    md = None if mode is None else mode.repeat(2 * n_w)
+    neg = torch.signbit(_call_disp(disp64, ends, kk.repeat(2 * n_w), md).det)
+    neg = neg.reshape(2, n_w, -1)
+    brackets = neg[0] != neg[1]                       # (window, root)
+    bad = ~brackets.any(dim=0)
+    first = brackets.to(torch.int8).argmax(dim=0, keepdim=True)
+    lo = torch.where(bad, om, los.gather(0, first)[0])
+    hi = torch.where(bad, om, his.gather(0, first)[0])
+    return lo, hi, bad

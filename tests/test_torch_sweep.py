@@ -78,9 +78,11 @@ def test_card_sweep_runs_the_kernel_and_matches_cpu():
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         cpu, _ = sweep.run_case(case, cfg, device="cpu")
-        plain0, kernel0 = tcyl.plain_calls, kcyl.launches
+        before = (tcyl.plain_calls, kcyl.launches, kcyl.bisect_launches)
         gpu, _ = sweep.run_case(case, cfg, device="cuda")
-    assert (tcyl.plain_calls - plain0, kcyl.launches - kernel0) == (0, 33)
+    # one ladder-scan launch, one fused bisection launch, no plain call
+    assert (tcyl.plain_calls - before[0], kcyl.launches - before[1],
+            kcyl.bisect_launches - before[2]) == (0, 1, 1)
     assert gpu.counts() == cpu.counts()
     for branch in ("sausage", "kink"):
         np.testing.assert_array_equal(gpu[branch].ks, cpu[branch].ks)
@@ -236,9 +238,11 @@ def test_card_slab_sweep_runs_the_kernel_and_matches_cpu():
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         cpu, _ = sweep.run_case(case, cfg, device="cpu")
-        plain0, kernel0 = tslab.plain_calls, kslab.launches
+        before = (tslab.plain_calls, kslab.launches, kslab.bisect_launches)
         gpu, _ = sweep.run_case(case, cfg, device="cuda")
-    assert (tslab.plain_calls - plain0, kslab.launches - kernel0) == (0, 33)
+    # one ladder-scan launch, one fused bisection launch, no plain call
+    assert (tslab.plain_calls - before[0], kslab.launches - before[1],
+            kslab.bisect_launches - before[2]) == (0, 1, 1)
     assert gpu.counts() == cpu.counts()
     for branch in ("sausage", "kink"):
         np.testing.assert_array_equal(gpu[branch].ks, cpu[branch].ks)

@@ -3,7 +3,7 @@
 
     python3 tools_torch/profile_sweep.py [--out PATH]
 
-Runs slab_ph_09 (f32, f64, f32 with refine_f64=True) and cyl_co_09 (f32) at
+Runs slab_ph_09 (f32, f64, f32 with refine_f64=True) and cyl_co_09 (f32, f64) at
 SearchConfig(n_omega=256, n_bisect=18) through `sweep.run_case(...,
 device="cuda")`, each once to warm up and once under `torch.profiler`, and
 prints per run: the wall, the device busy time (sum of the kernels' self
@@ -46,7 +46,8 @@ def main() -> int:
     runs = (("slab_ph_09 f32", slab, f32, False),
             ("slab_ph_09 f64", slab, f64, False),
             ("slab_ph_09 f32 refined", slab, f32, True),
-            ("cyl_co_09 f32", cases.cylinder_density_coronal(0.9), f32, False))
+            ("cyl_co_09 f32", cases.cylinder_density_coronal(0.9), f32, False),
+            ("cyl_co_09 f64", cases.cylinder_density_coronal(0.9), f64, False))
     out = {"nvidia_smi": smi}
     for name, case, cfg, refine in runs:
         sweep.run_case(case, cfg, device="cuda", refine_f64=refine)

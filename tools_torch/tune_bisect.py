@@ -1,0 +1,199 @@
+#!/usr/bin/env python3
+"""Block shapes of the fused bisection kernels, timed on a CUDA card.
+
+    python3 tools_torch/tune_bisect.py [--out PATH]
+
+For the bracket stage of slab_ph_09 and cyl_co_09 (SearchConfig(n_omega=256,
+n_bisect=18), the full sweeps' own brackets, float32 and float64) and for
+the refine stage of the slab_ph_09 float32 sweep (its roots' f64 windows,
+30 iterations), times `slab_bisect` / `cylinder_bisect` at every block shape
+(B brackets per block, P producer warps, C steps per stage, S stages, a
+register budget of 64 or 128 a thread) of a grid, checks that each gives
+the same bits as the default shape (`kernels.common.bisect_shape`), and
+prints per batch the default's time,
+the fastest shapes, the loop of one-thread launches it replaces, and the
+serial floor: the fused kernel on one bracket, per evaluation. Run from the
+repository root; the first line is the card's nvidia-smi name and power
+limit.
+"""
+import argparse
+import dataclasses
+import itertools
+import json
+import math
+import subprocess
+import sys
+import warnings
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of fn() over reps calls, after one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def sweep_brackets(case, cfg, dtype):
+    """The brackets the sweep's bisection gets (scan in the scan dtype on the
+    card), as polish-dtype CUDA tensors (lo, hi, k, mode)."""
+    import torch
+    from eigensolver_tpu_torch import search, sweep
+    omegas, ks = sweep.build_ladders(case, cfg.n_omega)
+    rows = omegas.shape[0]
+    scan_dt = search.torch_dtype(cfg.scan_dtype)
+
+    def dev(a):
+        return torch.from_numpy(a).to(device="cuda", dtype=scan_dt)
+
+    om, kk = dev(np.concatenate([omegas] * 2)), dev(np.concatenate([ks] * 2))
+    md = dev(np.repeat([0.0, 1.0], rows))
+    disp = sweep.make_dispersion_moded(case, scan_dt)
+    det, valid, mism = search.ladder_scan(disp, om, kk, md)
+    br = search.find_brackets(om, kk, det, valid, cfg.max_brackets_per_row,
+                              md, mism=mism)
+    return [x.to(dtype).contiguous() for x in (br.lo, br.hi, br.k, br.mode)]
+
+
+def refine_windows(case, cfg):
+    """The f64 windows of the refine stage of the case's f32 sweep."""
+    import torch
+    from eigensolver_tpu_torch import search, sweep
+    rs, _ = sweep.run_case(case, cfg, device="cuda")
+    om = np.concatenate([rs[b].omegas for b in ("sausage", "kink")])
+    kk = np.concatenate([rs[b].ks for b in ("sausage", "kink")])
+    md = np.concatenate([np.full(len(rs[b].omegas), float(m))
+                         for m, b in enumerate(("sausage", "kink"))])
+    om, kk, md = (torch.from_numpy(x).cuda().double() for x in (om, kk, md))
+    disp64 = sweep.make_dispersion_moded(case, torch.float64)
+    lo, hi, _ = search.refine_windows(disp64, om, kk, md)
+    return [lo, hi, kk, md]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", help="also write the report here as JSON")
+    args = ap.parse_args()
+    sys.path.insert(0, str(ROOT))
+    import torch
+    from eigensolver_tpu_torch import cases, search, sweep
+    from eigensolver_tpu_torch.kernels import common
+    if not torch.cuda.is_available():
+        raise RuntimeError("needs a CUDA card")
+    warnings.simplefilter("ignore")         # saturated-row notices
+    smi = subprocess.run(
+        ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(smi, flush=True)
+    f32 = search.SearchConfig(n_omega=256, n_bisect=18, scan_dtype="float32",
+                              polish_dtype="float32")
+    f64 = dataclasses.replace(f32, scan_dtype="float64", polish_dtype="float64")
+    slab = cases.slab_density_photospheric(0.9)
+    cyl = cases.cylinder_density_coronal(0.9)
+    # the big batches at 64 registers a thread (each default shape also at
+    # 128, and with the budget chosen at launch); the small one at both
+    big = [(b, p, c, 2, 2) for b, p in itertools.product((8, 16, 32),
+                                                         (3, 4, 7, 8, 15))
+           for c in _steps(b, p, (32, 64))]
+    small = [(b, p, c, s, mb) for b, p in itertools.product((1, 2, 4, 8),
+                                                            (1, 2, 4))
+             for c in _steps(b, p, (16, 32, 64)) for s in (2, 3)
+             for mb in (1, 2)]
+    batches = (
+        ("slab_ph_09 f32", slab, sweep_brackets(slab, f32, torch.float32),
+         torch.float32, 18, True, big),
+        ("slab_ph_09 f64", slab, sweep_brackets(slab, f64, torch.float64),
+         torch.float64, 18, True, big),
+        ("cyl_co_09 f32", cyl, sweep_brackets(cyl, f32, torch.float32),
+         torch.float32, 18, True, big),
+        ("cyl_co_09 f64", cyl, sweep_brackets(cyl, f64, torch.float64),
+         torch.float64, 18, True, big),
+        ("slab_ph_09 refine f64", slab, refine_windows(slab, f32),
+         torch.float64, 30, False, small),
+    )
+    out = {"nvidia_smi": smi}
+    for name, case, args_, dtype, n_iter, final, grid in batches:
+        disp = sweep.make_dispersion_moded(case, dtype)
+        n = args_[0].numel()
+        default = common.bisect_shape(n, dtype)
+
+        def fused(shape=None, a=args_):
+            return disp.bisect(*a, n_iter, final) if shape is None else (
+                _fn(case)(*a, n_iter, _params(case), final, shape=shape))
+
+        ref = fused()
+        res = {}
+        for shape in grid + [default, (*default[:4], 1), (*default[:4], 2)]:
+            shape = common.BisectShape(*shape)
+            if shape in res or common.bisect_smem(shape,
+                                                  dtype) > common.MAX_SMEM:
+                continue
+            got = fused(shape)
+            same = all(_same_bits(a, b) for a, b in zip(got, ref)
+                       if a is not None)
+            if not same:
+                raise AssertionError(f"{name}: shape {shape} differs")
+            res[shape] = cuda_ms(lambda: fused(shape), 3)
+        loop_ms = cuda_ms(lambda: search.bisect_loop(disp, *args_, n_iter,
+                                                     final), 1)
+        # one bracket, with 3 x 128 = 384 chain evaluations per stage for
+        # 480 producer threads: the consumer's serial chain sets the pace
+        one = [x[:1].contiguous() for x in args_]
+        n_evals = n_iter + 1 + int(final)
+        floor = cuda_ms(lambda: fused(common.BisectShape(1, 15, 128, 3, 1),
+                                      one), 3) / n_evals
+        best = sorted(res.items(), key=lambda kv: kv[1])[:6]
+        out[name] = {"n": n, "n_iter": n_iter, "default": list(default),
+                     "default_ms": res.get(default, cuda_ms(fused, 3)),
+                     "best": [[list(s), ms] for s, ms in best],
+                     "loop_ms": loop_ms, "floor_ms_per_eval": floor,
+                     "all": {",".join(map(str, s)): ms for s, ms in res.items()}}
+        print(name, json.dumps({k: v for k, v in out[name].items()
+                                if k != "all"}), flush=True)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(out, indent=1))
+    return 0
+
+
+def _steps(b, p, base):
+    """C values of the grid: base, and the multiples of the producers' rows
+    (32 P / B steps per pass over a stage) next below and above 32 and 64,
+    so that no pass is partial."""
+    rows = 32 * p // b
+    return sorted({*base, *(rows * max(1, f(c / rows)) for c in (32, 64)
+                            for f in (math.floor, math.ceil))})
+
+
+def _fn(case):
+    from eigensolver_tpu_torch.kernels import cylinder, slab
+    return (slab.slab_bisect if case.geometry.value == "slab"
+            else cylinder.cylinder_bisect)
+
+
+def _params(case):
+    from eigensolver_tpu_torch.kernels import cylinder, slab
+    if case.geometry.value == "slab":
+        return slab.disp_params(case)
+    return cylinder.disp_params(case)
+
+
+def _same_bits(a, b):
+    return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+if __name__ == "__main__":
+    sys.exit(main())
