@@ -11,13 +11,17 @@ the script exits non-zero:
    (one nvcc per source, in parallel).
 3. kve_ratio: the standalone kernel once on the exterior arguments
    sqrt(m_e) > 0 of the cyl_co_09 ladder (552,600 of 552,960; launch
-   counters reset just before), then held against its plain PyTorch
-   version on 552,960 arguments spanning both of its branches. No sweep
-   launches it: its math runs inside cylinder_disp.
+   counters reset just before), then, at float32 and float64, on four
+   argument sets (series only, CF2 only, 552,960 shuffled over both
+   branches, and the ladder's arguments in ladder order): bit-equal to its
+   plain PyTorch version on each, and timed beside the torch.special call at
+   both types. No sweep launches it: its math runs inside cylinder_disp.
 4. cylinder_disp kernel vs its plain PyTorch version, 8,192 candidates of
    the full cyl_co_09 ladder (n_interior=2048, n_axis_log=128); at the full
    sweep's 552,960 candidates, the kernel's time and, at float32, the plain
-   version's time and agreement.
+   version's time and agreement; the kernel's registers and spills (ptxas)
+   and, printed, the float64 det values whose bits differ from the plain
+   version's.
 5. the cylinder sweep: run_case(cylinder_density_coronal(0.9), n_omega=256,
    n_bisect=18, float32) on the card - once with the launch counters reset
    (exactly one cylinder_disp launch, the ladder scan, and one
@@ -43,9 +47,10 @@ the script exits non-zero:
    (n_iter + 2 launches), both timed; at float32 and n_iter=4, bit-equal to
    the same loop over the plain PyTorch dispersion, which is timed too.
 
-Then one JSON line of the kernels (with each one's bound: operations counted
-from the sources over the card's peak rate, or bytes over its memory rate,
-whichever is longer), the nvidia-smi line, and last
+Then one JSON line of the kernels (with each one's bound: the operations
+the function needs on this run's inputs over the card's peak rate, or its
+bytes over the memory rate, whichever is longer), the nvidia-smi line, and
+last
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -118,15 +123,22 @@ N_BR_SLAB = 35 * 9 * 2 * 8      # 5,040
 N_BISECT = 18
 PLAIN_N_ITER = 4                # the plain loop's iterations in phases 8, 9
 
-# Operations, counted from the sources for the Gaussian density profile of
-# slab_ph_09 and cyl_co_09, each IEEE division, square root, exp and log as
-# one operation: per RK4 step (3 chain evaluations, the state update and the
-# 3 abscissae: csrc/slab_disp.cu flux form, csrc/cylinder_disp.cu in r and on
-# the log tail), per evaluation outside the steps (start state and epilogue,
-# the cylinder's with the inlined K_m ratio), and per kve_ratio argument
-# (csrc/kve_ratio.cuh runs both branches).
-OPS = {"slab_step": 143, "slab_ends": 92, "cyl_step": 234,
-       "cyl_log_step": 243, "cyl_ends": 890, "kve": 795}
+# Operations, the least each function needs, counted from the sources for
+# the Gaussian density profile of slab_ph_09 and cyl_co_09, each IEEE
+# division, square root, exp and log as one operation. The chains' values
+# that depend on the abscissa alone (profile, speeds, their roots; in the
+# cylinder also r r, and r = exp(t) on the log tail) count once per RK4 step
+# and launch ("*_x_step", "cyl_*r_step": 3 abscissae and their forming);
+# per candidate (or bracket per evaluation) and step, the rest of the 3
+# chain evaluations and the state update ("slab_step", "cyl_step",
+# "cyl_log_step"); per evaluation, the start state and the epilogue
+# ("*_ends"), the cylinder's without the K_m ratio, which `kve_ops` counts
+# from its arguments (csrc/kve_ratio.cuh: one branch per argument, the
+# series up to the first term that changes none of its sums).
+OPS = {"slab_x_step": 67, "slab_step": 73, "slab_ends": 93,
+       "cyl_r_step": 70, "cyl_log_r_step": 73, "cyl_step": 155,
+       "cyl_log_step": 161, "cyl_ends": 98,
+       "kve_cf2": 491, "kve_series": 22, "kve_term": 5}
 # NVIDIA H100 SXM data sheet, outside the tensor cores, at 700 W; HBM3 rate
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 HBM_BYTES_S = 3.35e12
@@ -191,13 +203,62 @@ def bound(n_ops: float, n_bytes: float, dtype: str) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def slab_eval_ops(n_interior: int) -> int:
-    return n_interior * OPS["slab_step"] + OPS["slab_ends"]
+def slab_ops(n: int, n_evals: int, n_interior: int) -> int:
+    """Operations of n_evals slab chains on each of n candidates, and the
+    x-only values once."""
+    return (n * n_evals * (n_interior * OPS["slab_step"] + OPS["slab_ends"])
+            + n_interior * OPS["slab_x_step"])
 
 
-def cyl_eval_ops(n_interior: int, n_axis_log: int) -> int:
-    return (n_interior * OPS["cyl_step"] + n_axis_log * OPS["cyl_log_step"]
-            + OPS["cyl_ends"])
+def cyl_ops(n: int, n_evals: int, n_interior: int, n_axis_log: int,
+            z_ext) -> int:
+    """Operations of n_evals cylinder chains on each of n candidates with
+    the exterior arguments z_ext (those of one evaluation), and the r-only
+    values once."""
+    return (n * n_evals * (n_interior * OPS["cyl_step"]
+                           + n_axis_log * OPS["cyl_log_step"]
+                           + OPS["cyl_ends"])
+            + n_evals * kve_ops(z_ext)
+            + n_interior * OPS["cyl_r_step"]
+            + n_axis_log * OPS["cyl_log_r_step"])
+
+
+def kve_ops(z) -> int:
+    """Operations of kve_ratio_both on the arguments z (a tensor): CF2 for
+    |z| >= 2 (and NaN); else the series' fixed part and, in each of its two
+    recursions, every term up to the first that changes none of its sums,
+    which ends it (csrc/kve_ratio.cuh)."""
+    import torch
+    from eigensolver_tpu_torch.profiles import div
+    small = z.abs() < 2
+    zs = z[small]
+    total = (OPS["kve_cf2"] * int((~small).sum())
+             + OPS["kve_series"] * zs.numel())
+    z2 = 0.25 * zs * zs
+    for k1 in (False, True):      # the K_0 recursion, then I_1's and K_1's
+        term = torch.ones_like(zs)
+        a, b = term, term if k1 else torch.zeros_like(zs)
+        hk, hk1 = 0.0, 1.0
+        alive = torch.ones_like(zs, dtype=torch.bool)
+        for j in range(1, 25):
+            term = div(term * z2, j * (j + 1) if k1 else j * j)
+            hk, hk1 = hk + 1.0 / j, hk1 + 1.0 / (j + 1)
+            a_next = a + term
+            b_next = b + term * (hk + hk1 if k1 else hk)
+            total += OPS["kve_term"] * int(alive.sum())
+            alive &= ~((a_next == a) & (b_next == b))
+            a, b = a_next, b_next
+    return total
+
+
+def exterior_args(case, om, k, dtype):
+    """sqrt(max(m_e, floor)), the K_m ratio's arguments of the cylinder
+    candidates (om, k), in dtype."""
+    import torch
+    from eigensolver_tpu_torch.physics.cylinder import CylinderPhysics
+    m_e = CylinderPhysics.from_case(case).exterior_m(om.to(dtype), k.to(dtype))
+    floor = torch.tensor(1e-300, dtype=dtype, device=m_e.device)
+    return torch.sqrt(torch.maximum(m_e, floor))
 
 
 def phase_device():
@@ -233,13 +294,14 @@ def phase_kve_ratio(out: dict):
     from eigensolver_tpu_torch.kernels import bessel
     from eigensolver_tpu_torch.physics.cylinder import CylinderPhysics
     # the exterior arguments sqrt(m_e) the cylinder sweep evaluates (valid
-    # candidates of the cyl_co_09 ladder, both modes), at the sweep's float32
+    # candidates of the cyl_co_09 ladder, both modes, in ladder order)
     case = cases.cylinder_density_coronal(width=0.9)
     om, ks = sweep.build_ladders(case, 256)
     om = torch.from_numpy(np.concatenate([om.ravel()] * 2)).cuda()
     kk = torch.from_numpy(np.repeat(np.concatenate([ks] * 2), 256)).cuda()
     m_e = CylinderPhysics.from_case(case).exterior_m(om, kk)
-    z_path = torch.sqrt(m_e[m_e > 0]).to(torch.float32).contiguous()
+    z_ladder = torch.sqrt(m_e[m_e > 0]).contiguous()
+    z_path = z_ladder.to(torch.float32)
     reset_counters()
     r_path = bessel.kve_ratio_both(z_path)
     torch.cuda.synchronize()
@@ -248,28 +310,37 @@ def phase_kve_ratio(out: dict):
         raise AssertionError("kve_ratio standalone run failed")
 
     rng = np.random.default_rng(0)
-    # both branches: series for |z| < 2, CF2 above
-    z64 = torch.from_numpy(10.0 ** rng.uniform(-2.0, 2.3, N_SWEEP)).cuda()
+    lg2 = float(np.log10(2.0))
+    sets = {  # float64; each cast to the dtype, the series set kept below 2
+        "shuffled": 10.0 ** rng.uniform(-2.0, 2.3, N_SWEEP),
+        "series": np.minimum(10.0 ** rng.uniform(-2.0, lg2, N_SWEEP),
+                             np.nextafter(np.float32(2), np.float32(0))),
+        "cf2": 10.0 ** rng.uniform(lg2, 2.3, N_SWEEP),
+    }
+    sets = {name: torch.from_numpy(z).cuda() for name, z in sets.items()}
+    sets["ladder"] = z_ladder
     res = {"standalone": dict(n=z_path.numel(), launches=standalone)}
-    for dtype, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
-        z = z64.to(dtype)
-        k0, k1 = bessel.kve_ratio_both(z)
-        p0, p1 = special.kve_ratio_both(z)
-        torch.cuda.synchronize()
-        rel = max(float(((k - p).abs() / p.abs()).max())
-                  for k, p in ((k0, p0), (k1, p1)))
-        abs_err = max(float((k - p).abs().max()) for k, p in ((k0, p0), (k1, p1)))
-        if not rel <= rtol:
-            raise AssertionError(f"kve_ratio kernel vs plain ({dtype}): max "
-                                 f"rel err {rel:.3e} > {rtol:g}")
-        name = str(dtype).split(".")[-1]
-        res[name] = dict(
-            max_rel_err=rel, max_abs_err=abs_err, rtol=rtol,
-            ms=cuda_ms(lambda: bessel.kve_ratio_both(z), 20),
-            plain_ms=cuda_ms(lambda: special.kve_ratio_both(z), 3),
-            library_ms=cuda_ms(lambda: _library_kve_ratio(z), 20))
+    for name, z64 in sets.items():
+        for dtype in (torch.float32, torch.float64):
+            z = z64.to(dtype)
+            pairs = [(k.cpu().numpy(), p.cpu().numpy()) for k, p in zip(
+                bessel.kve_ratio_both(z), special.kve_ratio_both(z))]
+            differ = sum(int((~_same_bits(k, p)).sum()) for k, p in pairs)
+            if differ:
+                raise AssertionError(f"kve_ratio {name} {dtype}: {differ} "
+                                     f"values differ from the plain version")
+            res[f"{name} {str(dtype)[6:]}"] = dict(
+                n=z.numel(), n_series=int((z.abs() < 2).sum()),
+                bits_differ=differ,
+                max_abs_err=max(float(np.nanmax(np.abs(k - p)))
+                                for k, p in pairs),
+                ms=cuda_ms(lambda: bessel.kve_ratio_both(z), 20),
+                library_ms=cuda_ms(lambda: _library_kve_ratio(z), 20),
+                plain_ms=cuda_ms(lambda: special.kve_ratio_both(z), 2),
+                **bound(kve_ops(z), z.numel() * 3 * z.element_size(),
+                        str(dtype)[6:]))
     out["kve_ratio"] = res
-    line("phase 3 kve_ratio vs plain", n=N_SWEEP, **res)
+    line("phase 3 kve_ratio vs plain", **res)
 
 
 def _library_kve_ratio(z):
@@ -299,7 +370,8 @@ def _compare_disp(what: str, kres, pres, f64: bool) -> dict:
     version's.
 
     f64: det and mismatch to rtol 1e-9 away from poles (|det| > 1e6 x the
-    median is masked). f32: det and mismatch bit-equal everywhere (NaN where
+    median is masked); the det values whose bits differ are counted, not
+    held. f32: det and mismatch bit-equal everywhere (NaN where
     the plain version has NaN), as the kernels are designed to be (no FMA,
     the plain version's expression order); the det signs where |det| > 1e-3
     x the median are counted as well."""
@@ -318,6 +390,7 @@ def _compare_disp(what: str, kres, pres, f64: bool) -> dict:
              max_abs_err_det=float(np.max(np.abs(kd - pd)[ok])))
     if f64:
         km, pm = kmis.cpu().numpy(), pmis.cpu().numpy()
+        r["det_bits_differ"] = int((~_same_bits(kd, pd)).sum())   # printed
         r["max_rel_err_det"] = float(np.max(np.abs(kd - pd)[ok] / np.abs(pd)[ok]))
         r["max_rel_err_mismatch"] = float(np.nanmax(
             np.abs(km - pm)[ok] / np.abs(pm)[ok]))
@@ -369,10 +442,16 @@ def phase_cylinder_disp(out: dict):
     # kernel on the same candidates
     om_f, k_f, m_f = _ladder_candidates(case, N_SWEEP, seed=2)
     full = {}
+    g = case.grid
     for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[-1]
         args = [x.to(dtype) for x in (om_f, k_f, m_f)]
         kern = ph.make_dispersion(m=None, dtype=dtype)
-        full[str(dtype).split(".")[-1]] = cuda_ms(lambda: kern(*args), 3)
+        full[name] = cuda_ms(lambda: kern(*args), 3)
+        full[f"bound_{name}"] = bound(
+            cyl_ops(N_SWEEP, 1, g.n_interior, g.n_axis_log,
+                    exterior_args(case, om_f, k_f, dtype)),
+            N_SWEEP * (5 * args[0].element_size() + 1), name)
     args = [x.to(torch.float32) for x in (om_f, k_f, m_f)]
     kres = ph.make_dispersion(m=None, dtype=torch.float32)(*args)
     plain = ph.make_dispersion_plain(m=None, dtype=torch.float32)
@@ -384,8 +463,36 @@ def phase_cylinder_disp(out: dict):
     full["check_float32"] = _compare_disp("cylinder_disp full float32", kres,
                                           pres, f64=False)
     res["full_ms"] = full
+    res["ptxas"] = ptxas_report("cylinder_disp_kernel")
     out["cylinder_disp"] = res
     line("phase 4 cylinder_disp vs plain", **res)
+
+
+def ptxas_report(kernel: str) -> dict:
+    """Registers and spill bytes of each instantiation of `kernel`, from
+    the build's ptxas report (-Xptxas -v), keyed by type and block size."""
+    import re
+    from eigensolver_tpu_torch.kernels import _build
+    log = _build.library_path().with_suffix(".log").read_text()
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1) if kernel in m.group(1) else None
+            continue
+        if name is None:
+            continue
+        t = re.search(kernel + r"I([fd])Li(\d+)E", name)
+        key = (f"{'float32' if t.group(1) == 'f' else 'float64'} {t.group(2)}"
+               if t else name)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            out.setdefault(key, {}).update(spill_stores=int(m.group(1)),
+                                           spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.setdefault(key, {})["registers"] = int(m.group(1))
+    return out
 
 
 def _check_counts(what: str, counts: dict, refs) -> dict:
@@ -678,11 +785,13 @@ def sweep_brackets(case, dtype):
     return [x.contiguous() for x in (br.lo, br.hi, br.k, br.mode)]
 
 
-def phase_bisect(out: dict, phase: str, name: str, case, plain, n_br: int):
+def phase_bisect(out: dict, phase: str, name: str, case, plain, n_br: int,
+                 ops):
     """The fused bracket stage `name` on the case's own brackets: (root,
     mismatch) bit-equal to the loop of one-thread launches at float32 and
     float64 (both timed), and at float32 with n_iter=PLAIN_N_ITER to the
-    loop over the plain dispersion `plain(dtype)` (timed once)."""
+    loop over the plain dispersion `plain(dtype)` (timed once); the bound
+    from `ops(brackets, dtype)`, the operations of the launch."""
     import torch
     from eigensolver_tpu_torch import search, sweep
     res = {}
@@ -707,7 +816,9 @@ def phase_bisect(out: dict, phase: str, name: str, case, plain, n_br: int):
                  mismatch_bits_differ=differ[1],
                  ms=cuda_ms(lambda: disp.bisect(*br, N_BISECT), 5),
                  loop_ms=cuda_ms(lambda: search.bisect_loop(disp, *br,
-                                                            N_BISECT), 2))
+                                                            N_BISECT), 2),
+                 **bound(ops(br, dtype), n_br * 6 * br[0].element_size(),
+                         dname))
         if dtype == torch.float32:
             pdisp = plain(dtype)
             fused4 = disp.bisect(*br, PLAIN_N_ITER)
@@ -755,14 +866,21 @@ def main() -> int:
     from eigensolver_tpu_torch.physics.slab import SlabPhysics
     cyl_case = cases.cylinder_density_coronal(0.9)
     slab_case = cases.slab_density_photospheric(0.9)
+    cg, sg = cyl_case.grid, slab_case.grid
+    n_evals = N_BISECT + 2
+    # the K_m ratio of each evaluation counted at the bracket's lower end
     phase_bisect(out, "phase 8 cylinder_bisect", "cylinder_bisect", cyl_case,
                  lambda dt: CylinderPhysics.from_case(
                      cyl_case).make_dispersion_plain(m=None, dtype=dt),
-                 N_BR_CYL)
+                 N_BR_CYL,
+                 lambda br, dt: cyl_ops(
+                     N_BR_CYL, n_evals, cg.n_interior, cg.n_axis_log,
+                     exterior_args(cyl_case, br[0], br[2], dt)))
     phase_bisect(out, "phase 9 slab_bisect", "slab_bisect", slab_case,
                  lambda dt: SlabPhysics.from_case(
                      slab_case).make_dispersion_plain(parity=None, dtype=dt),
-                 N_BR_SLAB)
+                 N_BR_SLAB,
+                 lambda br, dt: slab_ops(N_BR_SLAB, n_evals, sg.n_interior))
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
@@ -771,8 +889,7 @@ def main() -> int:
     slab = out["slab_disp"]["full_ms"]
     cbis = out["cylinder_bisect"]["float32"]
     sbis = out["slab_bisect"]["float32"]
-    cg, sg = cyl_case.grid, slab_case.grid
-    n_evals = N_BISECT + 2
+    kve_f32 = kve["shuffled float32"]
     kernels = [{
         "name": "cylinder_disp",
         "route": "cuda",
@@ -785,8 +902,7 @@ def main() -> int:
         "max_abs_err": cyl["check_float32"]["max_abs_err_det"],
         "ms": cyl["float32"],
         "plain_ms": cyl["plain_float32"],
-        **bound(N_SWEEP * cyl_eval_ops(cg.n_interior, cg.n_axis_log),
-                N_SWEEP * (5 * 4 + 1), "float32"),
+        **cyl["bound_float32"],
         "library_ms": None,
     }, {
         "name": "kve_ratio",
@@ -795,17 +911,18 @@ def main() -> int:
         "replaces": "eigensolver_tpu/kernels/bessel.py:125",
         # no main path launches it: its math (csrc/kve_ratio.cuh) runs inside
         # cylinder_disp's thread. Its own launch is phase 3's standalone run
-        # on the cylinder sweep's exterior arguments, which the other numbers
-        # here are from.
+        # on the cylinder sweep's exterior arguments; the other numbers here
+        # are from phase 3's 552,960 shuffled float32 arguments.
         "launches": cyl_launches["kve_ratio"] + slab_launches["kve_ratio"],
         "inlined_in": "cylinder_disp",
         "standalone_launches": kve["standalone"]["launches"],
-        "max_abs_err": kve["float32"]["max_abs_err"],
-        "ms": kve["float32"]["ms"],
-        "plain_ms": kve["float32"]["plain_ms"],
-        **bound(N_SWEEP * OPS["kve"], N_SWEEP * 3 * 4, "float32"),
+        "max_abs_err": kve_f32["max_abs_err"],
+        "ms": kve_f32["ms"],
+        "plain_ms": kve_f32["plain_ms"],
+        "bound_ms": kve_f32["bound_ms"],
+        "bound_by": kve_f32["bound_by"],
         # torch.special.modified_bessel_k0/_k1 and the ratios, a yardstick
-        "library_ms": kve["float32"]["library_ms"],
+        "library_ms": kve_f32["library_ms"],
     }, {
         "name": "slab_disp",
         "route": "cuda",
@@ -817,7 +934,7 @@ def main() -> int:
         "max_abs_err": slab["check_float32"]["max_abs_err_det"],
         "ms": slab["float32"],
         "plain_ms": slab["plain_float32"],
-        **bound(N_SLAB * slab_eval_ops(sg.n_interior), N_SLAB * (5 * 4 + 1),
+        **bound(slab_ops(N_SLAB, 1, sg.n_interior), N_SLAB * (5 * 4 + 1),
                 "float32"),
         "library_ms": None,
     }, {
@@ -834,9 +951,8 @@ def main() -> int:
         "plain_n_iter": PLAIN_N_ITER,
         "ms_plain_n_iter": cbis["ms_plain_n_iter"],
         "launch_loop_ms": cbis["loop_ms"],
-        **bound(N_BR_CYL * n_evals * cyl_eval_ops(cg.n_interior,
-                                                   cg.n_axis_log),
-                N_BR_CYL * 6 * 4, "float32"),
+        "bound_ms": cbis["bound_ms"],
+        "bound_by": cbis["bound_by"],
         "library_ms": None,
     }, {
         "name": "slab_bisect",
@@ -851,8 +967,8 @@ def main() -> int:
         "plain_n_iter": PLAIN_N_ITER,
         "ms_plain_n_iter": sbis["ms_plain_n_iter"],
         "launch_loop_ms": sbis["loop_ms"],
-        **bound(N_BR_SLAB * n_evals * slab_eval_ops(sg.n_interior),
-                N_BR_SLAB * 6 * 4, "float32"),
+        "bound_ms": sbis["bound_ms"],
+        "bound_by": sbis["bound_by"],
         "library_ms": None,
     }]
     if args.json_out:

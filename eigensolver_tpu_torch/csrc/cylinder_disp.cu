@@ -1,4 +1,4 @@
-// Cylinder dispersion determinant, one thread per (omega, k, m) candidate.
+// Cylinder dispersion determinant over a batch of (omega, k, m) candidates.
 //
 // Port of the XLA program `jit(vmap(disp))` of
 // `eigensolver_tpu/physics/cylinder.py::CylinderPhysics.make_dispersion`
@@ -6,8 +6,8 @@
 // (`eigensolver_tpu/sweep.py::make_dispersion_moded`), for the non-twisted,
 // real-omega cases with the analytic ("bessel") exterior. On the TPU the
 // interior was an XLA-fused `lax.scan` and the exterior either fused XLA or
-// the Pallas kernel `kernels/bessel.py::kve_ratio_pallas`; here the whole
-// candidate runs in registers of one thread:
+// the Pallas kernel `kernels/bessel.py::kve_ratio_pallas`; here each
+// candidate's state stays in the registers of one thread:
 //   two-basis state (P1, w1, P2, w2) from u0 = (1, 0, 0, F(1));
 //   n_interior RK4 steps of `_rk4_linear2` from r = 1 to eps, the
 //   coefficient chain evaluated at the 3 distinct abscissae per step;
@@ -18,14 +18,20 @@
 //   determinant and the % mismatch.
 //
 // What bounds it on Hopper: per candidate, (n_interior + n_axis_log) * 3
-// evaluations of the Hain-Lust chain (~10 divisions, 3 square roots and an
-// exp each) plus the RK4 updates, against 24 bytes in and 17 bytes out.
-// It is arithmetic- and latency-bound (f64 divisions and square roots are
-// multi-instruction sequences); memory traffic is negligible, so there is no
-// tiling, shared memory, TMA or wgmma: nothing here is a matrix product.
-// The design keeps every temporary in registers and reads the equilibrium
-// as scalars from the kernel parameters, evaluating the profile closed
-// forms inline (no tables in device memory).
+// evaluations of the Hain-Lust chain plus the RK4 updates, against 24 bytes
+// in and 17 bytes out: operations, not memory. Much of the chain depends on
+// r alone (cylinder.py:113-127): rho, vA, c_i, sqrt(rho), c_i^2 + vA^2 and
+// its square root, U(r), r r, and r = exp(t) on the tail - every exp, every
+// square root and 3 of the 8 divisions of an evaluation. And r itself comes
+// from the launch parameters only. So the scan (cylinder_disp_kernel) keeps
+// a table of those values in shared memory: each block computes them for a
+// chunk of steps cooperatively, one abscissa per thread, into a
+// double-buffered ring (one barrier per chunk), and every thread reads them
+// as warp-uniform broadcasts. What stays per candidate and abscissa is the
+// shift, alpha, the cusp speed, the D, A, C2 products and 1/F, g: 5
+// divisions, no square root, no exp. The plain PyTorch version computes the
+// r-only values once per abscissa as 0-d tensors, in this order, so the
+// table gives its bits.
 //
 // Arithmetic order follows the JAX code expression for expression (no
 // algebraic simplification), and the build disables FMA contraction
@@ -52,7 +58,8 @@
 // (bisect.cuh) computes the chain in producer warps, which do not depend
 // on the ODE state, and runs the serial two-basis update in one consumer
 // lane per bracket, in this file's order (interface1, rk4_step2, finish),
-// so its (root, mismatch) are bit-equal to the launch loop's.
+// so its (root, mismatch) are bit-equal to the launch loop's. Its
+// producers compute both parts of the chain per bracket.
 #include <cmath>
 #include <cstdint>
 
@@ -82,59 +89,84 @@ struct CylDispParams {
   int log_tail;          // integrate the t = ln r tail eps -> eps_final
 };
 
-// D, A, C2 of the Hain-Lust chain at radius r (cylinder.py:110-168 with
-// v_phi == B_phi == 0; equilibrium.py:225-242 inline).
+// The values of the Hain-Lust chain that depend on the radius alone
+// (cylinder.py:113-127; equilibrium.py:225-242 inline): one entry of the
+// scan's table. 16-byte aligned, so a thread reads an entry in a few
+// vector loads.
 template <class T>
-__device__ __forceinline__ void hain_lust(const CylDispParams& p, T omega, T k,
-                                          T m, T r, T& D, T& A, T& C2) {
-  T rho, vA, ci;
-  density_speeds(p.rho, p.uniform_density, p.vA_i0, p.c_i0, p.rho_i0,
-                 p.c2_num, p.half_g, r, rho, vA, ci);
-  const T U = p.zero_flow ? T(0) : profile(p.flow, r);
+struct alignas(16) RPoint {
+  T r, rr, rho, sqrt_rho, ci, csum, sqrt_csum, rho_csum, U;
+};
 
-  const T shift = omega - k * U;            // omega - m v_phi/r - k U
-  const T alf = k * T(p.B_0) / sqrt(rho);   // m B_phi/r + k B_z/sqrt(rho)
-  const T csum = ci * ci + vA * vA;
-  const T cusp = alf * ci / sqrt(csum);
+template <class T>
+__device__ __forceinline__ RPoint<T> r_point(const CylDispParams& p, T r) {
+  RPoint<T> q;
+  T vA;
+  density_speeds(p.rho, p.uniform_density, p.vA_i0, p.c_i0, p.rho_i0,
+                 p.c2_num, p.half_g, r, q.rho, vA, q.ci);
+  q.U = p.zero_flow ? T(0) : profile(p.flow, r);
+  q.r = r;
+  q.rr = r * r;
+  q.sqrt_rho = sqrt(q.rho);
+  q.csum = q.ci * q.ci + vA * vA;
+  q.sqrt_csum = sqrt(q.csum);
+  q.rho_csum = q.rho * q.csum;
+  return q;
+}
+
+// A candidate as the chain reads it, with the products of k and m that
+// every abscissa repeats
+template <class T>
+struct Cand {
+  T omega, k, m, kB0, k2, mm;
+  __device__ Cand(const CylDispParams& p, T omega_, T k_, T m_)
+      : omega(omega_), k(k_), m(m_), kB0(k_ * T(p.B_0)), k2(k_ * k_),
+        mm(m_ * m_) {}
+};
+
+// D, A, C2 of the Hain-Lust chain at the radius of q (cylinder.py:110-168
+// with v_phi == B_phi == 0)
+template <class T>
+__device__ __forceinline__ void hain_lust(const RPoint<T>& q, const Cand<T>& c,
+                                          T& D, T& A, T& C2) {
+  const T shift = c.omega - c.k * q.U;      // omega - m v_phi/r - k U
+  const T alf = c.kB0 / q.sqrt_rho;         // m B_phi/r + k B_z/sqrt(rho)
+  const T cusp = alf * q.ci / q.sqrt_csum;
   const T s2 = shift * shift;
   const T da = s2 - alf * alf;
   const T dc = s2 - cusp * cusp;
-  D = rho * csum * da * dc;
-  A = rho * da;                             // + r dC3diff/dr == 0
-  C2 = s2 * s2 - csum * (m * m / (r * r) + k * k) * dc;
+  D = q.rho_csum * da * dc;
+  A = q.rho * da;                           // + r dC3diff/dr == 0
+  C2 = s2 * s2 - q.csum * (c.mm / q.rr + c.k2) * dc;
 }
 
-// invF_g (cylinder.py:189-208): (1/F, g) at radius r
-template <class T>
-__device__ __forceinline__ void invF_g(const CylDispParams& p, T omega, T k,
-                                       T m, T r, T& iF, T& g) {
+// invF_g (cylinder.py:189-208): (1/F, g) at the radius of q; on the log
+// tail (kLog) the coefficients in t = ln r, (r iF, r g) (cylinder.py:273-279)
+template <class T, bool kLog>
+__device__ __forceinline__ void invF_g(const RPoint<T>& q, const Cand<T>& c,
+                                       T& iF, T& g) {
   T D, A, C2;
-  hain_lust(p, omega, k, m, r, D, A, C2);
+  hain_lust(q, c, D, A, C2);
   const T C3 = D * A + T(0);               // + B, B == 0
   const T c1c3 = zero_over(C3);            // C1^2/C3 and d(r C1/C3)/dr
-  iF = A / r + zero_over(r * D);           // A/r + B/(r D)
-  g = -c1c3 - r * (C2 - c1c3) / D;
+  iF = A / q.r + zero_over(q.r * D);       // A/r + B/(r D)
+  g = -c1c3 - q.r * (C2 - c1c3) / D;
+  if (kLog) {
+    iF = q.r * iF;
+    g = q.r * g;
+  }
 }
 
-// Coefficients of the linear system at abscissa x: (iF, g) in r, or
-// (r iF, r g) at r = exp(t) on the log tail (cylinder.py:273-279).
+// The radius at abscissa x: x in r, exp(x) on the log tail
 template <class T, bool kLog>
-__device__ __forceinline__ void coef(const CylDispParams& p, T omega, T k, T m,
-                                     T x, T& iF, T& g) {
-  if (kLog) {
-    const T r = exp(x);
-    invF_g(p, omega, k, m, r, iF, g);
-    iF = r * iF;
-    g = r * g;
-  } else {
-    invF_g(p, omega, k, m, x, iF, g);
-  }
+__device__ __forceinline__ T radius(T x) {
+  return kLog ? exp(x) : x;
 }
 
 // One step of `_rk4_linear2` (cylinder.py:50-85): classical RK4 for the
 // two-basis linear system d(P, w)/dx = (w iF, g P) with the coefficients at
-// the step's 3 abscissae (A: x, M: x + h/2, B: x + h); shared by the
-// one-thread kernel and the consumer warp of the fused bisection.
+// the step's 3 abscissae (A: x, M: x + h/2, B: x + h); shared by the scan
+// and the consumer warp of the fused bisection.
 template <class T>
 __device__ __forceinline__ void rk4_step2(T h, T hh, T h6, T iFA, T gA, T iFM,
                                           T gM, T iFB, T gB, T& P1, T& w1,
@@ -160,30 +192,33 @@ __device__ __forceinline__ void rk4_step2(T h, T hh, T h6, T iFA, T gA, T iFM,
   w2 = w2 + h6 * (k1w2 + T(2) * k2w2 + T(2) * k3w2 + k4w2);
 }
 
-// `_rk4_linear2` from x0 to x1 in n steps, coefficients at x, x + h/2, x + h
-template <class T, bool kLog>
-__device__ __forceinline__ void rk4_linear2(const CylDispParams& p, T omega,
-                                            T k, T m, T x0, T x1, int n,
-                                            T& P1, T& w1, T& P2, T& w2) {
-  T h, hh, h6;
-  rk4_spacing(x0, x1, n, h, hh, h6);
-  for (int i = 0; i < n; ++i) {
-    const T x = x0 + T(i) * h;              // not an accumulated x += h
-    T iFA, gA, iFM, gM, iFB, gB;
-    coef<T, kLog>(p, omega, k, m, x, iFA, gA);
-    coef<T, kLog>(p, omega, k, m, x + hh, iFM, gM);
-    coef<T, kLog>(p, omega, k, m, x + h, iFB, gB);
-    rk4_step2(h, hh, h6, iFA, gA, iFM, gM, iFB, gB, P1, w1, P2, w2);
+// The integration grid: n_int steps in r from 1 to eps, then n_log steps
+// in t = ln r from ln eps to ln eps_final (none without the log tail); the
+// abscissae are formed as `_rk4_linear2` forms them (common.cuh:
+// rk4_abscissa)
+template <class T>
+struct Grid {
+  int n_int, n_log;
+  T x0i, hi, hhi, h6i;  // r: 1 -> eps
+  T x0l, hl, hhl, h6l;  // t: ln eps -> ln eps_final
+
+  __device__ explicit Grid(const CylDispParams& p)
+      : n_int(p.n_interior), n_log(p.log_tail ? p.n_axis_log : 0) {
+    const T eps = T(p.axis_eps);
+    x0i = T(1);
+    rk4_spacing(x0i, eps, n_int, hi, hhi, h6i);
+    x0l = log(eps);
+    rk4_spacing(x0l, log(T(p.axis_eps_final)), p.n_axis_log, hl, hhl, h6l);
   }
-}
+};
 
 // interface chain at r = 1: C3(1) and F(1) = r D / C3
 template <class T>
-__device__ __forceinline__ void interface1(const CylDispParams& p, T omega,
-                                           T k, T m, T& C3_1, T& F1) {
+__device__ __forceinline__ void interface1(const CylDispParams& p,
+                                           const Cand<T>& c, T& C3_1, T& F1) {
   const T one = T(1);
   T D1, A1, C2_1;
-  hain_lust(p, omega, k, m, one, D1, A1, C2_1);
+  hain_lust(r_point(p, one), c, D1, A1, C2_1);
   C3_1 = D1 * A1 + T(0);
   F1 = one * D1 / C3_1;
 }
@@ -234,43 +269,107 @@ __device__ __forceinline__ void finish(const CylDispParams& p, T omega, T k,
   valid = m_e > zero;
 }
 
+// The scan's chunks: steps [c C, c C + C) of the r part for c < nci, then
+// the log tail's; a chunk never spans both
+struct Chunk {
+  bool log;
+  int i0, count;
+};
+
 template <class T>
-__global__ void __launch_bounds__(128)
+__device__ __forceinline__ Chunk chunk_at(const Grid<T>& g, int nci, int C,
+                                          int c) {
+  if (c < nci) return {false, c * C, min(C, g.n_int - c * C)};
+  const int i0 = (c - nci) * C;
+  return {true, i0, min(C, g.n_log - i0)};
+}
+
+// The block fills the table entries of a chunk, 3 per step (A, M, B), one
+// entry per thread at a time
+template <class T>
+__device__ __forceinline__ void fill_chunk(const CylDispParams& p,
+                                           const Grid<T>& g, const Chunk& ch,
+                                           RPoint<T>* dst) {
+  for (int e = threadIdx.x; e < 3 * ch.count; e += blockDim.x) {
+    const int i = ch.i0 + e / 3, a = e % 3;
+    dst[e] = ch.log ? r_point(p, radius<T, true>(
+                                     rk4_abscissa(g.x0l, g.hl, g.hhl, i, a)))
+                    : r_point(p, rk4_abscissa(g.x0i, g.hi, g.hhi, i, a));
+  }
+}
+
+// A candidate's RK4 steps over one chunk of the table
+template <class T, bool kLog>
+__device__ __forceinline__ void run_chunk(const RPoint<T>* q, int count, T h,
+                                          T hh, T h6, const Cand<T>& c, T& P1,
+                                          T& w1, T& P2, T& w2) {
+  for (int j = 0; j < count; ++j, q += 3) {
+    T iFA, gA, iFM, gM, iFB, gB;
+    invF_g<T, kLog>(q[0], c, iFA, gA);
+    invF_g<T, kLog>(q[1], c, iFM, gM);
+    invF_g<T, kLog>(q[2], c, iFB, gB);
+    rk4_step2(h, hh, h6, iFA, gA, iFM, gM, iFB, gB, P1, w1, P2, w2);
+  }
+}
+
+// The ladder scan: one thread per candidate, kThreads per block, the
+// r-only table in chunks of `chunk` steps (dynamic shared memory: 2 x 3
+// chunk entries). Threads past n evaluate a copy of the last candidate, so
+// that every thread reaches the block's barriers, and store nothing.
+template <class T, int kThreads>
+__global__ void __launch_bounds__(kThreads)
 cylinder_disp_kernel(const T* __restrict__ omega_, const T* __restrict__ k_,
                      const T* __restrict__ m_, T* __restrict__ det_,
                      T* __restrict__ mism_, bool* __restrict__ valid_,
-                     int64_t n, const __grid_constant__ CylDispParams p) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const T omega = omega_[i];
-  const T k = k_[i];
-  const T m = m_[i];
-  const T zero = T(0);
-  const T one = T(1);
+                     int64_t n, int chunk,
+                     const __grid_constant__ CylDispParams p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  RPoint<T>* table = reinterpret_cast<RPoint<T>*>(smem_raw);
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t idx = i < n ? i : n - 1;
+  const Cand<T> c(p, omega_[idx], k_[idx], m_[idx]);
+  const Grid<T> g(p);
 
   T C3_1, F1;
-  interface1(p, omega, k, m, C3_1, F1);
+  interface1(p, c, C3_1, F1);
 
   // u1: P(1)=1, P'(1)=0  |  u2: P(1)=0, P'(1)=1  (w = F P')
-  T P1 = one, w1 = zero, P2 = zero, w2 = F1 * one;
-  const T eps = T(p.axis_eps);
-  rk4_linear2<T, false>(p, omega, k, m, one, eps, p.n_interior, P1, w1, P2, w2);
-  if (p.log_tail) {
-    rk4_linear2<T, true>(p, omega, k, m, log(eps), log(T(p.axis_eps_final)),
-                         p.n_axis_log, P1, w1, P2, w2);
+  T P1 = T(1), w1 = T(0), P2 = T(0), w2 = F1 * T(1);
+  const int nci = (g.n_int + chunk - 1) / chunk;
+  const int n_chunks = nci + (g.n_log + chunk - 1) / chunk;
+  const int slot = 3 * chunk;
+  if (n_chunks > 0) fill_chunk(p, g, chunk_at(g, nci, chunk, 0), table);
+  __syncthreads();
+  for (int ci = 0; ci < n_chunks; ++ci) {
+    // fill the other buffer while this one is read: the barrier below
+    // publishes it and retires this one
+    if (ci + 1 < n_chunks) {
+      fill_chunk(p, g, chunk_at(g, nci, chunk, ci + 1),
+                 table + ((ci + 1) & 1) * slot);
+    }
+    const Chunk ch = chunk_at(g, nci, chunk, ci);
+    const RPoint<T>* q = table + (ci & 1) * slot;
+    if (ch.log) {
+      run_chunk<T, true>(q, ch.count, g.hl, g.hhl, g.h6l, c, P1, w1, P2, w2);
+    } else {
+      run_chunk<T, false>(q, ch.count, g.hi, g.hhi, g.h6i, c, P1, w1, P2, w2);
+    }
+    __syncthreads();
   }
   T det, mism;
   bool valid;
-  finish(p, omega, k, m, C3_1, F1, P1, w1, P2, w2, det, mism, valid);
-  det_[i] = det;
-  mism_[i] = mism;
-  valid_[i] = valid;
+  finish(p, c.omega, c.k, c.m, C3_1, F1, P1, w1, P2, w2, det, mism, valid);
+  if (i < n) {
+    det_[i] = det;
+    mism_[i] = mism;
+    valid_[i] = valid;
+  }
 }
 
 // The cylinder chain as the fused bisection (bisect.cuh) runs it: steps
 // 0 .. n_interior - 1 in r from 1 to eps, then the log tail in t = ln r;
-// the producers call coef<T, kLog>, the consumer interface1 / rk4_step2 /
-// finish.
+// the producers compute both parts of the chain (r_point, invF_g) per
+// bracket, the consumer runs interface1 / rk4_step2 / finish.
 template <class T_>
 struct BisectChain {
   using T = T_;
@@ -280,39 +379,34 @@ struct BisectChain {
     T C3_1, F1;
   };
   const Params& p;
-  int n_int, n_log;
-  T x0i, hi, hhi, h6i;  // r: 1 -> eps
-  T x0l, hl, hhl, h6l;  // t: ln eps -> ln eps_final
+  Grid<T> g;
 
-  __device__ explicit BisectChain(const Params& p_)
-      : p(p_), n_int(p_.n_interior), n_log(p_.log_tail ? p_.n_axis_log : 0) {
-    const T eps = T(p.axis_eps);
-    x0i = T(1);
-    rk4_spacing(x0i, eps, n_int, hi, hhi, h6i);
-    x0l = log(eps);
-    rk4_spacing(x0l, log(T(p.axis_eps_final)), p.n_axis_log, hl, hhl, h6l);
-  }
-  __device__ int n_steps() const { return n_int + n_log; }
+  __device__ explicit BisectChain(const Params& p_) : p(p_), g(p_) {}
+  __device__ int n_steps() const { return g.n_int + g.n_log; }
   __device__ void coef(T omega, T k, T m, int i, int a, T& c0, T& c1) const {
-    if (i < n_int) {
-      eigk::coef<T, false>(p, omega, k, m, rk4_abscissa(x0i, hi, hhi, i, a),
-                           c0, c1);
+    const Cand<T> c(p, omega, k, m);
+    if (i < g.n_int) {
+      invF_g<T, false>(r_point(p, rk4_abscissa(g.x0i, g.hi, g.hhi, i, a)), c,
+                       c0, c1);
     } else {
-      eigk::coef<T, true>(p, omega, k, m,
-                          rk4_abscissa(x0l, hl, hhl, i - n_int, a), c0, c1);
+      invF_g<T, true>(
+          r_point(p, radius<T, true>(
+                         rk4_abscissa(g.x0l, g.hl, g.hhl, i - g.n_int, a))),
+          c, c0, c1);
     }
   }
   __device__ void start(T omega, T k, T m, T* y, Ctx& ctx) const {
-    interface1(p, omega, k, m, ctx.C3_1, ctx.F1);
+    interface1(p, Cand<T>(p, omega, k, m), ctx.C3_1, ctx.F1);
     y[0] = T(1);
     y[1] = T(0);
     y[2] = T(0);
     y[3] = ctx.F1 * T(1);
   }
   __device__ void step(int i, const T* c, int s, T* y) const {
-    const bool in_r = i < n_int;
-    rk4_step2(in_r ? hi : hl, in_r ? hhi : hhl, in_r ? h6i : h6l, c[0], c[s],
-              c[2 * s], c[3 * s], c[4 * s], c[5 * s], y[0], y[1], y[2], y[3]);
+    const bool in_r = i < g.n_int;
+    rk4_step2(in_r ? g.hi : g.hl, in_r ? g.hhi : g.hhl, in_r ? g.h6i : g.h6l,
+              c[0], c[s], c[2 * s], c[3 * s], c[4 * s], c[5 * s], y[0], y[1],
+              y[2], y[3]);
   }
   __device__ void finish(T omega, T k, T m, const T* y, const Ctx& ctx, T& det,
                          T& mism) const {
@@ -322,39 +416,81 @@ struct BisectChain {
   }
 };
 
-template <class T>
-int launch_cylinder(const void* omega, const void* k, const void* m, void* det,
-           void* mism, void* valid, long long n, const CylDispParams* p,
-           int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  constexpr int kThreads = 128;
+template <class T, int kThreads>
+cudaError_t launch_scan(const void* omega, const void* k, const void* m,
+                        void* det, void* mism, void* valid, long long n,
+                        int chunk, size_t smem, const CylDispParams* p,
+                        cudaStream_t stream) {
+  auto* kern = cylinder_disp_kernel<T, kThreads>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
   const long long blocks = (n + kThreads - 1) / kThreads;
-  cylinder_disp_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
+  kern<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
       static_cast<const T*>(omega), static_cast<const T*>(k),
       static_cast<const T*>(m), static_cast<T*>(det), static_cast<T*>(mism),
-      static_cast<bool*>(valid), n, *p);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<bool*>(valid), n, chunk, *p);
+  return cudaGetLastError();
+}
+
+// The scan of n candidates with `threads` (128, 256 or 512) a block and
+// chunks of `chunk` steps; returns the cudaError_t
+template <class T>
+int launch_cylinder(const void* omega, const void* k, const void* m, void* det,
+                    void* mism, void* valid, long long n, int threads,
+                    int chunk, const CylDispParams* p, int device,
+                    void* stream) {
+  const size_t smem = 2 * 3 * static_cast<size_t>(chunk) * sizeof(RPoint<T>);
+  if (n <= 0 || chunk < 1 || smem > 227 * 1024) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (threads) {
+    case 128:
+      err = launch_scan<T, 128>(omega, k, m, det, mism, valid, n,
+                                            chunk, smem, p, s);
+      break;
+    case 256:
+      err = launch_scan<T, 256>(omega, k, m, det, mism, valid, n,
+                                            chunk, smem, p, s);
+      break;
+    case 512:
+      err = launch_scan<T, 512>(omega, k, m, det, mism, valid, n,
+                                            chunk, smem, p, s);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace eigk
 
 extern "C" {
 
-// Each entry returns the cudaError_t of the launch (0 on success); n > 0.
+// Each entry returns the cudaError_t of the launch (0 on success); n > 0;
+// threads 128, 256 or 512 a block, chunks of `chunk` table steps.
 int eigk_cylinder_disp_f32(const void* omega, const void* k, const void* m,
                            void* det, void* mism, void* valid, long long n,
+                           int threads, int chunk,
                            const eigk::CylDispParams* p, int device,
                            void* stream) {
-  return eigk::launch_cylinder<float>(omega, k, m, det, mism, valid, n, p, device, stream);
+  return eigk::launch_cylinder<float>(omega, k, m, det, mism, valid, n,
+                                      threads, chunk, p, device, stream);
 }
 
 int eigk_cylinder_disp_f64(const void* omega, const void* k, const void* m,
                            void* det, void* mism, void* valid, long long n,
+                           int threads, int chunk,
                            const eigk::CylDispParams* p, int device,
                            void* stream) {
-  return eigk::launch_cylinder<double>(omega, k, m, det, mism, valid, n, p, device, stream);
+  return eigk::launch_cylinder<double>(omega, k, m, det, mism, valid, n,
+                                       threads, chunk, p, device, stream);
 }
 
 // Fused bisection of n brackets (lo, hi, k, m): root, and the % mismatch at

@@ -40,10 +40,12 @@ _SIGNATURES = {
                            ctypes.c_int),
     "eigk_kve_ratio_f64": ((_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P),
                            ctypes.c_int),
-    "eigk_cylinder_disp_f32": ((_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P,
-                                ctypes.c_int, _P), ctypes.c_int),
-    "eigk_cylinder_disp_f64": ((_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P,
-                                ctypes.c_int, _P), ctypes.c_int),
+    # (omega, k, m, det, mism, valid, n, threads, chunk, params, device,
+    #  stream)
+    "eigk_cylinder_disp_f32": ((_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I,
+                                _I, _P, _I, _P), _I),
+    "eigk_cylinder_disp_f64": ((_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I,
+                                _I, _P, _I, _P), _I),
     "eigk_cylinder_params_size": ((), ctypes.c_longlong),
     "eigk_slab_disp_f32": ((_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P,
                             ctypes.c_int, _P), ctypes.c_int),

@@ -42,11 +42,13 @@ def profile_params(cfg: ProfileConfig, f0: float, fe: float) -> ProfileParams:
 
 
 def launch_disp(name: str, entries: dict, size_fn: str, struct,
-                omega: torch.Tensor, k: torch.Tensor, mode: torch.Tensor):
+                omega: torch.Tensor, k: torch.Tensor, mode: torch.Tensor,
+                shape: tuple = ()):
     """Check the candidate tensors of a dispersion kernel, allocate its
     outputs and launch it on the current stream (no launch for 0
     candidates): (det, mismatch, valid). `mode` is the per-candidate mode
-    column (azimuthal order or parity)."""
+    column (azimuthal order or parity); `shape`, the kernel's integer launch
+    arguments between the count and the parameters."""
     if omega.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {omega.device}")
     if omega.dtype not in entries:
@@ -73,7 +75,7 @@ def launch_disp(name: str, entries: dict, size_fn: str, struct,
             ctypes.c_void_p(omega.data_ptr()), ctypes.c_void_p(k.data_ptr()),
             ctypes.c_void_p(mode.data_ptr()), ctypes.c_void_p(det.data_ptr()),
             ctypes.c_void_p(mism.data_ptr()), ctypes.c_void_p(valid.data_ptr()),
-            n, ctypes.byref(struct), omega.device.index,
+            n, *shape, ctypes.byref(struct), omega.device.index,
             ctypes.c_void_p(stream))
         _build.check(code, f"{name} kernel")
     return det, mism, valid

@@ -7,9 +7,11 @@ kernels `cylinder_disp` and `cylinder_bisect`.
 (omega, k, m) candidate carries the whole interior shoot, the axis tail, the
 inlined K_m-ratio exterior (`csrc/kve_ratio.cuh`, the port of the Pallas
 kernel `kernels/bessel.py::kve_ratio_pallas`) and the determinant in
-registers. `cylinder_bisect` (same file, `csrc/bisect.cuh`) runs a whole
-fixed-count bisection of a bracket batch over the same chain in one launch
-(`eigensolver_tpu/search.py:142-169`, :468-522).
+registers, reading the chain's r-only values from a table that its block
+computes in shared memory, chunk by chunk. `cylinder_bisect` (same file,
+`csrc/bisect.cuh`) runs a whole fixed-count bisection of a bracket batch
+over the same chain in one launch (`eigensolver_tpu/search.py:142-169`,
+:468-522).
 
 A CPU tensor goes to the plain version
 (`physics.cylinder.CylinderPhysics.make_dispersion_plain`, and
@@ -20,7 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -87,17 +89,45 @@ def disp_params(case: CaseConfig) -> DispParams:
     return DispParams(case=case, struct=s)
 
 
+class ScanShape(NamedTuple):
+    """Launch shape of the scan kernel `cylinder_disp`."""
+    threads: int     # candidates (threads) per block: 128, 256 or 512
+    chunk: int       # RK4 steps per chunk of the shared-memory table
+
+
+# the sizes of RPoint<T> (csrc/cylinder_disp.cu): 9 values, 16-byte aligned
+_ENTRY_BYTES = {torch.float32: 48, torch.float64: 80}
+_MAX_SMEM = 227 * 1024
+
+
+# The scan's launch shape: within 1% of the fastest of 15 shapes at both
+# types on an H100 at the cyl_co_09 sweep's 552,960 candidates
+# (`tools_torch/tune_disp.py`, PERF.md section 6)
+SCAN_SHAPE = ScanShape(threads=256, chunk=64)
+
+
+def _check_scan_shape(shape: ScanShape, dtype: torch.dtype) -> None:
+    threads, chunk = shape
+    if not (threads in (128, 256, 512) and chunk >= 1
+            and 2 * 3 * chunk * _ENTRY_BYTES[dtype] <= _MAX_SMEM):
+        raise ValueError(f"cylinder_disp: unsupported launch shape {shape}")
+
+
 def cylinder_disp(omega: torch.Tensor, k: torch.Tensor, m: torch.Tensor,
-                  params: DispParams):
+                  params: DispParams, shape: Optional[ScanShape] = None):
     """CylinderInterface(det, mismatch_pct, valid) of 1-D candidate tensors
-    (omega, k, m) of one dtype and device."""
+    (omega, k, m) of one dtype and device; on the card with the launch
+    shape `shape` (default `SCAN_SHAPE`)."""
     global launches
     if omega.device.type == "cpu":
         return _plain(params, omega.dtype)(omega, k, m)
     from ..physics.cylinder import CylinderInterface
+    shape = ScanShape(*(shape or SCAN_SHAPE))
+    if omega.dtype in _ENTRY:     # launch_disp raises on the others
+        _check_scan_shape(shape, omega.dtype)
     det, mism, valid = launch_disp(
         "cylinder_disp", _ENTRY, "eigk_cylinder_params_size", params.struct,
-        omega, k, m)
+        omega, k, m, shape)
     launches += omega.numel() > 0
     return CylinderInterface(det=det, mismatch_pct=mism, valid=valid)
 

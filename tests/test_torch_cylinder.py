@@ -134,6 +134,16 @@ def test_cpu_tensors_take_the_plain_version():
                            kcyl.disp_params(case))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_scan_shape_fits_the_card(dtype):
+    """The default launch shape is one the kernel is built for and its
+    table fits a block's shared memory; other shapes are refused."""
+    kcyl._check_scan_shape(kcyl.SCAN_SHAPE, dtype)
+    for bad in ((96, 32), (256, 0), (1024, 32), (256, 1000)):
+        with pytest.raises(ValueError, match="launch shape"):
+            kcyl._check_scan_shape(kcyl.ScanShape(*bad), dtype)
+
+
 @pytest.mark.gpu
 @pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA card")
 def test_kernel_matches_plain_on_card():
@@ -152,3 +162,31 @@ def test_kernel_matches_plain_on_card():
     np.testing.assert_allclose(kd[ok], pd[ok], rtol=1e-9, atol=0)
     np.testing.assert_allclose(kmis.cpu().numpy()[ok], pmis.cpu().numpy()[ok],
                                rtol=1e-9, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA card")
+def test_kernel_bit_equal_to_plain_f32_on_card():
+    """float32: the scan's (det, mismatch, valid) are the plain version's
+    bits, with a candidate count and step counts that are no multiple of a
+    block or a table chunk, at several launch shapes."""
+    full = config.from_jax(jcases.cylinder_density_coronal(0.9))
+    case = dataclasses.replace(full, grid=dataclasses.replace(
+        full.grid, n_interior=250, n_axis_log=30))
+    om, k, m = candidates(reduced_case(), 1001, seed=6)
+    args = [torch.from_numpy(x).to(device="cuda", dtype=torch.float32)
+            for x in (om, k, m)]
+    ph = tcyl.CylinderPhysics.from_case(case)
+    want = ph.make_dispersion_plain(m=None, dtype=torch.float32)(*args)
+    params = kcyl.disp_params(case)
+    for shape in (None, (128, 7), (256, 32), (512, 64), (256, 300)):
+        before = kcyl.launches
+        got = kcyl.cylinder_disp(*args, params, shape=shape)
+        torch.cuda.synchronize()
+        assert kcyl.launches == before + 1
+        assert torch.equal(got.valid, want.valid), shape
+        for a, b in ((got.det, want.det), (got.mismatch_pct, want.mismatch_pct)):
+            same = (a == b) | (a.isnan() & b.isnan())
+            assert bool(same.all()), (shape, int((~same).sum()))
+    with pytest.raises(ValueError, match="launch shape"):
+        kcyl.cylinder_disp(*args, params, shape=(96, 32))

@@ -63,20 +63,44 @@ def test_matches_pallas_kernel_interpret():
     np.testing.assert_allclose(g1, p1, rtol=1e-5)
 
 
+def _card_sets(dtype):
+    """Argument sets of the card test, as numpy arrays of `dtype`: series
+    only, CF2 only, 2 -+ 1 ulp, small z (whose float32 series terms
+    underflow), a shuffled mix of all, each 4099 long (no multiple of the
+    kernel's 256-argument block), and a 257-long mix."""
+    rng = np.random.default_rng(2)
+    two = dtype(2.0)
+    below = np.nextafter(two, dtype(0.0))
+    series = np.minimum(10.0 ** rng.uniform(-2.0, np.log10(2.0), 4099),
+                        below).astype(dtype)
+    cf2 = np.maximum(10.0 ** rng.uniform(np.log10(2.0), 2.3, 4099),
+                     two).astype(dtype)
+    edge = np.resize(np.array([below, two, np.nextafter(two, dtype(4.0))],
+                              dtype), 4099)
+    small = (10.0 ** rng.uniform(-3.0, -1.0, 4099)).astype(dtype)
+    mix = rng.permutation(np.concatenate([series, cf2, edge, small]))
+    return {"series": series, "cf2": cf2, "edge": edge, "small": small,
+            "mix": mix[:4099], "mix_257": mix[-257:]}
+
+
 @pytest.mark.gpu
 @pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA card")
-@pytest.mark.parametrize("dtype, rtol", [(torch.float64, 1e-12),
-                                         (torch.float32, 1e-5)])
-def test_kernel_matches_plain_on_card(dtype, rtol):
-    z = torch.from_numpy(np.random.default_rng(2).uniform(0.05, 200, 4099))
-    z = z.to(device="cuda", dtype=dtype)
-    before = bessel.launches
-    k0, k1 = bessel.kve_ratio_both(z)
-    torch.cuda.synchronize()
-    assert bessel.launches == before + 1
-    p0, p1 = special.kve_ratio_both(z)
-    torch.testing.assert_close(k0, p0, rtol=rtol, atol=0)
-    torch.testing.assert_close(k1, p1, rtol=rtol, atol=0)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kernel_matches_plain_on_card(dtype):
+    """The kernel gives the plain version's bits on every argument set."""
+    np_dtype = {torch.float64: np.float64, torch.float32: np.float32}[dtype]
+    for name, zs in _card_sets(np_dtype).items():
+        z = torch.from_numpy(zs).cuda()
+        before = bessel.launches
+        k0, k1 = bessel.kve_ratio_both(z)
+        torch.cuda.synchronize()
+        assert bessel.launches == before + 1
+        p0, p1 = special.kve_ratio_both(z)
+        for k, p in ((k0, p0), (k1, p1)):
+            assert k.dtype == dtype
+            same = (k == p) | (k.isnan() & p.isnan())
+            assert bool(same.all()), (name, int((~same).sum()))
+    z = torch.from_numpy(_card_sets(np_dtype)["mix"]).cuda()
     with pytest.raises(ValueError, match="contiguous"):
         bessel.kve_ratio_both(z[::2])
     with pytest.raises(TypeError):
