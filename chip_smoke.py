@@ -31,16 +31,22 @@ the script exits non-zero:
    the card held against the same sweep on the CPU.
 6. slab_disp kernel vs its plain version, 8,192 candidates of the full
    slab_ph_09 ladder (flux form) and of slab_flow_gaussian_coronal (shear
-   form); at slab_ph_09's 161,280 candidates, the kernel's time and, at
-   float32, the plain version's time and agreement.
+   form); at each sweep's scan size (161,280 and 179,200 candidates) and
+   at float32 and float64, the kernel's time, its bound, and the plain
+   version's time and bits on the same candidates; the same at the size of
+   the refine stage's float64 window launch (the 1,530 window ends of the
+   slab_ph_09 float32 sweep's roots); the launch shape of each, and the
+   kernel's registers and spills (ptxas). Every set bit-equal at both
+   types.
 7. the slab sweep: run_case(slab_density_photospheric(0.9), n_omega=256,
    n_bisect=18, float32) with the counters reset (one slab_disp and one
    slab_bisect launch, never the plain dispersion), 3 timed runs, one
-   float64 run, float64 sweeps of the two flow cases, one float32 sweep
-   with refine_f64=True (4 launches: the scan, the bracket stage, the f64
-   refine windows and the f64 refine bisection); counts per branch held
-   against the JAX package's; reduced sweeps on the card (float64, and
-   float32 refined in float64) held against the same sweeps on the CPU.
+   float64 run, float64 sweeps of the two flow cases, float32 sweeps with
+   refine_f64=True (4 launches each: the scan, the bracket stage, the f64
+   refine windows and the f64 refine bisection; once, then 3 timed runs);
+   counts per branch held against the JAX package's; reduced sweeps on the
+   card (float64, and float32 refined in float64) held against the same
+   sweeps on the CPU.
 8. cylinder_bisect and 9. slab_bisect, the fused bracket stage, on the full
    sweeps' own brackets (17,280 and 5,040) at float32 and float64: (root,
    mismatch) bit-equal to search.bisect_loop over the one-thread kernel
@@ -70,6 +76,7 @@ ROOT = Path(__file__).resolve().parent
 
 N_SWEEP = 90 * 12 * 256 * 2     # cyl_co_09 candidates per sweep: 552,960
 N_SLAB = 35 * 9 * 256 * 2       # slab_ph_09 candidates per sweep: 161,280
+N_FLOW = 35 * 10 * 256 * 2      # slab_flow_gaussian_coronal's: 179,200
 N_DISP_CHECK = 8192
 # Root counts per branch of run_case on the same case and config, each with
 # the band per branch that the evidence supports (None: printed beside, not
@@ -124,18 +131,22 @@ N_BISECT = 18
 PLAIN_N_ITER = 4                # the plain loop's iterations in phases 8, 9
 
 # Operations, the least each function needs, counted from the sources for
-# the Gaussian density profile of slab_ph_09 and cyl_co_09, each IEEE
-# division, square root, exp and log as one operation. The chains' values
-# that depend on the abscissa alone (profile, speeds, their roots; in the
-# cylinder also r r, and r = exp(t) on the log tail) count once per RK4 step
-# and launch ("*_x_step", "cyl_*r_step": 3 abscissae and their forming);
-# per candidate (or bracket per evaluation) and step, the rest of the 3
-# chain evaluations and the state update ("slab_step", "cyl_step",
-# "cyl_log_step"); per evaluation, the start state and the epilogue
+# the Gaussian density profile of slab_ph_09 and cyl_co_09 and the Gaussian
+# flow of slab_flow_gaussian_coronal (uniform density, corrected D), each
+# IEEE division, square root, exp and log as one operation. The chains'
+# values that depend on the abscissa alone (profile, speeds, their roots;
+# U, U', U'' from one exp; in the cylinder also r r, and r = exp(t) on the
+# log tail) count once per RK4 step and launch ("*_x_step", "cyl_*r_step":
+# 3 abscissae and their forming); per candidate (or bracket per evaluation)
+# and step, the rest of the 3 chain evaluations and the state update
+# ("slab_step", "slab_shear_step", "cyl_step", "cyl_log_step"; the
+# products of k alone, and in the slab's flux form, where U == 0, Omega^2,
+# once per candidate); per evaluation, the start state and the epilogue
 # ("*_ends"), the cylinder's without the K_m ratio, which `kve_ops` counts
 # from its arguments (csrc/kve_ratio.cuh: one branch per argument, the
 # series up to the first term that changes none of its sums).
-OPS = {"slab_x_step": 67, "slab_step": 73, "slab_ends": 93,
+OPS = {"slab_x_step": 67, "slab_step": 61, "slab_ends": 93,
+       "slab_shear_x_step": 40, "slab_shear_step": 114, "slab_shear_ends": 64,
        "cyl_r_step": 70, "cyl_log_r_step": 73, "cyl_step": 155,
        "cyl_log_step": 161, "cyl_ends": 98,
        "kve_cf2": 491, "kve_series": 22, "kve_term": 5}
@@ -203,11 +214,13 @@ def bound(n_ops: float, n_bytes: float, dtype: str) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def slab_ops(n: int, n_evals: int, n_interior: int) -> int:
-    """Operations of n_evals slab chains on each of n candidates, and the
-    x-only values once."""
-    return (n * n_evals * (n_interior * OPS["slab_step"] + OPS["slab_ends"])
-            + n_interior * OPS["slab_x_step"])
+def slab_ops(n: int, n_evals: int, n_interior: int,
+             shear: bool = False) -> int:
+    """Operations of n_evals slab chains (the flux or the shear form) on
+    each of n candidates, and the x-only values once."""
+    f = "slab_shear_" if shear else "slab_"
+    return (n * n_evals * (n_interior * OPS[f + "step"] + OPS[f + "ends"])
+            + n_interior * OPS[f + "x_step"])
 
 
 def cyl_ops(n: int, n_evals: int, n_interior: int, n_axis_log: int,
@@ -365,13 +378,14 @@ def _ladder_candidates(case, n, seed):
     return [torch.from_numpy(x).cuda() for x in (om[row, col], ks[row], m)]
 
 
-def _compare_disp(what: str, kres, pres, f64: bool) -> dict:
+def _compare_disp(what: str, kres, pres, f64: bool,
+                  bits: bool = False) -> dict:
     """Hold a dispersion kernel's (det, mismatch, valid) against the plain
     version's.
 
     f64: det and mismatch to rtol 1e-9 away from poles (|det| > 1e6 x the
-    median is masked); the det values whose bits differ are counted, not
-    held. f32: det and mismatch bit-equal everywhere (NaN where
+    median is masked); the values whose bits differ are counted, and held
+    to 0 with `bits`. f32: det and mismatch bit-equal everywhere (NaN where
     the plain version has NaN), as the kernels are designed to be (no FMA,
     the plain version's expression order); the det signs where |det| > 1e-3
     x the median are counted as well."""
@@ -390,13 +404,16 @@ def _compare_disp(what: str, kres, pres, f64: bool) -> dict:
              max_abs_err_det=float(np.max(np.abs(kd - pd)[ok])))
     if f64:
         km, pm = kmis.cpu().numpy(), pmis.cpu().numpy()
-        r["det_bits_differ"] = int((~_same_bits(kd, pd)).sum())   # printed
+        r["det_bits_differ"] = int((~_same_bits(kd, pd)).sum())
+        r["mismatch_bits_differ"] = int((~_same_bits(km, pm)).sum())
         r["max_rel_err_det"] = float(np.max(np.abs(kd - pd)[ok] / np.abs(pd)[ok]))
         r["max_rel_err_mismatch"] = float(np.nanmax(
             np.abs(km - pm)[ok] / np.abs(pm)[ok]))
         if not (r["max_rel_err_det"] <= 1e-9
                 and r["max_rel_err_mismatch"] <= 1e-9):
             raise AssertionError(f"{what} vs plain beyond rtol 1e-9: {r}")
+        if bits and (r["det_bits_differ"] or r["mismatch_bits_differ"]):
+            raise AssertionError(f"{what} not bit-equal to plain: {r}")
     else:
         km, pm = kmis.cpu().numpy(), pmis.cpu().numpy()
         r["det_bits_differ"] = int((~_same_bits(kd, pd)).sum())
@@ -470,11 +487,13 @@ def phase_cylinder_disp(out: dict):
 
 def ptxas_report(kernel: str) -> dict:
     """Registers and spill bytes of each instantiation of `kernel`, from
-    the build's ptxas report (-Xptxas -v), keyed by type and block size."""
+    the build's ptxas report (-Xptxas -v), keyed by type, form (the slab's
+    flux or shear) and block size."""
     import re
     from eigensolver_tpu_torch.kernels import _build
     log = _build.library_path().with_suffix(".log").read_text()
     out, name = {}, None
+    form = {"0": " flux", "1": " shear", None: ""}
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
@@ -482,9 +501,10 @@ def ptxas_report(kernel: str) -> dict:
             continue
         if name is None:
             continue
-        t = re.search(kernel + r"I([fd])Li(\d+)E", name)
-        key = (f"{'float32' if t.group(1) == 'f' else 'float64'} {t.group(2)}"
-               if t else name)
+        # kernel<T, [bool form,] int threads>
+        t = re.search(kernel + r"I([fd])(?:Lb([01])E)?Li(\d+)E", name)
+        key = (f"{'float32' if t.group(1) == 'f' else 'float64'}"
+               f"{form[t.group(2)]} {t.group(3)}" if t else name)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m:
             out.setdefault(key, {}).update(spill_stores=int(m.group(1)),
@@ -592,13 +612,57 @@ def phase_sweep(out: dict):
     return launches
 
 
+def window_candidates(case):
+    """The float64 window ends of the refine stage of the case's float32
+    sweep (n_omega=256, n_bisect=18, on the card): 10 per root, in the
+    order of the stage's one dispersion call, as CUDA tensors (omega, k,
+    parity)."""
+    import torch
+    from eigensolver_tpu_torch import search, sweep
+    cfg = search.SearchConfig(n_omega=256, n_bisect=18, scan_dtype="float32",
+                              polish_dtype="float32")
+    rs, _ = sweep.run_case(case, cfg, device="cuda")
+    br = [(m, rs[name]) for m, name in sweep.MODE_NAMES.items()]
+    om, kk, md = (torch.from_numpy(np.concatenate(x)).to(
+        device="cuda", dtype=torch.float64) for x in (
+        [b.omegas for _, b in br], [b.ks for _, b in br],
+        [np.full(len(b.ks), float(m)) for m, b in br]))
+    return list(search.refine_window_ends(om, kk, md)[2])
+
+
+def _time_against_plain(what: str, ph, args, shear: bool) -> dict:
+    """slab_disp on the candidates args: its time and bound; the plain
+    version's time and bits on the same candidates."""
+    import torch
+    from eigensolver_tpu_torch.kernels import slab as kslab
+    dtype = args[0].dtype
+    dname = str(dtype).split(".")[-1]
+    n = args[0].numel()
+    kern = ph.make_dispersion(parity=None, dtype=dtype)
+    r = dict(n=n, shape=list(kslab.scan_shape(n, shear)),
+             ms=cuda_ms(lambda: kern(*args), 5),
+             **bound(slab_ops(n, 1, ph.case.grid.n_interior, shear),
+                     n * (5 * args[0].element_size() + 1), dname))
+    kres = kern(*args)
+    plain = ph.make_dispersion_plain(parity=None, dtype=dtype)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pres = plain(*args)
+    torch.cuda.synchronize()
+    r["plain_ms"] = 1e3 * (time.perf_counter() - t0)
+    r["check"] = _compare_disp(what, kres, pres, f64=dtype == torch.float64,
+                               bits=True)
+    return r
+
+
 def phase_slab_disp(out: dict):
     import torch
     from eigensolver_tpu_torch import cases
     from eigensolver_tpu_torch.physics.slab import SlabPhysics
     res = {}
-    for name, case in (("flux slab_ph_09", cases.slab_density_photospheric(0.9)),
-                       ("shear flow_gauss", cases.slab_flow_gaussian_coronal())):
+    forms = (("flux slab_ph_09", cases.slab_density_photospheric(0.9), N_SLAB),
+             ("shear flow_gauss", cases.slab_flow_gaussian_coronal(), N_FLOW))
+    for name, case, _ in forms:
         ph = SlabPhysics.from_case(case)
         om, k, par = _ladder_candidates(case, N_DISP_CHECK, seed=3)
         for dtype in (torch.float64, torch.float32):
@@ -613,30 +677,26 @@ def phase_slab_disp(out: dict):
             torch.cuda.synchronize()
             plain_ms = 1e3 * (time.perf_counter() - t0)
             r = _compare_disp(f"slab_disp {name} {dname}", kres, pres,
-                              f64=dtype == torch.float64)
+                              f64=dtype == torch.float64, bits=True)
             r.update(ms=cuda_ms(lambda: kern(*args), 5), plain_ms=plain_ms)
             res[f"{name} {dname}"] = r
-    # slab_ph_09's scan size: the kernel at both dtypes; the plain version
-    # once at float32, held against the kernel on the same candidates
-    case = cases.slab_density_photospheric(0.9)
-    ph = SlabPhysics.from_case(case)
-    om_f, k_f, p_f = _ladder_candidates(case, N_SLAB, seed=4)
+    # each form at its sweep's scan size, both types
     full = {}
-    for dtype in (torch.float32, torch.float64):
-        args = [x.to(dtype) for x in (om_f, k_f, p_f)]
-        kern = ph.make_dispersion(parity=None, dtype=dtype)
-        full[str(dtype).split(".")[-1]] = cuda_ms(lambda: kern(*args), 5)
-    args = [x.to(torch.float32) for x in (om_f, k_f, p_f)]
-    kres = ph.make_dispersion(parity=None, dtype=torch.float32)(*args)
-    plain = ph.make_dispersion_plain(parity=None, dtype=torch.float32)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pres = plain(*args)
-    torch.cuda.synchronize()
-    full["plain_float32"] = 1e3 * (time.perf_counter() - t0)
-    full["check_float32"] = _compare_disp("slab_disp full float32", kres,
-                                          pres, f64=False)
-    res["full_ms"] = full
+    for name, case, n in forms:
+        ph = SlabPhysics.from_case(case)
+        cand = _ladder_candidates(case, n, seed=4)
+        for dtype in (torch.float32, torch.float64):
+            what = f"{name} {str(dtype).split('.')[-1]}"
+            full[what] = _time_against_plain(
+                f"slab_disp full {what}", ph, [x.to(dtype) for x in cand],
+                shear=name.startswith("shear"))
+    res["full"] = full
+    # the refine stage's float64 window launch of the slab_ph_09 f32 sweep
+    case = forms[0][1]
+    res["window float64"] = _time_against_plain(
+        "slab_disp window float64", SlabPhysics.from_case(case),
+        window_candidates(case), shear=False)
+    res["ptxas"] = ptxas_report("slab_disp_kernel")
     out["slab_disp"] = res
     line("phase 6 slab_disp vs plain", **res)
 
@@ -700,20 +760,27 @@ def phase_slab_sweep(out: dict):
 
     # f32 sweep refined in f64 on the card: the scan and the bracket stage,
     # then the f64 refine windows (one slab_disp launch) and the f64 refine
-    # bisection (one slab_bisect launch)
-    before = read_counters()
-    timer = StageTimer()
-    rsr, str_ = sweep.run_case(case, cfg, device="cuda", refine_f64=True,
-                               timer=timer)
-    refined_launches = counts_since(before)
-    check_launches("refined slab path", refined_launches,
-                   {"slab_disp": 2, "slab_bisect": 2})
-    _check_roots(rsr, case)
-    if rsr.counts() != counts[0]:
-        raise AssertionError(f"refined counts {rsr.counts()} differ from the "
-                             f"f32 sweep's {counts[0]}")
-    refined = dict(counts=rsr.counts(), wall_s=str_.wall_s,
-                   stages_s=timer.report(),
+    # bisection (one slab_bisect launch); once, then 3 timed runs
+    walls, stages = [], []
+    for _ in range(4):
+        before = read_counters()
+        timer = StageTimer()
+        rsr, str_ = sweep.run_case(case, cfg, device="cuda", refine_f64=True,
+                                   timer=timer)
+        refined_launches = counts_since(before)
+        check_launches("refined slab path", refined_launches,
+                       {"slab_disp": 2, "slab_bisect": 2})
+        _check_roots(rsr, case)
+        if rsr.counts() != counts[0]:
+            raise AssertionError(f"refined counts {rsr.counts()} differ from "
+                                 f"the f32 sweep's {counts[0]}")
+        walls.append(str_.wall_s)
+        stages.append(timer.report())
+    walls, stages = walls[1:], stages[1:]
+    refined = dict(counts=rsr.counts(), wall_s=walls,
+                   median_wall_s=statistics.median(walls),
+                   stages_median_s={k: statistics.median(s[k] for s in stages)
+                                    for k in stages[0]},
                    launches=refined_launches,
                    minus_refs=_check_counts(
                        "slab_ph_09 float32 refined", rsr.counts(),
@@ -886,7 +953,8 @@ def main() -> int:
 
     kve = out["kve_ratio"]
     cyl = out["cylinder_disp"]["full_ms"]
-    slab = out["slab_disp"]["full_ms"]
+    slab = out["slab_disp"]["full"]
+    sf32 = slab["flux slab_ph_09 float32"]
     cbis = out["cylinder_bisect"]["float32"]
     sbis = out["slab_bisect"]["float32"]
     kve_f32 = kve["shuffled float32"]
@@ -931,12 +999,25 @@ def main() -> int:
         # original), flux and shear forms
         "replaces": "eigensolver_tpu/physics/slab.py:285",
         "launches": slab_launches["slab_disp"],
-        "max_abs_err": slab["check_float32"]["max_abs_err_det"],
-        "ms": slab["float32"],
-        "plain_ms": slab["plain_float32"],
-        **bound(slab_ops(N_SLAB, 1, sg.n_interior), N_SLAB * (5 * 4 + 1),
-                "float32"),
+        # det, poles masked, at slab_ph_09's scan size (flux form, f32);
+        # bit-equal there and on every other set of phase 6
+        "max_abs_err": sf32["check"]["max_abs_err_det"],
+        "ms": sf32["ms"],
+        "plain_ms": sf32["plain_ms"],
+        "bound_ms": sf32["bound_ms"],
+        "bound_by": sf32["bound_by"],
         "library_ms": None,
+        "launch_shape": sf32["shape"],
+        # the other forms and types, and the refine stage's window launch
+        **{key: {f: r[f] for f in ("n", "shape", "ms", "plain_ms",
+                                   "bound_ms", "bound_by")}
+           for key, r in (("flux float64", slab["flux slab_ph_09 float64"]),
+                          ("shear float32",
+                           slab["shear flow_gauss float32"]),
+                          ("shear float64",
+                           slab["shear flow_gauss float64"]),
+                          ("window float64",
+                           out["slab_disp"]["window float64"]))},
     }, {
         "name": "cylinder_bisect",
         "route": "cuda",

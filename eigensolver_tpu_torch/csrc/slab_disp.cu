@@ -1,4 +1,4 @@
-// Slab dispersion determinant, one thread per (omega, k, parity) candidate.
+// Slab dispersion determinant over a batch of (omega, k, parity) candidates.
 //
 // Port of the XLA program `jit(vmap(disp))` of
 // `eigensolver_tpu/physics/slab.py::SlabPhysics.make_dispersion`
@@ -6,7 +6,8 @@
 // (`eigensolver_tpu/sweep.py::make_dispersion_moded`), for the real-omega
 // cases with the exact exponential exterior. On the TPU this was an
 // XLA-fused `lax.scan` with no Pallas original; in eager PyTorch it would
-// be ~100 launches per RK4 step. Here one thread carries the whole shoot:
+// be ~100 launches per RK4 step. Here one thread carries a candidate's
+// whole shoot in registers:
 //   flux form (density cases, no flow): state (vx, w = F vx') from
 //     (par, (1 - par) F(0)), n_interior RK4 steps of `_rk4_linear_flux`
 //     from x = 0 to 1 with the chain (1/F, F m0) at the 3 distinct
@@ -19,12 +20,21 @@
 //   then m_e, p_e, sqrt(max(m_e, 0)), the determinant and the % mismatch.
 //
 // What bounds it on Hopper: per candidate, 3 n_interior evaluations of the
-// coefficient chain (2-3 IEEE divisions, 2 square roots and 1-2 exp for a
-// Gaussian profile, ~30 other flops) plus the RK4 update, against 24 bytes
-// in and 17 bytes out. It is arithmetic- and latency-bound; memory traffic
-// is negligible, so there is no tiling, shared memory, TMA or wgmma. Every
-// temporary stays in registers and the equilibrium is read as scalars from
-// the kernel parameters.
+// coefficient chain plus the RK4 update, against 24 bytes in and 17 bytes
+// out: operations, not memory. Most of the chain depends on x alone
+// (slab.py:162-171, :187-190): in the flux form the profile, the
+// pressure-balanced speeds, c^2, vA^2, cT^2 and rho (c^2 + vA^2) - the exp,
+// both square roots and 4 of the 5 divisions of an evaluation (U == 0 there,
+// so Omega is the candidate's own); in the shear form U, U' and U'' - 3
+// exps and 3 divisions for a Gaussian flow. And x itself comes from the
+// launch parameters only. So the scan (slab_disp_kernel) keeps a table of
+// those values in shared memory: each block computes them for a chunk of
+// steps cooperatively, one abscissa per thread, into a double-buffered
+// ring (one barrier per chunk), and every thread reads them as warp-uniform
+// broadcasts. What stays per candidate and abscissa is 1 division (flux) or
+// 5-6 (shear), no square root, no exp. The plain PyTorch version computes
+// the x-only values once per abscissa as 0-d tensors, in this order, so the
+// table gives its bits.
 //
 // Arithmetic order follows the JAX code expression for expression (no
 // algebraic simplification; c_i(x)^2 is a square root squared), and the
@@ -41,9 +51,11 @@
 // (bisect.cuh) computes the chain in producer warps, which do not depend
 // on the ODE state, and runs the serial update in one consumer lane per
 // bracket, in this file's order (rk4_step, start, finish), so its (root,
-// mismatch) are bit-equal to the launch loop's.
+// mismatch) are bit-equal to the launch loop's. Its producers compute both
+// parts of the chain per bracket.
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -102,49 +114,108 @@ __device__ __forceinline__ T interior_F(const SlabDispParams& p, T omega, T k,
   return rho * (c2 + a2) * (k2 * cT2 - Om2) / (k2 * c2 - Om2);
 }
 
-// make_flux_coef (slab.py:215-230): (1/F, F m0)
+// The values of the flux chain that depend on x alone (slab.py:162-171):
+// one entry of the scan's table, 16-byte aligned, so that a thread reads it
+// in a few vector loads.
 template <class T>
-__device__ __forceinline__ void flux_coef(const SlabDispParams& p, T omega,
-                                          T k, T x, T& a, T& b) {
-  T Om, rho, c2, a2;
-  local(p, omega, k, x, Om, rho, c2, a2);
-  const T cT2 = c2 * a2 / (c2 + a2);
-  const T k2 = k * k;
-  const T Om2 = Om * Om;
-  a = (k2 * c2 - Om2) / (rho * (c2 + a2) * (k2 * cT2 - Om2));
-  b = rho * (k2 * a2 - Om2);
-}
+struct alignas(16) FluxPoint {
+  T rho, c2, a2, cT2, rho_csum;
+};
 
-// make_shear_coef (slab.py:247-281): (D, coeff)
+// The shear chain's: U, U', U'' (slab.py:187-190)
 template <class T>
-__device__ __forceinline__ void shear_coef(const SlabDispParams& p, T omega,
-                                           T k, T x, T& Dx, T& coeff) {
-  const T Om = omega - k * profile(p.flow, x);
-  const T dUx = profile_d1(p.flow, x);
-  const T ddUx = profile_d2(p.flow, x);
-  const T c2 = T(p.sc2), a2 = T(p.sa2), cT2 = T(p.scT2), ca = T(p.sca);
-  const T k2 = k * k;
-  const T Om2 = Om * Om;
-  const T m0 = (k2 * c2 - Om2) * (k2 * a2 - Om2) / (ca * (k2 * cT2 - Om2));
-  if (p.legacy_D) {
-    Dx = T(2) * k * dUx
-         * ((Om2 - k2 * cT2) + ((k2 * k2) * cT2 * c2) / (ca * (Om2 - k2 * cT2)))
-         / (Om * (Om2 - k2 * c2));
+struct alignas(16) ShearPoint {
+  T U, dU, ddU;
+};
+
+template <class T, bool kShear>
+using XPoint =
+    typename std::conditional<kShear, ShearPoint<T>, FluxPoint<T>>::type;
+
+template <class T, bool kShear>
+__device__ __forceinline__ XPoint<T, kShear> x_point(const SlabDispParams& p,
+                                                     T x) {
+  if constexpr (kShear) {
+    return {profile(p.flow, x), profile_d1(p.flow, x), profile_d2(p.flow, x)};
   } else {
-    Dx = T(2) * k * dUx
-         * (Om2 / (Om2 - k2 * c2) - (k2 * cT2) / (Om2 - k2 * cT2)) / Om;
+    FluxPoint<T> q;
+    T vA, ci;
+    density_speeds(p.rho, p.uniform_density, p.vA_i0, p.c_i0, p.rho_i0,
+                   p.c2_num, p.half_g, x, q.rho, vA, ci);
+    q.c2 = ci * ci;
+    q.a2 = vA * vA;
+    q.cT2 = q.c2 * q.a2 / (q.c2 + q.a2);
+    q.rho_csum = q.rho * (q.c2 + q.a2);
+    return q;
   }
-  coeff = (k * ddUx / Om) + (k * dUx * Dx / Om) - m0;
 }
 
+// A candidate as the chain reads it, with the products of k that every
+// abscissa repeats: k^2 and, in the flux form, Omega^2 (U == 0 there, so
+// Omega = omega - k 0 at every x); in the shear form k^2 times the
+// regime's c^2, vA^2, cT^2, and (k^2 k^2) cT^2 c^2.
+template <class T>
+struct Cand {
+  T omega, k, k2, Om2, twok, ca, k2c2, k2a2, k2cT2, k4cT2c2;
+  __device__ Cand(const SlabDispParams& p, T omega_, T k_)
+      : omega(omega_), k(k_), k2(k_ * k_) {
+    const T Om = omega - k * T(0);
+    Om2 = Om * Om;
+    twok = T(2) * k;
+    ca = T(p.sca);
+    k2c2 = k2 * T(p.sc2);
+    k2a2 = k2 * T(p.sa2);
+    k2cT2 = k2 * T(p.scT2);
+    k4cT2c2 = (k2 * k2) * T(p.scT2) * T(p.sc2);
+  }
+};
+
+// make_flux_coef (slab.py:215-230): (1/F, F m0) at the abscissa of q
+template <class T>
+__device__ __forceinline__ void flux_coef(const FluxPoint<T>& q,
+                                          const Cand<T>& c, T& a, T& b) {
+  a = (c.k2 * q.c2 - c.Om2) / (q.rho_csum * (c.k2 * q.cT2 - c.Om2));
+  b = q.rho * (c.k2 * q.a2 - c.Om2);
+}
+
+// make_shear_coef (slab.py:247-281): (D, coeff) at the abscissa of q
+template <class T>
+__device__ __forceinline__ void shear_coef(const SlabDispParams& p,
+                                           const ShearPoint<T>& q,
+                                           const Cand<T>& c, T& Dx,
+                                           T& coeff) {
+  const T Om = c.omega - c.k * q.U;
+  const T Om2 = Om * Om;
+  const T m0 = (c.k2c2 - Om2) * (c.k2a2 - Om2) / (c.ca * (c.k2cT2 - Om2));
+  if (p.legacy_D) {
+    Dx = c.twok * q.dU
+         * ((Om2 - c.k2cT2) + c.k4cT2c2 / (c.ca * (Om2 - c.k2cT2)))
+         / (Om * (Om2 - c.k2c2));
+  } else {
+    Dx = c.twok * q.dU * (Om2 / (Om2 - c.k2c2) - c.k2cT2 / (Om2 - c.k2cT2))
+         / Om;
+  }
+  coeff = (c.k * q.ddU / Om) + (c.k * q.dU * Dx / Om) - m0;
+}
+
+// The chain (a, b) of candidate c at the abscissa of the table entry q
+template <class T, bool kShear>
+__device__ __forceinline__ void coef_at(const SlabDispParams& p,
+                                        const XPoint<T, kShear>& q,
+                                        const Cand<T>& c, T& a, T& b) {
+  if constexpr (kShear) {
+    shear_coef(p, q, c, a, b);
+  } else {
+    flux_coef(q, c, a, b);
+  }
+}
+
+// The whole chain at x: the x-only part, then the candidate's
 template <class T, bool kShear>
 __device__ __forceinline__ void coef(const SlabDispParams& p, T omega, T k,
                                      T x, T& a, T& b) {
-  if (kShear) {
-    shear_coef(p, omega, k, x, a, b);
-  } else {
-    flux_coef(p, omega, k, x, a, b);
-  }
+  coef_at<T, kShear>(p, x_point<T, kShear>(p, x), Cand<T>(p, omega, k), a,
+                     b);
 }
 
 // right-hand side of the linear system with chain (a, b) at state (y0, y1):
@@ -161,8 +232,8 @@ __device__ __forceinline__ void apply(T a, T b, T y0, T y1, T& f0, T& f1) {
 }
 
 // One RK4 step of the linear system with the chain (a, b) at the step's 3
-// abscissae (A: x, M: x + h/2, B: x + h); shared by the one-thread kernel
-// and the consumer warp of the fused bisection
+// abscissae (A: x, M: x + h/2, B: x + h); shared by the scan and the
+// consumer warp of the fused bisection
 template <class T, bool kShear>
 __device__ __forceinline__ void rk4_step(T h, T hh, T h6, T aA, T bA, T aM,
                                          T bM, T aB, T bB, T& y0, T& y1) {
@@ -173,23 +244,6 @@ __device__ __forceinline__ void rk4_step(T h, T hh, T h6, T aA, T bA, T aM,
   apply<T, kShear>(aB, bB, y0 + h * k30, y1 + h * k31, k40, k41);
   y0 = y0 + h6 * (k10 + T(2) * k20 + T(2) * k30 + k40);
   y1 = y1 + h6 * (k11 + T(2) * k21 + T(2) * k31 + k41);
-}
-
-// `_rk4_linear_flux` / `_rk4_linear_shear` (slab.py:41-113) from x = 0 to 1
-template <class T, bool kShear>
-__device__ __forceinline__ void rk4(const SlabDispParams& p, T omega, T k,
-                                    int n, T& y0, T& y1) {
-  const T x0 = T(0);
-  T h, hh, h6;
-  rk4_spacing(x0, T(1), n, h, hh, h6);
-  for (int i = 0; i < n; ++i) {
-    const T x = x0 + T(i) * h;              // not an accumulated x += h
-    T aA, bA, aM, bM, aB, bB;
-    coef<T, kShear>(p, omega, k, x, aA, bA);
-    coef<T, kShear>(p, omega, k, x + hh, aM, bM);
-    coef<T, kShear>(p, omega, k, x + h, aB, bB);
-    rk4_step<T, kShear>(h, hh, h6, aA, bA, aM, bM, aB, bB, y0, y1);
-  }
 }
 
 // Start state at the slab centre: flux (vx, w): sausage (par = 0) vx odd,
@@ -272,32 +326,93 @@ __device__ __forceinline__ void finish(const SlabDispParams& p, T omega, T k,
   valid = m_e > zero;
 }
 
+// The block fills the table entries of steps [i0, i0 + count), 3 per step
+// (A, M, B), one entry per thread at a time; the abscissae are formed as
+// the RK4 loop of `_rk4_linear_*` forms them (common.cuh: rk4_abscissa)
 template <class T, bool kShear>
-__global__ void __launch_bounds__(128)
+__device__ __forceinline__ void fill_chunk(const SlabDispParams& p, T h, T hh,
+                                           int i0, int count,
+                                           XPoint<T, kShear>* dst) {
+  for (int e = threadIdx.x; e < 3 * count; e += blockDim.x) {
+    dst[e] = x_point<T, kShear>(p, rk4_abscissa(T(0), h, hh, i0 + e / 3,
+                                                e % 3));
+  }
+}
+
+// A candidate's RK4 steps over one chunk of the table
+template <class T, bool kShear>
+__device__ __forceinline__ void run_chunk(const SlabDispParams& p,
+                                          const XPoint<T, kShear>* q,
+                                          int count, T h, T hh, T h6,
+                                          const Cand<T>& c, T& y0, T& y1) {
+  for (int j = 0; j < count; ++j, q += 3) {
+    T aA, bA, aM, bM, aB, bB;
+    coef_at<T, kShear>(p, q[0], c, aA, bA);
+    coef_at<T, kShear>(p, q[1], c, aM, bM);
+    coef_at<T, kShear>(p, q[2], c, aB, bB);
+    rk4_step<T, kShear>(h, hh, h6, aA, bA, aM, bM, aB, bB, y0, y1);
+  }
+}
+
+// The scan: one thread per candidate, kThreads per block, the x-only table
+// in chunks of `chunk` steps (dynamic shared memory: 2 x 3 chunk entries),
+// `_rk4_linear_flux` / `_rk4_linear_shear` (slab.py:41-113) from x = 0 to
+// 1. Threads past n evaluate a copy of the last candidate, so that every
+// thread reaches the block's barriers, and store nothing.
+template <class T, bool kShear, int kThreads>
+__global__ void __launch_bounds__(kThreads)
 slab_disp_kernel(const T* __restrict__ omega_, const T* __restrict__ k_,
                  const T* __restrict__ par_, T* __restrict__ det_,
                  T* __restrict__ mism_, bool* __restrict__ valid_, int64_t n,
-                 const __grid_constant__ SlabDispParams p) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const T omega = omega_[i];
-  const T k = k_[i];
+                 int chunk, const __grid_constant__ SlabDispParams p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  auto* table = reinterpret_cast<XPoint<T, kShear>*>(smem_raw);
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t idx = i < n ? i : n - 1;
+  const T omega = omega_[idx];
+  const T k = k_[idx];
   // the edge values first, as the JAX code orders them: nvcc then keeps
   // the chain's loop-invariant parameter conversions out of the RK4 loop
   const Edge<T> e = edge(p, omega, k);
   T y0, y1;
-  start<T, kShear>(p, omega, k, par_[i], y0, y1);
-  rk4<T, kShear>(p, omega, k, p.n_interior, y0, y1);
+  start<T, kShear>(p, omega, k, par_[idx], y0, y1);
+  const Cand<T> c(p, omega, k);
+
+  const int n_steps = p.n_interior;
+  T h, hh, h6;
+  rk4_spacing(T(0), T(1), n_steps, h, hh, h6);
+  const int n_chunks = (n_steps + chunk - 1) / chunk;
+  const int slot = 3 * chunk;
+  if (n_chunks > 0) {
+    fill_chunk<T, kShear>(p, h, hh, 0, min(chunk, n_steps), table);
+  }
+  __syncthreads();
+  for (int ci = 0; ci < n_chunks; ++ci) {
+    // fill the other buffer while this one is read: the barrier below
+    // publishes it and retires this one
+    if (ci + 1 < n_chunks) {
+      const int i1 = (ci + 1) * chunk;
+      fill_chunk<T, kShear>(p, h, hh, i1, min(chunk, n_steps - i1),
+                            table + ((ci + 1) & 1) * slot);
+    }
+    run_chunk<T, kShear>(p, table + (ci & 1) * slot,
+                         min(chunk, n_steps - ci * chunk), h, hh, h6, c, y0,
+                         y1);
+    __syncthreads();
+  }
   T det, mism;
   bool valid;
   finish<T, kShear>(p, omega, k, e, y0, y1, det, mism, valid);
-  det_[i] = det;
-  mism_[i] = mism;
-  valid_[i] = valid;
+  if (i < n) {
+    det_[i] = det;
+    mism_[i] = mism;
+    valid_[i] = valid;
+  }
 }
 
 // The slab chain as the fused bisection (bisect.cuh) runs it: the
-// producers call coef<T, kShear>, the consumer start / rk4_step / finish.
+// producers call coef<T, kShear> (both parts of the chain), the consumer
+// start / rk4_step / finish.
 template <class T_, bool kShear>
 struct BisectChain {
   using T = T_;
@@ -330,29 +445,70 @@ struct BisectChain {
   }
 };
 
+template <class T, bool kShear, int kThreads>
+cudaError_t launch_scan(const void* omega, const void* k, const void* par,
+                        void* det, void* mism, void* valid, long long n,
+                        int chunk, size_t smem, const SlabDispParams* p,
+                        cudaStream_t stream) {
+  auto* kern = slab_disp_kernel<T, kShear, kThreads>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  kern<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+      static_cast<const T*>(omega), static_cast<const T*>(k),
+      static_cast<const T*>(par), static_cast<T*>(det), static_cast<T*>(mism),
+      static_cast<bool*>(valid), n, chunk, *p);
+  return cudaGetLastError();
+}
+
+template <class T, bool kShear>
+cudaError_t launch_form(const void* omega, const void* k, const void* par,
+                        void* det, void* mism, void* valid, long long n,
+                        int threads, int chunk, const SlabDispParams* p,
+                        cudaStream_t s) {
+  const size_t smem =
+      2 * 3 * static_cast<size_t>(chunk) * sizeof(XPoint<T, kShear>);
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  switch (threads) {
+    case 32:
+      return launch_scan<T, kShear, 32>(omega, k, par, det, mism, valid, n,
+                                        chunk, smem, p, s);
+    case 64:
+      return launch_scan<T, kShear, 64>(omega, k, par, det, mism, valid, n,
+                                        chunk, smem, p, s);
+    case 128:
+      return launch_scan<T, kShear, 128>(omega, k, par, det, mism, valid, n,
+                                         chunk, smem, p, s);
+    case 256:
+      return launch_scan<T, kShear, 256>(omega, k, par, det, mism, valid, n,
+                                         chunk, smem, p, s);
+    case 512:
+      return launch_scan<T, kShear, 512>(omega, k, par, det, mism, valid, n,
+                                         chunk, smem, p, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The scan of n candidates with `threads` (32 to 512, a power of two) a
+// block and chunks of `chunk` steps; returns the cudaError_t
 template <class T>
 int launch(const void* omega, const void* k, const void* par, void* det,
-           void* mism, void* valid, long long n, const SlabDispParams* p,
-           int device, void* stream) {
+           void* mism, void* valid, long long n, int threads, int chunk,
+           const SlabDispParams* p, int device, void* stream) {
+  if (n <= 0 || chunk < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  constexpr int kThreads = 128;
-  const long long blocks = (n + kThreads - 1) / kThreads;
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto* om = static_cast<const T*>(omega);
-  const auto* kk = static_cast<const T*>(k);
-  const auto* pp = static_cast<const T*>(par);
-  auto* d = static_cast<T*>(det);
-  auto* m = static_cast<T*>(mism);
-  auto* v = static_cast<bool*>(valid);
-  if (p->shear) {
-    slab_disp_kernel<T, true><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        om, kk, pp, d, m, v, n, *p);
-  } else {
-    slab_disp_kernel<T, false><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        om, kk, pp, d, m, v, n, *p);
-  }
-  return static_cast<int>(cudaGetLastError());
+  err = p->shear ? launch_form<T, true>(omega, k, par, det, mism, valid, n,
+                                        threads, chunk, p, s)
+                 : launch_form<T, false>(omega, k, par, det, mism, valid, n,
+                                         threads, chunk, p, s);
+  return static_cast<int>(err);
 }
 
 template <class T>
@@ -376,19 +532,22 @@ int launch_bisect_slab(const void* lo, const void* hi, const void* k,
 
 extern "C" {
 
-// Each entry returns the cudaError_t of the launch (0 on success); n > 0.
+// Each entry returns the cudaError_t of the launch (0 on success); n > 0;
+// threads 32, 64, 128, 256 or 512 a block, chunks of `chunk` table steps.
 int eigk_slab_disp_f32(const void* omega, const void* k, const void* par,
                        void* det, void* mism, void* valid, long long n,
-                       const eigk::SlabDispParams* p, int device, void* stream) {
-  return eigk::slab::launch<float>(omega, k, par, det, mism, valid, n, p,
-                                   device, stream);
+                       int threads, int chunk, const eigk::SlabDispParams* p,
+                       int device, void* stream) {
+  return eigk::slab::launch<float>(omega, k, par, det, mism, valid, n,
+                                   threads, chunk, p, device, stream);
 }
 
 int eigk_slab_disp_f64(const void* omega, const void* k, const void* par,
                        void* det, void* mism, void* valid, long long n,
-                       const eigk::SlabDispParams* p, int device, void* stream) {
-  return eigk::slab::launch<double>(omega, k, par, det, mism, valid, n, p,
-                                    device, stream);
+                       int threads, int chunk, const eigk::SlabDispParams* p,
+                       int device, void* stream) {
+  return eigk::slab::launch<double>(omega, k, par, det, mism, valid, n,
+                                    threads, chunk, p, device, stream);
 }
 
 // Fused bisection of n brackets (lo, hi, k, parity): root, and the %

@@ -47,10 +47,12 @@ _SIGNATURES = {
     "eigk_cylinder_disp_f64": ((_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I,
                                 _I, _P, _I, _P), _I),
     "eigk_cylinder_params_size": ((), ctypes.c_longlong),
-    "eigk_slab_disp_f32": ((_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P,
-                            ctypes.c_int, _P), ctypes.c_int),
-    "eigk_slab_disp_f64": ((_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P,
-                            ctypes.c_int, _P), ctypes.c_int),
+    # (omega, k, parity, det, mism, valid, n, threads, chunk, params,
+    #  device, stream)
+    "eigk_slab_disp_f32": ((_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I,
+                            _I, _P, _I, _P), _I),
+    "eigk_slab_disp_f64": ((_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I,
+                            _I, _P, _I, _P), _I),
     "eigk_slab_params_size": ((), ctypes.c_longlong),
     "eigk_slab_bisect_f32": _BISECT_ARGS,
     "eigk_slab_bisect_f64": _BISECT_ARGS,

@@ -1,5 +1,6 @@
 """Host mirror of `csrc/common.cuh::ProfileParams`, shared by the kernel
-wrappers, the launch checks they share, and the block shape of the fused
+wrappers, the launch checks they share, the launch shape of the scan
+kernels (`cylinder_disp`, `slab_disp`) and the block shape of the fused
 bisection kernels (`csrc/bisect.cuh`)."""
 from __future__ import annotations
 
@@ -79,6 +80,23 @@ def launch_disp(name: str, entries: dict, size_fn: str, struct,
             ctypes.c_void_p(stream))
         _build.check(code, f"{name} kernel")
     return det, mism, valid
+
+
+class ScanShape(NamedTuple):
+    """Launch shape of a scan kernel (`cylinder_disp`, `slab_disp`)."""
+    threads: int     # candidates (threads) per block
+    chunk: int       # RK4 steps per chunk of the shared-memory table
+
+
+def check_scan_shape(name: str, shape: ScanShape, threads: tuple,
+                     entry_bytes: int) -> None:
+    """Raise unless the kernel is built for `shape.threads` (one of
+    `threads`) and its table, 2 buffers x 3 chunk entries of `entry_bytes`,
+    fits a block's shared memory."""
+    n_threads, chunk = shape
+    if not (n_threads in threads and chunk >= 1
+            and 2 * 3 * chunk * entry_bytes <= MAX_SMEM):
+        raise ValueError(f"{name}: unsupported launch shape {shape}")
 
 
 class BisectShape(NamedTuple):

@@ -22,13 +22,14 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import torch
 
 from ..config import CaseConfig, ProfileKind
-from .common import (BisectShape, ProfileParams, launch_bisect,
-                     launch_disp, profile_params)
+from .common import (BisectShape, ProfileParams, ScanShape,
+                     check_scan_shape, launch_bisect, launch_disp,
+                     profile_params)
 
 # launches of the kernels since the last reset (one per kernel launch):
 # cylinder_disp, and the fused bisection cylinder_bisect
@@ -89,15 +90,8 @@ def disp_params(case: CaseConfig) -> DispParams:
     return DispParams(case=case, struct=s)
 
 
-class ScanShape(NamedTuple):
-    """Launch shape of the scan kernel `cylinder_disp`."""
-    threads: int     # candidates (threads) per block: 128, 256 or 512
-    chunk: int       # RK4 steps per chunk of the shared-memory table
-
-
 # the sizes of RPoint<T> (csrc/cylinder_disp.cu): 9 values, 16-byte aligned
 _ENTRY_BYTES = {torch.float32: 48, torch.float64: 80}
-_MAX_SMEM = 227 * 1024
 
 
 # The scan's launch shape: within 1% of the fastest of 15 shapes at both
@@ -107,10 +101,8 @@ SCAN_SHAPE = ScanShape(threads=256, chunk=64)
 
 
 def _check_scan_shape(shape: ScanShape, dtype: torch.dtype) -> None:
-    threads, chunk = shape
-    if not (threads in (128, 256, 512) and chunk >= 1
-            and 2 * 3 * chunk * _ENTRY_BYTES[dtype] <= _MAX_SMEM):
-        raise ValueError(f"cylinder_disp: unsupported launch shape {shape}")
+    check_scan_shape("cylinder_disp", shape, (128, 256, 512),
+                     _ENTRY_BYTES[dtype])
 
 
 def cylinder_disp(omega: torch.Tensor, k: torch.Tensor, m: torch.Tensor,

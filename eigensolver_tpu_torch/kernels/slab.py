@@ -5,7 +5,9 @@
 `jit(vmap(disp))` of `eigensolver_tpu/physics/slab.py` (slab.py:285-406,
 real omega, exact exterior): one thread per (omega, k, parity) candidate
 carries the whole RK4 shoot from the slab centre to its edge in registers,
-in the flux form (density cases) or the shear form (flow cases).
+in the flux form (density cases) or the shear form (flow cases), reading
+the chain's x-only values from a table that its block computes in shared
+memory, chunk by chunk.
 `slab_bisect` (same file, `csrc/bisect.cuh`) runs a whole fixed-count
 bisection of a bracket batch over the same chain in one launch
 (`eigensolver_tpu/search.py:142-169`, :468-522).
@@ -24,8 +26,9 @@ from typing import Optional
 import torch
 
 from ..config import CaseConfig, ProfileKind
-from .common import (BisectShape, ProfileParams, launch_bisect,
-                     launch_disp, profile_params)
+from .common import (_SMS, BisectShape, ProfileParams, ScanShape,
+                     check_scan_shape, launch_bisect, launch_disp,
+                     profile_params)
 
 # launches of the kernels since the last reset (one per kernel launch):
 # slab_disp, and the fused bisection slab_bisect
@@ -90,17 +93,52 @@ def disp_params(case: CaseConfig, include_shear_pressure: bool = False
                       struct=s)
 
 
+# the sizes of FluxPoint<T> (5 values) and ShearPoint<T> (3) of
+# csrc/slab_disp.cu, 16-byte aligned, by (shear form, dtype)
+_ENTRY_BYTES = {(False, torch.float32): 32, (False, torch.float64): 48,
+                (True, torch.float32): 16, (True, torch.float64): 32}
+_THREADS = (32, 64, 128, 256, 512)
+
+# The scan's launch shapes, from timings on an H100 (`tools_torch/tune_disp.py`,
+# PERF.md section 6): 256 threads a block for the flux form's scans; 128 for
+# the shear form (6% faster there), and for a batch that blocks of 256 would
+# not spread over every SM (the refine stage's 1,530 window ends: 5% faster);
+# chunks of 64 steps. Each within 5% of the fastest of 25 shapes.
+SCAN_SHAPE = ScanShape(threads=256, chunk=64)
+NARROW_SCAN_SHAPE = ScanShape(threads=128, chunk=64)
+
+
+def scan_shape(n: int, shear: bool) -> ScanShape:
+    """The default launch shape for n candidates in the shear or the flux
+    form."""
+    if shear or n < _SMS * SCAN_SHAPE.threads:
+        return NARROW_SCAN_SHAPE
+    return SCAN_SHAPE
+
+
+def _check_scan_shape(shape: ScanShape, dtype: torch.dtype,
+                      shear: bool) -> None:
+    check_scan_shape("slab_disp", shape, _THREADS,
+                     _ENTRY_BYTES[(bool(shear), dtype)])
+
+
 def slab_disp(omega: torch.Tensor, k: torch.Tensor, parity: torch.Tensor,
-              params: DispParams):
+              params: DispParams, shape: Optional[ScanShape] = None):
     """SlabInterface(det, mismatch_pct, valid) of 1-D candidate tensors
-    (omega, k, parity) of one dtype and device."""
+    (omega, k, parity) of one dtype and device; on the card with the launch
+    shape `shape` (default `scan_shape`). A shape the kernel is not built
+    for raises on any device."""
     global launches
     from ..physics.slab import SlabInterface
+    shear = bool(params.struct.shear)
+    shape = ScanShape(*(shape or scan_shape(omega.numel(), shear)))
+    if omega.dtype in _ENTRY:     # launch_disp raises on the others
+        _check_scan_shape(shape, omega.dtype, shear)
     if omega.device.type == "cpu":
         return _plain(params, omega.dtype)(omega, k, parity)
     det, mism, valid = launch_disp(
         "slab_disp", _ENTRY, "eigk_slab_params_size", params.struct,
-        omega, k, parity)
+        omega, k, parity, shape)
     launches += omega.numel() > 0
     return SlabInterface(det=det, mismatch_pct=mism, valid=valid)
 

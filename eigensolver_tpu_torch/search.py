@@ -269,21 +269,31 @@ def refine_roots_f64(disp64: Callable, omega: torch.Tensor, k: torch.Tensor,
     return root, ~bad
 
 
-def refine_windows(disp64: Callable, om: torch.Tensor, kk: torch.Tensor,
-                   mode: Optional[torch.Tensor], rel_halfwidth: float = 4e-7):
-    """The first of the windows om (1 -+ w), w = rel_halfwidth 8^j, j = 0..4,
-    whose float64 signs bracket, from one dispersion call on all 10
-    endpoints: (lo, hi, bad); a root with none is bad, lo = hi = om."""
+def refine_window_ends(om: torch.Tensor, kk: torch.Tensor,
+                       mode: Optional[torch.Tensor],
+                       rel_halfwidth: float = 4e-7):
+    """The windows om (1 -+ w), w = rel_halfwidth 8^j, j = 0..4, of each
+    root, and their 10 endpoints per root as `refine_windows` evaluates them
+    in one dispersion call: (los, his, (omega, k, mode))."""
     ws = [rel_halfwidth]
     for _ in range(4):
         ws.append(8.0 * ws[-1])
     los = torch.stack([om * (1.0 - w) for w in ws])
     his = torch.stack([om * (1.0 + w) for w in ws])
     n_w = len(ws)
-    ends = torch.cat([los, his]).reshape(-1)
     md = None if mode is None else mode.repeat(2 * n_w)
-    neg = torch.signbit(_call_disp(disp64, ends, kk.repeat(2 * n_w), md).det)
-    neg = neg.reshape(2, n_w, -1)
+    return los, his, (torch.cat([los, his]).reshape(-1), kk.repeat(2 * n_w),
+                      md)
+
+
+def refine_windows(disp64: Callable, om: torch.Tensor, kk: torch.Tensor,
+                   mode: Optional[torch.Tensor], rel_halfwidth: float = 4e-7):
+    """The first of the windows om (1 -+ w), w = rel_halfwidth 8^j, j = 0..4,
+    whose float64 signs bracket, from one dispersion call on all 10
+    endpoints: (lo, hi, bad); a root with none is bad, lo = hi = om."""
+    los, his, ends = refine_window_ends(om, kk, mode, rel_halfwidth)
+    neg = torch.signbit(_call_disp(disp64, *ends).det)
+    neg = neg.reshape(2, los.shape[0], -1)
     brackets = neg[0] != neg[1]                       # (window, root)
     bad = ~brackets.any(dim=0)
     first = brackets.to(torch.int8).argmax(dim=0, keepdim=True)

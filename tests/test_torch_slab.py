@@ -270,3 +270,116 @@ def test_kernel_matches_plain_on_card(name):
     np.testing.assert_allclose(kd[ok], pd[ok], rtol=1e-9, atol=0)
     np.testing.assert_allclose(kmis.cpu().numpy()[ok], pmis.cpu().numpy()[ok],
                                rtol=1e-9, atol=0)
+
+
+# The largest table chunk (RK4 steps) whose 2 x 3 entries fit a block's
+# 227 KiB of shared memory: entries of 32 / 48 bytes (flux, f32 / f64) and
+# 16 / 32 (shear)
+MAX_CHUNK = {(False, torch.float32): 1210, (False, torch.float64): 807,
+             (True, torch.float32): 2421, (True, torch.float64): 1210}
+
+
+@pytest.mark.parametrize("shear", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_scan_shape_fits_the_card(dtype, shear):
+    """The default launch shapes are ones the kernel is built for and their
+    tables fit a block's shared memory in both forms; every block size the
+    kernel is built for is taken, up to the largest chunk that fits; other
+    shapes are refused."""
+    for n in (1, 1530, 161_280, 179_200):
+        kslab._check_scan_shape(kslab.scan_shape(n, shear), dtype, shear)
+    top = MAX_CHUNK[(shear, dtype)]
+    for good in ((32, 1), (64, 7), (128, 300), (256, top), (512, 64)):
+        kslab._check_scan_shape(kslab.ScanShape(*good), dtype, shear)
+    for bad in ((96, 32), (16, 32), (256, 0), (1024, 32), (256, top + 1)):
+        with pytest.raises(ValueError, match="launch shape"):
+            kslab._check_scan_shape(kslab.ScanShape(*bad), dtype, shear)
+
+
+@pytest.mark.parametrize("n,shear,want", [
+    (161_280, False, (256, 64)),     # slab_ph_09's scan
+    (33_792, False, (256, 64)),      # 132 blocks of 256
+    (33_791, False, (128, 64)),
+    (1_530, False, (128, 64)),       # its refine stage's window ends
+    (179_200, True, (128, 64)),      # slab_flow_gaussian_coronal's scan
+    (1_530, True, (128, 64))])
+def test_default_launch_shape_by_regime(n, shear, want):
+    """256 threads a block for the flux form's scans, 128 for the shear
+    form and for batches that blocks of 256 would not spread over every
+    SM; chunks of 64 steps."""
+    assert kslab.scan_shape(n, shear) == kslab.ScanShape(*want)
+
+
+@pytest.mark.parametrize("name", ["slab_ph_09", "flow_gauss"])
+def test_bad_launch_shape_raises_on_any_device(name):
+    """A launch shape the kernel is not built for raises before any
+    dispersion runs, on CPU tensors too; a good one leaves the plain
+    version's result as it is."""
+    case = config.from_jax(CASES[name]())
+    om, k, par = (torch.from_numpy(x)
+                  for x in candidates(CASES[name](), 8, seed=8))
+    params = kslab.disp_params(case)
+    before = tslab.plain_calls
+    with pytest.raises(ValueError, match="launch shape"):
+        kslab.slab_disp(om, k, par, params, shape=(96, 32))
+    assert tslab.plain_calls == before
+    want = kslab.slab_disp(om, k, par, params)
+    got = kslab.slab_disp(om, k, par, params, shape=(64, 7))
+    for a, b in zip(got, want):
+        assert torch.equal(a.isnan(), b.isnan())
+        assert torch.equal(a[~a.isnan()], b[~b.isnan()])
+
+
+def _assert_same_bits(got, want, what):
+    assert torch.equal(got.valid, want.valid), what
+    for a, b in ((got.det, want.det), (got.mismatch_pct, want.mismatch_pct)):
+        same = (a == b) | (a.isnan() & b.isnan())
+        assert bool(same.all()), (what, int((~same).sum()))
+
+
+@pytest.mark.gpu
+@pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA card")
+@pytest.mark.parametrize("name,pressure",
+                         [(n, False) for n in sorted(CASES)]
+                         + [("flow_gauss", True), ("flow_uniform", True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_bit_equal_to_plain_on_card(dtype, name, pressure):
+    """The scan's (det, mismatch, valid) are the plain version's bits, both
+    forms (the shear form with and without the shear-pressure term), both
+    types, with a candidate count and a step count that are no multiple of
+    a block or a table chunk, at several launch shapes."""
+    full = config.from_jax(CASES[name]())
+    case = dataclasses.replace(full, grid=dataclasses.replace(
+        full.grid, n_interior=250))
+    om, k, par = candidates(CASES[name](), 1001, seed=7)
+    args = [torch.from_numpy(x).to(device="cuda", dtype=dtype)
+            for x in (om, k, par)]
+    want = tslab.SlabPhysics.from_case(case).make_dispersion_plain(
+        parity=None, dtype=dtype, include_shear_pressure=pressure)(*args)
+    params = kslab.disp_params(case, include_shear_pressure=pressure)
+    for shape in (None, (32, 5), (64, 7), (128, 32), (256, 64), (512, 300)):
+        before = kslab.launches
+        got = kslab.slab_disp(*args, params, shape=shape)
+        torch.cuda.synchronize()
+        assert kslab.launches == before + 1
+        _assert_same_bits(got, want, shape)
+    with pytest.raises(ValueError, match="launch shape"):
+        kslab.slab_disp(*args, params, shape=(96, 32))
+
+
+@pytest.mark.gpu
+@pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA card")
+def test_kernel_bit_equal_to_plain_on_card_at_window_size():
+    """float64 at the refine stage's size on slab_ph_09 (1,530 candidates,
+    the full 2048 steps): the plain version's bits at the default launch
+    shape and at smaller blocks."""
+    case = config.from_jax(jcases.slab_density_photospheric(0.9))
+    om, k, par = candidates(jcases.slab_density_photospheric(0.9), 1530,
+                            seed=9)
+    args = [torch.from_numpy(x).cuda() for x in (om, k, par)]
+    want = tslab.SlabPhysics.from_case(case).make_dispersion_plain(
+        parity=None, dtype=torch.float64)(*args)
+    params = kslab.disp_params(case)
+    for shape in (None, (32, 16), (64, 64), (128, 64)):
+        got = kslab.slab_disp(*args, params, shape=shape)
+        _assert_same_bits(got, want, shape)

@@ -11,8 +11,11 @@ several launches after a warm-up):
     [0.01, 2), small [1e-3, 0.1), CF2 [2, 200), the two shuffled), beside
     torch.special's K_0 and K_1 and the two ratios;
   - cylinder_disp on the cyl_co_09 sweep's ladder scan (552,960), slab_disp
-    on slab_ph_09's (161,280), cylinder_bisect and slab_bisect on their
-    sweeps' brackets (17,280 and 5,040, 18 iterations), float32 and float64;
+    on slab_ph_09's (161,280, flux form) and slab_flow_gaussian_coronal's
+    (179,200, shear form), cylinder_bisect and slab_bisect on their sweeps'
+    brackets (17,280, 5,040 and 5,600, 18 iterations), float32 and float64;
+  - slab_disp at float64 on the window ends of the refine stage of the
+    slab_ph_09 float32 sweep (10 per root: 1,530);
   - the CALL instructions in each kve_ratio kernel's SASS (`cuobjdump`),
     where the toolkit has it.
 To compare two commits on one card, unpack the other into a git-ignored
@@ -90,6 +93,29 @@ def scan_and_brackets(case, dtype):
     return disp, cand, [x.contiguous() for x in (br.lo, br.hi, br.k, br.mode)]
 
 
+def window_ends(case):
+    """The float64 window ends of the refine stage of the case's float32
+    sweep on the card, formed as `search.refine_windows` forms them (here,
+    so that a checkout without `search.refine_window_ends` is timed alike):
+    (omega, k, mode) CUDA tensors."""
+    import torch
+    from eigensolver_tpu_torch import search, sweep
+    cfg = search.SearchConfig(n_omega=256, n_bisect=18, scan_dtype="float32",
+                              polish_dtype="float32")
+    rs, _ = sweep.run_case(case, cfg, device="cuda")
+    br = [(m, rs[name]) for m, name in sweep.MODE_NAMES.items()]
+    om, kk, md = (torch.from_numpy(np.concatenate(x)).to(
+        device="cuda", dtype=torch.float64) for x in (
+        [b.omegas for _, b in br], [b.ks for _, b in br],
+        [np.full(len(b.ks), float(m)) for m, b in br]))
+    ws = [4e-7]
+    for _ in range(4):
+        ws.append(8.0 * ws[-1])
+    ends = torch.cat([torch.stack([om * (1.0 - w) for w in ws]),
+                      torch.stack([om * (1.0 + w) for w in ws])]).reshape(-1)
+    return ends, kk.repeat(2 * len(ws)), md.repeat(2 * len(ws))
+
+
 def sass_calls(lib: Path) -> dict:
     """CALL instructions (and their targets) per kve_ratio kernel in the
     library's SASS; empty without cuobjdump."""
@@ -124,7 +150,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(args.pkg_root).resolve()))
     import warnings
     import torch
-    from eigensolver_tpu_torch import cases
+    from eigensolver_tpu_torch import cases, sweep
     from eigensolver_tpu_torch.kernels import _build, bessel
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA card")
@@ -147,7 +173,8 @@ def main() -> int:
     out["kve_ratio"] = kve
     for case_name, case, n_disp in (
             ("cyl_co_09", cases.cylinder_density_coronal(0.9), 5),
-            ("slab_ph_09", cases.slab_density_photospheric(0.9), 10)):
+            ("slab_ph_09", cases.slab_density_photospheric(0.9), 10),
+            ("flow_gauss", cases.slab_flow_gaussian_coronal(), 10)):
         for dtype in (torch.float32, torch.float64):
             disp, cand, br = scan_and_brackets(case, dtype)
             out[f"{case_name} {str(dtype)[6:]}"] = {
@@ -155,6 +182,11 @@ def main() -> int:
                 "scan_ms": cuda_ms(lambda: disp(*cand), n_disp),
                 "brackets": br[0].numel(),
                 "bisect_ms": cuda_ms(lambda: disp.bisect(*br, 18), 5)}
+    slab = cases.slab_density_photospheric(0.9)
+    win = window_ends(slab)
+    disp64 = sweep.make_dispersion_moded(slab, torch.float64)
+    out["slab_ph_09 window float64"] = {
+        "n": win[0].numel(), "ms": cuda_ms(lambda: disp64(*win), 20)}
     out["sass"] = sass_calls(lib)
     print(json.dumps(out), flush=True)
     if args.out:

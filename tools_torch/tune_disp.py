@@ -1,14 +1,20 @@
 #!/usr/bin/env python3
-"""Launch shapes of the cylinder scan kernel, timed on a CUDA card.
+"""Launch shapes of the scan kernels, timed on a CUDA card.
 
-    python3 tools_torch/tune_disp.py [--out PATH]
+    python3 tools_torch/tune_disp.py [--kernel cylinder|slab|both] [--out PATH]
 
-On the cyl_co_09 sweep's own ladder scan (552,960 candidates, both modes,
-in ladder order), float32 and float64, times `cylinder_disp` at every
-(threads per block, table chunk of RK4 steps) of a grid, checks that each
-gives the default shape's bits (`kernels.cylinder.SCAN_SHAPE`), and prints
-per type the default's time and the fastest shapes. Run from the repository
-root; the first line is the card's nvidia-smi name and power limit.
+Times each scan kernel at every (threads per block, table chunk of RK4
+steps) of a grid, checks that each shape gives the default shape's bits,
+and prints per set the default's time and the fastest shapes:
+  - `cylinder_disp` (default `kernels.cylinder.SCAN_SHAPE`) on the cyl_co_09
+    sweep's own ladder scan (552,960 candidates, both modes, in ladder
+    order), float32 and float64;
+  - `slab_disp` (default `kernels.slab.scan_shape`) on slab_ph_09's ladder
+    scan (161,280, flux form) and slab_flow_gaussian_coronal's (179,200,
+    shear form), float32 and float64, and on the float64 window launch of
+    the slab_ph_09 float32 sweep's refine stage (10 ends per root: 1,530).
+Run from the repository root; the first line is the card's nvidia-smi name
+and power limit.
 """
 import argparse
 import itertools
@@ -20,7 +26,7 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent.parent
-THREADS = (128, 256, 512)
+THREADS = {"cylinder": (128, 256, 512), "slab": (32, 64, 128, 256, 512)}
 CHUNKS = (8, 16, 32, 64, 128)
 
 
@@ -40,7 +46,8 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def ladder_candidates(case, dtype):
-    """The sweep's scan candidates (omega, k, m), flat, as CUDA tensors."""
+    """The sweep's scan candidates (omega, k, mode), flat, as CUDA
+    tensors."""
     import torch
     from eigensolver_tpu_torch import sweep
     om, ks = sweep.build_ladders(case, 256)
@@ -51,44 +58,92 @@ def ladder_candidates(case, dtype):
     return [torch.from_numpy(x).to(device="cuda", dtype=dtype) for x in flat]
 
 
+def window_candidates(case):
+    """The float64 window ends of the refine stage of the case's float32
+    sweep (n_omega=256, n_bisect=18) on the card, as CUDA tensors (omega,
+    k, parity)."""
+    import torch
+    from eigensolver_tpu_torch import search, sweep
+    cfg = search.SearchConfig(n_omega=256, n_bisect=18, scan_dtype="float32",
+                              polish_dtype="float32")
+    rs, _ = sweep.run_case(case, cfg, device="cuda")
+    br = [(m, rs[name]) for m, name in sweep.MODE_NAMES.items()]
+    om, kk, md = (torch.from_numpy(np.concatenate(x)).to(
+        device="cuda", dtype=torch.float64) for x in (
+        [b.omegas for _, b in br], [b.ks for _, b in br],
+        [np.full(len(b.ks), float(m)) for m, b in br]))
+    return list(search.refine_window_ends(om, kk, md)[2])
+
+
+def tune(label: str, kernel, default, threads, cand, params) -> dict:
+    """kernel(*cand, params, shape=...) at every shape of the grid: each
+    checked to give the default shape's bits, timed; the default's time and
+    the fastest shapes."""
+    ref = kernel(*cand, params, shape=default)
+    res = {}
+    for shape in itertools.product(threads, CHUNKS):
+        shape = type(default)(*shape)
+        got = kernel(*cand, params, shape=shape)
+        for a, b in zip(got, ref):
+            if not bool(((a == b) | (a.isnan() & b.isnan())).all()):
+                raise AssertionError(f"{label}: shape {shape} differs")
+        res[shape] = cuda_ms(lambda: kernel(*cand, params, shape=shape), 3)
+    best = sorted(res.items(), key=lambda kv: kv[1])[:5]
+    out = {"n": cand[0].numel(), "default": list(default),
+           "default_ms": res[default],
+           "best": [[list(s), ms] for s, ms in best],
+           "all": {",".join(map(str, s)): ms for s, ms in res.items()}}
+    print(label, json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", choices=("cylinder", "slab", "both"),
+                    default="both")
     ap.add_argument("--out", help="also write the report here as JSON")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
+    import warnings
     import torch
     from eigensolver_tpu_torch import cases
-    from eigensolver_tpu_torch.kernels import cylinder
+    from eigensolver_tpu_torch.kernels import cylinder, slab
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA card")
+    warnings.simplefilter("ignore")         # saturated-row notices
     smi = subprocess.run(
         ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(smi, flush=True)
-    case = cases.cylinder_density_coronal(0.9)
-    params = cylinder.disp_params(case)
     out = {"nvidia_smi": smi}
-    for dtype in (torch.float32, torch.float64):
-        cand = ladder_candidates(case, dtype)
-        default = cylinder.SCAN_SHAPE
-        ref = cylinder.cylinder_disp(*cand, params)
-        res = {}
-        for shape in itertools.product(THREADS, CHUNKS):
-            shape = cylinder.ScanShape(*shape)
-            got = cylinder.cylinder_disp(*cand, params, shape=shape)
-            for a, b in zip(got, ref):
-                if not bool(((a == b) | (a.isnan() & b.isnan())).all()):
-                    raise AssertionError(f"{dtype}: shape {shape} differs")
-            res[shape] = cuda_ms(
-                lambda: cylinder.cylinder_disp(*cand, params, shape=shape), 3)
-        best = sorted(res.items(), key=lambda kv: kv[1])[:5]
-        name = str(dtype)[6:]
-        out[name] = {"n": cand[0].numel(), "default": list(default),
-                     "default_ms": res[default],
-                     "best": [[list(s), ms] for s, ms in best],
-                     "all": {",".join(map(str, s)): ms for s, ms in res.items()}}
-        print(name, json.dumps(out[name]), flush=True)
+    if args.kernel in ("cylinder", "both"):
+        case = cases.cylinder_density_coronal(0.9)
+        params = cylinder.disp_params(case)
+        for dtype in (torch.float32, torch.float64):
+            name = f"cylinder_disp {str(dtype)[6:]}"
+            out[name] = tune(name, cylinder.cylinder_disp, cylinder.SCAN_SHAPE,
+                             THREADS["cylinder"],
+                             ladder_candidates(case, dtype), params)
+    if args.kernel in ("slab", "both"):
+        for form, case in (("flux slab_ph_09",
+                            cases.slab_density_photospheric(0.9)),
+                           ("shear flow_gauss",
+                            cases.slab_flow_gaussian_coronal())):
+            params = slab.disp_params(case)
+            shear = bool(params.struct.shear)
+            for dtype in (torch.float32, torch.float64):
+                name = f"slab_disp {form} {str(dtype)[6:]}"
+                cand = ladder_candidates(case, dtype)
+                out[name] = tune(name, slab.slab_disp,
+                                 slab.scan_shape(cand[0].numel(), shear),
+                                 THREADS["slab"], cand, params)
+        case = cases.slab_density_photospheric(0.9)
+        cand = window_candidates(case)
+        out["slab_disp window float64"] = tune(
+            "slab_disp window float64", slab.slab_disp,
+            slab.scan_shape(cand[0].numel(), False), THREADS["slab"], cand,
+            slab.disp_params(case))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(out, indent=1))
