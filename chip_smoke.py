@@ -52,6 +52,24 @@ the script exits non-zero:
    mismatch) bit-equal to search.bisect_loop over the one-thread kernel
    (n_iter + 2 launches), both timed; at float32 and n_iter=4, bit-equal to
    the same loop over the plain PyTorch dispersion, which is timed too.
+10. the twisted cylinder_disp (the compile-time variant for rotational flow
+   and magnetic twist) vs its plain version, 8,192 candidates of the full
+   twist_v01_p1 ladder (cylinder_twisted_photospheric(0.1, 1.0, 1)) and of
+   the magnetic p = 1.25 one (cylinder_twisted_magnetic(0.1, 0.15, 1.25,
+   1)), float32 and float64, bit-equal; each case's whole 76,800-
+   candidate scan (ladder order, m = 1) timed at both types beside its
+   bound, twist_v01_p1's plain version's time and bits at float32;
+   registers and
+   spills (ptxas) of every cylinder_disp instantiation.
+11. the twisted sweeps: run_case(twist_v01_p1, n_omega=256, n_bisect=18,
+   float32) with the counters reset (one cylinder_disp and one
+   cylinder_bisect launch, never the plain dispersion), 3 timed runs, float64
+   sweeps of twist_v01_p1 and of the magnetic case, one float32 run with
+   refine_f64=True (4 launches); counts held against the JAX package's; a
+   reduced magnetic sweep with the row-local continuum mask on the card held
+   against the same sweep on the CPU and the JAX package's count.
+12. the twisted cylinder_bisect on twist_v01_p1's own 2,400 brackets, as in
+   phase 8 (its plain loop at n_iter=1).
 
 Then one JSON line of the kernels (with each one's bound: the operations
 the function needs on this run's inputs over the card's peak rate, or its
@@ -124,6 +142,25 @@ FLOW_COUNTS = {     # float64
 # reduced sweep (k in {0.5, 2}, n_interior=256, n_axis_log=32, n_omega=64,
 # n_bisect=30, f64): same JAX measurement, and tests/test_torch_sweep.py
 JAX_COUNTS_REDUCED = {"sausage": 29, "kink": 43}
+# The twisted cases (one branch, m = 1), same commands (the f32 counts:
+# python tests/test_torch_ieee.py counts --cases twist_v01_p1; JAX 0.9.0 on
+# a CPU). BENCH_r05.json's count of twist_v01_p1, taken on a TPU at f32
+# (306), is printed beside, not held.
+TWIST_COUNTS = {
+    "float64": [("jax", {"kink": 306}, 0.0025)],
+    "float32": [("jax_ieee", {"kink": 308}, 0.01), ("jax", {"kink": 302}, None),
+                ("tpu_bench_r05", {"kink": 306}, None)],
+    "float32_refined": [("jax_ieee", {"kink": 308}, 0.01),
+                        ("jax", {"kink": 302}, None)],
+}
+MAGNETIC_COUNTS = {"float64": [("jax", {"kink": 307}, 0.0025)]}
+# reduced magnetic sweep with the row mask (k in {0.8, 1.4, 2.0},
+# n_interior=128, n_omega=48, n_bisect=20, f64):
+# tests/test_torch_twisted_sweep.py holds the port's CPU run equal to JAX's
+JAX_COUNTS_MASKED_REDUCED = {"kink": 7}
+N_TWIST = 60 * 5 * 256          # twist_v01_p1 candidates per sweep: 76,800
+N_BR_TWIST = 60 * 5 * 8         # its brackets: 2,400
+TWIST_PLAIN_N_ITER = 1          # the plain loop's iterations in phase 12
 # brackets of the full sweeps' bracket stage: rows x 8 per row
 N_BR_CYL = 90 * 12 * 2 * 8      # 17,280
 N_BR_SLAB = 35 * 9 * 2 * 8      # 5,040
@@ -145,10 +182,24 @@ PLAIN_N_ITER = 4                # the plain loop's iterations in phases 8, 9
 # ("*_ends"), the cylinder's without the K_m ratio, which `kve_ops` counts
 # from its arguments (csrc/kve_ratio.cuh: one branch per argument, the
 # series up to the first term that changes none of its sums).
+# The twisted cylinder chain ("cyl_tw_*": tools_torch/count_ops.py, which
+# traces the plain chain that the kernel follows operation for operation):
+# per abscissa the r-only values with their r-derivatives and the chain's
+# r-only products (r r, rho (c^2 + vA^2), v_phi^2, B_phi^2, rho v_phi,
+# 4 (c^2 + vA^2)), 3 abscissae per step; per candidate (or bracket per
+# evaluation) and step, 3 x 174 dual-chain operations with (1/F, g) and the
+# update; per evaluation, the values of the chain at r = 1, F(1),
+# C1(1)/C3(1), the products of k and m alone and the epilogue; once per
+# launch the r-only values at r = 1 and J. An operation repeated on the same
+# operands is one (a dual square is 3), a negation and a product by the
+# unit tangent dr/dr = 1 are free. With B_phi = 0 (twist_v01_p1) its exact
+# zeros remove every term in B_phi ("cyl_tw_b0_*").
 OPS = {"slab_x_step": 67, "slab_step": 61, "slab_ends": 93,
        "slab_shear_x_step": 40, "slab_shear_step": 114, "slab_shear_ends": 64,
        "cyl_r_step": 70, "cyl_log_r_step": 73, "cyl_step": 155,
        "cyl_log_step": 161, "cyl_ends": 98,
+       "cyl_tw_r_step": 298, "cyl_tw_step": 590, "cyl_tw_ends": 86,
+       "cyl_tw_launch": 99, "cyl_tw_b0_step": 425, "cyl_tw_b0_ends": 76,
        "kve_cf2": 491, "kve_series": 22, "kve_term": 5}
 # NVIDIA H100 SXM data sheet, outside the tensor cores, at 700 W; HBM3 rate
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
@@ -234,6 +285,27 @@ def cyl_ops(n: int, n_evals: int, n_interior: int, n_axis_log: int,
             + n_evals * kve_ops(z_ext)
             + n_interior * OPS["cyl_r_step"]
             + n_axis_log * OPS["cyl_log_r_step"])
+
+
+def cyl_tw_ops(case, n: int, n_evals: int, z_ext) -> int:
+    """Operations of n_evals twisted cylinder chains of `case` on each of n
+    candidates (no log tail) with the exterior arguments z_ext, and the
+    r-only values once; without the terms in B_phi where the case has
+    none."""
+    f = "cyl_tw_b0_" if case.b_twist_profile is None else "cyl_tw_"
+    n_interior = case.grid.n_interior
+    return (n * n_evals * (n_interior * OPS[f + "step"] + OPS[f + "ends"])
+            + n_evals * kve_ops(z_ext) + n_interior * OPS["cyl_tw_r_step"]
+            + OPS["cyl_tw_launch"])
+
+
+def twisted_cases() -> dict:
+    """The twisted configurations: bench.py's twist_v01_p1 (B_phi = 0,
+    p = 1) and tests/test_btwist.py's magnetic twist (every term live)."""
+    from eigensolver_tpu_torch import cases
+    return {"twist_v01_p1": cases.cylinder_twisted_photospheric(0.1, 1.0, 1),
+            "magnetic_p125": cases.cylinder_twisted_magnetic(0.1, 0.15, 1.25,
+                                                             1)}
 
 
 def kve_ops(z) -> int:
@@ -480,20 +552,24 @@ def phase_cylinder_disp(out: dict):
     full["check_float32"] = _compare_disp("cylinder_disp full float32", kres,
                                           pres, f64=False)
     res["full_ms"] = full
-    res["ptxas"] = ptxas_report("cylinder_disp_kernel")
+    res["ptxas"] = ptxas_report("cylinder_disp_kernel", CYL_FORMS)
     out["cylinder_disp"] = res
     line("phase 4 cylinder_disp vs plain", **res)
 
 
-def ptxas_report(kernel: str) -> dict:
+# the bool template argument of each scan kernel, by its value
+SLAB_FORMS = {"0": " flux", "1": " shear", None: ""}
+CYL_FORMS = {"0": "", "1": " twisted", None: ""}
+
+
+def ptxas_report(kernel: str, form: dict = SLAB_FORMS) -> dict:
     """Registers and spill bytes of each instantiation of `kernel`, from
     the build's ptxas report (-Xptxas -v), keyed by type, form (the slab's
-    flux or shear) and block size."""
+    flux or shear, the cylinder's plain or twisted chain) and block size."""
     import re
     from eigensolver_tpu_torch.kernels import _build
     log = _build.library_path().with_suffix(".log").read_text()
     out, name = {}, None
-    form = {"0": " flux", "1": " shear", None: ""}
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
@@ -835,17 +911,20 @@ def phase_slab_sweep(out: dict):
 
 def sweep_brackets(case, dtype):
     """The brackets of the case's bracket stage (n_omega=256, 8 per row,
-    scan in `dtype` on the card), as CUDA tensors (lo, hi, k, mode)."""
+    the case's modes, scan in `dtype` on the card), as CUDA tensors (lo,
+    hi, k, mode)."""
     import torch
     from eigensolver_tpu_torch import search, sweep
     omegas, ks = sweep.build_ladders(case, 256)
     rows = omegas.shape[0]
+    n_modes = len(case.modes)
 
     def dev(a):
         return torch.from_numpy(a).to(device="cuda", dtype=dtype)
 
-    om, kk = dev(np.concatenate([omegas] * 2)), dev(np.concatenate([ks] * 2))
-    md = dev(np.repeat([0.0, 1.0], rows))
+    om = dev(np.concatenate([omegas] * n_modes))
+    kk = dev(np.concatenate([ks] * n_modes))
+    md = dev(np.repeat([float(m) for m in case.modes], rows))
     disp = sweep.make_dispersion_moded(case, dtype)
     det, valid, mism = search.ladder_scan(disp, om, kk, md)
     br = search.find_brackets(om, kk, det, valid, 8, md, mism=mism)
@@ -853,12 +932,13 @@ def sweep_brackets(case, dtype):
 
 
 def phase_bisect(out: dict, phase: str, name: str, case, plain, n_br: int,
-                 ops):
+                 ops, key: str = None, plain_n_iter: int = PLAIN_N_ITER):
     """The fused bracket stage `name` on the case's own brackets: (root,
     mismatch) bit-equal to the loop of one-thread launches at float32 and
-    float64 (both timed), and at float32 with n_iter=PLAIN_N_ITER to the
+    float64 (both timed), and at float32 with n_iter=plain_n_iter to the
     loop over the plain dispersion `plain(dtype)` (timed once); the bound
-    from `ops(brackets, dtype)`, the operations of the launch."""
+    from `ops(brackets, dtype)`, the operations of the launch. The report
+    goes to out[key or name]."""
     import torch
     from eigensolver_tpu_torch import search, sweep
     res = {}
@@ -888,15 +968,15 @@ def phase_bisect(out: dict, phase: str, name: str, case, plain, n_br: int,
                          dname))
         if dtype == torch.float32:
             pdisp = plain(dtype)
-            fused4 = disp.bisect(*br, PLAIN_N_ITER)
+            fused4 = disp.bisect(*br, plain_n_iter)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            plain4 = search.bisect_loop(pdisp, *br, PLAIN_N_ITER)
+            plain4 = search.bisect_loop(pdisp, *br, plain_n_iter)
             torch.cuda.synchronize()
             r["plain_ms"] = 1e3 * (time.perf_counter() - t0)
-            r["plain_n_iter"] = PLAIN_N_ITER
+            r["plain_n_iter"] = plain_n_iter
             r["ms_plain_n_iter"] = cuda_ms(
-                lambda: disp.bisect(*br, PLAIN_N_ITER), 5)
+                lambda: disp.bisect(*br, plain_n_iter), 5)
             a, b = fused4[0].cpu().numpy(), plain4[0].cpu().numpy()
             r["max_abs_err_vs_plain"] = float(np.nanmax(np.abs(a - b)))
             differ = [int((~_same_bits(x.cpu().numpy(), y.cpu().numpy())).sum())
@@ -905,8 +985,164 @@ def phase_bisect(out: dict, phase: str, name: str, case, plain, n_br: int,
                 raise AssertionError(f"{name}: {differ} (root, mismatch) "
                                      f"values differ from the plain loop")
         res[dname] = r
-    out[name] = res
+    out[key or name] = res
     line(phase, **res)
+
+
+def phase_twisted_disp(out: dict):
+    import torch
+    from eigensolver_tpu_torch import sweep
+    from eigensolver_tpu_torch.physics.cylinder import CylinderPhysics
+    res = {}
+    for name, case in twisted_cases().items():
+        ph = CylinderPhysics.from_case(case)
+        om, k, m = _ladder_candidates(case, N_DISP_CHECK, seed=7)
+        for dtype in (torch.float64, torch.float32):
+            dname = str(dtype).split(".")[-1]
+            args = [x.to(dtype) for x in (om, k, m)]
+            kern = ph.make_dispersion(m=None, dtype=dtype)
+            plain = ph.make_dispersion_plain(m=None, dtype=dtype)
+            kres = kern(*args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pres = plain(*args)
+            torch.cuda.synchronize()
+            plain_ms = 1e3 * (time.perf_counter() - t0)
+            r = _compare_disp(f"twisted cylinder_disp {name} {dname}", kres,
+                              pres, f64=dtype == torch.float64, bits=True)
+            r.update(ms=cuda_ms(lambda: kern(*args), 5), plain_ms=plain_ms)
+            res[f"{name} {dname}"] = r
+    # each case's whole scan as its sweep gives it: the ladder in order,
+    # m = 1; the kernel at both types beside its bound; twist_v01_p1's
+    # plain version once at float32
+    full = {}
+    for case_name, case in twisted_cases().items():
+        ph = CylinderPhysics.from_case(case)
+        omegas, ks = sweep.build_ladders(case, 256)
+        om_f = torch.from_numpy(omegas.ravel()).cuda()
+        k_f = torch.from_numpy(np.repeat(ks, omegas.shape[1])).cuda()
+        m_f = torch.ones_like(om_f)
+        if om_f.numel() != N_TWIST:
+            raise AssertionError(f"{om_f.numel()} twisted candidates")
+        r = full[case_name] = {"n": N_TWIST}
+        for dtype in (torch.float32, torch.float64):
+            name = str(dtype).split(".")[-1]
+            args = [x.to(dtype) for x in (om_f, k_f, m_f)]
+            kern = ph.make_dispersion(m=None, dtype=dtype)
+            r[name] = cuda_ms(lambda: kern(*args), 5)
+            r[f"bound_{name}"] = bound(
+                cyl_tw_ops(case, N_TWIST, 1,
+                           exterior_args(case, om_f, k_f, dtype)),
+                N_TWIST * (5 * args[0].element_size() + 1), name)
+        if case_name != "twist_v01_p1":
+            continue
+        args = [x.to(torch.float32) for x in (om_f, k_f, m_f)]
+        kres = ph.make_dispersion(m=None, dtype=torch.float32)(*args)
+        plain = ph.make_dispersion_plain(m=None, dtype=torch.float32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pres = plain(*args)
+        torch.cuda.synchronize()
+        r["plain_float32"] = 1e3 * (time.perf_counter() - t0)
+        r["check_float32"] = _compare_disp(
+            "twisted cylinder_disp full float32", kres, pres, f64=False)
+    res["full_ms"] = full
+    res["ptxas"] = ptxas_report("cylinder_disp_kernel", CYL_FORMS)
+    out["twisted_disp"] = res
+    line("phase 10 twisted cylinder_disp vs plain", **res)
+
+
+def phase_twisted_sweep(out: dict):
+    from eigensolver_tpu_torch import search, sweep
+    from eigensolver_tpu_torch.equilibrium import genuine_continua_rowfn
+    from eigensolver_tpu_torch.utils import StageTimer
+    import warnings
+    warnings.simplefilter("ignore")     # saturated-row notices, as expected
+    cases_ = twisted_cases()
+    case = cases_["twist_v01_p1"]
+    cfg = search.SearchConfig(n_omega=256, n_bisect=18, scan_dtype="float32",
+                              polish_dtype="float32")
+
+    # the twisted path, with every launch counter reset just before
+    reset_counters()
+    rs, st = sweep.run_case(case, cfg, device="cuda")
+    launches = read_counters()
+    check_launches("twisted path", launches,
+                   {"cylinder_disp": 1, "cylinder_bisect": 1})
+    if st.n_candidates != N_TWIST:
+        raise AssertionError(f"{st.n_candidates} candidates")
+    _check_roots(rs, case)
+
+    walls, stages, counts = [], [], []
+    for _ in range(3):
+        before = read_counters()
+        timer = StageTimer()
+        rs, st = sweep.run_case(case, cfg, device="cuda", timer=timer)
+        check_launches("timed twisted run", counts_since(before),
+                       {"cylinder_disp": 1, "cylinder_bisect": 1})
+        walls.append(st.wall_s)
+        stages.append(timer.report())
+        counts.append(rs.counts())
+    if any(c != counts[0] for c in counts):
+        raise AssertionError(f"f32 root counts differ between runs: {counts}")
+    f32 = dict(counts=counts[0],
+               minus_refs=_check_counts("twist_v01_p1 float32", counts[0],
+                                        TWIST_COUNTS["float32"]),
+               wall_s=walls, median_wall_s=statistics.median(walls),
+               candidates_per_s=N_TWIST / statistics.median(walls),
+               stages_median_s={k: statistics.median(s[k] for s in stages)
+                                for k in stages[0]})
+
+    cfg64 = dataclasses.replace(cfg, scan_dtype="float64",
+                                polish_dtype="float64")
+    f64 = {}
+    for name, refs in (("twist_v01_p1", TWIST_COUNTS["float64"]),
+                       ("magnetic_p125", MAGNETIC_COUNTS["float64"])):
+        rs64, st64 = sweep.run_case(cases_[name], cfg64, device="cuda")
+        _check_roots(rs64, cases_[name])
+        f64[name] = dict(counts=rs64.counts(), wall_s=st64.wall_s,
+                         minus_refs=_check_counts(f"{name} float64",
+                                                  rs64.counts(), refs))
+
+    # f32 refined in f64 on the card: 4 launches
+    before = read_counters()
+    rsr, str_ = sweep.run_case(case, cfg, device="cuda", refine_f64=True)
+    refined_launches = counts_since(before)
+    check_launches("refined twisted path", refined_launches,
+                   {"cylinder_disp": 2, "cylinder_bisect": 2})
+    _check_roots(rsr, case)
+    refined = dict(counts=rsr.counts(), wall_s=str_.wall_s,
+                   launches=refined_launches,
+                   minus_refs=_check_counts("twist_v01_p1 float32 refined",
+                                            rsr.counts(),
+                                            TWIST_COUNTS["float32_refined"]))
+
+    # a small input against the reference: the reduced magnetic sweep with
+    # the row-local continuum mask on the card and on the CPU (the CPU run
+    # held equal to the JAX package's by tests/test_torch_twisted_sweep.py)
+    mag = cases_["magnetic_p125"]
+    small = dataclasses.replace(
+        mag, k_values=(0.8, 1.4, 2.0),
+        grid=dataclasses.replace(mag.grid, n_interior=128))
+    scfg = search.SearchConfig(n_omega=48, n_bisect=20,
+                               exclude_omega_rowfn=genuine_continua_rowfn(small))
+    rs_gpu, _ = sweep.run_case(small, scfg, device="cuda")
+    rs_cpu, _ = sweep.run_case(small, scfg, device="cpu")
+    if not rs_gpu.counts() == rs_cpu.counts() == JAX_COUNTS_MASKED_REDUCED:
+        raise AssertionError(f"reduced masked sweep: card {rs_gpu.counts()}, "
+                             f"cpu {rs_cpu.counts()}, JAX "
+                             f"{JAX_COUNTS_MASKED_REDUCED}")
+    dev = max(float(np.max(np.abs(rs_gpu[b].omegas / rs_cpu[b].omegas - 1)))
+              for b in rs_cpu.branches)
+    if not dev <= 1e-10:
+        raise AssertionError(f"reduced masked roots card vs cpu: {dev:.3e}")
+
+    out["twisted_sweep"] = dict(main_path_launches=launches, float32=f32,
+                                float64=f64, float32_refined=refined,
+                                reduced_masked_counts=rs_gpu.counts(),
+                                reduced_masked_max_rel_dev=dev)
+    line("phase 11 twisted sweeps", **out["twisted_sweep"])
+    return launches
 
 
 def main() -> int:
@@ -948,6 +1184,18 @@ def main() -> int:
                      slab_case).make_dispersion_plain(parity=None, dtype=dt),
                  N_BR_SLAB,
                  lambda br, dt: slab_ops(N_BR_SLAB, n_evals, sg.n_interior))
+    phase_twisted_disp(out)
+    tw_launches = phase_twisted_sweep(out)
+    tw_case = twisted_cases()["twist_v01_p1"]
+    phase_bisect(out, "phase 12 twisted cylinder_bisect", "cylinder_bisect",
+                 tw_case,
+                 lambda dt: CylinderPhysics.from_case(
+                     tw_case).make_dispersion_plain(m=None, dtype=dt),
+                 N_BR_TWIST,
+                 lambda br, dt: cyl_tw_ops(
+                     tw_case, N_BR_TWIST, n_evals,
+                     exterior_args(tw_case, br[0], br[2], dt)),
+                 key="twisted_bisect", plain_n_iter=TWIST_PLAIN_N_ITER)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
@@ -958,6 +1206,9 @@ def main() -> int:
     cbis = out["cylinder_bisect"]["float32"]
     sbis = out["slab_bisect"]["float32"]
     kve_f32 = kve["shuffled float32"]
+    tw = out["twisted_disp"]["full_ms"]["twist_v01_p1"]
+    tw_mag = out["twisted_disp"]["full_ms"]["magnetic_p125"]
+    tbis = out["twisted_bisect"]
     kernels = [{
         "name": "cylinder_disp",
         "route": "cuda",
@@ -972,6 +1223,27 @@ def main() -> int:
         "plain_ms": cyl["plain_float32"],
         **cyl["bound_float32"],
         "library_ms": None,
+        # the compile-time variant for the twisted chain (the XLA program's
+        # coefficients with jax.jvp, physics/cylinder.py:189), on
+        # twist_v01_p1's 76,800 ladder candidates: its launches on the
+        # twisted main path (phase 11), float32 unless said
+        "twisted": {
+            "replaces": "eigensolver_tpu/physics/cylinder.py:189",
+            "n": N_TWIST,
+            "launches": tw_launches["cylinder_disp"],
+            "max_abs_err": tw["check_float32"]["max_abs_err_det"],
+            "ms": tw["float32"], "plain_ms": tw["plain_float32"],
+            **tw["bound_float32"],
+            "float64_ms": tw["float64"],
+            "float64_bound_ms": tw["bound_float64"]["bound_ms"],
+            "library_ms": None,
+            # the magnetic case's 76,800 (every term of the chain live)
+            "magnetic_p125": {
+                "ms": tw_mag["float32"],
+                "bound_ms": tw_mag["bound_float32"]["bound_ms"],
+                "float64_ms": tw_mag["float64"],
+                "float64_bound_ms": tw_mag["bound_float64"]["bound_ms"]},
+        },
     }, {
         "name": "kve_ratio",
         "route": "cuda",
@@ -1035,6 +1307,23 @@ def main() -> int:
         "bound_ms": cbis["bound_ms"],
         "bound_by": cbis["bound_by"],
         "library_ms": None,
+        # the twisted chain's fused bisection on twist_v01_p1's 2,400
+        # brackets (phase 12), its launches on the twisted main path
+        "twisted": {
+            "n": N_BR_TWIST,
+            "launches": tw_launches["cylinder_bisect"],
+            "max_abs_err": tbis["float32"]["max_abs_err_vs_plain"],
+            "ms": tbis["float32"]["ms"],
+            "plain_ms": tbis["float32"]["plain_ms"],
+            "plain_n_iter": TWIST_PLAIN_N_ITER,
+            "ms_plain_n_iter": tbis["float32"]["ms_plain_n_iter"],
+            "launch_loop_ms": tbis["float32"]["loop_ms"],
+            "bound_ms": tbis["float32"]["bound_ms"],
+            "bound_by": tbis["float32"]["bound_by"],
+            "float64_ms": tbis["float64"]["ms"],
+            "float64_bound_ms": tbis["float64"]["bound_ms"],
+            "library_ms": None,
+        },
     }, {
         "name": "slab_bisect",
         "route": "cuda",

@@ -1,7 +1,8 @@
 // Device code shared by the dispersion kernels (cylinder_disp.cu,
 // slab_disp.cu): the equilibrium profiles of `profiles.make_profile`, their
-// closed-form derivatives (`profiles.make_profile_derivative`), the
-// pressure-balanced speeds of `equilibrium.make_equilibrium`, the RK4 grid,
+// closed-form derivatives (`profiles.make_profile_derivative`), powers as
+// `profiles.power` forms them, the pressure-balanced speeds of
+// `equilibrium.make_equilibrium`, the RK4 grid, dual numbers (`dual.Dual`),
 // and two helpers that keep the JAX code's NaN pattern.
 //
 // Every expression follows the plain PyTorch version operation for
@@ -35,6 +36,22 @@ struct ProfileParams {
   double power_m1, power_m2;
 };
 
+// x ** e for a Python float e, as profiles.power evaluates it: the
+// exponents that PyTorch's pow special-cases written out, pow for the rest
+// (the twist profiles' powers; see profile's power law)
+template <class T>
+__device__ __forceinline__ T tpow(T x, double e) {
+  if (e == 0.0) return T(1);
+  if (e == 1.0) return x;
+  if (e == 2.0) return x * x;
+  if (e == 3.0) return x * x * x;
+  if (e == 0.5) return sqrt(x);
+  if (e == -0.5) return T(1) / sqrt(x);
+  if (e == -1.0) return T(1) / x;
+  if (e == -2.0) return T(1) / (x * x);
+  return pow(x, T(e));
+}
+
 template <class T>
 __device__ __forceinline__ T profile(const ProfileParams& p, T x) {
   switch (p.kind) {
@@ -48,7 +65,9 @@ __device__ __forceinline__ T profile(const ProfileParams& p, T x) {
       const T c4 = c2 * c2;
       return T(p.fe) + T(p.f0_minus_fe) / (c4 * c4);
     }
-    case kPowerLaw:
+    case kPowerLaw:  // refused for density and flow by the wrappers
+                     // (kernels/common.py::density_flow_params); the twist
+                     // profiles go through cylinder_disp.cu::tw_profile
       return T(p.amplitude) * pow(x, T(p.power));
     default:
       return T(p.f0);  // f0 + 0.0 * x, for the finite x visited here
@@ -144,6 +163,56 @@ template <class T>
 __device__ __forceinline__ T rk4_abscissa(T x0, T h, T hh, int i, int a) {
   const T x = x0 + T(i) * h;
   return a == 0 ? x : (a == 1 ? x + hh : x + h);
+}
+
+// A dual number (value, d/dr): the rules of dual.Dual, operation for
+// operation. A T operand is a constant (derivative 0, no term).
+template <class T>
+struct Dual {
+  T v, d;
+};
+
+template <class T>
+__device__ __forceinline__ Dual<T> operator+(Dual<T> a, Dual<T> b) {
+  return {a.v + b.v, a.d + b.d};
+}
+template <class T>
+__device__ __forceinline__ Dual<T> operator-(Dual<T> a, Dual<T> b) {
+  return {a.v - b.v, a.d - b.d};
+}
+template <class T>
+__device__ __forceinline__ Dual<T> operator-(T c, Dual<T> a) {
+  return {c - a.v, -a.d};
+}
+template <class T>
+__device__ __forceinline__ Dual<T> operator-(Dual<T> a) {
+  return {-a.v, -a.d};
+}
+template <class T>
+__device__ __forceinline__ Dual<T> operator*(Dual<T> a, Dual<T> b) {
+  return {a.v * b.v, a.d * b.v + a.v * b.d};
+}
+template <class T>
+__device__ __forceinline__ Dual<T> operator*(Dual<T> a, T c) {
+  return {a.v * c, a.d * c};
+}
+template <class T>
+__device__ __forceinline__ Dual<T> operator*(T c, Dual<T> a) {
+  return {c * a.v, c * a.d};
+}
+template <class T>
+__device__ __forceinline__ Dual<T> operator/(Dual<T> a, Dual<T> b) {
+  const T q = a.v / b.v;
+  return {q, (a.d - q * b.d) / b.v};
+}
+template <class T>
+__device__ __forceinline__ Dual<T> operator/(Dual<T> a, T c) {
+  return {a.v / c, a.d / c};
+}
+template <class T>
+__device__ __forceinline__ Dual<T> dsqrt(Dual<T> a) {
+  const T s = sqrt(a.v);
+  return {s, a.d / (T(2) * s)};
 }
 
 // jnp.maximum / torch.maximum: NaN if either operand is NaN

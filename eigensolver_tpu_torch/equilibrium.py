@@ -11,18 +11,23 @@ balance:
     cT_i(x)  = c_i vA_i / sqrt(c_i^2 + vA_i^2)
 
 For the twisted (rotational flow) cases the pressure follows from radial
-force balance: P_i(r) = rho_i0 v_twist^2 r^(2p) / (2p) + P_0. The continuum
-masks (`continuum_bands`, `genuine_continua*`) are not ported yet
+force balance: P_i(r) = rho_i0 v_twist^2 r^(2p) / (2p) + P_0.
+
+`genuine_continua_rowfn` gives the twisted family's row-local continuum
+ranges, which the search masks (`SearchConfig.exclude_omega_rowfn`). The
+phase-speed masks (`continuum_bands`, `genuine_continua`) are not ported yet
 (ROADMAP A11).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from .config import CaseConfig, ProfileKind, Regime
-from .profiles import Profile, div, make_profile, rdiv, sqrt
+from .profiles import Profile, div, make_profile, power, rdiv, sqrt
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,7 +85,7 @@ def make_equilibrium(case: CaseConfig) -> Equilibrium:
 
         def P_i(r):
             # radial force balance for v_phi = amp * r^p
-            return rho_u(r) * amp ** 2 * div(r ** (2.0 * p), 2.0 * p) + P_0
+            return rho_u(r) * amp ** 2 * div(power(r, 2.0 * p), 2.0 * p) + P_0
 
         def B_i(r):
             # pressure-balanced B_z when an azimuthal field is present
@@ -140,3 +145,43 @@ def make_equilibrium(case: CaseConfig) -> Equilibrium:
         B_phi=B_phi,
         P_i=P_i,
     )
+
+
+def genuine_continua_rowfn(case: CaseConfig, n: int = 192,
+                           guard: float = 2e-4) -> Optional[Callable]:
+    """Row-local continuum ranges of the twisted (rotational-flow /
+    magnetic-twist) family: port of `eigensolver_tpu.equilibrium.
+    genuine_continua_rowfn`, batched over ladder rows.
+
+    Returns fn(ks, ms) -> (lo, hi), for (rows,) tensors of wavenumbers and
+    azimuthal orders, two (rows, 4) tensors in their dtype and on their
+    device: the OMEGA ranges of the Doppler Alfven+- and cusp+- continua of
+    each row, omega = m v_phi(r)/r + k U(r) +- w(r) over r in [eps, 1] with
+    w = m B_phi/r + k B_z/sqrt(rho) (Alfven) or w c_i / sqrt(c_i^2 + vA_i^2)
+    (cusp), on a grid of n radii, each range shrunk by `guard` times
+    max(1, |lo|, |hi|). Zero-width bands come out with lo > hi and match
+    nothing. None for non-twisted cases."""
+    if case.twist_profile is None:
+        return None
+    eq = make_equilibrium(case)
+    eps = case.grid.axis_epsilon
+    # the radii in float64 numpy: torch.linspace rounds otherwise
+    rr64 = torch.from_numpy(np.linspace(eps, 1.0, n))
+
+    def rowfn(ks: torch.Tensor, ms: torch.Tensor):
+        rr = rr64.to(device=ks.device, dtype=ks.dtype)
+        k, m = ks[:, None], ms[:, None]
+        dop = m * eq.v_phi(rr) / rr + k * eq.U_i(rr)
+        w_a = m * eq.B_phi(rr) / rr + k * eq.B_i(rr) / sqrt(eq.rho_i(rr))
+        ci = eq.c_i(rr)
+        w_c = w_a * ci / sqrt(ci * ci + eq.vA_i(rr) * eq.vA_i(rr))
+        los, his = [], []
+        for s in (w_a, -w_a, w_c, -w_c):
+            band = dop + s
+            lo, hi = band.amin(dim=1), band.amax(dim=1)
+            scale = torch.maximum(lo.abs(), hi.abs()).clamp_min(1.0)
+            los.append(lo + guard * scale)
+            his.append(hi - guard * scale)
+        return torch.stack(los, dim=1), torch.stack(his, dim=1)
+
+    return rowfn

@@ -42,6 +42,20 @@ def profile_params(cfg: ProfileConfig, f0: float, fe: float) -> ProfileParams:
                          power_m1=cfg.power - 1.0, power_m2=cfg.power - 2.0)
 
 
+def density_flow_params(kernel: str, case) -> tuple:
+    """ProfileParams of a case's density and flow profiles. A power law
+    raises: the kernels' `profile` (csrc/common.cuh) forms its power with
+    `pow`, where the plain version's `profiles.power` writes some exponents
+    out, so the two would not agree bit for bit. No case uses one."""
+    if ProfileKind.POWER_LAW in (case.density_profile.kind,
+                                 case.flow_profile.kind):
+        raise NotImplementedError(
+            f"{kernel}: power-law density or flow profiles")
+    rg = case.regime
+    return (profile_params(case.density_profile, rg.rho_i0, rg.rho_e),
+            profile_params(case.flow_profile, rg.U_i0, rg.U_e))
+
+
 def launch_disp(name: str, entries: dict, size_fn: str, struct,
                 omega: torch.Tensor, k: torch.Tensor, mode: torch.Tensor,
                 shape: tuple = ()):

@@ -3,7 +3,8 @@ kernels `cylinder_disp` and `cylinder_bisect`.
 
 `cylinder_disp` (`csrc/cylinder_disp.cu`) is the port of the XLA-fused
 `jit(vmap(disp))` of `eigensolver_tpu/physics/cylinder.py` (cylinder.py:
-236-385, non-twisted, real omega, "bessel" exterior): one thread per
+236-385, real omega, "bessel" exterior; the twisted chain is a compile-time
+variant that the C entries pick from the parameters): one thread per
 (omega, k, m) candidate carries the whole interior shoot, the axis tail, the
 inlined K_m-ratio exterior (`csrc/kve_ratio.cuh`, the port of the Pallas
 kernel `kernels/bessel.py::kve_ratio_pallas`) and the determinant in
@@ -26,16 +27,18 @@ from typing import Optional
 
 import torch
 
-from ..config import CaseConfig, ProfileKind
+from ..config import CaseConfig, ProfileConfig, ProfileKind
 from .common import (BisectShape, ProfileParams, ScanShape,
-                     check_scan_shape, launch_bisect, launch_disp,
-                     profile_params)
+                     check_scan_shape, density_flow_params, launch_bisect,
+                     launch_disp, profile_params)
 
 # launches of the kernels since the last reset (one per kernel launch):
 # cylinder_disp, and the fused bisection cylinder_bisect
 launches = 0
 bisect_launches = 0
 
+# C entries by dtype; each runs the chain that the parameters' `twisted`
+# names
 _ENTRY = {torch.float32: "eigk_cylinder_disp_f32",
           torch.float64: "eigk_cylinder_disp_f64"}
 _BISECT_ENTRY = {torch.float32: "eigk_cylinder_bisect_f32",
@@ -55,7 +58,13 @@ class _CylParams(ctypes.Structure):
                 ("axis_eps", ctypes.c_double),
                 ("axis_eps_final", ctypes.c_double),
                 ("n_interior", ctypes.c_int), ("n_axis_log", ctypes.c_int),
-                ("log_tail", ctypes.c_int)]
+                ("log_tail", ctypes.c_int),
+                # the twisted chain (physics.cylinder.twisted_point_fn)
+                ("twisted", ctypes.c_int),
+                ("vphi", ProfileParams), ("bphi", ProfileParams),
+                ("P_0", ctypes.c_double), ("gamma", ctypes.c_double),
+                ("amp2", ctypes.c_double), ("pw2", ctypes.c_double),
+                ("pw2_m1", ctypes.c_double), ("B0_sq", ctypes.c_double)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,14 +77,23 @@ class DispParams:
 
 
 def disp_params(case: CaseConfig) -> DispParams:
+    from ..physics.cylinder import is_twisted, log_tail
     rg = case.regime
     g = rg.gamma
     gr = case.grid
+    rho, flow = density_flow_params("cylinder_disp", case)
     zero_flow = (case.flow_profile.kind == ProfileKind.UNIFORM
                  and rg.U_i0 == rg.U_e == 0.0)
+    twisted = is_twisted(case)
+    uniform = ProfileConfig(kind=ProfileKind.UNIFORM)
+    tp = case.twist_profile or uniform
+    bp = case.b_twist_profile if twisted and case.b_twist_profile else uniform
+    if {tp.kind, bp.kind} - {ProfileKind.POWER_LAW, ProfileKind.UNIFORM}:
+        # the kernels' tw_profile (csrc/cylinder_disp.cu) evaluates these two
+        raise NotImplementedError(
+            "cylinder_disp: twist profiles other than power laws")
     s = _CylParams(
-        rho=profile_params(case.density_profile, rg.rho_i0, rg.rho_e),
-        flow=profile_params(case.flow_profile, rg.U_i0, rg.U_e),
+        rho=rho, flow=flow,
         uniform_density=int(case.density_profile.kind == ProfileKind.UNIFORM),
         zero_flow=int(zero_flow),
         vA_i0=rg.vA_i0, c_i0=rg.c_i0, rho_i0=rg.rho_i0, B_0=rg.B_0,
@@ -86,12 +104,18 @@ def disp_params(case: CaseConfig) -> DispParams:
         rho_e=rg.rho_e, m_e_floor=1e-300,
         axis_eps=gr.axis_epsilon, axis_eps_final=gr.axis_epsilon_final,
         n_interior=gr.n_interior, n_axis_log=gr.n_axis_log,
-        log_tail=int(gr.axis_epsilon_final < gr.axis_epsilon))
+        log_tail=int(log_tail(case)),
+        twisted=int(twisted),
+        vphi=profile_params(tp, 0.0, 0.0), bphi=profile_params(bp, 0.0, 0.0),
+        P_0=rg.P_0, gamma=g, amp2=tp.amplitude ** 2, pw2=2.0 * tp.power,
+        pw2_m1=2.0 * tp.power - 1.0, B0_sq=rg.B_0 ** 2)
     return DispParams(case=case, struct=s)
 
 
-# the sizes of RPoint<T> (csrc/cylinder_disp.cu): 9 values, 16-byte aligned
-_ENTRY_BYTES = {torch.float32: 48, torch.float64: 80}
+# the sizes of the scan's table entries (csrc/cylinder_disp.cu), 16-byte
+# aligned: RPoint<T>, 9 values; twisted, RPointTw<T>, 19
+_ENTRY_BYTES = {(torch.float32, False): 48, (torch.float64, False): 80,
+                (torch.float32, True): 80, (torch.float64, True): 160}
 
 
 # The scan's launch shape: within 1% of the fastest of 15 shapes at both
@@ -100,9 +124,10 @@ _ENTRY_BYTES = {torch.float32: 48, torch.float64: 80}
 SCAN_SHAPE = ScanShape(threads=256, chunk=64)
 
 
-def _check_scan_shape(shape: ScanShape, dtype: torch.dtype) -> None:
+def _check_scan_shape(shape: ScanShape, dtype: torch.dtype,
+                      twisted: bool = False) -> None:
     check_scan_shape("cylinder_disp", shape, (128, 256, 512),
-                     _ENTRY_BYTES[dtype])
+                     _ENTRY_BYTES[dtype, twisted])
 
 
 def cylinder_disp(omega: torch.Tensor, k: torch.Tensor, m: torch.Tensor,
@@ -116,7 +141,7 @@ def cylinder_disp(omega: torch.Tensor, k: torch.Tensor, m: torch.Tensor,
     from ..physics.cylinder import CylinderInterface
     shape = ScanShape(*(shape or SCAN_SHAPE))
     if omega.dtype in _ENTRY:     # launch_disp raises on the others
-        _check_scan_shape(shape, omega.dtype)
+        _check_scan_shape(shape, omega.dtype, bool(params.struct.twisted))
     det, mism, valid = launch_disp(
         "cylinder_disp", _ENTRY, "eigk_cylinder_params_size", params.struct,
         omega, k, m, shape)

@@ -27,8 +27,8 @@ import torch
 
 from ..config import CaseConfig, ProfileKind
 from .common import (_SMS, BisectShape, ProfileParams, ScanShape,
-                     check_scan_shape, launch_bisect, launch_disp,
-                     profile_params)
+                     check_scan_shape, density_flow_params, launch_bisect,
+                     launch_disp)
 
 # launches of the kernels since the last reset (one per kernel launch):
 # slab_disp, and the fused bisection slab_bisect
@@ -71,12 +71,12 @@ def disp_params(case: CaseConfig, include_shear_pressure: bool = False
                 ) -> DispParams:
     rg = case.regime
     g = rg.gamma
+    rho, flow = density_flow_params("slab_disp", case)
     zero_flow = (case.flow_profile.kind == ProfileKind.UNIFORM
                  and rg.U_i0 == rg.U_e == 0.0)
     c2, a2 = rg.c_i0 ** 2, rg.vA_i0 ** 2
     s = _SlabParams(
-        rho=profile_params(case.density_profile, rg.rho_i0, rg.rho_e),
-        flow=profile_params(case.flow_profile, rg.U_i0, rg.U_e),
+        rho=rho, flow=flow,
         uniform_density=int(case.density_profile.kind == ProfileKind.UNIFORM),
         zero_flow=int(zero_flow),
         vA_i0=rg.vA_i0, c_i0=rg.c_i0, rho_i0=rg.rho_i0,

@@ -1,14 +1,22 @@
 """Cylinder dispersion function (Hain-Lust P_T formulation) in PyTorch.
 
-Port of `eigensolver_tpu.physics.cylinder` for the non-twisted, real-omega
-cases (density and axial-flow tubes) with the analytic ("bessel") exterior.
-Two basis solutions (P, w = F P') are integrated inward from r = 1 to eps
-and on down a log-spaced tail to eps_final, and the 2x2 determinant
+Port of `eigensolver_tpu.physics.cylinder` for the real-omega cases with the
+analytic ("bessel") exterior: the density and axial-flow tubes, and the
+twisted ones (rotational flow v_phi and magnetic twist B_phi). Two basis
+solutions (P, w = F P') are integrated inward from r = 1 to eps (and, for
+the non-twisted tubes, on down a log-spaced tail to eps_final), and the 2x2
+determinant
 
-    D(omega, k) = axis(u1) * match(u2) - axis(u2) * match(u1)
+    D(omega, k) = axis(u1) * match(u2) - axis(u2) * match(u1) + J xi_e xi2
 
 combines the axis condition (kink: P(eps) = 0; sausage: P'(eps) = 0) with
-continuity of xi_r against the decaying exterior K_m(sqrt(m_e) r).
+continuity of xi_r against the decaying exterior K_m(sqrt(m_e) r); the
+twisted kink adds the jump term J = B_phi(1)^2 - rho v_phi(1)^2.
+
+The twisted chain needs d(r C1/C3)/dr, which the JAX package takes from
+`jax.jvp`: here every quantity of the chain that r C1/C3 depends on is a
+`dual.Dual` (value, d/dr), the r-only ones entering with closed-form
+derivatives (`twisted_point_fn`).
 
 `make_dispersion` returns the batched function the search calls. It casts
 its inputs to the working dtype and hands them to
@@ -18,8 +26,7 @@ tensor. The plain version is the JAX code's arithmetic, expression for
 expression, with a Python loop over RK4 steps on tensors of candidates in
 place of `lax.scan` over a vmapped scalar.
 
-Not ported yet: twisted (rotational-flow / magnetic-twist) cases, which need
-d(r C1/C3)/dr (ROADMAP A9); complex omega (A10); the numeric exterior (A8).
+Not ported yet: complex omega (ROADMAP A10); the numeric exterior (A8).
 """
 from __future__ import annotations
 
@@ -28,10 +35,11 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ..config import CaseConfig
+from ..config import CaseConfig, ProfileConfig, ProfileKind
+from ..dual import Dual, dsqrt
 from ..equilibrium import Equilibrium, make_equilibrium
 from .. import special
-from ..profiles import div, sqrt
+from ..profiles import div, make_profile_derivative, power, sqrt
 
 # plain (eager PyTorch) dispersion evaluations since the last reset
 plain_calls = 0
@@ -78,10 +86,48 @@ class CylinderInterface(NamedTuple):
     valid: torch.Tensor
 
 
+def is_twisted(case: CaseConfig) -> bool:
+    """The twisted chain (as the JAX package decides: a twist profile)."""
+    return case.twist_profile is not None
+
+
+def log_tail(case: CaseConfig) -> bool:
+    """Whether the shoot continues on the log tail eps -> eps_final: not for
+    twisted cases, whose axis cutoff is physics (v_phi ~ r^(p-1))."""
+    gr = case.grid
+    return not is_twisted(case) and gr.axis_epsilon_final < gr.axis_epsilon
+
+
+class TwistedPoint(NamedTuple):
+    """The twisted chain's values that depend on the radius alone, with
+    their r-derivatives where r C1/C3 needs them: one entry of the kernel's
+    table (`csrc/cylinder_disp.cu::RPointTw`)."""
+    r: torch.Tensor
+    rho: torch.Tensor         # uniform: no derivative
+    sqrt_rho: torch.Tensor
+    v: Dual                   # v_phi
+    b: Dual                   # B_phi
+    Bz: Dual                  # B_0 sqrt(1 - 2 B_phi^2 / B_0^2)
+    ci: Dual                  # sqrt(gamma P_i / rho), P_i force-balanced
+    csum: Dual                # c_i^2 + vA_i^2, vA_i = (B_z + B_phi)/sqrt(rho)
+    sqrt_csum: Dual
+    U: Dual                   # axial flow
+    rdc: Dual                 # r d C3diff/dr, C3diff = (B_phi/r)^2 - rho (v_phi/r)^2
+
+
+class TwistedChain(NamedTuple):
+    """The twisted Hain-Lust chain at one radius: D, C1, A, B, C3 and
+    r C1/C3 with their r-derivatives, C2 without."""
+    D: Dual
+    C1: Dual
+    C2: torch.Tensor
+    A: Dual
+    B: Dual
+    C3: Dual
+    rc: Dual
+
+
 def _check_supported(case: CaseConfig):
-    if case.twist_profile is not None or case.b_twist_profile is not None:
-        raise NotImplementedError(
-            "twisted cylinder cases need d(r C1/C3)/dr: ROADMAP A9")
     if case.complex_omega:
         raise NotImplementedError("complex omega: ROADMAP A10")
     if case.grid.exterior_method != "bessel":
@@ -99,8 +145,15 @@ class CylinderPhysics:
         return cls(case=case, eq=make_equilibrium(case))
 
     def coefficients(self, omega, k, m):
-        """Closed-form coefficient functions of r for the non-twisted chain:
-        (Dfun, C1fun, C3fun, Ffun, invF_g).
+        """Closed-form coefficient functions of r: (Dfun, C1fun, C3fun,
+        Ffun, invF_g), invF_g(r) -> (1/F, g) the pair the interior RK4
+        integrates."""
+        if is_twisted(self.case):
+            return self._twisted_coefficients(omega, k, m)
+        return self._plain_coefficients(omega, k, m)
+
+    def _plain_coefficients(self, omega, k, m):
+        """The non-twisted chain.
 
         With v_phi == B_phi == 0, C1 == B == C3diff == 0 identically, so the
         chain reduces to D, A = rho (s^2 - wA^2), C2, C3 = D A + B,
@@ -150,6 +203,110 @@ class CylinderPhysics:
 
         return Dfun, C1fun, C3fun, Ffun, invF_g
 
+    def twisted_point_fn(self) -> Callable[[torch.Tensor], TwistedPoint]:
+        """r -> TwistedPoint, the r-only part of the twisted chain.
+
+        The profiles' derivatives are closed-form (`profiles.
+        make_profile_derivative`); the rest follows by dual arithmetic,
+        except C3diff' and C3diff'', from x = B_phi/r, y = v_phi/r:
+            x' = (B_phi' - x)/r,   x'' = (B_phi'' - 2 x')/r   (y alike),
+            C3diff' = 2 x x' - rho 2 y y',
+        evaluated on the duals (x, x'), (x', x''), (y, y'), (y', y''), so
+        that its tangent is C3diff''; the force balance gives P_i' = rho
+        v_twist^2 r^(2p - 1)."""
+        case, eq = self.case, self.eq
+        rg = case.regime
+        tp = case.twist_profile
+        bp = case.b_twist_profile or ProfileConfig(kind=ProfileKind.UNIFORM)
+        amp2, p = tp.amplitude ** 2, tp.power
+        dv1, dv2 = (make_profile_derivative(tp, 0.0, 0.0, o) for o in (1, 2))
+        db1, db2 = (make_profile_derivative(bp, 0.0, 0.0, o) for o in (1, 2))
+        zero_flow = (case.flow_profile.kind == ProfileKind.UNIFORM
+                     and rg.U_i0 == rg.U_e == 0.0)
+        dU = (torch.zeros_like if zero_flow else make_profile_derivative(
+            case.flow_profile, rg.U_i0, rg.U_e, 1))
+
+        def point(r):
+            R = Dual(r, torch.ones_like(r))
+            rho = eq.rho_i(r)
+            sqrt_rho = sqrt(rho)
+            P = Dual(eq.P_i(r), rho * amp2 * power(r, 2.0 * p - 1.0))
+            ci = dsqrt(P * rg.gamma / rho)
+            b = Dual(eq.B_phi(r), db1(r))
+            Bz = rg.B_0 * dsqrt(1.0 - 2.0 * (b * b / rg.B_0 ** 2))
+            vA = (Bz + b) / sqrt_rho
+            csum = ci * ci + vA * vA
+            v = Dual(eq.v_phi(r), dv1(r))
+            x = b.v / r
+            x1 = (b.d - x) / r
+            y = v.v / r
+            y1 = (v.d - y) / r
+            X1 = Dual(x1, (db2(r) - 2 * x1) / r)
+            Y1 = Dual(y1, (dv2(r) - 2 * y1) / r)
+            dC = 2 * Dual(x, x1) * X1 - rho * (2 * Dual(y, y1) * Y1)
+            return TwistedPoint(
+                r=r, rho=rho, sqrt_rho=sqrt_rho, v=v, b=b, Bz=Bz, ci=ci,
+                csum=csum, sqrt_csum=dsqrt(csum),
+                U=Dual(eq.U_i(r), dU(r)), rdc=R * dC)
+        return point
+
+    @staticmethod
+    def twisted_chain(q: TwistedPoint, omega, k, m) -> TwistedChain:
+        """The twisted chain at the radius of q for candidates (omega, k,
+        m): the JAX chain's expressions (cylinder.py:110-208, C1 with
+        shift^2) in its order of operations, on duals."""
+        R = Dual(q.r, torch.ones_like(q.r))
+        RR = R * R
+        mb_r = m * q.b / R
+        shift = omega - m * q.v / R - k * q.U
+        alf = mb_r + k * q.Bz / q.sqrt_rho
+        cusp = alf * q.ci / q.sqrt_csum
+        s2 = shift * shift
+        da = s2 - alf * alf
+        dc = s2 - cusp * cusp
+        D = q.rho * q.csum * da * dc
+        fb = mb_r + k * q.Bz
+        Q = (-da * q.rho * (q.v * q.v) / R + 2.0 * s2 * (q.b * q.b) / R
+             + 2.0 * shift * q.b * q.v * fb / R)
+        T = fb * q.b + q.rho * q.v * shift
+        C1 = Q * s2 - 2.0 * m * q.csum * dc * T / RR
+        C2 = s2.v * s2.v - q.csum.v * (m * m / RR.v + k * k) * dc.v
+        A = q.rho * da + q.rdc
+        B = Q * Q - 4.0 * q.csum * dc * (T * T) / RR
+        C3 = D * A + B
+        return TwistedChain(D=D, C1=C1, C2=C2, A=A, B=B, C3=C3,
+                            rc=R * C1 / C3)
+
+    def _twisted_coefficients(self, omega, k, m):
+        """The twisted chain: the functions of `coefficients`, each from
+        one evaluation of `twisted_chain` at r."""
+        point = self.twisted_point_fn()
+
+        def chain(r):
+            return self.twisted_chain(point(r), omega, k, m)
+
+        def Dfun(r):
+            return chain(r).D.v
+
+        def C1fun(r):
+            return chain(r).C1.v
+
+        def C3fun(r):
+            return chain(r).C3.v
+
+        def Ffun(r):
+            c = chain(r)
+            return r * c.D.v / c.C3.v
+
+        def invF_g(r):
+            c = chain(r)
+            D, C1, C3 = c.D.v, c.C1.v, c.C3.v
+            iF = c.A.v / r + c.B.v / (r * D)
+            g = -c.rc.d - r * (c.C2 - C1 * C1 / C3) / D
+            return iF, g
+
+        return Dfun, C1fun, C3fun, Ffun, invF_g
+
     def exterior_m(self, omega, k):
         rg = self.eq.regime
         num = (k**2 * rg.vA_e**2 - omega**2) * (k**2 * rg.c_e**2 - omega**2)
@@ -186,7 +343,7 @@ class CylinderPhysics:
             u0 = (one, zero, zero, F1 * one)
             re_ = torch.tensor(gr.axis_epsilon, dtype=dtype, device=dev)
             state = _rk4_linear2(invF_g, u0, r1, re_, gr.n_interior)
-            if gr.axis_epsilon_final < gr.axis_epsilon:
+            if log_tail(self.case):
                 # log-spaced tail eps -> eps_final in t = ln r, where the
                 # linear system's coefficients are (r iF, r g)
                 def coef_log(t):
@@ -221,8 +378,10 @@ class CylinderPhysics:
             xi_e = dP_e / (rg.rho_e * (omega ** 2 - k ** 2 * rg.vA_e ** 2))
 
             # ---- determinant -------------------------------------------------
-            # twisted jump term J = B_phi(1)^2 - rho_i(1) v_phi(1)^2 (0 here)
-            J = eq.B_phi(r1) ** 2 - eq.rho_i(r1) * eq.v_phi(r1) ** 2
+            # twisted jump term J = B_phi(1)^2 - rho_i(1) v_phi(1)^2 (0 for
+            # the non-twisted tubes)
+            b1, v1 = eq.B_phi(r1), eq.v_phi(r1)
+            J = b1 * b1 - eq.rho_i(r1) * (v1 * v1)
             J = torch.where(is_sausage, torch.zeros_like(J), J)
             m1 = xi1 * P_e - xi_e * 1.0    # u1: P_u(1)=1
             m2 = xi2 * P_e - xi_e * 0.0    # u2: P_u(1)=0

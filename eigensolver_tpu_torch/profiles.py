@@ -50,6 +50,30 @@ def sqrt(x: torch.Tensor) -> torch.Tensor:
         return torch.from_numpy(np.asarray(np.sqrt(x.numpy())))
 
 
+def power(x: torch.Tensor, p: float) -> torch.Tensor:
+    """`x ** p` for a Python float `p`, with the exponents that PyTorch's
+    `pow` special-cases on some device (0, 1, 2, 3, 0.5, -0.5, -1, -2)
+    written out, so that the kernels (`csrc/common.cuh::tpow`) evaluate
+    every power as this does: `pow` itself only for the others."""
+    if p == 0.0:
+        return torch.ones_like(x)
+    if p == 1.0:
+        return x
+    if p == 2.0:
+        return x * x
+    if p == 3.0:
+        return x * x * x
+    if p == 0.5:
+        return sqrt(x)
+    if p == -0.5:
+        return rdiv(1.0, sqrt(x))
+    if p == -1.0:
+        return rdiv(1.0, x)
+    if p == -2.0:
+        return rdiv(1.0, x * x)
+    return torch.pow(x, p)
+
+
 def make_profile(cfg: ProfileConfig, f0: float, fe: float) -> Profile:
     """f(x) between the internal value f0 (axis/centre) and the external fe.
 
@@ -80,7 +104,7 @@ def make_profile(cfg: ProfileConfig, f0: float, fe: float) -> Profile:
     if kind == ProfileKind.POWER_LAW:
         amp, p = cfg.amplitude, cfg.power
         def f(x):
-            return amp * x ** p
+            return amp * power(x, p)
         return f
     raise ValueError(f"unknown profile kind {kind}")
 
@@ -153,6 +177,7 @@ def make_profile_derivative(cfg: ProfileConfig, f0: float, fe: float,
         p = cfg.power
 
         def df(x):
-            return a1 * x ** (p - 1.0) if order == 1 else a2 * x ** (p - 2.0)
+            return (a1 * power(x, p - 1.0) if order == 1
+                    else a2 * power(x, p - 2.0))
         return df
     raise ValueError(f"unknown profile kind {kind}")

@@ -13,9 +13,10 @@ PyTorch runs eagerly, so the JAX package's fused-pipeline cache, the
 128-row padding (which bounded XLA recompiles) and the 1.2M-cell chunking
 (which bounded TPU VMEM) have no counterpart here. The f64 re-bisection of
 f32 roots (`refine_on_cpu` there, `refine_roots_f64` here) runs on the
-sweep's own device. Not ported yet: the reference-parity fuzz acceptance,
-continuum masks and the pole pre-filter (ROADMAP A11), the complex-omega
-search (A10).
+sweep's own device. The row-local continuum mask of the twisted family
+(`exclude_omega_rowfn`) sits between scan and bracketing. Not ported yet:
+the reference-parity fuzz acceptance, the phase-speed continuum masks and
+the pole pre-filter (ROADMAP A11), the complex-omega search (A10).
 """
 from __future__ import annotations
 
@@ -169,11 +170,22 @@ class SearchConfig:
     fuzz_v_ranges: Optional[tuple] = None
     pole_det_factor: Optional[float] = None      # A11
     exclude_v_ranges: Optional[tuple] = None     # A11
-    exclude_omega_rowfn: Optional[Callable] = None  # A11
+    # row-local omega mask: fn(ks, ms) -> (lo, hi), (rows, n_bands) each,
+    # typically `equilibrium.genuine_continua_rowfn(case)`; bracket
+    # formation is masked for omega strictly inside any [lo_j, hi_j] of its
+    # row. None = off.
+    exclude_omega_rowfn: Optional[Callable] = None
 
     @classmethod
     def from_jax(cls, cfg) -> "SearchConfig":
-        """The port's SearchConfig equal to a JAX-package SearchConfig."""
+        """The port's SearchConfig equal to a JAX-package SearchConfig.
+        A row mask does not carry over: the JAX package's is a JAX function
+        of one row; build the port's own."""
+        if cfg.exclude_omega_rowfn is not None:
+            raise TypeError(
+                "SearchConfig.from_jax: exclude_omega_rowfn is a JAX "
+                "function; set the port's own, eigensolver_tpu_torch."
+                "equilibrium.genuine_continua_rowfn(case)")
         return cls(**{f.name: getattr(cfg, f.name)
                       for f in dataclasses.fields(cls)})
 
@@ -183,10 +195,24 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def _check_supported(cfg: SearchConfig):
-    for name in ("fuzz_accept_pct", "pole_det_factor", "exclude_v_ranges",
-                 "exclude_omega_rowfn"):
+    for name in ("fuzz_accept_pct", "pole_det_factor", "exclude_v_ranges"):
         if getattr(cfg, name) is not None:
             raise NotImplementedError(f"SearchConfig.{name}: ROADMAP A11")
+
+
+def mask_rows(omegas: torch.Tensor, ks: torch.Tensor,
+              modes: Optional[torch.Tensor], det: torch.Tensor,
+              rowfn: Callable) -> torch.Tensor:
+    """det with NaN where omega lies strictly inside any of its row's
+    ranges rowfn(ks, modes) (modes None: m = 1), so that no bracket forms
+    there (eigensolver_tpu/search.py:268-273). The ranges and the test are
+    in float64, as the JAX package forms them with x64 enabled."""
+    f64 = torch.float64
+    md = torch.ones_like(ks) if modes is None else modes
+    lo, hi = rowfn(ks.to(f64), md.to(f64))
+    om = omegas.to(f64)[:, :, None]
+    in_band = ((om > lo[:, None, :]) & (om < hi[:, None, :])).any(dim=-1)
+    return torch.where(in_band, torch.full_like(det, torch.nan), det)
 
 
 def search_rows(disp_batch_scan: Callable, disp_batch_polish: Callable,
@@ -199,6 +225,9 @@ def search_rows(disp_batch_scan: Callable, disp_batch_polish: Callable,
     rows * max_brackets_per_row entries whose mask includes acceptance."""
     _check_supported(cfg)
     det, valid, mism = ladder_scan(disp_batch_scan, omegas, ks, modes)
+    if cfg.exclude_omega_rowfn is not None:
+        # valid and mism stay unmasked, as in the JAX package
+        det = mask_rows(omegas, ks, modes, det, cfg.exclude_omega_rowfn)
     br = find_brackets(omegas, ks, det, valid, cfg.max_brackets_per_row,
                        modes, mism=mism)
     n_sat = int((br.n_in_row > cfg.max_brackets_per_row).sum())

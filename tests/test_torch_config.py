@@ -47,8 +47,6 @@ def _reduced(case, **grid):
 
 
 @pytest.mark.parametrize("make_case, what", [
-    (lambda: cases.cylinder_twisted_photospheric(), "A9"),
-    (lambda: cases.cylinder_twisted_magnetic(), "A9"),
     (lambda: _reduced(cases.cylinder_density_coronal(),
                       exterior_method="numeric"), "A8"),
     (lambda: dataclasses.replace(cases.cylinder_density_coronal(),

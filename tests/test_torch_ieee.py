@@ -26,10 +26,12 @@ prints the fractions of bit-equal det, mismatch and valid on 2048 ladder
 candidates and both packages' reduced f32 sweeps (with the default XLA_FLAGS
 it shows how far the default compilation is from IEEE rounding), and
 
-    python tests/test_torch_ieee.py counts [--small] [--out PATH]
+    python tests/test_torch_ieee.py counts [--small] [--cases TAG ...]
+        [--out PATH]
 
-runs the full-size f32 sweeps of cyl_co_09 and slab_ph_09 (n_omega=256,
-n_bisect=18; slab_ph_09 also with refine_f64=True) four ways: the JAX package
+runs the full-size f32 sweeps of cyl_co_09, slab_ph_09 and twist_v01_p1
+(n_omega=256, n_bisect=18; slab_ph_09 also with refine_f64=True; `--cases
+TAG ...` for some of them) four ways: the JAX package
 on the CPU with the default and with the IEEE flags, the port's plain version
 on the CPU, and the port on a CUDA card when there is one. It prints one JSON
 object of per-branch counts and of the roots each pair has in common.
@@ -172,17 +174,21 @@ def parity(name):
 
 # (tag, JAX case name, refine_f64 values) of the full-size sweeps
 FULL_CASES = (("cyl_co_09", "cylinder_density_coronal", (False,)),
-              ("slab_ph_09", "slab_density_photospheric", (False, True)))
+              ("slab_ph_09", "slab_density_photospheric", (False, True)),
+              ("twist_v01_p1", "cylinder_twisted_photospheric", (False, True)))
+# the constructor arguments of each (default: width 0.9)
+_CASE_ARGS = {"cylinder_twisted_photospheric": (0.1, 1.0, 1)}
 
 
 def _case(name, small):
-    """The case at width 0.9; with small, the reduced grid of the parity
-    test (for a dry run on a CPU)."""
+    """The case at width 0.9 (twist_v01_p1: v_twist 0.1, power 1, m = 1);
+    with small, the reduced grid of the parity test (for a dry run on a
+    CPU)."""
     from eigensolver_tpu import cases as jcases
-    c = getattr(jcases, name)(0.9)
+    c = getattr(jcases, name)(*_CASE_ARGS.get(name, (0.9,)))
     if small:
         c = dataclasses.replace(
-            c, k_values=PARITY_CASES[name],
+            c, k_values=PARITY_CASES.get(name, (0.8, 2.0)),
             grid=dataclasses.replace(c.grid, n_interior=256, n_axis_log=32))
     return c
 
@@ -214,10 +220,11 @@ def _common(a, b):
     return out
 
 
-def counts(small):
+def counts(small, tags=None):
     from concurrent.futures import ThreadPoolExecutor
     from eigensolver_tpu_torch import config, search, sweep
     flag = ("--small",) if small else ()
+    full = [c for c in FULL_CASES if tags is None or c[0] in tags]
     runs = {}
     with ThreadPoolExecutor(8) as pool:
         futures = {
@@ -225,9 +232,9 @@ def counts(small):
                 _run_self, "jax-counts", name, str(refine), *flag,
                 xla_flags=None if xla == "jax_default" else IEEE_XLA_FLAGS,
                 timeout=3000)
-            for tag, name, refines in FULL_CASES for refine in refines
+            for tag, name, refines in full for refine in refines
             for xla in ("jax_default", "jax_ieee")}
-        for tag, name, refines in FULL_CASES:
+        for tag, name, refines in full:
             case = config.from_jax(_case(name, small))
             cfg = search.SearchConfig.from_jax(_f32(64 if small else 256))
             for refine in refines:
@@ -253,7 +260,7 @@ def counts(small):
     for (tag, refine, who), r in sorted(runs.items()):
         key = f"{tag}{'_refined' if refine else ''}"
         out.setdefault(key, {})[who] = {"counts": r["counts"], "wall_s": r["wall_s"]}
-    for tag, _, refines in FULL_CASES:
+    for tag, _, refines in full:
         for refine in refines:
             key = f"{tag}{'_refined' if refine else ''}"
             who = sorted(w for (t, rf, w) in runs if t == tag and rf == refine)
@@ -276,6 +283,7 @@ def main():
     p.add_argument("--small", action="store_true")
     p = sub.add_parser("counts")
     p.add_argument("--small", action="store_true")
+    p.add_argument("--cases", nargs="+", choices=[c[0] for c in FULL_CASES])
     p.add_argument("--out")
     a = ap.parse_args()
     if a.cmd == "parity":
@@ -283,7 +291,7 @@ def main():
     elif a.cmd == "jax-counts":
         res = jax_counts(a.case, a.refine == "True", a.small)
     else:
-        res = counts(a.small)
+        res = counts(a.small, a.cases)
         if a.out:
             Path(a.out).parent.mkdir(parents=True, exist_ok=True)
             Path(a.out).write_text(json.dumps(res, indent=1))

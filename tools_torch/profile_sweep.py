@@ -3,7 +3,10 @@
 
     python3 tools_torch/profile_sweep.py [--out PATH]
 
-Runs slab_ph_09 (f32, f64, f32 with refine_f64=True) and cyl_co_09 (f32, f64) at
+Runs slab_ph_09 (f32, f64, f32 with refine_f64=True), cyl_co_09 (f32, f64),
+twist_v01_p1 (cylinder_twisted_photospheric(0.1, 1.0, 1): f32, f64, f32 with
+refine_f64=True) and the magnetic twist (cylinder_twisted_magnetic(0.1,
+0.15, 1.25, 1): f64) at
 SearchConfig(n_omega=256, n_bisect=18) through `sweep.run_case(...,
 device="cuda")`, each once to warm up and once under `torch.profiler`, and
 prints per run: the wall, the device busy time (sum of the kernels' self
@@ -43,11 +46,17 @@ def main() -> int:
                               polish_dtype="float32")
     f64 = dataclasses.replace(f32, scan_dtype="float64", polish_dtype="float64")
     slab = cases.slab_density_photospheric(0.9)
+    twist = cases.cylinder_twisted_photospheric(0.1, 1.0, 1)
     runs = (("slab_ph_09 f32", slab, f32, False),
             ("slab_ph_09 f64", slab, f64, False),
             ("slab_ph_09 f32 refined", slab, f32, True),
             ("cyl_co_09 f32", cases.cylinder_density_coronal(0.9), f32, False),
-            ("cyl_co_09 f64", cases.cylinder_density_coronal(0.9), f64, False))
+            ("cyl_co_09 f64", cases.cylinder_density_coronal(0.9), f64, False),
+            ("twist_v01_p1 f32", twist, f32, False),
+            ("twist_v01_p1 f64", twist, f64, False),
+            ("twist_v01_p1 f32 refined", twist, f32, True),
+            ("magnetic_p125 f64",
+             cases.cylinder_twisted_magnetic(0.1, 0.15, 1.25, 1), f64, False))
     out = {"nvidia_smi": smi}
     for name, case, cfg, refine in runs:
         sweep.run_case(case, cfg, device="cuda", refine_f64=refine)

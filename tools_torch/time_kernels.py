@@ -14,6 +14,11 @@ several launches after a warm-up):
     on slab_ph_09's (161,280, flux form) and slab_flow_gaussian_coronal's
     (179,200, shear form), cylinder_bisect and slab_bisect on their sweeps'
     brackets (17,280, 5,040 and 5,600, 18 iterations), float32 and float64;
+  - the twisted variants of cylinder_disp and cylinder_bisect on the
+    twist_v01_p1 sweep's ladder scan (76,800) and brackets (2,400), and on
+    the magnetic twist's (cylinder_twisted_magnetic(0.1, 0.15, 1.25, 1)),
+    float32 and float64, where the checkout has them ("not ported" where it
+    raises NotImplementedError);
   - slab_disp at float64 on the window ends of the refine stage of the
     slab_ph_09 float32 sweep (10 per root: 1,530);
   - the CALL instructions in each kve_ratio kernel's SASS (`cuobjdump`),
@@ -73,17 +78,20 @@ def library_kve_ratio(z):
 
 def scan_and_brackets(case, dtype):
     """The case's ladder scan candidates (omega, k, mode) and the brackets
-    of its bracket stage (lo, hi, k, mode), as CUDA tensors of dtype."""
+    of its bracket stage (lo, hi, k, mode), as CUDA tensors of dtype, over
+    the case's modes."""
     import torch
     from eigensolver_tpu_torch import search, sweep
     omegas, ks = sweep.build_ladders(case, 256)
     rows = omegas.shape[0]
+    n_modes = len(case.modes)
 
     def dev(a):
         return torch.from_numpy(a).to(device="cuda", dtype=dtype)
 
-    om, kk = dev(np.concatenate([omegas] * 2)), dev(np.concatenate([ks] * 2))
-    md = dev(np.repeat([0.0, 1.0], rows))
+    om = dev(np.concatenate([omegas] * n_modes))
+    kk = dev(np.concatenate([ks] * n_modes))
+    md = dev(np.repeat([float(m) for m in case.modes], rows))
     n_om = om.shape[1]
     cand = [om.reshape(-1), kk.repeat_interleave(n_om),
             md.repeat_interleave(n_om)]
@@ -174,9 +182,20 @@ def main() -> int:
     for case_name, case, n_disp in (
             ("cyl_co_09", cases.cylinder_density_coronal(0.9), 5),
             ("slab_ph_09", cases.slab_density_photospheric(0.9), 10),
-            ("flow_gauss", cases.slab_flow_gaussian_coronal(), 10)):
+            ("flow_gauss", cases.slab_flow_gaussian_coronal(), 10),
+            ("twist_v01_p1",
+             cases.cylinder_twisted_photospheric(0.1, 1.0, 1), 5),
+            ("magnetic_p125",
+             cases.cylinder_twisted_magnetic(0.1, 0.15, 1.25, 1), 5)):
         for dtype in (torch.float32, torch.float64):
-            disp, cand, br = scan_and_brackets(case, dtype)
+            try:
+                disp, cand, br = scan_and_brackets(case, dtype)
+            except NotImplementedError:
+                # an older tree (--pkg-root) may lack a case; this one may not
+                if Path(args.pkg_root).resolve() == ROOT:
+                    raise
+                out[f"{case_name} {str(dtype)[6:]}"] = "not ported"
+                continue
             out[f"{case_name} {str(dtype)[6:]}"] = {
                 "scan_n": cand[0].numel(),
                 "scan_ms": cuda_ms(lambda: disp(*cand), n_disp),
