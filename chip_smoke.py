@@ -52,24 +52,35 @@ the script exits non-zero:
    mismatch) bit-equal to search.bisect_loop over the one-thread kernel
    (n_iter + 2 launches), both timed; at float32 and n_iter=4, bit-equal to
    the same loop over the plain PyTorch dispersion, which is timed too.
-10. the twisted cylinder_disp (the compile-time variant for rotational flow
-   and magnetic twist) vs its plain version, 8,192 candidates of the full
-   twist_v01_p1 ladder (cylinder_twisted_photospheric(0.1, 1.0, 1)) and of
-   the magnetic p = 1.25 one (cylinder_twisted_magnetic(0.1, 0.15, 1.25,
-   1)), float32 and float64, bit-equal; each case's whole 76,800-
-   candidate scan (ladder order, m = 1) timed at both types beside its
-   bound, twist_v01_p1's plain version's time and bits at float32;
-   registers and
-   spills (ptxas) of every cylinder_disp instantiation.
+10. the twisted cylinder_disp (csrc/cylinder_twisted.cu, for rotational
+   flow and magnetic twist) vs its plain version, 8,192 candidates of the
+   full twist_v01_p1 ladder (cylinder_twisted_photospheric(0.1, 1.0, 1)) and
+   of the magnetic p = 1.25 one (cylinder_twisted_magnetic(0.1, 0.15, 1.25,
+   1)), float32 and float64, through both paths (the small-batch fused
+   evaluation, which a batch this size takes, and the scan), bit-equal; each
+   case's whole 76,800-candidate scan (ladder order, m = 1) timed at both
+   types beside its bound, twist_v01_p1's plain version's time and bits at
+   float32; the refine stage's float64 window ends of the twist_v01_p1
+   float32 sweep (3,090) through both paths, timed, bit-equal; the
+   registers, local (spill) bytes, shared memory and blocks per SM of each
+   default launch shape of the twisted kernels, and the ptxas report of
+   every cylinder_disp and twisted instantiation.
 11. the twisted sweeps: run_case(twist_v01_p1, n_omega=256, n_bisect=18,
    float32) with the counters reset (one cylinder_disp and one
    cylinder_bisect launch, never the plain dispersion), 3 timed runs, float64
-   sweeps of twist_v01_p1 and of the magnetic case, one float32 run with
-   refine_f64=True (4 launches); counts held against the JAX package's; a
-   reduced magnetic sweep with the row-local continuum mask on the card held
-   against the same sweep on the CPU and the JAX package's count.
-12. the twisted cylinder_bisect on twist_v01_p1's own 2,400 brackets, as in
-   phase 8 (its plain loop at n_iter=1).
+   sweeps of twist_v01_p1 and of the magnetic case, float32 runs with
+   refine_f64=True (4 launches, the window launch through the small-batch
+   path; once, then 3 timed runs); counts held against the JAX package's;
+   a reduced magnetic sweep with the row-local continuum mask on the card
+   held against the same sweep on the CPU and the JAX package's count.
+12. the twisted cylinder_bisect (the speculative kernel) on twist_v01_p1's
+   own 2,400 brackets, as in phase 8 (its plain loop at n_iter=1), and at
+   every level count L = 0..5 bit-equal to the launch loop; the refine
+   stage's bisection of the float32 sweep's 309 roots (float64, 30
+   iterations) at every L, bit-equal to its launch loop, timed; its
+   default launch (L = 3) at 5 iterations bit-equal to the plain
+   speculative bisection at the same L over the plain dispersion. Every
+   L's bound counts the evaluations the loop needs.
 
 Then one JSON line of the kernels (with each one's bound: the operations
 the function needs on this run's inputs over the card's peak rate, or its
@@ -160,7 +171,14 @@ MAGNETIC_COUNTS = {"float64": [("jax", {"kink": 307}, 0.0025)]}
 JAX_COUNTS_MASKED_REDUCED = {"kink": 7}
 N_TWIST = 60 * 5 * 256          # twist_v01_p1 candidates per sweep: 76,800
 N_BR_TWIST = 60 * 5 * 8         # its brackets: 2,400
+N_REFINE_TWIST = 309            # roots of its float32 sweep, refined in f64
+N_WINDOWS = 10 * N_REFINE_TWIST  # their refine windows' ends: 3,090
+N_REFINE_ITER = 30              # search.refine_roots_f64's bisection
+_SMS = 132                      # SMs of an H100
 TWIST_PLAIN_N_ITER = 1          # the plain loop's iterations in phase 12
+# the plain speculative bisection's iterations on the refine stage's
+# brackets in phase 12: two rounds at L = 3 (3 levels, then 2)
+REFINE_PLAIN_N_ITER = 5
 # brackets of the full sweeps' bracket stage: rows x 8 per row
 N_BR_CYL = 90 * 12 * 2 * 8      # 17,280
 N_BR_SLAB = 35 * 9 * 2 * 8      # 5,040
@@ -185,21 +203,25 @@ PLAIN_N_ITER = 4                # the plain loop's iterations in phases 8, 9
 # The twisted cylinder chain ("cyl_tw_*": tools_torch/count_ops.py, which
 # traces the plain chain that the kernel follows operation for operation):
 # per abscissa the r-only values with their r-derivatives and the chain's
-# r-only products (r r, rho (c^2 + vA^2), v_phi^2, B_phi^2, rho v_phi,
-# 4 (c^2 + vA^2)), 3 abscissae per step; per candidate (or bracket per
-# evaluation) and step, 3 x 174 dual-chain operations with (1/F, g) and the
+# r-only products, 3 abscissae per step; per candidate (or bracket per
+# evaluation) and step, 3 dual-chain evaluations with (1/F, g) and the
 # update; per evaluation, the values of the chain at r = 1, F(1),
 # C1(1)/C3(1), the products of k and m alone and the epilogue; once per
-# launch the r-only values at r = 1 and J. An operation repeated on the same
-# operands is one (a dual square is 3), a negation and a product by the
-# unit tangent dr/dr = 1 are free. With B_phi = 0 (twist_v01_p1) its exact
-# zeros remove every term in B_phi ("cyl_tw_b0_*").
+# launch the r-only values at r = 1 and J. An operation repeated on the
+# same operands is one (a dual square is 3); a negation, a product by the
+# unit tangent dr/dr = 1 and one by d(1/r)/dr = -1 at r = 1 are free. With
+# B_phi = 0 (twist_v01_p1) its exact zeros remove every term in B_phi
+# ("cyl_tw_b0_*"). Each entry is the lower of the count of the chain, which
+# multiplies by reciprocals of its r-only divisors, and that of its
+# quotient form, which divides by them: the function needs no more. A
+# bisection's bound counts the evaluations the loop needs (f(lo), n_iter
+# midpoints, the residual), whatever the kernel speculates.
 OPS = {"slab_x_step": 67, "slab_step": 61, "slab_ends": 93,
        "slab_shear_x_step": 40, "slab_shear_step": 114, "slab_shear_ends": 64,
        "cyl_r_step": 70, "cyl_log_r_step": 73, "cyl_step": 155,
        "cyl_log_step": 161, "cyl_ends": 98,
-       "cyl_tw_r_step": 298, "cyl_tw_step": 590, "cyl_tw_ends": 86,
-       "cyl_tw_launch": 99, "cyl_tw_b0_step": 425, "cyl_tw_b0_ends": 76,
+       "cyl_tw_r_step": 298, "cyl_tw_step": 590, "cyl_tw_ends": 85,
+       "cyl_tw_launch": 99, "cyl_tw_b0_step": 425, "cyl_tw_b0_ends": 75,
        "kve_cf2": 491, "kve_series": 22, "kve_term": 5}
 # NVIDIA H100 SXM data sheet, outside the tensor cores, at 700 W; HBM3 rate
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
@@ -230,6 +252,7 @@ def reset_counters() -> None:
     from eigensolver_tpu_torch.kernels import bessel, cylinder, slab
     from eigensolver_tpu_torch.physics import cylinder as pcyl, slab as pslab
     bessel.launches = cylinder.launches = slab.launches = 0
+    cylinder.small_launches = 0
     cylinder.bisect_launches = slab.bisect_launches = 0
     pcyl.plain_calls = pslab.plain_calls = 0
 
@@ -238,6 +261,7 @@ def read_counters() -> dict:
     from eigensolver_tpu_torch.kernels import bessel, cylinder, slab
     from eigensolver_tpu_torch.physics import cylinder as pcyl, slab as pslab
     return {"cylinder_disp": cylinder.launches,
+            "cylinder_disp_small": cylinder.small_launches,
             "cylinder_bisect": cylinder.bisect_launches,
             "slab_disp": slab.launches, "slab_bisect": slab.bisect_launches,
             "kve_ratio": bessel.launches, "plain_cylinder": pcyl.plain_calls,
@@ -581,8 +605,9 @@ def ptxas_report(kernel: str, form: dict = SLAB_FORMS) -> dict:
         t = re.search(kernel + r"I([fd])(?:Lb([01])E)?Li(\d+)E", name)
         key = (f"{'float32' if t.group(1) == 'f' else 'float64'}"
                f"{form[t.group(2)]} {t.group(3)}" if t else name)
+        # the entry's own line comes first; later ones are its callees'
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
-        if m:
+        if m and "spill_stores" not in out.get(key, {}):
             out.setdefault(key, {}).update(spill_stores=int(m.group(1)),
                                            spill_loads=int(m.group(2)))
         m = re.search(r"Used (\d+) registers", ln)
@@ -932,13 +957,15 @@ def sweep_brackets(case, dtype):
 
 
 def phase_bisect(out: dict, phase: str, name: str, case, plain, n_br: int,
-                 ops, key: str = None, plain_n_iter: int = PLAIN_N_ITER):
+                 ops, key: str = None, plain_n_iter: int = PLAIN_N_ITER,
+                 loop_small: bool = False):
     """The fused bracket stage `name` on the case's own brackets: (root,
     mismatch) bit-equal to the loop of one-thread launches at float32 and
     float64 (both timed), and at float32 with n_iter=plain_n_iter to the
     loop over the plain dispersion `plain(dtype)` (timed once); the bound
     from `ops(brackets, dtype)`, the operations of the launch. The report
-    goes to out[key or name]."""
+    goes to out[key or name]. loop_small: the loop's launches take the
+    twisted chain's small-batch path (cylinder_disp_small)."""
     import torch
     from eigensolver_tpu_torch import search, sweep
     res = {}
@@ -953,7 +980,9 @@ def phase_bisect(out: dict, phase: str, name: str, case, plain, n_br: int,
         loop = search.bisect_loop(disp, *br, N_BISECT)
         torch.cuda.synchronize()
         check_launches(f"{name} {dname}", counts_since(before),
-                       {name: 1, name.replace("bisect", "disp"): N_BISECT + 2})
+                       {name: 1, name.replace("bisect", "disp"): N_BISECT + 2,
+                        **({"cylinder_disp_small": N_BISECT + 2}
+                           if loop_small else {})})
         differ = [int((~_same_bits(a.cpu().numpy(), b.cpu().numpy())).sum())
                   for a, b in zip(fused, loop)]
         if any(differ):
@@ -989,28 +1018,126 @@ def phase_bisect(out: dict, phase: str, name: str, case, plain, n_br: int,
     line(phase, **res)
 
 
+def spec_evals(n_iter: int, final_eval: bool, levels: int) -> int:
+    """Evaluations a bracket takes in the speculative bisection
+    (csrc/bisect.cuh::spec_kernel): f(lo) and the 2^d - 1 nodes of each
+    round's d <= L levels, n_iter + final_eval levels in all (L = 0, the
+    loop's schedule, and L = 1 take the loop's evaluations, which the
+    function needs)."""
+    levels = max(levels, 1)
+    n_lv = n_iter + int(final_eval)
+    rounds = [min(levels, n_lv - done) for done in range(0, n_lv, levels)]
+    return int(n_iter > 0) + sum(2 ** d - 1 for d in rounds)
+
+
+def twisted_window_ends(case):
+    """The float64 window ends of the refine stage of the twisted case's
+    float32 sweep (n_omega=256, n_bisect=18, on the card), 10 per root in
+    the order of the stage's one dispersion call, and its brackets (the
+    first window of each root that brackets, as search.refine_windows
+    picks it): ((omega, k, m), (lo, hi, k, m)) CUDA tensors."""
+    import torch
+    from eigensolver_tpu_torch import search, sweep
+    cfg = search.SearchConfig(n_omega=256, n_bisect=18, scan_dtype="float32",
+                              polish_dtype="float32")
+    rs, _ = sweep.run_case(case, cfg, device="cuda")
+    mode_of = {b: m for m, b in sweep.MODE_NAMES.items()}
+    om, kk, md = (torch.from_numpy(np.concatenate(x)).to(
+        device="cuda", dtype=torch.float64) for x in (
+        [rs[b].omegas for b in rs.branches], [rs[b].ks for b in rs.branches],
+        [np.full(len(rs[b].ks), float(mode_of[b])) for b in rs.branches]))
+    ends = list(search.refine_window_ends(om, kk, md)[2])
+    disp64 = sweep.make_dispersion_moded(case, torch.float64)
+    lo, hi, _ = search.refine_windows(disp64, om, kk, md)
+    return ends, [lo, hi, kk, md]
+
+
+def twisted_attrs(kind: int, threads: int, min_blocks: int, smem: int,
+                  dtype) -> dict:
+    """Registers, local (spill) bytes a thread, shared memory and blocks
+    per SM of a twisted kernel (kind 0: the scan, min_blocks unread; 1: the
+    fused kernel at budget min_blocks)."""
+    import ctypes
+    import torch
+    from eigensolver_tpu_torch.kernels import _build
+    out = (ctypes.c_int * 3)()
+    _build.check(_build.library().eigk_cylinder_tw_attrs(
+        int(dtype == torch.float64), kind, threads, min_blocks, smem, out),
+        "eigk_cylinder_tw_attrs")
+    return {"threads": threads, "min_blocks": min_blocks, "registers": out[0],
+            "local_bytes": out[1], "smem_bytes": smem,
+            "blocks_per_sm": out[2]}
+
+
+def twisted_shapes() -> dict:
+    """The default launch shapes of the twisted kernels at the main path's
+    sizes (the 76,800 scan, the 8,192 and 3,090 small batches, the 2,400
+    and 309 bisections) with each one's registers, spills, shared memory
+    and blocks per SM."""
+    import torch
+    from eigensolver_tpu_torch.kernels import common, cylinder as kcyl
+    res = {}
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[-1]
+        eb = kcyl._ENTRY_BYTES[dtype, True]
+        sh = kcyl.TW_SCAN_SHAPE[dtype]
+        res[f"scan {N_TWIST} {dname}"] = dict(shape=list(sh), **twisted_attrs(
+            0, sh.threads, 0, 2 * 3 * sh.chunk * eb, dtype))
+        for what, n, ev in (("eval", N_DISP_CHECK, True),
+                            ("eval", N_WINDOWS, True),
+                            ("bisect", N_BR_TWIST, False),
+                            ("bisect", N_REFINE_TWIST, False)):
+            sp = common.spec_shape(n, dtype, eb, ev)
+            threads = 32 * (sp.producers + 1)
+            smem = common.spec_smem(sp, dtype, eb)
+            budgets = {}
+            for mb in (1, 2):
+                budgets[mb] = twisted_attrs(1, threads, mb, smem, dtype)
+            blocks = -(-n // sp.brackets)
+            # the budget launch_spec picks with min_blocks = 0
+            mb = sp.min_blocks or (1 if blocks <= _SMS * budgets[1][
+                "blocks_per_sm"] else 2)
+            res[f"{what} {n} {dname}"] = dict(shape=list(sp), blocks=blocks,
+                                              **budgets[mb])
+    return res
+
+
 def phase_twisted_disp(out: dict):
     import torch
     from eigensolver_tpu_torch import sweep
+    from eigensolver_tpu_torch.kernels import cylinder as kcyl
     from eigensolver_tpu_torch.physics.cylinder import CylinderPhysics
     res = {}
     for name, case in twisted_cases().items():
         ph = CylinderPhysics.from_case(case)
+        params = kcyl.disp_params(case)
         om, k, m = _ladder_candidates(case, N_DISP_CHECK, seed=7)
         for dtype in (torch.float64, torch.float32):
             dname = str(dtype).split(".")[-1]
             args = [x.to(dtype) for x in (om, k, m)]
             kern = ph.make_dispersion(m=None, dtype=dtype)
             plain = ph.make_dispersion_plain(m=None, dtype=dtype)
-            kres = kern(*args)
+            before = read_counters()
+            kres = kern(*args)              # 8,192: the small-batch path
             torch.cuda.synchronize()
+            check_launches(f"twisted {name} {dname} small batch",
+                           counts_since(before),
+                           {"cylinder_disp": 1, "cylinder_disp_small": 1})
             t0 = time.perf_counter()
             pres = plain(*args)
             torch.cuda.synchronize()
             plain_ms = 1e3 * (time.perf_counter() - t0)
             r = _compare_disp(f"twisted cylinder_disp {name} {dname}", kres,
                               pres, f64=dtype == torch.float64, bits=True)
-            r.update(ms=cuda_ms(lambda: kern(*args), 5), plain_ms=plain_ms)
+            scan = kcyl.TW_SCAN_SHAPE[dtype]
+            r["scan"] = _compare_disp(
+                f"twisted cylinder_disp scan {name} {dname}",
+                kcyl.cylinder_disp(*args, params, shape=scan), pres,
+                f64=dtype == torch.float64, bits=True)
+            r.update(ms=cuda_ms(lambda: kern(*args), 5),
+                     scan_ms=cuda_ms(lambda: kcyl.cylinder_disp(
+                         *args, params, shape=scan), 5),
+                     plain_ms=plain_ms)
             res[f"{name} {dname}"] = r
     # each case's whole scan as its sweep gives it: the ladder in order,
     # m = 1; the kernel at both types beside its bound; twist_v01_p1's
@@ -1047,9 +1174,72 @@ def phase_twisted_disp(out: dict):
         r["check_float32"] = _compare_disp(
             "twisted cylinder_disp full float32", kres, pres, f64=False)
     res["full_ms"] = full
+    # the refine stage's float64 window launch of the twist_v01_p1 float32
+    # sweep: the small-batch path (its default) and the scan, each bit-equal
+    # to the plain version
+    case = twisted_cases()["twist_v01_p1"]
+    ph = CylinderPhysics.from_case(case)
+    ends, _ = twisted_window_ends(case)
+    n = ends[0].numel()
+    kern = ph.make_dispersion(m=None, dtype=torch.float64)
+    params = kcyl.disp_params(case)
+    scan = kcyl.TW_SCAN_SHAPE[torch.float64]
+    kres = kern(*ends)
+    plain = ph.make_dispersion_plain(m=None, dtype=torch.float64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pres = plain(*ends)
+    torch.cuda.synchronize()
+    res["window float64"] = dict(
+        n=n, ms=cuda_ms(lambda: kern(*ends), 5),
+        scan_ms=cuda_ms(lambda: kcyl.cylinder_disp(*ends, params,
+                                                   shape=scan), 5),
+        plain_ms=1e3 * (time.perf_counter() - t0),
+        check=_compare_disp("twisted window float64", kres, pres, f64=True,
+                            bits=True),
+        scan_check=_compare_disp(
+            "twisted window float64 scan",
+            kcyl.cylinder_disp(*ends, params, shape=scan), pres, f64=True,
+            bits=True),
+        **bound(cyl_tw_ops(case, n, 1, exterior_args(case, ends[0], ends[1],
+                                                     torch.float64)),
+                n * (5 * 8 + 1), "float64"))
+    res["shapes"] = twisted_shapes()
     res["ptxas"] = ptxas_report("cylinder_disp_kernel", CYL_FORMS)
+    res["ptxas_twisted"] = twisted_ptxas()
     out["twisted_disp"] = res
     line("phase 10 twisted cylinder_disp vs plain", **res)
+
+
+def twisted_ptxas() -> dict:
+    """Registers and spill bytes of the twisted kernels from the build's
+    ptxas report: the scan by type, the fused kernel by type and budget."""
+    import re
+    from eigensolver_tpu_torch.kernels import _build
+    log = _build.library_path().with_suffix(".log").read_text()
+    out, key = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            t = re.search(r"tw_scan_kernelI([fd])E", m.group(1))
+            f = re.search(r"spec_kernelINS_7TwModelI([fd])EELi(\d+)E",
+                          m.group(1))
+            key = (f"scan {'float32' if t.group(1) == 'f' else 'float64'}"
+                   if t else
+                   f"fused {'float32' if f.group(1) == 'f' else 'float64'} "
+                   f"x{f.group(2)}" if f else None)
+            continue
+        if key is None:
+            continue
+        # the entry's own line comes first; later ones are its callees'
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and "spill_stores" not in out.get(key, {}):
+            out.setdefault(key, {}).update(spill_stores=int(m.group(1)),
+                                           spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.setdefault(key, {})["registers"] = int(m.group(1))
+    return out
 
 
 def phase_twisted_sweep(out: dict):
@@ -1104,14 +1294,31 @@ def phase_twisted_sweep(out: dict):
                          minus_refs=_check_counts(f"{name} float64",
                                                   rs64.counts(), refs))
 
-    # f32 refined in f64 on the card: 4 launches
-    before = read_counters()
-    rsr, str_ = sweep.run_case(case, cfg, device="cuda", refine_f64=True)
-    refined_launches = counts_since(before)
-    check_launches("refined twisted path", refined_launches,
-                   {"cylinder_disp": 2, "cylinder_bisect": 2})
-    _check_roots(rsr, case)
-    refined = dict(counts=rsr.counts(), wall_s=str_.wall_s,
+    # f32 refined in f64 on the card: 4 launches (the scan, the bracket
+    # stage, the f64 window ends through the small-batch path, the f64
+    # bisection); with the counters reset just before the first, then 3
+    # timed runs
+    walls, stages = [], []
+    for run in range(4):
+        if run == 0:
+            reset_counters()
+        before = read_counters()
+        timer = StageTimer()
+        rsr, str_ = sweep.run_case(case, cfg, device="cuda", refine_f64=True,
+                                   timer=timer)
+        got = counts_since(before)
+        refined_launches = refined_launches if run else got
+        check_launches("refined twisted path", got,
+                       {"cylinder_disp": 2, "cylinder_disp_small": 1,
+                        "cylinder_bisect": 2})
+        _check_roots(rsr, case)
+        walls.append(str_.wall_s)
+        stages.append(timer.report())
+    walls, stages = walls[1:], stages[1:]
+    refined = dict(counts=rsr.counts(), wall_s=walls,
+                   median_wall_s=statistics.median(walls),
+                   stages_median_s={k: statistics.median(s[k] for s in stages)
+                                    for k in stages[0]},
                    launches=refined_launches,
                    minus_refs=_check_counts("twist_v01_p1 float32 refined",
                                             rsr.counts(),
@@ -1142,7 +1349,91 @@ def phase_twisted_sweep(out: dict):
                                 reduced_masked_counts=rs_gpu.counts(),
                                 reduced_masked_max_rel_dev=dev)
     line("phase 11 twisted sweeps", **out["twisted_sweep"])
-    return launches
+    return launches, refined_launches
+
+
+def phase_twisted_levels(out: dict):
+    """Phase 12's levels: the speculative twisted cylinder_bisect at every
+    level count L = 0..5 (L = 0 the loop's schedule; B = 32 / 2^L brackets
+    a block, or fewer for two blocks per SM) on twist_v01_p1's 2,400
+    brackets (float32 and float64, n_bisect=18 and the residual) and on the
+    refine stage's brackets (float64, 30 iterations, no residual), each
+    bit-equal to the loop of one-thread launches (search.bisect_loop) and
+    timed beside the loop. The bound counts the evaluations the loop needs
+    (`evals_needed`), each L the ones it does (`evals`). The refine stage's
+    default launch is also held, at REFINE_PLAIN_N_ITER iterations, to the
+    plain speculative bisection at its levels over the plain dispersion
+    (search.bisect_loop(levels=L), one plain call a round)."""
+    import torch
+    from eigensolver_tpu_torch import search, sweep
+    from eigensolver_tpu_torch.kernels import common, cylinder as kcyl
+    from eigensolver_tpu_torch.physics.cylinder import CylinderPhysics
+    case = twisted_cases()["twist_v01_p1"]
+    params = kcyl.disp_params(case)
+    _, refine_br = twisted_window_ends(case)
+    res = {}
+    for what, dtype, br, n_iter, final in (
+            ("sweep float32", torch.float32,
+             sweep_brackets(case, torch.float32), N_BISECT, True),
+            ("sweep float64", torch.float64,
+             sweep_brackets(case, torch.float64), N_BISECT, True),
+            ("refine float64", torch.float64, refine_br, N_REFINE_ITER,
+             False)):
+        dname = str(dtype).split(".")[-1]
+        n = br[0].numel()
+        disp = sweep.make_dispersion_moded(case, dtype)
+        loop = search.bisect_loop(disp, *br, n_iter, final)
+        eb = kcyl._ENTRY_BYTES[dtype, True]
+        default = common.spec_shape(n, dtype, eb)
+        z = exterior_args(case, br[0], br[2], dtype)
+        need = spec_evals(n_iter, final, 1)
+        work = bound(cyl_tw_ops(case, n, need, z),
+                     n * 6 * br[0].element_size(), dname)
+        r = {"n": n, "n_iter": n_iter, "default": list(default),
+             "evals_needed": need,
+             "loop_ms": cuda_ms(lambda: search.bisect_loop(
+                 disp, *br, n_iter, final), 1)}
+        for lv in range(6):
+            shape = common.spec_shape(n, dtype, eb, levels=lv)
+            got = kcyl.cylinder_bisect(*br, n_iter, params, final,
+                                       shape=shape)
+            differ = [int((~_same_bits(a.cpu().numpy(), b.cpu().numpy())).sum())
+                      for a, b in zip(got, loop) if a is not None]
+            if any(differ):
+                raise AssertionError(f"twisted cylinder_bisect {what} L={lv}: "
+                                     f"{differ} values differ from the loop")
+            r[f"L{lv}"] = dict(
+                shape=list(shape), evals=spec_evals(n_iter, final, lv),
+                ms=cuda_ms(lambda: kcyl.cylinder_bisect(
+                    *br, n_iter, params, final, shape=shape), 3),
+                **work)
+        r["ms"] = cuda_ms(lambda: kcyl.cylinder_bisect(*br, n_iter, params,
+                                                       final), 3)
+        r["evals"] = spec_evals(n_iter, final, default.levels)
+        r.update(work)
+        if what == "refine float64":
+            # the default launch against the plain speculative bisection
+            plain = CylinderPhysics.from_case(case).make_dispersion_plain(
+                m=None, dtype=dtype)
+            got = kcyl.cylinder_bisect(*br, REFINE_PLAIN_N_ITER, params,
+                                       final)
+            t0 = time.perf_counter()
+            want = search.bisect_loop(plain, *br, REFINE_PLAIN_N_ITER, final,
+                                      levels=default.levels)
+            torch.cuda.synchronize()
+            r["plain_ms"] = 1e3 * (time.perf_counter() - t0)
+            r["plain_n_iter"] = REFINE_PLAIN_N_ITER
+            a, b = got[0].cpu().numpy(), want[0].cpu().numpy()
+            r["max_abs_err_vs_plain"] = float(np.nanmax(np.abs(a - b)))
+            differ = int((~_same_bits(a, b)).sum())
+            if differ:
+                raise AssertionError(
+                    f"twisted cylinder_bisect {what}: {differ} roots differ "
+                    f"from the plain speculative bisection at L = "
+                    f"{default.levels}")
+        res[what] = r
+    out["twisted_levels"] = res
+    line("phase 12 twisted cylinder_bisect levels", **res)
 
 
 def main() -> int:
@@ -1185,7 +1476,7 @@ def main() -> int:
                  N_BR_SLAB,
                  lambda br, dt: slab_ops(N_BR_SLAB, n_evals, sg.n_interior))
     phase_twisted_disp(out)
-    tw_launches = phase_twisted_sweep(out)
+    tw_launches, tw_refined_launches = phase_twisted_sweep(out)
     tw_case = twisted_cases()["twist_v01_p1"]
     phase_bisect(out, "phase 12 twisted cylinder_bisect", "cylinder_bisect",
                  tw_case,
@@ -1195,7 +1486,9 @@ def main() -> int:
                  lambda br, dt: cyl_tw_ops(
                      tw_case, N_BR_TWIST, n_evals,
                      exterior_args(tw_case, br[0], br[2], dt)),
-                 key="twisted_bisect", plain_n_iter=TWIST_PLAIN_N_ITER)
+                 key="twisted_bisect", plain_n_iter=TWIST_PLAIN_N_ITER,
+                 loop_small=True)
+    phase_twisted_levels(out)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
@@ -1208,7 +1501,10 @@ def main() -> int:
     kve_f32 = kve["shuffled float32"]
     tw = out["twisted_disp"]["full_ms"]["twist_v01_p1"]
     tw_mag = out["twisted_disp"]["full_ms"]["magnetic_p125"]
+    tw_win = out["twisted_disp"]["window float64"]
+    tw_small = out["twisted_disp"]["twist_v01_p1 float32"]
     tbis = out["twisted_bisect"]
+    tlev = out["twisted_levels"]
     kernels = [{
         "name": "cylinder_disp",
         "route": "cuda",
@@ -1223,27 +1519,49 @@ def main() -> int:
         "plain_ms": cyl["plain_float32"],
         **cyl["bound_float32"],
         "library_ms": None,
-        # the compile-time variant for the twisted chain (the XLA program's
-        # coefficients with jax.jvp, physics/cylinder.py:189), on
+    }, {
+        # the twisted chain's scan (csrc/cylinder_twisted.cu; the XLA
+        # program's coefficients with jax.jvp, physics/cylinder.py:189), on
         # twist_v01_p1's 76,800 ladder candidates: its launches on the
         # twisted main path (phase 11), float32 unless said
-        "twisted": {
-            "replaces": "eigensolver_tpu/physics/cylinder.py:189",
-            "n": N_TWIST,
-            "launches": tw_launches["cylinder_disp"],
-            "max_abs_err": tw["check_float32"]["max_abs_err_det"],
-            "ms": tw["float32"], "plain_ms": tw["plain_float32"],
-            **tw["bound_float32"],
-            "float64_ms": tw["float64"],
-            "float64_bound_ms": tw["bound_float64"]["bound_ms"],
-            "library_ms": None,
-            # the magnetic case's 76,800 (every term of the chain live)
-            "magnetic_p125": {
-                "ms": tw_mag["float32"],
-                "bound_ms": tw_mag["bound_float32"]["bound_ms"],
-                "float64_ms": tw_mag["float64"],
-                "float64_bound_ms": tw_mag["bound_float64"]["bound_ms"]},
-        },
+        "name": "cylinder_disp_twisted",
+        "route": "cuda",
+        "source": "eigensolver_tpu_torch/csrc/cylinder_twisted.cu",
+        "replaces": "eigensolver_tpu/physics/cylinder.py:189",
+        "launches": (tw_launches["cylinder_disp"]
+                     - tw_launches["cylinder_disp_small"]),
+        "n": N_TWIST,
+        "max_abs_err": tw["check_float32"]["max_abs_err_det"],
+        "ms": tw["float32"], "plain_ms": tw["plain_float32"],
+        **tw["bound_float32"],
+        "library_ms": None,
+        "float64_ms": tw["float64"],
+        "float64_bound_ms": tw["bound_float64"]["bound_ms"],
+        # the magnetic case's 76,800 (every term of the chain live)
+        "magnetic_p125": {
+            "ms": tw_mag["float32"],
+            "bound_ms": tw_mag["bound_float32"]["bound_ms"],
+            "float64_ms": tw_mag["float64"],
+            "float64_bound_ms": tw_mag["bound_float64"]["bound_ms"]},
+    }, {
+        # the twisted chain's small-batch path (the fused kernel's
+        # evaluation mode, csrc/bisect.cuh::spec_kernel): the refine stage's
+        # 3,090 float64 window ends of twist_v01_p1's float32 sweep; its
+        # launches on the refined main path (phase 11)
+        "name": "cylinder_disp_twisted_small",
+        "route": "cuda",
+        "source": "eigensolver_tpu_torch/csrc/cylinder_twisted.cu",
+        "replaces": "eigensolver_tpu/physics/cylinder.py:189",
+        "launches": tw_refined_launches["cylinder_disp_small"],
+        "n": tw_win["n"],
+        "max_abs_err": tw_win["check"]["max_abs_err_det"],
+        "ms": tw_win["ms"], "plain_ms": tw_win["plain_ms"],
+        "bound_ms": tw_win["bound_ms"], "bound_by": tw_win["bound_by"],
+        "library_ms": None,
+        "scan_ms": tw_win["scan_ms"],
+        # 8,192 float32 ladder draws: this path and the scan
+        "float32_8192_ms": tw_small["ms"],
+        "float32_8192_scan_ms": tw_small["scan_ms"],
     }, {
         "name": "kve_ratio",
         "route": "cuda",
@@ -1307,23 +1625,33 @@ def main() -> int:
         "bound_ms": cbis["bound_ms"],
         "bound_by": cbis["bound_by"],
         "library_ms": None,
-        # the twisted chain's fused bisection on twist_v01_p1's 2,400
-        # brackets (phase 12), its launches on the twisted main path
-        "twisted": {
-            "n": N_BR_TWIST,
-            "launches": tw_launches["cylinder_bisect"],
-            "max_abs_err": tbis["float32"]["max_abs_err_vs_plain"],
-            "ms": tbis["float32"]["ms"],
-            "plain_ms": tbis["float32"]["plain_ms"],
-            "plain_n_iter": TWIST_PLAIN_N_ITER,
-            "ms_plain_n_iter": tbis["float32"]["ms_plain_n_iter"],
-            "launch_loop_ms": tbis["float32"]["loop_ms"],
-            "bound_ms": tbis["float32"]["bound_ms"],
-            "bound_by": tbis["float32"]["bound_by"],
-            "float64_ms": tbis["float64"]["ms"],
-            "float64_bound_ms": tbis["float64"]["bound_ms"],
-            "library_ms": None,
-        },
+    }, {
+        # the twisted chain's speculative fused bisection on twist_v01_p1's
+        # 2,400 brackets (phase 12), its launches on the twisted main path;
+        # the bound counts the evaluations the loop needs
+        "name": "cylinder_bisect_twisted",
+        "route": "cuda",
+        "source": "eigensolver_tpu_torch/csrc/cylinder_twisted.cu",
+        "replaces": "eigensolver_tpu/search.py:142",
+        "launches": tw_launches["cylinder_bisect"],
+        "n": N_BR_TWIST,
+        "levels": tlev["sweep float32"]["default"][1],
+        "max_abs_err": tbis["float32"]["max_abs_err_vs_plain"],
+        "ms": tbis["float32"]["ms"],
+        "plain_ms": tbis["float32"]["plain_ms"],
+        "plain_n_iter": TWIST_PLAIN_N_ITER,
+        "ms_plain_n_iter": tbis["float32"]["ms_plain_n_iter"],
+        "launch_loop_ms": tbis["float32"]["loop_ms"],
+        "bound_ms": tbis["float32"]["bound_ms"],
+        "bound_by": tbis["float32"]["bound_by"],
+        "library_ms": None,
+        "float64_ms": tbis["float64"]["ms"],
+        "float64_bound_ms": tbis["float64"]["bound_ms"],
+        # the refine stage's float64 bisection of the float32 sweep's roots
+        "refine_float64": {k: tlev["refine float64"][k] for k in (
+            "n", "n_iter", "default", "ms", "bound_ms", "evals_needed",
+            "evals", "loop_ms", "plain_ms", "plain_n_iter",
+            "max_abs_err_vs_plain")},
     }, {
         "name": "slab_bisect",
         "route": "cuda",

@@ -209,6 +209,19 @@ template <class T>
 __device__ __forceinline__ Dual<T> operator/(Dual<T> a, T c) {
   return {a.v / c, a.d / c};
 }
+// 1/b (dual.recip): one division, the derivative -(b' (1/b)) (1/b)
+template <class T>
+__device__ __forceinline__ Dual<T> drcp(Dual<T> b) {
+  const T iv = T(1) / b.v;
+  return {iv, -(b.d * iv) * iv};
+}
+// a / b with ib = 1/b.v (dual.over): the quotient rule with its divisions
+// as products by ib, the same inf or NaN where b.v is 0
+template <class T>
+__device__ __forceinline__ Dual<T> dover(Dual<T> a, Dual<T> b, T ib) {
+  const T q = a.v * ib;
+  return {q, (a.d - q * b.d) * ib};
+}
 template <class T>
 __device__ __forceinline__ Dual<T> dsqrt(Dual<T> a) {
   const T s = sqrt(a.v);

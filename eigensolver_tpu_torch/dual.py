@@ -12,15 +12,21 @@ division (`profiles.div`), as the kernels divide.
 
     (a + b)' = a' + b'           (a - b)' = a' - b'     (c - a)' = -a'
     (a b)'   = a' b + a b'       (a / b)' = (a' - q b') / b,  q = a / b
-    sqrt(a)' = a' / (2 sqrt(a))
+    sqrt(a)' = a' / (2 sqrt(a))   (1/b)'  = -(b' (1/b)) (1/b)
 
 (the operations the chain uses; a sum or a difference takes two duals).
+`recip` is the reciprocal: one division, where a quotient takes two. The
+chain multiplies by the reciprocals of its r-only divisors, which the
+kernels compute once per abscissa. `over` is the quotient by a dual whose
+value's reciprocal is at hand: the quotient rule with its two divisions as
+products by that reciprocal, so x/0 and x (1/0) give the same inf or NaN
+wherever the divisor is 0.
 """
 from __future__ import annotations
 
 import torch
 
-from .profiles import div, sqrt
+from .profiles import div, rdiv, sqrt
 
 
 def _over(x, c):
@@ -66,3 +72,16 @@ def dsqrt(a: Dual) -> Dual:
     """The square root of a dual (`profiles.sqrt`, correctly rounded)."""
     s = sqrt(a.v)
     return Dual(s, a.d / (2 * s))
+
+
+def recip(b: Dual) -> Dual:
+    """1/b: the value 1/b (one IEEE division) and the derivative
+    -(b' (1/b)) (1/b)."""
+    iv = rdiv(1.0, b.v)
+    return Dual(iv, -(b.d * iv) * iv)
+
+
+def over(a: Dual, b: Dual, ib: torch.Tensor) -> Dual:
+    """a / b with ib = 1/b.v: q = a.v ib, (a' - q b') ib."""
+    q = a.v * ib
+    return Dual(q, (a.d - q * b.d) * ib)

@@ -34,6 +34,14 @@ _I = ctypes.c_int
 #  min_blocks, params, device, stream)
 _BISECT_ARGS = ((_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I,
                  _I, _I, _I, _P, _I, _P), _I)
+# (omega, k, m, det, mism, valid, n, B, P, C, S, min_blocks, params,
+#  device, stream)
+_EVAL_ARGS = ((_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I,
+               _P, _I, _P), _I)
+# (lo, hi, k, mode, root, mism, n, n_iter, final_eval, B, L, P, C, S,
+#  min_blocks, params, device, stream)
+_SPEC_ARGS = ((_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I,
+               _I, _I, _I, _P, _I, _P), _I)
 _SIGNATURES = {
     # name: (argtypes, restype)
     "eigk_kve_ratio_f32": ((_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P),
@@ -46,6 +54,12 @@ _SIGNATURES = {
                                 _I, _P, _I, _P), _I),
     "eigk_cylinder_disp_f64": ((_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I,
                                 _I, _P, _I, _P), _I),
+    "eigk_cylinder_eval_f32": _EVAL_ARGS,
+    "eigk_cylinder_eval_f64": _EVAL_ARGS,
+    "eigk_cylinder_spec_f32": _SPEC_ARGS,
+    "eigk_cylinder_spec_f64": _SPEC_ARGS,
+    # (f64, kind, threads, min_blocks, smem, out[3])
+    "eigk_cylinder_tw_attrs": ((_I, _I, _I, _I, ctypes.c_longlong, _P), _I),
     "eigk_cylinder_params_size": ((), ctypes.c_longlong),
     # (omega, k, parity, det, mism, valid, n, threads, chunk, params,
     #  device, stream)

@@ -1,7 +1,8 @@
 """Host mirror of `csrc/common.cuh::ProfileParams`, shared by the kernel
 wrappers, the launch checks they share, the launch shape of the scan
-kernels (`cylinder_disp`, `slab_disp`) and the block shape of the fused
-bisection kernels (`csrc/bisect.cuh`)."""
+kernels (`cylinder_disp`, `slab_disp`) and the block shapes of the fused
+kernels (`csrc/bisect.cuh`: the bisection, and the speculative bisection
+and evaluation)."""
 from __future__ import annotations
 
 import ctypes
@@ -126,6 +127,9 @@ class BisectShape(NamedTuple):
 # SMs of an H100; the bracket batch is cut into at least two blocks per SM
 # where it can be
 _SMS = 132
+# brackets (columns) from which the speculative kernel keeps the loop's
+# schedule: two blocks of 8 per SM
+_SPEC_COLUMNS = 2 * _SMS * 8
 # dynamic shared memory a block may use on Hopper
 MAX_SMEM = 227 * 1024
 
@@ -159,6 +163,135 @@ def bisect_smem(shape: BisectShape, dtype: torch.dtype) -> int:
     b, _, c, s, _ = shape
     itemsize = torch.empty((), dtype=dtype).element_size()
     return (32 + s * c * 6 * b) * itemsize
+
+
+class SpecShape(NamedTuple):
+    """Block shape of a speculative fused launch (`csrc/bisect.cuh::
+    spec_kernel`): a bisection of `levels` levels a round (0: the loop's
+    schedule, one level a round on one lane a bracket), or an evaluation
+    (levels 0) of one candidate a column."""
+    brackets: int    # B: brackets (candidates) a block
+    levels: int      # L: levels a round, on 2^L lanes a bracket (B 2^L <= 32)
+    producers: int   # P: producer warps, 1..15
+    steps: int       # C: RK4 steps per ring stage
+    stages: int      # S: ring stages, 1..6
+    min_blocks: int  # register budget, as BisectShape's
+
+
+def spec_shape(n: int, dtype: torch.dtype, entry_bytes: int,
+               evaluate: bool = False,
+               levels: Optional[int] = None) -> SpecShape:
+    """The block shape for n brackets (or, evaluating, n candidates). A
+    bisection of at least `_SPEC_COLUMNS` brackets keeps the loop's
+    schedule (L = 0: the producers set its pace, and speculation only adds
+    work); a smaller one takes the fewest levels L >= 2 whose 2^L lanes a
+    bracket give as many columns, up to L = 5, with B = 32 / 2^L brackets a
+    block. L = 0 (and `levels`, if given) take the largest B <= 32 / 2^L
+    that still gives two blocks per SM. P, C and S as bisect_shape picks
+    them for the B 2^L columns, the ring and the r-only table of entries of
+    `entry_bytes` in shared memory; at float64 the wide register budget
+    (128 a thread: the narrow one spills the chain), at float32 the budget
+    chosen at launch. From timings on an H100 (`tools_torch/tune_bisect.py`,
+    `tune_disp.py`; PERF.md section 6)."""
+    lv = 0 if evaluate else levels
+    if lv is None and n < _SPEC_COLUMNS:
+        lv = 2
+        while lv < 5 and n << lv < _SPEC_COLUMNS:
+            lv += 1
+        b = 32 >> lv
+    else:
+        lv = lv or 0
+        b = 32 >> lv
+        while b > 1 and -(-n // b) < 2 * _SMS:
+            b //= 2
+    nc = b << lv
+    p = 15 if nc == 32 else 7 if nc >= 8 else nc
+    min_blocks = 1 if dtype == torch.float64 else 0
+    regs = 128 if min_blocks == 1 else 64
+    blocks = min(32, 65536 // (regs * 32 * (p + 1)))
+    rows = 32 * p // nc
+    c = rows * max(1, 64 // rows)
+    while c > rows and blocks * spec_smem(SpecShape(b, lv, p, c, 2, 0),
+                                          dtype, entry_bytes) > MAX_SMEM:
+        c -= rows
+    return SpecShape(brackets=b, levels=lv, producers=p, steps=c, stages=2,
+                     min_blocks=min_blocks)
+
+
+def spec_smem(shape: SpecShape, dtype: torch.dtype, entry_bytes: int) -> int:
+    """Bytes of dynamic shared memory of a speculative block: 32 omegas and
+    the ring of S stages of C steps x 6 coefficients x B 2^L columns, then
+    the r-only table, 2 x 3 C entries at a 16-byte boundary
+    (csrc/bisect.cuh::spec_table_offset)."""
+    b, lv, _, c, s, _ = shape
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    ring = (32 + s * c * 6 * (b << lv)) * itemsize
+    return -(-ring // 16) * 16 + 2 * 3 * c * entry_bytes
+
+
+def _check_spec_shape(name: str, shape: SpecShape, dtype: torch.dtype,
+                      entry_bytes: int, evaluate: bool) -> None:
+    b, lv, p, c, s, min_blocks = shape
+    if not (1 <= b <= 32 and 32 % b == 0 and (lv == 0 if evaluate
+                                               else 0 <= lv <= 5)
+            and (b << lv) <= 32 and 1 <= p <= 15 and c >= 1 and 1 <= s <= 6
+            and min_blocks in (0, 1, 2)
+            and spec_smem(shape, dtype, entry_bytes) <= MAX_SMEM):
+        raise ValueError(f"{name}: unsupported block shape {shape}")
+
+
+def launch_spec(name: str, entries: dict, size_fn: str, struct,
+                entry_bytes: int, lo: torch.Tensor, hi: Optional[torch.Tensor],
+                k: torch.Tensor, mode: torch.Tensor, n_iter: int,
+                final_eval: bool, shape: Optional[SpecShape] = None):
+    """Check and launch a speculative fused kernel on the current stream (no
+    launch for 0 brackets): with hi, the bisection of the brackets [lo, hi]
+    -> (root, mismatch or None); with hi None, the evaluation of the
+    candidates lo -> (det, mismatch, valid)."""
+    evaluate = hi is None
+    if lo.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {lo.device}")
+    if lo.dtype not in entries:
+        raise TypeError(f"{name} kernel takes float32/float64, not {lo.dtype}")
+    for arg, t in (("hi", hi), ("k", k), ("mode", mode)):
+        if t is not None and (t.device != lo.device or t.dtype != lo.dtype
+                              or t.shape != lo.shape):
+            raise ValueError(f"{name}: {arg} must match lo in device, dtype "
+                             f"and shape")
+    if lo.dim() != 1 or not all(t.is_contiguous() for t in (lo, hi, k, mode)
+                                if t is not None):
+        raise ValueError(f"{name} kernel needs contiguous 1-D tensors")
+    if n_iter < 0:
+        raise ValueError(f"{name}: n_iter must be >= 0, not {n_iter}")
+    n = lo.numel()
+    shape = SpecShape(*(shape or spec_shape(n, lo.dtype, entry_bytes,
+                                            evaluate)))
+    _check_spec_shape(name, shape, lo.dtype, entry_bytes, evaluate)
+    out0 = torch.empty_like(lo)
+    out1 = torch.empty_like(lo) if final_eval or evaluate else None
+    valid = (torch.empty(lo.shape, dtype=torch.bool, device=lo.device)
+             if evaluate else None)
+    if n:
+        lib = _build.library()
+        if getattr(lib, size_fn)() != ctypes.sizeof(struct):
+            raise RuntimeError(f"{name}: parameter struct layout differs "
+                               f"between Python and CUDA")
+        stream = torch.cuda.current_stream(lo.device).cuda_stream
+        b, lv, p, c, s, min_blocks = shape
+        ptr = [ctypes.c_void_p(None if t is None else t.data_ptr())
+               for t in (lo, hi, k, mode, out0, out1, valid)]
+        if evaluate:
+            code = getattr(lib, entries[lo.dtype])(
+                ptr[0], ptr[2], ptr[3], ptr[4], ptr[5], ptr[6], n, b, p, c, s,
+                min_blocks, ctypes.byref(struct), lo.device.index,
+                ctypes.c_void_p(stream))
+        else:
+            code = getattr(lib, entries[lo.dtype])(
+                *ptr[:6], n, n_iter, int(final_eval), b, lv, p, c, s,
+                min_blocks, ctypes.byref(struct), lo.device.index,
+                ctypes.c_void_p(stream))
+        _build.check(code, f"{name} kernel")
+    return (out0, out1, valid) if evaluate else (out0, out1)
 
 
 def _check_shape(name: str, shape: BisectShape, dtype: torch.dtype) -> None:

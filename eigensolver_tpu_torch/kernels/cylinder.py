@@ -3,16 +3,23 @@ kernels `cylinder_disp` and `cylinder_bisect`.
 
 `cylinder_disp` (`csrc/cylinder_disp.cu`) is the port of the XLA-fused
 `jit(vmap(disp))` of `eigensolver_tpu/physics/cylinder.py` (cylinder.py:
-236-385, real omega, "bessel" exterior; the twisted chain is a compile-time
-variant that the C entries pick from the parameters): one thread per
-(omega, k, m) candidate carries the whole interior shoot, the axis tail, the
-inlined K_m-ratio exterior (`csrc/kve_ratio.cuh`, the port of the Pallas
-kernel `kernels/bessel.py::kve_ratio_pallas`) and the determinant in
-registers, reading the chain's r-only values from a table that its block
-computes in shared memory, chunk by chunk. `cylinder_bisect` (same file,
+236-385, real omega, "bessel" exterior): one thread per (omega, k, m)
+candidate carries the whole interior shoot, the axis tail, the inlined
+K_m-ratio exterior (`csrc/kve_ratio.cuh`, the port of the Pallas kernel
+`kernels/bessel.py::kve_ratio_pallas`) and the determinant in registers,
+reading the chain's r-only values from a table that its block computes in
+shared memory, chunk by chunk. `cylinder_bisect` (same file,
 `csrc/bisect.cuh`) runs a whole fixed-count bisection of a bracket batch
 over the same chain in one launch (`eigensolver_tpu/search.py:142-169`,
 :468-522).
+
+The twisted chain has kernels of its own (`csrc/cylinder_twisted.cu`),
+which the same wrappers pick from the parameters: the scan
+(`TW_SCAN_SHAPE`), for a batch below `TW_EVAL_MAX` candidates the
+fused kernel's evaluation mode (producer warps compute the chain, one
+consumer lane a candidate), and the speculative fused bisection
+(`common.spec_shape`: the loop's schedule for a batch that fills the card,
+L levels a round on 2^L lanes a bracket for a smaller one).
 
 A CPU tensor goes to the plain version
 (`physics.cylinder.CylinderPhysics.make_dispersion_plain`, and
@@ -23,18 +30,18 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional
-
 import torch
 
 from ..config import CaseConfig, ProfileConfig, ProfileKind
-from .common import (BisectShape, ProfileParams, ScanShape,
-                     check_scan_shape, density_flow_params, launch_bisect,
-                     launch_disp, profile_params)
+from .common import (ProfileParams, ScanShape, SpecShape, check_scan_shape,
+                     density_flow_params, launch_bisect, launch_disp,
+                     launch_spec, profile_params)
 
 # launches of the kernels since the last reset (one per kernel launch):
-# cylinder_disp, and the fused bisection cylinder_bisect
+# cylinder_disp (of them, small_launches through the twisted fused
+# evaluation), and the fused bisection cylinder_bisect
 launches = 0
+small_launches = 0
 bisect_launches = 0
 
 # C entries by dtype; each runs the chain that the parameters' `twisted`
@@ -43,6 +50,11 @@ _ENTRY = {torch.float32: "eigk_cylinder_disp_f32",
           torch.float64: "eigk_cylinder_disp_f64"}
 _BISECT_ENTRY = {torch.float32: "eigk_cylinder_bisect_f32",
                  torch.float64: "eigk_cylinder_bisect_f64"}
+# the twisted chain's fused evaluation and speculative fused bisection
+_EVAL_ENTRY = {torch.float32: "eigk_cylinder_eval_f32",
+               torch.float64: "eigk_cylinder_eval_f64"}
+_SPEC_ENTRY = {torch.float32: "eigk_cylinder_spec_f32",
+               torch.float64: "eigk_cylinder_spec_f64"}
 
 
 class _CylParams(ctypes.Structure):
@@ -112,10 +124,11 @@ def disp_params(case: CaseConfig) -> DispParams:
     return DispParams(case=case, struct=s)
 
 
-# the sizes of the scan's table entries (csrc/cylinder_disp.cu), 16-byte
-# aligned: RPoint<T>, 9 values; twisted, RPointTw<T>, 19
+# the sizes of the scan's table entries, 16-byte aligned: RPoint<T>, 9
+# values (csrc/cylinder_disp.cu); twisted, RPointTw<T>, 21
+# (csrc/cylinder_twisted.cu)
 _ENTRY_BYTES = {(torch.float32, False): 48, (torch.float64, False): 80,
-                (torch.float32, True): 80, (torch.float64, True): 160}
+                (torch.float32, True): 96, (torch.float64, True): 176}
 
 
 # The scan's launch shape: within 1% of the fastest of 15 shapes at both
@@ -124,27 +137,60 @@ _ENTRY_BYTES = {(torch.float32, False): 48, (torch.float64, False): 80,
 SCAN_SHAPE = ScanShape(threads=256, chunk=64)
 
 
+# The twisted scan's launch shape at each type. Its kernel is built for
+# 128 threads a block at the register budget of 5 blocks per SM
+# (csrc/cylinder_twisted.cu::kTwScanThreads, kTwScanMinBlocks: 88 registers
+# at float32, 96 and 64 spill bytes at float64), so twist_v01_p1's 76,800
+# candidates run in one wave on an H100; within 1% of the fastest of 18
+# (threads, budget, chunk) shapes at both types (PERF.md section 6)
+TW_SCAN_THREADS = 128
+TW_SCAN_SHAPE = {torch.float32: ScanShape(TW_SCAN_THREADS, 64),
+                 torch.float64: ScanShape(TW_SCAN_THREADS, 32)}
+# Below this many candidates the twisted chain goes through the fused
+# evaluation (common.spec_shape(n, evaluate=True)): the scan's serial
+# floor (one thread's 1,536-step chain, ~1.0 ms at float32 and 1.5 ms at
+# float64 on an H100) is longer than the fused kernel's time there
+# (`tools_torch/tune_disp.py`: the two cross near 28,000 and 14,500)
+TW_EVAL_MAX = {torch.float32: 28672, torch.float64: 14336}
+
+
 def _check_scan_shape(shape: ScanShape, dtype: torch.dtype,
                       twisted: bool = False) -> None:
-    check_scan_shape("cylinder_disp", shape, (128, 256, 512),
+    check_scan_shape("cylinder_disp", shape,
+                     (TW_SCAN_THREADS,) if twisted else (128, 256, 512),
                      _ENTRY_BYTES[dtype, twisted])
 
 
 def cylinder_disp(omega: torch.Tensor, k: torch.Tensor, m: torch.Tensor,
-                  params: DispParams, shape: Optional[ScanShape] = None):
+                  params: DispParams, shape=None):
     """CylinderInterface(det, mismatch_pct, valid) of 1-D candidate tensors
     (omega, k, m) of one dtype and device; on the card with the launch
-    shape `shape` (default `SCAN_SHAPE`)."""
-    global launches
+    shape `shape`: a ScanShape (default `SCAN_SHAPE`), for the twisted
+    chain a ScanShape (default `TW_SCAN_SHAPE`) or a common.SpecShape of
+    levels 0, the fused evaluation (the default below `TW_EVAL_MAX`
+    candidates)."""
+    global launches, small_launches
     if omega.device.type == "cpu":
         return _plain(params, omega.dtype)(omega, k, m)
     from ..physics.cylinder import CylinderInterface
-    shape = ScanShape(*(shape or SCAN_SHAPE))
-    if omega.dtype in _ENTRY:     # launch_disp raises on the others
-        _check_scan_shape(shape, omega.dtype, bool(params.struct.twisted))
-    det, mism, valid = launch_disp(
-        "cylinder_disp", _ENTRY, "eigk_cylinder_params_size", params.struct,
-        omega, k, m, shape)
+    if omega.dtype not in _ENTRY:
+        raise TypeError(f"cylinder_disp kernel takes float32/float64, not "
+                        f"{omega.dtype}")
+    twisted = bool(params.struct.twisted)
+    if twisted and (isinstance(shape, SpecShape) or (
+            shape is None and omega.numel() < TW_EVAL_MAX[omega.dtype])):
+        det, mism, valid = launch_spec(
+            "cylinder_disp", _EVAL_ENTRY, "eigk_cylinder_params_size",
+            params.struct, _ENTRY_BYTES[omega.dtype, True], omega, None, k,
+            m, 0, True, shape)
+        small_launches += omega.numel() > 0
+    else:
+        shape = ScanShape(*(shape or (TW_SCAN_SHAPE[omega.dtype] if twisted
+                                      else SCAN_SHAPE)))
+        _check_scan_shape(shape, omega.dtype, twisted)
+        det, mism, valid = launch_disp(
+            "cylinder_disp", _ENTRY, "eigk_cylinder_params_size",
+            params.struct, omega, k, m, shape)
     launches += omega.numel() > 0
     return CylinderInterface(det=det, mismatch_pct=mism, valid=valid)
 
@@ -157,14 +203,14 @@ def _plain(params: DispParams, dtype: torch.dtype):
 
 def cylinder_bisect(lo: torch.Tensor, hi: torch.Tensor, k: torch.Tensor,
                     m: torch.Tensor, n_iter: int, params: DispParams,
-                    final_eval: bool = True,
-                    shape: Optional[BisectShape] = None):
+                    final_eval: bool = True, shape=None):
     """Fixed-count bisection of the brackets [lo, hi] at (k, m), 1-D
     tensors of one dtype and device: (root, mismatch at the root), mismatch
     None without final_eval. A CUDA tensor launches the fused kernel
-    `cylinder_bisect` once (block shape `shape`, default
-    `common.bisect_shape`); a CPU tensor runs `search.bisect_loop` over the
-    plain dispersion."""
+    `cylinder_bisect` once (block shape `shape`: a BisectShape, default
+    `common.bisect_shape`; for the twisted chain the speculative kernel's
+    SpecShape, default `common.spec_shape`); a CPU tensor runs
+    `search.bisect_loop` over the plain dispersion."""
     global bisect_launches
     if lo.dtype not in _BISECT_ENTRY:
         raise TypeError(f"cylinder_bisect takes float32/float64, not "
@@ -173,8 +219,14 @@ def cylinder_bisect(lo: torch.Tensor, hi: torch.Tensor, k: torch.Tensor,
         from ..search import bisect_loop
         return bisect_loop(_plain(params, lo.dtype), lo, hi, k, m, n_iter,
                            final_eval)
-    out = launch_bisect("cylinder_bisect", _BISECT_ENTRY,
-                        "eigk_cylinder_params_size", params.struct, lo, hi, k,
-                        m, n_iter, final_eval, shape)
+    if params.struct.twisted:
+        out = launch_spec("cylinder_bisect", _SPEC_ENTRY,
+                          "eigk_cylinder_params_size", params.struct,
+                          _ENTRY_BYTES[lo.dtype, True], lo, hi, k, m, n_iter,
+                          final_eval, shape)
+    else:
+        out = launch_bisect("cylinder_bisect", _BISECT_ENTRY,
+                            "eigk_cylinder_params_size", params.struct, lo,
+                            hi, k, m, n_iter, final_eval, shape)
     bisect_launches += lo.numel() > 0
     return out

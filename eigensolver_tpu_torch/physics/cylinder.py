@@ -36,10 +36,10 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..config import CaseConfig, ProfileConfig, ProfileKind
-from ..dual import Dual, dsqrt
+from ..dual import Dual, dsqrt, over, recip
 from ..equilibrium import Equilibrium, make_equilibrium
 from .. import special
-from ..profiles import div, make_profile_derivative, power, sqrt
+from ..profiles import div, make_profile_derivative, power, rdiv, sqrt
 
 # plain (eager PyTorch) dispersion evaluations since the last reset
 plain_calls = 0
@@ -100,30 +100,35 @@ def log_tail(case: CaseConfig) -> bool:
 
 class TwistedPoint(NamedTuple):
     """The twisted chain's values that depend on the radius alone, with
-    their r-derivatives where r C1/C3 needs them: one entry of the kernel's
-    table (`csrc/cylinder_disp.cu::RPointTw`)."""
+    their r-derivatives where r C1/C3 needs them, and the reciprocals of
+    the chain's r-only divisors (the cusp speed's ratio c_i / sqrt(c_i^2
+    + vA_i^2) whole): one entry of the kernel's table
+    (`csrc/cylinder_twisted.cu::RPointTw`)."""
     r: torch.Tensor
+    iR: Dual                  # 1/r
     rho: torch.Tensor         # uniform: no derivative
-    sqrt_rho: torch.Tensor
+    isr: torch.Tensor         # 1/sqrt(rho)
     v: Dual                   # v_phi
     b: Dual                   # B_phi
     Bz: Dual                  # B_0 sqrt(1 - 2 B_phi^2 / B_0^2)
-    ci: Dual                  # sqrt(gamma P_i / rho), P_i force-balanced
     csum: Dual                # c_i^2 + vA_i^2, vA_i = (B_z + B_phi)/sqrt(rho)
-    sqrt_csum: Dual
+    cr: Dual                  # c_i / sqrt(c_i^2 + vA_i^2), c_i = sqrt(gamma P_i
+                              # / rho), P_i force-balanced
     U: Dual                   # axial flow
     rdc: Dual                 # r d C3diff/dr, C3diff = (B_phi/r)^2 - rho (v_phi/r)^2
+    iRR: Dual                 # 1/r^2
 
 
 class TwistedChain(NamedTuple):
     """The twisted Hain-Lust chain at one radius: D, C1, A, B, C3 and
-    r C1/C3 with their r-derivatives, C2 without."""
+    r C1/C3 with their r-derivatives, C2 and 1/C3 without."""
     D: Dual
     C1: Dual
     C2: torch.Tensor
     A: Dual
     B: Dual
     C3: Dual
+    iC3: torch.Tensor
     rc: Dual
 
 
@@ -213,7 +218,9 @@ class CylinderPhysics:
             C3diff' = 2 x x' - rho 2 y y',
         evaluated on the duals (x, x'), (x', x''), (y, y'), (y', y''), so
         that its tangent is C3diff''; the force balance gives P_i' = rho
-        v_twist^2 r^(2p - 1)."""
+        v_twist^2 r^(2p - 1). The reciprocals 1/r, 1/r^2 and 1/sqrt(rho)
+        (`dual.recip`), and the cusp ratio c_i / sqrt(c_i^2 + vA_i^2), are
+        what the chain multiplies by in place of dividing."""
         case, eq = self.case, self.eq
         rg = case.regime
         tp = case.twist_profile
@@ -245,37 +252,54 @@ class CylinderPhysics:
             Y1 = Dual(y1, (dv2(r) - 2 * y1) / r)
             dC = 2 * Dual(x, x1) * X1 - rho * (2 * Dual(y, y1) * Y1)
             return TwistedPoint(
-                r=r, rho=rho, sqrt_rho=sqrt_rho, v=v, b=b, Bz=Bz, ci=ci,
-                csum=csum, sqrt_csum=dsqrt(csum),
-                U=Dual(eq.U_i(r), dU(r)), rdc=R * dC)
+                r=r, iR=recip(R), rho=rho, isr=rdiv(1.0, sqrt_rho), v=v, b=b,
+                Bz=Bz, csum=csum, cr=ci / dsqrt(csum),
+                U=Dual(eq.U_i(r), dU(r)), rdc=R * dC, iRR=recip(R * R))
         return point
 
     @staticmethod
     def twisted_chain(q: TwistedPoint, omega, k, m) -> TwistedChain:
         """The twisted chain at the radius of q for candidates (omega, k,
         m): the JAX chain's expressions (cylinder.py:110-208, C1 with
-        shift^2) in its order of operations, on duals."""
+        shift^2) in its order of operations, on duals, with each quotient
+        by an r-only value (r, r^2, sqrt(rho)) a product by the reciprocal
+        that q carries, and the cusp speed alf c_i / sqrt(c^2 + vA^2) the
+        product of alf and q's ratio (as a product by 1/sqrt(c^2 + vA^2) it
+        rounds beyond 1e-9 of JAX's det at f64 near the cusp resonance);
+        1/C3 is the one division, and r C1/C3 the quotient rule on it
+        (`dual.over`)."""
         R = Dual(q.r, torch.ones_like(q.r))
-        RR = R * R
-        mb_r = m * q.b / R
-        shift = omega - m * q.v / R - k * q.U
-        alf = mb_r + k * q.Bz / q.sqrt_rho
-        cusp = alf * q.ci / q.sqrt_csum
+        mb_r = m * q.b * q.iR
+        shift = omega - m * q.v * q.iR - k * q.U
+        alf = mb_r + k * q.Bz * q.isr
+        cusp = alf * q.cr
         s2 = shift * shift
         da = s2 - alf * alf
         dc = s2 - cusp * cusp
         D = q.rho * q.csum * da * dc
         fb = mb_r + k * q.Bz
-        Q = (-da * q.rho * (q.v * q.v) / R + 2.0 * s2 * (q.b * q.b) / R
-             + 2.0 * shift * q.b * q.v * fb / R)
+        Q = (-da * q.rho * (q.v * q.v) * q.iR
+             + 2.0 * s2 * (q.b * q.b) * q.iR
+             + 2.0 * shift * q.b * q.v * fb * q.iR)
         T = fb * q.b + q.rho * q.v * shift
-        C1 = Q * s2 - 2.0 * m * q.csum * dc * T / RR
-        C2 = s2.v * s2.v - q.csum.v * (m * m / RR.v + k * k) * dc.v
+        C1 = Q * s2 - 2.0 * m * q.csum * dc * T * q.iRR
+        C2 = s2.v * s2.v - q.csum.v * (m * m * q.iRR.v + k * k) * dc.v
         A = q.rho * da + q.rdc
-        B = Q * Q - 4.0 * q.csum * dc * (T * T) / RR
+        B = Q * Q - 4.0 * q.csum * dc * (T * T) * q.iRR
         C3 = D * A + B
-        return TwistedChain(D=D, C1=C1, C2=C2, A=A, B=B, C3=C3,
-                            rc=R * C1 / C3)
+        iC3 = rdiv(1.0, C3.v)
+        return TwistedChain(D=D, C1=C1, C2=C2, A=A, B=B, C3=C3, iC3=iC3,
+                            rc=over(R * C1, C3, iC3))
+
+    @staticmethod
+    def twisted_invF_g(q: TwistedPoint, c: TwistedChain):
+        """(1/F, g) of the twisted chain c at the radius of q: A/r +
+        B/(r D) and -d(r C1/C3)/dr - r (C2 - C1^2/C3)/D, with 1/D the one
+        division."""
+        iD = rdiv(1.0, c.D.v)
+        iF = c.A.v * q.iR.v + c.B.v * q.iR.v * iD
+        g = -c.rc.d - q.r * (c.C2 - c.C1.v * c.C1.v * c.iC3) * iD
+        return iF, g
 
     def _twisted_coefficients(self, omega, k, m):
         """The twisted chain: the functions of `coefficients`, each from
@@ -299,11 +323,8 @@ class CylinderPhysics:
             return r * c.D.v / c.C3.v
 
         def invF_g(r):
-            c = chain(r)
-            D, C1, C3 = c.D.v, c.C1.v, c.C3.v
-            iF = c.A.v / r + c.B.v / (r * D)
-            g = -c.rc.d - r * (c.C2 - C1 * C1 / C3) / D
-            return iF, g
+            q = point(r)
+            return self.twisted_invF_g(q, self.twisted_chain(q, omega, k, m))
 
         return Dfun, C1fun, C3fun, Ffun, invF_g
 

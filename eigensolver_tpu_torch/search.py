@@ -118,24 +118,65 @@ def find_brackets(omegas: torch.Tensor, ks: torch.Tensor, det: torch.Tensor,
 
 def bisect_loop(disp_batch: Callable, lo: torch.Tensor, hi: torch.Tensor,
                 k: torch.Tensor, mode: Optional[torch.Tensor], n_iter: int,
-                final_eval: bool = True):
+                final_eval: bool = True, levels: int = 1):
     """Fixed-count sign bisection of every bracket as a loop of dispersion
     calls (the JAX package's fori_loop, search.py:152-167): f(lo), n_iter
     midpoints, root = 0.5 (lo + hi), and with final_eval one evaluation at
     the root for the % residual. Returns (root, mismatch or None). The
-    fused kernels (`disp.bisect`) compute the same, bit for bit."""
-    f_lo = _call_disp(disp_batch, lo, k, mode).det
-    lo_neg = torch.signbit(f_lo)
-    for _ in range(n_iter):
-        mid = 0.5 * (lo + hi)
-        f_mid = _call_disp(disp_batch, mid, k, mode).det
-        go_right = torch.signbit(f_mid) == lo_neg   # root in [mid, hi]
-        lo = torch.where(go_right, mid, lo)
-        hi = torch.where(go_right, hi, mid)
-    root = 0.5 * (lo + hi)
-    if not final_eval:
-        return root, None
-    return root, _call_disp(disp_batch, root, k, mode).mismatch_pct
+    fused kernels (`disp.bisect`) compute the same, bit for bit.
+
+    levels > 1 takes `levels` levels a round, as the speculative fused
+    kernel does (csrc/bisect.cuh::spec_kernel): one dispersion call on the
+    2^d - 1 midpoints of the round's d levels (and f(lo) in the first),
+    each formed from (lo, hi) as the loop forms it, then the walk down the
+    tree with the loop's sign test; the residual at the root is one more
+    level. The same midpoints, root and residual as levels=1, bit for
+    bit."""
+    if levels <= 1:
+        f_lo = _call_disp(disp_batch, lo, k, mode).det
+        lo_neg = torch.signbit(f_lo)
+        for _ in range(n_iter):
+            mid = 0.5 * (lo + hi)
+            f_mid = _call_disp(disp_batch, mid, k, mode).det
+            go_right = torch.signbit(f_mid) == lo_neg   # root in [mid, hi]
+            lo = torch.where(go_right, mid, lo)
+            hi = torch.where(go_right, hi, mid)
+        root = 0.5 * (lo + hi)
+        if not final_eval:
+            return root, None
+        return root, _call_disp(disp_batch, root, k, mode).mismatch_pct
+    n_lv = n_iter + int(final_eval)
+    cols = torch.arange(lo.numel(), device=lo.device)
+    lo_neg, mism, done = None, None, 0
+    while done < n_lv:
+        d = min(levels, n_lv - done)
+        # the round's tree in heap order: node n's children 2n, 2n + 1
+        bounds, pts = {1: (lo, hi)}, []
+        for node in range(1, 2 ** d):
+            a, b = bounds.pop(node)
+            mid = 0.5 * (a + b)
+            pts.append(mid)
+            bounds[2 * node], bounds[2 * node + 1] = (a, mid), (mid, b)
+        if lo_neg is None and n_iter > 0:
+            pts.append(lo)
+        reps = len(pts)
+        res = _call_disp(disp_batch, torch.cat(pts), k.repeat(reps),
+                         None if mode is None else mode.repeat(reps))
+        neg = torch.signbit(res.det).reshape(reps, -1)
+        if lo_neg is None and n_iter > 0:
+            lo_neg = neg[-1]
+        node = torch.ones_like(cols)
+        for t in range(d):
+            if done + t < n_iter:
+                go_right = neg[node - 1, cols] == lo_neg
+                mid = 0.5 * (lo + hi)
+                lo = torch.where(go_right, mid, lo)
+                hi = torch.where(go_right, hi, mid)
+                node = 2 * node + go_right.to(node.dtype)
+            else:       # the residual at the root
+                mism = res.mismatch_pct.reshape(reps, -1)[node - 1, cols]
+        done += d
+    return 0.5 * (lo + hi), mism
 
 
 def bisect(disp_batch: Callable, br: BracketBatch, n_iter: int,

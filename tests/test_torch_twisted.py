@@ -179,16 +179,19 @@ def test_twisted_cases_take_no_log_tail(name):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_twisted_scan_shape_fits_the_card(dtype):
-    """The default launch shape's twisted table (19 values an entry) fits a
-    block's shared memory at both types."""
-    kcyl._check_scan_shape(kcyl.SCAN_SHAPE, dtype, twisted=True)
-    assert kcyl._ENTRY_BYTES[dtype, True] == (80 if dtype == torch.float32
-                                              else 160)
-    # a chunk whose table fits at 9 values an entry, not at 19
-    big = kcyl.ScanShape(256, 500 if dtype == torch.float32 else 300)
+    """The default launch shape's twisted table (21 values an entry) fits a
+    block's shared memory at both types; the twisted scan is built for 128
+    threads a block only."""
+    kcyl._check_scan_shape(kcyl.TW_SCAN_SHAPE[dtype], dtype, twisted=True)
+    assert kcyl._ENTRY_BYTES[dtype, True] == (96 if dtype == torch.float32
+                                              else 176)
+    # a chunk whose table fits at 9 values an entry, not at 21
+    big = kcyl.ScanShape(128, 500 if dtype == torch.float32 else 300)
     kcyl._check_scan_shape(big, dtype)
     with pytest.raises(ValueError, match="launch shape"):
         kcyl._check_scan_shape(big, dtype, twisted=True)
+    with pytest.raises(ValueError, match="launch shape"):
+        kcyl._check_scan_shape(kcyl.ScanShape(256, 32), dtype, twisted=True)
 
 
 @pytest.mark.parametrize("geometry", ["slab", "cylinder"])

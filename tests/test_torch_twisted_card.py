@@ -89,7 +89,8 @@ def _same(a, b):
 def test_twisted_scan_bit_equal_to_plain_on_card(name, dtype):
     """The twisted scan's (det, mismatch, valid) are the plain version's
     bits, on 1,001 candidates and 250 steps (no multiple of a block or a
-    chunk), at several launch shapes."""
+    chunk), at several chunks; the kernel is built for 128 threads a
+    block and refuses other block sizes."""
     case = config.from_jax(reduced(name, n_interior=250))
     rng = np.random.default_rng(6)
     om, ks = sweep.build_ladders(case, 256)
@@ -101,7 +102,10 @@ def test_twisted_scan_bit_equal_to_plain_on_card(name, dtype):
     ph = tcyl.CylinderPhysics.from_case(case)
     want = ph.make_dispersion_plain(m=None, dtype=dtype)(*args)
     params = kcyl.disp_params(case)
-    for shape in (None, (128, 7), (256, 32), (512, 64), (256, 100)):
+    for threads in (256, 512):
+        with pytest.raises(ValueError, match="launch shape"):
+            kcyl.cylinder_disp(*args, params, shape=(threads, 32))
+    for shape in (None, (128, 7), (128, 32), (128, 64), (128, 100)):
         before = kcyl.launches
         got = kcyl.cylinder_disp(*args, params, shape=shape)
         torch.cuda.synchronize()
@@ -148,9 +152,11 @@ def test_twisted_fused_bisect_bit_equal_to_launch_loop_on_card(name, dtype):
                 assert _same(mis, want_mis)
     want = disp.bisect(lo, hi, k, md, 6)
     params = kcyl.disp_params(case)
-    for shape in ((1, 1, 7, 1, 1), (8, 3, 32, 2, 2), (32, 15, 16, 6, 1)):
+    # the speculative kernel's block shapes (B, L, P, C, S, budget)
+    for shape in ((1, 0, 1, 7, 1, 1), (8, 2, 3, 32, 2, 2),
+                  (1, 5, 15, 16, 6, 1)):
         got = kcyl.cylinder_bisect(lo, hi, k, md, 6, params,
-                                   shape=kcommon.BisectShape(*shape))
+                                   shape=kcommon.SpecShape(*shape))
         assert _same(got[0], want[0]) and _same(got[1], want[1]), shape
 
 

@@ -3,6 +3,8 @@ bound uses (its OPS entries "cyl_tw_*").
 
     python tools_torch/count_ops.py
 
+prints the traced counts ("traced") and the entries of OPS ("ops").
+
 Traces `physics/cylinder.py::CylinderPhysics.twisted_chain` (the order of
 operations that csrc/cylinder_disp.cu::twisted_chain follows) on symbols
 instead of tensors and counts each operation the outputs need once:
@@ -11,16 +13,25 @@ instead of tensors and counts each operation the outputs need once:
   cross products, k B_z in the Alfven term and in f B);
 - a negation is free (an operand modifier on the card), and so is a
   product or a quotient by an exact 1 (the radius' unit tangent dr/dr,
-  and r itself at r = 1);
+  and r itself at r = 1) and a product by an exact -1 (d(1/r)/dr at
+  r = 1);
 - an exact 0 propagates: with B_phi = 0 the terms in B_phi vanish;
 - by what each result depends on: the radius alone (once per abscissa and
   launch: the table's job), the candidate alone (once per candidate), both
   (per candidate and abscissa), neither (a constant of the launch, 0).
 
 Per RK4 step, 3 evaluations of the chain with (1/F, g) (physics/cylinder.py
-`_twisted_coefficients`), per evaluation the chain's values at r = 1 and
-F(1), C1(1)/C3(1). The parts that the trace does not cover are counted by
-hand from csrc/cylinder_disp.cu below.
+`twisted_chain`, `twisted_invF_g`), per evaluation the chain's values at
+r = 1 and F(1), C1(1)/C3(1). The parts that the trace does not cover are
+counted by hand from csrc/cylinder_twisted.cu and csrc/cylinder.cuh below.
+
+A bound counts what the function needs, not what one way of computing it
+spends. The chain multiplies by reciprocals of its r-only divisors (1/r,
+1/r^2, 1/sqrt(rho)) and by the cusp ratio c_i / sqrt(c^2 + vA^2), which
+the trace counts where they are formed. Its quotient form, which divides
+by those values where they occur, took fewer operations in some parts:
+`QUOTIENT_FORM`, traced by this script from the chain of commit 6809e05.
+Each count is the lower of the two.
 """
 from __future__ import annotations
 
@@ -30,13 +41,21 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 
-# counted by hand from csrc/cylinder_disp.cu
+# counted by hand from csrc/cylinder_twisted.cu and csrc/cylinder.cuh
 RK4_UPDATE = 68      # rk4_step2: 4 x 4 slopes, 3 x 8 midpoints, 4 x 7 sums
 FINISH = 35          # finish() without the K_m ratio and k k (the chain's)
-R_POINT = 84         # r_point_tw per abscissa, sqrt(rho) and rho v^2 aside
-LAUNCH_CONSTANTS = 2  # sqrt(rho), rho v_twist^2
+# r_point_tw per abscissa, the launch constants aside: the profiles, P, c_i,
+# B_phi, B_z, vA, c^2 + vA^2 and its root (84), the cusp ratio c_i / sqrt(c^2
+# + vA^2) (4), 1/r (2), r r and its derivative (2), 1/r^2 (3)
+R_POINT = 95
+LAUNCH_CONSTANTS = 3  # sqrt(rho), 1/sqrt(rho), rho v_twist^2
 J_TERM = 8           # J = B_phi(1)^2 - rho v_phi(1)^2
 ABSCISSAE = 4        # x0 + i h, + h/2, + h
+# the same counts, traced from the chain in its quotient form (commit
+# 6809e05: dual quotients by r, r^2, sqrt(rho) and sqrt(c^2 + vA^2))
+QUOTIENT_FORM = {"cyl_tw_step": 590, "cyl_tw_ends": 86,
+                 "cyl_tw_r_step": 298, "cyl_tw_launch": 99,
+                 "cyl_tw_b0_step": 425, "cyl_tw_b0_ends": 76}
 
 
 class Sym:
@@ -66,6 +85,10 @@ class Sym:
                 return b
             if b.val == 1.0:
                 return a
+            if a.val == -1.0:
+                return -b
+            if b.val == -1.0:
+                return -a
         elif op == "/":
             if a.val == 0.0 or b.val == 1.0:
                 return a
@@ -107,19 +130,22 @@ ONE = Sym(val=1.0)
 
 
 def _point(r, b_phi_zero: bool):
-    """A TwistedPoint of symbols at radius r: rho and sqrt(rho) constants;
-    B_phi = 0 and B_z = B_0 exactly when b_phi_zero."""
+    """A TwistedPoint of symbols at radius r: rho and 1/sqrt(rho)
+    constants; 1/r = 1, d(1/r)/dr = -1, 1/r^2 = 1 and d(1/r^2)/dr = -2 at
+    r = 1; B_phi = 0 and B_z = B_0 exactly when b_phi_zero."""
     from eigensolver_tpu_torch.dual import Dual
     from eigensolver_tpu_torch.physics.cylinder import TwistedPoint
 
     def radial():
         return Dual(Sym({"r"}), Sym({"r"}))
+    at_one = r is ONE
     return TwistedPoint(
-        r=r, rho=Sym(), sqrt_rho=Sym(), v=radial(),
+        r=r, iR=Dual(ONE, Sym(val=-1.0)) if at_one else radial(), rho=Sym(),
+        isr=Sym(), v=radial(),
         b=Dual(ZERO, ZERO) if b_phi_zero else radial(),
         Bz=Dual(Sym(), ZERO) if b_phi_zero else radial(),
-        ci=radial(), csum=radial(), sqrt_csum=radial(), U=radial(),
-        rdc=radial())
+        csum=radial(), cr=radial(), U=radial(), rdc=radial(),
+        iRR=Dual(ONE, Sym(val=-2.0)) if at_one else radial())
 
 
 def _tally(outs) -> dict:
@@ -139,25 +165,33 @@ def _tally(outs) -> dict:
 
 def twisted_ops(b_phi_zero: bool) -> dict:
     """chip_smoke.py's OPS entries for the twisted chain, with B_phi = 0
-    ("cyl_tw_b0_*") or every term live ("cyl_tw_*")."""
+    ("cyl_tw_b0_*") or every term live ("cyl_tw_*"): each the lower of the
+    chain's traced count and its quotient form's."""
+    return {key: min(n, QUOTIENT_FORM[key])
+            for key, n in traced_ops(b_phi_zero).items()}
+
+
+def traced_ops(b_phi_zero: bool) -> dict:
+    """The twisted chain's counts as the trace of the plain chain gives
+    them, keyed as twisted_ops."""
     import torch
     from eigensolver_tpu_torch.physics.cylinder import CylinderPhysics
     chain = CylinderPhysics.twisted_chain
     Sym.nodes = {}
     om, k, m = Sym({"c"}), Sym({"c"}), Sym({"c"})
-    ones_like = torch.ones_like
+    ones_like, full_like = torch.ones_like, torch.full_like
     torch.ones_like = lambda x: ONE         # the unit tangent of R
+    torch.full_like = lambda x, v: Sym.of(v)   # profiles.rdiv's numerator
     try:
         r = Sym({"r"})
-        c = chain(_point(r, b_phi_zero), om, k, m)
-        iF = c.A.v / r + c.B.v / (r * c.D.v)
-        g = -c.rc.d - r * (c.C2 - c.C1.v * c.C1.v / c.C3.v) / c.D.v
+        q = _point(r, b_phi_zero)
+        iF, g = CylinderPhysics.twisted_invF_g(q, chain(q, om, k, m))
         step = _tally([iF, g])
         c1 = chain(_point(ONE, b_phi_zero), om, k, m)
         ends = _tally([ONE * c1.D.v / c1.C3.v, c1.C1.v * ONE / c1.C3.v])
         per_cand = _tally([iF, g, c1.D.v, c1.C1.v, c1.C3.v])["c"]
     finally:
-        torch.ones_like = ones_like
+        torch.ones_like, torch.full_like = ones_like, full_like
     f = "cyl_tw_b0_" if b_phi_zero else "cyl_tw_"
     out = {f + "step": 3 * step["cr"] + RK4_UPDATE,
            f + "ends": ends["cr"] + per_cand + FINISH}
@@ -170,7 +204,8 @@ def twisted_ops(b_phi_zero: bool) -> dict:
 
 def main() -> int:
     sys.path.insert(0, str(ROOT))
-    print(json.dumps({**twisted_ops(False), **twisted_ops(True)}))
+    print(json.dumps({"traced": {**traced_ops(False), **traced_ops(True)},
+                      "ops": {**twisted_ops(False), **twisted_ops(True)}}))
     return 0
 
 

@@ -20,7 +20,9 @@ several launches after a warm-up):
     float32 and float64, where the checkout has them ("not ported" where it
     raises NotImplementedError);
   - slab_disp at float64 on the window ends of the refine stage of the
-    slab_ph_09 float32 sweep (10 per root: 1,530);
+    slab_ph_09 float32 sweep (10 per root: 1,530), and the twisted
+    cylinder_disp on those of the twist_v01_p1 float32 sweep (3,090) with
+    the refine stage's float64 bisection of its roots (30 iterations);
   - the CALL instructions in each kve_ratio kernel's SASS (`cuobjdump`),
     where the toolkit has it.
 To compare two commits on one card, unpack the other into a git-ignored
@@ -105,13 +107,14 @@ def window_ends(case):
     """The float64 window ends of the refine stage of the case's float32
     sweep on the card, formed as `search.refine_windows` forms them (here,
     so that a checkout without `search.refine_window_ends` is timed alike):
-    (omega, k, mode) CUDA tensors."""
+    (omega, k, mode) CUDA tensors, and the roots (omega, k, mode)."""
     import torch
     from eigensolver_tpu_torch import search, sweep
     cfg = search.SearchConfig(n_omega=256, n_bisect=18, scan_dtype="float32",
                               polish_dtype="float32")
     rs, _ = sweep.run_case(case, cfg, device="cuda")
-    br = [(m, rs[name]) for m, name in sweep.MODE_NAMES.items()]
+    br = [(m, rs[name]) for m, name in sweep.MODE_NAMES.items()
+          if name in rs.branches]
     om, kk, md = (torch.from_numpy(np.concatenate(x)).to(
         device="cuda", dtype=torch.float64) for x in (
         [b.omegas for _, b in br], [b.ks for _, b in br],
@@ -121,7 +124,8 @@ def window_ends(case):
         ws.append(8.0 * ws[-1])
     ends = torch.cat([torch.stack([om * (1.0 - w) for w in ws]),
                       torch.stack([om * (1.0 + w) for w in ws])]).reshape(-1)
-    return ends, kk.repeat(2 * len(ws)), md.repeat(2 * len(ws))
+    return (ends, kk.repeat(2 * len(ws)), md.repeat(2 * len(ws))), (om, kk,
+                                                                     md)
 
 
 def sass_calls(lib: Path) -> dict:
@@ -202,10 +206,22 @@ def main() -> int:
                 "brackets": br[0].numel(),
                 "bisect_ms": cuda_ms(lambda: disp.bisect(*br, 18), 5)}
     slab = cases.slab_density_photospheric(0.9)
-    win = window_ends(slab)
+    win, _ = window_ends(slab)
     disp64 = sweep.make_dispersion_moded(slab, torch.float64)
     out["slab_ph_09 window float64"] = {
         "n": win[0].numel(), "ms": cuda_ms(lambda: disp64(*win), 20)}
+    from eigensolver_tpu_torch import search
+    twist = cases.cylinder_twisted_photospheric(0.1, 1.0, 1)
+    win, roots = window_ends(twist)
+    disp64 = sweep.make_dispersion_moded(twist, torch.float64)
+    lo, hi, _ = search.refine_windows(disp64, *roots)
+    br = [lo, hi, roots[1], roots[2]]
+    out["twist_v01_p1 refine float64"] = {
+        "windows_n": win[0].numel(),
+        "windows_ms": cuda_ms(lambda: disp64(*win), 5),
+        "brackets": lo.numel(),
+        "bisect_ms": cuda_ms(lambda: disp64.bisect(*br, 30, final_eval=False),
+                             3)}
     out["sass"] = sass_calls(lib)
     print(json.dumps(out), flush=True)
     if args.out:

@@ -12,9 +12,13 @@ register budget of 64 or 128 a thread) of a grid, checks that each gives
 the same bits as the default shape (`kernels.common.bisect_shape`), and
 prints per batch the default's time,
 the fastest shapes, the loop of one-thread launches it replaces, and the
-serial floor: the fused kernel on one bracket, per evaluation. Run from the
-repository root; the first line is the card's nvidia-smi name and power
-limit.
+serial floor: the fused kernel on one bracket, per evaluation. Then the
+twisted cylinder_bisect (the speculative kernel, `kernels.common.
+spec_shape`) on twist_v01_p1's bracket stage (2,400 brackets, float32 and
+float64) and on its refine stage (the float32 sweep's roots' f64 windows,
+30 iterations), at every level count L = 0..5 and a grid of (B, P, C, S,
+register budget): each checked against the default's bits. Run from the repository root; the
+first line is the card's nvidia-smi name and power limit.
 """
 import argparse
 import dataclasses
@@ -46,9 +50,10 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def sweep_brackets(case, cfg, dtype):
+def sweep_brackets(case, cfg, dtype, modes=(0, 1)):
     """The brackets the sweep's bisection gets (scan in the scan dtype on the
-    card), as polish-dtype CUDA tensors (lo, hi, k, mode)."""
+    card, over the modes), as polish-dtype CUDA tensors (lo, hi, k,
+    mode)."""
     import torch
     from eigensolver_tpu_torch import search, sweep
     omegas, ks = sweep.build_ladders(case, cfg.n_omega)
@@ -58,8 +63,9 @@ def sweep_brackets(case, cfg, dtype):
     def dev(a):
         return torch.from_numpy(a).to(device="cuda", dtype=scan_dt)
 
-    om, kk = dev(np.concatenate([omegas] * 2)), dev(np.concatenate([ks] * 2))
-    md = dev(np.repeat([0.0, 1.0], rows))
+    om = dev(np.concatenate([omegas] * len(modes)))
+    kk = dev(np.concatenate([ks] * len(modes)))
+    md = dev(np.repeat([float(m) for m in modes], rows))
     disp = sweep.make_dispersion_moded(case, scan_dt)
     det, valid, mism = search.ladder_scan(disp, om, kk, md)
     br = search.find_brackets(om, kk, det, valid, cfg.max_brackets_per_row,
@@ -72,10 +78,12 @@ def refine_windows(case, cfg):
     import torch
     from eigensolver_tpu_torch import search, sweep
     rs, _ = sweep.run_case(case, cfg, device="cuda")
-    om = np.concatenate([rs[b].omegas for b in ("sausage", "kink")])
-    kk = np.concatenate([rs[b].ks for b in ("sausage", "kink")])
+    names = [(m, b) for m, b in enumerate(("sausage", "kink"))
+             if b in rs.branches]
+    om = np.concatenate([rs[b].omegas for _, b in names])
+    kk = np.concatenate([rs[b].ks for _, b in names])
     md = np.concatenate([np.full(len(rs[b].omegas), float(m))
-                         for m, b in enumerate(("sausage", "kink"))])
+                         for m, b in names])
     om, kk, md = (torch.from_numpy(x).cuda().double() for x in (om, kk, md))
     disp64 = sweep.make_dispersion_moded(case, torch.float64)
     lo, hi, _ = search.refine_windows(disp64, om, kk, md)
@@ -163,10 +171,69 @@ def main() -> int:
                      "all": {",".join(map(str, s)): ms for s, ms in res.items()}}
         print(name, json.dumps({k: v for k, v in out[name].items()
                                 if k != "all"}), flush=True)
+    tune_twisted(out, f32, f64)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(out, indent=1))
     return 0
+
+
+def tune_twisted(out: dict, f32, f64) -> None:
+    """The speculative twisted bisection's block shapes on twist_v01_p1's
+    bracket stage and refine stage."""
+    import torch
+    from eigensolver_tpu_torch import cases, search, sweep
+    from eigensolver_tpu_torch.kernels import common, cylinder
+    case = cases.cylinder_twisted_photospheric(0.1, 1.0, 1)
+    params = cylinder.disp_params(case)
+    batches = (
+        ("twist_v01_p1 f32", sweep_brackets(case, f32, torch.float32, (1,)),
+         torch.float32, 18, True),
+        ("twist_v01_p1 f64", sweep_brackets(case, f64, torch.float64, (1,)),
+         torch.float64, 18, True),
+        ("twist_v01_p1 refine f64", refine_windows(case, f32),
+         torch.float64, 30, False))
+    for name, args_, dtype, n_iter, final in batches:
+        n = args_[0].numel()
+        eb = cylinder._ENTRY_BYTES[dtype, True]
+        disp = sweep.make_dispersion_moded(case, dtype)
+
+        def fused(shape=None, a=args_):
+            return cylinder.cylinder_bisect(*a, n_iter, params, final,
+                                            shape=shape)
+
+        default = common.spec_shape(n, dtype, eb)
+        ref = fused(default)
+        grid = [common.SpecShape(b, lv, p, c, s, mb)
+                for lv in range(6) for b in (32 >> lv, 16 >> lv, 8 >> lv)
+                if b >= 1 for p in (3, 7, 15) for c in (16, 32)
+                for s in (2,) for mb in (1, 2)]
+        grid += [common.spec_shape(n, dtype, eb, levels=lv)
+                 for lv in range(6)]
+        res = {}
+        for shape in [default, *grid]:
+            if tuple(shape) in res or common.spec_smem(
+                    shape, dtype, eb) > common.MAX_SMEM:
+                continue
+            got = fused(shape)
+            if not all(_same_bits(a, b) for a, b in zip(got, ref)
+                       if a is not None):
+                raise AssertionError(f"{name}: shape {shape} differs")
+            res[tuple(shape)] = cuda_ms(lambda: fused(shape), 2)
+        loop_ms = cuda_ms(lambda: search.bisect_loop(disp, *args_, n_iter,
+                                                     final), 1)
+        best = sorted(res.items(), key=lambda kv: kv[1])[:8]
+        by_levels = {lv: min(ms for s, ms in res.items() if s[1] == lv)
+                     for lv in range(6)}
+        out[name] = {"n": n, "n_iter": n_iter, "default": list(default),
+                     "default_ms": res[tuple(default)],
+                     "best": [[list(s), ms] for s, ms in best],
+                     "best_ms_by_levels": by_levels,
+                     "loop_ms": loop_ms,
+                     "all": {",".join(map(str, s)): ms
+                             for s, ms in res.items()}}
+        print(name, json.dumps({k: v for k, v in out[name].items()
+                                if k != "all"}), flush=True)
 
 
 def _steps(b, p, base):

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Launch shapes of the scan kernels, timed on a CUDA card.
 
-    python3 tools_torch/tune_disp.py [--kernel cylinder|slab|both] [--out PATH]
+    python3 tools_torch/tune_disp.py [--kernel cylinder|slab|twisted|all]
+                                     [--out PATH]
 
 Times each scan kernel at every (threads per block, table chunk of RK4
 steps) of a grid, checks that each shape gives the default shape's bits,
@@ -12,7 +13,17 @@ and prints per set the default's time and the fastest shapes:
   - `slab_disp` (default `kernels.slab.scan_shape`) on slab_ph_09's ladder
     scan (161,280, flux form) and slab_flow_gaussian_coronal's (179,200,
     shear form), float32 and float64, and on the float64 window launch of
-    the slab_ph_09 float32 sweep's refine stage (10 ends per root: 1,530).
+    the slab_ph_09 float32 sweep's refine stage (10 ends per root: 1,530);
+  - the twisted `cylinder_disp` (default `kernels.cylinder.TW_SCAN_SHAPE`)
+    on the 76,800-candidate ladder scans of twist_v01_p1 and of the
+    magnetic twist (cylinder_twisted_magnetic(0.1, 0.15, 1.25, 1)), float32
+    and float64, at every chunk (its kernel is built for one block size and
+    register budget: csrc/cylinder_twisted.cu::kTwScanThreads,
+    kTwScanMinBlocks); and on small batches (twist_v01_p1's refine windows, 3,090 ends
+    at float64; the first 4,096 .. 32,768 candidates of its ladder) the
+    scan's default beside the fused evaluation (`common.spec_shape(n,
+    evaluate=True)`) and a grid of its block shapes, which picks
+    `TW_EVAL_MAX`.
 Run from the repository root; the first line is the card's nvidia-smi name
 and power limit.
 """
@@ -61,13 +72,14 @@ def ladder_candidates(case, dtype):
 def window_candidates(case):
     """The float64 window ends of the refine stage of the case's float32
     sweep (n_omega=256, n_bisect=18) on the card, as CUDA tensors (omega,
-    k, parity)."""
+    k, mode)."""
     import torch
     from eigensolver_tpu_torch import search, sweep
     cfg = search.SearchConfig(n_omega=256, n_bisect=18, scan_dtype="float32",
                               polish_dtype="float32")
     rs, _ = sweep.run_case(case, cfg, device="cuda")
-    br = [(m, rs[name]) for m, name in sweep.MODE_NAMES.items()]
+    br = [(m, rs[name]) for m, name in sweep.MODE_NAMES.items()
+          if name in rs.branches]
     om, kk, md = (torch.from_numpy(np.concatenate(x)).to(
         device="cuda", dtype=torch.float64) for x in (
         [b.omegas for _, b in br], [b.ks for _, b in br],
@@ -97,10 +109,86 @@ def tune(label: str, kernel, default, threads, cand, params) -> dict:
     return out
 
 
+def tune_twisted(out: dict) -> None:
+    """The twisted scan's launch shapes, and the small batches' two paths."""
+    import torch
+    from eigensolver_tpu_torch import cases
+    from eigensolver_tpu_torch.kernels import common, cylinder
+    fams = {"twist_v01_p1": cases.cylinder_twisted_photospheric(0.1, 1.0, 1),
+            "magnetic_p125": cases.cylinder_twisted_magnetic(0.1, 0.15, 1.25,
+                                                             1)}
+    shapes = [common.ScanShape(cylinder.TW_SCAN_THREADS, c)
+              for c in (16, 32, 64, 128)]
+    for fam, case in fams.items():
+        params = cylinder.disp_params(case)
+        for dtype in (torch.float32, torch.float64):
+            # the sweep's own scan: one mode (m = 1), the ladder in order
+            cand = [x[x.numel() // 2:].contiguous()
+                    for x in ladder_candidates(case, dtype)]
+            label = f"twisted scan {fam} {str(dtype)[6:]}"
+            out[label] = tune_grid(label, cylinder.cylinder_disp,
+                                   cylinder.TW_SCAN_SHAPE[dtype], shapes,
+                                   cand, params)
+    case = fams["twist_v01_p1"]
+    params = cylinder.disp_params(case)
+    eb = cylinder._ENTRY_BYTES
+    for dtype in (torch.float32, torch.float64):
+        full = [x[x.numel() // 2:].contiguous()
+                for x in ladder_candidates(case, dtype)]
+        sets = {n: [x[:n].contiguous() for x in full]
+                for n in (4096, 8192, 16384, 24576, 32768)}
+        if dtype == torch.float64:
+            sets["windows"] = window_candidates(case)
+        for name, cand in sets.items():
+            n = cand[0].numel()
+            default = common.spec_shape(n, dtype, eb[dtype, True], True)
+            grid = [common.SpecShape(b, 0, p, c, 2, mb)
+                    for b in (4, 8, 16, 32) for p in (3, 7, 15)
+                    for c in {16, 32 * p // b} for mb in (1, 2)
+                    if (32 * p) % b == 0]
+            grid = [g for g in grid if common.spec_smem(
+                g, dtype, eb[dtype, True]) <= common.MAX_SMEM]
+            label = f"twisted small {name} {str(dtype)[6:]}"
+            r = tune_grid(label, cylinder.cylinder_disp, default, grid, cand,
+                          params, quiet=True)
+            r["scan_ms"] = cuda_ms(lambda: cylinder.cylinder_disp(
+                *cand, params, shape=cylinder.TW_SCAN_SHAPE[dtype]), 3)
+            r["path"] = ("fused" if n < cylinder.TW_EVAL_MAX[dtype]
+                         else "scan")
+            print(label, json.dumps({k: v for k, v in r.items()
+                                     if k != "all"}), flush=True)
+            out[label] = r
+
+
+def tune_grid(label: str, kernel, default, shapes, cand, params,
+              quiet: bool = False) -> dict:
+    """kernel(*cand, params, shape=...) at the default and every shape of
+    `shapes`: each checked to give the default shape's bits, timed; the
+    default's time and the fastest shapes."""
+    ref = kernel(*cand, params, shape=default)
+    res = {}
+    for shape in [default, *shapes]:
+        got = kernel(*cand, params, shape=shape)
+        for a, b in zip(got, ref):
+            if not bool(((a == b) | (a.isnan() & b.isnan())).all()):
+                raise AssertionError(f"{label}: shape {shape} differs")
+        res[tuple(shape)] = cuda_ms(lambda: kernel(*cand, params,
+                                                   shape=shape), 3)
+    best = sorted(res.items(), key=lambda kv: kv[1])[:5]
+    out = {"n": cand[0].numel(), "default": list(default),
+           "default_ms": res[tuple(default)],
+           "best": [[list(s), ms] for s, ms in best],
+           "all": {",".join(map(str, s)): ms for s, ms in res.items()}}
+    if not quiet:
+        print(label, json.dumps({k: v for k, v in out.items() if k != "all"}),
+              flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("cylinder", "slab", "both"),
-                    default="both")
+    ap.add_argument("--kernel", choices=("cylinder", "slab", "twisted", "all"),
+                    default="all")
     ap.add_argument("--out", help="also write the report here as JSON")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
@@ -117,7 +205,7 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(smi, flush=True)
     out = {"nvidia_smi": smi}
-    if args.kernel in ("cylinder", "both"):
+    if args.kernel in ("cylinder", "all"):
         case = cases.cylinder_density_coronal(0.9)
         params = cylinder.disp_params(case)
         for dtype in (torch.float32, torch.float64):
@@ -125,7 +213,7 @@ def main() -> int:
             out[name] = tune(name, cylinder.cylinder_disp, cylinder.SCAN_SHAPE,
                              THREADS["cylinder"],
                              ladder_candidates(case, dtype), params)
-    if args.kernel in ("slab", "both"):
+    if args.kernel in ("slab", "all"):
         for form, case in (("flux slab_ph_09",
                             cases.slab_density_photospheric(0.9)),
                            ("shear flow_gauss",
@@ -144,6 +232,8 @@ def main() -> int:
             "slab_disp window float64", slab.slab_disp,
             slab.scan_shape(cand[0].numel(), False), THREADS["slab"], cand,
             slab.disp_params(case))
+    if args.kernel in ("twisted", "all"):
+        tune_twisted(out)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(out, indent=1))
