@@ -81,6 +81,34 @@ the script exits non-zero:
    default launch (L = 3) at 5 iterations bit-equal to the plain
    speculative bisection at the same L over the plain dispersion. Every
    L's bound counts the evaluations the loop needs.
+13. the numeric exteriors (B6, exterior_method="numeric"), the kernels'
+   variants against their plain versions, bit for bit at float32 and
+   float64: slab_disp in both forms and cylinder_disp on ragged batches of
+   8,191 ladder draws (the parity configurations of slab_ph_09 and
+   cyl_flow_1, tools_torch/parity.py; a Gaussian-flow slab at 3
+   wavelengths); each whole parity scan in ladder order (349,440 and
+   3,007,620) timed beside its bound, the plain version's time and bits;
+   slab_bisect and cylinder_bisect (the speculative kernel over the scans'
+   tables) on the parity sweeps' own brackets (21,840 and 47,520)
+   bit-equal to the launch loop and to the plain loop (1 iteration), and
+   on their first 600 at the speculative default L to the launch loop; the
+   twisted scan, its small-batch path and its speculative bisection at a
+   reduced depth (twist_v01_p1 at 3 wavelengths, n_interior=384, 600
+   brackets; the plain loop at the default L); then the twisted variant on
+   a reduced sweep of its own (its launches).
+14. the reference-parity sweeps on the card: slab_ph_09 and cyl_flow_1 at
+   float32 refined in float64 (5 launches) and at float64 (2), each with
+   the counters reset just before it, then 3 timed runs (walls, stage
+   walls); counts per branch held against the JAX package's
+   (PARITY_COUNTS; cyl_flow_1 at full width at float64, and on every 9th
+   k at both types); slab_ph_3's float64 sweep,
+   its needle pass (2 launches, 3 timed) and their merge, against JAX's.
+15. the Bessel/numeric oracle of tests/test_special.py:101-132 at the full
+   grid: cylinder_density_coronal(1e5), k = 1, 801 points, m = 1, the
+   roots of the two exteriors within rtol 1e-6.
+16. the needle oracle of tests/test_needle.py:61-87: slab_ph_3 at k =
+   0.43303 and slab_co_15 at k = 0.080505, each reference entry within
+   3e-3 of a root of the needle pass.
 
 Then one JSON line of the kernels (with each one's bound: the operations
 the function needs on this run's inputs over the card's peak rate, or its
@@ -185,6 +213,42 @@ N_BR_SLAB = 35 * 9 * 2 * 8      # 5,040
 N_BISECT = 18
 PLAIN_N_ITER = 4                # the plain loop's iterations in phases 8, 9
 
+# The reference-parity sweeps (tools_torch/parity.py, tools/reproduce.py's
+# targets at the case's own k grid): candidates per sweep and brackets
+N_PAR_SLAB = 35 * 13 * 384 * 2          # slab_ph_09: 349,440
+N_BR_PAR_SLAB = 35 * 13 * 2 * 24        # 21,840
+N_PAR_CYL = 90 * 11 * 1519 * 2          # cyl_flow_1: 3,007,620
+N_BR_PAR_CYL = 90 * 11 * 2 * 24         # 47,520
+N_NEEDLE = 35 * 4 * 512                 # slab_ph_3's needle pass: 71,680
+CYL_PAR_K_STRIDE = 9                    # cyl_flow_1's k subset for counts
+N_RAGGED = 8191                         # the ragged batch of phase 13
+NUM_PLAIN_N_ITER = 1                    # the plain loops of phase 13
+# Root counts per branch of the parity sweeps through the JAX package on a
+# CPU (JAX 0.9.0, x64), held as the IEEE counts above are:
+#   python tests/test_torch_parity.py jax-counts TARGET DTYPE [--k-stride 9]
+# (f32 refined in f64; "jax_ieee" with XLA_FLAGS="--xla_cpu_max_isa=AVX
+# --xla_disable_hlo_passes=algsimp"). cyl_flow_1's on every 9th k (10 of
+# the 90, 249 s on this CPU; f32 there only), and at full width at f64
+# (1,636 s); slab_ph_3 the main sweep, the needle pass (its positive cusp
+# edges, mode 0) and the merge.
+PARITY_COUNTS = {
+    "slab_ph_09 float64": [("jax", {"sausage": 118, "kink": 84}, 0.0025)],
+    "cyl_flow_1 float64": [("jax", {"sausage": 1029, "kink": 1347},
+                            0.0025)],
+    "slab_ph_09 float32": [("jax_ieee", {"sausage": 118, "kink": 84}, 0.05),
+                           ("jax", {"sausage": 118, "kink": 84}, None)],
+    "cyl_flow_1/9 float64": [("jax", {"sausage": 105, "kink": 146}, 0.0025)],
+    "cyl_flow_1/9 float32": [("jax_ieee", {"sausage": 97, "kink": 116},
+                              0.03),
+                             ("jax", {"sausage": 97, "kink": 118}, None)],
+    "slab_ph_3 float64": [("jax", {"sausage": 339, "kink": 319}, 0.0025)],
+    "slab_ph_3 needle": [("jax", {"sausage": 205}, 0.0025)],
+    "slab_ph_3 merged": [("jax", {"sausage": 469, "kink": 319}, 0.0025)],
+}
+# the needle oracle (tests/test_needle.py:61-87): (case, k, omega)
+NEEDLE_ORACLE = (("slab_density_photospheric", 3.0, 0.43303, 0.367977),
+                 ("slab_density_coronal", 1.5, 0.080505, 0.0716901))
+
 # Operations, the least each function needs, counted from the sources for
 # the Gaussian density profile of slab_ph_09 and cyl_co_09 and the Gaussian
 # flow of slab_flow_gaussian_coronal (uniform density, corrected D), each
@@ -216,13 +280,24 @@ PLAIN_N_ITER = 4                # the plain loop's iterations in phases 8, 9
 # quotient form, which divides by them: the function needs no more. A
 # bisection's bound counts the evaluations the loop needs (f(lo), n_iter
 # midpoints, the residual), whatever the kernel speculates.
+# The numeric exteriors ("slab_ext_*", "cyl_ext_*": tools_torch/count_ops.py
+# traces one RK4 step of the plain version, ode._step): per candidate (or
+# bracket per evaluation) and exterior step, and the slab's rescaling every
+# 64th step; per candidate the set-up and the end. They take the place of
+# the exact exterior (slab) and of the K_m ratio (cylinder, `kve_ops`);
+# with them "*_ends" lose the exact exterior's operations around its
+# ratio ("*_exact_ext": max(m_e, floor) and its sqrt; the cylinder's also
+# their product with the K_m ratio), which the numeric one does not need.
 OPS = {"slab_x_step": 67, "slab_step": 61, "slab_ends": 93,
        "slab_shear_x_step": 40, "slab_shear_step": 114, "slab_shear_ends": 64,
        "cyl_r_step": 70, "cyl_log_r_step": 73, "cyl_step": 155,
        "cyl_log_step": 161, "cyl_ends": 98,
-       "cyl_tw_r_step": 298, "cyl_tw_step": 590, "cyl_tw_ends": 85,
-       "cyl_tw_launch": 99, "cyl_tw_b0_step": 425, "cyl_tw_b0_ends": 75,
-       "kve_cf2": 491, "kve_series": 22, "kve_term": 5}
+       "cyl_tw_r_step": 298, "cyl_tw_step": 590, "cyl_tw_ends": 84,
+       "cyl_tw_launch": 99, "cyl_tw_b0_step": 425, "cyl_tw_b0_ends": 74,
+       "kve_cf2": 491, "kve_series": 22, "kve_term": 5,
+       "slab_ext_step": 30, "slab_ext_renorm": 4, "slab_ext_ends": 7,
+       "cyl_ext_step": 46, "cyl_ext_ends": 9,
+       "slab_exact_ext": 2, "cyl_exact_ext": 3}
 # NVIDIA H100 SXM data sheet, outside the tensor cores, at 700 W; HBM3 rate
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 HBM_BYTES_S = 3.35e12
@@ -309,6 +384,22 @@ def cyl_ops(n: int, n_evals: int, n_interior: int, n_axis_log: int,
             + n_evals * kve_ops(z_ext)
             + n_interior * OPS["cyl_r_step"]
             + n_axis_log * OPS["cyl_log_r_step"])
+
+
+def ext_ops(case, n: int, n_evals: int) -> int:
+    """Operations of the numeric exterior of n_evals evaluations of each of
+    n candidates: n_exterior steps (the slab's rescaled every 64th), the
+    set-up and the end, less the exact exterior's operations that the
+    chain's "*_ends" count."""
+    n_ext = case.grid.n_exterior
+    if case.geometry.value == "slab":
+        per = (n_ext * OPS["slab_ext_step"]
+               + n_ext // 64 * OPS["slab_ext_renorm"] + OPS["slab_ext_ends"])
+    else:
+        per = n_ext * OPS["cyl_ext_step"] + OPS["cyl_ext_ends"]
+    exact = OPS["slab_exact_ext" if case.geometry.value == "slab"
+                else "cyl_exact_ext"]
+    return n * n_evals * (per - exact)
 
 
 def cyl_tw_ops(case, n: int, n_evals: int, z_ext) -> int:
@@ -601,10 +692,12 @@ def ptxas_report(kernel: str, form: dict = SLAB_FORMS) -> dict:
             continue
         if name is None:
             continue
-        # kernel<T, [bool form,] int threads>
-        t = re.search(kernel + r"I([fd])(?:Lb([01])E)?Li(\d+)E", name)
+        # kernel<T, [bool form,] int threads, bool numeric exterior>
+        t = re.search(kernel + r"I([fd])(?:Lb([01])E)?Li(\d+)ELb([01])E",
+                      name)
         key = (f"{'float32' if t.group(1) == 'f' else 'float64'}"
-               f"{form[t.group(2)]} {t.group(3)}" if t else name)
+               f"{form[t.group(2)]} {t.group(3)}"
+               f"{' numeric' if t.group(4) == '1' else ''}" if t else name)
         # the entry's own line comes first; later ones are its callees'
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m and "spill_stores" not in out.get(key, {}):
@@ -934,25 +1027,21 @@ def phase_slab_sweep(out: dict):
     return launches
 
 
-def sweep_brackets(case, dtype):
-    """The brackets of the case's bracket stage (n_omega=256, 8 per row,
-    the case's modes, scan in `dtype` on the card), as CUDA tensors (lo,
-    hi, k, mode)."""
-    import torch
+def sweep_brackets(case, dtype, cfg=None):
+    """The brackets of the case's bracket stage, as CUDA tensors (lo, hi, k,
+    mode): the scan in `dtype` on the card over the case's modes, cfg's
+    continuum mask and pole pre-filter, find_brackets (cfg default:
+    n_omega=256, 8 per row, no mask)."""
     from eigensolver_tpu_torch import search, sweep
-    omegas, ks = sweep.build_ladders(case, 256)
-    rows = omegas.shape[0]
-    n_modes = len(case.modes)
-
-    def dev(a):
-        return torch.from_numpy(a).to(device="cuda", dtype=dtype)
-
-    om = dev(np.concatenate([omegas] * n_modes))
-    kk = dev(np.concatenate([ks] * n_modes))
-    md = dev(np.repeat([float(m) for m in case.modes], rows))
+    cfg = cfg or search.SearchConfig(n_omega=256, max_brackets_per_row=8)
+    om, kk, md = ladder_rows(case, cfg.n_omega, dtype)
     disp = sweep.make_dispersion_moded(case, dtype)
     det, valid, mism = search.ladder_scan(disp, om, kk, md)
-    br = search.find_brackets(om, kk, det, valid, 8, md, mism=mism)
+    if cfg.exclude_v_ranges:
+        det = search.mask_v_ranges(om, kk, det, cfg.exclude_v_ranges)
+    br = search.find_brackets(om, kk, det, valid, cfg.max_brackets_per_row,
+                              md, pole_det_factor=cfg.pole_det_factor,
+                              mism=mism)
     return [x.contiguous() for x in (br.lo, br.hi, br.k, br.mode)]
 
 
@@ -1221,13 +1310,14 @@ def twisted_ptxas() -> dict:
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            t = re.search(r"tw_scan_kernelI([fd])E", m.group(1))
-            f = re.search(r"spec_kernelINS_7TwModelI([fd])EELi(\d+)E",
+            t = re.search(r"tw_scan_kernelI([fd])Lb([01])E", m.group(1))
+            f = re.search(r"spec_kernelINS_7TwModelI([fd])Lb([01])EELi(\d+)E",
                           m.group(1))
+            num = {"0": "", "1": " numeric"}
             key = (f"scan {'float32' if t.group(1) == 'f' else 'float64'}"
-                   if t else
+                   f"{num[t.group(2)]}" if t else
                    f"fused {'float32' if f.group(1) == 'f' else 'float64'} "
-                   f"x{f.group(2)}" if f else None)
+                   f"x{f.group(3)}{num[f.group(2)]}" if f else None)
             continue
         if key is None:
             continue
@@ -1436,6 +1526,529 @@ def phase_twisted_levels(out: dict):
     line("phase 12 twisted cylinder_bisect levels", **res)
 
 
+def parity_config(name: str, dtype: str, k_stride: int = 1):
+    """(case, SearchConfig, refine_f64) of a reference-parity target
+    (tools_torch/parity.py) with the port's modules."""
+    from eigensolver_tpu_torch import cases, equilibrium, search
+    from tools_torch import parity
+    return parity.configure(name, cases, search.SearchConfig,
+                            equilibrium.genuine_continua, dtype, k_stride)
+
+
+def with_numeric(case, wavelengths: float, **grid):
+    """The case with the numeric exterior of `wavelengths`."""
+    return dataclasses.replace(case, grid=dataclasses.replace(
+        case.grid, exterior_method="numeric",
+        exterior_wavelengths=wavelengths, **grid))
+
+
+def _physics(case):
+    """(kernel, plain) moded dispersions of the case, by dtype."""
+    from eigensolver_tpu_torch.physics.cylinder import CylinderPhysics
+    from eigensolver_tpu_torch.physics.slab import SlabPhysics
+    if case.geometry.value == "slab":
+        ph = SlabPhysics.from_case(case)
+        return (lambda dt: ph.make_dispersion(parity=None, dtype=dt),
+                lambda dt: ph.make_dispersion_plain(parity=None, dtype=dt))
+    ph = CylinderPhysics.from_case(case)
+    return (lambda dt: ph.make_dispersion(m=None, dtype=dt),
+            lambda dt: ph.make_dispersion_plain(m=None, dtype=dt))
+
+
+def ladder_rows(case, n_omega: int, dtype):
+    """The sweep's ladder as run_case builds it: (rows, n_omega) omegas and
+    the (rows,) k and mode columns, every mode's rows in turn, on the
+    card."""
+    import torch
+    from eigensolver_tpu_torch import sweep
+    om, ks = sweep.build_ladders(case, n_omega)
+    n_modes = len(case.modes)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            device="cuda", dtype=dtype)
+
+    return (dev(np.concatenate([om] * n_modes)),
+            dev(np.concatenate([ks] * n_modes)),
+            dev(np.repeat([float(m) for m in case.modes], om.shape[0])))
+
+
+def flat_ladder(case, n_omega: int, dtype):
+    """The sweep's scan candidates (omega, k, mode), in ladder order."""
+    om, kk, md = ladder_rows(case, n_omega, dtype)
+    n = om.shape[1]
+    return [om.reshape(-1).contiguous(), kk.repeat_interleave(n),
+            md.repeat_interleave(n)]
+
+
+def numeric_ops(case, n: int, n_evals: int) -> int:
+    """Operations of n_evals evaluations of each of n candidates of the
+    case's chain with its numeric exterior (no K_m ratio)."""
+    import torch
+    from eigensolver_tpu_torch.physics.slab import SlabPhysics
+    g = case.grid
+    none = torch.zeros(0)
+    if case.geometry.value == "slab":
+        chain = slab_ops(n, n_evals, g.n_interior,
+                         shear=SlabPhysics.from_case(case).has_flow)
+    elif case.twist_profile is not None:
+        chain = cyl_tw_ops(case, n, n_evals, none)
+    else:
+        chain = cyl_ops(n, n_evals, g.n_interior, g.n_axis_log, none)
+    return chain + ext_ops(case, n, n_evals)
+
+
+def _timed_plain(plain, args):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = plain(*args)
+    torch.cuda.synchronize()
+    return res, 1e3 * (time.perf_counter() - t0)
+
+
+def _numeric_scan(what: str, case, args, plain_too: bool):
+    """The scan with the numeric exterior on the candidates args: its time
+    and bound; with plain_too the plain version's time and bits on the
+    same candidates. Returns (report, the plain version's result or
+    None)."""
+    kern, plain = _physics(case)
+    dtype = args[0].dtype
+    dname = str(dtype).split(".")[-1]
+    n = args[0].numel()
+    disp = kern(dtype)
+    r = dict(n=n, ms=cuda_ms(lambda: disp(*args), 3),
+             **bound(numeric_ops(case, n, 1),
+                     n * (5 * args[0].element_size() + 1), dname))
+    pres = None
+    if plain_too:
+        kres = disp(*args)
+        pres, r["plain_ms"] = _timed_plain(plain(dtype), args)
+        r["check"] = _compare_disp(what, kres, pres, f64=dname == "float64",
+                                   bits=True)
+    return r, pres
+
+
+def _numeric_bisect(what: str, case, br, plain_n_iter, n_iter=N_BISECT,
+                    final_eval=True, shape=None) -> dict:
+    """The fused bisection with the numeric exterior on the brackets br:
+    bit-equal to the loop of one-thread launches at n_iter, and with
+    plain_n_iter (None: not run) to the loop over the plain dispersion;
+    timed, with its bound (the evaluations the loop needs)."""
+    import torch
+    from eigensolver_tpu_torch import search
+    from eigensolver_tpu_torch.kernels import cylinder as kcyl, slab as kslab
+    kern, plain = _physics(case)
+    dtype = br[0].dtype
+    dname = str(dtype).split(".")[-1]
+    n = br[0].numel()
+    disp = kern(dtype)
+    if shape is None:
+        def fused(k):
+            return disp.bisect(*br, k, final_eval)
+    else:
+        kmod = kslab if case.geometry.value == "slab" else kcyl
+        fn = getattr(kmod, f"{case.geometry.value}_bisect")
+        params = kmod.disp_params(case)
+
+        def fused(k):
+            return fn(*br, k, params, final_eval, shape=shape)
+    got = fused(n_iter)
+    loop = search.bisect_loop(disp, *br, n_iter, final_eval)
+    torch.cuda.synchronize()
+    differ = [int((~_same_bits(a.cpu().numpy(), b.cpu().numpy())).sum())
+              for a, b in zip(got, loop) if a is not None]
+    if any(differ):
+        raise AssertionError(f"{what}: {differ} (root, mismatch) values "
+                             f"differ from the launch loop")
+    evals = int(n_iter > 0) + n_iter + int(final_eval)
+    r = dict(n=n, n_iter=n_iter, ms=cuda_ms(lambda: fused(n_iter), 3),
+             loop_ms=cuda_ms(lambda: search.bisect_loop(
+                 disp, *br, n_iter, final_eval), 1),
+             **bound(numeric_ops(case, n, evals),
+                     n * 6 * br[0].element_size(), dname))
+    if plain_n_iter is not None:
+        got = fused(plain_n_iter)
+        want, r["plain_ms"] = _timed_plain(
+            lambda *a: search.bisect_loop(plain(dtype), *a, plain_n_iter,
+                                          final_eval), br)
+        r["plain_n_iter"] = plain_n_iter
+        r["ms_plain_n_iter"] = cuda_ms(lambda: fused(plain_n_iter), 3)
+        a, b = got[0].cpu().numpy(), want[0].cpu().numpy()
+        r["max_abs_err_vs_plain"] = float(np.nanmax(np.abs(a - b)))
+        differ = [int((~_same_bits(x.cpu().numpy(), y.cpu().numpy())).sum())
+                  for x, y in zip(got, want) if x is not None]
+        if any(differ):
+            raise AssertionError(f"{what}: {differ} values differ from the "
+                                 f"plain loop")
+    return r
+
+
+def entry_bytes(case, dtype) -> int:
+    """Bytes of an x-only (slab) or r-only (cylinder) table entry of the
+    case's chain at dtype, as its kernels lay it out."""
+    from eigensolver_tpu_torch.kernels import cylinder as kcyl, slab as kslab
+    if case.geometry.value == "slab":
+        shear = bool(kslab.disp_params(case).struct.shear)
+        return kslab._ENTRY_BYTES[(shear, dtype)]
+    twisted = bool(kcyl.disp_params(case).struct.twisted)
+    return kcyl._ENTRY_BYTES[dtype, twisted]
+
+
+def twisted_numeric_case():
+    """twist_v01_p1 with the numeric exterior at 3 wavelengths, at a
+    reduced depth (n_interior=384): no shipped target pairs the twisted
+    chain with the numeric exterior."""
+    return with_numeric(twisted_cases()["twist_v01_p1"], 3.0,
+                        n_interior=384)
+
+
+def phase_numeric_kernels(out: dict):
+    """Phase 13: the kernels with the numeric exterior (B6) against their
+    plain versions, bit for bit, at float32 and float64."""
+    import torch
+    from eigensolver_tpu_torch import cases, search
+    from eigensolver_tpu_torch.kernels import common, cylinder as kcyl
+    f32, f64 = torch.float32, torch.float64
+    slab, slab_cfg, _ = parity_config("slab_ph_09", "float32")
+    shear = with_numeric(cases.slab_flow_gaussian_coronal(), 3.0)
+    cyl, cyl_cfg, _ = parity_config("cyl_flow_1", "float32")
+    res = {}
+    # ragged batches of ladder draws, both types, kernel vs plain bits
+    for name, case in (("slab_disp flux", slab), ("slab_disp shear", shear),
+                       ("cylinder_disp", cyl)):
+        cand = _ladder_candidates(case, N_RAGGED, seed=13)
+        for dtype in (f64, f32):
+            dname = str(dtype).split(".")[-1]
+            res[f"{name} {N_RAGGED} {dname}"] = _numeric_scan(
+                f"{name} numeric {dname}", case,
+                [x.to(dtype) for x in cand], plain_too=True)[0]
+    # the parity sweeps' whole scans in ladder order, and the plain
+    # version on the same candidates
+    for name, case, cfg in (("slab_disp", slab, slab_cfg),
+                            ("cylinder_disp", cyl, cyl_cfg)):
+        for dtype in (f32, f64):
+            dname = str(dtype).split(".")[-1]
+            res[f"{name} full {dname}"] = _numeric_scan(
+                f"{name} numeric full {dname}", case,
+                flat_ladder(case, cfg.n_omega, dtype), plain_too=True)[0]
+    # the fused bisections (the speculative kernel over the scans' tables)
+    # on the parity sweeps' own brackets, against the launch loop at
+    # N_BISECT and the plain loop at NUM_PLAIN_N_ITER; on their first 600
+    # (a refine-sized batch) at the speculative default L against the loop
+    for name, case, cfg in (("slab_bisect", slab, slab_cfg),
+                            ("cylinder_bisect", cyl, cyl_cfg)):
+        for dtype in (f32, f64):
+            dname = str(dtype).split(".")[-1]
+            br = sweep_brackets(case, dtype, cfg)
+            res[f"{name} {dname}"] = _numeric_bisect(
+                f"{name} numeric {dname}", case, br,
+                NUM_PLAIN_N_ITER)
+            shape = common.numeric_spec_shape(600, dtype,
+                                              entry_bytes(case, dtype))
+            res[f"{name} 600 L{shape.levels} {dname}"] = _numeric_bisect(
+                f"{name} numeric 600 L{shape.levels} {dname}", case,
+                [x[:600].contiguous() for x in br], None, shape=shape)
+    # the twisted kernels at a reduced size: the small-batch path and the
+    # scan on a ragged batch, the speculative bisection at L = 0 and at its
+    # default L on 600 brackets of the ladder (n_omega=64)
+    tw = twisted_numeric_case()
+    params = kcyl.disp_params(tw)
+    cand = _ladder_candidates(tw, N_RAGGED, seed=14)
+    cand[2] = torch.ones_like(cand[2])
+    for dtype in (f64, f32):
+        dname = str(dtype).split(".")[-1]
+        args = [x.to(dtype) for x in cand]
+        r, pres = _numeric_scan(f"twisted numeric {dname}", tw, args, True)
+        scan = kcyl.TW_SCAN_SHAPE[dtype]
+        r["scan_check"] = _compare_disp(
+            f"twisted numeric scan {dname}",
+            kcyl.cylinder_disp(*args, params, shape=scan), pres,
+            f64=dtype == f64, bits=True)
+        r["scan_ms"] = cuda_ms(lambda: kcyl.cylinder_disp(
+            *args, params, shape=scan), 3)
+        res[f"cylinder_disp twisted {dname}"] = r
+        br = [x[:600].contiguous() for x in sweep_brackets(
+            tw, dtype, search.SearchConfig(n_omega=64,
+                                           max_brackets_per_row=8))]
+        eb = kcyl._ENTRY_BYTES[dtype, True]
+        for lv in (0, None):
+            shape = common.spec_shape(600, dtype, eb, levels=lv)
+            plain_n = NUM_PLAIN_N_ITER if lv is None else None
+            res[f"cylinder_bisect twisted L{shape.levels} {dname}"] = \
+                _numeric_bisect(f"twisted cylinder_bisect numeric "
+                                f"L{shape.levels} {dname}", tw, br, plain_n,
+                                shape=shape)
+    res["ptxas"] = {**{f"slab_disp {k}": v for k, v in ptxas_report(
+        "slab_disp_kernel").items() if "numeric" in k},
+                    **{f"cylinder_disp {k}": v for k, v in ptxas_report(
+                        "cylinder_disp_kernel", CYL_FORMS).items()
+                       if "numeric" in k}}
+    out["numeric_kernels"] = res
+    line("phase 13 numeric exteriors vs plain", **res)
+
+
+def _timed_runs(case, cfg, refine: bool, want_launches: dict, what: str,
+                runs: int = 3):
+    """runs timed sweeps (after the caller's first), each with want's
+    launches; (walls, stage medians, counts)."""
+    from eigensolver_tpu_torch import sweep
+    from eigensolver_tpu_torch.utils import StageTimer
+    walls, stages, counts = [], [], []
+    for _ in range(runs):
+        before = read_counters()
+        timer = StageTimer()
+        rs, st = sweep.run_case(case, cfg, device="cuda", refine_f64=refine,
+                                timer=timer)
+        check_launches(what, counts_since(before), want_launches)
+        walls.append(st.wall_s)
+        stages.append(timer.report())
+        counts.append(rs.counts())
+    if any(c != counts[0] for c in counts):
+        raise AssertionError(f"{what}: counts differ between runs: {counts}")
+    return walls, {k: statistics.median(s[k] for s in stages)
+                   for k in stages[0]}, counts[0]
+
+
+def phase_parity(out: dict):
+    """Phase 14: the reference-parity sweeps (tools_torch/parity.py) on the
+    card, each path with the counters reset just before it: slab_ph_09 and
+    cyl_flow_1 at float32 refined in float64 (5 launches: scan, bracket
+    stage, f64 windows, f64 bisection, the f64 evaluation that re-judges
+    acceptance at the refined roots) and at float64 (2), the slab_ph_3
+    needle pass (2) and its merge with the float64 main sweep. Walls:
+    median of 3 after the counted run; counts per branch held against the
+    JAX package's (cyl_flow_1's at full width at float64, and at both
+    types on its k subset, every 9th k)."""
+    from eigensolver_tpu_torch import roots, sweep
+    import warnings
+    warnings.simplefilter("ignore")     # saturated-row notices, as expected
+    res, paths = {}, {}
+    for name, disp, bis in (("slab_ph_09", "slab_disp", "slab_bisect"),
+                            ("cyl_flow_1", "cylinder_disp",
+                             "cylinder_bisect")):
+        for dtype in ("float32", "float64"):
+            case, cfg, refine = parity_config(name, dtype)
+            # refined: + the f64 windows and their bisection, + the
+            # re-judging evaluation at the refined roots
+            # (accept_pct_refined, finalize_branches)
+            want = {disp: 3 if refine else 1, bis: 2 if refine else 1}
+            reset_counters()
+            rs, st = sweep.run_case(case, cfg, device="cuda",
+                                    refine_f64=refine)
+            launches = read_counters()
+            check_launches(f"{name} {dtype} parity path", launches, want)
+            _check_roots(rs, case)
+            paths[f"{name} {dtype}"] = launches
+            walls, stages, counts = _timed_runs(case, cfg, refine, want,
+                                                f"{name} {dtype} parity")
+            if counts != rs.counts():
+                raise AssertionError(f"{name} {dtype}: counts {counts} "
+                                     f"against the first run's "
+                                     f"{rs.counts()}")
+            r = dict(candidates=st.n_candidates, counts=counts,
+                     launches=launches, wall_s=walls,
+                     median_wall_s=statistics.median(walls),
+                     candidates_per_s=st.n_candidates
+                     / statistics.median(walls), stages_median_s=stages)
+            if f"{name} {dtype}" in PARITY_COUNTS:
+                r["minus_refs"] = _check_counts(
+                    f"{name} {dtype} parity", counts,
+                    PARITY_COUNTS[f"{name} {dtype}"])
+            if name == "cyl_flow_1":
+                sub, scfg, _ = parity_config(name, dtype, CYL_PAR_K_STRIDE)
+                srs, sst = sweep.run_case(sub, scfg, device="cuda",
+                                          refine_f64=refine)
+                r["k_subset"] = dict(
+                    n_k=len(sub.k_grid()), candidates=sst.n_candidates,
+                    counts=srs.counts(), minus_refs=_check_counts(
+                        f"cyl_flow_1/9 {dtype} parity", srs.counts(),
+                        PARITY_COUNTS[f"cyl_flow_1/9 {dtype}"]))
+            res[f"{name} {dtype}"] = r
+    # the needle target: its float64 main sweep, the needle pass, the merge
+    from tools_torch import parity
+    case, cfg, _ = parity_config("slab_ph_3", "float64")
+    main, _ = sweep.run_case(case, cfg, device="cuda")
+    edges = parity.needle_edges("slab_ph_3", case, sweep.needle_edges)
+    modes = parity.TARGETS["slab_ph_3"]["needle"]["modes"]
+    want = {"slab_disp": 1, "slab_bisect": 1}
+    reset_counters()
+    ndl, nst = sweep.run_needle_pass(case, edges=edges, modes=modes,
+                                     device="cuda")
+    launches = read_counters()
+    check_launches("needle path", launches, want)
+    paths["slab_ph_3 needle"] = launches
+    if nst.n_candidates != N_NEEDLE:
+        raise AssertionError(f"needle pass: {nst.n_candidates} candidates")
+    walls = []
+    for _ in range(3):
+        before = read_counters()
+        again, ast = sweep.run_needle_pass(case, edges=edges, modes=modes,
+                                           device="cuda")
+        check_launches("timed needle pass", counts_since(before), want)
+        if again.counts() != ndl.counts():
+            raise AssertionError("needle counts differ between runs")
+        walls.append(ast.wall_s)
+    merged = roots.merge_rootsets(main, ndl)
+    res["slab_ph_3 needle"] = dict(
+        candidates=nst.n_candidates, edges=len(edges), launches=launches,
+        wall_s=walls, median_wall_s=statistics.median(walls),
+        main_counts=main.counts(), needle_counts=ndl.counts(),
+        merged_counts=merged.counts(),
+        minus_refs={**_check_counts("slab_ph_3 float64", main.counts(),
+                                    PARITY_COUNTS["slab_ph_3 float64"]),
+                    **{f"needle_{k}": v for k, v in _check_counts(
+                        "slab_ph_3 needle", ndl.counts(),
+                        PARITY_COUNTS["slab_ph_3 needle"]).items()},
+                    **{f"merged_{k}": v for k, v in _check_counts(
+                        "slab_ph_3 merged", merged.counts(),
+                        PARITY_COUNTS["slab_ph_3 merged"]).items()}})
+    out["parity"] = res
+    line("phase 14 reference-parity sweeps", **res)
+    return paths
+
+
+def _sign_roots(disp, w, k: float, m: float):
+    """Linearly interpolated sign changes of disp along omega = w k at one
+    (k, m) (tests/test_special.py:101-132), on the card in float64."""
+    import torch
+    from eigensolver_tpu_torch import search
+    om = torch.from_numpy(w * k)[None, :].cuda()
+    kk = torch.tensor([k], dtype=torch.float64, device="cuda")
+    md = torch.tensor([m], dtype=torch.float64, device="cuda")
+    det, valid, _ = search.ladder_scan(disp, om, kk, md)
+    d, v = det[0].cpu().numpy(), valid[0].cpu().numpy()
+    s = np.sign(d)
+    i = np.nonzero((s[:-1] * s[1:] < 0) & v[:-1] & v[1:])[0]
+    return w[i] - d[i] * (w[i + 1] - w[i]) / (d[i + 1] - d[i])
+
+
+def phase_oracles(out: dict):
+    """Phases 15 and 16, at the full grid on the card: the Bessel/numeric
+    oracle (cylinder_density_coronal(1e5), k = 1, 801 points on v in
+    [2, 4], m = 1: the roots under the K_m ratio and the numeric exterior
+    agree to rtol 1e-6) and the needle oracle (tests/test_needle.py:61-87:
+    the needle pass at one k finds each reference entry within 3e-3)."""
+    import torch
+    from eigensolver_tpu_torch import cases, sweep
+    case_b = cases.cylinder_density_coronal(width=1e5)
+    case_n = with_numeric(case_b, case_b.grid.exterior_wavelengths)
+    w = np.linspace(2.0, 4.0, 801)
+    rb, rn = (_sign_roots(sweep.make_dispersion_moded(c, torch.float64), w,
+                          1.0, 1.0) for c in (case_b, case_n))
+    if not len(rb) == len(rn) > 0:
+        raise AssertionError(f"Bessel/numeric oracle: {len(rb)} against "
+                             f"{len(rn)} roots")
+    rel = float(np.max(np.abs(rn / rb - 1)))
+    if not rel <= 1e-6:
+        raise AssertionError(f"Bessel/numeric oracle: roots differ by {rel}")
+    out["bessel_numeric_oracle"] = dict(roots=len(rb), max_rel_diff=rel,
+                                        roots_bessel=rb.tolist())
+    line("phase 15 Bessel/numeric oracle", **out["bessel_numeric_oracle"])
+    res = {}
+    for fac, width, k, om_ref in NEEDLE_ORACLE:
+        case = with_numeric(getattr(cases, fac)(width=width), 7.0)
+        edges = tuple(e for e in sweep.needle_edges(case) if e[0] > 0)
+        rs, _ = sweep.run_needle_pass(case, modes=(0,), ks=[k], edges=edges,
+                                      device="cuda")
+        om = rs["sausage"].omegas
+        rel = float(np.min(np.abs(om - om_ref) / om_ref)) if len(om) else 1.0
+        if not rel < 3e-3:
+            raise AssertionError(f"needle oracle {fac}({width}) k={k}: "
+                                 f"nearest {rel:.2e} from {om_ref}")
+        res[f"{fac}({width}) k={k}"] = dict(roots=om.tolist(), want=om_ref,
+                                            min_rel=rel)
+    out["needle_oracle"] = res
+    line("phase 16 needle oracle", **res)
+
+
+
+def phase_twisted_numeric_path() -> dict:
+    """The twisted chain's numeric-exterior variant on a path of its own
+    (no shipped target pairs the two): a reduced float32 sweep of
+    twisted_numeric_case() (k in {0.8, 1.4, 2.0}, n_omega=64, n_bisect=18)
+    with the counters reset just before it; its launches, one scan (the
+    small-batch path at this size) and one fused bisection."""
+    from eigensolver_tpu_torch import search, sweep
+    case = dataclasses.replace(twisted_numeric_case(),
+                               k_values=(0.8, 1.4, 2.0))
+    cfg = search.SearchConfig(n_omega=64, n_bisect=18, scan_dtype="float32",
+                              polish_dtype="float32")
+    reset_counters()
+    rs, _ = sweep.run_case(case, cfg, device="cuda")
+    launches = read_counters()
+    check_launches("twisted numeric path", launches,
+                   {"cylinder_disp": 1, "cylinder_disp_small": 1,
+                    "cylinder_bisect": 1})
+    _check_roots(rs, case)
+    line("phase 13 twisted numeric path", counts=rs.counts(),
+         launches=launches)
+    return launches
+
+
+def numeric_kernel_entries(res: dict, par: dict, tw: dict) -> list:
+    """The kernels JSON entries of the numeric-exterior variants (phase
+    13's times and checks at float32, the launches of their paths in
+    phases 13-14; the bisections' sources are slab_disp.cu and
+    cylinder_disp.cu over bisect.cuh::spec_kernel)."""
+    def entry(name, source, replaces, launches, r, check, **extra):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches, "n": r["n"],
+                "max_abs_err": check, "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": None, **extra}
+
+    slab_path = par["slab_ph_09 float32"]
+    cyl_path = par["cyl_flow_1 float32"]
+    sd, cd = res["slab_disp full float32"], res["cylinder_disp full float32"]
+    sb, cb = res["slab_bisect float32"], res["cylinder_bisect float32"]
+    td = res["cylinder_disp twisted float32"]
+    tb = [v for k, v in res.items()
+          if k.startswith("cylinder_bisect twisted")
+          and k.endswith("float32") and "plain_ms" in v][0]
+    src = "eigensolver_tpu_torch/csrc/"
+    return [
+        # the slab's numeric exterior (ode.py::rk4_final_renorm, called at
+        # physics/slab.py:362) in slab_disp, on slab_ph_09's parity scan;
+        # launches on its f32 refined path (scan + refine windows)
+        entry("slab_disp_numeric", src + "slab_disp.cu",
+              "eigensolver_tpu/ode.py:75", slab_path["slab_disp"], sd,
+              sd["check"]["max_abs_err_det"],
+              float64_ms=res["slab_disp full float64"]["ms"],
+              float64_bound_ms=res["slab_disp full float64"]["bound_ms"],
+              needle_path_launches=par["slab_ph_3 needle"]["slab_disp"]),
+        entry("slab_bisect_numeric", src + "slab_disp.cu",
+              "eigensolver_tpu/ode.py:75", slab_path["slab_bisect"], sb,
+              sb["max_abs_err_vs_plain"], plain_n_iter=sb["plain_n_iter"],
+              ms_plain_n_iter=sb["ms_plain_n_iter"],
+              launch_loop_ms=sb["loop_ms"],
+              float64_ms=res["slab_bisect float64"]["ms"],
+              needle_path_launches=par["slab_ph_3 needle"]["slab_bisect"]),
+        # the cylinder's (ode.py::rk4_final, called at physics/cylinder.py:
+        # 319) in cylinder_disp, on cyl_flow_1's parity scan
+        entry("cylinder_disp_numeric", src + "cylinder_disp.cu",
+              "eigensolver_tpu/ode.py:22", cyl_path["cylinder_disp"], cd,
+              cd["check"]["max_abs_err_det"],
+              float64_ms=res["cylinder_disp full float64"]["ms"],
+              float64_bound_ms=res["cylinder_disp full float64"]["bound_ms"]),
+        entry("cylinder_bisect_numeric", src + "cylinder_disp.cu",
+              "eigensolver_tpu/ode.py:22", cyl_path["cylinder_bisect"], cb,
+              cb["max_abs_err_vs_plain"], plain_n_iter=cb["plain_n_iter"],
+              ms_plain_n_iter=cb["ms_plain_n_iter"],
+              launch_loop_ms=cb["loop_ms"],
+              float64_ms=res["cylinder_bisect float64"]["ms"]),
+        # the twisted chain's, reduced (n_interior=384, 8,191 candidates,
+        # 600 brackets): launches on its own reduced path
+        entry("cylinder_disp_twisted_numeric", src + "cylinder_twisted.cu",
+              "eigensolver_tpu/ode.py:22", tw["cylinder_disp"], td,
+              td["check"]["max_abs_err_det"], scan_ms=td["scan_ms"]),
+        entry("cylinder_bisect_twisted_numeric", src + "cylinder_twisted.cu",
+              "eigensolver_tpu/ode.py:22", tw["cylinder_bisect"], tb,
+              tb["max_abs_err_vs_plain"], plain_n_iter=tb["plain_n_iter"],
+              launch_loop_ms=tb["loop_ms"]),
+    ]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json-out", help="also write the full report here")
@@ -1489,6 +2102,10 @@ def main() -> int:
                  key="twisted_bisect", plain_n_iter=TWIST_PLAIN_N_ITER,
                  loop_small=True)
     phase_twisted_levels(out)
+    phase_numeric_kernels(out)
+    tw_num_launches = phase_twisted_numeric_path()
+    par_launches = phase_parity(out)
+    phase_oracles(out)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
@@ -1669,6 +2286,8 @@ def main() -> int:
         "bound_by": sbis["bound_by"],
         "library_ms": None,
     }]
+    kernels += numeric_kernel_entries(out["numeric_kernels"], par_launches,
+                                      tw_num_launches)
     if args.json_out:
         Path(args.json_out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json_out).write_text(json.dumps(out, indent=1, default=float))

@@ -243,8 +243,9 @@ int launch_bisect(const void* lo, const void* hi, const void* k,
 }
 
 // Speculative mode, for a Model whose producers read an r-only table entry
-// (Model::Entry, Model::entry(i, a), Model::coef(entry, omega, k, mode, c0,
-// c1), and finish(..., det, mismatch, valid)): the twisted chain.
+// (Model::Entry, Model::entry(i, a), Model::coef(i, entry, omega, k, mode,
+// c0, c1) at step i, and finish(..., det, mismatch, valid)): the twisted
+// chain, and the slab and cylinder chains with the numeric exterior.
 //
 // The next L levels of a bisection have 2^L - 1 possible midpoints, each
 // formed from (lo, hi) as the loop forms it (mid = 0.5 (lo + hi) along the
@@ -434,7 +435,7 @@ spec_kernel(const typename Model::T* __restrict__ lo_,
           T v[6];
 #pragma unroll
           for (int a = 0; a < 3; ++a) {
-            m.coef(tb[3 * c + a], om, k, md, v[2 * a], v[2 * a + 1]);
+            m.coef(i0 + c, tb[3 * c + a], om, k, md, v[2 * a], v[2 * a + 1]);
           }
           T* dst = st + c * 6 * NC;
 #pragma unroll

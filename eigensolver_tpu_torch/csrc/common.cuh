@@ -235,4 +235,74 @@ __device__ __forceinline__ T nan_max(T a, T b) {
   return a > b ? a : b;
 }
 
+// The numeric exteriors (exterior_method="numeric"): port of
+// `eigensolver_tpu/ode.py::rk4_final_renorm` (:75-110) and `rk4_final`
+// (:22-47) as `physics/slab.py:362-381` and `physics/cylinder.py:319-351`
+// call them, in the operation order of the plain version
+// (eigensolver_tpu_torch/ode.py). Each depends on the candidate alone
+// (m_e, k, m), so a thread integrates its own n steps in registers, after
+// its interior shoot; no table. The span of the exterior, W 2 pi, is formed
+// in double as the Python code forms it and rounded to T before it is
+// divided by k. Every division stays a division (the renormalisation
+// divides by its scale), and each stage takes its own exp: x0 + (i + 1) h
+// is not bitwise (x0 + i h) + h.
+constexpr double kPi = 3.141592653589793;
+// rk4_final_renorm's `every`: the state is rescaled after each 64th step
+constexpr int kRenormEvery = 64;
+
+// vx'/vx at x = 1 of the slab exterior: n RK4 steps of (vx, vx')' =
+// (vx', m_e vx) from x = 1 + W 2 pi / k down to 1, from (1e-8, -1e-15), the
+// state divided by max(|vx|, |vx'|) (NaN-propagating; 1 where it is 0 or
+// NaN) after every kRenormEvery-th step
+template <class T>
+__device__ __forceinline__ T slab_exterior(T m_e, T k, double wavelengths,
+                                           int n) {
+  const T x0 = T(1) + T(wavelengths * 2.0 * kPi) / k;
+  T h, hh, h6;
+  rk4_spacing(x0, T(1), n, h, hh, h6);
+  T y0 = T(1e-8), y1 = T(-1e-15);
+  for (int i = 0; i < n; ++i) {
+    const T k10 = y1, k11 = m_e * y0;
+    const T k20 = y1 + hh * k11, k21 = m_e * (y0 + hh * k10);
+    const T k30 = y1 + hh * k21, k31 = m_e * (y0 + hh * k20);
+    const T k40 = y1 + h * k31, k41 = m_e * (y0 + h * k30);
+    y0 = y0 + h6 * (k10 + T(2) * k20 + T(2) * k30 + k40);
+    y1 = y1 + h6 * (k11 + T(2) * k21 + T(2) * k31 + k41);
+    if ((i + 1) % kRenormEvery == 0) {
+      T s = nan_max(fabs(y0), fabs(y1));
+      s = s > T(0) ? s : T(1);
+      y0 = y0 / s;
+      y1 = y1 / s;
+    }
+  }
+  return y1 / y0;
+}
+
+// dP/dr / P at r = 1 of the cylinder exterior: n RK4 steps in t = ln r of
+// (P, dP/dt)' = (dP/dt, (m^2 + m_e e^{2t}) P) from t = ln(W 2 pi / k) down
+// to 0, from (1e-8, -1e-8 r_far); no renormalisation
+template <class T>
+__device__ __forceinline__ T cyl_exterior(T m_e, T k, T m, double wavelengths,
+                                          int n) {
+  const T r_far = T(wavelengths * 2.0 * kPi) / k;
+  const T t0 = log(r_far);
+  T h, hh, h6;
+  rk4_spacing(t0, T(0), n, h, hh, h6);
+  const T mm = m * m;
+  T P = T(1e-8), D = T(-1e-8) * r_far;
+  for (int i = 0; i < n; ++i) {
+    const T x = t0 + T(i) * h;
+    const T gA = mm + m_e * exp(T(2) * x);
+    const T gM = mm + m_e * exp(T(2) * (x + hh));
+    const T gB = mm + m_e * exp(T(2) * (x + h));
+    const T k1P = D, k1D = gA * P;
+    const T k2P = D + hh * k1D, k2D = gM * (P + hh * k1P);
+    const T k3P = D + hh * k2D, k3D = gM * (P + hh * k2P);
+    const T k4P = D + h * k3D, k4D = gB * (P + h * k3P);
+    P = P + h6 * (k1P + T(2) * k2P + T(2) * k3P + k4P);
+    D = D + h6 * (k1D + T(2) * k2D + T(2) * k3D + k4D);
+  }
+  return D / P;
+}
+
 }  // namespace eigk

@@ -41,6 +41,10 @@ struct CylDispParams {
   double amp2;           // v_twist^2
   double pw2, pw2_m1;    // 2 p, 2 p - 1 (p the twist power)
   double B0_sq;          // B_0^2
+  // the numeric exterior (exterior_method="numeric"): W of its span
+  // W 2 pi / k, its RK4 steps; else the K_m ratio
+  double exterior_wavelengths;
+  int exterior_numeric, n_exterior;
 };
 
 // A candidate as the chain reads it, with the products of k and m that
@@ -102,10 +106,11 @@ struct Grid {
   }
 };
 
-// The axis condition, the interface values, the K_m exterior, det, the %
+// The axis condition, the interface values, the exterior, det, the %
 // mismatch and valid from the basis states at the axis (cylinder.py:
-// 352-385); xi1 = C1(1) / C3(1), J the kink's jump term
-template <class T>
+// 319-385); xi1 = C1(1) / C3(1), J the kink's jump term. The exterior is
+// the K_m ratio, or with kNum the numeric one (common.cuh::cyl_exterior).
+template <class T, bool kNum>
 __device__ __forceinline__ void finish(const CylDispParams& p, T omega, T k,
                                        T m, T xi1, T F1, T J_kink, T P1, T w1,
                                        T P2, T w2, T& det, T& mism,
@@ -121,16 +126,22 @@ __device__ __forceinline__ void finish(const CylDispParams& p, T omega, T k,
   // interface values: xi_r = C1 P / C3 + w / r
   const T xi2 = F1 / one;
 
-  // exterior: P_e = K_m(sqrt(m_e) r), logarithmic derivative at r = 1
   const T k2 = k * k;
   const T om2 = omega * omega;
   const T m_e = (k2 * T(p.vA_e2) - om2) * (k2 * T(p.c_e2) - om2)
               / (T(p.vAc_e2) * (k2 * T(p.cT_e2) - om2));
-  // jnp.maximum(m_e, 1e-300); the floor is 0 in float
-  const T sq = sqrt(nan_max(m_e, T(p.m_e_floor)));
-  T r0, r1;
-  kve_ratio_both(sq, r0, r1);
-  const T dP_e = sq * (is_sausage ? r0 : r1);
+  T dP_e;
+  if (kNum) {
+    // integrated inward from r_far: dP/dr(1) / P(1), P_e = 1
+    dP_e = cyl_exterior(m_e, k, m, p.exterior_wavelengths, p.n_exterior);
+  } else {
+    // P_e = K_m(sqrt(m_e) r), logarithmic derivative at r = 1;
+    // jnp.maximum(m_e, 1e-300), the floor 0 in float
+    const T sq = sqrt(nan_max(m_e, T(p.m_e_floor)));
+    T r0, r1;
+    kve_ratio_both(sq, r0, r1);
+    dP_e = sq * (is_sausage ? r0 : r1);
+  }
   const T P_e = one;
   const T xi_e = dP_e / (T(p.rho_e) * (om2 - k2 * T(p.vA_e2)));
 

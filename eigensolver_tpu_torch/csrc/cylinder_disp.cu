@@ -4,7 +4,13 @@
 // `eigensolver_tpu/physics/cylinder.py::CylinderPhysics.make_dispersion`
 // (cylinder.py:236-385) with the mode as a per-candidate column
 // (`eigensolver_tpu/sweep.py::make_dispersion_moded`), for the non-twisted,
-// real-omega cases with the analytic ("bessel") exterior. On the TPU the
+// real-omega cases, with the analytic ("bessel") exterior or, in a variant
+// built apart (kNum), the numeric one (`eigensolver_tpu/ode.py::rk4_final`
+// as `physics/cylinder.py:319-351` calls it, in t = ln r;
+// common.cuh::cyl_exterior: a thread integrates its candidate's own 512
+// exterior steps in registers after the interior, no table, the
+// bisection's consumer lane alike; the K_m ratio is then not computed).
+// The variant keeps the analytic kernels' code unchanged. On the TPU the
 // interior was an XLA-fused `lax.scan` and the exterior either fused XLA or
 // the Pallas kernel `kernels/bessel.py::kve_ratio_pallas`; here each
 // candidate's state stays in the registers of one thread:
@@ -59,7 +65,10 @@
 // on the ODE state, and runs the serial two-basis update in one consumer
 // lane per bracket, in this file's order (interface1, rk4_step2, finish),
 // so its (root, mismatch) are bit-equal to the launch loop's. Its
-// producers compute both parts of the chain per bracket.
+// producers compute both parts of the chain per bracket. With the numeric
+// exterior it runs on bisect.cuh::spec_kernel instead (SpecChain): the
+// producers compute the r-only entries of a stage once per block into a
+// table, as the scan does, and each bracket's chain from them.
 //
 // The twisted tubes (rotational flow v_phi, magnetic twist B_phi) have
 // kernels of their own (cylinder_twisted.cu), which this file's scan entries
@@ -203,9 +212,10 @@ __device__ __forceinline__ void run_chunk(const RPoint<T>* q, int count, T h,
 
 // The ladder scan: one thread per candidate, kThreads per block, the
 // r-only table in chunks of `chunk` steps (dynamic shared memory: 2 x 3
-// chunk entries). Threads past n evaluate a copy of the last candidate, so
-// that every thread reaches the block's barriers, and store nothing.
-template <class T, int kThreads>
+// chunk entries), the exterior the K_m ratio or, with kNum, the numeric
+// one. Threads past n evaluate a copy of the last candidate, so that every
+// thread reaches the block's barriers, and store nothing.
+template <class T, int kThreads, bool kNum>
 __global__ void __launch_bounds__(kThreads)
 cylinder_disp_kernel(const T* __restrict__ omega_, const T* __restrict__ k_,
                      const T* __restrict__ m_, T* __restrict__ det_,
@@ -249,8 +259,8 @@ cylinder_disp_kernel(const T* __restrict__ omega_, const T* __restrict__ k_,
   }
   T det, mism;
   bool valid;
-  finish(p, c.omega, c.k, c.m, zero_over(f.C3_1) + T(0), f.F1, T(0), P1, w1,
-         P2, w2, det, mism, valid);
+  finish<T, kNum>(p, c.omega, c.k, c.m, zero_over(f.C3_1) + T(0), f.F1, T(0),
+                  P1, w1, P2, w2, det, mism, valid);
   if (i < n) {
     det_[i] = det;
     mism_[i] = mism;
@@ -301,17 +311,70 @@ struct BisectChain {
   __device__ void finish(T omega, T k, T m, const T* y, const Ctx& ctx, T& det,
                          T& mism) const {
     bool valid;
-    eigk::finish(p, omega, k, m, zero_over(ctx.C3_1) + T(0), ctx.F1, T(0),
-                 y[0], y[1], y[2], y[3], det, mism, valid);
+    eigk::finish<T, false>(p, omega, k, m, zero_over(ctx.C3_1) + T(0), ctx.F1,
+                           T(0), y[0], y[1], y[2], y[3], det, mism, valid);
   }
 };
 
-template <class T, int kThreads>
+// The same chain with the numeric exterior as bisect.cuh::spec_kernel runs
+// it: the producers compute an abscissa's r-only entry (r_point; on the
+// log tail at r = exp(t)) once per block and each column's (1/F, g) from
+// it (invF_g), the consumer runs interface1 / rk4_step2 / finish, the
+// exterior included, in the scan's order, so every value is the scan's.
+template <class T_>
+struct SpecChain {
+  using T = T_;
+  using Params = CylDispParams;
+  using Entry = RPoint<T>;
+  static constexpr int kState = 4;  // (P1, w1, P2, w2)
+  using Ctx = Iface<T>;
+  const Params& p;
+  Grid<T> g;
+
+  __device__ explicit SpecChain(const Params& p_) : p(p_), g(p_) {}
+  __device__ int n_steps() const { return g.n_int + g.n_log; }
+  __device__ Entry entry(int i, int a) const {
+    if (i < g.n_int) {
+      return r_point(p, rk4_abscissa(g.x0i, g.hi, g.hhi, i, a));
+    }
+    return r_point(p, radius<T, true>(
+                          rk4_abscissa(g.x0l, g.hl, g.hhl, i - g.n_int, a)));
+  }
+  __device__ void coef(int i, const Entry& q, T omega, T k, T m, T& c0,
+                       T& c1) const {
+    const Cand<T> c(p, omega, k, m);
+    if (i < g.n_int) {
+      invF_g<T, false>(q, c, c0, c1);
+    } else {
+      invF_g<T, true>(q, c, c0, c1);
+    }
+  }
+  __device__ void start(T omega, T k, T m, T* y, Ctx& ctx) const {
+    interface1(p, Cand<T>(p, omega, k, m), ctx.C3_1, ctx.F1);
+    y[0] = T(1);
+    y[1] = T(0);
+    y[2] = T(0);
+    y[3] = ctx.F1 * T(1);
+  }
+  __device__ void step(int i, const T* c, int s, T* y) const {
+    const bool in_r = i < g.n_int;
+    rk4_step2(in_r ? g.hi : g.hl, in_r ? g.hhi : g.hhl, in_r ? g.h6i : g.h6l,
+              c[0], c[s], c[2 * s], c[3 * s], c[4 * s], c[5 * s], y[0], y[1],
+              y[2], y[3]);
+  }
+  __device__ void finish(T omega, T k, T m, const T* y, const Ctx& ctx, T& det,
+                         T& mism, bool& valid) const {
+    eigk::finish<T, true>(p, omega, k, m, zero_over(ctx.C3_1) + T(0), ctx.F1,
+                          T(0), y[0], y[1], y[2], y[3], det, mism, valid);
+  }
+};
+
+template <class T, int kThreads, bool kNum>
 cudaError_t launch_scan(const void* omega, const void* k, const void* m,
                         void* det, void* mism, void* valid, long long n,
                         int chunk, size_t smem, const CylDispParams* p,
                         cudaStream_t stream) {
-  auto* kern = cylinder_disp_kernel<T, kThreads>;
+  auto* kern = cylinder_disp_kernel<T, kThreads, kNum>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -326,32 +389,50 @@ cudaError_t launch_scan(const void* omega, const void* k, const void* m,
   return cudaGetLastError();
 }
 
-// The scan's launch at `threads` a block (128, 256 or 512)
+// The scan's launch at `threads` a block (128, 256 or 512; the numeric
+// exterior's at 256 only, kernels/cylinder.py::SCAN_SHAPE)
+template <class T, bool kNum>
+cudaError_t launch_scan_threads(const void* omega, const void* k,
+                                const void* m, void* det, void* mism,
+                                void* valid, long long n, int threads,
+                                int chunk, size_t smem, const CylDispParams* p,
+                                cudaStream_t s) {
+  if constexpr (kNum) {
+    return threads == 256
+               ? launch_scan<T, 256, true>(omega, k, m, det, mism, valid, n,
+                                           chunk, smem, p, s)
+               : cudaErrorInvalidValue;
+  } else {
+    switch (threads) {
+      case 128:
+        return launch_scan<T, 128, false>(omega, k, m, det, mism, valid, n,
+                                          chunk, smem, p, s);
+      case 256:
+        return launch_scan<T, 256, false>(omega, k, m, det, mism, valid, n,
+                                          chunk, smem, p, s);
+      case 512:
+        return launch_scan<T, 512, false>(omega, k, m, det, mism, valid, n,
+                                          chunk, smem, p, s);
+      default:
+        return cudaErrorInvalidValue;
+    }
+  }
+}
+
+// The scan over the exterior that p names
 template <class T>
-int launch_scan_threads(const void* omega, const void* k, const void* m,
-                        void* det, void* mism, void* valid, long long n,
-                        int threads, int chunk, const CylDispParams* p,
-                        cudaStream_t s) {
+int launch_scan_any(const void* omega, const void* k, const void* m,
+                    void* det, void* mism, void* valid, long long n,
+                    int threads, int chunk, const CylDispParams* p,
+                    cudaStream_t s) {
   const size_t smem = 2 * 3 * static_cast<size_t>(chunk) * sizeof(RPoint<T>);
   if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err;
-  switch (threads) {
-    case 128:
-      err = launch_scan<T, 128>(omega, k, m, det, mism, valid, n, chunk,
-                                smem, p, s);
-      break;
-    case 256:
-      err = launch_scan<T, 256>(omega, k, m, det, mism, valid, n, chunk,
-                                smem, p, s);
-      break;
-    case 512:
-      err = launch_scan<T, 512>(omega, k, m, det, mism, valid, n, chunk,
-                                smem, p, s);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(
+      p->exterior_numeric
+          ? launch_scan_threads<T, true>(omega, k, m, det, mism, valid, n,
+                                         threads, chunk, smem, p, s)
+          : launch_scan_threads<T, false>(omega, k, m, det, mism, valid, n,
+                                          threads, chunk, smem, p, s));
 }
 
 // The scan of n candidates with `threads` (128, 256 or 512) a block and
@@ -372,22 +453,42 @@ int launch_cylinder(const void* omega, const void* k, const void* m, void* det,
   return p->twisted
              ? launch_cylinder_tw<T>(omega, k, m, det, mism, valid, n, threads,
                                      chunk, p, s)
-             : launch_scan_threads<T>(omega, k, m, det, mism, valid, n,
-                                      threads, chunk, p, s);
+             : launch_scan_any<T>(omega, k, m, det, mism, valid, n, threads,
+                                  chunk, p, s);
 }
 
-// The fused bisection of n brackets over the density/axial-flow chain (the
-// twisted chain's is the speculative one of cylinder_twisted.cu)
+// The fused bisection of n brackets over the density/axial-flow chain with
+// the K_m ratio (the twisted chain's is the speculative one of
+// cylinder_twisted.cu; the numeric exterior's launch_cylinder_num_spec)
 template <class T>
 int launch_cylinder_bisect(const void* lo, const void* hi, const void* k,
                            const void* m, void* root, void* mism, long long n,
                            int n_iter, int final_eval, int B, int P, int C,
                            int S, int min_blocks, const CylDispParams* p,
                            int device, void* stream) {
-  if (p->twisted) return static_cast<int>(cudaErrorInvalidValue);
+  if (p->twisted || p->exterior_numeric) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return launch_bisect<BisectChain<T>>(lo, hi, k, m, root, mism, n, n_iter,
                                        final_eval, B, P, C, S, min_blocks, p,
                                        device, stream);
+}
+
+// The speculative fused bisection of n brackets over the density/axial-flow
+// chain with the numeric exterior (bisect.cuh::launch_spec over SpecChain)
+template <class T>
+int launch_cylinder_num_spec(const void* lo, const void* hi, const void* k,
+                             const void* m, void* root, void* mism,
+                             long long n, int n_iter, int final_eval, int B,
+                             int L, int P, int C, int S, int min_blocks,
+                             const CylDispParams* p, int device,
+                             void* stream) {
+  if (p->twisted || !p->exterior_numeric) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_spec<SpecChain<T>>(lo, hi, k, m, root, mism, nullptr, n,
+                                   n_iter, final_eval, 0, B, L, P, C, S,
+                                   min_blocks, p, device, stream);
 }
 
 }  // namespace eigk
@@ -417,10 +518,12 @@ int eigk_cylinder_disp_f64(const void* omega, const void* k, const void* m,
 }
 
 // Fused bisection of n brackets (lo, hi, k, m) over the density/axial-flow
-// chain: root, and the % mismatch at the root when final_eval (mism may be
-// null otherwise); B brackets per block, P producer warps, C steps per
-// stage, S stages, the register budget of min_blocks blocks of 512 threads
-// per SM. The twisted chain's is eigk_cylinder_spec_* (cylinder_twisted.cu).
+// chain with the K_m ratio: root, and the % mismatch at the root when
+// final_eval (mism may be null otherwise); B brackets per block, P
+// producer warps, C steps per stage, S stages, the register budget of
+// min_blocks blocks of 512 threads per SM. The twisted chain's is
+// eigk_cylinder_spec_* (cylinder_twisted.cu), the numeric exterior's
+// eigk_cylinder_num_spec_*.
 int eigk_cylinder_bisect_f32(const void* lo, const void* hi, const void* k,
                              const void* m, void* root, void* mism,
                              long long n, int n_iter, int final_eval, int B,
@@ -441,6 +544,31 @@ int eigk_cylinder_bisect_f64(const void* lo, const void* hi, const void* k,
   return eigk::launch_cylinder_bisect<double>(
       lo, hi, k, m, root, mism, n, n_iter, final_eval, B, P, C, S, min_blocks,
       p, device, stream);
+}
+
+// The same with the numeric exterior (p->exterior_numeric), on the
+// speculative kernel: L levels a round on 2^L lanes a bracket (B 2^L <=
+// 32; 0 the loop's schedule), the rest as eigk_cylinder_bisect_*.
+int eigk_cylinder_num_spec_f32(const void* lo, const void* hi, const void* k,
+                               const void* m, void* root, void* mism,
+                               long long n, int n_iter, int final_eval, int B,
+                               int L, int P, int C, int S, int min_blocks,
+                               const eigk::CylDispParams* p, int device,
+                               void* stream) {
+  return eigk::launch_cylinder_num_spec<float>(
+      lo, hi, k, m, root, mism, n, n_iter, final_eval, B, L, P, C, S,
+      min_blocks, p, device, stream);
+}
+
+int eigk_cylinder_num_spec_f64(const void* lo, const void* hi, const void* k,
+                               const void* m, void* root, void* mism,
+                               long long n, int n_iter, int final_eval, int B,
+                               int L, int P, int C, int S, int min_blocks,
+                               const eigk::CylDispParams* p, int device,
+                               void* stream) {
+  return eigk::launch_cylinder_num_spec<double>(
+      lo, hi, k, m, root, mism, n, n_iter, final_eval, B, L, P, C, S,
+      min_blocks, p, device, stream);
 }
 
 // sizeof(CylDispParams), for the Python mirror's layout check

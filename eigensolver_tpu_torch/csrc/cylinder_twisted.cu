@@ -13,7 +13,9 @@
 // twisted_invF_g), built with --fmad=false, so kernel and plain version
 // agree bit for bit. No log tail (the JAX code keeps the reference's eps);
 // the kink's jump term J = B_phi(1)^2 - rho v_phi(1)^2 enters the
-// determinant. cylinder_disp.cu's scan entries call launch_cylinder_tw when
+// determinant. The exterior is the K_m ratio or, in a variant built apart
+// (kNum), the numeric one (cylinder.cuh::finish), so the K_m kernels keep
+// their code. cylinder_disp.cu's scan entries call launch_cylinder_tw when
 // CylDispParams::twisted is set; the fused kernels have entries of their
 // own (eigk_cylinder_eval_*, eigk_cylinder_spec_*).
 //
@@ -196,7 +198,7 @@ __device__ __forceinline__ IfaceTw<T> interface1_tw(const CylDispParams& p,
 constexpr int kTwScanThreads = 128;
 constexpr int kTwScanMinBlocks = 5;
 
-template <class T>
+template <class T, bool kNum>
 __global__ void __launch_bounds__(kTwScanThreads, kTwScanMinBlocks)
 tw_scan_kernel(const T* __restrict__ omega_, const T* __restrict__ k_,
                const T* __restrict__ m_, T* __restrict__ det_,
@@ -242,7 +244,8 @@ tw_scan_kernel(const T* __restrict__ omega_, const T* __restrict__ k_,
   }
   T det, mism;
   bool valid;
-  finish(p, omega, k, m, f.xi1, f.F1, f.J, P1, w1, P2, w2, det, mism, valid);
+  finish<T, kNum>(p, omega, k, m, f.xi1, f.F1, f.J, P1, w1, P2, w2, det,
+                  mism, valid);
   if (i < n) {
     det_[i] = det;
     mism_[i] = mism;
@@ -254,7 +257,7 @@ tw_scan_kernel(const T* __restrict__ omega_, const T* __restrict__ k_,
 // compute an abscissa's r-only entry (r_point_tw) and a column's (1/F, g)
 // from it (invF_g_tw), the consumer runs interface1_tw / rk4_step2 / finish
 // in the scan's order, so every value is the scan's.
-template <class T_>
+template <class T_, bool kNum>
 struct TwModel {
   using T = T_;
   using Params = CylDispParams;
@@ -269,7 +272,7 @@ struct TwModel {
   __device__ Entry entry(int i, int a) const {
     return r_point_tw(p, rk4_abscissa(g.x0i, g.hi, g.hhi, i, a));
   }
-  __device__ void coef(const Entry& q, T omega, T k, T m, T& c0,
+  __device__ void coef(int, const Entry& q, T omega, T k, T m, T& c0,
                        T& c1) const {
     invF_g_tw(q, omega, k, m, c0, c1);
   }
@@ -286,8 +289,8 @@ struct TwModel {
   }
   __device__ void finish(T omega, T k, T m, const T* y, const Ctx& ctx, T& det,
                          T& mism, bool& valid) const {
-    eigk::finish(p, omega, k, m, ctx.xi1, ctx.F1, ctx.J, y[0], y[1], y[2],
-                 y[3], det, mism, valid);
+    eigk::finish<T, kNum>(p, omega, k, m, ctx.xi1, ctx.F1, ctx.J, y[0], y[1],
+                          y[2], y[3], det, mism, valid);
   }
 };
 
@@ -300,7 +303,8 @@ int launch_cylinder_tw(const void* omega, const void* k, const void* m,
   if (threads != kTwScanThreads || smem > 227 * 1024) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto* kern = tw_scan_kernel<T>;
+  auto* kern = p->exterior_numeric ? tw_scan_kernel<T, true>
+                                   : tw_scan_kernel<T, false>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -322,6 +326,25 @@ template int launch_cylinder_tw<double>(const void*, const void*, const void*,
                                         void*, void*, void*, long long, int,
                                         int, const CylDispParams*,
                                         cudaStream_t);
+
+// bisect.cuh::launch_spec over the twisted chain with the exterior that p
+// names
+template <class T>
+int launch_tw_spec(const void* lo, const void* hi, const void* k,
+                   const void* mode, void* out0, void* out1, void* valid,
+                   long long n, int n_iter, int final_eval, int eval, int B,
+                   int L, int P, int C, int S, int min_blocks,
+                   const CylDispParams* p, int device, void* stream) {
+  return p->exterior_numeric
+             ? launch_spec<TwModel<T, true>>(lo, hi, k, mode, out0, out1,
+                                             valid, n, n_iter, final_eval,
+                                             eval, B, L, P, C, S, min_blocks,
+                                             p, device, stream)
+             : launch_spec<TwModel<T, false>>(lo, hi, k, mode, out0, out1,
+                                              valid, n, n_iter, final_eval,
+                                              eval, B, L, P, C, S, min_blocks,
+                                              p, device, stream);
+}
 
 // A kernel's registers, local (spill) bytes a thread and resident blocks
 // per SM with `smem` bytes of dynamic shared memory at `threads` a block
@@ -350,13 +373,14 @@ template <class T>
 int tw_attrs(int kind, int threads, int min_blocks, long long smem,
              int* out) {
   if (kind == 0 && threads == kTwScanThreads) {
-    return kernel_attrs(tw_scan_kernel<T>, threads, static_cast<size_t>(smem),
+    return kernel_attrs(tw_scan_kernel<T, false>, threads,
+                        static_cast<size_t>(smem),
                         out);
   } else if (kind == 1 && min_blocks == 1) {
-    return kernel_attrs(spec_kernel<TwModel<T>, 1>, threads,
+    return kernel_attrs(spec_kernel<TwModel<T, false>, 1>, threads,
                         static_cast<size_t>(smem), out);
   } else if (kind == 1 && min_blocks == 2) {
-    return kernel_attrs(spec_kernel<TwModel<T>, 2>, threads,
+    return kernel_attrs(spec_kernel<TwModel<T, false>, 2>, threads,
                         static_cast<size_t>(smem), out);
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -377,9 +401,9 @@ int eigk_cylinder_eval_f32(const void* omega, const void* k, const void* m,
                            const eigk::CylDispParams* p, int device,
                            void* stream) {
   if (!p->twisted || p->log_tail) return static_cast<int>(cudaErrorInvalidValue);
-  return eigk::launch_spec<eigk::TwModel<float>>(
-      omega, nullptr, k, m, det, mism, valid, n, 0, 1, 1, B, 0, P, C, S,
-      min_blocks, p, device, stream);
+  return eigk::launch_tw_spec<float>(omega, nullptr, k, m, det, mism, valid, n,
+                                     0, 1, 1, B, 0, P, C, S, min_blocks, p,
+                                     device, stream);
 }
 
 int eigk_cylinder_eval_f64(const void* omega, const void* k, const void* m,
@@ -388,9 +412,9 @@ int eigk_cylinder_eval_f64(const void* omega, const void* k, const void* m,
                            const eigk::CylDispParams* p, int device,
                            void* stream) {
   if (!p->twisted || p->log_tail) return static_cast<int>(cudaErrorInvalidValue);
-  return eigk::launch_spec<eigk::TwModel<double>>(
-      omega, nullptr, k, m, det, mism, valid, n, 0, 1, 1, B, 0, P, C, S,
-      min_blocks, p, device, stream);
+  return eigk::launch_tw_spec<double>(omega, nullptr, k, m, det, mism, valid,
+                                      n, 0, 1, 1, B, 0, P, C, S, min_blocks, p,
+                                      device, stream);
 }
 
 // The speculative fused bisection of n twisted brackets (lo, hi, k, m):
@@ -404,9 +428,9 @@ int eigk_cylinder_spec_f32(const void* lo, const void* hi, const void* k,
                            const eigk::CylDispParams* p, int device,
                            void* stream) {
   if (!p->twisted || p->log_tail) return static_cast<int>(cudaErrorInvalidValue);
-  return eigk::launch_spec<eigk::TwModel<float>>(
-      lo, hi, k, m, root, mism, nullptr, n, n_iter, final_eval, 0, B, L, P, C,
-      S, min_blocks, p, device, stream);
+  return eigk::launch_tw_spec<float>(lo, hi, k, m, root, mism, nullptr, n,
+                                     n_iter, final_eval, 0, B, L, P, C, S,
+                                     min_blocks, p, device, stream);
 }
 
 int eigk_cylinder_spec_f64(const void* lo, const void* hi, const void* k,
@@ -416,9 +440,9 @@ int eigk_cylinder_spec_f64(const void* lo, const void* hi, const void* k,
                            const eigk::CylDispParams* p, int device,
                            void* stream) {
   if (!p->twisted || p->log_tail) return static_cast<int>(cudaErrorInvalidValue);
-  return eigk::launch_spec<eigk::TwModel<double>>(
-      lo, hi, k, m, root, mism, nullptr, n, n_iter, final_eval, 0, B, L, P, C,
-      S, min_blocks, p, device, stream);
+  return eigk::launch_tw_spec<double>(lo, hi, k, m, root, mism, nullptr, n,
+                                      n_iter, final_eval, 0, B, L, P, C, S,
+                                      min_blocks, p, device, stream);
 }
 
 // Registers, local bytes a thread and blocks per SM (out[0..2]) of a

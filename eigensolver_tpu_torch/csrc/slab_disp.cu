@@ -4,10 +4,14 @@
 // `eigensolver_tpu/physics/slab.py::SlabPhysics.make_dispersion`
 // (slab.py:285-406) with the parity as a per-candidate column
 // (`eigensolver_tpu/sweep.py::make_dispersion_moded`), for the real-omega
-// cases with the exact exponential exterior. On the TPU this was an
-// XLA-fused `lax.scan` with no Pallas original; in eager PyTorch it would
-// be ~100 launches per RK4 step. Here one thread carries a candidate's
-// whole shoot in registers:
+// cases, with the exact exponential exterior or, in a variant built apart
+// (kNum), the numeric one (`eigensolver_tpu/ode.py::rk4_final_renorm` as
+// `physics/slab.py:362-381` calls it; common.cuh::slab_exterior: after its
+// interior shoot a thread integrates its candidate's own 512 exterior steps
+// in registers, no table, the bisection's consumer lane alike). On the TPU
+// this was an XLA-fused `lax.scan` with no Pallas original; in eager
+// PyTorch it would be ~100 launches per RK4 step. Here one thread carries
+// a candidate's whole shoot in registers:
 //   flux form (density cases, no flow): state (vx, w = F vx') from
 //     (par, (1 - par) F(0)), n_interior RK4 steps of `_rk4_linear_flux`
 //     from x = 0 to 1 with the chain (1/F, F m0) at the 3 distinct
@@ -17,7 +21,8 @@
 //     the corrected form, U' and U'' from the closed-form profile
 //     derivatives; PT_i = F(1)/Omega (vx' - add vx), add the optional
 //     shear-pressure term;
-//   then m_e, p_e, sqrt(max(m_e, 0)), the determinant and the % mismatch.
+//   then m_e, p_e, sqrt(max(m_e, 0)) (or the numeric exterior's vx'/vx),
+//   the determinant and the % mismatch.
 //
 // What bounds it on Hopper: per candidate, 3 n_interior evaluations of the
 // coefficient chain plus the RK4 update, against 24 bytes in and 17 bytes
@@ -52,7 +57,10 @@
 // on the ODE state, and runs the serial update in one consumer lane per
 // bracket, in this file's order (rk4_step, start, finish), so its (root,
 // mismatch) are bit-equal to the launch loop's. Its producers compute both
-// parts of the chain per bracket.
+// parts of the chain per bracket. With the numeric exterior it runs on
+// bisect.cuh::spec_kernel instead (SpecChain): the producers compute the
+// x-only entries of a stage once per block into a table, as the scan
+// does, and each bracket's chain from them.
 #include <cmath>
 #include <cstdint>
 #include <type_traits>
@@ -84,6 +92,10 @@ struct SlabDispParams {
   int shear;             // has_flow: the direct (vx, vx') form
   int legacy_D;          // case.shear_D_legacy
   int shear_pressure;    // include_shear_pressure
+  // the numeric exterior (exterior_method="numeric"): W of its span
+  // W 2 pi / k, its RK4 steps; else the exact exp(-sqrt(m_e) (x - 1))
+  double exterior_wavelengths;
+  int exterior_numeric, n_exterior;
 };
 
 namespace slab {
@@ -289,8 +301,10 @@ __device__ __forceinline__ Edge<T> edge(const SlabDispParams& p, T omega,
 }
 
 // The interface at x = 1 from the state (vx_b, y1_b) there: PT_i, the
-// exact decaying exterior, det, the % mismatch and valid (slab.py:383-406)
-template <class T, bool kShear>
+// exterior, det, the % mismatch and valid (slab.py:362-406); the exterior
+// is the exact decaying one or, with kNum, the numeric one
+// (common.cuh::slab_exterior)
+template <class T, bool kShear, bool kNum>
 __device__ __forceinline__ void finish(const SlabDispParams& p, T omega, T k,
                                        const Edge<T>& e, T vx_b, T y1_b,
                                        T& det, T& mism, bool& valid) {
@@ -312,8 +326,10 @@ __device__ __forceinline__ void finish(const SlabDispParams& p, T omega, T k,
     }
   }
 
-  // exact decaying exterior vx_e = exp(-sqm (x - 1))
-  const T PT_e = p_e * (-sqm);
+  // numeric: p_e vx'/vx at x = 1; exact: vx_e = exp(-sqm (x - 1))
+  const T PT_e = kNum ? p_e * slab_exterior(m_e, k, p.exterior_wavelengths,
+                                            p.n_exterior)
+                      : p_e * (-sqm);
   const T xi_e = one / Om_e;
   const T xi_i = vx_b / Om_i;
   det = xi_i * PT_e - xi_e * PT_i;
@@ -357,9 +373,10 @@ __device__ __forceinline__ void run_chunk(const SlabDispParams& p,
 // The scan: one thread per candidate, kThreads per block, the x-only table
 // in chunks of `chunk` steps (dynamic shared memory: 2 x 3 chunk entries),
 // `_rk4_linear_flux` / `_rk4_linear_shear` (slab.py:41-113) from x = 0 to
-// 1. Threads past n evaluate a copy of the last candidate, so that every
-// thread reaches the block's barriers, and store nothing.
-template <class T, bool kShear, int kThreads>
+// 1, the exterior of kNum. Threads past n evaluate a copy of the last
+// candidate, so that every thread reaches the block's barriers, and store
+// nothing.
+template <class T, bool kShear, int kThreads, bool kNum>
 __global__ void __launch_bounds__(kThreads)
 slab_disp_kernel(const T* __restrict__ omega_, const T* __restrict__ k_,
                  const T* __restrict__ par_, T* __restrict__ det_,
@@ -402,7 +419,7 @@ slab_disp_kernel(const T* __restrict__ omega_, const T* __restrict__ k_,
   }
   T det, mism;
   bool valid;
-  finish<T, kShear>(p, omega, k, e, y0, y1, det, mism, valid);
+  finish<T, kShear, kNum>(p, omega, k, e, y0, y1, det, mism, valid);
   if (i < n) {
     det_[i] = det;
     mism_[i] = mism;
@@ -440,17 +457,58 @@ struct BisectChain {
   __device__ void finish(T omega, T k, T, const T* y, const Ctx&, T& det,
                          T& mism) const {
     bool valid;
-    slab::finish<T, kShear>(p, omega, k, edge(p, omega, k), y[0], y[1], det,
-                            mism, valid);
+    slab::finish<T, kShear, false>(p, omega, k, edge(p, omega, k), y[0], y[1],
+                                   det, mism, valid);
   }
 };
 
-template <class T, bool kShear, int kThreads>
+// The slab chain with the numeric exterior as bisect.cuh::spec_kernel runs
+// it: the producers compute an abscissa's x-only entry (x_point) once per
+// block and each column's chain from it (coef_at), the consumer runs start
+// / rk4_step / finish, the exterior included, in the scan's order, so
+// every value is the scan's.
+template <class T_, bool kShear>
+struct SpecChain {
+  using T = T_;
+  using Params = SlabDispParams;
+  using Entry = XPoint<T, kShear>;
+  static constexpr int kState = 2;  // (vx, w) flux, (vx, vx') shear
+  struct Ctx {};
+  const Params& p;
+  int n;
+  T h, hh, h6;
+
+  __device__ explicit SpecChain(const Params& p_) : p(p_), n(p_.n_interior) {
+    rk4_spacing(T(0), T(1), n, h, hh, h6);
+  }
+  __device__ int n_steps() const { return n; }
+  __device__ Entry entry(int i, int a) const {
+    return x_point<T, kShear>(p, rk4_abscissa(T(0), h, hh, i, a));
+  }
+  __device__ void coef(int, const Entry& q, T omega, T k, T, T& c0,
+                       T& c1) const {
+    coef_at<T, kShear>(p, q, Cand<T>(p, omega, k), c0, c1);
+  }
+  __device__ void start(T omega, T k, T par, T* y, Ctx&) const {
+    slab::start<T, kShear>(p, omega, k, par, y[0], y[1]);
+  }
+  __device__ void step(int, const T* c, int s, T* y) const {
+    rk4_step<T, kShear>(h, hh, h6, c[0], c[s], c[2 * s], c[3 * s], c[4 * s],
+                        c[5 * s], y[0], y[1]);
+  }
+  __device__ void finish(T omega, T k, T, const T* y, const Ctx&, T& det,
+                         T& mism, bool& valid) const {
+    slab::finish<T, kShear, true>(p, omega, k, edge(p, omega, k), y[0], y[1],
+                                  det, mism, valid);
+  }
+};
+
+template <class T, bool kShear, int kThreads, bool kNum>
 cudaError_t launch_scan(const void* omega, const void* k, const void* par,
                         void* det, void* mism, void* valid, long long n,
                         int chunk, size_t smem, const SlabDispParams* p,
                         cudaStream_t stream) {
-  auto* kern = slab_disp_kernel<T, kShear, kThreads>;
+  auto* kern = slab_disp_kernel<T, kShear, kThreads, kNum>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -465,7 +523,7 @@ cudaError_t launch_scan(const void* omega, const void* k, const void* par,
   return cudaGetLastError();
 }
 
-template <class T, bool kShear>
+template <class T, bool kShear, bool kNum>
 cudaError_t launch_form(const void* omega, const void* k, const void* par,
                         void* det, void* mism, void* valid, long long n,
                         int threads, int chunk, const SlabDispParams* p,
@@ -473,25 +531,61 @@ cudaError_t launch_form(const void* omega, const void* k, const void* par,
   const size_t smem =
       2 * 3 * static_cast<size_t>(chunk) * sizeof(XPoint<T, kShear>);
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  switch (threads) {
-    case 32:
-      return launch_scan<T, kShear, 32>(omega, k, par, det, mism, valid, n,
-                                        chunk, smem, p, s);
-    case 64:
-      return launch_scan<T, kShear, 64>(omega, k, par, det, mism, valid, n,
-                                        chunk, smem, p, s);
-    case 128:
-      return launch_scan<T, kShear, 128>(omega, k, par, det, mism, valid, n,
-                                         chunk, smem, p, s);
-    case 256:
-      return launch_scan<T, kShear, 256>(omega, k, par, det, mism, valid, n,
-                                         chunk, smem, p, s);
-    case 512:
-      return launch_scan<T, kShear, 512>(omega, k, par, det, mism, valid, n,
-                                         chunk, smem, p, s);
-    default:
-      return cudaErrorInvalidValue;
+  if constexpr (kNum) {
+    // built only at the shapes kernels/slab.py::scan_shape picks: 128
+    // threads, and 256 for the flux form
+    if (threads == 128) {
+      return launch_scan<T, kShear, 128, true>(omega, k, par, det, mism,
+                                               valid, n, chunk, smem, p, s);
+    }
+    if constexpr (!kShear) {
+      if (threads == 256) {
+        return launch_scan<T, kShear, 256, true>(omega, k, par, det, mism,
+                                                 valid, n, chunk, smem, p, s);
+      }
+    }
+    return cudaErrorInvalidValue;
+  } else {
+    switch (threads) {
+      case 32:
+        return launch_scan<T, kShear, 32, false>(omega, k, par, det, mism,
+                                                 valid, n, chunk, smem, p, s);
+      case 64:
+        return launch_scan<T, kShear, 64, false>(omega, k, par, det, mism,
+                                                 valid, n, chunk, smem, p, s);
+      case 128:
+        return launch_scan<T, kShear, 128, false>(omega, k, par, det, mism,
+                                                  valid, n, chunk, smem, p, s);
+      case 256:
+        return launch_scan<T, kShear, 256, false>(omega, k, par, det, mism,
+                                                  valid, n, chunk, smem, p, s);
+      case 512:
+        return launch_scan<T, kShear, 512, false>(omega, k, par, det, mism,
+                                                  valid, n, chunk, smem, p, s);
+      default:
+        return cudaErrorInvalidValue;
+    }
   }
+}
+
+// The form and the exterior that p names
+template <class T>
+cudaError_t launch_any(const void* omega, const void* k, const void* par,
+                       void* det, void* mism, void* valid, long long n,
+                       int threads, int chunk, const SlabDispParams* p,
+                       cudaStream_t s) {
+  if (p->shear) {
+    return p->exterior_numeric
+               ? launch_form<T, true, true>(omega, k, par, det, mism, valid,
+                                            n, threads, chunk, p, s)
+               : launch_form<T, true, false>(omega, k, par, det, mism, valid,
+                                             n, threads, chunk, p, s);
+  }
+  return p->exterior_numeric
+             ? launch_form<T, false, true>(omega, k, par, det, mism, valid, n,
+                                           threads, chunk, p, s)
+             : launch_form<T, false, false>(omega, k, par, det, mism, valid,
+                                            n, threads, chunk, p, s);
 }
 
 // The scan of n candidates with `threads` (32 to 512, a power of two) a
@@ -504,10 +598,8 @@ int launch(const void* omega, const void* k, const void* par, void* det,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const auto s = static_cast<cudaStream_t>(stream);
-  err = p->shear ? launch_form<T, true>(omega, k, par, det, mism, valid, n,
-                                        threads, chunk, p, s)
-                 : launch_form<T, false>(omega, k, par, det, mism, valid, n,
-                                         threads, chunk, p, s);
+  err = launch_any<T>(omega, k, par, det, mism, valid, n, threads, chunk, p,
+                      s);
   return static_cast<int>(err);
 }
 
@@ -517,6 +609,9 @@ int launch_bisect_slab(const void* lo, const void* hi, const void* k,
                        int n_iter, int final_eval, int B, int P, int C, int S,
                        int min_blocks, const SlabDispParams* p, int device,
                        void* stream) {
+  if (p->exterior_numeric) {       // spec_kernel's (launch_spec_slab)
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (p->shear) {
     return launch_bisect<BisectChain<T, true>>(lo, hi, k, par, root, mism, n,
                                                n_iter, final_eval, B, P, C, S,
@@ -525,6 +620,24 @@ int launch_bisect_slab(const void* lo, const void* hi, const void* k,
   return launch_bisect<BisectChain<T, false>>(lo, hi, k, par, root, mism, n,
                                               n_iter, final_eval, B, P, C, S,
                                               min_blocks, p, device, stream);
+}
+
+// The speculative fused bisection with the numeric exterior
+// (bisect.cuh::launch_spec over SpecChain) in the form that p names
+template <class T>
+int launch_spec_slab(const void* lo, const void* hi, const void* k,
+                     const void* par, void* root, void* mism, long long n,
+                     int n_iter, int final_eval, int B, int L, int P, int C,
+                     int S, int min_blocks, const SlabDispParams* p,
+                     int device, void* stream) {
+  if (!p->exterior_numeric) return static_cast<int>(cudaErrorInvalidValue);
+  return p->shear
+             ? launch_spec<SpecChain<T, true>>(
+                   lo, hi, k, par, root, mism, nullptr, n, n_iter, final_eval,
+                   0, B, L, P, C, S, min_blocks, p, device, stream)
+             : launch_spec<SpecChain<T, false>>(
+                   lo, hi, k, par, root, mism, nullptr, n, n_iter, final_eval,
+                   0, B, L, P, C, S, min_blocks, p, device, stream);
 }
 
 }  // namespace slab
@@ -550,10 +663,11 @@ int eigk_slab_disp_f64(const void* omega, const void* k, const void* par,
                                     threads, chunk, p, device, stream);
 }
 
-// Fused bisection of n brackets (lo, hi, k, parity): root, and the %
-// mismatch at the root when final_eval (mism may be null otherwise); B
-// brackets per block, P producer warps, C steps per stage, S stages, the
-// register budget of min_blocks blocks of 512 threads per SM.
+// Fused bisection of n brackets (lo, hi, k, parity) with the exact
+// exterior: root, and the % mismatch at the root when final_eval (mism may
+// be null otherwise); B brackets per block, P producer warps, C steps per
+// stage, S stages, the register budget of min_blocks blocks of 512 threads
+// per SM.
 int eigk_slab_bisect_f32(const void* lo, const void* hi, const void* k,
                          const void* par, void* root, void* mism, long long n,
                          int n_iter, int final_eval, int B, int P, int C,
@@ -572,6 +686,30 @@ int eigk_slab_bisect_f64(const void* lo, const void* hi, const void* k,
   return eigk::slab::launch_bisect_slab<double>(lo, hi, k, par, root, mism, n,
                                                 n_iter, final_eval, B, P, C, S,
                                                 min_blocks, p, device, stream);
+}
+
+// The same with the numeric exterior (p->exterior_numeric), on the
+// speculative kernel: L levels a round on 2^L lanes a bracket (B 2^L <=
+// 32; 0 the loop's schedule), the rest as eigk_slab_bisect_*.
+int eigk_slab_spec_f32(const void* lo, const void* hi, const void* k,
+                       const void* par, void* root, void* mism, long long n,
+                       int n_iter, int final_eval, int B, int L, int P, int C,
+                       int S, int min_blocks, const eigk::SlabDispParams* p,
+                       int device, void* stream) {
+  return eigk::slab::launch_spec_slab<float>(lo, hi, k, par, root, mism, n,
+                                             n_iter, final_eval, B, L, P, C,
+                                             S, min_blocks, p, device, stream);
+}
+
+int eigk_slab_spec_f64(const void* lo, const void* hi, const void* k,
+                       const void* par, void* root, void* mism, long long n,
+                       int n_iter, int final_eval, int B, int L, int P, int C,
+                       int S, int min_blocks, const eigk::SlabDispParams* p,
+                       int device, void* stream) {
+  return eigk::slab::launch_spec_slab<double>(lo, hi, k, par, root, mism, n,
+                                              n_iter, final_eval, B, L, P, C,
+                                              S, min_blocks, p, device,
+                                              stream);
 }
 
 // sizeof(SlabDispParams), for the Python mirror's layout check

@@ -13,10 +13,11 @@ balance:
 For the twisted (rotational flow) cases the pressure follows from radial
 force balance: P_i(r) = rho_i0 v_twist^2 r^(2p) / (2p) + P_0.
 
-`genuine_continua_rowfn` gives the twisted family's row-local continuum
-ranges, which the search masks (`SearchConfig.exclude_omega_rowfn`). The
-phase-speed masks (`continuum_bands`, `genuine_continua`) are not ported yet
-(ROADMAP A11).
+`continuum_bands` and `genuine_continua` give a case's phase-speed
+continuum ranges (the search masks the genuine ones with
+`SearchConfig.exclude_v_ranges`); `genuine_continua_rowfn` the twisted
+family's row-local ranges, which the search masks
+(`SearchConfig.exclude_omega_rowfn`).
 """
 from __future__ import annotations
 
@@ -145,6 +146,82 @@ def make_equilibrium(case: CaseConfig) -> Equilibrium:
         B_phi=B_phi,
         P_i=P_i,
     )
+
+
+def _layer_values(case: CaseConfig, n: int):
+    """The layer's abscissae from eps (the cylinder's axis_epsilon, the
+    slab's 0) to 1, n of them in float64 (numpy's linspace), and a function
+    that evaluates an equilibrium field on them as a float64 numpy array."""
+    eps = case.grid.axis_epsilon if case.geometry.value == "cylinder" else 0.0
+    xs = torch.from_numpy(np.linspace(eps, 1.0, n))
+
+    def values(fn):
+        return np.broadcast_to(fn(xs).numpy(), (n,)).astype(float)
+
+    return values
+
+
+def continuum_bands(case: CaseConfig, n: int = 512):
+    """[(v_lo, v_hi, label), ...]: the range each characteristic speed
+    sweeps across the non-uniform layer (port of `eigensolver_tpu.
+    equilibrium.continuum_bands`, equilibrium.py:59-91), the cT, c and vA
+    bands and, where the layer flows, U -+ cT and U's own; zero-width bands
+    dropped. Plain Python floats, from float64 values at n abscissae."""
+    eq = make_equilibrium(case)
+    values = _layer_values(case, n)
+    out = []
+    for fn, label in ((eq.cT_i, "$c_T$ continuum"),
+                      (eq.c_i, "$c$ continuum"),
+                      (eq.vA_i, "$v_A$ continuum")):
+        v = values(fn)
+        lo, hi = float(np.min(v)), float(np.max(v))
+        if hi - lo > 1e-9 * max(1.0, abs(hi)):
+            out.append((lo, hi, label))
+    # the Doppler-shifted cusp bands and the flow (critical-layer) band
+    u = values(eq.U_i)
+    if np.ptp(u) > 1e-12 or abs(u[0]) > 1e-12:
+        ct = values(eq.cT_i)
+        out.append((float(np.min(u - ct)), float(np.max(u - ct)),
+                    "$U - c_T$ continuum"))
+        out.append((float(np.min(u + ct)), float(np.max(u + ct)),
+                    "$U + c_T$ continuum"))
+        if np.ptp(u) > 1e-12:
+            out.append((float(np.min(u)), float(np.max(u)),
+                        "$U$ flow continuum"))
+    return out
+
+
+def genuine_continua(case: CaseConfig, n: int = 512, guard: float = 2e-4):
+    """Signed phase-speed ranges [(lo, hi, label), ...] of the genuine
+    interior continua: the Doppler-shifted Alfven (U +- vA) and cusp
+    (U +- cT) bands and, where the flow is sheared, the critical layer
+    omega = k U(x) (port of `eigensolver_tpu.equilibrium.genuine_continua`,
+    equilibrium.py:94-134). The apparent c(x) band is not one: genuine slow
+    body modes live there. Each range shrinks by `guard` x max(1, |lo|,
+    |hi|) at both ends, and one narrower than twice that is dropped. []
+    for twisted cases, whose continua depend on (k, m) and are masked row
+    by row (`genuine_continua_rowfn`). Plain Python floats."""
+    if case.twist_profile is not None:
+        return []
+    eq = make_equilibrium(case)
+    values = _layer_values(case, n)
+    u = values(eq.U_i)
+    out = []
+    for fn, label in ((eq.vA_i, "alfven"), (eq.cT_i, "cusp")):
+        v = values(fn)
+        for s in (+1.0, -1.0):
+            lo, hi = float(np.min(u + s * v)), float(np.max(u + s * v))
+            if hi - lo > 1e-9 * max(1.0, abs(hi)):
+                out.append((lo, hi, f"{label}{'+' if s > 0 else '-'}"))
+    if np.ptp(u) > 1e-12:
+        out.append((float(np.min(u)), float(np.max(u)), "flow"))
+
+    def scale(lo, hi):
+        return max(1.0, abs(lo), abs(hi))
+
+    return [(lo + guard * scale(lo, hi), hi - guard * scale(lo, hi), lab)
+            for lo, hi, lab in out
+            if hi - lo > 2 * guard * scale(lo, hi)]
 
 
 def genuine_continua_rowfn(case: CaseConfig, n: int = 192,

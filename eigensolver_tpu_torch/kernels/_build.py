@@ -58,6 +58,8 @@ _SIGNATURES = {
     "eigk_cylinder_eval_f64": _EVAL_ARGS,
     "eigk_cylinder_spec_f32": _SPEC_ARGS,
     "eigk_cylinder_spec_f64": _SPEC_ARGS,
+    "eigk_cylinder_num_spec_f32": _SPEC_ARGS,
+    "eigk_cylinder_num_spec_f64": _SPEC_ARGS,
     # (f64, kind, threads, min_blocks, smem, out[3])
     "eigk_cylinder_tw_attrs": ((_I, _I, _I, _I, ctypes.c_longlong, _P), _I),
     "eigk_cylinder_params_size": ((), ctypes.c_longlong),
@@ -70,6 +72,8 @@ _SIGNATURES = {
     "eigk_slab_params_size": ((), ctypes.c_longlong),
     "eigk_slab_bisect_f32": _BISECT_ARGS,
     "eigk_slab_bisect_f64": _BISECT_ARGS,
+    "eigk_slab_spec_f32": _SPEC_ARGS,
+    "eigk_slab_spec_f64": _SPEC_ARGS,
     "eigk_cylinder_bisect_f32": _BISECT_ARGS,
     "eigk_cylinder_bisect_f64": _BISECT_ARGS,
     "eigk_error_string": ((ctypes.c_int,), ctypes.c_char_p),

@@ -43,6 +43,23 @@ def profile_params(cfg: ProfileConfig, f0: float, fe: float) -> ProfileParams:
                          power_m1=cfg.power - 1.0, power_m2=cfg.power - 2.0)
 
 
+# the fields that close each parameter struct (csrc/slab_disp.cu::
+# SlabDispParams, csrc/cylinder.cuh::CylDispParams): the numeric exterior
+EXTERIOR_FIELDS = [("exterior_wavelengths", ctypes.c_double),
+                   ("exterior_numeric", ctypes.c_int),
+                   ("n_exterior", ctypes.c_int)]
+
+
+def exterior_params(case) -> dict:
+    """The case's exterior as the kernels read it: with
+    exterior_method="numeric", W of its span W 2 pi / k (the kernels form
+    W 2 pi in double, as the Python code does) and its RK4 steps."""
+    gr = case.grid
+    return dict(exterior_wavelengths=gr.exterior_wavelengths,
+                exterior_numeric=int(gr.exterior_method == "numeric"),
+                n_exterior=gr.n_exterior)
+
+
 def density_flow_params(kernel: str, case) -> tuple:
     """ProfileParams of a case's density and flow profiles. A power law
     raises: the kernels' `profile` (csrc/common.cuh) forms its power with
@@ -216,6 +233,25 @@ def spec_shape(n: int, dtype: torch.dtype, entry_bytes: int,
         c -= rows
     return SpecShape(brackets=b, levels=lv, producers=p, steps=c, stages=2,
                      min_blocks=min_blocks)
+
+
+def numeric_spec_shape(n: int, dtype: torch.dtype,
+                       entry_bytes: int) -> SpecShape:
+    """The block shape of the numeric exterior's speculative bisection of n
+    brackets over the slab or the cylinder chain: spec_shape's, except
+    where that keeps the loop's schedule with 32 brackets a block; there 7
+    producer warps, C = 32 steps a stage at float32 (16 at float64) and
+    the register budget chosen at launch, the fastest of 54 shapes on the
+    parity sweeps' 21,840 and 47,520 brackets at both types, 1.5x (f64
+    cylinder) to 1.3x (f32 slab) faster than spec_shape's there, from
+    timings on an H100 (`tools_torch/tune_bisect.py --numeric`, PERF.md
+    section 6)."""
+    shape = spec_shape(n, dtype, entry_bytes)
+    if shape.levels or shape.brackets < 32:
+        return shape
+    return shape._replace(producers=7,
+                          steps=32 if dtype == torch.float32 else 16,
+                          min_blocks=0)
 
 
 def spec_smem(shape: SpecShape, dtype: torch.dtype, entry_bytes: int) -> int:

@@ -3,10 +3,12 @@ kernels `cylinder_disp` and `cylinder_bisect`.
 
 `cylinder_disp` (`csrc/cylinder_disp.cu`) is the port of the XLA-fused
 `jit(vmap(disp))` of `eigensolver_tpu/physics/cylinder.py` (cylinder.py:
-236-385, real omega, "bessel" exterior): one thread per (omega, k, m)
-candidate carries the whole interior shoot, the axis tail, the inlined
-K_m-ratio exterior (`csrc/kve_ratio.cuh`, the port of the Pallas kernel
-`kernels/bessel.py::kve_ratio_pallas`) and the determinant in registers,
+236-385, real omega): one thread per (omega, k, m) candidate carries the
+whole interior shoot, the axis tail, the exterior (the inlined K_m ratio,
+`csrc/kve_ratio.cuh`, the port of the Pallas kernel
+`kernels/bessel.py::kve_ratio_pallas`; or, in a variant the parameters
+pick, the numeric exterior of `ode.py:22-47`) and the determinant in
+registers,
 reading the chain's r-only values from a table that its block computes in
 shared memory, chunk by chunk. `cylinder_bisect` (same file,
 `csrc/bisect.cuh`) runs a whole fixed-count bisection of a bracket batch
@@ -33,9 +35,10 @@ import dataclasses
 import torch
 
 from ..config import CaseConfig, ProfileConfig, ProfileKind
-from .common import (ProfileParams, ScanShape, SpecShape, check_scan_shape,
-                     density_flow_params, launch_bisect, launch_disp,
-                     launch_spec, profile_params)
+from .common import (EXTERIOR_FIELDS, ProfileParams, ScanShape, SpecShape,
+                     check_scan_shape, density_flow_params, exterior_params,
+                     launch_bisect, launch_disp, launch_spec,
+                     numeric_spec_shape, profile_params)
 
 # launches of the kernels since the last reset (one per kernel launch):
 # cylinder_disp (of them, small_launches through the twisted fused
@@ -55,6 +58,9 @@ _EVAL_ENTRY = {torch.float32: "eigk_cylinder_eval_f32",
                torch.float64: "eigk_cylinder_eval_f64"}
 _SPEC_ENTRY = {torch.float32: "eigk_cylinder_spec_f32",
                torch.float64: "eigk_cylinder_spec_f64"}
+# the density/axial-flow chain's with the numeric exterior
+_NUM_SPEC_ENTRY = {torch.float32: "eigk_cylinder_num_spec_f32",
+                   torch.float64: "eigk_cylinder_num_spec_f64"}
 
 
 class _CylParams(ctypes.Structure):
@@ -76,7 +82,8 @@ class _CylParams(ctypes.Structure):
                 ("vphi", ProfileParams), ("bphi", ProfileParams),
                 ("P_0", ctypes.c_double), ("gamma", ctypes.c_double),
                 ("amp2", ctypes.c_double), ("pw2", ctypes.c_double),
-                ("pw2_m1", ctypes.c_double), ("B0_sq", ctypes.c_double)]
+                ("pw2_m1", ctypes.c_double), ("B0_sq", ctypes.c_double),
+                *EXTERIOR_FIELDS]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,7 +127,8 @@ def disp_params(case: CaseConfig) -> DispParams:
         twisted=int(twisted),
         vphi=profile_params(tp, 0.0, 0.0), bphi=profile_params(bp, 0.0, 0.0),
         P_0=rg.P_0, gamma=g, amp2=tp.amplitude ** 2, pw2=2.0 * tp.power,
-        pw2_m1=2.0 * tp.power - 1.0, B0_sq=rg.B_0 ** 2)
+        pw2_m1=2.0 * tp.power - 1.0, B0_sq=rg.B_0 ** 2,
+        **exterior_params(case))
     return DispParams(case=case, struct=s)
 
 
@@ -155,9 +163,12 @@ TW_EVAL_MAX = {torch.float32: 28672, torch.float64: 14336}
 
 
 def _check_scan_shape(shape: ScanShape, dtype: torch.dtype,
-                      twisted: bool = False) -> None:
-    check_scan_shape("cylinder_disp", shape,
-                     (TW_SCAN_THREADS,) if twisted else (128, 256, 512),
+                      twisted: bool = False, numeric: bool = False) -> None:
+    # the numeric exterior's untwisted scan is built at SCAN_SHAPE's
+    # threads only
+    threads = ((TW_SCAN_THREADS,) if twisted else
+               (SCAN_SHAPE.threads,) if numeric else (128, 256, 512))
+    check_scan_shape("cylinder_disp", shape, threads,
                      _ENTRY_BYTES[dtype, twisted])
 
 
@@ -187,7 +198,8 @@ def cylinder_disp(omega: torch.Tensor, k: torch.Tensor, m: torch.Tensor,
     else:
         shape = ScanShape(*(shape or (TW_SCAN_SHAPE[omega.dtype] if twisted
                                       else SCAN_SHAPE)))
-        _check_scan_shape(shape, omega.dtype, twisted)
+        _check_scan_shape(shape, omega.dtype, twisted,
+                          bool(params.struct.exterior_numeric))
         det, mism, valid = launch_disp(
             "cylinder_disp", _ENTRY, "eigk_cylinder_params_size",
             params.struct, omega, k, m, shape)
@@ -209,7 +221,8 @@ def cylinder_bisect(lo: torch.Tensor, hi: torch.Tensor, k: torch.Tensor,
     None without final_eval. A CUDA tensor launches the fused kernel
     `cylinder_bisect` once (block shape `shape`: a BisectShape, default
     `common.bisect_shape`; for the twisted chain the speculative kernel's
-    SpecShape, default `common.spec_shape`); a CPU tensor runs
+    SpecShape, default `common.spec_shape`, for the numeric exterior its
+    SpecShape, default `common.numeric_spec_shape`); a CPU tensor runs
     `search.bisect_loop` over the plain dispersion."""
     global bisect_launches
     if lo.dtype not in _BISECT_ENTRY:
@@ -219,11 +232,17 @@ def cylinder_bisect(lo: torch.Tensor, hi: torch.Tensor, k: torch.Tensor,
         from ..search import bisect_loop
         return bisect_loop(_plain(params, lo.dtype), lo, hi, k, m, n_iter,
                            final_eval)
-    if params.struct.twisted:
+    twisted = bool(params.struct.twisted)
+    eb = _ENTRY_BYTES[lo.dtype, twisted]
+    if twisted:
         out = launch_spec("cylinder_bisect", _SPEC_ENTRY,
-                          "eigk_cylinder_params_size", params.struct,
-                          _ENTRY_BYTES[lo.dtype, True], lo, hi, k, m, n_iter,
-                          final_eval, shape)
+                          "eigk_cylinder_params_size", params.struct, eb, lo,
+                          hi, k, m, n_iter, final_eval, shape)
+    elif params.struct.exterior_numeric:
+        out = launch_spec("cylinder_bisect", _NUM_SPEC_ENTRY,
+                          "eigk_cylinder_params_size", params.struct, eb, lo,
+                          hi, k, m, n_iter, final_eval, shape or
+                          numeric_spec_shape(lo.numel(), lo.dtype, eb))
     else:
         out = launch_bisect("cylinder_bisect", _BISECT_ENTRY,
                             "eigk_cylinder_params_size", params.struct, lo,

@@ -3,14 +3,17 @@
 
 `slab_disp` (`csrc/slab_disp.cu`) is the port of the XLA-fused
 `jit(vmap(disp))` of `eigensolver_tpu/physics/slab.py` (slab.py:285-406,
-real omega, exact exterior): one thread per (omega, k, parity) candidate
+real omega; the exact exterior, or the numeric one of `ode.py:75-110` in a
+variant the parameters pick): one thread per (omega, k, parity) candidate
 carries the whole RK4 shoot from the slab centre to its edge in registers,
 in the flux form (density cases) or the shear form (flow cases), reading
 the chain's x-only values from a table that its block computes in shared
 memory, chunk by chunk.
 `slab_bisect` (same file, `csrc/bisect.cuh`) runs a whole fixed-count
 bisection of a bracket batch over the same chain in one launch
-(`eigensolver_tpu/search.py:142-169`, :468-522).
+(`eigensolver_tpu/search.py:142-169`, :468-522); with the numeric exterior
+on the speculative kernel, whose producers read the x-only values from a
+table as the scan does.
 
 A CPU tensor goes to the plain version
 (`physics.slab.SlabPhysics.make_dispersion_plain`, and `search.bisect_loop`
@@ -26,9 +29,10 @@ from typing import Optional
 import torch
 
 from ..config import CaseConfig, ProfileKind
-from .common import (_SMS, BisectShape, ProfileParams, ScanShape,
-                     check_scan_shape, density_flow_params, launch_bisect,
-                     launch_disp)
+from .common import (_SMS, EXTERIOR_FIELDS, ProfileParams, ScanShape,
+                     check_scan_shape, density_flow_params, exterior_params,
+                     launch_bisect, launch_disp, launch_spec,
+                     numeric_spec_shape)
 
 # launches of the kernels since the last reset (one per kernel launch):
 # slab_disp, and the fused bisection slab_bisect
@@ -39,6 +43,9 @@ _ENTRY = {torch.float32: "eigk_slab_disp_f32",
           torch.float64: "eigk_slab_disp_f64"}
 _BISECT_ENTRY = {torch.float32: "eigk_slab_bisect_f32",
                  torch.float64: "eigk_slab_bisect_f64"}
+# the numeric exterior's fused bisection, on the speculative kernel
+_SPEC_ENTRY = {torch.float32: "eigk_slab_spec_f32",
+               torch.float64: "eigk_slab_spec_f64"}
 
 
 class _SlabParams(ctypes.Structure):
@@ -54,7 +61,8 @@ class _SlabParams(ctypes.Structure):
                 ("sc2", ctypes.c_double), ("sa2", ctypes.c_double),
                 ("scT2", ctypes.c_double), ("sca", ctypes.c_double),
                 ("n_interior", ctypes.c_int), ("shear", ctypes.c_int),
-                ("legacy_D", ctypes.c_int), ("shear_pressure", ctypes.c_int)]
+                ("legacy_D", ctypes.c_int), ("shear_pressure", ctypes.c_int),
+                *EXTERIOR_FIELDS]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,7 +96,7 @@ def disp_params(case: CaseConfig, include_shear_pressure: bool = False
         sc2=c2, sa2=a2, scT2=c2 * a2 / (c2 + a2), sca=c2 + a2,
         n_interior=case.grid.n_interior, shear=int(not zero_flow),
         legacy_D=int(case.shear_D_legacy),
-        shear_pressure=int(include_shear_pressure))
+        shear_pressure=int(include_shear_pressure), **exterior_params(case))
     return DispParams(case=case, include_shear_pressure=include_shear_pressure,
                       struct=s)
 
@@ -98,6 +106,9 @@ def disp_params(case: CaseConfig, include_shear_pressure: bool = False
 _ENTRY_BYTES = {(False, torch.float32): 32, (False, torch.float64): 48,
                 (True, torch.float32): 16, (True, torch.float64): 32}
 _THREADS = (32, 64, 128, 256, 512)
+# the numeric exterior's scan is built only at the shapes scan_shape picks,
+# by shear form
+_NUM_THREADS = {False: (128, 256), True: (128,)}
 
 # The scan's launch shapes, from timings on an H100 (`tools_torch/tune_disp.py`,
 # PERF.md section 6): 256 threads a block for the flux form's scans; 128 for
@@ -117,8 +128,9 @@ def scan_shape(n: int, shear: bool) -> ScanShape:
 
 
 def _check_scan_shape(shape: ScanShape, dtype: torch.dtype,
-                      shear: bool) -> None:
-    check_scan_shape("slab_disp", shape, _THREADS,
+                      shear: bool, numeric: bool = False) -> None:
+    check_scan_shape("slab_disp", shape,
+                     _NUM_THREADS[bool(shear)] if numeric else _THREADS,
                      _ENTRY_BYTES[(bool(shear), dtype)])
 
 
@@ -133,7 +145,8 @@ def slab_disp(omega: torch.Tensor, k: torch.Tensor, parity: torch.Tensor,
     shear = bool(params.struct.shear)
     shape = ScanShape(*(shape or scan_shape(omega.numel(), shear)))
     if omega.dtype in _ENTRY:     # launch_disp raises on the others
-        _check_scan_shape(shape, omega.dtype, shear)
+        _check_scan_shape(shape, omega.dtype, shear,
+                          bool(params.struct.exterior_numeric))
     if omega.device.type == "cpu":
         return _plain(params, omega.dtype)(omega, k, parity)
     det, mism, valid = launch_disp(
@@ -152,13 +165,15 @@ def _plain(params: DispParams, dtype: torch.dtype):
 
 def slab_bisect(lo: torch.Tensor, hi: torch.Tensor, k: torch.Tensor,
                 parity: torch.Tensor, n_iter: int, params: DispParams,
-                final_eval: bool = True, shape: Optional[BisectShape] = None):
+                final_eval: bool = True, shape=None):
     """Fixed-count bisection of the brackets [lo, hi] at (k, parity), 1-D
     tensors of one dtype and device: (root, mismatch at the root), mismatch
     None without final_eval. A CUDA tensor launches the fused kernel
-    `slab_bisect` once (block shape `shape`, default
-    `common.bisect_shape`); a CPU tensor runs `search.bisect_loop` over the
-    plain dispersion."""
+    `slab_bisect` once (block shape `shape`: a BisectShape, default
+    `common.bisect_shape`; with the numeric exterior the speculative
+    kernel's SpecShape, default `common.numeric_spec_shape`); a CPU tensor
+    runs
+    `search.bisect_loop` over the plain dispersion."""
     global bisect_launches
     if lo.dtype not in _BISECT_ENTRY:
         raise TypeError(f"slab_bisect takes float32/float64, not {lo.dtype}")
@@ -166,8 +181,15 @@ def slab_bisect(lo: torch.Tensor, hi: torch.Tensor, k: torch.Tensor,
         from ..search import bisect_loop
         return bisect_loop(_plain(params, lo.dtype), lo, hi, k, parity,
                            n_iter, final_eval)
-    out = launch_bisect("slab_bisect", _BISECT_ENTRY, "eigk_slab_params_size",
-                        params.struct, lo, hi, k, parity, n_iter, final_eval,
-                        shape)
+    if params.struct.exterior_numeric:
+        eb = _ENTRY_BYTES[(bool(params.struct.shear), lo.dtype)]
+        out = launch_spec("slab_bisect", _SPEC_ENTRY, "eigk_slab_params_size",
+                          params.struct, eb, lo, hi, k, parity, n_iter,
+                          final_eval, shape or numeric_spec_shape(
+                              lo.numel(), lo.dtype, eb))
+    else:
+        out = launch_bisect("slab_bisect", _BISECT_ENTRY,
+                            "eigk_slab_params_size", params.struct, lo, hi, k,
+                            parity, n_iter, final_eval, shape)
     bisect_launches += lo.numel() > 0
     return out

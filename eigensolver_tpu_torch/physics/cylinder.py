@@ -1,8 +1,8 @@
 """Cylinder dispersion function (Hain-Lust P_T formulation) in PyTorch.
 
-Port of `eigensolver_tpu.physics.cylinder` for the real-omega cases with the
-analytic ("bessel") exterior: the density and axial-flow tubes, and the
-twisted ones (rotational flow v_phi and magnetic twist B_phi). Two basis
+Port of `eigensolver_tpu.physics.cylinder` for the real-omega cases: the
+density and axial-flow tubes, and the twisted ones (rotational flow v_phi
+and magnetic twist B_phi). Two basis
 solutions (P, w = F P') are integrated inward from r = 1 to eps (and, for
 the non-twisted tubes, on down a log-spaced tail to eps_final), and the 2x2
 determinant
@@ -10,7 +10,9 @@ determinant
     D(omega, k) = axis(u1) * match(u2) - axis(u2) * match(u1) + J xi_e xi2
 
 combines the axis condition (kink: P(eps) = 0; sausage: P'(eps) = 0) with
-continuity of xi_r against the decaying exterior K_m(sqrt(m_e) r); the
+continuity of xi_r against the decaying exterior K_m(sqrt(m_e) r) ("bessel")
+or, with exterior_method="numeric", the exterior integrated inward from
+r_far = W 2 pi / k in t = ln r (`ode.rk4_final`, cylinder.py:319-351); the
 twisted kink adds the jump term J = B_phi(1)^2 - rho v_phi(1)^2.
 
 The twisted chain needs d(r C1/C3)/dr, which the JAX package takes from
@@ -26,11 +28,12 @@ tensor. The plain version is the JAX code's arithmetic, expression for
 expression, with a Python loop over RK4 steps on tensors of candidates in
 place of `lax.scan` over a vmapped scalar.
 
-Not ported yet: complex omega (ROADMAP A10); the numeric exterior (A8).
+Not ported yet: complex omega (ROADMAP A10).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, NamedTuple
 
 import torch
@@ -39,6 +42,7 @@ from ..config import CaseConfig, ProfileConfig, ProfileKind
 from ..dual import Dual, dsqrt, over, recip
 from ..equilibrium import Equilibrium, make_equilibrium
 from .. import special
+from ..ode import rk4_final
 from ..profiles import div, make_profile_derivative, power, rdiv, sqrt
 
 # plain (eager PyTorch) dispersion evaluations since the last reset
@@ -135,9 +139,9 @@ class TwistedChain(NamedTuple):
 def _check_supported(case: CaseConfig):
     if case.complex_omega:
         raise NotImplementedError("complex omega: ROADMAP A10")
-    if case.grid.exterior_method != "bessel":
-        raise NotImplementedError(
-            f"exterior_method={case.grid.exterior_method!r}: ROADMAP A8")
+    if case.grid.exterior_method not in ("bessel", "numeric"):
+        raise ValueError(
+            f"unknown exterior_method {case.grid.exterior_method!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -328,6 +332,25 @@ class CylinderPhysics:
 
         return Dfun, C1fun, C3fun, Ffun, invF_g
 
+    def numeric_exterior(self, m_e, k, mm):
+        """dP/dr / P at r = 1 of the exterior solution (cylinder.py:
+        319-351): n_exterior RK4 steps in t = ln r of (P, dP/dt)' = (dP/dt,
+        (m^2 + m_e e^{2t}) P) from t = ln r_far, r_far = W 2 pi / k (W 2 pi
+        a Python float, then divided in k's dtype), down to 0, from (1e-8,
+        -1e-8 r_far)."""
+        gr = self.case.grid
+        r_far = rdiv(gr.exterior_wavelengths * 2.0 * math.pi, k)
+
+        def rhs(t, y):
+            P, Pdot = y
+            return (Pdot, (mm * mm + m_e * torch.exp(2.0 * t)) * P)
+
+        y0 = (torch.full((), 1e-8, dtype=k.dtype, device=k.device),
+              -1e-8 * r_far)
+        P, dP = rk4_final(rhs, y0, torch.log(r_far), torch.zeros_like(r_far),
+                          gr.n_exterior)
+        return dP / P
+
     def exterior_m(self, omega, k):
         rg = self.eq.regime
         num = (k**2 * rg.vA_e**2 - omega**2) * (k**2 * rg.c_e**2 - omega**2)
@@ -389,12 +412,17 @@ class CylinderPhysics:
             xi1 = C1_1 * 1.0 / C3_1 + zero          # u1: P=1, w=0
             xi2 = F1 / 1.0                           # u2: P=0, w=F(1)
 
-            # ---- exterior: decaying K_m solution, log-derivative at r=1 -----
+            # ---- exterior: log-derivative at r=1 of the decaying solution --
             m_e = self.exterior_m(omega, k)
-            floor = torch.tensor(1e-300, dtype=dtype, device=dev)  # 0 in f32
-            sq = sqrt(torch.maximum(m_e, floor))
-            r0, r1_ = special.kve_ratio_both(sq)
-            dP_e = sq * torch.where(is_sausage, r0, r1_)
+            if gr.exterior_method == "numeric":
+                # integrated inward from r_far with tiny start values
+                dP_e = self.numeric_exterior(m_e, k, mm)
+            else:
+                # K_m(sqrt(m_e) r); the floor is 0 in f32
+                floor = torch.tensor(1e-300, dtype=dtype, device=dev)
+                sq = sqrt(torch.maximum(m_e, floor))
+                r0, r1_ = special.kve_ratio_both(sq)
+                dP_e = sq * torch.where(is_sausage, r0, r1_)
             P_e = torch.ones_like(dP_e)
             xi_e = dP_e / (rg.rho_e * (omega ** 2 - k ** 2 * rg.vA_e ** 2))
 

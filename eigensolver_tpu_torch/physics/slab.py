@@ -1,8 +1,8 @@
 """Slab dispersion function (vx formulation) in PyTorch.
 
-Port of `eigensolver_tpu.physics.slab` for the real-omega cases with the
-exact exponential exterior. From the slab centre x = 0 to the edge x = 1
-the interior is integrated in one of two forms:
+Port of `eigensolver_tpu.physics.slab` for the real-omega cases. From the
+slab centre x = 0 to the edge x = 1 the interior is integrated in one of two
+forms:
 
 - density cases (no flow): the self-adjoint flux form, state (vx, w = F vx'),
   d(vx, w)/dx = (w / F, F m0 vx); parity sets the start (sausage (0, F(0)),
@@ -13,7 +13,10 @@ the interior is integrated in one of two forms:
   the JAX code's `jax.grad`); start (0, 1) for sausage, (1, 0) for kink.
 
 The determinant matches xi = vx / Omega and the total pressure against the
-decaying exterior vx_e = exp(-sqrt(m_e) (x - 1)).
+exterior: the exact decaying vx_e = exp(-sqrt(m_e) (x - 1)), or with
+exterior_method="numeric" (the reference's own, for parity with its
+pickles) vx'/vx at x = 1 of (vx, vx')' = (vx', m_e vx) integrated inward from
+x = 1 + W 2 pi / k (`ode.rk4_final_renorm`, slab.py:362-381).
 
 `make_dispersion` returns the batched function the search calls; it hands
 its inputs to `kernels.slab.slab_disp`, which launches the CUDA kernel on a
@@ -22,17 +25,19 @@ CPU tensor. The plain version is the JAX code's arithmetic, expression for
 expression, with a Python loop over RK4 steps on tensors of candidates in
 place of `lax.scan` over a vmapped scalar.
 
-Not ported yet: complex omega (ROADMAP A10), the numeric exterior (A8/B6).
+Not ported yet: complex omega (ROADMAP A10).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from ..config import CaseConfig, ProfileKind
 from ..equilibrium import Equilibrium, make_equilibrium
+from ..ode import rk4_final_renorm
 from ..profiles import div, make_profile_derivative, rdiv, sqrt
 
 # plain (eager PyTorch) dispersion evaluations since the last reset
@@ -88,9 +93,9 @@ class SlabInterface(NamedTuple):
 def _check_supported(case: CaseConfig):
     if case.complex_omega:
         raise NotImplementedError("complex omega (KH growth rates): ROADMAP A10")
-    if case.grid.exterior_method == "numeric":
-        raise NotImplementedError(
-            "exterior_method='numeric' (slab): ROADMAP A8/B6")
+    if case.grid.exterior_method not in ("bessel", "numeric"):
+        raise ValueError(
+            f"unknown exterior_method {case.grid.exterior_method!r}")
 
 
 def _sq(x):
@@ -136,6 +141,20 @@ class SlabPhysics:
         return (rg.rho_e * (rg.vA_e ** 2 + rg.c_e ** 2)
                 * (k ** 2 * rg.cT_e ** 2 - Om ** 2)
                 / (Om * (k ** 2 * rg.c_e ** 2 - Om ** 2)))
+
+    def numeric_exterior(self, m_e, k):
+        """vx'/vx at x = 1 of the exterior solution (slab.py:362-381):
+        n_exterior RK4 steps of (vx, vx')' = (vx', m_e vx) from x = 1 + L,
+        L = W 2 pi / k (W 2 pi a Python float, then divided in k's dtype),
+        down to 1, from (1e-8, -1e-15), renormalised every 64 steps."""
+        gr = self.case.grid
+        x0 = 1.0 + rdiv(gr.exterior_wavelengths * 2.0 * math.pi, k)
+        one = torch.ones((), dtype=k.dtype, device=k.device)
+        y0 = tuple(torch.full((), v, dtype=k.dtype, device=k.device)
+                   for v in (1e-8, -1e-15))
+        (vx, dvx), _ = rk4_final_renorm(lambda x, y: (y[1], m_e * y[0]), y0,
+                                        x0, one, gr.n_exterior)
+        return dvx / vx
 
     def interior_F(self, x, omega, k):
         eq = self.eq
@@ -220,6 +239,7 @@ class SlabPhysics:
         _check_supported(self.case)
         case, eq = self.case, self.eq
         n_steps = case.grid.n_interior
+        numeric = case.grid.exterior_method == "numeric"
         has_flow = self.has_flow
         if include_shear_pressure is None:
             include_shear_pressure = case.complex_omega
@@ -261,7 +281,10 @@ class SlabPhysics:
                     PT_i = (F1 / Om_i) * (dvx_b - add * vx_b)
 
             Om_e = omega - k * eq.regime.U_e
-            PT_e = p_e * (-sqm)                 # vx_e = exp(-sqm (x - 1))
+            if numeric:
+                PT_e = p_e * self.numeric_exterior(m_e, k)
+            else:
+                PT_e = p_e * (-sqm)             # vx_e = exp(-sqm (x - 1))
             xi_e = rdiv(1.0, Om_e)
             xi_i = vx_b / Om_i
             det = xi_i * PT_e - xi_e * PT_i

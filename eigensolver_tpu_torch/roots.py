@@ -1,8 +1,8 @@
 """Root-set container and dedup (PyTorch port).
 
-A copy of `eigensolver_tpu.roots:RootBranch, RootSet, dedup_roots` - host-side
-numpy, no framework - held here because importing the JAX package loads jax.
-Merging (needle pass, ROADMAP A11), complex dedup (A10) and the
+A copy of `eigensolver_tpu.roots:RootBranch, RootSet, dedup_roots,
+merge_rootsets` - host-side numpy, no framework - held here because importing
+the JAX package loads jax. Complex dedup (ROADMAP A10) and the
 reference-pickle formats (A12) are not ported yet.
 """
 from __future__ import annotations
@@ -68,3 +68,21 @@ def dedup_roots(omegas: np.ndarray, ks: np.ndarray, rel_tol: float = 1e-4,
     if extras is None:
         return om[keep], kk[keep]
     return (om[keep], kk[keep], *[np.asarray(e)[order][keep] for e in extras])
+
+
+def merge_rootsets(a: RootSet, b: RootSet, rel_tol: float = 1e-6) -> RootSet:
+    """Union of two sweeps' branches with duplicate removal (port of
+    `eigensolver_tpu.roots.merge_rootsets`, roots.py:78-95): the second set
+    is typically a needle pass (`sweep.run_needle_pass`), whose roots sit
+    closer than the production dedup tolerance, so the default dedup is
+    1e-6 relative. As in the JAX package: omegas_imag is not carried over,
+    and near-duplicate pairs farther apart than rel_tol both stay
+    (ROADMAP C, reference defects)."""
+    branches = {}
+    for bname in set(a.branches) | set(b.branches):
+        parts = [s.branches[bname] for s in (a, b) if bname in s.branches]
+        om = np.concatenate([p.omegas for p in parts])
+        kk = np.concatenate([p.ks for p in parts])
+        om, kk = dedup_roots(om, kk, rel_tol=rel_tol)
+        branches[bname] = RootBranch(omegas=om, ks=kk).sorted_by_k()
+    return RootSet(branches, case_name=a.case_name or b.case_name)

@@ -13,10 +13,12 @@ PyTorch runs eagerly, so the JAX package's fused-pipeline cache, the
 128-row padding (which bounded XLA recompiles) and the 1.2M-cell chunking
 (which bounded TPU VMEM) have no counterpart here. The f64 re-bisection of
 f32 roots (`refine_on_cpu` there, `refine_roots_f64` here) runs on the
-sweep's own device. The row-local continuum mask of the twisted family
-(`exclude_omega_rowfn`) sits between scan and bracketing. Not ported yet:
-the reference-parity fuzz acceptance, the phase-speed continuum masks and
-the pole pre-filter (ROADMAP A11), the complex-omega search (A10).
+sweep's own device. The continuum masks (the phase-speed ranges
+`exclude_v_ranges`, the twisted family's row-local `exclude_omega_rowfn`)
+and the pole pre-filter (`pole_det_factor`) sit between scan and
+bracketing; the reference-parity fuzz acceptance (`fuzz_accept_pct`) adds
+scan points to the polished roots. Not ported yet: the complex-omega search
+(ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -44,8 +46,8 @@ class PolishResult(NamedTuple):
     mismatch: torch.Tensor  # (B,) reference-style % residual at the root
     mask: torch.Tensor      # (B,) bracket validity / acceptance
     mode: Optional[torch.Tensor] = None
-    # (B,) bool: entry is a reference-parity fuzz record; None = all polished
-    # (always, until fuzz acceptance is ported: ROADMAP A11)
+    # (B,) bool: entry is a reference-parity fuzz record (a scan point, kept
+    # at its seed by the f64 refinement); None = all polished
     fuzz: Optional[torch.Tensor] = None
 
 
@@ -70,12 +72,34 @@ def ladder_scan(disp_batch: Callable, omegas: torch.Tensor, ks: torch.Tensor,
     return det, valid, mism
 
 
+def nanmedian(x: torch.Tensor) -> torch.Tensor:
+    """The median of each row's non-NaN values, (rows, 1), as
+    `jnp.nanmedian(x, axis=1, keepdims=True)` forms it: of an even count
+    the mean of the two middle values, low 0.5 + high 0.5 in float64, then
+    rounded to x's dtype (`torch.nanmedian` takes the lower of the two);
+    NaN for a row without one. Sorts each row."""
+    v = torch.sort(x, dim=1).values              # NaN sorts last
+    count = (~torch.isnan(v)).sum(dim=1, keepdim=True)
+    half = 0.5 * (count - 1).to(torch.float64)
+    lo = half.floor().clamp(min=0).long()
+    hi = half.ceil().clamp(min=0).long()
+    w_hi = half - half.floor()
+    med = (v.gather(1, lo).to(torch.float64) * (1.0 - w_hi)
+           + v.gather(1, hi).to(torch.float64) * w_hi)
+    return torch.where(count > 0, med, torch.nan).to(x.dtype)
+
+
 def find_brackets(omegas: torch.Tensor, ks: torch.Tensor, det: torch.Tensor,
                   valid: torch.Tensor, max_per_row: int,
                   modes: Optional[torch.Tensor] = None,
                   pole_det_factor: Optional[float] = None,
                   mism: Optional[torch.Tensor] = None) -> BracketBatch:
     """Select up to `max_per_row` sign-change brackets per ladder row.
+
+    pole_det_factor: when set, drop sign changes whose smaller endpoint
+    |det| exceeds pole_det_factor x the row's median finite |det|
+    (`nanmedian`; the product in det's dtype): at a pole crossing both
+    endpoints are huge against the row, at a root one is small.
 
     mism: optional (rows, n_omega) residual %. When given, a saturated row
     keeps the `max_per_row` brackets with the smallest endpoint residual;
@@ -84,12 +108,17 @@ def find_brackets(omegas: torch.Tensor, ks: torch.Tensor, det: torch.Tensor,
     promises no order among ties). Rows with fewer brackets are filled with
     the lowest-index non-bracket columns, mask False.
     """
-    if pole_det_factor is not None:
-        raise NotImplementedError("pole_det_factor: ROADMAP A11")
     finite = torch.isfinite(det)
     ok = valid & finite
     neg = torch.signbit(det)
     is_br = (neg[:, :-1] != neg[:, 1:]) & ok[:, :-1] & ok[:, 1:]
+    if pole_det_factor is not None:
+        absd = torch.abs(det)
+        med = nanmedian(torch.where(ok, absd, torch.nan))
+        lo_mag = torch.minimum(absd[:, :-1], absd[:, 1:])
+        bound = torch.tensor(pole_det_factor, dtype=det.dtype,
+                             device=det.device) * med
+        is_br = is_br & (lo_mag <= bound)
     n_in_row = is_br.sum(dim=1)
     max_per_row = min(max_per_row, is_br.shape[1])
     if mism is not None:
@@ -197,8 +226,7 @@ def bisect(disp_batch: Callable, br: BracketBatch, n_iter: int,
 @dataclasses.dataclass(frozen=True)
 class SearchConfig:
     """Field for field `eigensolver_tpu.search.SearchConfig`, same defaults
-    (see the comments there). The fields marked below are not ported yet
-    and raise when set."""
+    (see the comments there)."""
     n_omega: int = 256
     max_brackets_per_row: int = 8
     n_bisect: int = 60
@@ -206,11 +234,16 @@ class SearchConfig:
     accept_pct_refined: Optional[float] = None   # with refine_f64
     scan_dtype: str = "float64"
     polish_dtype: str = "float64"
-    fuzz_accept_pct: Optional[float] = None      # A11
+    # reference-parity acceptance: also record the scan points (every
+    # fuzz_stride-th, |omega/k| inside fuzz_v_ranges) whose residual is
+    # below fuzz_accept_pct (the local minima and each run's first)
+    fuzz_accept_pct: Optional[float] = None
     fuzz_stride: int = 1
     fuzz_v_ranges: Optional[tuple] = None
-    pole_det_factor: Optional[float] = None      # A11
-    exclude_v_ranges: Optional[tuple] = None     # A11
+    pole_det_factor: Optional[float] = None      # find_brackets
+    # signed phase-speed ranges (lo, hi[, label]) masked for bracket
+    # formation, typically `equilibrium.genuine_continua(case)`
+    exclude_v_ranges: Optional[tuple] = None
     # row-local omega mask: fn(ks, ms) -> (lo, hi), (rows, n_bands) each,
     # typically `equilibrium.genuine_continua_rowfn(case)`; bracket
     # formation is masked for omega strictly inside any [lo_j, hi_j] of its
@@ -235,12 +268,6 @@ def torch_dtype(name: str) -> torch.dtype:
     return {"float32": torch.float32, "float64": torch.float64}[name]
 
 
-def _check_supported(cfg: SearchConfig):
-    for name in ("fuzz_accept_pct", "pole_det_factor", "exclude_v_ranges"):
-        if getattr(cfg, name) is not None:
-            raise NotImplementedError(f"SearchConfig.{name}: ROADMAP A11")
-
-
 def mask_rows(omegas: torch.Tensor, ks: torch.Tensor,
               modes: Optional[torch.Tensor], det: torch.Tensor,
               rowfn: Callable) -> torch.Tensor:
@@ -256,21 +283,87 @@ def mask_rows(omegas: torch.Tensor, ks: torch.Tensor,
     return torch.where(in_band, torch.full_like(det, torch.nan), det)
 
 
+def _bound(x: float, like: torch.Tensor) -> torch.Tensor:
+    """A Python-float bound as the JAX code compares with it: weakly typed,
+    so rounded to the dtype of the tensor it meets (f32 in an f32 scan)."""
+    return torch.tensor(x, dtype=like.dtype, device=like.device)
+
+
+def mask_v_ranges(omegas: torch.Tensor, ks: torch.Tensor, det: torch.Tensor,
+                  ranges) -> torch.Tensor:
+    """det with NaN where the phase speed omega/k lies strictly inside any
+    (lo, hi[, ...]) of `ranges` (eigensolver_tpu/search.py:262-267): v and
+    the comparison in the ladder's dtype, the bounds rounded to it."""
+    v = omegas / ks[:, None]
+    excl = torch.zeros(det.shape, dtype=torch.bool, device=det.device)
+    for lo_v, hi_v, *_ in ranges:
+        excl = excl | ((v > _bound(lo_v, v)) & (v < _bound(hi_v, v)))
+    return torch.where(excl, torch.full_like(det, torch.nan), det)
+
+
+def fuzz_records(omegas: torch.Tensor, ks: torch.Tensor,
+                 modes: Optional[torch.Tensor], valid: torch.Tensor,
+                 mism: torch.Tensor, cfg: SearchConfig) -> PolishResult:
+    """The reference-parity acceptance of the scan itself
+    (eigensolver_tpu/search.py:284-318): on every fuzz_stride-th ladder
+    point, those whose residual is below fuzz_accept_pct and that are a
+    local minimum of it or the first of a run under it, inside
+    fuzz_v_ranges (|omega|/|k|, bounds inclusive) if given. Every
+    comparison in the scan's dtype, the bounds rounded to it. One entry per
+    strided point, mask the acceptance, fuzz True."""
+    sub = slice(None, None, cfg.fuzz_stride)
+    om_f, mism_f, valid_f = omegas[:, sub], mism[:, sub], valid[:, sub]
+    fin = torch.isfinite(mism_f)
+    acc = valid_f & fin & (mism_f < _bound(cfg.fuzz_accept_pct, mism_f))
+    big = torch.where(fin, mism_f, torch.inf)
+    inf_col = torch.full_like(big[:, :1], torch.inf)
+    left = torch.cat([inf_col, big[:, :-1]], dim=1)
+    right = torch.cat([big[:, 1:], inf_col], dim=1)
+    acc_left = torch.cat([torch.zeros_like(acc[:, :1]), acc[:, :-1]], dim=1)
+    keep = acc & ((big <= left) & (big <= right) | ~acc_left)
+    if cfg.fuzz_v_ranges is not None:
+        v = torch.abs(om_f) / torch.abs(ks)[:, None]
+        in_rng = torch.zeros_like(keep)
+        for lo_v, hi_v in cfg.fuzz_v_ranges:
+            in_rng = in_rng | ((v >= _bound(lo_v, v)) & (v <= _bound(hi_v, v)))
+        keep = keep & in_rng
+    n_fuzz = om_f.shape[1]
+    return PolishResult(
+        omega=om_f.reshape(-1), k=ks.repeat_interleave(n_fuzz),
+        mismatch=mism_f.reshape(-1), mask=keep.reshape(-1),
+        mode=None if modes is None else modes.repeat_interleave(n_fuzz),
+        fuzz=torch.ones(om_f.numel(), dtype=torch.bool, device=om_f.device))
+
+
+def _concat(a: PolishResult, b: PolishResult) -> PolishResult:
+    """a's entries then b's, each field in the wider of the two dtypes."""
+    def cat(x, y):
+        if x is None or y is None:
+            return None
+        dt = torch.promote_types(x.dtype, y.dtype)
+        return torch.cat([x.to(dt), y.to(dt)])
+    return PolishResult(*(cat(x, y) for x, y in zip(a, b)))
+
+
 def search_rows(disp_batch_scan: Callable, disp_batch_polish: Callable,
                 omegas: torch.Tensor, ks: torch.Tensor, cfg: SearchConfig,
                 modes: Optional[torch.Tensor] = None) -> PolishResult:
-    """Scan -> bracket -> bisect -> accept for one ladder batch.
+    """Scan -> mask -> bracket -> bisect -> accept for one ladder batch.
 
     omegas: (rows, n_omega) ladders; ks: (rows,); modes: optional (rows,)
     mode column (fused sausage+kink sweep). Returns a PolishResult of
-    rows * max_brackets_per_row entries whose mask includes acceptance."""
-    _check_supported(cfg)
+    rows * max_brackets_per_row entries whose mask includes acceptance,
+    then, with fuzz_accept_pct, one fuzz record per strided scan point
+    (`fuzz_records`; `fuzz` marks them)."""
     det, valid, mism = ladder_scan(disp_batch_scan, omegas, ks, modes)
+    # the masks take det alone: valid and mism stay unmasked, as in the JAX
+    # package, so the fuzz records see the whole scan
+    if cfg.exclude_v_ranges:
+        det = mask_v_ranges(omegas, ks, det, cfg.exclude_v_ranges)
     if cfg.exclude_omega_rowfn is not None:
-        # valid and mism stay unmasked, as in the JAX package
         det = mask_rows(omegas, ks, modes, det, cfg.exclude_omega_rowfn)
     br = find_brackets(omegas, ks, det, valid, cfg.max_brackets_per_row,
-                       modes, mism=mism)
+                       modes, pole_det_factor=cfg.pole_det_factor, mism=mism)
     n_sat = int((br.n_in_row > cfg.max_brackets_per_row).sum())
     if n_sat:
         warnings.warn(
@@ -283,7 +376,11 @@ def search_rows(disp_batch_scan: Callable, disp_batch_polish: Callable,
                 dtype=torch_dtype(cfg.polish_dtype))
     accepted = (pr.mask & torch.isfinite(pr.mismatch)
                 & (pr.mismatch < cfg.accept_pct))
-    return pr._replace(mask=accepted)
+    pr = pr._replace(mask=accepted)
+    if cfg.fuzz_accept_pct is None:
+        return pr
+    return _concat(pr._replace(fuzz=torch.zeros_like(accepted)),
+                   fuzz_records(omegas, ks, modes, valid, mism, cfg))
 
 
 def collect(pr: PolishResult, with_fuzz: bool = False):

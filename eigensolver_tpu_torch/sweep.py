@@ -7,9 +7,10 @@ device, then gathered, deduplicated and sorted on the host.
 
 Every public entry takes an explicit `device` ("cpu", "cuda", ...): on a
 CUDA device the dispersion runs the `slab_disp` or `cylinder_disp` kernel,
-on the CPU its plain version. The f64 refinement (`refine_f64=True`) runs on
-the same device. Not ported yet: the complex-omega sweep (ROADMAP A10), the
-needle pass (A11), checkpointed sweeps (A12).
+on the CPU its plain version. The f64 refinement (`refine_f64=True`) and the
+band-edge (needle) pass (`run_needle_pass`, which the JAX package runs on
+the host CPU) run on the same device. Not ported yet: the complex-omega
+sweep (ROADMAP A10), checkpointed sweeps (A12).
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import torch
 from .config import CaseConfig, Geometry
 from .physics.cylinder import CylinderPhysics
 from .physics.slab import SlabPhysics
+from .equilibrium import genuine_continua
 from .roots import RootBranch, RootSet, dedup_roots
 from .search import (SearchConfig, collect, refine_roots_f64, search_rows,
                      torch_dtype)
@@ -115,8 +117,8 @@ def finalize_branches(pr, modes, case: CaseConfig, search: SearchConfig,
     om, kk, _, md, fz = collect(pr, with_fuzz=True)
     sel = {mode: np.abs(md - float(mode)) < 0.5 for mode in modes}
     if refine_f64:
-        # only polished roots are refined; fuzz records (ROADMAP A11, none
-        # yet) would keep their scan seeds
+        # only polished roots are refined; fuzz records keep their scan
+        # seeds (the reference records its swath entries at them)
         parts = [dedup_roots(om[sel[m] & ~fz], kk[sel[m] & ~fz],
                              rel_tol=case.tol.dedup_rel) for m in modes]
         om_r = np.concatenate([p[0] for p in parts])
@@ -157,6 +159,122 @@ def finalize_branches(pr, modes, case: CaseConfig, search: SearchConfig,
         name = MODE_NAMES.get(mode, f"m{mode}")
         branches[name] = RootBranch(omegas=om_m, ks=kk_m).sorted_by_k()
     return branches
+
+
+def needle_edges(case: CaseConfig, labels: Optional[tuple] = ("cusp",)):
+    """Continuum band edges where near-edge spectral structure lives (port
+    of `eigensolver_tpu.sweep.needle_edges`, sweep.py:484-505).
+
+    Returns ((edge_v, side, in_band), ...): one thin window per band edge
+    and direction, `side` = +-1 the direction of the window from the edge
+    (v = edge + side |edge| d), `in_band` whether it points into the band;
+    both edges of every genuine band whose label contains one of `labels`
+    (None: every band), the unshrunk boundaries (guard 0)."""
+    edges = []
+    for lo, hi, lab in genuine_continua(case, guard=0.0):
+        if labels is not None and not any(s in lab for s in labels):
+            continue
+        edges.append((float(lo), -1.0, False))
+        edges.append((float(lo), +1.0, True))
+        edges.append((float(hi), -1.0, True))
+        edges.append((float(hi), +1.0, False))
+    return tuple(edges)
+
+
+def run_needle_pass(case: CaseConfig, search: Optional[SearchConfig] = None,
+                    edges=None, modes=None, n_omega: int = 512,
+                    width_rel: float = 3e-3, margin_rel: float = 2e-7,
+                    max_brackets_per_row: int = 128, edge_modes: int = 1,
+                    ks=None, n_interior: Optional[int] = 512, *, device
+                    ) -> tuple[RootSet, SweepStats]:
+    """The band-edge (needle) pass on `device`, in float64 (port of
+    `eigensolver_tpu.sweep.run_needle_pass`, sweep.py:508-619; the JAX
+    package runs it on the host CPU).
+
+    For each k and edge, a window of n_omega phase speeds log-spaced in
+    distance to the edge, from margin_rel to width_rel of |edge|, goes
+    through the main sweep's path (`search_rows`: the scan, the fused
+    bisection, acceptance; then `finalize_branches`) with the case at
+    `n_interior` RK4 steps (None: the case's), dedup at 1e-6 relative, no
+    fuzz acceptance, at most max_brackets_per_row (< n_omega) brackets a
+    row; `search` defaults to SearchConfig(accept_pct=case.tol.p_tol,
+    n_bisect=30). Outside the band every accepted zero is kept; inside,
+    the `edge_modes` nearest the edge per (k, window)
+    (`_filter_edge_modes`). Combine with a main sweep through
+    `roots.merge_rootsets`.
+
+    As in the JAX package (ROADMAP C, reference defects): the caller's
+    exclude_v_ranges and exclude_omega_rowfn stay in force, and so can
+    mask the very windows the pass scans."""
+    device = torch.device(device)
+    if edges is None:
+        edges = needle_edges(case)
+    modes = tuple(modes) if modes is not None else case.modes
+    if not edges:
+        empty = RootBranch(omegas=np.zeros(0), ks=np.zeros(0))
+        return (RootSet({MODE_NAMES.get(m, f"m{m}"): empty for m in modes},
+                        case_name=case.name), SweepStats())
+    search = search or SearchConfig(accept_pct=case.tol.p_tol, n_bisect=30)
+    search = dataclasses.replace(
+        search, scan_dtype="float64", polish_dtype="float64",
+        n_omega=n_omega,
+        max_brackets_per_row=min(max_brackets_per_row, n_omega - 1),
+        fuzz_accept_pct=None, fuzz_stride=1)
+    if n_interior is not None:
+        case = dataclasses.replace(case, grid=dataclasses.replace(
+            case.grid, n_interior=n_interior))
+    # near-edge zeros sit ~1e-5 apart: the production dedup would merge them
+    case = dataclasses.replace(
+        case, tol=dataclasses.replace(case.tol, dedup_rel=1e-6))
+    ks = np.asarray(case.k_grid() if ks is None else ks, dtype=np.float64)
+    d = np.geomspace(margin_rel, width_rel, n_omega)
+    rows_om, rows_k = [], []
+    for k in ks:
+        for edge, side, _ in edges:
+            rows_om.append(np.sort(edge + side * abs(edge) * d) * k)
+            rows_k.append(k)
+    rows = len(rows_k)
+
+    def to_dev(a):
+        return torch.from_numpy(np.asarray(a, np.float64)).to(device)
+
+    omegas_f = to_dev(np.concatenate([np.stack(rows_om)] * len(modes)))
+    ks_f = to_dev(np.concatenate([np.array(rows_k)] * len(modes)))
+    modes_f = to_dev(np.concatenate([np.full(rows, float(m)) for m in modes]))
+    disp = make_dispersion_moded(case, torch.float64)
+    stats = SweepStats()
+    t0 = time.time()
+    pr = search_rows(disp, disp, omegas_f, ks_f, search, modes=modes_f)
+    branches = finalize_branches(pr, modes, case, search)
+    branches = {bn: _filter_edge_modes(br, edges, width_rel, edge_modes)
+                for bn, br in branches.items()}
+    stats.n_roots = sum(len(b) for b in branches.values())
+    stats.n_candidates = omegas_f.numel()
+    stats.wall_s = time.time() - t0
+    return RootSet(branches, case_name=case.name), stats
+
+
+def _filter_edge_modes(branch: RootBranch, edges, width_rel: float,
+                       edge_modes: int) -> RootBranch:
+    """Per (k, in-band window): keep the `edge_modes` roots nearest the
+    edge, drop the rest (sweep.py:622-643). As in the JAX package (ROADMAP
+    C, reference defects): where two in-band windows overlap, a root of one
+    counts against the other, so one can delete the other's innermost
+    marker."""
+    om, kk = branch.omegas, branch.ks
+    keep = np.ones(len(om), dtype=bool)
+    v = np.where(kk != 0, om / np.where(kk != 0, kk, 1.0), 0.0)
+    for edge, side, in_band in edges:
+        if not in_band:
+            continue
+        dist = side * (v - edge) / abs(edge)
+        member = (dist > 0) & (dist <= width_rel)
+        for k in np.unique(kk[member]):
+            idx = np.where(member & (kk == k))[0]
+            if len(idx) > edge_modes:
+                order = np.argsort(dist[idx])
+                keep[idx[order[edge_modes:]]] = False
+    return RootBranch(omegas=om[keep], ks=kk[keep]).sorted_by_k()
 
 
 def run_case(case: CaseConfig, search: Optional[SearchConfig] = None,

@@ -1,10 +1,12 @@
 """The port's configuration modules equal the JAX package's, and the port
 imports without jax."""
 import dataclasses
+import enum
 import subprocess
 import sys
 from pathlib import Path
 
+import jax
 import pytest
 import torch
 
@@ -46,17 +48,6 @@ def _reduced(case, **grid):
     return dataclasses.replace(case, grid=dataclasses.replace(case.grid, **grid))
 
 
-@pytest.mark.parametrize("make_case, what", [
-    (lambda: _reduced(cases.cylinder_density_coronal(),
-                      exterior_method="numeric"), "A8"),
-    (lambda: dataclasses.replace(cases.cylinder_density_coronal(),
-                                 complex_omega=True), "A10"),
-])
-def test_unported_cylinder_variants_raise(make_case, what):
-    with pytest.raises(NotImplementedError, match=what):
-        CylinderPhysics.from_case(make_case()).make_dispersion(m=None)
-
-
 def _tiny_cylinder():
     return dataclasses.replace(
         _reduced(cases.cylinder_density_coronal(), n_interior=8, n_axis_log=4),
@@ -69,16 +60,88 @@ def _tiny_slab(**grid):
         k_values=(1.0,))
 
 
+def _to_jax(value):
+    """The JAX package's config equal to a port config (config.from_jax
+    the other way): dataclasses field by field, enums by value."""
+    from eigensolver_tpu import config as jconfig
+    if isinstance(value, enum.Enum):
+        return getattr(jconfig, type(value).__name__)(value.value)
+    if dataclasses.is_dataclass(value):
+        return getattr(jconfig, type(value).__name__)(**{
+            f.name: _to_jax(getattr(value, f.name))
+            for f in dataclasses.fields(value)})
+    return value
+
+
+class _EagerJax:
+    """jax for the JAX package's search module, with its pipeline left
+    unjitted: the dispersion stays one jitted program (compiled once per
+    shape, shared by these tests), its glue runs op by op."""
+
+    def __getattr__(self, name):
+        return getattr(jax, name)
+
+    @staticmethod
+    def jit(fn, **kw):
+        return fn
+
+
+def _python_fori_loop(lower, upper, body, init):
+    carry = init
+    for i in range(lower, upper):
+        carry = body(i, carry)
+    return carry
+
+
+def _sweep_equals_jax(case, cfg, refine_f64, monkeypatch):
+    """run_case of the port on the CPU gives the JAX package's roots for the
+    same case and config (the same counts, roots to rtol 1e-12). The JAX
+    package's fused pipeline runs as its steps, around the jitted
+    dispersion, so that the cases compile the dispersion once."""
+    from eigensolver_tpu import sweep as jsweep
+    import numpy as np
+    monkeypatch.setattr(jsearch, "jax", _EagerJax())
+    monkeypatch.setattr(jax.lax, "fori_loop", _python_fori_loop)
+    jcase = _to_jax(case)
+    assert config.from_jax(jcase) == case
+    want, _ = jsweep.run_case(jcase, jsearch.SearchConfig(
+        **dataclasses.asdict(cfg)), refine_f64=refine_f64)
+    got, _ = sweep.run_case(case, cfg, device="cpu", refine_f64=refine_f64)
+    assert got.counts() == want.counts()
+    for b in want.branches:
+        np.testing.assert_allclose(got[b].omegas, want[b].omegas, rtol=1e-12)
+        np.testing.assert_array_equal(got[b].ks, want[b].ks)
+    return got
+
+
+# The numeric exterior (A8) and the search options of A11 raised until they
+# were ported; these cases now hold that each runs on the CPU and gives the
+# JAX package's roots. Complex omega (A10) still raises.
+@pytest.mark.parametrize("make_case, what", [
+    (lambda: _reduced(_tiny_cylinder(), exterior_method="numeric"), "A8"),
+    (lambda: dataclasses.replace(cases.cylinder_density_coronal(),
+                                 complex_omega=True), "A10"),
+])
+def test_unported_cylinder_variants_raise(make_case, what, monkeypatch):
+    if what == "A10":
+        with pytest.raises(NotImplementedError, match=what):
+            CylinderPhysics.from_case(make_case()).make_dispersion(m=None)
+        return
+    CylinderPhysics.from_case(make_case()).make_dispersion(m=None)
+    _sweep_equals_jax(make_case(), search.SearchConfig(n_omega=8, n_bisect=2),
+                      False, monkeypatch)
+
+
 @pytest.mark.parametrize("make_case, search_kw, what", [
     (_tiny_cylinder, {"fuzz_accept_pct": 3.0}, "A11"),
     (_tiny_cylinder, {"exclude_v_ranges": ((0.1, 0.2),)}, "A11"),
     (_tiny_cylinder, {"pole_det_factor": 1e3}, "A11"),
     (lambda: _tiny_slab(exterior_method="numeric"), {}, "A8"),
 ])
-def test_unported_sweep_options_raise(make_case, search_kw, what):
+def test_unported_sweep_options_raise(make_case, search_kw, what,
+                                      monkeypatch):
     cfg = search.SearchConfig(n_omega=8, n_bisect=2, **search_kw)
-    with pytest.raises(NotImplementedError, match=what):
-        sweep.run_case(make_case(), cfg, device="cpu", refine_f64=True)
+    _sweep_equals_jax(make_case(), cfg, False, monkeypatch)
 
 
 @pytest.mark.parametrize("make_case", [

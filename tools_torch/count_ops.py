@@ -1,16 +1,27 @@
-"""Count the operations of the twisted cylinder chain that chip_smoke.py's
-bound uses (its OPS entries "cyl_tw_*").
+"""Count the operations of the twisted cylinder chain and of the numeric
+exteriors that chip_smoke.py's bounds use (its OPS entries "cyl_tw_*",
+"slab_ext_*", "cyl_ext_*").
 
     python tools_torch/count_ops.py
 
 prints the traced counts ("traced") and the entries of OPS ("ops").
+
+The numeric exteriors (`exterior_ops`): one RK4 step of `ode._step` with
+the plain right-hand sides of `physics/slab.py` and `physics/cylinder.py`
+(the order csrc/common.cuh::slab_exterior, cyl_exterior follow), traced on
+symbols: per step what depends on the state or the abscissa, per candidate
+what depends on the candidate alone (the cylinder's m^2), each exp one
+operation; by hand, the abscissa x0 + i h (the cylinder's; the slab's
+right-hand side reads none), the renormalisation every 64th step and the
+set-up and end of each (below).
 
 Traces `physics/cylinder.py::CylinderPhysics.twisted_chain` (the order of
 operations that csrc/cylinder_disp.cu::twisted_chain follows) on symbols
 instead of tensors and counts each operation the outputs need once:
 
 - an operation repeated on the same operands is one (a dual square's two
-  cross products, k B_z in the Alfven term and in f B);
+  cross products, k B_z in the Alfven term and in f B), a constant being
+  one operand however often the source writes it;
 - a negation is free (an operand modifier on the card), and so is a
   product or a quotient by an exact 1 (the radius' unit tangent dr/dr,
   and r itself at r = 1) and a product by an exact -1 (d(1/r)/dr at
@@ -51,11 +62,19 @@ R_POINT = 95
 LAUNCH_CONSTANTS = 3  # sqrt(rho), 1/sqrt(rho), rho v_twist^2
 J_TERM = 8           # J = B_phi(1)^2 - rho v_phi(1)^2
 ABSCISSAE = 4        # x0 + i h, + h/2, + h
+# the numeric exteriors, by hand from csrc/common.cuh: the cylinder's
+# abscissa x0 + i h (2); the slab's rescaling every 64th step (max(|y0|,
+# |y1|), its test, 2 divisions); set-up (the span W 2 pi / k, 1 + it or its
+# log, the spacing h, h/2, h/6: slab 6, cylinder 7 with the start D = -1e-8
+# r_far) and the end (vx'/vx or dP/P: 1)
+EXT_ABSCISSA = 2
+EXT_RENORM = 4
+EXT_ENDS = {"slab_ext_ends": 6 + 1, "cyl_ext_ends": 7 + 1}
 # the same counts, traced from the chain in its quotient form (commit
 # 6809e05: dual quotients by r, r^2, sqrt(rho) and sqrt(c^2 + vA^2))
-QUOTIENT_FORM = {"cyl_tw_step": 590, "cyl_tw_ends": 86,
+QUOTIENT_FORM = {"cyl_tw_step": 590, "cyl_tw_ends": 85,
                  "cyl_tw_r_step": 298, "cyl_tw_launch": 99,
-                 "cyl_tw_b0_step": 425, "cyl_tw_b0_ends": 76}
+                 "cyl_tw_b0_step": 425, "cyl_tw_b0_ends": 75}
 
 
 class Sym:
@@ -63,6 +82,7 @@ class Sym:
     and operands that formed it, or a known constant."""
 
     nodes: dict = {}
+    consts: dict = {}
 
     def __init__(self, deps=frozenset(), val=None, key=None, args=(),
                  free=False):
@@ -71,7 +91,12 @@ class Sym:
 
     @staticmethod
     def of(x) -> "Sym":
-        return x if isinstance(x, Sym) else Sym(val=float(x))
+        """x, or the one constant Sym of its value: a constant that two
+        calls form (2.0 in exp(2.0 t) at the same t) is the same operand,
+        so what it forms is counted once."""
+        if isinstance(x, Sym):
+            return x
+        return Sym.consts.setdefault(float(x), Sym(val=float(x)))
 
     def _op(self, op: str, other, swap: bool = False):
         from eigensolver_tpu_torch.dual import Dual
@@ -115,6 +140,14 @@ class Sym:
     def __rmul__(self, o): return self._op("*", o, swap=True)
     def __truediv__(self, o): return self._op("/", o)
     def __rtruediv__(self, o): return self._op("/", o, swap=True)
+
+    @staticmethod
+    def _unary(op: str, a) -> "Sym":
+        a = Sym.of(a)
+        key = (op, id(a))
+        if key not in Sym.nodes:
+            Sym.nodes[key] = Sym(a.deps, key=key, args=(a,))
+        return Sym.nodes[key]
 
     def __neg__(self):
         if self.val == 0.0:
@@ -202,10 +235,59 @@ def traced_ops(b_phi_zero: bool) -> dict:
     return out
 
 
+def exterior_ops() -> dict:
+    """chip_smoke.py's OPS entries for the numeric exteriors: per RK4 step
+    ("*_ext_step": the slab's without its rescaling, "slab_ext_renorm"
+    every 64th step), per candidate ("*_ext_ends": set-up, the cylinder's
+    m^2, the end)."""
+    import torch
+    from eigensolver_tpu_torch import ode
+    Sym.nodes = {}
+    m_e, mm, h, hh, h6 = (Sym({"c"}) for _ in range(5))
+    x = Sym({"s"})
+    y = (Sym({"s"}), Sym({"s"}))
+    slab = ode._step(lambda x, y: (y[1], m_e * y[0]), y, x, h, hh, h6)
+    exp = torch.exp
+    torch.exp = lambda a: Sym._unary("exp", a)
+    try:
+        cyl = ode._step(
+            lambda t, y: (y[1], (mm * mm + m_e * torch.exp(2.0 * t)) * y[0]),
+            y, x, h, hh, h6)
+    finally:
+        torch.exp = exp
+    ts, tc = _tally_deps(slab), _tally_deps(cyl)
+
+    def per_step(t):
+        return sum(n for d, n in t.items() if "s" in d)
+    return {"slab_ext_step": per_step(ts), "slab_ext_renorm": EXT_RENORM,
+            "slab_ext_ends": EXT_ENDS["slab_ext_ends"] + ts.get("c", 0),
+            "cyl_ext_step": per_step(tc) + EXT_ABSCISSA,
+            "cyl_ext_ends": EXT_ENDS["cyl_ext_ends"] + tc.get("c", 0)}
+
+
+def _tally_deps(outs) -> dict:
+    """Operations that outs need, by what each depends on (the sorted
+    letters of its dependences)."""
+    seen, stack, tally = set(), list(outs), {}
+    while stack:
+        n = stack.pop()
+        if n.key is None or id(n) in seen:
+            continue
+        seen.add(id(n))
+        stack.extend(n.args)
+        if not n.free and n.deps:
+            d = "".join(sorted(n.deps))
+            tally[d] = tally.get(d, 0) + 1
+    return tally
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT))
-    print(json.dumps({"traced": {**traced_ops(False), **traced_ops(True)},
-                      "ops": {**twisted_ops(False), **twisted_ops(True)}}))
+    ext = exterior_ops()
+    print(json.dumps({"traced": {**traced_ops(False), **traced_ops(True),
+                                 **ext},
+                      "ops": {**twisted_ops(False), **twisted_ops(True),
+                              **ext}}))
     return 0
 
 

@@ -8,7 +8,10 @@ twist_v01_p1 (cylinder_twisted_photospheric(0.1, 1.0, 1): f32, f64, f32 with
 refine_f64=True) and the magnetic twist (cylinder_twisted_magnetic(0.1,
 0.15, 1.25, 1): f64) at
 SearchConfig(n_omega=256, n_bisect=18) through `sweep.run_case(...,
-device="cuda")`, each once to warm up and once under `torch.profiler`, and
+device="cuda")`, then the reference-parity sweeps of `tools_torch/parity.py`
+(slab_ph_09 and cyl_flow_1, f32 refined in f64 and f64) and slab_ph_3's
+needle pass (`sweep.run_needle_pass`), each once to warm up and once under
+`torch.profiler`, and
 prints per run: the wall, the device busy time (sum of the kernels' self
 device time), the idle share 1 - busy / wall, the launches and device time
 of each kernel, and the root counts. Run from the repository root; the first
@@ -33,7 +36,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from eigensolver_tpu_torch import cases, search, sweep
+    from eigensolver_tpu_torch import cases, equilibrium, search, sweep
+    from tools_torch import parity
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA card")
     warnings.simplefilter("ignore")         # saturated-row notices
@@ -47,24 +51,41 @@ def main() -> int:
     f64 = dataclasses.replace(f32, scan_dtype="float64", polish_dtype="float64")
     slab = cases.slab_density_photospheric(0.9)
     twist = cases.cylinder_twisted_photospheric(0.1, 1.0, 1)
-    runs = (("slab_ph_09 f32", slab, f32, False),
-            ("slab_ph_09 f64", slab, f64, False),
-            ("slab_ph_09 f32 refined", slab, f32, True),
-            ("cyl_co_09 f32", cases.cylinder_density_coronal(0.9), f32, False),
-            ("cyl_co_09 f64", cases.cylinder_density_coronal(0.9), f64, False),
-            ("twist_v01_p1 f32", twist, f32, False),
-            ("twist_v01_p1 f64", twist, f64, False),
-            ("twist_v01_p1 f32 refined", twist, f32, True),
-            ("magnetic_p125 f64",
-             cases.cylinder_twisted_magnetic(0.1, 0.15, 1.25, 1), f64, False))
+    def sweep_run(case, cfg, refine):
+        return lambda: sweep.run_case(case, cfg, device="cuda",
+                                      refine_f64=refine)[0]
+
+    runs = [("slab_ph_09 f32", sweep_run(slab, f32, False)),
+            ("slab_ph_09 f64", sweep_run(slab, f64, False)),
+            ("slab_ph_09 f32 refined", sweep_run(slab, f32, True)),
+            ("cyl_co_09 f32",
+             sweep_run(cases.cylinder_density_coronal(0.9), f32, False)),
+            ("cyl_co_09 f64",
+             sweep_run(cases.cylinder_density_coronal(0.9), f64, False)),
+            ("twist_v01_p1 f32", sweep_run(twist, f32, False)),
+            ("twist_v01_p1 f64", sweep_run(twist, f64, False)),
+            ("twist_v01_p1 f32 refined", sweep_run(twist, f32, True)),
+            ("magnetic_p125 f64", sweep_run(
+                cases.cylinder_twisted_magnetic(0.1, 0.15, 1.25, 1), f64,
+                False))]
+    for target in ("slab_ph_09", "cyl_flow_1"):
+        for dtype, tag in (("float32", "f32 refined"), ("float64", "f64")):
+            runs.append((f"{target} parity {tag}", sweep_run(
+                *parity.configure(target, cases, search.SearchConfig,
+                                  equilibrium.genuine_continua, dtype))))
+    ph3, _, _ = parity.configure("slab_ph_3", cases, search.SearchConfig,
+                                 equilibrium.genuine_continua)
+    edges = parity.needle_edges("slab_ph_3", ph3, sweep.needle_edges)
+    runs.append(("slab_ph_3 needle", lambda: sweep.run_needle_pass(
+        ph3, edges=edges, modes=(0,), device="cuda")[0]))
     out = {"nvidia_smi": smi}
-    for name, case, cfg, refine in runs:
-        sweep.run_case(case, cfg, device="cuda", refine_f64=refine)
+    for name, run in runs:
+        run()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            rs, _ = sweep.run_case(case, cfg, device="cuda", refine_f64=refine)
+            rs = run()
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
         kernels = {}

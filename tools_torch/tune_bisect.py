@@ -19,6 +19,17 @@ float64) and on its refine stage (the float32 sweep's roots' f64 windows,
 30 iterations), at every level count L = 0..5 and a grid of (B, P, C, S,
 register budget): each checked against the default's bits. Run from the repository root; the
 first line is the card's nvidia-smi name and power limit.
+
+    python3 tools_torch/tune_bisect.py --numeric [--out PATH]
+
+times the numeric exterior's slab_bisect and cylinder_bisect instead (the
+speculative kernel over the scans' x-only / r-only tables), on the bracket
+stages of the reference-parity sweeps slab_ph_09 (21,840 brackets) and
+cyl_flow_1 (47,520; `tools_torch/parity.py`, float32 and float64, 18
+iterations) and on their first 600 brackets (a refine-sized batch), at
+the default shape (`kernels.common.numeric_spec_shape`) and a grid of (L,
+B, P, C, register budget), each checked against the default's bits,
+beside the launch loop.
 """
 import argparse
 import dataclasses
@@ -93,6 +104,8 @@ def refine_windows(case, cfg):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the report here as JSON")
+    ap.add_argument("--numeric", action="store_true",
+                    help="the numeric exterior's parity bracket stages")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     import torch
@@ -120,19 +133,12 @@ def main() -> int:
                                                             (1, 2, 4))
              for c in _steps(b, p, (16, 32, 64)) for s in (2, 3)
              for mb in (1, 2)]
-    batches = (
-        ("slab_ph_09 f32", slab, sweep_brackets(slab, f32, torch.float32),
-         torch.float32, 18, True, big),
-        ("slab_ph_09 f64", slab, sweep_brackets(slab, f64, torch.float64),
-         torch.float64, 18, True, big),
-        ("cyl_co_09 f32", cyl, sweep_brackets(cyl, f32, torch.float32),
-         torch.float32, 18, True, big),
-        ("cyl_co_09 f64", cyl, sweep_brackets(cyl, f64, torch.float64),
-         torch.float64, 18, True, big),
-        ("slab_ph_09 refine f64", slab, refine_windows(slab, f32),
-         torch.float64, 30, False, small),
-    )
     out = {"nvidia_smi": smi}
+    if args.numeric:
+        tune_numeric(out)
+        batches = ()
+    else:
+        batches = _bessel_batches(slab, cyl, f32, f64, big, small)
     for name, case, args_, dtype, n_iter, final, grid in batches:
         disp = sweep.make_dispersion_moded(case, dtype)
         n = args_[0].numel()
@@ -171,11 +177,92 @@ def main() -> int:
                      "all": {",".join(map(str, s)): ms for s, ms in res.items()}}
         print(name, json.dumps({k: v for k, v in out[name].items()
                                 if k != "all"}), flush=True)
-    tune_twisted(out, f32, f64)
+    if not args.numeric:
+        tune_twisted(out, f32, f64)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(out, indent=1))
     return 0
+
+
+def _bessel_batches(slab, cyl, f32, f64, big, small):
+    """slab_ph_09's and cyl_co_09's bracket stages at both types, and the
+    slab's refine stage: (name, case, brackets, dtype, n_iter, final_eval,
+    grid) each."""
+    import torch
+    return (
+        ("slab_ph_09 f32", slab, sweep_brackets(slab, f32, torch.float32),
+         torch.float32, 18, True, big),
+        ("slab_ph_09 f64", slab, sweep_brackets(slab, f64, torch.float64),
+         torch.float64, 18, True, big),
+        ("cyl_co_09 f32", cyl, sweep_brackets(cyl, f32, torch.float32),
+         torch.float32, 18, True, big),
+        ("cyl_co_09 f64", cyl, sweep_brackets(cyl, f64, torch.float64),
+         torch.float64, 18, True, big),
+        ("slab_ph_09 refine f64", slab, refine_windows(slab, f32),
+         torch.float64, 30, False, small),
+    )
+
+
+def tune_numeric(out: dict) -> None:
+    """The numeric exterior's fused bisections (the speculative kernel) on
+    the bracket stages of the parity sweeps slab_ph_09 and cyl_flow_1 at
+    both types, 18 iterations each, and on their first 600 brackets."""
+    import torch
+    from eigensolver_tpu_torch import cases, equilibrium, search, sweep
+    from eigensolver_tpu_torch.kernels import common, cylinder, slab
+    from tools_torch import parity
+    for target in ("slab_ph_09", "cyl_flow_1"):
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype).split(".")[-1]
+            case, cfg, _ = parity.configure(
+                target, cases, search.SearchConfig,
+                equilibrium.genuine_continua, dname)
+            if case.geometry.value == "slab":
+                kmod = slab
+                eb = slab._ENTRY_BYTES[(bool(slab.disp_params(
+                    case).struct.shear), dtype)]
+            else:
+                kmod, eb = cylinder, cylinder._ENTRY_BYTES[dtype, False]
+            fn = _fn(case)
+            params = kmod.disp_params(case)
+            disp = sweep.make_dispersion_moded(case, dtype)
+            full = sweep_brackets(case, cfg, dtype)
+            for name, args_ in ((f"{target} numeric {dname}", full),
+                                (f"{target} numeric 600 {dname}",
+                                 [x[:600].contiguous() for x in full])):
+                n = args_[0].numel()
+
+                def fused(shape, a=args_):
+                    return fn(*a, 18, params, True, shape=shape)
+
+                default = common.numeric_spec_shape(n, dtype, eb)
+                ref = fused(default)
+                levels = (0,) if n >= 2 * common._SPEC_COLUMNS else range(5)
+                grid = [common.SpecShape(b, lv, p, c, 2, mb)
+                        for lv in levels for b in (32 >> lv, 16 >> lv)
+                        if b >= 1 for p in (3, 7, 15) for c in (16, 32, 60)
+                        for mb in (0, 1, 2)]
+                res = {}
+                for shape in [default, *grid]:
+                    if tuple(shape) in res or common.spec_smem(
+                            shape, dtype, eb) > common.MAX_SMEM:
+                        continue
+                    got = fused(shape)
+                    if not all(_same_bits(a, b) for a, b in zip(got, ref)):
+                        raise AssertionError(f"{name}: shape {shape} differs")
+                    res[tuple(shape)] = cuda_ms(lambda: fused(shape), 2)
+                loop_ms = cuda_ms(lambda: search.bisect_loop(
+                    disp, *args_, 18, True), 1)
+                best = sorted(res.items(), key=lambda kv: kv[1])[:8]
+                out[name] = {"n": n, "n_iter": 18, "default": list(default),
+                             "default_ms": res[tuple(default)],
+                             "best": [[list(s), ms] for s, ms in best],
+                             "loop_ms": loop_ms,
+                             "all": {",".join(map(str, s)): ms
+                                     for s, ms in res.items()}}
+                print(name, json.dumps({k: v for k, v in out[name].items()
+                                        if k != "all"}), flush=True)
 
 
 def tune_twisted(out: dict, f32, f64) -> None:
