@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--json-out PATH]
 
-Run from the repository root. Phases, one line each; any failure raises and
-the script exits non-zero:
+Run from the repository root. Phases, one line each (9, 12 and 13 in two);
+any failure raises and the script exits non-zero:
 
 1. device: a CUDA card is required; its nvidia-smi name and power limit.
 2. build: the CUDA kernels, compiled with nvcc from eigensolver_tpu_torch/csrc
@@ -47,11 +47,20 @@ the script exits non-zero:
    counts per branch held against the JAX package's; reduced sweeps on the
    card (float64, and float32 refined in float64) held against the same
    sweeps on the CPU.
-8. cylinder_bisect and 9. slab_bisect, the fused bracket stage, on the full
-   sweeps' own brackets (17,280 and 5,040) at float32 and float64: (root,
-   mismatch) bit-equal to search.bisect_loop over the one-thread kernel
-   (n_iter + 2 launches), both timed; at float32 and n_iter=4, bit-equal to
-   the same loop over the plain PyTorch dispersion, which is timed too.
+8. cylinder_bisect and 9. slab_bisect, the fused bracket stage
+   (csrc/bisect.cuh::spec_kernel over the scans' r-only / x-only tables),
+   on the full sweeps' own brackets (cyl_co_09's 17,280, slab_ph_09's 5,040
+   in the flux form and slab_flow_gaussian_coronal's 5,600 in the shear
+   form) at float32 and float64: (root, mismatch) bit-equal to
+   search.bisect_loop over the scan kernel (n_iter + 2 launches), both
+   timed; at n_iter=1 bit-equal to the same loop over the plain PyTorch
+   dispersion, at both types, which is timed too. Phase 9 also takes the
+   refine stage of the slab_ph_09 float32 sweep (its 153 roots' float64
+   brackets, 30 iterations): at the speculative default L and at L = 0
+   bit-equal to the launch loop, all three timed, and at 5 iterations
+   bit-equal to the plain speculative bisection at the same L. Each
+   prints the registers and spills of the fused kernel's instantiations
+   over its chain (ptxas).
 10. the twisted cylinder_disp (csrc/cylinder_twisted.cu, for rotational
    flow and magnetic twist) vs its plain version, 8,192 candidates of the
    full twist_v01_p1 ladder (cylinder_twisted_photospheric(0.1, 1.0, 1)) and
@@ -205,13 +214,14 @@ N_REFINE_ITER = 30              # search.refine_roots_f64's bisection
 _SMS = 132                      # SMs of an H100
 TWIST_PLAIN_N_ITER = 1          # the plain loop's iterations in phase 12
 # the plain speculative bisection's iterations on the refine stage's
-# brackets in phase 12: two rounds at L = 3 (3 levels, then 2)
+# brackets in phases 9 and 12: two rounds at L = 3 or 4
 REFINE_PLAIN_N_ITER = 5
 # brackets of the full sweeps' bracket stage: rows x 8 per row
 N_BR_CYL = 90 * 12 * 2 * 8      # 17,280
 N_BR_SLAB = 35 * 9 * 2 * 8      # 5,040
+N_BR_FLOW = 35 * 10 * 2 * 8     # slab_flow_gaussian_coronal's: 5,600
 N_BISECT = 18
-PLAIN_N_ITER = 4                # the plain loop's iterations in phases 8, 9
+PLAIN_N_ITER = 1                # the plain loops' iterations in phases 8, 9
 
 # The reference-parity sweeps (tools_torch/parity.py, tools/reproduce.py's
 # targets at the case's own k grid): candidates per sweep and brackets
@@ -485,7 +495,9 @@ def phase_build():
     log = so.with_suffix(".log").read_text() if so.with_suffix(".log").is_file() else ""
     ptxas = [ln.split("ptxas info    :")[-1].strip() for ln in log.splitlines()
              if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
-    line("phase 2 build", seconds=seconds, library=so.name, ptxas=ptxas)
+    line("phase 2 build", seconds=seconds, library=so.name,
+         kernels=sum("Compiling entry" in ln for ln in log.splitlines()),
+         ptxas=ptxas)
 
 
 def phase_kve_ratio(out: dict):
@@ -677,27 +689,21 @@ SLAB_FORMS = {"0": " flux", "1": " shear", None: ""}
 CYL_FORMS = {"0": "", "1": " twisted", None: ""}
 
 
-def ptxas_report(kernel: str, form: dict = SLAB_FORMS) -> dict:
-    """Registers and spill bytes of each instantiation of `kernel`, from
-    the build's ptxas report (-Xptxas -v), keyed by type, form (the slab's
-    flux or shear, the cylinder's plain or twisted chain) and block size."""
+def ptxas_entries(key_of) -> dict:
+    """Registers and spill bytes of each kernel of the build's ptxas report
+    (-Xptxas -v) whose mangled name key_of maps to a key (None: left
+    out)."""
     import re
     from eigensolver_tpu_torch.kernels import _build
     log = _build.library_path().with_suffix(".log").read_text()
-    out, name = {}, None
+    out, key = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            name = m.group(1) if kernel in m.group(1) else None
+            key = key_of(m.group(1))
             continue
-        if name is None:
+        if key is None:
             continue
-        # kernel<T, [bool form,] int threads, bool numeric exterior>
-        t = re.search(kernel + r"I([fd])(?:Lb([01])E)?Li(\d+)ELb([01])E",
-                      name)
-        key = (f"{'float32' if t.group(1) == 'f' else 'float64'}"
-               f"{form[t.group(2)]} {t.group(3)}"
-               f"{' numeric' if t.group(4) == '1' else ''}" if t else name)
         # the entry's own line comes first; later ones are its callees'
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m and "spill_stores" not in out.get(key, {}):
@@ -707,6 +713,47 @@ def ptxas_report(kernel: str, form: dict = SLAB_FORMS) -> dict:
         if m:
             out.setdefault(key, {})["registers"] = int(m.group(1))
     return out
+
+
+def _type_name(code: str) -> str:
+    return "float32" if code == "f" else "float64"
+
+
+def ptxas_report(kernel: str, form: dict = SLAB_FORMS) -> dict:
+    """Registers and spill bytes of each instantiation of the scan
+    `kernel`, keyed by type, form (the slab's flux or shear, the cylinder's
+    plain or twisted chain) and block size."""
+    import re
+
+    def key_of(name):
+        if kernel not in name:
+            return None
+        # kernel<T, [bool form,] int threads, bool numeric exterior>
+        t = re.search(kernel + r"I([fd])(?:Lb([01])E)?Li(\d+)ELb([01])E",
+                      name)
+        return (f"{_type_name(t.group(1))}{form[t.group(2)]} {t.group(3)}"
+                f"{' numeric' if t.group(4) == '1' else ''}" if t else name)
+    return ptxas_entries(key_of)
+
+
+def spec_ptxas(chain: str) -> dict:
+    """Registers and spill bytes of each instantiation of the fused kernel
+    (csrc/bisect.cuh::spec_kernel) over `chain`'s Model: "slab"
+    (slab::SpecChain<T, shear, numeric>), "cylinder" (SpecChain<T,
+    numeric>) or "twisted" (TwModel<T, numeric>), keyed by type, form,
+    exterior and register budget (x1: 128 registers a thread, x2: 64)."""
+    import re
+    model = {"slab": r"4slab9SpecChainI([fd])Lb([01])ELb([01])E",
+             "cylinder": r"9SpecChainI([fd])()Lb([01])E",
+             "twisted": r"7TwModelI([fd])()Lb([01])E"}[chain]
+    forms = {"0": " flux", "1": " shear", "": ""}
+
+    def key_of(name):
+        t = re.search(r"spec_kernelINS_" + model + r"EELi(\d+)E", name)
+        return (f"{_type_name(t.group(1))}{forms[t.group(2)]}"
+                f"{' numeric' if t.group(3) == '1' else ''} x{t.group(4)}"
+                if t else None)
+    return ptxas_entries(key_of)
 
 
 def _check_counts(what: str, counts: dict, refs) -> dict:
@@ -1045,14 +1092,41 @@ def sweep_brackets(case, dtype, cfg=None):
     return [x.contiguous() for x in (br.lo, br.hi, br.k, br.mode)]
 
 
+def bisect_fn(case):
+    """The case's fused bisection wrapper and its parameters."""
+    from eigensolver_tpu_torch.kernels import cylinder as kcyl, slab as kslab
+    kmod = kslab if case.geometry.value == "slab" else kcyl
+    return getattr(kmod, f"{case.geometry.value}_bisect"), kmod.disp_params(
+        case)
+
+
+def wrapper_shape(case, n: int, dtype):
+    """The block shape the case's bisection wrapper launches for n
+    brackets: the twisted chain's spec_shape, the numeric exterior's
+    numeric_spec_shape, else analytic_spec_shape."""
+    from eigensolver_tpu_torch.kernels import common
+    params = bisect_fn(case)[1].struct
+    eb = entry_bytes(case, dtype)
+    if getattr(params, "twisted", 0):
+        return common.spec_shape(n, dtype, eb)
+    if params.exterior_numeric:
+        return common.numeric_spec_shape(n, dtype, eb)
+    return common.analytic_spec_shape(n, dtype, eb,
+                                      bool(getattr(params, "shear", 0)))
+
+
 def phase_bisect(out: dict, phase: str, name: str, case, plain, n_br: int,
                  ops, key: str = None, plain_n_iter: int = PLAIN_N_ITER,
-                 loop_small: bool = False):
+                 plain_types=("float32", "float64"), loop_small: bool = False,
+                 refine=None, chain: str = None):
     """The fused bracket stage `name` on the case's own brackets: (root,
-    mismatch) bit-equal to the loop of one-thread launches at float32 and
-    float64 (both timed), and at float32 with n_iter=plain_n_iter to the
-    loop over the plain dispersion `plain(dtype)` (timed once); the bound
-    from `ops(brackets, dtype)`, the operations of the launch. The report
+    mismatch) bit-equal to the loop of scan launches at float32 and float64
+    (both timed), and at the types of plain_types with n_iter=plain_n_iter
+    to the loop over the plain dispersion `plain(dtype)` (timed once); the
+    bound from `ops(brackets, dtype, evaluations)`, the operations of the
+    evaluations the loop needs. With `refine` (the refine stage's float64
+    brackets), that batch too (`_refine_bisect`); with `chain`, the ptxas
+    report of the fused kernel's instantiations over its Model. The report
     goes to out[key or name]. loop_small: the loop's launches take the
     twisted chain's small-batch path (cylinder_disp_small)."""
     import torch
@@ -1077,34 +1151,86 @@ def phase_bisect(out: dict, phase: str, name: str, case, plain, n_br: int,
         if any(differ):
             raise AssertionError(f"{name} {dname}: {differ} (root, mismatch) "
                                  f"values differ from the launch loop")
-        r = dict(n=n_br, root_bits_differ=differ[0],
-                 mismatch_bits_differ=differ[1],
+        r = dict(n=n_br, shape=list(wrapper_shape(case, n_br, dtype)),
+                 root_bits_differ=differ[0], mismatch_bits_differ=differ[1],
                  ms=cuda_ms(lambda: disp.bisect(*br, N_BISECT), 5),
                  loop_ms=cuda_ms(lambda: search.bisect_loop(disp, *br,
                                                             N_BISECT), 2),
-                 **bound(ops(br, dtype), n_br * 6 * br[0].element_size(),
-                         dname))
-        if dtype == torch.float32:
-            pdisp = plain(dtype)
-            fused4 = disp.bisect(*br, plain_n_iter)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            plain4 = search.bisect_loop(pdisp, *br, plain_n_iter)
-            torch.cuda.synchronize()
-            r["plain_ms"] = 1e3 * (time.perf_counter() - t0)
+                 **bound(ops(br, dtype, N_BISECT + 2),
+                         n_br * 6 * br[0].element_size(), dname))
+        if dname in plain_types:
+            got = disp.bisect(*br, plain_n_iter)
+            want, r["plain_ms"] = _timed_plain(
+                lambda *a: search.bisect_loop(plain(dtype), *a, plain_n_iter),
+                br)
             r["plain_n_iter"] = plain_n_iter
             r["ms_plain_n_iter"] = cuda_ms(
                 lambda: disp.bisect(*br, plain_n_iter), 5)
-            a, b = fused4[0].cpu().numpy(), plain4[0].cpu().numpy()
+            a, b = got[0].cpu().numpy(), want[0].cpu().numpy()
             r["max_abs_err_vs_plain"] = float(np.nanmax(np.abs(a - b)))
             differ = [int((~_same_bits(x.cpu().numpy(), y.cpu().numpy())).sum())
-                      for x, y in zip(fused4, plain4)]
+                      for x, y in zip(got, want)]
             if any(differ):
-                raise AssertionError(f"{name}: {differ} (root, mismatch) "
-                                     f"values differ from the plain loop")
+                raise AssertionError(f"{name} {dname}: {differ} (root, "
+                                     f"mismatch) values differ from the plain "
+                                     f"loop")
         res[dname] = r
+    if refine is not None:
+        res["refine float64"] = _refine_bisect(name, case, plain, refine, ops)
+    if chain is not None:
+        res["ptxas"] = spec_ptxas(chain)
     out[key or name] = res
     line(phase, **res)
+
+
+def _refine_bisect(name: str, case, plain, br, ops) -> dict:
+    """The refine stage's float64 bisection (N_REFINE_ITER iterations, no
+    residual) of the case's brackets br at the wrapper's speculative shape:
+    bit-equal to the loop of scan launches, and so is the loop's schedule
+    (L = 0); both timed beside the loop. At REFINE_PLAIN_N_ITER iterations
+    bit-equal to the plain speculative bisection at the same L over the
+    plain dispersion. The bound counts the evaluations the loop needs."""
+    import torch
+    from eigensolver_tpu_torch import search, sweep
+    from eigensolver_tpu_torch.kernels import common
+    f64 = torch.float64
+    n = br[0].numel()
+    disp = sweep.make_dispersion_moded(case, f64)
+    fn, params = bisect_fn(case)
+    shape = wrapper_shape(case, n, f64)
+    l0 = common.spec_shape(n, f64, entry_bytes(case, f64), levels=0)
+
+    def fused(n_iter, sh):
+        return fn(*br, n_iter, params, False, shape=sh)
+
+    loop = search.bisect_loop(disp, *br, N_REFINE_ITER, False)
+    for sh in (shape, l0):
+        differ = int((~_same_bits(fused(N_REFINE_ITER, sh)[0].cpu().numpy(),
+                                  loop[0].cpu().numpy())).sum())
+        if differ:
+            raise AssertionError(f"{name} refine L={sh.levels}: {differ} "
+                                 f"roots differ from the launch loop")
+    need = spec_evals(N_REFINE_ITER, False, 1)
+    r = dict(n=n, n_iter=N_REFINE_ITER, shape=list(shape), evals_needed=need,
+             evals=spec_evals(N_REFINE_ITER, False, shape.levels),
+             ms=cuda_ms(lambda: fused(N_REFINE_ITER, shape), 5),
+             L0_shape=list(l0), L0_ms=cuda_ms(lambda: fused(N_REFINE_ITER, l0),
+                                              5),
+             loop_ms=cuda_ms(lambda: search.bisect_loop(
+                 disp, *br, N_REFINE_ITER, False), 2),
+             **bound(ops(br, f64, need), n * 5 * 8, "float64"))
+    got = fused(REFINE_PLAIN_N_ITER, shape)
+    want, r["plain_ms"] = _timed_plain(lambda *a: search.bisect_loop(
+        plain(f64), *a, REFINE_PLAIN_N_ITER, False, levels=shape.levels), br)
+    r["plain_n_iter"] = REFINE_PLAIN_N_ITER
+    a, b = got[0].cpu().numpy(), want[0].cpu().numpy()
+    r["max_abs_err_vs_plain"] = float(np.nanmax(np.abs(a - b)))
+    differ = int((~_same_bits(a, b)).sum())
+    if differ:
+        raise AssertionError(f"{name} refine: {differ} roots differ from the "
+                             f"plain speculative bisection at L = "
+                             f"{shape.levels}")
+    return r
 
 
 def spec_evals(n_iter: int, final_eval: bool, levels: int) -> int:
@@ -1119,8 +1245,8 @@ def spec_evals(n_iter: int, final_eval: bool, levels: int) -> int:
     return int(n_iter > 0) + sum(2 ** d - 1 for d in rounds)
 
 
-def twisted_window_ends(case):
-    """The float64 window ends of the refine stage of the twisted case's
+def refine_stage(case):
+    """The float64 window ends of the refine stage of the case's
     float32 sweep (n_omega=256, n_bisect=18, on the card), 10 per root in
     the order of the stage's one dispersion call, and its brackets (the
     first window of each root that brackets, as search.refine_windows
@@ -1268,7 +1394,7 @@ def phase_twisted_disp(out: dict):
     # to the plain version
     case = twisted_cases()["twist_v01_p1"]
     ph = CylinderPhysics.from_case(case)
-    ends, _ = twisted_window_ends(case)
+    ends, _ = refine_stage(case)
     n = ends[0].numel()
     kern = ph.make_dispersion(m=None, dtype=torch.float64)
     params = kcyl.disp_params(case)
@@ -1304,32 +1430,13 @@ def twisted_ptxas() -> dict:
     """Registers and spill bytes of the twisted kernels from the build's
     ptxas report: the scan by type, the fused kernel by type and budget."""
     import re
-    from eigensolver_tpu_torch.kernels import _build
-    log = _build.library_path().with_suffix(".log").read_text()
-    out, key = {}, None
-    for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", ln)
-        if m:
-            t = re.search(r"tw_scan_kernelI([fd])Lb([01])E", m.group(1))
-            f = re.search(r"spec_kernelINS_7TwModelI([fd])Lb([01])EELi(\d+)E",
-                          m.group(1))
-            num = {"0": "", "1": " numeric"}
-            key = (f"scan {'float32' if t.group(1) == 'f' else 'float64'}"
-                   f"{num[t.group(2)]}" if t else
-                   f"fused {'float32' if f.group(1) == 'f' else 'float64'} "
-                   f"x{f.group(3)}{num[f.group(2)]}" if f else None)
-            continue
-        if key is None:
-            continue
-        # the entry's own line comes first; later ones are its callees'
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
-        if m and "spill_stores" not in out.get(key, {}):
-            out.setdefault(key, {}).update(spill_stores=int(m.group(1)),
-                                           spill_loads=int(m.group(2)))
-        m = re.search(r"Used (\d+) registers", ln)
-        if m:
-            out.setdefault(key, {})["registers"] = int(m.group(1))
-    return out
+
+    def key_of(name):
+        t = re.search(r"tw_scan_kernelI([fd])Lb([01])E", name)
+        return (f"scan {_type_name(t.group(1))}"
+                f"{' numeric' if t.group(2) == '1' else ''}" if t else None)
+    return {**ptxas_entries(key_of),
+            **{f"fused {k}": v for k, v in spec_ptxas("twisted").items()}}
 
 
 def phase_twisted_sweep(out: dict):
@@ -1460,7 +1567,7 @@ def phase_twisted_levels(out: dict):
     from eigensolver_tpu_torch.physics.cylinder import CylinderPhysics
     case = twisted_cases()["twist_v01_p1"]
     params = kcyl.disp_params(case)
-    _, refine_br = twisted_window_ends(case)
+    _, refine_br = refine_stage(case)
     res = {}
     for what, dtype, br, n_iter, final in (
             ("sweep float32", torch.float32,
@@ -1637,7 +1744,6 @@ def _numeric_bisect(what: str, case, br, plain_n_iter, n_iter=N_BISECT,
     timed, with its bound (the evaluations the loop needs)."""
     import torch
     from eigensolver_tpu_torch import search
-    from eigensolver_tpu_torch.kernels import cylinder as kcyl, slab as kslab
     kern, plain = _physics(case)
     dtype = br[0].dtype
     dname = str(dtype).split(".")[-1]
@@ -1647,9 +1753,7 @@ def _numeric_bisect(what: str, case, br, plain_n_iter, n_iter=N_BISECT,
         def fused(k):
             return disp.bisect(*br, k, final_eval)
     else:
-        kmod = kslab if case.geometry.value == "slab" else kcyl
-        fn = getattr(kmod, f"{case.geometry.value}_bisect")
-        params = kmod.disp_params(case)
+        fn, params = bisect_fn(case)
 
         def fused(k):
             return fn(*br, k, params, final_eval, shape=shape)
@@ -1986,6 +2090,15 @@ def phase_twisted_numeric_path() -> dict:
     return launches
 
 
+def float64_of(r: dict) -> dict:
+    """A fused bisection's float64 numbers for the kernels line."""
+    return {"float64_shape": r["shape"], "float64_ms": r["ms"],
+            "float64_loop_ms": r["loop_ms"],
+            "float64_bound_ms": r["bound_ms"],
+            "float64_plain_ms": r["plain_ms"],
+            "float64_max_abs_err": r["max_abs_err_vs_plain"]}
+
+
 def numeric_kernel_entries(res: dict, par: dict, tw: dict) -> list:
     """The kernels JSON entries of the numeric-exterior variants (phase
     13's times and checks at float32, the launches of their paths in
@@ -2073,21 +2186,32 @@ def main() -> int:
     from eigensolver_tpu_torch.physics.slab import SlabPhysics
     cyl_case = cases.cylinder_density_coronal(0.9)
     slab_case = cases.slab_density_photospheric(0.9)
-    cg, sg = cyl_case.grid, slab_case.grid
-    n_evals = N_BISECT + 2
+    flow_case = cases.slab_flow_gaussian_coronal()
+    cg, sg, fg = cyl_case.grid, slab_case.grid, flow_case.grid
     # the K_m ratio of each evaluation counted at the bracket's lower end
     phase_bisect(out, "phase 8 cylinder_bisect", "cylinder_bisect", cyl_case,
                  lambda dt: CylinderPhysics.from_case(
                      cyl_case).make_dispersion_plain(m=None, dtype=dt),
                  N_BR_CYL,
-                 lambda br, dt: cyl_ops(
-                     N_BR_CYL, n_evals, cg.n_interior, cg.n_axis_log,
-                     exterior_args(cyl_case, br[0], br[2], dt)))
-    phase_bisect(out, "phase 9 slab_bisect", "slab_bisect", slab_case,
+                 lambda br, dt, ne: cyl_ops(
+                     br[0].numel(), ne, cg.n_interior, cg.n_axis_log,
+                     exterior_args(cyl_case, br[0], br[2], dt)),
+                 chain="cylinder")
+    _, slab_refine = refine_stage(slab_case)
+    phase_bisect(out, "phase 9 slab_bisect flux", "slab_bisect", slab_case,
                  lambda dt: SlabPhysics.from_case(
                      slab_case).make_dispersion_plain(parity=None, dtype=dt),
                  N_BR_SLAB,
-                 lambda br, dt: slab_ops(N_BR_SLAB, n_evals, sg.n_interior))
+                 lambda br, dt, ne: slab_ops(br[0].numel(), ne,
+                                             sg.n_interior),
+                 refine=slab_refine, chain="slab")
+    phase_bisect(out, "phase 9 slab_bisect shear", "slab_bisect", flow_case,
+                 lambda dt: SlabPhysics.from_case(
+                     flow_case).make_dispersion_plain(parity=None, dtype=dt),
+                 N_BR_FLOW,
+                 lambda br, dt, ne: slab_ops(br[0].numel(), ne,
+                                             fg.n_interior, shear=True),
+                 key="slab_bisect_shear")
     phase_twisted_disp(out)
     tw_launches, tw_refined_launches = phase_twisted_sweep(out)
     tw_case = twisted_cases()["twist_v01_p1"]
@@ -2096,11 +2220,11 @@ def main() -> int:
                  lambda dt: CylinderPhysics.from_case(
                      tw_case).make_dispersion_plain(m=None, dtype=dt),
                  N_BR_TWIST,
-                 lambda br, dt: cyl_tw_ops(
-                     tw_case, N_BR_TWIST, n_evals,
+                 lambda br, dt, ne: cyl_tw_ops(
+                     tw_case, br[0].numel(), ne,
                      exterior_args(tw_case, br[0], br[2], dt)),
                  key="twisted_bisect", plain_n_iter=TWIST_PLAIN_N_ITER,
-                 loop_small=True)
+                 plain_types=("float32",), loop_small=True)
     phase_twisted_levels(out)
     phase_numeric_kernels(out)
     tw_num_launches = phase_twisted_numeric_path()
@@ -2226,12 +2350,16 @@ def main() -> int:
                           ("window float64",
                            out["slab_disp"]["window float64"]))},
     }, {
+        # on cyl_co_09's 17,280 brackets: csrc/bisect.cuh::spec_kernel over
+        # SpecChain<T, false> (the r-only table, the K_m ratio), float32
+        # unless said
         "name": "cylinder_bisect",
         "route": "cuda",
         "source": "eigensolver_tpu_torch/csrc/cylinder_disp.cu",
         # the XLA fori_loop of search.bisect over physics/cylinder.py
         "replaces": "eigensolver_tpu/search.py:142",
         "launches": cyl_launches["cylinder_bisect"],
+        "shape": cbis["shape"],
         # roots against the plain loop at plain_n_iter (bit-equal)
         "max_abs_err": cbis["max_abs_err_vs_plain"],
         "ms": cbis["ms"],
@@ -2242,6 +2370,7 @@ def main() -> int:
         "bound_ms": cbis["bound_ms"],
         "bound_by": cbis["bound_by"],
         "library_ms": None,
+        **float64_of(out["cylinder_bisect"]["float64"]),
     }, {
         # the twisted chain's speculative fused bisection on twist_v01_p1's
         # 2,400 brackets (phase 12), its launches on the twisted main path;
@@ -2270,12 +2399,17 @@ def main() -> int:
             "evals", "loop_ms", "plain_ms", "plain_n_iter",
             "max_abs_err_vs_plain")},
     }, {
+        # on slab_ph_09's 5,040 brackets (flux form): spec_kernel over
+        # slab::SpecChain<T, kShear, false> (the x-only table, the exact
+        # exterior); its launches on the slab main path (phase 7: the
+        # bracket stage, and the refine stage's when refined)
         "name": "slab_bisect",
         "route": "cuda",
         "source": "eigensolver_tpu_torch/csrc/slab_disp.cu",
         # the XLA fori_loop of search.bisect over physics/slab.py
         "replaces": "eigensolver_tpu/search.py:142",
         "launches": slab_launches["slab_bisect"],
+        "shape": sbis["shape"],
         "max_abs_err": sbis["max_abs_err_vs_plain"],
         "ms": sbis["ms"],
         "plain_ms": sbis["plain_ms"],
@@ -2285,6 +2419,17 @@ def main() -> int:
         "bound_ms": sbis["bound_ms"],
         "bound_by": sbis["bound_by"],
         "library_ms": None,
+        **float64_of(out["slab_bisect"]["float64"]),
+        # the refine stage's float64 bisection of the float32 sweep's roots
+        "refine_float64": {k: out["slab_bisect"]["refine float64"][k] for k in (
+            "n", "n_iter", "shape", "ms", "bound_ms", "evals_needed", "evals",
+            "L0_ms", "loop_ms", "plain_ms", "plain_n_iter",
+            "max_abs_err_vs_plain")},
+        # slab_flow_gaussian_coronal's 5,600 brackets, the shear form
+        "shear": {**{k: out["slab_bisect_shear"]["float32"][k] for k in (
+            "n", "shape", "ms", "loop_ms", "bound_ms", "plain_ms",
+            "max_abs_err_vs_plain")},
+            **float64_of(out["slab_bisect_shear"]["float64"])},
     }]
     kernels += numeric_kernel_entries(out["numeric_kernels"], par_launches,
                                       tw_num_launches)

@@ -1,56 +1,63 @@
 // Fused bracket stage: the whole fixed-count bisection of a batch of
-// brackets in one launch, shared by slab_bisect (slab_disp.cu) and
-// cylinder_bisect (cylinder_disp.cu).
+// brackets in one launch (spec_kernel), over the chain of a Model: the
+// slab's (slab_disp.cu, slab_bisect), the density/axial-flow cylinder's
+// (cylinder_disp.cu, cylinder_bisect) and the twisted cylinder's
+// (cylinder_twisted.cu, which also evaluates its small batches with it),
+// each with the exact or the numeric exterior.
 //
 // Port of `eigensolver_tpu/search.py::bisect` (search.py:142-169) and of the
 // bisection half of `refine_on_cpu` (search.py:468-522), over the dispersion
 // chains of `physics/slab.py` / `physics/cylinder.py`. On the TPU that was an
 // XLA `fori_loop` around the vmapped dispersion; the port first ran it as
-// n_iter + 2 launches of the one-thread dispersion kernels. Per bracket:
+// n_iter + 2 launches of the one-thread scan kernels. Per bracket:
 //   f(lo) -> lo_neg; n_iter times mid = 0.5 (lo + hi), det(mid),
 //   go_right = signbit(det) == lo_neg, select; root = 0.5 (lo + hi);
 //   optionally one last evaluation at the root for the % mismatch.
 //
 // What bounds it on Hopper. One evaluation is an RK4 chain of n_steps
-// (2048, +128 for the cylinder's log tail) steps. Each step is ~85-90% a
-// coefficient chain at 3 abscissae (divisions, square roots, an exp) that
-// does not depend on the ODE state, and ~15 dependent flops of state update.
-// With one thread per bracket (the one-thread kernels) a bracket batch of
+// (slab 2048; cylinder 2048 + a 128-step log tail; twisted 1536) steps.
+// Each step is mostly a coefficient chain at 3 abscissae (divisions, square
+// roots, exps) that does not depend on the ODE state, and ~15 dependent
+// flops of state update. With one thread per bracket a bracket batch of
 // 5,040 (slab) or 17,280 (cylinder) fills 1-4 warps per SM, so each launch
 // lasts one thread's serial chain of dependent divisions: latency-bound at
 // a few percent of the card's issue rate. Bound by operations: 3 chain
-// evaluations per step per bracket per evaluation.
+// evaluations per step per bracket per evaluation, and the chain's
+// x-only / r-only part once per abscissa.
 //
-// The design: a warp-specialised block serves B brackets (B divides 32).
-//   Consumer warp (warp 0): lane j carries bracket j's state in registers
-//     and runs the serial update in exactly the one-thread kernel's order
-//     (the same __device__ step function), reading each step's 6
-//     coefficients from shared memory; it also runs the start state, the
-//     epilogue (det, mismatch), the sign test and the bracket update, and
-//     publishes the next omega of each bracket to shared memory.
-//   Producer warps (P of them): compute the coefficients of C steps x 3
-//     abscissae x B brackets per ring stage with the one-thread kernel's
-//     coefficient functions, a step's 3 abscissae per thread at once (3
-//     independent chains in flight, as in the one-thread kernel's loop),
-//     into a ring of S stages in dynamic shared memory, and run up to S
-//     stages ahead of the consumer.
+// The design: a warp-specialised block serves B brackets on B 2^L columns.
+//   Consumer warp (warp 0): lane j carries column j's state in registers
+//     and runs the serial update in exactly the scan's order (the same
+//     __device__ step function), reading each step's 6 coefficients from
+//     shared memory; it also runs the start state, the epilogue (det,
+//     mismatch, the exterior), the sign test and the bracket update, and
+//     publishes the next omega of each column to shared memory.
+//   Producer warps (P of them): per ring stage of C steps, first the
+//     x-only / r-only entries of its 3 C abscissae (Model::entry; the
+//     scan's table values) once for the block, into a double-buffered table
+//     behind the ring (one producer barrier per stage); then each column's
+//     chain from them (Model::coef), a step's 3 abscissae per thread at once
+//     (3 independent chains in flight), into a ring of S stages in dynamic
+//     shared memory, up to S stages ahead of the consumer.
 //   Hand-off: named barriers (bar.sync / bar.arrive, which order the shared
 //     memory accesses of the threads that take part): per stage a "full"
 //     barrier (producers arrive, consumer waits) and an "empty" barrier
-//     (consumer arrives, producers wait), and an "omega" barrier per
-//     evaluation (consumer arrives, producers wait).
-// Shared memory holds the ring (C x 6 x B values per stage) and the B
-// omegas; registers hold the state; no tensor cores and no TMA (no matrix
-// product, and a bracket's input is 4 scalars). B, P, C and S are launch
-// arguments, chosen by the wrapper (kernels/common.py::bisect_shape). The
-// register budget is chosen at launch from the card's occupancy: of two
-// instantiations, 128 registers a thread (no spills; taken when the whole
-// batch is resident on the card at once with it: a small batch, whose
-// serial consumer chain sets the pace) and 64 (2 blocks of 512 threads per
-// SM: a batch of several waves, where the producers' throughput does).
-// The coefficients are the one-thread kernel's values and the update is its
-// code, built with --fmad=false, so (root, mismatch) are bit-equal to the
-// loop of one-thread launches, and so to the plain PyTorch version.
+//     (consumer arrives, producers wait), and an "omega" barrier per round
+//     (consumer arrives, producers wait).
+// Shared memory holds the 32 omegas, the ring (C x 6 x B 2^L values per
+// stage) and the table; registers hold the state; no tensor cores and no
+// TMA (no matrix product, and a bracket's input is 4 scalars). B, L, P, C
+// and S are launch arguments, chosen by the wrapper
+// (kernels/common.py::spec_shape and its tuned neighbours). The register
+// budget is 128 registers a thread (1 block of 512 threads per SM) or 64
+// (2), each an instantiation; chosen by the wrapper, or at launch from the
+// card's occupancy: the wider where the whole batch is resident on the card
+// at once with it (a small batch, whose serial consumer chain sets the
+// pace), else the narrower (a batch of several waves, where the producers'
+// throughput does). The entries and coefficients are the scan's values and
+// the update is its code, built with --fmad=false, so (root, mismatch) are
+// bit-equal to the loop of scan launches, and so to the plain PyTorch
+// version.
 #pragma once
 
 #include <cmath>
@@ -68,6 +75,7 @@ constexpr int kBisectMaxStages = 6;     // barrier ids 1 + 2 S <= 15
 namespace bar {
 constexpr int kOmega = 1;  // next omega of every bracket published
 constexpr int kFull = 2;   // + slot: stage written; kFull + S + slot: stage read
+constexpr int kTable = 15;  // producers: the stage's table written
 
 // bar.sync / bar.arrive without .aligned: every thread of the block takes
 // part; the memory clobber keeps shared memory accesses on their side
@@ -80,202 +88,36 @@ __device__ __forceinline__ void arrive(int id, int n) {
 }  // namespace bar
 
 // Model: the dispersion chain of one geometry, with
-//   T, Params, kState, Ctx (per-evaluation values of the consumer);
-//   Model(p); n_steps();
-//   coef(omega, k, mode, i, a, c0, c1): the chain at abscissa a of step i;
+//   T, Params, kState, Ctx (per-evaluation values of the consumer), Entry
+//   (the x-only / r-only values at one abscissa);
+//   Model(p); n_steps(); entry(i, a): the entry at abscissa a of step i;
+//   coef(i, entry, omega, k, mode, c0, c1): a column's chain there;
 //   start(omega, k, mode, y, ctx); step(i, c, stride, y) with the step's 6
 //   coefficients at c[0], c[stride], ..., c[5 stride];
-//   finish(omega, k, mode, y, ctx, det, mismatch).
-// kMinBlocks: blocks of kBisectMaxThreads per SM the registers must allow
-// (2: 64 registers a thread, 1: 128)
-template <class Model, int kMinBlocks>
-__global__ void __launch_bounds__(kBisectMaxThreads, kMinBlocks)
-bisect_kernel(const typename Model::T* __restrict__ lo_,
-              const typename Model::T* __restrict__ hi_,
-              const typename Model::T* __restrict__ k_,
-              const typename Model::T* __restrict__ mode_,
-              typename Model::T* __restrict__ root_,
-              typename Model::T* __restrict__ mism_, int64_t n, int n_iter,
-              int final_eval, int B, int C, int S,
-              const __grid_constant__ typename Model::Params p) {
-  using T = typename Model::T;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* om_s = reinterpret_cast<T*>(smem_raw);  // [32] omega of each bracket
-  T* ring = om_s + 32;                       // [S][C][6][B]
-  const int nthr = blockDim.x;
-  const int stage_len = C * 6 * B;
-  const Model m(p);
-  const int n_steps = m.n_steps();
-  const int n_stages = (n_steps + C - 1) / C;
-  const int e0 = n_iter > 0 ? 1 : 0;         // f(lo) only if it is used
-  const int n_evals = e0 + n_iter + (final_eval ? 1 : 0);
-  const int total = n_evals * n_stages;      // ring stages in the launch
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * B;
-
-  if (threadIdx.x < 32) {
-    // consumer: lane j <-> bracket j; lanes j >= B shadow column j % B
-    const int j = threadIdx.x;
-    const int col = j % B;
-    const int64_t idx = base + col < n ? base + col : n - 1;
-    T lo = lo_[idx], hi = hi_[idx];
-    const T k = k_[idx], md = mode_[idx];
-    bool lo_neg = false;
-    T mism = T(0);
-    int g = 0;
-    for (int e = 0; e < n_evals; ++e) {
-      const bool at_lo = e < e0;
-      const T om = at_lo ? lo : T(0.5) * (lo + hi);
-      if (j < B) om_s[j] = om;
-      bar::arrive(bar::kOmega, nthr);
-      T y[Model::kState];
-      typename Model::Ctx ctx;
-      m.start(om, k, md, y, ctx);
-      for (int s = 0; s < n_stages; ++s, ++g) {
-        const int slot = g % S;
-        bar::sync(bar::kFull + slot, nthr);
-        const T* st = ring + slot * stage_len + col;
-        const int i0 = s * C;
-        const int c_end = min(C, n_steps - i0);
-#pragma unroll 2
-        for (int c = 0; c < c_end; ++c) m.step(i0 + c, st + c * 6 * B, B, y);
-        if (g < total - S) bar::arrive(bar::kFull + S + slot, nthr);
-      }
-      T det, r;
-      m.finish(om, k, md, y, ctx, det, r);
-      const bool neg = signbit(det) != 0;   // NaN's sign too, as torch.signbit
-      if (at_lo) {
-        lo_neg = neg;
-      } else if (e < e0 + n_iter) {
-        const bool go_right = neg == lo_neg;  // root in [mid, hi]
-        lo = go_right ? om : lo;
-        hi = go_right ? hi : om;
-      } else {
-        mism = r;
-      }
-    }
-    if (j < B && base + j < n) {
-      root_[base + j] = T(0.5) * (lo + hi);
-      if (final_eval) mism_[base + j] = mism;
-    }
-  } else {
-    // producers: thread t fills column t % B (B divides 32 P) of each stage,
-    // the steps c = t / B, t / B + 32 P / B, ..., all 3 abscissae of a step
-    // at once (3 independent chains in flight per thread)
-    const int t = threadIdx.x - 32;
-    const int col = t % B;
-    const int c0 = t / B;
-    const int c_step = (nthr - 32) / B;
-    const int64_t idx = base + col < n ? base + col : n - 1;
-    const T k = k_[idx], md = mode_[idx];
-    int g = 0;
-    for (int e = 0; e < n_evals; ++e) {
-      bar::sync(bar::kOmega, nthr);
-      const T om = om_s[col];
-      for (int s = 0; s < n_stages; ++s, ++g) {
-        const int slot = g % S;
-        if (g >= S) bar::sync(bar::kFull + S + slot, nthr);
-        T* st = ring + slot * stage_len + col;
-        const int i0 = s * C;
-        const int c_end = min(C, n_steps - i0);
-        for (int c = c0; c < c_end; c += c_step) {
-          T v[6];
-#pragma unroll
-          for (int a = 0; a < 3; ++a) m.coef(om, k, md, i0 + c, a, v[2 * a], v[2 * a + 1]);
-          T* dst = st + c * 6 * B;
-#pragma unroll
-          for (int q = 0; q < 6; ++q) dst[q * B] = v[q];
-        }
-        bar::arrive(bar::kFull + slot, nthr);
-      }
-    }
-  }
-}
-
-// Launch the fused bisection of n brackets: B brackets per block, P
-// producer warps, C steps per stage, S stages, the register budget of
-// min_blocks (1 or 2) blocks of 512 threads per SM, or with min_blocks = 0
-// the wider budget if it keeps every block resident at once, else the
-// narrower. Returns the cudaError_t.
-template <class Model>
-int launch_bisect(const void* lo, const void* hi, const void* k,
-                  const void* mode, void* root, void* mism, long long n,
-                  int n_iter, int final_eval, int B, int P, int C, int S,
-                  int min_blocks, const typename Model::Params* p, int device,
-                  void* stream) {
-  using T = typename Model::T;
-  if (n <= 0 || n_iter < 0 || B < 1 || B > 32 || 32 % B != 0 || P < 1
-      || 32 * (P + 1) > kBisectMaxThreads || C < 1 || S < 1
-      || S > kBisectMaxStages || min_blocks < 0 || min_blocks > 2) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int threads = 32 * (P + 1);
-  const long long blocks = (n + B - 1) / B;
-  const size_t smem = (32 + static_cast<size_t>(S) * C * 6 * B) * sizeof(T);
-  auto* wide = bisect_kernel<Model, 1>;    // up to 128 registers a thread
-  auto* narrow = bisect_kernel<Model, 2>;  // up to 64
-  if (smem > 48 * 1024) {
-    for (auto* kern : {wide, narrow}) {
-      err = cudaFuncSetAttribute(
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem));
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-  }
-  if (min_blocks == 0) {
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wide, threads,
-                                                        smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    min_blocks = blocks <= static_cast<long long>(sms) * per_sm ? 1 : 2;
-  }
-  auto* kern = min_blocks == 1 ? wide : narrow;
-  kern<<<static_cast<unsigned>(blocks), threads, smem,
-         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(lo), static_cast<const T*>(hi),
-      static_cast<const T*>(k), static_cast<const T*>(mode),
-      static_cast<T*>(root), static_cast<T*>(mism), n, n_iter, final_eval, B,
-      C, S, *p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Speculative mode, for a Model whose producers read an r-only table entry
-// (Model::Entry, Model::entry(i, a), Model::coef(i, entry, omega, k, mode,
-// c0, c1) at step i, and finish(..., det, mismatch, valid)): the twisted
-// chain, and the slab and cylinder chains with the numeric exterior.
+//   finish(omega, k, mode, y, ctx, det, mismatch, valid).
 //
-// The next L levels of a bisection have 2^L - 1 possible midpoints, each
-// formed from (lo, hi) as the loop forms it (mid = 0.5 (lo + hi) along the
-// path of go_right decisions), and the loop's sign test compares each with
-// the one sign of f(lo). So a round evaluates all of them at once and the
-// walk down the tree then takes the same midpoints and root bits as L
-// iterations of bisect_kernel. A bracket takes G = 2^L consumer lanes:
-// lane 1 .. 2^d - 1 the nodes of the round's d <= L levels in heap order
-// (node n's children 2n, 2n + 1), lane 0 f(lo) in the first round (idle
-// after); B brackets a block, so B G <= 32 columns, each fed by the
-// producers as bisect_kernel feeds a bracket. The residual at the root is
-// one more level (the root is the midpoint of the last interval), so
-// n_iter + 1 levels take ceil((n_iter + 1) / L) rounds. Lanes read the
-// signs of their group's nodes with warp shuffles. L = 0 is the loop's own
-// schedule on one lane a bracket: f(lo) in a round of its own, then one
-// level a round (the speculation's extra work does not pay where the
-// producers, not the serial chain, set the pace: a large batch).
+// Speculation. The next L levels of a bisection have 2^L - 1 possible
+// midpoints, each formed from (lo, hi) as the loop forms it (mid = 0.5 (lo
+// + hi) along the path of go_right decisions), and the loop's sign test
+// compares each with the one sign of f(lo). So a round evaluates all of
+// them at once and the walk down the tree then takes the same midpoints and
+// root bits as L iterations of the loop. A bracket takes G = 2^L consumer
+// lanes: lane 1 .. 2^d - 1 the nodes of the round's d <= L levels in heap
+// order (node n's children 2n, 2n + 1), lane 0 f(lo) in the first round
+// (idle after); B brackets a block, so B G <= 32 columns, each fed by the
+// producers alike. The residual at the root is one more level (the root is
+// the midpoint of the last interval), so n_iter + 1 levels take
+// ceil((n_iter + 1) / L) rounds. Lanes read the signs of their group's
+// nodes with warp shuffles. L = 0 is the loop's own schedule on one lane a
+// bracket: f(lo) in a round of its own, then one level a round (the
+// speculation's extra work does not pay where the producers, not the
+// serial chain, set the pace: a large batch).
 //
 // Evaluation mode (eval, L = 0): each column is a candidate (omega = lo),
 // one round; out0 = det, out1 = mismatch, valid. A batch too small to fill
 // the card with one thread per candidate takes this instead of the scan.
-//
-// The producers compute the r-only entries of a stage once per block (3 C
-// of them, into a double-buffered table in shared memory behind the ring;
-// one producer barrier per stage) and each column's chain from them.
-namespace bar {
-constexpr int kTable = 15;  // producers: the stage's table written
-}  // namespace bar
 
-// Byte offset of the r-only table in a speculative block's shared memory
+// Byte offset of the x-only / r-only table in a block's shared memory
 // (after the 32 omegas and the ring), 16-byte aligned
 template <class T>
 __host__ __device__ __forceinline__ size_t spec_table_offset(int NC, int C,
@@ -451,9 +293,11 @@ spec_kernel(const typename Model::T* __restrict__ lo_,
 // round, 0 the loop's schedule) or the fused evaluation (eval = 1, L = 0:
 // n candidates lo, det to out0, mismatch to out1, valid) with B brackets
 // (candidates) a block, P producer warps, C steps per stage, S stages and
-// the register budget of min_blocks (1 or 2; 0: chosen as launch_bisect
-// chooses). Returns the cudaError_t.
-template <class Model>
+// the register budget of min_blocks (1 or 2; 0: the wider if every block
+// is resident at once with it, else the narrower). kNarrow: whether the
+// 64-register instantiation is built (else min_blocks 2 is refused and 0
+// takes the wider). Returns the cudaError_t.
+template <class Model, bool kNarrow = true>
 int launch_spec(const void* lo, const void* hi, const void* k,
                 const void* mode, void* out0, void* out1, void* valid,
                 long long n, int n_iter, int final_eval, int eval, int B,
@@ -463,7 +307,8 @@ int launch_spec(const void* lo, const void* hi, const void* k,
   if (n <= 0 || n_iter < 0 || B < 1 || B > 32 || 32 % B != 0 || L < 0
       || L > 5 || (B << L) > 32 || (eval && L != 0) || P < 1
       || 32 * (P + 1) > kBisectMaxThreads || C < 1 || S < 1
-      || S > kBisectMaxStages || min_blocks < 0 || min_blocks > 2) {
+      || S > kBisectMaxStages || min_blocks < 0 || min_blocks > 2
+      || (!kNarrow && min_blocks == 2)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
@@ -474,15 +319,18 @@ int launch_spec(const void* lo, const void* hi, const void* k,
       spec_table_offset<T>(B << L, C, S)
       + 2 * 3 * static_cast<size_t>(C) * sizeof(typename Model::Entry);
   auto* wide = spec_kernel<Model, 1>;    // up to 128 registers a thread
-  auto* narrow = spec_kernel<Model, 2>;  // up to 64
+  decltype(wide) narrow = nullptr;       // up to 64
+  if constexpr (kNarrow) narrow = spec_kernel<Model, 2>;
   if (smem > 48 * 1024) {
     for (auto* kern : {wide, narrow}) {
+      if (kern == nullptr) continue;
       err = cudaFuncSetAttribute(
           kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
           static_cast<int>(smem));
       if (err != cudaSuccess) return static_cast<int>(err);
     }
   }
+  if (min_blocks == 0 && !kNarrow) min_blocks = 1;
   if (min_blocks == 0) {
     int sms = 0, per_sm = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);

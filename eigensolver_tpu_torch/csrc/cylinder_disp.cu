@@ -60,15 +60,14 @@
 // `physics/cylinder.py`, which the port ran as n_iter + 2 launches of
 // cylinder_disp on cyl_co_09's 17,280 brackets (~4 warps per SM, each
 // launch one thread's 2176-step chain long). Bound by operations (3 chain
-// evaluations per RK4 step per bracket per evaluation); the design
-// (bisect.cuh) computes the chain in producer warps, which do not depend
-// on the ODE state, and runs the serial two-basis update in one consumer
-// lane per bracket, in this file's order (interface1, rk4_step2, finish),
-// so its (root, mismatch) are bit-equal to the launch loop's. Its
-// producers compute both parts of the chain per bracket. With the numeric
-// exterior it runs on bisect.cuh::spec_kernel instead (SpecChain): the
+// evaluations per RK4 step per bracket per evaluation); it runs on
+// bisect.cuh::spec_kernel over SpecChain, with either exterior: the
 // producers compute the r-only entries of a stage once per block into a
-// table, as the scan does, and each bracket's chain from them.
+// table, as the scan does, and each bracket's (1/F, g) from them; one
+// consumer lane per bracket (2^L on a small batch, which speculates L
+// levels a round) runs the serial two-basis update in this file's order
+// (interface1, rk4_step2, finish with the inlined K_m ratio or the numeric
+// exterior), so its (root, mismatch) are bit-equal to the launch loop's.
 //
 // The twisted tubes (rotational flow v_phi, magnetic twist B_phi) have
 // kernels of their own (cylinder_twisted.cu), which this file's scan entries
@@ -76,6 +75,7 @@
 // cylinder.cuh.
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -268,60 +268,14 @@ cylinder_disp_kernel(const T* __restrict__ omega_, const T* __restrict__ k_,
   }
 }
 
-// The cylinder chain as the fused bisection (bisect.cuh) runs it: steps
-// 0 .. n_interior - 1 in r from 1 to eps, then the log tail in t = ln r;
-// the producers compute both parts of the chain (r_point, invF_g) per
-// bracket, the consumer runs interface1 / rk4_step2 / finish.
-template <class T_>
-struct BisectChain {
-  using T = T_;
-  using Params = CylDispParams;
-  static constexpr int kState = 4;  // (P1, w1, P2, w2)
-  using Ctx = Iface<T>;
-  const Params& p;
-  Grid<T> g;
-
-  __device__ explicit BisectChain(const Params& p_) : p(p_), g(p_) {}
-  __device__ int n_steps() const { return g.n_int + g.n_log; }
-  __device__ void coef(T omega, T k, T m, int i, int a, T& c0, T& c1) const {
-    const Cand<T> c(p, omega, k, m);
-    if (i < g.n_int) {
-      invF_g<T, false>(r_point(p, rk4_abscissa(g.x0i, g.hi, g.hhi, i, a)), c,
-                       c0, c1);
-    } else {
-      invF_g<T, true>(
-          r_point(p, radius<T, true>(
-                         rk4_abscissa(g.x0l, g.hl, g.hhl, i - g.n_int, a))),
-          c, c0, c1);
-    }
-  }
-  __device__ void start(T omega, T k, T m, T* y, Ctx& ctx) const {
-    interface1(p, Cand<T>(p, omega, k, m), ctx.C3_1, ctx.F1);
-    y[0] = T(1);
-    y[1] = T(0);
-    y[2] = T(0);
-    y[3] = ctx.F1 * T(1);
-  }
-  __device__ void step(int i, const T* c, int s, T* y) const {
-    const bool in_r = i < g.n_int;
-    rk4_step2(in_r ? g.hi : g.hl, in_r ? g.hhi : g.hhl, in_r ? g.h6i : g.h6l,
-              c[0], c[s], c[2 * s], c[3 * s], c[4 * s], c[5 * s], y[0], y[1],
-              y[2], y[3]);
-  }
-  __device__ void finish(T omega, T k, T m, const T* y, const Ctx& ctx, T& det,
-                         T& mism) const {
-    bool valid;
-    eigk::finish<T, false>(p, omega, k, m, zero_over(ctx.C3_1) + T(0), ctx.F1,
-                           T(0), y[0], y[1], y[2], y[3], det, mism, valid);
-  }
-};
-
-// The same chain with the numeric exterior as bisect.cuh::spec_kernel runs
-// it: the producers compute an abscissa's r-only entry (r_point; on the
-// log tail at r = exp(t)) once per block and each column's (1/F, g) from
-// it (invF_g), the consumer runs interface1 / rk4_step2 / finish, the
-// exterior included, in the scan's order, so every value is the scan's.
-template <class T_>
+// The chain as bisect.cuh::spec_kernel runs it, with the exterior of kNum
+// (the K_m ratio or the numeric one): steps 0 .. n_interior - 1 in r from
+// 1 to eps, then the log tail in t = ln r; the producers compute an
+// abscissa's r-only entry (r_point; on the log tail at r = exp(t)) once per
+// block and each column's (1/F, g) from it (invF_g), the consumer runs
+// interface1 / rk4_step2 / finish, the exterior included, in the scan's
+// order, so every value is the scan's.
+template <class T_, bool kNum>
 struct SpecChain {
   using T = T_;
   using Params = CylDispParams;
@@ -364,7 +318,7 @@ struct SpecChain {
   }
   __device__ void finish(T omega, T k, T m, const T* y, const Ctx& ctx, T& det,
                          T& mism, bool& valid) const {
-    eigk::finish<T, true>(p, omega, k, m, zero_over(ctx.C3_1) + T(0), ctx.F1,
+    eigk::finish<T, kNum>(p, omega, k, m, zero_over(ctx.C3_1) + T(0), ctx.F1,
                           T(0), y[0], y[1], y[2], y[3], det, mism, valid);
   }
 };
@@ -457,38 +411,23 @@ int launch_cylinder(const void* omega, const void* k, const void* m, void* det,
                                   chunk, p, s);
 }
 
-// The fused bisection of n brackets over the density/axial-flow chain with
-// the K_m ratio (the twisted chain's is the speculative one of
-// cylinder_twisted.cu; the numeric exterior's launch_cylinder_num_spec)
+// The fused bisection of n brackets over the density/axial-flow chain
+// (bisect.cuh::launch_spec over SpecChain) with the exterior that p names;
+// the K_m ratio's at float64 only at 128 registers a thread, where
+// kernels/common.py::analytic_spec_shape launches it (64 spill its chain).
+// The twisted chain's is cylinder_twisted.cu's.
 template <class T>
 int launch_cylinder_bisect(const void* lo, const void* hi, const void* k,
                            const void* m, void* root, void* mism, long long n,
-                           int n_iter, int final_eval, int B, int P, int C,
-                           int S, int min_blocks, const CylDispParams* p,
-                           int device, void* stream) {
-  if (p->twisted || p->exterior_numeric) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return launch_bisect<BisectChain<T>>(lo, hi, k, m, root, mism, n, n_iter,
-                                       final_eval, B, P, C, S, min_blocks, p,
-                                       device, stream);
-}
-
-// The speculative fused bisection of n brackets over the density/axial-flow
-// chain with the numeric exterior (bisect.cuh::launch_spec over SpecChain)
-template <class T>
-int launch_cylinder_num_spec(const void* lo, const void* hi, const void* k,
-                             const void* m, void* root, void* mism,
-                             long long n, int n_iter, int final_eval, int B,
-                             int L, int P, int C, int S, int min_blocks,
-                             const CylDispParams* p, int device,
-                             void* stream) {
-  if (p->twisted || !p->exterior_numeric) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return launch_spec<SpecChain<T>>(lo, hi, k, m, root, mism, nullptr, n,
-                                   n_iter, final_eval, 0, B, L, P, C, S,
-                                   min_blocks, p, device, stream);
+                           int n_iter, int final_eval, int B, int L, int P,
+                           int C, int S, int min_blocks,
+                           const CylDispParams* p, int device, void* stream) {
+  if (p->twisted) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  auto* launch = p->exterior_numeric ? launch_spec<SpecChain<T, true>>
+                                     : launch_spec<SpecChain<T, false>, kF32>;
+  return launch(lo, hi, k, m, root, mism, nullptr, n, n_iter, final_eval, 0,
+                B, L, P, C, S, min_blocks, p, device, stream);
 }
 
 }  // namespace eigk
@@ -518,57 +457,36 @@ int eigk_cylinder_disp_f64(const void* omega, const void* k, const void* m,
 }
 
 // Fused bisection of n brackets (lo, hi, k, m) over the density/axial-flow
-// chain with the K_m ratio: root, and the % mismatch at the root when
-// final_eval (mism may be null otherwise); B brackets per block, P
-// producer warps, C steps per stage, S stages, the register budget of
-// min_blocks blocks of 512 threads per SM. The twisted chain's is
-// eigk_cylinder_spec_* (cylinder_twisted.cu), the numeric exterior's
-// eigk_cylinder_num_spec_*.
-int eigk_cylinder_bisect_f32(const void* lo, const void* hi, const void* k,
-                             const void* m, void* root, void* mism,
-                             long long n, int n_iter, int final_eval, int B,
-                             int P, int C, int S, int min_blocks,
-                             const eigk::CylDispParams* p, int device,
-                             void* stream) {
-  return eigk::launch_cylinder_bisect<float>(
-      lo, hi, k, m, root, mism, n, n_iter, final_eval, B, P, C, S, min_blocks,
-      p, device, stream);
+// chain with the exterior that p names (the K_m ratio or the numeric one):
+// root, and the % mismatch at the root when final_eval (mism may be null
+// otherwise); B brackets a block, L levels a round on 2^L lanes a bracket
+// (B 2^L <= 32; 0 the loop's schedule), P producer warps, C steps per
+// stage, S stages, the register budget of min_blocks blocks of 512 threads
+// per SM (0: chosen at launch). The twisted chain's is
+// eigk_cylinder_spec_* (cylinder_twisted.cu).
+int eigk_cylinder_bisect_spec_f32(const void* lo, const void* hi,
+                                  const void* k, const void* m, void* root,
+                                  void* mism, long long n, int n_iter,
+                                  int final_eval, int B, int L, int P, int C,
+                                  int S, int min_blocks,
+                                  const eigk::CylDispParams* p, int device,
+                                  void* stream) {
+  return eigk::launch_cylinder_bisect<float>(lo, hi, k, m, root, mism, n,
+                                             n_iter, final_eval, B, L, P, C,
+                                             S, min_blocks, p, device, stream);
 }
 
-int eigk_cylinder_bisect_f64(const void* lo, const void* hi, const void* k,
-                             const void* m, void* root, void* mism,
-                             long long n, int n_iter, int final_eval, int B,
-                             int P, int C, int S, int min_blocks,
-                             const eigk::CylDispParams* p, int device,
-                             void* stream) {
-  return eigk::launch_cylinder_bisect<double>(
-      lo, hi, k, m, root, mism, n, n_iter, final_eval, B, P, C, S, min_blocks,
-      p, device, stream);
-}
-
-// The same with the numeric exterior (p->exterior_numeric), on the
-// speculative kernel: L levels a round on 2^L lanes a bracket (B 2^L <=
-// 32; 0 the loop's schedule), the rest as eigk_cylinder_bisect_*.
-int eigk_cylinder_num_spec_f32(const void* lo, const void* hi, const void* k,
-                               const void* m, void* root, void* mism,
-                               long long n, int n_iter, int final_eval, int B,
-                               int L, int P, int C, int S, int min_blocks,
-                               const eigk::CylDispParams* p, int device,
-                               void* stream) {
-  return eigk::launch_cylinder_num_spec<float>(
-      lo, hi, k, m, root, mism, n, n_iter, final_eval, B, L, P, C, S,
-      min_blocks, p, device, stream);
-}
-
-int eigk_cylinder_num_spec_f64(const void* lo, const void* hi, const void* k,
-                               const void* m, void* root, void* mism,
-                               long long n, int n_iter, int final_eval, int B,
-                               int L, int P, int C, int S, int min_blocks,
-                               const eigk::CylDispParams* p, int device,
-                               void* stream) {
-  return eigk::launch_cylinder_num_spec<double>(
-      lo, hi, k, m, root, mism, n, n_iter, final_eval, B, L, P, C, S,
-      min_blocks, p, device, stream);
+int eigk_cylinder_bisect_spec_f64(const void* lo, const void* hi,
+                                  const void* k, const void* m, void* root,
+                                  void* mism, long long n, int n_iter,
+                                  int final_eval, int B, int L, int P, int C,
+                                  int S, int min_blocks,
+                                  const eigk::CylDispParams* p, int device,
+                                  void* stream) {
+  return eigk::launch_cylinder_bisect<double>(lo, hi, k, m, root, mism, n,
+                                              n_iter, final_eval, B, L, P, C,
+                                              S, min_blocks, p, device,
+                                              stream);
 }
 
 // sizeof(CylDispParams), for the Python mirror's layout check

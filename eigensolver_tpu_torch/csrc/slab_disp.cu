@@ -48,19 +48,17 @@
 //
 // slab_bisect, the second kernel here, is the fused bracket stage over the
 // same chain: it replaces `eigensolver_tpu/search.py::bisect` (:142-169)
-// and the bisection of `refine_on_cpu` (:468-522) over
-// `physics/slab.py`, which the port ran as n_iter + 2 launches of
-// slab_disp on 5,040 (slab_ph_09) or ~150 (refinement) brackets, each
-// launch one thread's serial chain long. Bound by operations (3 chain
-// evaluations per RK4 step per bracket per evaluation); the design
-// (bisect.cuh) computes the chain in producer warps, which do not depend
-// on the ODE state, and runs the serial update in one consumer lane per
-// bracket, in this file's order (rk4_step, start, finish), so its (root,
-// mismatch) are bit-equal to the launch loop's. Its producers compute both
-// parts of the chain per bracket. With the numeric exterior it runs on
-// bisect.cuh::spec_kernel instead (SpecChain): the producers compute the
-// x-only entries of a stage once per block into a table, as the scan
-// does, and each bracket's chain from them.
+// and the bisection of `refine_on_cpu` (:468-522) over `physics/slab.py`,
+// which the port ran as n_iter + 2 launches of slab_disp on 5,040
+// (slab_ph_09) or ~150 (refinement) brackets, each launch one thread's
+// serial chain long. Bound by operations (3 chain evaluations per RK4 step
+// per bracket per evaluation); it runs on bisect.cuh::spec_kernel over
+// SpecChain, with either exterior: the producers compute the x-only
+// entries of a stage once per block into a table, as the scan does, and
+// each bracket's chain from them; one consumer lane per bracket (2^L on a
+// small batch, which speculates L levels a round) runs the serial update
+// in this file's order (rk4_step, start, finish), so its (root, mismatch)
+// are bit-equal to the launch loop's.
 #include <cmath>
 #include <cstdint>
 #include <type_traits>
@@ -220,14 +218,6 @@ __device__ __forceinline__ void coef_at(const SlabDispParams& p,
   } else {
     flux_coef(q, c, a, b);
   }
-}
-
-// The whole chain at x: the x-only part, then the candidate's
-template <class T, bool kShear>
-__device__ __forceinline__ void coef(const SlabDispParams& p, T omega, T k,
-                                     T x, T& a, T& b) {
-  coef_at<T, kShear>(p, x_point<T, kShear>(p, x), Cand<T>(p, omega, k), a,
-                     b);
 }
 
 // right-hand side of the linear system with chain (a, b) at state (y0, y1):
@@ -427,47 +417,12 @@ slab_disp_kernel(const T* __restrict__ omega_, const T* __restrict__ k_,
   }
 }
 
-// The slab chain as the fused bisection (bisect.cuh) runs it: the
-// producers call coef<T, kShear> (both parts of the chain), the consumer
-// start / rk4_step / finish.
-template <class T_, bool kShear>
-struct BisectChain {
-  using T = T_;
-  using Params = SlabDispParams;
-  static constexpr int kState = 2;  // (vx, w) flux, (vx, vx') shear
-  struct Ctx {};
-  const Params& p;
-  int n;
-  T h, hh, h6;
-
-  __device__ explicit BisectChain(const Params& p_) : p(p_), n(p_.n_interior) {
-    rk4_spacing(T(0), T(1), n, h, hh, h6);
-  }
-  __device__ int n_steps() const { return n; }
-  __device__ void coef(T omega, T k, T, int i, int a, T& c0, T& c1) const {
-    slab::coef<T, kShear>(p, omega, k, rk4_abscissa(T(0), h, hh, i, a), c0, c1);
-  }
-  __device__ void start(T omega, T k, T par, T* y, Ctx&) const {
-    slab::start<T, kShear>(p, omega, k, par, y[0], y[1]);
-  }
-  __device__ void step(int, const T* c, int s, T* y) const {
-    rk4_step<T, kShear>(h, hh, h6, c[0], c[s], c[2 * s], c[3 * s], c[4 * s],
-                        c[5 * s], y[0], y[1]);
-  }
-  __device__ void finish(T omega, T k, T, const T* y, const Ctx&, T& det,
-                         T& mism) const {
-    bool valid;
-    slab::finish<T, kShear, false>(p, omega, k, edge(p, omega, k), y[0], y[1],
-                                   det, mism, valid);
-  }
-};
-
-// The slab chain with the numeric exterior as bisect.cuh::spec_kernel runs
-// it: the producers compute an abscissa's x-only entry (x_point) once per
+// The slab chain as bisect.cuh::spec_kernel runs it, with the exterior of
+// kNum: the producers compute an abscissa's x-only entry (x_point) once per
 // block and each column's chain from it (coef_at), the consumer runs start
 // / rk4_step / finish, the exterior included, in the scan's order, so
 // every value is the scan's.
-template <class T_, bool kShear>
+template <class T_, bool kShear, bool kNum>
 struct SpecChain {
   using T = T_;
   using Params = SlabDispParams;
@@ -498,7 +453,7 @@ struct SpecChain {
   }
   __device__ void finish(T omega, T k, T, const T* y, const Ctx&, T& det,
                          T& mism, bool& valid) const {
-    slab::finish<T, kShear, true>(p, omega, k, edge(p, omega, k), y[0], y[1],
+    slab::finish<T, kShear, kNum>(p, omega, k, edge(p, omega, k), y[0], y[1],
                                   det, mism, valid);
   }
 };
@@ -603,41 +558,26 @@ int launch(const void* omega, const void* k, const void* par, void* det,
   return static_cast<int>(err);
 }
 
-template <class T>
-int launch_bisect_slab(const void* lo, const void* hi, const void* k,
-                       const void* par, void* root, void* mism, long long n,
-                       int n_iter, int final_eval, int B, int P, int C, int S,
-                       int min_blocks, const SlabDispParams* p, int device,
-                       void* stream) {
-  if (p->exterior_numeric) {       // spec_kernel's (launch_spec_slab)
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (p->shear) {
-    return launch_bisect<BisectChain<T, true>>(lo, hi, k, par, root, mism, n,
-                                               n_iter, final_eval, B, P, C, S,
-                                               min_blocks, p, device, stream);
-  }
-  return launch_bisect<BisectChain<T, false>>(lo, hi, k, par, root, mism, n,
-                                              n_iter, final_eval, B, P, C, S,
-                                              min_blocks, p, device, stream);
-}
-
-// The speculative fused bisection with the numeric exterior
-// (bisect.cuh::launch_spec over SpecChain) in the form that p names
+// The fused bisection (bisect.cuh::launch_spec over SpecChain) in the form
+// and with the exterior that p names; the flux form with the exact exterior
+// at float64 only at 128 registers a thread, where
+// kernels/common.py::analytic_spec_shape launches it (64 spill its chain)
 template <class T>
 int launch_spec_slab(const void* lo, const void* hi, const void* k,
                      const void* par, void* root, void* mism, long long n,
                      int n_iter, int final_eval, int B, int L, int P, int C,
                      int S, int min_blocks, const SlabDispParams* p,
                      int device, void* stream) {
-  if (!p->exterior_numeric) return static_cast<int>(cudaErrorInvalidValue);
-  return p->shear
-             ? launch_spec<SpecChain<T, true>>(
-                   lo, hi, k, par, root, mism, nullptr, n, n_iter, final_eval,
-                   0, B, L, P, C, S, min_blocks, p, device, stream)
-             : launch_spec<SpecChain<T, false>>(
-                   lo, hi, k, par, root, mism, nullptr, n, n_iter, final_eval,
-                   0, B, L, P, C, S, min_blocks, p, device, stream);
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  auto* launch = p->shear ? (p->exterior_numeric
+                                 ? launch_spec<SpecChain<T, true, true>>
+                                 : launch_spec<SpecChain<T, true, false>>)
+                          : (p->exterior_numeric
+                                 ? launch_spec<SpecChain<T, false, true>>
+                                 : launch_spec<SpecChain<T, false, false>,
+                                               kF32>);
+  return launch(lo, hi, k, par, root, mism, nullptr, n, n_iter, final_eval, 0,
+                B, L, P, C, S, min_blocks, p, device, stream);
 }
 
 }  // namespace slab
@@ -663,34 +603,12 @@ int eigk_slab_disp_f64(const void* omega, const void* k, const void* par,
                                     threads, chunk, p, device, stream);
 }
 
-// Fused bisection of n brackets (lo, hi, k, parity) with the exact
-// exterior: root, and the % mismatch at the root when final_eval (mism may
-// be null otherwise); B brackets per block, P producer warps, C steps per
-// stage, S stages, the register budget of min_blocks blocks of 512 threads
-// per SM.
-int eigk_slab_bisect_f32(const void* lo, const void* hi, const void* k,
-                         const void* par, void* root, void* mism, long long n,
-                         int n_iter, int final_eval, int B, int P, int C,
-                         int S, int min_blocks, const eigk::SlabDispParams* p,
-                         int device, void* stream) {
-  return eigk::slab::launch_bisect_slab<float>(lo, hi, k, par, root, mism, n,
-                                               n_iter, final_eval, B, P, C, S,
-                                               min_blocks, p, device, stream);
-}
-
-int eigk_slab_bisect_f64(const void* lo, const void* hi, const void* k,
-                         const void* par, void* root, void* mism, long long n,
-                         int n_iter, int final_eval, int B, int P, int C,
-                         int S, int min_blocks, const eigk::SlabDispParams* p,
-                         int device, void* stream) {
-  return eigk::slab::launch_bisect_slab<double>(lo, hi, k, par, root, mism, n,
-                                                n_iter, final_eval, B, P, C, S,
-                                                min_blocks, p, device, stream);
-}
-
-// The same with the numeric exterior (p->exterior_numeric), on the
-// speculative kernel: L levels a round on 2^L lanes a bracket (B 2^L <=
-// 32; 0 the loop's schedule), the rest as eigk_slab_bisect_*.
+// Fused bisection of n brackets (lo, hi, k, parity) with the exterior
+// that p names: root, and the % mismatch at the root when final_eval (mism
+// may be null otherwise); B brackets a block, L levels a round on 2^L
+// lanes a bracket (B 2^L <= 32; 0 the loop's schedule), P producer warps,
+// C steps per stage, S stages, the register budget of min_blocks blocks of
+// 512 threads per SM (0: chosen at launch).
 int eigk_slab_spec_f32(const void* lo, const void* hi, const void* k,
                        const void* par, void* root, void* mism, long long n,
                        int n_iter, int final_eval, int B, int L, int P, int C,

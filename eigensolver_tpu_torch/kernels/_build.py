@@ -30,10 +30,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# (lo, hi, k, mode, root, mism, n, n_iter, final_eval, B, P, C, S,
-#  min_blocks, params, device, stream)
-_BISECT_ARGS = ((_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I,
-                 _I, _I, _I, _P, _I, _P), _I)
 # (omega, k, m, det, mism, valid, n, B, P, C, S, min_blocks, params,
 #  device, stream)
 _EVAL_ARGS = ((_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I,
@@ -58,8 +54,8 @@ _SIGNATURES = {
     "eigk_cylinder_eval_f64": _EVAL_ARGS,
     "eigk_cylinder_spec_f32": _SPEC_ARGS,
     "eigk_cylinder_spec_f64": _SPEC_ARGS,
-    "eigk_cylinder_num_spec_f32": _SPEC_ARGS,
-    "eigk_cylinder_num_spec_f64": _SPEC_ARGS,
+    "eigk_cylinder_bisect_spec_f32": _SPEC_ARGS,
+    "eigk_cylinder_bisect_spec_f64": _SPEC_ARGS,
     # (f64, kind, threads, min_blocks, smem, out[3])
     "eigk_cylinder_tw_attrs": ((_I, _I, _I, _I, ctypes.c_longlong, _P), _I),
     "eigk_cylinder_params_size": ((), ctypes.c_longlong),
@@ -70,12 +66,8 @@ _SIGNATURES = {
     "eigk_slab_disp_f64": ((_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I,
                             _I, _P, _I, _P), _I),
     "eigk_slab_params_size": ((), ctypes.c_longlong),
-    "eigk_slab_bisect_f32": _BISECT_ARGS,
-    "eigk_slab_bisect_f64": _BISECT_ARGS,
     "eigk_slab_spec_f32": _SPEC_ARGS,
     "eigk_slab_spec_f64": _SPEC_ARGS,
-    "eigk_cylinder_bisect_f32": _BISECT_ARGS,
-    "eigk_cylinder_bisect_f64": _BISECT_ARGS,
     "eigk_error_string": ((ctypes.c_int,), ctypes.c_char_p),
 }
 

@@ -1,8 +1,8 @@
 """Host mirror of `csrc/common.cuh::ProfileParams`, shared by the kernel
 wrappers, the launch checks they share, the launch shape of the scan
 kernels (`cylinder_disp`, `slab_disp`) and the block shapes of the fused
-kernels (`csrc/bisect.cuh`: the bisection, and the speculative bisection
-and evaluation)."""
+kernel (`csrc/bisect.cuh::spec_kernel`: the speculative bisection and
+evaluation)."""
 from __future__ import annotations
 
 import ctypes
@@ -131,16 +131,6 @@ def check_scan_shape(name: str, shape: ScanShape, threads: tuple,
         raise ValueError(f"{name}: unsupported launch shape {shape}")
 
 
-class BisectShape(NamedTuple):
-    """Block shape of a fused bisection launch (`csrc/bisect.cuh`)."""
-    brackets: int    # B: brackets per block, one consumer lane each; divides 32
-    producers: int   # P: producer warps, 1..15
-    steps: int       # C: RK4 steps per ring stage
-    stages: int      # S: ring stages, 1..6
-    min_blocks: int  # register budget: 1 (128 a thread) or 2 (64) blocks of
-                     # 512 threads per SM; 0: chosen at launch (bisect.cuh)
-
-
 # SMs of an H100; the bracket batch is cut into at least two blocks per SM
 # where it can be
 _SMS = 132
@@ -149,37 +139,6 @@ _SMS = 132
 _SPEC_COLUMNS = 2 * _SMS * 8
 # dynamic shared memory a block may use on Hopper
 MAX_SMEM = 227 * 1024
-
-
-def bisect_shape(n: int, dtype: torch.dtype) -> BisectShape:
-    """The block shape for n brackets, from timings on an H100
-    (`tools_torch/tune_bisect.py`, PERF.md section 6): the largest B <= 32
-    that still gives two blocks per SM (B = 1 below 264 brackets); P = 15
-    producer warps for B = 32, 7 for B = 8, 16, else B; 2 stages of C steps,
-    the largest multiple of the producers' rows (32 P / B steps, so that no
-    pass over a stage is partial) up to 64 that lets as many blocks share
-    an SM's shared memory as 64 registers a thread allow; the register
-    budget chosen at launch."""
-    b = 32
-    while b > 1 and -(-n // b) < 2 * _SMS:
-        b //= 2
-    p = 15 if b == 32 else 7 if b >= 8 else b
-    blocks = min(32, 65536 // (64 * 32 * (p + 1)))
-    rows = 32 * p // b
-    c = rows * max(1, 64 // rows)
-    while c > rows and blocks * bisect_smem(BisectShape(b, p, c, 2, 0),
-                                            dtype) > MAX_SMEM:
-        c -= rows
-    return BisectShape(brackets=b, producers=p, steps=c, stages=2,
-                       min_blocks=0)
-
-
-def bisect_smem(shape: BisectShape, dtype: torch.dtype) -> int:
-    """Bytes of dynamic shared memory of a block: 32 omegas and the ring of
-    S stages of C steps x 6 coefficients x B brackets."""
-    b, _, c, s, _ = shape
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    return (32 + s * c * 6 * b) * itemsize
 
 
 class SpecShape(NamedTuple):
@@ -192,7 +151,8 @@ class SpecShape(NamedTuple):
     producers: int   # P: producer warps, 1..15
     steps: int       # C: RK4 steps per ring stage
     stages: int      # S: ring stages, 1..6
-    min_blocks: int  # register budget, as BisectShape's
+    min_blocks: int  # register budget: 1 (128 a thread) or 2 (64) blocks of
+                     # 512 threads per SM; 0: chosen at launch (bisect.cuh)
 
 
 def spec_shape(n: int, dtype: torch.dtype, entry_bytes: int,
@@ -204,12 +164,15 @@ def spec_shape(n: int, dtype: torch.dtype, entry_bytes: int,
     work); a smaller one takes the fewest levels L >= 2 whose 2^L lanes a
     bracket give as many columns, up to L = 5, with B = 32 / 2^L brackets a
     block. L = 0 (and `levels`, if given) take the largest B <= 32 / 2^L
-    that still gives two blocks per SM. P, C and S as bisect_shape picks
-    them for the B 2^L columns, the ring and the r-only table of entries of
-    `entry_bytes` in shared memory; at float64 the wide register budget
-    (128 a thread: the narrow one spills the chain), at float32 the budget
-    chosen at launch. From timings on an H100 (`tools_torch/tune_bisect.py`,
-    `tune_disp.py`; PERF.md section 6)."""
+    that still gives two blocks per SM. P = 15 producer warps for 32
+    columns (B 2^L), 7 for 8 or 16, else one a column; 2 ring stages of C
+    steps, the largest multiple of the producers' rows (32 P / B 2^L steps,
+    so that no pass over a stage is partial) up to 64 that lets as many
+    blocks share an SM's shared memory (the ring and the table of entries
+    of `entry_bytes`) as the register budget allows; at float64 the wide
+    budget (128 a thread: the narrow one spills the chain), at float32 the
+    budget chosen at launch. From timings on an H100
+    (`tools_torch/tune_bisect.py`, `tune_disp.py`; PERF.md section 6)."""
     lv = 0 if evaluate else levels
     if lv is None and n < _SPEC_COLUMNS:
         lv = 2
@@ -224,15 +187,26 @@ def spec_shape(n: int, dtype: torch.dtype, entry_bytes: int,
     nc = b << lv
     p = 15 if nc == 32 else 7 if nc >= 8 else nc
     min_blocks = 1 if dtype == torch.float64 else 0
+    return SpecShape(brackets=b, levels=lv, producers=p,
+                     steps=_steps(b, lv, p, min_blocks, dtype, entry_bytes),
+                     stages=2, min_blocks=min_blocks)
+
+
+def _steps(b: int, lv: int, p: int, min_blocks: int, dtype: torch.dtype,
+           entry_bytes: int, passes: int = 64) -> int:
+    """C of a block of B 2^L columns and P producer warps: the largest
+    multiple of the producers' rows (32 P / B 2^L steps a pass over a
+    stage), at most `passes` passes and 64 steps, that lets as many 2-stage
+    blocks share an SM's shared memory as the register budget allows (64
+    registers a thread unless min_blocks is 1)."""
     regs = 128 if min_blocks == 1 else 64
     blocks = min(32, 65536 // (regs * 32 * (p + 1)))
-    rows = 32 * p // nc
-    c = rows * max(1, 64 // rows)
+    rows = 32 * p // (b << lv)
+    c = rows * max(1, min(passes, 64 // rows))
     while c > rows and blocks * spec_smem(SpecShape(b, lv, p, c, 2, 0),
                                           dtype, entry_bytes) > MAX_SMEM:
         c -= rows
-    return SpecShape(brackets=b, levels=lv, producers=p, steps=c, stages=2,
-                     min_blocks=min_blocks)
+    return c
 
 
 def numeric_spec_shape(n: int, dtype: torch.dtype,
@@ -252,6 +226,46 @@ def numeric_spec_shape(n: int, dtype: torch.dtype,
     return shape._replace(producers=7,
                           steps=32 if dtype == torch.float32 else 16,
                           min_blocks=0)
+
+
+def analytic_spec_shape(n: int, dtype: torch.dtype, entry_bytes: int,
+                        shear: bool = False) -> SpecShape:
+    """The block shape of the exact exterior's speculative bisection of n
+    brackets over the slab (the flux or the shear form) or the cylinder
+    chain, from timings on an H100 (`tools_torch/tune_bisect.py`, then
+    `--confirm`: medians of 3 rounds in turns; PERF.md section 6). Always
+    7 producer warps (3 and 15 were slower on every batch) and C a whole
+    number of their passes over a stage, fitted as spec_shape fits it. The
+    float64 flux and cylinder chains are built at 128 registers only
+    (csrc/slab_disp.cu, cylinder_disp.cu). A batch that spec_shape
+    speculates on keeps its levels L and B = 32 / 2^L: slab_ph_09's f64
+    refine stage (153 roots, L = 4) 1.27 ms, 3% from the fastest (4.28 at
+    L = 0). A larger one keeps the loop's schedule:
+      - float32: spec_shape's B (two blocks per SM), C 4 passes (28 steps
+        at B = 32, 56 at 16), the budget chosen at launch (64 registers on
+        these batches): within 0.3% of the fastest of 24 on slab_ph_09's
+        5,040 brackets (2.51 ms), the Gaussian-flow slab's 5,600 (4.73)
+        and cyl_co_09's 17,280 (17.5);
+      - float64, flux and cylinder: B = 32, C = 28 at 128 registers (64
+        spill the chain): the fastest on slab_ph_09 (4.09 ms; 5.55 at 64
+        registers) and within 0.3% of it on cyl_co_09 (35.3);
+      - float64, shear: B = 16, C = 28 at 64 registers: 8.43 ms on the
+        Gaussian-flow slab, 2% from the fastest (C = 42, which fits 3
+        blocks an SM, not 4) and 1.25x faster than the flux's shape: its
+        heavier per-column chain pays for the spills."""
+    shape = spec_shape(n, dtype, entry_bytes)
+    if shape.levels:
+        return shape._replace(producers=7, steps=_steps(
+            shape.brackets, shape.levels, 7, shape.min_blocks, dtype,
+            entry_bytes))
+    if dtype == torch.float32:
+        b, passes, min_blocks = shape.brackets, 4, 0
+    elif shear:
+        b, passes, min_blocks = 16, 2, 2
+    else:
+        b, passes, min_blocks = 32, 4, 1
+    return SpecShape(b, 0, 7, _steps(b, 0, 7, min_blocks, dtype, entry_bytes,
+                                     passes), 2, min_blocks)
 
 
 def spec_smem(shape: SpecShape, dtype: torch.dtype, entry_bytes: int) -> int:
@@ -283,7 +297,9 @@ def launch_spec(name: str, entries: dict, size_fn: str, struct,
     """Check and launch a speculative fused kernel on the current stream (no
     launch for 0 brackets): with hi, the bisection of the brackets [lo, hi]
     -> (root, mismatch or None); with hi None, the evaluation of the
-    candidates lo -> (det, mismatch, valid)."""
+    candidates lo -> (det, mismatch, valid). A register budget the kernel
+    is not built at (csrc/bisect.cuh::launch_spec's kNarrow) raises from
+    the launch."""
     evaluate = hi is None
     if lo.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {lo.device}")
@@ -328,50 +344,3 @@ def launch_spec(name: str, entries: dict, size_fn: str, struct,
                 ctypes.c_void_p(stream))
         _build.check(code, f"{name} kernel")
     return (out0, out1, valid) if evaluate else (out0, out1)
-
-
-def _check_shape(name: str, shape: BisectShape, dtype: torch.dtype) -> None:
-    b, p, c, s, min_blocks = shape
-    if not (1 <= b <= 32 and 32 % b == 0 and 1 <= p <= 15 and c >= 1
-            and 1 <= s <= 6 and min_blocks in (0, 1, 2)
-            and bisect_smem(shape, dtype) <= MAX_SMEM):
-        raise ValueError(f"{name}: unsupported block shape {shape}")
-
-
-def launch_bisect(name: str, entries: dict, size_fn: str, struct,
-                  lo: torch.Tensor, hi: torch.Tensor, k: torch.Tensor,
-                  mode: torch.Tensor, n_iter: int, final_eval: bool,
-                  shape: Optional[BisectShape] = None):
-    """Check the bracket tensors of a fused bisection kernel, allocate its
-    outputs and launch it on the current stream (no launch for 0
-    brackets): (root, mismatch), mismatch None unless final_eval."""
-    if lo.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {lo.device}")
-    if lo.dtype not in entries:
-        raise TypeError(f"{name} kernel takes float32/float64, not {lo.dtype}")
-    for arg, t in (("hi", hi), ("k", k), ("mode", mode)):
-        if t.device != lo.device or t.dtype != lo.dtype or t.shape != lo.shape:
-            raise ValueError(f"{name}: {arg} must match lo in device, dtype "
-                             f"and shape")
-    if lo.dim() != 1 or not all(t.is_contiguous() for t in (lo, hi, k, mode)):
-        raise ValueError(f"{name} kernel needs contiguous 1-D tensors")
-    if n_iter < 0:
-        raise ValueError(f"{name}: n_iter must be >= 0, not {n_iter}")
-    n = lo.numel()
-    shape = BisectShape(*(shape or bisect_shape(n, lo.dtype)))
-    _check_shape(name, shape, lo.dtype)
-    root = torch.empty_like(lo)
-    mism = torch.empty_like(lo) if final_eval else None
-    if n:
-        lib = _build.library()
-        if getattr(lib, size_fn)() != ctypes.sizeof(struct):
-            raise RuntimeError(f"{name}: parameter struct layout differs "
-                               f"between Python and CUDA")
-        stream = torch.cuda.current_stream(lo.device).cuda_stream
-        code = getattr(lib, entries[lo.dtype])(
-            *(ctypes.c_void_p(t.data_ptr()) for t in (lo, hi, k, mode, root)),
-            ctypes.c_void_p(None if mism is None else mism.data_ptr()),
-            n, n_iter, int(final_eval), *shape, ctypes.byref(struct),
-            lo.device.index, ctypes.c_void_p(stream))
-        _build.check(code, f"{name} kernel")
-    return root, mism

@@ -11,9 +11,11 @@ pick, the numeric exterior of `ode.py:22-47`) and the determinant in
 registers,
 reading the chain's r-only values from a table that its block computes in
 shared memory, chunk by chunk. `cylinder_bisect` (same file,
-`csrc/bisect.cuh`) runs a whole fixed-count bisection of a bracket batch
-over the same chain in one launch (`eigensolver_tpu/search.py:142-169`,
-:468-522).
+`csrc/bisect.cuh::spec_kernel`) runs a whole fixed-count bisection of a
+bracket batch over the same chain in one launch
+(`eigensolver_tpu/search.py:142-169`, :468-522), with either exterior: its
+producer warps read the r-only values from a table as the scan does, and a
+small batch speculates several levels a round.
 
 The twisted chain has kernels of its own (`csrc/cylinder_twisted.cu`),
 which the same wrappers pick from the parameters: the scan
@@ -36,9 +38,9 @@ import torch
 
 from ..config import CaseConfig, ProfileConfig, ProfileKind
 from .common import (EXTERIOR_FIELDS, ProfileParams, ScanShape, SpecShape,
-                     check_scan_shape, density_flow_params, exterior_params,
-                     launch_bisect, launch_disp, launch_spec,
-                     numeric_spec_shape, profile_params)
+                     analytic_spec_shape, check_scan_shape,
+                     density_flow_params, exterior_params, launch_disp,
+                     launch_spec, numeric_spec_shape, profile_params)
 
 # launches of the kernels since the last reset (one per kernel launch):
 # cylinder_disp (of them, small_launches through the twisted fused
@@ -51,16 +53,14 @@ bisect_launches = 0
 # names
 _ENTRY = {torch.float32: "eigk_cylinder_disp_f32",
           torch.float64: "eigk_cylinder_disp_f64"}
-_BISECT_ENTRY = {torch.float32: "eigk_cylinder_bisect_f32",
-                 torch.float64: "eigk_cylinder_bisect_f64"}
 # the twisted chain's fused evaluation and speculative fused bisection
 _EVAL_ENTRY = {torch.float32: "eigk_cylinder_eval_f32",
                torch.float64: "eigk_cylinder_eval_f64"}
 _SPEC_ENTRY = {torch.float32: "eigk_cylinder_spec_f32",
                torch.float64: "eigk_cylinder_spec_f64"}
-# the density/axial-flow chain's with the numeric exterior
-_NUM_SPEC_ENTRY = {torch.float32: "eigk_cylinder_num_spec_f32",
-                   torch.float64: "eigk_cylinder_num_spec_f64"}
+# the density/axial-flow chain's fused bisection, with either exterior
+_BISECT_SPEC_ENTRY = {torch.float32: "eigk_cylinder_bisect_spec_f32",
+                      torch.float64: "eigk_cylinder_bisect_spec_f64"}
 
 
 class _CylParams(ctypes.Structure):
@@ -219,13 +219,13 @@ def cylinder_bisect(lo: torch.Tensor, hi: torch.Tensor, k: torch.Tensor,
     """Fixed-count bisection of the brackets [lo, hi] at (k, m), 1-D
     tensors of one dtype and device: (root, mismatch at the root), mismatch
     None without final_eval. A CUDA tensor launches the fused kernel
-    `cylinder_bisect` once (block shape `shape`: a BisectShape, default
-    `common.bisect_shape`; for the twisted chain the speculative kernel's
-    SpecShape, default `common.spec_shape`, for the numeric exterior its
-    SpecShape, default `common.numeric_spec_shape`); a CPU tensor runs
-    `search.bisect_loop` over the plain dispersion."""
+    `cylinder_bisect` once (block shape `shape`, a common.SpecShape;
+    default `common.analytic_spec_shape`, with the numeric exterior
+    `common.numeric_spec_shape`, for the twisted chain
+    `common.spec_shape`); a CPU tensor runs `search.bisect_loop` over the
+    plain dispersion."""
     global bisect_launches
-    if lo.dtype not in _BISECT_ENTRY:
+    if lo.dtype not in _SPEC_ENTRY:
         raise TypeError(f"cylinder_bisect takes float32/float64, not "
                         f"{lo.dtype}")
     if lo.device.type == "cpu":
@@ -238,14 +238,12 @@ def cylinder_bisect(lo: torch.Tensor, hi: torch.Tensor, k: torch.Tensor,
         out = launch_spec("cylinder_bisect", _SPEC_ENTRY,
                           "eigk_cylinder_params_size", params.struct, eb, lo,
                           hi, k, m, n_iter, final_eval, shape)
-    elif params.struct.exterior_numeric:
-        out = launch_spec("cylinder_bisect", _NUM_SPEC_ENTRY,
-                          "eigk_cylinder_params_size", params.struct, eb, lo,
-                          hi, k, m, n_iter, final_eval, shape or
-                          numeric_spec_shape(lo.numel(), lo.dtype, eb))
     else:
-        out = launch_bisect("cylinder_bisect", _BISECT_ENTRY,
-                            "eigk_cylinder_params_size", params.struct, lo,
-                            hi, k, m, n_iter, final_eval, shape)
+        rule = (numeric_spec_shape if params.struct.exterior_numeric
+                else analytic_spec_shape)
+        out = launch_spec("cylinder_bisect", _BISECT_SPEC_ENTRY,
+                          "eigk_cylinder_params_size", params.struct, eb, lo,
+                          hi, k, m, n_iter, final_eval,
+                          shape or rule(lo.numel(), lo.dtype, eb))
     bisect_launches += lo.numel() > 0
     return out

@@ -9,11 +9,11 @@ carries the whole RK4 shoot from the slab centre to its edge in registers,
 in the flux form (density cases) or the shear form (flow cases), reading
 the chain's x-only values from a table that its block computes in shared
 memory, chunk by chunk.
-`slab_bisect` (same file, `csrc/bisect.cuh`) runs a whole fixed-count
-bisection of a bracket batch over the same chain in one launch
-(`eigensolver_tpu/search.py:142-169`, :468-522); with the numeric exterior
-on the speculative kernel, whose producers read the x-only values from a
-table as the scan does.
+`slab_bisect` (same file, `csrc/bisect.cuh::spec_kernel`) runs a whole
+fixed-count bisection of a bracket batch over the same chain in one launch
+(`eigensolver_tpu/search.py:142-169`, :468-522), with either exterior: its
+producer warps read the x-only values from a table as the scan does, and a
+small batch speculates several levels a round.
 
 A CPU tensor goes to the plain version
 (`physics.slab.SlabPhysics.make_dispersion_plain`, and `search.bisect_loop`
@@ -30,9 +30,9 @@ import torch
 
 from ..config import CaseConfig, ProfileKind
 from .common import (_SMS, EXTERIOR_FIELDS, ProfileParams, ScanShape,
-                     check_scan_shape, density_flow_params, exterior_params,
-                     launch_bisect, launch_disp, launch_spec,
-                     numeric_spec_shape)
+                     analytic_spec_shape, check_scan_shape,
+                     density_flow_params, exterior_params, launch_disp,
+                     launch_spec, numeric_spec_shape)
 
 # launches of the kernels since the last reset (one per kernel launch):
 # slab_disp, and the fused bisection slab_bisect
@@ -41,9 +41,7 @@ bisect_launches = 0
 
 _ENTRY = {torch.float32: "eigk_slab_disp_f32",
           torch.float64: "eigk_slab_disp_f64"}
-_BISECT_ENTRY = {torch.float32: "eigk_slab_bisect_f32",
-                 torch.float64: "eigk_slab_bisect_f64"}
-# the numeric exterior's fused bisection, on the speculative kernel
+# the fused bisection, with either exterior
 _SPEC_ENTRY = {torch.float32: "eigk_slab_spec_f32",
                torch.float64: "eigk_slab_spec_f64"}
 
@@ -169,27 +167,25 @@ def slab_bisect(lo: torch.Tensor, hi: torch.Tensor, k: torch.Tensor,
     """Fixed-count bisection of the brackets [lo, hi] at (k, parity), 1-D
     tensors of one dtype and device: (root, mismatch at the root), mismatch
     None without final_eval. A CUDA tensor launches the fused kernel
-    `slab_bisect` once (block shape `shape`: a BisectShape, default
-    `common.bisect_shape`; with the numeric exterior the speculative
-    kernel's SpecShape, default `common.numeric_spec_shape`); a CPU tensor
-    runs
-    `search.bisect_loop` over the plain dispersion."""
+    `slab_bisect` once (block shape `shape`, a common.SpecShape; default
+    `common.analytic_spec_shape`, with the numeric exterior
+    `common.numeric_spec_shape`); a CPU tensor runs `search.bisect_loop`
+    over the plain dispersion."""
     global bisect_launches
-    if lo.dtype not in _BISECT_ENTRY:
+    if lo.dtype not in _SPEC_ENTRY:
         raise TypeError(f"slab_bisect takes float32/float64, not {lo.dtype}")
     if lo.device.type == "cpu":
         from ..search import bisect_loop
         return bisect_loop(_plain(params, lo.dtype), lo, hi, k, parity,
                            n_iter, final_eval)
-    if params.struct.exterior_numeric:
-        eb = _ENTRY_BYTES[(bool(params.struct.shear), lo.dtype)]
-        out = launch_spec("slab_bisect", _SPEC_ENTRY, "eigk_slab_params_size",
-                          params.struct, eb, lo, hi, k, parity, n_iter,
-                          final_eval, shape or numeric_spec_shape(
-                              lo.numel(), lo.dtype, eb))
-    else:
-        out = launch_bisect("slab_bisect", _BISECT_ENTRY,
-                            "eigk_slab_params_size", params.struct, lo, hi, k,
-                            parity, n_iter, final_eval, shape)
+    shear = bool(params.struct.shear)
+    numeric = bool(params.struct.exterior_numeric)
+    eb = _ENTRY_BYTES[(shear, lo.dtype)]
+    shape = shape or (numeric_spec_shape(lo.numel(), lo.dtype, eb) if numeric
+                      else analytic_spec_shape(lo.numel(), lo.dtype, eb,
+                                               shear))
+    out = launch_spec("slab_bisect", _SPEC_ENTRY, "eigk_slab_params_size",
+                      params.struct, eb, lo, hi, k, parity, n_iter,
+                      final_eval, shape)
     bisect_launches += lo.numel() > 0
     return out

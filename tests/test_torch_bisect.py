@@ -11,9 +11,10 @@ rounds of widening it replaced (kept here as the oracle). Reduced grids:
 n_interior=256, n_axis_log=32; each JAX dispersion is compiled once.
 
 On the card (marker `gpu`) the fused kernels are held bit-equal to the loop
-of one-thread launches: flux, shear and cylinder, float32 and float64, a
-bracket count that is not a multiple of the block's, NaN filler brackets and
-n_iter=0.
+of scan launches: flux, shear and cylinder, float32 and float64, a bracket
+count that is not a multiple of the block's, NaN filler brackets and
+n_iter=0, at block shapes of L = 0, 1, 2 and 4 levels a round and both
+register budgets.
 """
 import dataclasses
 
@@ -222,26 +223,50 @@ def test_bisect_wrappers_raise_on_unsupported_dtype(name, dtype):
         fn(x, x, x, x, 2, kmod.disp_params(case))
 
 
-def test_bisect_shape_covers_the_card():
-    """B is the largest power of two <= 32 leaving 2 blocks per SM; C a
-    whole number of producer passes; the shapes measured fastest on the
-    sweeps' batches (PERF.md)."""
-    got = {(n, str(dt)[6:]): tuple(kcommon.bisect_shape(n, dt))
-           for n in (17_280, 5_040, 153)
-           for dt in (torch.float32, torch.float64)}
-    assert got == {(17_280, "float32"): (32, 15, 60, 2, 0),
-                   (17_280, "float64"): (32, 15, 30, 2, 0),
-                   (5_040, "float32"): (16, 7, 56, 2, 0),
-                   (5_040, "float64"): (16, 7, 28, 2, 0),
-                   (153, "float32"): (1, 1, 64, 2, 0),
-                   (153, "float64"): (1, 1, 64, 2, 0)}
-    for (_, dt), shape in got.items():
-        b, p, c = shape[:3]
-        assert c % (32 * p // b) == 0
-        blocks = min(32, 65536 // (64 * 32 * (p + 1)))
-        assert blocks * kcommon.bisect_smem(kcommon.BisectShape(*shape),
-                                            getattr(torch, dt)) \
-            <= kcommon.MAX_SMEM
+# The main path's bracket batches: cyl_co_09's and slab_ph_09's bracket
+# stages, slab_flow_gaussian_coronal's (the shear form), and the refine
+# stage of the slab_ph_09 float32 sweep (its roots), with each one's table
+# entry (x-only or r-only) size in bytes at float32 and float64
+SHAPE_BATCHES = {"cyl_co_09": (17_280, (48, 80)),
+                 "slab_ph_09": (5_040, (32, 48)),
+                 "flow_gauss": (5_600, (16, 32)),
+                 "slab_ph_09 refine": (153, (32, 48))}
+# analytic_spec_shape's picks, (B, L, P, C, S, register budget): the
+# fastest shapes on an H100 (tools_torch/tune_bisect.py, PERF.md section 6)
+ANALYTIC_SHAPES = {
+    ("cyl_co_09", "float32"): (32, 0, 7, 28, 2, 0),
+    ("cyl_co_09", "float64"): (32, 0, 7, 28, 2, 1),
+    ("slab_ph_09", "float32"): (16, 0, 7, 56, 2, 0),
+    ("slab_ph_09", "float64"): (32, 0, 7, 28, 2, 1),
+    ("flow_gauss", "float32"): (16, 0, 7, 56, 2, 0),
+    ("flow_gauss", "float64"): (16, 0, 7, 28, 2, 2),
+    ("slab_ph_09 refine", "float32"): (2, 4, 7, 28, 2, 0),
+    ("slab_ph_09 refine", "float64"): (2, 4, 7, 28, 2, 1),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("batch", sorted(SHAPE_BATCHES))
+def test_analytic_spec_shape(batch, dtype):
+    """The exact exterior's bisection takes the tuned block shape on each
+    main-path batch: B 2^L columns within a warp, C a whole number of
+    producer passes (32 P / B 2^L steps each), and as many blocks as the
+    register budget lets share an SM fit its shared memory."""
+    n, entry = SHAPE_BATCHES[batch]
+    dt = getattr(torch, dtype)
+    eb = entry[dt == torch.float64]
+    assert eb == {"cyl_co_09": kcyl._ENTRY_BYTES[dt, False],
+                  "flow_gauss": kslab._ENTRY_BYTES[(True, dt)]}.get(
+                      batch, kslab._ENTRY_BYTES[(False, dt)])
+    got = kcommon.analytic_spec_shape(n, dt, eb, shear=batch == "flow_gauss")
+    assert tuple(got) == ANALYTIC_SHAPES[batch, dtype]
+    b, lv, p, c, s, min_blocks = got
+    assert (b << lv) <= 32 and 32 * p % (b << lv) == 0
+    assert c % (32 * p // (b << lv)) == 0
+    regs = 128 if min_blocks == 1 else 64
+    blocks = min(32, 65536 // (regs * 32 * (p + 1)))
+    assert blocks * kcommon.spec_smem(got, dt, eb) <= kcommon.MAX_SMEM
+    kcommon._check_spec_shape("x", got, dt, eb, False)
 
 
 # -- on the card ----------------------------------------------------------------
@@ -288,12 +313,30 @@ def test_fused_bisect_bit_equal_to_launch_loop_on_card(name, dtype):
             assert (mism is None) == (not final_eval)
             if final_eval:
                 assert _same(mism, want_mism)
-    # every block shape gives the same bits
-    want = disp.bisect(lo, hi, k, md, 6)
+    # every block shape gives the loop's bits: L = 0, 1, 2, 4 levels a
+    # round, both register budgets and the one chosen at launch
     fn = kslab.slab_bisect if name != "cylinder" else kcyl.cylinder_bisect
     params = (kslab.disp_params(config.from_jax(jcase)) if name != "cylinder"
               else kcyl.disp_params(config.from_jax(jcase)))
-    for shape in ((1, 1, 7, 1, 1), (8, 3, 32, 2, 2), (8, 3, 32, 2, 0),
-                  (32, 15, 16, 6, 2), (32, 15, 16, 6, 1)):
-        got = fn(lo, hi, k, md, 6, params, shape=kcommon.BisectShape(*shape))
-        assert _same(got[0], want[0]) and _same(got[1], want[1]), shape
+    # (the float64 flux and cylinder chains are built at 128 registers a
+    # thread only: their launch at 64 fails)
+    narrow = dtype == torch.float32 or name == "shear"
+    for final_eval in (True, False):
+        want = search.bisect_loop(lambda *a: disp(*a), lo, hi, k, md, 6,
+                                  final_eval)
+        for shape in ((1, 0, 1, 7, 1, 1), (8, 0, 3, 32, 2, 2),
+                      (32, 0, 15, 16, 6, 1), (16, 1, 15, 16, 3, 2),
+                      (8, 1, 3, 32, 2, 0), (8, 2, 7, 16, 2, 1),
+                      (4, 2, 15, 60, 2, 2), (2, 4, 15, 16, 2, 2),
+                      (1, 4, 3, 64, 2, 1)):
+            if shape[-1] == 2 and not narrow:
+                with pytest.raises(RuntimeError, match="CUDA error"):
+                    fn(lo, hi, k, md, 6, params, final_eval,
+                       shape=kcommon.SpecShape(*shape))
+                continue
+            got = fn(lo, hi, k, md, 6, params, final_eval,
+                     shape=kcommon.SpecShape(*shape))
+            assert _same(got[0], want[0]), shape
+            assert (got[1] is None) == (not final_eval)
+            if final_eval:
+                assert _same(got[1], want[1]), shape

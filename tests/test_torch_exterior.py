@@ -213,19 +213,28 @@ def test_exterior_op_counts_match_chip_smoke():
 
 @pytest.mark.parametrize("module", [kslab, kcyl], ids=["slab", "cylinder"])
 def test_every_entry_has_its_signature(module):
-    """Every C entry a wrapper calls has its ctypes signature (a 64-bit
-    count passed without one arrives truncated), the numeric exterior's
-    speculative bisections the speculative kernel's."""
+    """Every C entry a wrapper calls has its ctypes signature, with the
+    batch count (the 7th argument) a 64-bit integer: passed without one it
+    arrives truncated. The fused bisections, with either exterior, take
+    the speculative kernel's arguments; no entry of the per-bracket-chain
+    kernel they replaced is left."""
+    import ctypes
     from eigensolver_tpu_torch.kernels import _build
-    tables = [v for k, v in vars(module).items()
-              if k.startswith("_") and k.endswith("ENTRY")]
-    assert len(tables) >= 3
-    for table in tables:
-        for dtype, name in table.items():
-            assert name in _build._SIGNATURES, name
-    spec = kslab._SPEC_ENTRY if module is kslab else kcyl._NUM_SPEC_ENTRY
+    tables = {k: v for k, v in vars(module).items()
+              if k.startswith("_") and k.endswith("ENTRY")}
+    assert len(tables) >= 2
+    for table in tables.values():
+        assert set(table) == {torch.float32, torch.float64}
+        for name in table.values():
+            argtypes, restype = _build._SIGNATURES[name]
+            assert argtypes[6] is ctypes.c_longlong and restype is ctypes.c_int
+    spec = ([kslab._SPEC_ENTRY] if module is kslab
+            else [kcyl._SPEC_ENTRY, kcyl._BISECT_SPEC_ENTRY])
     assert all(_build._SIGNATURES[name] == _build._SPEC_ARGS
-               for name in spec.values())
+               for table in spec for name in table.values())
+    assert not [name for name in _build._SIGNATURES
+                if name.startswith(("eigk_slab_bisect_f",
+                                    "eigk_cylinder_bisect_f"))]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

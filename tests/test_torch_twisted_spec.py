@@ -292,8 +292,9 @@ def test_speculative_bisect_every_level_on_card(name, dtype):
 @pytest.mark.gpu
 @pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA card")
 def test_non_twisted_bisect_keeps_its_kernel_on_card():
-    """The density tube's cylinder_bisect is bisect.cuh's one-level kernel:
-    bit-equal to the launch loop, and it takes no speculative shape."""
+    """The density tube's cylinder_bisect keeps its own chain (SpecChain,
+    the K_m ratio) on bisect.cuh::spec_kernel: bit-equal to the launch loop
+    at its default shape and at a speculative one."""
     base = cases.cylinder_density_coronal(0.9)
     case = dataclasses.replace(
         base, k_values=(0.5, 2.0),
@@ -312,6 +313,6 @@ def test_non_twisted_bisect_keeps_its_kernel_on_card():
     got = disp.bisect(*args, 9)
     want = search.bisect_loop(disp, *args, 9)
     assert _same(got[0], want[0]) and _same(got[1], want[1])
-    with pytest.raises(TypeError):
-        kcyl.cylinder_bisect(*args, 9, kcyl.disp_params(case), True,
-                             shape=kcommon.SpecShape(8, 2, 7, 16, 2, 0))
+    got = kcyl.cylinder_bisect(*args, 9, kcyl.disp_params(case), True,
+                               shape=kcommon.SpecShape(8, 2, 7, 16, 2, 0))
+    assert _same(got[0], want[0]) and _same(got[1], want[1])

@@ -20,9 +20,14 @@ several launches after a warm-up):
     float32 and float64, where the checkout has them ("not ported" where it
     raises NotImplementedError);
   - slab_disp at float64 on the window ends of the refine stage of the
-    slab_ph_09 float32 sweep (10 per root: 1,530), and the twisted
+    slab_ph_09 float32 sweep (10 per root: 1,530) with the refine stage's
+    float64 bisection of its roots (30 iterations), and the twisted
     cylinder_disp on those of the twist_v01_p1 float32 sweep (3,090) with
-    the refine stage's float64 bisection of its roots (30 iterations);
+    the same bisection of its roots;
+  - with the numeric exterior, where the checkout has it: slab_bisect and
+    cylinder_bisect on the bracket stages of the reference-parity sweeps
+    slab_ph_09 (21,840 brackets) and cyl_flow_1 (47,520;
+    `tools_torch/parity.py`), 18 iterations, float32 and float64;
   - the CALL instructions in each kve_ratio kernel's SASS (`cuobjdump`),
     where the toolkit has it.
 To compare two commits on one card, unpack the other into a git-ignored
@@ -128,6 +133,34 @@ def window_ends(case):
                                                                      md)
 
 
+def parity_brackets(target: str, dtype):
+    """The bracket stage's brackets of a reference-parity sweep (its scan at
+    dtype on the card, its continuum mask and pole pre-filter) as CUDA
+    tensors (lo, hi, k, mode), and its dispersion."""
+    import torch
+    from eigensolver_tpu_torch import cases, equilibrium, search, sweep
+    from tools_torch import parity
+    case, cfg, _ = parity.configure(target, cases, search.SearchConfig,
+                                    equilibrium.genuine_continua,
+                                    str(dtype)[6:])
+    omegas, ks = sweep.build_ladders(case, cfg.n_omega)
+    rows = omegas.shape[0]
+
+    def dev(a):
+        return torch.from_numpy(a).to(device="cuda", dtype=dtype)
+
+    om = dev(np.concatenate([omegas] * len(case.modes)))
+    kk = dev(np.concatenate([ks] * len(case.modes)))
+    md = dev(np.repeat([float(m) for m in case.modes], rows))
+    disp = sweep.make_dispersion_moded(case, dtype)
+    det, valid, mism = search.ladder_scan(disp, om, kk, md)
+    det = search.mask_v_ranges(om, kk, det, cfg.exclude_v_ranges)
+    br = search.find_brackets(om, kk, det, valid, cfg.max_brackets_per_row,
+                              md, pole_det_factor=cfg.pole_det_factor,
+                              mism=mism)
+    return disp, [x.contiguous() for x in (br.lo, br.hi, br.k, br.mode)]
+
+
 def sass_calls(lib: Path) -> dict:
     """CALL instructions (and their targets) per kve_ratio kernel in the
     library's SASS; empty without cuobjdump."""
@@ -160,6 +193,7 @@ def main() -> int:
     ap.add_argument("--out", help="also write the report here as JSON")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.pkg_root).resolve()))
+    sys.path.insert(1, str(ROOT))           # tools_torch.parity
     import warnings
     import torch
     from eigensolver_tpu_torch import cases, sweep
@@ -205,12 +239,17 @@ def main() -> int:
                 "scan_ms": cuda_ms(lambda: disp(*cand), n_disp),
                 "brackets": br[0].numel(),
                 "bisect_ms": cuda_ms(lambda: disp.bisect(*br, 18), 5)}
-    slab = cases.slab_density_photospheric(0.9)
-    win, _ = window_ends(slab)
-    disp64 = sweep.make_dispersion_moded(slab, torch.float64)
-    out["slab_ph_09 window float64"] = {
-        "n": win[0].numel(), "ms": cuda_ms(lambda: disp64(*win), 20)}
     from eigensolver_tpu_torch import search
+    slab = cases.slab_density_photospheric(0.9)
+    win, roots = window_ends(slab)
+    disp64 = sweep.make_dispersion_moded(slab, torch.float64)
+    lo, hi, _ = search.refine_windows(disp64, *roots)
+    br = [lo, hi, roots[1], roots[2]]
+    out["slab_ph_09 window float64"] = {
+        "n": win[0].numel(), "ms": cuda_ms(lambda: disp64(*win), 20),
+        "brackets": lo.numel(),
+        "bisect_ms": cuda_ms(lambda: disp64.bisect(*br, 30, final_eval=False),
+                             5)}
     twist = cases.cylinder_twisted_photospheric(0.1, 1.0, 1)
     win, roots = window_ends(twist)
     disp64 = sweep.make_dispersion_moded(twist, torch.float64)
@@ -222,6 +261,19 @@ def main() -> int:
         "brackets": lo.numel(),
         "bisect_ms": cuda_ms(lambda: disp64.bisect(*br, 30, final_eval=False),
                              3)}
+    for target in ("slab_ph_09", "cyl_flow_1"):
+        for dtype in (torch.float32, torch.float64):
+            key = f"{target} numeric {str(dtype)[6:]}"
+            try:
+                disp, br = parity_brackets(target, dtype)
+            except (ImportError, AttributeError, NotImplementedError):
+                # an older tree (--pkg-root) may lack the numeric exterior
+                if Path(args.pkg_root).resolve() == ROOT:
+                    raise
+                out[key] = "not ported"
+                continue
+            out[key] = {"brackets": br[0].numel(),
+                        "bisect_ms": cuda_ms(lambda: disp.bisect(*br, 18), 3)}
     out["sass"] = sass_calls(lib)
     print(json.dumps(out), flush=True)
     if args.out:

@@ -3,37 +3,46 @@
 
     python3 tools_torch/tune_bisect.py [--out PATH]
 
-For the bracket stage of slab_ph_09 and cyl_co_09 (SearchConfig(n_omega=256,
-n_bisect=18), the full sweeps' own brackets, float32 and float64) and for
-the refine stage of the slab_ph_09 float32 sweep (its roots' f64 windows,
-30 iterations), times `slab_bisect` / `cylinder_bisect` at every block shape
-(B brackets per block, P producer warps, C steps per stage, S stages, a
-register budget of 64 or 128 a thread) of a grid, checks that each gives
-the same bits as the default shape (`kernels.common.bisect_shape`), and
-prints per batch the default's time,
-the fastest shapes, the loop of one-thread launches it replaces, and the
-serial floor: the fused kernel on one bracket, per evaluation. Then the
-twisted cylinder_bisect (the speculative kernel, `kernels.common.
-spec_shape`) on twist_v01_p1's bracket stage (2,400 brackets, float32 and
-float64) and on its refine stage (the float32 sweep's roots' f64 windows,
-30 iterations), at every level count L = 0..5 and a grid of (B, P, C, S,
-register budget): each checked against the default's bits. Run from the repository root; the
-first line is the card's nvidia-smi name and power limit.
+Times the exact exterior's `slab_bisect` and `cylinder_bisect`
+(`csrc/bisect.cuh::spec_kernel` over the scans' x-only / r-only tables) on
+the main path's batches: the bracket stages of slab_ph_09 (5,040
+brackets, flux form), slab_flow_gaussian_coronal (5,600, shear form) and
+cyl_co_09 (17,280) at float32 and float64 (SearchConfig(n_omega=256,
+n_bisect=18), the sweeps' own brackets), and the refine stage of the
+slab_ph_09 float32 sweep (its roots' f64 windows, 30 iterations, no
+residual). Each batch at its default shape
+(`kernels.common.analytic_spec_shape`) and at a grid of (L levels a round,
+B brackets a block, P producer warps, C steps a stage, register budget):
+L = 0-2 on the bracket stages, 0-5 on the refine batch; each checked
+against the default's bits, and the default against the loop of scan
+launches it replaces, which is timed too. Run from the repository root;
+the first line is the card's nvidia-smi name and power limit.
+
+    python3 tools_torch/tune_bisect.py --confirm [--out PATH]
+
+times the fastest shapes of that grid again on the same batches, in 3
+rounds of turns (medians), each at the three register budgets: the
+choice of `analytic_spec_shape`.
+
+    python3 tools_torch/tune_bisect.py --twisted [--out PATH]
+
+times the twisted cylinder_bisect (`kernels.common.spec_shape`) instead, on
+twist_v01_p1's bracket stage (2,400 brackets, float32 and float64) and on
+its refine stage (the float32 sweep's roots' f64 windows, 30 iterations),
+at every L = 0..5 and a grid of (B, P, C, register budget).
 
     python3 tools_torch/tune_bisect.py --numeric [--out PATH]
 
-times the numeric exterior's slab_bisect and cylinder_bisect instead (the
-speculative kernel over the scans' x-only / r-only tables), on the bracket
-stages of the reference-parity sweeps slab_ph_09 (21,840 brackets) and
-cyl_flow_1 (47,520; `tools_torch/parity.py`, float32 and float64, 18
-iterations) and on their first 600 brackets (a refine-sized batch), at
-the default shape (`kernels.common.numeric_spec_shape`) and a grid of (L,
-B, P, C, register budget), each checked against the default's bits,
-beside the launch loop.
+times the numeric exterior's slab_bisect and cylinder_bisect instead, on
+the bracket stages of the reference-parity sweeps slab_ph_09 (21,840
+brackets) and cyl_flow_1 (47,520; `tools_torch/parity.py`, float32 and
+float64, 18 iterations) and on their first 600 brackets (a refine-sized
+batch), at the default shape (`kernels.common.numeric_spec_shape`) and a
+grid of (L, B, P, C, register budget), each checked against the default's
+bits, beside the launch loop.
 """
 import argparse
 import dataclasses
-import itertools
 import json
 import math
 import subprocess
@@ -104,13 +113,17 @@ def refine_windows(case, cfg):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the report here as JSON")
-    ap.add_argument("--numeric", action="store_true",
-                    help="the numeric exterior's parity bracket stages")
+    chain = ap.add_mutually_exclusive_group()
+    chain.add_argument("--numeric", action="store_true",
+                       help="the numeric exterior's parity bracket stages")
+    chain.add_argument("--twisted", action="store_true",
+                       help="the twisted chain's bracket and refine stages")
+    chain.add_argument("--confirm", action="store_true",
+                       help="the exact exterior's best shapes, in turns")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     import torch
-    from eigensolver_tpu_torch import cases, search, sweep
-    from eigensolver_tpu_torch.kernels import common
+    from eigensolver_tpu_torch import search
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA card")
     warnings.simplefilter("ignore")         # saturated-row notices
@@ -122,86 +135,151 @@ def main() -> int:
     f32 = search.SearchConfig(n_omega=256, n_bisect=18, scan_dtype="float32",
                               polish_dtype="float32")
     f64 = dataclasses.replace(f32, scan_dtype="float64", polish_dtype="float64")
-    slab = cases.slab_density_photospheric(0.9)
-    cyl = cases.cylinder_density_coronal(0.9)
-    # the big batches at 64 registers a thread (each default shape also at
-    # 128, and with the budget chosen at launch); the small one at both
-    big = [(b, p, c, 2, 2) for b, p in itertools.product((8, 16, 32),
-                                                         (3, 4, 7, 8, 15))
-           for c in _steps(b, p, (32, 64))]
-    small = [(b, p, c, s, mb) for b, p in itertools.product((1, 2, 4, 8),
-                                                            (1, 2, 4))
-             for c in _steps(b, p, (16, 32, 64)) for s in (2, 3)
-             for mb in (1, 2)]
     out = {"nvidia_smi": smi}
     if args.numeric:
         tune_numeric(out)
-        batches = ()
-    else:
-        batches = _bessel_batches(slab, cyl, f32, f64, big, small)
-    for name, case, args_, dtype, n_iter, final, grid in batches:
-        disp = sweep.make_dispersion_moded(case, dtype)
-        n = args_[0].numel()
-        default = common.bisect_shape(n, dtype)
-
-        def fused(shape=None, a=args_):
-            return disp.bisect(*a, n_iter, final) if shape is None else (
-                _fn(case)(*a, n_iter, _params(case), final, shape=shape))
-
-        ref = fused()
-        res = {}
-        for shape in grid + [default, (*default[:4], 1), (*default[:4], 2)]:
-            shape = common.BisectShape(*shape)
-            if shape in res or common.bisect_smem(shape,
-                                                  dtype) > common.MAX_SMEM:
-                continue
-            got = fused(shape)
-            same = all(_same_bits(a, b) for a, b in zip(got, ref)
-                       if a is not None)
-            if not same:
-                raise AssertionError(f"{name}: shape {shape} differs")
-            res[shape] = cuda_ms(lambda: fused(shape), 3)
-        loop_ms = cuda_ms(lambda: search.bisect_loop(disp, *args_, n_iter,
-                                                     final), 1)
-        # one bracket, with 3 x 128 = 384 chain evaluations per stage for
-        # 480 producer threads: the consumer's serial chain sets the pace
-        one = [x[:1].contiguous() for x in args_]
-        n_evals = n_iter + 1 + int(final)
-        floor = cuda_ms(lambda: fused(common.BisectShape(1, 15, 128, 3, 1),
-                                      one), 3) / n_evals
-        best = sorted(res.items(), key=lambda kv: kv[1])[:6]
-        out[name] = {"n": n, "n_iter": n_iter, "default": list(default),
-                     "default_ms": res.get(default, cuda_ms(fused, 3)),
-                     "best": [[list(s), ms] for s, ms in best],
-                     "loop_ms": loop_ms, "floor_ms_per_eval": floor,
-                     "all": {",".join(map(str, s)): ms for s, ms in res.items()}}
-        print(name, json.dumps({k: v for k, v in out[name].items()
-                                if k != "all"}), flush=True)
-    if not args.numeric:
+    elif args.twisted:
         tune_twisted(out, f32, f64)
+    elif args.confirm:
+        confirm_analytic(out, f32, f64)
+    else:
+        tune_analytic(out, f32, f64)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(out, indent=1))
     return 0
 
 
-def _bessel_batches(slab, cyl, f32, f64, big, small):
-    """slab_ph_09's and cyl_co_09's bracket stages at both types, and the
-    slab's refine stage: (name, case, brackets, dtype, n_iter, final_eval,
-    grid) each."""
+def tune_batch(out: dict, name: str, fused, loop, default, grid, dtype,
+               eb: int, top: int = 8) -> dict:
+    """Time fused(shape) at the default shape and at every shape of grid
+    that fits a block's shared memory, each checked against the default's
+    bits, and the loop once (None: not timed); the report goes to
+    out[name] and is printed."""
+    from eigensolver_tpu_torch.kernels import common
+    ref = fused(default)
+    res = {}
+    for shape in [default, *grid]:
+        shape = common.SpecShape(*shape)
+        if shape in res or common.spec_smem(shape, dtype, eb) > common.MAX_SMEM:
+            continue
+        got = fused(shape)
+        if not all(_same_bits(a, b) for a, b in zip(got, ref)
+                   if a is not None):
+            raise AssertionError(f"{name}: shape {shape} differs")
+        res[shape] = cuda_ms(lambda: fused(shape), 2)
+    best = sorted(res.items(), key=lambda kv: kv[1])[:top]
+    r = {"n": ref[0].numel(), "default": list(default),
+         "default_ms": res[common.SpecShape(*default)],
+         "best": [[list(s), ms] for s, ms in best],
+         "best_ms_by_levels": {lv: min(ms for s, ms in res.items()
+                                       if s.levels == lv)
+                               for lv in sorted({s.levels for s in res})}}
+    if loop is not None:
+        r["loop_ms"] = cuda_ms(loop, 1)
+    print(name, json.dumps(r), flush=True)
+    r["all"] = {",".join(map(str, s)): ms for s, ms in res.items()}
+    out[name] = r
+    return r
+
+
+def analytic_batches(f32, f64):
+    """The exact exterior's main-path batches: (name, case, brackets,
+    dtype, n_iter, final_eval) of slab_ph_09's, the Gaussian-flow slab's
+    and cyl_co_09's bracket stages at both types, and of the slab_ph_09
+    refine stage's f64 bisection."""
     import torch
-    return (
-        ("slab_ph_09 f32", slab, sweep_brackets(slab, f32, torch.float32),
-         torch.float32, 18, True, big),
-        ("slab_ph_09 f64", slab, sweep_brackets(slab, f64, torch.float64),
-         torch.float64, 18, True, big),
-        ("cyl_co_09 f32", cyl, sweep_brackets(cyl, f32, torch.float32),
-         torch.float32, 18, True, big),
-        ("cyl_co_09 f64", cyl, sweep_brackets(cyl, f64, torch.float64),
-         torch.float64, 18, True, big),
-        ("slab_ph_09 refine f64", slab, refine_windows(slab, f32),
-         torch.float64, 30, False, small),
-    )
+    from eigensolver_tpu_torch import cases
+    slab = cases.slab_density_photospheric(0.9)
+    flow = cases.slab_flow_gaussian_coronal()
+    cyl = cases.cylinder_density_coronal(0.9)
+    for name, case in (("slab_ph_09", slab), ("flow_gauss", flow),
+                       ("cyl_co_09", cyl)):
+        for dt in (torch.float32, torch.float64):
+            yield (f"{name} {str(dt)[6:]}", case, sweep_brackets(
+                case, f32 if dt == torch.float32 else f64, dt), dt, 18, True)
+    yield ("slab_ph_09 refine f64", slab, refine_windows(slab, f32),
+           torch.float64, 30, False)
+
+
+def tune_analytic(out: dict, f32, f64) -> None:
+    """The exact exterior's fused bisections on the main path's batches,
+    each default checked against the launch loop."""
+    from eigensolver_tpu_torch import search, sweep
+    from eigensolver_tpu_torch.kernels import common
+    for name, case, args_, dtype, n_iter, final in analytic_batches(f32, f64):
+        n = args_[0].numel()
+        eb = _entry_bytes(case, dtype)
+        fn, params = _fn(case), _params(case)
+        disp = sweep.make_dispersion_moded(case, dtype)
+
+        def fused(shape, a=args_):
+            return fn(*a, n_iter, params, final, shape=shape)
+
+        default = common.analytic_spec_shape(n, dtype, eb, _shear(case))
+        want = search.bisect_loop(disp, *args_, n_iter, final)
+        if not all(_same_bits(a, b) for a, b in zip(fused(default), want)
+                   if a is not None):
+            raise AssertionError(f"{name}: the default differs from the loop")
+        levels = range(6) if n < common._SPEC_COLUMNS else range(3)
+        grid = [common.SpecShape(b, lv, p, c, 2, mb)
+                for lv in levels for b in (32 >> lv, 16 >> lv, 8 >> lv)
+                if b >= 1 for p in (3, 7, 15) for c in _steps(b << lv, p)
+                for mb in (1, 2)]
+        grid += [common.spec_shape(n, dtype, eb, levels=lv) for lv in levels]
+        grid += [common.numeric_spec_shape(n, dtype, eb)]
+        grid = [s for s in grid if _built(case, dtype, s[-1])]
+        tune_batch(out, name, fused, lambda: search.bisect_loop(
+            disp, *args_, n_iter, final), default, grid, dtype, eb)
+
+
+# The shapes --confirm times in turns: the grid's fastest on the bracket
+# stages (L = 0) and on the refine batch (L = 3-5), each at the register
+# budgets 128 (1), 64 (2) and chosen at launch (0)
+CONFIRM_STAGE = [(b, 0, p, c, 2, mb) for b, p, c in (
+    (16, 7, 28), (16, 7, 42), (16, 7, 56), (16, 3, 30), (32, 7, 28),
+    (32, 7, 35), (32, 15, 30), (32, 15, 60)) for mb in (0, 1, 2)]
+CONFIRM_REFINE = [(b, lv, 7, c, 2, mb) for b, lv, c in (
+    (4, 3, 56), (2, 4, 28), (2, 4, 63), (1, 5, 28), (1, 5, 63))
+    for mb in (0, 1, 2)] + [(2, 4, 15, 60, 2, 1)]
+
+
+def confirm_analytic(out: dict, f32, f64, rounds: int = 3,
+                     reps: int = 5) -> None:
+    """The exact exterior's fused bisections on the main path's batches at
+    the default shape and the CONFIRM_* shapes, timed in `rounds` rounds
+    of turns (each shape `reps` launches a round); medians."""
+    import statistics
+    from eigensolver_tpu_torch.kernels import common
+    for name, case, args_, dtype, n_iter, final in analytic_batches(f32, f64):
+        n = args_[0].numel()
+        eb = _entry_bytes(case, dtype)
+        fn, params = _fn(case), _params(case)
+        default = common.analytic_spec_shape(n, dtype, eb, _shear(case))
+        shapes = [default] + [common.SpecShape(*s) for s in (
+            CONFIRM_STAGE if n >= common._SPEC_COLUMNS else CONFIRM_REFINE)
+            if common.spec_smem(common.SpecShape(*s), dtype, eb)
+            <= common.MAX_SMEM and _built(case, dtype, s[-1])]
+        shapes = list(dict.fromkeys(shapes))
+        ref = fn(*args_, n_iter, params, final, shape=default)
+        times = {s: [] for s in shapes}
+        for _ in range(rounds):
+            for s in shapes:
+                got = fn(*args_, n_iter, params, final, shape=s)
+                if not all(_same_bits(a, b) for a, b in zip(got, ref)
+                           if a is not None):
+                    raise AssertionError(f"{name}: shape {s} differs")
+                times[s].append(cuda_ms(lambda: fn(
+                    *args_, n_iter, params, final, shape=s), reps))
+        med = {s: statistics.median(t) for s, t in times.items()}
+        r = {"n": n, "default": list(default), "default_ms": med[default],
+             "ranked": [[list(s), ms] for s, ms in sorted(
+                 med.items(), key=lambda kv: kv[1])],
+             "spread": {",".join(map(str, s)): max(t) / min(t) - 1
+                        for s, t in times.items()}}
+        print(name, json.dumps({k: v for k, v in r.items() if k != "spread"}),
+              flush=True)
+        out[f"confirm {name}"] = r
 
 
 def tune_numeric(out: dict) -> None:
@@ -210,7 +288,7 @@ def tune_numeric(out: dict) -> None:
     both types, 18 iterations each, and on their first 600 brackets."""
     import torch
     from eigensolver_tpu_torch import cases, equilibrium, search, sweep
-    from eigensolver_tpu_torch.kernels import common, cylinder, slab
+    from eigensolver_tpu_torch.kernels import common
     from tools_torch import parity
     for target in ("slab_ph_09", "cyl_flow_1"):
         for dtype in (torch.float32, torch.float64):
@@ -218,14 +296,8 @@ def tune_numeric(out: dict) -> None:
             case, cfg, _ = parity.configure(
                 target, cases, search.SearchConfig,
                 equilibrium.genuine_continua, dname)
-            if case.geometry.value == "slab":
-                kmod = slab
-                eb = slab._ENTRY_BYTES[(bool(slab.disp_params(
-                    case).struct.shear), dtype)]
-            else:
-                kmod, eb = cylinder, cylinder._ENTRY_BYTES[dtype, False]
-            fn = _fn(case)
-            params = kmod.disp_params(case)
+            eb = _entry_bytes(case, dtype)
+            fn, params = _fn(case), _params(case)
             disp = sweep.make_dispersion_moded(case, dtype)
             full = sweep_brackets(case, cfg, dtype)
             for name, args_ in ((f"{target} numeric {dname}", full),
@@ -236,33 +308,14 @@ def tune_numeric(out: dict) -> None:
                 def fused(shape, a=args_):
                     return fn(*a, 18, params, True, shape=shape)
 
-                default = common.numeric_spec_shape(n, dtype, eb)
-                ref = fused(default)
                 levels = (0,) if n >= 2 * common._SPEC_COLUMNS else range(5)
                 grid = [common.SpecShape(b, lv, p, c, 2, mb)
                         for lv in levels for b in (32 >> lv, 16 >> lv)
                         if b >= 1 for p in (3, 7, 15) for c in (16, 32, 60)
                         for mb in (0, 1, 2)]
-                res = {}
-                for shape in [default, *grid]:
-                    if tuple(shape) in res or common.spec_smem(
-                            shape, dtype, eb) > common.MAX_SMEM:
-                        continue
-                    got = fused(shape)
-                    if not all(_same_bits(a, b) for a, b in zip(got, ref)):
-                        raise AssertionError(f"{name}: shape {shape} differs")
-                    res[tuple(shape)] = cuda_ms(lambda: fused(shape), 2)
-                loop_ms = cuda_ms(lambda: search.bisect_loop(
-                    disp, *args_, 18, True), 1)
-                best = sorted(res.items(), key=lambda kv: kv[1])[:8]
-                out[name] = {"n": n, "n_iter": 18, "default": list(default),
-                             "default_ms": res[tuple(default)],
-                             "best": [[list(s), ms] for s, ms in best],
-                             "loop_ms": loop_ms,
-                             "all": {",".join(map(str, s)): ms
-                                     for s, ms in res.items()}}
-                print(name, json.dumps({k: v for k, v in out[name].items()
-                                        if k != "all"}), flush=True)
+                tune_batch(out, name, fused, lambda a=args_: search.bisect_loop(
+                    disp, *a, 18, True), common.numeric_spec_shape(
+                        n, dtype, eb), grid, dtype, eb)
 
 
 def tune_twisted(out: dict, f32, f64) -> None:
@@ -285,51 +338,28 @@ def tune_twisted(out: dict, f32, f64) -> None:
         eb = cylinder._ENTRY_BYTES[dtype, True]
         disp = sweep.make_dispersion_moded(case, dtype)
 
-        def fused(shape=None, a=args_):
+        def fused(shape, a=args_):
             return cylinder.cylinder_bisect(*a, n_iter, params, final,
                                             shape=shape)
 
-        default = common.spec_shape(n, dtype, eb)
-        ref = fused(default)
         grid = [common.SpecShape(b, lv, p, c, s, mb)
                 for lv in range(6) for b in (32 >> lv, 16 >> lv, 8 >> lv)
                 if b >= 1 for p in (3, 7, 15) for c in (16, 32)
                 for s in (2,) for mb in (1, 2)]
         grid += [common.spec_shape(n, dtype, eb, levels=lv)
                  for lv in range(6)]
-        res = {}
-        for shape in [default, *grid]:
-            if tuple(shape) in res or common.spec_smem(
-                    shape, dtype, eb) > common.MAX_SMEM:
-                continue
-            got = fused(shape)
-            if not all(_same_bits(a, b) for a, b in zip(got, ref)
-                       if a is not None):
-                raise AssertionError(f"{name}: shape {shape} differs")
-            res[tuple(shape)] = cuda_ms(lambda: fused(shape), 2)
-        loop_ms = cuda_ms(lambda: search.bisect_loop(disp, *args_, n_iter,
-                                                     final), 1)
-        best = sorted(res.items(), key=lambda kv: kv[1])[:8]
-        by_levels = {lv: min(ms for s, ms in res.items() if s[1] == lv)
-                     for lv in range(6)}
-        out[name] = {"n": n, "n_iter": n_iter, "default": list(default),
-                     "default_ms": res[tuple(default)],
-                     "best": [[list(s), ms] for s, ms in best],
-                     "best_ms_by_levels": by_levels,
-                     "loop_ms": loop_ms,
-                     "all": {",".join(map(str, s)): ms
-                             for s, ms in res.items()}}
-        print(name, json.dumps({k: v for k, v in out[name].items()
-                                if k != "all"}), flush=True)
+        tune_batch(out, name, fused, lambda a=args_: search.bisect_loop(
+            disp, *a, n_iter, final), common.spec_shape(n, dtype, eb), grid,
+            dtype, eb)
 
 
-def _steps(b, p, base):
-    """C values of the grid: base, and the multiples of the producers' rows
-    (32 P / B steps per pass over a stage) next below and above 32 and 64,
-    so that no pass is partial."""
-    rows = 32 * p // b
-    return sorted({*base, *(rows * max(1, f(c / rows)) for c in (32, 64)
-                            for f in (math.floor, math.ceil))})
+def _steps(columns: int, p: int) -> list:
+    """C values of the grid: the multiples of the producers' rows (32 P /
+    columns steps a pass over a stage) next below and above 32 and 64, so
+    that no pass is partial."""
+    rows = 32 * p // columns
+    return sorted({rows * max(1, f(c / rows)) for c in (32, 64)
+                   for f in (math.floor, math.ceil)})
 
 
 def _fn(case):
@@ -343,6 +373,31 @@ def _params(case):
     if case.geometry.value == "slab":
         return slab.disp_params(case)
     return cylinder.disp_params(case)
+
+
+def _shear(case) -> bool:
+    """Whether the case's slab chain takes the shear form."""
+    return case.geometry.value == "slab" and bool(
+        _params(case).struct.shear)
+
+
+def _built(case, dtype, min_blocks: int) -> bool:
+    """Whether the exact exterior's fused bisection of the case is built at
+    the register budget: the float64 flux and cylinder chains at 128
+    registers only (csrc/slab_disp.cu::launch_spec_slab,
+    cylinder_disp.cu::launch_cylinder_bisect)."""
+    import torch
+    return min_blocks != 2 or dtype == torch.float32 or _shear(case)
+
+
+def _entry_bytes(case, dtype) -> int:
+    """Bytes of the case's table entry (x-only or r-only) at dtype."""
+    from eigensolver_tpu_torch.kernels import cylinder, slab
+    if case.geometry.value == "slab":
+        return slab._ENTRY_BYTES[(bool(slab.disp_params(case).struct.shear),
+                                  dtype)]
+    return cylinder._ENTRY_BYTES[dtype, bool(
+        cylinder.disp_params(case).struct.twisted)]
 
 
 def _same_bits(a, b):
