@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--json-out PATH]
 
-Run from the repository root. Phases, one line each (9, 12 and 13 in two);
+Run from the repository root. Phases, one line each (9, 12 and 13 in two,
+17 in five, 18 in two);
 any failure raises and the script exits non-zero:
 
 1. device: a CUDA card is required; its nvidia-smi name and power limit.
@@ -118,6 +119,34 @@ any failure raises and the script exits non-zero:
 16. the needle oracle of tests/test_needle.py:61-87: slab_ph_3 at k =
    0.43303 and slab_co_15 at k = 0.080505, each reference entry within
    3e-3 of a root of the needle pass.
+17. the complex-omega kernels (csrc/slab_complex.cu) on the full-width
+   Kelvin-Helmholtz layer (slab_flow_complex_coronal(width=1.0),
+   tools_torch/kh.py: n_interior=2048, float64): slab_newton on the 7,200
+   Newton seeds at n_iter=1 bit-equal to the plain loop over the dual
+   shoot (both timed), and at the main path's 30 steps timed beside its
+   bound; slab_disp_complex at the main path's two batches, the 7,200
+   Newton roots (the final evaluation) and the audit's 30,720 contour
+   points, and at float32 on a ragged 8,191 of those points, bit-equal to
+   its plain version (all timed); the registers and spills of both
+   kernels' instantiations (ptxas).
+18. the complex-omega sweeps: run_case_complex of
+   slab_flow_complex_coronal at its published settings (7,200 seeds, 30
+   Newton steps, the audit of 60 cells), at width 1e5 and 1.0, on the
+   card in float64, each once with the counters reset (one slab_newton
+   launch, two slab_disp_complex: the final evaluation and the audit;
+   never the plain dispersion), then 3 timed runs; held to the JAX
+   package's (tools_torch/kh.py): the roots off the real axis by the
+   audit's margin and the audit's completeness exactly, every checked
+   cell agreeing and none missed, the largest growth rate to 1e-8 at the
+   same k; per seed (kh.seed_verdicts: the Newton pass again and one step
+   further, after the counted run), every seed converged both here and in
+   the JAX package's run accepted alike, and the converged accepted seeds'
+   roots counted exactly (kh.TARGETS' counts_converged); the total count
+   exactly where the JAX package's unconverged accepted seeds add no root
+   to those (width 1e5), else reported beside the JAX package's (width
+   1.0: its unconverged seeds near the flow continuum land by rounding);
+   at width 1e5 the largest growth rate held to the Doppler-tanh relation
+   within 2e-6 (tests/test_complex_kh.py:42-55).
 
 Then one JSON line of the kernels (with each one's bound: the operations
 the function needs on this run's inputs over the card's peak rate, or its
@@ -307,7 +336,23 @@ OPS = {"slab_x_step": 67, "slab_step": 61, "slab_ends": 93,
        "kve_cf2": 491, "kve_series": 22, "kve_term": 5,
        "slab_ext_step": 30, "slab_ext_renorm": 4, "slab_ext_ends": 7,
        "cyl_ext_step": 46, "cyl_ext_ends": 9,
-       "slab_exact_ext": 2, "cyl_exact_ext": 3}
+       "slab_exact_ext": 2, "cyl_exact_ext": 3,
+       "slab_cx_step": 339, "slab_cx_ends": 182, "slab_cx_dual_step": 769,
+       "slab_cx_dual_ends": 326, "slab_cx_newton": 31}
+# The complex-omega chain ("slab_cx_*": tools_torch/count_ops.py traces
+# physics/slab.py::complex_shear_coef, complex_edge, complex_det,
+# complex_mismatch and search.newton_step): per candidate and RK4 step 3
+# evaluations of the complex chain and the complex update, the value pass
+# ("slab_cx_step") or the dual pass in omega ("slab_cx_dual_step"); per
+# evaluation the interface ("*_ends"); per Newton step the damped step
+# ("slab_cx_newton"); a complex quotient by its real divisions (Smith's
+# algorithm: 2 divisions a divisor), the x-only table "slab_shear_x_step"
+# once per launch.
+# The complex-omega sweeps (tools_torch/kh.py) at their published size:
+KH_N_SEEDS = 20 * 3 * 12 * 10          # Newton seeds: 7,200
+KH_N_AUDIT = 20 * 3 * 4 * 128          # audit contour points: 30,720
+KH_PLAIN_N_ITER = 1                    # the plain Newton loop's steps
+KH_ANALYTIC_TOL = 2e-6                 # tests/test_complex_kh.py:53
 # NVIDIA H100 SXM data sheet, outside the tensor cores, at 700 W; HBM3 rate
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 HBM_BYTES_S = 3.35e12
@@ -339,6 +384,7 @@ def reset_counters() -> None:
     bessel.launches = cylinder.launches = slab.launches = 0
     cylinder.small_launches = 0
     cylinder.bisect_launches = slab.bisect_launches = 0
+    slab.complex_launches = slab.newton_launches = 0
     pcyl.plain_calls = pslab.plain_calls = 0
 
 
@@ -349,6 +395,8 @@ def read_counters() -> dict:
             "cylinder_disp_small": cylinder.small_launches,
             "cylinder_bisect": cylinder.bisect_launches,
             "slab_disp": slab.launches, "slab_bisect": slab.bisect_launches,
+            "slab_disp_complex": slab.complex_launches,
+            "slab_newton": slab.newton_launches,
             "kve_ratio": bessel.launches, "plain_cylinder": pcyl.plain_calls,
             "plain_slab": pslab.plain_calls}
 
@@ -2067,6 +2115,278 @@ def phase_oracles(out: dict):
 
 
 
+def cx_ops(n: int, n_interior: int, dual: bool = False,
+           n_iter: int = 1) -> int:
+    """Operations of n_iter complex chains (the value pass of
+    slab_disp_complex, or the dual pass and the step of slab_newton) on
+    each of n candidates, and the x-only values once."""
+    f = "slab_cx_dual_" if dual else "slab_cx_"
+    per = (n_interior * OPS[f + "step"] + OPS[f + "ends"]
+           + (OPS["slab_cx_newton"] if dual else 0))
+    return n * n_iter * per + n_interior * OPS["slab_shear_x_step"]
+
+
+def kh_config(name: str):
+    from eigensolver_tpu_torch import cases
+    from tools_torch import kh
+    return kh.configure(name, cases)
+
+
+def complex_ptxas() -> dict:
+    """Registers and spill bytes of the complex kernels' instantiations
+    (64 threads a block), keyed by kernel and type."""
+    import re
+
+    def key_of(name):
+        t = re.search(r"(slab_complex_kernel|slab_newton_kernel)I([fd])E",
+                      name)
+        return f"{t.group(1)} {_type_name(t.group(2))}" if t else None
+    entries = ptxas_entries(key_of)
+    if len(entries) != 4:
+        raise AssertionError(f"complex kernels' instantiations: "
+                             f"{sorted(entries)}, want 2 kernels x 2 types")
+    return entries
+
+
+def _cx_bits(what: str, got: dict, want: dict) -> float:
+    """Hold the named float tensors of got bit-equal to want's (NaN where
+    want has NaN); return the largest |got - want| where both are
+    finite."""
+    import torch
+    err = 0.0
+    for key in want:
+        a, b = got[key], want[key]
+        if not torch.equal(a.isnan(), b.isnan()):
+            raise AssertionError(f"{what}: NaN masks of {key} differ")
+        fin = a.isfinite() & b.isfinite()
+        bad = (a != b) & ~a.isnan()
+        if bool(bad.any()):
+            raise AssertionError(f"{what}: {int(bad.sum())} values of {key} "
+                                 f"differ from the plain version")
+        if bool(fin.any()):
+            err = max(err, float((a[fin] - b[fin]).abs().max()))
+    return err
+
+
+def phase_complex_kernels(out: dict):
+    """Phase 17 (see the module's docstring)."""
+    import torch
+    from eigensolver_tpu_torch import sweep
+    from eigensolver_tpu_torch.cplx import C
+    from eigensolver_tpu_torch.kernels import slab as kslab
+    from eigensolver_tpu_torch.physics.slab import SlabPhysics
+    from eigensolver_tpu_torch.search import newton_loop
+    case, kw = kh_config("kh_w1")
+    ph = SlabPhysics.from_case(case)
+    params = kslab.disp_params(case, True)
+    n_int = case.grid.n_interior
+    f64 = torch.float64
+
+    def pair(z, dtype=f64):
+        return C(torch.from_numpy(z.real.copy()).to("cuda", dtype),
+                 torch.from_numpy(z.imag.copy()).to("cuda", dtype))
+
+    om0, k0 = sweep.complex_seeds(case, kw["n_re"], kw["n_im"])
+    if len(om0) != KH_N_SEEDS:
+        raise AssertionError(f"{len(om0)} seeds, want {KH_N_SEEDS}")
+    seeds = pair(om0)
+    kk = torch.from_numpy(k0).cuda()
+    par = torch.ones_like(kk)
+    res = {}
+    # slab_newton: n_iter=1 against the plain loop, bit for bit
+    dual = ph.make_dispersion_dual_plain(parity=None)
+    t0 = time.perf_counter()
+    want = newton_loop(dual, seeds, kk, par, KH_PLAIN_N_ITER)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    got = kslab.slab_newton(seeds, kk, par, KH_PLAIN_N_ITER, 1.0, params)
+    torch.cuda.synchronize()
+    err = _cx_bits("slab_newton n_iter=1", {"re": got.re, "im": got.im},
+                   {"re": want.re, "im": want.im})
+    n_iter = kw["newton_iters"]
+    ms1 = cuda_ms(lambda: kslab.slab_newton(seeds, kk, par, 1, 1.0, params),
+                  5)
+    ms = cuda_ms(lambda: kslab.slab_newton(seeds, kk, par, n_iter, 1.0,
+                                           params), 3)
+    roots = kslab.slab_newton(seeds, kk, par, n_iter, 1.0, params)
+    n = KH_N_SEEDS
+    res["slab_newton"] = dict(
+        n=n, n_iter=n_iter, ms=ms,
+        ms_n_iter_1=ms1, plain_ms=1e3 * plain_s,
+        plain_n_iter=KH_PLAIN_N_ITER, max_abs_err=err,
+        **bound(cx_ops(n, n_int, dual=True, n_iter=n_iter), 48 * n,
+                "float64"),
+        bound_n_iter_1_ms=bound(cx_ops(n, n_int, dual=True), 48 * n,
+                                "float64")["bound_ms"])
+    line("phase 17 slab_newton vs plain", **res["slab_newton"])
+    # slab_disp_complex: the final evaluation's and the audit's batches
+    cells, paths, _, _ = sweep.audit_contours(
+        np.asarray(case.k_grid()), np.asarray(case.sorted_speeds()),
+        case.imag_band)
+    z_a = paths.reshape(-1)
+    if len(z_a) != KH_N_AUDIT:
+        raise AssertionError(f"{len(z_a)} contour points, want {KH_N_AUDIT}")
+    k_a = np.repeat(np.array([c[0] for c in cells]), paths.shape[1])
+    batches = {"final float64": (roots, kk),
+               "audit float64": (pair(z_a), torch.from_numpy(k_a).cuda()),
+               "ragged float32": (pair(z_a[:N_RAGGED], torch.float32),
+                                  torch.from_numpy(k_a[:N_RAGGED]).to(
+                                      "cuda", torch.float32))}
+    for what, (z, kz) in batches.items():
+        dt = kz.dtype
+        pz = torch.ones_like(kz)
+        plain = ph.make_dispersion_plain(parity=None, dtype=dt)
+        t0 = time.perf_counter()
+        pr = plain(z, kz, pz)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        kr = kslab.slab_disp_complex(z, kz, pz, params)
+        torch.cuda.synchronize()
+        if not torch.equal(kr.valid, pr.valid):
+            raise AssertionError(f"slab_disp_complex {what}: valid differs")
+        err = _cx_bits(f"slab_disp_complex {what}",
+                       {"det_re": kr.det.re, "det_im": kr.det.im,
+                        "mismatch": kr.mismatch_pct},
+                       {"det_re": pr.det.re, "det_im": pr.det.im,
+                        "mismatch": pr.mismatch_pct})
+        nz = kz.numel()
+        ms = cuda_ms(lambda: kslab.slab_disp_complex(z, kz, pz, params), 10)
+        tname = "float64" if dt == f64 else "float32"
+        res[f"slab_disp_complex {what}"] = dict(
+            n=nz, ms=ms,
+            plain_ms=1e3 * plain_s, max_abs_err=err,
+            finite=float(kr.det.re.isfinite().float().mean()),
+            **bound(cx_ops(nz, n_int), (8 if dt == f64 else 4) * 7 * nz
+                    + nz, tname))
+        line(f"phase 17 slab_disp_complex {what} vs plain",
+             **res[f"slab_disp_complex {what}"])
+    res["ptxas"] = complex_ptxas()
+    line("phase 17 complex kernels ptxas", **res["ptxas"])
+    out["complex_kernels"] = res
+
+
+def _check_kh_seeds(name: str, case, kw: dict, rs, target: dict) -> dict:
+    """Phase 18's per-seed check: the sweep's Newton pass again on the card
+    (the same kernels, the same bits), its final evaluation and one Newton
+    step further; kh.seed_verdicts of these. The verdicts must accept what
+    the sweep accepted; every seed converged here and in the JAX package's
+    run must be accepted as there; the converged accepted seeds must give
+    target["counts_converged"] roots. Returns the counts and the seeds
+    whose acceptance differs from the JAX package's."""
+    import torch
+    from eigensolver_tpu_torch import search, sweep
+    from eigensolver_tpu_torch.cplx import C
+    from eigensolver_tpu_torch.roots import dedup_complex_roots
+    from tools_torch import kh
+    om0, k0 = sweep.complex_seeds(case, kw["n_re"], kw["n_im"])
+    disp = sweep.make_dispersion(case, 1, torch.float64)
+    seeds = C(torch.from_numpy(om0.real.copy()).cuda(),
+              torch.from_numpy(om0.imag.copy()).cuda())
+    kk = torch.from_numpy(k0).cuda()
+    om = search.newton_complex(disp, seeds, kk, n_iter=kw["newton_iters"])
+    res = disp(om, kk)
+    nxt = search.newton_complex(disp, om, kk, n_iter=1)
+
+    def host(z):
+        return z.re.cpu().numpy() + 1j * z.im.cpu().numpy()
+    om = host(om)
+    acc, conv = kh.seed_verdicts(case, om, host(nxt),
+                                 res.mismatch_pct.cpu().numpy(),
+                                 res.valid.cpu().numpy(), k0)
+    dedup_rel = case.tol.dedup_rel
+    n_all = len(dedup_complex_roots(om[acc], k0[acc], dedup_rel)[0])
+    if n_all != rs.counts()["kink"]:
+        raise AssertionError(f"{name}: the seed verdicts give {n_all} roots, "
+                             f"the sweep {rs.counts()['kink']}")
+    j_acc = kh.unpack_mask(target["seeds_accepted"], len(k0))
+    j_conv = kh.unpack_mask(target["seeds_converged"], len(k0))
+    both = conv & j_conv
+    bad = np.flatnonzero(both & (acc != j_acc))
+    if len(bad):
+        raise AssertionError(f"{name}: seeds {bad.tolist()} converged here "
+                             f"and in JAX's run, accepted differently")
+    n_conv = kh.converged_count(om, k0, acc, conv, dedup_complex_roots,
+                                dedup_rel)
+    if n_conv != target["counts_converged"]["kink"]:
+        raise AssertionError(f"{name}: the converged accepted seeds give "
+                             f"{n_conv} roots, JAX "
+                             f"{target['counts_converged']['kink']}")
+    return dict(counts_converged=n_conv, accepted=int(acc.sum()),
+                converged=int(conv.sum()),
+                accepted_unconverged=int((acc & ~conv).sum()),
+                converged_both=int(both.sum()),
+                flips=np.flatnonzero(acc != j_acc).tolist())
+
+
+def phase_kh_sweeps(out: dict) -> dict:
+    """Phase 18 (see the module's docstring): the launches of each sweep's
+    first run."""
+    from eigensolver_tpu_torch import sweep
+    from tools_torch import kh
+    res, launches = {}, {}
+    for name in ("kh_w1e5", "kh_w1"):
+        case, kw = kh_config(name)
+        reset_counters()
+        rs, stats = sweep.run_case_complex(case, **kw, device="cuda")
+        launches[name] = read_counters()
+        check_launches(f"{name} path", launches[name],
+                       {"slab_newton": 1, "slab_disp_complex": 2})
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            sweep.run_case_complex(case, **kw, device="cuda")
+            walls.append(time.perf_counter() - t0)
+        target = kh.TARGETS[name]
+        comp = stats.completeness
+        if stats.n_candidates != KH_N_SEEDS:
+            raise AssertionError(f"{name}: {stats.n_candidates} seeds")
+        band = 0.0 if target["counts_exact"] else None
+        diff = _check_counts(name, rs.counts(),
+                             [("jax", target["counts"], band)])
+        seeds = _check_kh_seeds(name, case, kw, rs, target)
+        margin = 0.05 * case.imag_band
+        off_axis = {b: int(np.sum(np.abs(r.omegas_imag) > margin))
+                    for b, r in rs.branches.items()}
+        if off_axis != target["counts_off_axis"]:
+            raise AssertionError(f"{name}: off-axis counts {off_axis}, JAX "
+                                 f"{target['counts_off_axis']}")
+        if comp != target["completeness"]:
+            raise AssertionError(f"{name}: completeness {comp}, JAX "
+                                 f"{target['completeness']}")
+        if comp["missed"] or comp["agree"] != comp["checked"]:
+            raise AssertionError(f"{name}: audit {comp}")
+        br = rs["kink"]
+        if not (np.all(np.isfinite(br.omegas))
+                and np.all(np.isfinite(br.omegas_imag))):
+            raise AssertionError(f"{name}: non-finite roots")
+        i = int(np.argmax(br.omegas_imag))
+        growth_rel = abs(br.omegas_imag[i] / target["max_growth"] - 1)
+        if not (br.ks[i] == target["max_growth_k"]
+                and growth_rel <= kh.GROWTH_RTOL):
+            raise AssertionError(f"{name}: largest growth rate "
+                                 f"{br.omegas_imag[i]} at k {br.ks[i]}, JAX "
+                                 f"{target['max_growth']}")
+        r = dict(wall_s=statistics.median(walls), walls=walls,
+                 first_wall_s=stats.wall_s, counts=rs.counts(),
+                 counts_minus_jax=diff, counts_off_axis=off_axis,
+                 seeds=seeds,
+                 completeness=comp, launches=launches[name],
+                 max_growth=float(br.omegas_imag[i]),
+                 max_growth_k=float(br.ks[i]),
+                 max_growth_rel_diff=float(growth_rel))
+        if name == "kh_w1e5":
+            W = (br.omegas[i] + 1j * br.omegas_imag[i]) / br.ks[i]
+            dW = abs(W - kh.analytic_newton(case.regime, W, br.ks[i]))
+            if not dW < KH_ANALYTIC_TOL:
+                raise AssertionError(f"{name}: growing root {W} off the "
+                                     f"analytic relation by {dW}")
+            r["analytic_abs_err"] = float(dW)
+        res[name] = r
+        line(f"phase 18 {name} sweep", **r)
+    out["kh_sweeps"] = res
+    return launches
+
+
 def phase_twisted_numeric_path() -> dict:
     """The twisted chain's numeric-exterior variant on a path of its own
     (no shipped target pairs the two): a reduced float32 sweep of
@@ -2162,6 +2482,43 @@ def numeric_kernel_entries(res: dict, par: dict, tw: dict) -> list:
     ]
 
 
+def complex_kernel_entries(res: dict, launches: dict) -> list:
+    """The kernels JSON entries of the complex-omega kernels (phase 17's
+    times and checks, the launches of the published KH sweep in phase 18;
+    the width-1.0 sweep's beside them)."""
+    src = "eigensolver_tpu_torch/csrc/slab_complex.cu"
+    nw, w1 = res["slab_newton"], launches["kh_w1"]
+    au = res["slab_disp_complex audit float64"]
+    keys = ("n", "ms", "plain_ms", "bound_ms", "max_abs_err")
+    return [{
+        # the XLA-fused lax.scan of physics/slab.py at complex omega (no
+        # Pallas original): the audit's 30,720 contour points, float64
+        "name": "slab_disp_complex", "route": "cuda", "source": src,
+        "replaces": "eigensolver_tpu/physics/slab.py:309",
+        "launches": launches["kh_w1e5"]["slab_disp_complex"],
+        "launches_kh_w1": w1["slab_disp_complex"],
+        "n": au["n"], "max_abs_err": au["max_abs_err"], "ms": au["ms"],
+        "plain_ms": au["plain_ms"], "bound_ms": au["bound_ms"],
+        "bound_by": au["bound_by"], "library_ms": None,
+        "final_eval_float64": {k: res["slab_disp_complex final float64"][k]
+                               for k in keys},
+        "ragged_float32": {k: res["slab_disp_complex ragged float32"][k]
+                           for k in keys},
+    }, {
+        # the fori_loop of search.newton_complex with its holomorphic
+        # jax.jvp: 7,200 seeds x 30 steps; the plain loop at n_iter=1
+        "name": "slab_newton", "route": "cuda", "source": src,
+        "replaces": "eigensolver_tpu/search.py:581",
+        "launches": launches["kh_w1e5"]["slab_newton"],
+        "launches_kh_w1": w1["slab_newton"],
+        "n": nw["n"], "n_iter": nw["n_iter"],
+        "max_abs_err": nw["max_abs_err"], "ms": nw["ms"],
+        "plain_ms": nw["plain_ms"], "plain_n_iter": nw["plain_n_iter"],
+        "ms_n_iter_1": nw["ms_n_iter_1"], "bound_ms": nw["bound_ms"],
+        "bound_by": nw["bound_by"], "library_ms": None,
+    }]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json-out", help="also write the full report here")
@@ -2230,6 +2587,8 @@ def main() -> int:
     tw_num_launches = phase_twisted_numeric_path()
     par_launches = phase_parity(out)
     phase_oracles(out)
+    phase_complex_kernels(out)
+    kh_launches = phase_kh_sweeps(out)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
@@ -2433,6 +2792,7 @@ def main() -> int:
     }]
     kernels += numeric_kernel_entries(out["numeric_kernels"], par_launches,
                                       tw_num_launches)
+    kernels += complex_kernel_entries(out["complex_kernels"], kh_launches)
     if args.json_out:
         Path(args.json_out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json_out).write_text(json.dumps(out, indent=1, default=float))

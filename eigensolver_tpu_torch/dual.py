@@ -6,6 +6,13 @@ instead: forward-mode differentiation written out, one rule per operation,
 so that the CUDA kernel (`csrc/common.cuh::Dual`) can do the same operations
 in the same order and agree with this bit for bit.
 
+The value and the derivative may also be complex pairs (`cplx.C`): the
+complex-omega Newton iteration takes d det / d omega from the shoot carried
+on such duals (`physics/slab.py::make_dispersion_dual_plain`, the kernel's
+`csrc/complex.cuh::CDual`), where the JAX package takes a holomorphic
+`jax.jvp` with tangent 1. The rules are the same; `cplx.C` supplies the
+complex operations and `dsqrt` takes the principal root.
+
 An operand that is not a `Dual` (a tensor or a Python number) is a constant:
 its derivative is 0 and it adds no term. A Python float divides as one IEEE
 division (`profiles.div`), as the kernels divide.
@@ -26,6 +33,7 @@ from __future__ import annotations
 
 import torch
 
+from .cplx import C, csqrt
 from .profiles import div, rdiv, sqrt
 
 
@@ -69,7 +77,11 @@ class Dual:
 
 
 def dsqrt(a: Dual) -> Dual:
-    """The square root of a dual (`profiles.sqrt`, correctly rounded)."""
+    """The square root of a dual (`profiles.sqrt`, correctly rounded; of a
+    complex one `cplx.csqrt`, the principal root): (s, a' / (2 s))."""
+    if isinstance(a.v, C):
+        s = csqrt(a.v)
+        return Dual(s, a.d / (2 * s))
     s = sqrt(a.v)
     return Dual(s, a.d / (2 * s))
 

@@ -15,6 +15,15 @@ fixed-count bisection of a bracket batch over the same chain in one launch
 producer warps read the x-only values from a table as the scan does, and a
 small batch speculates several levels a round.
 
+At complex omega (the Kelvin-Helmholtz growth rates) `slab_disp_complex`
+(`csrc/slab_complex.cu`, kernel B5-complex) is the same shoot in the shear
+form on complex pairs (`cplx.C`), and `slab_newton` (kernel B7, same file)
+runs every damped Newton step of a seed batch in one launch
+(`eigensolver_tpu/search.py:581-603`), each step one pass of the shoot on
+dual numbers in omega. Their plain versions are
+`SlabPhysics.make_dispersion_plain` at complex omega and
+`search.newton_loop` over `make_dispersion_dual_plain`.
+
 A CPU tensor goes to the plain version
 (`physics.slab.SlabPhysics.make_dispersion_plain`, and `search.bisect_loop`
 over it); CUDA float32/float64 contiguous tensors go to the kernels;
@@ -29,21 +38,29 @@ from typing import Optional
 import torch
 
 from ..config import CaseConfig, ProfileKind
+from . import _build
 from .common import (_SMS, EXTERIOR_FIELDS, ProfileParams, ScanShape,
                      analytic_spec_shape, check_scan_shape,
                      density_flow_params, exterior_params, launch_disp,
                      launch_spec, numeric_spec_shape)
 
 # launches of the kernels since the last reset (one per kernel launch):
-# slab_disp, and the fused bisection slab_bisect
+# slab_disp, the fused bisection slab_bisect, and at complex omega
+# slab_disp_complex and slab_newton
 launches = 0
 bisect_launches = 0
+complex_launches = 0
+newton_launches = 0
 
 _ENTRY = {torch.float32: "eigk_slab_disp_f32",
           torch.float64: "eigk_slab_disp_f64"}
 # the fused bisection, with either exterior
 _SPEC_ENTRY = {torch.float32: "eigk_slab_spec_f32",
                torch.float64: "eigk_slab_spec_f64"}
+_COMPLEX_ENTRY = {torch.float32: "eigk_slab_complex_f32",
+                  torch.float64: "eigk_slab_complex_f64"}
+_NEWTON_ENTRY = {torch.float32: "eigk_slab_newton_f32",
+                 torch.float64: "eigk_slab_newton_f64"}
 
 
 class _SlabParams(ctypes.Structure):
@@ -188,4 +205,105 @@ def slab_bisect(lo: torch.Tensor, hi: torch.Tensor, k: torch.Tensor,
                       params.struct, eb, lo, hi, k, parity, n_iter,
                       final_eval, shape)
     bisect_launches += lo.numel() > 0
+    return out
+
+
+# The complex kernels' table chunk of RK4 steps (2 x 3 chunk entries of
+# ShearPoint); both are built at 64 threads a block (csrc/slab_complex.cu)
+COMPLEX_CHUNK = 64
+
+
+def _complex_args(name: str, entries: dict, omega, k, parity, params):
+    """Check the complex kernels' inputs: omega a `cplx.C` of two contiguous
+    1-D CUDA tensors of float32 or float64, k and parity alike; the shear
+    form with the exact exterior."""
+    if omega.re.dtype not in entries:
+        raise TypeError(f"{name} takes float32/float64 pairs, not "
+                        f"{omega.re.dtype}")
+    for arg, t in (("omega.im", omega.im), ("k", k), ("parity", parity)):
+        if (t.device != omega.re.device or t.dtype != omega.re.dtype
+                or t.shape != omega.re.shape):
+            raise ValueError(f"{name}: {arg} must match omega.re in device, "
+                             f"dtype and shape")
+    ts = (omega.re, omega.im, k, parity)
+    if omega.re.dim() != 1 or not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{name} kernel needs contiguous 1-D tensors")
+    s = params.struct
+    if not s.shear or s.exterior_numeric:
+        raise ValueError(f"{name}: the shear form with the exact exterior "
+                         f"only")
+    lib = _build.library()
+    if lib.eigk_slab_params_size() != ctypes.sizeof(s):
+        raise RuntimeError(f"{name}: parameter struct layout differs between "
+                           f"Python and CUDA")
+    return lib
+
+
+def _as_pair(omega):
+    from ..cplx import C
+    return omega if isinstance(omega, C) else C.of(omega)
+
+
+def slab_disp_complex(omega, k: torch.Tensor, parity: torch.Tensor,
+                      params: DispParams):
+    """SlabInterface(det (a `cplx.C`), mismatch_pct, valid) of 1-D candidate
+    tensors at complex omega (a `cplx.C` of two real tensors, or a complex
+    tensor, which is split), k and parity of omega's real dtype and device;
+    on the card one launch of B5-complex."""
+    global complex_launches
+    from ..cplx import C
+    from ..physics.slab import SlabInterface
+    omega = _as_pair(omega)
+    if omega.re.device.type == "cpu":
+        return _plain(params, omega.re.dtype)(omega, k, parity)
+    lib = _complex_args("slab_disp_complex", _COMPLEX_ENTRY, omega, k,
+                        parity, params)
+    re = omega.re
+    n = re.numel()
+    det = C(torch.empty_like(re), torch.empty_like(re))
+    mism = torch.empty_like(re)
+    valid = torch.empty(re.shape, dtype=torch.bool, device=re.device)
+    if n:
+        stream = torch.cuda.current_stream(re.device).cuda_stream
+        ptr = [ctypes.c_void_p(t.data_ptr())
+               for t in (re, omega.im, k, parity, det.re, det.im, mism, valid)]
+        code = getattr(lib, _COMPLEX_ENTRY[re.dtype])(
+            *ptr[:6], n, *ptr[6:], COMPLEX_CHUNK, ctypes.byref(params.struct),
+            re.device.index, ctypes.c_void_p(stream))
+        _build.check(code, "slab_disp_complex kernel")
+        complex_launches += 1
+    return SlabInterface(det=det, mismatch_pct=mism, valid=valid)
+
+
+def slab_newton(omega0, k: torch.Tensor, parity: torch.Tensor, n_iter: int,
+                damping: float, params: DispParams):
+    """n_iter damped Newton steps in complex omega of every seed (omega0 a
+    `cplx.C` or a complex tensor; k, parity of its real dtype and device):
+    the final omega, a `cplx.C`. A CUDA tensor launches the fused kernel
+    once; a CPU tensor runs `search.newton_loop` over the plain dual
+    shoot."""
+    global newton_launches
+    from ..cplx import C
+    omega0 = _as_pair(omega0)
+    if omega0.re.device.type == "cpu":
+        from ..physics.slab import SlabPhysics
+        from ..search import newton_loop
+        dual = SlabPhysics.from_case(params.case).make_dispersion_dual_plain(
+            parity=None, dtype=omega0.re.dtype,
+            include_shear_pressure=params.include_shear_pressure)
+        return newton_loop(dual, omega0, k, parity, n_iter, damping)
+    lib = _complex_args("slab_newton", _NEWTON_ENTRY, omega0, k, parity,
+                        params)
+    re = omega0.re
+    out = C(torch.empty_like(re), torch.empty_like(re))
+    n = re.numel()
+    if n:
+        stream = torch.cuda.current_stream(re.device).cuda_stream
+        code = getattr(lib, _NEWTON_ENTRY[re.dtype])(
+            *(ctypes.c_void_p(t.data_ptr()) for t in (
+                re, omega0.im, k, parity, out.re, out.im)), n, int(n_iter),
+            float(damping), COMPLEX_CHUNK, ctypes.byref(params.struct),
+            re.device.index, ctypes.c_void_p(stream))
+        _build.check(code, "slab_newton kernel")
+        newton_launches += 1
     return out

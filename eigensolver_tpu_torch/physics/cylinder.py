@@ -138,7 +138,9 @@ class TwistedChain(NamedTuple):
 
 def _check_supported(case: CaseConfig):
     if case.complex_omega:
-        raise NotImplementedError("complex omega: ROADMAP A10")
+        raise NotImplementedError(
+            "complex omega in the cylinder (complex B4, B1 at complex z): "
+            "ROADMAP A10b")
     if case.grid.exterior_method not in ("bessel", "numeric"):
         raise ValueError(
             f"unknown exterior_method {case.grid.exterior_method!r}")

@@ -1,9 +1,9 @@
 """Root-set container and dedup (PyTorch port).
 
 A copy of `eigensolver_tpu.roots:RootBranch, RootSet, dedup_roots,
-merge_rootsets` - host-side numpy, no framework - held here because importing
-the JAX package loads jax. Complex dedup (ROADMAP A10) and the
-reference-pickle formats (A12) are not ported yet.
+merge_rootsets, dedup_complex_roots` - host-side numpy, no framework - held
+here because importing the JAX package loads jax. The reference-pickle
+formats (A12) are not ported yet.
 """
 from __future__ import annotations
 
@@ -86,3 +86,36 @@ def merge_rootsets(a: RootSet, b: RootSet, rel_tol: float = 1e-6) -> RootSet:
         om, kk = dedup_roots(om, kk, rel_tol=rel_tol)
         branches[bname] = RootBranch(omegas=om, ks=kk).sorted_by_k()
     return RootSet(branches, case_name=a.case_name or b.case_name)
+
+
+def dedup_complex_roots(omegas: np.ndarray, ks: np.ndarray,
+                        rel_tol: float = 1e-4):
+    """Dedup complex roots: same k, complex distance within rel_tol relative
+    (roots.py:98-128).
+
+    Greedy in sorted order, but vectorised per ANCHOR (a kept root): each
+    anchor removes its whole duplicate window with one slice comparison, so
+    the cost is O(n_unique * window) rather than a per-candidate Python loop
+    - after a Newton sweep most of the batch collapses onto few roots."""
+    if len(omegas) == 0:
+        return omegas, ks
+    order = np.lexsort((omegas.imag, omegas.real, ks))
+    om, kk = omegas[order], ks[order]
+    n = len(om)
+    keep = np.ones(n, dtype=bool)
+    i = 0
+    while i < n:
+        if not keep[i]:
+            i += 1
+            continue
+        tol = rel_tol * max(abs(om[i]), 1e-30)
+        # duplicate window: same k (kk is the primary sort key), then Re
+        # within 4*tol (Re is sorted within each k group)
+        k_end = i + 1 + int(np.searchsorted(kk[i + 1:], kk[i], side="right"))
+        j_hi = i + 1 + int(np.searchsorted(om.real[i + 1:k_end],
+                                           om[i].real + 4.0 * tol,
+                                           side="right"))
+        w = slice(i + 1, j_hi)
+        keep[w] &= np.abs(om[w] - om[i]) > tol
+        i += 1
+    return om[keep], kk[keep]

@@ -17,8 +17,14 @@ sweep's own device. The continuum masks (the phase-speed ranges
 `exclude_v_ranges`, the twisted family's row-local `exclude_omega_rowfn`)
 and the pole pre-filter (`pole_det_factor`) sit between scan and
 bracketing; the reference-parity fuzz acceptance (`fuzz_accept_pct`) adds
-scan points to the polished roots. Not ported yet: the complex-omega search
-(ROADMAP A10).
+scan points to the polished roots.
+
+The complex-omega search (Kelvin-Helmholtz growth rates, search.py:525-603)
+is the damped Newton iteration of a seed batch (`newton_complex`: one fused
+launch on the card, `newton_loop` over the plain dual shoot on the CPU)
+and the argument-principle winding numbers of contours
+(`count_roots_rectangle`, and `winding_numbers` of many contours' values
+from one dispersion call).
 """
 from __future__ import annotations
 
@@ -28,6 +34,9 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from .cplx import C, angle, cabs, divisor, is_zero, where
+from .profiles import div
 
 
 class BracketBatch(NamedTuple):
@@ -467,3 +476,109 @@ def refine_windows(disp64: Callable, om: torch.Tensor, kk: torch.Tensor,
     lo = torch.where(bad, om, los.gather(0, first)[0])
     hi = torch.where(bad, om, his.gather(0, first)[0])
     return lo, hi, bad
+
+
+# ---------------------------------------------------------------------------
+# Complex-omega search (Kelvin-Helmholtz growth rates)
+# ---------------------------------------------------------------------------
+
+class ComplexSearchResult(NamedTuple):
+    omega: C               # complex roots
+    k: torch.Tensor
+    resid: torch.Tensor    # |D| at the root (normalised)
+    mask: torch.Tensor
+
+
+def newton_step(om: C, d: C, dd: C, damping: float = 1.0) -> C:
+    """One damped Newton step from D = d and dD/domega = dd
+    (search.py:595-601): step = d / dd (0 where dd == 0), clamped to
+    0.2 (1 + |omega|) in modulus; omega - damping step. The Newton kernel
+    (csrc/slab_complex.cu) repeats these operations in this order."""
+    q = d / dd
+    nil = torch.zeros_like(q.re)
+    step = where(is_zero(dd), C(nil, nil), q)
+    max_step = 0.2 * (1.0 + cabs(om))
+    mag = cabs(step)
+    step = where(mag > max_step, step * (max_step / mag), step)
+    return om - damping * step
+
+
+def newton_loop(dual_batch: Callable, omega0: C, k: torch.Tensor,
+                mode: Optional[torch.Tensor], n_iter: int,
+                damping: float = 1.0) -> C:
+    """The plain version of the fused Newton kernel: n_iter steps, each one
+    call of the dual dispersion dual_batch(omega, k[, mode]) -> (D,
+    dD/domega) and `newton_step`."""
+    om = omega0
+    for _ in range(n_iter):
+        d, dd = _call_disp(dual_batch, om, k, mode)
+        om = newton_step(om, d, dd, damping)
+    return om
+
+
+def newton_complex(disp_batch: Callable, omega0, k: torch.Tensor,
+                   n_iter: int = 20, damping: float = 1.0,
+                   mode: Optional[torch.Tensor] = None) -> C:
+    """Batched damped Newton iteration in complex omega on the holomorphic
+    dispersion determinant (search.py:581-603), through the dispersion's
+    own entry `disp_batch.newton`: one `slab_newton` launch on CUDA
+    tensors, `newton_loop` over the plain dual shoot on CPU tensors.
+    omega0: a `cplx.C` or a complex tensor; returns a `cplx.C`."""
+    return disp_batch.newton(omega0, k, mode, n_iter, damping)
+
+
+def winding_numbers(det: C) -> torch.Tensor:
+    """Winding numbers of closed polylines from the determinant's values
+    along them, det of shape (..., n_points): the sum of the phase
+    increments angle(det[i + 1] / det[i]) over 2 pi (search.py:536-546)."""
+    nxt = C(torch.roll(det.re, -1, dims=-1), torch.roll(det.im, -1, dims=-1))
+    dphase = angle(nxt / divisor(det))
+    return div(dphase.sum(dim=-1), 2.0 * np.pi)
+
+
+def _path_tensors(path, device, dtype=torch.float64):
+    z = np.asarray(path)
+    return C(torch.from_numpy(np.ascontiguousarray(z.real)).to(device, dtype),
+             torch.from_numpy(np.ascontiguousarray(z.imag)).to(device, dtype))
+
+
+def winding_number(disp_batch: Callable, k, path, mode=None, *, device):
+    """Winding number of the dispersion determinant along the closed
+    polyline `path` (a complex numpy array) in the complex omega plane:
+    zeros minus poles enclosed, by the argument principle (phase-increment
+    quadrature), with one dispersion call on `device`."""
+    z = _path_tensors(path, device)
+    kk = torch.full_like(z.re, float(k))
+    md = None if mode is None else torch.full_like(z.re, float(mode))
+    return float(winding_numbers(_call_disp(disp_batch, z, kk, md).det))
+
+
+def count_roots_argument_principle(disp_batch: Callable, k, center, radius,
+                                   n_points: int = 512, mode=None, *,
+                                   device):
+    """Zeros minus poles inside a circle of the complex omega plane
+    (search.py:549-558)."""
+    th = np.linspace(0.0, 2.0 * np.pi, n_points, endpoint=False)
+    z = center + radius * np.exp(1j * th)
+    return winding_number(disp_batch, k, z, mode=mode, device=device)
+
+
+def rectangle_path(re_lo, re_hi, im_lo, im_hi, n_per_side: int = 128):
+    """The rectangle's closed polyline, n_per_side points a side from each
+    corner, counter-clockwise from (re_lo, im_lo) (search.py:570-577), a
+    complex128 numpy array."""
+    t = np.linspace(0.0, 1.0, n_per_side, endpoint=False)
+    c = [complex(re_lo, im_lo), complex(re_hi, im_lo),
+         complex(re_hi, im_hi), complex(re_lo, im_hi)]
+    return np.concatenate([c[i] + (c[(i + 1) % 4] - c[i]) * t
+                           for i in range(4)])
+
+
+def count_roots_rectangle(disp_batch: Callable, k, re_lo, re_hi, im_lo,
+                          im_hi, n_per_side: int = 128, mode=None, *,
+                          device):
+    """Zeros minus poles inside a rectangle of the complex omega plane
+    (search.py:561-578); the completeness audit lifts it off the real axis,
+    where the determinant's continuum poles lie."""
+    return winding_number(disp_batch, k, rectangle_path(
+        re_lo, re_hi, im_lo, im_hi, n_per_side), mode=mode, device=device)

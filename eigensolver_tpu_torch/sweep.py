@@ -9,8 +9,10 @@ Every public entry takes an explicit `device` ("cpu", "cuda", ...): on a
 CUDA device the dispersion runs the `slab_disp` or `cylinder_disp` kernel,
 on the CPU its plain version. The f64 refinement (`refine_f64=True`) and the
 band-edge (needle) pass (`run_needle_pass`, which the JAX package runs on
-the host CPU) run on the same device. Not ported yet: the complex-omega
-sweep (ROADMAP A10), checkpointed sweeps (A12).
+the host CPU) run on the same device. The complex-omega sweep
+(`run_case_complex`, Kelvin-Helmholtz growth rates) runs its Newton
+iteration, the evaluation of its roots and its argument-principle audit on
+the device too. Not ported yet: checkpointed sweeps (ROADMAP A12).
 """
 from __future__ import annotations
 
@@ -25,9 +27,10 @@ from .config import CaseConfig, Geometry
 from .physics.cylinder import CylinderPhysics
 from .physics.slab import SlabPhysics
 from .equilibrium import genuine_continua
-from .roots import RootBranch, RootSet, dedup_roots
-from .search import (SearchConfig, collect, refine_roots_f64, search_rows,
-                     torch_dtype)
+from .roots import RootBranch, RootSet, dedup_complex_roots, dedup_roots
+from .search import (SearchConfig, _bound, _path_tensors, collect,
+                     newton_complex, rectangle_path, refine_roots_f64,
+                     search_rows, torch_dtype, winding_numbers)
 from .utils import StageTimer, synchronize
 
 MODE_NAMES = {0: "sausage", 1: "kink"}
@@ -92,6 +95,9 @@ class SweepStats:
     wall_s: float = 0.0
     n_candidates: int = 0
     n_roots: int = 0
+    # complex sweeps: argument-principle completeness audit (see
+    # run_case_complex) - {"cells", "checked", "agree", "missed", "fraction"}
+    completeness: Optional[dict] = None
 
     @property
     def roots_per_sec(self) -> float:
@@ -285,7 +291,13 @@ def run_case(case: CaseConfig, search: Optional[SearchConfig] = None,
 
     timer: optional `utils.StageTimer`; accumulates the wall time of the
     three stages (ladders / device_pipeline / finalize). The device stage
-    ends with a device synchronize, so its time includes the device work."""
+    ends with a device synchronize, so its time includes the device work.
+
+    A complex-omega case raises ValueError (the JAX package's run_case
+    fails on its complex determinant): sweep it with `run_case_complex`."""
+    if case.complex_omega:
+        raise ValueError(f"run_case: case {case.name} has complex omega; "
+                         f"sweep it with sweep.run_case_complex")
     device = torch.device(device)
     search = search or SearchConfig(
         n_omega=case.grid.n_omega_ladder,
@@ -326,3 +338,145 @@ def run_case(case: CaseConfig, search: Optional[SearchConfig] = None,
     stats.n_candidates = omegas_f.size
     stats.wall_s = time.time() - t0
     return RootSet(branches, case_name=case.name), stats
+
+
+def run_case_complex(case: CaseConfig, modes=None, n_re: int = 12,
+                     n_im: int = 10, newton_iters: int = 30,
+                     accept_pct: float = 0.5, dtype=torch.float64,
+                     check_completeness: bool = True, *, device
+                     ) -> tuple[RootSet, SweepStats]:
+    """Complex-omega sweep (Kelvin-Helmholtz growth rates) on `device`
+    (port of `eigensolver_tpu.sweep.run_case_complex`, sweep.py:304-383).
+
+    Seeds: a Re ladder x Im ladder per (k, band) cell, n_re x n_im, Re over
+    [lo k, hi k], Im over [-imag_band, imag_band]; newton_iters damped
+    Newton steps of every seed (`search.newton_complex`: one `slab_newton`
+    launch on the card), one evaluation at the results (one
+    `slab_disp_complex` launch); accepted where the % mismatch is below
+    accept_pct, Re m_e > 0, the phase speed Re(omega)/k within 0.05 of the
+    speed edges, |Im omega| < 3 imag_band and |Re omega| > 1e-6 |k| (the
+    acceptance is sign-symmetric in Re omega); deduplicated in the complex
+    plane (`roots.dedup_complex_roots`). The bounds are compared as the
+    JAX code compares them: the speed edges (numpy scalars) in float64,
+    the Python floats in the sweep's dtype.
+
+    check_completeness: the argument-principle audit of every cell
+    (`_audit_completeness`); SweepStats.completeness holds its counts."""
+    if not case.complex_omega:
+        raise ValueError(f"run_case_complex: case {case.name} must have "
+                         f"complex_omega=True")
+    device = torch.device(device)
+    modes = tuple(modes) if modes is not None else case.modes
+    ks = np.asarray(case.k_grid())
+    speeds = np.asarray(case.sorted_speeds())
+    seeds_om, seeds_k = complex_seeds(case, n_re, n_im)
+    omega0 = _path_tensors(seeds_om, device, dtype)
+    kk = torch.from_numpy(seeds_k).to(device, dtype)
+    np_complex = np.complex128 if dtype == torch.float64 else np.complex64
+
+    branches: Dict[str, RootBranch] = {}
+    stats = SweepStats()
+    t0 = time.time()
+    for mode in modes:
+        disp = make_dispersion(case, mode, dtype)
+        om = newton_complex(disp, omega0, kk, n_iter=newton_iters)
+        res = disp(om, kk)
+        v = (om.re / kk).to(torch.float64)
+        in_window = ((v > float(speeds[0] - 0.05))
+                     & (v < float(speeds[-1] + 0.05))
+                     & (om.im.abs() < _bound(3 * case.imag_band, om.im)))
+        mism = res.mismatch_pct
+        ok = ((mism < _bound(accept_pct, mism)) & res.valid & in_window
+              & torch.isfinite(mism) & (om.re.abs() > 1e-6 * kk.abs()))
+        ok = ok.cpu().numpy()
+        om_h = np.empty(int(ok.sum()), np_complex)
+        om_h.real = om.re.cpu().numpy()[ok]
+        om_h.imag = om.im.cpu().numpy()[ok]
+        k_h = kk.cpu().numpy()[ok]
+        om_d, k_d = dedup_complex_roots(om_h, k_h, case.tol.dedup_rel)
+        name = MODE_NAMES.get(mode, f"m{mode}")
+        branches[name] = RootBranch(omegas=om_d.real, ks=k_d,
+                                    omegas_imag=om_d.imag).sorted_by_k()
+        stats.n_candidates += omega0.re.numel()
+        stats.n_roots += len(om_d)
+        if check_completeness:
+            _audit_completeness(disp, ks, speeds, case.imag_band, om_d, k_d,
+                                stats, device=device)
+    synchronize(device)
+    stats.wall_s = time.time() - t0
+    return RootSet(branches, case_name=case.name), stats
+
+
+def complex_seeds(case: CaseConfig, n_re: int = 12, n_im: int = 10):
+    """The Newton seeds of run_case_complex (sweep.py:336-347): per (k,
+    band) cell an n_re x n_im lattice, Re over [lo k, hi k], Im over
+    [-imag_band, imag_band]; (omega complex128, k float64) numpy arrays."""
+    ks = np.asarray(case.k_grid())
+    speeds = np.asarray(case.sorted_speeds())
+    seeds_om, seeds_k = [], []
+    for k in ks:
+        for lo, hi in zip(speeds[:-1], speeds[1:]):
+            re = np.linspace(lo * k, hi * k, n_re)
+            im = np.linspace(-case.imag_band, case.imag_band, n_im)
+            RE, IM = np.meshgrid(re, im, indexing="ij")
+            seeds_om.append((RE + 1j * IM).reshape(-1))
+            seeds_k.append(np.full(RE.size, k))
+    return np.concatenate(seeds_om), np.concatenate(seeds_k)
+
+
+def audit_contours(ks, speeds, imag_band: float, margin_frac: float = 0.05):
+    """The audit's cells and contours: ([(k, re_lo, re_hi), ...], the
+    rectangles' closed polylines (cells, 512) complex128, im_lo, im_hi)."""
+    im_lo = margin_frac * imag_band
+    im_hi = 3.0 * imag_band
+    cells = [(k, lo * k, hi * k) for k in ks
+             for lo, hi in zip(speeds[:-1], speeds[1:])]
+    paths = np.stack([rectangle_path(re_lo, re_hi, im_lo, im_hi)
+                      for _, re_lo, re_hi in cells])
+    return cells, paths, im_lo, im_hi
+
+
+def _audit_completeness(disp, ks, speeds, imag_band, om_d, k_d,
+                        stats: SweepStats, quant_tol: float = 0.1,
+                        margin_frac: float = 0.05, *, device):
+    """Argument-principle audit of a complex sweep (sweep.py:386-427).
+
+    One upper-half-plane rectangle per (k, band) cell: real range
+    [lo k, hi k], imaginary range [margin_frac imag_band, 3 imag_band],
+    128 points a side (`search.rectangle_path`), lifted off the real axis
+    where the determinant's continuum poles lie, so that its winding
+    number counts the cell's growing modes. Every cell's contour goes
+    through one dispersion call (one `slab_disp_complex` launch on the
+    card), the winding numbers from a (cells, 512) view
+    (`search.winding_numbers`). A cell whose winding number is not within
+    quant_tol of a non-negative integer is unchecked; a checked one agrees
+    when it equals the accepted roots inside, and `missed` counts the
+    roots the sweep lacks."""
+    if stats.completeness is None:
+        stats.completeness = {"cells": 0, "checked": 0, "agree": 0,
+                              "missed": 0, "fraction": None}
+    comp = stats.completeness
+    roots = np.asarray(om_d)
+    cells, paths, im_lo, im_hi = audit_contours(ks, speeds, imag_band,
+                                                margin_frac)
+    n_pts = paths.shape[1]
+    z = _path_tensors(paths.reshape(-1), device)
+    kk = torch.from_numpy(np.repeat(np.array([c[0] for c in cells],
+                                             np.float64), n_pts)).to(device)
+    det = disp(z, kk).det.reshape(len(cells), n_pts)
+    wind = winding_numbers(det).cpu().numpy()
+    for (k, re_lo, re_hi), w in zip(cells, wind):
+        w = float(w)
+        comp["cells"] += 1
+        if abs(w - round(w)) > quant_tol or round(w) < 0:
+            continue          # a zero grazes the contour: report unchecked
+        comp["checked"] += 1
+        sel = np.isclose(np.asarray(k_d), k, atol=1e-12)
+        rr = roots[sel]
+        inside = int(np.sum((rr.real > re_lo) & (rr.real < re_hi)
+                            & (rr.imag > im_lo) & (rr.imag < im_hi)))
+        agree = inside == int(round(w))
+        comp["agree"] += int(agree)
+        comp["missed"] += max(0, int(round(w)) - inside)
+    comp["fraction"] = (comp["agree"] / comp["checked"]
+                        if comp["checked"] else None)

@@ -116,14 +116,16 @@ def _sweep_equals_jax(case, cfg, refine_f64, monkeypatch):
 
 # The numeric exterior (A8) and the search options of A11 raised until they
 # were ported; these cases now hold that each runs on the CPU and gives the
-# JAX package's roots. Complex omega (A10) still raises.
+# JAX package's roots. The complex cylinder still raises, now naming A10b
+# (the case keeps its test id).
 @pytest.mark.parametrize("make_case, what", [
     (lambda: _reduced(_tiny_cylinder(), exterior_method="numeric"), "A8"),
-    (lambda: dataclasses.replace(cases.cylinder_density_coronal(),
-                                 complex_omega=True), "A10"),
+    pytest.param(lambda: dataclasses.replace(cases.cylinder_density_coronal(),
+                                             complex_omega=True), "A10b",
+                 id="<lambda>-A10"),
 ])
 def test_unported_cylinder_variants_raise(make_case, what, monkeypatch):
-    if what == "A10":
+    if what == "A10b":
         with pytest.raises(NotImplementedError, match=what):
             CylinderPhysics.from_case(make_case()).make_dispersion(m=None)
         return
@@ -144,13 +146,29 @@ def test_unported_sweep_options_raise(make_case, search_kw, what,
     _sweep_equals_jax(make_case(), cfg, False, monkeypatch)
 
 
+# Complex omega (A10) raised until it was ported: run_case now refuses a
+# complex case and points to run_case_complex (the JAX package's run_case
+# fails on the complex determinant); run_case_complex runs the flow slab
+# and refuses the flux form (a density case), naming ROADMAP A10b.
 @pytest.mark.parametrize("make_case", [
     lambda: dataclasses.replace(_tiny_slab(), complex_omega=True),
     lambda: cases.slab_flow_complex_coronal(),
 ])
 def test_unported_geometry_and_ladder_raise(make_case):
-    with pytest.raises(NotImplementedError, match="A10"):
-        sweep.run_case(make_case(), device="cpu")
+    case = make_case()
+    with pytest.raises(ValueError, match="run_case_complex"):
+        sweep.run_case(case, device="cpu")
+    if case.flow_profile.kind == config.ProfileKind.UNIFORM:
+        with pytest.raises(NotImplementedError, match="A10b"):
+            sweep.run_case_complex(case, device="cpu")
+    else:
+        tiny = dataclasses.replace(_reduced(case, n_interior=8),
+                                   k_values=(0.5,))
+        rs, st = sweep.run_case_complex(tiny, n_re=2, n_im=2, newton_iters=2,
+                                        device="cpu")
+        assert st.n_candidates == 3 * 2 * 2
+        assert st.completeness["cells"] == 3
+        assert rs["kink"].omegas_imag is not None
     cheb = _reduced(cases.cylinder_density_coronal(), ladder_shape="chebyshev")
     with pytest.raises(NotImplementedError, match="chebyshev"):
         sweep.build_ladders(cheb)

@@ -1,6 +1,6 @@
-"""Count the operations of the twisted cylinder chain and of the numeric
-exteriors that chip_smoke.py's bounds use (its OPS entries "cyl_tw_*",
-"slab_ext_*", "cyl_ext_*").
+"""Count the operations of the twisted cylinder chain, of the numeric
+exteriors and of the complex-omega slab chain that chip_smoke.py's bounds
+use (its OPS entries "cyl_tw_*", "slab_ext_*", "cyl_ext_*", "slab_cx_*").
 
     python tools_torch/count_ops.py
 
@@ -35,6 +35,24 @@ Per RK4 step, 3 evaluations of the chain with (1/F, g) (physics/cylinder.py
 `twisted_chain`, `twisted_invF_g`), per evaluation the chain's values at
 r = 1 and F(1), C1(1)/C3(1). The parts that the trace does not cover are
 counted by hand from csrc/cylinder_twisted.cu and csrc/cylinder.cuh below.
+
+The complex-omega slab chain (`complex_ops`): `physics/slab.py::
+complex_shear_coef` (the order csrc/slab_complex.cu::shear_coef follows),
+its value pass and its dual pass in omega, traced on symbols with complex
+numbers as pairs (`cplx.C`): per RK4 step 3 evaluations at the abscissae
+(x-dependent and candidate-dependent: "slab_cx_step", "slab_cx_dual_step",
+with the complex update of the state traced from `_rk4_linear` over
+`_apply_shear`), per evaluation the interface (`complex_edge`,
+`complex_det`, and for the value pass `complex_mismatch`: "slab_cx_ends",
+"slab_cx_dual_ends", the candidate's products of k included), and per
+Newton step `search.newton_step` ("slab_cx_newton"). A complex quotient is
+counted as Smith's algorithm needs it, by its real divisions: the divisor's
+rat = d/c and scl = 1/(c + d rat) (4 operations, shared by every quotient
+by it), then ((a + b rat) scl, (b - a rat) scl) (6; a real numerator 3);
+|z| as m sqrt(1 + (n/m)^2) (5), the principal root by the branch it takes
+(sqrt((|a| + |z|)/2), b/(2t): 5 and |z|); a maximum or a comparison is one
+operation, a select none. The x-only values (U, U', U'') are the shear
+form's table, "slab_shear_x_step".
 
 A bound counts what the function needs, not what one way of computing it
 spends. The chain multiplies by reciprocals of its r-only divisors (1/r,
@@ -99,8 +117,9 @@ class Sym:
         return Sym.consts.setdefault(float(x), Sym(val=float(x)))
 
     def _op(self, op: str, other, swap: bool = False):
+        from eigensolver_tpu_torch.cplx import C, Divisor
         from eigensolver_tpu_torch.dual import Dual
-        if isinstance(other, Dual):
+        if isinstance(other, (C, Divisor, Dual)):
             return NotImplemented
         a, b = (Sym.of(other), self) if swap else (self, Sym.of(other))
         if op == "*":
@@ -140,6 +159,11 @@ class Sym:
     def __rmul__(self, o): return self._op("*", o, swap=True)
     def __truediv__(self, o): return self._op("/", o)
     def __rtruediv__(self, o): return self._op("/", o, swap=True)
+
+    def __pow__(self, p):
+        if p != 2:
+            return NotImplemented
+        return self * self
 
     @staticmethod
     def _unary(op: str, a) -> "Sym":
@@ -265,6 +289,126 @@ def exterior_ops() -> dict:
             "cyl_ext_ends": EXT_ENDS["cyl_ext_ends"] + tc.get("c", 0)}
 
 
+def _sym_divisor(z):
+    """cplx.Divisor on symbols: the |c| >= |d| branch, (u, v) = (1, rat),
+    which the quotients' products by u = 1 then skip."""
+    from eigensolver_tpu_torch.cplx import Divisor
+    rat = z.im / z.re
+    return Divisor(ONE, rat, 1.0 / (z.re + z.im * rat))
+
+
+def _sym_abs(z):
+    """|z| = m sqrt(1 + (n/m)^2), m and n the larger and smaller |part|
+    (selects, free)."""
+    m, n = Sym._unary("max", z.re), Sym._unary("min", z.im)
+    r = n / m
+    return m * Sym._unary("sqrt", 1.0 + r * r)
+
+
+def _sym_sqrt(z):
+    """The principal root by the a >= 0 branch: t = sqrt((a + |z|)/2),
+    (t, b / (2 t))."""
+    from eigensolver_tpu_torch.cplx import C
+    t = Sym._unary("sqrt", (z.re + _sym_abs(z)) * 0.5)
+    return C(t, z.im / (2.0 * t))
+
+
+class _SymEq:
+    """An equilibrium whose values at x = 1 are constants of the launch."""
+
+    def __getattr__(self, name):
+        return lambda x: Sym()
+
+
+def complex_ops() -> dict:
+    """chip_smoke.py's OPS entries for the complex-omega slab chain (the
+    corrected D of slab_flow_complex_coronal, the shear-pressure term on):
+    per RK4 step and candidate, "slab_cx_step" (value pass) and
+    "slab_cx_dual_step" (dual pass); per evaluation "slab_cx_ends",
+    "slab_cx_dual_ends"; per Newton step "slab_cx_newton"."""
+    import types
+    import torch
+    from eigensolver_tpu_torch import cplx, dual, search
+    from eigensolver_tpu_torch.cplx import C
+    from eigensolver_tpu_torch.physics import slab
+    from eigensolver_tpu_torch.dual import Dual
+    patches = [(cplx, "divisor", _sym_divisor), (slab, "divisor", _sym_divisor),
+               (search, "divisor", _sym_divisor),
+               (slab, "cabs", _sym_abs), (search, "cabs", _sym_abs),
+               (slab, "csqrt", _sym_sqrt), (dual, "csqrt", _sym_sqrt),
+               (torch, "maximum", lambda a, b: a._op("max", b)),
+               (search, "where", lambda m, a, b: b if a.re is ZERO else a),
+               (search, "is_zero", lambda z: None),
+               (torch, "zeros_like", lambda x: ZERO),
+               (torch, "full_like", lambda x, v: Sym.of(v))]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, val in patches:
+        setattr(mod, name, val)
+    Sym.__gt__ = lambda self, o: None
+    try:
+        out = {}
+        for is_dual, f in ((False, "slab_cx_"), (True, "slab_cx_dual_")):
+            Sym.nodes = {}
+            c = slab.ShearCand(omega=C(Sym({"c"}), Sym({"c"})), k=Sym({"c"}),
+                               twok=Sym({"c"}), k2c2=Sym({"c"}),
+                               k2a2=Sym({"c"}), k2cT2=Sym({"c"}),
+                               k4cT2c2=Sym({"c"}), ca=2.69)
+            co = slab.complex_shear_coef(c, Sym({"x"}), Sym({"x"}),
+                                         Sym({"x"}), legacy=False,
+                                         dual=is_dual)
+            parts = ([co[0].v, co[0].d, co[1].v, co[1].d] if is_dual
+                     else list(co))
+            chain = _tally_deps([p for z in parts for p in (z.re, z.im)])
+            # the update: one step of _rk4_linear from a state of symbols
+            # with the chain's values at the 3 abscissae as symbols
+            def state():
+                z = C(Sym({"s"}), Sym({"s"}))
+                return Dual(z, C(Sym({"s"}), Sym({"s"}))) if is_dual else z
+
+            def coefs():
+                z = C(Sym({"c", "x"}), Sym({"c", "x"}))
+                return Dual(z, C(Sym({"c", "x"}), Sym({"c", "x"}))) \
+                    if is_dual else z
+            calls = iter([(coefs(), coefs()) for _ in range(3)])
+            h = Sym()
+            y = slab._rk4_linear(slab._apply_shear, lambda x: next(calls),
+                                 (state(), state()), Sym(), h, 1)
+            flat = [p for z in y for w in ((z.v, z.d) if is_dual else (z,))
+                    for p in (w.re, w.im)]
+            upd = sum(n for d, n in _tally_deps(flat).items() if "s" in d)
+            out[f + "step"] = 3 * chain.get("cx", 0) + upd
+            # the interface: per candidate, the values at x = 1 constants
+            ph = types.SimpleNamespace(
+                eq=types.SimpleNamespace(
+                    regime=types.SimpleNamespace(
+                        U_e=0.0, vA_e=1e-12, c_e=2.0, cT_e=1e-12, rho_e=5.0),
+                    U_i=_SymEq().U_i, c_i=_SymEq().c_i,
+                    vA_i=_SymEq().vA_i, rho_i=_SymEq().rho_i),
+                flow_derivative=lambda order: (lambda x: Sym()))
+            Sym.nodes = {}
+            Sym.device, Sym.dtype = None, torch.float64
+            om = C(Sym({"c"}), Sym({"c"}))
+            e = slab.complex_edge(ph, om, Sym({"c"}), True, is_dual)
+            vx, dvx = state(), state()
+            det, xi_i, PT_e, PT_i = slab.complex_det(e, vx, dvx)
+            outs = [det.v, det.d] if is_dual else [det]
+            if not is_dual:
+                outs.append(C(slab.complex_mismatch(e, xi_i, PT_e, PT_i),
+                              ZERO))
+            t = _tally_deps([p for z in outs for p in (z.re, z.im)])
+            out[f + "ends"] = sum(t.values()) + chain.get("c", 0)
+        Sym.nodes = {}
+        om = C(Sym({"c"}), Sym({"c"}))
+        new = search.newton_step(om, C(Sym({"c"}), Sym({"c"})),
+                                 C(Sym({"c"}), Sym({"c"})), 1.0)
+        out["slab_cx_newton"] = sum(_tally_deps([new.re, new.im]).values())
+    finally:
+        for mod, name, val in saved:
+            setattr(mod, name, val)
+        del Sym.__gt__
+    return out
+
+
 def _tally_deps(outs) -> dict:
     """Operations that outs need, by what each depends on (the sorted
     letters of its dependences)."""
@@ -284,10 +428,11 @@ def _tally_deps(outs) -> dict:
 def main() -> int:
     sys.path.insert(0, str(ROOT))
     ext = exterior_ops()
+    cx = complex_ops()
     print(json.dumps({"traced": {**traced_ops(False), **traced_ops(True),
-                                 **ext},
+                                 **ext, **cx},
                       "ops": {**twisted_ops(False), **twisted_ops(True),
-                              **ext}}))
+                              **ext, **cx}}))
     return 0
 
 

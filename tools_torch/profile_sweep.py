@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Device-time breakdown of the port's full-size sweeps on a CUDA card.
 
-    python3 tools_torch/profile_sweep.py [--out PATH]
+    python3 tools_torch/profile_sweep.py [--out PATH] [--only TEXT]
 
 Runs slab_ph_09 (f32, f64, f32 with refine_f64=True), cyl_co_09 (f32, f64),
 twist_v01_p1 (cylinder_twisted_photospheric(0.1, 1.0, 1): f32, f64, f32 with
@@ -9,9 +9,11 @@ refine_f64=True) and the magnetic twist (cylinder_twisted_magnetic(0.1,
 0.15, 1.25, 1): f64) at
 SearchConfig(n_omega=256, n_bisect=18) through `sweep.run_case(...,
 device="cuda")`, then the reference-parity sweeps of `tools_torch/parity.py`
-(slab_ph_09 and cyl_flow_1, f32 refined in f64 and f64) and slab_ph_3's
-needle pass (`sweep.run_needle_pass`), each once to warm up and once under
-`torch.profiler`, and
+(slab_ph_09 and cyl_flow_1, f32 refined in f64 and f64), slab_ph_3's
+needle pass (`sweep.run_needle_pass`) and the complex-omega
+Kelvin-Helmholtz sweeps of `tools_torch/kh.py` (`sweep.run_case_complex`,
+f64, widths 1e5 and 1.0), each once to warm up and once under
+`torch.profiler` (with --only, the runs whose name holds TEXT), and
 prints per run: the wall, the device busy time (sum of the kernels' self
 device time), the idle share 1 - busy / wall, the launches and device time
 of each kernel, and the root counts. Run from the repository root; the first
@@ -32,12 +34,13 @@ ROOT = Path(__file__).resolve().parent.parent
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the report here as JSON")
+    ap.add_argument("--only", help="run only the runs whose name holds this")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     import torch
     from torch.profiler import ProfilerActivity, profile
     from eigensolver_tpu_torch import cases, equilibrium, search, sweep
-    from tools_torch import parity
+    from tools_torch import kh, parity
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA card")
     warnings.simplefilter("ignore")         # saturated-row notices
@@ -78,6 +81,12 @@ def main() -> int:
     edges = parity.needle_edges("slab_ph_3", ph3, sweep.needle_edges)
     runs.append(("slab_ph_3 needle", lambda: sweep.run_needle_pass(
         ph3, edges=edges, modes=(0,), device="cuda")[0]))
+    for name in kh.CONFIGS:
+        case, kw = kh.configure(name, cases)
+        runs.append((f"{name} f64", lambda case=case, kw=kw:
+                     sweep.run_case_complex(case, **kw, device="cuda")[0]))
+    if args.only:
+        runs = [(name, run) for name, run in runs if args.only in name]
     out = {"nvidia_smi": smi}
     for name, run in runs:
         run()

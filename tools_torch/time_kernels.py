@@ -28,6 +28,10 @@ several launches after a warm-up):
     cylinder_bisect on the bracket stages of the reference-parity sweeps
     slab_ph_09 (21,840 brackets) and cyl_flow_1 (47,520;
     `tools_torch/parity.py`), 18 iterations, float32 and float64;
+  - at complex omega, where the checkout has it: slab_newton (30 steps) on
+    the 7,200 seeds of the published Kelvin-Helmholtz sweep at width 1.0
+    (`tools_torch/kh.py`, float64), and slab_disp_complex on its roots and
+    on the audit's 30,720 contour points;
   - the CALL instructions in each kve_ratio kernel's SASS (`cuobjdump`),
     where the toolkit has it.
 To compare two commits on one card, unpack the other into a git-ignored
@@ -161,6 +165,42 @@ def parity_brackets(target: str, dtype):
     return disp, [x.contiguous() for x in (br.lo, br.hi, br.k, br.mode)]
 
 
+def complex_times() -> dict:
+    """slab_newton on the published KH sweep's 7,200 seeds (width 1.0, 30
+    steps) and slab_disp_complex on its roots and the audit's contour
+    points, float64."""
+    import torch
+    from eigensolver_tpu_torch import cases, sweep
+    from eigensolver_tpu_torch.cplx import C
+    from eigensolver_tpu_torch.kernels import slab as kslab
+    from tools_torch import kh
+    case, kw = kh.configure("kh_w1", cases)
+    params = kslab.disp_params(case, True)
+
+    def pair(z):
+        return C(torch.from_numpy(z.real.copy()).cuda(),
+                 torch.from_numpy(z.imag.copy()).cuda())
+    om0, k0 = sweep.complex_seeds(case, kw["n_re"], kw["n_im"])
+    seeds, kk = pair(om0), torch.from_numpy(k0).cuda()
+    par = torch.ones_like(kk)
+    n_iter = kw["newton_iters"]
+    roots = kslab.slab_newton(seeds, kk, par, n_iter, 1.0, params)
+    cells, paths, _, _ = sweep.audit_contours(
+        np.asarray(case.k_grid()), np.asarray(case.sorted_speeds()),
+        case.imag_band)
+    za = pair(paths.reshape(-1))
+    ka = torch.from_numpy(np.repeat([c[0] for c in cells],
+                                    paths.shape[1])).cuda()
+    return {"seeds": len(k0), "newton_ms": cuda_ms(
+                lambda: kslab.slab_newton(seeds, kk, par, n_iter, 1.0,
+                                          params), 3),
+            "final_eval_ms": cuda_ms(
+                lambda: kslab.slab_disp_complex(roots, kk, par, params), 10),
+            "audit_n": ka.numel(), "audit_ms": cuda_ms(
+                lambda: kslab.slab_disp_complex(za, ka, torch.ones_like(ka),
+                                                params), 10)}
+
+
 def sass_calls(lib: Path) -> dict:
     """CALL instructions (and their targets) per kve_ratio kernel in the
     library's SASS; empty without cuobjdump."""
@@ -274,6 +314,13 @@ def main() -> int:
                 continue
             out[key] = {"brackets": br[0].numel(),
                         "bisect_ms": cuda_ms(lambda: disp.bisect(*br, 18), 3)}
+    try:
+        out["kh_w1 complex float64"] = complex_times()
+    except (ImportError, AttributeError, NotImplementedError):
+        # an older tree (--pkg-root) may lack the complex kernels
+        if Path(args.pkg_root).resolve() == ROOT:
+            raise
+        out["kh_w1 complex float64"] = "not ported"
     out["sass"] = sass_calls(lib)
     print(json.dumps(out), flush=True)
     if args.out:
