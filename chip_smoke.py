@@ -119,22 +119,27 @@ any failure raises and the script exits non-zero:
 16. the needle oracle of tests/test_needle.py:61-87: slab_ph_3 at k =
    0.43303 and slab_co_15 at k = 0.080505, each reference entry within
    3e-3 of a root of the needle pass.
-17. the complex-omega kernels (csrc/slab_complex.cu) on the full-width
+17. the complex-omega kernel (csrc/slab_complex.cu: one producer/consumer
+   kernel behind slab_newton and slab_disp_complex) on the full-width
    Kelvin-Helmholtz layer (slab_flow_complex_coronal(width=1.0),
    tools_torch/kh.py: n_interior=2048, float64): slab_newton on the 7,200
    Newton seeds at n_iter=1 bit-equal to the plain loop over the dual
-   shoot (both timed), and at the main path's 30 steps timed beside its
-   bound; slab_disp_complex at the main path's two batches, the 7,200
-   Newton roots (the final evaluation) and the audit's 30,720 contour
-   points, and at float32 on a ragged 8,191 of those points, bit-equal to
-   its plain version (all timed); the registers and spills of both
-   kernels' instantiations (ptxas).
+   shoot (both timed); the main path's 30 steps as 30 chained one-step
+   launches (each step's ms, its non-finite omegas and those whose
+   imaginary part has reached the bottom of the exponent range) and as one
+   launch, bit-equal, timed beside its bound, and with the final
+   evaluation in the same launch (timed); slab_disp_complex, the kernel's
+   evaluation mode, at the main path's batches, the 7,200 Newton roots
+   and the audit's 30,720 contour points, and at float32 on a ragged 8,191
+   of those points, bit-equal to its plain version, as is the Newton
+   launch's own value round at the roots (all timed); the registers and
+   spills of the kernel's instantiations (ptxas).
 18. the complex-omega sweeps: run_case_complex of
    slab_flow_complex_coronal at its published settings (7,200 seeds, 30
    Newton steps, the audit of 60 cells), at width 1e5 and 1.0, on the
    card in float64, each once with the counters reset (one slab_newton
-   launch, two slab_disp_complex: the final evaluation and the audit;
-   never the plain dispersion), then 3 timed runs; held to the JAX
+   launch, the roots' evaluation its last round, and one slab_disp_complex,
+   the audit; never the plain dispersion), then 3 timed runs; held to the JAX
    package's (tools_torch/kh.py): the roots off the real axis by the
    audit's margin and the audit's completeness exactly, every checked
    cell agreeing and none missed, the largest growth rate to 1e-8 at the
@@ -337,14 +342,16 @@ OPS = {"slab_x_step": 67, "slab_step": 61, "slab_ends": 93,
        "slab_ext_step": 30, "slab_ext_renorm": 4, "slab_ext_ends": 7,
        "cyl_ext_step": 46, "cyl_ext_ends": 9,
        "slab_exact_ext": 2, "cyl_exact_ext": 3,
-       "slab_cx_step": 339, "slab_cx_ends": 182, "slab_cx_dual_step": 769,
+       "slab_cx_chain": 77, "slab_cx_step": 339, "slab_cx_ends": 182,
+       "slab_cx_dual_chain": 163, "slab_cx_dual_step": 769,
        "slab_cx_dual_ends": 326, "slab_cx_newton": 31}
 # The complex-omega chain ("slab_cx_*": tools_torch/count_ops.py traces
 # physics/slab.py::complex_shear_coef, complex_edge, complex_det,
 # complex_mismatch and search.newton_step): per candidate and RK4 step 3
 # evaluations of the complex chain and the complex update, the value pass
-# ("slab_cx_step") or the dual pass in omega ("slab_cx_dual_step"); per
-# evaluation the interface ("*_ends"); per Newton step the damped step
+# ("slab_cx_step") or the dual pass in omega ("slab_cx_dual_step"), of
+# which one chain evaluation is "*_chain"; per evaluation the interface
+# ("*_ends"); per Newton step the damped step
 # ("slab_cx_newton"); a complex quotient by its real divisions (Smith's
 # algorithm: 2 divisions a divisor), the x-only table "slab_shear_x_step"
 # once per launch.
@@ -2116,12 +2123,20 @@ def phase_oracles(out: dict):
 
 
 def cx_ops(n: int, n_interior: int, dual: bool = False,
-           n_iter: int = 1) -> int:
-    """Operations of n_iter complex chains (the value pass of
+           n_iter: int = 1, every_chain: bool = False) -> int:
+    """Operations of n_iter complex shoots (the value pass of
     slab_disp_complex, or the dual pass and the step of slab_newton) on
-    each of n candidates, and the x-only values once."""
+    each of n candidates, and the x-only values once. Where n_interior is
+    a power of two a step's first abscissa is the step before's last, bit
+    for bit (csrc/slab_complex.cu::cx_reuse), so a shoot needs 2 n_interior
+    + 1 chain evaluations, not 3 n_interior; every_chain counts 3 a step
+    whatever n_interior is (the count of every abscissa, for comparison)."""
     f = "slab_cx_dual_" if dual else "slab_cx_"
-    per = (n_interior * OPS[f + "step"] + OPS[f + "ends"]
+    chains = 3 * n_interior
+    if not every_chain and n_interior & (n_interior - 1) == 0:
+        chains = 2 * n_interior + 1
+    per = (n_interior * (OPS[f + "step"] - 3 * OPS[f + "chain"])
+           + chains * OPS[f + "chain"] + OPS[f + "ends"]
            + (OPS["slab_cx_newton"] if dual else 0))
     return n * n_iter * per + n_interior * OPS["slab_shear_x_step"]
 
@@ -2133,18 +2148,25 @@ def kh_config(name: str):
 
 
 def complex_ptxas() -> dict:
-    """Registers and spill bytes of the complex kernels' instantiations
-    (64 threads a block), keyed by kernel and type."""
+    """Registers and spill bytes of the complex-omega kernel's
+    instantiations (csrc/slab_complex.cu::newton_kernel: one a type, its
+    producer warps fixed by the type), keyed by type and producer warps."""
     import re
+    import torch
+    from eigensolver_tpu_torch.kernels import common
 
     def key_of(name):
-        t = re.search(r"(slab_complex_kernel|slab_newton_kernel)I([fd])E",
-                      name)
-        return f"{t.group(1)} {_type_name(t.group(2))}" if t else None
+        t = re.search(r"newton_kernelI([fd])E", name)
+        if not t:
+            return None
+        dt = torch.float32 if t.group(1) == "f" else torch.float64
+        return (f"newton_kernel {_type_name(t.group(1))} "
+                f"P={common.COMPLEX_PRODUCERS[dt]}")
     entries = ptxas_entries(key_of)
-    if len(entries) != 4:
-        raise AssertionError(f"complex kernels' instantiations: "
-                             f"{sorted(entries)}, want 2 kernels x 2 types")
+    want = len(common.COMPLEX_PRODUCERS)
+    if len(entries) != want:
+        raise AssertionError(f"complex kernel's instantiations: "
+                             f"{sorted(entries)}, want {want}")
     return entries
 
 
@@ -2168,11 +2190,36 @@ def _cx_bits(what: str, got: dict, want: dict) -> float:
     return err
 
 
+def _newton_chain(step, seeds, n_iter: int):
+    """n_iter chained one-step launches from the seeds, each from the one
+    before: the last omega and, per step, its device ms (CUDA events
+    around the one launch), and of its input omegas the non-finite ones and
+    those whose |Im| is below 1e-290 (where Smith's division leaves CUDA's
+    fast path, PERF.md section 6)."""
+    import torch
+    om, steps = seeds, []
+    for _ in range(n_iter):
+        fin = om.re.isfinite() & om.im.isfinite()
+        tiny = fin & (om.im.abs() < 1e-290)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        nxt = step(om)
+        t1.record()
+        torch.cuda.synchronize()
+        steps.append(dict(ms=t0.elapsed_time(t1),
+                          non_finite=int((~fin).sum()),
+                          tiny_im=int(tiny.sum())))
+        om = nxt
+    return om, steps
+
+
 def phase_complex_kernels(out: dict):
     """Phase 17 (see the module's docstring)."""
     import torch
     from eigensolver_tpu_torch import sweep
     from eigensolver_tpu_torch.cplx import C
+    from eigensolver_tpu_torch.kernels import common
     from eigensolver_tpu_torch.kernels import slab as kslab
     from eigensolver_tpu_torch.physics.slab import SlabPhysics
     from eigensolver_tpu_torch.search import newton_loop
@@ -2203,23 +2250,56 @@ def phase_complex_kernels(out: dict):
     torch.cuda.synchronize()
     err = _cx_bits("slab_newton n_iter=1", {"re": got.re, "im": got.im},
                    {"re": want.re, "im": want.im})
+    # the main path's 30 steps: one launch against 30 chained one-step
+    # launches, bit for bit; then with the final evaluation in the launch
     n_iter = kw["newton_iters"]
-    ms1 = cuda_ms(lambda: kslab.slab_newton(seeds, kk, par, 1, 1.0, params),
-                  5)
+    chained, steps = _newton_chain(
+        lambda z: kslab.slab_newton(z, kk, par, 1, 1.0, params), seeds,
+        n_iter)
+    roots = kslab.slab_newton(seeds, kk, par, n_iter, 1.0, params)
+    _cx_bits(f"slab_newton n_iter={n_iter} against {n_iter} chained",
+             {"re": roots.re, "im": roots.im},
+             {"re": chained.re, "im": chained.im})
     ms = cuda_ms(lambda: kslab.slab_newton(seeds, kk, par, n_iter, 1.0,
                                            params), 3)
-    roots = kslab.slab_newton(seeds, kk, par, n_iter, 1.0, params)
+    ms_fused = cuda_ms(lambda: kslab.slab_newton(
+        seeds, kk, par, n_iter, 1.0, params, final_eval=True), 3)
+    roots_f, fused = kslab.slab_newton(seeds, kk, par, n_iter, 1.0, params,
+                                       final_eval=True)
+    _cx_bits("slab_newton with the final evaluation",
+             {"re": roots_f.re, "im": roots_f.im},
+             {"re": roots.re, "im": roots.im})
     n = KH_N_SEEDS
+    shape = common.complex_spec_shape(f64)
+
+    def newton_bound(every_chain):
+        return bound(cx_ops(n, n_int, dual=True, n_iter=n_iter,
+                            every_chain=every_chain), 48 * n, "float64")
+
+    def final_eval_bound(every_chain):
+        ops = (cx_ops(n, n_int, dual=True, n_iter=n_iter,
+                      every_chain=every_chain)
+               + cx_ops(n, n_int, every_chain=every_chain)
+               - n_int * OPS["slab_shear_x_step"])
+        return bound(ops, 48 * n + 8 * 3 * n + n, "float64")["bound_ms"]
     res["slab_newton"] = dict(
-        n=n, n_iter=n_iter, ms=ms,
-        ms_n_iter_1=ms1, plain_ms=1e3 * plain_s,
-        plain_n_iter=KH_PLAIN_N_ITER, max_abs_err=err,
-        **bound(cx_ops(n, n_int, dual=True, n_iter=n_iter), 48 * n,
-                "float64"),
+        n=n, n_iter=n_iter, shape=list(shape), ms=ms,
+        ms_final_eval=ms_fused, final_eval_ms=ms_fused - ms,
+        ms_n_iter_1=steps[0]["ms"],
+        chained_ms=sum(r["ms"] for r in steps),
+        step_ms=[r["ms"] for r in steps],
+        step_non_finite=[r["non_finite"] for r in steps],
+        step_tiny_im=[r["tiny_im"] for r in steps],
+        plain_ms=1e3 * plain_s, plain_n_iter=KH_PLAIN_N_ITER,
+        max_abs_err=err,
+        **newton_bound(False),
+        bound_3_chains_ms=newton_bound(True)["bound_ms"],
         bound_n_iter_1_ms=bound(cx_ops(n, n_int, dual=True), 48 * n,
-                                "float64")["bound_ms"])
+                                "float64")["bound_ms"],
+        bound_final_eval_ms=final_eval_bound(False),
+        bound_final_eval_3_chains_ms=final_eval_bound(True))
     line("phase 17 slab_newton vs plain", **res["slab_newton"])
-    # slab_disp_complex: the final evaluation's and the audit's batches
+    # the evaluation mode: the final evaluation's and the audit's batches
     cells, paths, _, _ = sweep.audit_contours(
         np.asarray(case.k_grid()), np.asarray(case.sorted_speeds()),
         case.imag_band)
@@ -2242,22 +2322,29 @@ def phase_complex_kernels(out: dict):
         plain_s = time.perf_counter() - t0
         kr = kslab.slab_disp_complex(z, kz, pz, params)
         torch.cuda.synchronize()
-        if not torch.equal(kr.valid, pr.valid):
-            raise AssertionError(f"slab_disp_complex {what}: valid differs")
-        err = _cx_bits(f"slab_disp_complex {what}",
-                       {"det_re": kr.det.re, "det_im": kr.det.im,
-                        "mismatch": kr.mismatch_pct},
-                       {"det_re": pr.det.re, "det_im": pr.det.im,
-                        "mismatch": pr.mismatch_pct})
+        # the Newton launch's own value round, held at the roots alike
+        for name, r in ((what, kr),) + (
+                (("in the Newton launch", fused),) if what.startswith("final")
+                else ()):
+            if not torch.equal(r.valid, pr.valid):
+                raise AssertionError(f"slab_disp_complex {name}: valid "
+                                     f"differs")
+            err = _cx_bits(f"slab_disp_complex {name}",
+                           {"det_re": r.det.re, "det_im": r.det.im,
+                            "mismatch": r.mismatch_pct},
+                           {"det_re": pr.det.re, "det_im": pr.det.im,
+                            "mismatch": pr.mismatch_pct})
         nz = kz.numel()
         ms = cuda_ms(lambda: kslab.slab_disp_complex(z, kz, pz, params), 10)
         tname = "float64" if dt == f64 else "float32"
+        n_bytes = (8 if dt == f64 else 4) * 7 * nz + nz
         res[f"slab_disp_complex {what}"] = dict(
-            n=nz, ms=ms,
+            n=nz, shape=list(common.complex_spec_shape(dt)), ms=ms,
             plain_ms=1e3 * plain_s, max_abs_err=err,
             finite=float(kr.det.re.isfinite().float().mean()),
-            **bound(cx_ops(nz, n_int), (8 if dt == f64 else 4) * 7 * nz
-                    + nz, tname))
+            **bound(cx_ops(nz, n_int), n_bytes, tname),
+            bound_3_chains_ms=bound(cx_ops(nz, n_int, every_chain=True),
+                                    n_bytes, tname)["bound_ms"])
         line(f"phase 17 slab_disp_complex {what} vs plain",
              **res[f"slab_disp_complex {what}"])
     res["ptxas"] = complex_ptxas()
@@ -2267,10 +2354,10 @@ def phase_complex_kernels(out: dict):
 
 def _check_kh_seeds(name: str, case, kw: dict, rs, target: dict) -> dict:
     """Phase 18's per-seed check: the sweep's Newton pass again on the card
-    (the same kernels, the same bits), its final evaluation and one Newton
-    step further; kh.seed_verdicts of these. The verdicts must accept what
-    the sweep accepted; every seed converged here and in the JAX package's
-    run must be accepted as there; the converged accepted seeds must give
+    (the same kernel, the same bits) with its final evaluation, and one Newton
+    step further; kh.seed_verdicts of these. The verdicts must accept what the
+    sweep accepted; every seed converged here and in the JAX package's run must
+    be accepted as there; the converged accepted seeds must give
     target["counts_converged"] roots. Returns the counts and the seeds
     whose acceptance differs from the JAX package's."""
     import torch
@@ -2283,8 +2370,9 @@ def _check_kh_seeds(name: str, case, kw: dict, rs, target: dict) -> dict:
     seeds = C(torch.from_numpy(om0.real.copy()).cuda(),
               torch.from_numpy(om0.imag.copy()).cuda())
     kk = torch.from_numpy(k0).cuda()
-    om = search.newton_complex(disp, seeds, kk, n_iter=kw["newton_iters"])
-    res = disp(om, kk)
+    om, res = search.newton_complex(disp, seeds, kk,
+                                    n_iter=kw["newton_iters"],
+                                    final_eval=True)
     nxt = search.newton_complex(disp, om, kk, n_iter=1)
 
     def host(z):
@@ -2330,7 +2418,7 @@ def phase_kh_sweeps(out: dict) -> dict:
         rs, stats = sweep.run_case_complex(case, **kw, device="cuda")
         launches[name] = read_counters()
         check_launches(f"{name} path", launches[name],
-                       {"slab_newton": 1, "slab_disp_complex": 2})
+                       {"slab_newton": 1, "slab_disp_complex": 1})
         walls = []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -2483,25 +2571,31 @@ def numeric_kernel_entries(res: dict, par: dict, tw: dict) -> list:
 
 
 def complex_kernel_entries(res: dict, launches: dict) -> list:
-    """The kernels JSON entries of the complex-omega kernels (phase 17's
-    times and checks, the launches of the published KH sweep in phase 18;
-    the width-1.0 sweep's beside them)."""
+    """The kernels JSON entries of the complex-omega kernel's two wrappers
+    (phase 17's times and checks, the launches of the published KH sweep
+    in phase 18; the width-1.0 sweep's beside them)."""
     src = "eigensolver_tpu_torch/csrc/slab_complex.cu"
     nw, w1 = res["slab_newton"], launches["kh_w1"]
     au = res["slab_disp_complex audit float64"]
-    keys = ("n", "ms", "plain_ms", "bound_ms", "max_abs_err")
+    keys = ("n", "ms", "plain_ms", "bound_ms", "bound_3_chains_ms",
+            "max_abs_err")
     return [{
         # the XLA-fused lax.scan of physics/slab.py at complex omega (no
-        # Pallas original): the audit's 30,720 contour points, float64
+        # Pallas original), the kernel's evaluation mode: the audit's 30,720
+        # contour points, float64
         "name": "slab_disp_complex", "route": "cuda", "source": src,
         "replaces": "eigensolver_tpu/physics/slab.py:309",
         "launches": launches["kh_w1e5"]["slab_disp_complex"],
         "launches_kh_w1": w1["slab_disp_complex"],
-        "n": au["n"], "max_abs_err": au["max_abs_err"], "ms": au["ms"],
-        "plain_ms": au["plain_ms"], "bound_ms": au["bound_ms"],
+        "n": au["n"], "shape": au["shape"], "max_abs_err": au["max_abs_err"],
+        "ms": au["ms"], "plain_ms": au["plain_ms"], "bound_ms": au["bound_ms"],
         "bound_by": au["bound_by"], "library_ms": None,
-        "final_eval_float64": {k: res["slab_disp_complex final float64"][k]
-                               for k in keys},
+        # the bound counting all 3 chains a step (cx_ops every_chain)
+        "bound_3_chains_ms": au["bound_3_chains_ms"],
+        # the 7,200 roots in the evaluation mode; the main path evaluates
+        # them in the Newton launch's value round (final_eval_ms there)
+        "roots_float64": {k: res["slab_disp_complex final float64"][k]
+                          for k in keys},
         "ragged_float32": {k: res["slab_disp_complex ragged float32"][k]
                            for k in keys},
     }, {
@@ -2511,11 +2605,18 @@ def complex_kernel_entries(res: dict, launches: dict) -> list:
         "replaces": "eigensolver_tpu/search.py:581",
         "launches": launches["kh_w1e5"]["slab_newton"],
         "launches_kh_w1": w1["slab_newton"],
-        "n": nw["n"], "n_iter": nw["n_iter"],
+        "n": nw["n"], "n_iter": nw["n_iter"], "shape": nw["shape"],
         "max_abs_err": nw["max_abs_err"], "ms": nw["ms"],
         "plain_ms": nw["plain_ms"], "plain_n_iter": nw["plain_n_iter"],
-        "ms_n_iter_1": nw["ms_n_iter_1"], "bound_ms": nw["bound_ms"],
-        "bound_by": nw["bound_by"], "library_ms": None,
+        "ms_n_iter_1": nw["ms_n_iter_1"], "chained_ms": nw["chained_ms"],
+        "bound_ms": nw["bound_ms"], "bound_by": nw["bound_by"],
+        "library_ms": None,
+        "bound_3_chains_ms": nw["bound_3_chains_ms"],
+        # the main path's launch: the 30 steps and the roots' evaluation
+        "ms_final_eval": nw["ms_final_eval"],
+        "final_eval_ms": nw["final_eval_ms"],
+        "bound_final_eval_ms": nw["bound_final_eval_ms"],
+        "bound_final_eval_3_chains_ms": nw["bound_final_eval_3_chains_ms"],
     }]
 
 

@@ -38,14 +38,11 @@ _EVAL_ARGS = ((_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I,
 #  min_blocks, params, device, stream)
 _SPEC_ARGS = ((_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I,
                _I, _I, _I, _P, _I, _P), _I)
-# complex omega as two real buffers: (om_re, om_im, k, parity, det_re,
-#  det_im, n, mism, valid, chunk, params, device, stream)
-_COMPLEX_ARGS = ((_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P, _P, _I, _P,
-                  _I, _P), _I)
-# (om_re, om_im, k, parity, out_re, out_im, n, n_iter, damping, chunk,
-#  params, device, stream)
-_NEWTON_ARGS = ((_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I,
-                 ctypes.c_double, _I, _P, _I, _P), _I)
+# complex omega as two real buffers: (om_re, om_im, k, parity, out_re,
+#  out_im, n, det_re, det_im, mism, valid, n_iter, damping, final_eval, B,
+#  C, S, params, device, stream)
+_NEWTON_ARGS = ((_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P, _P, _P, _P,
+                 _I, ctypes.c_double, _I, _I, _I, _I, _P, _I, _P), _I)
 _SIGNATURES = {
     # name: (argtypes, restype)
     "eigk_kve_ratio_f32": ((_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P),
@@ -76,8 +73,6 @@ _SIGNATURES = {
     "eigk_slab_params_size": ((), ctypes.c_longlong),
     "eigk_slab_spec_f32": _SPEC_ARGS,
     "eigk_slab_spec_f64": _SPEC_ARGS,
-    "eigk_slab_complex_f32": _COMPLEX_ARGS,
-    "eigk_slab_complex_f64": _COMPLEX_ARGS,
     "eigk_slab_newton_f32": _NEWTON_ARGS,
     "eigk_slab_newton_f64": _NEWTON_ARGS,
     "eigk_error_string": ((ctypes.c_int,), ctypes.c_char_p),

@@ -1,8 +1,8 @@
 """Host mirror of `csrc/common.cuh::ProfileParams`, shared by the kernel
 wrappers, the launch checks they share, the launch shape of the scan
-kernels (`cylinder_disp`, `slab_disp`) and the block shapes of the fused
+kernels (`cylinder_disp`, `slab_disp`), the block shapes of the fused
 kernel (`csrc/bisect.cuh::spec_kernel`: the speculative bisection and
-evaluation)."""
+evaluation) and of the complex-omega kernel (`csrc/slab_complex.cu`)."""
 from __future__ import annotations
 
 import ctypes
@@ -266,6 +266,68 @@ def analytic_spec_shape(n: int, dtype: torch.dtype, entry_bytes: int,
         b, passes, min_blocks = 32, 4, 1
     return SpecShape(b, 0, 7, _steps(b, 0, 7, min_blocks, dtype, entry_bytes,
                                      passes), 2, min_blocks)
+
+
+class ComplexShape(NamedTuple):
+    """Block shape of the complex-omega kernel (`csrc/slab_complex.cu::
+    newton_kernel`: the Newton rounds and the value round); its producer
+    warps are fixed by the type (COMPLEX_PRODUCERS)."""
+    seeds: int       # B: seeds (candidates) a block, a power of two <= 32
+    steps: int       # C: RK4 steps per ring stage
+    stages: int      # S: ring stages, 1..6
+
+
+# csrc/slab_complex.cu::kCxProducers: the producer warps the kernel is
+# built with, at 2 blocks an SM (__launch_bounds__(32 (P + 1), 2)), which
+# sets its register budget: up to 128 registers a thread at P = 7, 112 at 8
+COMPLEX_PRODUCERS = {torch.float32: 8, torch.float64: 7}
+# csrc/slab_complex.cu: reals a column and step in the ring (kCxValues),
+# reals ahead of it (kCxHead: 32 omegas' re and im, and k), the bytes of a
+# table entry (ShearPoint, 16-byte aligned) by dtype
+_CX_VALUES = 24
+_CX_HEAD = 3 * 32
+_CX_ENTRY_BYTES = {torch.float32: 16, torch.float64: 32}
+
+
+def complex_smem(shape: ComplexShape, dtype: torch.dtype) -> int:
+    """Bytes of dynamic shared memory of a complex-omega block: the head
+    and the ring of S stages of C steps x 24 values x B columns, then the
+    x-only table, 2 x 3 C entries at a 16-byte boundary
+    (csrc/slab_complex.cu::cx_table_offset)."""
+    b, c, s = shape
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    ring = (_CX_HEAD + s * c * _CX_VALUES * b) * itemsize
+    return -(-ring // 16) * 16 + 2 * 3 * c * _CX_ENTRY_BYTES[dtype]
+
+
+def complex_spec_shape(dtype: torch.dtype) -> ComplexShape:
+    """The block shape of the complex-omega kernel, one for every batch:
+    B = 32 seeds (or candidates) a block, so that the published KH sweep's
+    7,200 seeds (225 blocks) are resident at once at 2 blocks an SM (a
+    second wave would double the consumers' serial chains), and 2 ring
+    stages of a whole pass of the producers (B C = 32 P): at float64 C = 7
+    steps with P = 7 producer warps, at float32 C = 16 with P = 8. From
+    timings on an H100 (PERF.md section 6) of the 216 shapes whose 2 blocks
+    fit an SM (B 8-32, P 4, 6, 7, 8, C 2-32, S 2-4; `tools_torch/
+    tune_bisect.py --complex` with the kernel built at those four P for
+    that run, a build this tree does not hold: P is now fixed by the type
+    and the tool tunes B, C and S): the fastest on the KH sweep's Newton
+    launch (7,200 seeds x 30 steps with the final evaluation: 56.7 ms;
+    P = 8, C = 8 63.2), 4% from the fastest on the audit's 30,720 contour
+    points (3.52 ms; P = 8, C = 8 3.39) and 9% on its 7,200 roots (1.58
+    ms; B = 16, C = 14 1.44); at float32 the fastest on 8,191 contour
+    points (0.600 ms; P = 7, C = 7 0.686)."""
+    if dtype == torch.float32:
+        return ComplexShape(seeds=32, steps=16, stages=2)
+    return ComplexShape(seeds=32, steps=7, stages=2)
+
+
+def check_complex_shape(name: str, shape: ComplexShape,
+                        dtype: torch.dtype) -> None:
+    b, c, s = shape
+    if not (1 <= b <= 32 and b & (b - 1) == 0 and c >= 1 and 1 <= s <= 6
+            and complex_smem(shape, dtype) <= MAX_SMEM):
+        raise ValueError(f"{name}: unsupported block shape {shape}")
 
 
 def spec_smem(shape: SpecShape, dtype: torch.dtype, entry_bytes: int) -> int:

@@ -15,12 +15,15 @@ fixed-count bisection of a bracket batch over the same chain in one launch
 producer warps read the x-only values from a table as the scan does, and a
 small batch speculates several levels a round.
 
-At complex omega (the Kelvin-Helmholtz growth rates) `slab_disp_complex`
-(`csrc/slab_complex.cu`, kernel B5-complex) is the same shoot in the shear
-form on complex pairs (`cplx.C`), and `slab_newton` (kernel B7, same file)
-runs every damped Newton step of a seed batch in one launch
+At complex omega (the Kelvin-Helmholtz growth rates) one warp-specialised
+kernel (`csrc/slab_complex.cu`) serves both wrappers: `slab_newton` (kernel
+B7) runs every damped Newton step of a seed batch in one launch
 (`eigensolver_tpu/search.py:581-603`), each step one pass of the shoot on
-dual numbers in omega. Their plain versions are
+dual numbers in omega, and, if asked, the evaluation of its roots in the
+same launch; `slab_disp_complex` (kernel B5-complex) is the kernel's
+evaluation mode, the same shoot in the shear form on complex pairs
+(`cplx.C`). Producer warps compute each RK4 step's coefficients, one
+consumer lane a seed runs the serial update. Their plain versions are
 `SlabPhysics.make_dispersion_plain` at complex omega and
 `search.newton_loop` over `make_dispersion_dual_plain`.
 
@@ -39,8 +42,9 @@ import torch
 
 from ..config import CaseConfig, ProfileKind
 from . import _build
-from .common import (_SMS, EXTERIOR_FIELDS, ProfileParams, ScanShape,
-                     analytic_spec_shape, check_scan_shape,
+from .common import (_SMS, EXTERIOR_FIELDS, ComplexShape, ProfileParams,
+                     ScanShape, analytic_spec_shape, check_complex_shape,
+                     check_scan_shape, complex_spec_shape,
                      density_flow_params, exterior_params, launch_disp,
                      launch_spec, numeric_spec_shape)
 
@@ -57,8 +61,7 @@ _ENTRY = {torch.float32: "eigk_slab_disp_f32",
 # the fused bisection, with either exterior
 _SPEC_ENTRY = {torch.float32: "eigk_slab_spec_f32",
                torch.float64: "eigk_slab_spec_f64"}
-_COMPLEX_ENTRY = {torch.float32: "eigk_slab_complex_f32",
-                  torch.float64: "eigk_slab_complex_f64"}
+# the complex-omega kernel: Newton rounds, the value round, or both
 _NEWTON_ENTRY = {torch.float32: "eigk_slab_newton_f32",
                  torch.float64: "eigk_slab_newton_f64"}
 
@@ -208,16 +211,11 @@ def slab_bisect(lo: torch.Tensor, hi: torch.Tensor, k: torch.Tensor,
     return out
 
 
-# The complex kernels' table chunk of RK4 steps (2 x 3 chunk entries of
-# ShearPoint); both are built at 64 threads a block (csrc/slab_complex.cu)
-COMPLEX_CHUNK = 64
-
-
-def _complex_args(name: str, entries: dict, omega, k, parity, params):
-    """Check the complex kernels' inputs: omega a `cplx.C` of two contiguous
+def _complex_args(name: str, omega, k, parity, params):
+    """Check the complex kernel's inputs: omega a `cplx.C` of two contiguous
     1-D CUDA tensors of float32 or float64, k and parity alike; the shear
     form with the exact exterior."""
-    if omega.re.dtype not in entries:
+    if omega.re.dtype not in _NEWTON_ENTRY:
         raise TypeError(f"{name} takes float32/float64 pairs, not "
                         f"{omega.re.dtype}")
     for arg, t in (("omega.im", omega.im), ("k", k), ("parity", parity)):
@@ -239,51 +237,80 @@ def _complex_args(name: str, entries: dict, omega, k, parity, params):
     return lib
 
 
+def _launch_complex(name: str, omega, k, parity, params, n_iter: int,
+                    damping: float, final_eval: bool, shape):
+    """One launch of the complex-omega kernel on the current stream (no
+    launch for 0 seeds): n_iter Newton rounds, then with final_eval the
+    value round. Returns (the final omega, a `cplx.C`, or None in the
+    evaluation mode, n_iter None; the value round's SlabInterface or
+    None)."""
+    from ..cplx import C
+    from ..physics.slab import SlabInterface
+    lib = _complex_args(name, omega, k, parity, params)
+    re = omega.re
+    n = re.numel()
+    shape = ComplexShape(*(shape or complex_spec_shape(re.dtype)))
+    check_complex_shape(name, shape, re.dtype)
+    if n_iter is not None and n_iter < 0:
+        raise ValueError(f"{name}: n_iter must be >= 0, not {n_iter}")
+    out = (None if n_iter is None
+           else C(torch.empty_like(re), torch.empty_like(re)))
+    res = (SlabInterface(det=C(torch.empty_like(re), torch.empty_like(re)),
+                         mismatch_pct=torch.empty_like(re),
+                         valid=torch.empty(re.shape, dtype=torch.bool,
+                                           device=re.device))
+           if final_eval else None)
+    if n:
+        def ptr(t):
+            return ctypes.c_void_p(None if t is None else t.data_ptr())
+        o = (None, None) if out is None else (out.re, out.im)
+        r = ((None,) * 4 if res is None else
+             (res.det.re, res.det.im, res.mismatch_pct, res.valid))
+        stream = torch.cuda.current_stream(re.device).cuda_stream
+        code = getattr(lib, _NEWTON_ENTRY[re.dtype])(
+            *map(ptr, (re, omega.im, k, parity, *o)), n, *map(ptr, r),
+            int(n_iter or 0), float(damping), int(final_eval), *shape,
+            ctypes.byref(params.struct), re.device.index,
+            ctypes.c_void_p(stream))
+        _build.check(code, f"{name} kernel")
+    return out, res
+
+
 def _as_pair(omega):
     from ..cplx import C
     return omega if isinstance(omega, C) else C.of(omega)
 
 
 def slab_disp_complex(omega, k: torch.Tensor, parity: torch.Tensor,
-                      params: DispParams):
+                      params: DispParams, shape=None):
     """SlabInterface(det (a `cplx.C`), mismatch_pct, valid) of 1-D candidate
     tensors at complex omega (a `cplx.C` of two real tensors, or a complex
     tensor, which is split), k and parity of omega's real dtype and device;
-    on the card one launch of B5-complex."""
+    on the card one launch of the complex-omega kernel in its evaluation
+    mode (block shape `shape`, a common.ComplexShape; default
+    `common.complex_spec_shape`)."""
     global complex_launches
-    from ..cplx import C
-    from ..physics.slab import SlabInterface
     omega = _as_pair(omega)
     if omega.re.device.type == "cpu":
         return _plain(params, omega.re.dtype)(omega, k, parity)
-    lib = _complex_args("slab_disp_complex", _COMPLEX_ENTRY, omega, k,
-                        parity, params)
-    re = omega.re
-    n = re.numel()
-    det = C(torch.empty_like(re), torch.empty_like(re))
-    mism = torch.empty_like(re)
-    valid = torch.empty(re.shape, dtype=torch.bool, device=re.device)
-    if n:
-        stream = torch.cuda.current_stream(re.device).cuda_stream
-        ptr = [ctypes.c_void_p(t.data_ptr())
-               for t in (re, omega.im, k, parity, det.re, det.im, mism, valid)]
-        code = getattr(lib, _COMPLEX_ENTRY[re.dtype])(
-            *ptr[:6], n, *ptr[6:], COMPLEX_CHUNK, ctypes.byref(params.struct),
-            re.device.index, ctypes.c_void_p(stream))
-        _build.check(code, "slab_disp_complex kernel")
-        complex_launches += 1
-    return SlabInterface(det=det, mismatch_pct=mism, valid=valid)
+    _, res = _launch_complex("slab_disp_complex", omega, k, parity, params,
+                             None, 1.0, True, shape)
+    complex_launches += omega.re.numel() > 0
+    return res
 
 
 def slab_newton(omega0, k: torch.Tensor, parity: torch.Tensor, n_iter: int,
-                damping: float, params: DispParams):
+                damping: float, params: DispParams, final_eval: bool = False,
+                shape=None):
     """n_iter damped Newton steps in complex omega of every seed (omega0 a
     `cplx.C` or a complex tensor; k, parity of its real dtype and device):
-    the final omega, a `cplx.C`. A CUDA tensor launches the fused kernel
-    once; a CPU tensor runs `search.newton_loop` over the plain dual
-    shoot."""
+    the final omega, a `cplx.C`; with final_eval, (omega, the
+    SlabInterface of the value dispersion there). A CUDA tensor launches
+    the complex-omega kernel once, the final evaluation its last round
+    (block shape `shape`, default `common.complex_spec_shape`); a CPU
+    tensor runs `search.newton_loop` over the plain dual shoot, then the
+    plain value dispersion."""
     global newton_launches
-    from ..cplx import C
     omega0 = _as_pair(omega0)
     if omega0.re.device.type == "cpu":
         from ..physics.slab import SlabPhysics
@@ -291,19 +318,11 @@ def slab_newton(omega0, k: torch.Tensor, parity: torch.Tensor, n_iter: int,
         dual = SlabPhysics.from_case(params.case).make_dispersion_dual_plain(
             parity=None, dtype=omega0.re.dtype,
             include_shear_pressure=params.include_shear_pressure)
-        return newton_loop(dual, omega0, k, parity, n_iter, damping)
-    lib = _complex_args("slab_newton", _NEWTON_ENTRY, omega0, k, parity,
-                        params)
-    re = omega0.re
-    out = C(torch.empty_like(re), torch.empty_like(re))
-    n = re.numel()
-    if n:
-        stream = torch.cuda.current_stream(re.device).cuda_stream
-        code = getattr(lib, _NEWTON_ENTRY[re.dtype])(
-            *(ctypes.c_void_p(t.data_ptr()) for t in (
-                re, omega0.im, k, parity, out.re, out.im)), n, int(n_iter),
-            float(damping), COMPLEX_CHUNK, ctypes.byref(params.struct),
-            re.device.index, ctypes.c_void_p(stream))
-        _build.check(code, "slab_newton kernel")
-        newton_launches += 1
-    return out
+        om = newton_loop(dual, omega0, k, parity, n_iter, damping)
+        if not final_eval:
+            return om
+        return om, _plain(params, omega0.re.dtype)(om, k, parity)
+    out, res = _launch_complex("slab_newton", omega0, k, parity, params,
+                               n_iter, damping, final_eval, shape)
+    newton_launches += omega0.re.numel() > 0
+    return (out, res) if final_eval else out

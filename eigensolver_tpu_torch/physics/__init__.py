@@ -1,1 +1,2 @@
-"""Geometry-specific dispersion functions (cylinder; slab is ROADMAP A3)."""
+"""Geometry-specific dispersion functions: the slab (`slab`) and the
+cylinder (`cylinder`)."""

@@ -28,7 +28,7 @@ tensor. The plain version is the JAX code's arithmetic, expression for
 expression, with a Python loop over RK4 steps on tensors of candidates in
 place of `lax.scan` over a vmapped scalar.
 
-Not ported yet: complex omega (ROADMAP A10).
+Not ported yet: complex omega in the cylinder (ROADMAP A10b).
 """
 from __future__ import annotations
 

@@ -560,10 +560,12 @@ class SlabPhysics:
         At complex omega (`case.complex_omega`) omega is a `cplx.C` (or a
         complex tensor), det a `cplx.C`, and CUDA tensors run
         `slab_disp_complex`; the callable carries instead `disp.newton(
-        omega0, k, parity, n_iter, damping) -> omega`, the whole damped
-        Newton iteration of a seed batch: one `slab_newton` launch on CUDA
-        tensors, `search.newton_loop` over the plain dual shoot on the CPU
-        (parity dropped for a fixed-parity disp)."""
+        omega0, k, parity, n_iter, damping, final_eval=False) -> omega`,
+        the whole damped Newton iteration of a seed batch, with final_eval
+        (omega, disp(omega, k, parity)): one `slab_newton` launch on CUDA
+        tensors, the evaluation its last round; `search.newton_loop` over
+        the plain dual shoot, then the plain dispersion, on the CPU (parity
+        dropped for a fixed-parity disp)."""
         _check_supported(self.case, self.has_flow)
         from ..kernels.slab import disp_params, slab_bisect, slab_disp
         if include_shear_pressure is None:
@@ -615,11 +617,12 @@ class SlabPhysics:
             return slab_disp_complex(omega, k.to(dtype).contiguous(),
                                      column(parity_arg, omega.re), params)
 
-        def newton(omega0, k, parity_arg, n_iter, damping=1.0):
+        def newton(omega0, k, parity_arg, n_iter, damping=1.0,
+                   final_eval=False):
             omega0 = pair(omega0)
             return slab_newton(omega0, k.to(dtype).contiguous(),
                                column(parity_arg, omega0.re), n_iter,
-                               damping, params)
+                               damping, params, final_eval)
 
         if parity is None:
             disp.newton = newton
@@ -629,6 +632,8 @@ class SlabPhysics:
         def fixed(omega, k):
             return disp(omega, k, p_const)
 
-        fixed.newton = (lambda omega0, k, _none, n_iter, damping=1.0:
-                        newton(omega0, k, p_const, n_iter, damping))
+        fixed.newton = (lambda omega0, k, _none, n_iter, damping=1.0,
+                        final_eval=False:
+                        newton(omega0, k, p_const, n_iter, damping,
+                               final_eval))
         return fixed

@@ -21,8 +21,9 @@ scan points to the polished roots.
 
 The complex-omega search (Kelvin-Helmholtz growth rates, search.py:525-603)
 is the damped Newton iteration of a seed batch (`newton_complex`: one fused
-launch on the card, `newton_loop` over the plain dual shoot on the CPU)
-and the argument-principle winding numbers of contours
+launch on the card, which can also evaluate the dispersion at its roots;
+`newton_loop` over the plain dual shoot on the CPU) and the
+argument-principle winding numbers of contours
 (`count_roots_rectangle`, and `winding_numbers` of many contours' values
 from one dispersion call).
 """
@@ -518,13 +519,16 @@ def newton_loop(dual_batch: Callable, omega0: C, k: torch.Tensor,
 
 def newton_complex(disp_batch: Callable, omega0, k: torch.Tensor,
                    n_iter: int = 20, damping: float = 1.0,
-                   mode: Optional[torch.Tensor] = None) -> C:
+                   mode: Optional[torch.Tensor] = None,
+                   final_eval: bool = False):
     """Batched damped Newton iteration in complex omega on the holomorphic
     dispersion determinant (search.py:581-603), through the dispersion's
     own entry `disp_batch.newton`: one `slab_newton` launch on CUDA
     tensors, `newton_loop` over the plain dual shoot on CPU tensors.
-    omega0: a `cplx.C` or a complex tensor; returns a `cplx.C`."""
-    return disp_batch.newton(omega0, k, mode, n_iter, damping)
+    omega0: a `cplx.C` or a complex tensor; returns a `cplx.C`, with
+    final_eval (omega, disp_batch(omega, k[, mode])), the evaluation in the
+    same launch on the card."""
+    return disp_batch.newton(omega0, k, mode, n_iter, damping, final_eval)
 
 
 def winding_numbers(det: C) -> torch.Tensor:

@@ -350,11 +350,11 @@ def run_case_complex(case: CaseConfig, modes=None, n_re: int = 12,
 
     Seeds: a Re ladder x Im ladder per (k, band) cell, n_re x n_im, Re over
     [lo k, hi k], Im over [-imag_band, imag_band]; newton_iters damped
-    Newton steps of every seed (`search.newton_complex`: one `slab_newton`
-    launch on the card), one evaluation at the results (one
-    `slab_disp_complex` launch); accepted where the % mismatch is below
-    accept_pct, Re m_e > 0, the phase speed Re(omega)/k within 0.05 of the
-    speed edges, |Im omega| < 3 imag_band and |Re omega| > 1e-6 |k| (the
+    Newton steps of every seed and one evaluation at the results
+    (`search.newton_complex` with final_eval: one `slab_newton` launch on the
+    card, the evaluation its last round); accepted where the % mismatch is
+    below accept_pct, Re m_e > 0, the phase speed Re(omega)/k within 0.05 of
+    the speed edges, |Im omega| < 3 imag_band and |Re omega| > 1e-6 |k| (the
     acceptance is sign-symmetric in Re omega); deduplicated in the complex
     plane (`roots.dedup_complex_roots`). The bounds are compared as the
     JAX code compares them: the speed edges (numpy scalars) in float64,
@@ -379,8 +379,8 @@ def run_case_complex(case: CaseConfig, modes=None, n_re: int = 12,
     t0 = time.time()
     for mode in modes:
         disp = make_dispersion(case, mode, dtype)
-        om = newton_complex(disp, omega0, kk, n_iter=newton_iters)
-        res = disp(om, kk)
+        om, res = newton_complex(disp, omega0, kk, n_iter=newton_iters,
+                                 final_eval=True)
         v = (om.re / kk).to(torch.float64)
         in_window = ((v > float(speeds[0] - 0.05))
                      & (v < float(speeds[-1] + 0.05))

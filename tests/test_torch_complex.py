@@ -239,6 +239,115 @@ def test_newton_entry_equals_loop_on_cpu():
     assert (kslab.complex_launches, kslab.newton_launches) == before
 
 
+def test_newton_entry_final_eval_equals_loop_and_jax():
+    """The Newton entry with its final evaluation (`newton_complex(...,
+    final_eval=True)`, one launch on the card) is, on CPU tensors,
+    `search.newton_loop` over the plain dual shoot followed by the plain
+    value dispersion at its roots, bit for bit (no kernel launch); at
+    this size JAX's newton_complex followed by its disp: the roots to rtol
+    1e-9 (the dual's derivative agrees with jax.jvp to 1e-9), the
+    evaluation to JAX's disp at the same roots as
+    test_complex_dispersion_and_dual_equal_jax holds the dispersion (det
+    to 1e-11 away from poles, the mismatch to 1e-9, valid equal)."""
+    import jax.numpy as jnp
+    from eigensolver_tpu.search import newton_complex as jnewton
+    from eigensolver_tpu_torch import search, sweep
+    from eigensolver_tpu_torch.kernels import slab as kslab
+    from eigensolver_tpu_torch.physics.slab import SlabPhysics
+    jcase, case = _cases(1.0, n_interior=32)
+    om, k = _draws(20, 2)
+    kk = torch.from_numpy(k)
+    before = (kslab.complex_launches, kslab.newton_launches)
+    disp = sweep.make_dispersion(case, 1)
+    got, res = search.newton_complex(disp, _pair(om), kk, n_iter=3,
+                                     final_eval=True)
+    ph = SlabPhysics.from_case(case)
+    want = search.newton_loop(ph.make_dispersion_dual_plain(parity=1),
+                              _pair(om), kk, None, 3)
+    plain = ph.make_dispersion_plain(parity=1)(want, kk)
+    np.testing.assert_array_equal(_np(got), _np(want))
+    np.testing.assert_array_equal(_np(res.det), _np(plain.det))
+    np.testing.assert_array_equal(res.mismatch_pct.numpy(),
+                                  plain.mismatch_pct.numpy())
+    np.testing.assert_array_equal(res.valid.numpy(), plain.valid.numpy())
+    assert (kslab.complex_launches, kslab.newton_launches) == before
+    jdisp, _ = _jdisp(jcase, 1)
+    jom = jnewton(jdisp, jnp.asarray(om), jnp.asarray(k), n_iter=3)
+    np.testing.assert_allclose(_np(got), np.asarray(jom), rtol=1e-9)
+    jres = jdisp(jnp.asarray(_np(got)), jnp.asarray(k))
+    jdet = np.asarray(jres.det)
+    keep = np.abs(jdet) < 1e6 * np.median(np.abs(jdet))
+    assert keep.mean() > 0.9
+    np.testing.assert_allclose(_np(res.det)[keep], jdet[keep], rtol=1e-11)
+    np.testing.assert_allclose(res.mismatch_pct.numpy()[keep],
+                               np.asarray(jres.mismatch_pct)[keep],
+                               rtol=1e-9)
+    np.testing.assert_array_equal(res.valid.numpy(), np.asarray(jres.valid))
+
+
+def _cpp_smem(dtype, shape):
+    """The complex kernel's shared-memory bytes by the C++ source's own
+    expressions (csrc/slab_complex.cu: cx_table_offset and the table
+    behind it in launch), evaluated for shape."""
+    import re
+    src = (Path(__file__).resolve().parent.parent / "eigensolver_tpu_torch"
+           / "csrc" / "slab_complex.cu").read_text()
+    consts = {name: eval(val) for name, val in re.findall(
+        r"constexpr int (kCx\w+) = ([\d\s*+]+);", src)}
+    body = re.search(r"cx_table_offset\(int B, int C,\s*int S\) \{(.*?)\n\}",
+                     src, re.S).group(1)
+    ring_expr = re.search(r"const size_t ring =(.*?);", body, re.S).group(1)
+    table_expr = re.search(r"cx_table_offset<T>\(B, C, S\)\s*\+(.*?);", src,
+                           re.S).group(1)
+    item = torch.empty((), dtype=dtype).element_size()
+
+    def ev(expr, **names):
+        expr = re.sub(r"static_cast<size_t>\((\w+)\)", r"\1", expr)
+        expr = expr.replace("sizeof(T)", str(item)).replace(
+            "sizeof(ShearPoint<T>)", str(-(-3 * item // 16) * 16))
+        return eval(" ".join(expr.split()).replace("/", "//"), {},
+                    {**consts, **names})
+    b, c, s = shape
+    ring = ev(ring_expr, B=b, C=c, S=s)
+    return -(-ring // 16) * 16 + ev(table_expr, C=c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_complex_spec_shape(dtype):
+    """The complex kernel's block shape on the main path's batches (the KH
+    sweep's 7,200 seeds and roots, the audit's 30,720 contour points, the
+    ragged 8,191): the producer count the C++ source builds at the type
+    (kCxProducers), at most 512 threads a block, the shared memory of the
+    2 blocks an SM holds (__launch_bounds__(.., 2), 1 KiB reserved a
+    block) within an H100 SM's 228 KiB, a grid that covers n, the 7,200
+    seeds in one wave of 132 SMs; the Python byte count equal to the C++
+    source's."""
+    import re
+    from eigensolver_tpu_torch.kernels import common
+    src = (Path(__file__).resolve().parent.parent / "eigensolver_tpu_torch"
+           / "csrc" / "slab_complex.cu").read_text()
+    p64, p32 = map(int, re.search(
+        r"kCxProducers = std::is_same<T, double>::value \? (\d+) : (\d+);",
+        src).groups())
+    p = common.COMPLEX_PRODUCERS[dtype]
+    assert p == (p64 if dtype == torch.float64 else p32)
+    assert 32 * (p + 1) <= 512
+    shape = common.complex_spec_shape(dtype)
+    b, c, s = shape
+    common.check_complex_shape("x", shape, dtype)
+    smem = common.complex_smem(shape, dtype)
+    assert smem == _cpp_smem(dtype, shape)
+    assert 2 * (smem + 1024) <= 228 * 1024
+    for n in (7_200, 30_720, 8_191):
+        blocks = -(-n // b)
+        assert blocks * b >= n > (blocks - 1) * b
+        if n == 7_200:
+            assert blocks <= 2 * 132
+    for shape in [common.ComplexShape(8, 5, 3),
+                  common.ComplexShape(16, 32, 2)]:
+        assert common.complex_smem(shape, dtype) == _cpp_smem(dtype, shape)
+
+
 # -- search, dedup, the sweep ---------------------------------------------------
 
 def test_dedup_complex_roots_equals_jax():

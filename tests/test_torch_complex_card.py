@@ -1,7 +1,11 @@
-"""The complex-omega kernels on the card: `slab_disp_complex` (B5-complex)
-bit-equal to its plain version and `slab_newton` (B7) bit-equal to the
-plain Newton loop over the dual shoot, at float32 and float64, on ragged
-batches; the dtypes and configurations they refuse.
+"""The complex-omega kernel on the card (csrc/slab_complex.cu, one
+producer/consumer kernel): `slab_disp_complex` (B5-complex, its evaluation
+mode) bit-equal to its plain version and `slab_newton` (B7) bit-equal to
+the plain Newton loop over the dual shoot, at float32 and float64, on
+ragged batches; n_iter fused steps bit-equal to as many chained one-step
+launches; the final evaluation in the Newton launch bit-equal to the plain
+value dispersion at the roots; other block shapes alike; the dtypes,
+configurations and shapes they refuse.
 
 Reduced depth (n_interior=256): the plain versions run eagerly on the card,
 some thousand launches a step.
@@ -14,6 +18,7 @@ import torch
 
 from eigensolver_tpu_torch import cases
 from eigensolver_tpu_torch.cplx import C
+from eigensolver_tpu_torch.kernels import common as kcommon
 from eigensolver_tpu_torch.kernels import slab as kslab
 from eigensolver_tpu_torch.physics.slab import SlabPhysics
 from eigensolver_tpu_torch.search import newton_loop
@@ -85,13 +90,70 @@ def test_disp_complex_bit_equal(name, dtype):
     assert same(whole.det.im, plain.det.im)
 
 
+def plain_disp(name, dtype):
+    case, _, sp = params_of(name)
+    return SlabPhysics.from_case(case).make_dispersion_plain(
+        parity=None, dtype=dtype, include_shear_pressure=sp)
+
+
+def same_interface(got, want):
+    return (same(got.det.re, want.det.re) and same(got.det.im, want.det.im)
+            and same(got.mismatch_pct, want.mismatch_pct)
+            and torch.equal(got.valid, want.valid))
+
+
+@pytest.mark.parametrize("n", [13, 1001])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.gpu
+@pytest.mark.skipif("not torch.cuda.is_available()",
+                    reason="needs a CUDA card")
+def test_eval_mode_ragged_bit_equal(n, dtype):
+    """The evaluation mode on a batch below one block (13 < B) and on one
+    that is not a multiple of B (1001), with the shear-pressure layer, at
+    a power-of-two depth and at another."""
+    om, k, par = draws(n, 11, dtype)
+    assert kcommon.complex_spec_shape(dtype).seeds == 32
+    for n_interior in (256, 250):
+        case = reduced(1.0, n_interior)
+        got = kslab.slab_disp_complex(om, k, par,
+                                      kslab.disp_params(case, True))
+        plain = SlabPhysics.from_case(case).make_dispersion_plain(
+            parity=None, dtype=dtype, include_shear_pressure=True)
+        assert same_interface(got, plain(om, k, par)), n_interior
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.gpu
+@pytest.mark.skipif("not torch.cuda.is_available()",
+                    reason="needs a CUDA card")
+def test_fused_equals_chained_and_final_eval(dtype):
+    """30 Newton steps in one launch equal 30 chained one-step launches bit
+    for bit, and the value round of the same launch (final_eval) equals
+    the plain value dispersion at the roots."""
+    _, params, _ = params_of("layer")
+    om, k, par = draws(333, 7, dtype)
+    chained = om
+    for _ in range(30):
+        chained = kslab.slab_newton(chained, k, par, 1, 1.0, params)
+    fused, res = kslab.slab_newton(om, k, par, 30, 1.0, params,
+                                   final_eval=True)
+    torch.cuda.synchronize()
+    assert same(fused.re, chained.re) and same(fused.im, chained.im)
+    assert torch.isfinite(fused.re).float().mean() > 0.9
+    assert same_interface(res, plain_disp("layer", dtype)(fused, k, par))
+
+
+@pytest.mark.parametrize("n_interior", [256, 250])
 @pytest.mark.parametrize("n_iter", [1, 3])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.gpu
 @pytest.mark.skipif("not torch.cuda.is_available()",
                     reason="needs a CUDA card")
-def test_newton_bit_equal(n_iter, dtype):
-    case, params, sp = params_of("layer")
+def test_newton_bit_equal(n_iter, dtype, n_interior):
+    """At a power-of-two depth, where each step's first chain is the step
+    before's last (csrc/slab_complex.cu::cx_reuse), and at another."""
+    case = reduced(1.0, n_interior)
+    params = kslab.disp_params(case, True)
     om, k, par = draws(300, 5, dtype)
     dual = SlabPhysics.from_case(case).make_dispersion_dual_plain(
         parity=None, dtype=dtype)
@@ -106,13 +168,24 @@ def test_newton_bit_equal(n_iter, dtype):
 @pytest.mark.skipif("not torch.cuda.is_available()",
                     reason="needs a CUDA card")
 def test_newton_legacy_and_damped_bit_equal():
+    """The legacy D with damping, at the default block shape and at others:
+    another stage length, fewer seeds a block, a stage that does not divide
+    the steps, more stages; the final evaluation alike."""
     case, params, _ = params_of("layer_legacy_D")
     om, k, par = draws(77, 9, torch.float64)
     dual = SlabPhysics.from_case(case).make_dispersion_dual_plain(
         parity=None, dtype=torch.float64)
     want = newton_loop(dual, om, k, par, 2, damping=0.5)
+    plain = plain_disp("layer_legacy_D", torch.float64)(want, k, par)
     got = kslab.slab_newton(om, k, par, 2, 0.5, params)
     assert same(got.re, want.re) and same(got.im, want.im)
+    shapes = [kcommon.ComplexShape(32, 8, 2), kcommon.ComplexShape(8, 5, 3),
+              kcommon.ComplexShape(16, 7, 4)]
+    for shape in shapes:
+        got, res = kslab.slab_newton(om, k, par, 2, 0.5, params,
+                                     final_eval=True, shape=shape)
+        assert same(got.re, want.re) and same(got.im, want.im), shape
+        assert same_interface(res, plain), shape
 
 
 @pytest.mark.gpu
@@ -135,3 +208,7 @@ def test_refused_on_the_card():
         case.grid, exterior_method="numeric"))
     with pytest.raises(ValueError, match="exact exterior"):
         kslab.slab_disp_complex(om, k, par, kslab.disp_params(numeric, True))
+    for shape in ((24, 8, 2), (32, 0, 2), (32, 8, 7), (32, 200, 2)):
+        with pytest.raises(ValueError, match="block shape"):
+            kslab.slab_newton(om, k, par, 1, 1.0, params,
+                              shape=kcommon.ComplexShape(*shape))

@@ -235,6 +235,14 @@ def test_every_entry_has_its_signature(module):
     assert not [name for name in _build._SIGNATURES
                 if name.startswith(("eigk_slab_bisect_f",
                                     "eigk_cylinder_bisect_f"))]
+    if module is kslab:
+        # one complex-omega kernel behind both complex wrappers; the
+        # one-thread scan it replaced has no entry left
+        assert all(_build._SIGNATURES[name] == _build._NEWTON_ARGS
+                   for name in kslab._NEWTON_ENTRY.values())
+        assert len(_build._NEWTON_ARGS[0]) == 20
+        assert not [name for name in _build._SIGNATURES
+                    if name.startswith("eigk_slab_complex_f")]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

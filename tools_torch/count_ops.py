@@ -42,7 +42,8 @@ its value pass and its dual pass in omega, traced on symbols with complex
 numbers as pairs (`cplx.C`): per RK4 step 3 evaluations at the abscissae
 (x-dependent and candidate-dependent: "slab_cx_step", "slab_cx_dual_step",
 with the complex update of the state traced from `_rk4_linear` over
-`_apply_shear`), per evaluation the interface (`complex_edge`,
+`_apply_shear`; one evaluation of the chain alone "slab_cx_chain",
+"slab_cx_dual_chain"), per evaluation the interface (`complex_edge`,
 `complex_det`, and for the value pass `complex_mismatch`: "slab_cx_ends",
 "slab_cx_dual_ends", the candidate's products of k included), and per
 Newton step `search.newton_step` ("slab_cx_newton"). A complex quotient is
@@ -324,8 +325,10 @@ def complex_ops() -> dict:
     """chip_smoke.py's OPS entries for the complex-omega slab chain (the
     corrected D of slab_flow_complex_coronal, the shear-pressure term on):
     per RK4 step and candidate, "slab_cx_step" (value pass) and
-    "slab_cx_dual_step" (dual pass); per evaluation "slab_cx_ends",
-    "slab_cx_dual_ends"; per Newton step "slab_cx_newton"."""
+    "slab_cx_dual_step" (dual pass), of which one of the step's 3 chain
+    evaluations is "slab_cx_chain", "slab_cx_dual_chain"; per evaluation
+    "slab_cx_ends", "slab_cx_dual_ends"; per Newton step
+    "slab_cx_newton"."""
     import types
     import torch
     from eigensolver_tpu_torch import cplx, dual, search
@@ -376,6 +379,7 @@ def complex_ops() -> dict:
             flat = [p for z in y for w in ((z.v, z.d) if is_dual else (z,))
                     for p in (w.re, w.im)]
             upd = sum(n for d, n in _tally_deps(flat).items() if "s" in d)
+            out[f + "chain"] = chain.get("cx", 0)
             out[f + "step"] = 3 * chain.get("cx", 0) + upd
             # the interface: per candidate, the values at x = 1 constants
             ph = types.SimpleNamespace(

@@ -2,6 +2,7 @@
 """Device-time breakdown of the port's full-size sweeps on a CUDA card.
 
     python3 tools_torch/profile_sweep.py [--out PATH] [--only TEXT]
+                                         [--pkg-root DIR]
 
 Runs slab_ph_09 (f32, f64, f32 with refine_f64=True), cyl_co_09 (f32, f64),
 twist_v01_p1 (cylinder_twisted_photospheric(0.1, 1.0, 1): f32, f64, f32 with
@@ -17,7 +18,9 @@ f64, widths 1e5 and 1.0), each once to warm up and once under
 prints per run: the wall, the device busy time (sum of the kernels' self
 device time), the idle share 1 - busy / wall, the launches and device time
 of each kernel, and the root counts. Run from the repository root; the first
-line is the card's nvidia-smi name and power limit.
+line is the card's nvidia-smi name and power limit. --pkg-root DIR profiles
+the `eigensolver_tpu_torch` in DIR instead (another commit unpacked into a
+git-ignored directory), to run two commits in turns on one card.
 """
 import argparse
 import dataclasses
@@ -35,8 +38,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the report here as JSON")
     ap.add_argument("--only", help="run only the runs whose name holds this")
+    ap.add_argument("--pkg-root", default=str(ROOT),
+                    help="directory holding eigensolver_tpu_torch")
     args = ap.parse_args()
-    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(Path(args.pkg_root).resolve()))
+    sys.path.insert(1, str(ROOT))           # tools_torch
     import torch
     from torch.profiler import ProfilerActivity, profile
     from eigensolver_tpu_torch import cases, equilibrium, search, sweep
@@ -87,7 +93,7 @@ def main() -> int:
                      sweep.run_case_complex(case, **kw, device="cuda")[0]))
     if args.only:
         runs = [(name, run) for name, run in runs if args.only in name]
-    out = {"nvidia_smi": smi}
+    out = {"nvidia_smi": smi, "package": str(Path(args.pkg_root).resolve())}
     for name, run in runs:
         run()
         torch.cuda.synchronize()

@@ -2,7 +2,8 @@
 """Device times of the port's kernels for one checkout of the package.
 
     python3 tools_torch/time_kernels.py [--pkg-root DIR] [--label NAME]
-                                        [--out PATH]
+                                        [--out PATH] [--complex]
+                                        [--roots PATH]
 
 Imports `eigensolver_tpu_torch` from DIR (default: this repository), builds
 its kernels and prints one JSON line of device times (CUDA events, mean of
@@ -28,14 +29,20 @@ several launches after a warm-up):
     cylinder_bisect on the bracket stages of the reference-parity sweeps
     slab_ph_09 (21,840 brackets) and cyl_flow_1 (47,520;
     `tools_torch/parity.py`), 18 iterations, float32 and float64;
-  - at complex omega, where the checkout has it: slab_newton (30 steps) on
-    the 7,200 seeds of the published Kelvin-Helmholtz sweep at width 1.0
-    (`tools_torch/kh.py`, float64), and slab_disp_complex on its roots and
-    on the audit's 30,720 contour points;
+  - at complex omega, where the checkout has it: slab_newton (30 steps,
+    and with the final evaluation in the launch) on the 7,200 seeds of the
+    published Kelvin-Helmholtz sweep at width 1.0 (`tools_torch/kh.py`,
+    float64), slab_disp_complex on its roots, on the audit's 30,720
+    contour points and on 8,191 of those at float32, and the Newton pass
+    as 30 chained one-step launches (`newton_chain`: each step's ms, its
+    non-finite omegas and those whose Im omega has reached 0); the KH
+    sweeps' walls at widths 1e5 and 1.0 (medians of 3, `kh_walls`);
   - the CALL instructions in each kve_ratio kernel's SASS (`cuobjdump`),
     where the toolkit has it.
 To compare two commits on one card, unpack the other into a git-ignored
-directory and run both in turns (A B B A) on the same card. Run from the
+directory and run both in turns (A B B A) on the same card; `--complex`
+times only the complex-omega kernels, `--roots PATH` saves the KH Newton
+roots, so that two checkouts' can be held bit for bit. Run from the
 repository root; the first line is the card's nvidia-smi name and power
 limit.
 """
@@ -165,10 +172,14 @@ def parity_brackets(target: str, dtype):
     return disp, [x.contiguous() for x in (br.lo, br.hi, br.k, br.mode)]
 
 
-def complex_times() -> dict:
+def complex_times(roots_out=None) -> dict:
     """slab_newton on the published KH sweep's 7,200 seeds (width 1.0, 30
-    steps) and slab_disp_complex on its roots and the audit's contour
-    points, float64."""
+    steps; where the checkout has it, also with the final evaluation in
+    the launch, the main path's) and slab_disp_complex on its roots, on
+    the audit's 30,720 contour points (float64) and on 8,191 of those at
+    float32. roots_out: also save the 30-step omegas there (numpy .npz),
+    to hold two checkouts' bits against each other."""
+    import inspect
     import torch
     from eigensolver_tpu_torch import cases, sweep
     from eigensolver_tpu_torch.cplx import C
@@ -177,28 +188,138 @@ def complex_times() -> dict:
     case, kw = kh.configure("kh_w1", cases)
     params = kslab.disp_params(case, True)
 
-    def pair(z):
-        return C(torch.from_numpy(z.real.copy()).cuda(),
-                 torch.from_numpy(z.imag.copy()).cuda())
+    def pair(z, dtype=torch.float64):
+        return C(torch.from_numpy(z.real.copy()).to("cuda", dtype),
+                 torch.from_numpy(z.imag.copy()).to("cuda", dtype))
     om0, k0 = sweep.complex_seeds(case, kw["n_re"], kw["n_im"])
     seeds, kk = pair(om0), torch.from_numpy(k0).cuda()
     par = torch.ones_like(kk)
     n_iter = kw["newton_iters"]
     roots = kslab.slab_newton(seeds, kk, par, n_iter, 1.0, params)
+    if roots_out:
+        np.savez(roots_out, re=roots.re.cpu().numpy(),
+                 im=roots.im.cpu().numpy())
     cells, paths, _, _ = sweep.audit_contours(
         np.asarray(case.k_grid()), np.asarray(case.sorted_speeds()),
         case.imag_band)
-    za = pair(paths.reshape(-1))
-    ka = torch.from_numpy(np.repeat([c[0] for c in cells],
-                                    paths.shape[1])).cuda()
-    return {"seeds": len(k0), "newton_ms": cuda_ms(
-                lambda: kslab.slab_newton(seeds, kk, par, n_iter, 1.0,
-                                          params), 3),
-            "final_eval_ms": cuda_ms(
-                lambda: kslab.slab_disp_complex(roots, kk, par, params), 10),
-            "audit_n": ka.numel(), "audit_ms": cuda_ms(
-                lambda: kslab.slab_disp_complex(za, ka, torch.ones_like(ka),
-                                                params), 10)}
+    za = paths.reshape(-1)
+    ka = np.repeat([c[0] for c in cells], paths.shape[1])
+    out = {"seeds": len(k0), "newton_ms": cuda_ms(
+        lambda: kslab.slab_newton(seeds, kk, par, n_iter, 1.0, params), 3)}
+    if "final_eval" in inspect.signature(kslab.slab_newton).parameters:
+        out["newton_final_eval_ms"] = cuda_ms(lambda: kslab.slab_newton(
+            seeds, kk, par, n_iter, 1.0, params, final_eval=True), 3)
+    else:
+        out["newton_final_eval_ms"] = "not in this checkout"
+    for key, z, kz in (
+            ("final_eval", roots, kk),
+            ("audit", pair(za), torch.from_numpy(ka).cuda()),
+            ("ragged_float32", pair(za[:8191], torch.float32),
+             torch.from_numpy(ka[:8191]).to("cuda", torch.float32))):
+        pz = torch.ones_like(kz)
+        out[f"{key}_n"] = kz.numel()
+        out[f"{key}_ms"] = cuda_ms(
+            lambda: kslab.slab_disp_complex(z, kz, pz, params), 10)
+    return out
+
+
+def kh_walls(runs: int = 3) -> dict:
+    """The published KH sweeps' walls (`sweep.run_case_complex`, widths 1e5
+    and 1.0, float64): one warm-up run, then `runs` runs on the host clock,
+    each ending in a synchronise (the sweep's own), their median and the
+    root counts."""
+    import statistics
+    import time
+    from eigensolver_tpu_torch import cases, sweep
+    from tools_torch import kh
+    out = {}
+    for name in kh.CONFIGS:
+        case, kw = kh.configure(name, cases)
+        rs, _ = sweep.run_case_complex(case, **kw, device="cuda")
+        walls = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            sweep.run_case_complex(case, **kw, device="cuda")
+            walls.append(time.perf_counter() - t0)
+        out[name] = {"wall_s": statistics.median(walls), "walls": walls,
+                     "counts": rs.counts()}
+    return out
+
+
+def newton_chain(n_steps: int = 30) -> dict:
+    """The published KH sweep's Newton pass (width 1.0, 7,200 seeds,
+    float64) as n_steps chained slab_newton launches of one step each,
+    every launch from the previous one's output. Per step: its device ms
+    (mean of 3 launches from the same input), of its input omegas the
+    non-finite ones, those whose |Im| is below 1e-30, below 1e-290 (where a
+    division's quotient nears the bottom of the exponent range: the slow path
+    of CUDA's float64 division) and exactly 0, the warps of 32 seeds holding
+    such a seed, and the smallest |omega - k U| over the finite seeds with
+    U at x = 0 and at x = 1. Then whether the chain's last omega equals
+    one n_steps launch bit for bit, and slab_disp_complex's ms on the
+    seeds, on the roots, and on the roots with every |Im| below 1e-100 set
+    to 1e-100 (timing only: no result of it is kept)."""
+    import torch
+    from eigensolver_tpu_torch import cases, sweep
+    from eigensolver_tpu_torch.cplx import C, cabs
+    from eigensolver_tpu_torch.kernels import slab as kslab
+    from eigensolver_tpu_torch.profiles import make_profile
+    from tools_torch import kh
+    case, kw = kh.configure("kh_w1", cases)
+    params = kslab.disp_params(case, True)
+    rg = case.regime
+    U = make_profile(case.flow_profile, rg.U_i0, rg.U_e)(
+        torch.tensor([0.0, 1.0], dtype=torch.float64)).tolist()
+    om0, k0 = sweep.complex_seeds(case, kw["n_re"], kw["n_im"])
+    seeds = C(torch.from_numpy(om0.real.copy()).cuda(),
+              torch.from_numpy(om0.imag.copy()).cuda())
+    kk = torch.from_numpy(k0).cuda()
+    par = torch.ones_like(kk)
+
+    def warps(mask):
+        pad = (-mask.numel()) % 32
+        m = torch.cat([mask, mask.new_zeros(pad)])
+        return int(m.view(-1, 32).any(dim=1).sum())
+
+    steps, om = [], seeds
+    for _ in range(n_steps):
+        fin = om.re.isfinite() & om.im.isfinite()
+        tiny = fin & (om.im.abs() < 1e-290)
+        zero = fin & (om.im == 0)
+        small = fin & (om.im.abs() < 1e-30)
+        nxt = kslab.slab_newton(om, kk, par, 1, 1.0, params)
+        ms = cuda_ms(lambda: kslab.slab_newton(om, kk, par, 1, 1.0, params),
+                     3)
+        row = {"ms": ms, "non_finite": int((~fin).sum()),
+               "small_im": int(small.sum()), "tiny_im": int(tiny.sum()),
+               "zero_im": int(zero.sum()),
+               "warps_non_finite": warps(~fin), "warps_tiny_im": warps(tiny)}
+        for x, u in zip((0, 1), U):
+            d = cabs(C(om.re - kk * u, om.im))
+            row[f"min_abs_Omega_x{x}"] = float(d[fin].min())
+        steps.append(row)
+        om = nxt
+    fused = kslab.slab_newton(seeds, kk, par, n_steps, 1.0, params)
+    torch.cuda.synchronize()
+
+    def bits(x):
+        return x.view(torch.int64)
+    same = (torch.equal(bits(fused.re), bits(om.re))
+            and torch.equal(bits(fused.im), bits(om.im)))
+    lifted = C(om.re, torch.where(om.im.abs() < 1e-100,
+                                  torch.full_like(om.im, 1e-100), om.im))
+
+    def eval_ms(z):
+        return cuda_ms(lambda: kslab.slab_disp_complex(z, kk, par, params),
+                       10)
+    return {"n": len(k0), "U_x0_x1": U, "steps": steps,
+            "chain_ms": sum(r["ms"] for r in steps),
+            "fused_equals_chain": same,
+            "roots_non_finite": int((~(om.re.isfinite()
+                                       & om.im.isfinite())).sum()),
+            "roots_tiny_im": int((om.im.abs() < 1e-290).sum()),
+            "eval_seeds_ms": eval_ms(seeds), "eval_roots_ms": eval_ms(om),
+            "eval_roots_lifted_ms": eval_ms(lifted)}
 
 
 def sass_calls(lib: Path) -> dict:
@@ -231,13 +352,15 @@ def main() -> int:
                     help="directory holding eigensolver_tpu_torch")
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--out", help="also write the report here as JSON")
+    ap.add_argument("--complex", action="store_true",
+                    help="time only the complex-omega kernels")
+    ap.add_argument("--roots", help="save the KH Newton roots here (.npz)")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.pkg_root).resolve()))
     sys.path.insert(1, str(ROOT))           # tools_torch.parity
     import warnings
     import torch
-    from eigensolver_tpu_torch import cases, sweep
-    from eigensolver_tpu_torch.kernels import _build, bessel
+    from eigensolver_tpu_torch.kernels import _build
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA card")
     warnings.simplefilter("ignore")         # saturated-row notices
@@ -249,6 +372,31 @@ def main() -> int:
     lib = _build.build()
     out = {"label": args.label, "nvidia_smi": smi,
            "package": str(Path(_build.__file__).resolve().parents[1])}
+    if not args.complex:
+        real_times(out, args.pkg_root)
+    try:
+        out["kh_w1 complex float64"] = complex_times(args.roots)
+        out["kh_w1 newton chain"] = newton_chain()
+        out["kh walls"] = kh_walls()
+    except (ImportError, AttributeError, NotImplementedError):
+        # an older tree (--pkg-root) may lack the complex kernels
+        if Path(args.pkg_root).resolve() == ROOT:
+            raise
+        out["kh_w1 complex float64"] = "not ported"
+    if not args.complex:
+        out["sass"] = sass_calls(lib)
+    print(json.dumps(out), flush=True)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(out, indent=1))
+    return 0
+
+
+def real_times(out: dict, pkg_root: str) -> None:
+    """The real-omega kernels' times, into out."""
+    import torch
+    from eigensolver_tpu_torch import cases, sweep
+    from eigensolver_tpu_torch.kernels import bessel
     kve = {}
     for name, z64 in kve_sets().items():
         for dtype in (torch.float32, torch.float64):
@@ -270,7 +418,7 @@ def main() -> int:
                 disp, cand, br = scan_and_brackets(case, dtype)
             except NotImplementedError:
                 # an older tree (--pkg-root) may lack a case; this one may not
-                if Path(args.pkg_root).resolve() == ROOT:
+                if Path(pkg_root).resolve() == ROOT:
                     raise
                 out[f"{case_name} {str(dtype)[6:]}"] = "not ported"
                 continue
@@ -308,25 +456,12 @@ def main() -> int:
                 disp, br = parity_brackets(target, dtype)
             except (ImportError, AttributeError, NotImplementedError):
                 # an older tree (--pkg-root) may lack the numeric exterior
-                if Path(args.pkg_root).resolve() == ROOT:
+                if Path(pkg_root).resolve() == ROOT:
                     raise
                 out[key] = "not ported"
                 continue
             out[key] = {"brackets": br[0].numel(),
                         "bisect_ms": cuda_ms(lambda: disp.bisect(*br, 18), 3)}
-    try:
-        out["kh_w1 complex float64"] = complex_times()
-    except (ImportError, AttributeError, NotImplementedError):
-        # an older tree (--pkg-root) may lack the complex kernels
-        if Path(args.pkg_root).resolve() == ROOT:
-            raise
-        out["kh_w1 complex float64"] = "not ported"
-    out["sass"] = sass_calls(lib)
-    print(json.dumps(out), flush=True)
-    if args.out:
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(json.dumps(out, indent=1))
-    return 0
 
 
 if __name__ == "__main__":

@@ -31,6 +31,18 @@ twist_v01_p1's bracket stage (2,400 brackets, float32 and float64) and on
 its refine stage (the float32 sweep's roots' f64 windows, 30 iterations),
 at every L = 0..5 and a grid of (B, P, C, register budget).
 
+    python3 tools_torch/tune_bisect.py --complex [--out PATH]
+
+times the complex-omega kernel (`csrc/slab_complex.cu`, block shape
+`kernels.common.complex_spec_shape`) instead, on the main path's batches
+of the published KH sweep at width 1.0 (`tools_torch/kh.py`): the Newton
+launch (7,200 seeds, 30 steps and the final evaluation, float64), and the
+evaluation mode on the 7,200 roots and the audit's 30,720 contour points
+(float64) and on 8,191 of those (float32), at a grid of (B seeds a block,
+C steps a stage, S stages) whose 2 blocks fit an SM, each checked against
+the default's bits (the producer warps P are fixed by the type,
+`kernels.common.COMPLEX_PRODUCERS`).
+
     python3 tools_torch/tune_bisect.py --numeric [--out PATH]
 
 times the numeric exterior's slab_bisect and cylinder_bisect instead, on
@@ -120,6 +132,8 @@ def main() -> int:
                        help="the twisted chain's bracket and refine stages")
     chain.add_argument("--confirm", action="store_true",
                        help="the exact exterior's best shapes, in turns")
+    chain.add_argument("--complex", action="store_true",
+                       help="the complex-omega kernel on the KH batches")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     import torch
@@ -142,6 +156,8 @@ def main() -> int:
         tune_twisted(out, f32, f64)
     elif args.confirm:
         confirm_analytic(out, f32, f64)
+    elif args.complex:
+        tune_complex(out)
     else:
         tune_analytic(out, f32, f64)
     if args.out:
@@ -181,6 +197,77 @@ def tune_batch(out: dict, name: str, fused, loop, default, grid, dtype,
     r["all"] = {",".join(map(str, s)): ms for s, ms in res.items()}
     out[name] = r
     return r
+
+
+def tune_complex(out: dict, top: int = 8) -> None:
+    """The complex-omega kernel's block shapes on the KH batches (see the
+    module's docstring); the report goes to out["complex"]."""
+    import itertools
+    import torch
+    from eigensolver_tpu_torch import cases, sweep
+    from eigensolver_tpu_torch.cplx import C
+    from eigensolver_tpu_torch.kernels import common, slab as kslab
+    from tools_torch import kh
+    case, kw = kh.configure("kh_w1", cases)
+    params = kslab.disp_params(case, True)
+
+    def pair(z, dtype=torch.float64):
+        return C(torch.from_numpy(z.real.copy()).to("cuda", dtype),
+                 torch.from_numpy(z.imag.copy()).to("cuda", dtype))
+    om0, k0 = sweep.complex_seeds(case, kw["n_re"], kw["n_im"])
+    seeds, kk = pair(om0), torch.from_numpy(k0).cuda()
+    par = torch.ones_like(kk)
+    n_iter = kw["newton_iters"]
+    roots = kslab.slab_newton(seeds, kk, par, n_iter, 1.0, params)
+    cells, paths, _, _ = sweep.audit_contours(
+        np.asarray(case.k_grid()), np.asarray(case.sorted_speeds()),
+        case.imag_band)
+    za = paths.reshape(-1)
+    ka = np.repeat([c[0] for c in cells], paths.shape[1])
+    f32 = torch.float32
+    batches = {
+        "newton float64": (lambda sh: kslab.slab_newton(
+            seeds, kk, par, n_iter, 1.0, params, final_eval=True,
+            shape=sh), torch.float64, 3),
+        "roots float64": (lambda sh: kslab.slab_disp_complex(
+            roots, kk, par, params, sh), torch.float64, 10)}
+    for name, z, kz in (("audit float64", pair(za),
+                         torch.from_numpy(ka).cuda()),
+                        ("ragged float32", pair(za[:8191], f32),
+                         torch.from_numpy(ka[:8191]).to("cuda", f32))):
+        batches[name] = ((lambda sh, z=z, kz=kz: kslab.slab_disp_complex(
+            z, kz, torch.ones_like(kz), params, sh)), kz.dtype, 10)
+    # the shapes whose 2 blocks fit an SM's shared memory (1 KiB reserved
+    # a block), the residency the kernel is built for
+    grid = [sh for sh in map(common.ComplexShape._make, itertools.product(
+        (8, 16, 32), (2, 4, 6, 7, 8, 12, 14, 16, 32), (2, 3, 4)))
+        if 2 * (common.complex_smem(sh, torch.float64) + 1024) <= 228 * 1024]
+
+    def flat(r):       # the tensors of an omega and / or a SlabInterface
+        if isinstance(r, C):
+            return [r.re, r.im]
+        if isinstance(r, tuple):
+            return [t for x in r for t in flat(x)]
+        return [r]
+    res = {}
+    for name, (fn, dtype, reps) in batches.items():
+        default = common.complex_spec_shape(dtype)
+        ref = flat(fn(default))
+        times = {}
+        for shape in [default, *grid]:
+            if (shape in times or common.complex_smem(shape, dtype)
+                    > common.MAX_SMEM):
+                continue
+            if not all(_same_bits(a, b) for a, b in zip(flat(fn(shape)), ref)):
+                raise AssertionError(f"{name}: shape {shape} differs")
+            times[shape] = cuda_ms(lambda: fn(shape), reps)
+        best = sorted(times.items(), key=lambda kv: kv[1])[:top]
+        r = {"default": list(default), "default_ms": times[default],
+             "best": [[list(s), ms] for s, ms in best]}
+        print(name, json.dumps(r), flush=True)
+        r["all"] = {",".join(map(str, s)): ms for s, ms in times.items()}
+        res[name] = r
+    out["complex"] = res
 
 
 def analytic_batches(f32, f64):
