@@ -20,9 +20,16 @@ any failure raises and the script exits non-zero:
 4. cylinder_disp kernel vs its plain PyTorch version, 8,192 candidates of
    the full cyl_co_09 ladder (n_interior=2048, n_axis_log=128); at the full
    sweep's 552,960 candidates, the kernel's time and, at float32, the plain
-   version's time and agreement; the kernel's registers and spills (ptxas)
-   and, printed, the float64 det values whose bits differ from the plain
-   version's.
+   version's time and agreement; the sweep's own scan in ladder order,
+   timed, every candidate through its block's (k, m, r) row table
+   (kernels.cylinder.scan_tabled); the row layouts (tools_torch/
+   batches.py::row_layout_batches:
+   runs of 1519, 256, 37 and 1 candidates, a run through the continua with
+   exact pole points, random draws, refine windows) bit-equal to the plain
+   version at both types, with the candidates each took through the
+   table; the kernel's registers and spills (ptxas), its tables' shared
+   memory and, printed, the float64 det values whose bits differ from the
+   plain version's.
 5. the cylinder sweep: run_case(cylinder_density_coronal(0.9), n_omega=256,
    n_bisect=18, float32) on the card - once with the launch counters reset
    (exactly one cylinder_disp launch, the ladder scan, and one
@@ -96,8 +103,11 @@ any failure raises and the script exits non-zero:
    float64: slab_disp in both forms and cylinder_disp on ragged batches of
    8,191 ladder draws (the parity configurations of slab_ph_09 and
    cyl_flow_1, tools_torch/parity.py; a Gaussian-flow slab at 3
-   wavelengths); each whole parity scan in ladder order (349,440 and
-   3,007,620) timed beside its bound, the plain version's time and bits;
+   wavelengths); cylinder_disp on phase 4's row layouts of cyl_flow_1,
+   with the candidates through the row and the exps' tables; each whole
+   parity scan in ladder order (349,440 and 3,007,620) timed beside its
+   bound, the plain version's time and bits (the cylinder's every
+   candidate through both tables);
    slab_bisect and cylinder_bisect (the speculative kernel over the scans'
    tables) on the parity sweeps' own brackets (21,840 and 47,520)
    bit-equal to the launch loop and to the plain loop (1 iteration), and
@@ -304,7 +314,12 @@ NEEDLE_ORACLE = (("slab_density_photospheric", 3.0, 0.43303, 0.367977),
 # and step, the rest of the 3 chain evaluations and the state update
 # ("slab_step", "slab_shear_step", "cyl_step", "cyl_log_step"; the
 # products of k alone, and in the slab's flux form, where U == 0, Omega^2,
-# once per candidate); per evaluation, the start state and the epilogue
+# once per candidate); in the cylinder the chain's values that depend on
+# (k, m, r) and not on omega (k U, alpha^2, cusp^2, (c^2 + vA^2)(m^2/r^2 +
+# k^2)) once per distinct (k, m) row of the batch and step ("cyl_row_step",
+# "cyl_log_row_step": tools_torch/count_ops.py traces them from the plain
+# chain, and "cyl_step", "cyl_log_step" are the hand counts less them);
+# per evaluation, the start state and the epilogue
 # ("*_ends"), the cylinder's without the K_m ratio, which `kve_ops` counts
 # from its arguments (csrc/kve_ratio.cuh: one branch per argument, the
 # series up to the first term that changes none of its sums).
@@ -327,20 +342,24 @@ NEEDLE_ORACLE = (("slab_density_photospheric", 3.0, 0.43303, 0.367977),
 # The numeric exteriors ("slab_ext_*", "cyl_ext_*": tools_torch/count_ops.py
 # traces one RK4 step of the plain version, ode._step): per candidate (or
 # bracket per evaluation) and exterior step, and the slab's rescaling every
-# 64th step; per candidate the set-up and the end. They take the place of
+# 64th step; per candidate the set-up and the end; the cylinder's exps of
+# its abscissae and its set-up, which depend on k alone, once per distinct
+# k of the batch ("cyl_ext_k_step", "cyl_ext_k_ends"). They take the place of
 # the exact exterior (slab) and of the K_m ratio (cylinder, `kve_ops`);
 # with them "*_ends" lose the exact exterior's operations around its
 # ratio ("*_exact_ext": max(m_e, floor) and its sqrt; the cylinder's also
 # their product with the K_m ratio), which the numeric one does not need.
 OPS = {"slab_x_step": 67, "slab_step": 61, "slab_ends": 93,
        "slab_shear_x_step": 40, "slab_shear_step": 114, "slab_shear_ends": 64,
-       "cyl_r_step": 70, "cyl_log_r_step": 73, "cyl_step": 155,
-       "cyl_log_step": 161, "cyl_ends": 98,
+       "cyl_r_step": 70, "cyl_log_r_step": 73, "cyl_step": 128,
+       "cyl_log_step": 134, "cyl_row_step": 27, "cyl_log_row_step": 27,
+       "cyl_ends": 98,
        "cyl_tw_r_step": 298, "cyl_tw_step": 590, "cyl_tw_ends": 84,
        "cyl_tw_launch": 99, "cyl_tw_b0_step": 425, "cyl_tw_b0_ends": 74,
        "kve_cf2": 491, "kve_series": 22, "kve_term": 5,
        "slab_ext_step": 30, "slab_ext_renorm": 4, "slab_ext_ends": 7,
-       "cyl_ext_step": 46, "cyl_ext_ends": 9,
+       "cyl_ext_step": 36, "cyl_ext_ends": 2, "cyl_ext_k_step": 10,
+       "cyl_ext_k_ends": 7,
        "slab_exact_ext": 2, "cyl_exact_ext": 3,
        "slab_cx_chain": 77, "slab_cx_step": 339, "slab_cx_ends": 182,
        "slab_cx_dual_chain": 163, "slab_cx_dual_step": 769,
@@ -438,33 +457,47 @@ def slab_ops(n: int, n_evals: int, n_interior: int,
             + n_interior * OPS[f + "x_step"])
 
 
+def distinct(k, m=None) -> int:
+    """The distinct k values, or with m the distinct (k, m) rows, of a
+    batch (tensors)."""
+    import torch
+    x = k if m is None else torch.stack([k, m], dim=1)
+    return int(torch.unique(x, dim=0).shape[0])
+
+
 def cyl_ops(n: int, n_evals: int, n_interior: int, n_axis_log: int,
-            z_ext) -> int:
+            z_ext, rows: int) -> int:
     """Operations of n_evals cylinder chains on each of n candidates with
-    the exterior arguments z_ext (those of one evaluation), and the r-only
+    the exterior arguments z_ext (those of one evaluation), the (k, m, r)
+    values once per row of the `rows` distinct (k, m) rows, and the r-only
     values once."""
     return (n * n_evals * (n_interior * OPS["cyl_step"]
                            + n_axis_log * OPS["cyl_log_step"]
                            + OPS["cyl_ends"])
             + n_evals * kve_ops(z_ext)
+            + rows * (n_interior * OPS["cyl_row_step"]
+                      + n_axis_log * OPS["cyl_log_row_step"])
             + n_interior * OPS["cyl_r_step"]
             + n_axis_log * OPS["cyl_log_r_step"])
 
 
-def ext_ops(case, n: int, n_evals: int) -> int:
+def ext_ops(case, n: int, n_evals: int, n_k: int = 0) -> int:
     """Operations of the numeric exterior of n_evals evaluations of each of
     n candidates: n_exterior steps (the slab's rescaled every 64th), the
     set-up and the end, less the exact exterior's operations that the
-    chain's "*_ends" count."""
+    chain's "*_ends" count; the cylinder's exps and set-up once for each
+    of the batch's n_k distinct k."""
     n_ext = case.grid.n_exterior
     if case.geometry.value == "slab":
         per = (n_ext * OPS["slab_ext_step"]
                + n_ext // 64 * OPS["slab_ext_renorm"] + OPS["slab_ext_ends"])
+        per_k = 0
     else:
         per = n_ext * OPS["cyl_ext_step"] + OPS["cyl_ext_ends"]
+        per_k = n_ext * OPS["cyl_ext_k_step"] + OPS["cyl_ext_k_ends"]
     exact = OPS["slab_exact_ext" if case.geometry.value == "slab"
                 else "cyl_exact_ext"]
-    return n * n_evals * (per - exact)
+    return n * n_evals * (per - exact) + n_k * per_k
 
 
 def cyl_tw_ops(case, n: int, n_evals: int, z_ext) -> int:
@@ -620,18 +653,6 @@ def _library_kve_ratio(z):
     return -k1 / k0, -k0 / k1 - 1.0 / z
 
 
-def _ladder_candidates(case, n, seed):
-    """n (omega, k, mode) candidates drawn from the case's full ladder."""
-    import torch
-    from eigensolver_tpu_torch import sweep
-    om, ks = sweep.build_ladders(case, 256)
-    rng = np.random.default_rng(seed)
-    row = rng.integers(0, om.shape[0], n)
-    col = rng.integers(0, om.shape[1], n)
-    m = rng.integers(0, 2, n).astype(np.float64)
-    return [torch.from_numpy(x).cuda() for x in (om[row, col], ks[row], m)]
-
-
 def _compare_disp(what: str, kres, pres, f64: bool,
                   bits: bool = False) -> dict:
     """Hold a dispersion kernel's (det, mismatch, valid) against the plain
@@ -685,13 +706,65 @@ def _same_bits(a, b):
     return (a == b) | (np.isnan(a) & np.isnan(b))
 
 
+def check_row_layouts(what: str, case, kern, plain, dtype) -> dict:
+    """The scan on each of tools_torch.batches.row_layout_batches'
+    batches, one launch each, against the plain version on all of them at
+    once, bit for bit; per batch the candidates that took the block's row
+    table and the tabled exps (kernels.cylinder.scan_tabled): every one
+    where the runs are at least a block long, some but not all on the runs
+    of 37 (a warp with a lane outside its block's rows takes the
+    per-candidate path), none on the others; the pole points' NaN and
+    inf."""
+    import torch
+    from eigensolver_tpu_torch.kernels import cylinder as kcyl
+    from tools_torch import batches
+    numeric = case.grid.exterior_method == "numeric"
+    segs = batches.row_layout_batches(case, dtype)
+    want = plain(*[torch.cat([s[j] for s in segs.values()])
+                   for j in range(3)])
+    res, at = {}, 0
+    kcyl.scan_tabled("cuda")
+    for name, seg in segs.items():
+        n = seg[0].numel()
+        got = kern(*seg)
+        rows, ext = kcyl.scan_tabled("cuda")
+        for a, b in zip(got, want):
+            x, y = a.cpu().numpy(), b[at:at + n].cpu().numpy()
+            if not (x.dtype == bool and np.array_equal(x, y)
+                    or x.dtype != bool and _same_bits(x, y).all()):
+                raise AssertionError(f"{what} {name}: not bit-equal to "
+                                     f"plain")
+        at += n
+        if name in batches.LONG_RUNS:
+            bad = rows != n
+        elif name == batches.MIXED_RUNS:
+            bad = not 0 < rows < n
+        else:
+            bad = rows != 0
+        if numeric:
+            bad = (bad or not rows <= ext <= n
+                   or (name in batches.LONG_RUNS and ext != n))
+        else:
+            bad = bad or ext != 0
+        if bad:
+            raise AssertionError(f"{what} {name}: {rows} of {n} candidates "
+                                 f"through the row table, {ext} through "
+                                 f"the exps' table")
+        res[name] = dict(n=n, tabled_rows=rows, tabled_exterior=ext,
+                         non_finite_det=int((~got.det.isfinite()).sum()))
+    if not res["through the continua"]["non_finite_det"]:
+        raise AssertionError(f"{what}: no pole point")
+    return res
+
+
 def phase_cylinder_disp(out: dict):
     import torch
     from eigensolver_tpu_torch import cases
     from eigensolver_tpu_torch.physics.cylinder import CylinderPhysics
+    from tools_torch import batches
     case = cases.cylinder_density_coronal(width=0.9)
     ph = CylinderPhysics.from_case(case)
-    om, k, m = _ladder_candidates(case, N_DISP_CHECK, seed=1)
+    om, k, m = batches.ladder_draws(case, N_DISP_CHECK, seed=1)
     res = {}
     for dtype in (torch.float64, torch.float32):
         name = str(dtype).split(".")[-1]
@@ -711,7 +784,7 @@ def phase_cylinder_disp(out: dict):
     # the full sweep's scan size: the kernel at both dtypes; the plain
     # version once at float32 (the sweep's scan dtype), held against the
     # kernel on the same candidates
-    om_f, k_f, m_f = _ladder_candidates(case, N_SWEEP, seed=2)
+    om_f, k_f, m_f = batches.ladder_draws(case, N_SWEEP, seed=2)
     full = {}
     g = case.grid
     for dtype in (torch.float32, torch.float64):
@@ -721,7 +794,8 @@ def phase_cylinder_disp(out: dict):
         full[name] = cuda_ms(lambda: kern(*args), 3)
         full[f"bound_{name}"] = bound(
             cyl_ops(N_SWEEP, 1, g.n_interior, g.n_axis_log,
-                    exterior_args(case, om_f, k_f, dtype)),
+                    exterior_args(case, om_f, k_f, dtype),
+                    distinct(k_f, m_f)),
             N_SWEEP * (5 * args[0].element_size() + 1), name)
     args = [x.to(torch.float32) for x in (om_f, k_f, m_f)]
     kres = ph.make_dispersion(m=None, dtype=torch.float32)(*args)
@@ -734,7 +808,36 @@ def phase_cylinder_disp(out: dict):
     full["check_float32"] = _compare_disp("cylinder_disp full float32", kres,
                                           pres, f64=False)
     res["full_ms"] = full
+    # the sweep's own scan in ladder order: every candidate through its
+    # block's row table
+    from eigensolver_tpu_torch.kernels import cylinder as kcyl
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[-1]
+        args = batches.flat_ladder(case, 256, dtype)
+        kern = ph.make_dispersion(m=None, dtype=dtype)
+        kcyl.scan_tabled("cuda")
+        kern(*args)
+        tabled = kcyl.scan_tabled("cuda")[0]
+        if tabled != N_SWEEP:
+            raise AssertionError(f"cylinder_disp ladder {name}: {tabled} of "
+                                 f"{N_SWEEP} through the row table")
+        full[f"ladder_{name}"] = dict(
+            ms=cuda_ms(lambda: kern(*args), 3), tabled_rows=tabled,
+            **bound(cyl_ops(N_SWEEP, 1, g.n_interior, g.n_axis_log,
+                            exterior_args(case, args[0], args[1], dtype),
+                            distinct(args[1], args[2])),
+                    N_SWEEP * (5 * args[0].element_size() + 1), name))
+        res[f"row layouts {name}"] = check_row_layouts(
+            f"cylinder_disp {name}", case, kern,
+            ph.make_dispersion_plain(m=None, dtype=dtype), dtype)
     res["ptxas"] = ptxas_report("cylinder_disp_kernel", CYL_FORMS)
+    # the tables' bytes as the kernel lays them out (csrc/cylinder_disp.cu::
+    # scan_smem; the wrapper holds its own count to it at each launch)
+    from eigensolver_tpu_torch.kernels import _build
+    res["smem_bytes"] = {
+        name: _build.library().eigk_cylinder_scan_smem(
+            int(name == "float64"), kcyl.SCAN_SHAPE.chunk)
+        for name in ("float32", "float64")}
     out["cylinder_disp"] = res
     line("phase 4 cylinder_disp vs plain", **res)
 
@@ -955,12 +1058,13 @@ def phase_slab_disp(out: dict):
     import torch
     from eigensolver_tpu_torch import cases
     from eigensolver_tpu_torch.physics.slab import SlabPhysics
+    from tools_torch import batches
     res = {}
     forms = (("flux slab_ph_09", cases.slab_density_photospheric(0.9), N_SLAB),
              ("shear flow_gauss", cases.slab_flow_gaussian_coronal(), N_FLOW))
     for name, case, _ in forms:
         ph = SlabPhysics.from_case(case)
-        om, k, par = _ladder_candidates(case, N_DISP_CHECK, seed=3)
+        om, k, par = batches.ladder_draws(case, N_DISP_CHECK, seed=3)
         for dtype in (torch.float64, torch.float32):
             dname = str(dtype).split(".")[-1]
             args = [x.to(dtype) for x in (om, k, par)]
@@ -980,7 +1084,7 @@ def phase_slab_disp(out: dict):
     full = {}
     for name, case, n in forms:
         ph = SlabPhysics.from_case(case)
-        cand = _ladder_candidates(case, n, seed=4)
+        cand = batches.ladder_draws(case, n, seed=4)
         for dtype in (torch.float32, torch.float64):
             what = f"{name} {str(dtype).split('.')[-1]}"
             full[what] = _time_against_plain(
@@ -1135,8 +1239,9 @@ def sweep_brackets(case, dtype, cfg=None):
     continuum mask and pole pre-filter, find_brackets (cfg default:
     n_omega=256, 8 per row, no mask)."""
     from eigensolver_tpu_torch import search, sweep
+    from tools_torch import batches
     cfg = cfg or search.SearchConfig(n_omega=256, max_brackets_per_row=8)
-    om, kk, md = ladder_rows(case, cfg.n_omega, dtype)
+    om, kk, md = batches.ladder_rows(case, cfg.n_omega, dtype)
     disp = sweep.make_dispersion_moded(case, dtype)
     det, valid, mism = search.ladder_scan(disp, om, kk, md)
     if cfg.exclude_v_ranges:
@@ -1377,11 +1482,12 @@ def phase_twisted_disp(out: dict):
     from eigensolver_tpu_torch import sweep
     from eigensolver_tpu_torch.kernels import cylinder as kcyl
     from eigensolver_tpu_torch.physics.cylinder import CylinderPhysics
+    from tools_torch import batches
     res = {}
     for name, case in twisted_cases().items():
         ph = CylinderPhysics.from_case(case)
         params = kcyl.disp_params(case)
-        om, k, m = _ladder_candidates(case, N_DISP_CHECK, seed=7)
+        om, k, m = batches.ladder_draws(case, N_DISP_CHECK, seed=7)
         for dtype in (torch.float64, torch.float32):
             dname = str(dtype).split(".")[-1]
             args = [x.to(dtype) for x in (om, k, m)]
@@ -1717,35 +1823,10 @@ def _physics(case):
             lambda dt: ph.make_dispersion_plain(m=None, dtype=dt))
 
 
-def ladder_rows(case, n_omega: int, dtype):
-    """The sweep's ladder as run_case builds it: (rows, n_omega) omegas and
-    the (rows,) k and mode columns, every mode's rows in turn, on the
-    card."""
-    import torch
-    from eigensolver_tpu_torch import sweep
-    om, ks = sweep.build_ladders(case, n_omega)
-    n_modes = len(case.modes)
-
-    def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(
-            device="cuda", dtype=dtype)
-
-    return (dev(np.concatenate([om] * n_modes)),
-            dev(np.concatenate([ks] * n_modes)),
-            dev(np.repeat([float(m) for m in case.modes], om.shape[0])))
-
-
-def flat_ladder(case, n_omega: int, dtype):
-    """The sweep's scan candidates (omega, k, mode), in ladder order."""
-    om, kk, md = ladder_rows(case, n_omega, dtype)
-    n = om.shape[1]
-    return [om.reshape(-1).contiguous(), kk.repeat_interleave(n),
-            md.repeat_interleave(n)]
-
-
-def numeric_ops(case, n: int, n_evals: int) -> int:
-    """Operations of n_evals evaluations of each of n candidates of the
-    case's chain with its numeric exterior (no K_m ratio)."""
+def numeric_ops(case, n: int, n_evals: int, k, m) -> int:
+    """Operations of n_evals evaluations of each of n candidates (k, m: the
+    batch's columns) of the case's chain with its numeric exterior (no K_m
+    ratio)."""
     import torch
     from eigensolver_tpu_torch.physics.slab import SlabPhysics
     g = case.grid
@@ -1756,8 +1837,9 @@ def numeric_ops(case, n: int, n_evals: int) -> int:
     elif case.twist_profile is not None:
         chain = cyl_tw_ops(case, n, n_evals, none)
     else:
-        chain = cyl_ops(n, n_evals, g.n_interior, g.n_axis_log, none)
-    return chain + ext_ops(case, n, n_evals)
+        chain = cyl_ops(n, n_evals, g.n_interior, g.n_axis_log, none,
+                        distinct(k, m))
+    return chain + ext_ops(case, n, n_evals, distinct(k))
 
 
 def _timed_plain(plain, args):
@@ -1780,7 +1862,7 @@ def _numeric_scan(what: str, case, args, plain_too: bool):
     n = args[0].numel()
     disp = kern(dtype)
     r = dict(n=n, ms=cuda_ms(lambda: disp(*args), 3),
-             **bound(numeric_ops(case, n, 1),
+             **bound(numeric_ops(case, n, 1, args[1], args[2]),
                      n * (5 * args[0].element_size() + 1), dname))
     pres = None
     if plain_too:
@@ -1824,7 +1906,7 @@ def _numeric_bisect(what: str, case, br, plain_n_iter, n_iter=N_BISECT,
     r = dict(n=n, n_iter=n_iter, ms=cuda_ms(lambda: fused(n_iter), 3),
              loop_ms=cuda_ms(lambda: search.bisect_loop(
                  disp, *br, n_iter, final_eval), 1),
-             **bound(numeric_ops(case, n, evals),
+             **bound(numeric_ops(case, n, evals, br[2], br[3]),
                      n * 6 * br[0].element_size(), dname))
     if plain_n_iter is not None:
         got = fused(plain_n_iter)
@@ -1868,6 +1950,7 @@ def phase_numeric_kernels(out: dict):
     import torch
     from eigensolver_tpu_torch import cases, search
     from eigensolver_tpu_torch.kernels import common, cylinder as kcyl
+    from tools_torch import batches
     f32, f64 = torch.float32, torch.float64
     slab, slab_cfg, _ = parity_config("slab_ph_09", "float32")
     shear = with_numeric(cases.slab_flow_gaussian_coronal(), 3.0)
@@ -1876,21 +1959,40 @@ def phase_numeric_kernels(out: dict):
     # ragged batches of ladder draws, both types, kernel vs plain bits
     for name, case in (("slab_disp flux", slab), ("slab_disp shear", shear),
                        ("cylinder_disp", cyl)):
-        cand = _ladder_candidates(case, N_RAGGED, seed=13)
+        cand = batches.ladder_draws(case, N_RAGGED, seed=13)
         for dtype in (f64, f32):
             dname = str(dtype).split(".")[-1]
             res[f"{name} {N_RAGGED} {dname}"] = _numeric_scan(
                 f"{name} numeric {dname}", case,
                 [x.to(dtype) for x in cand], plain_too=True)[0]
+    # the numeric cylinder scan's row layouts, bit for bit, with the
+    # candidates each takes through its block's tables
+    kern, plain = _physics(cyl)
+    for dtype in (f64, f32):
+        dname = str(dtype).split(".")[-1]
+        res[f"cylinder_disp row layouts {dname}"] = check_row_layouts(
+            f"cylinder_disp numeric {dname}", cyl, kern(dtype),
+            plain(dtype), dtype)
     # the parity sweeps' whole scans in ladder order, and the plain
-    # version on the same candidates
+    # version on the same candidates; the cylinder's candidates all
+    # through the row table and the exps' table
     for name, case, cfg in (("slab_disp", slab, slab_cfg),
                             ("cylinder_disp", cyl, cyl_cfg)):
         for dtype in (f32, f64):
             dname = str(dtype).split(".")[-1]
-            res[f"{name} full {dname}"] = _numeric_scan(
-                f"{name} numeric full {dname}", case,
-                flat_ladder(case, cfg.n_omega, dtype), plain_too=True)[0]
+            args = batches.flat_ladder(case, cfg.n_omega, dtype)
+            kcyl.scan_tabled("cuda")
+            r = _numeric_scan(f"{name} numeric full {dname}", case, args,
+                              plain_too=True)[0]
+            if name == "cylinder_disp":
+                # the timed launches and the check's, each all tabled
+                rows, ext = kcyl.scan_tabled("cuda")
+                if not rows == ext == 5 * N_PAR_CYL:
+                    raise AssertionError(
+                        f"numeric cylinder_disp full {dname}: {rows} and "
+                        f"{ext} of 5 x {N_PAR_CYL} through the tables")
+                r["tabled_rows"], r["tabled_exterior"] = rows, ext
+            res[f"{name} full {dname}"] = r
     # the fused bisections (the speculative kernel over the scans' tables)
     # on the parity sweeps' own brackets, against the launch loop at
     # N_BISECT and the plain loop at NUM_PLAIN_N_ITER; on their first 600
@@ -1913,7 +2015,7 @@ def phase_numeric_kernels(out: dict):
     # default L on 600 brackets of the ladder (n_omega=64)
     tw = twisted_numeric_case()
     params = kcyl.disp_params(tw)
-    cand = _ladder_candidates(tw, N_RAGGED, seed=14)
+    cand = batches.ladder_draws(tw, N_RAGGED, seed=14)
     cand[2] = torch.ones_like(cand[2])
     for dtype in (f64, f32):
         dname = str(dtype).split(".")[-1]
@@ -2551,7 +2653,9 @@ def numeric_kernel_entries(res: dict, par: dict, tw: dict) -> list:
               "eigensolver_tpu/ode.py:22", cyl_path["cylinder_disp"], cd,
               cd["check"]["max_abs_err_det"],
               float64_ms=res["cylinder_disp full float64"]["ms"],
-              float64_bound_ms=res["cylinder_disp full float64"]["bound_ms"]),
+              float64_bound_ms=res["cylinder_disp full float64"]["bound_ms"],
+              tabled_rows=cd["tabled_rows"],
+              tabled_exterior=cd["tabled_exterior"]),
         entry("cylinder_bisect_numeric", src + "cylinder_disp.cu",
               "eigensolver_tpu/ode.py:22", cyl_path["cylinder_bisect"], cb,
               cb["max_abs_err_vs_plain"], plain_n_iter=cb["plain_n_iter"],
@@ -2653,7 +2757,8 @@ def main() -> int:
                  N_BR_CYL,
                  lambda br, dt, ne: cyl_ops(
                      br[0].numel(), ne, cg.n_interior, cg.n_axis_log,
-                     exterior_args(cyl_case, br[0], br[2], dt)),
+                     exterior_args(cyl_case, br[0], br[2], dt),
+                     distinct(br[2], br[3])),
                  chain="cylinder")
     _, slab_refine = refine_stage(slab_case)
     phase_bisect(out, "phase 9 slab_bisect flux", "slab_bisect", slab_case,
@@ -2720,6 +2825,12 @@ def main() -> int:
         "plain_ms": cyl["plain_float32"],
         **cyl["bound_float32"],
         "library_ms": None,
+        # the sweep's own scan in ladder order, as the main path runs it,
+        # every candidate through its block's row table
+        "ladder_ms": cyl["ladder_float32"]["ms"],
+        "ladder_bound_ms": cyl["ladder_float32"]["bound_ms"],
+        "ladder_tabled_rows": cyl["ladder_float32"]["tabled_rows"],
+        "float64_ladder_ms": cyl["ladder_float64"]["ms"],
     }, {
         # the twisted chain's scan (csrc/cylinder_twisted.cu; the XLA
         # program's coefficients with jax.jvp, physics/cylinder.py:189), on

@@ -241,9 +241,10 @@ __device__ __forceinline__ T nan_max(T a, T b) {
 // call them, in the operation order of the plain version
 // (eigensolver_tpu_torch/ode.py). Each depends on the candidate alone
 // (m_e, k, m), so a thread integrates its own n steps in registers, after
-// its interior shoot; no table. The span of the exterior, W 2 pi, is formed
-// in double as the Python code forms it and rounded to T before it is
-// divided by k. Every division stays a division (the renormalisation
+// its interior shoot; the cylinder's exps depend on k alone, and the
+// cylinder scan reads them from a table of its block. The span of the
+// exterior, W 2 pi, is formed in double as the Python code forms it and
+// rounded to T before it is divided by k. Every division stays a division (the renormalisation
 // divides by its scale), and each stage takes its own exp: x0 + (i + 1) h
 // is not bitwise (x0 + i h) + h.
 constexpr double kPi = 3.141592653589793;
@@ -278,29 +279,57 @@ __device__ __forceinline__ T slab_exterior(T m_e, T k, double wavelengths,
   return y1 / y0;
 }
 
+// The cylinder exterior's span and grid: r_far = W 2 pi / k, t0 = ln r_far
+// and the RK4 spacing (h, h/2, h/6) of n steps from t0 to 0; they depend
+// on k alone
+template <class T>
+__device__ __forceinline__ void cyl_ext_grid(T k, double wavelengths, int n,
+                                             T& r_far, T& t0, T& h, T& hh,
+                                             T& h6) {
+  r_far = T(wavelengths * 2.0 * kPi) / k;
+  t0 = log(r_far);
+  rk4_spacing(t0, T(0), n, h, hh, h6);
+}
+
+// exp(2 t) at abscissa a (0: t, 1: t + h/2, 2: t + h) of the exterior's
+// step i
+template <class T>
+__device__ __forceinline__ T cyl_ext_exp(T t0, T h, T hh, int i, int a) {
+  const T x = t0 + T(i) * h;
+  return exp(T(2) * (a == 0 ? x : (a == 1 ? x + hh : x + h)));
+}
+
+// One RK4 step of (P, dP/dt)' = (dP/dt, (m^2 + m_e e^{2t}) P) with e^{2t}
+// at the step's 3 abscissae (eA, eM, eB)
+template <class T>
+__device__ __forceinline__ void cyl_ext_step(T mm, T m_e, T eA, T eM, T eB,
+                                             T h, T hh, T h6, T& P, T& D) {
+  const T gA = mm + m_e * eA;
+  const T gM = mm + m_e * eM;
+  const T gB = mm + m_e * eB;
+  const T k1P = D, k1D = gA * P;
+  const T k2P = D + hh * k1D, k2D = gM * (P + hh * k1P);
+  const T k3P = D + hh * k2D, k3D = gM * (P + hh * k2P);
+  const T k4P = D + h * k3D, k4D = gB * (P + h * k3P);
+  P = P + h6 * (k1P + T(2) * k2P + T(2) * k3P + k4P);
+  D = D + h6 * (k1D + T(2) * k2D + T(2) * k3D + k4D);
+}
+
 // dP/dr / P at r = 1 of the cylinder exterior: n RK4 steps in t = ln r of
 // (P, dP/dt)' = (dP/dt, (m^2 + m_e e^{2t}) P) from t = ln(W 2 pi / k) down
-// to 0, from (1e-8, -1e-8 r_far); no renormalisation
+// to 0, from (1e-8, -1e-8 r_far); no renormalisation. The scan
+// (cylinder_disp.cu) reads the exps from a table of its block instead.
 template <class T>
 __device__ __forceinline__ T cyl_exterior(T m_e, T k, T m, double wavelengths,
                                           int n) {
-  const T r_far = T(wavelengths * 2.0 * kPi) / k;
-  const T t0 = log(r_far);
-  T h, hh, h6;
-  rk4_spacing(t0, T(0), n, h, hh, h6);
+  T r_far, t0, h, hh, h6;
+  cyl_ext_grid(k, wavelengths, n, r_far, t0, h, hh, h6);
   const T mm = m * m;
   T P = T(1e-8), D = T(-1e-8) * r_far;
   for (int i = 0; i < n; ++i) {
-    const T x = t0 + T(i) * h;
-    const T gA = mm + m_e * exp(T(2) * x);
-    const T gM = mm + m_e * exp(T(2) * (x + hh));
-    const T gB = mm + m_e * exp(T(2) * (x + h));
-    const T k1P = D, k1D = gA * P;
-    const T k2P = D + hh * k1D, k2D = gM * (P + hh * k1P);
-    const T k3P = D + hh * k2D, k3D = gM * (P + hh * k2P);
-    const T k4P = D + h * k3D, k4D = gB * (P + h * k3P);
-    P = P + h6 * (k1P + T(2) * k2P + T(2) * k3P + k4P);
-    D = D + h6 * (k1D + T(2) * k2D + T(2) * k3D + k4D);
+    cyl_ext_step(mm, m_e, cyl_ext_exp(t0, h, hh, i, 0),
+                 cyl_ext_exp(t0, h, hh, i, 1), cyl_ext_exp(t0, h, hh, i, 2),
+                 h, hh, h6, P, D);
   }
   return D / P;
 }

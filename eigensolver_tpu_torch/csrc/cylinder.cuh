@@ -108,13 +108,15 @@ struct Grid {
 
 // The axis condition, the interface values, the exterior, det, the %
 // mismatch and valid from the basis states at the axis (cylinder.py:
-// 319-385); xi1 = C1(1) / C3(1), J the kink's jump term. The exterior is
-// the K_m ratio, or with kNum the numeric one (common.cuh::cyl_exterior).
-template <class T, bool kNum>
-__device__ __forceinline__ void finish(const CylDispParams& p, T omega, T k,
-                                       T m, T xi1, T F1, T J_kink, T P1, T w1,
-                                       T P2, T w2, T& det, T& mism,
-                                       bool& valid) {
+// 319-385); xi1 = C1(1) / C3(1), J the kink's jump term. ext(m_e) is the
+// exterior's dP/dr / P at r = 1 (P_e = 1), taken where the plain version
+// takes it.
+template <class T, class Ext>
+__device__ __forceinline__ void finish_with(const CylDispParams& p, T omega,
+                                            T k, T m, T xi1, T F1, T J_kink,
+                                            T P1, T w1, T P2, T w2,
+                                            const Ext& ext, T& det, T& mism,
+                                            bool& valid) {
   const T zero = T(0);
   const T one = T(1);
 
@@ -130,18 +132,7 @@ __device__ __forceinline__ void finish(const CylDispParams& p, T omega, T k,
   const T om2 = omega * omega;
   const T m_e = (k2 * T(p.vA_e2) - om2) * (k2 * T(p.c_e2) - om2)
               / (T(p.vAc_e2) * (k2 * T(p.cT_e2) - om2));
-  T dP_e;
-  if (kNum) {
-    // integrated inward from r_far: dP/dr(1) / P(1), P_e = 1
-    dP_e = cyl_exterior(m_e, k, m, p.exterior_wavelengths, p.n_exterior);
-  } else {
-    // P_e = K_m(sqrt(m_e) r), logarithmic derivative at r = 1;
-    // jnp.maximum(m_e, 1e-300), the floor 0 in float
-    const T sq = sqrt(nan_max(m_e, T(p.m_e_floor)));
-    T r0, r1;
-    kve_ratio_both(sq, r0, r1);
-    dP_e = sq * (is_sausage ? r0 : r1);
-  }
+  const T dP_e = ext(m_e);
   const T P_e = one;
   const T xi_e = dP_e / (T(p.rho_e) * (om2 - k2 * T(p.vA_e2)));
 
@@ -158,6 +149,30 @@ __device__ __forceinline__ void finish(const CylDispParams& p, T omega, T k,
   const T den = nan_max(fabs(xi_e), fabs(xi_i));
   mism = T(100) * num / den;
   valid = m_e > zero;
+}
+
+// finish_with the K_m ratio, or with kNum the numeric exterior
+// (common.cuh::cyl_exterior)
+template <class T, bool kNum>
+__device__ __forceinline__ void finish(const CylDispParams& p, T omega, T k,
+                                       T m, T xi1, T F1, T J_kink, T P1, T w1,
+                                       T P2, T w2, T& det, T& mism,
+                                       bool& valid) {
+  const auto ext = [&](T m_e) {
+    if constexpr (kNum) {
+      // integrated inward from r_far: dP/dr(1) / P(1), P_e = 1
+      return cyl_exterior(m_e, k, m, p.exterior_wavelengths, p.n_exterior);
+    } else {
+      // P_e = K_m(sqrt(m_e) r), logarithmic derivative at r = 1;
+      // jnp.maximum(m_e, 1e-300), the floor 0 in float
+      const T sq = sqrt(nan_max(m_e, T(p.m_e_floor)));
+      T r0, r1;
+      kve_ratio_both(sq, r0, r1);
+      return sq * (m < T(0.5) ? r0 : r1);
+    }
+  };
+  finish_with(p, omega, k, m, xi1, F1, J_kink, P1, w1, P2, w2, ext, det,
+              mism, valid);
 }
 
 // The twisted chain's scan (cylinder_twisted.cu), for T = float and double,

@@ -7,37 +7,50 @@
 // real-omega cases, with the analytic ("bessel") exterior or, in a variant
 // built apart (kNum), the numeric one (`eigensolver_tpu/ode.py::rk4_final`
 // as `physics/cylinder.py:319-351` calls it, in t = ln r;
-// common.cuh::cyl_exterior: a thread integrates its candidate's own 512
-// exterior steps in registers after the interior, no table, the
-// bisection's consumer lane alike; the K_m ratio is then not computed).
-// The variant keeps the analytic kernels' code unchanged. On the TPU the
-// interior was an XLA-fused `lax.scan` and the exterior either fused XLA or
-// the Pallas kernel `kernels/bessel.py::kve_ratio_pallas`; here each
-// candidate's state stays in the registers of one thread:
+// common.cuh::cyl_exterior; the K_m ratio is then not computed). On the
+// TPU the interior was an XLA-fused `lax.scan` and the exterior either
+// fused XLA or the Pallas kernel `kernels/bessel.py::kve_ratio_pallas`;
+// here each candidate's state stays in the registers of one thread:
 //   two-basis state (P1, w1, P2, w2) from u0 = (1, 0, 0, F(1));
 //   n_interior RK4 steps of `_rk4_linear2` from r = 1 to eps, the
 //   coefficient chain evaluated at the 3 distinct abscissae per step;
 //   the log tail of n_axis_log steps in t = ln r down to eps_final, with
 //   coefficients (r iF, r g);
 //   the axis condition, the interface values, m_e, sqrt(m_e), the exterior
-//   ratio from the inlined device function of kve_ratio.cuh, xi_e, the
-//   determinant and the % mismatch.
+//   ratio from the inlined device function of kve_ratio.cuh (or the
+//   numeric exterior's 512 steps), xi_e, the determinant and the %
+//   mismatch.
 //
 // What bounds it on Hopper: per candidate, (n_interior + n_axis_log) * 3
 // evaluations of the Hain-Lust chain plus the RK4 updates, against 24 bytes
-// in and 17 bytes out: operations, not memory. Much of the chain depends on
-// r alone (cylinder.py:113-127): rho, vA, c_i, sqrt(rho), c_i^2 + vA^2 and
-// its square root, U(r), r r, and r = exp(t) on the tail - every exp, every
-// square root and 3 of the 8 divisions of an evaluation. And r itself comes
-// from the launch parameters only. So the scan (cylinder_disp_kernel) keeps
-// a table of those values in shared memory: each block computes them for a
-// chunk of steps cooperatively, one abscissa per thread, into a
-// double-buffered ring (one barrier per chunk), and every thread reads them
-// as warp-uniform broadcasts. What stays per candidate and abscissa is the
-// shift, alpha, the cusp speed, the D, A, C2 products and 1/F, g: 5
-// divisions, no square root, no exp. The plain PyTorch version computes the
-// r-only values once per abscissa as 0-d tensors, in this order, so the
-// table gives its bits.
+// in and 17 bytes out: operations, not memory, and among them the IEEE
+// divisions (built without fast math, each a reciprocal on the 16-lane
+// MUFU pipe, its refinement and a range check). Much of the chain does not
+// depend on the candidate's omega, and the scan shares it:
+//   - what depends on r alone (cylinder.py:113-127): rho, vA, c_i,
+//     sqrt(rho), c_i^2 + vA^2 and its square root, U(r), r r, and r =
+//     exp(t) on the tail - every exp and square root of the chain;
+//   - what depends on (k, m, r) (cylinder.py:181-190): k U, alpha^2 and
+//     cusp^2 (alpha = k B_z / sqrt(rho), cusp = alpha c_i / sqrt(c_i^2 +
+//     vA^2)) and (c_i^2 + vA^2)(m^2/r^2 + k^2) - 3 of an evaluation's 5
+//     divisions. search.py flattens the ladder as (rows, n_omega), so a
+//     block of candidates spans few (k, m) rows;
+//   - the numeric exterior's exp(2 t), which depends on k alone.
+// So the scan (cylinder_disp_kernel) keeps tables in shared memory: each
+// block computes, for a chunk of steps, one abscissa per thread, its
+// r-only entry and the entries of the (k, m) rows of its first and last
+// candidates, into a double-buffered ring (one barrier per chunk), and
+// every thread reads them as warp-uniform broadcasts; after the interior
+// the numeric variant tables exp(2 t) for the rows' k. A candidate of a
+// tabled row keeps per abscissa only what depends on omega: the shift,
+// D, A, C2, C3 and 1/F, g - 2 divisions (A/r and r (C2 - C1^2/C3)/D), no
+// square root, no exp. A candidate outside the block's rows (rows shorter
+// than a block, random draws, refine windows) forms its own (k, m, r)
+// values from the r-only table, and its own exps. Either path applies the
+// plain version's operations to the same operands, in its order, so the
+// bits do not depend on it; the plain PyTorch version computes the r-only
+// values once per abscissa as 0-d tensors, in this order, so the table
+// gives its bits.
 //
 // Arithmetic order follows the JAX code expression for expression (no
 // algebraic simplification), and the build disables FMA contraction
@@ -87,11 +100,11 @@ namespace eigk {
 
 // The values of the Hain-Lust chain that depend on the radius alone
 // (cylinder.py:113-127; equilibrium.py:225-242 inline): one entry of the
-// scan's table. 16-byte aligned, so a thread reads an entry in a few
-// vector loads.
+// r-only table. 16-byte aligned, so a thread reads an entry in a few
+// vector loads; a candidate whose row is tabled reads the first three.
 template <class T>
 struct alignas(16) RPoint {
-  T r, rr, rho, sqrt_rho, ci, csum, sqrt_csum, rho_csum, U;
+  T r, rho, rho_csum, U, rr, sqrt_rho, ci, csum, sqrt_csum;
 };
 
 template <class T>
@@ -110,29 +123,52 @@ __device__ __forceinline__ RPoint<T> r_point(const CylDispParams& p, T r) {
   return q;
 }
 
-// D, A, C2 of the Hain-Lust chain at the radius of q (cylinder.py:110-168
-// with v_phi == B_phi == 0)
+// The values of the chain that depend on (k, m, r) and not on omega
+// (cylinder.py:181-190): k U, alf^2 and cusp^2 (alf = k B_z / sqrt(rho),
+// cusp = alf c_i / sqrt(c_i^2 + vA^2)) and X = (c_i^2 + vA^2) (m^2/r^2 +
+// k^2); one entry of the scan's row table. Three of an evaluation's five
+// divisions are here.
 template <class T>
-__device__ __forceinline__ void hain_lust(const RPoint<T>& q, const Cand<T>& c,
-                                          T& D, T& A, T& C2) {
-  const T shift = c.omega - c.k * q.U;      // omega - m v_phi/r - k U
+struct alignas(16) RowPoint {
+  T kU, alf2, cusp2, X;
+};
+
+template <class T>
+__device__ __forceinline__ RowPoint<T> row_point(const RPoint<T>& q,
+                                                 const Cand<T>& c) {
+  RowPoint<T> w;
+  w.kU = c.k * q.U;                         // m v_phi/r + k U
   const T alf = c.kB0 / q.sqrt_rho;         // m B_phi/r + k B_z/sqrt(rho)
   const T cusp = alf * q.ci / q.sqrt_csum;
+  w.alf2 = alf * alf;
+  w.cusp2 = cusp * cusp;
+  w.X = q.csum * (c.mm / q.rr + c.k2);
+  return w;
+}
+
+// D, A, C2 of the Hain-Lust chain at the radius of q (cylinder.py:110-168
+// with v_phi == B_phi == 0): the part that depends on omega
+template <class T>
+__device__ __forceinline__ void hain_lust(const RPoint<T>& q,
+                                          const RowPoint<T>& w, T omega, T& D,
+                                          T& A, T& C2) {
+  const T shift = omega - w.kU;             // omega - m v_phi/r - k U
   const T s2 = shift * shift;
-  const T da = s2 - alf * alf;
-  const T dc = s2 - cusp * cusp;
+  const T da = s2 - w.alf2;
+  const T dc = s2 - w.cusp2;
   D = q.rho_csum * da * dc;
   A = q.rho * da;                           // + r dC3diff/dr == 0
-  C2 = s2 * s2 - q.csum * (c.mm / q.rr + c.k2) * dc;
+  C2 = s2 * s2 - w.X * dc;
 }
 
 // invF_g (cylinder.py:189-208): (1/F, g) at the radius of q; on the log
 // tail (kLog) the coefficients in t = ln r, (r iF, r g) (cylinder.py:273-279)
 template <class T, bool kLog>
-__device__ __forceinline__ void invF_g(const RPoint<T>& q, const Cand<T>& c,
-                                       T& iF, T& g) {
+__device__ __forceinline__ void invF_g(const RPoint<T>& q,
+                                       const RowPoint<T>& w, T omega, T& iF,
+                                       T& g) {
   T D, A, C2;
-  hain_lust(q, c, D, A, C2);
+  hain_lust(q, w, omega, D, A, C2);
   const T C3 = D * A + T(0);               // + B, B == 0
   const T c1c3 = zero_over(C3);            // C1^2/C3 and d(r C1/C3)/dr
   iF = A / q.r + zero_over(q.r * D);       // A/r + B/(r D)
@@ -154,8 +190,9 @@ template <class T>
 __device__ __forceinline__ void interface1(const CylDispParams& p,
                                            const Cand<T>& c, T& C3_1, T& F1) {
   const T one = T(1);
+  const RPoint<T> q = r_point(p, one);
   T D1, A1, C2_1;
-  hain_lust(r_point(p, one), c, D1, A1, C2_1);
+  hain_lust(q, row_point(q, c), c.omega, D1, A1, C2_1);
   C3_1 = D1 * A1 + T(0);
   F1 = one * D1 / C3_1;
 }
@@ -182,39 +219,172 @@ __device__ __forceinline__ Chunk chunk_at(const Grid<T>& g, int nci, int C,
   return {true, i0, min(C, g.n_log - i0)};
 }
 
-// The block fills the table entries of a chunk, 3 per step (A, M, B), one
-// entry per thread at a time.
+// Rows of the scan's row table: a block tables the (k, m) rows of its
+// first and of its last candidate. A ladder row is a run of n_omega
+// candidates that share (k, m) (search.py flattens the scan as (rows,
+// n_omega)); where n_omega is at least the block, a block spans at most
+// two rows, and the table covers every candidate of it.
+constexpr int kRows = 2;
+
+// bitwise equality: a candidate is in a tabled row when its (k, m) have
+// the row's bits, so that the row's values are the ones it would compute
 template <class T>
-__device__ __forceinline__ void fill_chunk(const CylDispParams& p,
-                                           const Grid<T>& g, const Chunk& ch,
-                                           RPoint<T>* dst) {
-  for (int e = threadIdx.x; e < 3 * ch.count; e += blockDim.x) {
-    const int i = ch.i0 + e / 3, a = e % 3;
-    dst[e] = ch.log ? r_point(p, radius<T, true>(
-                                     rk4_abscissa(g.x0l, g.hl, g.hhl, i, a)))
-                    : r_point(p, rk4_abscissa(g.x0i, g.hi, g.hhi, i, a));
+__device__ __forceinline__ bool same_bits(T a, T b) {
+  if constexpr (sizeof(T) == 4) {
+    return __float_as_uint(a) == __float_as_uint(b);
+  } else {
+    return __double_as_longlong(a) == __double_as_longlong(b);
   }
 }
 
-// A candidate's RK4 steps over one chunk of the table
-template <class T, bool kLog>
-__device__ __forceinline__ void run_chunk(const RPoint<T>* q, int count, T h,
-                                          T hh, T h6, const Cand<T>& c, T& P1,
-                                          T& w1, T& P2, T& w2) {
+// The scan's tables in the block's dynamic shared memory, double-buffered
+// by chunk: 2 x 3 C r-only entries, then 2 x kRows x 3 C row entries
+template <class T>
+__host__ __device__ constexpr size_t scan_smem(int chunk) {
+  return 2 * 3 * static_cast<size_t>(chunk)
+       * (sizeof(RPoint<T>) + kRows * sizeof(RowPoint<T>));
+}
+
+// The block fills the table entries of a chunk, 3 per step (A, M, B), one
+// abscissa per thread at a time: its r-only entry and, from it, its entry
+// in the first row and, where the block has two, in the second (`slot`
+// further), unless no warp reads them (!rows); km: the rows' (k, m), in
+// shared memory (not held in registers across the scan's steps).
+template <class T>
+__device__ __forceinline__ void fill_chunk(const CylDispParams& p,
+                                           const Grid<T>& g, const Chunk& ch,
+                                           const T* km, bool rows, bool two,
+                                           int slot, RPoint<T>* dst,
+                                           RowPoint<T>* wdst) {
+  const Cand<T> r0(p, T(0), km[0], km[1]), r1(p, T(0), km[2], km[3]);
+  for (int e = threadIdx.x; e < 3 * ch.count; e += blockDim.x) {
+    const int i = ch.i0 + e / 3, a = e % 3;
+    const RPoint<T> q =
+        ch.log ? r_point(p, radius<T, true>(
+                                rk4_abscissa(g.x0l, g.hl, g.hhl, i, a)))
+               : r_point(p, rk4_abscissa(g.x0i, g.hi, g.hhi, i, a));
+    dst[e] = q;
+    if (rows) {
+      wdst[e] = row_point(q, r0);
+      if (two) wdst[slot + e] = row_point(q, r1);
+    }
+  }
+}
+
+// A candidate's RK4 steps over one chunk of the tables: with kTab its
+// row's entries w, else (w unused) its own from the r-only entries q
+template <class T, bool kLog, bool kTab>
+__device__ __forceinline__ void run_chunk(const RPoint<T>* q,
+                                          const RowPoint<T>* w, int count,
+                                          T h, T hh, T h6, const Cand<T>& c,
+                                          T& P1, T& w1, T& P2, T& w2) {
   for (int j = 0; j < count; ++j, q += 3) {
+    RowPoint<T> wA, wM, wB;
+    if constexpr (kTab) {
+      wA = w[3 * j];
+      wM = w[3 * j + 1];
+      wB = w[3 * j + 2];
+    } else {
+      wA = row_point(q[0], c);
+      wM = row_point(q[1], c);
+      wB = row_point(q[2], c);
+    }
     T iFA, gA, iFM, gM, iFB, gB;
-    invF_g<T, kLog>(q[0], c, iFA, gA);
-    invF_g<T, kLog>(q[1], c, iFM, gM);
-    invF_g<T, kLog>(q[2], c, iFB, gB);
+    invF_g<T, kLog>(q[0], wA, c.omega, iFA, gA);
+    invF_g<T, kLog>(q[1], wM, c.omega, iFM, gM);
+    invF_g<T, kLog>(q[2], wB, c.omega, iFB, gB);
     rk4_step2(h, hh, h6, iFA, gA, iFM, gM, iFB, gB, P1, w1, P2, w2);
   }
 }
 
-// The ladder scan: one thread per candidate, kThreads per block, the
-// r-only table in chunks of `chunk` steps (dynamic shared memory: 2 x 3
-// chunk entries), the exterior the K_m ratio or, with kNum, the numeric
-// one. Threads past n evaluate a copy of the last candidate, so that every
-// thread reaches the block's barriers, and store nothing.
+// run_chunk through the row table where w is set, else through the
+// candidate's own values
+template <class T, bool kLog>
+__device__ __forceinline__ void run_chunk_any(const RPoint<T>* q,
+                                              const RowPoint<T>* w, int count,
+                                              T h, T hh, T h6,
+                                              const Cand<T>& c, T& P1, T& w1,
+                                              T& P2, T& w2) {
+  if (w != nullptr) {
+    run_chunk<T, kLog, true>(q, w, count, h, hh, h6, c, P1, w1, P2, w2);
+  } else {
+    run_chunk<T, kLog, false>(q, w, count, h, hh, h6, c, P1, w1, P2, w2);
+  }
+}
+
+// Candidates that the scans evaluated through a tabled row, and through
+// tabled exterior exps, since the host last read them
+// (eigk_cylinder_scan_tabled); a block adds its count once
+__device__ unsigned long long g_scan_tabled[2];
+
+// The numeric exterior of the scan (common.cuh::cyl_exterior, operation
+// for operation), with exp(2 t) read from a table of the block for the
+// distinct k of its tabled rows (k0 and, with two, k1; ek the candidate's,
+// -1 where its k, or a lane's of its warp, is neither): the block fills
+// exp(2 t) at the 3 abscissae of ec steps of each tabled k at a time into
+// `tab`, where no table of the interior is live any more. Every thread of
+// the block calls it (it holds the block's barriers); `counted`: the
+// candidate is one of the batch's.
+template <class T>
+__device__ T cyl_exterior_scan(const CylDispParams& p, T m_e, T k, T m, T k0,
+                               T k1, bool two, int ek, int ec, T* tab,
+                               bool counted) {
+  const int n = p.n_exterior;
+  const double W = p.exterior_wavelengths;
+  T r_far, t0, h, hh, h6;
+  cyl_ext_grid(k, W, n, r_far, t0, h, hh, h6);
+  // the tabled ks' grids, for the fill
+  T rf0, t00, h0, hh0, h60, rf1, t01, h1, hh1, h61;
+  cyl_ext_grid(k0, W, n, rf0, t00, h0, hh0, h60);
+  cyl_ext_grid(k1, W, n, rf1, t01, h1, hh1, h61);
+  const T mm = m * m;
+  T P = T(1e-8), D = T(-1e-8) * r_far;
+  // a warp takes one path; a block none of whose warps reads the table
+  // does not fill it
+  if (!__all_sync(0xffffffffu, ek >= 0)) ek = -1;
+  const int n_tabled = __syncthreads_count(ek >= 0 && counted);
+  if (threadIdx.x == 0 && n_tabled) {
+    atomicAdd(&g_scan_tabled[1], static_cast<unsigned long long>(n_tabled));
+  }
+  const int n_fill = __syncthreads_or(ek >= 0) ? (two ? 2 : 1) : 0;
+  for (int s0 = 0; s0 < n; s0 += ec) {
+    const int cnt = min(ec, n - s0);
+    if (s0 > 0) __syncthreads();           // the last chunk's readers done
+    for (int e = threadIdx.x; e < n_fill * 3 * cnt; e += blockDim.x) {
+      const bool second = e >= 3 * cnt;
+      const int f = second ? e - 3 * cnt : e;
+      tab[e] = second ? cyl_ext_exp(t01, h1, hh1, s0 + f / 3, f % 3)
+                      : cyl_ext_exp(t00, h0, hh0, s0 + f / 3, f % 3);
+    }
+    __syncthreads();
+    if (ek >= 0) {
+      const T* E = tab + ek * 3 * cnt;
+      for (int j = 0; j < cnt; ++j, E += 3) {
+        cyl_ext_step(mm, m_e, E[0], E[1], E[2], h, hh, h6, P, D);
+      }
+    } else {
+      for (int i = s0; i < s0 + cnt; ++i) {
+        cyl_ext_step(mm, m_e, cyl_ext_exp(t0, h, hh, i, 0),
+                     cyl_ext_exp(t0, h, hh, i, 1),
+                     cyl_ext_exp(t0, h, hh, i, 2), h, hh, h6, P, D);
+      }
+    }
+  }
+  return D / P;
+}
+
+// The ladder scan: one thread per candidate, kThreads per block, chunks of
+// `chunk` steps of two tables in dynamic shared memory (scan_smem): the
+// r-only values, and the (k, m, r) values of the block's kRows rows
+// (its first and last candidates'). A warp whose candidates are all in
+// tabled rows reads their (k, m, r) values; any other (a batch whose rows
+// are shorter than a block, random draws, refine windows) forms its own
+// from the r-only table, with the same operations, so the bits do not
+// depend on the path. The
+// exterior: the K_m ratio or, with kNum, the numeric one, whose exps the
+// block tables for the k of its rows once the interior is done. Threads
+// past n evaluate a copy of the last candidate, so that every thread
+// reaches the block's barriers, and store nothing.
 template <class T, int kThreads, bool kNum>
 __global__ void __launch_bounds__(kThreads)
 cylinder_disp_kernel(const T* __restrict__ omega_, const T* __restrict__ k_,
@@ -223,11 +393,41 @@ cylinder_disp_kernel(const T* __restrict__ omega_, const T* __restrict__ k_,
                      int64_t n, int chunk,
                      const __grid_constant__ CylDispParams p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ T row_km[2 * kRows];           // the rows' (k, m)
+  const int slot = 3 * chunk;
   RPoint<T>* table = reinterpret_cast<RPoint<T>*>(smem_raw);
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  RowPoint<T>* wtable = reinterpret_cast<RowPoint<T>*>(table + 2 * slot);
+  const int64_t b0 = static_cast<int64_t>(blockIdx.x) * kThreads;
+  const int64_t i = b0 + threadIdx.x;
   const int64_t idx = i < n ? i : n - 1;
   const Cand<T> c(p, omega_[idx], k_[idx], m_[idx]);
   const Grid<T> g(p);
+
+  // the block's rows, its first and last candidates' (k, m) (two unless
+  // they are one), and the candidate's (-1: neither, or a lane of its warp
+  // in neither: a warp takes one path, so that a batch of short rows does
+  // not run both in its warps)
+  const int64_t end = b0 + kThreads;
+  const int64_t last = (end < n ? end : n) - 1;
+  const T k0 = k_[b0], m0 = m_[b0], k1 = k_[last], m1 = m_[last];
+  const bool two = !(same_bits(k1, k0) && same_bits(m1, m0));
+  int row = same_bits(c.k, k0) && same_bits(c.m, m0)         ? 0
+          : two && same_bits(c.k, k1) && same_bits(c.m, m1) ? 1
+                                                             : -1;
+  if (!__all_sync(0xffffffffu, row >= 0)) row = -1;
+  if (threadIdx.x == 0) {
+    row_km[0] = k0;
+    row_km[1] = m0;
+    row_km[2] = k1;
+    row_km[3] = m1;
+  }
+  // publishes row_km; a block none of whose warps reads the row table
+  // does not fill it
+  const int n_tabled = __syncthreads_count(row >= 0 && i < n);
+  const bool fill_rows = __syncthreads_or(row >= 0);
+  if (threadIdx.x == 0 && n_tabled) {
+    atomicAdd(&g_scan_tabled[0], static_cast<unsigned long long>(n_tabled));
+  }
 
   Iface<T> f;
   interface1(p, c, f.C3_1, f.F1);
@@ -236,31 +436,56 @@ cylinder_disp_kernel(const T* __restrict__ omega_, const T* __restrict__ k_,
   T P1 = T(1), w1 = T(0), P2 = T(0), w2 = f.F1 * T(1);
   const int nci = (g.n_int + chunk - 1) / chunk;
   const int n_chunks = nci + (g.n_log + chunk - 1) / chunk;
-  const int slot = 3 * chunk;
   if (n_chunks > 0) {
-    fill_chunk<T>(p, g, chunk_at(g, nci, chunk, 0), table);
+    fill_chunk<T>(p, g, chunk_at(g, nci, chunk, 0), row_km, fill_rows, two,
+                  slot, table, wtable);
   }
   __syncthreads();
   for (int ci = 0; ci < n_chunks; ++ci) {
     // fill the other buffer while this one is read: the barrier below
     // publishes it and retires this one
+    const int nb = (ci + 1) & 1, cb = ci & 1;
     if (ci + 1 < n_chunks) {
-      fill_chunk<T>(p, g, chunk_at(g, nci, chunk, ci + 1),
-                    table + ((ci + 1) & 1) * slot);
+      fill_chunk<T>(p, g, chunk_at(g, nci, chunk, ci + 1), row_km,
+                    fill_rows, two, slot, table + nb * slot,
+                    wtable + nb * kRows * slot);
     }
     const Chunk ch = chunk_at(g, nci, chunk, ci);
-    const RPoint<T>* q = table + (ci & 1) * slot;
+    const RPoint<T>* q = table + cb * slot;
+    const RowPoint<T>* w =
+        row >= 0 ? wtable + (cb * kRows + row) * slot : nullptr;
     if (ch.log) {
-      run_chunk<T, true>(q, ch.count, g.hl, g.hhl, g.h6l, c, P1, w1, P2, w2);
+      run_chunk_any<T, true>(q, w, ch.count, g.hl, g.hhl, g.h6l, c, P1, w1,
+                             P2, w2);
     } else {
-      run_chunk<T, false>(q, ch.count, g.hi, g.hhi, g.h6i, c, P1, w1, P2, w2);
+      run_chunk_any<T, false>(q, w, ch.count, g.hi, g.hhi, g.h6i, c, P1, w1,
+                              P2, w2);
     }
     __syncthreads();
   }
   T det, mism;
   bool valid;
-  finish<T, kNum>(p, c.omega, c.k, c.m, zero_over(f.C3_1) + T(0), f.F1, T(0),
-                  P1, w1, P2, w2, det, mism, valid);
+  const T xi1 = zero_over(f.C3_1) + T(0);
+  if constexpr (kNum) {
+    // the exterior's table: the distinct k of the rows (ek the
+    // candidate's), in the smem that the interior's tables leave (the
+    // loop's last barrier retired them)
+    const T ka = row_km[0], kb = row_km[2];
+    const bool two_k = !same_bits(kb, ka);
+    const int ek = same_bits(c.k, ka) ? 0 : two_k && same_bits(c.k, kb) ? 1
+                                                                        : -1;
+    const int ec =
+        static_cast<int>(scan_smem<T>(chunk) / (kRows * 3 * sizeof(T)));
+    const auto ext = [&](T m_e) {
+      return cyl_exterior_scan(p, m_e, c.k, c.m, ka, kb, two_k, ek, ec,
+                               reinterpret_cast<T*>(smem_raw), i < n);
+    };
+    finish_with(p, c.omega, c.k, c.m, xi1, f.F1, T(0), P1, w1, P2, w2, ext,
+                det, mism, valid);
+  } else {
+    finish<T, false>(p, c.omega, c.k, c.m, xi1, f.F1, T(0), P1, w1, P2, w2,
+                     det, mism, valid);
+  }
   if (i < n) {
     det_[i] = det;
     mism_[i] = mism;
@@ -296,11 +521,11 @@ struct SpecChain {
   }
   __device__ void coef(int i, const Entry& q, T omega, T k, T m, T& c0,
                        T& c1) const {
-    const Cand<T> c(p, omega, k, m);
+    const RowPoint<T> w = row_point(q, Cand<T>(p, omega, k, m));
     if (i < g.n_int) {
-      invF_g<T, false>(q, c, c0, c1);
+      invF_g<T, false>(q, w, omega, c0, c1);
     } else {
-      invF_g<T, true>(q, c, c0, c1);
+      invF_g<T, true>(q, w, omega, c0, c1);
     }
   }
   __device__ void start(T omega, T k, T m, T* y, Ctx& ctx) const {
@@ -379,7 +604,7 @@ int launch_scan_any(const void* omega, const void* k, const void* m,
                     void* det, void* mism, void* valid, long long n,
                     int threads, int chunk, const CylDispParams* p,
                     cudaStream_t s) {
-  const size_t smem = 2 * 3 * static_cast<size_t>(chunk) * sizeof(RPoint<T>);
+  const size_t smem = scan_smem<T>(chunk);
   if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(
       p->exterior_numeric
@@ -487,6 +712,31 @@ int eigk_cylinder_bisect_spec_f64(const void* lo, const void* hi,
                                               n_iter, final_eval, B, L, P, C,
                                               S, min_blocks, p, device,
                                               stream);
+}
+
+// The scans' tabled counts on `device` since the last read: out[0] the
+// candidates evaluated through a tabled row, out[1] those whose exterior
+// read the tabled exps (g_scan_tabled); then zeroes them. Waits for the
+// device's work. Returns the cudaError_t.
+int eigk_cylinder_scan_tabled(int device, unsigned long long* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = cudaDeviceSynchronize();
+  if (err == cudaSuccess) {
+    err = cudaMemcpyFromSymbol(out, eigk::g_scan_tabled,
+                               sizeof(eigk::g_scan_tabled));
+  }
+  if (err == cudaSuccess) {
+    const unsigned long long zero[2] = {0, 0};
+    err = cudaMemcpyToSymbol(eigk::g_scan_tabled, zero, sizeof(zero));
+  }
+  return static_cast<int>(err);
+}
+
+// scan_smem: the bytes of the density/axial-flow scan's tables at
+// `chunk` steps (f64: double, else float), for the Python mirror's check
+long long eigk_cylinder_scan_smem(int f64, int chunk) {
+  return static_cast<long long>(f64 ? eigk::scan_smem<double>(chunk)
+                                    : eigk::scan_smem<float>(chunk));
 }
 
 // sizeof(CylDispParams), for the Python mirror's layout check

@@ -64,6 +64,10 @@ _SIGNATURES = {
     # (f64, kind, threads, min_blocks, smem, out[3])
     "eigk_cylinder_tw_attrs": ((_I, _I, _I, _I, ctypes.c_longlong, _P), _I),
     "eigk_cylinder_params_size": ((), ctypes.c_longlong),
+    # (device, out[2])
+    "eigk_cylinder_scan_tabled": ((_I, _P), _I),
+    # (f64, chunk)
+    "eigk_cylinder_scan_smem": ((_I, _I), ctypes.c_longlong),
     # (omega, k, parity, det, mism, valid, n, threads, chunk, params,
     #  device, stream)
     "eigk_slab_disp_f32": ((_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I,

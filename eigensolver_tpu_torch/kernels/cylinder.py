@@ -8,9 +8,12 @@ whole interior shoot, the axis tail, the exterior (the inlined K_m ratio,
 `csrc/kve_ratio.cuh`, the port of the Pallas kernel
 `kernels/bessel.py::kve_ratio_pallas`; or, in a variant the parameters
 pick, the numeric exterior of `ode.py:22-47`) and the determinant in
-registers,
-reading the chain's r-only values from a table that its block computes in
-shared memory, chunk by chunk. `cylinder_bisect` (same file,
+registers, reading the chain's r-only values, and the (k, m, r) values of
+the (k, m) rows of its block's first and last candidates, from tables that
+its block computes in shared memory, chunk by chunk (the numeric
+exterior's exp(2 t) of those rows' k likewise); a candidate of another row
+forms its own with the same operations (`scan_tabled` counts the
+candidates that took the tables). `cylinder_bisect` (same file,
 `csrc/bisect.cuh::spec_kernel`) runs a whole fixed-count bisection of a
 bracket batch over the same chain in one launch
 (`eigensolver_tpu/search.py:142-169`, :468-522), with either exterior: its
@@ -132,15 +135,23 @@ def disp_params(case: CaseConfig) -> DispParams:
     return DispParams(case=case, struct=s)
 
 
-# the sizes of the scan's table entries, 16-byte aligned: RPoint<T>, 9
+# the sizes of the r-only table entries, 16-byte aligned: RPoint<T>, 9
 # values (csrc/cylinder_disp.cu); twisted, RPointTw<T>, 21
 # (csrc/cylinder_twisted.cu)
 _ENTRY_BYTES = {(torch.float32, False): 48, (torch.float64, False): 80,
                 (torch.float32, True): 96, (torch.float64, True): 176}
+# the density/axial-flow scan's tables per abscissa: the r-only entry and
+# the entries of its 2 rows, RowPoint<T>, 4 values (csrc/cylinder_disp.cu::
+# scan_smem; cylinder_disp holds the two to each other on the card)
+_SCAN_ENTRY_BYTES = {dtype: _ENTRY_BYTES[dtype, False] + 2 * 4 * size
+                     for dtype, size in ((torch.float32, 4),
+                                         (torch.float64, 8))}
 
 
 # The scan's launch shape: within 1% of the fastest of 15 shapes at both
-# types on an H100 at the cyl_co_09 sweep's 552,960 candidates
+# types on an H100 at the cyl_co_09 sweep's 552,960 candidates; with the
+# (k, m, r) row table, within 2% of the fastest of 15 at both types on
+# the cyl_flow_1 parity scan's 3,007,620 with the numeric exterior
 # (`tools_torch/tune_disp.py`, PERF.md section 6)
 SCAN_SHAPE = ScanShape(threads=256, chunk=64)
 
@@ -169,7 +180,19 @@ def _check_scan_shape(shape: ScanShape, dtype: torch.dtype,
     threads = ((TW_SCAN_THREADS,) if twisted else
                (SCAN_SHAPE.threads,) if numeric else (128, 256, 512))
     check_scan_shape("cylinder_disp", shape, threads,
-                     _ENTRY_BYTES[dtype, twisted])
+                     _ENTRY_BYTES[dtype, True] if twisted
+                     else _SCAN_ENTRY_BYTES[dtype])
+
+
+def _check_scan_smem(dtype: torch.dtype, chunk: int) -> None:
+    """Raise unless the density/axial-flow scan's tables take the bytes
+    that _SCAN_ENTRY_BYTES gives (csrc/cylinder_disp.cu::scan_smem)."""
+    from . import _build
+    got = _build.library().eigk_cylinder_scan_smem(
+        int(dtype == torch.float64), chunk)
+    if got != 2 * 3 * chunk * _SCAN_ENTRY_BYTES[dtype]:
+        raise RuntimeError(f"cylinder_disp: the scan's tables take {got} B "
+                           f"in CUDA, not what _SCAN_ENTRY_BYTES gives")
 
 
 def cylinder_disp(omega: torch.Tensor, k: torch.Tensor, m: torch.Tensor,
@@ -200,11 +223,29 @@ def cylinder_disp(omega: torch.Tensor, k: torch.Tensor, m: torch.Tensor,
                                       else SCAN_SHAPE)))
         _check_scan_shape(shape, omega.dtype, twisted,
                           bool(params.struct.exterior_numeric))
+        if not twisted and omega.is_cuda and omega.numel():
+            _check_scan_smem(omega.dtype, shape.chunk)
         det, mism, valid = launch_disp(
             "cylinder_disp", _ENTRY, "eigk_cylinder_params_size",
             params.struct, omega, k, m, shape)
     launches += omega.numel() > 0
     return CylinderInterface(det=det, mismatch_pct=mism, valid=valid)
+
+
+def scan_tabled(device) -> tuple:
+    """(rows, exterior): the candidates that the density/axial-flow scans
+    on the CUDA `device` evaluated through their block's row table, and
+    those whose numeric exterior read the block's table of exps, since the
+    last call (each launch's candidates in their block's first or last
+    row: the whole batch when its rows are at least a block long); zeroes
+    both. Waits for the device's work."""
+    from . import _build
+    out = (ctypes.c_ulonglong * 2)()
+    dev = torch.device(device)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    _build.check(_build.library().eigk_cylinder_scan_tabled(index, out),
+                 "cylinder_disp tabled counts")
+    return int(out[0]), int(out[1])
 
 
 def _plain(params: DispParams, dtype: torch.dtype):

@@ -187,9 +187,52 @@ def test_kernel_params_carry_the_exterior():
         (0, 3.0, 512)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_exterior_exp_table_model_bit_equal_to_plain(dtype):
+    """The factoring of the numeric cylinder scan's exterior keeps the bits:
+    with exp(2 t) formed once per distinct k at each abscissa of its grid
+    (csrc/cylinder_disp.cu::cyl_exterior_scan's table) and each
+    candidate's RK4 step from its k's values (ode._step), dP/dr / P equals
+    the plain exterior's bit for bit on a ladder batch, at both modes."""
+    from eigensolver_tpu_torch import ode
+    from eigensolver_tpu_torch.profiles import rdiv
+    case = dataclasses.replace(
+        numeric(cases.cylinder_flow_coronal(0.05, 1.0), 3.0, 96,
+                n_interior=64), k_values=(0.05, 0.9, 3.7))
+    ph = CylinderPhysics.from_case(case)
+    om, ks = sweep.build_ladders(case, 37)
+    om = torch.from_numpy(np.concatenate([om, om]).reshape(-1)).to(dtype)
+    k = torch.from_numpy(np.repeat(np.concatenate([ks, ks]), 37)).to(dtype)
+    m = torch.from_numpy(np.repeat([0.0, 1.0], len(ks) * 37)).to(dtype)
+    m_e = ph.exterior_m(om, k)
+    want = ph.numeric_exterior(m_e, k, m)
+    # the table: per distinct k, its grid and exp(2 t) at each abscissa
+    uk, k_of = np.unique(k.numpy(), return_inverse=True)
+    k_of = torch.from_numpy(k_of.reshape(-1))
+    uk = torch.from_numpy(uk)
+    gr = case.grid
+    r_far = rdiv(gr.exterior_wavelengths * 2.0 * np.pi, uk)
+    t0 = torch.log(r_far)
+    h, hh, h6 = ode._spacing(t0, torch.zeros_like(t0), gr.n_exterior)
+    y = (torch.full_like(k, 1e-8), -1e-8 * r_far[k_of])
+    for i in range(gr.n_exterior):
+        x = t0 + i * h
+        ex = [torch.exp(2.0 * x), torch.exp(2.0 * (x + hh))]
+        ex = iter([ex[0], ex[1], ex[1], torch.exp(2.0 * (x + h))])
+        y = ode._step(
+            lambda t, y: (y[1], (m * m + m_e * next(ex)[k_of]) * y[0]), y,
+            x[k_of], h[k_of], hh[k_of], h6[k_of])
+    got = y[1] / y[0]
+    assert len(uk) == 3 < k.numel()
+    assert bool(want.isfinite().all())
+    assert torch.equal(got, want)
+
+
 def test_exterior_op_counts_match_chip_smoke():
     """chip_smoke.py's bounds count the exteriors' operations as
-    tools_torch/count_ops.py traces them from the plain RK4 step."""
+    tools_torch/count_ops.py traces them from the plain RK4 step, and the
+    density/axial-flow chain's split into what depends on omega and what
+    on its (k, m, r) row alone as it traces the plain chain."""
     import importlib.util
     from pathlib import Path
     root = Path(__file__).resolve().parent.parent
@@ -202,13 +245,23 @@ def test_exterior_op_counts_match_chip_smoke():
         return mod
 
     count_ops = load("tools_torch/count_ops.py")
-    counts = count_ops.exterior_ops()
+    counts = {**count_ops.cylinder_ops(), **count_ops.exterior_ops()}
     ops = load("chip_smoke.py").OPS
     assert counts and {key: ops[key] for key in counts} == counts
-    # the cylinder's step takes 3 exps (k2 and k3 share x + h/2) and its
-    # abscissae besides the slab's
+    # the cylinder's step takes 3 exps (k2 and k3 share x + h/2), of its
+    # abscissae 2 t, which depend on k alone: with the abscissae and their
+    # forming x0 + i h, 10 a step once per distinct k; per candidate its
+    # products by m_e besides the slab's step
     assert sum(key[0] == "exp" for key in count_ops.Sym.nodes) == 3
+    assert ops["cyl_ext_k_step"] == 3 + 3 + 2 + 2
     assert ops["cyl_ext_step"] > ops["slab_ext_step"]
+    # the chain's row class: k U, alpha = k B_z / sqrt(rho) and its
+    # square, the cusp speed (2) and its square, m^2 / r^2 + k^2 and its
+    # product by c^2 + vA^2: 9 of an evaluation, 3 a step; what stays per
+    # candidate is the rest of the hand count (155 a step)
+    assert ops["cyl_row_step"] == ops["cyl_log_row_step"] == 3 * 9
+    assert ops["cyl_step"] + ops["cyl_row_step"] == 155
+    assert ops["cyl_log_step"] - ops["cyl_step"] == 6
 
 
 @pytest.mark.parametrize("module", [kslab, kcyl], ids=["slab", "cylinder"])

@@ -185,8 +185,10 @@ def test_twisted_scan_shape_fits_the_card(dtype):
     kcyl._check_scan_shape(kcyl.TW_SCAN_SHAPE[dtype], dtype, twisted=True)
     assert kcyl._ENTRY_BYTES[dtype, True] == (96 if dtype == torch.float32
                                               else 176)
-    # a chunk whose table fits at 9 values an entry, not at 21
-    big = kcyl.ScanShape(128, 500 if dtype == torch.float32 else 300)
+    # a chunk whose tables fit the density/axial-flow scan's abscissa (an
+    # r-only entry of 9 values and 2 row entries of 4), not the twisted
+    # entry of 21
+    big = kcyl.ScanShape(128, 450 if dtype == torch.float32 else 250)
     kcyl._check_scan_shape(big, dtype)
     with pytest.raises(ValueError, match="launch shape"):
         kcyl._check_scan_shape(big, dtype, twisted=True)

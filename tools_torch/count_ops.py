@@ -1,6 +1,7 @@
 """Count the operations of the twisted cylinder chain, of the numeric
-exteriors and of the complex-omega slab chain that chip_smoke.py's bounds
-use (its OPS entries "cyl_tw_*", "slab_ext_*", "cyl_ext_*", "slab_cx_*").
+exteriors, of the complex-omega slab chain and the row class of the
+density/axial-flow cylinder chain that chip_smoke.py's bounds use (its OPS
+entries "cyl_tw_*", "slab_ext_*", "cyl_ext_*", "slab_cx_*", "cyl_*step").
 
     python tools_torch/count_ops.py
 
@@ -9,11 +10,25 @@ prints the traced counts ("traced") and the entries of OPS ("ops").
 The numeric exteriors (`exterior_ops`): one RK4 step of `ode._step` with
 the plain right-hand sides of `physics/slab.py` and `physics/cylinder.py`
 (the order csrc/common.cuh::slab_exterior, cyl_exterior follow), traced on
-symbols: per step what depends on the state or the abscissa, per candidate
-what depends on the candidate alone (the cylinder's m^2), each exp one
-operation; by hand, the abscissa x0 + i h (the cylinder's; the slab's
-right-hand side reads none), the renormalisation every 64th step and the
-set-up and end of each (below).
+symbols: per candidate and step what depends on the state or on the
+candidate and the abscissa, per candidate what depends on the candidate
+alone (the cylinder's m^2), each exp one operation. The cylinder's
+abscissae t and its step depend on k alone (t0 = ln(W 2 pi / k)), so its
+exp(2 t) at each abscissa is needed once per distinct k
+("cyl_ext_k_step"), as are the set-up ("cyl_ext_k_ends"). By hand, the
+abscissa x0 + i h (the cylinder's; the slab's right-hand side reads none),
+the renormalisation every 64th step and the set-up and end of each
+(below).
+
+The density/axial-flow cylinder chain (`cylinder_ops`): one evaluation of
+`physics/cylinder.py::_plain_coefficients`' invF_g (the order csrc/
+cylinder_disp.cu follows) traced on symbols omega, k, m and r, tallied by
+what each operation depends on. k U, alpha^2, cusp^2 and (c^2 + vA^2)
+(m^2/r^2 + k^2) depend on (k, m, r) and not on omega: per distinct (k,
+m) row and abscissa ("cyl_row_step", "cyl_log_row_step", 3 evaluations a
+step), once for every candidate of the row. The per-candidate counts
+("cyl_step", "cyl_log_step") are the chain's hand counts (`CYL_STEP`)
+less that class.
 
 Traces `physics/cylinder.py::CylinderPhysics.twisted_chain` (the order of
 operations that csrc/cylinder_disp.cu::twisted_chain follows) on symbols
@@ -88,7 +103,14 @@ ABSCISSAE = 4        # x0 + i h, + h/2, + h
 # r_far) and the end (vx'/vx or dP/P: 1)
 EXT_ABSCISSA = 2
 EXT_RENORM = 4
-EXT_ENDS = {"slab_ext_ends": 6 + 1, "cyl_ext_ends": 7 + 1}
+EXT_ENDS = {"slab_ext_ends": 6 + 1, "cyl_ext_ends": 1}
+EXT_K_ENDS = 7       # the cylinder's set-up, which depends on k alone
+# the density/axial-flow chain per candidate and RK4 step, by hand from
+# csrc/cylinder_disp.cu: 3 evaluations of invF_g (29 each, the tests of the
+# zero-valued terms included) and the update; on the log tail also (r iF,
+# r g) (6)
+CYL_STEP = {"cyl_step": 3 * 29 + RK4_UPDATE,
+            "cyl_log_step": 3 * 29 + RK4_UPDATE + 6}
 # the same counts, traced from the chain in its quotient form (commit
 # 6809e05: dual quotients by r, r^2, sqrt(rho) and sqrt(c^2 + vA^2))
 QUOTIENT_FORM = {"cyl_tw_step": 590, "cyl_tw_ends": 85,
@@ -261,15 +283,17 @@ def traced_ops(b_phi_zero: bool) -> dict:
 
 
 def exterior_ops() -> dict:
-    """chip_smoke.py's OPS entries for the numeric exteriors: per RK4 step
-    ("*_ext_step": the slab's without its rescaling, "slab_ext_renorm"
-    every 64th step), per candidate ("*_ext_ends": set-up, the cylinder's
-    m^2, the end)."""
+    """chip_smoke.py's OPS entries for the numeric exteriors: per candidate
+    and RK4 step ("*_ext_step": the slab's without its rescaling,
+    "slab_ext_renorm" every 64th step), per candidate ("*_ext_ends": the
+    slab's set-up, the cylinder's m^2, the end); per distinct k, the
+    cylinder's exps and abscissae a step ("cyl_ext_k_step") and its set-up
+    ("cyl_ext_k_ends")."""
     import torch
     from eigensolver_tpu_torch import ode
     Sym.nodes = {}
-    m_e, mm, h, hh, h6 = (Sym({"c"}) for _ in range(5))
-    x = Sym({"s"})
+    m_e, mm = Sym({"c"}), Sym({"c"})
+    h, hh, h6, x = (Sym({"k"}) for _ in range(4))
     y = (Sym({"s"}), Sym({"s"}))
     slab = ode._step(lambda x, y: (y[1], m_e * y[0]), y, x, h, hh, h6)
     exp = torch.exp
@@ -283,11 +307,55 @@ def exterior_ops() -> dict:
     ts, tc = _tally_deps(slab), _tally_deps(cyl)
 
     def per_step(t):
-        return sum(n for d, n in t.items() if "s" in d)
+        return sum(n for d, n in t.items() if "s" in d or d == "ck")
     return {"slab_ext_step": per_step(ts), "slab_ext_renorm": EXT_RENORM,
             "slab_ext_ends": EXT_ENDS["slab_ext_ends"] + ts.get("c", 0),
-            "cyl_ext_step": per_step(tc) + EXT_ABSCISSA,
-            "cyl_ext_ends": EXT_ENDS["cyl_ext_ends"] + tc.get("c", 0)}
+            "cyl_ext_step": per_step(tc),
+            "cyl_ext_ends": EXT_ENDS["cyl_ext_ends"] + tc.get("c", 0),
+            "cyl_ext_k_step": tc.get("k", 0) + EXT_ABSCISSA,
+            "cyl_ext_k_ends": EXT_K_ENDS}
+
+
+class _RadialEq:
+    """An equilibrium whose profiles are values of the radius r, B_z a
+    constant of the launch."""
+
+    def __getattr__(self, name):
+        if name == "B_i":
+            return lambda r: Sym()
+        return lambda r: Sym({"r"})
+
+
+def chain_tally() -> dict:
+    """One evaluation of the density/axial-flow chain's invF_g, traced on
+    symbols omega ("w"), k, m and r: its operations by what they depend
+    on (a zero-valued term, 0/x, counts nothing here)."""
+    import types
+    import torch
+    from eigensolver_tpu_torch.physics import cylinder
+    Sym.nodes = {}
+    saved = torch.zeros_like, cylinder.sqrt
+    torch.zeros_like = lambda x: ZERO
+    cylinder.sqrt = lambda a: Sym._unary("sqrt", a)
+    try:
+        fns = cylinder.CylinderPhysics._plain_coefficients(
+            types.SimpleNamespace(eq=_RadialEq()), Sym({"w"}), Sym({"k"}),
+            Sym({"m"}))
+        return _tally_deps(list(fns[4](Sym({"r"}))))
+    finally:
+        torch.zeros_like, cylinder.sqrt = saved
+
+
+def cylinder_ops() -> dict:
+    """chip_smoke.py's OPS entries for the density/axial-flow chain: per
+    distinct (k, m) row and RK4 step, the (k, m, r) values of its 3
+    evaluations ("cyl_row_step", on the log tail "cyl_log_row_step"); per
+    candidate and step the hand counts less them."""
+    t = chain_tally()
+    row = 3 * sum(n for d, n in t.items()
+                  if "r" in d and "w" not in d and set(d) & {"k", "m"})
+    return {"cyl_row_step": row, "cyl_log_row_step": row,
+            **{key: n - row for key, n in CYL_STEP.items()}}
 
 
 def _sym_divisor(z):
@@ -433,10 +501,11 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     ext = exterior_ops()
     cx = complex_ops()
+    cyl = cylinder_ops()
     print(json.dumps({"traced": {**traced_ops(False), **traced_ops(True),
-                                 **ext, **cx},
+                                 **ext, **cx, **cyl},
                       "ops": {**twisted_ops(False), **twisted_ops(True),
-                              **ext, **cx}}))
+                              **ext, **cx, **cyl}}))
     return 0
 
 

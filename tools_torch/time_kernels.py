@@ -3,7 +3,7 @@
 
     python3 tools_torch/time_kernels.py [--pkg-root DIR] [--label NAME]
                                         [--out PATH] [--complex]
-                                        [--roots PATH]
+                                        [--cylinder-scan] [--roots PATH]
 
 Imports `eigensolver_tpu_torch` from DIR (default: this repository), builds
 its kernels and prints one JSON line of device times (CUDA events, mean of
@@ -38,7 +38,19 @@ several launches after a warm-up):
     non-finite omegas and those whose Im omega has reached 0); the KH
     sweeps' walls at widths 1e5 and 1.0 (medians of 3, `kh_walls`);
   - the CALL instructions in each kve_ratio kernel's SASS (`cuobjdump`),
-    where the toolkit has it.
+    where the toolkit has it, and every kernel's ptxas lines (registers,
+    spills);
+  - the scan cylinder_disp (`--cylinder-scan` times only this): with the
+    numeric exterior on the whole cyl_flow_1 parity ladder in ladder order
+    (3,007,620) and on 8,191 random draws of the cyl_flow_1 ladder (as
+    chip_smoke.py's phase 13 draws them), with the K_m ratio on the
+    cyl_co_09 sweep's ladder in ladder order (552,960) and on as many
+    random draws of it (phase 4's), float32 and float64; the walls (medians of 3 after a first run) of the cyl_flow_1
+    parity sweeps (float32 refined in float64, and float64) and of the
+    cyl_co_09 float32 sweep; the scan's registers and spills (ptxas) and,
+    per instantiation, the static counts of the SASS instructions behind
+    its divisions and exps (MUFU.RCP, MUFU.RCP64H, MUFU.EX2, FCHK, DFMA,
+    and the shared-memory loads LDS).
 To compare two commits on one card, unpack the other into a git-ignored
 directory and run both in turns (A B B A) on the same card; `--complex`
 times only the complex-omega kernels, `--roots PATH` saves the KH Newton
@@ -322,27 +334,127 @@ def newton_chain(n_steps: int = 30) -> dict:
             "eval_roots_lifted_ms": eval_ms(lifted)}
 
 
-def sass_calls(lib: Path) -> dict:
-    """CALL instructions (and their targets) per kve_ratio kernel in the
-    library's SASS; empty without cuobjdump."""
+def _sass_functions(lib: Path, kernel: str):
+    """(mangled name, SASS lines) of each function of the library whose
+    name holds `kernel` (cuobjdump); none without cuobjdump."""
     cuda = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
     tool = shutil.which("cuobjdump") or str(cuda / "bin" / "cuobjdump")
     if not Path(tool).is_file():
-        return {}
+        return
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, timeout=300).stdout
-    out, name = {}, None
-    for ln in sass.splitlines():
+    name, lines = None, []
+    for ln in sass.splitlines() + ["Function : <end>"]:
         m = re.search(r"Function : (\S+)", ln)
         if m:
-            name = m.group(1) if "kve_ratio_kernel" in m.group(1) else None
             if name:
-                out[name] = {"calls": 0, "targets": []}
-        elif name and re.search(r"\bCALL\b", ln):
-            out[name]["calls"] += 1
-            tgt = ln.split("CALL", 1)[1].split(";")[0].strip()
-            if tgt not in out[name]["targets"]:
-                out[name]["targets"].append(tgt)
+                yield name, lines
+            name = m.group(1) if kernel in m.group(1) else None
+            lines = []
+        elif name:
+            lines.append(ln)
+
+
+def sass_calls(lib: Path) -> dict:
+    """CALL instructions (and their targets) per kve_ratio kernel in the
+    library's SASS; empty without cuobjdump."""
+    out = {}
+    for name, lines in _sass_functions(lib, "kve_ratio_kernel"):
+        calls = [ln.split("CALL", 1)[1].split(";")[0].strip()
+                 for ln in lines if re.search(r"\bCALL\b", ln)]
+        out[name] = {"calls": len(calls),
+                     "targets": list(dict.fromkeys(calls))}
+    return out
+
+
+# the SASS instructions behind a division (MUFU.RCP and its check FCHK at
+# float32; MUFU.RCP64H and the DFMA refinement at float64) and an exp
+# (MUFU.EX2), and the shared-memory loads
+SASS_OPS = ("MUFU.RCP64H", "MUFU.RCP", "MUFU.EX2", "FCHK", "DFMA", "LDS")
+
+
+def sass_counts(lib: Path, kernel: str) -> dict:
+    """Static counts of SASS_OPS in each instantiation of `kernel` in the
+    library's SASS (the function's whole body); empty without cuobjdump."""
+    out = {}
+    for name, lines in _sass_functions(lib, kernel):
+        count = out[name] = dict.fromkeys(SASS_OPS, 0)
+        for ln in lines:
+            op = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)", ln)
+            key = op and next((k for k in SASS_OPS if op.group(1) == k
+                               or op.group(1).startswith(k + ".")), None)
+            if key:
+                count[key] += 1
+    return out
+
+
+def ptxas_lines(kernel: str) -> dict:
+    """The ptxas report (-Xptxas -v) of each instantiation of `kernel`:
+    its registers, spills and shared memory lines."""
+    from eigensolver_tpu_torch.kernels import _build
+    log = _build.library_path().with_suffix(".log").read_text()
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1) if kernel in m.group(1) else None
+            continue
+        if name and ("registers" in ln or "spill" in ln):
+            out.setdefault(name, []).append(ln.split("ptxas info    :")[-1]
+                                            .strip())
+    return out
+
+
+def _walls(case, cfg, refine: bool, runs: int = 3) -> dict:
+    """One sweep on the card, then `runs` timed ones: their median wall
+    and the counts."""
+    import statistics
+    from eigensolver_tpu_torch import sweep
+    rs, _ = sweep.run_case(case, cfg, device="cuda", refine_f64=refine)
+    walls = [sweep.run_case(case, cfg, device="cuda",
+                            refine_f64=refine)[1].wall_s
+             for _ in range(runs)]
+    return {"median_wall_s": statistics.median(walls), "walls": walls,
+            "counts": rs.counts()}
+
+
+def cylinder_scan_times(lib: Path) -> dict:
+    """The scan cylinder_disp's times (see the module's docstring)."""
+    import torch
+    from eigensolver_tpu_torch import cases, equilibrium, search, sweep
+    from tools_torch import batches, parity
+    out = {}
+    flow, _, _ = parity.configure("cyl_flow_1", cases, search.SearchConfig,
+                                  equilibrium.genuine_continua, "float32")
+    co = cases.cylinder_density_coronal(0.9)
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype)[6:]
+        disp = sweep.make_dispersion_moded(flow, dtype)
+        cand = batches.flat_ladder(
+            flow, parity.TARGETS["cyl_flow_1"]["n_omega"], dtype)
+        out[f"numeric full {dname}"] = {
+            "n": cand[0].numel(), "ms": cuda_ms(lambda: disp(*cand), 3)}
+        cand = batches.ladder_draws(flow, 8191, 13, dtype)
+        out[f"numeric ragged {dname}"] = {
+            "n": cand[0].numel(), "ms": cuda_ms(lambda: disp(*cand), 10)}
+        disp = sweep.make_dispersion_moded(co, dtype)
+        cand = batches.flat_ladder(co, 256, dtype)
+        out[f"analytic cyl_co_09 {dname}"] = {
+            "n": cand[0].numel(), "ms": cuda_ms(lambda: disp(*cand), 5)}
+        cand = batches.ladder_draws(co, cand[0].numel(), 2, dtype)
+        out[f"analytic cyl_co_09 random {dname}"] = {
+            "n": cand[0].numel(), "ms": cuda_ms(lambda: disp(*cand), 5)}
+    for dtype in ("float32", "float64"):
+        case, cfg, refine = parity.configure(
+            "cyl_flow_1", cases, search.SearchConfig,
+            equilibrium.genuine_continua, dtype)
+        out[f"cyl_flow_1 parity {dtype} wall"] = _walls(case, cfg, refine)
+    out["cyl_co_09 float32 wall"] = _walls(
+        co, search.SearchConfig(n_omega=256, n_bisect=18,
+                                scan_dtype="float32",
+                                polish_dtype="float32"), False)
+    out["ptxas"] = ptxas_lines("cylinder_disp_kernel")
+    out["sass"] = sass_counts(lib, "cylinder_disp_kernel")
     return out
 
 
@@ -354,10 +466,12 @@ def main() -> int:
     ap.add_argument("--out", help="also write the report here as JSON")
     ap.add_argument("--complex", action="store_true",
                     help="time only the complex-omega kernels")
+    ap.add_argument("--cylinder-scan", action="store_true",
+                    help="time only the scan cylinder_disp and its sweeps")
     ap.add_argument("--roots", help="save the KH Newton roots here (.npz)")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.pkg_root).resolve()))
-    sys.path.insert(1, str(ROOT))           # tools_torch.parity
+    sys.path.insert(1, str(ROOT))           # tools_torch
     import warnings
     import torch
     from eigensolver_tpu_torch.kernels import _build
@@ -372,6 +486,13 @@ def main() -> int:
     lib = _build.build()
     out = {"label": args.label, "nvidia_smi": smi,
            "package": str(Path(_build.__file__).resolve().parents[1])}
+    if args.cylinder_scan:
+        out.update(cylinder_scan_times(lib))
+        print(json.dumps(out), flush=True)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(out, indent=1))
+        return 0
     if not args.complex:
         real_times(out, args.pkg_root)
     try:
@@ -385,6 +506,7 @@ def main() -> int:
         out["kh_w1 complex float64"] = "not ported"
     if not args.complex:
         out["sass"] = sass_calls(lib)
+        out["ptxas"] = ptxas_lines("")
     print(json.dumps(out), flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

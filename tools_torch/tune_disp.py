@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Launch shapes of the scan kernels, timed on a CUDA card.
 
-    python3 tools_torch/tune_disp.py [--kernel cylinder|slab|twisted|all]
-                                     [--out PATH]
+    python3 tools_torch/tune_disp.py [--kernel cylinder|cylinder_numeric|
+                                              slab|twisted|all]
+                                     [--pkg-root DIR] [--out PATH]
 
 Times each scan kernel at every (threads per block, table chunk of RK4
 steps) of a grid, checks that each shape gives the default shape's bits,
@@ -10,6 +11,13 @@ and prints per set the default's time and the fastest shapes:
   - `cylinder_disp` (default `kernels.cylinder.SCAN_SHAPE`) on the cyl_co_09
     sweep's own ladder scan (552,960 candidates, both modes, in ladder
     order), float32 and float64;
+  - `cylinder_disp` with the numeric exterior (`cylinder_numeric`) on the
+    cyl_flow_1 parity sweep's ladder scan (3,007,620 candidates, in
+    ladder order), float32 and float64, at every chunk of each block size
+    the checkout builds it for (`SCAN_SHAPE`'s; the tool tries 128 and 512
+    too and reports the ones the checkout refuses: another block size is
+    a local edit of `launch_scan_threads` in csrc/cylinder_disp.cu and of
+    `kernels.cylinder._check_scan_shape`, run with `--pkg-root`);
   - `slab_disp` (default `kernels.slab.scan_shape`) on slab_ph_09's ladder
     scan (161,280, flux form) and slab_flow_gaussian_coronal's (179,200,
     shear form), float32 and float64, and on the float64 window launch of
@@ -56,19 +64,6 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def ladder_candidates(case, dtype):
-    """The sweep's scan candidates (omega, k, mode), flat, as CUDA
-    tensors."""
-    import torch
-    from eigensolver_tpu_torch import sweep
-    om, ks = sweep.build_ladders(case, 256)
-    n_om = om.shape[1]
-    flat = [np.concatenate([om.ravel()] * 2),
-            np.repeat(np.concatenate([ks] * 2), n_om),
-            np.repeat([0.0, 1.0], om.size)]
-    return [torch.from_numpy(x).to(device="cuda", dtype=dtype) for x in flat]
-
-
 def window_candidates(case):
     """The float64 window ends of the refine stage of the case's float32
     sweep (n_omega=256, n_bisect=18) on the card, as CUDA tensors (omega,
@@ -90,12 +85,16 @@ def window_candidates(case):
 def tune(label: str, kernel, default, threads, cand, params) -> dict:
     """kernel(*cand, params, shape=...) at every shape of the grid: each
     checked to give the default shape's bits, timed; the default's time and
-    the fastest shapes."""
+    the fastest shapes (the shapes the checkout refuses listed apart)."""
     ref = kernel(*cand, params, shape=default)
-    res = {}
+    res, refused = {}, []
     for shape in itertools.product(threads, CHUNKS):
         shape = type(default)(*shape)
-        got = kernel(*cand, params, shape=shape)
+        try:
+            got = kernel(*cand, params, shape=shape)
+        except ValueError:
+            refused.append(list(shape))
+            continue
         for a, b in zip(got, ref):
             if not bool(((a == b) | (a.isnan() & b.isnan())).all()):
                 raise AssertionError(f"{label}: shape {shape} differs")
@@ -104,7 +103,8 @@ def tune(label: str, kernel, default, threads, cand, params) -> dict:
     out = {"n": cand[0].numel(), "default": list(default),
            "default_ms": res[default],
            "best": [[list(s), ms] for s, ms in best],
-           "all": {",".join(map(str, s)): ms for s, ms in res.items()}}
+           "all": {",".join(map(str, s)): ms for s, ms in res.items()},
+           "refused": refused}
     print(label, json.dumps(out), flush=True)
     return out
 
@@ -114,6 +114,7 @@ def tune_twisted(out: dict) -> None:
     import torch
     from eigensolver_tpu_torch import cases
     from eigensolver_tpu_torch.kernels import common, cylinder
+    from tools_torch import batches
     fams = {"twist_v01_p1": cases.cylinder_twisted_photospheric(0.1, 1.0, 1),
             "magnetic_p125": cases.cylinder_twisted_magnetic(0.1, 0.15, 1.25,
                                                              1)}
@@ -122,9 +123,8 @@ def tune_twisted(out: dict) -> None:
     for fam, case in fams.items():
         params = cylinder.disp_params(case)
         for dtype in (torch.float32, torch.float64):
-            # the sweep's own scan: one mode (m = 1), the ladder in order
-            cand = [x[x.numel() // 2:].contiguous()
-                    for x in ladder_candidates(case, dtype)]
+            # the sweep's own scan: its one mode (m = 1), the ladder in order
+            cand = batches.flat_ladder(case, 256, dtype)
             label = f"twisted scan {fam} {str(dtype)[6:]}"
             out[label] = tune_grid(label, cylinder.cylinder_disp,
                                    cylinder.TW_SCAN_SHAPE[dtype], shapes,
@@ -133,8 +133,7 @@ def tune_twisted(out: dict) -> None:
     params = cylinder.disp_params(case)
     eb = cylinder._ENTRY_BYTES
     for dtype in (torch.float32, torch.float64):
-        full = [x[x.numel() // 2:].contiguous()
-                for x in ladder_candidates(case, dtype)]
+        full = batches.flat_ladder(case, 256, dtype)
         sets = {n: [x[:n].contiguous() for x in full]
                 for n in (4096, 8192, 16384, 24576, 32768)}
         if dtype == torch.float64:
@@ -187,15 +186,20 @@ def tune_grid(label: str, kernel, default, shapes, cand, params,
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("cylinder", "slab", "twisted", "all"),
+    ap.add_argument("--kernel", choices=("cylinder", "cylinder_numeric",
+                                         "slab", "twisted", "all"),
                     default="all")
+    ap.add_argument("--pkg-root", default=str(ROOT),
+                    help="directory holding eigensolver_tpu_torch")
     ap.add_argument("--out", help="also write the report here as JSON")
     args = ap.parse_args()
-    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(Path(args.pkg_root).resolve()))
+    sys.path.insert(1, str(ROOT))           # tools_torch
     import warnings
     import torch
     from eigensolver_tpu_torch import cases
     from eigensolver_tpu_torch.kernels import cylinder, slab
+    from tools_torch import batches
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA card")
     warnings.simplefilter("ignore")         # saturated-row notices
@@ -212,7 +216,19 @@ def main() -> int:
             name = f"cylinder_disp {str(dtype)[6:]}"
             out[name] = tune(name, cylinder.cylinder_disp, cylinder.SCAN_SHAPE,
                              THREADS["cylinder"],
-                             ladder_candidates(case, dtype), params)
+                             batches.flat_ladder(case, 256, dtype), params)
+    if args.kernel in ("cylinder_numeric", "all"):
+        from eigensolver_tpu_torch import equilibrium, search
+        from tools_torch import parity
+        case, cfg, _ = parity.configure("cyl_flow_1", cases,
+                                        search.SearchConfig,
+                                        equilibrium.genuine_continua)
+        for dtype in (torch.float32, torch.float64):
+            name = f"cylinder_disp numeric cyl_flow_1 {str(dtype)[6:]}"
+            out[name] = tune(name, cylinder.cylinder_disp,
+                             cylinder.SCAN_SHAPE, THREADS["cylinder"],
+                             batches.flat_ladder(case, cfg.n_omega, dtype),
+                             cylinder.disp_params(case))
     if args.kernel in ("slab", "all"):
         for form, case in (("flux slab_ph_09",
                             cases.slab_density_photospheric(0.9)),
@@ -222,7 +238,7 @@ def main() -> int:
             shear = bool(params.struct.shear)
             for dtype in (torch.float32, torch.float64):
                 name = f"slab_disp {form} {str(dtype)[6:]}"
-                cand = ladder_candidates(case, dtype)
+                cand = batches.flat_ladder(case, 256, dtype)
                 out[name] = tune(name, slab.slab_disp,
                                  slab.scan_shape(cand[0].numel(), shear),
                                  THREADS["slab"], cand, params)
