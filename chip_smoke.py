@@ -40,18 +40,26 @@ any failure raises and the script exits non-zero:
 6. slab_disp kernel vs its plain version, 8,192 candidates of the full
    slab_ph_09 ladder (flux form) and of slab_flow_gaussian_coronal (shear
    form); at each sweep's scan size (161,280 and 179,200 candidates) and
-   at float32 and float64, the kernel's time, its bound, and the plain
-   version's time and bits on the same candidates; the same at the size of
-   the refine stage's float64 window launch (the 1,530 window ends of the
-   slab_ph_09 float32 sweep's roots); the launch shape of each, and the
-   kernel's registers and spills (ptxas). Every set bit-equal at both
+   at float32 and float64, the unpaired scan on random draws and the
+   paired scan (both parities of an (omega, k) in one thread, every
+   candidate counted as paired) on the sweep's whole ladder in ladder
+   order, beside the unpaired scan's time there: each kernel's time, its
+   bound (the paired one's beside the bound of 3 chains a step for every
+   candidate), and the plain version's time and bits on the same
+   candidates; the unpaired scan at the size of the refine stage's
+   float64 window launch (the 1,530 window ends of the slab_ph_09 float32
+   sweep's roots), none counted as paired; the launch shape of each, and
+   the kernels' registers and spills (ptxas). Every set bit-equal at both
    types.
 7. the slab sweep: run_case(slab_density_photospheric(0.9), n_omega=256,
-   n_bisect=18, float32) with the counters reset (one slab_disp and one
+   n_bisect=18, float32) with the counters reset (one slab_disp launch,
+   the paired scan, every candidate counted as paired, and one
    slab_bisect launch, never the plain dispersion), 3 timed runs, one
-   float64 run, float64 sweeps of the two flow cases, float32 sweeps with
+   float64 run, float64 sweeps of the two flow cases (each scan paired),
+   float32 sweeps with
    refine_f64=True (4 launches each: the scan, the bracket stage, the f64
-   refine windows and the f64 refine bisection; once, then 3 timed runs);
+   refine windows, unpaired, and the f64 refine bisection; once, then 3
+   timed runs);
    counts per branch held against the JAX package's; reduced sweeps on the
    card (float64, and float32 refined in float64) held against the same
    sweeps on the CPU.
@@ -103,10 +111,12 @@ any failure raises and the script exits non-zero:
    float64: slab_disp in both forms and cylinder_disp on ragged batches of
    8,191 ladder draws (the parity configurations of slab_ph_09 and
    cyl_flow_1, tools_torch/parity.py; a Gaussian-flow slab at 3
-   wavelengths); cylinder_disp on phase 4's row layouts of cyl_flow_1,
-   with the candidates through the row and the exps' tables; each whole
-   parity scan in ladder order (349,440 and 3,007,620) timed beside its
-   bound, the plain version's time and bits (the cylinder's every
+   wavelengths; the unpaired scan); cylinder_disp on phase 4's row
+   layouts of cyl_flow_1, with the candidates through the row and the
+   exps' tables; each whole parity scan in ladder order (349,440 and
+   3,007,620) timed beside its bound, the plain version's time and bits
+   (the slab's through the paired scan, every candidate counted, beside
+   the unpaired scan's time and the old bound; the cylinder's every
    candidate through both tables);
    slab_bisect and cylinder_bisect (the speculative kernel over the scans'
    tables) on the parity sweeps' own brackets (21,840 and 47,520)
@@ -118,11 +128,13 @@ any failure raises and the script exits non-zero:
    a reduced sweep of its own (its launches).
 14. the reference-parity sweeps on the card: slab_ph_09 and cyl_flow_1 at
    float32 refined in float64 (5 launches) and at float64 (2), each with
-   the counters reset just before it, then 3 timed runs (walls, stage
-   walls); counts per branch held against the JAX package's
+   the counters reset just before it (slab_ph_09's scan paired, every
+   candidate counted, its windows and re-judge not), then 3 timed runs
+   (walls, stage walls); counts per branch held against the JAX package's
    (PARITY_COUNTS; cyl_flow_1 at full width at float64, and on every 9th
    k at both types); slab_ph_3's float64 sweep,
-   its needle pass (2 launches, 3 timed) and their merge, against JAX's.
+   its needle pass (2 launches, none paired; 3 timed) and their merge,
+   against JAX's.
 15. the Bessel/numeric oracle of tests/test_special.py:101-132 at the full
    grid: cylinder_density_coronal(1e5), k = 1, 801 points, m = 1, the
    roots of the two exteriors within rtol 1e-6.
@@ -312,9 +324,14 @@ NEEDLE_ORACLE = (("slab_density_photospheric", 3.0, 0.43303, 0.367977),
 # log tail) count once per RK4 step and launch ("*_x_step", "cyl_*r_step":
 # 3 abscissae and their forming); per candidate (or bracket per evaluation)
 # and step, the rest of the 3 chain evaluations and the state update
-# ("slab_step", "slab_shear_step", "cyl_step", "cyl_log_step"; the
-# products of k alone, and in the slab's flux form, where U == 0, Omega^2,
-# once per candidate); in the cylinder the chain's values that depend on
+# ("cyl_step", "cyl_log_step"; the products of k alone, and in the slab's
+# flux form, where U == 0, Omega^2, once per candidate); in the slab the
+# rest of one chain evaluation ("slab_chain", "slab_shear_chain") at each
+# distinct abscissa of a shoot once per distinct (omega, k) of the batch
+# (`slab_chains`: 2 a step and one more where n_interior is a power of
+# two), and the update per candidate and step ("slab_update",
+# "slab_shear_update"), both traced from the plain version by
+# tools_torch/count_ops.py; in the cylinder the chain's values that depend on
 # (k, m, r) and not on omega (k U, alpha^2, cusp^2, (c^2 + vA^2)(m^2/r^2 +
 # k^2)) once per distinct (k, m) row of the batch and step ("cyl_row_step",
 # "cyl_log_row_step": tools_torch/count_ops.py traces them from the plain
@@ -349,8 +366,9 @@ NEEDLE_ORACLE = (("slab_density_photospheric", 3.0, 0.43303, 0.367977),
 # with them "*_ends" lose the exact exterior's operations around its
 # ratio ("*_exact_ext": max(m_e, floor) and its sqrt; the cylinder's also
 # their product with the K_m ratio), which the numeric one does not need.
-OPS = {"slab_x_step": 67, "slab_step": 61, "slab_ends": 93,
-       "slab_shear_x_step": 40, "slab_shear_step": 114, "slab_shear_ends": 64,
+OPS = {"slab_x_step": 67, "slab_chain": 9, "slab_update": 34,
+       "slab_ends": 93, "slab_shear_x_step": 40, "slab_shear_chain": 24,
+       "slab_shear_update": 38, "slab_shear_ends": 64,
        "cyl_r_step": 70, "cyl_log_r_step": 73, "cyl_step": 128,
        "cyl_log_step": 134, "cyl_row_step": 27, "cyl_log_row_step": 27,
        "cyl_ends": 98,
@@ -408,7 +426,7 @@ def reset_counters() -> None:
     from eigensolver_tpu_torch.kernels import bessel, cylinder, slab
     from eigensolver_tpu_torch.physics import cylinder as pcyl, slab as pslab
     bessel.launches = cylinder.launches = slab.launches = 0
-    cylinder.small_launches = 0
+    cylinder.small_launches = slab.paired = 0
     cylinder.bisect_launches = slab.bisect_launches = 0
     slab.complex_launches = slab.newton_launches = 0
     pcyl.plain_calls = pslab.plain_calls = 0
@@ -421,6 +439,7 @@ def read_counters() -> dict:
             "cylinder_disp_small": cylinder.small_launches,
             "cylinder_bisect": cylinder.bisect_launches,
             "slab_disp": slab.launches, "slab_bisect": slab.bisect_launches,
+            "slab_paired": slab.paired,
             "slab_disp_complex": slab.complex_launches,
             "slab_newton": slab.newton_launches,
             "kve_ratio": bessel.launches, "plain_cylinder": pcyl.plain_calls,
@@ -448,12 +467,30 @@ def bound(n_ops: float, n_bytes: float, dtype: str) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def slab_ops(n: int, n_evals: int, n_interior: int,
-             shear: bool = False) -> int:
-    """Operations of n_evals slab chains (the flux or the shear form) on
-    each of n candidates, and the x-only values once."""
+def slab_chains(n_interior: int, every_chain: bool = False) -> int:
+    """The chain evaluations one shoot of n_interior RK4 steps needs: 3 a
+    step, or 2 a step and the first step's first where n_interior is a
+    power of two (a step's first abscissa is the step before's last, bit
+    for bit: csrc/common.cuh::chain_reuse); every_chain: 3 a step."""
+    if every_chain or n_interior & (n_interior - 1):
+        return 3 * n_interior
+    return 2 * n_interior + 1
+
+
+def slab_ops(n: int, n_evals: int, n_interior: int, shear: bool = False,
+             n_chains: int = None, every_chain: bool = False) -> int:
+    """Operations of n_evals evaluations of each of n slab candidates (the
+    flux or the shear form): the update and the ends per candidate; the
+    chain at each abscissa `slab_chains` counts, once for each of n_chains
+    distinct (omega, k) an evaluation (default n); the x-only values once.
+    every_chain: the count before the paired scan, 3 chains a step for
+    every candidate."""
     f = "slab_shear_" if shear else "slab_"
-    return (n * n_evals * (n_interior * OPS[f + "step"] + OPS[f + "ends"])
+    if n_chains is None or every_chain:
+        n_chains = n
+    return (n * n_evals * (n_interior * OPS[f + "update"] + OPS[f + "ends"])
+            + n_chains * n_evals * slab_chains(n_interior, every_chain)
+            * OPS[f + "chain"]
             + n_interior * OPS[f + "x_step"])
 
 
@@ -481,23 +518,28 @@ def cyl_ops(n: int, n_evals: int, n_interior: int, n_axis_log: int,
             + n_axis_log * OPS["cyl_log_r_step"])
 
 
-def ext_ops(case, n: int, n_evals: int, n_k: int = 0) -> int:
+def ext_ops(case, n: int, n_evals: int, n_k: int = 0,
+            n_ext: int = None) -> int:
     """Operations of the numeric exterior of n_evals evaluations of each of
     n candidates: n_exterior steps (the slab's rescaled every 64th), the
     set-up and the end, less the exact exterior's operations that the
-    chain's "*_ends" count; the cylinder's exps and set-up once for each
-    of the batch's n_k distinct k."""
-    n_ext = case.grid.n_exterior
+    chain's "*_ends" count; the slab's (which depends on (omega, k) alone)
+    once for each of n_ext distinct (omega, k) an evaluation (default n),
+    the cylinder's exps and set-up once for each of the batch's n_k
+    distinct k."""
+    steps = case.grid.n_exterior
+    n_ext = n if n_ext is None else n_ext
     if case.geometry.value == "slab":
-        per = (n_ext * OPS["slab_ext_step"]
-               + n_ext // 64 * OPS["slab_ext_renorm"] + OPS["slab_ext_ends"])
+        per = (steps * OPS["slab_ext_step"]
+               + steps // 64 * OPS["slab_ext_renorm"] + OPS["slab_ext_ends"])
         per_k = 0
     else:
-        per = n_ext * OPS["cyl_ext_step"] + OPS["cyl_ext_ends"]
-        per_k = n_ext * OPS["cyl_ext_k_step"] + OPS["cyl_ext_k_ends"]
+        per = steps * OPS["cyl_ext_step"] + OPS["cyl_ext_ends"]
+        per_k = steps * OPS["cyl_ext_k_step"] + OPS["cyl_ext_k_ends"]
+        n_ext = n
     exact = OPS["slab_exact_ext" if case.geometry.value == "slab"
                 else "cyl_exact_ext"]
-    return n * n_evals * (per - exact) + n_k * per_k
+    return n_evals * (n_ext * per - n * exact) + n_k * per_k
 
 
 def cyl_tw_ops(case, n: int, n_evals: int, z_ext) -> int:
@@ -880,17 +922,20 @@ def _type_name(code: str) -> str:
 def ptxas_report(kernel: str, form: dict = SLAB_FORMS) -> dict:
     """Registers and spill bytes of each instantiation of the scan
     `kernel`, keyed by type, form (the slab's flux or shear, the cylinder's
-    plain or twisted chain) and block size."""
+    plain or twisted chain), block size, exterior and the slab's paired
+    variant."""
     import re
 
     def key_of(name):
         if kernel not in name:
             return None
-        # kernel<T, [bool form,] int threads, bool numeric exterior>
-        t = re.search(kernel + r"I([fd])(?:Lb([01])E)?Li(\d+)ELb([01])E",
-                      name)
+        # kernel<T, [bool form,] int threads, bool numeric exterior[,
+        # bool paired]>
+        t = re.search(kernel + r"I([fd])(?:Lb([01])E)?Li(\d+)ELb([01])E"
+                      r"(?:Lb([01])E)?", name)
         return (f"{_type_name(t.group(1))}{form[t.group(2)]} {t.group(3)}"
-                f"{' numeric' if t.group(4) == '1' else ''}" if t else name)
+                f"{' numeric' if t.group(4) == '1' else ''}"
+                f"{' paired' if t.group(5) == '1' else ''}" if t else name)
     return ptxas_entries(key_of)
 
 
@@ -1030,26 +1075,80 @@ def window_candidates(case):
 
 
 def _time_against_plain(what: str, ph, args, shear: bool) -> dict:
-    """slab_disp on the candidates args: its time and bound; the plain
-    version's time and bits on the same candidates."""
+    """The unpaired slab_disp on the candidates args: its time and bound
+    (the chain once per distinct (omega, k)), none of them counted as
+    paired; the plain version's time and bits on the same candidates."""
     import torch
     from eigensolver_tpu_torch.kernels import slab as kslab
     dtype = args[0].dtype
     dname = str(dtype).split(".")[-1]
     n = args[0].numel()
     kern = ph.make_dispersion(parity=None, dtype=dtype)
+    before = kslab.paired
     r = dict(n=n, shape=list(kslab.scan_shape(n, shear)),
              ms=cuda_ms(lambda: kern(*args), 5),
-             **bound(slab_ops(n, 1, ph.case.grid.n_interior, shear),
+             **bound(slab_ops(n, 1, ph.case.grid.n_interior, shear,
+                              n_chains=distinct(args[0], args[1])),
                      n * (5 * args[0].element_size() + 1), dname))
     kres = kern(*args)
+    if kslab.paired != before:
+        raise AssertionError(f"{what}: counted as paired")
     plain = ph.make_dispersion_plain(parity=None, dtype=dtype)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pres = plain(*args)
-    torch.cuda.synchronize()
-    r["plain_ms"] = 1e3 * (time.perf_counter() - t0)
+    pres, r["plain_ms"] = _timed_plain(plain, args)
     r["check"] = _compare_disp(what, kres, pres, f64=dtype == torch.float64,
+                               bits=True)
+    return r
+
+
+def _paired_scan(what: str, case, args, reps: int) -> dict:
+    """The paired slab_disp (disp.both_parities) on a sweep's whole ladder
+    in ladder order, args (omega, k, mode): every row at parity 0, then the
+    same rows at parity 1. One launch on the parity-0 half, every
+    candidate counted as paired; its time beside the unpaired scan's on
+    the same candidates; its bound (the chain, and the numeric exterior,
+    once per (omega, k); 2 chains a step at a power-of-two n_interior)
+    beside the old one (3 chains a step and the exterior for every
+    candidate); the plain version's time and bits on the same
+    candidates."""
+    import torch
+    from eigensolver_tpu_torch.kernels import slab as kslab
+    from eigensolver_tpu_torch.physics.slab import SlabPhysics
+    ph = SlabPhysics.from_case(case)
+    dtype = args[0].dtype
+    dname = str(dtype).split(".")[-1]
+    n = args[0].numel()
+    h = n // 2
+    if not (torch.equal(args[0][:h], args[0][h:])
+            and torch.equal(args[1][:h], args[1][h:])
+            and bool((args[2][:h] == 0).all())
+            and bool((args[2][h:] == 1).all())):
+        raise AssertionError(f"{what}: not both parities of one row set")
+    disp = ph.make_dispersion(parity=None, dtype=dtype)
+    half = [x[:h].contiguous() for x in args[:2]]
+    before = kslab.paired
+    kres = disp.both_parities(*half)
+    torch.cuda.synchronize()
+    if kslab.paired - before != n:
+        raise AssertionError(f"{what}: {kslab.paired - before} of {n} "
+                             f"candidates counted as paired")
+    numeric = case.grid.exterior_method == "numeric"
+
+    def ops(every_chain):
+        if numeric:
+            return numeric_ops(case, n, 1, args[1], args[2], n_chains=h,
+                               every_chain=every_chain)
+        return slab_ops(n, 1, case.grid.n_interior, ph.has_flow,
+                        n_chains=h, every_chain=every_chain)
+    es = args[0].element_size()
+    r = dict(n=n, shape=list(kslab.PAIRS_SHAPE[ph.has_flow]),
+             ms=cuda_ms(lambda: disp.both_parities(*half), reps),
+             unpaired_ms=cuda_ms(lambda: disp(*args), reps),
+             **bound(ops(False), 2 * h * es + n * (2 * es + 1), dname),
+             bound_3_chains_ms=bound(ops(True), n * (5 * es + 1),
+                                     dname)["bound_ms"])
+    pres, r["plain_ms"] = _timed_plain(
+        ph.make_dispersion_plain(parity=None, dtype=dtype), args)
+    r["check"] = _compare_disp(what, kres, pres, f64=dname == "float64",
                                bits=True)
     return r
 
@@ -1091,6 +1190,18 @@ def phase_slab_disp(out: dict):
                 f"slab_disp full {what}", ph, [x.to(dtype) for x in cand],
                 shear=name.startswith("shear"))
     res["full"] = full
+    # each sweep's own scan, its whole ladder in ladder order, through the
+    # paired scan
+    ladder = {}
+    for name, case, n in forms:
+        for dtype in (torch.float32, torch.float64):
+            what = f"{name} {str(dtype).split('.')[-1]}"
+            args = batches.flat_ladder(case, 256, dtype)
+            if args[0].numel() != n:
+                raise AssertionError(f"{what}: {args[0].numel()} candidates")
+            ladder[what] = _paired_scan(f"slab_disp paired {what}", case,
+                                        args, 5)
+    res["ladder paired"] = ladder
     # the refine stage's float64 window launch of the slab_ph_09 f32 sweep
     case = forms[0][1]
     res["window float64"] = _time_against_plain(
@@ -1111,11 +1222,13 @@ def phase_slab_sweep(out: dict):
                               polish_dtype="float32")
 
     # the slab path, with every launch counter reset just before: one
-    # ladder scan launch and one fused bracket-stage launch, nothing else
+    # ladder scan launch, the paired scan's (every candidate counted as
+    # paired), and one fused bracket-stage launch, nothing else
+    want = {"slab_disp": 1, "slab_bisect": 1, "slab_paired": N_SLAB}
     reset_counters()
     rs, st = sweep.run_case(case, cfg, device="cuda")
     launches = read_counters()
-    check_launches("slab path", launches, {"slab_disp": 1, "slab_bisect": 1})
+    check_launches("slab path", launches, want)
     if st.n_candidates != N_SLAB:
         raise AssertionError(f"{st.n_candidates} candidates")
     _check_roots(rs, case)
@@ -1125,8 +1238,7 @@ def phase_slab_sweep(out: dict):
         before = read_counters()
         timer = StageTimer()
         rs, st = sweep.run_case(case, cfg, device="cuda", timer=timer)
-        check_launches("timed slab run", counts_since(before),
-                       {"slab_disp": 1, "slab_bisect": 1})
+        check_launches("timed slab run", counts_since(before), want)
         walls.append(st.wall_s)
         stages.append(timer.report())
         counts.append(rs.counts())
@@ -1142,7 +1254,9 @@ def phase_slab_sweep(out: dict):
 
     cfg64 = dataclasses.replace(cfg, scan_dtype="float64",
                                 polish_dtype="float64")
+    before = read_counters()
     rs64, st64 = sweep.run_case(case, cfg64, device="cuda")
+    check_launches("slab float64 path", counts_since(before), want)
     _check_roots(rs64, case)
     f64 = dict(counts=rs64.counts(),
                minus_refs=_check_counts("slab_ph_09 float64", rs64.counts(),
@@ -1152,7 +1266,12 @@ def phase_slab_sweep(out: dict):
     flows = {}
     for name, refs in FLOW_COUNTS.items():
         fcase = getattr(cases, name)()
+        before = read_counters()
         frs, fst = sweep.run_case(fcase, cfg64, device="cuda")
+        # the shear form's scan paired too
+        check_launches(f"{name} float64 path", counts_since(before),
+                       {"slab_disp": 1, "slab_bisect": 1,
+                        "slab_paired": fst.n_candidates})
         _check_roots(frs, fcase)
         flows[name] = dict(counts=frs.counts(), wall_s=fst.wall_s,
                            minus_refs=_check_counts(f"{name} float64",
@@ -1169,7 +1288,8 @@ def phase_slab_sweep(out: dict):
                                    timer=timer)
         refined_launches = counts_since(before)
         check_launches("refined slab path", refined_launches,
-                       {"slab_disp": 2, "slab_bisect": 2})
+                       {"slab_disp": 2, "slab_bisect": 2,
+                        "slab_paired": N_SLAB})
         _check_roots(rsr, case)
         if rsr.counts() != counts[0]:
             raise AssertionError(f"refined counts {rsr.counts()} differ from "
@@ -1823,18 +1943,24 @@ def _physics(case):
             lambda dt: ph.make_dispersion_plain(m=None, dtype=dt))
 
 
-def numeric_ops(case, n: int, n_evals: int, k, m) -> int:
+def numeric_ops(case, n: int, n_evals: int, k, m, n_chains: int = None,
+                every_chain: bool = False) -> int:
     """Operations of n_evals evaluations of each of n candidates (k, m: the
     batch's columns) of the case's chain with its numeric exterior (no K_m
-    ratio)."""
+    ratio); the slab's chain and exterior once for each of n_chains
+    distinct (omega, k) (default n), or with every_chain (the count before
+    the paired scan) for each candidate, 3 chains a step."""
     import torch
     from eigensolver_tpu_torch.physics.slab import SlabPhysics
     g = case.grid
     none = torch.zeros(0)
     if case.geometry.value == "slab":
         chain = slab_ops(n, n_evals, g.n_interior,
-                         shear=SlabPhysics.from_case(case).has_flow)
-    elif case.twist_profile is not None:
+                         shear=SlabPhysics.from_case(case).has_flow,
+                         n_chains=n_chains, every_chain=every_chain)
+        return chain + ext_ops(case, n, n_evals,
+                               n_ext=None if every_chain else n_chains)
+    if case.twist_profile is not None:
         chain = cyl_tw_ops(case, n, n_evals, none)
     else:
         chain = cyl_ops(n, n_evals, g.n_interior, g.n_axis_log, none,
@@ -1862,7 +1988,8 @@ def _numeric_scan(what: str, case, args, plain_too: bool):
     n = args[0].numel()
     disp = kern(dtype)
     r = dict(n=n, ms=cuda_ms(lambda: disp(*args), 3),
-             **bound(numeric_ops(case, n, 1, args[1], args[2]),
+             **bound(numeric_ops(case, n, 1, args[1], args[2],
+                                 n_chains=distinct(args[0], args[1])),
                      n * (5 * args[0].element_size() + 1), dname))
     pres = None
     if plain_too:
@@ -1982,6 +2109,12 @@ def phase_numeric_kernels(out: dict):
             dname = str(dtype).split(".")[-1]
             args = batches.flat_ladder(case, cfg.n_omega, dtype)
             kcyl.scan_tabled("cuda")
+            if name == "slab_disp":
+                # the sweep's own scan: both parities of each (omega, k)
+                # in one thread
+                res[f"{name} full {dname}"] = _paired_scan(
+                    f"{name} numeric full {dname}", case, args, 3)
+                continue
             r = _numeric_scan(f"{name} numeric full {dname}", case, args,
                               plain_too=True)[0]
             if name == "cylinder_disp":
@@ -2094,6 +2227,9 @@ def phase_parity(out: dict):
             # re-judging evaluation at the refined roots
             # (accept_pct_refined, finalize_branches)
             want = {disp: 3 if refine else 1, bis: 2 if refine else 1}
+            if name == "slab_ph_09":
+                # the scan paired, the windows and the re-judge not
+                want["slab_paired"] = N_PAR_SLAB
             reset_counters()
             rs, st = sweep.run_case(case, cfg, device="cuda",
                                     refine_f64=refine)
@@ -2230,7 +2366,7 @@ def cx_ops(n: int, n_interior: int, dual: bool = False,
     slab_disp_complex, or the dual pass and the step of slab_newton) on
     each of n candidates, and the x-only values once. Where n_interior is
     a power of two a step's first abscissa is the step before's last, bit
-    for bit (csrc/slab_complex.cu::cx_reuse), so a shoot needs 2 n_interior
+    for bit (csrc/common.cuh::chain_reuse), so a shoot needs 2 n_interior
     + 1 chain evaluations, not 3 n_interior; every_chain counts 3 a step
     whatever n_interior is (the count of every abscissa, for comparison)."""
     f = "slab_cx_dual_" if dual else "slab_cx_"
@@ -2634,11 +2770,22 @@ def numeric_kernel_entries(res: dict, par: dict, tw: dict) -> list:
         # the slab's numeric exterior (ode.py::rk4_final_renorm, called at
         # physics/slab.py:362) in slab_disp, on slab_ph_09's parity scan;
         # launches on its f32 refined path (scan + refine windows)
+        # the scan paired (ms, paired_ms; the unpaired scan on the same
+        # ladder beside it), the bound before the paired scan beside its
+        # own; the ragged draws through the unpaired scan
         entry("slab_disp_numeric", src + "slab_disp.cu",
               "eigensolver_tpu/ode.py:75", slab_path["slab_disp"], sd,
-              sd["check"]["max_abs_err_det"],
+              sd["check"]["max_abs_err_det"], paired_ms=sd["ms"],
+              unpaired_ms=sd["unpaired_ms"],
+              bound_3_chains_ms=sd["bound_3_chains_ms"],
+              paired_candidates=slab_path["slab_paired"],
               float64_ms=res["slab_disp full float64"]["ms"],
+              float64_unpaired_ms=res["slab_disp full float64"]["unpaired_ms"],
               float64_bound_ms=res["slab_disp full float64"]["bound_ms"],
+              float64_bound_3_chains_ms=res["slab_disp full float64"][
+                  "bound_3_chains_ms"],
+              ragged_ms={d: res[f"slab_disp flux {N_RAGGED} {d}"]["ms"]
+                         for d in ("float32", "float64")},
               needle_path_launches=par["slab_ph_3 needle"]["slab_disp"]),
         entry("slab_bisect_numeric", src + "slab_disp.cu",
               "eigensolver_tpu/ode.py:75", slab_path["slab_bisect"], sb,
@@ -2801,7 +2948,8 @@ def main() -> int:
     kve = out["kve_ratio"]
     cyl = out["cylinder_disp"]["full_ms"]
     slab = out["slab_disp"]["full"]
-    sf32 = slab["flux slab_ph_09 float32"]
+    ladder = out["slab_disp"]["ladder paired"]
+    sf32 = ladder["flux slab_ph_09 float32"]
     cbis = out["cylinder_bisect"]["float32"]
     sbis = out["slab_bisect"]["float32"]
     kve_f32 = kve["shuffled float32"]
@@ -2901,23 +3049,36 @@ def main() -> int:
         # original), flux and shear forms
         "replaces": "eigensolver_tpu/physics/slab.py:285",
         "launches": slab_launches["slab_disp"],
-        # det, poles masked, at slab_ph_09's scan size (flux form, f32);
-        # bit-equal there and on every other set of phase 6
+        # the main path's scan: slab_ph_09's 161,280 ladder candidates in
+        # ladder order through the paired scan (flux form, f32), every one
+        # counted as paired; det, poles masked, bit-equal there and on
+        # every other set of phase 6
+        "paired_candidates": slab_launches["slab_paired"],
         "max_abs_err": sf32["check"]["max_abs_err_det"],
         "ms": sf32["ms"],
+        "paired_ms": sf32["ms"],
+        "unpaired_ms": sf32["unpaired_ms"],
         "plain_ms": sf32["plain_ms"],
         "bound_ms": sf32["bound_ms"],
         "bound_by": sf32["bound_by"],
+        # the bound before the paired scan: 3 chains a step, every candidate
+        "bound_3_chains_ms": sf32["bound_3_chains_ms"],
         "library_ms": None,
         "launch_shape": sf32["shape"],
-        # the other forms and types, and the refine stage's window launch
-        **{key: {f: r[f] for f in ("n", "shape", "ms", "plain_ms",
-                                   "bound_ms", "bound_by")}
-           for key, r in (("flux float64", slab["flux slab_ph_09 float64"]),
+        # the other forms and types; the unpaired scan on random draws of
+        # each sweep's size and on the refine stage's window launch
+        **{key: {f: r[f] for f in ("n", "shape", "ms", "unpaired_ms",
+                                   "plain_ms", "bound_ms", "bound_by",
+                                   "bound_3_chains_ms") if f in r}
+           for key, r in (("flux float64", ladder["flux slab_ph_09 float64"]),
                           ("shear float32",
-                           slab["shear flow_gauss float32"]),
+                           ladder["shear flow_gauss float32"]),
                           ("shear float64",
-                           slab["shear flow_gauss float64"]),
+                           ladder["shear flow_gauss float64"]),
+                          ("random flux float32",
+                           slab["flux slab_ph_09 float32"]),
+                          ("random shear float32",
+                           slab["shear flow_gauss float32"]),
                           ("window float64",
                            out["slab_disp"]["window float64"]))},
     }, {

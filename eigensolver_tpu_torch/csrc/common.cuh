@@ -165,6 +165,16 @@ __device__ __forceinline__ T rk4_abscissa(T x0, T h, T hh, int i, int a) {
   return a == 0 ? x : (a == 1 ? x + hh : x + h);
 }
 
+// Whether step i's first abscissa is step i - 1's last, bit for bit, at
+// every step of the interior's grid (rk4_abscissa from x0 = 0 to 1): where
+// n is a power of two, h = 1 / n and every i h and i h + h are exact, and
+// (i + 1) h equals i h + h. A chain there has the same value at both: it
+// is computed once, at step i - 1, and kept (the slab kernels: 2 chains a
+// step, not 3).
+__host__ __device__ __forceinline__ bool chain_reuse(int n_steps) {
+  return n_steps > 0 && (n_steps & (n_steps - 1)) == 0;
+}
+
 // A dual number (value, d/dr): the rules of dual.Dual, operation for
 // operation. A T operand is a constant (derivative 0, no term).
 template <class T>

@@ -48,7 +48,7 @@
 //     section 6) slows its own warps, not every warp of the block. Where
 //     n_interior is a power of two, a step's first abscissa is the step
 //     before's last, bit for bit, and its chain is not computed again
-//     (cx_reuse): 2 chains a step, not 3.
+//     (common.cuh::chain_reuse): 2 chains a step, not 3.
 //   Hand-off: bisect.cuh's named barriers, its protocol: a full and an
 //     empty barrier per stage, an omega barrier per round.
 // A launch runs n_iter Newton rounds, then, with final_eval, one value
@@ -378,15 +378,6 @@ __device__ __forceinline__ void get(const T* src, int B, Cx<T>& D, Cx<T>& c) {
   c = {src[2 * B], src[3 * B]};
 }
 
-// Whether step i's first abscissa is step i - 1's last, bit for bit, at
-// every step: x = x0 + i h with x0 = 0 (rk4_abscissa), so where n is a
-// power of two, h = 1 / n and every i h and i h + h are exact and (i + 1) h
-// equals i h + h. The chain there is then the same value: it is computed
-// once, at step i - 1, and the consumer keeps it.
-__device__ __forceinline__ bool cx_reuse(int n_steps) {
-  return n_steps > 0 && (n_steps & (n_steps - 1)) == 0;
-}
-
 // The consumer's shoot over one round's stages of the ring, from (y0, y1);
 // g counts the launch's stages
 template <class T, bool kDual>
@@ -397,7 +388,7 @@ __device__ __forceinline__ void consume(const T* ring, int B, int C, int S,
   constexpr int V = kDual ? 8 : 4;  // reals an abscissa
   T h, hh, h6;
   rk4_spacing(T(0), T(1), n_steps, h, hh, h6);
-  const bool reuse = cx_reuse(n_steps);
+  const bool reuse = chain_reuse(n_steps);
   const int stage_len = C * kCxValues * B;
   State<T, kDual> aB, bB;           // the last step's last abscissa
   for (int i0 = 0; i0 < n_steps; i0 += C, ++g) {
@@ -436,7 +427,7 @@ __device__ __forceinline__ void produce(const SlabDispParams& p,
   const int np = nthr - 32;
   T h, hh, h6;
   rk4_spacing(T(0), T(1), n_steps, h, hh, h6);
-  const bool reuse = cx_reuse(n_steps);
+  const bool reuse = chain_reuse(n_steps);
   const int stage_len = C * kCxValues * B;
   for (int i0 = 0; i0 < n_steps; i0 += C, ++g) {
     const int slot = g % S;

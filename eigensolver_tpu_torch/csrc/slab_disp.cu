@@ -7,8 +7,8 @@
 // cases, with the exact exponential exterior or, in a variant built apart
 // (kNum), the numeric one (`eigensolver_tpu/ode.py::rk4_final_renorm` as
 // `physics/slab.py:362-381` calls it; common.cuh::slab_exterior: after its
-// interior shoot a thread integrates its candidate's own 512 exterior steps
-// in registers, no table, the bisection's consumer lane alike). On the TPU
+// interior shoot a thread integrates the exterior's 512 steps in
+// registers, no table, the bisection's consumer lane alike). On the TPU
 // this was an XLA-fused `lax.scan` with no Pallas original; in eager
 // PyTorch it would be ~100 launches per RK4 step. Here one thread carries
 // a candidate's whole shoot in registers:
@@ -24,22 +24,35 @@
 //   then m_e, p_e, sqrt(max(m_e, 0)) (or the numeric exterior's vx'/vx),
 //   the determinant and the % mismatch.
 //
-// What bounds it on Hopper: per candidate, 3 n_interior evaluations of the
-// coefficient chain plus the RK4 update, against 24 bytes in and 17 bytes
-// out: operations, not memory. Most of the chain depends on x alone
-// (slab.py:162-171, :187-190): in the flux form the profile, the
-// pressure-balanced speeds, c^2, vA^2, cT^2 and rho (c^2 + vA^2) - the exp,
-// both square roots and 4 of the 5 divisions of an evaluation (U == 0 there,
-// so Omega is the candidate's own); in the shear form U, U' and U'' - 3
-// exps and 3 divisions for a Gaussian flow. And x itself comes from the
-// launch parameters only. So the scan (slab_disp_kernel) keeps a table of
-// those values in shared memory: each block computes them for a chunk of
-// steps cooperatively, one abscissa per thread, into a double-buffered
-// ring (one barrier per chunk), and every thread reads them as warp-uniform
-// broadcasts. What stays per candidate and abscissa is 1 division (flux) or
-// 5-6 (shear), no square root, no exp. The plain PyTorch version computes
-// the x-only values once per abscissa as 0-d tensors, in this order, so the
-// table gives its bits.
+// What bounds it on Hopper: per candidate, n_interior evaluations of the
+// coefficient chain's RK4 update and 2 or 3 of the chain a step, against
+// 24 bytes in and 17 bytes out: operations, not memory. The work repeats
+// what the batch shares in three ways, and the scan takes each:
+// - Most of the chain depends on x alone (slab.py:162-171, :187-190): in
+//   the flux form the profile, the pressure-balanced speeds, c^2, vA^2,
+//   cT^2 and rho (c^2 + vA^2) - the exp, both square roots and 4 of the 5
+//   divisions of an evaluation (U == 0 there, so Omega is the candidate's
+//   own); in the shear form U, U' and U'' - 3 exps and 3 divisions for a
+//   Gaussian flow. And x itself comes from the launch parameters only. So
+//   each block computes those values for a chunk of steps cooperatively,
+//   one abscissa per thread, into a double-buffered table in shared
+//   memory (one barrier per chunk), and every thread reads them as
+//   warp-uniform broadcasts. What stays per candidate and abscissa is 1
+//   division (flux) or 5-6 (shear), no square root, no exp. The plain
+//   PyTorch version computes the x-only values once per abscissa as 0-d
+//   tensors, in this order, so the table gives its bits.
+// - Where n_interior is a power of two (common.cuh::chain_reuse), a step's
+//   first abscissa is the step before's last, bit for bit: its chain is
+//   kept in registers, not formed again, and the table holds 2 n + 1
+//   entries, not 3 n. 2 chains a step, not 3.
+// - Only the start depends on the parity. A sweep scans the same (omega,
+//   k) rows once per parity, so the paired variant (kPaired) gives a
+//   thread both parities of one (omega, k): Cand, edge, F(0), the chain at
+//   every abscissa and the exterior once, then two updates a step and two
+//   interfaces, parity 0's results first, parity 1's n after them. Batches
+//   that are not both parities of the same rows (the refine windows and
+//   the re-judge, single-parity sweeps, the needle pass, random draws)
+//   take the unpaired scan, one thread a candidate.
 //
 // Arithmetic order follows the JAX code expression for expression (no
 // algebraic simplification; c_i(x)^2 is a square root squared), and the
@@ -217,21 +230,36 @@ __device__ __forceinline__ void rk4_step(T h, T hh, T h6, T aA, T bA, T aM,
   y1 = y1 + h6 * (k11 + T(2) * k21 + T(2) * k31 + k41);
 }
 
+// What the start state reads of the candidate: F(0) in the flux form (the
+// shear form's start reads none), shared by both parities of an (omega, k)
+template <class T, bool kShear>
+__device__ __forceinline__ T start_F0(const SlabDispParams& p, T omega, T k) {
+  if constexpr (kShear) {
+    return T(0);
+  } else {
+    return interior_F(p, omega, k, T(0));
+  }
+}
+
 // Start state at the slab centre: flux (vx, w): sausage (par = 0) vx odd,
 // (0, F(0)); kink (1, 0 F(0)), NaN where F(0) is not finite. Shear (vx,
 // vx'): (par, 1 - par).
 template <class T, bool kShear>
-__device__ __forceinline__ void start(const SlabDispParams& p, T omega, T k,
-                                      T par, T& y0, T& y1) {
+__device__ __forceinline__ void start_at(T F0, T par, T& y0, T& y1) {
   const T one = T(1);
   if (!kShear) {
-    const T F0 = interior_F(p, omega, k, T(0));
     y0 = par * one;
     y1 = (one - par) * F0;
   } else {
     y0 = par;
     y1 = one - par;
   }
+}
+
+template <class T, bool kShear>
+__device__ __forceinline__ void start(const SlabDispParams& p, T omega, T k,
+                                      T par, T& y0, T& y1) {
+  start_at<T, kShear>(start_F0<T, kShear>(p, omega, k), par, y0, y1);
 }
 
 // What the interface reads besides the state: the exterior coefficients
@@ -259,17 +287,32 @@ __device__ __forceinline__ Edge<T> edge(const SlabDispParams& p, T omega,
   return e;
 }
 
+// PT_e, the exterior's total pressure at x = 1: p_e vx'/vx of the numeric
+// exterior (kNum, common.cuh::slab_exterior) or of the exact decaying vx_e
+// = exp(-sqm (x - 1)). It depends on (omega, k) alone.
+template <class T, bool kNum>
+__device__ __forceinline__ T exterior_PT(const SlabDispParams& p, T k,
+                                         const Edge<T>& e) {
+  if constexpr (kNum) {
+    return e.p_e * slab_exterior(e.m_e, k, p.exterior_wavelengths,
+                                 p.n_exterior);
+  } else {
+    return e.p_e * (-e.sqm);
+  }
+}
+
 // The interface at x = 1 from the state (vx_b, y1_b) there: PT_i, the
-// exterior, det, the % mismatch and valid (slab.py:362-406); the exterior
-// is the exact decaying one or, with kNum, the numeric one
-// (common.cuh::slab_exterior)
-template <class T, bool kShear, bool kNum>
-__device__ __forceinline__ void finish(const SlabDispParams& p, T omega, T k,
-                                       const Edge<T>& e, T vx_b, T y1_b,
-                                       T& det, T& mism, bool& valid) {
+// exterior's PT_e = ext() (exterior_PT, formed where the one-thread order
+// forms it, or a value both parities of an (omega, k) share), det, the %
+// mismatch and valid (slab.py:362-406)
+template <class T, bool kShear, class Ext>
+__device__ __forceinline__ void finish_with(const SlabDispParams& p, T omega,
+                                            T k, const Edge<T>& e, T vx_b,
+                                            T y1_b, Ext ext, T& det, T& mism,
+                                            bool& valid) {
   const T zero = T(0);
   const T one = T(1);
-  const T Om_e = e.Om_e, m_e = e.m_e, p_e = e.p_e, sqm = e.sqm;
+  const T Om_e = e.Om_e, m_e = e.m_e;
   const T Om_i = e.Om_i;
 
   T PT_i;
@@ -285,10 +328,7 @@ __device__ __forceinline__ void finish(const SlabDispParams& p, T omega, T k,
     }
   }
 
-  // numeric: p_e vx'/vx at x = 1; exact: vx_e = exp(-sqm (x - 1))
-  const T PT_e = kNum ? p_e * slab_exterior(m_e, k, p.exterior_wavelengths,
-                                            p.n_exterior)
-                      : p_e * (-sqm);
+  const T PT_e = ext();
   const T xi_e = one / Om_e;
   const T xi_i = vx_b / Om_i;
   det = xi_i * PT_e - xi_e * PT_i;
@@ -301,46 +341,96 @@ __device__ __forceinline__ void finish(const SlabDispParams& p, T omega, T k,
   valid = m_e > zero;
 }
 
-// The block fills the table entries of steps [i0, i0 + count), 3 per step
-// (A, M, B), one entry per thread at a time; the abscissae are formed as
-// the RK4 loop of `_rk4_linear_*` forms them (common.cuh: rk4_abscissa)
+// finish with the exterior of kNum, exact or numeric
+template <class T, bool kShear, bool kNum>
+__device__ __forceinline__ void finish(const SlabDispParams& p, T omega, T k,
+                                       const Edge<T>& e, T vx_b, T y1_b,
+                                       T& det, T& mism, bool& valid) {
+  finish_with<T, kShear>(
+      p, omega, k, e, vx_b, y1_b,
+      [&] { return exterior_PT<T, kNum>(p, k, e); }, det, mism, valid);
+}
+
+// The block fills the table entries of steps [i0, i0 + count), one entry
+// per thread at a time: 3 a step (A, M, B), or where chain_reuse holds 2 (M
+// at entry 1 + 2 j, B at 2 + 2 j), A of the run's first step at entry 0 in
+// the first chunk only (every later A is the B before it). The abscissae
+// are formed as the RK4 loop of `_rk4_linear_*` forms them (common.cuh:
+// rk4_abscissa).
 template <class T, bool kShear>
 __device__ __forceinline__ void fill_chunk(const SlabDispParams& p, T h, T hh,
-                                           int i0, int count,
+                                           int i0, int count, bool reuse,
                                            XPoint<T, kShear>* dst) {
-  for (int e = threadIdx.x; e < 3 * count; e += blockDim.x) {
-    dst[e] = x_point<T, kShear>(p, rk4_abscissa(T(0), h, hh, i0 + e / 3,
-                                                e % 3));
+  if (reuse) {
+    for (int e = threadIdx.x + (i0 > 0); e <= 2 * count; e += blockDim.x) {
+      const int j = e > 0 ? (e - 1) / 2 : 0;
+      const int a = e > 0 ? 1 + (e - 1) % 2 : 0;
+      dst[e] = x_point<T, kShear>(p, rk4_abscissa(T(0), h, hh, i0 + j, a));
+    }
+  } else {
+    for (int e = threadIdx.x; e < 3 * count; e += blockDim.x) {
+      dst[e] = x_point<T, kShear>(p, rk4_abscissa(T(0), h, hh, i0 + e / 3,
+                                                  e % 3));
+    }
   }
 }
 
-// A candidate's RK4 steps over one chunk of the table
-template <class T, bool kShear>
+// A thread's RK4 steps over one chunk of the table: one chain at each
+// abscissa, the update of each of its kP states (one candidate, or both
+// parities of an (omega, k)). Where chain_reuse holds, the chain at a step's
+// first abscissa is the one at the step before's last, kept in (aA, bA)
+// across chunks; the first chunk forms it from entry 0.
+template <class T, bool kShear, int kP>
 __device__ __forceinline__ void run_chunk(const SlabDispParams& p,
                                           const XPoint<T, kShear>* q,
-                                          int count, T h, T hh, T h6,
-                                          const Cand<T>& c, T& y0, T& y1) {
-  for (int j = 0; j < count; ++j, q += 3) {
-    T aA, bA, aM, bM, aB, bB;
-    coef_at<T, kShear>(p, q[0], c, aA, bA);
-    coef_at<T, kShear>(p, q[1], c, aM, bM);
-    coef_at<T, kShear>(p, q[2], c, aB, bB);
-    rk4_step<T, kShear>(h, hh, h6, aA, bA, aM, bM, aB, bB, y0, y1);
+                                          int count, bool first, bool reuse,
+                                          T h, T hh, T h6, const Cand<T>& c,
+                                          T& aA, T& bA, T (&y0)[kP],
+                                          T (&y1)[kP]) {
+  if (reuse) {
+    if (first) coef_at<T, kShear>(p, q[0], c, aA, bA);
+    for (int j = 0; j < count; ++j) {
+      T aM, bM, aB, bB;
+      coef_at<T, kShear>(p, q[1 + 2 * j], c, aM, bM);
+      coef_at<T, kShear>(p, q[2 + 2 * j], c, aB, bB);
+#pragma unroll
+      for (int v = 0; v < kP; ++v) {
+        rk4_step<T, kShear>(h, hh, h6, aA, bA, aM, bM, aB, bB, y0[v], y1[v]);
+      }
+      aA = aB;
+      bA = bB;
+    }
+  } else {
+    for (int j = 0; j < count; ++j, q += 3) {
+      T a0, b0, aM, bM, aB, bB;
+      coef_at<T, kShear>(p, q[0], c, a0, b0);
+      coef_at<T, kShear>(p, q[1], c, aM, bM);
+      coef_at<T, kShear>(p, q[2], c, aB, bB);
+#pragma unroll
+      for (int v = 0; v < kP; ++v) {
+        rk4_step<T, kShear>(h, hh, h6, a0, b0, aM, bM, aB, bB, y0[v], y1[v]);
+      }
+    }
   }
 }
 
-// The scan: one thread per candidate, kThreads per block, the x-only table
-// in chunks of `chunk` steps (dynamic shared memory: 2 x 3 chunk entries),
+// The scan: kThreads threads per block, the x-only table in chunks of
+// `chunk` steps (dynamic shared memory: 2 x 3 chunk entries),
 // `_rk4_linear_flux` / `_rk4_linear_shear` (slab.py:41-113) from x = 0 to
-// 1, the exterior of kNum. Threads past n evaluate a copy of the last
-// candidate, so that every thread reaches the block's barriers, and store
-// nothing.
-template <class T, bool kShear, int kThreads, bool kNum>
+// 1, the exterior of kNum. A thread carries one candidate (omega[i], k[i],
+// par[i]) of n, or with kPaired both parities of the pair (omega[i], k[i])
+// of n: Cand, edge, F(0), the chain at every abscissa and the exterior
+// once, the start, the update and the interface (finish_with) per parity,
+// parity 0's result at i and parity 1's at n + i. Threads past n evaluate
+// a copy of the last candidate (pair), so that every thread reaches the
+// block's barriers, and store nothing.
+template <class T, bool kShear, int kThreads, bool kNum, bool kPaired>
 __global__ void __launch_bounds__(kThreads)
 slab_disp_kernel(const T* __restrict__ omega_, const T* __restrict__ k_,
                  const T* __restrict__ par_, T* __restrict__ det_,
                  T* __restrict__ mism_, bool* __restrict__ valid_, int64_t n,
                  int chunk, const __grid_constant__ SlabDispParams p) {
+  constexpr int kP = kPaired ? 2 : 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   auto* table = reinterpret_cast<XPoint<T, kShear>*>(smem_raw);
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
@@ -350,39 +440,63 @@ slab_disp_kernel(const T* __restrict__ omega_, const T* __restrict__ k_,
   // the edge values first, as the JAX code orders them: nvcc then keeps
   // the chain's loop-invariant parameter conversions out of the RK4 loop
   const Edge<T> e = edge(p, omega, k);
-  T y0, y1;
-  start<T, kShear>(p, omega, k, par_[idx], y0, y1);
+  T y0[kP], y1[kP];
+  const T F0 = start_F0<T, kShear>(p, omega, k);
+  if constexpr (kPaired) {
+    start_at<T, kShear>(F0, T(0), y0[0], y1[0]);
+    start_at<T, kShear>(F0, T(1), y0[1], y1[1]);
+  } else {
+    start_at<T, kShear>(F0, par_[idx], y0[0], y1[0]);
+  }
   const Cand<T> c(p, omega, k);
 
   const int n_steps = p.n_interior;
+  const bool reuse = chain_reuse(n_steps);
   T h, hh, h6;
   rk4_spacing(T(0), T(1), n_steps, h, hh, h6);
   const int n_chunks = (n_steps + chunk - 1) / chunk;
   const int slot = 3 * chunk;
   if (n_chunks > 0) {
-    fill_chunk<T, kShear>(p, h, hh, 0, min(chunk, n_steps), table);
+    fill_chunk<T, kShear>(p, h, hh, 0, min(chunk, n_steps), reuse, table);
   }
   __syncthreads();
+  T aA = T(0), bA = T(0);
   for (int ci = 0; ci < n_chunks; ++ci) {
     // fill the other buffer while this one is read: the barrier below
     // publishes it and retires this one
     if (ci + 1 < n_chunks) {
       const int i1 = (ci + 1) * chunk;
-      fill_chunk<T, kShear>(p, h, hh, i1, min(chunk, n_steps - i1),
+      fill_chunk<T, kShear>(p, h, hh, i1, min(chunk, n_steps - i1), reuse,
                             table + ((ci + 1) & 1) * slot);
     }
-    run_chunk<T, kShear>(p, table + (ci & 1) * slot,
-                         min(chunk, n_steps - ci * chunk), h, hh, h6, c, y0,
-                         y1);
+    run_chunk<T, kShear, kP>(p, table + (ci & 1) * slot,
+                             min(chunk, n_steps - ci * chunk), ci == 0,
+                             reuse, h, hh, h6, c, aA, bA, y0, y1);
     __syncthreads();
   }
-  T det, mism;
-  bool valid;
-  finish<T, kShear, kNum>(p, omega, k, e, y0, y1, det, mism, valid);
-  if (i < n) {
-    det_[i] = det;
-    mism_[i] = mism;
-    valid_[i] = valid;
+  if constexpr (kPaired) {
+    const T PT_e = exterior_PT<T, kNum>(p, k, e);
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      T det, mism;
+      bool valid;
+      finish_with<T, kShear>(p, omega, k, e, y0[v], y1[v],
+                             [&] { return PT_e; }, det, mism, valid);
+      if (i < n) {
+        det_[v * n + i] = det;
+        mism_[v * n + i] = mism;
+        valid_[v * n + i] = valid;
+      }
+    }
+  } else {
+    T det, mism;
+    bool valid;
+    finish<T, kShear, kNum>(p, omega, k, e, y0[0], y1[0], det, mism, valid);
+    if (i < n) {
+      det_[i] = det;
+      mism_[i] = mism;
+      valid_[i] = valid;
+    }
   }
 }
 
@@ -427,12 +541,12 @@ struct SpecChain {
   }
 };
 
-template <class T, bool kShear, int kThreads, bool kNum>
+template <class T, bool kShear, int kThreads, bool kNum, bool kPaired>
 cudaError_t launch_scan(const void* omega, const void* k, const void* par,
                         void* det, void* mism, void* valid, long long n,
                         int chunk, size_t smem, const SlabDispParams* p,
                         cudaStream_t stream) {
-  auto* kern = slab_disp_kernel<T, kShear, kThreads, kNum>;
+  auto* kern = slab_disp_kernel<T, kShear, kThreads, kNum, kPaired>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -447,7 +561,7 @@ cudaError_t launch_scan(const void* omega, const void* k, const void* par,
   return cudaGetLastError();
 }
 
-template <class T, bool kShear, bool kNum>
+template <class T, bool kShear, bool kNum, bool kPaired>
 cudaError_t launch_form(const void* omega, const void* k, const void* par,
                         void* det, void* mism, void* valid, long long n,
                         int threads, int chunk, const SlabDispParams* p,
@@ -455,37 +569,45 @@ cudaError_t launch_form(const void* omega, const void* k, const void* par,
   const size_t smem =
       2 * 3 * static_cast<size_t>(chunk) * sizeof(XPoint<T, kShear>);
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  if constexpr (kNum) {
+  if constexpr (kPaired) {
+    // built only at the block size kernels/slab.py::PAIRS_SHAPE picks: 128
+    // threads in the flux form, 256 in the shear form
+    constexpr int kT = kShear ? 256 : 128;
+    if (threads != kT) return cudaErrorInvalidValue;
+    return launch_scan<T, kShear, kT, kNum, true>(omega, k, par, det, mism,
+                                                  valid, n, chunk, smem, p,
+                                                  s);
+  } else if constexpr (kNum) {
     // built only at the shapes kernels/slab.py::scan_shape picks: 128
     // threads, and 256 for the flux form
     if (threads == 128) {
-      return launch_scan<T, kShear, 128, true>(omega, k, par, det, mism,
-                                               valid, n, chunk, smem, p, s);
+      return launch_scan<T, kShear, 128, true, false>(
+          omega, k, par, det, mism, valid, n, chunk, smem, p, s);
     }
     if constexpr (!kShear) {
       if (threads == 256) {
-        return launch_scan<T, kShear, 256, true>(omega, k, par, det, mism,
-                                                 valid, n, chunk, smem, p, s);
+        return launch_scan<T, kShear, 256, true, false>(
+            omega, k, par, det, mism, valid, n, chunk, smem, p, s);
       }
     }
     return cudaErrorInvalidValue;
   } else {
     switch (threads) {
       case 32:
-        return launch_scan<T, kShear, 32, false>(omega, k, par, det, mism,
-                                                 valid, n, chunk, smem, p, s);
+        return launch_scan<T, kShear, 32, false, false>(
+            omega, k, par, det, mism, valid, n, chunk, smem, p, s);
       case 64:
-        return launch_scan<T, kShear, 64, false>(omega, k, par, det, mism,
-                                                 valid, n, chunk, smem, p, s);
+        return launch_scan<T, kShear, 64, false, false>(
+            omega, k, par, det, mism, valid, n, chunk, smem, p, s);
       case 128:
-        return launch_scan<T, kShear, 128, false>(omega, k, par, det, mism,
-                                                  valid, n, chunk, smem, p, s);
+        return launch_scan<T, kShear, 128, false, false>(
+            omega, k, par, det, mism, valid, n, chunk, smem, p, s);
       case 256:
-        return launch_scan<T, kShear, 256, false>(omega, k, par, det, mism,
-                                                  valid, n, chunk, smem, p, s);
+        return launch_scan<T, kShear, 256, false, false>(
+            omega, k, par, det, mism, valid, n, chunk, smem, p, s);
       case 512:
-        return launch_scan<T, kShear, 512, false>(omega, k, par, det, mism,
-                                                  valid, n, chunk, smem, p, s);
+        return launch_scan<T, kShear, 512, false, false>(
+            omega, k, par, det, mism, valid, n, chunk, smem, p, s);
       default:
         return cudaErrorInvalidValue;
     }
@@ -493,28 +615,30 @@ cudaError_t launch_form(const void* omega, const void* k, const void* par,
 }
 
 // The form and the exterior that p names
-template <class T>
+template <class T, bool kPaired>
 cudaError_t launch_any(const void* omega, const void* k, const void* par,
                        void* det, void* mism, void* valid, long long n,
                        int threads, int chunk, const SlabDispParams* p,
                        cudaStream_t s) {
   if (p->shear) {
     return p->exterior_numeric
-               ? launch_form<T, true, true>(omega, k, par, det, mism, valid,
-                                            n, threads, chunk, p, s)
-               : launch_form<T, true, false>(omega, k, par, det, mism, valid,
-                                             n, threads, chunk, p, s);
+               ? launch_form<T, true, true, kPaired>(
+                     omega, k, par, det, mism, valid, n, threads, chunk, p, s)
+               : launch_form<T, true, false, kPaired>(
+                     omega, k, par, det, mism, valid, n, threads, chunk, p,
+                     s);
   }
   return p->exterior_numeric
-             ? launch_form<T, false, true>(omega, k, par, det, mism, valid, n,
-                                           threads, chunk, p, s)
-             : launch_form<T, false, false>(omega, k, par, det, mism, valid,
-                                            n, threads, chunk, p, s);
+             ? launch_form<T, false, true, kPaired>(
+                   omega, k, par, det, mism, valid, n, threads, chunk, p, s)
+             : launch_form<T, false, false, kPaired>(
+                   omega, k, par, det, mism, valid, n, threads, chunk, p, s);
 }
 
-// The scan of n candidates with `threads` (32 to 512, a power of two) a
-// block and chunks of `chunk` steps; returns the cudaError_t
-template <class T>
+// The scan of n candidates (kPaired: of n (omega, k) pairs, 2 n results,
+// par unread) with `threads` a block and chunks of `chunk` steps; returns
+// the cudaError_t
+template <class T, bool kPaired>
 int launch(const void* omega, const void* k, const void* par, void* det,
            void* mism, void* valid, long long n, int threads, int chunk,
            const SlabDispParams* p, int device, void* stream) {
@@ -522,8 +646,8 @@ int launch(const void* omega, const void* k, const void* par, void* det,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const auto s = static_cast<cudaStream_t>(stream);
-  err = launch_any<T>(omega, k, par, det, mism, valid, n, threads, chunk, p,
-                      s);
+  err = launch_any<T, kPaired>(omega, k, par, det, mism, valid, n, threads,
+                               chunk, p, s);
   return static_cast<int>(err);
 }
 
@@ -555,21 +679,42 @@ int launch_spec_slab(const void* lo, const void* hi, const void* k,
 extern "C" {
 
 // Each entry returns the cudaError_t of the launch (0 on success); n > 0;
-// threads 32, 64, 128, 256 or 512 a block, chunks of `chunk` table steps.
+// threads 32, 64, 128, 256 or 512 a block (the numeric exterior's 128, and
+// 256 in the flux form), chunks of `chunk` table steps.
 int eigk_slab_disp_f32(const void* omega, const void* k, const void* par,
                        void* det, void* mism, void* valid, long long n,
                        int threads, int chunk, const eigk::SlabDispParams* p,
                        int device, void* stream) {
-  return eigk::slab::launch<float>(omega, k, par, det, mism, valid, n,
-                                   threads, chunk, p, device, stream);
+  return eigk::slab::launch<float, false>(omega, k, par, det, mism, valid, n,
+                                          threads, chunk, p, device, stream);
 }
 
 int eigk_slab_disp_f64(const void* omega, const void* k, const void* par,
                        void* det, void* mism, void* valid, long long n,
                        int threads, int chunk, const eigk::SlabDispParams* p,
                        int device, void* stream) {
-  return eigk::slab::launch<double>(omega, k, par, det, mism, valid, n,
-                                    threads, chunk, p, device, stream);
+  return eigk::slab::launch<double, false>(omega, k, par, det, mism, valid,
+                                           n, threads, chunk, p, device,
+                                           stream);
+}
+
+// Both parities of each of n (omega, k) pairs: parity 0's n results, then
+// parity 1's (det, mism and valid hold 2 n); par is not read (null);
+// threads 128 a block in the flux form, 256 in the shear form.
+int eigk_slab_pairs_f32(const void* omega, const void* k, const void* par,
+                        void* det, void* mism, void* valid, long long n,
+                        int threads, int chunk, const eigk::SlabDispParams* p,
+                        int device, void* stream) {
+  return eigk::slab::launch<float, true>(omega, k, par, det, mism, valid, n,
+                                         threads, chunk, p, device, stream);
+}
+
+int eigk_slab_pairs_f64(const void* omega, const void* k, const void* par,
+                        void* det, void* mism, void* valid, long long n,
+                        int threads, int chunk, const eigk::SlabDispParams* p,
+                        int device, void* stream) {
+  return eigk::slab::launch<double, true>(omega, k, par, det, mism, valid, n,
+                                          threads, chunk, p, device, stream);
 }
 
 // Fused bisection of n brackets (lo, hi, k, parity) with the exterior

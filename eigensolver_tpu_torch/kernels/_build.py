@@ -74,6 +74,12 @@ _SIGNATURES = {
                             _I, _P, _I, _P), _I),
     "eigk_slab_disp_f64": ((_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I,
                             _I, _P, _I, _P), _I),
+    # both parities of n (omega, k) pairs: (omega, k, null, det, mism,
+    #  valid, n, threads, chunk, params, device, stream); 2 n results
+    "eigk_slab_pairs_f32": ((_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I,
+                             _I, _P, _I, _P), _I),
+    "eigk_slab_pairs_f64": ((_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I,
+                             _I, _P, _I, _P), _I),
     "eigk_slab_params_size": ((), ctypes.c_longlong),
     "eigk_slab_spec_f32": _SPEC_ARGS,
     "eigk_slab_spec_f64": _SPEC_ARGS,

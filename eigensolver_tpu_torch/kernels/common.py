@@ -75,29 +75,34 @@ def density_flow_params(kernel: str, case) -> tuple:
 
 
 def launch_disp(name: str, entries: dict, size_fn: str, struct,
-                omega: torch.Tensor, k: torch.Tensor, mode: torch.Tensor,
-                shape: tuple = ()):
+                omega: torch.Tensor, k: torch.Tensor,
+                mode: Optional[torch.Tensor], shape: tuple = ()):
     """Check the candidate tensors of a dispersion kernel, allocate its
     outputs and launch it on the current stream (no launch for 0
     candidates): (det, mismatch, valid). `mode` is the per-candidate mode
-    column (azimuthal order or parity); `shape`, the kernel's integer launch
-    arguments between the count and the parameters."""
+    column (azimuthal order or parity), or None for a kernel that writes
+    both parities of each (omega, k), parity 0's results then parity 1's
+    (2 n outputs); `shape`, the kernel's integer launch arguments between
+    the count and the parameters."""
     if omega.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {omega.device}")
     if omega.dtype not in entries:
         raise TypeError(f"{name} kernel takes float32/float64, "
                         f"not {omega.dtype}")
-    for arg, t in (("k", k), ("mode", mode)):
+    cols = {"k": k} if mode is None else {"k": k, "mode": mode}
+    for arg, t in cols.items():
         if (t.device != omega.device or t.dtype != omega.dtype
                 or t.shape != omega.shape):
             raise ValueError(f"{name}: {arg} must match omega in "
                              f"device, dtype and shape")
-    if omega.dim() != 1 or not all(t.is_contiguous() for t in (omega, k, mode)):
+    if omega.dim() != 1 or not all(t.is_contiguous()
+                                   for t in (omega, *cols.values())):
         raise ValueError(f"{name} kernel needs contiguous 1-D tensors")
-    det = torch.empty_like(omega)
-    mism = torch.empty_like(omega)
-    valid = torch.empty(omega.shape, dtype=torch.bool, device=omega.device)
     n = omega.numel()
+    out_n = n if mode is not None else 2 * n
+    det = omega.new_empty(out_n)
+    mism = omega.new_empty(out_n)
+    valid = torch.empty(out_n, dtype=torch.bool, device=omega.device)
     if n:
         lib = _build.library()
         if getattr(lib, size_fn)() != ctypes.sizeof(struct):
@@ -106,7 +111,8 @@ def launch_disp(name: str, entries: dict, size_fn: str, struct,
         stream = torch.cuda.current_stream(omega.device).cuda_stream
         code = getattr(lib, entries[omega.dtype])(
             ctypes.c_void_p(omega.data_ptr()), ctypes.c_void_p(k.data_ptr()),
-            ctypes.c_void_p(mode.data_ptr()), ctypes.c_void_p(det.data_ptr()),
+            ctypes.c_void_p(None if mode is None else mode.data_ptr()),
+            ctypes.c_void_p(det.data_ptr()),
             ctypes.c_void_p(mism.data_ptr()), ctypes.c_void_p(valid.data_ptr()),
             n, *shape, ctypes.byref(struct), omega.device.index,
             ctypes.c_void_p(stream))

@@ -8,7 +8,11 @@ variant the parameters pick): one thread per (omega, k, parity) candidate
 carries the whole RK4 shoot from the slab centre to its edge in registers,
 in the flux form (density cases) or the shear form (flow cases), reading
 the chain's x-only values from a table that its block computes in shared
-memory, chunk by chunk.
+memory, chunk by chunk; where n_interior is a power of two each step's
+first chain is the step before's last, kept, not formed again.
+`slab_disp_pairs` is its paired variant for a sweep's ladder, whose rows
+repeat once per parity: one thread per (omega, k) carries both parities
+through one chain and one exterior, parity 0's results first.
 `slab_bisect` (same file, `csrc/bisect.cuh::spec_kernel`) runs a whole
 fixed-count bisection of a bracket batch over the same chain in one launch
 (`eigensolver_tpu/search.py:142-169`, :468-522), with either exterior: its
@@ -49,15 +53,20 @@ from .common import (_SMS, EXTERIOR_FIELDS, ComplexShape, ProfileParams,
                      launch_spec, numeric_spec_shape)
 
 # launches of the kernels since the last reset (one per kernel launch):
-# slab_disp, the fused bisection slab_bisect, and at complex omega
-# slab_disp_complex and slab_newton
+# slab_disp (either variant), the fused bisection slab_bisect, and at
+# complex omega slab_disp_complex and slab_newton; and the candidates that
+# took the paired variant (2 per (omega, k))
 launches = 0
+paired = 0
 bisect_launches = 0
 complex_launches = 0
 newton_launches = 0
 
 _ENTRY = {torch.float32: "eigk_slab_disp_f32",
           torch.float64: "eigk_slab_disp_f64"}
+# both parities of each (omega, k)
+_PAIRS_ENTRY = {torch.float32: "eigk_slab_pairs_f32",
+                torch.float64: "eigk_slab_pairs_f64"}
 # the fused bisection, with either exterior
 _SPEC_ENTRY = {torch.float32: "eigk_slab_spec_f32",
                torch.float64: "eigk_slab_spec_f64"}
@@ -132,9 +141,10 @@ _NUM_THREADS = {False: (128, 256), True: (128,)}
 # PERF.md section 6): 256 threads a block for the flux form's scans; 128 for
 # the shear form (6% faster there), and for a batch that blocks of 256 would
 # not spread over every SM (the refine stage's 1,530 window ends: 5% faster);
-# chunks of 64 steps. Each within 5% of the fastest of 25 shapes.
-SCAN_SHAPE = ScanShape(threads=256, chunk=64)
-NARROW_SCAN_SHAPE = ScanShape(threads=128, chunk=64)
+# chunks of 128 steps. Each within 1% of the fastest of 25 shapes (numeric
+# draws, flux: the fastest, 8% ahead of chunks of 64).
+SCAN_SHAPE = ScanShape(threads=256, chunk=128)
+NARROW_SCAN_SHAPE = ScanShape(threads=128, chunk=128)
 
 
 def scan_shape(n: int, shear: bool) -> ScanShape:
@@ -145,10 +155,22 @@ def scan_shape(n: int, shear: bool) -> ScanShape:
     return SCAN_SHAPE
 
 
+# The paired scan's launch shape (both parities of each (omega, k)) by
+# shear form, the only block size it is built for, from timings on an H100
+# (`tools_torch/tune_disp.py --kernel slab_paired`, PERF.md section 6): 128
+# threads a block in the flux form (5-13% ahead of 256), 256 in the shear
+# form (4-5% ahead of 128); chunks of 128 steps. Each within 0.5% of the
+# fastest of its 10 built shapes on the sweeps' ladders.
+PAIRS_SHAPE = {False: ScanShape(threads=128, chunk=128),
+               True: ScanShape(threads=256, chunk=128)}
+
+
 def _check_scan_shape(shape: ScanShape, dtype: torch.dtype,
-                      shear: bool, numeric: bool = False) -> None:
-    check_scan_shape("slab_disp", shape,
-                     _NUM_THREADS[bool(shear)] if numeric else _THREADS,
+                      shear: bool, numeric: bool = False,
+                      pairs: bool = False) -> None:
+    threads = ((PAIRS_SHAPE[bool(shear)].threads,) if pairs
+               else _NUM_THREADS[bool(shear)] if numeric else _THREADS)
+    check_scan_shape("slab_disp", shape, threads,
                      _ENTRY_BYTES[(bool(shear), dtype)])
 
 
@@ -171,6 +193,34 @@ def slab_disp(omega: torch.Tensor, k: torch.Tensor, parity: torch.Tensor,
         "slab_disp", _ENTRY, "eigk_slab_params_size", params.struct,
         omega, k, parity, shape)
     launches += omega.numel() > 0
+    return SlabInterface(det=det, mismatch_pct=mism, valid=valid)
+
+
+def slab_disp_pairs(omega: torch.Tensor, k: torch.Tensor,
+                    params: DispParams, shape: Optional[ScanShape] = None):
+    """SlabInterface(det, mismatch_pct, valid) of both parities of each
+    (omega, k) of 1-D tensors of one dtype and device: 2 n entries, parity
+    0's n results then parity 1's, as `slab_disp` gives them on (omega,
+    k) repeated twice with the parity column (0 ... 0, 1 ... 1). On the card
+    one launch of the paired scan (launch shape `shape`, default
+    `PAIRS_SHAPE` of the form), on the CPU the plain version on that
+    repeated batch. A shape the kernel is not built for raises on any
+    device."""
+    global launches, paired
+    from ..physics.slab import SlabInterface
+    shear = bool(params.struct.shear)
+    shape = ScanShape(*(shape or PAIRS_SHAPE[shear]))
+    if omega.dtype in _PAIRS_ENTRY:     # launch_disp raises on the others
+        _check_scan_shape(shape, omega.dtype, shear, pairs=True)
+    if omega.device.type == "cpu":
+        par = torch.cat([torch.zeros_like(omega), torch.ones_like(omega)])
+        return _plain(params, omega.dtype)(omega.repeat(2), k.repeat(2),
+                                           par)
+    det, mism, valid = launch_disp(
+        "slab_disp_pairs", _PAIRS_ENTRY, "eigk_slab_params_size",
+        params.struct, omega, k, None, shape)
+    launches += omega.numel() > 0
+    paired += 2 * omega.numel()
     return SlabInterface(det=det, mismatch_pct=mism, valid=valid)
 
 

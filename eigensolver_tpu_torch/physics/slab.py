@@ -555,7 +555,13 @@ class SlabPhysics:
         The callable carries `disp.bisect(lo, hi, k, parity, n_iter,
         final_eval=True) -> (root, mismatch)`, the whole bisection of a
         bracket batch (`search.bisect_loop`'s result): one `slab_bisect`
-        launch on CUDA tensors (parity None for a fixed-parity disp).
+        launch on CUDA tensors (parity None for a fixed-parity disp). With
+        parity=None it also carries `disp.both_parities(omega, k)`: the
+        SlabInterface of disp(omega, k, 0) and disp(omega, k, 1)
+        concatenated, as one call on (omega, k) repeated twice with the
+        parity column (0 ... 0, 1 ... 1) gives it; on CUDA tensors one
+        launch of the paired scan (`kernels.slab.slab_disp_pairs`), which
+        shares each (omega, k)'s chain and exterior between its parities.
 
         At complex omega (`case.complex_omega`) omega is a `cplx.C` (or a
         complex tensor), det a `cplx.C`, and CUDA tensors run
@@ -567,7 +573,8 @@ class SlabPhysics:
         the plain dual shoot, then the plain dispersion, on the CPU (parity
         dropped for a fixed-parity disp)."""
         _check_supported(self.case, self.has_flow)
-        from ..kernels.slab import disp_params, slab_bisect, slab_disp
+        from ..kernels.slab import (disp_params, slab_bisect, slab_disp,
+                                    slab_disp_pairs)
         if include_shear_pressure is None:
             include_shear_pressure = self.case.complex_omega
         params = disp_params(self.case, include_shear_pressure)
@@ -591,8 +598,13 @@ class SlabPhysics:
                                column(parity_arg, lo), n_iter, params,
                                final_eval)
 
+        def both_parities(omega, k):
+            return slab_disp_pairs(omega.to(dtype).contiguous(),
+                                   k.to(dtype).contiguous(), params)
+
         if parity is None:
             disp.bisect = bisect
+            disp.both_parities = both_parities
             return disp
         p_const = float(parity)
 

@@ -66,16 +66,25 @@ def _call_disp(disp_batch, omega, k, mode):
 
 
 def ladder_scan(disp_batch: Callable, omegas: torch.Tensor, ks: torch.Tensor,
-                modes: Optional[torch.Tensor] = None):
+                modes: Optional[torch.Tensor] = None, paired: bool = False):
     """Evaluate the dispersion function on a (rows, n_omega) ladder grid.
 
     disp_batch: batched disp over flat (omega, k[, mode]) -> .det/.valid/...
+    paired: the caller's word that the grid is one row set twice, its
+    parity 0 rows then the same rows at parity 1 (modes 0 ... 0, 1 ... 1):
+    the first half's candidates go through `disp_batch.both_parities`
+    once, which gives both halves' results in the grid's order.
     Returns (det, valid, mismatch) as (rows, n_omega) tensors."""
     rows, n_omega = omegas.shape
-    flat_om = omegas.reshape(-1)
-    flat_k = ks.repeat_interleave(n_omega)
-    flat_m = None if modes is None else modes.repeat_interleave(n_omega)
-    res = _call_disp(disp_batch, flat_om, flat_k, flat_m)
+    if paired:
+        half = rows // 2
+        res = disp_batch.both_parities(
+            omegas[:half].reshape(-1), ks[:half].repeat_interleave(n_omega))
+    else:
+        flat_om = omegas.reshape(-1)
+        flat_k = ks.repeat_interleave(n_omega)
+        flat_m = None if modes is None else modes.repeat_interleave(n_omega)
+        res = _call_disp(disp_batch, flat_om, flat_k, flat_m)
     det = res.det.reshape(rows, n_omega)
     valid = res.valid.reshape(rows, n_omega)
     mism = res.mismatch_pct.reshape(rows, n_omega)
@@ -357,15 +366,19 @@ def _concat(a: PolishResult, b: PolishResult) -> PolishResult:
 
 def search_rows(disp_batch_scan: Callable, disp_batch_polish: Callable,
                 omegas: torch.Tensor, ks: torch.Tensor, cfg: SearchConfig,
-                modes: Optional[torch.Tensor] = None) -> PolishResult:
+                modes: Optional[torch.Tensor] = None,
+                paired: bool = False) -> PolishResult:
     """Scan -> mask -> bracket -> bisect -> accept for one ladder batch.
 
     omegas: (rows, n_omega) ladders; ks: (rows,); modes: optional (rows,)
-    mode column (fused sausage+kink sweep). Returns a PolishResult of
+    mode column (fused sausage+kink sweep); paired: the rows are one row
+    set at parity 0 then the same at parity 1, and the scan evaluates each
+    (omega, k) once for both (`ladder_scan`). Returns a PolishResult of
     rows * max_brackets_per_row entries whose mask includes acceptance,
     then, with fuzz_accept_pct, one fuzz record per strided scan point
     (`fuzz_records`; `fuzz` marks them)."""
-    det, valid, mism = ladder_scan(disp_batch_scan, omegas, ks, modes)
+    det, valid, mism = ladder_scan(disp_batch_scan, omegas, ks, modes,
+                                   paired)
     # the masks take det alone: valid and mism stay unmasked, as in the JAX
     # package, so the fuzz records see the whole scan
     if cfg.exclude_v_ranges:

@@ -318,6 +318,9 @@ def run_case(case: CaseConfig, search: Optional[SearchConfig] = None,
         ks_f = np.concatenate([ks] * len(modes))
         modes_f = np.concatenate([np.full((rows,), float(mode))
                                   for mode in modes])
+        # the slab's chain does not depend on the parity: with both
+        # parities the scan shares each (omega, k) between them
+        paired = case.geometry == Geometry.SLAB and tuple(modes) == (0, 1)
         disp_scan = make_dispersion_moded(case, scan_dt)
         disp_polish = (disp_scan if polish_dt == scan_dt
                        else make_dispersion_moded(case, polish_dt))
@@ -329,7 +332,8 @@ def run_case(case: CaseConfig, search: Optional[SearchConfig] = None,
             return torch.from_numpy(a).to(device=device, dtype=scan_dt)
 
         pr = search_rows(disp_scan, disp_polish, to_dev(omegas_f),
-                         to_dev(ks_f), search, modes=to_dev(modes_f))
+                         to_dev(ks_f), search, modes=to_dev(modes_f),
+                         paired=paired)
         synchronize(device)
     with timer.stage("finalize"):
         branches = finalize_branches(pr, modes, case, search,

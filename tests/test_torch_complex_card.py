@@ -151,7 +151,7 @@ def test_fused_equals_chained_and_final_eval(dtype):
                     reason="needs a CUDA card")
 def test_newton_bit_equal(n_iter, dtype, n_interior):
     """At a power-of-two depth, where each step's first chain is the step
-    before's last (csrc/slab_complex.cu::cx_reuse), and at another."""
+    before's last (csrc/common.cuh::chain_reuse), and at another."""
     case = reduced(1.0, n_interior)
     params = kslab.disp_params(case, True)
     om, k, par = draws(300, 5, dtype)

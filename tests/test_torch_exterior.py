@@ -232,7 +232,9 @@ def test_exterior_op_counts_match_chip_smoke():
     """chip_smoke.py's bounds count the exteriors' operations as
     tools_torch/count_ops.py traces them from the plain RK4 step, and the
     density/axial-flow chain's split into what depends on omega and what
-    on its (k, m, r) row alone as it traces the plain chain."""
+    on its (k, m, r) row alone as it traces the plain chain, and the slab
+    chain's split from its update as it traces the plain flux and shear
+    chains and `_rk4_linear`."""
     import importlib.util
     from pathlib import Path
     root = Path(__file__).resolve().parent.parent
@@ -245,9 +247,21 @@ def test_exterior_op_counts_match_chip_smoke():
         return mod
 
     count_ops = load("tools_torch/count_ops.py")
-    counts = {**count_ops.cylinder_ops(), **count_ops.exterior_ops()}
-    ops = load("chip_smoke.py").OPS
+    counts = {**count_ops.slab_ops(), **count_ops.cylinder_ops(),
+              **count_ops.exterior_ops()}
+    smoke = load("chip_smoke.py")
+    ops = smoke.OPS
     assert counts and {key: ops[key] for key in counts} == counts
+    # the slab chain split from its update: the flux form's 3 chains a step
+    # (1 division each) and its update are the 61 operations a step that
+    # the bound counted before; the shear chain (5 divisions) 24 an
+    # abscissa; a shoot at a power of two needs 2 n + 1 chains, else 3 n
+    assert 3 * ops["slab_chain"] + ops["slab_update"] == 61
+    assert (ops["slab_chain"], ops["slab_shear_chain"]) == (9, 24)
+    assert smoke.slab_chains(2048) == 4097
+    assert smoke.slab_chains(250) == smoke.slab_chains(2048, True) // 2048 * 250
+    paired = smoke.slab_ops(2, 1, 2048, n_chains=1)
+    assert smoke.slab_ops(2, 1, 2048) - paired == 4097 * ops["slab_chain"]
     # the cylinder's step takes 3 exps (k2 and k3 share x + h/2), of its
     # abscissae 2 t, which depend on k alone: with the abscissae and their
     # forming x0 + i h, 10 a step once per distinct k; per candidate its

@@ -297,16 +297,16 @@ def test_scan_shape_fits_the_card(dtype, shear):
 
 
 @pytest.mark.parametrize("n,shear,want", [
-    (161_280, False, (256, 64)),     # slab_ph_09's scan
-    (33_792, False, (256, 64)),      # 132 blocks of 256
-    (33_791, False, (128, 64)),
-    (1_530, False, (128, 64)),       # its refine stage's window ends
-    (179_200, True, (128, 64)),      # slab_flow_gaussian_coronal's scan
-    (1_530, True, (128, 64))])
+    (161_280, False, (256, 128)),    # slab_ph_09's scan
+    (33_792, False, (256, 128)),     # 132 blocks of 256
+    (33_791, False, (128, 128)),
+    (1_530, False, (128, 128)),      # its refine stage's window ends
+    (179_200, True, (128, 128)),     # slab_flow_gaussian_coronal's scan
+    (1_530, True, (128, 128))])
 def test_default_launch_shape_by_regime(n, shear, want):
     """256 threads a block for the flux form's scans, 128 for the shear
     form and for batches that blocks of 256 would not spread over every
-    SM; chunks of 64 steps."""
+    SM; chunks of 128 steps."""
     assert kslab.scan_shape(n, shear) == kslab.ScanShape(*want)
 
 

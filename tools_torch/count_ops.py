@@ -1,7 +1,8 @@
 """Count the operations of the twisted cylinder chain, of the numeric
-exteriors, of the complex-omega slab chain and the row class of the
-density/axial-flow cylinder chain that chip_smoke.py's bounds use (its OPS
-entries "cyl_tw_*", "slab_ext_*", "cyl_ext_*", "slab_cx_*", "cyl_*step").
+exteriors, of the complex-omega slab chain, of the real-omega slab chain
+and the row class of the density/axial-flow cylinder chain that
+chip_smoke.py's bounds use (its OPS entries "cyl_tw_*", "slab_ext_*",
+"cyl_ext_*", "slab_cx_*", "slab_*chain", "slab_*update", "cyl_*step").
 
     python tools_torch/count_ops.py
 
@@ -50,6 +51,22 @@ Per RK4 step, 3 evaluations of the chain with (1/F, g) (physics/cylinder.py
 `twisted_chain`, `twisted_invF_g`), per evaluation the chain's values at
 r = 1 and F(1), C1(1)/C3(1). The parts that the trace does not cover are
 counted by hand from csrc/cylinder_twisted.cu and csrc/cylinder.cuh below.
+
+The real-omega slab chain (`slab_ops`): one evaluation of
+`physics/slab.py::make_flux_coef`'s and `make_shear_coef`'s coef (the
+order csrc/slab_disp.cu::flux_coef, shear_coef follow; the flux form's
+zero flow, the shear form's corrected D) traced on symbols omega, k
+(the candidate, "c") and the profiles' values at x ("x"): what depends on
+both is the chain a candidate needs at an abscissa ("slab_chain",
+"slab_shear_chain"); what depends on x alone is the scan's table
+("*_x_step"), on the candidate alone its ends ("*_ends"). The update
+("slab_update", "slab_shear_update"): one step of `_rk4_linear` over
+`_apply_flux` / `_apply_shear` from a state of symbols, with the chain's
+values at the 3 abscissae as symbols, as for the complex chain. A step
+needs the update once per candidate and the chain once per distinct
+(omega, k) at each of its distinct abscissae: 2 a step and 1 more a shoot
+where n_interior is a power of two (the step before's last abscissa is
+the next step's first, bit for bit), else 3.
 
 The complex-omega slab chain (`complex_ops`): `physics/slab.py::
 complex_shear_coef` (the order csrc/slab_complex.cu::shear_coef follows),
@@ -382,6 +399,51 @@ def _sym_sqrt(z):
     return C(t, z.im / (2.0 * t))
 
 
+def slab_ops() -> dict:
+    """chip_smoke.py's OPS entries for the real-omega slab chain: per
+    candidate and abscissa one evaluation of the chain ("slab_chain" in
+    the flux form, "slab_shear_chain" in the shear form), per candidate
+    and RK4 step the update ("slab_update", "slab_shear_update")."""
+    import types
+    import torch
+    from eigensolver_tpu_torch.physics import slab
+    saved = torch.full_like
+    torch.full_like = lambda x, v: Sym.of(v)
+    try:
+        out = {}
+        for f, apply in (("slab_", slab._apply_flux),
+                         ("slab_shear_", slab._apply_shear)):
+            Sym.nodes = {}
+            if f == "slab_":
+                ph = types.SimpleNamespace(eq=types.SimpleNamespace(
+                    U_i=lambda x: ZERO, rho_i=lambda x: Sym({"x"}),
+                    c_i=lambda x: Sym({"x"}), vA_i=lambda x: Sym({"x"})))
+                coef = slab.SlabPhysics.make_flux_coef(ph, Sym({"c"}),
+                                                       Sym({"c"}))
+            else:
+                ph = types.SimpleNamespace(
+                    case=types.SimpleNamespace(shear_D_legacy=False),
+                    eq=types.SimpleNamespace(
+                        U_i=lambda x: Sym({"x"}),
+                        regime=types.SimpleNamespace(c_i0=0.6, vA_i0=1.3)),
+                    flow_derivative=lambda order: (lambda x: Sym({"x"})))
+                coef = slab.SlabPhysics.make_shear_coef(ph, Sym({"c"}),
+                                                        Sym({"c"}))
+            out[f + "chain"] = _tally_deps(list(coef(Sym({"x"})))).get(
+                "cx", 0)
+            Sym.nodes = {}
+            calls = iter([(Sym({"c", "x"}), Sym({"c", "x"}))
+                          for _ in range(3)])
+            h = Sym()
+            y = slab._rk4_linear(apply, lambda x: next(calls),
+                                 (Sym({"s"}), Sym({"s"})), Sym(), h, 1)
+            out[f + "update"] = sum(n for d, n in _tally_deps(list(y)).items()
+                                    if "s" in d)
+    finally:
+        torch.full_like = saved
+    return out
+
+
 class _SymEq:
     """An equilibrium whose values at x = 1 are constants of the launch."""
 
@@ -502,10 +564,11 @@ def main() -> int:
     ext = exterior_ops()
     cx = complex_ops()
     cyl = cylinder_ops()
+    sl = slab_ops()
     print(json.dumps({"traced": {**traced_ops(False), **traced_ops(True),
-                                 **ext, **cx, **cyl},
+                                 **ext, **cx, **cyl, **sl},
                       "ops": {**twisted_ops(False), **twisted_ops(True),
-                              **ext, **cx, **cyl}}))
+                              **ext, **cx, **cyl, **sl}}))
     return 0
 
 

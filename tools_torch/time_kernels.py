@@ -3,7 +3,8 @@
 
     python3 tools_torch/time_kernels.py [--pkg-root DIR] [--label NAME]
                                         [--out PATH] [--complex]
-                                        [--cylinder-scan] [--roots PATH]
+                                        [--cylinder-scan] [--slab-scan]
+                                        [--roots PATH]
 
 Imports `eigensolver_tpu_torch` from DIR (default: this repository), builds
 its kernels and prints one JSON line of device times (CUDA events, mean of
@@ -50,7 +51,22 @@ several launches after a warm-up):
     cyl_co_09 float32 sweep; the scan's registers and spills (ptxas) and,
     per instantiation, the static counts of the SASS instructions behind
     its divisions and exps (MUFU.RCP, MUFU.RCP64H, MUFU.EX2, FCHK, DFMA,
-    and the shared-memory loads LDS).
+    and the shared-memory loads LDS);
+  - the scan slab_disp (`--slab-scan` times only this): on each sweep's
+    whole ladder in ladder order, unpaired (one thread a candidate, the
+    only path of a checkout without `both_parities`) and paired (both
+    parities of an (omega, k) in one thread, `disp.both_parities` on the
+    ladder's parity-0 half, where the checkout has it): with the numeric
+    exterior on the slab_ph_09 parity ladder (349,440), with the exact one
+    on the slab_ph_09 sweep's (161,280, flux form) and
+    slab_flow_gaussian_coronal's (179,200, shear form), float32 and
+    float64; unpaired on 8,191 random draws with the numeric exterior
+    (chip_smoke.py phase 13's: the parity slab, flux, and the Gaussian flow
+    at 3 wavelengths, shear) and on the slab_ph_09 float32 sweep's 1,530
+    float64 refine window ends; the walls (medians of 3 after a first run)
+    of the slab_ph_09 parity sweeps (float32 refined in float64, and
+    float64) and of the slab_ph_09 float32 sweep, with their counts; the
+    scan's ptxas lines and SASS counts, as for the cylinder.
 To compare two commits on one card, unpack the other into a git-ignored
 directory and run both in turns (A B B A) on the same card; `--complex`
 times only the complex-omega kernels, `--roots PATH` saves the KH Newton
@@ -458,6 +474,58 @@ def cylinder_scan_times(lib: Path) -> dict:
     return out
 
 
+def slab_scan_times(lib: Path) -> dict:
+    """The scan slab_disp's times (see the module's docstring)."""
+    import dataclasses
+    import torch
+    from eigensolver_tpu_torch import cases, equilibrium, search, sweep
+    from tools_torch import batches, parity
+    out = {}
+    par, par_cfg, _ = parity.configure("slab_ph_09", cases,
+                                       search.SearchConfig,
+                                       equilibrium.genuine_continua)
+    main = cases.slab_density_photospheric(0.9)
+    flow = cases.slab_flow_gaussian_coronal()
+    ladders = (("numeric parity", par, par_cfg.n_omega),
+               ("flux slab_ph_09", main, 256),
+               ("shear flow_gauss", flow, 256))
+    shear3 = dataclasses.replace(flow, grid=dataclasses.replace(
+        flow.grid, exterior_method="numeric", exterior_wavelengths=3.0))
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype)[6:]
+        for name, case, n_omega in ladders:
+            disp = sweep.make_dispersion_moded(case, dtype)
+            cand = batches.flat_ladder(case, n_omega, dtype)
+            r = out[f"{name} {dname}"] = {
+                "n": cand[0].numel(), "ms": cuda_ms(lambda: disp(*cand), 3)}
+            pairs = getattr(disp, "both_parities", None)
+            if pairs is not None:
+                half = [x[:x.numel() // 2] for x in cand[:2]]
+                r["paired_ms"] = cuda_ms(lambda: pairs(*half), 3)
+        for name, case in (("numeric ragged flux", par),
+                           ("numeric ragged shear", shear3)):
+            disp = sweep.make_dispersion_moded(case, dtype)
+            cand = batches.ladder_draws(case, 8191, 13, dtype)
+            out[f"{name} {dname}"] = {
+                "n": cand[0].numel(), "ms": cuda_ms(lambda: disp(*cand), 10)}
+    win, _ = window_ends(main)
+    disp64 = sweep.make_dispersion_moded(main, torch.float64)
+    out["window float64"] = {"n": win[0].numel(),
+                             "ms": cuda_ms(lambda: disp64(*win), 20)}
+    for dtype in ("float32", "float64"):
+        case, cfg, refine = parity.configure(
+            "slab_ph_09", cases, search.SearchConfig,
+            equilibrium.genuine_continua, dtype)
+        out[f"slab_ph_09 parity {dtype} wall"] = _walls(case, cfg, refine)
+    out["slab_ph_09 float32 wall"] = _walls(
+        main, search.SearchConfig(n_omega=256, n_bisect=18,
+                                  scan_dtype="float32",
+                                  polish_dtype="float32"), False)
+    out["ptxas"] = ptxas_lines("slab_disp_kernel")
+    out["sass"] = sass_counts(lib, "slab_disp_kernel")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--pkg-root", default=str(ROOT),
@@ -468,6 +536,8 @@ def main() -> int:
                     help="time only the complex-omega kernels")
     ap.add_argument("--cylinder-scan", action="store_true",
                     help="time only the scan cylinder_disp and its sweeps")
+    ap.add_argument("--slab-scan", action="store_true",
+                    help="time only the scan slab_disp and its sweeps")
     ap.add_argument("--roots", help="save the KH Newton roots here (.npz)")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.pkg_root).resolve()))
@@ -486,8 +556,9 @@ def main() -> int:
     lib = _build.build()
     out = {"label": args.label, "nvidia_smi": smi,
            "package": str(Path(_build.__file__).resolve().parents[1])}
-    if args.cylinder_scan:
-        out.update(cylinder_scan_times(lib))
+    if args.cylinder_scan or args.slab_scan:
+        out.update(cylinder_scan_times(lib) if args.cylinder_scan
+                   else slab_scan_times(lib))
         print(json.dumps(out), flush=True)
         if args.out:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)

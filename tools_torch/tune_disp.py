@@ -2,7 +2,7 @@
 """Launch shapes of the scan kernels, timed on a CUDA card.
 
     python3 tools_torch/tune_disp.py [--kernel cylinder|cylinder_numeric|
-                                              slab|twisted|all]
+                                              slab|slab_paired|twisted|all]
                                      [--pkg-root DIR] [--out PATH]
 
 Times each scan kernel at every (threads per block, table chunk of RK4
@@ -18,10 +18,20 @@ and prints per set the default's time and the fastest shapes:
     too and reports the ones the checkout refuses: another block size is
     a local edit of `launch_scan_threads` in csrc/cylinder_disp.cu and of
     `kernels.cylinder._check_scan_shape`, run with `--pkg-root`);
-  - `slab_disp` (default `kernels.slab.scan_shape`) on slab_ph_09's ladder
-    scan (161,280, flux form) and slab_flow_gaussian_coronal's (179,200,
-    shear form), float32 and float64, and on the float64 window launch of
-    the slab_ph_09 float32 sweep's refine stage (10 ends per root: 1,530);
+  - the unpaired `slab_disp` (default `kernels.slab.scan_shape`) on
+    slab_ph_09's ladder (161,280, flux form) and
+    slab_flow_gaussian_coronal's (179,200, shear form), float32 and
+    float64, on the float64 window launch of the slab_ph_09 float32
+    sweep's refine stage (10 ends per root: 1,530), and with the numeric
+    exterior on 8,191 random draws of the slab_ph_09 parity ladder (flux)
+    and of the Gaussian flow at 3 wavelengths (shear), float32 and float64;
+  - the paired `slab_disp` (`slab_paired`: `kernels.slab.slab_disp_pairs`,
+    default `PAIRS_SHAPE`) on the same sweeps' (omega, k) pairs (80,640
+    and 89,600) and, with the numeric exterior, on the slab_ph_09 parity
+    sweep's (174,720), float32 and float64; it is built at one block size
+    a form, and the others are listed as refused (another is a local edit
+    of `launch_form` in csrc/slab_disp.cu and of `kernels.slab.
+    _check_scan_shape`, run with `--pkg-root`);
   - the twisted `cylinder_disp` (default `kernels.cylinder.TW_SCAN_SHAPE`)
     on the 76,800-candidate ladder scans of twist_v01_p1 and of the
     magnetic twist (cylinder_twisted_magnetic(0.1, 0.15, 1.25, 1)), float32
@@ -109,6 +119,21 @@ def tune(label: str, kernel, default, threads, cand, params) -> dict:
     return out
 
 
+def numeric_slabs() -> dict:
+    """The slabs with the numeric exterior: the slab_ph_09 parity
+    configuration (flux form) and the Gaussian flow at 3 wavelengths
+    (shear form), as chip_smoke.py's phase 13 takes them."""
+    import dataclasses
+    from eigensolver_tpu_torch import cases, equilibrium, search
+    from tools_torch import parity
+    flux, _, _ = parity.configure("slab_ph_09", cases, search.SearchConfig,
+                                  equilibrium.genuine_continua)
+    flow = cases.slab_flow_gaussian_coronal()
+    shear = dataclasses.replace(flow, grid=dataclasses.replace(
+        flow.grid, exterior_method="numeric", exterior_wavelengths=3.0))
+    return {"flux": flux, "shear": shear}
+
+
 def tune_twisted(out: dict) -> None:
     """The twisted scan's launch shapes, and the small batches' two paths."""
     import torch
@@ -187,7 +212,8 @@ def tune_grid(label: str, kernel, default, shapes, cand, params,
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=("cylinder", "cylinder_numeric",
-                                         "slab", "twisted", "all"),
+                                         "slab", "slab_paired", "twisted",
+                                         "all"),
                     default="all")
     ap.add_argument("--pkg-root", default=str(ROOT),
                     help="directory holding eigensolver_tpu_torch")
@@ -248,6 +274,31 @@ def main() -> int:
             "slab_disp window float64", slab.slab_disp,
             slab.scan_shape(cand[0].numel(), False), THREADS["slab"], cand,
             slab.disp_params(case))
+        for form, case in numeric_slabs().items():
+            params = slab.disp_params(case)
+            shear = bool(params.struct.shear)
+            for dtype in (torch.float32, torch.float64):
+                name = f"slab_disp numeric {form} 8191 {str(dtype)[6:]}"
+                cand = batches.ladder_draws(case, 8191, 13, dtype)
+                out[name] = tune(name, slab.slab_disp,
+                                 slab.scan_shape(8191, shear),
+                                 THREADS["slab"], cand, params)
+    if args.kernel in ("slab_paired", "all"):
+        sets = {"flux slab_ph_09": (cases.slab_density_photospheric(0.9),
+                                    256),
+                "shear flow_gauss": (cases.slab_flow_gaussian_coronal(),
+                                     256),
+                "numeric parity": (numeric_slabs()["flux"], 384)}
+        for form, (case, n_omega) in sets.items():
+            params = slab.disp_params(case)
+            shear = bool(params.struct.shear)
+            for dtype in (torch.float32, torch.float64):
+                name = f"slab_disp paired {form} {str(dtype)[6:]}"
+                cand = batches.flat_ladder(case, n_omega, dtype)
+                half = [x[:x.numel() // 2] for x in cand[:2]]
+                out[name] = tune(name, slab.slab_disp_pairs,
+                                 slab.PAIRS_SHAPE[shear],
+                                 THREADS["slab"], half, params)
     if args.kernel in ("twisted", "all"):
         tune_twisted(out)
     if args.out:
