@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--json-out PATH]
 
 Run from the repository root. Phases, one line each (9, 12 and 13 in two,
-17 in five, 18 in two);
+17 in five, 18 in two, 19 in four, 20 in eight or nine, 21 in
+seven);
 any failure raises and the script exits non-zero:
 
 1. device: a CUDA card is required; its nvidia-smi name and power limit.
@@ -174,6 +175,35 @@ any failure raises and the script exits non-zero:
    1.0: its unconverged seeds near the flow continuum land by rounding);
    at width 1e5 the largest growth rate held to the Doppler-tanh relation
    within 2e-6 (tests/test_complex_kh.py:42-55).
+19. the crash-safe sweeps (sweep.run_case_checkpointed, k blocks of 8, each
+   on a fresh store): slab_ph_09 at float32 and float64 (5 blocks: 5
+   slab_disp launches, every candidate through the paired scan, and 5
+   slab_bisect), each root and count equal to run_case's at the same
+   config (rtol 1e-12; bit-equal printed) and its counts to the JAX
+   package's; the finished store again (no launch, no candidate, the same
+   roots); the first 16 k alone, then the whole grid on that store (2,
+   then 3 blocks); cyl_co_09 float32 (12 blocks: 12 cylinder_disp, 12
+   cylinder_bisect); kh_w1e5 through run_case_complex_checkpointed (3
+   blocks, 3 slab_newton launches, no audit; 49 roots, omega and Im omega
+   equal to run_case_complex's); the store's writer and each path's wall.
+20. the CLI, each command a `python -m eigensolver_tpu_torch` process on
+   the default device (cuda): the slab_ph_09 sweep (the CLI's
+   SearchConfig(n_omega=256), float32), without and with --checkpoint, its
+   counts, launches and pickle against an in-process run_case; the KH
+   sweep with --complex --checkpoint (49 roots; its pickle the kink-only
+   2-array layout; its store's growth rates equal to run_case_complex's);
+   analyze and eigenfunction on the slab pickle (with --plot, and
+   --analytic, where matplotlib imports), vtk on it and on phase 19's
+   cyl_co_09 roots, movie --frames 4 on those where matplotlib imports;
+   each wall, the kernel library's load time (loaded, not built again).
+21. the eigenfunctions on the card (float64, eager PyTorch shoots): slab
+   roots of slab_ph_09 (kink, sausage) and slab_flow_gaussian_coronal
+   (the shear form), cylinder roots of cyl_co_09 (m = 0, 1) and
+   twist_v01_p1, each field within 1e-10 of its largest value of the same
+   call on the CPU (1e-9 within 10 axis cutoffs of the axis, where the
+   card's exp ulps are amplified); the uniform slab's kink mode cosh(m0 x)
+   (rtol 1e-6);
+   the wall of each reconstruction.
 
 Then one JSON line of the kernels (with each one's bound: the operations
 the function needs on this run's inputs over the card's peak rate, or its
@@ -185,6 +215,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib.util
 import json
 import statistics
 import subprocess
@@ -402,7 +433,12 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 HBM_BYTES_S = 3.35e12
 
 
+_T0 = time.perf_counter()
+
+
 def line(phase: str, **fields) -> None:
+    """One phase's line, with the seconds since the script started."""
+    fields["elapsed_s"] = time.perf_counter() - _T0
     print(f"{phase}: {json.dumps(fields, default=float)}", flush=True)
 
 
@@ -433,16 +469,9 @@ def reset_counters() -> None:
 
 
 def read_counters() -> dict:
-    from eigensolver_tpu_torch.kernels import bessel, cylinder, slab
+    from eigensolver_tpu_torch.kernels import launch_counts
     from eigensolver_tpu_torch.physics import cylinder as pcyl, slab as pslab
-    return {"cylinder_disp": cylinder.launches,
-            "cylinder_disp_small": cylinder.small_launches,
-            "cylinder_bisect": cylinder.bisect_launches,
-            "slab_disp": slab.launches, "slab_bisect": slab.bisect_launches,
-            "slab_paired": slab.paired,
-            "slab_disp_complex": slab.complex_launches,
-            "slab_newton": slab.newton_launches,
-            "kve_ratio": bessel.launches, "plain_cylinder": pcyl.plain_calls,
+    return {**launch_counts(), "plain_cylinder": pcyl.plain_calls,
             "plain_slab": pslab.plain_calls}
 
 
@@ -2871,6 +2900,424 @@ def complex_kernel_entries(res: dict, launches: dict) -> list:
     }]
 
 
+CK_BLOCK = 8                        # k a block of the checkpointed sweeps
+EF_K = 1.5                          # the eigenfunctions' roots: nearest k
+
+
+def _same_roots(what: str, got, want, rtol: float,
+                imag: bool = False) -> bool:
+    """Hold got's roots to want's, branch by branch in (k, omega) order:
+    equal counts and ks, omegas within rtol (Im omega also within atol
+    1e-15); return whether every value is bit-equal."""
+    if got.counts() != want.counts():
+        raise AssertionError(f"{what}: counts {got.counts()}, want "
+                             f"{want.counts()}")
+    bits = True
+    for b in want.branches:
+        g, w = got[b], want[b]
+        og, ow = np.lexsort((g.omegas, g.ks)), np.lexsort((w.omegas, w.ks))
+        pairs = [(g.ks[og], w.ks[ow], 0.0, 0.0),
+                 (g.omegas[og], w.omegas[ow], rtol, 0.0)]
+        if imag:
+            pairs.append((g.omegas_imag[og], w.omegas_imag[ow], rtol, 1e-15))
+        for a, e, rt, at in pairs:
+            a, e = np.asarray(a, np.float64), np.asarray(e, np.float64)
+            if not np.allclose(a, e, rtol=rt, atol=at):
+                raise AssertionError(f"{what} {b}: largest difference "
+                                     f"{np.max(np.abs(a - e))}")
+            bits &= bool(np.array_equal(a, e))
+    return bits
+
+
+def _timed(fn):
+    t0 = time.perf_counter()
+    r = fn()
+    return r, time.perf_counter() - t0
+
+
+def phase_checkpointed(out: dict, tmp: Path) -> dict:
+    """Phase 19: the crash-safe sweeps on the card, each on a fresh store
+    in tmp: (a) slab_ph_09 at float32 and float64 (35 k, 5 blocks: 5
+    slab_disp, every candidate through the paired scan, and 5
+    slab_bisect), its roots against run_case's under the same config and
+    its counts against the JAX package's; (b) the same call again: no
+    launch, no candidate, the same roots; (c) the first 16 k alone (2
+    blocks), then the whole grid on that store (3 blocks); (d) cyl_co_09
+    float32 (90 k, 12 blocks); (e) kh_w1e5 through
+    run_case_complex_checkpointed (20 k, 3 blocks: 3 slab_newton, no
+    audit). Returns the root sets the later phases use and the launches
+    of each path."""
+    import torch
+    from eigensolver_tpu_torch import cases, search, sweep
+    from eigensolver_tpu_torch.native.store import ResultStore
+    import warnings
+    warnings.simplefilter("ignore")     # saturated-row notices, as expected
+    res, launches, sets = {}, {}, {}
+
+    def checkpointed(key, case, cfg, path, want):
+        reset_counters()
+        (rs, st), wall = _timed(lambda: sweep.run_case_checkpointed(
+            case, cfg, checkpoint_path=str(path), k_block=CK_BLOCK,
+            device="cuda"))
+        launches[key] = read_counters()
+        check_launches(key, launches[key], want)
+        return rs, st, wall
+
+    slab = cases.slab_density_photospheric(0.9)
+    n_slab = -(-slab.n_k // CK_BLOCK)
+    per_block = CK_BLOCK * (len(slab.speeds) - 1) * 256 * 2   # both parities
+    want_slab = {"slab_disp": n_slab, "slab_bisect": n_slab,
+                 "slab_paired": n_slab * per_block}
+    for dt in ("float32", "float64"):
+        cfg = search.SearchConfig(n_omega=256, n_bisect=18, scan_dtype=dt,
+                                  polish_dtype=dt)
+        ref, _ = sweep.run_case(slab, cfg, device="cuda")
+        path = tmp / f"slab_{dt}.eigr"
+        key = f"slab_ph_09 {dt}"
+        rs, st, wall = checkpointed(key, slab, cfg, path, want_slab)
+        with ResultStore(str(path)) as s:
+            backend = s.backend
+        r = dict(wall_s=wall, blocks=n_slab, counts=rs.counts(),
+                 candidates=st.n_candidates, launches=launches[key],
+                 store_backend=backend,
+                 bit_equal_run_case=_same_roots(key, rs, ref, 1e-12),
+                 minus_refs=_check_counts(key, rs.counts(),
+                                          SLAB_COUNTS[dt]))
+        # (b) the finished store again: nothing to run
+        (rs2, st2, wall2) = checkpointed(f"{key} resume", slab, cfg, path, {})
+        if st2.n_candidates or st2.n_roots:
+            raise AssertionError(f"{key} resume: {st2.n_candidates} "
+                                 f"candidates, {st2.n_roots} roots")
+        _same_roots(f"{key} resume", rs2, rs, 0.0)
+        r["resume_wall_s"] = wall2
+        if dt == "float32":
+            # (c) stopped after 16 k, resumed on the same store
+            path = tmp / "slab_killed.eigr"
+            first = dataclasses.replace(
+                slab, k_values=tuple(np.asarray(slab.k_grid())[:16]))
+            _, _, wall_a = checkpointed(
+                "slab_ph_09 first 16 k", first, cfg, path,
+                {"slab_disp": 2, "slab_bisect": 2,
+                 "slab_paired": 2 * per_block})
+            rs3, _, wall_b = checkpointed(
+                "slab_ph_09 resumed", slab, cfg, path,
+                {"slab_disp": n_slab - 2, "slab_bisect": n_slab - 2,
+                 "slab_paired": (n_slab - 2) * per_block})
+            r["killed_resumed"] = dict(
+                walls_s=[wall_a, wall_b],
+                bit_equal=_same_roots("slab_ph_09 resumed", rs3, rs, 1e-12))
+            sets["slab_ph_09"] = rs
+        res[key] = r
+        if dt == "float64":
+            sets["slab_ph_09 float64"] = rs
+
+    cyl = cases.cylinder_density_coronal(0.9)
+    n_cyl = -(-cyl.n_k // CK_BLOCK)
+    cfg = search.SearchConfig(n_omega=256, n_bisect=18, scan_dtype="float32",
+                              polish_dtype="float32")
+    ref, _ = sweep.run_case(cyl, cfg, device="cuda")
+    rs, st, wall = checkpointed("cyl_co_09 float32", cyl, cfg,
+                                tmp / "cyl.eigr",
+                                {"cylinder_disp": n_cyl,
+                                 "cylinder_bisect": n_cyl})
+    res["cyl_co_09 float32"] = dict(
+        wall_s=wall, blocks=n_cyl, counts=rs.counts(),
+        launches=launches["cyl_co_09 float32"],
+        bit_equal_run_case=_same_roots("cyl_co_09", rs, ref, 1e-12),
+        minus_refs=_check_counts("cyl_co_09", rs.counts(),
+                                 CYL_COUNTS["float32"]))
+    sets["cyl_co_09"] = rs
+
+    case, kw = kh_config("kh_w1e5")
+    ref, _ = sweep.run_case_complex(case, **kw, check_completeness=False,
+                                    device="cuda")
+    n_kh = -(-case.n_k // CK_BLOCK)
+    reset_counters()
+    (rs, st), wall = _timed(lambda: sweep.run_case_complex_checkpointed(
+        case, checkpoint_path=str(tmp / "kh.eigr"), k_block=CK_BLOCK, **kw,
+        dtype=torch.float64, device="cuda"))
+    launches["kh_w1e5"] = read_counters()
+    check_launches("kh_w1e5 checkpointed", launches["kh_w1e5"],
+                   {"slab_newton": n_kh})
+    if rs.counts() != {"kink": 49}:
+        raise AssertionError(f"kh_w1e5 checkpointed: {rs.counts()}")
+    res["kh_w1e5 float64"] = dict(
+        wall_s=wall, blocks=n_kh, counts=rs.counts(),
+        candidates=st.n_candidates, launches=launches["kh_w1e5"],
+        bit_equal_run_case=_same_roots("kh_w1e5", rs, ref, 1e-12, imag=True))
+    sets["kh_w1e5"] = ref
+    out["checkpointed"] = res
+    for key, r in res.items():
+        line(f"phase 19 checkpointed {key}", **r)
+    return sets, launches
+
+
+def _cli(tmp: Path, *args) -> tuple:
+    """`python -m eigensolver_tpu_torch *args` from the checkout's root,
+    on the default device; (its stdout, its wall). A non-zero exit
+    raises."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "eigensolver_tpu_torch",
+                        *map(str, args)], cwd=ROOT, capture_output=True,
+                       text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if r.returncode:
+        raise AssertionError(f"cli {args[0]}: exit {r.returncode}\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
+    return r.stdout, wall
+
+
+def _saved(stdout: str) -> Path:
+    """The file a subcommand's last line reports as saved (it must exist
+    and hold bytes)."""
+    last = stdout.strip().splitlines()[-1]
+    for word in last.split():
+        p = Path(word)
+        if p.is_absolute() and p.is_file() and p.stat().st_size > 0:
+            return p
+    raise AssertionError(f"cli: no saved file in {last!r}")
+
+
+def phase_cli(out: dict, tmp: Path, sets: dict) -> dict:
+    """Phase 20: the CLI, each command a `python -m eigensolver_tpu_torch`
+    process on the default device (cuda): the slab_ph_09 sweep (the CLI's
+    SearchConfig(n_omega=256), float32) against an in-process run_case at
+    the same config, the same with --checkpoint, the KH sweep with
+    --complex --checkpoint (its store's growth rates against
+    run_case_complex's; its pickle the kink-only 2-array layout, which has
+    none), then analyze (its counts) and eigenfunction (its root) on the
+    slab pickle, with --plot (and --analytic) where matplotlib imports,
+    vtk on the slab pickle and on phase 19's cyl_co_09 roots, and movie
+    --frames 4 on those where matplotlib imports (a slab root has no
+    azimuthal component to animate). Each sweep's JSON carries its
+    kernel launches and the kernel library's load time; the library is
+    loaded, not built again (its file unchanged)."""
+    import pickle
+    from eigensolver_tpu_torch import cases, roots, search, sweep
+    from eigensolver_tpu_torch.kernels import _build
+    from eigensolver_tpu_torch.native.store import read_all
+    so = _build.library_path()
+    stamp = so.stat().st_mtime_ns
+    res, walls = {}, {}
+    slab_args = ("slab_density_photospheric", "--width", "0.9")
+    case_args = ("--case", "slab_density_photospheric", "--width", "0.9")
+
+    def sweep_json(key, *args):
+        stdout, walls[key] = _cli(tmp, "sweep", *args)
+        return json.loads(stdout.splitlines()[0])
+
+    slab = cases.slab_density_photospheric(0.9)
+    cfg = search.SearchConfig(n_omega=256, scan_dtype="float32",
+                              polish_dtype="float32")
+    ref, _ = sweep.run_case(slab, cfg, device="cuda")
+    n_slab = -(-slab.n_k // CK_BLOCK)
+    per_block = CK_BLOCK * (len(slab.speeds) - 1) * 256 * 2   # both parities
+    for key, extra, want in (
+            ("sweep", (), {"slab_disp": 1, "slab_bisect": 1,
+                           "slab_paired": N_SLAB}),
+            ("sweep --checkpoint", ("--checkpoint", tmp / "cli.eigr"),
+             {"slab_disp": n_slab, "slab_bisect": n_slab,
+              "slab_paired": n_slab * per_block})):
+        pkl = tmp / f"s{len(extra)}.pickle"
+        rep = sweep_json(key, *slab_args, *extra, "-o", pkl)
+        if rep["counts"] != ref.counts() or rep["launches"] != want:
+            raise AssertionError(f"cli {key}: {rep}, run_case "
+                                 f"{ref.counts()}, launches want {want}")
+        got = roots.load_pickle(str(pkl))
+        res[key] = dict(counts=rep["counts"], launches=rep["launches"],
+                        library_s=rep["library_s"], wall_s=walls[key],
+                        sweep_wall_s=rep["wall_s"],
+                        bit_equal_run_case=_same_roots(f"cli {key}", got,
+                                                       ref, 1e-12))
+    s_pickle = tmp / "s0.pickle"
+
+    kh = tmp / "cli_kh.eigr"
+    rep = sweep_json("sweep --complex --checkpoint",
+                     "slab_flow_complex_coronal", "--complex",
+                     "--checkpoint", kh, "-o", tmp / "kh.pickle")
+    kh_case = cases.slab_flow_complex_coronal()
+    want = {"slab_newton": -(-kh_case.n_k // CK_BLOCK)}
+    if rep["counts"] != {"kink": 49} or rep["launches"] != want:
+        raise AssertionError(f"cli KH sweep: {rep}, launches want {want}")
+    with open(tmp / "kh.pickle", "rb") as f:
+        layout = len(pickle.load(f))
+    if layout != 2:
+        raise AssertionError(f"cli KH pickle: {layout} arrays, want 2")
+    modes, ks, om, oi = read_all(str(kh))
+    fin = np.isfinite(om)
+    om_c, k_d = roots.dedup_complex_roots(om[fin] + 1j * oi[fin], ks[fin],
+                                          kh_case.tol.dedup_rel)
+    stored = roots.RootSet({"kink": roots.RootBranch(
+        om_c.real, k_d, omegas_imag=om_c.imag)})
+    res["sweep --complex --checkpoint"] = dict(
+        counts=rep["counts"], launches=rep["launches"],
+        library_s=rep["library_s"], wall_s=walls[
+            "sweep --complex --checkpoint"], pickle_arrays=layout,
+        stored_growth_rates=int(np.sum(np.abs(om_c.imag) > 0)),
+        bit_equal_run_case=_same_roots("cli KH store", stored,
+                                       sets["kh_w1e5"], 1e-12, imag=True))
+
+    roots.save_pickle(str(tmp / "cyl.pickle"), sets["cyl_co_09"])
+    cyl_args = ("--case", "cylinder_density_coronal", "--width", "0.9")
+    # figures and the movie need matplotlib, which a machine may lack:
+    # there the commands run without their figures, and the movie is not
+    # made (the CPU tests draw them)
+    plots = importlib.util.find_spec("matplotlib") is not None
+    res["matplotlib"] = dict(installed=plots)
+    commands = [
+        ("analyze", ("analyze", s_pickle, *case_args)
+         + (("--plot", tmp / "d.png", "--analytic") if plots else ())),
+        ("eigenfunction", ("eigenfunction", s_pickle, *case_args, "--k",
+                           EF_K, "--branch", "kink")
+         + (("--plot", tmp / "ef.png") if plots else ())),
+        ("vtk", ("vtk", s_pickle, *case_args, "--k", EF_K, "--branch",
+                 "kink", "--frames", 2, "-o", tmp / "field")),
+        ("vtk cylinder", ("vtk", tmp / "cyl.pickle", *cyl_args, "--k", EF_K,
+                          "--branch", "kink", "--frames", 2, "-o",
+                          tmp / "tube"))]
+    if plots:
+        commands.append(("movie", ("movie", tmp / "cyl.pickle", *cyl_args,
+                                   "--k", EF_K, "--branch", "kink",
+                                   "--frames", 4, "-o", tmp / "wave.mp4")))
+    kink = ref["kink"]
+    for key, args in commands:
+        stdout, walls[key] = _cli(tmp, *args)
+        res[key] = dict(wall_s=walls[key])
+        if key == "analyze":
+            rep = json.loads(stdout.splitlines()[0])
+            if rep["counts"] != ref.counts():
+                raise AssertionError(f"cli analyze: {rep}")
+        if key == "eigenfunction":
+            rep = json.loads(stdout.splitlines()[0])
+            i = int(np.argmin(np.abs(kink.ks - EF_K)))
+            if (rep["omega"], rep["k"]) != (float(kink.omegas[i]),
+                                            float(kink.ks[i])):
+                raise AssertionError(f"cli eigenfunction: {rep}")
+            res[key]["v_phase"] = rep["v_phase"]
+        if "saved" in stdout:
+            p = _saved(stdout)
+            res[key].update(file=p.name, bytes=p.stat().st_size)
+        elif key.startswith("vtk") or plots:
+            raise AssertionError(f"cli {key}: nothing saved: {stdout}")
+    if so.stat().st_mtime_ns != stamp:
+        raise AssertionError("the CLI built the kernel library again")
+    out["cli"] = res
+    for key, r in res.items():
+        line(f"phase 20 cli {key}", **r)
+    return res
+
+
+def _nearest(br, k: float) -> tuple:
+    i = int(np.argmin(np.abs(br.ks - k)))
+    return float(br.omegas[i]), float(br.ks[i])
+
+
+def phase_eigenfunctions(out: dict, sets: dict) -> dict:
+    """Phase 21: eigenfunctions on the card (float64 shoots, eager
+    PyTorch): reconstruct_slab at the slab_ph_09 kink and sausage roots
+    nearest k = 1.5 (phase 19's float64 sweep) and at one
+    slab_flow_gaussian_coronal root (the shear form), reconstruct_cylinder
+    at the cyl_co_09 m = 0 and m = 1 roots nearest k = 1.5 and at one
+    twist_v01_p1 root; each field on the card within 1e-10 of its largest
+    value of the same call on the CPU, and within 1e-9 at the cylinder's
+    points r < 10 eps by the axis cutoff eps (there the reference's
+    axis-regular combination of two basis solutions cancels ~1e6-fold, so
+    that the card's exp, which differs from the CPU's in the last bit on
+    ~8% of arguments, moves the Gaussian tube's xi_r and xi_phi by ~1e-10;
+    the shoots are otherwise the same operations: the twisted tube, which
+    calls no exp, is bit-equal); the uniform slab's kink mode
+    cosh(m0 x) inside (rtol 1e-6, tests/test_eigenfunctions.py:86-99) on
+    the card; the wall of each reconstruction on the card (after a
+    warm-up, median of 3)."""
+    import torch
+    from eigensolver_tpu_torch import analytic, cases, eigenfunctions, search
+    from eigensolver_tpu_torch import sweep
+    import warnings
+    warnings.simplefilter("ignore")
+    cfg64 = search.SearchConfig(n_omega=256, n_bisect=18)
+    flow = cases.slab_flow_gaussian_coronal()
+    flow_rs, _ = sweep.run_case(flow, cfg64, device="cuda")
+    tw = twisted_cases()["twist_v01_p1"]
+    tw_rs, _ = sweep.run_case(tw, cfg64, device="cuda")
+    slab, cyl = sets["slab_ph_09 float64"], sets["cyl_co_09"]
+    jobs = {
+        "slab_ph_09 kink": (eigenfunctions.reconstruct_slab,
+                            cases.slab_density_photospheric(0.9), 1,
+                            _nearest(slab["kink"], EF_K)),
+        "slab_ph_09 sausage": (eigenfunctions.reconstruct_slab,
+                               cases.slab_density_photospheric(0.9), 0,
+                               _nearest(slab["sausage"], EF_K)),
+        "flow_gauss kink (shear)": (eigenfunctions.reconstruct_slab, flow, 1,
+                                    _nearest(flow_rs["kink"], EF_K)),
+        "cyl_co_09 m=0": (eigenfunctions.reconstruct_cylinder,
+                          cases.cylinder_density_coronal(0.9), 0,
+                          _nearest(cyl["sausage"], EF_K)),
+        "cyl_co_09 m=1": (eigenfunctions.reconstruct_cylinder,
+                          cases.cylinder_density_coronal(0.9), 1,
+                          _nearest(cyl["kink"], EF_K)),
+        "twist_v01_p1 m=1": (eigenfunctions.reconstruct_cylinder, tw, 1,
+                             _nearest(tw_rs["kink"], EF_K)),
+    }
+    res = {}
+    for key, (fn, case, mode, (om, k)) in jobs.items():
+        card = fn(case, mode, om, k, device="cuda")
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            _, w = _timed(lambda: fn(case, mode, om, k, device="cuda"))
+            walls.append(w)
+        cpu, cpu_wall = _timed(lambda: fn(case, mode, om, k, device="cpu"))
+        # off the axis cutoff: r >= 10 eps (a slab: everywhere)
+        off = (np.abs(cpu.x) >= 10 * case.grid.axis_epsilon
+               if fn is eigenfunctions.reconstruct_cylinder
+               else np.ones(len(cpu.x), bool))
+        worst = {"all": 0.0, "off_axis": 0.0}
+        for f in ("x", "P_T", "xi_r", "vx", "xi_phi", "xi_z", "v_r",
+                  "v_phi", "v_z"):
+            a, b = getattr(card, f), getattr(cpu, f)
+            if b is None:
+                continue
+            if not (np.all(np.isfinite(a)) and a.shape == b.shape):
+                raise AssertionError(f"{key} {f}: non-finite or misshapen")
+            scale = np.max(np.abs(b))
+            d = np.abs(a - b) / scale if scale else np.zeros_like(a)
+            for where, sel, tol in (("all", slice(None), 1e-9),
+                                    ("off_axis", off, 1e-10)):
+                err = float(np.max(d[sel]))
+                if not err <= tol:
+                    raise AssertionError(
+                        f"{key} {f}: card vs CPU {err:.3e} of its largest "
+                        f"value ({where}; held to {tol})")
+                worst[where] = max(worst[where], err)
+        res[key] = dict(omega=om, k=k, points=len(card.x),
+                        wall_s=statistics.median(walls), walls_s=walls,
+                        cpu_wall_s=cpu_wall,
+                        max_rel_diff_vs_cpu=worst["all"],
+                        max_rel_diff_vs_cpu_off_axis=worst["off_axis"])
+
+    # the uniform slab's kink surface mode, on the card
+    case = cases.slab_density_photospheric(width=1e5)
+    rg, k = case.regime, 1.5
+    v = analytic.scan_relation(
+        lambda v: analytic.slab_relation(rg, v, k, 1), 1.115, 1.13)
+    om = float(v[0] * k)
+    ef = eigenfunctions.reconstruct_slab(case, 1, om, k, device="cuda")
+    m0 = np.sqrt((k**2 * rg.c_i0**2 - om**2) * (k**2 * rg.vA_i0**2 - om**2)
+                 / ((rg.c_i0**2 + rg.vA_i0**2)
+                    * (k**2 * rg.cT_i0**2 - om**2)))
+    inside = np.abs(ef.x) <= 1.0
+    want = np.cosh(m0 * ef.x[inside])
+    got = ef.vx[inside] / ef.vx[np.argmin(np.abs(ef.x))]
+    rel = float(np.max(np.abs(got / want - 1)))
+    if not rel <= 1e-6:
+        raise AssertionError(f"uniform slab kink: cosh off by {rel:.3e}")
+    res["uniform slab kink cosh"] = dict(omega=om, k=k, max_rel_err=rel)
+    out["eigenfunctions"] = res
+    for key, r in res.items():
+        line(f"phase 21 eigenfunction {key}", **r)
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json-out", help="also write the full report here")
@@ -2942,6 +3389,11 @@ def main() -> int:
     phase_oracles(out)
     phase_complex_kernels(out)
     kh_launches = phase_kh_sweeps(out)
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        sets, ck_launches = phase_checkpointed(out, Path(tmp))
+        phase_cli(out, Path(tmp), sets)
+        phase_eigenfunctions(out, sets)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
@@ -3166,6 +3618,17 @@ def main() -> int:
     kernels += numeric_kernel_entries(out["numeric_kernels"], par_launches,
                                       tw_num_launches)
     kernels += complex_kernel_entries(out["complex_kernels"], kh_launches)
+    # the launches of phase 19's checkpointed paths (slab_ph_09 and
+    # cyl_co_09 at float32, kh_w1e5), beside each main path's own
+    ck_path = {"slab_disp": "slab_ph_09 float32",
+               "slab_bisect": "slab_ph_09 float32",
+               "cylinder_disp": "cyl_co_09 float32",
+               "cylinder_bisect": "cyl_co_09 float32",
+               "slab_newton": "kh_w1e5"}
+    for k in kernels:
+        if k["name"] in ck_path:
+            k["checkpointed_launches"] = ck_launches[ck_path[k["name"]]][
+                k["name"]]
     if args.json_out:
         Path(args.json_out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json_out).write_text(json.dumps(out, indent=1, default=float))

@@ -1,15 +1,37 @@
 """PyTorch/CUDA port of the MHD eigensolver, for an NVIDIA H100.
 
 The JAX package `eigensolver_tpu` stays the reference; this package mirrors
-its module names (`config`, `cases`, `profiles`, `equilibrium`, `special`,
-`kernels.bessel`, `physics.slab`, `physics.cylinder`, `search`, `roots`,
-`sweep`, `utils`). It imports torch and numpy and never jax.
+its module names and imports torch, numpy, scipy and (for figures only)
+matplotlib, never jax.
 
-Ported so far: the real-omega sweeps (`sweep.run_case`) of every slab case
-and of the cylinder density and axial-flow tubes, and the f64 refinement of
-f32 roots on the sweep's device, with three hand-written CUDA kernels for
-sm_90a in `csrc/`: the K_m-ratio kernel (`kernels.bessel`, port of the
-Pallas kernel `kve_ratio_pallas`), the fused cylinder dispersion kernel
-(`kernels.cylinder`) and the fused slab dispersion kernel (`kernels.slab`).
-What is not ported yet raises NotImplementedError naming its ROADMAP item.
+Ported, every compute entry on an explicit device:
+
+- the real-omega sweeps (`sweep.run_case`) of every slab case (flux and
+  shear forms), the cylinder density and axial-flow tubes and the twisted
+  tubes, with the f64 refinement, the reference-parity options (numeric
+  exteriors, continuum masks, fuzz acceptance, the pole pre-filter) and the
+  band-edge (needle) pass;
+- the complex-omega Kelvin-Helmholtz sweep (`sweep.run_case_complex`) with
+  its argument-principle audit;
+- the crash-safe sweeps (`sweep.run_case_checkpointed`,
+  `run_case_complex_checkpointed`) over the checkpoint store
+  (`native.store`), and the reference pickles (`roots.save_pickle`,
+  `load_pickle`);
+- eigenfunctions (`eigenfunctions`, on `ode.rk4_trajectory`), analysis
+  (`analysis`, `analytic`), field synthesis (`synthesis`), figures and
+  movies (`viz`), VTK export (`io.vtk`, `native.vtk_native`) and the CLI
+  (`python -m eigensolver_tpu_torch`, `cli`).
+
+The hand-written CUDA kernels for sm_90a (`csrc/`, built at first use by
+`kernels._build`): `kve_ratio` (port of the Pallas kernel
+`kve_ratio_pallas`, `kernels.bessel`), the cylinder scan `cylinder_disp`
+with its twisted variant and the fused bisection `cylinder_bisect`
+(`kernels.cylinder`), the slab scan `slab_disp` (paired, and its numeric-
+exterior variants) and the fused bisection `slab_bisect` (`kernels.slab`),
+and the complex-omega kernel behind `slab_newton` and `slab_disp_complex`.
+On a CPU tensor each wrapper runs its kernel's plain PyTorch version.
+
+Not ported: multi-GPU sharding (ROADMAP A13; the CLI's `sweep --sharded`
+raises NotImplementedError naming it), and complex omega beyond the
+shipped flow slab (A10b: the dispersion raises naming it).
 """

@@ -49,7 +49,7 @@ from ..config import CaseConfig, ProfileKind
 from ..cplx import C, cabs, csqrt, divisor
 from ..dual import Dual, dsqrt
 from ..equilibrium import Equilibrium, make_equilibrium
-from ..ode import rk4_final_renorm
+from ..ode import LinearRHS, rk4_final_renorm
 from ..profiles import div, make_profile_derivative, rdiv, sqrt
 
 # plain (eager PyTorch) dispersion evaluations since the last reset
@@ -400,6 +400,30 @@ class SlabPhysics:
             return Dx, coeff
 
         return coef
+
+    def make_flux_rhs(self, omega, k) -> LinearRHS:
+        """The flux form's right-hand side (slab.py:195-213), state (vx,
+        w = F vx'): d(vx, w)/dx = (w / F, F m0 vx), the products formed
+        from `make_flux_coef`, for the eigenfunctions."""
+        coef = self.make_flux_coef(omega, k)
+
+        def matrix(x):
+            inv_F, w_rate = coef(x)
+            return 0.0, inv_F, w_rate, 0.0
+
+        return LinearRHS(matrix)
+
+    def make_shear_rhs(self, omega, k) -> LinearRHS:
+        """The shear form's right-hand side (slab.py:232-245), state (vx,
+        vx'): vx'' = -D(x) vx' - coeff(x) vx from `make_shear_coef`, for
+        the eigenfunctions."""
+        coef = self.make_shear_coef(omega, k)
+
+        def matrix(x):
+            Dx, coeff = coef(x)
+            return 0.0, 1.0, -coeff, -Dx
+
+        return LinearRHS(matrix)
 
     # -- dispersion function (slab.py:285-406) ----------------------------------
 

@@ -1,13 +1,17 @@
-"""Root-set container and dedup (PyTorch port).
+"""Root-set container, dedup and reference-pickle persistence (PyTorch
+port).
 
-A copy of `eigensolver_tpu.roots:RootBranch, RootSet, dedup_roots,
-merge_rootsets, dedup_complex_roots` - host-side numpy, no framework - held
-here because importing the JAX package loads jax. The reference-pickle
-formats (A12) are not ported yet.
+A copy of `eigensolver_tpu.roots` - host-side numpy, no framework - held
+here because importing the JAX package loads jax. `save_pickle` /
+`load_pickle` write and read the reference's plain-list layouts
+(`[sol_omegas, sol_ks, sol_omegas_kink, sol_ks_kink]`, the 8-array complex
+variant and the 2-array kink-only one); the port's file is byte-identical
+to the JAX package's for the same RootSet.
 """
 from __future__ import annotations
 
 import dataclasses
+import pickle
 from typing import Dict, Optional
 
 import numpy as np
@@ -119,3 +123,51 @@ def dedup_complex_roots(omegas: np.ndarray, ks: np.ndarray,
         keep[w] &= np.abs(om[w] - om[i]) > tol
         i += 1
     return om[keep], kk[keep]
+
+
+# --- reference pickle formats (roots.py:133-169) -----------------------------
+
+def save_pickle(path: str, rs: RootSet) -> None:
+    """4-array format: [sausage_omegas, sausage_ks, kink_omegas, kink_ks];
+    8-array when imaginary parts are present; 2-array when only 'kink'
+    exists.
+
+    As in the JAX package (ROADMAP C, reference defects): the 2-array
+    layout is [omegas, ks] and drops omegas_imag, so a kink-only complex
+    sweep (the Kelvin-Helmholtz case) loses its growth rates here; the
+    checkpoint store (`native.store`) keeps them."""
+    s = rs.branches.get("sausage")
+    k = rs.branches.get("kink")
+    with open(path, "wb") as f:
+        if s is None and k is not None:
+            pickle.dump([list(k.omegas), list(k.ks)], f)
+        elif s is not None and k is not None:
+            if s.omegas_imag is not None or k.omegas_imag is not None:
+                si = s.omegas_imag if s.omegas_imag is not None else np.zeros_like(s.omegas)
+                ki = k.omegas_imag if k.omegas_imag is not None else np.zeros_like(k.omegas)
+                pickle.dump(
+                    [list(s.omegas), list(s.ks), list(k.omegas), list(k.ks),
+                     list(si), list(s.ks), list(ki), list(k.ks)], f)
+            else:
+                pickle.dump(
+                    [list(s.omegas), list(s.ks), list(k.omegas), list(k.ks)], f)
+        else:
+            raise ValueError("RootSet must contain 'kink' or both branches")
+
+
+def load_pickle(path: str, case_name: str = "") -> RootSet:
+    """A RootSet from a 2-, 4- or 8-array reference pickle."""
+    with open(path, "rb") as f:
+        data = pickle.load(f)
+    arrs = [np.asarray(a, dtype=float) for a in data]
+    if len(arrs) == 2:
+        return RootSet({"kink": RootBranch(arrs[0], arrs[1])}, case_name)
+    if len(arrs) == 4:
+        return RootSet(
+            {"sausage": RootBranch(arrs[0], arrs[1]),
+             "kink": RootBranch(arrs[2], arrs[3])}, case_name)
+    if len(arrs) == 8:
+        return RootSet(
+            {"sausage": RootBranch(arrs[0], arrs[1], omegas_imag=arrs[4]),
+             "kink": RootBranch(arrs[2], arrs[3], omegas_imag=arrs[6])}, case_name)
+    raise ValueError(f"unrecognised pickle layout with {len(arrs)} arrays")

@@ -12,7 +12,10 @@ band-edge (needle) pass (`run_needle_pass`, which the JAX package runs on
 the host CPU) run on the same device. The complex-omega sweep
 (`run_case_complex`, Kelvin-Helmholtz growth rates) runs its Newton
 iteration, the evaluation of its roots and its argument-principle audit on
-the device too. Not ported yet: checkpointed sweeps (ROADMAP A12).
+the device too. The crash-safe sweeps (`run_case_checkpointed`,
+`run_case_complex_checkpointed`) run either sweep block by block of k and
+append each block's roots to the checkpoint store (`native.store`) before
+the next block starts.
 """
 from __future__ import annotations
 
@@ -342,6 +345,162 @@ def run_case(case: CaseConfig, search: Optional[SearchConfig] = None,
     stats.n_candidates = omegas_f.size
     stats.wall_s = time.time() - t0
     return RootSet(branches, case_name=case.name), stats
+
+
+def run_case_checkpointed(case: CaseConfig,
+                          search: Optional[SearchConfig] = None,
+                          checkpoint_path: str = "sweep.eigr",
+                          k_block: int = 8, modes=None, *, device
+                          ) -> tuple[RootSet, SweepStats]:
+    """Crash-safe sweep on `device` (port of `eigensolver_tpu.sweep.
+    run_case_checkpointed`, sweep.py:151-218): the k grid in blocks of
+    k_block, each block a `run_case` (2 launches on the card), its accepted
+    roots appended (fsync'd) to the store at checkpoint_path before the
+    next block starts. Rerunning with the same path resumes after the last
+    durable block; a block all of whose (mode, k) cells are durable is not
+    run (0 launches).
+
+    The k grid is float64 and never passes through float32, so the resume
+    identity round(k, 12) is stable; the last block is padded with its last
+    k to k_block; a (mode, k) cell without roots gets a durable "k done"
+    sentinel (omega NaN, dropped on read). The result is the store's
+    records deduplicated per mode (`roots.dedup_roots`), sorted by k."""
+    from .native.store import ResultStore, read_all, resume_k_done
+
+    search = search or SearchConfig(
+        n_omega=case.grid.n_omega_ladder, n_bisect=case.grid.n_bisect)
+    modes = tuple(modes) if modes is not None else case.modes
+    ks_all = np.asarray(case.k_grid(), np.float64)
+    done = {m: set(np.round(resume_k_done(checkpoint_path, m), 12))
+            for m in modes}
+
+    stats = SweepStats()
+    t0 = time.time()
+    with ResultStore(checkpoint_path) as store:
+        for blk in _k_blocks(ks_all, k_block):
+            todo_modes = [m for m in modes
+                          if not all(round(k, 12) in done[m] for k in blk)]
+            if not todo_modes:
+                continue
+            sub = dataclasses.replace(case, k_values=tuple(blk))
+            rs_blk, st_blk = run_case(sub, search, modes=todo_modes,
+                                      device=device)
+            stats.n_candidates += st_blk.n_candidates
+            for m in todo_modes:
+                br = rs_blk[MODE_NAMES.get(m, f"m{m}")]
+                stats.n_roots += _append_block(store, m, blk, br, done[m],
+                                               complex_=False)
+
+    modes_arr, ks_arr, om_arr, _ = read_all(checkpoint_path)
+    branches: Dict[str, RootBranch] = {}
+    for m in modes:
+        sel = (modes_arr == m) & np.isfinite(om_arr)
+        om_m, kk_m = dedup_roots(om_arr[sel], ks_arr[sel],
+                                 rel_tol=case.tol.dedup_rel)
+        branches[MODE_NAMES.get(m, f"m{m}")] = RootBranch(
+            om_m, kk_m).sorted_by_k()
+    stats.wall_s = time.time() - t0
+    return RootSet(branches, case_name=case.name), stats
+
+
+def run_case_complex_checkpointed(case: CaseConfig, modes=None,
+                                  checkpoint_path: str = "sweep_kh.eigr",
+                                  k_block: int = 8, n_re: int = 12,
+                                  n_im: int = 10, newton_iters: int = 30,
+                                  accept_pct: float = 0.5,
+                                  dtype=torch.float64,
+                                  check_completeness: bool = False, *,
+                                  device) -> tuple[RootSet, SweepStats]:
+    """Crash-safe complex-omega (KH) sweep on `device` (port of
+    `eigensolver_tpu.sweep.run_case_complex_checkpointed`, sweep.py:
+    221-301): the k grid in blocks of k_block, each block a
+    `run_case_complex` (with the audit off, the default, 1 launch a mode
+    on the card: `slab_newton`, whose last round evaluates the roots), its
+    accepted roots appended with Im omega in the store's imaginary field.
+    Resume, padding and sentinels as in `run_case_checkpointed`; with
+    check_completeness the blocks' audit counts add up. The result is the
+    store's records deduplicated in the complex plane per mode
+    (`roots.dedup_complex_roots`)."""
+    from .native.store import ResultStore, read_all, resume_k_done
+
+    if not case.complex_omega:
+        raise ValueError(f"run_case_complex_checkpointed: case {case.name} "
+                         f"must have complex_omega=True")
+    modes = tuple(modes) if modes is not None else case.modes
+    ks_all = np.asarray(case.k_grid(), np.float64)
+    done = {m: set(np.round(resume_k_done(checkpoint_path, m), 12))
+            for m in modes}
+
+    stats = SweepStats()
+    t0 = time.time()
+    with ResultStore(checkpoint_path) as store:
+        for blk in _k_blocks(ks_all, k_block):
+            todo_modes = [m for m in modes
+                          if not all(round(k, 12) in done[m] for k in blk)]
+            if not todo_modes:
+                continue
+            sub = dataclasses.replace(case, k_values=tuple(blk))
+            rs_blk, st_blk = run_case_complex(
+                sub, modes=todo_modes, n_re=n_re, n_im=n_im,
+                newton_iters=newton_iters, accept_pct=accept_pct,
+                dtype=dtype, check_completeness=check_completeness,
+                device=device)
+            stats.n_candidates += st_blk.n_candidates
+            if st_blk.completeness:
+                if stats.completeness is None:
+                    stats.completeness = dict(st_blk.completeness)
+                else:
+                    for key in ("cells", "checked", "agree", "missed"):
+                        stats.completeness[key] += st_blk.completeness[key]
+            for m in todo_modes:
+                br = rs_blk[MODE_NAMES.get(m, f"m{m}")]
+                stats.n_roots += _append_block(store, m, blk, br, done[m],
+                                               complex_=True)
+    if stats.completeness and stats.completeness["checked"]:
+        stats.completeness["fraction"] = round(
+            stats.completeness["agree"] / stats.completeness["checked"], 4)
+
+    modes_arr, ks_arr, om_arr, oi_arr = read_all(checkpoint_path)
+    branches: Dict[str, RootBranch] = {}
+    for m in modes:
+        sel = (modes_arr == m) & np.isfinite(om_arr)
+        om_c, k_d = dedup_complex_roots(om_arr[sel] + 1j * oi_arr[sel],
+                                        ks_arr[sel], case.tol.dedup_rel)
+        branches[MODE_NAMES.get(m, f"m{m}")] = RootBranch(
+            omegas=om_c.real, ks=k_d, omegas_imag=om_c.imag).sorted_by_k()
+    stats.wall_s = time.time() - t0
+    return RootSet(branches, case_name=case.name), stats
+
+
+def _k_blocks(ks_all: np.ndarray, k_block: int):
+    """The k grid in blocks of k_block, the last padded with its last k so
+    that every block has one shape (sweep.py:183-186)."""
+    for start in range(0, len(ks_all), k_block):
+        blk = ks_all[start:start + k_block]
+        if len(blk) < k_block:
+            blk = np.concatenate([blk, np.full(k_block - len(blk), blk[-1])])
+        yield blk
+
+
+def _append_block(store, mode: int, blk: np.ndarray, br: RootBranch,
+                  done: set, complex_: bool) -> int:
+    """Append one block's roots of one mode whose k is not yet durable,
+    then a NaN "k done" sentinel for each of the block's k left without a
+    root (without it a rootless (mode, k) would run again on every
+    resume); update `done`. Returns the count of roots appended."""
+    new = ~np.isin(np.round(br.ks, 12), list(done))
+    imag = None
+    if complex_:
+        imag = (br.omegas_imag[new] if br.omegas_imag is not None
+                else np.zeros(int(new.sum())))
+    store.append(mode, br.ks[new], br.omegas[new], omegas_imag=imag)
+    done.update(np.round(br.ks[new], 12))
+    bare = np.asarray([k for k in np.unique(blk) if round(k, 12) not in done])
+    if len(bare):
+        store.append(mode, bare, np.full(len(bare), np.nan),
+                     omegas_imag=np.zeros(len(bare)) if complex_ else None)
+        done.update(np.round(bare, 12))
+    return int(new.sum())
 
 
 def run_case_complex(case: CaseConfig, modes=None, n_re: int = 12,

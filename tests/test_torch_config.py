@@ -37,11 +37,51 @@ def test_search_config_defaults_equal():
         dataclasses.asdict(cfg)
 
 
+PORT_MODULES = (
+    "sweep", "search", "roots", "ode", "eigenfunctions", "analysis",
+    "analytic", "synthesis", "viz", "cli", "io.vtk", "native.store",
+    "native.vtk_native", "native._lib", "physics.slab", "physics.cylinder",
+    "kernels.bessel", "kernels.cylinder", "kernels.slab", "kernels._build")
+
+
 def test_port_imports_without_jax():
-    code = ("import eigensolver_tpu_torch, eigensolver_tpu_torch.sweep; "
-            "import sys; assert 'jax' not in sys.modules")
+    code = ("import eigensolver_tpu_torch; "
+            + "; ".join(f"import eigensolver_tpu_torch.{m}"
+                        for m in PORT_MODULES)
+            + "; import sys; assert 'jax' not in sys.modules, 'jax'"
+            + "; assert not any(m.split('.')[0] == 'eigensolver_tpu' "
+              "for m in sys.modules), 'eigensolver_tpu'")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
+
+
+def _code_lines(path: Path):
+    """The lines of a Python file outside its comments and strings
+    (docstrings included), from the tokenizer."""
+    import io
+    import tokenize
+    keep = []
+    for tok in tokenize.generate_tokens(io.StringIO(path.read_text()).readline):
+        if tok.type not in (tokenize.COMMENT, tokenize.STRING):
+            keep.append(tok.string)
+    return " ".join(keep)
+
+
+def test_no_port_file_imports_the_jax_package():
+    """No module of the port, nor chip_smoke.py, imports jax or the JAX
+    package outside a comment or a docstring."""
+    import re
+    files = sorted((REPO / "eigensolver_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 25
+    pattern = re.compile(r"\b(import|from)\s+(eigensolver_tpu|jax)\b(?!_)")
+    bad = [str(f.relative_to(REPO)) for f in files
+           if pattern.search(_code_lines(f))]
+    assert not bad, bad
+    # the pattern does catch such a line
+    assert pattern.search("from eigensolver_tpu . roots import x")
+    assert pattern.search("import jax")
+    assert not pattern.search("from eigensolver_tpu_torch import x")
 
 
 def _reduced(case, **grid):
