@@ -5,7 +5,7 @@
 
 Run from the repository root. Phases, one line each (9, 12 and 13 in two,
 17 in five, 18 in two, 19 in four, 20 in eight or nine, 21 in
-seven);
+seven, 22 in six, 23 in six);
 any failure raises and the script exits non-zero:
 
 1. device: a CUDA card is required; its nvidia-smi name and power limit.
@@ -112,7 +112,9 @@ any failure raises and the script exits non-zero:
    float64: slab_disp in both forms and cylinder_disp on ragged batches of
    8,191 ladder draws (the parity configurations of slab_ph_09 and
    cyl_flow_1, tools_torch/parity.py; a Gaussian-flow slab at 3
-   wavelengths; the unpaired scan); cylinder_disp on phase 4's row
+   wavelengths; the unpaired scan; at a quarter of the depth,
+   n_interior=512 and n_exterior=128, as the plain loops below);
+   cylinder_disp on phase 4's row
    layouts of cyl_flow_1, with the candidates through the row and the
    exps' tables; each whole parity scan in ladder order (349,440 and
    3,007,620) timed beside its bound, the plain version's time and bits
@@ -121,7 +123,8 @@ any failure raises and the script exits non-zero:
    candidate through both tables);
    slab_bisect and cylinder_bisect (the speculative kernel over the scans'
    tables) on the parity sweeps' own brackets (21,840 and 47,520)
-   bit-equal to the launch loop and to the plain loop (1 iteration), and
+   bit-equal to the launch loop, at a quarter of the depth on that
+   configuration's own brackets to the plain loop (1 iteration), and
    on their first 600 at the speculative default L to the launch loop; the
    twisted scan, its small-batch path and its speculative bisection at a
    reduced depth (twist_v01_p1 at 3 wavelengths, n_interior=384, 600
@@ -204,6 +207,38 @@ any failure raises and the script exits non-zero:
    card's exp ulps are amplified); the uniform slab's kink mode cosh(m0 x)
    (rtol 1e-6);
    the wall of each reconstruction.
+22. complex omega beyond the KH case (tools_torch/cx_slab.py, float64, the
+   CLI's defaults: 12 x 10 seeds a cell, 30 Newton steps, the audit on):
+   slab_density_photospheric(0.9) made complex (cx_ph_09: the flux form,
+   B2-complex; 37,800 seeds a mode, modes 0 and 1), the same with the
+   numeric exterior (cx_ph_09_num: B2-complex and B6-complex) and
+   slab_flow_complex_coronal(1e5) with the numeric exterior (kh_w1e5_num:
+   B6-complex in the shear form; 7,200 seeds). For each, on the sweep's
+   seeds (seed i at parity i mod 2): slab_newton at n_iter=1 with its
+   value round in the launch, and slab_disp_complex at its roots,
+   bit-equal to the plain Newton loop over the dual shoot and to the plain
+   value dispersion (both timed); the main path's launches timed (30
+   steps, with and without the value round; the audit's contour points in
+   the evaluation mode) beside their bounds, and the roots that reach the
+   real axis (|Im omega| < 1e-290, where Smith's division leaves CUDA's
+   fast path); then run_case_complex with the counters reset (2 launches
+   a mode: slab_newton and slab_disp_complex, each counted under its
+   variant; never the plain dispersion) and 2 timed runs, held to the JAX
+   package's float64 run: per seed (the Newton pass again and one step
+   further) every seed converged in both runs accepted alike and the
+   converged accepted seeds' roots counted exactly; each branch's total
+   exactly where the JAX package's unconverged accepted seeds add no root;
+   the roots off the real axis and the audit exactly.
+23. the sharded sweep (parallel.run_case_sharded): slab_ph_09 float32 (and
+   refined in float64), cyl_co_09 float32 and cyl_flow_1's parity
+   configuration at float64, over every visible card (over [cuda:0,
+   cuda:0] where there is one): each root set equal to run_case's bit
+   for bit, each block's launches (a scan and a bisection a block, the
+   slab's scan paired; + the refine stage's 2), the median wall of 5
+   runs beside run_case's, run in turns; two processes joined by init_distributed (gloo) on the
+   card(s), each holding run_case's roots of every sweep; `python -m
+   eigensolver_tpu_torch sweep slab_density_photospheric --width 0.9
+   --sharded` against run_case at the CLI's config.
 
 Then one JSON line of the kernels (with each one's bound: the operations
 the function needs on this run's inputs over the card's peak rate, or its
@@ -320,6 +355,7 @@ N_NEEDLE = 35 * 4 * 512                 # slab_ph_3's needle pass: 71,680
 CYL_PAR_K_STRIDE = 9                    # cyl_flow_1's k subset for counts
 N_RAGGED = 8191                         # the ragged batch of phase 13
 NUM_PLAIN_N_ITER = 1                    # the plain loops of phase 13
+NUM_PLAIN_DEPTH = 4     # phase 13's ragged and plain-loop checks at 1/4 depth
 # Root counts per branch of the parity sweeps through the JAX package on a
 # CPU (JAX 0.9.0, x64), held as the IEEE counts above are:
 #   python tests/test_torch_parity.py jax-counts TARGET DTYPE [--k-stride 9]
@@ -412,7 +448,13 @@ OPS = {"slab_x_step": 67, "slab_chain": 9, "slab_update": 34,
        "slab_exact_ext": 2, "cyl_exact_ext": 3,
        "slab_cx_chain": 77, "slab_cx_step": 339, "slab_cx_ends": 182,
        "slab_cx_dual_chain": 163, "slab_cx_dual_step": 769,
-       "slab_cx_dual_ends": 326, "slab_cx_newton": 31}
+       "slab_cx_dual_ends": 326, "slab_cx_newton": 31,
+       "slab_cx_flux_chain": 20, "slab_cx_flux_step": 160,
+       "slab_cx_flux_ends": 164, "slab_cx_flux_dual_chain": 38,
+       "slab_cx_flux_dual_step": 378, "slab_cx_flux_dual_ends": 271,
+       "slab_cx_ext_step": 76, "slab_cx_ext_renorm": 16,
+       "slab_cx_ext_ends": 22, "slab_cx_dual_ext_step": 184,
+       "slab_cx_dual_ext_renorm": 20, "slab_cx_dual_ext_ends": 50}
 # The complex-omega chain ("slab_cx_*": tools_torch/count_ops.py traces
 # physics/slab.py::complex_shear_coef, complex_edge, complex_det,
 # complex_mismatch and search.newton_step): per candidate and RK4 step 3
@@ -422,12 +464,22 @@ OPS = {"slab_x_step": 67, "slab_chain": 9, "slab_update": 34,
 # ("*_ends"); per Newton step the damped step
 # ("slab_cx_newton"); a complex quotient by its real divisions (Smith's
 # algorithm: 2 divisions a divisor), the x-only table "slab_shear_x_step"
-# once per launch.
+# once per launch. The flux form at complex omega ("slab_cx_flux_*",
+# traced from physics/slab.py::complex_flux_coef; its ends the candidate's
+# products, the start's F(0) and the interface; the x-only table
+# "slab_x_step") and the numeric exterior at complex omega
+# ("slab_cx_*ext_*", traced from one ode._step on complex pairs or their
+# duals; every 64th step the rescaling, by hand; per shoot its set-up, the
+# quotient vx'/vx and its product with p_e), the same way.
 # The complex-omega sweeps (tools_torch/kh.py) at their published size:
 KH_N_SEEDS = 20 * 3 * 12 * 10          # Newton seeds: 7,200
 KH_N_AUDIT = 20 * 3 * 4 * 128          # audit contour points: 30,720
 KH_PLAIN_N_ITER = 1                    # the plain Newton loop's steps
 KH_ANALYTIC_TOL = 2e-6                 # tests/test_complex_kh.py:53
+# The other complex-omega slab sweeps (tools_torch/cx_slab.py): the density
+# slab's flux form with either exterior, the KH slab's numeric exterior
+CX_SLAB = ("cx_ph_09", "cx_ph_09_num", "kh_w1e5_num")
+CX_PLAIN_N_ITER = 1                    # the plain Newton loop's steps
 # NVIDIA H100 SXM data sheet, outside the tensor cores, at 700 W; HBM3 rate
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 HBM_BYTES_S = 3.35e12
@@ -465,6 +517,7 @@ def reset_counters() -> None:
     cylinder.small_launches = slab.paired = 0
     cylinder.bisect_launches = slab.bisect_launches = 0
     slab.complex_launches = slab.newton_launches = 0
+    slab.complex_flux_launches = slab.complex_numeric_launches = 0
     pcyl.plain_calls = pslab.plain_calls = 0
 
 
@@ -2029,27 +2082,41 @@ def _numeric_scan(what: str, case, args, plain_too: bool):
     return r, pres
 
 
-def _numeric_bisect(what: str, case, br, plain_n_iter, n_iter=N_BISECT,
-                    final_eval=True, shape=None) -> dict:
+def shallower(case):
+    """The case at 1/NUM_PLAIN_DEPTH of its interior and exterior steps:
+    the depth of phase 13's ragged draws and of its bisections against the
+    plain loop. The plain versions' time on the card is set by the chain's
+    serial steps, not by the batch."""
+    g = case.grid
+    return dataclasses.replace(case, grid=dataclasses.replace(
+        g, n_interior=g.n_interior // NUM_PLAIN_DEPTH,
+        n_exterior=g.n_exterior // NUM_PLAIN_DEPTH))
+
+
+def _fused_bisect(case, br, final_eval=True, shape=None):
+    """fused(n_iter): the case's fused bisection of the brackets br at the
+    wrapper's shape, or at `shape`."""
+    kern = _physics(case)[0]
+    disp = kern(br[0].dtype)
+    if shape is None:
+        return lambda k: disp.bisect(*br, k, final_eval)
+    fn, params = bisect_fn(case)
+    return lambda k: fn(*br, k, params, final_eval, shape=shape)
+
+
+def _numeric_bisect(what: str, case, br, n_iter=N_BISECT, final_eval=True,
+                    shape=None) -> dict:
     """The fused bisection with the numeric exterior on the brackets br:
-    bit-equal to the loop of one-thread launches at n_iter, and with
-    plain_n_iter (None: not run) to the loop over the plain dispersion;
-    timed, with its bound (the evaluations the loop needs)."""
+    bit-equal to the loop of one-thread launches at n_iter; timed, with
+    its bound (the evaluations the loop needs)."""
     import torch
     from eigensolver_tpu_torch import search
-    kern, plain = _physics(case)
+    kern = _physics(case)[0]
     dtype = br[0].dtype
     dname = str(dtype).split(".")[-1]
     n = br[0].numel()
     disp = kern(dtype)
-    if shape is None:
-        def fused(k):
-            return disp.bisect(*br, k, final_eval)
-    else:
-        fn, params = bisect_fn(case)
-
-        def fused(k):
-            return fn(*br, k, params, final_eval, shape=shape)
+    fused = _fused_bisect(case, br, final_eval, shape)
     got = fused(n_iter)
     loop = search.bisect_loop(disp, *br, n_iter, final_eval)
     torch.cuda.synchronize()
@@ -2064,21 +2131,30 @@ def _numeric_bisect(what: str, case, br, plain_n_iter, n_iter=N_BISECT,
                  disp, *br, n_iter, final_eval), 1),
              **bound(numeric_ops(case, n, evals, br[2], br[3]),
                      n * 6 * br[0].element_size(), dname))
-    if plain_n_iter is not None:
-        got = fused(plain_n_iter)
-        want, r["plain_ms"] = _timed_plain(
-            lambda *a: search.bisect_loop(plain(dtype), *a, plain_n_iter,
-                                          final_eval), br)
-        r["plain_n_iter"] = plain_n_iter
-        r["ms_plain_n_iter"] = cuda_ms(lambda: fused(plain_n_iter), 3)
-        a, b = got[0].cpu().numpy(), want[0].cpu().numpy()
-        r["max_abs_err_vs_plain"] = float(np.nanmax(np.abs(a - b)))
-        differ = [int((~_same_bits(x.cpu().numpy(), y.cpu().numpy())).sum())
-                  for x, y in zip(got, want) if x is not None]
-        if any(differ):
-            raise AssertionError(f"{what}: {differ} values differ from the "
-                                 f"plain loop")
     return r
+
+
+def _bisect_vs_plain(what: str, case, br, final_eval=True,
+                     shape=None) -> dict:
+    """The fused bisection on the brackets br at NUM_PLAIN_N_ITER, bit-equal
+    to the loop over the plain dispersion; both timed."""
+    from eigensolver_tpu_torch import search
+    plain = _physics(case)[1]
+    fused = _fused_bisect(case, br, final_eval, shape)
+    got = fused(NUM_PLAIN_N_ITER)
+    want, plain_ms = _timed_plain(
+        lambda *a: search.bisect_loop(plain(br[0].dtype), *a,
+                                      NUM_PLAIN_N_ITER, final_eval), br)
+    differ = [int((~_same_bits(x.cpu().numpy(), y.cpu().numpy())).sum())
+              for x, y in zip(got, want) if x is not None]
+    if any(differ):
+        raise AssertionError(f"{what}: {differ} values differ from the "
+                             f"plain loop")
+    a, b = got[0].cpu().numpy(), want[0].cpu().numpy()
+    return dict(plain_ms=plain_ms, plain_n_iter=NUM_PLAIN_N_ITER,
+                plain_n=br[0].numel(), plain_n_interior=case.grid.n_interior,
+                ms_plain_n_iter=cuda_ms(lambda: fused(NUM_PLAIN_N_ITER), 3),
+                max_abs_err_vs_plain=float(np.nanmax(np.abs(a - b))))
 
 
 def entry_bytes(case, dtype) -> int:
@@ -2112,15 +2188,18 @@ def phase_numeric_kernels(out: dict):
     shear = with_numeric(cases.slab_flow_gaussian_coronal(), 3.0)
     cyl, cyl_cfg, _ = parity_config("cyl_flow_1", "float32")
     res = {}
-    # ragged batches of ladder draws, both types, kernel vs plain bits
+    # ragged batches of ladder draws, both types, kernel vs plain bits, at
+    # the reduced depth (`shallower`)
     for name, case in (("slab_disp flux", slab), ("slab_disp shear", shear),
                        ("cylinder_disp", cyl)):
+        case = shallower(case)
         cand = batches.ladder_draws(case, N_RAGGED, seed=13)
         for dtype in (f64, f32):
             dname = str(dtype).split(".")[-1]
-            res[f"{name} {N_RAGGED} {dname}"] = _numeric_scan(
-                f"{name} numeric {dname}", case,
-                [x.to(dtype) for x in cand], plain_too=True)[0]
+            res[f"{name} {N_RAGGED} {dname}"] = dict(
+                n_interior=case.grid.n_interior, **_numeric_scan(
+                    f"{name} numeric {dname}", case,
+                    [x.to(dtype) for x in cand], plain_too=True)[0])
     # the numeric cylinder scan's row layouts, bit for bit, with the
     # candidates each takes through its block's tables
     kern, plain = _physics(cyl)
@@ -2157,21 +2236,26 @@ def phase_numeric_kernels(out: dict):
             res[f"{name} full {dname}"] = r
     # the fused bisections (the speculative kernel over the scans' tables)
     # on the parity sweeps' own brackets, against the launch loop at
-    # N_BISECT and the plain loop at NUM_PLAIN_N_ITER; on their first 600
-    # (a refine-sized batch) at the speculative default L against the loop
+    # N_BISECT, and at the reduced depth (`shallower`, its own brackets)
+    # against the plain loop at NUM_PLAIN_N_ITER; on their first 600 (a
+    # refine-sized batch) at the speculative default L against the loop
     for name, case, cfg in (("slab_bisect", slab, slab_cfg),
                             ("cylinder_bisect", cyl, cyl_cfg)):
         for dtype in (f32, f64):
             dname = str(dtype).split(".")[-1]
             br = sweep_brackets(case, dtype, cfg)
             res[f"{name} {dname}"] = _numeric_bisect(
-                f"{name} numeric {dname}", case, br,
-                NUM_PLAIN_N_ITER)
+                f"{name} numeric {dname}", case, br)
+            low = shallower(case)
+            res[f"{name} {dname}"].update(_bisect_vs_plain(
+                f"{name} numeric {dname} (n_interior "
+                f"{low.grid.n_interior})", low, sweep_brackets(low, dtype,
+                                                               cfg)))
             shape = common.numeric_spec_shape(600, dtype,
                                               entry_bytes(case, dtype))
             res[f"{name} 600 L{shape.levels} {dname}"] = _numeric_bisect(
                 f"{name} numeric 600 L{shape.levels} {dname}", case,
-                [x[:600].contiguous() for x in br], None, shape=shape)
+                [x[:600].contiguous() for x in br], shape=shape)
     # the twisted kernels at a reduced size: the small-batch path and the
     # scan on a ragged batch, the speculative bisection at L = 0 and at its
     # default L on 600 brackets of the ladder (n_omega=64)
@@ -2197,11 +2281,11 @@ def phase_numeric_kernels(out: dict):
         eb = kcyl._ENTRY_BYTES[dtype, True]
         for lv in (0, None):
             shape = common.spec_shape(600, dtype, eb, levels=lv)
-            plain_n = NUM_PLAIN_N_ITER if lv is None else None
-            res[f"cylinder_bisect twisted L{shape.levels} {dname}"] = \
-                _numeric_bisect(f"twisted cylinder_bisect numeric "
-                                f"L{shape.levels} {dname}", tw, br, plain_n,
-                                shape=shape)
+            what = f"twisted cylinder_bisect numeric L{shape.levels} {dname}"
+            r = _numeric_bisect(what, tw, br, shape=shape)
+            if lv is None:
+                r.update(_bisect_vs_plain(what, tw, br, shape=shape))
+            res[f"cylinder_bisect twisted L{shape.levels} {dname}"] = r
     res["ptxas"] = {**{f"slab_disp {k}": v for k, v in ptxas_report(
         "slab_disp_kernel").items() if "numeric" in k},
                     **{f"cylinder_disp {k}": v for k, v in ptxas_report(
@@ -2416,21 +2500,24 @@ def kh_config(name: str):
 
 def complex_ptxas() -> dict:
     """Registers and spill bytes of the complex-omega kernel's
-    instantiations (csrc/slab_complex.cu::newton_kernel: one a type, its
-    producer warps fixed by the type), keyed by type and producer warps."""
+    instantiations (csrc/slab_complex.cu::newton_kernel<T, kShear, kNum>:
+    one a type, form and exterior, its producer warps fixed by the type),
+    keyed by them."""
     import re
     import torch
     from eigensolver_tpu_torch.kernels import common
 
     def key_of(name):
-        t = re.search(r"newton_kernelI([fd])E", name)
+        t = re.search(r"newton_kernelI([fd])Lb([01])ELb([01])EE", name)
         if not t:
             return None
         dt = torch.float32 if t.group(1) == "f" else torch.float64
         return (f"newton_kernel {_type_name(t.group(1))} "
+                f"{'shear' if t.group(2) == '1' else 'flux'} "
+                f"{'numeric' if t.group(3) == '1' else 'exact'} "
                 f"P={common.COMPLEX_PRODUCERS[dt]}")
     entries = ptxas_entries(key_of)
-    want = len(common.COMPLEX_PRODUCERS)
+    want = 4 * len(common.COMPLEX_PRODUCERS)
     if len(entries) != want:
         raise AssertionError(f"complex kernel's instantiations: "
                              f"{sorted(entries)}, want {want}")
@@ -2742,6 +2829,411 @@ def phase_kh_sweeps(out: dict) -> dict:
     return launches
 
 
+# -- phases 22-23 --------------------------------------------------------------
+
+def cx_slab_config(name: str):
+    from eigensolver_tpu_torch import cases
+    from tools_torch import cx_slab
+    return cx_slab.configure(name, cases)
+
+
+def cx_variant_ops(case, n: int, dual: bool = False, n_iter: int = 1,
+                   every_chain: bool = False) -> int:
+    """`cx_ops` for the case's form and exterior: the shear or the flux
+    chain ("slab_cx_*", "slab_cx_flux_*"), with the numeric exterior its
+    steps, rescalings and ends ("slab_cx_*ext_*") per shoot, the x-only
+    values of the form once."""
+    from eigensolver_tpu_torch.physics.slab import SlabPhysics
+    gr = case.grid
+    shear = SlabPhysics.from_case(case).has_flow
+    f = ("slab_cx_" if shear else "slab_cx_flux_") + ("dual_" if dual
+                                                       else "")
+    per = (gr.n_interior * (OPS[f + "step"] - 3 * OPS[f + "chain"])
+           + slab_chains(gr.n_interior, every_chain) * OPS[f + "chain"]
+           + OPS[f + "ends"] + (OPS["slab_cx_newton"] if dual else 0))
+    if gr.exterior_method == "numeric":
+        e = "slab_cx_dual_" if dual else "slab_cx_"
+        per += (gr.n_exterior * OPS[e + "ext_step"]
+                + gr.n_exterior // 64 * OPS[e + "ext_renorm"]
+                + OPS[e + "ext_ends"])
+    x_step = "slab_shear_x_step" if shear else "slab_x_step"
+    return n * n_iter * per + gr.n_interior * OPS[x_step]
+
+
+def _cx_pairs(om0, k0, dtype=None):
+    import torch
+    from eigensolver_tpu_torch.cplx import C
+    dtype = dtype or torch.float64
+    return (C(torch.from_numpy(om0.real.copy()).to("cuda", dtype),
+              torch.from_numpy(om0.imag.copy()).to("cuda", dtype)),
+            torch.from_numpy(k0).to("cuda", dtype))
+
+
+def _cx_variant_kernels(name: str, case, kw: dict) -> dict:
+    """Phase 22's kernel checks of one configuration: on the sweep's seeds
+    (both parities, seed i at parity i mod 2) slab_newton at n_iter=1 with
+    its value round, and the evaluation mode at its roots, bit-equal to
+    the plain Newton loop and the plain value dispersion; the times of
+    the main path's launches (30 steps, with and without the value round,
+    and the audit's contour points in the evaluation mode) beside their
+    bounds."""
+    import torch
+    from eigensolver_tpu_torch import sweep
+    from eigensolver_tpu_torch.kernels import common
+    from eigensolver_tpu_torch.kernels import slab as kslab
+    from eigensolver_tpu_torch.physics.slab import SlabPhysics
+    from eigensolver_tpu_torch.search import newton_loop
+    ph = SlabPhysics.from_case(case)
+    params = kslab.disp_params(case, True)
+    om0, k0 = sweep.complex_seeds(case, kw["n_re"], kw["n_im"])
+    seeds, kk = _cx_pairs(om0, k0)
+    par = (torch.arange(len(k0), device="cuda") % 2).double()
+    dual = ph.make_dispersion_dual_plain(parity=None)
+    plain = ph.make_dispersion_plain(parity=None)
+    t0 = time.perf_counter()
+    want = newton_loop(dual, seeds, kk, par, CX_PLAIN_N_ITER)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    at_roots = plain(want, kk, par)
+    torch.cuda.synchronize()
+    plain_value_s = time.perf_counter() - t0
+    got, res = kslab.slab_newton(seeds, kk, par, CX_PLAIN_N_ITER, 1.0,
+                                 params, final_eval=True)
+    ev = kslab.slab_disp_complex(got, kk, par, params)
+    torch.cuda.synchronize()
+    err = _cx_bits(f"{name} slab_newton n_iter={CX_PLAIN_N_ITER}",
+                   {"re": got.re, "im": got.im},
+                   {"re": want.re, "im": want.im})
+    for what, r in (("its value round", res), ("the evaluation mode", ev)):
+        if not torch.equal(r.valid, at_roots.valid):
+            raise AssertionError(f"{name} {what}: valid differs")
+        _cx_bits(f"{name} {what}",
+                 {"det_re": r.det.re, "det_im": r.det.im,
+                  "mismatch": r.mismatch_pct},
+                 {"det_re": at_roots.det.re, "det_im": at_roots.det.im,
+                  "mismatch": at_roots.mismatch_pct})
+    n, n_iter = len(k0), kw["newton_iters"]
+    ms = cuda_ms(lambda: kslab.slab_newton(seeds, kk, par, n_iter, 1.0,
+                                           params), 2)
+    ms_fe = cuda_ms(lambda: kslab.slab_newton(seeds, kk, par, n_iter, 1.0,
+                                              params, final_eval=True), 2)
+    roots = kslab.slab_newton(seeds, kk, par, n_iter, 1.0, params)
+    fin = roots.re.isfinite() & roots.im.isfinite()
+    cells, paths, _, _ = sweep.audit_contours(
+        np.asarray(case.k_grid()), np.asarray(case.sorted_speeds()),
+        case.imag_band)
+    z_a, k_a = _cx_pairs(paths.reshape(-1),
+                         np.repeat(np.array([c[0] for c in cells]),
+                                   paths.shape[1]))
+    p_a = torch.ones_like(k_a)
+    ms_audit = cuda_ms(lambda: kslab.slab_disp_complex(z_a, k_a, p_a,
+                                                       params), 3)
+    n_a = k_a.numel()
+
+    def fe_ops(every):
+        return (cx_variant_ops(case, n, True, n_iter, every)
+                + cx_variant_ops(case, n, every_chain=every))
+    return dict(
+        n=n, n_iter=n_iter, shape=list(common.complex_spec_shape(
+            torch.float64)), ms=ms, ms_final_eval=ms_fe,
+        final_eval_ms=ms_fe - ms, plain_ms=1e3 * plain_s,
+        plain_n_iter=CX_PLAIN_N_ITER, plain_value_ms=1e3 * plain_value_s,
+        max_abs_err=err,
+        roots_non_finite=int((~fin).sum()),
+        roots_tiny_im=int((fin & (roots.im.abs() < 1e-290)).sum()),
+        **bound(cx_variant_ops(case, n, True, n_iter), 48 * n, "float64"),
+        bound_3_chains_ms=bound(cx_variant_ops(case, n, True, n_iter, True),
+                                48 * n, "float64")["bound_ms"],
+        bound_final_eval_ms=bound(fe_ops(False), 73 * n,
+                                  "float64")["bound_ms"],
+        audit=dict(n=n_a, ms=ms_audit, **bound(
+            cx_variant_ops(case, n_a), 7 * 8 * n_a + n_a, "float64")))
+
+
+def _check_cx_seeds(name: str, case, kw: dict, rs, target: dict) -> dict:
+    """`_check_kh_seeds` per mode of a tools_torch/cx_slab.py target: the
+    sweep's Newton pass again with its final evaluation, one step further;
+    the verdicts accept what the sweep accepted; the seeds converged here
+    and in the JAX package's run accepted alike; the converged accepted
+    seeds give the target's counts_converged."""
+    import torch
+    from eigensolver_tpu_torch import search, sweep
+    from eigensolver_tpu_torch.roots import dedup_complex_roots
+    from tools_torch import kh
+    om0, k0 = sweep.complex_seeds(case, kw["n_re"], kw["n_im"])
+    seeds, kk = _cx_pairs(om0, k0)
+    rel = case.tol.dedup_rel
+    res = {}
+    for mode in case.modes:
+        b = sweep.MODE_NAMES[mode]
+        disp = sweep.make_dispersion(case, mode, torch.float64)
+        om, ev = search.newton_complex(disp, seeds, kk,
+                                       n_iter=kw["newton_iters"],
+                                       final_eval=True)
+        nxt = search.newton_complex(disp, om, kk, n_iter=1)
+
+        def host(z):
+            return z.re.cpu().numpy() + 1j * z.im.cpu().numpy()
+        om = host(om)
+        acc, conv = kh.seed_verdicts(case, om, host(nxt),
+                                     ev.mismatch_pct.cpu().numpy(),
+                                     ev.valid.cpu().numpy(), k0)
+        if len(dedup_complex_roots(om[acc], k0[acc], rel)[0]) != \
+                rs.counts()[b]:
+            raise AssertionError(f"{name} {b}: the seed verdicts give "
+                                 f"other roots than the sweep")
+        j_acc = kh.unpack_mask(target["seeds_accepted"][b], len(k0))
+        j_conv = kh.unpack_mask(target["seeds_converged"][b], len(k0))
+        both = conv & j_conv
+        bad = np.flatnonzero(both & (acc != j_acc))
+        if len(bad):
+            raise AssertionError(f"{name} {b}: seeds {bad[:20].tolist()} "
+                                 f"converged here and in JAX's run, "
+                                 f"accepted differently")
+        n_conv = kh.converged_count(om, k0, acc, conv, dedup_complex_roots,
+                                    rel)
+        if n_conv != target["counts_converged"][b]:
+            raise AssertionError(f"{name} {b}: the converged accepted seeds "
+                                 f"give {n_conv} roots, JAX "
+                                 f"{target['counts_converged'][b]}")
+        res[b] = dict(counts_converged=n_conv, accepted=int(acc.sum()),
+                      converged=int(conv.sum()),
+                      converged_both=int(both.sum()),
+                      flips=int((acc != j_acc).sum()))
+    return res
+
+
+def phase_complex_slab(out: dict) -> dict:
+    """Phase 22 (see the module's docstring): the launches of each sweep's
+    counted run."""
+    from eigensolver_tpu_torch import sweep
+    from tools_torch import cx_slab
+    res, launches = {}, {}
+    for name in CX_SLAB:
+        case, kw = cx_slab_config(name)
+        flux = case.flow_profile.kind.value == "uniform" and \
+            case.regime.U_i0 == case.regime.U_e == 0.0
+        numeric = case.grid.exterior_method == "numeric"
+        r = _cx_variant_kernels(name, case, kw)
+        line(f"phase 22 {name} kernels vs plain", **r)
+        reset_counters()
+        rs, stats = sweep.run_case_complex(case, **kw, device="cuda")
+        launches[name] = read_counters()
+        n_modes = len(case.modes)
+        check_launches(f"{name} path", launches[name], {
+            "slab_newton": n_modes, "slab_disp_complex": n_modes,
+            "slab_complex_flux": 2 * n_modes * flux,
+            "slab_complex_numeric": 2 * n_modes * numeric})
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            sweep.run_case_complex(case, **kw, device="cuda")
+            walls.append(time.perf_counter() - t0)
+        target = cx_slab.TARGETS[name]
+        if stats.n_candidates != target["candidates"]:
+            raise AssertionError(f"{name}: {stats.n_candidates} seeds")
+        seeds = _check_cx_seeds(name, case, kw, rs, target)
+        # the total count held exactly where the JAX package's
+        # unconverged accepted seeds add no root to its converged ones
+        exact = {b: target["counts_converged"][b] == n
+                 for b, n in target["counts"].items()}
+        for b, n in rs.counts().items():
+            if exact[b] and n != target["counts"][b]:
+                raise AssertionError(f"{name} {b}: {n} roots, JAX "
+                                     f"{target['counts'][b]}")
+        margin = 0.05 * case.imag_band
+        off_axis = {b: int(np.sum(np.abs(br.omegas_imag) > margin))
+                    for b, br in rs.branches.items()}
+        comp = stats.completeness
+        if off_axis != target["counts_off_axis"]:
+            raise AssertionError(f"{name}: off-axis counts {off_axis}, JAX "
+                                 f"{target['counts_off_axis']}")
+        if comp != target["completeness"] or comp["missed"]:
+            raise AssertionError(f"{name}: completeness {comp}, JAX "
+                                 f"{target['completeness']}")
+        for br in rs.branches.values():
+            if not (np.all(np.isfinite(br.omegas))
+                    and np.all(np.isfinite(br.omegas_imag))):
+                raise AssertionError(f"{name}: non-finite roots")
+        r.update(sweep=dict(
+            wall_s=statistics.median(walls), walls=walls,
+            first_wall_s=stats.wall_s, counts=rs.counts(),
+            counts_jax=target["counts"], counts_exact=exact,
+            counts_off_axis=off_axis, completeness=comp,
+            launches=launches[name], seeds=seeds))
+        line(f"phase 22 {name} sweep", **r["sweep"])
+        res[name] = r
+    out["complex_slab"] = res
+    return launches
+
+
+SHARD_WORKER = r'''
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+from eigensolver_tpu_torch.parallel import (init_distributed, make_mesh,
+                                            run_case_sharded,
+                                            shutdown_distributed)
+assert init_distributed()
+out = {}
+for name, (case, cfg, refine) in chip_smoke.shard_configs().items():
+    t0 = time.perf_counter()
+    rs, st = run_case_sharded(case, make_mesh(), cfg, refine_f64=refine)
+    out[name] = dict(wall_s=time.perf_counter() - t0,
+                     digest=chip_smoke.root_digest(rs), counts=rs.counts())
+shutdown_distributed()
+print("RESULT " + json.dumps(out), flush=True)
+'''
+
+
+SHARD_RUNS = 5          # phase 23's timed runs of each sweep, in turns
+
+
+def shard_configs() -> dict:
+    """Phase 23's sweeps: (case, SearchConfig, refine_f64) by name."""
+    from eigensolver_tpu_torch import cases, search
+    f32 = search.SearchConfig(n_omega=256, n_bisect=18, scan_dtype="float32",
+                              polish_dtype="float32")
+    slab = cases.slab_density_photospheric(0.9)
+    return {"slab_ph_09 float32": (slab, f32, False),
+            "slab_ph_09 float32 refined": (slab, f32, True),
+            "cyl_co_09 float32": (cases.cylinder_density_coronal(0.9), f32,
+                                  False),
+            "cyl_flow_1 parity float64": parity_config("cyl_flow_1",
+                                                        "float64")}
+
+
+def root_digest(rs) -> str:
+    """A hash of a RootSet's roots, branch by branch, bit for bit."""
+    import hashlib
+    h = hashlib.sha256()
+    for b in sorted(rs.branches):
+        br = rs[b]
+        h.update(b.encode())
+        h.update(np.ascontiguousarray(br.ks, np.float64).tobytes())
+        h.update(np.ascontiguousarray(br.omegas, np.float64).tobytes())
+    return h.hexdigest()
+
+
+def _free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def phase_sharded(out: dict, tmp: Path) -> dict:
+    """Phase 23 (see the module's docstring): the launches of each sharded
+    sweep's counted run."""
+    import os
+    import torch
+    import warnings
+    from eigensolver_tpu_torch import cases, roots, search, sweep
+    from eigensolver_tpu_torch.parallel import make_mesh, run_case_sharded
+    warnings.simplefilter("ignore")     # saturated-row notices, as expected
+    n_cards = torch.cuda.device_count()
+    mesh = (make_mesh() if n_cards > 1
+            else [torch.device("cuda", 0)] * 2)
+    res, launches, digests = {}, {}, {}
+    for name, (case, cfg, refine) in shard_configs().items():
+        want, wst = sweep.run_case(case, cfg, refine_f64=refine,
+                                   device="cuda")
+        digests[name] = root_digest(want)
+        reset_counters()
+        got, st = run_case_sharded(case, mesh, cfg, refine_f64=refine)
+        launches[name] = read_counters()
+        scan = "slab" if case.geometry.value == "slab" else "cylinder"
+        n_blocks = len(mesh)
+        want_launches = {f"{scan}_disp": n_blocks + refine,
+                         f"{scan}_bisect": n_blocks + refine}
+        if scan == "slab":
+            # every block's rows through the paired scan, its padding too
+            rows = st.n_candidates // (2 * cfg.n_omega)
+            want_launches["slab_paired"] = (-(-rows // n_blocks) * n_blocks
+                                            * 2 * cfg.n_omega)
+        check_launches(f"sharded {name}", launches[name], want_launches)
+        if root_digest(got) != digests[name] or \
+                st.n_candidates != wst.n_candidates:
+            raise AssertionError(f"sharded {name}: roots differ from "
+                                 f"run_case's")
+        walls, one = [], []
+        for _ in range(SHARD_RUNS):
+            t0 = time.perf_counter()
+            run_case_sharded(case, mesh, cfg, refine_f64=refine)
+            walls.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            sweep.run_case(case, cfg, refine_f64=refine, device="cuda")
+            one.append(time.perf_counter() - t0)
+        wall, wall_one = statistics.median(walls), statistics.median(one)
+        res[name] = dict(blocks=n_blocks, counts=got.counts(),
+                         launches=launches[name], wall_s=wall,
+                         run_case_wall_s=wall_one,
+                         overhead=wall / wall_one - 1, walls=walls,
+                         run_case_walls=one, bit_equal=True)
+        line(f"phase 23 sharded {name}", **res[name])
+    # two processes on the card(s), joined by init_distributed (gloo)
+    port = _free_port()
+    procs = []
+    t0 = time.perf_counter()
+    for rank in range(2):
+        env = dict(os.environ, EIGENSOLVER_COORDINATOR=f"127.0.0.1:{port}",
+                   EIGENSOLVER_NUM_PROCESSES="2",
+                   EIGENSOLVER_PROCESS_ID=str(rank))
+        if n_cards > 1:
+            env["CUDA_VISIBLE_DEVICES"] = str(rank % n_cards)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", SHARD_WORKER, str(ROOT)], env=env,
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    ranks = []
+    try:
+        for p in procs:
+            so, se = p.communicate(timeout=400)
+            if p.returncode:
+                raise AssertionError(f"sharded rank: exit {p.returncode}\n"
+                                     f"{se[-3000:]}")
+            got = [ln for ln in so.splitlines() if ln.startswith("RESULT ")]
+            ranks.append(json.loads(got[-1][len("RESULT "):]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    wall = time.perf_counter() - t0
+    for name, d in digests.items():
+        if not ranks[0][name]["digest"] == ranks[1][name]["digest"] == d:
+            raise AssertionError(f"two processes {name}: roots differ from "
+                                 f"run_case's")
+    res["two processes"] = dict(
+        process_wall_s=wall, walls={name: [r[name]["wall_s"] for r in ranks]
+                                    for name in digests})
+    line("phase 23 sharded two processes", **res["two processes"])
+    # the CLI
+    pickle = tmp / "sharded.pickle"
+    stdout, cli_wall = _cli(tmp, "sweep", "slab_density_photospheric",
+                            "--width", "0.9", "--sharded", "-o", pickle)
+    report = json.loads(stdout.splitlines()[0])
+    cfg = search.SearchConfig(n_omega=256, scan_dtype="float32",
+                              polish_dtype="float32")
+    want, _ = sweep.run_case(cases.slab_density_photospheric(0.9), cfg,
+                             device="cuda")
+    _same_roots("sweep --sharded", roots.load_pickle(str(pickle)), want,
+                0.0)
+    n_blocks = len(make_mesh())
+    check_launches("sweep --sharded", {k: v for k, v in report[
+        "launches"].items() if k != "slab_paired"},
+        {"slab_disp": n_blocks, "slab_bisect": n_blocks})
+    res["cli"] = dict(process_wall_s=cli_wall, sweep_wall_s=report["wall_s"],
+                      launches=report["launches"], counts=report["counts"])
+    line("phase 23 sweep --sharded", **res["cli"])
+    out["sharded"] = res
+    return launches
+
+
+
 def phase_twisted_numeric_path() -> dict:
     """The twisted chain's numeric-exterior variant on a path of its own
     (no shipped target pairs the two): a reduced float32 sweep of
@@ -2815,10 +3307,13 @@ def numeric_kernel_entries(res: dict, par: dict, tw: dict) -> list:
                   "bound_3_chains_ms"],
               ragged_ms={d: res[f"slab_disp flux {N_RAGGED} {d}"]["ms"]
                          for d in ("float32", "float64")},
+              ragged_n_interior=res[f"slab_disp flux {N_RAGGED} float32"][
+                  "n_interior"],
               needle_path_launches=par["slab_ph_3 needle"]["slab_disp"]),
         entry("slab_bisect_numeric", src + "slab_disp.cu",
               "eigensolver_tpu/ode.py:75", slab_path["slab_bisect"], sb,
               sb["max_abs_err_vs_plain"], plain_n_iter=sb["plain_n_iter"],
+              plain_n_interior=sb["plain_n_interior"],
               ms_plain_n_iter=sb["ms_plain_n_iter"],
               launch_loop_ms=sb["loop_ms"],
               float64_ms=res["slab_bisect float64"]["ms"],
@@ -2835,6 +3330,7 @@ def numeric_kernel_entries(res: dict, par: dict, tw: dict) -> list:
         entry("cylinder_bisect_numeric", src + "cylinder_disp.cu",
               "eigensolver_tpu/ode.py:22", cyl_path["cylinder_bisect"], cb,
               cb["max_abs_err_vs_plain"], plain_n_iter=cb["plain_n_iter"],
+              plain_n_interior=cb["plain_n_interior"],
               ms_plain_n_iter=cb["ms_plain_n_iter"],
               launch_loop_ms=cb["loop_ms"],
               float64_ms=res["cylinder_bisect float64"]["ms"]),
@@ -2898,6 +3394,44 @@ def complex_kernel_entries(res: dict, launches: dict) -> list:
         "bound_final_eval_ms": nw["bound_final_eval_ms"],
         "bound_final_eval_3_chains_ms": nw["bound_final_eval_3_chains_ms"],
     }]
+
+
+def complex_variant_entries(res: dict, launches: dict) -> list:
+    """The kernels JSON entries of the complex-omega kernel's flux form
+    (B2-complex: the density slab's sweep, cx_ph_09, 37,800 seeds a mode)
+    and numeric exterior (B6-complex: the KH slab's, kh_w1e5_num, 7,200
+    seeds; the density slab's beside), phase 22's times and checks: the
+    Newton launch of 30 steps, float64, the plain loop at n_iter=1."""
+    src = "eigensolver_tpu_torch/csrc/slab_complex.cu"
+    keys = ("n", "ms", "ms_final_eval", "plain_ms", "bound_ms",
+            "bound_3_chains_ms", "max_abs_err", "roots_tiny_im")
+
+    def entry(name, replaces, main, key, others):
+        r = res[main]
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": replaces,
+                "launches": launches[main][key],
+                "n": r["n"], "n_iter": r["n_iter"], "shape": r["shape"],
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "plain_n_iter": r["plain_n_iter"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": None,
+                "bound_3_chains_ms": r["bound_3_chains_ms"],
+                "ms_final_eval": r["ms_final_eval"],
+                "bound_final_eval_ms": r["bound_final_eval_ms"],
+                "roots_tiny_im": r["roots_tiny_im"],
+                "audit": r["audit"],
+                **{o: {**{k: res[o][k] for k in keys},
+                       "launches": launches[o][key]} for o in others}}
+    return [
+        # _rk4_linear_flux with make_flux_coef at complex omega (the XLA
+        # program of physics/slab.py, no Pallas original)
+        entry("slab_complex_flux", "eigensolver_tpu/physics/slab.py:41",
+              "cx_ph_09", "slab_complex_flux", ("cx_ph_09_num",)),
+        # ode.rk4_final_renorm on complex states at physics/slab.py:360
+        entry("slab_complex_numeric", "eigensolver_tpu/ode.py:75",
+              "kh_w1e5_num", "slab_complex_numeric", ("cx_ph_09_num",)),
+    ]
 
 
 CK_BLOCK = 8                        # k a block of the checkpointed sweeps
@@ -3394,6 +3928,8 @@ def main() -> int:
         sets, ck_launches = phase_checkpointed(out, Path(tmp))
         phase_cli(out, Path(tmp), sets)
         phase_eigenfunctions(out, sets)
+        cx_launches = phase_complex_slab(out)
+        phase_sharded(out, Path(tmp))
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
@@ -3618,6 +4154,7 @@ def main() -> int:
     kernels += numeric_kernel_entries(out["numeric_kernels"], par_launches,
                                       tw_num_launches)
     kernels += complex_kernel_entries(out["complex_kernels"], kh_launches)
+    kernels += complex_variant_entries(out["complex_slab"], cx_launches)
     # the launches of phase 19's checkpointed paths (slab_ph_09 and
     # cyl_co_09 at float32, kh_w1e5), beside each main path's own
     ck_path = {"slab_disp": "slab_ph_09 float32",

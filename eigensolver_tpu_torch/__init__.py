@@ -11,8 +11,12 @@ Ported, every compute entry on an explicit device:
   tubes, with the f64 refinement, the reference-parity options (numeric
   exteriors, continuum masks, fuzz acceptance, the pole pre-filter) and the
   band-edge (needle) pass;
-- the complex-omega Kelvin-Helmholtz sweep (`sweep.run_case_complex`) with
-  its argument-principle audit;
+- the complex-omega sweeps (`sweep.run_case_complex`) of every slab case,
+  the Kelvin-Helmholtz growth rates and the density slabs, with the exact
+  or the numeric exterior, with the argument-principle audit;
+- the sharded sweep (`parallel.run_case_sharded`): a real-omega sweep's
+  rows split over several devices, and over processes joined by
+  `parallel.init_distributed`;
 - the crash-safe sweeps (`sweep.run_case_checkpointed`,
   `run_case_complex_checkpointed`) over the checkpoint store
   (`native.store`), and the reference pickles (`roots.save_pickle`,
@@ -28,10 +32,10 @@ The hand-written CUDA kernels for sm_90a (`csrc/`, built at first use by
 with its twisted variant and the fused bisection `cylinder_bisect`
 (`kernels.cylinder`), the slab scan `slab_disp` (paired, and its numeric-
 exterior variants) and the fused bisection `slab_bisect` (`kernels.slab`),
-and the complex-omega kernel behind `slab_newton` and `slab_disp_complex`.
-On a CPU tensor each wrapper runs its kernel's plain PyTorch version.
+and the complex-omega kernel behind `slab_newton` and `slab_disp_complex`
+(the shear and the flux form, either exterior). On a CPU tensor each
+wrapper runs its kernel's plain PyTorch version.
 
-Not ported: multi-GPU sharding (ROADMAP A13; the CLI's `sweep --sharded`
-raises NotImplementedError naming it), and complex omega beyond the
-shipped flow slab (A10b: the dispersion raises naming it).
+Not ported: complex omega in the cylinder (ROADMAP A10b: the dispersion
+raises naming it).
 """

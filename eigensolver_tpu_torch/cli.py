@@ -19,7 +19,9 @@ sweeps in float64 (default float32). `sweep --complex` is the
 Kelvin-Helmholtz growth-rate sweep (float64); its pickle has the
 reference's kink-only 2-array layout, which drops the growth rates
 (`roots.save_pickle`), so keep them with `--checkpoint`. `sweep --sharded`
-(multi-GPU) is not ported (ROADMAP A13).
+splits the sweep's rows over every visible card of the `--device` type
+(`parallel.run_case_sharded` on `parallel.make_mesh`; one block on the CPU),
+with the same roots as the one-device sweep.
 """
 from __future__ import annotations
 
@@ -101,9 +103,6 @@ def cmd_sweep(args):
     from .search import SearchConfig
     from .sweep import run_case, run_case_complex
 
-    if args.sharded:
-        raise NotImplementedError("sweep --sharded (multi-GPU sharding): "
-                                  "ROADMAP A13")
     device = _device(args)
     report = {}
     if device.type == "cuda":
@@ -132,6 +131,10 @@ def cmd_sweep(args):
             rs, st = run_case_checkpointed(case, cfg,
                                            checkpoint_path=args.checkpoint,
                                            device=device)
+        elif args.sharded:
+            from .parallel import make_mesh, run_case_sharded
+            rs, st = run_case_sharded(case, make_mesh(device=device.type),
+                                      cfg)
         else:
             rs, st = run_case(case, cfg, device=device)
     if device.type == "cuda":
@@ -351,7 +354,8 @@ def main(argv=None):
     p.add_argument("--n-omega", type=int, default=256)
     p.add_argument("--complex", action="store_true")
     p.add_argument("--sharded", action="store_true",
-                   help="multi-GPU sharded sweep: not ported (ROADMAP A13)")
+                   help="split the sweep's rows over every visible card "
+                        "(real-omega sweeps without --checkpoint)")
     p.add_argument("--checkpoint", default=None, metavar="PATH",
                    help="crash-safe sweep: append each k-block's roots to an "
                         "fsync'd store at PATH; rerunning with the same PATH "

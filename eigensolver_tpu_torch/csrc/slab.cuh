@@ -1,7 +1,9 @@
-// The slab kernels' case parameters and the shear chain's x-only table
-// entry, shared by slab_disp.cu (real omega) and slab_complex.cu (complex
-// omega).
+// The slab kernels' case parameters and the chains' x-only table entries
+// (x_point: the flux or the shear form's), shared by slab_disp.cu (real
+// omega) and slab_complex.cu (complex omega).
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -40,6 +42,36 @@ template <class T>
 struct alignas(16) ShearPoint {
   T U, dU, ddU;
 };
+
+// The values of the flux chain that depend on x alone (slab.py:162-171):
+// one entry of the scan's table, 16-byte aligned, so that a thread reads it
+// in a few vector loads.
+template <class T>
+struct alignas(16) FluxPoint {
+  T rho, c2, a2, cT2, rho_csum;
+};
+
+template <class T, bool kShear>
+using XPoint =
+    typename std::conditional<kShear, ShearPoint<T>, FluxPoint<T>>::type;
+
+template <class T, bool kShear>
+__device__ __forceinline__ XPoint<T, kShear> x_point(const SlabDispParams& p,
+                                                     T x) {
+  if constexpr (kShear) {
+    return {profile(p.flow, x), profile_d1(p.flow, x), profile_d2(p.flow, x)};
+  } else {
+    FluxPoint<T> q;
+    T vA, ci;
+    density_speeds(p.rho, p.uniform_density, p.vA_i0, p.c_i0, p.rho_i0,
+                   p.c2_num, p.half_g, x, q.rho, vA, ci);
+    q.c2 = ci * ci;
+    q.a2 = vA * vA;
+    q.cT2 = q.c2 * q.a2 / (q.c2 + q.a2);
+    q.rho_csum = q.rho * (q.c2 + q.a2);
+    return q;
+  }
+}
 
 }  // namespace slab
 }  // namespace eigk

@@ -112,36 +112,6 @@ __device__ __forceinline__ T interior_F(const SlabDispParams& p, T omega, T k,
   return rho * (c2 + a2) * (k2 * cT2 - Om2) / (k2 * c2 - Om2);
 }
 
-// The values of the flux chain that depend on x alone (slab.py:162-171):
-// one entry of the scan's table, 16-byte aligned, so that a thread reads it
-// in a few vector loads.
-template <class T>
-struct alignas(16) FluxPoint {
-  T rho, c2, a2, cT2, rho_csum;
-};
-
-template <class T, bool kShear>
-using XPoint =
-    typename std::conditional<kShear, ShearPoint<T>, FluxPoint<T>>::type;
-
-template <class T, bool kShear>
-__device__ __forceinline__ XPoint<T, kShear> x_point(const SlabDispParams& p,
-                                                     T x) {
-  if constexpr (kShear) {
-    return {profile(p.flow, x), profile_d1(p.flow, x), profile_d2(p.flow, x)};
-  } else {
-    FluxPoint<T> q;
-    T vA, ci;
-    density_speeds(p.rho, p.uniform_density, p.vA_i0, p.c_i0, p.rho_i0,
-                   p.c2_num, p.half_g, x, q.rho, vA, ci);
-    q.c2 = ci * ci;
-    q.a2 = vA * vA;
-    q.cT2 = q.c2 * q.a2 / (q.c2 + q.a2);
-    q.rho_csum = q.rho * (q.c2 + q.a2);
-    return q;
-  }
-}
-
 // A candidate as the chain reads it, with the products of k that every
 // abscissa repeats: k^2 and, in the flux form, Omega^2 (U == 0 there, so
 // Omega = omega - k 0 at every x); in the shear form k^2 times the

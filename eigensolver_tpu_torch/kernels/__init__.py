@@ -4,7 +4,9 @@
 def launch_counts() -> dict:
     """Each wrapper's count of kernel launches since its module's counter
     was last set to 0 (`slab_paired`: the candidates through the paired
-    scan)."""
+    scan; `slab_complex_flux`, `slab_complex_numeric`: the complex-omega
+    kernel's launches in the flux form, with the numeric exterior, of
+    those counted under `slab_disp_complex` and `slab_newton`)."""
     from . import bessel, cylinder, slab
     return {"cylinder_disp": cylinder.launches,
             "cylinder_disp_small": cylinder.small_launches,
@@ -13,4 +15,6 @@ def launch_counts() -> dict:
             "slab_paired": slab.paired,
             "slab_disp_complex": slab.complex_launches,
             "slab_newton": slab.newton_launches,
+            "slab_complex_flux": slab.complex_flux_launches,
+            "slab_complex_numeric": slab.complex_numeric_launches,
             "kve_ratio": bessel.launches}

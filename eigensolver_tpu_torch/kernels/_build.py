@@ -5,12 +5,15 @@ linked into one shared library with a plain C interface, loaded with ctypes
 (no `torch.utils.cpp_extension`, no PyTorch headers: the build takes
 seconds). The library is built at first use into
 `eigensolver_tpu_torch/_build/` (git-ignored), under a name hashed from the
-sources and flags, so an edited source rebuilds. Nothing here runs when the
+sources and flags, so an edited source rebuilds; processes that start
+together (the ranks of a sharded sweep) take turns on a file lock there, so
+one builds and the others load its library. Nothing here runs when the
 package is imported.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -129,8 +132,16 @@ def build() -> Path:
     so = library_path()
     if so.is_file():
         return so
-    nvcc = _nvcc()
     BUILD_DIR.mkdir(exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)     # released when the file closes
+        if not so.is_file():
+            _compile(so)
+    return so
+
+
+def _compile(so: Path) -> None:
+    nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         srcs = [p for p in _sources() if p.suffix == ".cu"]
         objs = [str(Path(tmp) / f"{p.stem}.o") for p in srcs]
@@ -148,7 +159,6 @@ def build() -> Path:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
         so.with_suffix(".log").write_text(log)
         os.replace(lib, so)
-    return so
 
 
 def library() -> ctypes.CDLL:

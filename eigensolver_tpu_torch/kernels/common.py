@@ -289,21 +289,25 @@ class ComplexShape(NamedTuple):
 COMPLEX_PRODUCERS = {torch.float32: 8, torch.float64: 7}
 # csrc/slab_complex.cu: reals a column and step in the ring (kCxValues),
 # reals ahead of it (kCxHead: 32 omegas' re and im, and k), the bytes of a
-# table entry (ShearPoint, 16-byte aligned) by dtype
+# table entry (csrc/slab.cuh: ShearPoint, 3 values, in the shear form;
+# FluxPoint, 5, in the flux form; 16-byte aligned) by form and dtype
 _CX_VALUES = 24
 _CX_HEAD = 3 * 32
-_CX_ENTRY_BYTES = {torch.float32: 16, torch.float64: 32}
+_CX_ENTRY_BYTES = {(True, torch.float32): 16, (True, torch.float64): 32,
+                   (False, torch.float32): 32, (False, torch.float64): 48}
 
 
-def complex_smem(shape: ComplexShape, dtype: torch.dtype) -> int:
+def complex_smem(shape: ComplexShape, dtype: torch.dtype,
+                 shear: bool = True) -> int:
     """Bytes of dynamic shared memory of a complex-omega block: the head
     and the ring of S stages of C steps x 24 values x B columns, then the
-    x-only table, 2 x 3 C entries at a 16-byte boundary
-    (csrc/slab_complex.cu::cx_table_offset)."""
+    x-only table of the shear or the flux form, 2 x 3 C entries at a
+    16-byte boundary (csrc/slab_complex.cu::cx_table_offset)."""
     b, c, s = shape
     itemsize = torch.empty((), dtype=dtype).element_size()
     ring = (_CX_HEAD + s * c * _CX_VALUES * b) * itemsize
-    return -(-ring // 16) * 16 + 2 * 3 * c * _CX_ENTRY_BYTES[dtype]
+    return (-(-ring // 16) * 16
+            + 2 * 3 * c * _CX_ENTRY_BYTES[(bool(shear), dtype)])
 
 
 def complex_spec_shape(dtype: torch.dtype) -> ComplexShape:
@@ -328,11 +332,11 @@ def complex_spec_shape(dtype: torch.dtype) -> ComplexShape:
     return ComplexShape(seeds=32, steps=7, stages=2)
 
 
-def check_complex_shape(name: str, shape: ComplexShape,
-                        dtype: torch.dtype) -> None:
+def check_complex_shape(name: str, shape: ComplexShape, dtype: torch.dtype,
+                        shear: bool = True) -> None:
     b, c, s = shape
     if not (1 <= b <= 32 and b & (b - 1) == 0 and c >= 1 and 1 <= s <= 6
-            and complex_smem(shape, dtype) <= MAX_SMEM):
+            and complex_smem(shape, dtype, shear) <= MAX_SMEM):
         raise ValueError(f"{name}: unsupported block shape {shape}")
 
 

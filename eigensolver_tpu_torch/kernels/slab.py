@@ -19,15 +19,18 @@ fixed-count bisection of a bracket batch over the same chain in one launch
 producer warps read the x-only values from a table as the scan does, and a
 small batch speculates several levels a round.
 
-At complex omega (the Kelvin-Helmholtz growth rates) one warp-specialised
-kernel (`csrc/slab_complex.cu`) serves both wrappers: `slab_newton` (kernel
-B7) runs every damped Newton step of a seed batch in one launch
+At complex omega (the Kelvin-Helmholtz growth rates, and any slab case the
+CLI's `sweep --complex` makes complex) one warp-specialised kernel
+(`csrc/slab_complex.cu`) serves both wrappers: `slab_newton` (kernel B7)
+runs every damped Newton step of a seed batch in one launch
 (`eigensolver_tpu/search.py:581-603`), each step one pass of the shoot on
 dual numbers in omega, and, if asked, the evaluation of its roots in the
-same launch; `slab_disp_complex` (kernel B5-complex) is the kernel's
-evaluation mode, the same shoot in the shear form on complex pairs
-(`cplx.C`). Producer warps compute each RK4 step's coefficients, one
-consumer lane a seed runs the serial update. Their plain versions are
+same launch; `slab_disp_complex` is the kernel's evaluation mode, the same
+shoot on complex pairs (`cplx.C`): the shear form (kernel B5-complex) or
+the flux form (B2-complex), with the exact exterior or the numeric one
+(B6-complex), as the parameters pick. Producer warps compute each RK4
+step's coefficients, one consumer lane a seed runs the serial update (and
+the numeric exterior). Their plain versions are
 `SlabPhysics.make_dispersion_plain` at complex omega and
 `search.newton_loop` over `make_dispersion_dual_plain`.
 
@@ -54,13 +57,16 @@ from .common import (_SMS, EXTERIOR_FIELDS, ComplexShape, ProfileParams,
 
 # launches of the kernels since the last reset (one per kernel launch):
 # slab_disp (either variant), the fused bisection slab_bisect, and at
-# complex omega slab_disp_complex and slab_newton; and the candidates that
-# took the paired variant (2 per (omega, k))
+# complex omega slab_disp_complex and slab_newton (every form and
+# exterior), and of these the flux form's and the numeric exterior's; and
+# the candidates that took the paired variant (2 per (omega, k))
 launches = 0
 paired = 0
 bisect_launches = 0
 complex_launches = 0
 newton_launches = 0
+complex_flux_launches = 0
+complex_numeric_launches = 0
 
 _ENTRY = {torch.float32: "eigk_slab_disp_f32",
           torch.float64: "eigk_slab_disp_f64"}
@@ -263,8 +269,7 @@ def slab_bisect(lo: torch.Tensor, hi: torch.Tensor, k: torch.Tensor,
 
 def _complex_args(name: str, omega, k, parity, params):
     """Check the complex kernel's inputs: omega a `cplx.C` of two contiguous
-    1-D CUDA tensors of float32 or float64, k and parity alike; the shear
-    form with the exact exterior."""
+    1-D CUDA tensors of float32 or float64, k and parity alike."""
     if omega.re.dtype not in _NEWTON_ENTRY:
         raise TypeError(f"{name} takes float32/float64 pairs, not "
                         f"{omega.re.dtype}")
@@ -277,9 +282,6 @@ def _complex_args(name: str, omega, k, parity, params):
     if omega.re.dim() != 1 or not all(t.is_contiguous() for t in ts):
         raise ValueError(f"{name} kernel needs contiguous 1-D tensors")
     s = params.struct
-    if not s.shear or s.exterior_numeric:
-        raise ValueError(f"{name}: the shear form with the exact exterior "
-                         f"only")
     lib = _build.library()
     if lib.eigk_slab_params_size() != ctypes.sizeof(s):
         raise RuntimeError(f"{name}: parameter struct layout differs between "
@@ -291,16 +293,18 @@ def _launch_complex(name: str, omega, k, parity, params, n_iter: int,
                     damping: float, final_eval: bool, shape):
     """One launch of the complex-omega kernel on the current stream (no
     launch for 0 seeds): n_iter Newton rounds, then with final_eval the
-    value round. Returns (the final omega, a `cplx.C`, or None in the
-    evaluation mode, n_iter None; the value round's SlabInterface or
-    None)."""
+    value round, in the case's form and exterior. Returns (the final
+    omega, a `cplx.C`, or None in the evaluation mode, n_iter None; the
+    value round's SlabInterface or None)."""
+    global complex_flux_launches, complex_numeric_launches
     from ..cplx import C
     from ..physics.slab import SlabInterface
     lib = _complex_args(name, omega, k, parity, params)
     re = omega.re
     n = re.numel()
+    shear = bool(params.struct.shear)
     shape = ComplexShape(*(shape or complex_spec_shape(re.dtype)))
-    check_complex_shape(name, shape, re.dtype)
+    check_complex_shape(name, shape, re.dtype, shear)
     if n_iter is not None and n_iter < 0:
         raise ValueError(f"{name}: n_iter must be >= 0, not {n_iter}")
     out = (None if n_iter is None
@@ -323,6 +327,8 @@ def _launch_complex(name: str, omega, k, parity, params, n_iter: int,
             ctypes.byref(params.struct), re.device.index,
             ctypes.c_void_p(stream))
         _build.check(code, f"{name} kernel")
+        complex_flux_launches += not shear
+        complex_numeric_launches += bool(params.struct.exterior_numeric)
     return out, res
 
 

@@ -16,7 +16,12 @@ and in `rk4_final_renorm`, after step i when (i + 1) % every == 0, the state
 divided by its max-norm (NaN-propagating, 1 where it is 0 or NaN) and the
 log of that scale added up. The CUDA kernels integrate the exteriors in
 this order (`csrc/common.cuh::slab_exterior`, `cyl_exterior`), so the plain
-version on the card and the kernels agree bit for bit.
+version on the card and the kernels agree bit for bit. At complex omega
+the state's components are complex pairs (`cplx.C`), or `dual.Dual`s of
+them on the Newton pass: the norm takes the values' moduli (`cplx.cabs`),
+and each part, value and derivative, is divided by the one real scale (the
+ratio of the components, all the slab reads, does not depend on it;
+`csrc/slab_complex.cu::exterior_ratio` repeats this).
 
 `rk4_trajectory` (ode.py:50-72) integrates the same steps and keeps every
 state, for the eigenfunctions (`eigenfunctions.py`). Its right-hand sides
@@ -35,6 +40,8 @@ from typing import Callable, Tuple, Union
 
 import torch
 
+from .cplx import C, cabs
+from .dual import Dual
 from .profiles import div
 
 State = Tuple[torch.Tensor, ...]
@@ -81,18 +88,35 @@ def rk4_final_renorm(rhs: RHS, y0: State, x0: torch.Tensor,
     log_scale): the true solution is y exp(log_scale)."""
     h, hh, h6 = _spacing(x0, x1, n_steps)
     y = tuple(y0)
-    logs = torch.zeros_like(y[0])
+    logs = torch.zeros_like(_modulus(y[0]))
     for i in range(n_steps):
         y = _step(rhs, y, x0 + i * h, h, hh, h6)
         if (i + 1) % every == 0:
             # jnp.max propagates NaN, as torch.maximum does
-            scale = torch.abs(y[0])
+            scale = _modulus(y[0])
             for yi in y[1:]:
-                scale = torch.maximum(scale, torch.abs(yi))
+                scale = torch.maximum(scale, _modulus(yi))
             scale = torch.where(scale > 0, scale, torch.ones_like(scale))
-            y = tuple(yi / scale for yi in y)
+            y = tuple(_unscale(yi, scale) for yi in y)
             logs = logs + torch.log(scale)
     return y, logs
+
+
+def _modulus(y) -> torch.Tensor:
+    """|y| of a state component: a real tensor, a complex pair, or a dual
+    (its value's)."""
+    if isinstance(y, Dual):
+        y = y.v
+    return cabs(y) if isinstance(y, C) else torch.abs(y)
+
+
+def _unscale(y, scale: torch.Tensor):
+    """y / scale for a real scale, part by part."""
+    if isinstance(y, Dual):
+        return Dual(_unscale(y.v, scale), _unscale(y.d, scale))
+    if isinstance(y, C):
+        return C(y.re / scale, y.im / scale)
+    return y / scale
 
 
 class LinearRHS:

@@ -18,17 +18,18 @@ exterior_method="numeric" (the reference's own, for parity with its
 pickles) vx'/vx at x = 1 of (vx, vx')' = (vx', m_e vx) integrated inward from
 x = 1 + W 2 pi / k (`ode.rk4_final_renorm`, slab.py:362-381).
 
-At complex omega (`case.complex_omega`, the Kelvin-Helmholtz growth rates;
-slab.py:309-318, :341-358, :384-400) the shear form runs on complex numbers
-carried as (re, im) pairs of real tensors (`cplx.C`): omega and the state
-are complex, k stays real, sqrt(m_e) is the principal root, the mismatch
-takes the complex modulus, valid is Re m_e > 0, and the shear-pressure term
-is on. `make_dispersion_dual_plain` is the same shoot on dual numbers in
-omega: (det, d det / d omega) for the Newton iteration, which the JAX
-package takes from a holomorphic `jax.jvp` (search.py:592-594). Each
-quotient by one divisor shares its divisions (`cplx.divisor`). Refused at
-complex omega (ROADMAP A10b; no case uses them): the flux form (a density
-case), the numeric exterior.
+At complex omega (`case.complex_omega`: the Kelvin-Helmholtz growth rates,
+slab.py:309-318, :341-358, :384-400, and any case the CLI's `sweep
+--complex` makes complex) either form runs on complex numbers carried as
+(re, im) pairs of real tensors (`cplx.C`): omega and the state are
+complex, k stays real, sqrt(m_e) is the principal root, the numeric
+exterior integrates a complex state (`ode.rk4_final_renorm` on pairs), the
+mismatch takes the complex modulus, valid is Re m_e > 0, and the
+shear-pressure term is on. `make_dispersion_dual_plain` is the same shoot
+on dual numbers in omega: (det, d det / d omega) for the Newton iteration,
+which the JAX package takes from a holomorphic `jax.jvp` (search.py:
+592-594). Each quotient by one divisor shares its divisions
+(`cplx.divisor`).
 
 `make_dispersion` returns the batched function the search calls; it hands
 its inputs to `kernels.slab.slab_disp`, which launches the CUDA kernel on a
@@ -102,16 +103,10 @@ class SlabInterface(NamedTuple):
     valid: torch.Tensor
 
 
-def _check_supported(case: CaseConfig, has_flow: bool):
+def _check_supported(case: CaseConfig):
     if case.grid.exterior_method not in ("bessel", "numeric"):
         raise ValueError(
             f"unknown exterior_method {case.grid.exterior_method!r}")
-    if case.complex_omega and not has_flow:
-        raise NotImplementedError(
-            "complex omega in the flux form (a density case): ROADMAP A10b")
-    if case.complex_omega and case.grid.exterior_method == "numeric":
-        raise NotImplementedError(
-            "complex omega with the numeric exterior: ROADMAP A10b")
 
 
 def _sq(x):
@@ -193,11 +188,62 @@ def complex_shear_coef(c: ShearCand, U, dU, ddU, legacy: bool, dual: bool):
     return Dual(Dx, dDx), Dual(coeff, dcoeff)
 
 
+class FluxCand(NamedTuple):
+    """A candidate of the complex flux chain: k k and Omega^2 (a density
+    slab has no flow, so Omega = omega - k U_i is the same at every x), and
+    on the dual pass nd = -(Omega + Omega), the derivative of k^2 c^2 -
+    Omega^2 (and of k^2 cT^2 - Omega^2, k^2 vA^2 - Omega^2)."""
+    k2: torch.Tensor
+    Om2: C
+    nd: Optional[C]
+
+
+def flux_cand(Om: C, k: torch.Tensor, dual: bool) -> FluxCand:
+    return FluxCand(k2=k * k, Om2=Om * Om, nd=-(Om + Om) if dual else None)
+
+
+def flux_point(eq: Equilibrium, x: torch.Tensor):
+    """The flux chain's values that depend on x alone (slab.py:221-227):
+    rho, c^2, vA^2, cT^2 and rho (c^2 + vA^2), as the kernels table them."""
+    rho = eq.rho_i(x)
+    c2 = eq.c_i(x) ** 2
+    a2 = eq.vA_i(x) ** 2
+    cT2 = c2 * a2 / (c2 + a2)
+    return rho, c2, a2, cT2, rho * (c2 + a2)
+
+
+def complex_flux_coef(c: FluxCand, q, dual: bool):
+    """make_flux_coef (slab.py:215-230) at complex omega, at the abscissa
+    whose x-only values are q (`flux_point`): (1/F, F m0), or with `dual`
+    the pair of `Dual`s. The kernels (csrc/slab_complex.cu::flux_coef)
+    repeat these operations in this order."""
+    rho, c2, a2, cT2, rho_csum = q
+    A = c.k2 * c2 - c.Om2
+    iden = divisor(rho_csum * (c.k2 * cT2 - c.Om2))
+    inv_F = A / iden
+    w_rate = rho * (c.k2 * a2 - c.Om2)
+    if not dual:
+        return inv_F, w_rate
+    dinv_F = (c.nd - inv_F * (rho_csum * c.nd)) / iden
+    return Dual(inv_F, dinv_F), Dual(w_rate, rho * c.nd)
+
+
+def complex_flux_F(c: FluxCand, q, dual: bool):
+    """interior_F (slab.py:167-175) at the abscissa of q at complex omega,
+    or its `Dual`: the flux form's start reads F(0)."""
+    rho, c2, a2, cT2, rho_csum = q
+    iY = divisor(c.k2 * c2 - c.Om2)
+    F = (rho_csum * (c.k2 * cT2 - c.Om2)) / iY
+    if not dual:
+        return F
+    return Dual(F, (rho_csum * c.nd - F * c.nd) / iY)
+
+
 class ComplexEdge(NamedTuple):
     """The interface's values that do not depend on the state (slab.py:
     146-165, :352-358, :384-386): the exterior m_e, its root, p_e, xi_e,
-    and F(1)/Omega_i, the shear-pressure factor, 1/Omega_i (a divisor);
-    with `dual` each a `Dual`."""
+    and in the shear form F(1)/Omega_i and the shear-pressure factor (None
+    in the flux form), 1/Omega_i (a divisor); with `dual` each a `Dual`."""
     m_e: object
     sqm: object
     p_e: object
@@ -208,7 +254,8 @@ class ComplexEdge(NamedTuple):
 
 
 def complex_edge(ph: "SlabPhysics", omega: C, k: torch.Tensor,
-                 shear_pressure: bool, dual: bool) -> ComplexEdge:
+                 shear_pressure: bool, dual: bool,
+                 shear: bool = True) -> ComplexEdge:
     rg, eq = ph.eq.regime, ph.eq
     dev, dt = k.device, k.dtype
     one = torch.ones((), dtype=dt, device=dev)
@@ -225,19 +272,21 @@ def complex_edge(ph: "SlabPhysics", omega: C, k: torch.Tensor,
     p_e = (pe_coef * X3) / iD2
     iOm_e = divisor(Om_e)
     xi_e = 1.0 / iOm_e
-    # the interior at x = 1 (interior_F, slab.py:167-175)
     Om_i = omega - k * eq.U_i(one)
-    Om_i2 = Om_i * Om_i
-    c2 = eq.c_i(one) ** 2
-    a2 = eq.vA_i(one) ** 2
-    cT2 = c2 * a2 / (c2 + a2)
-    Y2 = k2 * c2 - Om_i2
-    iY2 = divisor(Y2)
-    F1 = ((eq.rho_i(one) * (c2 + a2)) * (k2 * cT2 - Om_i2)) / iY2
     iOm_i = divisor(Om_i)
-    W = F1 / iOm_i
-    kdU1 = -(k * ph.flow_derivative(1)(one))
-    add = kdU1 / iOm_i if shear_pressure else None
+    W = add = None                     # the flux form: PT_i = w / Omega_i
+    if shear:
+        # the interior at x = 1 (interior_F, slab.py:167-175)
+        Om_i2 = Om_i * Om_i
+        c2 = eq.c_i(one) ** 2
+        a2 = eq.vA_i(one) ** 2
+        cT2 = c2 * a2 / (c2 + a2)
+        Y2 = k2 * c2 - Om_i2
+        iY2 = divisor(Y2)
+        F1 = ((eq.rho_i(one) * (c2 + a2)) * (k2 * cT2 - Om_i2)) / iY2
+        W = F1 / iOm_i
+        kdU1 = -(k * ph.flow_derivative(1)(one))
+        add = kdU1 / iOm_i if shear_pressure else None
     if not dual:
         return ComplexEdge(m_e, csqrt(m_e), p_e, xi_e, W, add, iOm_i)
     dOm_e2 = Om_e + Om_e
@@ -246,25 +295,38 @@ def complex_edge(ph: "SlabPhysics", omega: C, k: torch.Tensor,
             ) / iDm
     dp_e = ((pe_coef * dX) - p_e * (X2 + Om_e * dX)) / iD2
     dxi_e = (-xi_e) / iOm_e
-    dOm_i2 = Om_i + Om_i
-    dF1 = ((eq.rho_i(one) * (c2 + a2)) * (-dOm_i2) - F1 * (-dOm_i2)) / iY2
-    dW = (dF1 - W) / iOm_i
-    dadd = (-add) / iOm_i if shear_pressure else None
+    if shear:
+        dOm_i2 = Om_i + Om_i
+        dF1 = ((eq.rho_i(one) * (c2 + a2)) * (-dOm_i2) - F1 * (-dOm_i2)
+               ) / iY2
+        W = Dual(W, (dF1 - W) / iOm_i)
+        add = None if add is None else Dual(add, (-add) / iOm_i)
     return ComplexEdge(Dual(m_e, dm_e), dsqrt(Dual(m_e, dm_e)),
-                       Dual(p_e, dp_e), Dual(xi_e, dxi_e), Dual(W, dW),
-                       None if add is None else Dual(add, dadd), iOm_i)
+                       Dual(p_e, dp_e), Dual(xi_e, dxi_e), W, add, iOm_i)
 
 
-def complex_det(e: ComplexEdge, vx, dvx):
-    """det = xi_i PT_e - xi_e PT_i from the state (vx, vx') at x = 1
-    (slab.py:355-388); values or `Dual`s."""
-    PT_i = e.W * (dvx - e.add * vx) if e.add is not None else e.W * dvx
-    PT_e = e.p_e * (-e.sqm)
-    if isinstance(vx, Dual):
-        xi_i = vx.v / e.iOm_i
-        xi_i = Dual(xi_i, (vx.d - xi_i) / e.iOm_i)
+def _over_Om_i(z, iOm_i):
+    """z / Omega_i, and of a `Dual` its derivative (z' - q) / Omega_i
+    (Omega_i' = 1)."""
+    if isinstance(z, Dual):
+        q = z.v / iOm_i
+        return Dual(q, (z.d - q) / iOm_i)
+    return z / iOm_i
+
+
+def complex_det(e: ComplexEdge, vx, y1, ext=None):
+    """det = xi_i PT_e - xi_e PT_i from the state at x = 1 (slab.py:
+    333-388): (vx, vx') in the shear form, (vx, w) in the flux form (PT_i
+    = w / Omega_i); PT_e = p_e ext with the numeric exterior's vx'/vx
+    `ext`, else p_e (-sqrt(m_e)); values or `Dual`s."""
+    if e.W is None:
+        PT_i = _over_Om_i(y1, e.iOm_i)
+    elif e.add is not None:
+        PT_i = e.W * (y1 - e.add * vx)
     else:
-        xi_i = vx / e.iOm_i
+        PT_i = e.W * y1
+    PT_e = e.p_e * ext if ext is not None else e.p_e * (-e.sqm)
+    xi_i = _over_Om_i(vx, e.iOm_i)
     return xi_i * PT_e - e.xi_e * PT_i, xi_i, PT_e, PT_i
 
 
@@ -327,6 +389,23 @@ class SlabPhysics:
         one = torch.ones((), dtype=k.dtype, device=k.device)
         y0 = tuple(torch.full((), v, dtype=k.dtype, device=k.device)
                    for v in (1e-8, -1e-15))
+        (vx, dvx), _ = rk4_final_renorm(lambda x, y: (y[1], m_e * y[0]), y0,
+                                        x0, one, gr.n_exterior)
+        return dvx / vx
+
+    def complex_exterior(self, m_e, k):
+        """`numeric_exterior` at complex omega: the state complex (m_e a
+        `cplx.C`), or on the dual pass `Dual`s of complex pairs (m_e a
+        `Dual`), from the same real start; vx'/vx at x = 1, the complex
+        quotient (slab.py:378-379)."""
+        gr = self.case.grid
+        x0 = 1.0 + rdiv(gr.exterior_wavelengths * 2.0 * math.pi, k)
+        one = torch.ones((), dtype=k.dtype, device=k.device)
+        nil = torch.zeros((), dtype=k.dtype, device=k.device)
+        y0 = tuple(C(torch.full((), v, dtype=k.dtype, device=k.device), nil)
+                   for v in (1e-8, -1e-15))
+        if isinstance(m_e, Dual):
+            y0 = tuple(Dual(y, C(nil, nil)) for y in y0)
         (vx, dvx), _ = rk4_final_renorm(lambda x, y: (y[1], m_e * y[0]), y0,
                                         x0, one, gr.n_exterior)
         return dvx / vx
@@ -435,7 +514,7 @@ class SlabPhysics:
         tensors of candidates, on any device, in eager PyTorch. parity 0 =
         sausage (vx odd), 1 = kink (vx even); with parity=None it is a third
         tensor argument."""
-        _check_supported(self.case, self.has_flow)
+        _check_supported(self.case)
         if self.case.complex_omega:
             return self._complex_plain(parity, dtype, include_shear_pressure,
                                        dual=False)
@@ -510,6 +589,8 @@ class SlabPhysics:
                        dual: bool) -> Callable:
         case, eq = self.case, self.eq
         n_steps = case.grid.n_interior
+        shear = self.has_flow
+        numeric = case.grid.exterior_method == "numeric"
         if include_shear_pressure is None:
             include_shear_pressure = case.complex_omega
         legacy = case.shear_D_legacy
@@ -528,20 +609,35 @@ class SlabPhysics:
             par = torch.as_tensor(parity_arg, dtype=dtype, device=dev)
             zero = torch.zeros((), dtype=dtype, device=dev)
             one = torch.ones((), dtype=dtype, device=dev)
-            cand = shear_cand(omega, k, rgl.c_i0 ** 2, rgl.vA_i0 ** 2)
-
-            def coef(x):
-                return complex_shear_coef(cand, eq.U_i(x), dU(x), ddU(x),
-                                          legacy, dual)
-
             nil = torch.zeros_like(par)
-            y0 = (C(par, nil), C(1.0 - par, nil))
-            if dual:
-                y0 = tuple(Dual(y, C(nil, nil)) for y in y0)
-            vx_b, dvx_b = _rk4_linear(_apply_shear, coef, y0, zero, one,
-                                      n_steps)
-            e = complex_edge(self, omega, k, include_shear_pressure, dual)
-            det, xi_i, PT_e, PT_i = complex_det(e, vx_b, dvx_b)
+
+            def constant(z):
+                return Dual(z, C(nil, nil)) if dual else z
+
+            if shear:
+                cand = shear_cand(omega, k, rgl.c_i0 ** 2, rgl.vA_i0 ** 2)
+
+                def coef(x):
+                    return complex_shear_coef(cand, eq.U_i(x), dU(x), ddU(x),
+                                              legacy, dual)
+
+                apply = _apply_shear
+                y0 = (constant(C(par, nil)), constant(C(1.0 - par, nil)))
+            else:
+                # sausage (par = 0): (0, F(0)); kink: (1, 0 F(0))
+                fc = flux_cand(omega - k * eq.U_i(zero), k, dual)
+
+                def coef(x):
+                    return complex_flux_coef(fc, flux_point(eq, x), dual)
+
+                apply = _apply_flux
+                F0 = complex_flux_F(fc, flux_point(eq, zero), dual)
+                y0 = (constant(C(par, nil)), (1.0 - par) * F0)
+            vx_b, y1_b = _rk4_linear(apply, coef, y0, zero, one, n_steps)
+            e = complex_edge(self, omega, k, include_shear_pressure, dual,
+                             shear)
+            ext = self.complex_exterior(e.m_e, k) if numeric else None
+            det, xi_i, PT_e, PT_i = complex_det(e, vx_b, y1_b, ext)
             if dual:
                 return det.v, det.d
             mism = complex_mismatch(e, xi_i, PT_e, PT_i)
@@ -561,7 +657,7 @@ class SlabPhysics:
         parity]) -> (det, d det / d omega), complex pairs (`cplx.C`), the
         complex shoot carried on dual numbers in omega (the holomorphic
         jvp of slab.py's disp with tangent 1). Complex-omega cases only."""
-        _check_supported(self.case, self.has_flow)
+        _check_supported(self.case)
         if not self.case.complex_omega:
             raise ValueError("make_dispersion_dual_plain: the case has real "
                              "omega (complex_omega=False)")
@@ -596,7 +692,7 @@ class SlabPhysics:
         tensors, the evaluation its last round; `search.newton_loop` over
         the plain dual shoot, then the plain dispersion, on the CPU (parity
         dropped for a fixed-parity disp)."""
-        _check_supported(self.case, self.has_flow)
+        _check_supported(self.case)
         from ..kernels.slab import (disp_params, slab_bisect, slab_disp,
                                     slab_disp_pairs)
         if include_shear_pressure is None:

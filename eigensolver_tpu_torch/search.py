@@ -135,8 +135,8 @@ def find_brackets(omegas: torch.Tensor, ks: torch.Tensor, det: torch.Tensor,
         absd = torch.abs(det)
         med = nanmedian(torch.where(ok, absd, torch.nan))
         lo_mag = torch.minimum(absd[:, :-1], absd[:, 1:])
-        bound = torch.tensor(pole_det_factor, dtype=det.dtype,
-                             device=det.device) * med
+        bound = torch.full((), pole_det_factor, dtype=det.dtype,
+                           device=det.device) * med
         is_br = is_br & (lo_mag <= bound)
     n_in_row = is_br.sum(dim=1)
     max_per_row = min(max_per_row, is_br.shape[1])
@@ -304,8 +304,10 @@ def mask_rows(omegas: torch.Tensor, ks: torch.Tensor,
 
 def _bound(x: float, like: torch.Tensor) -> torch.Tensor:
     """A Python-float bound as the JAX code compares with it: weakly typed,
-    so rounded to the dtype of the tensor it meets (f32 in an f32 scan)."""
-    return torch.tensor(x, dtype=like.dtype, device=like.device)
+    so rounded to the dtype of the tensor it meets (f32 in an f32 scan).
+    Filled on the device, not copied there: a copy from the host would
+    wait for the work queued before it."""
+    return torch.full((), x, dtype=like.dtype, device=like.device)
 
 
 def mask_v_ranges(omegas: torch.Tensor, ks: torch.Tensor, det: torch.Tensor,
@@ -376,7 +378,32 @@ def search_rows(disp_batch_scan: Callable, disp_batch_polish: Callable,
     (omega, k) once for both (`ladder_scan`). Returns a PolishResult of
     rows * max_brackets_per_row entries whose mask includes acceptance,
     then, with fuzz_accept_pct, one fuzz record per strided scan point
-    (`fuzz_records`; `fuzz` marks them)."""
+    (`fuzz_records`; `fuzz` marks them). Its two stages, `scan_rows` and
+    `polish_rows`, read nothing back to the host; the check of saturated
+    rows (`warn_saturated`) does, after both."""
+    scanned = scan_rows(disp_batch_scan, omegas, ks, cfg, modes=modes,
+                        paired=paired)
+    pr = polish_rows(disp_batch_polish, scanned, cfg)
+    warn_saturated(scanned, cfg)
+    return pr
+
+
+class ScannedRows(NamedTuple):
+    """`scan_rows`'s result: the brackets and what the fuzz records read."""
+    omegas: torch.Tensor
+    ks: torch.Tensor
+    modes: Optional[torch.Tensor]
+    valid: torch.Tensor
+    mism: torch.Tensor
+    br: BracketBatch
+
+
+def scan_rows(disp_batch_scan: Callable, omegas: torch.Tensor,
+              ks: torch.Tensor, cfg: SearchConfig,
+              modes: Optional[torch.Tensor] = None,
+              paired: bool = False) -> ScannedRows:
+    """`search_rows`' first stage: the ladder scan, the masks and the
+    brackets."""
     det, valid, mism = ladder_scan(disp_batch_scan, omegas, ks, modes,
                                    paired)
     # the masks take det alone: valid and mism stay unmasked, as in the JAX
@@ -387,14 +414,27 @@ def search_rows(disp_batch_scan: Callable, disp_batch_polish: Callable,
         det = mask_rows(omegas, ks, modes, det, cfg.exclude_omega_rowfn)
     br = find_brackets(omegas, ks, det, valid, cfg.max_brackets_per_row,
                        modes, pole_det_factor=cfg.pole_det_factor, mism=mism)
-    n_sat = int((br.n_in_row > cfg.max_brackets_per_row).sum())
+    return ScannedRows(omegas, ks, modes, valid, mism, br)
+
+
+def warn_saturated(scanned: ScannedRows, cfg: SearchConfig) -> None:
+    """Warn where a row found more sign changes than its bracket budget
+    (one read back to the host), at the line that called the function
+    that calls this one."""
+    n_sat = int((scanned.br.n_in_row > cfg.max_brackets_per_row).sum())
     if n_sat:
         warnings.warn(
             f"{n_sat} ladder rows found more sign changes than "
             f"max_brackets_per_row={cfg.max_brackets_per_row}; only the "
             f"{cfg.max_brackets_per_row} smallest-residual brackets per row "
             f"were polished - raise max_brackets_per_row if dense bands "
-            f"matter", stacklevel=2)
+            f"matter", stacklevel=3)
+
+
+def polish_rows(disp_batch_polish: Callable, scanned: ScannedRows,
+                cfg: SearchConfig) -> PolishResult:
+    """`search_rows`' second stage: bisect, accept, and the fuzz records."""
+    omegas, ks, modes, valid, mism, br = scanned
     pr = bisect(disp_batch_polish, br, cfg.n_bisect,
                 dtype=torch_dtype(cfg.polish_dtype))
     accepted = (pr.mask & torch.isfinite(pr.mismatch)

@@ -10,9 +10,9 @@ CUDA device the dispersion runs the `slab_disp` or `cylinder_disp` kernel,
 on the CPU its plain version. The f64 refinement (`refine_f64=True`) and the
 band-edge (needle) pass (`run_needle_pass`, which the JAX package runs on
 the host CPU) run on the same device. The complex-omega sweep
-(`run_case_complex`, Kelvin-Helmholtz growth rates) runs its Newton
-iteration, the evaluation of its roots and its argument-principle audit on
-the device too. The crash-safe sweeps (`run_case_checkpointed`,
+(`run_case_complex`: Kelvin-Helmholtz growth rates, or any slab case made
+complex) runs its Newton iteration, the evaluation of its roots and its
+argument-principle audit on the device too. The crash-safe sweeps (`run_case_checkpointed`,
 `run_case_complex_checkpointed`) run either sweep block by block of k and
 append each block's roots to the checkpoint store (`native.store`) before
 the next block starts.
@@ -32,8 +32,9 @@ from .physics.slab import SlabPhysics
 from .equilibrium import genuine_continua
 from .roots import RootBranch, RootSet, dedup_complex_roots, dedup_roots
 from .search import (SearchConfig, _bound, _path_tensors, collect,
-                     newton_complex, rectangle_path, refine_roots_f64,
-                     search_rows, torch_dtype, winding_numbers)
+                     newton_complex, polish_rows, rectangle_path,
+                     refine_roots_f64, scan_rows, search_rows, torch_dtype,
+                     warn_saturated, winding_numbers)
 from .utils import StageTimer, synchronize
 
 MODE_NAMES = {0: "sausage", 1: "kink"}
@@ -123,7 +124,20 @@ def finalize_branches(pr, modes, case: CaseConfig, search: SearchConfig,
     refined root when `search.accept_pct_refined` is set, and dedup again
     (eigensolver_tpu/sweep.py:440-475). All modes go through one batch with
     a mode column; the arithmetic per root is that of a per-mode call."""
-    om, kk, _, md, fz = collect(pr, with_fuzz=True)
+    return finalize_collected(collect(pr, with_fuzz=True), modes, case,
+                              search, refine_f64=refine_f64, timer=timer,
+                              device=pr.omega.device)
+
+
+def finalize_collected(collected, modes, case: CaseConfig,
+                       search: SearchConfig, refine_f64: bool = False,
+                       timer: Optional[StageTimer] = None, *, device
+                       ) -> Dict[str, RootBranch]:
+    """`finalize_branches` from the host arrays that `search.collect(pr,
+    with_fuzz=True)` gives, (omega, k, mismatch, mode, fuzz) of the
+    accepted entries in the sweep's order, the refinement on `device`
+    (the sharded sweep gathers them from every device first)."""
+    om, kk, _, md, fz = collected
     sel = {mode: np.abs(md - float(mode)) < 0.5 for mode in modes}
     if refine_f64:
         # only polished roots are refined; fuzz records keep their scan
@@ -135,7 +149,6 @@ def finalize_branches(pr, modes, case: CaseConfig, search: SearchConfig,
         md_r = np.concatenate([np.full(len(p[0]), float(m))
                                for p, m in zip(parts, modes)])
         if len(om_r):
-            device = pr.omega.device
             with (timer or StageTimer()).stage("refine"):
                 disp64 = make_dispersion_moded(case, torch.float64)
 
@@ -290,7 +303,8 @@ def run_case(case: CaseConfig, search: Optional[SearchConfig] = None,
              modes=None, *, device, refine_f64: bool = False,
              timer: Optional[StageTimer] = None
              ) -> tuple[RootSet, SweepStats]:
-    """Sweep one case on `device`. Returns (RootSet, SweepStats).
+    """Sweep one case on `device`. Returns (RootSet, SweepStats): the
+    sweep of `sweep_blocks` in one block.
 
     timer: optional `utils.StageTimer`; accumulates the wall time of the
     three stages (ladders / device_pipeline / finalize). The device stage
@@ -298,10 +312,31 @@ def run_case(case: CaseConfig, search: Optional[SearchConfig] = None,
 
     A complex-omega case raises ValueError (the JAX package's run_case
     fails on its complex determinant): sweep it with `run_case_complex`."""
+    return sweep_blocks(case, [torch.device(device)], search, modes,
+                        refine_f64=refine_f64, timer=timer)
+
+
+def sweep_blocks(case: CaseConfig, mesh, search: Optional[SearchConfig] = None,
+                 modes=None, *, refine_f64: bool = False,
+                 timer: Optional[StageTimer] = None, rank: int = 0,
+                 world: int = 1) -> tuple[RootSet, SweepStats]:
+    """The sweep of `run_case` with its (omega, k) rows cut into blocks,
+    one for each device of `mesh` in each of `world` processes (this one
+    `rank`): the rows are padded with NaN ladders (no bracket, no fuzz
+    record) to a multiple of world * len(mesh) and cut into contiguous
+    blocks, this process's at rank * len(mesh). Each device sweeps its
+    block for every mode, mode-major with a mode column, a slab's two
+    parities through the paired scan; every block's launches go out
+    before any result is read back. The accepted entries come to the host
+    (from every process by one all-gather, `parallel.gather_blocks`), in
+    `run_case`'s order: every row's polished entries, modes in turn, then
+    the fuzz records alike. `finalize_collected` deduplicates them, and
+    with refine_f64 re-bisects them in float64, on the mesh's first device.
+    SweepStats counts the true rows' candidates. The root set does not
+    depend on the cut, bit for bit."""
     if case.complex_omega:
         raise ValueError(f"run_case: case {case.name} has complex omega; "
                          f"sweep it with sweep.run_case_complex")
-    device = torch.device(device)
     search = search or SearchConfig(
         n_omega=case.grid.n_omega_ladder,
         n_bisect=case.grid.n_bisect,
@@ -315,15 +350,14 @@ def run_case(case: CaseConfig, search: Optional[SearchConfig] = None,
     with timer.stage("ladders"):
         omegas, ks = build_ladders(case, search.n_omega)
         rows = omegas.shape[0]
-        # all mode families in one batch with a mode column, mode 0 rows
-        # first; ladders are float64 until the one cast to the scan dtype
-        omegas_f = np.concatenate([omegas] * len(modes))
-        ks_f = np.concatenate([ks] * len(modes))
-        modes_f = np.concatenate([np.full((rows,), float(mode))
-                                  for mode in modes])
+        per = -(-rows // (world * len(mesh)))            # rows a block
+        pad = per * world * len(mesh) - rows
+        omegas = np.concatenate([omegas, np.full((pad, omegas.shape[1]),
+                                                 np.nan)])
+        ks = np.concatenate([ks, np.ones(pad)])
         # the slab's chain does not depend on the parity: with both
         # parities the scan shares each (omega, k) between them
-        paired = case.geometry == Geometry.SLAB and tuple(modes) == (0, 1)
+        paired = case.geometry == Geometry.SLAB and modes == (0, 1)
         disp_scan = make_dispersion_moded(case, scan_dt)
         disp_polish = (disp_scan if polish_dt == scan_dt
                        else make_dispersion_moded(case, polish_dt))
@@ -331,20 +365,53 @@ def run_case(case: CaseConfig, search: Optional[SearchConfig] = None,
     stats = SweepStats()
     t0 = time.time()
     with timer.stage("device_pipeline"):
-        def to_dev(a):
-            return torch.from_numpy(a).to(device=device, dtype=scan_dt)
+        # every block's ladders on its device first (a copy from the host
+        # waits for the work queued on its device); all mode families in
+        # one batch with a mode column, mode 0 rows first; ladders are
+        # float64 until the one cast to the scan dtype
+        blocks = []
+        for j, dev in enumerate(mesh):
+            b = (rank * len(mesh) + j) * per
+            blk = slice(b, b + per)
 
-        pr = search_rows(disp_scan, disp_polish, to_dev(omegas_f),
-                         to_dev(ks_f), search, modes=to_dev(modes_f),
-                         paired=paired)
-        synchronize(device)
+            def to_dev(a):
+                return torch.from_numpy(np.concatenate(a)).to(
+                    device=dev, dtype=scan_dt)
+            blocks.append((to_dev([omegas[blk]] * len(modes)),
+                           to_dev([ks[blk]] * len(modes)),
+                           to_dev([np.full(per, float(m)) for m in modes])))
+        scanned = [scan_rows(disp_scan, om, kk, search, modes=md,
+                             paired=paired) for om, kk, md in blocks]
+        polished = [polish_rows(disp_polish, sc, search) for sc in scanned]
+        for sc in scanned:
+            warn_saturated(sc, search)
+        for dev in set(mesh):
+            synchronize(dev)
     with timer.stage("finalize"):
-        branches = finalize_branches(pr, modes, case, search,
-                                     refine_f64=refine_f64, timer=timer)
+        local = [collect(pr, with_fuzz=True) for pr in polished]
+        if world > 1:
+            from .parallel import gather_blocks
+            local = gather_blocks(local)
+        branches = finalize_collected(_in_sweep_order(local, modes), modes,
+                                      case, search, refine_f64=refine_f64,
+                                      timer=timer, device=mesh[0])
     stats.n_roots = sum(len(b) for b in branches.values())
-    stats.n_candidates = omegas_f.size
+    stats.n_candidates = rows * len(modes) * search.n_omega
     stats.wall_s = time.time() - t0
     return RootSet(branches, case_name=case.name), stats
+
+
+def _in_sweep_order(blocks: list, modes) -> tuple:
+    """The blocks' collected entries (omega, k, mismatch, mode, fuzz), the
+    blocks in row order, as one sweep of all rows collects them: the
+    polished entries, modes in turn, then the fuzz records alike."""
+    parts = []
+    for fz_part in (False, True):
+        for m in modes:
+            for om, kk, mm, md, fz in blocks:
+                sel = (np.abs(md - float(m)) < 0.5) & (fz == fz_part)
+                parts.append((om[sel], kk[sel], mm[sel], md[sel], fz[sel]))
+    return tuple(np.concatenate([p[i] for p in parts]) for i in range(5))
 
 
 def run_case_checkpointed(case: CaseConfig,
@@ -508,8 +575,10 @@ def run_case_complex(case: CaseConfig, modes=None, n_re: int = 12,
                      accept_pct: float = 0.5, dtype=torch.float64,
                      check_completeness: bool = True, *, device
                      ) -> tuple[RootSet, SweepStats]:
-    """Complex-omega sweep (Kelvin-Helmholtz growth rates) on `device`
-    (port of `eigensolver_tpu.sweep.run_case_complex`, sweep.py:304-383).
+    """Complex-omega sweep (Kelvin-Helmholtz growth rates; any slab case
+    with complex_omega, in either form and with either exterior) on
+    `device` (port of `eigensolver_tpu.sweep.run_case_complex`,
+    sweep.py:304-383; a cylinder raises, ROADMAP A10b).
 
     Seeds: a Re ladder x Im ladder per (k, band) cell, n_re x n_im, Re over
     [lo k, hi k], Im over [-imag_band, imag_band]; newton_iters damped

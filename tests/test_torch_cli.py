@@ -3,7 +3,8 @@ in-process with --device cpu at tests/test_cli.py's shapes, the float64
 sweep's pickle against the JAX package's CLI (rtol 1e-10: both bisect the
 same brackets in float64), the module entry as a subprocess, and the
 device rules (no --device asks for "cuda", which this CPU-only torch
-lacks: an error, not a run on the CPU; --sharded names ROADMAP A13)."""
+lacks: an error, not a run on the CPU); `sweep --sharded` gives the
+one-device sweep's pickle."""
 import json
 import os
 import subprocess
@@ -166,10 +167,24 @@ def test_cli_default_device_is_cuda():
     assert pslab.plain_calls == before
 
 
-def test_cli_sharded_names_a13():
-    with pytest.raises(NotImplementedError, match="A13"):
-        cli.main(["sweep", "slab_density_photospheric", *SHAPE, *CPU,
-                  "--sharded"])
+def test_cli_sharded_names_a13(tmp_path, capsys):
+    """`sweep --sharded` (which raised naming ROADMAP A13 until the
+    sharded sweep was ported) runs parallel.run_case_sharded over the
+    --device type's mesh: on the CPU one block, the same pickle as the
+    sweep without it."""
+    tiny = ["slab_density_photospheric", "--width", "1e5", "--n-k", "2",
+            "--speeds", "0.86,0.92,0.98", "--n-interior", "32",
+            "--n-omega", "24", "--x64", *CPU]
+    for name, extra in (("s.pickle", ["--sharded"]), ("r.pickle", [])):
+        cli.main(["sweep", *tiny, *extra, "-o", str(tmp_path / name)])
+    out = capsys.readouterr().out.splitlines()
+    assert json.loads(out[0])["counts"] == json.loads(out[2])["counts"]
+    got, want = (roots.load_pickle(str(tmp_path / n))
+                 for n in ("s.pickle", "r.pickle"))
+    assert got.counts() == want.counts() and sum(got.counts().values())
+    for b in want.branches:
+        np.testing.assert_array_equal(got[b].omegas, want[b].omegas)
+        np.testing.assert_array_equal(got[b].ks, want[b].ks)
 
 
 def test_cli_unknown_case_exits():

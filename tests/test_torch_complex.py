@@ -15,7 +15,8 @@ package, on the CPU in float64, at a reduced depth (n_interior=128):
   1.0) cases: equal counts and completeness, roots within 1e-9 relative;
   the flow-reversal mirror (tests/test_complex_kh.py:103) and the analytic
   growth rate (:42) for the port;
-- the refusals (ROADMAP A10b) and run_case on a complex case.
+- the refusals (the complex cylinder: ROADMAP A10b) and run_case on a
+  complex case.
 
 `python tests/test_torch_complex.py jax-counts NAME` takes the JAX
 package's full-size counts that `chip_smoke.py` holds (tools_torch/kh.py).
@@ -285,10 +286,12 @@ def test_newton_entry_final_eval_equals_loop_and_jax():
     np.testing.assert_array_equal(res.valid.numpy(), np.asarray(jres.valid))
 
 
-def _cpp_smem(dtype, shape):
+def _cpp_smem(dtype, shape, shear=True):
     """The complex kernel's shared-memory bytes by the C++ source's own
     expressions (csrc/slab_complex.cu: cx_table_offset and the table
-    behind it in launch), evaluated for shape."""
+    behind it in launch_variant; the table's entry XPoint<T, kShear> a
+    ShearPoint of 3 values, or in the flux form a FluxPoint of 5, 16-byte
+    aligned), evaluated for shape."""
     import re
     src = (Path(__file__).resolve().parent.parent / "eigensolver_tpu_torch"
            / "csrc" / "slab_complex.cu").read_text()
@@ -303,8 +306,9 @@ def _cpp_smem(dtype, shape):
 
     def ev(expr, **names):
         expr = re.sub(r"static_cast<size_t>\((\w+)\)", r"\1", expr)
+        entry = -(-(3 if shear else 5) * item // 16) * 16
         expr = expr.replace("sizeof(T)", str(item)).replace(
-            "sizeof(ShearPoint<T>)", str(-(-3 * item // 16) * 16))
+            "sizeof(XPoint<T, kShear>)", str(entry))
         return eval(" ".join(expr.split()).replace("/", "//"), {},
                     {**consts, **names})
     b, c, s = shape
@@ -321,7 +325,7 @@ def test_complex_spec_shape(dtype):
     2 blocks an SM holds (__launch_bounds__(.., 2), 1 KiB reserved a
     block) within an H100 SM's 228 KiB, a grid that covers n, the 7,200
     seeds in one wave of 132 SMs; the Python byte count equal to the C++
-    source's."""
+    source's, in the shear and the flux form."""
     import re
     from eigensolver_tpu_torch.kernels import common
     src = (Path(__file__).resolve().parent.parent / "eigensolver_tpu_torch"
@@ -334,10 +338,11 @@ def test_complex_spec_shape(dtype):
     assert 32 * (p + 1) <= 512
     shape = common.complex_spec_shape(dtype)
     b, c, s = shape
-    common.check_complex_shape("x", shape, dtype)
-    smem = common.complex_smem(shape, dtype)
-    assert smem == _cpp_smem(dtype, shape)
-    assert 2 * (smem + 1024) <= 228 * 1024
+    for shear in (True, False):
+        common.check_complex_shape("x", shape, dtype, shear)
+        smem = common.complex_smem(shape, dtype, shear)
+        assert smem == _cpp_smem(dtype, shape, shear)
+        assert 2 * (smem + 1024) <= 228 * 1024
     for n in (7_200, 30_720, 8_191):
         blocks = -(-n // b)
         assert blocks * b >= n > (blocks - 1) * b
@@ -345,7 +350,9 @@ def test_complex_spec_shape(dtype):
             assert blocks <= 2 * 132
     for shape in [common.ComplexShape(8, 5, 3),
                   common.ComplexShape(16, 32, 2)]:
-        assert common.complex_smem(shape, dtype) == _cpp_smem(dtype, shape)
+        for shear in (True, False):
+            assert common.complex_smem(shape, dtype, shear) == \
+                _cpp_smem(dtype, shape, shear)
 
 
 # -- search, dedup, the sweep ---------------------------------------------------
@@ -487,8 +494,10 @@ def test_backward_modes_mirror_under_flow_reversal():
 def test_refusals_and_run_case():
     """run_case on a complex case raises ValueError (the JAX package's
     fails on the complex determinant) and points to run_case_complex; the
-    flux form and the numeric exterior at complex omega, and the complex
-    cylinder, raise NotImplementedError naming ROADMAP A10b."""
+    complex cylinder raises NotImplementedError naming ROADMAP A10b. The
+    flux form and the numeric exterior at complex omega, which raised
+    naming it too, give the dispersion and its dual (their values:
+    tests/test_torch_complex_slab.py)."""
     from eigensolver_tpu_torch import cases, sweep
     from eigensolver_tpu_torch.physics.cylinder import CylinderPhysics
     from eigensolver_tpu_torch.physics.slab import SlabPhysics
@@ -502,11 +511,16 @@ def test_refusals_and_run_case():
                                complex_omega=True)
     numeric = dataclasses.replace(case, grid=dataclasses.replace(
         case.grid, exterior_method="numeric"))
+    om, k = _draws(4, 1)
     for c in (flux, numeric):
-        with pytest.raises(NotImplementedError, match="A10b"):
-            SlabPhysics.from_case(c).make_dispersion(parity=1)
-        with pytest.raises(NotImplementedError, match="A10b"):
-            SlabPhysics.from_case(c).make_dispersion_plain(parity=1)
+        c = dataclasses.replace(c, grid=dataclasses.replace(
+            c.grid, n_interior=8, n_exterior=8))
+        res = SlabPhysics.from_case(c).make_dispersion(parity=1)(
+            _pair(om), torch.from_numpy(k))
+        d, dd = SlabPhysics.from_case(c).make_dispersion_dual_plain(
+            parity=1)(_pair(om), torch.from_numpy(k))
+        np.testing.assert_array_equal(_np(d), _np(res.det))
+        assert np.isfinite(_np(dd)).all()
     cyl = dataclasses.replace(cases.cylinder_density_coronal(),
                               complex_omega=True)
     with pytest.raises(NotImplementedError, match="A10b"):

@@ -5,7 +5,8 @@ the plain Newton loop over the dual shoot, at float32 and float64, on
 ragged batches; n_iter fused steps bit-equal to as many chained one-step
 launches; the final evaluation in the Newton launch bit-equal to the plain
 value dispersion at the roots; other block shapes alike; the dtypes,
-configurations and shapes they refuse.
+layouts and shapes they refuse. The flux form and the numeric exterior:
+tests/test_torch_complex_slab_card.py.
 
 Reduced depth (n_interior=256): the plain versions run eagerly on the card,
 some thousand launches a step.
@@ -204,10 +205,6 @@ def test_refused_on_the_card():
     strided = C(om.re[::2], om.im[::2])
     with pytest.raises(ValueError, match="contiguous"):
         kslab.slab_disp_complex(strided, k[::2], par[::2], params)
-    numeric = dataclasses.replace(case, grid=dataclasses.replace(
-        case.grid, exterior_method="numeric"))
-    with pytest.raises(ValueError, match="exact exterior"):
-        kslab.slab_disp_complex(om, k, par, kslab.disp_params(numeric, True))
     for shape in ((24, 8, 2), (32, 0, 2), (32, 8, 7), (32, 200, 2)):
         with pytest.raises(ValueError, match="block shape"):
             kslab.slab_newton(om, k, par, 1, 1.0, params,

@@ -189,7 +189,7 @@ def test_unported_sweep_options_raise(make_case, search_kw, what,
 # Complex omega (A10) raised until it was ported: run_case now refuses a
 # complex case and points to run_case_complex (the JAX package's run_case
 # fails on the complex determinant); run_case_complex runs the flow slab
-# and refuses the flux form (a density case), naming ROADMAP A10b.
+# and, since the flux form was ported (A10b, slab part), the density slab.
 @pytest.mark.parametrize("make_case", [
     lambda: dataclasses.replace(_tiny_slab(), complex_omega=True),
     lambda: cases.slab_flow_complex_coronal(),
@@ -198,17 +198,14 @@ def test_unported_geometry_and_ladder_raise(make_case):
     case = make_case()
     with pytest.raises(ValueError, match="run_case_complex"):
         sweep.run_case(case, device="cpu")
-    if case.flow_profile.kind == config.ProfileKind.UNIFORM:
-        with pytest.raises(NotImplementedError, match="A10b"):
-            sweep.run_case_complex(case, device="cpu")
-    else:
-        tiny = dataclasses.replace(_reduced(case, n_interior=8),
-                                   k_values=(0.5,))
-        rs, st = sweep.run_case_complex(tiny, n_re=2, n_im=2, newton_iters=2,
-                                        device="cpu")
-        assert st.n_candidates == 3 * 2 * 2
-        assert st.completeness["cells"] == 3
-        assert rs["kink"].omegas_imag is not None
+    tiny = dataclasses.replace(_reduced(case, n_interior=8),
+                               k_values=(0.5,))
+    rs, st = sweep.run_case_complex(tiny, n_re=2, n_im=2, newton_iters=2,
+                                    device="cpu")
+    n_bands = len(tiny.speeds) - 1
+    assert st.n_candidates == len(tiny.modes) * n_bands * 2 * 2
+    assert st.completeness["cells"] == len(tiny.modes) * n_bands
+    assert all(br.omegas_imag is not None for br in rs.branches.values())
     cheb = _reduced(cases.cylinder_density_coronal(), ladder_shape="chebyshev")
     with pytest.raises(NotImplementedError, match="chebyshev"):
         sweep.build_ladders(cheb)

@@ -233,11 +233,11 @@ def _reduced_slab_jax():
 def _unpaired(monkeypatch):
     """run_case with its scan forced through the unpaired call, as before
     the paired path."""
-    real = sweep.search_rows
+    real = sweep.scan_rows
 
-    def search_rows(*args, paired=False, **kw):
+    def scan_rows(*args, paired=False, **kw):
         return real(*args, **kw)
-    monkeypatch.setattr(sweep, "search_rows", search_rows)
+    monkeypatch.setattr(sweep, "scan_rows", scan_rows)
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
@@ -277,15 +277,17 @@ class _Stop(Exception):
     ("slab modes (0, 1)", True), ("slab modes (0,)", False),
     ("slab needle (0, 1)", False), ("cylinder modes (0, 1)", False)])
 def test_sweep_passes_the_paired_layout(monkeypatch, what, want):
-    """run_case tells search_rows that its ladder is one row set per parity
-    for a slab at modes (0, 1), not at modes (0,), not for a cylinder,
-    whose chain depends on m, and the needle pass scans unpaired."""
+    """run_case tells the scan (`scan_rows`) that its ladder is one row set
+    per parity for a slab at modes (0, 1), not at modes (0,), not for a
+    cylinder, whose chain depends on m, and the needle pass (through
+    `search_rows`) scans unpaired."""
     seen = []
 
     def spy(*args, paired=False, **kw):
         seen.append(paired)
         raise _Stop
-    monkeypatch.setattr(sweep, "search_rows", spy)
+    monkeypatch.setattr(sweep, "scan_rows", spy)
+    monkeypatch.setattr(search, "scan_rows", spy)
     slab = form_case("flux", "exact", 64)
     with pytest.raises(_Stop):
         if what == "slab modes (0, 1)":

@@ -451,6 +451,168 @@ class _SymEq:
         return lambda x: Sym()
 
 
+class _ComplexPatches:
+    """The complex-omega modules with symbols in place of tensors: Smith's
+    division by its |c| >= |d| branch, |z| and the principal root by their
+    formulas, selects free."""
+
+    def __enter__(self):
+        import torch
+        from eigensolver_tpu_torch import cplx, dual, search
+        from eigensolver_tpu_torch.physics import slab
+        patches = [(cplx, "divisor", _sym_divisor),
+                   (slab, "divisor", _sym_divisor),
+                   (search, "divisor", _sym_divisor),
+                   (slab, "cabs", _sym_abs), (search, "cabs", _sym_abs),
+                   (slab, "csqrt", _sym_sqrt), (dual, "csqrt", _sym_sqrt),
+                   (torch, "maximum", lambda a, b: a._op("max", b)),
+                   (search, "where",
+                    lambda m, a, b: b if a.re is ZERO else a),
+                   (search, "is_zero", lambda z: None),
+                   (torch, "zeros_like", lambda x: ZERO),
+                   (torch, "full_like", lambda x, v: Sym.of(v))]
+        self.saved = [(mod, name, getattr(mod, name))
+                      for mod, name, _ in patches]
+        for mod, name, val in patches:
+            setattr(mod, name, val)
+        Sym.__gt__ = lambda self, o: None
+        # complex_edge forms its constants on the device and in the dtype
+        # of k
+        Sym.device, Sym.dtype = None, torch.float64
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, val in self.saved:
+            setattr(mod, name, val)
+        del Sym.__gt__
+
+
+def _edge_physics(flow: bool):
+    """A SlabPhysics stand-in for complex_edge: the regime's constants, the
+    interior's values at x = 1 constants of the launch."""
+    import types
+    return types.SimpleNamespace(
+        eq=types.SimpleNamespace(
+            regime=types.SimpleNamespace(
+                U_e=0.0, vA_e=1e-12 if flow else 0.8, c_e=2.0 if flow else 1.3,
+                cT_e=1e-12 if flow else 0.6, rho_e=5.0),
+            U_i=_SymEq().U_i, c_i=_SymEq().c_i,
+            vA_i=_SymEq().vA_i, rho_i=_SymEq().rho_i),
+        flow_derivative=lambda order: (lambda x: Sym()))
+
+
+def _cx_state(is_dual: bool, deps=frozenset({"s"})):
+    from eigensolver_tpu_torch.cplx import C
+    from eigensolver_tpu_torch.dual import Dual
+    z = C(Sym(deps), Sym(deps))
+    return Dual(z, C(Sym(deps), Sym(deps))) if is_dual else z
+
+
+def _cx_parts(zs, is_dual: bool) -> list:
+    """The real parts of complex values (or duals of them)."""
+    return [p for z in zs for w in ((z.v, z.d) if is_dual else (z,))
+            for p in (w.re, w.im)]
+
+
+def _cx_update(apply, is_dual: bool) -> int:
+    """One step of _rk4_linear over `apply` from a state of symbols, the
+    chain's values at the 3 abscissae symbols: its operations."""
+    from eigensolver_tpu_torch.physics import slab
+    Sym.nodes = {}
+    calls = iter([(_cx_state(is_dual, {"c", "x"}),
+                   _cx_state(is_dual, {"c", "x"})) for _ in range(3)])
+    y = slab._rk4_linear(apply, lambda x: next(calls),
+                         (_cx_state(is_dual), _cx_state(is_dual)), Sym(),
+                         Sym(), 1)
+    return sum(n for d, n in _tally_deps(_cx_parts(y, is_dual)).items()
+               if "s" in d)
+
+
+def complex_flux_ops() -> dict:
+    """chip_smoke.py's OPS entries for the complex-omega flux chain
+    (physics/slab.py::complex_flux_coef, the order csrc/slab_complex.cu::
+    flux_coef follows): per RK4 step and candidate "slab_cx_flux_step"
+    (value pass) and "slab_cx_flux_dual_step" (dual pass), of which one of
+    the step's 3 chain evaluations is "*_chain"; per evaluation the
+    candidate's products (flux_cand), the start's F(0) (complex_flux_F at
+    x = 0, whose x-only values are constants of the launch) and the
+    interface (complex_edge of the flux form, complex_det, and for the
+    value pass complex_mismatch): "slab_cx_flux_ends",
+    "slab_cx_flux_dual_ends". The x-only values are the real flux form's
+    table, "slab_x_step"."""
+    from eigensolver_tpu_torch.cplx import C
+    from eigensolver_tpu_torch.physics import slab
+    out = {}
+    with _ComplexPatches():
+        for is_dual, f in ((False, "slab_cx_flux_"),
+                           (True, "slab_cx_flux_dual_")):
+            Sym.nodes = {}
+            c = slab.FluxCand(k2=Sym({"c"}), Om2=C(Sym({"c"}), Sym({"c"})),
+                              nd=C(Sym({"c"}), Sym({"c"})) if is_dual
+                              else None)
+            q = tuple(Sym({"x"}) for _ in range(5))
+            co = slab.complex_flux_coef(c, q, is_dual)
+            chain = _tally_deps(_cx_parts(co, is_dual)).get("cx", 0)
+            out[f + "chain"] = chain
+            out[f + "step"] = 3 * chain + _cx_update(slab._apply_flux,
+                                                     is_dual)
+            Sym.nodes = {}
+            om, k, par = C(Sym({"c"}), Sym({"c"})), Sym({"c"}), Sym({"c"})
+            fc = slab.flux_cand(om, k, is_dual)
+            F0 = slab.complex_flux_F(fc, tuple(Sym() for _ in range(5)),
+                                     is_dual)
+            start = (1.0 - par) * F0
+            e = slab.complex_edge(_edge_physics(False), om, k, True, is_dual,
+                                  shear=False)
+            det, xi_i, PT_e, PT_i = slab.complex_det(
+                e, _cx_state(is_dual), _cx_state(is_dual))
+            outs = _cx_parts([det, start], is_dual) + [
+                fc.k2, fc.Om2.re, fc.Om2.im,
+                *((fc.nd.re, fc.nd.im) if is_dual else ())]
+            if not is_dual:
+                outs.append(slab.complex_mismatch(e, xi_i, PT_e, PT_i))
+            out[f + "ends"] = sum(_tally_deps(outs).values())
+    return out
+
+
+# the complex numeric exterior's rescaling every 64th step, by hand from
+# csrc/slab_complex.cu::exterior_ratio: the two values' moduli (5 each),
+# their maximum and its test, and each real part divided by the scale (4;
+# on duals 8)
+CX_EXT_RENORM = {False: 5 + 5 + 2 + 4, True: 5 + 5 + 2 + 8}
+
+
+def complex_exterior_ops() -> dict:
+    """chip_smoke.py's OPS entries for the numeric exterior at complex
+    omega (physics/slab.py::complex_exterior over ode.rk4_final_renorm on
+    complex pairs, or duals of them): per candidate and exterior step
+    "slab_cx_ext_step" (value pass), "slab_cx_dual_ext_step" (dual pass),
+    traced from one ode._step; every 64th step the rescaling
+    ("slab_cx_ext_renorm", "slab_cx_dual_ext_renorm"); per candidate the
+    set-up (the slab's real one) and the end, the quotient vx'/vx and its
+    product with p_e ("slab_cx_ext_ends", "slab_cx_dual_ext_ends")."""
+    from eigensolver_tpu_torch import ode
+    out = {}
+    with _ComplexPatches():
+        for is_dual, f in ((False, "slab_cx_"), (True, "slab_cx_dual_")):
+            Sym.nodes = {}
+            m_e = _cx_state(is_dual, {"c"})
+            h, hh, h6, x = (Sym({"k"}) for _ in range(4))
+            y = ode._step(lambda x, y: (y[1], m_e * y[0]),
+                          (_cx_state(is_dual), _cx_state(is_dual)), x, h, hh,
+                          h6)
+            out[f + "ext_step"] = sum(
+                n for d, n in _tally_deps(_cx_parts(y, is_dual)).items()
+                if "s" in d)
+            out[f + "ext_renorm"] = CX_EXT_RENORM[is_dual]
+            Sym.nodes = {}
+            ratio = _cx_state(is_dual) / _cx_state(is_dual)
+            PT_e = _cx_state(is_dual, {"c"}) * ratio
+            out[f + "ext_ends"] = (EXT_ENDS["slab_ext_ends"] - 1 + sum(
+                _tally_deps(_cx_parts([PT_e], is_dual)).values()))
+    return out
+
+
 def complex_ops() -> dict:
     """chip_smoke.py's OPS entries for the complex-omega slab chain (the
     corrected D of slab_flow_complex_coronal, the shear-pressure term on):
@@ -461,24 +623,11 @@ def complex_ops() -> dict:
     "slab_cx_newton"."""
     import types
     import torch
-    from eigensolver_tpu_torch import cplx, dual, search
+    from eigensolver_tpu_torch import search
     from eigensolver_tpu_torch.cplx import C
     from eigensolver_tpu_torch.physics import slab
     from eigensolver_tpu_torch.dual import Dual
-    patches = [(cplx, "divisor", _sym_divisor), (slab, "divisor", _sym_divisor),
-               (search, "divisor", _sym_divisor),
-               (slab, "cabs", _sym_abs), (search, "cabs", _sym_abs),
-               (slab, "csqrt", _sym_sqrt), (dual, "csqrt", _sym_sqrt),
-               (torch, "maximum", lambda a, b: a._op("max", b)),
-               (search, "where", lambda m, a, b: b if a.re is ZERO else a),
-               (search, "is_zero", lambda z: None),
-               (torch, "zeros_like", lambda x: ZERO),
-               (torch, "full_like", lambda x, v: Sym.of(v))]
-    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
-    for mod, name, val in patches:
-        setattr(mod, name, val)
-    Sym.__gt__ = lambda self, o: None
-    try:
+    with _ComplexPatches():
         out = {}
         for is_dual, f in ((False, "slab_cx_"), (True, "slab_cx_dual_")):
             Sym.nodes = {}
@@ -536,10 +685,6 @@ def complex_ops() -> dict:
         new = search.newton_step(om, C(Sym({"c"}), Sym({"c"})),
                                  C(Sym({"c"}), Sym({"c"})), 1.0)
         out["slab_cx_newton"] = sum(_tally_deps([new.re, new.im]).values())
-    finally:
-        for mod, name, val in saved:
-            setattr(mod, name, val)
-        del Sym.__gt__
     return out
 
 
@@ -562,7 +707,7 @@ def _tally_deps(outs) -> dict:
 def main() -> int:
     sys.path.insert(0, str(ROOT))
     ext = exterior_ops()
-    cx = complex_ops()
+    cx = {**complex_ops(), **complex_flux_ops(), **complex_exterior_ops()}
     cyl = cylinder_ops()
     sl = slab_ops()
     print(json.dumps({"traced": {**traced_ops(False), **traced_ops(True),

@@ -5,7 +5,8 @@
 compiles `eigensolver_tpu_torch/csrc/slab_complex.cu` with the package's
 flags (`kernels/_build.py::NVCC_FLAGS`) plus `-lineinfo` to a cubin,
 disassembles it with nvdisasm (source lines with their inlining chain) and
-counts, for each `newton_kernel` instantiation, the local loads and stores
+counts, for each type's instantiation of the Kelvin-Helmholtz path's
+`newton_kernel` (the shear form, the exact exterior), the local loads and stores
 (LDL, STL: the spills and the division slow path's stack) by the line of
 `newton_kernel`'s own body they were inlined from, which tells the consumer
 warp's branch (its `consume` loop, `edge`, `finish`, the Newton update)
@@ -31,7 +32,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 SRC = ROOT / "eigensolver_tpu_torch" / "csrc" / "slab_complex.cu"
-_KERNEL = re.compile(r"newton_kernelI([fd])E")
+# the KH path's instantiation: the shear form with the exact exterior
+_KERNEL = re.compile(r"newton_kernelI([fd])Lb1ELb0EE")
 _INSN = re.compile(r"/\*([0-9a-f]+)\*/\s+(.*?)\s*;")
 _LABEL = re.compile(r"\s*(\.L_x_\d+):")
 _BRANCH = re.compile(r"BRA\s+`\((\.L_x_\d+)\)")
