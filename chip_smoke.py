@@ -5,7 +5,7 @@
 
 Run from the repository root. Phases, one line each (9, 12 and 13 in two,
 17 in five, 18 in two, 19 in four, 20 in eight or nine, 21 in
-seven, 22 in six, 23 in six);
+seven, 22 in six, 23 in six, 24 in fifteen, 25 in five);
 any failure raises and the script exits non-zero:
 
 1. device: a CUDA card is required; its nvidia-smi name and power limit.
@@ -18,7 +18,8 @@ any failure raises and the script exits non-zero:
    branches, and the ladder's arguments in ladder order): bit-equal to its
    plain PyTorch version on each, and timed beside the torch.special call at
    both types. No sweep launches it: its math runs inside cylinder_disp.
-4. cylinder_disp kernel vs its plain PyTorch version, 8,192 candidates of
+4. cylinder_disp kernel vs its plain PyTorch version (at a quarter of the
+   depth, timed at the full one), 8,192 candidates of
    the full cyl_co_09 ladder (n_interior=2048, n_axis_log=128); at the full
    sweep's 552,960 candidates, the kernel's time and, at float32, the plain
    version's time and agreement; the sweep's own scan in ladder order,
@@ -51,7 +52,8 @@ any failure raises and the script exits non-zero:
    float64 window launch (the 1,530 window ends of the slab_ph_09 float32
    sweep's roots), none counted as paired; the launch shape of each, and
    the kernels' registers and spills (ptxas). Every set bit-equal at both
-   types.
+   types (the 8,192 draws, the random draws and the window ends at a
+   quarter of the depth, the paired scans at the full one).
 7. the slab sweep: run_case(slab_density_photospheric(0.9), n_omega=256,
    n_bisect=18, float32) with the counters reset (one slab_disp launch,
    the paired scan, every candidate counted as paired, and one
@@ -71,8 +73,9 @@ any failure raises and the script exits non-zero:
    form) at float32 and float64: (root, mismatch) bit-equal to
    search.bisect_loop over the scan kernel (n_iter + 2 launches), both
    timed; at n_iter=1 bit-equal to the same loop over the plain PyTorch
-   dispersion, at both types, which is timed too. Phase 9 also takes the
-   refine stage of the slab_ph_09 float32 sweep (its 153 roots' float64
+   dispersion, at both types, which is timed too (at a quarter of the
+   depth, `shallower`, the kernel's bisection too). Phase 9 also takes
+   the refine stage of the slab_ph_09 float32 sweep (its 153 roots' float64
    brackets, 30 iterations): at the speculative default L and at L = 0
    bit-equal to the launch loop, all three timed, and at 5 iterations
    bit-equal to the plain speculative bisection at the same L. Each
@@ -83,11 +86,13 @@ any failure raises and the script exits non-zero:
    full twist_v01_p1 ladder (cylinder_twisted_photospheric(0.1, 1.0, 1)) and
    of the magnetic p = 1.25 one (cylinder_twisted_magnetic(0.1, 0.15, 1.25,
    1)), float32 and float64, through both paths (the small-batch fused
-   evaluation, which a batch this size takes, and the scan), bit-equal; each
+   evaluation, which a batch this size takes, and the scan), bit-equal at
+   a quarter of the depth (n_interior 384) and timed at the full one; each
    case's whole 76,800-candidate scan (ladder order, m = 1) timed at both
    types beside its bound, twist_v01_p1's plain version's time and bits at
-   float32; the refine stage's float64 window ends of the twist_v01_p1
-   float32 sweep (3,090) through both paths, timed, bit-equal; the
+   float32 (at a quarter of the depth); the refine stage's float64 window ends of the twist_v01_p1
+   float32 sweep (3,090) through both paths, timed, bit-equal at a quarter
+   of the depth; the
    registers, local (spill) bytes, shared memory and blocks per SM of each
    default launch shape of the twisted kernels, and the ptxas report of
    every cylinder_disp and twisted instantiation.
@@ -100,12 +105,13 @@ any failure raises and the script exits non-zero:
    a reduced magnetic sweep with the row-local continuum mask on the card
    held against the same sweep on the CPU and the JAX package's count.
 12. the twisted cylinder_bisect (the speculative kernel) on twist_v01_p1's
-   own 2,400 brackets, as in phase 8 (its plain loop at n_iter=1), and at
-   every level count L = 0..5 bit-equal to the launch loop; the refine
-   stage's bisection of the float32 sweep's 309 roots (float64, 30
-   iterations) at every L, bit-equal to its launch loop, timed; its
-   default launch (L = 3) at 5 iterations bit-equal to the plain
-   speculative bisection at the same L over the plain dispersion. Every
+   own 2,400 brackets, as in phase 8 (its plain loop at n_iter=1, a
+   quarter of the depth), and at every level count L = 0..5 bit-equal to
+   the launch loop; the refine stage's bisection of the float32 sweep's
+   309 roots (float64, 30 iterations) at every L, bit-equal to its launch
+   loop, timed; its default launch (L = 3) at 5 iterations and a quarter
+   of the depth bit-equal to the plain speculative bisection at the same L
+   over the plain dispersion. Every
    L's bound counts the evaluations the loop needs.
 13. the numeric exteriors (B6, exterior_method="numeric"), the kernels'
    variants against their plain versions, bit for bit at float32 and
@@ -150,15 +156,18 @@ any failure raises and the script exits non-zero:
    Kelvin-Helmholtz layer (slab_flow_complex_coronal(width=1.0),
    tools_torch/kh.py: n_interior=2048, float64): slab_newton on the 7,200
    Newton seeds at n_iter=1 bit-equal to the plain loop over the dual
-   shoot (both timed); the main path's 30 steps as 30 chained one-step
-   launches (each step's ms, its non-finite omegas and those whose
+   shoot (both timed; every check against a plain version here at a
+   quarter of the depth, n_interior 512); the main path's 30 steps as 30
+   chained one-step launches (each step's ms, its non-finite omegas and
+   those whose
    imaginary part has reached the bottom of the exponent range) and as one
    launch, bit-equal, timed beside its bound, and with the final
    evaluation in the same launch (timed); slab_disp_complex, the kernel's
    evaluation mode, at the main path's batches, the 7,200 Newton roots
-   and the audit's 30,720 contour points, and at float32 on a ragged 8,191
-   of those points, bit-equal to its plain version, as is the Newton
-   launch's own value round at the roots (all timed); the registers and
+   (those of the Newton launch at the check's depth) and the audit's
+   30,720 contour points, and at float32 on a ragged 8,191 of those
+   points, bit-equal to its plain version, as is the Newton launch's own
+   value round at the roots (all timed); the registers and
    spills of the kernel's instantiations (ptxas).
 18. the complex-omega sweeps: run_case_complex of
    slab_flow_complex_coronal at its published settings (7,200 seeds, 30
@@ -217,7 +226,9 @@ any failure raises and the script exits non-zero:
    seeds (seed i at parity i mod 2): slab_newton at n_iter=1 with its
    value round in the launch, and slab_disp_complex at its roots,
    bit-equal to the plain Newton loop over the dual shoot and to the plain
-   value dispersion (both timed); the main path's launches timed (30
+   value dispersion (both timed), at a quarter of the depth (n_interior
+   512, n_exterior 128, as phase 13's plain checks); the main path's
+   launches timed at full depth (30
    steps, with and without the value round; the audit's contour points in
    the evaluation mode) beside their bounds, and the roots that reach the
    real axis (|Im omega| < 1e-290, where Smith's division leaves CUDA's
@@ -239,6 +250,43 @@ any failure raises and the script exits non-zero:
    card(s), each holding run_case's roots of every sweep; `python -m
    eigensolver_tpu_torch sweep slab_density_photospheric --width 0.9
    --sharded` against run_case at the CLI's config.
+24. the cylinder's complex-omega kernel (csrc/cylinder_complex.cu: one
+   thread a seed, behind cylinder_newton and cylinder_disp_complex) in each
+   variant: the density and axial-flow chains (B4-complex) with the K_m
+   ratio at complex z (B1) and the density one with the numeric exterior
+   (B6-complex), the rotational and magnetic twists (B4-twisted at complex
+   omega) and the rotational one with the numeric exterior, at float32 and
+   float64, at a reduced depth (n_interior 256, n_axis_log 32, n_exterior
+   128; the plain versions run eagerly on the card): on 133 seeds
+   cylinder_newton at n_iter=2, so that the omega carried from one round
+   to the next is held too, with its value round in the launch, and
+   cylinder_disp_complex at its roots and on 13 more, bit-equal to the
+   plain Newton loop over the dual shoot and to the plain value
+   dispersion (one call on the roots and the 13), with their launches per
+   variant; both timed on the same seeds, the kernel beside its bound. B1 alone (kernels.bessel.kve_ratio_complex) on the
+   exterior arguments sqrt(m_e) of the cx_cyl_co_09 seeds, both modes, at
+   both types: bit-equal to special.kve_ratio_both_c, timed beside its
+   bound (each argument at the branch it takes). The registers and spills
+   of the kernel's instantiations (ptxas).
+25. the complex cylinder sweeps (tools_torch/cx_cyl.py, float64, the CLI's
+   defaults: 12 x 10 seeds a cell, 30 Newton steps, the audit on):
+   cylinder_density_coronal(0.9) made complex (cx_cyl_co_09: 129,600 seeds
+   a mode, modes 0 and 1) and cylinder_twisted_photospheric(0.1, 1.0, 1)
+   made complex (cx_twist_v01_p1: 36,000 seeds, mode 1). For each, the
+   main path's launches timed beside their bounds (the Newton launch of 30
+   steps with and without its value round, per mode; the audit's contour
+   points in the evaluation mode); run_case_complex with the counters
+   reset (2 launches a mode: cylinder_newton and cylinder_disp_complex,
+   the twisted ones counted as such; never the plain dispersion), then 2
+   timed runs, every audited cell agreeing; held to the JAX package's
+   float64 run on every k_stride-th k (cx_cyl.TARGETS): the same sweep on
+   those k with its counts (exactly where the JAX package's unconverged
+   accepted seeds add no root), its roots off the real axis and its audit
+   exactly, and per seed, of the full sweep's seeds of those k, every seed
+   converged in both runs accepted alike and the converged accepted
+   seeds' roots counted exactly. Then the density cylinder with the
+   numeric exterior: its Newton launch on cx_cyl_co_09's seeds (m = 1)
+   timed, and a sweep of its own on every 30th k (its launches).
 
 Then one JSON line of the kernels (with each one's bound: the operations
 the function needs on this run's inputs over the card's peak rate, or its
@@ -355,7 +403,10 @@ N_NEEDLE = 35 * 4 * 512                 # slab_ph_3's needle pass: 71,680
 CYL_PAR_K_STRIDE = 9                    # cyl_flow_1's k subset for counts
 N_RAGGED = 8191                         # the ragged batch of phase 13
 NUM_PLAIN_N_ITER = 1                    # the plain loops of phase 13
-NUM_PLAIN_DEPTH = 4     # phase 13's ragged and plain-loop checks at 1/4 depth
+# the depth divisor of `shallower`: the plain checks of phases 4 (its
+# draws), 6 (but the paired scans), 8-10, 12, 13 (but the parity scans),
+# 17 and 22 at a quarter of the depth
+NUM_PLAIN_DEPTH = 4
 # Root counts per branch of the parity sweeps through the JAX package on a
 # CPU (JAX 0.9.0, x64), held as the IEEE counts above are:
 #   python tests/test_torch_parity.py jax-counts TARGET DTYPE [--k-stride 9]
@@ -454,7 +505,16 @@ OPS = {"slab_x_step": 67, "slab_chain": 9, "slab_update": 34,
        "slab_cx_flux_dual_step": 378, "slab_cx_flux_dual_ends": 271,
        "slab_cx_ext_step": 76, "slab_cx_ext_renorm": 16,
        "slab_cx_ext_ends": 22, "slab_cx_dual_ext_step": 184,
-       "slab_cx_dual_ext_renorm": 20, "slab_cx_dual_ext_ends": 50}
+       "slab_cx_dual_ext_renorm": 20, "slab_cx_dual_ext_ends": 50,
+       "cyl_cx_kve_series": 755, "cyl_cx_kve_cf2": 1832,
+       "cyl_cx_kve_ends": 34, "cyl_cx_step": 464, "cyl_cx_log_step": 476,
+       "cyl_cx_ends": 244, "cyl_cx_ext_step": 105, "cyl_cx_num_ends": 240,
+       "cyl_tw_cx_step": 1592, "cyl_tw_cx_ends": 624,
+       "cyl_cx_dual_kve_series": 1943, "cyl_cx_dual_kve_cf2": 4748,
+       "cyl_cx_dual_kve_ends": 68, "cyl_cx_dual_step": 1068,
+       "cyl_cx_dual_log_step": 1092, "cyl_cx_dual_ends": 416,
+       "cyl_cx_dual_ext_step": 221, "cyl_cx_dual_num_ends": 398,
+       "cyl_tw_cx_dual_step": 3924, "cyl_tw_cx_dual_ends": 1336}
 # The complex-omega chain ("slab_cx_*": tools_torch/count_ops.py traces
 # physics/slab.py::complex_shear_coef, complex_edge, complex_det,
 # complex_mismatch and search.newton_step): per candidate and RK4 step 3
@@ -471,6 +531,19 @@ OPS = {"slab_x_step": 67, "slab_chain": 9, "slab_update": 34,
 # ("slab_cx_*ext_*", traced from one ode._step on complex pairs or their
 # duals; every 64th step the rescaling, by hand; per shoot its set-up, the
 # quotient vx'/vx and its product with p_e), the same way.
+# The complex-omega cylinder ("cyl_cx_*", the density and axial-flow chain;
+# "cyl_tw_cx_*", the twisted chain; value pass, and "*dual_*" the Newton
+# pass on duals in omega): tools_torch/count_ops.py counts them from the
+# plain versions run on a few candidates under a torch function mode (each
+# arithmetic operation, root, exp, log, atan2, comparison, maximum or
+# minimum on the candidates' tensors one; negation, |.| and selects free;
+# the r-only values, 0-d tensors there, none): per candidate and step of
+# the interior ("*step"), of the log tail ("*log_step") and of the numeric
+# exterior ("*ext_step"); per shoot the ends with the exact exterior less
+# the K_m ratio ("*ends") or with the numeric exterior ("*num_ends"); the
+# K_m ratio at complex z by branch ("*kve_series", "*kve_cf2") and the rest
+# of it ("*kve_ends"), each argument counted at the branch it takes; the
+# Newton step "slab_cx_newton" (search.newton_step, shared).
 # The complex-omega sweeps (tools_torch/kh.py) at their published size:
 KH_N_SEEDS = 20 * 3 * 12 * 10          # Newton seeds: 7,200
 KH_N_AUDIT = 20 * 3 * 4 * 128          # audit contour points: 30,720
@@ -480,6 +553,26 @@ KH_ANALYTIC_TOL = 2e-6                 # tests/test_complex_kh.py:53
 # slab's flux form with either exterior, the KH slab's numeric exterior
 CX_SLAB = ("cx_ph_09", "cx_ph_09_num", "kh_w1e5_num")
 CX_PLAIN_N_ITER = 1                    # the plain Newton loop's steps
+# The complex-omega cylinder (tools_torch/cx_cyl.py): its sweeps, and the
+# kernel's variants held to their plain versions at a reduced depth
+CX_CYL = ("cx_cyl_co_09", "cx_twist_v01_p1")
+# name: (case factory, its keywords, exterior_method)
+CX_CYL_VARIANTS = {
+    "density": ("cylinder_density_coronal", dict(width=0.9), "bessel"),
+    "flow": ("cylinder_flow_coronal", dict(U=1.0), "bessel"),
+    "density_numeric": ("cylinder_density_coronal", dict(width=0.9),
+                        "numeric"),
+    "twist": ("cylinder_twisted_photospheric",
+              dict(v_twist=0.1, power=1.0, mode=1), "bessel"),
+    "magnetic": ("cylinder_twisted_magnetic",
+                 dict(B_twist=0.1, v_twist=0.15, power=1.25, mode=1),
+                 "bessel"),
+    "twist_numeric": ("cylinder_twisted_photospheric",
+                      dict(v_twist=0.1, power=1.0, mode=1), "numeric"),
+}
+CX_CYL_GRID = dict(n_interior=256, n_axis_log=32, n_exterior=128)
+CX_CYL_N_CHECK = 133                   # seeds of each variant's check
+CX_CYL_PLAIN_N_ITER = 2                # its Newton steps (+ the value round)
 # NVIDIA H100 SXM data sheet, outside the tensor cores, at 700 W; HBM3 rate
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 HBM_BYTES_S = 3.35e12
@@ -518,6 +611,9 @@ def reset_counters() -> None:
     cylinder.bisect_launches = slab.bisect_launches = 0
     slab.complex_launches = slab.newton_launches = 0
     slab.complex_flux_launches = slab.complex_numeric_launches = 0
+    cylinder.newton_launches = cylinder.complex_launches = 0
+    cylinder.complex_twisted_launches = cylinder.complex_numeric_launches = 0
+    bessel.complex_launches = 0
     pcyl.plain_calls = pslab.plain_calls = 0
 
 
@@ -888,22 +984,22 @@ def phase_cylinder_disp(out: dict):
     from tools_torch import batches
     case = cases.cylinder_density_coronal(width=0.9)
     ph = CylinderPhysics.from_case(case)
+    sph = CylinderPhysics.from_case(shallower(case))
     om, k, m = batches.ladder_draws(case, N_DISP_CHECK, seed=1)
     res = {}
     for dtype in (torch.float64, torch.float32):
         name = str(dtype).split(".")[-1]
         args = [x.to(dtype) for x in (om, k, m)]
         kern = ph.make_dispersion(m=None, dtype=dtype)
-        plain = ph.make_dispersion_plain(m=None, dtype=dtype)
-        kres = kern(*args)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pres = plain(*args)
-        torch.cuda.synchronize()
-        plain_ms = 1e3 * (time.perf_counter() - t0)
+        # the check at a quarter of the depth, the kernel's time at the
+        # case's own
+        kres = sph.make_dispersion(m=None, dtype=dtype)(*args)
+        pres, plain_ms = _timed_plain(
+            sph.make_dispersion_plain(m=None, dtype=dtype), args)
         r = _compare_disp(f"cylinder_disp {name}", kres, pres,
                           f64=dtype == torch.float64)
-        r.update(ms=cuda_ms(lambda: kern(*args), 5), plain_ms=plain_ms)
+        r.update(ms=cuda_ms(lambda: kern(*args), 5), plain_ms=plain_ms,
+                 plain_n_interior=sph.case.grid.n_interior)
         res[name] = r
     # the full sweep's scan size: the kernel at both dtypes; the plain
     # version once at float32 (the sweep's scan dtype), held against the
@@ -1156,10 +1252,11 @@ def window_candidates(case):
     return list(search.refine_window_ends(om, kk, md)[2])
 
 
-def _time_against_plain(what: str, ph, args, shear: bool) -> dict:
+def _time_against_plain(what: str, ph, check_ph, args, shear: bool) -> dict:
     """The unpaired slab_disp on the candidates args: its time and bound
-    (the chain once per distinct (omega, k)), none of them counted as
-    paired; the plain version's time and bits on the same candidates."""
+    (the chain once per distinct (omega, k)) at ph's depth, none of them
+    counted as paired; the kernel's and the plain version's bits, and the
+    plain version's time, on the same candidates at check_ph's depth."""
     import torch
     from eigensolver_tpu_torch.kernels import slab as kslab
     dtype = args[0].dtype
@@ -1172,11 +1269,12 @@ def _time_against_plain(what: str, ph, args, shear: bool) -> dict:
              **bound(slab_ops(n, 1, ph.case.grid.n_interior, shear,
                               n_chains=distinct(args[0], args[1])),
                      n * (5 * args[0].element_size() + 1), dname))
-    kres = kern(*args)
+    kres = check_ph.make_dispersion(parity=None, dtype=dtype)(*args)
     if kslab.paired != before:
         raise AssertionError(f"{what}: counted as paired")
-    plain = ph.make_dispersion_plain(parity=None, dtype=dtype)
+    plain = check_ph.make_dispersion_plain(parity=None, dtype=dtype)
     pres, r["plain_ms"] = _timed_plain(plain, args)
+    r["plain_n_interior"] = check_ph.case.grid.n_interior
     r["check"] = _compare_disp(what, kres, pres, f64=dtype == torch.float64,
                                bits=True)
     return r
@@ -1243,34 +1341,35 @@ def phase_slab_disp(out: dict):
     res = {}
     forms = (("flux slab_ph_09", cases.slab_density_photospheric(0.9), N_SLAB),
              ("shear flow_gauss", cases.slab_flow_gaussian_coronal(), N_FLOW))
+    # the draws' checks at a quarter of the depth (`shallower`), the
+    # kernel's times at the case's own; the paired scans' below at full
     for name, case, _ in forms:
         ph = SlabPhysics.from_case(case)
+        sph = SlabPhysics.from_case(shallower(case))
         om, k, par = batches.ladder_draws(case, N_DISP_CHECK, seed=3)
         for dtype in (torch.float64, torch.float32):
             dname = str(dtype).split(".")[-1]
             args = [x.to(dtype) for x in (om, k, par)]
             kern = ph.make_dispersion(parity=None, dtype=dtype)
-            plain = ph.make_dispersion_plain(parity=None, dtype=dtype)
-            kres = kern(*args)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            pres = plain(*args)
-            torch.cuda.synchronize()
-            plain_ms = 1e3 * (time.perf_counter() - t0)
+            kres = sph.make_dispersion(parity=None, dtype=dtype)(*args)
+            pres, plain_ms = _timed_plain(
+                sph.make_dispersion_plain(parity=None, dtype=dtype), args)
             r = _compare_disp(f"slab_disp {name} {dname}", kres, pres,
                               f64=dtype == torch.float64, bits=True)
-            r.update(ms=cuda_ms(lambda: kern(*args), 5), plain_ms=plain_ms)
+            r.update(ms=cuda_ms(lambda: kern(*args), 5), plain_ms=plain_ms,
+                     plain_n_interior=sph.case.grid.n_interior)
             res[f"{name} {dname}"] = r
     # each form at its sweep's scan size, both types
     full = {}
     for name, case, n in forms:
         ph = SlabPhysics.from_case(case)
+        sph = SlabPhysics.from_case(shallower(case))
         cand = batches.ladder_draws(case, n, seed=4)
         for dtype in (torch.float32, torch.float64):
             what = f"{name} {str(dtype).split('.')[-1]}"
             full[what] = _time_against_plain(
-                f"slab_disp full {what}", ph, [x.to(dtype) for x in cand],
-                shear=name.startswith("shear"))
+                f"slab_disp full {what}", ph, sph,
+                [x.to(dtype) for x in cand], shear=name.startswith("shear"))
     res["full"] = full
     # each sweep's own scan, its whole ladder in ladder order, through the
     # paired scan
@@ -1288,7 +1387,8 @@ def phase_slab_disp(out: dict):
     case = forms[0][1]
     res["window float64"] = _time_against_plain(
         "slab_disp window float64", SlabPhysics.from_case(case),
-        window_candidates(case), shear=False)
+        SlabPhysics.from_case(shallower(case)), window_candidates(case),
+        shear=False)
     res["ptxas"] = ptxas_report("slab_disp_kernel")
     out["slab_disp"] = res
     line("phase 6 slab_disp vs plain", **res)
@@ -1477,14 +1577,15 @@ def wrapper_shape(case, n: int, dtype):
                                       bool(getattr(params, "shear", 0)))
 
 
-def phase_bisect(out: dict, phase: str, name: str, case, plain, n_br: int,
-                 ops, key: str = None, plain_n_iter: int = PLAIN_N_ITER,
+def phase_bisect(out: dict, phase: str, name: str, case, n_br: int, ops,
+                 key: str = None, plain_n_iter: int = PLAIN_N_ITER,
                  plain_types=("float32", "float64"), loop_small: bool = False,
                  refine=None, chain: str = None):
     """The fused bracket stage `name` on the case's own brackets: (root,
     mismatch) bit-equal to the loop of scan launches at float32 and float64
     (both timed), and at the types of plain_types with n_iter=plain_n_iter
-    to the loop over the plain dispersion `plain(dtype)` (timed once); the
+    to the loop over the plain dispersion (timed once), both at
+    `shallower(case)`'s depth on the same brackets; the
     bound from `ops(brackets, dtype, evaluations)`, the operations of the
     evaluations the loop needs. With `refine` (the refine stage's float64
     brackets), that batch too (`_refine_bisect`); with `chain`, the ptxas
@@ -1521,13 +1622,16 @@ def phase_bisect(out: dict, phase: str, name: str, case, plain, n_br: int,
                  **bound(ops(br, dtype, N_BISECT + 2),
                          n_br * 6 * br[0].element_size(), dname))
         if dname in plain_types:
-            got = disp.bisect(*br, plain_n_iter)
+            pcase = shallower(case)
+            pdisp = sweep.make_dispersion_moded(pcase, dtype)
+            pplain = _physics(pcase)[1](dtype)
+            got = pdisp.bisect(*br, plain_n_iter)
             want, r["plain_ms"] = _timed_plain(
-                lambda *a: search.bisect_loop(plain(dtype), *a, plain_n_iter),
-                br)
+                lambda *a: search.bisect_loop(pplain, *a, plain_n_iter), br)
             r["plain_n_iter"] = plain_n_iter
+            r["plain_n_interior"] = pcase.grid.n_interior
             r["ms_plain_n_iter"] = cuda_ms(
-                lambda: disp.bisect(*br, plain_n_iter), 5)
+                lambda: pdisp.bisect(*br, plain_n_iter), 5)
             a, b = got[0].cpu().numpy(), want[0].cpu().numpy()
             r["max_abs_err_vs_plain"] = float(np.nanmax(np.abs(a - b)))
             differ = [int((~_same_bits(x.cpu().numpy(), y.cpu().numpy())).sum())
@@ -1538,14 +1642,14 @@ def phase_bisect(out: dict, phase: str, name: str, case, plain, n_br: int,
                                      f"loop")
         res[dname] = r
     if refine is not None:
-        res["refine float64"] = _refine_bisect(name, case, plain, refine, ops)
+        res["refine float64"] = _refine_bisect(name, case, refine, ops)
     if chain is not None:
         res["ptxas"] = spec_ptxas(chain)
     out[key or name] = res
     line(phase, **res)
 
 
-def _refine_bisect(name: str, case, plain, br, ops) -> dict:
+def _refine_bisect(name: str, case, br, ops) -> dict:
     """The refine stage's float64 bisection (N_REFINE_ITER iterations, no
     residual) of the case's brackets br at the wrapper's speculative shape:
     bit-equal to the loop of scan launches, and so is the loop's schedule
@@ -1582,8 +1686,9 @@ def _refine_bisect(name: str, case, plain, br, ops) -> dict:
                  disp, *br, N_REFINE_ITER, False), 2),
              **bound(ops(br, f64, need), n * 5 * 8, "float64"))
     got = fused(REFINE_PLAIN_N_ITER, shape)
+    plain = _physics(case)[1](f64)
     want, r["plain_ms"] = _timed_plain(lambda *a: search.bisect_loop(
-        plain(f64), *a, REFINE_PLAIN_N_ITER, False, levels=shape.levels), br)
+        plain, *a, REFINE_PLAIN_N_ITER, False, levels=shape.levels), br)
     r["plain_n_iter"] = REFINE_PLAIN_N_ITER
     a, b = got[0].cpu().numpy(), want[0].cpu().numpy()
     r["max_abs_err_vs_plain"] = float(np.nanmax(np.abs(a - b)))
@@ -1687,9 +1792,14 @@ def phase_twisted_disp(out: dict):
     from tools_torch import batches
     res = {}
     for name, case in twisted_cases().items():
+        # the checks at a quarter of the depth (`shallower`), the kernel's
+        # times at the case's own
+        full_kern = CylinderPhysics.from_case(case).make_dispersion
+        full_params = kcyl.disp_params(case)
+        om, k, m = batches.ladder_draws(case, N_DISP_CHECK, seed=7)
+        case = shallower(case)
         ph = CylinderPhysics.from_case(case)
         params = kcyl.disp_params(case)
-        om, k, m = batches.ladder_draws(case, N_DISP_CHECK, seed=7)
         for dtype in (torch.float64, torch.float32):
             dname = str(dtype).split(".")[-1]
             args = [x.to(dtype) for x in (om, k, m)]
@@ -1712,10 +1822,11 @@ def phase_twisted_disp(out: dict):
                 f"twisted cylinder_disp scan {name} {dname}",
                 kcyl.cylinder_disp(*args, params, shape=scan), pres,
                 f64=dtype == torch.float64, bits=True)
-            r.update(ms=cuda_ms(lambda: kern(*args), 5),
+            fkern = full_kern(m=None, dtype=dtype)
+            r.update(ms=cuda_ms(lambda: fkern(*args), 5),
                      scan_ms=cuda_ms(lambda: kcyl.cylinder_disp(
-                         *args, params, shape=scan), 5),
-                     plain_ms=plain_ms)
+                         *args, full_params, shape=scan), 5),
+                     plain_ms=plain_ms, plain_n_interior=case.grid.n_interior)
             res[f"{name} {dname}"] = r
     # each case's whole scan as its sweep gives it: the ladder in order,
     # m = 1; the kernel at both types beside its bound; twist_v01_p1's
@@ -1741,43 +1852,42 @@ def phase_twisted_disp(out: dict):
                 N_TWIST * (5 * args[0].element_size() + 1), name)
         if case_name != "twist_v01_p1":
             continue
+        # the check at a quarter of the depth
         args = [x.to(torch.float32) for x in (om_f, k_f, m_f)]
-        kres = ph.make_dispersion(m=None, dtype=torch.float32)(*args)
-        plain = ph.make_dispersion_plain(m=None, dtype=torch.float32)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pres = plain(*args)
-        torch.cuda.synchronize()
-        r["plain_float32"] = 1e3 * (time.perf_counter() - t0)
+        sph = CylinderPhysics.from_case(shallower(case))
+        kres = sph.make_dispersion(m=None, dtype=torch.float32)(*args)
+        pres, r["plain_float32"] = _timed_plain(
+            sph.make_dispersion_plain(m=None, dtype=torch.float32), args)
+        r["plain_n_interior"] = sph.case.grid.n_interior
         r["check_float32"] = _compare_disp(
             "twisted cylinder_disp full float32", kres, pres, f64=False)
     res["full_ms"] = full
     # the refine stage's float64 window launch of the twist_v01_p1 float32
     # sweep: the small-batch path (its default) and the scan, each bit-equal
-    # to the plain version
+    # to the plain version at a quarter of the depth, timed at the full one
     case = twisted_cases()["twist_v01_p1"]
-    ph = CylinderPhysics.from_case(case)
     ends, _ = refine_stage(case)
     n = ends[0].numel()
-    kern = ph.make_dispersion(m=None, dtype=torch.float64)
+    kern = CylinderPhysics.from_case(case).make_dispersion(
+        m=None, dtype=torch.float64)
     params = kcyl.disp_params(case)
+    shallow = shallower(case)
+    sph = CylinderPhysics.from_case(shallow)
+    sparams = kcyl.disp_params(shallow)
     scan = kcyl.TW_SCAN_SHAPE[torch.float64]
-    kres = kern(*ends)
-    plain = ph.make_dispersion_plain(m=None, dtype=torch.float64)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pres = plain(*ends)
-    torch.cuda.synchronize()
+    kres = sph.make_dispersion(m=None, dtype=torch.float64)(*ends)
+    pres, plain_ms = _timed_plain(
+        sph.make_dispersion_plain(m=None, dtype=torch.float64), ends)
     res["window float64"] = dict(
         n=n, ms=cuda_ms(lambda: kern(*ends), 5),
         scan_ms=cuda_ms(lambda: kcyl.cylinder_disp(*ends, params,
                                                    shape=scan), 5),
-        plain_ms=1e3 * (time.perf_counter() - t0),
+        plain_ms=plain_ms, plain_n_interior=shallow.grid.n_interior,
         check=_compare_disp("twisted window float64", kres, pres, f64=True,
                             bits=True),
         scan_check=_compare_disp(
             "twisted window float64 scan",
-            kcyl.cylinder_disp(*ends, params, shape=scan), pres, f64=True,
+            kcyl.cylinder_disp(*ends, sparams, shape=scan), pres, f64=True,
             bits=True),
         **bound(cyl_tw_ops(case, n, 1, exterior_args(case, ends[0], ends[1],
                                                      torch.float64)),
@@ -1972,17 +2082,21 @@ def phase_twisted_levels(out: dict):
         r["evals"] = spec_evals(n_iter, final, default.levels)
         r.update(work)
         if what == "refine float64":
-            # the default launch against the plain speculative bisection
-            plain = CylinderPhysics.from_case(case).make_dispersion_plain(
+            # the default launch against the plain speculative bisection,
+            # both at a quarter of the depth on the same brackets
+            shallow = shallower(case)
+            plain = CylinderPhysics.from_case(shallow).make_dispersion_plain(
                 m=None, dtype=dtype)
-            got = kcyl.cylinder_bisect(*br, REFINE_PLAIN_N_ITER, params,
-                                       final)
+            got = kcyl.cylinder_bisect(*br, REFINE_PLAIN_N_ITER,
+                                       kcyl.disp_params(shallow), final,
+                                       shape=default)
             t0 = time.perf_counter()
             want = search.bisect_loop(plain, *br, REFINE_PLAIN_N_ITER, final,
                                       levels=default.levels)
             torch.cuda.synchronize()
             r["plain_ms"] = 1e3 * (time.perf_counter() - t0)
             r["plain_n_iter"] = REFINE_PLAIN_N_ITER
+            r["plain_n_interior"] = shallow.grid.n_interior
             a, b = got[0].cpu().numpy(), want[0].cpu().numpy()
             r["max_abs_err_vs_plain"] = float(np.nanmax(np.abs(a - b)))
             differ = int((~_same_bits(a, b)).sum())
@@ -2508,7 +2622,8 @@ def complex_ptxas() -> dict:
     from eigensolver_tpu_torch.kernels import common
 
     def key_of(name):
-        t = re.search(r"newton_kernelI([fd])Lb([01])ELb([01])EE", name)
+        t = re.search(r"7slab_cx13newton_kernelI([fd])Lb([01])ELb([01])EE",
+                      name)
         if not t:
             return None
         dt = torch.float32 if t.group(1) == "f" else torch.float64
@@ -2578,9 +2693,13 @@ def phase_complex_kernels(out: dict):
     from eigensolver_tpu_torch.physics.slab import SlabPhysics
     from eigensolver_tpu_torch.search import newton_loop
     case, kw = kh_config("kh_w1")
-    ph = SlabPhysics.from_case(case)
     params = kslab.disp_params(case, True)
     n_int = case.grid.n_interior
+    # the checks against the plain versions at a quarter of the depth
+    # (`shallower`), the kernel's times at the case's own
+    shallow = shallower(case)
+    sph = SlabPhysics.from_case(shallow)
+    sparams = kslab.disp_params(shallow, True)
     f64 = torch.float64
 
     def pair(z, dtype=f64):
@@ -2595,12 +2714,12 @@ def phase_complex_kernels(out: dict):
     par = torch.ones_like(kk)
     res = {}
     # slab_newton: n_iter=1 against the plain loop, bit for bit
-    dual = ph.make_dispersion_dual_plain(parity=None)
+    dual = sph.make_dispersion_dual_plain(parity=None)
     t0 = time.perf_counter()
     want = newton_loop(dual, seeds, kk, par, KH_PLAIN_N_ITER)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
-    got = kslab.slab_newton(seeds, kk, par, KH_PLAIN_N_ITER, 1.0, params)
+    got = kslab.slab_newton(seeds, kk, par, KH_PLAIN_N_ITER, 1.0, sparams)
     torch.cuda.synchronize()
     err = _cx_bits("slab_newton n_iter=1", {"re": got.re, "im": got.im},
                    {"re": want.re, "im": want.im})
@@ -2618,8 +2737,8 @@ def phase_complex_kernels(out: dict):
                                            params), 3)
     ms_fused = cuda_ms(lambda: kslab.slab_newton(
         seeds, kk, par, n_iter, 1.0, params, final_eval=True), 3)
-    roots_f, fused = kslab.slab_newton(seeds, kk, par, n_iter, 1.0, params,
-                                       final_eval=True)
+    roots_f, _ = kslab.slab_newton(seeds, kk, par, n_iter, 1.0, params,
+                                   final_eval=True)
     _cx_bits("slab_newton with the final evaluation",
              {"re": roots_f.re, "im": roots_f.im},
              {"re": roots.re, "im": roots.im})
@@ -2645,7 +2764,7 @@ def phase_complex_kernels(out: dict):
         step_non_finite=[r["non_finite"] for r in steps],
         step_tiny_im=[r["tiny_im"] for r in steps],
         plain_ms=1e3 * plain_s, plain_n_iter=KH_PLAIN_N_ITER,
-        max_abs_err=err,
+        plain_n_interior=shallow.grid.n_interior, max_abs_err=err,
         **newton_bound(False),
         bound_3_chains_ms=newton_bound(True)["bound_ms"],
         bound_n_iter_1_ms=bound(cx_ops(n, n_int, dual=True), 48 * n,
@@ -2661,25 +2780,31 @@ def phase_complex_kernels(out: dict):
     if len(z_a) != KH_N_AUDIT:
         raise AssertionError(f"{len(z_a)} contour points, want {KH_N_AUDIT}")
     k_a = np.repeat(np.array([c[0] for c in cells]), paths.shape[1])
-    batches = {"final float64": (roots, kk),
-               "audit float64": (pair(z_a), torch.from_numpy(k_a).cuda()),
+    # the final batch's check on the roots of the Newton launch at the
+    # reduced depth, its times on the main path's roots
+    s_roots, s_fused = kslab.slab_newton(seeds, kk, par, n_iter, 1.0,
+                                         sparams, final_eval=True)
+    batches = {"final float64": (s_roots, kk, roots),
+               "audit float64": (pair(z_a), torch.from_numpy(k_a).cuda(),
+                                 None),
                "ragged float32": (pair(z_a[:N_RAGGED], torch.float32),
                                   torch.from_numpy(k_a[:N_RAGGED]).to(
-                                      "cuda", torch.float32))}
-    for what, (z, kz) in batches.items():
+                                      "cuda", torch.float32), None)}
+    for what, (z_check, kz, z) in batches.items():
+        z = z_check if z is None else z
         dt = kz.dtype
         pz = torch.ones_like(kz)
-        plain = ph.make_dispersion_plain(parity=None, dtype=dt)
+        plain = sph.make_dispersion_plain(parity=None, dtype=dt)
         t0 = time.perf_counter()
-        pr = plain(z, kz, pz)
+        pr = plain(z_check, kz, pz)
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t0
-        kr = kslab.slab_disp_complex(z, kz, pz, params)
+        kr = kslab.slab_disp_complex(z_check, kz, pz, sparams)
         torch.cuda.synchronize()
         # the Newton launch's own value round, held at the roots alike
         for name, r in ((what, kr),) + (
-                (("in the Newton launch", fused),) if what.startswith("final")
-                else ()):
+                (("in the Newton launch", s_fused),)
+                if what.startswith("final") else ()):
             if not torch.equal(r.valid, pr.valid):
                 raise AssertionError(f"slab_disp_complex {name}: valid "
                                      f"differs")
@@ -2694,7 +2819,8 @@ def phase_complex_kernels(out: dict):
         n_bytes = (8 if dt == f64 else 4) * 7 * nz + nz
         res[f"slab_disp_complex {what}"] = dict(
             n=nz, shape=list(common.complex_spec_shape(dt)), ms=ms,
-            plain_ms=1e3 * plain_s, max_abs_err=err,
+            plain_ms=1e3 * plain_s,
+            plain_n_interior=shallow.grid.n_interior, max_abs_err=err,
             finite=float(kr.det.re.isfinite().float().mean()),
             **bound(cx_ops(nz, n_int), n_bytes, tname),
             bound_3_chains_ms=bound(cx_ops(nz, n_int, every_chain=True),
@@ -2873,18 +2999,21 @@ def _cx_variant_kernels(name: str, case, kw: dict) -> dict:
     """Phase 22's kernel checks of one configuration: on the sweep's seeds
     (both parities, seed i at parity i mod 2) slab_newton at n_iter=1 with
     its value round, and the evaluation mode at its roots, bit-equal to
-    the plain Newton loop and the plain value dispersion; the times of
-    the main path's launches (30 steps, with and without the value round,
-    and the audit's contour points in the evaluation mode) beside their
-    bounds."""
+    the plain Newton loop and the plain value dispersion, at a quarter of
+    the depth (`shallower`, as phase 13's plain checks); the times of the
+    main path's launches (30 steps, with and without the value round, and
+    the audit's contour points in the evaluation mode) at full depth
+    beside their bounds."""
     import torch
     from eigensolver_tpu_torch import sweep
     from eigensolver_tpu_torch.kernels import common
     from eigensolver_tpu_torch.kernels import slab as kslab
     from eigensolver_tpu_torch.physics.slab import SlabPhysics
     from eigensolver_tpu_torch.search import newton_loop
-    ph = SlabPhysics.from_case(case)
+    shallow = shallower(case)
+    ph = SlabPhysics.from_case(shallow)
     params = kslab.disp_params(case, True)
+    params_shallow = kslab.disp_params(shallow, True)
     om0, k0 = sweep.complex_seeds(case, kw["n_re"], kw["n_im"])
     seeds, kk = _cx_pairs(om0, k0)
     par = (torch.arange(len(k0), device="cuda") % 2).double()
@@ -2899,8 +3028,8 @@ def _cx_variant_kernels(name: str, case, kw: dict) -> dict:
     torch.cuda.synchronize()
     plain_value_s = time.perf_counter() - t0
     got, res = kslab.slab_newton(seeds, kk, par, CX_PLAIN_N_ITER, 1.0,
-                                 params, final_eval=True)
-    ev = kslab.slab_disp_complex(got, kk, par, params)
+                                 params_shallow, final_eval=True)
+    ev = kslab.slab_disp_complex(got, kk, par, params_shallow)
     torch.cuda.synchronize()
     err = _cx_bits(f"{name} slab_newton n_iter={CX_PLAIN_N_ITER}",
                    {"re": got.re, "im": got.im},
@@ -2939,6 +3068,7 @@ def _cx_variant_kernels(name: str, case, kw: dict) -> dict:
             torch.float64)), ms=ms, ms_final_eval=ms_fe,
         final_eval_ms=ms_fe - ms, plain_ms=1e3 * plain_s,
         plain_n_iter=CX_PLAIN_N_ITER, plain_value_ms=1e3 * plain_value_s,
+        plain_n_interior=shallow.grid.n_interior,
         max_abs_err=err,
         roots_non_finite=int((~fin).sum()),
         roots_tiny_im=int((fin & (roots.im.abs() < 1e-290)).sum()),
@@ -2951,12 +3081,16 @@ def _cx_variant_kernels(name: str, case, kw: dict) -> dict:
             cx_variant_ops(case, n_a), 7 * 8 * n_a + n_a, "float64")))
 
 
-def _check_cx_seeds(name: str, case, kw: dict, rs, target: dict) -> dict:
+def _check_cx_seeds(name: str, case, kw: dict, rs, target: dict,
+                    subset=None, sub_rs=None) -> dict:
     """`_check_kh_seeds` per mode of a tools_torch/cx_slab.py target: the
     sweep's Newton pass again with its final evaluation, one step further;
     the verdicts accept what the sweep accepted; the seeds converged here
     and in the JAX package's run accepted alike; the converged accepted
-    seeds give the target's counts_converged."""
+    seeds give the target's counts_converged. With `subset` (the indices
+    of a tools_torch/cx_cyl.py target's seeds among the sweep's) the
+    verdicts of those seeds, held to `sub_rs`, the sweep of those seeds
+    alone."""
     import torch
     from eigensolver_tpu_torch import search, sweep
     from eigensolver_tpu_torch.roots import dedup_complex_roots
@@ -2964,6 +3098,9 @@ def _check_cx_seeds(name: str, case, kw: dict, rs, target: dict) -> dict:
     om0, k0 = sweep.complex_seeds(case, kw["n_re"], kw["n_im"])
     seeds, kk = _cx_pairs(om0, k0)
     rel = case.tol.dedup_rel
+    sel = np.arange(len(k0)) if subset is None else np.asarray(subset)
+    k_sel = k0[sel]
+    rs = rs if sub_rs is None else sub_rs
     res = {}
     for mode in case.modes:
         b = sweep.MODE_NAMES[mode]
@@ -2975,24 +3112,24 @@ def _check_cx_seeds(name: str, case, kw: dict, rs, target: dict) -> dict:
 
         def host(z):
             return z.re.cpu().numpy() + 1j * z.im.cpu().numpy()
-        om = host(om)
-        acc, conv = kh.seed_verdicts(case, om, host(nxt),
-                                     ev.mismatch_pct.cpu().numpy(),
-                                     ev.valid.cpu().numpy(), k0)
-        if len(dedup_complex_roots(om[acc], k0[acc], rel)[0]) != \
+        om = host(om)[sel]
+        acc, conv = kh.seed_verdicts(case, om, host(nxt)[sel],
+                                     ev.mismatch_pct.cpu().numpy()[sel],
+                                     ev.valid.cpu().numpy()[sel], k_sel)
+        if len(dedup_complex_roots(om[acc], k_sel[acc], rel)[0]) != \
                 rs.counts()[b]:
             raise AssertionError(f"{name} {b}: the seed verdicts give "
                                  f"other roots than the sweep")
-        j_acc = kh.unpack_mask(target["seeds_accepted"][b], len(k0))
-        j_conv = kh.unpack_mask(target["seeds_converged"][b], len(k0))
+        j_acc = kh.unpack_mask(target["seeds_accepted"][b], len(sel))
+        j_conv = kh.unpack_mask(target["seeds_converged"][b], len(sel))
         both = conv & j_conv
         bad = np.flatnonzero(both & (acc != j_acc))
         if len(bad):
             raise AssertionError(f"{name} {b}: seeds {bad[:20].tolist()} "
                                  f"converged here and in JAX's run, "
                                  f"accepted differently")
-        n_conv = kh.converged_count(om, k0, acc, conv, dedup_complex_roots,
-                                    rel)
+        n_conv = kh.converged_count(om, k_sel, acc, conv,
+                                    dedup_complex_roots, rel)
         if n_conv != target["counts_converged"][b]:
             raise AssertionError(f"{name} {b}: the converged accepted seeds "
                                  f"give {n_conv} roots, JAX "
@@ -3353,8 +3490,8 @@ def complex_kernel_entries(res: dict, launches: dict) -> list:
     src = "eigensolver_tpu_torch/csrc/slab_complex.cu"
     nw, w1 = res["slab_newton"], launches["kh_w1"]
     au = res["slab_disp_complex audit float64"]
-    keys = ("n", "ms", "plain_ms", "bound_ms", "bound_3_chains_ms",
-            "max_abs_err")
+    keys = ("n", "ms", "plain_ms", "plain_n_interior", "bound_ms",
+            "bound_3_chains_ms", "max_abs_err")
     return [{
         # the XLA-fused lax.scan of physics/slab.py at complex omega (no
         # Pallas original), the kernel's evaluation mode: the audit's 30,720
@@ -3364,7 +3501,8 @@ def complex_kernel_entries(res: dict, launches: dict) -> list:
         "launches": launches["kh_w1e5"]["slab_disp_complex"],
         "launches_kh_w1": w1["slab_disp_complex"],
         "n": au["n"], "shape": au["shape"], "max_abs_err": au["max_abs_err"],
-        "ms": au["ms"], "plain_ms": au["plain_ms"], "bound_ms": au["bound_ms"],
+        "ms": au["ms"], "plain_ms": au["plain_ms"],
+        "plain_n_interior": au["plain_n_interior"], "bound_ms": au["bound_ms"],
         "bound_by": au["bound_by"], "library_ms": None,
         # the bound counting all 3 chains a step (cx_ops every_chain)
         "bound_3_chains_ms": au["bound_3_chains_ms"],
@@ -3384,6 +3522,7 @@ def complex_kernel_entries(res: dict, launches: dict) -> list:
         "n": nw["n"], "n_iter": nw["n_iter"], "shape": nw["shape"],
         "max_abs_err": nw["max_abs_err"], "ms": nw["ms"],
         "plain_ms": nw["plain_ms"], "plain_n_iter": nw["plain_n_iter"],
+        "plain_n_interior": nw["plain_n_interior"],
         "ms_n_iter_1": nw["ms_n_iter_1"], "chained_ms": nw["chained_ms"],
         "bound_ms": nw["bound_ms"], "bound_by": nw["bound_by"],
         "library_ms": None,
@@ -3401,7 +3540,8 @@ def complex_variant_entries(res: dict, launches: dict) -> list:
     (B2-complex: the density slab's sweep, cx_ph_09, 37,800 seeds a mode)
     and numeric exterior (B6-complex: the KH slab's, kh_w1e5_num, 7,200
     seeds; the density slab's beside), phase 22's times and checks: the
-    Newton launch of 30 steps, float64, the plain loop at n_iter=1."""
+    Newton launch of 30 steps, float64, the plain loop at n_iter=1 at a
+    quarter of the depth (plain_n_interior)."""
     src = "eigensolver_tpu_torch/csrc/slab_complex.cu"
     keys = ("n", "ms", "ms_final_eval", "plain_ms", "bound_ms",
             "bound_3_chains_ms", "max_abs_err", "roots_tiny_im")
@@ -3414,6 +3554,7 @@ def complex_variant_entries(res: dict, launches: dict) -> list:
                 "n": r["n"], "n_iter": r["n_iter"], "shape": r["shape"],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "plain_n_iter": r["plain_n_iter"],
+                "plain_n_interior": r["plain_n_interior"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": None,
                 "bound_3_chains_ms": r["bound_3_chains_ms"],
@@ -3431,6 +3572,448 @@ def complex_variant_entries(res: dict, launches: dict) -> list:
         # ode.rk4_final_renorm on complex states at physics/slab.py:360
         entry("slab_complex_numeric", "eigensolver_tpu/ode.py:75",
               "kh_w1e5_num", "slab_complex_numeric", ("cx_ph_09_num",)),
+    ]
+
+
+# -- phases 24-25: complex omega on the cylinder ------------------------------
+
+def cx_cyl_variant(name: str, **grid):
+    """A variant of phase 24: its case made complex, on `grid` (default the
+    reduced CX_CYL_GRID)."""
+    from eigensolver_tpu_torch import cases
+    fac, kw, exterior = CX_CYL_VARIANTS[name]
+    c = getattr(cases, fac)(**kw)
+    return dataclasses.replace(c, complex_omega=True, grid=dataclasses.replace(
+        c.grid, exterior_method=exterior, **(grid or CX_CYL_GRID)))
+
+
+def cx_cyl_config(name: str):
+    from eigensolver_tpu_torch import cases
+    from tools_torch import cx_cyl
+    return cx_cyl.configure(name, cases)
+
+
+def cx_cyl_kve_ops(z, dual: bool = False) -> int:
+    """Operations of the K_m ratio at complex z (a `cplx.C` on the card),
+    each argument at the branch it takes (|z| < 2: the series)."""
+    from eigensolver_tpu_torch.cplx import cabs
+    f = "cyl_cx_dual_" if dual else "cyl_cx_"
+    n = z.re.numel()
+    small = int((cabs(z) < 2).sum())
+    return (small * OPS[f + "kve_series"]
+            + (n - small) * OPS[f + "kve_cf2"] + n * OPS[f + "kve_ends"])
+
+
+def cx_cyl_ops(case, n: int, dual: bool = False, n_iter: int = 1) -> int:
+    """Operations of n_iter complex cylinder shoots on each of n seeds (the
+    value pass, or the dual pass and the Newton step): the interior, the
+    log tail and the exterior of the case's chain, the K_m ratio at its
+    cheaper branch (a lower bound; `cx_cyl_kve_ops` counts the branches
+    where the arguments are known)."""
+    from eigensolver_tpu_torch.physics.cylinder import is_twisted, log_tail
+    gr = case.grid
+    d = "dual_" if dual else ""
+    f = "cyl_cx_" + d
+    if is_twisted(case):
+        per = gr.n_interior * OPS["cyl_tw_cx_" + d + "step"]
+        ends = OPS["cyl_tw_cx_" + d + "ends"]
+    else:
+        per = (gr.n_interior * OPS[f + "step"]
+               + log_tail(case) * gr.n_axis_log * OPS[f + "log_step"])
+        ends = OPS[f + "ends"]
+    if gr.exterior_method == "numeric":
+        # the numeric exterior's ends in place of the exact one's
+        ends += (OPS[f + "num_ends"] - OPS[f + "ends"]
+                 + gr.n_exterior * OPS[f + "ext_step"])
+    else:
+        ends += OPS[f + "kve_ends"] + min(OPS[f + "kve_series"],
+                                          OPS[f + "kve_cf2"])
+    return n * n_iter * (per + ends + (OPS["slab_cx_newton"] if dual else 0))
+
+
+def cx_cyl_ptxas() -> dict:
+    """Registers and spill bytes of the cylinder's complex-omega kernel
+    (csrc/cylinder_complex.cu::newton_kernel<T, kTw, kNum>) and of its K_m
+    ratio alone, keyed by type, chain and exterior."""
+    import re
+
+    def key_of(name):
+        t = re.search(r"6cyl_cx13newton_kernelI([fd])Lb([01])ELb([01])EE",
+                      name)
+        if t:
+            return (f"newton_kernel {_type_name(t.group(1))} "
+                    f"{'twisted' if t.group(2) == '1' else 'plain'} "
+                    f"{'numeric' if t.group(3) == '1' else 'exact'}")
+        t = re.search(r"6cyl_cx10kve_kernelI([fd])E", name)
+        return f"kve_kernel {_type_name(t.group(1))}" if t else None
+    entries = ptxas_entries(key_of)
+    if len(entries) != 10:
+        raise AssertionError(f"complex cylinder kernels' instantiations: "
+                             f"{sorted(entries)}")
+    return entries
+
+
+def _cx_cyl_draws(case, n: int, seed: int, dtype):
+    """n seeds as the sweep spreads them (phase speeds over the case's
+    speed edges, Im omega over +-imag_band, k over its range, m 0 or 1)."""
+    import torch
+    from eigensolver_tpu_torch.cplx import C
+    rng = np.random.default_rng(seed)
+    v = np.asarray(case.sorted_speeds())
+    k = rng.uniform(case.k_min, case.k_max, n)
+    re = rng.uniform(v[0], v[-1], n) * k
+    im = rng.uniform(-case.imag_band, case.imag_band, n)
+    m = rng.integers(0, 2, n).astype(np.float64)
+
+    def t(a):
+        return torch.from_numpy(a).to("cuda", dtype)
+    return C(t(re), t(im)), t(k), t(m)
+
+
+def _cx_cyl_same(what: str, res, want) -> float:
+    """Hold a CylinderInterface at complex omega bit-equal to want's."""
+    import torch
+    if not torch.equal(res.valid, want.valid):
+        raise AssertionError(f"{what}: valid differs")
+    return _cx_bits(what, {"det_re": res.det.re, "det_im": res.det.im,
+                           "mismatch": res.mismatch_pct},
+                    {"det_re": want.det.re, "det_im": want.det.im,
+                     "mismatch": want.mismatch_pct})
+
+
+def _cx_cyl_rows(res, rows):
+    """The CylinderInterface of res's candidates `rows` (a slice)."""
+    from eigensolver_tpu_torch.cplx import C
+    return type(res)(C(res.det.re[rows], res.det.im[rows]),
+                     res.mismatch_pct[rows], res.valid[rows])
+
+
+def phase_complex_cylinder_kernels(out: dict) -> None:
+    """Phase 24 (see the module's docstring)."""
+    import torch
+    from eigensolver_tpu_torch import special, sweep
+    from eigensolver_tpu_torch.cplx import C, cabs, csqrt, where
+    from eigensolver_tpu_torch.kernels import bessel
+    from eigensolver_tpu_torch.kernels import cylinder as kcyl
+    from eigensolver_tpu_torch.physics.cylinder import CylinderPhysics
+    from eigensolver_tpu_torch.search import newton_loop
+    res = {}
+    for name in CX_CYL_VARIANTS:
+        case = cx_cyl_variant(name)
+        params = kcyl.disp_params(case)
+        ph = CylinderPhysics.from_case(case)
+        for dtype in (torch.float32, torch.float64):
+            dt = str(dtype).split(".")[1]
+            om, k, m = _cx_cyl_draws(case, CX_CYL_N_CHECK, 5, dtype)
+            dual = ph.make_dispersion_dual_plain(m=None, dtype=dtype)
+            plain = ph.make_dispersion_plain(m=None, dtype=dtype)
+            om13, k13, m13 = _cx_cyl_draws(case, 13, 7, dtype)
+            # the plain Newton loop, then one plain evaluation of its roots
+            # and of 13 more draws (the plain version's time is set by the
+            # chain's serial steps, not by the batch)
+            t0 = time.perf_counter()
+            want = newton_loop(dual, om, k, m, CX_CYL_PLAIN_N_ITER)
+            both = plain(C(torch.cat([want.re, om13.re]),
+                           torch.cat([want.im, om13.im])),
+                         torch.cat([k, k13]), torch.cat([m, m13]))
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            n = CX_CYL_N_CHECK
+            at_roots = _cx_cyl_rows(both, slice(0, n))
+            plain13 = _cx_cyl_rows(both, slice(n, None))
+            before = read_counters()
+            got, r = kcyl.cylinder_newton(om, k, m, CX_CYL_PLAIN_N_ITER, 1.0,
+                                          params, final_eval=True)
+            ev = kcyl.cylinder_disp_complex(got, k, m, params)
+            ev13 = kcyl.cylinder_disp_complex(om13, k13, m13, params)
+            torch.cuda.synchronize()
+            err = _cx_bits(f"phase 24 {name} {dt} cylinder_newton",
+                           {"re": got.re, "im": got.im},
+                           {"re": want.re, "im": want.im})
+            err = max(err, _cx_cyl_same(f"phase 24 {name} {dt} value round",
+                                        r, at_roots),
+                      _cx_cyl_same(f"phase 24 {name} {dt} evaluation", ev,
+                                   at_roots))
+            err = max(err, _cx_cyl_same(
+                f"phase 24 {name} {dt} ragged evaluation", ev13, plain13))
+            twisted = name in ("twist", "magnetic", "twist_numeric")
+            numeric = name.endswith("numeric")
+            check_launches(f"phase 24 {name} {dt}", counts_since(before), {
+                "cylinder_newton": 1, "cylinder_disp_complex": 2,
+                "cylinder_complex_twisted": 3 * twisted,
+                "cylinder_complex_numeric": 3 * numeric})
+            ms = cuda_ms(lambda: kcyl.cylinder_newton(
+                om, k, m, CX_CYL_PLAIN_N_ITER, 1.0, params,
+                final_eval=True), 3)
+            ops = (cx_cyl_ops(case, n, True, CX_CYL_PLAIN_N_ITER)
+                   + cx_cyl_ops(case, n))
+            r = dict(n=n, n_iter=CX_CYL_PLAIN_N_ITER, grid=CX_CYL_GRID,
+                     max_abs_err=err, ms=ms, plain_ms=1e3 * plain_s,
+                     finite=float(torch.isfinite(got.re).float().mean()),
+                     **bound(ops, 73 * n, dt))
+            line(f"phase 24 {name} {dt} kernel vs plain", **r)
+            res[f"{name} {dt}"] = r
+    # B1 at complex z alone, on the exterior arguments sqrt(m_e) of the
+    # cx_cyl_co_09 sweep's seeds (both modes)
+    case, kw = cx_cyl_config("cx_cyl_co_09")
+    om0, k0 = sweep.complex_seeds(case, kw["n_re"], kw["n_im"])
+    for dtype in (torch.float32, torch.float64):
+        dt = str(dtype).split(".")[1]
+        seeds, kk = _cx_pairs(np.tile(om0, 2), np.tile(k0, 2), dtype)
+        mm = torch.cat([torch.zeros(len(k0)), torch.ones(len(k0))]).to(
+            "cuda", dtype)
+        m_e, _, _ = CylinderPhysics.from_case(case).complex_m_e(seeds, kk)
+        z = csqrt(m_e)
+        ok = z.re.isfinite() & z.im.isfinite() & (z.re > 0)
+        z = C(z.re[ok].contiguous(), z.im[ok].contiguous())
+        mm = mm[ok].contiguous()
+        bessel.complex_launches = 0
+
+        def plain_kve():
+            r0, r1 = special.kve_ratio_both_c(z)
+            return where(mm < 0.5, r0, r1)
+        t0 = time.perf_counter()
+        want = plain_kve()
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        got = bessel.kve_ratio_complex(z, mm)
+        torch.cuda.synchronize()
+        if bessel.complex_launches != 1:
+            raise AssertionError("kve_ratio_complex: launches")
+        err = _cx_bits(f"phase 24 kve_ratio_complex {dt}",
+                       {"re": got.re, "im": got.im},
+                       {"re": want.re, "im": want.im})
+        n = z.re.numel()
+        r = dict(n=n, max_abs_err=err,
+                 ms=cuda_ms(lambda: bessel.kve_ratio_complex(z, mm), 5),
+                 plain_ms=1e3 * plain_s,
+                 series=int((cabs(z) < 2).sum()),
+                 **bound(cx_cyl_kve_ops(z), 5 * n * (4 if dt == "float32"
+                                                     else 8), dt))
+        line(f"phase 24 kve_ratio_complex {dt}", **r)
+        res[f"kve {dt}"] = r
+    res["ptxas"] = cx_cyl_ptxas()
+    line("phase 24 ptxas", **res["ptxas"])
+    out["complex_cylinder_kernels"] = res
+
+
+def _event_ms(fn):
+    """fn()'s result and its device ms (CUDA events around the one call)."""
+    import torch
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
+def _cx_cyl_main_launches(case, kw: dict, modes=None) -> dict:
+    """The main path's launches of a complex cylinder sweep timed on the
+    card: the Newton launch of the sweep's seeds (30 steps, with the value
+    round after a warm-up, then without) per mode (of `modes`, default the
+    case's), and the audit's contour points in the evaluation mode, each
+    beside its bound."""
+    import torch
+    from eigensolver_tpu_torch import sweep
+    from eigensolver_tpu_torch.kernels import cylinder as kcyl
+    params = kcyl.disp_params(case)
+    om0, k0 = sweep.complex_seeds(case, kw["n_re"], kw["n_im"])
+    seeds, kk = _cx_pairs(om0, k0)
+    n, n_iter = len(k0), kw["newton_iters"]
+    r = dict(n=n, n_iter=n_iter)
+    for mode in modes or case.modes:
+        mm = torch.full_like(kk, float(mode))
+        ms_fe = cuda_ms(lambda: kcyl.cylinder_newton(
+            seeds, kk, mm, n_iter, 1.0, params, final_eval=True), 1)
+        roots, ms = _event_ms(lambda: kcyl.cylinder_newton(
+            seeds, kk, mm, n_iter, 1.0, params))
+        fin = roots.re.isfinite() & roots.im.isfinite()
+        r[f"m{mode}"] = dict(
+            ms=ms, ms_final_eval=ms_fe, final_eval_ms=ms_fe - ms,
+            roots_non_finite=int((~fin).sum()),
+            roots_tiny_im=int((fin & (roots.im.abs() < 1e-290)).sum()),
+            **bound(cx_cyl_ops(case, n, True, n_iter), 48 * n, "float64"),
+            bound_final_eval_ms=bound(
+                cx_cyl_ops(case, n, True, n_iter) + cx_cyl_ops(case, n),
+                73 * n, "float64")["bound_ms"])
+    cells, paths, _, _ = sweep.audit_contours(
+        np.asarray(case.k_grid()), np.asarray(case.sorted_speeds()),
+        case.imag_band)
+    z_a, k_a = _cx_pairs(paths.reshape(-1),
+                         np.repeat(np.array([c[0] for c in cells]),
+                                   paths.shape[1]))
+    m_a = torch.full_like(k_a, float(case.modes[-1]))
+    n_a = k_a.numel()
+    r["audit"] = dict(n=n_a, ms=cuda_ms(
+        lambda: kcyl.cylinder_disp_complex(z_a, k_a, m_a, params), 2),
+        **bound(cx_cyl_ops(case, n_a), 73 * n_a, "float64"))
+    return r
+
+
+def phase_complex_cylinder(out: dict) -> dict:
+    """Phase 25 (see the module's docstring): the launches of each sweep's
+    counted run."""
+    from eigensolver_tpu_torch import sweep
+    from tools_torch import cx_cyl
+    res, launches = {}, {}
+    for name in CX_CYL:
+        case, kw = cx_cyl_config(name)
+        r = _cx_cyl_main_launches(case, kw)
+        line(f"phase 25 {name} launches", **r)
+        twisted = case.twist_profile is not None
+        n_modes = len(case.modes)
+        reset_counters()
+        rs, stats = sweep.run_case_complex(case, **kw, device="cuda")
+        launches[name] = read_counters()
+        check_launches(f"{name} path", launches[name], {
+            "cylinder_newton": n_modes, "cylinder_disp_complex": n_modes,
+            "cylinder_complex_twisted": 2 * n_modes * twisted})
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            sweep.run_case_complex(case, **kw, device="cuda")
+            walls.append(time.perf_counter() - t0)
+        for br in rs.branches.values():
+            if not (np.all(np.isfinite(br.omegas))
+                    and np.all(np.isfinite(br.omegas_imag))):
+                raise AssertionError(f"{name}: non-finite roots")
+        comp = stats.completeness
+        if comp["missed"] or comp["agree"] != comp["checked"]:
+            raise AssertionError(f"{name}: completeness {comp}")
+        # the JAX package's targets, on every k_stride-th k: the same
+        # sweep on those k, and the full sweep's seeds of those k per seed
+        target = cx_cyl.TARGETS[name]
+        stride = target["k_stride"]
+        sub_case = cx_cyl.strided(case, stride)
+        sub_rs, sub_stats = sweep.run_case_complex(sub_case, **kw,
+                                                   device="cuda")
+        if sub_stats.n_candidates != target["candidates"]:
+            raise AssertionError(f"{name}: {sub_stats.n_candidates} seeds")
+        seeds = _check_cx_seeds(name, case, kw, rs, target,
+                                subset=cx_cyl.subset_seeds(
+                                    case, stride, kw["n_re"], kw["n_im"]),
+                                sub_rs=sub_rs)
+        exact = {b: target["counts_converged"][b] == n
+                 for b, n in target["counts"].items()}
+        for b, n in sub_rs.counts().items():
+            if exact[b] and n != target["counts"][b]:
+                raise AssertionError(f"{name} {b}: {n} roots on every "
+                                     f"{stride}th k, JAX "
+                                     f"{target['counts'][b]}")
+        margin = 0.05 * case.imag_band
+        off_axis = {b: int(np.sum(np.abs(br.omegas_imag) > margin))
+                    for b, br in sub_rs.branches.items()}
+        if off_axis != target["counts_off_axis"]:
+            raise AssertionError(f"{name}: off-axis counts {off_axis}, JAX "
+                                 f"{target['counts_off_axis']}")
+        if sub_stats.completeness != target["completeness"]:
+            raise AssertionError(f"{name}: completeness "
+                                 f"{sub_stats.completeness}, JAX "
+                                 f"{target['completeness']}")
+        r.update(sweep=dict(
+            wall_s=statistics.median(walls), walls=walls,
+            first_wall_s=stats.wall_s, counts=rs.counts(),
+            completeness=comp, launches=launches[name],
+            k_stride=stride, counts_strided=sub_rs.counts(),
+            counts_jax=target["counts"], counts_exact=exact,
+            counts_off_axis=off_axis, seeds=seeds))
+        line(f"phase 25 {name} sweep", **r["sweep"])
+        res[name] = r
+    # the numeric exterior (B6-complex) on the density cylinder: the
+    # Newton launch at cx_cyl_co_09's size, and a sweep of its own on
+    # every 30th k (its launches)
+    case, kw = cx_cyl_config("cx_cyl_co_09")
+    num = dataclasses.replace(case, grid=dataclasses.replace(
+        case.grid, exterior_method="numeric"))
+    r = _cx_cyl_main_launches(num, kw, modes=(1,))
+    reset_counters()
+    sub = cx_cyl.strided(num, 30)
+    rs, stats = sweep.run_case_complex(sub, **kw, device="cuda")
+    launches["numeric"] = read_counters()
+    check_launches("cx_cyl_co_09 numeric path", launches["numeric"], {
+        "cylinder_newton": 2, "cylinder_disp_complex": 2,
+        "cylinder_complex_numeric": 4})
+    r.update(sweep=dict(wall_s=stats.wall_s, counts=rs.counts(),
+                        completeness=stats.completeness, k_stride=30,
+                        launches=launches["numeric"]))
+    line("phase 25 cx_cyl_co_09 numeric", **r)
+    res["numeric"] = r
+    out["complex_cylinder"] = res
+    return launches
+
+
+def complex_cylinder_entries(res: dict, kres: dict, launches: dict) -> list:
+    """The kernels JSON entries of the cylinder's complex-omega kernel
+    (phases 24-25): the Newton launch of the density cylinder (B7 with
+    B4-complex and B1 at complex z; cx_cyl_co_09, 129,600 seeds a mode, 30
+    steps, float64), of the twisted one (B4-twisted at complex omega;
+    cx_twist_v01_p1, 36,000), with the numeric exterior (B6-complex; the
+    density cylinder's seeds), and the K_m ratio at complex z alone (B1);
+    each plain_ms is the plain version's time on phase 24's reduced check
+    (its n, depth and steps beside)."""
+    src = "eigensolver_tpu_torch/csrc/cylinder_complex.cu"
+
+    def entry(name, replaces, main, mode, variant, key, other=None):
+        r = res[main][f"m{mode}"]
+        p = kres[f"{variant} float64"]
+        e = {"name": name, "route": "cuda", "source": src,
+             "replaces": replaces, "launches": launches[key[0]][key[1]],
+             "n": res[main]["n"], "n_iter": res[main]["n_iter"],
+             "max_abs_err": p["max_abs_err"], "ms": r["ms"],
+             "plain_ms": p["plain_ms"],
+             "plain_check": {k: p[k] for k in ("n", "n_iter", "grid", "ms",
+                                               "bound_ms")},
+             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+             "library_ms": None, "ms_final_eval": r["ms_final_eval"],
+             "bound_final_eval_ms": r["bound_final_eval_ms"],
+             "roots_tiny_im": r["roots_tiny_im"],
+             "float32_check": {k: kres[f"{variant} float32"][k]
+                               for k in ("max_abs_err", "ms", "plain_ms")},
+             "audit": res[main]["audit"]}
+        if other:
+            e.update(other)
+        return e
+    kve = kres["kve float64"]
+    return [
+        # the XLA-fused disp of physics/cylinder.py at complex omega under
+        # search.newton_complex's jax.jvp (no Pallas original)
+        entry("cylinder_newton", "eigensolver_tpu/search.py:581",
+              "cx_cyl_co_09", 1, "density", ("cx_cyl_co_09",
+                                             "cylinder_newton"),
+              {"m0": res["cx_cyl_co_09"]["m0"],
+               "disp_complex_launches": launches["cx_cyl_co_09"][
+                   "cylinder_disp_complex"]}),
+        # the twisted chain at complex omega (coefficients with twisted_c1,
+        # jax.jvp of r C1/C3)
+        entry("cylinder_newton_twisted",
+              "eigensolver_tpu/physics/cylinder.py:138", "cx_twist_v01_p1",
+              1, "twist", ("cx_twist_v01_p1", "cylinder_complex_twisted")),
+        # ode.rk4_final on complex states at physics/cylinder.py:319
+        entry("cylinder_newton_numeric", "eigensolver_tpu/ode.py:22",
+              "numeric", 1, "density_numeric",
+              ("numeric", "cylinder_complex_numeric")),
+        {
+            # special.kve_ratio_both at complex z: inlined in the Newton
+            # kernel's exact exterior (its launches those of the density
+            # and twisted sweeps), timed alone on the cx_cyl_co_09 seeds'
+            # sqrt(m_e)
+            "name": "kve_ratio_complex", "route": "cuda",
+            "source": "eigensolver_tpu_torch/csrc/kve_complex.cuh",
+            "replaces": "eigensolver_tpu/special.py:109",
+            "inlined_in": "cylinder_newton",
+            "launches": sum(launches[nm]["cylinder_newton"]
+                            + launches[nm]["cylinder_disp_complex"]
+                            for nm in CX_CYL),
+            "n": kve["n"], "series": kve["series"],
+            "max_abs_err": kve["max_abs_err"], "ms": kve["ms"],
+            "plain_ms": kve["plain_ms"], "bound_ms": kve["bound_ms"],
+            "bound_by": kve["bound_by"],
+            # torch.special has no K_m at complex z
+            "library_ms": None,
+            "float32": {k: kres["kve float32"][k]
+                        for k in ("ms", "plain_ms", "bound_ms")}},
     ]
 
 
@@ -3872,16 +4455,12 @@ def main() -> int:
     phase_slab_disp(out)
     slab_launches = phase_slab_sweep(out)
     from eigensolver_tpu_torch import cases
-    from eigensolver_tpu_torch.physics.cylinder import CylinderPhysics
-    from eigensolver_tpu_torch.physics.slab import SlabPhysics
     cyl_case = cases.cylinder_density_coronal(0.9)
     slab_case = cases.slab_density_photospheric(0.9)
     flow_case = cases.slab_flow_gaussian_coronal()
     cg, sg, fg = cyl_case.grid, slab_case.grid, flow_case.grid
     # the K_m ratio of each evaluation counted at the bracket's lower end
     phase_bisect(out, "phase 8 cylinder_bisect", "cylinder_bisect", cyl_case,
-                 lambda dt: CylinderPhysics.from_case(
-                     cyl_case).make_dispersion_plain(m=None, dtype=dt),
                  N_BR_CYL,
                  lambda br, dt, ne: cyl_ops(
                      br[0].numel(), ne, cg.n_interior, cg.n_axis_log,
@@ -3890,15 +4469,11 @@ def main() -> int:
                  chain="cylinder")
     _, slab_refine = refine_stage(slab_case)
     phase_bisect(out, "phase 9 slab_bisect flux", "slab_bisect", slab_case,
-                 lambda dt: SlabPhysics.from_case(
-                     slab_case).make_dispersion_plain(parity=None, dtype=dt),
                  N_BR_SLAB,
                  lambda br, dt, ne: slab_ops(br[0].numel(), ne,
                                              sg.n_interior),
                  refine=slab_refine, chain="slab")
     phase_bisect(out, "phase 9 slab_bisect shear", "slab_bisect", flow_case,
-                 lambda dt: SlabPhysics.from_case(
-                     flow_case).make_dispersion_plain(parity=None, dtype=dt),
                  N_BR_FLOW,
                  lambda br, dt, ne: slab_ops(br[0].numel(), ne,
                                              fg.n_interior, shear=True),
@@ -3907,10 +4482,7 @@ def main() -> int:
     tw_launches, tw_refined_launches = phase_twisted_sweep(out)
     tw_case = twisted_cases()["twist_v01_p1"]
     phase_bisect(out, "phase 12 twisted cylinder_bisect", "cylinder_bisect",
-                 tw_case,
-                 lambda dt: CylinderPhysics.from_case(
-                     tw_case).make_dispersion_plain(m=None, dtype=dt),
-                 N_BR_TWIST,
+                 tw_case, N_BR_TWIST,
                  lambda br, dt, ne: cyl_tw_ops(
                      tw_case, br[0].numel(), ne,
                      exterior_args(tw_case, br[0], br[2], dt)),
@@ -3930,6 +4502,8 @@ def main() -> int:
         phase_eigenfunctions(out, sets)
         cx_launches = phase_complex_slab(out)
         phase_sharded(out, Path(tmp))
+    phase_complex_cylinder_kernels(out)
+    cx_cyl_launches = phase_complex_cylinder(out)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
@@ -3981,6 +4555,7 @@ def main() -> int:
         "n": N_TWIST,
         "max_abs_err": tw["check_float32"]["max_abs_err_det"],
         "ms": tw["float32"], "plain_ms": tw["plain_float32"],
+        "plain_n_interior": tw["plain_n_interior"],
         **tw["bound_float32"],
         "library_ms": None,
         "float64_ms": tw["float64"],
@@ -4004,6 +4579,7 @@ def main() -> int:
         "n": tw_win["n"],
         "max_abs_err": tw_win["check"]["max_abs_err_det"],
         "ms": tw_win["ms"], "plain_ms": tw_win["plain_ms"],
+        "plain_n_interior": tw_win["plain_n_interior"],
         "bound_ms": tw_win["bound_ms"], "bound_by": tw_win["bound_by"],
         "library_ms": None,
         "scan_ms": tw_win["scan_ms"],
@@ -4085,6 +4661,7 @@ def main() -> int:
         "ms": cbis["ms"],
         "plain_ms": cbis["plain_ms"],
         "plain_n_iter": PLAIN_N_ITER,
+        "plain_n_interior": cbis["plain_n_interior"],
         "ms_plain_n_iter": cbis["ms_plain_n_iter"],
         "launch_loop_ms": cbis["loop_ms"],
         "bound_ms": cbis["bound_ms"],
@@ -4106,6 +4683,7 @@ def main() -> int:
         "ms": tbis["float32"]["ms"],
         "plain_ms": tbis["float32"]["plain_ms"],
         "plain_n_iter": TWIST_PLAIN_N_ITER,
+        "plain_n_interior": tbis["float32"]["plain_n_interior"],
         "ms_plain_n_iter": tbis["float32"]["ms_plain_n_iter"],
         "launch_loop_ms": tbis["float32"]["loop_ms"],
         "bound_ms": tbis["float32"]["bound_ms"],
@@ -4117,7 +4695,7 @@ def main() -> int:
         "refine_float64": {k: tlev["refine float64"][k] for k in (
             "n", "n_iter", "default", "ms", "bound_ms", "evals_needed",
             "evals", "loop_ms", "plain_ms", "plain_n_iter",
-            "max_abs_err_vs_plain")},
+            "plain_n_interior", "max_abs_err_vs_plain")},
     }, {
         # on slab_ph_09's 5,040 brackets (flux form): spec_kernel over
         # slab::SpecChain<T, kShear, false> (the x-only table, the exact
@@ -4134,6 +4712,7 @@ def main() -> int:
         "ms": sbis["ms"],
         "plain_ms": sbis["plain_ms"],
         "plain_n_iter": PLAIN_N_ITER,
+        "plain_n_interior": sbis["plain_n_interior"],
         "ms_plain_n_iter": sbis["ms_plain_n_iter"],
         "launch_loop_ms": sbis["loop_ms"],
         "bound_ms": sbis["bound_ms"],
@@ -4155,6 +4734,9 @@ def main() -> int:
                                       tw_num_launches)
     kernels += complex_kernel_entries(out["complex_kernels"], kh_launches)
     kernels += complex_variant_entries(out["complex_slab"], cx_launches)
+    kernels += complex_cylinder_entries(out["complex_cylinder"],
+                                        out["complex_cylinder_kernels"],
+                                        cx_cyl_launches)
     # the launches of phase 19's checkpointed paths (slab_ph_09 and
     # cyl_co_09 at float32, kh_w1e5), beside each main path's own
     ck_path = {"slab_disp": "slab_ph_09 float32",

@@ -11,9 +11,10 @@ Ported, every compute entry on an explicit device:
   tubes, with the f64 refinement, the reference-parity options (numeric
   exteriors, continuum masks, fuzz acceptance, the pole pre-filter) and the
   band-edge (needle) pass;
-- the complex-omega sweeps (`sweep.run_case_complex`) of every slab case,
-  the Kelvin-Helmholtz growth rates and the density slabs, with the exact
-  or the numeric exterior, with the argument-principle audit;
+- the complex-omega sweeps (`sweep.run_case_complex`) of every slab and
+  cylinder case: the Kelvin-Helmholtz growth rates, the density slabs,
+  the density, axial-flow and twisted cylinders, with the exact or the
+  numeric exterior, with the argument-principle audit;
 - the sharded sweep (`parallel.run_case_sharded`): a real-omega sweep's
   rows split over several devices, and over processes joined by
   `parallel.init_distributed`;
@@ -32,10 +33,13 @@ The hand-written CUDA kernels for sm_90a (`csrc/`, built at first use by
 with its twisted variant and the fused bisection `cylinder_bisect`
 (`kernels.cylinder`), the slab scan `slab_disp` (paired, and its numeric-
 exterior variants) and the fused bisection `slab_bisect` (`kernels.slab`),
-and the complex-omega kernel behind `slab_newton` and `slab_disp_complex`
-(the shear and the flux form, either exterior). On a CPU tensor each
-wrapper runs its kernel's plain PyTorch version.
+the complex-omega kernel behind `slab_newton` and `slab_disp_complex`
+(the shear and the flux form, either exterior), and the cylinder's behind
+`cylinder_newton` and `cylinder_disp_complex` (every chain, the K_m ratio
+at complex z or the numeric exterior). On a CPU tensor each wrapper runs
+its kernel's plain PyTorch version.
 
-Not ported: complex omega in the cylinder (ROADMAP A10b: the dispersion
-raises naming it).
+Not ported to the card: power-law density or flow profiles and twist
+profiles other than power laws, which no case uses (ROADMAP A 2; the
+plain versions run them on the CPU).
 """

@@ -15,10 +15,12 @@ registry:
 `--device` (default "cuda") is the device of every compute call (the
 sweeps, the eigenfunction shoots); a CUDA device that is not there is an
 error, never a quiet run on the CPU (`--device cpu` runs there). `--x64`
-sweeps in float64 (default float32). `sweep --complex` is the
-Kelvin-Helmholtz growth-rate sweep (float64); its pickle has the
-reference's kink-only 2-array layout, which drops the growth rates
-(`roots.save_pickle`), so keep them with `--checkpoint`. `sweep --sharded`
+sweeps in float64 (default float32). `sweep --complex` makes the case
+complex and runs the complex-omega sweep (float64): the Kelvin-Helmholtz
+growth rates, or any slab or cylinder case; a kink-only set (the KH case,
+a twisted cylinder at `--mode 1`) has the reference's 2-array pickle
+layout, which drops the growth rates (`roots.save_pickle`), so keep them
+with `--checkpoint`. `sweep --sharded`
 splits the sweep's rows over every visible card of the `--device` type
 (`parallel.run_case_sharded` on `parallel.make_mesh`; one block on the CPU),
 with the same roots as the one-device sweep.

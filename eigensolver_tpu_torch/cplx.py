@@ -26,6 +26,7 @@ kernels repeat in the same order (built with `--fmad=false`):
                          XLA's complex sqrt gives for either sign of zero
     |a + bi|             m sqrt(1 + (n/m)^2), m = max(|a|, |b|), n = min
     angle(a + bi)        atan2(b, a)
+    log(a + bi)          (log|z|, atan2(b, a)), |z| as above
 
 A division is split into `divisor(z)` (rat and scl: the two real divisions,
 which depend on the divisor alone) and its application to a numerator (six
@@ -182,6 +183,11 @@ def csqrt(z: C) -> C:
 def angle(z: C) -> torch.Tensor:
     """The argument, atan2(im, re)."""
     return torch.atan2(z.im, z.re)
+
+
+def clog(z: C) -> C:
+    """The principal logarithm (log|z|, atan2(im, re)), |z| from `cabs`."""
+    return C(torch.log(cabs(z)), torch.atan2(z.im, z.re))
 
 
 def is_zero(z: C) -> torch.Tensor:

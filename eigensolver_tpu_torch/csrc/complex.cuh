@@ -63,6 +63,20 @@ template <class T>
 __device__ __forceinline__ Cx<T> operator-(Cx<T> a, T r) {
   return {a.re - r, a.im};
 }
+// a + r and r + a (cplx.C.__add__, __radd__): (a.re + r, a.im)
+template <class T>
+__device__ __forceinline__ Cx<T> operator+(Cx<T> a, T r) {
+  return {a.re + r, a.im};
+}
+template <class T>
+__device__ __forceinline__ Cx<T> operator+(T r, Cx<T> a) {
+  return {a.re + r, a.im};
+}
+// a / r for a real r, one division a part (dual.divn)
+template <class T>
+__device__ __forceinline__ Cx<T> operator/(Cx<T> a, T r) {
+  return {a.re / r, a.im / r};
+}
 
 // The divisions of a quotient by one divisor (cplx.Divisor)
 template <class T>
@@ -158,11 +172,103 @@ __device__ __forceinline__ CDual<T> operator*(T r, CDual<T> a) {
   return {r * a.v, r * a.d};
 }
 
+// A constant c added, subtracted or multiplied (dual.Dual's constant
+// rules): (a + c)' = a', (c - a)' = -a', (a c)' = a' c
+template <class T>
+__device__ __forceinline__ CDual<T> operator+(CDual<T> a, T c) {
+  return {a.v + c, a.d};
+}
+template <class T>
+__device__ __forceinline__ CDual<T> operator+(T c, CDual<T> a) {
+  return {a.v + c, a.d};
+}
+template <class T>
+__device__ __forceinline__ CDual<T> operator-(CDual<T> a, T c) {
+  return {a.v - c, a.d};
+}
+template <class T>
+__device__ __forceinline__ CDual<T> operator-(T c, CDual<T> a) {
+  return {c - a.v, -a.d};
+}
+template <class T>
+__device__ __forceinline__ CDual<T> operator*(CDual<T> a, T c) {
+  return {a.v * c, a.d * c};
+}
+template <class T>
+__device__ __forceinline__ CDual<T> operator/(CDual<T> a, T c) {
+  return {a.v / c, a.d / c};
+}
+
+// The quotients of dual.quot and dual.rquot: a / b, and r / b for a real r,
+// of complex values or complex duals; a dual's two parts share b's
+// divisions: q = a / b, ((a' - q b') / b); r / b: (-(q b')) / b
+template <class T>
+__device__ __forceinline__ Cx<T> quot(Cx<T> a, Cx<T> b) {
+  return a / cdivisor(b);
+}
+template <class T>
+__device__ __forceinline__ CDual<T> quot(CDual<T> a, CDual<T> b) {
+  const CDiv<T> ib = cdivisor(b.v);
+  const Cx<T> q = a.v / ib;
+  return {q, (a.d - q * b.d) / ib};
+}
+template <class T>
+__device__ __forceinline__ Cx<T> rquot(T r, Cx<T> b) {
+  return r / cdivisor(b);
+}
+template <class T>
+__device__ __forceinline__ CDual<T> rquot(T r, CDual<T> b) {
+  const CDiv<T> ib = cdivisor(b.v);
+  const Cx<T> q = r / ib;
+  return {q, (-(q * b.d)) / ib};
+}
+
+// cplx.clog: (log|z|, atan2(im, re)); of a dual, log(a)' = a' / a (dual.dlog)
+template <class T>
+__device__ __forceinline__ Cx<T> wlog(Cx<T> z) {
+  return {log(cabs(z)), atan2(z.im, z.re)};
+}
+template <class T>
+__device__ __forceinline__ CDual<T> wlog(CDual<T> z) {
+  return {wlog(z.v), z.d / cdivisor(z.v)};
+}
+
+// The value of a complex dual, or z
+template <class T>
+__device__ __forceinline__ Cx<T> value(Cx<T> z) {
+  return z;
+}
+template <class T>
+__device__ __forceinline__ Cx<T> value(CDual<T> z) {
+  return z.v;
+}
+
+// A real constant r as a complex value or dual (derivative 0)
+template <class W>
+struct Const;
+template <class T>
+struct Const<Cx<T>> {
+  __device__ static Cx<T> of(T r) { return {r, T(0)}; }
+};
+template <class T>
+struct Const<CDual<T>> {
+  __device__ static CDual<T> of(T r) { return {{r, T(0)}, {T(0), T(0)}}; }
+};
+
 // dual.dsqrt of a complex dual: (s, a' / (2 s)), s the principal root
 template <class T>
 __device__ __forceinline__ CDual<T> dcsqrt(CDual<T> a) {
   const Cx<T> s = csqrt(a.v);
   return {s, a.d / (T(2) * s)};
+}
+
+template <class T>
+__device__ __forceinline__ Cx<T> wsqrt(Cx<T> a) {
+  return csqrt(a);
+}
+template <class T>
+__device__ __forceinline__ CDual<T> wsqrt(CDual<T> a) {
+  return dcsqrt(a);
 }
 
 }  // namespace eigk

@@ -1,8 +1,10 @@
 // Device code shared by the cylinder kernels: the case's parameters
-// (CylDispParams), a candidate (Cand), the RK4 step of the two-basis
+// (CylDispParams), a candidate (Cand), the chains' r-only values (RPoint,
+// RowPoint; the twisted RPointTw), the RK4 step of the two-basis
 // system, the integration grid and the end of the shoot (finish). The
-// density/axial-flow chain's kernels (cylinder_disp.cu) and the twisted
-// chain's (cylinder_twisted.cu) include it; cylinder_disp.cu's C entries
+// density/axial-flow chain's kernels (cylinder_disp.cu), the twisted
+// chain's (cylinder_twisted.cu) and the complex-omega ones
+// (cylinder_complex.cu) include it; cylinder_disp.cu's C entries
 // call the twisted launchers declared at the end when
 // CylDispParams::twisted is set.
 #pragma once
@@ -56,6 +58,115 @@ struct Cand {
       : omega(omega_), k(k_), m(m_), kB0(k_ * T(p.B_0)), k2(k_ * k_),
         mm(m_ * m_) {}
 };
+
+// The values of the Hain-Lust chain that depend on the radius alone
+// (cylinder.py:113-127; equilibrium.py:225-242 inline): one entry of the
+// r-only table. 16-byte aligned, so a thread reads an entry in a few
+// vector loads; a candidate whose row is tabled reads the first three.
+template <class T>
+struct alignas(16) RPoint {
+  T r, rho, rho_csum, U, rr, sqrt_rho, ci, csum, sqrt_csum;
+};
+
+template <class T>
+__device__ __forceinline__ RPoint<T> r_point(const CylDispParams& p, T r) {
+  RPoint<T> q;
+  T vA;
+  density_speeds(p.rho, p.uniform_density, p.vA_i0, p.c_i0, p.rho_i0,
+                 p.c2_num, p.half_g, r, q.rho, vA, q.ci);
+  q.U = p.zero_flow ? T(0) : profile(p.flow, r);
+  q.r = r;
+  q.rr = r * r;
+  q.sqrt_rho = sqrt(q.rho);
+  q.csum = q.ci * q.ci + vA * vA;
+  q.sqrt_csum = sqrt(q.csum);
+  q.rho_csum = q.rho * q.csum;
+  return q;
+}
+
+// The values of the chain that depend on (k, m, r) and not on omega
+// (cylinder.py:181-190): k U, alf^2 and cusp^2 (alf = k B_z / sqrt(rho),
+// cusp = alf c_i / sqrt(c_i^2 + vA^2)) and X = (c_i^2 + vA^2) (m^2/r^2 +
+// k^2); one entry of the scan's row table. Three of an evaluation's five
+// divisions are here.
+template <class T>
+struct alignas(16) RowPoint {
+  T kU, alf2, cusp2, X;
+};
+
+template <class T>
+__device__ __forceinline__ RowPoint<T> row_point(const RPoint<T>& q,
+                                                 const Cand<T>& c) {
+  RowPoint<T> w;
+  w.kU = c.k * q.U;                         // m v_phi/r + k U
+  const T alf = c.kB0 / q.sqrt_rho;         // m B_phi/r + k B_z/sqrt(rho)
+  const T cusp = alf * q.ci / q.sqrt_csum;
+  w.alf2 = alf * alf;
+  w.cusp2 = cusp * cusp;
+  w.X = q.csum * (c.mm / q.rr + c.k2);
+  return w;
+}
+
+// The twisted chain's r-only values (physics/cylinder.py::TwistedPoint),
+// with the r-derivatives that r C1/C3 needs and the reciprocals of the
+// chain's r-only divisors: 21 values, 96 / 176 bytes.
+template <class T>
+struct alignas(16) RPointTw {
+  T r, rho, isr;
+  Dual<T> iR, v, b, Bz, csum, cr, U, rdc, iRR;
+};
+
+// A twist profile (v_phi, B_phi: profiles.make_profile with f0 = fe = 0)
+// or its derivative of `order` 1 or 2: a power law, with its powers as
+// profiles.power forms them, or uniform 0 (the wrapper refuses other kinds)
+template <class T>
+__device__ __forceinline__ T tw_profile(const ProfileParams& p, T x,
+                                        int order) {
+  if (p.kind != kPowerLaw) return order == 0 ? T(p.f0) : T(0);
+  if (order == 0) return T(p.amplitude) * tpow(x, p.power);
+  if (order == 1) return T(p.d1) * tpow(x, p.power_m1);
+  return T(p.d2) * tpow(x, p.power_m2);
+}
+
+// physics/cylinder.py::twisted_point_fn, operation for operation: the
+// profiles and their closed-form derivatives, then dual arithmetic; C3diff'
+// and its derivative from x = B_phi/r, y = v_phi/r and their derivatives
+template <class T>
+__device__ __forceinline__ RPointTw<T> r_point_tw(const CylDispParams& p,
+                                                  T r) {
+  RPointTw<T> q;
+  const Dual<T> R{r, T(1)};
+  q.r = r;
+  q.iR = drcp(R);
+  q.rho = T(p.rho_i0);
+  const T sqrt_rho = sqrt(q.rho);
+  q.isr = T(1) / sqrt_rho;
+  const T rho_a2 = q.rho * T(p.amp2);
+  const Dual<T> P{rho_a2 * (tpow(r, p.pw2) / T(p.pw2)) + T(p.P_0),
+                  rho_a2 * tpow(r, p.pw2_m1)};
+  const Dual<T> ci = dsqrt(P * T(p.gamma) / q.rho);
+  const Dual<T> b{tw_profile(p.bphi, r, 0), tw_profile(p.bphi, r, 1)};
+  q.b = b;
+  q.Bz = T(p.B_0) * dsqrt(T(1) - T(2) * (b * b / T(p.B0_sq)));
+  const Dual<T> vA = (q.Bz + b) / sqrt_rho;
+  q.csum = ci * ci + vA * vA;
+  q.cr = ci / dsqrt(q.csum);
+  const Dual<T> v{tw_profile(p.vphi, r, 0), tw_profile(p.vphi, r, 1)};
+  q.v = v;
+  const T x = b.v / r;
+  const T x1 = (b.d - x) / r;
+  const T y = v.v / r;
+  const T y1 = (v.d - y) / r;
+  const Dual<T> X1{x1, (tw_profile(p.bphi, r, 2) - T(2) * x1) / r};
+  const Dual<T> Y1{y1, (tw_profile(p.vphi, r, 2) - T(2) * y1) / r};
+  const Dual<T> dC = T(2) * Dual<T>{x, x1} * X1
+                   - q.rho * (T(2) * Dual<T>{y, y1} * Y1);
+  q.U = p.zero_flow ? Dual<T>{T(0), T(0)}
+                    : Dual<T>{profile(p.flow, r), profile_d1(p.flow, r)};
+  q.rdc = R * dC;
+  q.iRR = drcp(R * R);
+  return q;
+}
 
 // One step of `_rk4_linear2` (cylinder.py:50-85): classical RK4 for the
 // two-basis linear system d(P, w)/dx = (w iF, g P) with the coefficients at

@@ -98,54 +98,6 @@
 
 namespace eigk {
 
-// The values of the Hain-Lust chain that depend on the radius alone
-// (cylinder.py:113-127; equilibrium.py:225-242 inline): one entry of the
-// r-only table. 16-byte aligned, so a thread reads an entry in a few
-// vector loads; a candidate whose row is tabled reads the first three.
-template <class T>
-struct alignas(16) RPoint {
-  T r, rho, rho_csum, U, rr, sqrt_rho, ci, csum, sqrt_csum;
-};
-
-template <class T>
-__device__ __forceinline__ RPoint<T> r_point(const CylDispParams& p, T r) {
-  RPoint<T> q;
-  T vA;
-  density_speeds(p.rho, p.uniform_density, p.vA_i0, p.c_i0, p.rho_i0,
-                 p.c2_num, p.half_g, r, q.rho, vA, q.ci);
-  q.U = p.zero_flow ? T(0) : profile(p.flow, r);
-  q.r = r;
-  q.rr = r * r;
-  q.sqrt_rho = sqrt(q.rho);
-  q.csum = q.ci * q.ci + vA * vA;
-  q.sqrt_csum = sqrt(q.csum);
-  q.rho_csum = q.rho * q.csum;
-  return q;
-}
-
-// The values of the chain that depend on (k, m, r) and not on omega
-// (cylinder.py:181-190): k U, alf^2 and cusp^2 (alf = k B_z / sqrt(rho),
-// cusp = alf c_i / sqrt(c_i^2 + vA^2)) and X = (c_i^2 + vA^2) (m^2/r^2 +
-// k^2); one entry of the scan's row table. Three of an evaluation's five
-// divisions are here.
-template <class T>
-struct alignas(16) RowPoint {
-  T kU, alf2, cusp2, X;
-};
-
-template <class T>
-__device__ __forceinline__ RowPoint<T> row_point(const RPoint<T>& q,
-                                                 const Cand<T>& c) {
-  RowPoint<T> w;
-  w.kU = c.k * q.U;                         // m v_phi/r + k U
-  const T alf = c.kB0 / q.sqrt_rho;         // m B_phi/r + k B_z/sqrt(rho)
-  const T cusp = alf * q.ci / q.sqrt_csum;
-  w.alf2 = alf * alf;
-  w.cusp2 = cusp * cusp;
-  w.X = q.csum * (c.mm / q.rr + c.k2);
-  return w;
-}
-
 // D, A, C2 of the Hain-Lust chain at the radius of q (cylinder.py:110-168
 // with v_phi == B_phi == 0): the part that depends on omega
 template <class T>

@@ -60,67 +60,6 @@
 
 namespace eigk {
 
-// The twisted chain's r-only values (physics/cylinder.py::TwistedPoint),
-// with the r-derivatives that r C1/C3 needs and the reciprocals of the
-// chain's r-only divisors: 21 values, 96 / 176 bytes.
-template <class T>
-struct alignas(16) RPointTw {
-  T r, rho, isr;
-  Dual<T> iR, v, b, Bz, csum, cr, U, rdc, iRR;
-};
-
-// A twist profile (v_phi, B_phi: profiles.make_profile with f0 = fe = 0)
-// or its derivative of `order` 1 or 2: a power law, with its powers as
-// profiles.power forms them, or uniform 0 (the wrapper refuses other kinds)
-template <class T>
-__device__ __forceinline__ T tw_profile(const ProfileParams& p, T x,
-                                        int order) {
-  if (p.kind != kPowerLaw) return order == 0 ? T(p.f0) : T(0);
-  if (order == 0) return T(p.amplitude) * tpow(x, p.power);
-  if (order == 1) return T(p.d1) * tpow(x, p.power_m1);
-  return T(p.d2) * tpow(x, p.power_m2);
-}
-
-// physics/cylinder.py::twisted_point_fn, operation for operation: the
-// profiles and their closed-form derivatives, then dual arithmetic; C3diff'
-// and its derivative from x = B_phi/r, y = v_phi/r and their derivatives
-template <class T>
-__device__ __forceinline__ RPointTw<T> r_point_tw(const CylDispParams& p,
-                                                  T r) {
-  RPointTw<T> q;
-  const Dual<T> R{r, T(1)};
-  q.r = r;
-  q.iR = drcp(R);
-  q.rho = T(p.rho_i0);
-  const T sqrt_rho = sqrt(q.rho);
-  q.isr = T(1) / sqrt_rho;
-  const T rho_a2 = q.rho * T(p.amp2);
-  const Dual<T> P{rho_a2 * (tpow(r, p.pw2) / T(p.pw2)) + T(p.P_0),
-                  rho_a2 * tpow(r, p.pw2_m1)};
-  const Dual<T> ci = dsqrt(P * T(p.gamma) / q.rho);
-  const Dual<T> b{tw_profile(p.bphi, r, 0), tw_profile(p.bphi, r, 1)};
-  q.b = b;
-  q.Bz = T(p.B_0) * dsqrt(T(1) - T(2) * (b * b / T(p.B0_sq)));
-  const Dual<T> vA = (q.Bz + b) / sqrt_rho;
-  q.csum = ci * ci + vA * vA;
-  q.cr = ci / dsqrt(q.csum);
-  const Dual<T> v{tw_profile(p.vphi, r, 0), tw_profile(p.vphi, r, 1)};
-  q.v = v;
-  const T x = b.v / r;
-  const T x1 = (b.d - x) / r;
-  const T y = v.v / r;
-  const T y1 = (v.d - y) / r;
-  const Dual<T> X1{x1, (tw_profile(p.bphi, r, 2) - T(2) * x1) / r};
-  const Dual<T> Y1{y1, (tw_profile(p.vphi, r, 2) - T(2) * y1) / r};
-  const Dual<T> dC = T(2) * Dual<T>{x, x1} * X1
-                   - q.rho * (T(2) * Dual<T>{y, y1} * Y1);
-  q.U = p.zero_flow ? Dual<T>{T(0), T(0)}
-                    : Dual<T>{profile(p.flow, r), profile_d1(p.flow, r)};
-  q.rdc = R * dC;
-  q.iRR = drcp(R * R);
-  return q;
-}
-
 // The twisted chain at the radius of q (physics/cylinder.py::twisted_chain,
 // cylinder.py:110-208 with C1's shift^2): D, C1, A, B, C3 and r C1/C3 with
 // their r-derivatives, C2 and 1/C3 without

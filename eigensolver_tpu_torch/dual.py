@@ -28,12 +28,30 @@ kernels compute once per abscissa. `over` is the quotient by a dual whose
 value's reciprocal is at hand: the quotient rule with its two divisions as
 products by that reciprocal, so x/0 and x (1/0) give the same inf or NaN
 wherever the divisor is 0.
+
+At complex omega the cylinder's Newton pass carries duals of complex pairs
+through its whole shoot (`physics/cylinder.py`), and a constant (a tensor
+or a Python number) may be added to or subtracted from such a dual: (a +
+c)' = a'. `quot`, `rquot`, `dlog` and `dwhere` take a complex pair or a
+dual of one alike; their rules, operation for operation as the kernels
+(`csrc/complex.cuh`) repeat them:
+
+    q = a / b:   (a' - q b') / b, both quotients by b's divisions
+    q = r / b:   (-(q b')) / b   (r a Python float)
+    log(a)' = a' / a
+
+The twisted chain's d(r C1/C3)/dr at complex omega is a dual in r whose
+value and derivative are complex, or on the Newton pass duals in omega of
+complex pairs: an `RDual`. Its other operands are the chain's r-only
+values, `Dual`s of real tensors, and constants; the rules are those above,
+so its derivative's derivative is the mixed d^2/dr domega.
 """
 from __future__ import annotations
 
 import torch
 
-from .cplx import C, csqrt
+from .cplx import C, clog, csqrt, divisor
+from .cplx import where as cwhere
 from .profiles import div, rdiv, sqrt
 
 
@@ -49,11 +67,22 @@ class Dual:
         self.v = v
         self.d = d
 
-    def __add__(self, o: "Dual"):
-        return Dual(self.v + o.v, self.d + o.d)
+    def __add__(self, o):
+        if isinstance(o, Dual):
+            return Dual(self.v + o.v, self.d + o.d)
+        if isinstance(o, RDual):
+            return NotImplemented
+        return Dual(self.v + o, self.d)
 
-    def __sub__(self, o: "Dual"):
-        return Dual(self.v - o.v, self.d - o.d)
+    def __radd__(self, o):
+        return Dual(o + self.v, self.d)
+
+    def __sub__(self, o):
+        if isinstance(o, Dual):
+            return Dual(self.v - o.v, self.d - o.d)
+        if isinstance(o, RDual):
+            return NotImplemented
+        return Dual(self.v - o, self.d)
 
     def __rsub__(self, o):
         return Dual(o - self.v, -self.d)
@@ -64,6 +93,8 @@ class Dual:
     def __mul__(self, o):
         if isinstance(o, Dual):
             return Dual(self.v * o.v, self.d * o.v + self.v * o.d)
+        if isinstance(o, RDual):
+            return NotImplemented
         return Dual(self.v * o, self.d * o)
 
     def __rmul__(self, o):
@@ -97,3 +128,98 @@ def over(a: Dual, b: Dual, ib: torch.Tensor) -> Dual:
     """a / b with ib = 1/b.v: q = a.v ib, (a' - q b') ib."""
     q = a.v * ib
     return Dual(q, (a.d - q * b.d) * ib)
+
+
+class RDual:
+    """A dual in r of complex values, or of `Dual`s of them in omega (the
+    twisted chain at complex omega); the other operand of an operation is
+    an RDual, a `Dual` of real tensors (an r-only value) or a constant."""
+    __slots__ = ("v", "d")
+
+    def __init__(self, v, d):
+        self.v = v
+        self.d = d
+
+    def __add__(self, o):
+        if isinstance(o, (RDual, Dual)):
+            return RDual(self.v + o.v, self.d + o.d)
+        return RDual(self.v + o, self.d)
+
+    def __radd__(self, o):
+        if isinstance(o, Dual):
+            return RDual(o.v + self.v, o.d + self.d)
+        return RDual(o + self.v, self.d)
+
+    def __sub__(self, o):
+        if isinstance(o, (RDual, Dual)):
+            return RDual(self.v - o.v, self.d - o.d)
+        return RDual(self.v - o, self.d)
+
+    def __rsub__(self, o):
+        if isinstance(o, Dual):
+            return RDual(o.v - self.v, o.d - self.d)
+        return RDual(o - self.v, -self.d)
+
+    def __neg__(self):
+        return RDual(-self.v, -self.d)
+
+    def __mul__(self, o):
+        if isinstance(o, (RDual, Dual)):
+            return RDual(self.v * o.v, self.d * o.v + self.v * o.d)
+        return RDual(self.v * o, self.d * o)
+
+    def __rmul__(self, o):
+        if isinstance(o, Dual):
+            return RDual(o.v * self.v, o.d * self.v + o.v * self.d)
+        return RDual(o * self.v, o * self.d)
+
+
+def quot(a, b):
+    """a / b for complex pairs (b's divisions shared by both parts of a
+    dual) or duals of them (a may be a complex constant)."""
+    if isinstance(b, Dual):
+        ib = divisor(b.v)
+        if not isinstance(a, Dual):
+            q = a / ib
+            return Dual(q, (-(q * b.d)) / ib)
+        q = a.v / ib
+        return Dual(q, (a.d - q * b.d) / ib)
+    return a / divisor(b)
+
+
+def rquot(r: float, b):
+    """r / b for a Python float r and a complex pair or a dual of one."""
+    if isinstance(b, Dual):
+        ib = divisor(b.v)
+        q = ib.rquot(r)
+        return Dual(q, (-(q * b.d)) / ib)
+    return divisor(b).rquot(r)
+
+
+def divn(z, n):
+    """z / n for a real n (a Python number or a tensor), one IEEE division
+    a real part."""
+    if isinstance(z, Dual):
+        return Dual(divn(z.v, n), divn(z.d, n))
+    if isinstance(n, torch.Tensor):
+        return C(z.re / n, z.im / n)
+    return C(div(z.re, n), div(z.im, n))
+
+
+def dlog(z):
+    """The principal logarithm of a complex pair or of a dual of one."""
+    if isinstance(z, Dual):
+        return Dual(clog(z.v), z.d / divisor(z.v))
+    return clog(z)
+
+
+def dwhere(mask: torch.Tensor, a, b):
+    """torch.where on complex pairs or on duals of them, part by part."""
+    if isinstance(a, Dual):
+        return Dual(cwhere(mask, a.v, b.v), cwhere(mask, a.d, b.d))
+    return cwhere(mask, a, b)
+
+
+def value(z):
+    """The value of a dual, or z."""
+    return z.v if isinstance(z, Dual) else z

@@ -46,6 +46,10 @@ _SPEC_ARGS = ((_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I,
 #  C, S, params, device, stream)
 _NEWTON_ARGS = ((_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P, _P, _P, _P,
                  _I, ctypes.c_double, _I, _I, _I, _I, _P, _I, _P), _I)
+# the cylinder's: (om_re, om_im, k, m, out_re, out_im, n, det_re, det_im,
+#  mism, valid, n_iter, damping, final_eval, params, device, stream)
+_CYL_NEWTON_ARGS = ((_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P, _P, _P,
+                     _P, _I, ctypes.c_double, _I, _P, _I, _P), _I)
 _SIGNATURES = {
     # name: (argtypes, restype)
     "eigk_kve_ratio_f32": ((_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P),
@@ -67,6 +71,13 @@ _SIGNATURES = {
     # (f64, kind, threads, min_blocks, smem, out[3])
     "eigk_cylinder_tw_attrs": ((_I, _I, _I, _I, ctypes.c_longlong, _P), _I),
     "eigk_cylinder_params_size": ((), ctypes.c_longlong),
+    # (z_re, z_im, m, out_re, out_im, n, device, stream)
+    "eigk_kve_ratio_complex_f32": ((_P, _P, _P, _P, _P, ctypes.c_longlong,
+                                    _I, _P), _I),
+    "eigk_kve_ratio_complex_f64": ((_P, _P, _P, _P, _P, ctypes.c_longlong,
+                                    _I, _P), _I),
+    "eigk_cylinder_newton_f32": _CYL_NEWTON_ARGS,
+    "eigk_cylinder_newton_f64": _CYL_NEWTON_ARGS,
     # (device, out[2])
     "eigk_cylinder_scan_tabled": ((_I, _P), _I),
     # (f64, chunk)

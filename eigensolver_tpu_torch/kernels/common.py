@@ -416,3 +416,59 @@ def launch_spec(name: str, entries: dict, size_fn: str, struct,
                 ctypes.c_void_p(stream))
         _build.check(code, f"{name} kernel")
     return (out0, out1, valid) if evaluate else (out0, out1)
+
+
+def as_pair(omega):
+    """A complex tensor as a `cplx.C` (a `cplx.C` as it is)."""
+    from ..cplx import C
+    return omega if isinstance(omega, C) else C.of(omega)
+
+
+def launch_complex(name: str, entries: dict, size_fn: str, struct, omega, k,
+                   col, n_iter, damping: float, final_eval: bool,
+                   shape_args: tuple, interface):
+    """One launch of a complex-omega kernel (the slab's `slab_newton`
+    entries, the cylinder's `cylinder_newton`) on the current stream, none
+    for 0 seeds: n_iter Newton rounds (None: the evaluation mode), then
+    with final_eval the value round. omega a `cplx.C` of two contiguous 1-D
+    CUDA tensors of float32 or float64, k and col (the parity or m) alike;
+    shape_args the kernel's launch-shape arguments after final_eval.
+    Returns (the final omega, a `cplx.C`, or None; the value round's
+    `interface` (det, mismatch_pct, valid) or None)."""
+    from ..cplx import C
+    re = omega.re
+    if re.dtype not in entries:
+        raise TypeError(f"{name} takes float32/float64 pairs, not {re.dtype}")
+    for arg, t in (("omega.im", omega.im), ("k", k), ("the mode", col)):
+        if t.device != re.device or t.dtype != re.dtype or t.shape != re.shape:
+            raise ValueError(f"{name}: {arg} must match omega.re in device, "
+                             f"dtype and shape")
+    if re.dim() != 1 or not all(
+            t.is_contiguous() for t in (re, omega.im, k, col)):
+        raise ValueError(f"{name} kernel needs contiguous 1-D tensors")
+    if n_iter is not None and n_iter < 0:
+        raise ValueError(f"{name}: n_iter must be >= 0, not {n_iter}")
+    lib = _build.library()
+    if getattr(lib, size_fn)() != ctypes.sizeof(struct):
+        raise RuntimeError(f"{name}: parameter struct layout differs between "
+                           f"Python and CUDA")
+    out = (None if n_iter is None
+           else C(torch.empty_like(re), torch.empty_like(re)))
+    res = (interface(det=C(torch.empty_like(re), torch.empty_like(re)),
+                     mismatch_pct=torch.empty_like(re),
+                     valid=torch.empty(re.shape, dtype=torch.bool,
+                                       device=re.device))
+           if final_eval else None)
+    if re.numel():
+        def ptr(t):
+            return ctypes.c_void_p(None if t is None else t.data_ptr())
+        o = (None, None) if out is None else (out.re, out.im)
+        r = ((None,) * 4 if res is None else
+             (res.det.re, res.det.im, res.mismatch_pct, res.valid))
+        stream = torch.cuda.current_stream(re.device).cuda_stream
+        code = getattr(lib, entries[re.dtype])(
+            *map(ptr, (re, omega.im, k, col, *o)), re.numel(), *map(ptr, r),
+            int(n_iter or 0), float(damping), int(final_eval), *shape_args,
+            ctypes.byref(struct), re.device.index, ctypes.c_void_p(stream))
+        _build.check(code, f"{name} kernel")
+    return out, res

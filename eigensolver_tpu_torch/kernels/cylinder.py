@@ -28,6 +28,16 @@ consumer lane a candidate), and the speculative fused bisection
 (`common.spec_shape`: the loop's schedule for a batch that fills the card,
 L levels a round on 2^L lanes a bracket for a smaller one).
 
+At complex omega one more kernel (`csrc/cylinder_complex.cu`) serves two
+wrappers: `cylinder_newton` (kernel B7 on the cylinder: every damped Newton
+step of a seed batch in one launch, one thread a seed, each step a shoot on
+duals in omega; with final_eval the roots' evaluation is its last round)
+and `cylinder_disp_complex`, its evaluation mode, the shoot on complex
+pairs (`cplx.C`): the non-twisted chain (B4-complex) or the twisted one
+(B4-twisted at complex omega), with the K_m ratio at complex z (B1 at
+complex z, `csrc/kve_complex.cuh`) or the numeric exterior (B6-complex),
+as the parameters pick.
+
 A CPU tensor goes to the plain version
 (`physics.cylinder.CylinderPhysics.make_dispersion_plain`, and
 `search.bisect_loop` over it); CUDA float32/float64 contiguous tensors go to
@@ -41,9 +51,10 @@ import torch
 
 from ..config import CaseConfig, ProfileConfig, ProfileKind
 from .common import (EXTERIOR_FIELDS, ProfileParams, ScanShape, SpecShape,
-                     analytic_spec_shape, check_scan_shape,
-                     density_flow_params, exterior_params, launch_disp,
-                     launch_spec, numeric_spec_shape, profile_params)
+                     analytic_spec_shape, as_pair, check_scan_shape,
+                     density_flow_params, exterior_params, launch_complex,
+                     launch_disp, launch_spec, numeric_spec_shape,
+                     profile_params)
 
 # launches of the kernels since the last reset (one per kernel launch):
 # cylinder_disp (of them, small_launches through the twisted fused
@@ -51,6 +62,13 @@ from .common import (EXTERIOR_FIELDS, ProfileParams, ScanShape, SpecShape,
 launches = 0
 small_launches = 0
 bisect_launches = 0
+# complex omega: the Newton launches (cylinder_newton) and the evaluations
+# (cylinder_disp_complex); of either, those of the twisted chain and those
+# with the numeric exterior
+newton_launches = 0
+complex_launches = 0
+complex_twisted_launches = 0
+complex_numeric_launches = 0
 
 # C entries by dtype; each runs the chain that the parameters' `twisted`
 # names
@@ -64,6 +82,10 @@ _SPEC_ENTRY = {torch.float32: "eigk_cylinder_spec_f32",
 # the density/axial-flow chain's fused bisection, with either exterior
 _BISECT_SPEC_ENTRY = {torch.float32: "eigk_cylinder_bisect_spec_f32",
                       torch.float64: "eigk_cylinder_bisect_spec_f64"}
+# complex omega, every chain and exterior: Newton rounds, the value round,
+# or both
+_NEWTON_ENTRY = {torch.float32: "eigk_cylinder_newton_f32",
+                 torch.float64: "eigk_cylinder_newton_f64"}
 
 
 class _CylParams(ctypes.Structure):
@@ -288,3 +310,65 @@ def cylinder_bisect(lo: torch.Tensor, hi: torch.Tensor, k: torch.Tensor,
                           shape or rule(lo.numel(), lo.dtype, eb))
     bisect_launches += lo.numel() > 0
     return out
+
+
+# -- complex omega ----------------------------------------------------------
+
+def _launch_complex(name: str, omega, k, m, params: DispParams, n_iter,
+                    damping: float, final_eval: bool):
+    """One launch of the complex-omega kernel (`common.launch_complex`) in
+    the case's chain and exterior."""
+    global complex_twisted_launches, complex_numeric_launches
+    from ..physics.cylinder import CylinderInterface
+    out = launch_complex(name, _NEWTON_ENTRY, "eigk_cylinder_params_size",
+                         params.struct, omega, k, m, n_iter, damping,
+                         final_eval, (), CylinderInterface)
+    if omega.re.numel():
+        complex_twisted_launches += bool(params.struct.twisted)
+        complex_numeric_launches += bool(params.struct.exterior_numeric)
+    return out
+
+
+def cylinder_disp_complex(omega, k: torch.Tensor, m: torch.Tensor,
+                          params: DispParams):
+    """CylinderInterface(det, mismatch_pct, valid) of 1-D candidate tensors
+    at complex omega (a `cplx.C` of two real tensors, or a complex tensor;
+    k, m of its real dtype and device), det a `cplx.C`: on the card one
+    launch of the complex-omega kernel in its evaluation mode, on the CPU
+    the plain version."""
+    global complex_launches
+    omega = as_pair(omega)
+    if omega.re.device.type == "cpu":
+        return _plain(params, omega.re.dtype)(omega, k, m)
+    _, res = _launch_complex("cylinder_disp_complex", omega, k, m, params,
+                             None, 1.0, True)
+    complex_launches += omega.re.numel() > 0
+    return res
+
+
+def cylinder_newton(omega0, k: torch.Tensor, m: torch.Tensor, n_iter: int,
+                    damping: float, params: DispParams,
+                    final_eval: bool = False):
+    """n_iter damped Newton steps in complex omega of every seed (omega0 a
+    `cplx.C` or a complex tensor; k, m of its real dtype and device): the
+    final omega, a `cplx.C`; with final_eval, (omega, the
+    CylinderInterface of the value dispersion there). A CUDA tensor
+    launches the complex-omega kernel once, the final evaluation its last
+    round; a CPU tensor runs `search.newton_loop` over the plain dual
+    shoot, then the plain value dispersion."""
+    global newton_launches
+    omega0 = as_pair(omega0)
+    if omega0.re.device.type == "cpu":
+        from ..physics.cylinder import CylinderPhysics
+        from ..search import newton_loop
+        dual = CylinderPhysics.from_case(
+            params.case).make_dispersion_dual_plain(m=None,
+                                                    dtype=omega0.re.dtype)
+        om = newton_loop(dual, omega0, k, m, n_iter, damping)
+        if not final_eval:
+            return om
+        return om, _plain(params, omega0.re.dtype)(om, k, m)
+    out, res = _launch_complex("cylinder_newton", omega0, k, m, params,
+                               n_iter, damping, final_eval)
+    newton_launches += omega0.re.numel() > 0
+    return (out, res) if final_eval else out

@@ -50,9 +50,10 @@ import torch
 from ..config import CaseConfig, ProfileKind
 from . import _build
 from .common import (_SMS, EXTERIOR_FIELDS, ComplexShape, ProfileParams,
-                     ScanShape, analytic_spec_shape, check_complex_shape,
-                     check_scan_shape, complex_spec_shape,
-                     density_flow_params, exterior_params, launch_disp,
+                     ScanShape, analytic_spec_shape, as_pair,
+                     check_complex_shape, check_scan_shape,
+                     complex_spec_shape, density_flow_params,
+                     exterior_params, launch_complex, launch_disp,
                      launch_spec, numeric_spec_shape)
 
 # launches of the kernels since the last reset (one per kernel launch):
@@ -267,74 +268,27 @@ def slab_bisect(lo: torch.Tensor, hi: torch.Tensor, k: torch.Tensor,
     return out
 
 
-def _complex_args(name: str, omega, k, parity, params):
-    """Check the complex kernel's inputs: omega a `cplx.C` of two contiguous
-    1-D CUDA tensors of float32 or float64, k and parity alike."""
-    if omega.re.dtype not in _NEWTON_ENTRY:
-        raise TypeError(f"{name} takes float32/float64 pairs, not "
-                        f"{omega.re.dtype}")
-    for arg, t in (("omega.im", omega.im), ("k", k), ("parity", parity)):
-        if (t.device != omega.re.device or t.dtype != omega.re.dtype
-                or t.shape != omega.re.shape):
-            raise ValueError(f"{name}: {arg} must match omega.re in device, "
-                             f"dtype and shape")
-    ts = (omega.re, omega.im, k, parity)
-    if omega.re.dim() != 1 or not all(t.is_contiguous() for t in ts):
-        raise ValueError(f"{name} kernel needs contiguous 1-D tensors")
-    s = params.struct
-    lib = _build.library()
-    if lib.eigk_slab_params_size() != ctypes.sizeof(s):
-        raise RuntimeError(f"{name}: parameter struct layout differs between "
-                           f"Python and CUDA")
-    return lib
-
-
-def _launch_complex(name: str, omega, k, parity, params, n_iter: int,
+def _launch_complex(name: str, omega, k, parity, params, n_iter,
                     damping: float, final_eval: bool, shape):
-    """One launch of the complex-omega kernel on the current stream (no
-    launch for 0 seeds): n_iter Newton rounds, then with final_eval the
-    value round, in the case's form and exterior. Returns (the final
-    omega, a `cplx.C`, or None in the evaluation mode, n_iter None; the
-    value round's SlabInterface or None)."""
+    """One launch of the complex-omega kernel (`common.launch_complex`) in
+    the case's form and exterior, block shape `shape` (default
+    `common.complex_spec_shape`)."""
     global complex_flux_launches, complex_numeric_launches
-    from ..cplx import C
     from ..physics.slab import SlabInterface
-    lib = _complex_args(name, omega, k, parity, params)
-    re = omega.re
-    n = re.numel()
+    dtype = omega.re.dtype
     shear = bool(params.struct.shear)
-    shape = ComplexShape(*(shape or complex_spec_shape(re.dtype)))
-    check_complex_shape(name, shape, re.dtype, shear)
-    if n_iter is not None and n_iter < 0:
-        raise ValueError(f"{name}: n_iter must be >= 0, not {n_iter}")
-    out = (None if n_iter is None
-           else C(torch.empty_like(re), torch.empty_like(re)))
-    res = (SlabInterface(det=C(torch.empty_like(re), torch.empty_like(re)),
-                         mismatch_pct=torch.empty_like(re),
-                         valid=torch.empty(re.shape, dtype=torch.bool,
-                                           device=re.device))
-           if final_eval else None)
-    if n:
-        def ptr(t):
-            return ctypes.c_void_p(None if t is None else t.data_ptr())
-        o = (None, None) if out is None else (out.re, out.im)
-        r = ((None,) * 4 if res is None else
-             (res.det.re, res.det.im, res.mismatch_pct, res.valid))
-        stream = torch.cuda.current_stream(re.device).cuda_stream
-        code = getattr(lib, _NEWTON_ENTRY[re.dtype])(
-            *map(ptr, (re, omega.im, k, parity, *o)), n, *map(ptr, r),
-            int(n_iter or 0), float(damping), int(final_eval), *shape,
-            ctypes.byref(params.struct), re.device.index,
-            ctypes.c_void_p(stream))
-        _build.check(code, f"{name} kernel")
+    shape_args = ()
+    if dtype in _NEWTON_ENTRY:
+        shape = ComplexShape(*(shape or complex_spec_shape(dtype)))
+        check_complex_shape(name, shape, dtype, shear)
+        shape_args = tuple(shape)
+    out = launch_complex(name, _NEWTON_ENTRY, "eigk_slab_params_size",
+                         params.struct, omega, k, parity, n_iter, damping,
+                         final_eval, shape_args, SlabInterface)
+    if omega.re.numel():
         complex_flux_launches += not shear
         complex_numeric_launches += bool(params.struct.exterior_numeric)
-    return out, res
-
-
-def _as_pair(omega):
-    from ..cplx import C
-    return omega if isinstance(omega, C) else C.of(omega)
+    return out
 
 
 def slab_disp_complex(omega, k: torch.Tensor, parity: torch.Tensor,
@@ -346,7 +300,7 @@ def slab_disp_complex(omega, k: torch.Tensor, parity: torch.Tensor,
     mode (block shape `shape`, a common.ComplexShape; default
     `common.complex_spec_shape`)."""
     global complex_launches
-    omega = _as_pair(omega)
+    omega = as_pair(omega)
     if omega.re.device.type == "cpu":
         return _plain(params, omega.re.dtype)(omega, k, parity)
     _, res = _launch_complex("slab_disp_complex", omega, k, parity, params,
@@ -367,7 +321,7 @@ def slab_newton(omega0, k: torch.Tensor, parity: torch.Tensor, n_iter: int,
     tensor runs `search.newton_loop` over the plain dual shoot, then the
     plain value dispersion."""
     global newton_launches
-    omega0 = _as_pair(omega0)
+    omega0 = as_pair(omega0)
     if omega0.re.device.type == "cpu":
         from ..physics.slab import SlabPhysics
         from ..search import newton_loop

@@ -28,7 +28,22 @@ tensor. The plain version is the JAX code's arithmetic, expression for
 expression, with a Python loop over RK4 steps on tensors of candidates in
 place of `lax.scan` over a vmapped scalar.
 
-Not ported yet: complex omega in the cylinder (ROADMAP A10b).
+At complex omega (`case.complex_omega`: any cylinder case that the CLI's
+`sweep --complex` makes complex; cylinder.py:229-234, :314-315, :379-385)
+every family runs on complex numbers carried as (re, im) pairs of real
+tensors (`cplx.C`): omega and the state are complex, k and m stay real,
+the non-twisted chain keeps its `czero_over` NaN pattern (C1 == B == 0),
+the twisted chain is a `dual.RDual` (a dual in r of complex values), the
+exact exterior takes K_m at sqrt(m_e), the principal root with no floor
+(`special.kve_ratio_both_c`), the numeric one integrates a complex state,
+the mismatch takes the complex modulus and valid is Re m_e > 0.
+`make_dispersion_dual_plain` is the same shoot on duals in omega
+(`dual.Dual` of complex pairs): (det, d det / d omega) for the Newton
+iteration, which the JAX package takes from a holomorphic `jax.jvp`
+(search.py:581-603); the twisted chain's g = -d(r C1/C3)/dr - ... then
+carries d^2(r C1/C3)/dr domega, the derivative in omega of its RDual's
+derivative. On the card these run in `kernels.cylinder.cylinder_newton`
+and `cylinder_disp_complex` (`csrc/cylinder_complex.cu`).
 """
 from __future__ import annotations
 
@@ -39,7 +54,9 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..config import CaseConfig, ProfileConfig, ProfileKind
-from ..dual import Dual, dsqrt, over, recip
+from ..cplx import C, cabs, csqrt
+from ..dual import (Dual, RDual, divn, dsqrt, dwhere, over, quot, recip,
+                    rquot)
 from ..equilibrium import Equilibrium, make_equilibrium
 from .. import special
 from ..ode import rk4_final
@@ -52,6 +69,26 @@ plain_calls = 0
 def _zero_over(x):
     """0 / x: NaN where x is 0 or NaN, else a signed zero."""
     return torch.zeros_like(x) / x
+
+
+def czero_over(z):
+    """0 / z of a complex pair: NaN (both parts) where z is 0 or either part
+    NaN, else 0; of a dual in omega that pattern for both parts."""
+    if isinstance(z, Dual):
+        v = czero_over(z.v)
+        return Dual(v, v)
+    bad = ((z.re == 0) & (z.im == 0)) | torch.isnan(z.re) | torch.isnan(z.im)
+    v = torch.where(bad, torch.full_like(z.re, math.nan),
+                    torch.zeros_like(z.re))
+    return C(v, v)
+
+
+def _inv(x):
+    """1 / x: a complex pair's (or a dual's in omega) by `dual.rquot`, else
+    a real tensor's IEEE reciprocal."""
+    if isinstance(x, (C, Dual)):
+        return rquot(1.0, x)
+    return rdiv(1.0, x)
 
 
 def _rk4_linear2(coef, y0, x0, x1, n_steps: int):
@@ -137,10 +174,6 @@ class TwistedChain(NamedTuple):
 
 
 def _check_supported(case: CaseConfig):
-    if case.complex_omega:
-        raise NotImplementedError(
-            "complex omega in the cylinder (complex B4, B1 at complex z): "
-            "ROADMAP A10b")
     if case.grid.exterior_method not in ("bessel", "numeric"):
         raise ValueError(
             f"unknown exterior_method {case.grid.exterior_method!r}")
@@ -175,20 +208,7 @@ class CylinderPhysics:
         eq = self.eq
 
         def parts(r):
-            rho = eq.rho_i(r)
-            ci = eq.c_i(r)
-            vA = eq.vA_i(r)
-            shift = omega - k * eq.U_i(r)          # omega - m v_phi/r - k U
-            alf = k * eq.B_i(r) / sqrt(rho)  # m B_phi/r + k B_z/sqrt(rho)
-            csum = ci * ci + vA * vA
-            cusp = alf * ci / sqrt(csum)
-            s2 = shift * shift
-            da = s2 - alf * alf
-            dc = s2 - cusp * cusp
-            D = rho * csum * da * dc
-            A = rho * da                           # + r dC3diff/dr == 0
-            C2 = s2 * s2 - csum * (m * m / (r * r) + k * k) * dc
-            return D, A, C2
+            return self._plain_parts(omega, k, m, r)
 
         def Dfun(r):
             return parts(r)[0]
@@ -213,6 +233,40 @@ class CylinderPhysics:
             return iF, g
 
         return Dfun, C1fun, C3fun, Ffun, invF_g
+
+    def _plain_parts(self, omega, k, m, r):
+        """(D, A, C2) of the non-twisted chain at r, for real omega or a
+        complex pair (or a dual of one) alike."""
+        eq = self.eq
+        rho = eq.rho_i(r)
+        ci = eq.c_i(r)
+        vA = eq.vA_i(r)
+        shift = omega - k * eq.U_i(r)          # omega - m v_phi/r - k U
+        alf = k * eq.B_i(r) / sqrt(rho)        # m B_phi/r + k B_z/sqrt(rho)
+        csum = ci * ci + vA * vA
+        cusp = alf * ci / sqrt(csum)
+        s2 = shift * shift
+        da = s2 - alf * alf
+        dc = s2 - cusp * cusp
+        D = rho * csum * da * dc
+        A = rho * da                           # + r dC3diff/dr == 0
+        C2 = s2 * s2 - csum * (m * m / (r * r) + k * k) * dc
+        return D, A, C2
+
+    def complex_invF_g(self, omega, k, m):
+        """r -> (1/F, g) of the non-twisted chain at complex omega (a
+        `cplx.C`, or a `dual.Dual` of one): invF_g's expressions with
+        r D / C3's and g's divisions by D complex (`dual.quot`), A/r one
+        real division a part."""
+        def invF_g(r):
+            D, A, C2 = self._plain_parts(omega, k, m, r)
+            C3 = D * A + 0.0
+            c1c3 = czero_over(C3)                  # C1^2/C3, d(r C1/C3)/dr
+            iF = divn(A, r) + czero_over(r * D)    # A/r + B/(r D)
+            g = -c1c3 - quot(r * (C2 - c1c3), D)
+            return iF, g
+
+        return invF_g
 
     def twisted_point_fn(self) -> Callable[[torch.Tensor], TwistedPoint]:
         """r -> TwistedPoint, the r-only part of the twisted chain.
@@ -275,6 +329,9 @@ class CylinderPhysics:
         1/C3 is the one division, and r C1/C3 the quotient rule on it
         (`dual.over`)."""
         R = Dual(q.r, torch.ones_like(q.r))
+        if isinstance(omega, (C, Dual)):
+            # complex omega: the chain's omega-dependent values are RDuals
+            omega = RDual(omega, 0.0 * omega)
         mb_r = m * q.b * q.iR
         shift = omega - m * q.v * q.iR - k * q.U
         alf = mb_r + k * q.Bz * q.isr
@@ -293,7 +350,7 @@ class CylinderPhysics:
         A = q.rho * da + q.rdc
         B = Q * Q - 4.0 * q.csum * dc * (T * T) * q.iRR
         C3 = D * A + B
-        iC3 = rdiv(1.0, C3.v)
+        iC3 = _inv(C3.v)
         return TwistedChain(D=D, C1=C1, C2=C2, A=A, B=B, C3=C3, iC3=iC3,
                             rc=over(R * C1, C3, iC3))
 
@@ -301,8 +358,8 @@ class CylinderPhysics:
     def twisted_invF_g(q: TwistedPoint, c: TwistedChain):
         """(1/F, g) of the twisted chain c at the radius of q: A/r +
         B/(r D) and -d(r C1/C3)/dr - r (C2 - C1^2/C3)/D, with 1/D the one
-        division."""
-        iD = rdiv(1.0, c.D.v)
+        division (at complex omega on complex values, `dual.rquot`)."""
+        iD = _inv(c.D.v)
         iF = c.A.v * q.iR.v + c.B.v * q.iR.v * iD
         g = -c.rc.d - q.r * (c.C2 - c.C1.v * c.C1.v * c.iC3) * iD
         return iF, g
@@ -353,6 +410,38 @@ class CylinderPhysics:
                           gr.n_exterior)
         return dP / P
 
+    def complex_exterior(self, m_e, k, mm):
+        """`numeric_exterior` at complex omega: the state complex (m_e a
+        `cplx.C`), or on the Newton pass `Dual`s of complex pairs (m_e a
+        `Dual`), from the same real start, no renormalisation; dP/dr / P at
+        r = 1, the complex quotient (cylinder.py:319-351)."""
+        gr = self.case.grid
+        r_far = rdiv(gr.exterior_wavelengths * 2.0 * math.pi, k)
+
+        def rhs(t, y):
+            P, Pdot = y
+            return (Pdot, (mm * mm + m_e * torch.exp(2.0 * t)) * P)
+
+        nil = torch.zeros_like(r_far)
+        y0 = (C(torch.full_like(r_far, 1e-8), nil), C(-1e-8 * r_far, nil))
+        if isinstance(m_e, Dual):
+            y0 = tuple(Dual(y, C(nil, nil)) for y in y0)
+        P, dP = rk4_final(rhs, y0, torch.log(r_far), torch.zeros_like(r_far),
+                          gr.n_exterior)
+        return quot(dP, P)
+
+    def complex_m_e(self, omega, k):
+        """exterior_m at complex omega (a `cplx.C` or a dual of one), its
+        one complex quotient by Smith's divisions (`dual.quot`): (m_e,
+        omega^2, k^2), the last two for xi_e."""
+        rg = self.eq.regime
+        k2 = k * k
+        om2 = omega * omega
+        X1 = k2 * rg.vA_e ** 2 - om2
+        X2 = k2 * rg.c_e ** 2 - om2
+        X3 = k2 * rg.cT_e ** 2 - om2
+        return quot(X1 * X2, (rg.vA_e ** 2 + rg.c_e ** 2) * X3), om2, k2
+
     def exterior_m(self, omega, k):
         rg = self.eq.regime
         num = (k**2 * rg.vA_e**2 - omega**2) * (k**2 * rg.c_e**2 - omega**2)
@@ -365,8 +454,11 @@ class CylinderPhysics:
                               dtype=torch.float64) -> Callable:
         """The plain version: disp(omega, k[, m]) -> CylinderInterface on
         tensors of candidates, on any device, in eager PyTorch. With m=None
-        the azimuthal order is a third tensor argument."""
+        the azimuthal order is a third tensor argument. At complex omega
+        omega is a `cplx.C` (or a complex tensor) and det a `cplx.C`."""
         _check_supported(self.case)
+        if self.case.complex_omega:
+            return self._complex_plain(m, dtype, dual=False)
         gr = self.case.grid
         eq = self.eq
 
@@ -454,6 +546,120 @@ class CylinderPhysics:
         m_const = float(m)
         return lambda omega, k: disp(omega, k, m_const)
 
+    # -- complex omega (cylinder.py:229-234, :314-315, :379-385) ---------------
+
+    def _complex_plain(self, m, dtype, dual: bool) -> Callable:
+        case, eq = self.case, self.eq
+        gr = case.grid
+        twisted = is_twisted(case)
+        numeric = gr.exterior_method == "numeric"
+        point = self.twisted_point_fn() if twisted else None
+
+        def disp(omega, k, m_arg):
+            global plain_calls
+            plain_calls += 1
+            if not isinstance(omega, C):
+                omega = C.of(omega)
+            omega = C(omega.re.to(dtype), omega.im.to(dtype))
+            dev = omega.re.device
+            k = k.to(dtype)
+            mm = torch.as_tensor(m_arg, dtype=dtype, device=dev)
+            rg = eq.regime
+            one = torch.ones((), dtype=dtype, device=dev)
+            zero = torch.zeros((), dtype=dtype, device=dev)
+            nil = torch.zeros_like(omega.re)
+
+            def constant(x):
+                z = C(x + nil, nil)
+                return Dual(z, C(nil, nil)) if dual else z
+
+            om = Dual(omega, C(nil + 1.0, nil)) if dual else omega
+
+            # ---- the chain, and its values at r = 1 -----------------------
+            r1 = one
+            if twisted:
+                def invF_g(r):
+                    q = point(r)
+                    return self.twisted_invF_g(
+                        q, self.twisted_chain(q, om, k, mm))
+
+                c1 = self.twisted_chain(point(r1), om, k, mm)
+                F1 = quot(r1 * c1.D.v, c1.C3.v)
+                xi1 = quot(c1.C1.v * 1.0, c1.C3.v) + zero
+            else:
+                invF_g = self.complex_invF_g(om, k, mm)
+                D1, A1, _ = self._plain_parts(om, k, mm, r1)
+                C3_1 = D1 * A1 + 0.0
+                F1 = quot(r1 * D1, C3_1)
+                xi1 = czero_over(C3_1)               # C1(1) == 0: 0 / C3(1)
+
+            # ---- interior: two basis solutions, inward r: 1 -> eps ----------
+            #       u1: P(1)=1, P'(1)=0   |   u2: P(1)=0, P'(1)=1  (w = F P')
+            u0 = (constant(1.0), constant(0.0), constant(0.0), F1)
+            re_ = torch.tensor(gr.axis_epsilon, dtype=dtype, device=dev)
+            state = _rk4_linear2(invF_g, u0, r1, re_, gr.n_interior)
+            if log_tail(case):
+                def coef_log(t):
+                    r = torch.exp(t)
+                    iF, g = invF_g(r)
+                    return (r * iF, r * g)
+
+                re_final = torch.tensor(gr.axis_epsilon_final, dtype=dtype,
+                                        device=dev)
+                state = _rk4_linear2(coef_log, state, torch.log(re_),
+                                     torch.log(re_final), gr.n_axis_log)
+            P1e, w1e, P2e, w2e = state
+            is_sausage = (mm < 0.5) & torch.ones_like(nil, dtype=torch.bool)
+            a1 = dwhere(is_sausage, w1e, P1e)
+            a2 = dwhere(is_sausage, w2e, P2e)
+            xi2 = F1
+
+            # ---- exterior ---------------------------------------------------
+            m_e, om2, k2 = self.complex_m_e(om, k)
+            if numeric:
+                dP_e = self.complex_exterior(m_e, k, mm)
+            else:
+                # K_m(sqrt(m_e) r), the principal root with no floor
+                sq = dsqrt(m_e) if dual else csqrt(m_e)
+                r0, r1_ = special.kve_ratio_both_c(sq)
+                dP_e = sq * dwhere(is_sausage, r0, r1_)
+            xi_e = quot(dP_e, rg.rho_e * (om2 - k2 * rg.vA_e ** 2))
+
+            # ---- determinant (P_e = 1) ---------------------------------------
+            b1, v1 = eq.B_phi(r1), eq.v_phi(r1)
+            J = b1 * b1 - eq.rho_i(r1) * (v1 * v1)
+            J = torch.where(is_sausage, torch.zeros_like(nil), J + nil)
+            m1 = xi1 - xi_e                   # u1: P_u(1)=1
+            m2 = xi2 - xi_e * 0.0             # u2: P_u(1)=0
+            det = a1 * m2 - a2 * m1 + J * xi_e * xi2
+            if dual:
+                return det.v, det.d
+            B = quot(-(a1 + J * xi_e), a2)
+            xi_i = xi1 + B * xi2
+            num = cabs(xi_e - xi_i)
+            den = torch.maximum(cabs(xi_e), cabs(xi_i))
+            mismatch = (100.0 * num) / den
+            return CylinderInterface(det=det, mismatch_pct=mismatch,
+                                     valid=m_e.re > 0)
+
+        if m is None:
+            return disp
+        m_const = float(m)
+        return lambda omega, k: disp(omega, k, m_const)
+
+    def make_dispersion_dual_plain(self, m: int | None = None,
+                                   dtype=torch.float64) -> Callable:
+        """The plain version of the Newton kernel's shoot: disp(omega, k[,
+        m]) -> (det, d det / d omega), complex pairs (`cplx.C`), the
+        complex shoot carried on dual numbers in omega (the holomorphic
+        jvp of cylinder.py's disp with tangent 1). Complex-omega cases
+        only."""
+        _check_supported(self.case)
+        if not self.case.complex_omega:
+            raise ValueError("make_dispersion_dual_plain: the case has real "
+                             "omega (complex_omega=False)")
+        return self._complex_plain(m, dtype, dual=True)
+
     def make_dispersion(self, m: int | None = None,
                         dtype=torch.float64) -> Callable:
         """disp(omega, k[, m]) -> CylinderInterface for azimuthal order m
@@ -465,7 +671,17 @@ class CylinderPhysics:
         The callable carries `disp.bisect(lo, hi, k, m, n_iter,
         final_eval=True) -> (root, mismatch)`, the whole bisection of a
         bracket batch (`search.bisect_loop`'s result): one `cylinder_bisect`
-        launch on CUDA tensors (m None for a fixed-m disp)."""
+        launch on CUDA tensors (m None for a fixed-m disp).
+
+        At complex omega (`case.complex_omega`) omega is a `cplx.C` (or a
+        complex tensor), det a `cplx.C`, and CUDA tensors run
+        `cylinder_disp_complex`; the callable carries instead
+        `disp.newton(omega0, k, m, n_iter, damping, final_eval=False) ->
+        omega`, the whole damped Newton iteration of a seed batch, with
+        final_eval (omega, disp(omega, k, m)): one `cylinder_newton` launch
+        on CUDA tensors, the evaluation its last round; `search.newton_loop`
+        over the plain dual shoot, then the plain dispersion, on the CPU (m
+        dropped for a fixed-m disp)."""
         _check_supported(self.case)
         from ..kernels.cylinder import cylinder_bisect, cylinder_disp, disp_params
         params = disp_params(self.case)
@@ -473,6 +689,13 @@ class CylinderPhysics:
         def column(m_arg, like):
             mm = torch.as_tensor(m_arg, dtype=dtype, device=like.device)
             return mm.expand_as(like).contiguous()
+
+        if self.case.complex_omega:
+            from .complex_omega import complex_dispersion
+            from ..kernels.cylinder import (cylinder_disp_complex,
+                                            cylinder_newton)
+            return complex_dispersion(cylinder_disp_complex, cylinder_newton,
+                                      m, dtype, params, column)
 
         def disp(omega, k, m_arg):
             omega = omega.to(dtype)

@@ -704,7 +704,10 @@ class SlabPhysics:
             return par.expand_as(like).contiguous()
 
         if self.case.complex_omega:
-            return self._complex_dispersion(parity, dtype, params, column)
+            from .complex_omega import complex_dispersion
+            from ..kernels.slab import slab_disp_complex, slab_newton
+            return complex_dispersion(slab_disp_complex, slab_newton, parity,
+                                      dtype, params, column)
 
         def disp(omega, k, parity_arg):
             omega = omega.to(dtype)
@@ -733,39 +736,4 @@ class SlabPhysics:
 
         fixed.bisect = (lambda lo, hi, k, _none, n_iter, final_eval=True:
                         bisect(lo, hi, k, p_const, n_iter, final_eval))
-        return fixed
-
-    def _complex_dispersion(self, parity, dtype, params, column) -> Callable:
-        from ..kernels.slab import slab_disp_complex, slab_newton
-
-        def pair(omega):
-            if not isinstance(omega, C):
-                omega = C.of(omega)
-            return C(omega.re.to(dtype).contiguous(),
-                     omega.im.to(dtype).contiguous())
-
-        def disp(omega, k, parity_arg):
-            omega = pair(omega)
-            return slab_disp_complex(omega, k.to(dtype).contiguous(),
-                                     column(parity_arg, omega.re), params)
-
-        def newton(omega0, k, parity_arg, n_iter, damping=1.0,
-                   final_eval=False):
-            omega0 = pair(omega0)
-            return slab_newton(omega0, k.to(dtype).contiguous(),
-                               column(parity_arg, omega0.re), n_iter,
-                               damping, params, final_eval)
-
-        if parity is None:
-            disp.newton = newton
-            return disp
-        p_const = float(parity)
-
-        def fixed(omega, k):
-            return disp(omega, k, p_const)
-
-        fixed.newton = (lambda omega0, k, _none, n_iter, damping=1.0,
-                        final_eval=False:
-                        newton(omega0, k, p_const, n_iter, damping,
-                               final_eval))
         return fixed

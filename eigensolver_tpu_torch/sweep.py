@@ -10,8 +10,8 @@ CUDA device the dispersion runs the `slab_disp` or `cylinder_disp` kernel,
 on the CPU its plain version. The f64 refinement (`refine_f64=True`) and the
 band-edge (needle) pass (`run_needle_pass`, which the JAX package runs on
 the host CPU) run on the same device. The complex-omega sweep
-(`run_case_complex`: Kelvin-Helmholtz growth rates, or any slab case made
-complex) runs its Newton iteration, the evaluation of its roots and its
+(`run_case_complex`: Kelvin-Helmholtz growth rates, or any slab or
+cylinder case made complex) runs its Newton iteration, the evaluation of its roots and its
 argument-principle audit on the device too. The crash-safe sweeps (`run_case_checkpointed`,
 `run_case_complex_checkpointed`) run either sweep block by block of k and
 append each block's roots to the checkpoint store (`native.store`) before
@@ -482,7 +482,8 @@ def run_case_complex_checkpointed(case: CaseConfig, modes=None,
     `eigensolver_tpu.sweep.run_case_complex_checkpointed`, sweep.py:
     221-301): the k grid in blocks of k_block, each block a
     `run_case_complex` (with the audit off, the default, 1 launch a mode
-    on the card: `slab_newton`, whose last round evaluates the roots), its
+    on the card: `slab_newton` or `cylinder_newton`, whose last round
+    evaluates the roots), its
     accepted roots appended with Im omega in the store's imaginary field.
     Resume, padding and sentinels as in `run_case_checkpointed`; with
     check_completeness the blocks' audit counts add up. The result is the
@@ -575,16 +576,17 @@ def run_case_complex(case: CaseConfig, modes=None, n_re: int = 12,
                      accept_pct: float = 0.5, dtype=torch.float64,
                      check_completeness: bool = True, *, device
                      ) -> tuple[RootSet, SweepStats]:
-    """Complex-omega sweep (Kelvin-Helmholtz growth rates; any slab case
-    with complex_omega, in either form and with either exterior) on
-    `device` (port of `eigensolver_tpu.sweep.run_case_complex`,
-    sweep.py:304-383; a cylinder raises, ROADMAP A10b).
+    """Complex-omega sweep (Kelvin-Helmholtz growth rates; any slab or
+    cylinder case with complex_omega, in either slab form, on every
+    cylinder chain, with either exterior) on `device` (port of
+    `eigensolver_tpu.sweep.run_case_complex`, sweep.py:304-383).
 
     Seeds: a Re ladder x Im ladder per (k, band) cell, n_re x n_im, Re over
     [lo k, hi k], Im over [-imag_band, imag_band]; newton_iters damped
     Newton steps of every seed and one evaluation at the results
-    (`search.newton_complex` with final_eval: one `slab_newton` launch on the
-    card, the evaluation its last round); accepted where the % mismatch is
+    (`search.newton_complex` with final_eval: one `slab_newton` or
+    `cylinder_newton` launch on the card, the evaluation its last round);
+    accepted where the % mismatch is
     below accept_pct, Re m_e > 0, the phase speed Re(omega)/k within 0.05 of
     the speed edges, |Im omega| < 3 imag_band and |Re omega| > 1e-6 |k| (the
     acceptance is sign-symmetric in Re omega); deduplicated in the complex
@@ -678,8 +680,8 @@ def _audit_completeness(disp, ks, speeds, imag_band, om_d, k_d,
     128 points a side (`search.rectangle_path`), lifted off the real axis
     where the determinant's continuum poles lie, so that its winding
     number counts the cell's growing modes. Every cell's contour goes
-    through one dispersion call (one `slab_disp_complex` launch on the
-    card), the winding numbers from a (cells, 512) view
+    through one dispersion call (one `slab_disp_complex` or
+    `cylinder_disp_complex` launch on the card), the winding numbers from a (cells, 512) view
     (`search.winding_numbers`). A cell whose winding number is not within
     quant_tol of a non-negative integer is unchecked; a checked one agrees
     when it equals the accepted roots inside, and `missed` counts the

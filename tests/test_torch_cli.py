@@ -89,6 +89,81 @@ def test_cli_sweep_checkpoint_resumes(tmp_path, capsys):
     assert len(store.read_all(ck)[0]) > 0
 
 
+# a complex density cylinder at a reduced grid: 2 k, one band, 120 seeds a
+# (k, band) cell at the CLI's defaults, n_interior 16 and (`short_tail`)
+# 8 steps of the axis' log tail
+CX_CYL = ["cylinder_density_coronal", "--width", "0.9", "--complex",
+          "--n-k", "2", "--speeds", "0.9,1.0", "--n-interior", "16", *CPU]
+
+
+@pytest.fixture
+def short_tail(monkeypatch):
+    """The CLI's cylinder_density_coronal with n_axis_log=8, which the CLI
+    has no option for."""
+    import dataclasses
+    from eigensolver_tpu_torch import cases
+    orig = cases.cylinder_density_coronal
+
+    def factory(width: float = 0.9):
+        c = orig(width)
+        return dataclasses.replace(c, grid=dataclasses.replace(
+            c.grid, n_axis_log=8))
+    monkeypatch.setattr(cases, "cylinder_density_coronal", factory)
+
+
+def test_cli_sweep_complex_cylinder_checkpoint_resumes(tmp_path, capsys,
+                                                       short_tail):
+    """`sweep cylinder_density_coronal --complex`: the sweep, then the same
+    with --checkpoint (the same roots), then its resume, which evaluates
+    nothing and writes the same pickle."""
+    from eigensolver_tpu_torch.physics import cylinder as pcyl
+    cli.main(["sweep", *CX_CYL, "-o", str(tmp_path / "a.pickle")])
+    plain = json.loads(capsys.readouterr().out.splitlines()[0])
+    assert plain["device"] == "cpu" and sum(plain["counts"].values()) > 0
+    ck = str(tmp_path / "c.eigr")
+    cli.main(["sweep", *CX_CYL, "--checkpoint", ck, "-o",
+              str(tmp_path / "b.pickle")])
+    first = json.loads(capsys.readouterr().out.splitlines()[0])
+    assert first["counts"] == plain["counts"]
+    a, b = (roots.load_pickle(str(tmp_path / f"{n}.pickle"))
+            for n in ("a", "b"))
+    for br in a.branches:
+        np.testing.assert_array_equal(b[br].ks, a[br].ks)
+        np.testing.assert_allclose(b[br].omegas, a[br].omegas, rtol=1e-12)
+    before = pcyl.plain_calls
+    cli.main(["sweep", *CX_CYL, "--checkpoint", ck, "-o",
+              str(tmp_path / "c.pickle")])
+    assert pcyl.plain_calls == before            # resumed: nothing evaluated
+    again = json.loads(capsys.readouterr().out.splitlines()[0])
+    assert again["counts"] == first["counts"]
+    assert (tmp_path / "b.pickle").read_bytes() == \
+        (tmp_path / "c.pickle").read_bytes()
+
+
+def test_cli_complex_kink_only_cylinder_pickle_drops_growth_rates(tmp_path,
+                                                                 capsys):
+    """A complex twisted cylinder at --mode 1 is a kink-only set: its
+    pickle has the reference's [omegas, ks] layout and drops the growth
+    rates (roots.py:139-140; ROADMAP C), in the port as in the JAX package;
+    --checkpoint keeps them in the store."""
+    twist = ["cylinder_twisted_photospheric", "--v-twist", "0.1", "--power",
+             "1.0", "--mode", "1", "--complex", "--n-k", "2", "--speeds",
+             "1.0,1.1", "--n-interior", "16", *CPU]
+    ck = str(tmp_path / "t.eigr")
+    cli.main(["sweep", *twist, "--checkpoint", ck, "-o",
+              str(tmp_path / "t.pickle")])
+    out = json.loads(capsys.readouterr().out.splitlines()[0])
+    assert set(out["counts"]) == {"kink"} and out["counts"]["kink"] > 0
+    back = roots.load_pickle(str(tmp_path / "t.pickle"))
+    assert set(back.branches) == {"kink"}
+    assert back["kink"].omegas_imag is None
+    assert len(back["kink"]) == out["counts"]["kink"]
+    modes, ks, om, oi = store.read_all(ck)
+    kept = np.isfinite(om)
+    assert kept.sum() >= out["counts"]["kink"]
+    assert np.isfinite(oi[kept]).all()
+
+
 def test_cli_analyze(sweep_pickle, tmp_path, capsys):
     png = tmp_path / "disp.png"
     cli.main(["analyze", str(sweep_pickle[0]), *CASE, "--plot", str(png),

@@ -493,11 +493,11 @@ def test_backward_modes_mirror_under_flow_reversal():
 
 def test_refusals_and_run_case():
     """run_case on a complex case raises ValueError (the JAX package's
-    fails on the complex determinant) and points to run_case_complex; the
-    complex cylinder raises NotImplementedError naming ROADMAP A10b. The
-    flux form and the numeric exterior at complex omega, which raised
-    naming it too, give the dispersion and its dual (their values:
-    tests/test_torch_complex_slab.py)."""
+    fails on the complex determinant) and points to run_case_complex. The
+    flux form and the numeric exterior at complex omega, and the complex
+    cylinder, which raised naming ROADMAP A10b, give the dispersion and
+    its dual (their values: tests/test_torch_complex_slab.py,
+    tests/test_torch_complex_cylinder.py)."""
     from eigensolver_tpu_torch import cases, sweep
     from eigensolver_tpu_torch.physics.cylinder import CylinderPhysics
     from eigensolver_tpu_torch.physics.slab import SlabPhysics
@@ -523,8 +523,17 @@ def test_refusals_and_run_case():
         assert np.isfinite(_np(dd)).all()
     cyl = dataclasses.replace(cases.cylinder_density_coronal(),
                               complex_omega=True)
-    with pytest.raises(NotImplementedError, match="A10b"):
-        CylinderPhysics.from_case(cyl).make_dispersion(m=None)
+    cyl = dataclasses.replace(cyl, grid=dataclasses.replace(
+        cyl.grid, n_interior=8, n_axis_log=4))
+    res = CylinderPhysics.from_case(cyl).make_dispersion(m=1)(
+        _pair(om), torch.from_numpy(k))
+    d, dd = CylinderPhysics.from_case(cyl).make_dispersion_dual_plain(m=1)(
+        _pair(om), torch.from_numpy(k))
+    np.testing.assert_array_equal(_np(d), _np(res.det))
+    assert np.isfinite(_np(dd)).all()
+    with pytest.raises(ValueError, match="real omega"):
+        CylinderPhysics.from_case(cases.cylinder_density_coronal()
+                                  ).make_dispersion_dual_plain(m=1)
     with pytest.raises(ValueError, match="real omega"):
         SlabPhysics.from_case(cases.slab_flow_gaussian_coronal()
                               ).make_dispersion_dual_plain(parity=1)

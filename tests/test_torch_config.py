@@ -7,6 +7,7 @@ import sys
 from pathlib import Path
 
 import jax
+import numpy as np
 import pytest
 import torch
 
@@ -41,7 +42,9 @@ PORT_MODULES = (
     "sweep", "search", "roots", "ode", "eigenfunctions", "analysis",
     "analytic", "synthesis", "viz", "cli", "io.vtk", "native.store",
     "native.vtk_native", "native._lib", "physics.slab", "physics.cylinder",
-    "kernels.bessel", "kernels.cylinder", "kernels.slab", "kernels._build")
+    "physics.complex_omega",
+    "kernels.bessel", "kernels.cylinder", "kernels.slab", "kernels._build",
+    "kernels.common", "cplx", "dual", "special")
 
 
 def test_port_imports_without_jax():
@@ -154,20 +157,31 @@ def _sweep_equals_jax(case, cfg, refine_f64, monkeypatch):
     return got
 
 
-# The numeric exterior (A8) and the search options of A11 raised until they
-# were ported; these cases now hold that each runs on the CPU and gives the
-# JAX package's roots. The complex cylinder still raises, now naming A10b
-# (the case keeps its test id).
+# The numeric exterior (A8), the search options of A11 and the complex
+# cylinder (A10b) raised until they were ported; these cases now hold that
+# each runs on the CPU: the real sweeps give the JAX package's roots, the
+# complex cylinder's sweep (its roots against JAX's:
+# tests/test_torch_complex_cylinder.py) finite roots and, as a real sweep,
+# the refusal that points to run_case_complex (the case keeps its test id).
 @pytest.mark.parametrize("make_case, what", [
     (lambda: _reduced(_tiny_cylinder(), exterior_method="numeric"), "A8"),
-    pytest.param(lambda: dataclasses.replace(cases.cylinder_density_coronal(),
+    pytest.param(lambda: dataclasses.replace(_tiny_cylinder(),
                                              complex_omega=True), "A10b",
                  id="<lambda>-A10"),
 ])
 def test_unported_cylinder_variants_raise(make_case, what, monkeypatch):
     if what == "A10b":
-        with pytest.raises(NotImplementedError, match=what):
-            CylinderPhysics.from_case(make_case()).make_dispersion(m=None)
+        assert callable(CylinderPhysics.from_case(
+            make_case()).make_dispersion(m=None).newton)
+        rs, st = sweep.run_case_complex(make_case(), n_re=3, n_im=2,
+                                        newton_iters=3, device="cpu")
+        assert st.n_candidates == 2 * 12 * 6
+        for br in rs.branches.values():
+            assert np.isfinite(br.omegas).all()
+            assert np.isfinite(br.omegas_imag).all()
+        with pytest.raises(ValueError, match="run_case_complex"):
+            sweep.run_case(make_case(), search.SearchConfig(n_omega=8),
+                           device="cpu")
         return
     CylinderPhysics.from_case(make_case()).make_dispersion(m=None)
     _sweep_equals_jax(make_case(), search.SearchConfig(n_omega=8, n_bisect=2),

@@ -310,6 +310,18 @@ def test_every_entry_has_its_signature(module):
         assert len(_build._NEWTON_ARGS[0]) == 20
         assert not [name for name in _build._SIGNATURES
                     if name.startswith("eigk_slab_complex_f")]
+    else:
+        # the cylinder's complex-omega kernel (csrc/cylinder_complex.cu):
+        # its Newton entry and the K_m ratio at complex z alone, whose
+        # count comes 6th
+        from eigensolver_tpu_torch.kernels import bessel
+        assert all(_build._SIGNATURES[name] == _build._CYL_NEWTON_ARGS
+                   for name in kcyl._NEWTON_ENTRY.values())
+        assert len(_build._CYL_NEWTON_ARGS[0]) == 17
+        for name in bessel._COMPLEX_ENTRY.values():
+            argtypes, restype = _build._SIGNATURES[name]
+            assert argtypes[5] is ctypes.c_longlong and restype is ctypes.c_int
+            assert len(argtypes) == 8
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

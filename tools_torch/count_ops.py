@@ -1,8 +1,9 @@
 """Count the operations of the twisted cylinder chain, of the numeric
-exteriors, of the complex-omega slab chain, of the real-omega slab chain
-and the row class of the density/axial-flow cylinder chain that
-chip_smoke.py's bounds use (its OPS entries "cyl_tw_*", "slab_ext_*",
-"cyl_ext_*", "slab_cx_*", "slab_*chain", "slab_*update", "cyl_*step").
+exteriors, of the complex-omega slab chain, of the real-omega slab chain,
+the row class of the density/axial-flow cylinder chain and the complex-
+omega cylinder that chip_smoke.py's bounds use (its OPS entries
+"cyl_tw_*", "slab_ext_*", "cyl_ext_*", "slab_cx_*", "slab_*chain",
+"slab_*update", "cyl_*step", "cyl_cx_*", "cyl_tw_cx_*").
 
     python tools_torch/count_ops.py
 
@@ -355,9 +356,11 @@ def chain_tally() -> dict:
     torch.zeros_like = lambda x: ZERO
     cylinder.sqrt = lambda a: Sym._unary("sqrt", a)
     try:
+        ph = types.SimpleNamespace(eq=_RadialEq())
+        ph._plain_parts = (lambda *a:
+                           cylinder.CylinderPhysics._plain_parts(ph, *a))
         fns = cylinder.CylinderPhysics._plain_coefficients(
-            types.SimpleNamespace(eq=_RadialEq()), Sym({"w"}), Sym({"k"}),
-            Sym({"m"}))
+            ph, Sym({"w"}), Sym({"k"}), Sym({"m"}))
         return _tally_deps(list(fns[4](Sym({"r"}))))
     finally:
         torch.zeros_like, cylinder.sqrt = saved
@@ -688,6 +691,118 @@ def complex_ops() -> dict:
     return out
 
 
+# The complex-omega cylinder ("cyl_cx_*", "cyl_tw_cx_*"): counted, not
+# traced, from the plain versions run on a few candidates at small depths
+# under a torch function mode (`_OpCount`): each arithmetic operation, root,
+# exp, log, atan2, comparison, maximum or minimum on a tensor of the
+# candidates is one operation a candidate (negation and |.| free, a select
+# none), what depends on the radius alone (0-d tensors) none. Fits over the
+# depths give the per-step counts of the interior ("step"), of the log
+# tail ("log_step") and of the numeric exterior ("ext_step"), and the
+# shoot's ends; the K_m ratio at complex z apart: its series
+# ("kve_series"), its CF2 ("kve_cf2") and the rest of it ("kve_ends"),
+# since the plain version forms both branches where the kernel forms the
+# one its argument takes. "*_ends" are the shoot's ends with the exact
+# exterior less the K_m ratio; "*num_ends" the ends with the numeric
+# exterior (its set-up and quotient included).
+_COUNTED = {
+    "__add__", "__radd__", "__sub__", "__rsub__", "__mul__", "__rmul__",
+    "__truediv__", "__rtruediv__", "add", "sub", "mul", "div", "sqrt", "exp",
+    "log", "atan2", "maximum", "minimum", "__lt__", "__le__", "__gt__",
+    "__ge__", "__eq__", "__ne__", "lt", "le", "gt", "ge", "eq", "ne",
+    "isnan", "copysign", "__and__", "__or__", "__invert__"}
+
+
+def _op_counter(n: int):
+    import torch
+
+    class _OpCount(torch.overrides.TorchFunctionMode):
+        """Counts the counted operations whose result has n elements."""
+        ops = 0
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if (getattr(func, "__name__", "") in _COUNTED
+                    and isinstance(out, torch.Tensor) and out.numel() == n):
+                type(self).ops += 1
+            return out
+    return _OpCount
+
+
+def _count(fn, n: int) -> int:
+    """The counted operations of fn() on n candidates (the plain version's
+    square roots through torch.sqrt, which the mode sees)."""
+    from unittest import mock
+    from eigensolver_tpu_torch import cplx, profiles
+    import torch
+    counter = _op_counter(n)
+    with mock.patch.object(cplx, "rsqrt", torch.sqrt), \
+            mock.patch.object(profiles, "sqrt", torch.sqrt), counter():
+        fn()
+    return counter.ops
+
+
+def complex_cylinder_ops() -> dict:
+    """chip_smoke.py's OPS entries for the cylinder at complex omega
+    ("cyl_cx_*": the density chain; "cyl_tw_cx_*": the twisted one; value
+    pass and "dual_" pass), counted from physics/cylinder.py's plain
+    versions (see `_COUNTED`)."""
+    import dataclasses
+    import torch
+    from eigensolver_tpu_torch import cases, special
+    from eigensolver_tpu_torch.cplx import C
+    from eigensolver_tpu_torch.dual import Dual
+    from eigensolver_tpu_torch.physics.cylinder import CylinderPhysics
+    n = 3
+    om = C(torch.tensor([0.9, 1.3, 2.1], dtype=torch.float64),
+           torch.tensor([0.05, -0.1, 0.2], dtype=torch.float64))
+    k = torch.tensor([1.0, 1.5, 2.0], dtype=torch.float64)
+    m = torch.tensor([0.0, 1.0, 1.0], dtype=torch.float64)
+
+    def shoot(case, dual, **grid):
+        case = dataclasses.replace(case, complex_omega=True,
+                                   grid=dataclasses.replace(case.grid,
+                                                            **grid))
+        ph = CylinderPhysics.from_case(case)
+        fn = (ph.make_dispersion_dual_plain if dual
+              else ph.make_dispersion_plain)(m=None)
+        return _count(lambda: fn(om, k, m), n)
+
+    density = cases.cylinder_density_coronal(0.9)
+    twist = cases.cylinder_twisted_photospheric(0.1, 1.0, 1)
+    out = {}
+    for dual, f in ((False, "cyl_cx_"), (True, "cyl_cx_dual_")):
+        z = C(om.re * 0.7 + 1.0, om.im)
+        z = Dual(z, C(torch.ones_like(k), torch.zeros_like(k))) if dual \
+            else z
+        series = _count(lambda: special._series_ratio_c(z), n)
+        cf2 = _count(lambda: special._cf2_ratio_c(z), n)
+        kve = _count(lambda: special.kve_ratio_both_c(z), n)
+        out[f + "kve_series"], out[f + "kve_cf2"] = series, cf2
+        out[f + "kve_ends"] = kve - series - cf2
+        a = shoot(density, dual, n_interior=4, n_axis_log=2)
+        b = shoot(density, dual, n_interior=8, n_axis_log=2)
+        c = shoot(density, dual, n_interior=4, n_axis_log=4)
+        out[f + "step"] = (b - a) // 4
+        out[f + "log_step"] = (c - a) // 2
+        ends = a - 4 * out[f + "step"] - 2 * out[f + "log_step"] - kve
+        out[f + "ends"] = ends
+        e4 = shoot(density, dual, n_interior=4, n_axis_log=2,
+                   exterior_method="numeric", n_exterior=4)
+        e8 = shoot(density, dual, n_interior=4, n_axis_log=2,
+                   exterior_method="numeric", n_exterior=8)
+        out[f + "ext_step"] = (e8 - e4) // 4
+        out[f + "num_ends"] = (e4 - 4 * out[f + "step"]
+                               - 2 * out[f + "log_step"]
+                               - 4 * out[f + "ext_step"])
+        t = "cyl_tw_cx_" + ("dual_" if dual else "")
+        a = shoot(twist, dual, n_interior=4)
+        b = shoot(twist, dual, n_interior=8)
+        out[t + "step"] = (b - a) // 4
+        out[t + "ends"] = a - 4 * out[t + "step"] - kve
+    return out
+
+
 def _tally_deps(outs) -> dict:
     """Operations that outs need, by what each depends on (the sorted
     letters of its dependences)."""
@@ -707,7 +822,8 @@ def _tally_deps(outs) -> dict:
 def main() -> int:
     sys.path.insert(0, str(ROOT))
     ext = exterior_ops()
-    cx = {**complex_ops(), **complex_flux_ops(), **complex_exterior_ops()}
+    cx = {**complex_ops(), **complex_flux_ops(), **complex_exterior_ops(),
+          **complex_cylinder_ops()}
     cyl = cylinder_ops()
     sl = slab_ops()
     print(json.dumps({"traced": {**traced_ops(False), **traced_ops(True),
