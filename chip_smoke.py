@@ -251,23 +251,35 @@ any failure raises and the script exits non-zero:
    eigensolver_tpu_torch sweep slab_density_photospheric --width 0.9
    --sharded` against run_case at the CLI's config.
 24. the cylinder's complex-omega kernel (csrc/cylinder_complex.cu: one
-   thread a seed, behind cylinder_newton and cylinder_disp_complex) in each
-   variant: the density and axial-flow chains (B4-complex) with the K_m
-   ratio at complex z (B1) and the density one with the numeric exterior
-   (B6-complex), the rotational and magnetic twists (B4-twisted at complex
-   omega) and the rotational one with the numeric exterior, at float32 and
-   float64, at a reduced depth (n_interior 256, n_axis_log 32, n_exterior
-   128; the plain versions run eagerly on the card): on 133 seeds
-   cylinder_newton at n_iter=2, so that the omega carried from one round
-   to the next is held too, with its value round in the launch, and
-   cylinder_disp_complex at its roots and on 13 more, bit-equal to the
-   plain Newton loop over the dual shoot and to the plain value
-   dispersion (one call on the roots and the 13), with their launches per
-   variant; both timed on the same seeds, the kernel beside its bound. B1 alone (kernels.bessel.kve_ratio_complex) on the
-   exterior arguments sqrt(m_e) of the cx_cyl_co_09 seeds, both modes, at
-   both types: bit-equal to special.kve_ratio_both_c, timed beside its
-   bound (each argument at the branch it takes). The registers and spills
-   of the kernel's instantiations (ptxas).
+   thread a seed, its block's r-only and (k, m, r) values in tables of
+   shared memory, a step's first chain kept where its abscissa is the step
+   before's last; behind cylinder_newton and cylinder_disp_complex) in
+   each variant: the density and axial-flow chains (B4-complex) with the
+   K_m ratio at complex z (B1) and the density one with the numeric
+   exterior (B6-complex), the rotational and magnetic twists (B4-twisted
+   at complex omega) and the rotational one with the numeric exterior, at
+   float32 and float64, at a reduced depth (n_interior 256, n_axis_log 32,
+   n_exterior 128; the plain versions run eagerly on the card): on 133
+   random seeds (their warps form their own row values: the seeds outside
+   the tables) and on a draw laid out as the sweep lays out its seeds
+   (sweep.complex_seeds on the case's first 3 k, at least 200 seeds a k,
+   one m: every warp through its block's row table, a block over two k
+   rows, a row across a block boundary), each cylinder_newton at
+   n_iter=2, so that the omega carried from one round to the next is held
+   too, with its value round in the launch, and cylinder_disp_complex at
+   the random seeds' roots, at the laid-out ones' and on 13 more,
+   bit-equal to one plain Newton loop over the dual shoot of both draws
+   and to one plain value dispersion (on the roots and the 13), with
+   their launches per variant, the seeds that read a tabled row (all the
+   laid-out ones) and the chains kept (kernels.cylinder.chain_kept); both
+   timed on the random seeds, the kernel beside its bound. The launch
+   shape of each (type, chain) with its registers, spills and blocks an
+   SM, and the share of kept steps on each grid of the sweeps. B1 alone
+   (kernels.bessel.kve_ratio_complex) on the exterior arguments sqrt(m_e)
+   of the cx_cyl_co_09 seeds, both modes, at both types: bit-equal to
+   special.kve_ratio_both_c, timed beside its bound (each argument at the
+   branch it takes). The registers and spills of the kernel's
+   instantiations (ptxas).
 25. the complex cylinder sweeps (tools_torch/cx_cyl.py, float64, the CLI's
    defaults: 12 x 10 seeds a cell, 30 Newton steps, the audit on):
    cylinder_density_coronal(0.9) made complex (cx_cyl_co_09: 129,600 seeds
@@ -275,10 +287,12 @@ any failure raises and the script exits non-zero:
    made complex (cx_twist_v01_p1: 36,000 seeds, mode 1). For each, the
    main path's launches timed beside their bounds (the Newton launch of 30
    steps with and without its value round, per mode; the audit's contour
-   points in the evaluation mode); run_case_complex with the counters
+   points in the evaluation mode; each bound counted for the tables, and
+   as before them); run_case_complex with the counters
    reset (2 launches a mode: cylinder_newton and cylinder_disp_complex,
    the twisted ones counted as such; never the plain dispersion), then 2
-   timed runs, every audited cell agreeing; held to the JAX package's
+   timed runs, every audited cell agreeing, its roots' digest
+   (root_digest); held to the JAX package's
    float64 run on every k_stride-th k (cx_cyl.TARGETS): the same sweep on
    those k with its counts (exactly where the JAX package's unconverged
    accepted seeds add no root), its roots off the real axis and its audit
@@ -514,7 +528,10 @@ OPS = {"slab_x_step": 67, "slab_chain": 9, "slab_update": 34,
        "cyl_cx_dual_kve_ends": 68, "cyl_cx_dual_step": 1068,
        "cyl_cx_dual_log_step": 1092, "cyl_cx_dual_ends": 416,
        "cyl_cx_dual_ext_step": 221, "cyl_cx_dual_num_ends": 398,
-       "cyl_tw_cx_dual_step": 3924, "cyl_tw_cx_dual_ends": 1336}
+       "cyl_tw_cx_dual_step": 3924, "cyl_tw_cx_dual_ends": 1336,
+       "cyl_cx_chain": 88, "cyl_cx_row": 12, "cyl_cx_dual_chain": 180,
+       "cyl_tw_cx_chain": 464, "cyl_tw_cx_row": 48,
+       "cyl_tw_cx_dual_chain": 1132}
 # The complex-omega chain ("slab_cx_*": tools_torch/count_ops.py traces
 # physics/slab.py::complex_shear_coef, complex_edge, complex_det,
 # complex_mismatch and search.newton_step): per candidate and RK4 step 3
@@ -543,7 +560,11 @@ OPS = {"slab_x_step": 67, "slab_chain": 9, "slab_update": 34,
 # the K_m ratio ("*ends") or with the numeric exterior ("*num_ends"); the
 # K_m ratio at complex z by branch ("*kve_series", "*kve_cf2") and the rest
 # of it ("*kve_ends"), each argument counted at the branch it takes; the
-# Newton step "slab_cx_newton" (search.newton_step, shared).
+# Newton step "slab_cx_newton" (search.newton_step, shared). For the
+# kernel's tables (count_ops.complex_cylinder_table_ops): one chain
+# evaluation ("*chain", "*dual_chain"; a step's update is its step less 3
+# of them) and of it the (k, m, r) values that do not depend on omega
+# ("*row"), which the kernel forms once per block row of a launch.
 # The complex-omega sweeps (tools_torch/kh.py) at their published size:
 KH_N_SEEDS = 20 * 3 * 12 * 10          # Newton seeds: 7,200
 KH_N_AUDIT = 20 * 3 * 4 * 128          # audit contour points: 30,720
@@ -3196,6 +3217,7 @@ def phase_complex_slab(out: dict) -> dict:
         r.update(sweep=dict(
             wall_s=statistics.median(walls), walls=walls,
             first_wall_s=stats.wall_s, counts=rs.counts(),
+            root_digest=root_digest(rs),
             counts_jax=target["counts"], counts_exact=exact,
             counts_off_axis=off_axis, completeness=comp,
             launches=launches[name], seeds=seeds))
@@ -3242,7 +3264,8 @@ def shard_configs() -> dict:
 
 
 def root_digest(rs) -> str:
-    """A hash of a RootSet's roots, branch by branch, bit for bit."""
+    """A hash of a RootSet's roots, branch by branch, bit for bit (at
+    complex omega their imaginary parts too)."""
     import hashlib
     h = hashlib.sha256()
     for b in sorted(rs.branches):
@@ -3250,6 +3273,9 @@ def root_digest(rs) -> str:
         h.update(b.encode())
         h.update(np.ascontiguousarray(br.ks, np.float64).tobytes())
         h.update(np.ascontiguousarray(br.omegas, np.float64).tobytes())
+        if getattr(br, "omegas_imag", None) is not None:
+            h.update(np.ascontiguousarray(br.omegas_imag,
+                                          np.float64).tobytes())
     return h.hexdigest()
 
 
@@ -3631,6 +3657,47 @@ def cx_cyl_ops(case, n: int, dual: bool = False, n_iter: int = 1) -> int:
     return n * n_iter * (per + ends + (OPS["slab_cx_newton"] if dual else 0))
 
 
+def block_rows(k, m, threads: int) -> int:
+    """The (k, m) rows of a batch's blocks of `threads` seeds, summed over
+    the blocks: the row-table entries a launch needs per abscissa."""
+    import torch
+    b = torch.arange(k.numel(), device=k.device) // threads
+    return int(torch.unique(torch.stack([b.to(k.dtype), k, m], dim=1),
+                            dim=0).shape[0])
+
+
+def cx_cyl_ops_tabled(case, n: int, dtype, rows: int, dual: bool = False,
+                      n_iter: int = 1) -> int:
+    """cx_cyl_ops as the kernel's tables need it: per seed and step the
+    update and the chains that the step forms (3, less the one kept where
+    kernels.cylinder.chain_kept says), each less its (k, m, r) values, which
+    a launch needs once for each of its `rows` block rows (`block_rows`)
+    and abscissae (the kernel forms them again each round)."""
+    from eigensolver_tpu_torch.kernels import cylinder as kcyl
+    from eigensolver_tpu_torch.physics.cylinder import is_twisted
+    gr = case.grid
+    d = "dual_" if dual else ""
+    f = "cyl_tw_cx_" if is_twisted(case) else "cyl_cx_"
+    chain, row = OPS[f + d + "chain"], OPS[f + "row"]
+    interior, tail = kcyl.chain_kept(case, dtype)
+    segs = [(interior, OPS[f + d + "step"], chain)]
+    if tail.numel():
+        log_step = OPS[f + d + "log_step"]
+        segs.append((tail, log_step,
+                     chain + (log_step - OPS[f + d + "step"]) // 3))
+    per, abscissae = 0, 0
+    for kept, step, ch in segs:
+        steps = kept.numel()
+        per += (steps * (step - 3 * ch)
+                + (3 * steps - int(kept.sum())) * (ch - row))
+        abscissae += 3 * steps
+    untabled = cx_cyl_ops(case, n, dual, n_iter)
+    ends = untabled // (n * n_iter) - (
+        gr.n_interior * OPS[f + d + "step"]
+        + (tail.numel() * OPS[f + d + "log_step"] if tail.numel() else 0))
+    return n * n_iter * (per + ends) + rows * abscissae * row
+
+
 def cx_cyl_ptxas() -> dict:
     """Registers and spill bytes of the cylinder's complex-omega kernel
     (csrc/cylinder_complex.cu::newton_kernel<T, kTw, kNum>) and of its K_m
@@ -3688,6 +3755,26 @@ def _cx_cyl_rows(res, rows):
                      res.mismatch_pct[rows], res.valid[rows])
 
 
+def _cx_cyl_cells(case, dtype, n_k: int = 3, per_k: int = 200):
+    """Seeds laid out as sweep.complex_seeds lays out the sweep's, on the
+    case's first n_k k with at least per_k seeds a k (n_re = 6 across a
+    band), at the case's last mode: every block of the kernel's launch
+    shape spans one k row or two, and a row crosses a block boundary."""
+    import torch
+    from eigensolver_tpu_torch import sweep
+    from eigensolver_tpu_torch.cplx import C
+    sub = dataclasses.replace(case, k_values=tuple(
+        float(k) for k in case.k_grid()[:n_k]))
+    n_im = -(-per_k // (6 * (len(sub.sorted_speeds()) - 1)))
+    om, k = sweep.complex_seeds(sub, 6, n_im)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to("cuda", dtype)
+    k = t(k)
+    return C(t(om.real), t(om.imag)), k, torch.full_like(
+        k, float(case.modes[-1]))
+
+
 def phase_complex_cylinder_kernels(out: dict) -> None:
     """Phase 24 (see the module's docstring)."""
     import torch
@@ -3695,9 +3782,30 @@ def phase_complex_cylinder_kernels(out: dict) -> None:
     from eigensolver_tpu_torch.cplx import C, cabs, csqrt, where
     from eigensolver_tpu_torch.kernels import bessel
     from eigensolver_tpu_torch.kernels import cylinder as kcyl
-    from eigensolver_tpu_torch.physics.cylinder import CylinderPhysics
+    from eigensolver_tpu_torch.physics.cylinder import (CylinderPhysics,
+                                                        is_twisted)
     from eigensolver_tpu_torch.search import newton_loop
     res = {}
+    # the launch shapes, and the kept steps of the sweeps' grids
+    shapes = {}
+    for dtype in (torch.float32, torch.float64):
+        dt = str(dtype).split(".")[1]
+        for tw in (False, True):
+            for num in (False, True):
+                a = kcyl.newton_attrs(dtype, tw, num)
+                if a["threads"] != kcyl.NEWTON_SHAPE[dtype, tw].threads:
+                    raise AssertionError(f"cylinder_newton: built for "
+                                         f"{a['threads']} threads, "
+                                         f"NEWTON_SHAPE says otherwise")
+                shapes[f"{dt} {'twisted' if tw else 'plain'}"
+                       f"{' numeric' if num else ''}"] = a
+        for name in CX_CYL:
+            case, _ = cx_cyl_config(name)
+            kept = [s for s in kcyl.chain_kept(case, dtype) if s.numel()]
+            shapes[f"{name} {dt} kept"] = [
+                float(s.sum()) / max(1, s.numel() - 1) for s in kept]
+    line("phase 24 launch shapes", **shapes)
+    res["shapes"] = shapes
     for name in CX_CYL_VARIANTS:
         case = cx_cyl_variant(name)
         params = kcyl.disp_params(case)
@@ -3705,51 +3813,85 @@ def phase_complex_cylinder_kernels(out: dict) -> None:
         for dtype in (torch.float32, torch.float64):
             dt = str(dtype).split(".")[1]
             om, k, m = _cx_cyl_draws(case, CX_CYL_N_CHECK, 5, dtype)
+            omc, kc, mc = _cx_cyl_cells(case, dtype)
             dual = ph.make_dispersion_dual_plain(m=None, dtype=dtype)
             plain = ph.make_dispersion_plain(m=None, dtype=dtype)
             om13, k13, m13 = _cx_cyl_draws(case, 13, 7, dtype)
-            # the plain Newton loop, then one plain evaluation of its roots
-            # and of 13 more draws (the plain version's time is set by the
-            # chain's serial steps, not by the batch)
+            # the plain Newton loop of both draws, then one plain
+            # evaluation of its roots and of 13 more draws (the plain
+            # version's time is set by the chain's serial steps, not by the
+            # batch)
             t0 = time.perf_counter()
-            want = newton_loop(dual, om, k, m, CX_CYL_PLAIN_N_ITER)
+            want = newton_loop(dual, C(torch.cat([om.re, omc.re]),
+                                       torch.cat([om.im, omc.im])),
+                               torch.cat([k, kc]), torch.cat([m, mc]),
+                               CX_CYL_PLAIN_N_ITER)
             both = plain(C(torch.cat([want.re, om13.re]),
                            torch.cat([want.im, om13.im])),
-                         torch.cat([k, k13]), torch.cat([m, m13]))
+                         torch.cat([k, kc, k13]), torch.cat([m, mc, m13]))
             torch.cuda.synchronize()
             plain_s = time.perf_counter() - t0
-            n = CX_CYL_N_CHECK
+            n, nc = CX_CYL_N_CHECK, kc.numel()
             at_roots = _cx_cyl_rows(both, slice(0, n))
-            plain13 = _cx_cyl_rows(both, slice(n, None))
+            at_cells = _cx_cyl_rows(both, slice(n, n + nc))
+            plain13 = _cx_cyl_rows(both, slice(n + nc, None))
             before = read_counters()
+            kcyl.newton_counts("cuda")
             got, r = kcyl.cylinder_newton(om, k, m, CX_CYL_PLAIN_N_ITER, 1.0,
                                           params, final_eval=True)
             ev = kcyl.cylinder_disp_complex(got, k, m, params)
             ev13 = kcyl.cylinder_disp_complex(om13, k13, m13, params)
+            random_counts = kcyl.newton_counts("cuda")
+            gotc, rc = kcyl.cylinder_newton(omc, kc, mc, CX_CYL_PLAIN_N_ITER,
+                                            1.0, params, final_eval=True)
+            evc = kcyl.cylinder_disp_complex(gotc, kc, mc, params)
+            cell_counts = kcyl.newton_counts("cuda")
             torch.cuda.synchronize()
             err = _cx_bits(f"phase 24 {name} {dt} cylinder_newton",
                            {"re": got.re, "im": got.im},
-                           {"re": want.re, "im": want.im})
-            err = max(err, _cx_cyl_same(f"phase 24 {name} {dt} value round",
-                                        r, at_roots),
-                      _cx_cyl_same(f"phase 24 {name} {dt} evaluation", ev,
-                                   at_roots))
-            err = max(err, _cx_cyl_same(
-                f"phase 24 {name} {dt} ragged evaluation", ev13, plain13))
-            twisted = name in ("twist", "magnetic", "twist_numeric")
+                           {"re": want.re[:n], "im": want.im[:n]})
+            err = max(err, _cx_bits(
+                f"phase 24 {name} {dt} cylinder_newton laid out",
+                {"re": gotc.re, "im": gotc.im},
+                {"re": want.re[n:], "im": want.im[n:]}))
+            for what, got_i, want_i in (
+                    ("value round", r, at_roots),
+                    ("evaluation", ev, at_roots),
+                    ("ragged evaluation", ev13, plain13),
+                    ("value round laid out", rc, at_cells),
+                    ("evaluation laid out", evc, at_cells)):
+                err = max(err, _cx_cyl_same(f"phase 24 {name} {dt} {what}",
+                                            got_i, want_i))
+            twisted = is_twisted(case)
             numeric = name.endswith("numeric")
             check_launches(f"phase 24 {name} {dt}", counts_since(before), {
-                "cylinder_newton": 1, "cylinder_disp_complex": 2,
-                "cylinder_complex_twisted": 3 * twisted,
-                "cylinder_complex_numeric": 3 * numeric})
+                "cylinder_newton": 2, "cylinder_disp_complex": 3,
+                "cylinder_complex_twisted": 5 * twisted,
+                "cylinder_complex_numeric": 5 * numeric})
+            # every laid-out seed read its block's row table (and, with the
+            # numeric exterior, its exps) in both launches
+            interior, tail = kcyl.chain_kept(case, dtype, "cuda")
+            kept = int(interior.sum() + tail.sum())
+            steps = interior.numel() + tail.numel()
+            if (cell_counts["rows"] != 2 * nc
+                    or cell_counts["exterior"] != 2 * nc * numeric
+                    or cell_counts["kept"] != 2 * kept
+                    or cell_counts["steps"] != 2 * steps
+                    or random_counts["kept"] != 3 * kept):
+                raise AssertionError(f"phase 24 {name} {dt}: tables "
+                                     f"{cell_counts}, {random_counts}")
             ms = cuda_ms(lambda: kcyl.cylinder_newton(
                 om, k, m, CX_CYL_PLAIN_N_ITER, 1.0, params,
                 final_eval=True), 3)
             ops = (cx_cyl_ops(case, n, True, CX_CYL_PLAIN_N_ITER)
                    + cx_cyl_ops(case, n))
-            r = dict(n=n, n_iter=CX_CYL_PLAIN_N_ITER, grid=CX_CYL_GRID,
-                     max_abs_err=err, ms=ms, plain_ms=1e3 * plain_s,
+            r = dict(n=n, n_laid_out=nc, n_iter=CX_CYL_PLAIN_N_ITER,
+                     grid=CX_CYL_GRID, max_abs_err=err, ms=ms,
+                     plain_ms=1e3 * plain_s,
                      finite=float(torch.isfinite(got.re).float().mean()),
+                     tabled_random=random_counts["rows"],
+                     tabled_laid_out=cell_counts["rows"],
+                     kept_steps=kept, steps=steps,
                      **bound(ops, 73 * n, dt))
             line(f"phase 24 {name} {dt} kernel vs plain", **r)
             res[f"{name} {dt}"] = r
@@ -3809,16 +3951,28 @@ def _event_ms(fn):
     return out, t0.elapsed_time(t1)
 
 
+def _warps(mask) -> int:
+    """The warps of 32 consecutive seeds that hold a seed of `mask`."""
+    import torch
+    pad = (-mask.numel()) % 32
+    return int(torch.cat([mask, mask.new_zeros(pad)]).view(-1, 32)
+               .any(dim=1).sum())
+
+
 def _cx_cyl_main_launches(case, kw: dict, modes=None) -> dict:
     """The main path's launches of a complex cylinder sweep timed on the
     card: the Newton launch of the sweep's seeds (30 steps, with the value
     round after a warm-up, then without) per mode (of `modes`, default the
     case's), and the audit's contour points in the evaluation mode, each
-    beside its bound."""
+    beside its bound for the kernel's tables (`cx_cyl_ops_tabled`) and as
+    counted before them (`*_untabled_ms`); the roots on the divisions' slow
+    path (|Im omega| < 1e-290) and their warps."""
     import torch
     from eigensolver_tpu_torch import sweep
     from eigensolver_tpu_torch.kernels import cylinder as kcyl
+    from eigensolver_tpu_torch.physics.cylinder import is_twisted
     params = kcyl.disp_params(case)
+    threads = kcyl.NEWTON_SHAPE[torch.float64, is_twisted(case)].threads
     om0, k0 = sweep.complex_seeds(case, kw["n_re"], kw["n_im"])
     seeds, kk = _cx_pairs(om0, k0)
     n, n_iter = len(k0), kw["newton_iters"]
@@ -3830,12 +3984,22 @@ def _cx_cyl_main_launches(case, kw: dict, modes=None) -> dict:
         roots, ms = _event_ms(lambda: kcyl.cylinder_newton(
             seeds, kk, mm, n_iter, 1.0, params))
         fin = roots.re.isfinite() & roots.im.isfinite()
+        tiny = fin & (roots.im.abs() < 1e-290)
+        rows = block_rows(kk, mm, threads)
+        newton = cx_cyl_ops_tabled(case, n, torch.float64, rows, True,
+                                   n_iter)
+        value = cx_cyl_ops_tabled(case, n, torch.float64, rows)
         r[f"m{mode}"] = dict(
             ms=ms, ms_final_eval=ms_fe, final_eval_ms=ms_fe - ms,
             roots_non_finite=int((~fin).sum()),
-            roots_tiny_im=int((fin & (roots.im.abs() < 1e-290)).sum()),
-            **bound(cx_cyl_ops(case, n, True, n_iter), 48 * n, "float64"),
-            bound_final_eval_ms=bound(
+            roots_tiny_im=int(tiny.sum()), warps_tiny_im=_warps(tiny),
+            warps=_warps(fin | ~fin), block_rows=rows,
+            **bound(newton, 48 * n, "float64"),
+            bound_final_eval_ms=bound(newton + value, 73 * n,
+                                      "float64")["bound_ms"],
+            bound_untabled_ms=bound(cx_cyl_ops(case, n, True, n_iter),
+                                    48 * n, "float64")["bound_ms"],
+            bound_final_eval_untabled_ms=bound(
                 cx_cyl_ops(case, n, True, n_iter) + cx_cyl_ops(case, n),
                 73 * n, "float64")["bound_ms"])
     cells, paths, _, _ = sweep.audit_contours(
@@ -3848,7 +4012,11 @@ def _cx_cyl_main_launches(case, kw: dict, modes=None) -> dict:
     n_a = k_a.numel()
     r["audit"] = dict(n=n_a, ms=cuda_ms(
         lambda: kcyl.cylinder_disp_complex(z_a, k_a, m_a, params), 2),
-        **bound(cx_cyl_ops(case, n_a), 73 * n_a, "float64"))
+        **bound(cx_cyl_ops_tabled(case, n_a, torch.float64,
+                                  block_rows(k_a, m_a, threads)),
+                73 * n_a, "float64"),
+        bound_untabled_ms=bound(cx_cyl_ops(case, n_a), 73 * n_a,
+                                "float64")["bound_ms"])
     return r
 
 
@@ -3915,6 +4083,7 @@ def phase_complex_cylinder(out: dict) -> dict:
         r.update(sweep=dict(
             wall_s=statistics.median(walls), walls=walls,
             first_wall_s=stats.wall_s, counts=rs.counts(),
+            root_digest=root_digest(rs),
             completeness=comp, launches=launches[name],
             k_stride=stride, counts_strided=sub_rs.counts(),
             counts_jax=target["counts"], counts_exact=exact,
@@ -3968,7 +4137,9 @@ def complex_cylinder_entries(res: dict, kres: dict, launches: dict) -> list:
              "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
              "library_ms": None, "ms_final_eval": r["ms_final_eval"],
              "bound_final_eval_ms": r["bound_final_eval_ms"],
+             "bound_untabled_ms": r["bound_untabled_ms"],
              "roots_tiny_im": r["roots_tiny_im"],
+             "warps_tiny_im": r["warps_tiny_im"],
              "float32_check": {k: kres[f"{variant} float32"][k]
                                for k in ("max_abs_err", "ms", "plain_ms")},
              "audit": res[main]["audit"]}

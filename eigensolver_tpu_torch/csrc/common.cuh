@@ -165,12 +165,27 @@ __device__ __forceinline__ T rk4_abscissa(T x0, T h, T hh, int i, int a) {
   return a == 0 ? x : (a == 1 ? x + hh : x + h);
 }
 
-// Whether step i's first abscissa is step i - 1's last, bit for bit, at
-// every step of the interior's grid (rk4_abscissa from x0 = 0 to 1): where
-// n is a power of two, h = 1 / n and every i h and i h + h are exact, and
-// (i + 1) h equals i h + h. A chain there has the same value at both: it
-// is computed once, at step i - 1, and kept (the slab kernels: 2 chains a
-// step, not 3).
+// Whether step i's first abscissa is step i - 1's last, bit for bit
+// (rk4_abscissa(x0, h, hh, i, 0) against rk4_abscissa(x0, h, hh, i - 1,
+// 2); i >= 1). A chain that depends on the abscissa alone has the same
+// value at both: it is computed once, at step i - 1, and kept. The test
+// depends on the grid alone, so every thread of a launch takes the same
+// branch. The cylinder's grid from r = 1 to eps holds it at some steps
+// and not at others (its complex-omega kernel asks at each step); the
+// one-argument form says whether it holds at every step of a grid from
+// x0 = 0 to 1 in n_steps steps: where n is a power of two, h = 1 / n and
+// every i h and i h + h are exact, and (i + 1) h equals i h + h (the slab
+// kernels: 2 chains a step, not 3).
+template <class T>
+__device__ __forceinline__ bool chain_reuse(T x0, T h, T hh, int i) {
+  const T a = rk4_abscissa(x0, h, hh, i, 0);
+  const T b = rk4_abscissa(x0, h, hh, i - 1, 2);
+  if constexpr (sizeof(T) == 4) {
+    return __float_as_uint(a) == __float_as_uint(b);
+  } else {
+    return __double_as_longlong(a) == __double_as_longlong(b);
+  }
+}
 __host__ __device__ __forceinline__ bool chain_reuse(int n_steps) {
   return n_steps > 0 && (n_steps & (n_steps - 1)) == 0;
 }
@@ -310,17 +325,18 @@ __device__ __forceinline__ T cyl_ext_exp(T t0, T h, T hh, int i, int a) {
 }
 
 // One RK4 step of (P, dP/dt)' = (dP/dt, (m^2 + m_e e^{2t}) P) with e^{2t}
-// at the step's 3 abscissae (eA, eM, eB)
-template <class T>
-__device__ __forceinline__ void cyl_ext_step(T mm, T m_e, T eA, T eM, T eB,
-                                             T h, T hh, T h6, T& P, T& D) {
-  const T gA = mm + m_e * eA;
-  const T gM = mm + m_e * eM;
-  const T gB = mm + m_e * eB;
-  const T k1P = D, k1D = gA * P;
-  const T k2P = D + hh * k1D, k2D = gM * (P + hh * k1P);
-  const T k3P = D + hh * k2D, k3D = gM * (P + hh * k2P);
-  const T k4P = D + h * k3D, k4D = gB * (P + h * k3P);
+// at the step's 3 abscissae (eA, eM, eB); the state W real, or at complex
+// omega a complex value or dual (complex.cuh)
+template <class T, class W>
+__device__ __forceinline__ void cyl_ext_step(T mm, W m_e, T eA, T eM, T eB,
+                                             T h, T hh, T h6, W& P, W& D) {
+  const W gA = mm + m_e * eA;
+  const W gM = mm + m_e * eM;
+  const W gB = mm + m_e * eB;
+  const W k1P = D, k1D = gA * P;
+  const W k2P = D + hh * k1D, k2D = gM * (P + hh * k1P);
+  const W k3P = D + hh * k2D, k3D = gM * (P + hh * k2P);
+  const W k4P = D + h * k3D, k4D = gB * (P + h * k3P);
   P = P + h6 * (k1P + T(2) * k2P + T(2) * k3P + k4P);
   D = D + h6 * (k1D + T(2) * k2D + T(2) * k3D + k4D);
 }

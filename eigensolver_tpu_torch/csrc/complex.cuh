@@ -201,7 +201,8 @@ __device__ __forceinline__ CDual<T> operator/(CDual<T> a, T c) {
 
 // The quotients of dual.quot and dual.rquot: a / b, and r / b for a real r,
 // of complex values or complex duals; a dual's two parts share b's
-// divisions: q = a / b, ((a' - q b') / b); r / b: (-(q b')) / b
+// divisions: q = a / b, ((a' - q b') / b); r / b: (-(q b')) / b. Of two
+// reals, a / b.
 template <class T>
 __device__ __forceinline__ Cx<T> quot(Cx<T> a, Cx<T> b) {
   return a / cdivisor(b);
@@ -212,6 +213,8 @@ __device__ __forceinline__ CDual<T> quot(CDual<T> a, CDual<T> b) {
   const Cx<T> q = a.v / ib;
   return {q, (a.d - q * b.d) / ib};
 }
+__device__ __forceinline__ float quot(float a, float b) { return a / b; }
+__device__ __forceinline__ double quot(double a, double b) { return a / b; }
 template <class T>
 __device__ __forceinline__ Cx<T> rquot(T r, Cx<T> b) {
   return r / cdivisor(b);
@@ -243,9 +246,18 @@ __device__ __forceinline__ Cx<T> value(CDual<T> z) {
   return z.v;
 }
 
-// A real constant r as a complex value or dual (derivative 0)
+// A real constant r as a complex value or dual (derivative 0), or as a
+// real
 template <class W>
 struct Const;
+template <>
+struct Const<float> {
+  __device__ static float of(float r) { return r; }
+};
+template <>
+struct Const<double> {
+  __device__ static double of(double r) { return r; }
+};
 template <class T>
 struct Const<Cx<T>> {
   __device__ static Cx<T> of(T r) { return {r, T(0)}; }

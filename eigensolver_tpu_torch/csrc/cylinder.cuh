@@ -1,11 +1,13 @@
 // Device code shared by the cylinder kernels: the case's parameters
 // (CylDispParams), a candidate (Cand), the chains' r-only values (RPoint,
 // RowPoint; the twisted RPointTw), the RK4 step of the two-basis
-// system, the integration grid and the end of the shoot (finish). The
-// density/axial-flow chain's kernels (cylinder_disp.cu), the twisted
-// chain's (cylinder_twisted.cu) and the complex-omega ones
-// (cylinder_complex.cu) include it; cylinder_disp.cu's C entries
-// call the twisted launchers declared at the end when
+// system, the integration grid, the tables that a block fills chunk by
+// chunk in shared memory (Chunk, fill_chunk; the numeric exterior's exps,
+// cyl_exterior_scan), the end of the shoot (finish) and a kernel's
+// attributes (kernel_attrs). The density/axial-flow chain's kernels
+// (cylinder_disp.cu), the twisted chain's (cylinder_twisted.cu) and the
+// complex-omega ones (cylinder_complex.cu) include it; cylinder_disp.cu's
+// C entries call the twisted launchers declared at the end when
 // CylDispParams::twisted is set.
 #pragma once
 
@@ -15,6 +17,7 @@
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "complex.cuh"
 #include "kve_ratio.cuh"
 
 namespace eigk {
@@ -216,6 +219,194 @@ struct Grid {
     rk4_spacing(x0l, log(T(p.axis_eps_final)), p.n_axis_log, hl, hhl, h6l);
   }
 };
+
+// The radius at abscissa x: x in r, exp(x) on the log tail
+template <class T, bool kLog>
+__device__ __forceinline__ T radius(T x) {
+  return kLog ? exp(x) : x;
+}
+
+// The tables' chunks: steps [c C, c C + C) of the r part for c < nci, then
+// the log tail's; a chunk never spans both
+struct Chunk {
+  bool log;
+  int i0, count;
+};
+
+template <class T>
+__device__ __forceinline__ Chunk chunk_at(const Grid<T>& g, int nci, int C,
+                                          int c) {
+  if (c < nci) return {false, c * C, min(C, g.n_int - c * C)};
+  const int i0 = (c - nci) * C;
+  return {true, i0, min(C, g.n_log - i0)};
+}
+
+// Rows of a block's row table: a block tables the (k, m) rows of its
+// first and of its last candidate (or seed). A ladder row is a run of
+// n_omega candidates that share (k, m) (search.py flattens the scan as
+// (rows, n_omega)), a complex sweep's a run of a k's seeds
+// (sweep.complex_seeds: per k, per band); where the run is at least the
+// block, a block spans at most two rows, and the table covers every
+// candidate of it.
+constexpr int kRows = 2;
+
+// bitwise equality: a candidate is in a tabled row when its (k, m) have
+// the row's bits, so that the row's values are the ones it would compute
+template <class T>
+__device__ __forceinline__ bool same_bits(T a, T b) {
+  if constexpr (sizeof(T) == 4) {
+    return __float_as_uint(a) == __float_as_uint(b);
+  } else {
+    return __double_as_longlong(a) == __double_as_longlong(b);
+  }
+}
+
+// The rows of a block of `threads` candidates from b0 (of n): its first
+// and last candidates' (k, m), published in the block's shared km[4], two
+// unless they are one, filled (`fill`) unless no warp reads them; returns
+// the row of the candidate (k, m) (0, 1; -1 where it, or a lane of its
+// warp, is in neither: a warp takes one path, so that a batch of short
+// rows does not run both in its warps), and adds to `count` the batch's
+// candidates (`counted`) that read a row. Every thread of the block calls
+// it (it holds the block's barriers).
+template <class T>
+__device__ __forceinline__ int block_row(const T* k_, const T* m_, int64_t b0,
+                                         int64_t n, int threads, T k, T m,
+                                         bool counted, T* km, bool& two,
+                                         bool& fill,
+                                         unsigned long long* count) {
+  const int64_t end = b0 + threads;
+  const int64_t last = (end < n ? end : n) - 1;
+  const T k0 = k_[b0], m0 = m_[b0], k1 = k_[last], m1 = m_[last];
+  two = !(same_bits(k1, k0) && same_bits(m1, m0));
+  int row = same_bits(k, k0) && same_bits(m, m0)         ? 0
+          : two && same_bits(k, k1) && same_bits(m, m1) ? 1
+                                                         : -1;
+  if (!__all_sync(0xffffffffu, row >= 0)) row = -1;
+  if (threadIdx.x == 0) {
+    km[0] = k0;
+    km[1] = m0;
+    km[2] = k1;
+    km[3] = m1;
+  }
+  // publishes km
+  const int n_tabled = __syncthreads_count(row >= 0 && counted);
+  fill = __syncthreads_or(row >= 0);
+  if (threadIdx.x == 0 && n_tabled) {
+    atomicAdd(count, static_cast<unsigned long long>(n_tabled));
+  }
+  return row;
+}
+
+// The block fills the table entries of a chunk, 3 per step (A, M, B), one
+// abscissa per thread at a time: its r-only entry point(r) (on the log
+// tail at r = exp(t)) and, from it, its entry in the first row,
+// row_of(q, 0), and, where the block has two, in the second,
+// row_of(q, 1), `slot` further, unless no warp reads them (!rows).
+template <class T, class Q, class Row, class PointF, class RowF>
+__device__ __forceinline__ void fill_chunk(const Grid<T>& g, const Chunk& ch,
+                                           bool rows, bool two, int slot,
+                                           Q* dst, Row* wdst,
+                                           const PointF& point,
+                                           const RowF& row_of) {
+  for (int e = threadIdx.x; e < 3 * ch.count; e += blockDim.x) {
+    const int i = ch.i0 + e / 3, a = e % 3;
+    const Q q = point(ch.log ? radius<T, true>(
+                                   rk4_abscissa(g.x0l, g.hl, g.hhl, i, a))
+                             : rk4_abscissa(g.x0i, g.hi, g.hhi, i, a));
+    dst[e] = q;
+    if (rows) {
+      wdst[e] = row_of(q, 0);
+      if (two) wdst[slot + e] = row_of(q, 1);
+    }
+  }
+}
+
+// The numeric exterior of a block (common.cuh::cyl_exterior, operation
+// for operation, on a real state or, at complex omega, a complex value or
+// dual W), with exp(2 t) read from a table of the block for the distinct k
+// of its rows (km, block_row's: k0 and, where it differs, k1; the
+// candidate's k, or a lane's of its warp, may be neither): the block
+// fills exp(2 t) at the 3 abscissae of as many steps of each tabled k at
+// a time as `tab_bytes` hold into `tab`, where no table of the interior is
+// live any more. Every thread of the block calls it (it holds the block's
+// barriers); `counted`: the candidate is one of the batch's, which `count`
+// (if set) counts where it read the table.
+template <class T, class W>
+__device__ W cyl_exterior_scan(const CylDispParams& p, W m_e, T k, T m,
+                               const T* km, size_t tab_bytes, T* tab,
+                               bool counted, unsigned long long* count) {
+  const T k0 = km[0], k1 = km[2];
+  const bool two = !same_bits(k1, k0);
+  int ek = same_bits(k, k0) ? 0 : two && same_bits(k, k1) ? 1 : -1;
+  const int ec = static_cast<int>(tab_bytes / (kRows * 3 * sizeof(T)));
+  const int n = p.n_exterior;
+  const double Wl = p.exterior_wavelengths;
+  T r_far, t0, h, hh, h6;
+  cyl_ext_grid(k, Wl, n, r_far, t0, h, hh, h6);
+  // the tabled ks' grids, for the fill
+  T rf0, t00, h0, hh0, h60, rf1, t01, h1, hh1, h61;
+  cyl_ext_grid(k0, Wl, n, rf0, t00, h0, hh0, h60);
+  cyl_ext_grid(k1, Wl, n, rf1, t01, h1, hh1, h61);
+  const T mm = m * m;
+  W P = Const<W>::of(T(1e-8));
+  W D = Const<W>::of(T(-1e-8) * r_far);
+  // a warp takes one path; a block none of whose warps reads the table
+  // does not fill it
+  if (!__all_sync(0xffffffffu, ek >= 0)) ek = -1;
+  const int n_tabled = __syncthreads_count(ek >= 0 && counted);
+  if (threadIdx.x == 0 && n_tabled && count != nullptr) {
+    atomicAdd(count, static_cast<unsigned long long>(n_tabled));
+  }
+  const int n_fill = __syncthreads_or(ek >= 0) ? (two ? 2 : 1) : 0;
+  for (int s0 = 0; s0 < n; s0 += ec) {
+    const int cnt = min(ec, n - s0);
+    if (s0 > 0) __syncthreads();           // the last chunk's readers done
+    for (int e = threadIdx.x; e < n_fill * 3 * cnt; e += blockDim.x) {
+      const bool second = e >= 3 * cnt;
+      const int f = second ? e - 3 * cnt : e;
+      tab[e] = second ? cyl_ext_exp(t01, h1, hh1, s0 + f / 3, f % 3)
+                      : cyl_ext_exp(t00, h0, hh0, s0 + f / 3, f % 3);
+    }
+    __syncthreads();
+    if (ek >= 0) {
+      const T* E = tab + ek * 3 * cnt;
+      for (int j = 0; j < cnt; ++j, E += 3) {
+        cyl_ext_step(mm, m_e, E[0], E[1], E[2], h, hh, h6, P, D);
+      }
+    } else {
+      for (int i = s0; i < s0 + cnt; ++i) {
+        cyl_ext_step(mm, m_e, cyl_ext_exp(t0, h, hh, i, 0),
+                     cyl_ext_exp(t0, h, hh, i, 1),
+                     cyl_ext_exp(t0, h, hh, i, 2), h, hh, h6, P, D);
+      }
+    }
+  }
+  return quot(D, P);
+}
+
+// A kernel's registers, local (spill) bytes a thread and resident blocks
+// per SM with `smem` bytes of dynamic shared memory at `threads` a block
+template <class K>
+int kernel_attrs(K* kern, int threads, size_t smem, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, kern);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
+                                                      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  out[2] = per_sm;
+  return 0;
+}
 
 // The axis condition, the interface values, the exterior, det, the %
 // mismatch and valid from the basis states at the axis (cylinder.py:

@@ -131,12 +131,6 @@ __device__ __forceinline__ void invF_g(const RPoint<T>& q,
   }
 }
 
-// The radius at abscissa x: x in r, exp(x) on the log tail
-template <class T, bool kLog>
-__device__ __forceinline__ T radius(T x) {
-  return kLog ? exp(x) : x;
-}
-
 // interface chain at r = 1: C3(1) and F(1) = r D / C3
 template <class T>
 __device__ __forceinline__ void interface1(const CylDispParams& p,
@@ -156,39 +150,6 @@ struct Iface {
   T C3_1, F1;
 };
 
-// The scan's chunks: steps [c C, c C + C) of the r part for c < nci, then
-// the log tail's; a chunk never spans both
-struct Chunk {
-  bool log;
-  int i0, count;
-};
-
-template <class T>
-__device__ __forceinline__ Chunk chunk_at(const Grid<T>& g, int nci, int C,
-                                          int c) {
-  if (c < nci) return {false, c * C, min(C, g.n_int - c * C)};
-  const int i0 = (c - nci) * C;
-  return {true, i0, min(C, g.n_log - i0)};
-}
-
-// Rows of the scan's row table: a block tables the (k, m) rows of its
-// first and of its last candidate. A ladder row is a run of n_omega
-// candidates that share (k, m) (search.py flattens the scan as (rows,
-// n_omega)); where n_omega is at least the block, a block spans at most
-// two rows, and the table covers every candidate of it.
-constexpr int kRows = 2;
-
-// bitwise equality: a candidate is in a tabled row when its (k, m) have
-// the row's bits, so that the row's values are the ones it would compute
-template <class T>
-__device__ __forceinline__ bool same_bits(T a, T b) {
-  if constexpr (sizeof(T) == 4) {
-    return __float_as_uint(a) == __float_as_uint(b);
-  } else {
-    return __double_as_longlong(a) == __double_as_longlong(b);
-  }
-}
-
 // The scan's tables in the block's dynamic shared memory, double-buffered
 // by chunk: 2 x 3 C r-only entries, then 2 x kRows x 3 C row entries
 template <class T>
@@ -197,11 +158,9 @@ __host__ __device__ constexpr size_t scan_smem(int chunk) {
        * (sizeof(RPoint<T>) + kRows * sizeof(RowPoint<T>));
 }
 
-// The block fills the table entries of a chunk, 3 per step (A, M, B), one
-// abscissa per thread at a time: its r-only entry and, from it, its entry
-// in the first row and, where the block has two, in the second (`slot`
-// further), unless no warp reads them (!rows); km: the rows' (k, m), in
-// shared memory (not held in registers across the scan's steps).
+// The block fills the table entries of a chunk (cylinder.cuh::fill_chunk):
+// the r-only entries and the entries of the rows whose (k, m) are km, in
+// shared memory (not held in registers across the scan's steps)
 template <class T>
 __device__ __forceinline__ void fill_chunk(const CylDispParams& p,
                                            const Grid<T>& g, const Chunk& ch,
@@ -209,18 +168,9 @@ __device__ __forceinline__ void fill_chunk(const CylDispParams& p,
                                            int slot, RPoint<T>* dst,
                                            RowPoint<T>* wdst) {
   const Cand<T> r0(p, T(0), km[0], km[1]), r1(p, T(0), km[2], km[3]);
-  for (int e = threadIdx.x; e < 3 * ch.count; e += blockDim.x) {
-    const int i = ch.i0 + e / 3, a = e % 3;
-    const RPoint<T> q =
-        ch.log ? r_point(p, radius<T, true>(
-                                rk4_abscissa(g.x0l, g.hl, g.hhl, i, a)))
-               : r_point(p, rk4_abscissa(g.x0i, g.hi, g.hhi, i, a));
-    dst[e] = q;
-    if (rows) {
-      wdst[e] = row_point(q, r0);
-      if (two) wdst[slot + e] = row_point(q, r1);
-    }
-  }
+  fill_chunk(
+      g, ch, rows, two, slot, dst, wdst, [&](T r) { return r_point(p, r); },
+      [&](const RPoint<T>& q, int j) { return row_point(q, j ? r1 : r0); });
 }
 
 // A candidate's RK4 steps over one chunk of the tables: with kTab its
@@ -269,62 +219,6 @@ __device__ __forceinline__ void run_chunk_any(const RPoint<T>* q,
 // (eigk_cylinder_scan_tabled); a block adds its count once
 __device__ unsigned long long g_scan_tabled[2];
 
-// The numeric exterior of the scan (common.cuh::cyl_exterior, operation
-// for operation), with exp(2 t) read from a table of the block for the
-// distinct k of its tabled rows (k0 and, with two, k1; ek the candidate's,
-// -1 where its k, or a lane's of its warp, is neither): the block fills
-// exp(2 t) at the 3 abscissae of ec steps of each tabled k at a time into
-// `tab`, where no table of the interior is live any more. Every thread of
-// the block calls it (it holds the block's barriers); `counted`: the
-// candidate is one of the batch's.
-template <class T>
-__device__ T cyl_exterior_scan(const CylDispParams& p, T m_e, T k, T m, T k0,
-                               T k1, bool two, int ek, int ec, T* tab,
-                               bool counted) {
-  const int n = p.n_exterior;
-  const double W = p.exterior_wavelengths;
-  T r_far, t0, h, hh, h6;
-  cyl_ext_grid(k, W, n, r_far, t0, h, hh, h6);
-  // the tabled ks' grids, for the fill
-  T rf0, t00, h0, hh0, h60, rf1, t01, h1, hh1, h61;
-  cyl_ext_grid(k0, W, n, rf0, t00, h0, hh0, h60);
-  cyl_ext_grid(k1, W, n, rf1, t01, h1, hh1, h61);
-  const T mm = m * m;
-  T P = T(1e-8), D = T(-1e-8) * r_far;
-  // a warp takes one path; a block none of whose warps reads the table
-  // does not fill it
-  if (!__all_sync(0xffffffffu, ek >= 0)) ek = -1;
-  const int n_tabled = __syncthreads_count(ek >= 0 && counted);
-  if (threadIdx.x == 0 && n_tabled) {
-    atomicAdd(&g_scan_tabled[1], static_cast<unsigned long long>(n_tabled));
-  }
-  const int n_fill = __syncthreads_or(ek >= 0) ? (two ? 2 : 1) : 0;
-  for (int s0 = 0; s0 < n; s0 += ec) {
-    const int cnt = min(ec, n - s0);
-    if (s0 > 0) __syncthreads();           // the last chunk's readers done
-    for (int e = threadIdx.x; e < n_fill * 3 * cnt; e += blockDim.x) {
-      const bool second = e >= 3 * cnt;
-      const int f = second ? e - 3 * cnt : e;
-      tab[e] = second ? cyl_ext_exp(t01, h1, hh1, s0 + f / 3, f % 3)
-                      : cyl_ext_exp(t00, h0, hh0, s0 + f / 3, f % 3);
-    }
-    __syncthreads();
-    if (ek >= 0) {
-      const T* E = tab + ek * 3 * cnt;
-      for (int j = 0; j < cnt; ++j, E += 3) {
-        cyl_ext_step(mm, m_e, E[0], E[1], E[2], h, hh, h6, P, D);
-      }
-    } else {
-      for (int i = s0; i < s0 + cnt; ++i) {
-        cyl_ext_step(mm, m_e, cyl_ext_exp(t0, h, hh, i, 0),
-                     cyl_ext_exp(t0, h, hh, i, 1),
-                     cyl_ext_exp(t0, h, hh, i, 2), h, hh, h6, P, D);
-      }
-    }
-  }
-  return D / P;
-}
-
 // The ladder scan: one thread per candidate, kThreads per block, chunks of
 // `chunk` steps of two tables in dynamic shared memory (scan_smem): the
 // r-only values, and the (k, m, r) values of the block's kRows rows
@@ -355,31 +249,10 @@ cylinder_disp_kernel(const T* __restrict__ omega_, const T* __restrict__ k_,
   const Cand<T> c(p, omega_[idx], k_[idx], m_[idx]);
   const Grid<T> g(p);
 
-  // the block's rows, its first and last candidates' (k, m) (two unless
-  // they are one), and the candidate's (-1: neither, or a lane of its warp
-  // in neither: a warp takes one path, so that a batch of short rows does
-  // not run both in its warps)
-  const int64_t end = b0 + kThreads;
-  const int64_t last = (end < n ? end : n) - 1;
-  const T k0 = k_[b0], m0 = m_[b0], k1 = k_[last], m1 = m_[last];
-  const bool two = !(same_bits(k1, k0) && same_bits(m1, m0));
-  int row = same_bits(c.k, k0) && same_bits(c.m, m0)         ? 0
-          : two && same_bits(c.k, k1) && same_bits(c.m, m1) ? 1
-                                                             : -1;
-  if (!__all_sync(0xffffffffu, row >= 0)) row = -1;
-  if (threadIdx.x == 0) {
-    row_km[0] = k0;
-    row_km[1] = m0;
-    row_km[2] = k1;
-    row_km[3] = m1;
-  }
-  // publishes row_km; a block none of whose warps reads the row table
-  // does not fill it
-  const int n_tabled = __syncthreads_count(row >= 0 && i < n);
-  const bool fill_rows = __syncthreads_or(row >= 0);
-  if (threadIdx.x == 0 && n_tabled) {
-    atomicAdd(&g_scan_tabled[0], static_cast<unsigned long long>(n_tabled));
-  }
+  // the block's rows and the candidate's (cylinder.cuh::block_row)
+  bool two, fill_rows;
+  const int row = block_row(k_, m_, b0, n, kThreads, c.k, c.m, i < n, row_km,
+                            two, fill_rows, &g_scan_tabled[0]);
 
   Iface<T> f;
   interface1(p, c, f.C3_1, f.F1);
@@ -419,18 +292,12 @@ cylinder_disp_kernel(const T* __restrict__ omega_, const T* __restrict__ k_,
   bool valid;
   const T xi1 = zero_over(f.C3_1) + T(0);
   if constexpr (kNum) {
-    // the exterior's table: the distinct k of the rows (ek the
-    // candidate's), in the smem that the interior's tables leave (the
-    // loop's last barrier retired them)
-    const T ka = row_km[0], kb = row_km[2];
-    const bool two_k = !same_bits(kb, ka);
-    const int ek = same_bits(c.k, ka) ? 0 : two_k && same_bits(c.k, kb) ? 1
-                                                                        : -1;
-    const int ec =
-        static_cast<int>(scan_smem<T>(chunk) / (kRows * 3 * sizeof(T)));
+    // the exterior's table of the rows' k, in the smem that the
+    // interior's tables leave (the loop's last barrier retired them)
     const auto ext = [&](T m_e) {
-      return cyl_exterior_scan(p, m_e, c.k, c.m, ka, kb, two_k, ek, ec,
-                               reinterpret_cast<T*>(smem_raw), i < n);
+      return cyl_exterior_scan(p, m_e, c.k, c.m, row_km, scan_smem<T>(chunk),
+                               reinterpret_cast<T*>(smem_raw), i < n,
+                               &g_scan_tabled[1]);
     };
     finish_with(p, c.omega, c.k, c.m, xi1, f.F1, T(0), P1, w1, P2, w2, ext,
                 det, mism, valid);

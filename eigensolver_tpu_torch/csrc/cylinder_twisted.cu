@@ -285,29 +285,6 @@ int launch_tw_spec(const void* lo, const void* hi, const void* k,
                                               p, device, stream);
 }
 
-// A kernel's registers, local (spill) bytes a thread and resident blocks
-// per SM with `smem` bytes of dynamic shared memory at `threads` a block
-template <class K>
-int kernel_attrs(K* kern, int threads, size_t smem, int* out) {
-  cudaFuncAttributes a;
-  cudaError_t err = cudaFuncGetAttributes(&a, kern);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(kern,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
-                                                      smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = a.numRegs;
-  out[1] = static_cast<int>(a.localSizeBytes);
-  out[2] = per_sm;
-  return 0;
-}
-
 template <class T>
 int tw_attrs(int kind, int threads, int min_blocks, long long smem,
              int* out) {

@@ -47,9 +47,10 @@ _SPEC_ARGS = ((_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I,
 _NEWTON_ARGS = ((_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P, _P, _P, _P,
                  _I, ctypes.c_double, _I, _I, _I, _I, _P, _I, _P), _I)
 # the cylinder's: (om_re, om_im, k, m, out_re, out_im, n, det_re, det_im,
-#  mism, valid, n_iter, damping, final_eval, params, device, stream)
+#  mism, valid, n_iter, damping, final_eval, threads, chunk, params,
+#  device, stream)
 _CYL_NEWTON_ARGS = ((_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P, _P, _P,
-                     _P, _I, ctypes.c_double, _I, _P, _I, _P), _I)
+                     _P, _I, ctypes.c_double, _I, _I, _I, _P, _I, _P), _I)
 _SIGNATURES = {
     # name: (argtypes, restype)
     "eigk_kve_ratio_f32": ((_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P),
@@ -78,6 +79,12 @@ _SIGNATURES = {
                                     _I, _P), _I),
     "eigk_cylinder_newton_f32": _CYL_NEWTON_ARGS,
     "eigk_cylinder_newton_f64": _CYL_NEWTON_ARGS,
+    # (f64, twisted, chunk)
+    "eigk_cylinder_newton_smem": ((_I, _I, _I), ctypes.c_longlong),
+    # (f64, twisted, numeric, chunk, out[5])
+    "eigk_cylinder_newton_attrs": ((_I, _I, _I, _I, _P), _I),
+    # (device, out[4])
+    "eigk_cylinder_newton_counts": ((_I, _P), _I),
     # (device, out[2])
     "eigk_cylinder_scan_tabled": ((_I, _P), _I),
     # (f64, chunk)
@@ -110,9 +117,12 @@ def _sources():
     return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
 
 
-def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+def library_path(units=None, defines=()) -> Path:
+    """Where the library for the current sources and flags lives: of every
+    `.cu`, or of the `.cu` files named in `units` built with the macros
+    `defines` (NAME=VALUE strings) set."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr((sorted(units or ()), sorted(defines))).encode())
     for p in _sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -140,36 +150,66 @@ def build() -> Path:
     path. Each `.cu` is compiled by its own nvcc process, all started
     together, then linked into one shared library. The compilers' report
     (`-Xptxas -v`: registers, spills) is kept beside it as `<name>.log`."""
-    so = library_path()
-    if so.is_file():
-        return so
+    return build_variants([(None, ())])[0]
+
+
+def build_variants(variants) -> list:
+    """build() for each of `variants`, (units, defines): the `.cu` files to
+    link (None: every one) and the macros to set (NAME=VALUE strings; see
+    library_path); every nvcc process of every variant started together.
+    Returns the libraries' paths."""
+    sos = [library_path(u, d) for u, d in variants]
+    if all(so.is_file() for so in sos):
+        return sos
     BUILD_DIR.mkdir(exist_ok=True)
     with open(BUILD_DIR / "build.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)     # released when the file closes
-        if not so.is_file():
-            _compile(so)
-    return so
+        todo = [(so, u, d) for so, (u, d) in zip(sos, variants)
+                if not so.is_file()]
+        if todo:
+            _compile(todo)
+    return sos
 
 
-def _compile(so: Path) -> None:
+def _compile(todo: list) -> None:
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        srcs = [p for p in _sources() if p.suffix == ".cu"]
-        objs = [str(Path(tmp) / f"{p.stem}.o") for p in srcs]
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, str(p)],
-                                  stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-                 for p, o in zip(srcs, objs)]
-        log = "".join(p.communicate()[0] for p in procs)
-        if any(p.returncode for p in procs):
-            raise RuntimeError(f"nvcc failed:\n{log}")
-        lib = str(Path(tmp) / so.name)
-        link = subprocess.run([nvcc, "-shared", *NVCC_FLAGS[:2], "-o", lib,
-                               *objs], capture_output=True, text=True)
-        if link.returncode:
-            raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
-        so.with_suffix(".log").write_text(log)
-        os.replace(lib, so)
+        jobs = []
+        for v, (so, units, defines) in enumerate(todo):
+            srcs = [p for p in _sources() if p.suffix == ".cu"
+                    and (units is None or p.name in units)]
+            flags = [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+            objs = [str(Path(tmp) / f"{v}_{p.stem}.o") for p in srcs]
+            procs = [subprocess.Popen([nvcc, *flags, "-c", "-o", o, str(p)],
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for p, o in zip(srcs, objs)]
+            jobs.append((so, objs, procs))
+        for so, objs, procs in jobs:
+            log = "".join(p.communicate()[0] for p in procs)
+            if any(p.returncode for p in procs):
+                raise RuntimeError(f"nvcc failed:\n{log}")
+            lib = str(Path(tmp) / so.name)
+            link = subprocess.run([nvcc, "-shared", *NVCC_FLAGS[:2], "-o",
+                                   lib, *objs], capture_output=True,
+                                  text=True)
+            if link.returncode:
+                raise RuntimeError(
+                    f"nvcc link failed:\n{link.stdout}{link.stderr}")
+            so.with_suffix(".log").write_text(log)
+            os.replace(lib, so)
+
+
+def load(path: Path) -> ctypes.CDLL:
+    """A built library, its entries given their signatures (those it has:
+    a library of some units has some of them)."""
+    lib = ctypes.CDLL(str(path))
+    for name, (argtypes, restype) in _SIGNATURES.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = restype
+    return lib
 
 
 def library() -> ctypes.CDLL:
@@ -177,12 +217,7 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, (argtypes, restype) in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = restype
-            _lib = lib
+            _lib = load(build())
     return _lib
 
 

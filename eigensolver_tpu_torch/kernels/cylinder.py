@@ -36,7 +36,12 @@ and `cylinder_disp_complex`, its evaluation mode, the shoot on complex
 pairs (`cplx.C`): the non-twisted chain (B4-complex) or the twisted one
 (B4-twisted at complex omega), with the K_m ratio at complex z (B1 at
 complex z, `csrc/kve_complex.cuh`) or the numeric exterior (B6-complex),
-as the parameters pick.
+as the parameters pick. Its blocks read the r-only values, and the (k, m,
+r) values of their first and last seeds' rows, from tables in shared
+memory, as the scan does, and keep a step's first chain where its abscissa
+is the step before's last (`chain_kept`); each (type, chain) is built at
+one launch shape (`NEWTON_SHAPE`; `newton_counts` reads what the launches
+tabled and kept).
 
 A CPU tensor goes to the plain version
 (`physics.cylinder.CylinderPhysics.make_dispersion_plain`, and
@@ -187,6 +192,114 @@ SCAN_SHAPE = ScanShape(threads=256, chunk=64)
 TW_SCAN_THREADS = 128
 TW_SCAN_SHAPE = {torch.float32: ScanShape(TW_SCAN_THREADS, 64),
                  torch.float64: ScanShape(TW_SCAN_THREADS, 32)}
+# The complex-omega kernel's table entries by (dtype, twisted chain): the
+# r-only entry (RPoint<T>, RPointTw<T>) and a row's entry (RowPoint<T>, 4
+# values; RowPointTw<T>, 12 duals and a value), 16-byte aligned
+# (csrc/cylinder_complex.cu::tab_smem: 2 x 3 chunk x (entry + 2 rows))
+_NEWTON_ENTRY_BYTES = {(torch.float32, False): 48 + 2 * 16,
+                       (torch.float64, False): 80 + 2 * 32,
+                       (torch.float32, True): 96 + 2 * 112,
+                       (torch.float64, True): 176 + 2 * 208}
+# The complex-omega kernel's launch shape by (dtype, twisted chain; the
+# numeric exterior's variant shares its chain's): threads a block, which
+# the kernel is built for (csrc/cylinder_complex.cu::CxShape, with its
+# register budget), and the table's chunk of RK4 steps. The fastest, or
+# within 1.5% of it, of 12 (threads, budget, chunk) shapes timed in 3
+# rounds on an H100 (`tools_torch/tune_disp.py --kernel cylinder_newton`,
+# PERF.md section 6): cx_cyl_co_09's Newton launch 733.8 ms at float64
+# (128:2:32 768.9), cx_twist_v01_p1's 670.1 (one wave at 192:2:16 675.6)
+NEWTON_SHAPE = {(torch.float32, False): ScanShape(128, 32),
+                (torch.float64, False): ScanShape(128, 32),
+                (torch.float32, True): ScanShape(192, 32),
+                (torch.float64, True): ScanShape(64, 16)}
+
+
+def newton_smem(dtype: torch.dtype, twisted: bool, chunk: int) -> int:
+    """Bytes of the complex-omega kernel's tables in a block's shared
+    memory at `chunk` steps."""
+    return 2 * 3 * chunk * _NEWTON_ENTRY_BYTES[dtype, bool(twisted)]
+
+
+def check_newton_shape(shape: ScanShape, dtype: torch.dtype,
+                       twisted: bool) -> None:
+    """Raise unless the complex-omega kernel of (dtype, chain) is built
+    for `shape.threads` (NEWTON_SHAPE's) and its tables at `shape.chunk`
+    steps fit a block's shared memory."""
+    check_scan_shape("cylinder_newton", shape,
+                     (NEWTON_SHAPE[dtype, bool(twisted)].threads,),
+                     _NEWTON_ENTRY_BYTES[dtype, bool(twisted)])
+
+
+def newton_attrs(dtype: torch.dtype, twisted: bool, numeric: bool,
+                 chunk: int = None) -> dict:
+    """The complex-omega kernel's variant as the card runs it: registers,
+    local (spill) bytes a thread, blocks an SM with its tables at `chunk`
+    steps (default NEWTON_SHAPE's), and the shape it is built for; raises
+    unless the tables take the bytes that newton_smem gives."""
+    from . import _build
+    chunk = chunk or NEWTON_SHAPE[dtype, bool(twisted)].chunk
+    lib = _build.library()
+    f64 = int(dtype == torch.float64)
+    got = lib.eigk_cylinder_newton_smem(f64, int(twisted), chunk)
+    if got != newton_smem(dtype, twisted, chunk):
+        raise RuntimeError(f"cylinder_newton: the tables take {got} B in "
+                           f"CUDA, not what _NEWTON_ENTRY_BYTES gives")
+    out = (ctypes.c_int * 5)()
+    _build.check(lib.eigk_cylinder_newton_attrs(f64, int(twisted),
+                                                int(numeric), chunk, out),
+                 "cylinder_newton attributes")
+    return dict(registers=out[0], local_bytes=out[1], blocks_per_sm=out[2],
+                threads=out[3], min_blocks=out[4], chunk=chunk, smem=got)
+
+
+def newton_counts(device) -> dict:
+    """What the complex-omega launches on the CUDA `device` did since the
+    last call: the seeds that read a tabled row (`rows`), those whose
+    numeric exterior read the tabled exps (`exterior`), each launch's
+    first Newton or value round counted; and, summed over the launches,
+    the steps of a shoot (`steps`) and those whose first chain it kept
+    (`kept`). Zeroes them; waits for the device's work."""
+    from . import _build
+    out = (ctypes.c_ulonglong * 4)()
+    dev = torch.device(device)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    _build.check(_build.library().eigk_cylinder_newton_counts(index, out),
+                 "cylinder_newton counts")
+    return dict(rows=int(out[0]), exterior=int(out[1]), kept=int(out[2]),
+                steps=int(out[3]))
+
+
+def chain_kept(case: CaseConfig, dtype: torch.dtype, device="cpu") -> tuple:
+    """Per RK4 step of the complex-omega kernel's shoot, whether its first
+    abscissa is the step before's last, bit for bit, so that the kernel
+    keeps the chain it formed there (csrc/common.cuh::chain_reuse, on the
+    grid as csrc/cylinder.cuh::Grid forms it): bool tensors (interior,
+    log tail; the tail empty without one), the first step of each False
+    (the join is not crossed). On a CUDA `device` the logs are the card's."""
+    from ..physics.cylinder import log_tail
+    from ..profiles import div
+    gr = case.grid
+    it = torch.int32 if dtype == torch.float32 else torch.int64
+
+    def segment(x0, x1, n):
+        h = div(x1 - x0, n)
+        i = torch.arange(1, n, dtype=dtype, device=device)
+        a = x0 + i * h
+        b = (x0 + (i - 1) * h) + h
+        kept = a.view(it) == b.view(it)
+        return torch.cat([torch.zeros(min(n, 1), dtype=torch.bool,
+                                      device=device), kept])
+
+    def t(x):
+        return torch.tensor(x, dtype=dtype, device=device)
+    interior = segment(t(1.0), t(gr.axis_epsilon), gr.n_interior)
+    tail = (segment(torch.log(t(gr.axis_epsilon)),
+                    torch.log(t(gr.axis_epsilon_final)), gr.n_axis_log)
+            if log_tail(case) else torch.zeros(0, dtype=torch.bool,
+                                                device=device))
+    return interior, tail
+
+
 # Below this many candidates the twisted chain goes through the fused
 # evaluation (common.spec_shape(n, evaluate=True)): the scan's serial
 # floor (one thread's 1,536-step chain, ~1.0 ms at float32 and 1.5 ms at
@@ -317,12 +430,16 @@ def cylinder_bisect(lo: torch.Tensor, hi: torch.Tensor, k: torch.Tensor,
 def _launch_complex(name: str, omega, k, m, params: DispParams, n_iter,
                     damping: float, final_eval: bool):
     """One launch of the complex-omega kernel (`common.launch_complex`) in
-    the case's chain and exterior."""
+    the case's chain and exterior, at NEWTON_SHAPE's launch shape."""
     global complex_twisted_launches, complex_numeric_launches
     from ..physics.cylinder import CylinderInterface
+    twisted = bool(params.struct.twisted)
+    shape = NEWTON_SHAPE.get((omega.re.dtype, twisted))
+    if shape is not None:
+        check_newton_shape(shape, omega.re.dtype, twisted)
     out = launch_complex(name, _NEWTON_ENTRY, "eigk_cylinder_params_size",
                          params.struct, omega, k, m, n_iter, damping,
-                         final_eval, (), CylinderInterface)
+                         final_eval, tuple(shape or ()), CylinderInterface)
     if omega.re.numel():
         complex_twisted_launches += bool(params.struct.twisted)
         complex_numeric_launches += bool(params.struct.exterior_numeric)

@@ -14,7 +14,11 @@ axis.
 
 The plain versions run eagerly on the card, some thousand launches a step:
 the depth is reduced (n_interior 256, n_axis_log 32, n_exterior 128) and
-the batches are small.
+the batches are small. The kernel's blocks read the (k, m, r) values of
+their first and last seeds' rows from a table: random draws take the
+path of the seeds outside them, and a draw laid out as the sweep lays out
+its seeds (`cell_draw`: by (k, band) cell, one m, a k's run longer than a
+block) the tabled one.
 """
 import dataclasses
 
@@ -67,6 +71,26 @@ def draws(case, n, seed, dtype):
     return C(t(re), t(im)), t(k), t(m)
 
 
+def cell_draw(case, dtype, n_k: int = 3, per_k: int = 200):
+    """Seeds as `sweep.complex_seeds` lays out the sweep's, on the case's
+    first n_k k values with at least per_k seeds a k (n_re = 6 across a
+    band, n_im rows), at the case's last mode: every block of the kernel's
+    launch shape spans one k row or two, and a row crosses a block
+    boundary."""
+    from eigensolver_tpu_torch.sweep import complex_seeds
+    ks = tuple(float(k) for k in case.k_grid()[:n_k])
+    sub = dataclasses.replace(case, k_values=ks)
+    bands = len(sub.sorted_speeds()) - 1
+    n_im = -(-per_k // (6 * bands))
+    om, k = complex_seeds(sub, 6, n_im)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to("cuda", dtype)
+    k = t(k)
+    return C(t(om.real), t(om.imag)), k, torch.full_like(k,
+                                                         float(case.modes[-1]))
+
+
 def bits(x):
     return x.view(torch.int32 if x.dtype == torch.float32 else torch.int64)
 
@@ -116,6 +140,42 @@ def test_variant_bit_equal_in_every_mode(name, dtype):
     assert (kcyl.complex_twisted_launches - before[0],
             kcyl.complex_numeric_launches - before[1]) == \
         (3 * twisted, 3 * numeric)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("name", sorted(VARIANTS))
+@pytest.mark.gpu
+@pytest.mark.skipif("not torch.cuda.is_available()",
+                    reason="needs a CUDA card")
+def test_cell_draw_tabled_bit_equal(name, dtype):
+    """The seeds of a sweep's layout (cell_draw: every warp through its
+    block's row table) bit-equal to the plain version in all three modes:
+    one Newton step with the value round in the launch, the evaluation
+    mode at its roots; every seed read a tabled row in both launches, and
+    the launches kept the chains that chain_kept says."""
+    case = variant(name)
+    params = kcyl.disp_params(case)
+    ph = CylinderPhysics.from_case(case)
+    om, k, m = cell_draw(case, dtype)
+    n = k.numel()
+    shape = kcyl.NEWTON_SHAPE[dtype, name.startswith(("twist", "magnetic"))]
+    assert n > 2 * shape.threads
+    want = newton_loop(ph.make_dispersion_dual_plain(m=None, dtype=dtype),
+                       om, k, m, 1)
+    at_roots = ph.make_dispersion_plain(m=None, dtype=dtype)(want, k, m)
+    kcyl.newton_counts("cuda")
+    got, res = kcyl.cylinder_newton(om, k, m, 1, 1.0, params,
+                                    final_eval=True)
+    ev = kcyl.cylinder_disp_complex(got, k, m, params)
+    counts = kcyl.newton_counts("cuda")
+    assert same(got.re, want.re) and same(got.im, want.im)
+    assert same_interface(res, at_roots) and same_interface(ev, at_roots)
+    interior, tail = kcyl.chain_kept(case, dtype, "cuda")
+    assert counts["rows"] == 2 * n
+    assert counts["exterior"] == (2 * n if name.endswith("numeric") else 0)
+    assert counts["steps"] == 2 * (interior.numel() + tail.numel())
+    assert counts["kept"] == 2 * int(interior.sum() + tail.sum())
 
 
 @pytest.mark.parametrize("name", ["density", "twist"])

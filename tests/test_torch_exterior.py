@@ -312,12 +312,12 @@ def test_every_entry_has_its_signature(module):
                     if name.startswith("eigk_slab_complex_f")]
     else:
         # the cylinder's complex-omega kernel (csrc/cylinder_complex.cu):
-        # its Newton entry and the K_m ratio at complex z alone, whose
-        # count comes 6th
+        # its Newton entry (with its launch shape, threads and chunk) and
+        # the K_m ratio at complex z alone, whose count comes 6th
         from eigensolver_tpu_torch.kernels import bessel
         assert all(_build._SIGNATURES[name] == _build._CYL_NEWTON_ARGS
                    for name in kcyl._NEWTON_ENTRY.values())
-        assert len(_build._CYL_NEWTON_ARGS[0]) == 17
+        assert len(_build._CYL_NEWTON_ARGS[0]) == 19
         for name in bessel._COMPLEX_ENTRY.values():
             argtypes, restype = _build._SIGNATURES[name]
             assert argtypes[5] is ctypes.c_longlong and restype is ctypes.c_int

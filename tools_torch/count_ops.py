@@ -1,7 +1,8 @@
 """Count the operations of the twisted cylinder chain, of the numeric
 exteriors, of the complex-omega slab chain, of the real-omega slab chain,
 the row class of the density/axial-flow cylinder chain and the complex-
-omega cylinder that chip_smoke.py's bounds use (its OPS entries
+omega cylinder (its chains and their row class apart, for the tabled
+kernel's count) that chip_smoke.py's bounds use (its OPS entries
 "cyl_tw_*", "slab_ext_*", "cyl_ext_*", "slab_cx_*", "slab_*chain",
 "slab_*update", "cyl_*step", "cyl_cx_*", "cyl_tw_cx_*").
 
@@ -803,6 +804,51 @@ def complex_cylinder_ops() -> dict:
     return out
 
 
+def complex_cylinder_table_ops() -> dict:
+    """chip_smoke.py's OPS entries for the complex-omega cylinder kernel's
+    tables: one evaluation of the chain's (1/F, g) at an interior radius
+    ("cyl_cx_chain", "cyl_tw_cx_chain"; on the Newton pass "*dual_chain"),
+    counted as `complex_cylinder_ops` counts (see `_COUNTED`), and of it the
+    values of (k, m, r) that do not depend on omega ("cyl_cx_row",
+    "cyl_tw_cx_row"): the evaluation's count less its count with k and m
+    0-d tensors (then those values are 0-d, counted none). A step's update
+    is its "*step" less 3 chains; the log tail's chain its interior one and
+    a third of the tail step's excess."""
+    import dataclasses
+    import torch
+    from eigensolver_tpu_torch import cases
+    from eigensolver_tpu_torch.cplx import C
+    from eigensolver_tpu_torch.dual import Dual
+    from eigensolver_tpu_torch.physics.cylinder import CylinderPhysics
+    n = 3
+    om = C(torch.tensor([0.9, 1.3, 2.1], dtype=torch.float64),
+           torch.tensor([0.05, -0.1, 0.2], dtype=torch.float64))
+    k = torch.tensor([1.0, 1.5, 2.0], dtype=torch.float64)
+    m = torch.tensor([0.0, 1.0, 1.0], dtype=torch.float64)
+    r = torch.tensor(0.5, dtype=torch.float64)
+    out = {}
+    for f, case in (("cyl_cx_", cases.cylinder_density_coronal(0.9)),
+                    ("cyl_tw_cx_",
+                     cases.cylinder_twisted_photospheric(0.1, 1.0, 1))):
+        ph = CylinderPhysics.from_case(
+            dataclasses.replace(case, complex_omega=True))
+        q = ph.twisted_point_fn()(r) if f == "cyl_tw_cx_" else None
+        for dual in (False, True):
+            w = (Dual(om, C(torch.ones_like(k), torch.zeros_like(k)))
+                 if dual else om)
+
+            def chain(kk, mm):
+                if q is not None:
+                    return lambda: ph.twisted_invF_g(
+                        q, ph.twisted_chain(q, w, kk, mm))
+                return lambda: ph.complex_invF_g(w, kk, mm)(r)
+            full = _count(chain(k, m), n)
+            out[f + ("dual_" if dual else "") + "chain"] = full
+            out[f + "row"] = full - _count(chain(k[1].clone(),
+                                                 m[1].clone()), n)
+    return out
+
+
 def _tally_deps(outs) -> dict:
     """Operations that outs need, by what each depends on (the sorted
     letters of its dependences)."""
@@ -823,7 +869,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     ext = exterior_ops()
     cx = {**complex_ops(), **complex_flux_ops(), **complex_exterior_ops(),
-          **complex_cylinder_ops()}
+          **complex_cylinder_ops(), **complex_cylinder_table_ops()}
     cyl = cylinder_ops()
     sl = slab_ops()
     print(json.dumps({"traced": {**traced_ops(False), **traced_ops(True),

@@ -4,7 +4,7 @@
     python3 tools_torch/time_kernels.py [--pkg-root DIR] [--label NAME]
                                         [--out PATH] [--complex]
                                         [--cylinder-scan] [--slab-scan]
-                                        [--roots PATH]
+                                        [--cx-cylinder] [--roots PATH]
 
 Imports `eigensolver_tpu_torch` from DIR (default: this repository), builds
 its kernels and prints one JSON line of device times (CUDA events, mean of
@@ -67,6 +67,18 @@ several launches after a warm-up):
     of the slab_ph_09 parity sweeps (float32 refined in float64, and
     float64) and of the slab_ph_09 float32 sweep, with their counts; the
     scan's ptxas lines and SASS counts, as for the cylinder.
+  - the complex-omega cylinder kernel (`--cx-cylinder` times only this):
+    `cylinder_newton` (30 steps; and with the roots' evaluation in the
+    launch) on the seeds of the complex cylinder sweeps
+    (`tools_torch/cx_cyl.py`: cx_cyl_co_09 at float64 in each mode and at
+    float32 in the kink mode, cx_twist_v01_p1, cx_cyl_co_09 with the
+    numeric exterior in the kink mode), per launch the roots that are not
+    finite, those with |Im omega| below 1e-290 (a float64 division's slow
+    path) and the warps of 32 seeds holding one; `cylinder_disp_complex`
+    on each sweep's audit contour points; the two sweeps' walls (medians
+    of 2 after a first run) and their roots' digests (`chip_smoke.py::
+    root_digest`, bit for bit); the kernel's ptxas lines, and where the
+    checkout has them its launch shape, registers and spills;
 To compare two commits on one card, unpack the other into a git-ignored
 directory and run both in turns (A B B A) on the same card; `--complex`
 times only the complex-omega kernels, `--roots PATH` saves the KH Newton
@@ -350,6 +362,105 @@ def newton_chain(n_steps: int = 30) -> dict:
             "eval_roots_lifted_ms": eval_ms(lifted)}
 
 
+def cx_cylinder_times() -> dict:
+    """The complex-omega cylinder kernel's launches and sweeps (see the
+    module's docstring)."""
+    import importlib.util
+    import statistics
+    import time
+    import torch
+    from eigensolver_tpu_torch import cases, sweep
+    from eigensolver_tpu_torch.cplx import C
+    from eigensolver_tpu_torch.kernels import cylinder as kcyl
+    from tools_torch import cx_cyl
+
+    def pair(om, k, dtype):
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to("cuda", dtype)
+        return C(t(om.real), t(om.imag)), t(k)
+
+    def warps(mask):
+        pad = (-mask.numel()) % 32
+        m = torch.cat([mask, mask.new_zeros(pad)])
+        return int(m.view(-1, 32).any(dim=1).sum())
+
+    def event_ms(fn, reps=2):
+        fn()
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(reps):
+            out = fn()
+        t1.record()
+        torch.cuda.synchronize()
+        return out, t0.elapsed_time(t1) / reps
+
+    # this repository's digest, whichever checkout is timed
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    out = {}
+    sets = (("cx_cyl_co_09", "cx_cyl_co_09", {}, ((torch.float64, 0),
+                                                  (torch.float64, 1),
+                                                  (torch.float32, 1))),
+            ("cx_twist_v01_p1", "cx_twist_v01_p1", {},
+             ((torch.float64, 1),)),
+            ("cx_cyl_co_09 numeric", "cx_cyl_co_09",
+             dict(exterior_method="numeric"), ((torch.float64, 1),)))
+    for label, name, case_kw, runs in sets:
+        case, kw = cx_cyl.configure(name, cases, **case_kw)
+        params = kcyl.disp_params(case)
+        om0, k0 = sweep.complex_seeds(case, kw["n_re"], kw["n_im"])
+        n_iter = kw["newton_iters"]
+        r = {"n": len(k0), "n_iter": n_iter}
+        for dtype, mode in runs:
+            seeds, kk = pair(om0, k0, dtype)
+            mm = torch.full_like(kk, float(mode))
+            roots, ms = event_ms(lambda: kcyl.cylinder_newton(
+                seeds, kk, mm, n_iter, 1.0, params))
+            _, ms_fe = event_ms(lambda: kcyl.cylinder_newton(
+                seeds, kk, mm, n_iter, 1.0, params, final_eval=True))
+            fin = roots.re.isfinite() & roots.im.isfinite()
+            tiny = fin & (roots.im.abs() < 1e-290)
+            r[f"{str(dtype)[6:]} m{mode}"] = {
+                "ms": ms, "ms_final_eval": ms_fe,
+                "roots_non_finite": int((~fin).sum()),
+                "roots_tiny_im": int(tiny.sum()),
+                "warps_tiny_im": warps(tiny), "warps": warps(tiny | ~tiny)}
+        cells, paths, _, _ = sweep.audit_contours(
+            np.asarray(case.k_grid()), np.asarray(case.sorted_speeds()),
+            case.imag_band)
+        z, ka = pair(paths.reshape(-1),
+                     np.repeat(np.array([c[0] for c in cells]),
+                               paths.shape[1]), torch.float64)
+        ma = torch.full_like(ka, float(case.modes[-1]))
+        _, r["audit_ms"] = event_ms(
+            lambda: kcyl.cylinder_disp_complex(z, ka, ma, params))
+        r["audit_n"] = ka.numel()
+        if not case_kw:
+            rs, _ = sweep.run_case_complex(case, **kw, device="cuda")
+            walls = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                sweep.run_case_complex(case, **kw, device="cuda")
+                walls.append(time.perf_counter() - t0)
+            r["sweep"] = {"wall_s": statistics.median(walls),
+                          "walls": walls, "counts": rs.counts(),
+                          "root_digest": chip_smoke.root_digest(rs)}
+        print(label, json.dumps(r), flush=True)
+        out[label] = r
+    out["ptxas"] = ptxas_lines("cyl_cx")
+    if hasattr(kcyl, "newton_attrs"):
+        out["attrs"] = {
+            f"{str(dt)[6:]} {'twisted' if tw else 'plain'}"
+            f"{' numeric' if num else ''}": kcyl.newton_attrs(dt, tw, num)
+            for dt in (torch.float32, torch.float64)
+            for tw in (False, True) for num in (False, True)}
+    return out
+
+
 def _sass_functions(lib: Path, kernel: str):
     """(mangled name, SASS lines) of each function of the library whose
     name holds `kernel` (cuobjdump); none without cuobjdump."""
@@ -538,6 +649,9 @@ def main() -> int:
                     help="time only the scan cylinder_disp and its sweeps")
     ap.add_argument("--slab-scan", action="store_true",
                     help="time only the scan slab_disp and its sweeps")
+    ap.add_argument("--cx-cylinder", action="store_true",
+                    help="time only the complex-omega cylinder kernel and "
+                         "its sweeps")
     ap.add_argument("--roots", help="save the KH Newton roots here (.npz)")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.pkg_root).resolve()))
@@ -556,9 +670,10 @@ def main() -> int:
     lib = _build.build()
     out = {"label": args.label, "nvidia_smi": smi,
            "package": str(Path(_build.__file__).resolve().parents[1])}
-    if args.cylinder_scan or args.slab_scan:
+    if args.cylinder_scan or args.slab_scan or args.cx_cylinder:
         out.update(cylinder_scan_times(lib) if args.cylinder_scan
-                   else slab_scan_times(lib))
+                   else slab_scan_times(lib) if args.slab_scan
+                   else cx_cylinder_times())
         print(json.dumps(out), flush=True)
         if args.out:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)

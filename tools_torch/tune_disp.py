@@ -2,8 +2,11 @@
 """Launch shapes of the scan kernels, timed on a CUDA card.
 
     python3 tools_torch/tune_disp.py [--kernel cylinder|cylinder_numeric|
-                                              slab|slab_paired|twisted|all]
+                                              slab|slab_paired|twisted|
+                                              cylinder_newton|all]
                                      [--pkg-root DIR] [--out PATH]
+                                     [--shapes T:B,...] [--chunks C,...]
+                                     [--rounds N]
 
 Times each scan kernel at every (threads per block, table chunk of RK4
 steps) of a grid, checks that each shape gives the default shape's bits,
@@ -42,6 +45,23 @@ and prints per set the default's time and the fastest shapes:
     scan's default beside the fused evaluation (`common.spec_shape(n,
     evaluate=True)`) and a grid of its block shapes, which picks
     `TW_EVAL_MAX`.
+  - the complex-omega cylinder kernel (`cylinder_newton`, not in `all`:
+    csrc/cylinder_complex.cu, built at one launch shape a (type, chain),
+    `CxShape`): the tool builds csrc/cylinder_complex.cu (with the
+    cylinder's other units, whose entries the wrappers call) once for
+    each (threads a block, __launch_bounds__' min blocks) of `--shapes`
+    (default 64:4, 64:5, 96:3, 96:4, 128:2, 128:3, 192:2, 256:1; every
+    build at once, each shape set for every type and chain through the
+    source's EIGK_CX_CYL_* macros), and times each build at each table
+    chunk of `--chunks` (default 8, 16, 32, 64): the Newton launch (30
+    steps) on the seeds of cx_cyl_co_09 (kink) and of cx_twist_v01_p1 at
+    float64 and float32, and the evaluation mode on cx_cyl_co_09's audit
+    contour points at float64, each checked bit-equal to the checkout's
+    default shape (`kernels.cylinder.NEWTON_SHAPE`; one launch after a
+    warm-up; with `--rounds N` every shape N times in turns, the medians
+    kept); per build the registers, spill bytes and blocks an SM of each
+    variant. A shape whose tables do not fit is listed as refused. ~12 s
+    a build and chunk after the builds (~3 min).
 Run from the repository root; the first line is the card's nvidia-smi name
 and power limit.
 """
@@ -209,12 +229,134 @@ def tune_grid(label: str, kernel, default, shapes, cand, params,
     return out
 
 
+NEWTON_SHAPES = ((64, 4), (64, 5), (96, 3), (96, 4), (128, 2), (128, 3),
+                 (192, 2), (256, 1))
+NEWTON_CHUNKS = (8, 16, 32, 64)
+
+
+def tune_newton(out: dict, shapes, chunks, rounds: int = 1) -> None:
+    """The complex-omega cylinder kernel's launch shapes (see the module's
+    docstring)."""
+    import contextlib
+    import torch
+    from eigensolver_tpu_torch import cases, sweep
+    from eigensolver_tpu_torch.cplx import C
+    from eigensolver_tpu_torch.kernels import _build, common
+    from eigensolver_tpu_torch.kernels import cylinder as kcyl
+    from tools_torch import cx_cyl
+
+    def macros(threads, min_blocks):
+        return [f"EIGK_CX_CYL_{c}{t}_{what}={v}"
+                for c in ("", "TW_") for t in ("F32", "F64")
+                for what, v in (("THREADS", threads),
+                                ("MIN_BLOCKS", min_blocks))]
+    # csrc/cylinder_complex.cu at each shape, with the units whose entries
+    # its wrappers also call (the parameters' size, the twisted launcher)
+    units = ["cylinder_complex.cu", "cylinder_disp.cu", "cylinder_twisted.cu"]
+    libs = _build.build_variants([(units, macros(*sh)) for sh in shapes])
+
+    @contextlib.contextmanager
+    def built(path, threads, chunk):
+        # the wrappers launch the build at this shape
+        saved = _build._lib, kcyl.NEWTON_SHAPE
+        _build._lib = _build.load(path)
+        kcyl.NEWTON_SHAPE = {key: common.ScanShape(threads, chunk)
+                             for key in saved[1]}
+        try:
+            yield _build._lib
+        finally:
+            _build._lib, kcyl.NEWTON_SHAPE = saved
+
+    def pair(om, k, dtype):
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to("cuda", dtype)
+        return C(t(om.real), t(om.imag)), t(k)
+
+    sets = {}
+    for name in ("cx_cyl_co_09", "cx_twist_v01_p1"):
+        case, kw = cx_cyl.configure(name, cases)
+        params = kcyl.disp_params(case)
+        om0, k0 = sweep.complex_seeds(case, kw["n_re"], kw["n_im"])
+        for dtype in (torch.float64, torch.float32):
+            seeds, kk = pair(om0, k0, dtype)
+            mm = torch.ones_like(kk)
+            sets[f"{name} newton {str(dtype)[6:]}"] = (
+                lambda s=seeds, k=kk, m=mm, p=params, n=kw["newton_iters"]:
+                kcyl.cylinder_newton(s, k, m, n, 1.0, p))
+        if name == "cx_cyl_co_09":
+            cells, paths, _, _ = sweep.audit_contours(
+                np.asarray(case.k_grid()), np.asarray(case.sorted_speeds()),
+                case.imag_band)
+            z, ka = pair(paths.reshape(-1),
+                         np.repeat(np.array([c[0] for c in cells]),
+                                   paths.shape[1]), torch.float64)
+            ma = torch.ones_like(ka)
+            sets[f"{name} audit float64"] = (
+                lambda z=z, k=ka, m=ma, p=params:
+                kcyl.cylinder_disp_complex(z, k, m, p).det)
+    ref = {label: fn() for label, fn in sets.items()}
+    torch.cuda.synchronize()
+
+    def same(a, b):
+        it = torch.int32 if a.re.dtype == torch.float32 else torch.int64
+        return all(torch.equal(x.view(it), y.view(it))
+                   for x, y in ((a.re, b.re), (a.im, b.im)))
+    res = {label: {} for label in sets}
+    attrs, refused = {}, []
+    combos = [(sh, path, chunk) for sh, path in zip(shapes, libs)
+              for chunk in chunks]
+    for (threads, min_blocks), path, chunk in combos * rounds:
+        key = f"{threads}:{min_blocks}:{chunk}"
+        if key in refused:
+            continue
+        with built(path, threads, chunk):
+            try:
+                attrs[key] = {
+                    f"{str(dt)[6:]} {'twisted' if tw else 'plain'}":
+                    kcyl.newton_attrs(dt, tw, False, chunk)
+                    for dt in (torch.float32, torch.float64)
+                    for tw in (False, True)}
+            except (ValueError, RuntimeError):
+                refused.append(key)
+                continue
+            for label, fn in sets.items():
+                try:
+                    got = fn()
+                except (ValueError, RuntimeError):
+                    res[label][key] = None
+                    continue
+                if not same(got, ref[label]):
+                    raise AssertionError(f"{label}: shape {key} "
+                                         f"differs")
+                res[label].setdefault(key, []).append(cuda_ms(fn, 1))
+        print("cylinder_newton", key, json.dumps(
+            {label: r.get(key) for label, r in res.items()}),
+            flush=True)
+    for label, r in res.items():
+        timed = {k: float(np.median(v)) for k, v in r.items()
+                 if v is not None}
+        best = sorted(timed.items(), key=lambda kv: kv[1])[:5]
+        out[f"cylinder_newton {label}"] = {"best": best, "all": r}
+        print(f"cylinder_newton {label}", json.dumps({"best": best}),
+              flush=True)
+    out["cylinder_newton attrs"] = attrs
+    out["cylinder_newton refused"] = refused
+    print("cylinder_newton attrs", json.dumps(attrs), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=("cylinder", "cylinder_numeric",
                                          "slab", "slab_paired", "twisted",
-                                         "all"),
+                                         "cylinder_newton", "all"),
                     default="all")
+    ap.add_argument("--shapes", help="cylinder_newton: threads:min_blocks "
+                    "pairs, comma-separated")
+    ap.add_argument("--chunks", help="cylinder_newton: table chunks, "
+                    "comma-separated")
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="cylinder_newton: time every shape this many "
+                    "times, in turns, and keep the medians")
     ap.add_argument("--pkg-root", default=str(ROOT),
                     help="directory holding eigensolver_tpu_torch")
     ap.add_argument("--out", help="also write the report here as JSON")
@@ -301,6 +443,13 @@ def main() -> int:
                                  THREADS["slab"], half, params)
     if args.kernel in ("twisted", "all"):
         tune_twisted(out)
+    if args.kernel == "cylinder_newton":
+        shapes = (tuple(tuple(int(v) for v in sh.split(":"))
+                        for sh in args.shapes.split(","))
+                  if args.shapes else NEWTON_SHAPES)
+        chunks = (tuple(int(c) for c in args.chunks.split(","))
+                  if args.chunks else NEWTON_CHUNKS)
+        tune_newton(out, shapes, chunks, args.rounds)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(out, indent=1))
