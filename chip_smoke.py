@@ -151,8 +151,9 @@ any failure raises and the script exits non-zero:
 16. the needle oracle of tests/test_needle.py:61-87: slab_ph_3 at k =
    0.43303 and slab_co_15 at k = 0.080505, each reference entry within
    3e-3 of a root of the needle pass.
-17. the complex-omega kernel (csrc/slab_complex.cu: one producer/consumer
-   kernel behind slab_newton and slab_disp_complex) on the full-width
+17. the shear form's complex-omega kernel (csrc/slab_complex.cu: the
+   producer/consumer newton_kernel behind slab_newton and
+   slab_disp_complex) on the full-width
    Kelvin-Helmholtz layer (slab_flow_complex_coronal(width=1.0),
    tools_torch/kh.py: n_interior=2048, float64): slab_newton on the 7,200
    Newton seeds at n_iter=1 bit-equal to the plain loop over the dual
@@ -168,7 +169,7 @@ any failure raises and the script exits non-zero:
    30,720 contour points, and at float32 on a ragged 8,191 of those
    points, bit-equal to its plain version, as is the Newton launch's own
    value round at the roots (all timed); the registers and
-   spills of the kernel's instantiations (ptxas).
+   spills of the complex slab kernels' instantiations (ptxas).
 18. the complex-omega sweeps: run_case_complex of
    slab_flow_complex_coronal at its published settings (7,200 seeds, 30
    Newton steps, the audit of 60 cells), at width 1e5 and 1.0, on the
@@ -231,8 +232,17 @@ any failure raises and the script exits non-zero:
    launches timed at full depth (30
    steps, with and without the value round; the audit's contour points in
    the evaluation mode) beside their bounds, and the roots that reach the
-   real axis (|Im omega| < 1e-290, where Smith's division leaves CUDA's
-   fast path); then run_case_complex with the counters reset (2 launches
+   real axis (|Im omega| < 1e-290, where Smith's division would leave
+   CUDA's fast path but for complex.cuh::fast_div) and the warps of 32
+   seeds that hold one; the form's kernel
+   (csrc/slab_complex.cu: the flux form's flux_kernel, one thread a seed,
+   with its launch shape, registers and spills, its kept chains by its
+   own counts (thread 0 of block 0 counts the steps whose first chain it
+   kept, held to kernels.slab.flux_chain_kept for every shoot of the
+   phase's launches), and its time on the 8,640 seeds of a checkpointed
+   block; the shear form's newton_kernel, whose consumer lane integrates
+   the numeric exterior, with its block shape and ptxas lines); then
+   run_case_complex with the counters reset (2 launches
    a mode: slab_newton and slab_disp_complex, each counted under its
    variant; never the plain dispersion) and 2 timed runs, held to the JAX
    package's float64 run: per seed (the Newton pass again and one step
@@ -517,6 +527,7 @@ OPS = {"slab_x_step": 67, "slab_chain": 9, "slab_update": 34,
        "slab_cx_flux_chain": 20, "slab_cx_flux_step": 160,
        "slab_cx_flux_ends": 164, "slab_cx_flux_dual_chain": 38,
        "slab_cx_flux_dual_step": 378, "slab_cx_flux_dual_ends": 271,
+       "slab_cx_flux_update": 100, "slab_cx_flux_dual_update": 264,
        "slab_cx_ext_step": 76, "slab_cx_ext_renorm": 16,
        "slab_cx_ext_ends": 22, "slab_cx_dual_ext_step": 184,
        "slab_cx_dual_ext_renorm": 20, "slab_cx_dual_ext_ends": 50,
@@ -547,7 +558,10 @@ OPS = {"slab_x_step": 67, "slab_chain": 9, "slab_update": 34,
 # "slab_x_step") and the numeric exterior at complex omega
 # ("slab_cx_*ext_*", traced from one ode._step on complex pairs or their
 # duals; every 64th step the rescaling, by hand; per shoot its set-up, the
-# quotient vx'/vx and its product with p_e), the same way.
+# quotient vx'/vx and its product with p_e), the same way. The flux form's
+# kernel of one thread a seed (count_ops.complex_flux_kernel_ops): a
+# step's serial update ("slab_cx_flux_update", "*dual_update": the step
+# less its 3 chains), beside the chains the thread forms.
 # The complex-omega cylinder ("cyl_cx_*", the density and axial-flow chain;
 # "cyl_tw_cx_*", the twisted chain; value pass, and "*dual_*" the Newton
 # pass on duals in omega): tools_torch/count_ops.py counts them from the
@@ -574,6 +588,9 @@ KH_ANALYTIC_TOL = 2e-6                 # tests/test_complex_kh.py:53
 # slab's flux form with either exterior, the KH slab's numeric exterior
 CX_SLAB = ("cx_ph_09", "cx_ph_09_num", "kh_w1e5_num")
 CX_PLAIN_N_ITER = 1                    # the plain Newton loop's steps
+# the seeds of a checkpointed block of the density slab's sweep
+# (run_case_complex_checkpointed's k_block of 8 k x 9 bands x 120 seeds)
+CX_BLOCK_SEEDS = 8 * 9 * 120
 # The complex-omega cylinder (tools_torch/cx_cyl.py): its sweeps, and the
 # kernel's variants held to their plain versions at a reduced depth
 CX_CYL = ("cx_cyl_co_09", "cx_twist_v01_p1")
@@ -2634,28 +2651,32 @@ def kh_config(name: str):
 
 
 def complex_ptxas() -> dict:
-    """Registers and spill bytes of the complex-omega kernel's
-    instantiations (csrc/slab_complex.cu::newton_kernel<T, kShear, kNum>:
-    one a type, form and exterior, its producer warps fixed by the type),
-    keyed by them."""
+    """Registers and spill bytes of the complex-omega slab kernels'
+    instantiations (csrc/slab_complex.cu: the shear form's
+    newton_kernel<T, kNum>, its producer warps fixed by the type; the flux
+    form's flux_kernel<T, kNum>, one thread a seed, at the type's built
+    shape), keyed by them."""
     import re
     import torch
     from eigensolver_tpu_torch.kernels import common
 
     def key_of(name):
-        t = re.search(r"7slab_cx13newton_kernelI([fd])Lb([01])ELb([01])EE",
+        t = re.search(r"7slab_cx(13newton|11flux)_kernelI([fd])Lb([01])EE",
                       name)
         if not t:
             return None
-        dt = torch.float32 if t.group(1) == "f" else torch.float64
-        return (f"newton_kernel {_type_name(t.group(1))} "
-                f"{'shear' if t.group(2) == '1' else 'flux'} "
-                f"{'numeric' if t.group(3) == '1' else 'exact'} "
-                f"P={common.COMPLEX_PRODUCERS[dt]}")
+        dt = torch.float32 if t.group(2) == "f" else torch.float64
+        ext = "numeric" if t.group(3) == "1" else "exact"
+        if t.group(1) == "13newton":
+            return (f"newton_kernel {_type_name(t.group(2))} shear {ext} "
+                    f"P={common.COMPLEX_PRODUCERS[dt]}")
+        sh = common.FLUX_NEWTON_SHAPE[dt]
+        return (f"flux_kernel {_type_name(t.group(2))} {ext} "
+                f"{sh.threads}:{sh.min_blocks}")
     entries = ptxas_entries(key_of)
     want = 4 * len(common.COMPLEX_PRODUCERS)
     if len(entries) != want:
-        raise AssertionError(f"complex kernel's instantiations: "
+        raise AssertionError(f"complex kernels' instantiations: "
                              f"{sorted(entries)}, want {want}")
     return entries
 
@@ -2684,8 +2705,8 @@ def _newton_chain(step, seeds, n_iter: int):
     """n_iter chained one-step launches from the seeds, each from the one
     before: the last omega and, per step, its device ms (CUDA events
     around the one launch), and of its input omegas the non-finite ones and
-    those whose |Im| is below 1e-290 (where Smith's division leaves CUDA's
-    fast path, PERF.md section 6)."""
+    those whose |Im| is below 1e-290 (where Smith's division would leave
+    CUDA's fast path but for complex.cuh::fast_div, PERF.md section 6)."""
     import torch
     om, steps = seeds, []
     for _ in range(n_iter):
@@ -3007,6 +3028,32 @@ def cx_variant_ops(case, n: int, dual: bool = False, n_iter: int = 1,
     return n * n_iter * per + gr.n_interior * OPS[x_step]
 
 
+def cx_flux_kernel_ops(case, n: int, dual: bool = False, n_iter: int = 1,
+                       threads: int = None) -> int:
+    """The flux form's kernel's own count (csrc/slab_complex.cu::
+    flux_kernel, one thread a seed) of n_iter shoots of n seeds: per seed
+    and shoot the update of each step ("slab_cx_flux_*update"), the chains
+    it forms (3 a step, but the first of each step it keeps:
+    `kernels.slab.flux_chain_kept`), the ends and with the numeric exterior
+    its steps, rescalings and ends; and the x-only values once per launch,
+    or with `threads` once per block and shoot, as its tables refill them.
+    Without `threads` it equals cx_variant_ops, the bound's count."""
+    from eigensolver_tpu_torch.kernels import slab as kslab
+    gr = case.grid
+    f = "slab_cx_flux_" + ("dual_" if dual else "")
+    chains = 3 * gr.n_interior - int(kslab.flux_chain_kept(
+        gr.n_interior).sum())
+    per = (gr.n_interior * OPS[f + "update"] + chains * OPS[f + "chain"]
+           + OPS[f + "ends"] + (OPS["slab_cx_newton"] if dual else 0))
+    if gr.exterior_method == "numeric":
+        e = "slab_cx_dual_" if dual else "slab_cx_"
+        per += (gr.n_exterior * OPS[e + "ext_step"]
+                + gr.n_exterior // 64 * OPS[e + "ext_renorm"]
+                + OPS[e + "ext_ends"])
+    tables = 1 if threads is None else -(-n // threads) * n_iter
+    return n * n_iter * per + tables * gr.n_interior * OPS["slab_x_step"]
+
+
 def _cx_pairs(om0, k0, dtype=None):
     import torch
     from eigensolver_tpu_torch.cplx import C
@@ -3024,9 +3071,13 @@ def _cx_variant_kernels(name: str, case, kw: dict) -> dict:
     the depth (`shallower`, as phase 13's plain checks); the times of the
     main path's launches (30 steps, with and without the value round, and
     the audit's contour points in the evaluation mode) at full depth
-    beside their bounds."""
+    beside their bounds; the form's kernel, its launch shape, registers and
+    spills; the flux kernel's kept chains (its counts) and its time on the
+    seeds of a checkpointed block (`CX_BLOCK_SEEDS`, one wave); the roots
+    and warps of 32 seeds whose |Im omega| is below 1e-290."""
     import torch
     from eigensolver_tpu_torch import sweep
+    from eigensolver_tpu_torch.cplx import C
     from eigensolver_tpu_torch.kernels import common
     from eigensolver_tpu_torch.kernels import slab as kslab
     from eigensolver_tpu_torch.physics.slab import SlabPhysics
@@ -3064,12 +3115,53 @@ def _cx_variant_kernels(name: str, case, kw: dict) -> dict:
                  {"det_re": at_roots.det.re, "det_im": at_roots.det.im,
                   "mismatch": at_roots.mismatch_pct})
     n, n_iter = len(k0), kw["newton_iters"]
+    shear = bool(params.struct.shear)
+    numeric = bool(params.struct.exterior_numeric)
+    if not shear:
+        kslab.flux_counts("cuda")
     ms = cuda_ms(lambda: kslab.slab_newton(seeds, kk, par, n_iter, 1.0,
                                            params), 2)
     ms_fe = cuda_ms(lambda: kslab.slab_newton(seeds, kk, par, n_iter, 1.0,
                                               params, final_eval=True), 2)
     roots = kslab.slab_newton(seeds, kk, par, n_iter, 1.0, params)
     fin = roots.re.isfinite() & roots.im.isfinite()
+    tiny = fin & (roots.im.abs() < 1e-290)
+    if shear:
+        kernel = dict(name=f"newton_kernel<double, {str(numeric).lower()}>",
+                      shape=list(common.complex_spec_shape(torch.float64)))
+    else:
+        # thread 0 of block 0's shoots: 3 launches (2 timed and a warm-up)
+        # of n_iter rounds, 3 of n_iter and the value round, the roots'
+        counts = kslab.flux_counts("cuda")
+        kept = kslab.flux_chain_kept(case.grid.n_interior)
+        shoots = 3 * n_iter + 3 * (n_iter + 1) + n_iter
+        if counts != dict(kept=shoots * int(kept.sum()),
+                          steps=shoots * case.grid.n_interior):
+            raise AssertionError(f"{name}: flux kernel counts {counts}, "
+                                 f"{shoots} shoots")
+        blk = slice(0, CX_BLOCK_SEEDS)
+        sb, kb, pb = C(seeds.re[blk], seeds.im[blk]), kk[blk], par[blk]
+        kernel = dict(
+            name=f"flux_kernel<double, {str(numeric).lower()}>",
+            shape=list(common.FLUX_NEWTON_SHAPE[torch.float64]),
+            attrs=kslab.flux_attrs(torch.float64, numeric),
+            # a shoot's, by the kernel's own counts
+            kept_steps=counts["kept"] // shoots,
+            steps=counts["steps"] // shoots,
+            # the kernel's own count (its tables once a block and round)
+            # beside the bound's (the x-only values once)
+            ops=cx_flux_kernel_ops(
+                case, n, True, n_iter,
+                common.FLUX_NEWTON_SHAPE[torch.float64].threads),
+            bound_ops=cx_variant_ops(case, n, True, n_iter),
+            block_n=CX_BLOCK_SEEDS,
+            block_ms=cuda_ms(lambda: kslab.slab_newton(
+                sb, kb, pb, n_iter, 1.0, params, final_eval=True), 2))
+    kernel["ptxas"] = {key: v for key, v in complex_ptxas().items()
+                       if key.startswith(kernel["name"].split("<")[0])
+                       and "float64" in key
+                       and ("numeric" in key) == numeric
+                       and ("shear" in key) == shear}
     cells, paths, _, _ = sweep.audit_contours(
         np.asarray(case.k_grid()), np.asarray(case.sorted_speeds()),
         case.imag_band)
@@ -3085,14 +3177,15 @@ def _cx_variant_kernels(name: str, case, kw: dict) -> dict:
         return (cx_variant_ops(case, n, True, n_iter, every)
                 + cx_variant_ops(case, n, every_chain=every))
     return dict(
-        n=n, n_iter=n_iter, shape=list(common.complex_spec_shape(
-            torch.float64)), ms=ms, ms_final_eval=ms_fe,
+        n=n, n_iter=n_iter, shape=kernel["shape"], kernel=kernel, ms=ms,
+        ms_final_eval=ms_fe,
         final_eval_ms=ms_fe - ms, plain_ms=1e3 * plain_s,
         plain_n_iter=CX_PLAIN_N_ITER, plain_value_ms=1e3 * plain_value_s,
         plain_n_interior=shallow.grid.n_interior,
         max_abs_err=err,
         roots_non_finite=int((~fin).sum()),
-        roots_tiny_im=int((fin & (roots.im.abs() < 1e-290)).sum()),
+        roots_tiny_im=int(tiny.sum()), warps_tiny_im=_warps(tiny),
+        warps=_warps(torch.ones_like(tiny)),
         **bound(cx_variant_ops(case, n, True, n_iter), 48 * n, "float64"),
         bound_3_chains_ms=bound(cx_variant_ops(case, n, True, n_iter, True),
                                 48 * n, "float64")["bound_ms"],
@@ -3562,21 +3655,25 @@ def complex_kernel_entries(res: dict, launches: dict) -> list:
 
 
 def complex_variant_entries(res: dict, launches: dict) -> list:
-    """The kernels JSON entries of the complex-omega kernel's flux form
-    (B2-complex: the density slab's sweep, cx_ph_09, 37,800 seeds a mode)
-    and numeric exterior (B6-complex: the KH slab's, kh_w1e5_num, 7,200
-    seeds; the density slab's beside), phase 22's times and checks: the
-    Newton launch of 30 steps, float64, the plain loop at n_iter=1 at a
-    quarter of the depth (plain_n_interior)."""
+    """The kernels JSON entries of the complex-omega slab kernels' flux
+    form (B2-complex: csrc/slab_complex.cu::flux_kernel, one thread a seed,
+    on the density slab's sweep, cx_ph_09, 37,800 seeds a mode) and numeric
+    exterior (B6-complex: the shear form's newton_kernel<T, true>, whose
+    consumer lane integrates it, on the KH slab's sweep, kh_w1e5_num, 7,200
+    seeds; the density slab's flux_kernel<T, true> beside), phase 22's
+    times and checks: the Newton launch of 30 steps, float64, the plain
+    loop at n_iter=1 at a quarter of the depth (plain_n_interior)."""
     src = "eigensolver_tpu_torch/csrc/slab_complex.cu"
-    keys = ("n", "ms", "ms_final_eval", "plain_ms", "bound_ms",
-            "bound_3_chains_ms", "max_abs_err", "roots_tiny_im")
+    keys = ("n", "kernel", "ms", "ms_final_eval", "plain_ms", "bound_ms",
+            "bound_3_chains_ms", "max_abs_err", "roots_tiny_im",
+            "warps_tiny_im")
 
     def entry(name, replaces, main, key, others):
         r = res[main]
         return {"name": name, "route": "cuda", "source": src,
                 "replaces": replaces,
                 "launches": launches[main][key],
+                "kernel": r["kernel"],
                 "n": r["n"], "n_iter": r["n_iter"], "shape": r["shape"],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "plain_n_iter": r["plain_n_iter"],
@@ -3587,15 +3684,18 @@ def complex_variant_entries(res: dict, launches: dict) -> list:
                 "ms_final_eval": r["ms_final_eval"],
                 "bound_final_eval_ms": r["bound_final_eval_ms"],
                 "roots_tiny_im": r["roots_tiny_im"],
+                "warps_tiny_im": r["warps_tiny_im"], "warps": r["warps"],
                 "audit": r["audit"],
                 **{o: {**{k: res[o][k] for k in keys},
                        "launches": launches[o][key]} for o in others}}
     return [
         # _rk4_linear_flux with make_flux_coef at complex omega (the XLA
-        # program of physics/slab.py, no Pallas original)
+        # program of physics/slab.py, no Pallas original): flux_kernel
         entry("slab_complex_flux", "eigensolver_tpu/physics/slab.py:41",
               "cx_ph_09", "slab_complex_flux", ("cx_ph_09_num",)),
-        # ode.rk4_final_renorm on complex states at physics/slab.py:360
+        # ode.rk4_final_renorm on complex states at physics/slab.py:360:
+        # newton_kernel's consumer lane (the shear form), flux_kernel's
+        # own thread (the flux form)
         entry("slab_complex_numeric", "eigensolver_tpu/ode.py:75",
               "kh_w1e5_num", "slab_complex_numeric", ("cx_ph_09_num",)),
     ]

@@ -2,8 +2,9 @@
 // slab_disp.cu): the equilibrium profiles of `profiles.make_profile`, their
 // closed-form derivatives (`profiles.make_profile_derivative`), powers as
 // `profiles.power` forms them, the pressure-balanced speeds of
-// `equilibrium.make_equilibrium`, the RK4 grid, dual numbers (`dual.Dual`),
-// and two helpers that keep the JAX code's NaN pattern.
+// `equilibrium.make_equilibrium`, the RK4 grid, a kernel's attributes
+// (kernel_attrs), dual numbers (`dual.Dual`), and two helpers that keep
+// the JAX code's NaN pattern.
 //
 // Every expression follows the plain PyTorch version operation for
 // operation; the build disables FMA contraction (--fmad=false), so kernel
@@ -188,6 +189,29 @@ __device__ __forceinline__ bool chain_reuse(T x0, T h, T hh, int i) {
 }
 __host__ __device__ __forceinline__ bool chain_reuse(int n_steps) {
   return n_steps > 0 && (n_steps & (n_steps - 1)) == 0;
+}
+
+// A kernel's registers, local (spill) bytes a thread and resident blocks
+// per SM with `smem` bytes of dynamic shared memory at `threads` a block
+template <class K>
+int kernel_attrs(K* kern, int threads, size_t smem, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, kern);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
+                                                      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  out[2] = per_sm;
+  return 0;
 }
 
 // A dual number (value, d/dr): the rules of dual.Dual, operation for

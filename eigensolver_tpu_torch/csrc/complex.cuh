@@ -84,13 +84,69 @@ struct CDiv {
   T u, v, scl;
 };
 
+// num / den as the division gives it (the rare cases fast_div leaves to it)
+template <class T>
+__device__ __noinline__ T plain_div(T num, T den) {
+  return num / den;
+}
+
+// num / den, bit for bit, kept off the slow path of CUDA's float64
+// division, which a quotient below about 2^-1015 in magnitude (0 included)
+// takes: a divisor's ratio reaches it wherever Im omega nears the real
+// axis, as a sweep's roots that converge onto it do. A zero numerator over
+// a nonzero, non-NaN divisor gives the signed zero the division gives. A
+// numerator below 2^-900 is divided scaled by 2^600 (exact), q = RN(num
+// 2^600 / den), and q 2^-600 is the quotient where it is normal (rounding
+// commutes with a power of two there); where it is subnormal, q 2^-600
+// rounds to the subnormal grid as the division does but where q sits on a
+// midpoint of that grid, whose side the exact remainder fma(-q, den, num
+// 2^600) gives. Any other case (a zero over a zero or NaN divisor, a
+// scaled quotient outside [2^-700, inf): a NaN, an infinity, one too small
+// to scale back) takes the division as it is. float32: the division as it
+// is.
+template <class T>
+__device__ __forceinline__ T fast_div(T num, T den) {
+  if constexpr (sizeof(T) == 8) {
+    const bool zero = num == T(0);
+    const bool tiny = fabs(num) < 0x1p-900;  // zero included; NaN not
+    const T nn = tiny ? num * 0x1p600 : num;
+    const T q = (zero ? T(1) : nn) / den;
+    if (!tiny) return q;
+    if (zero) {
+      if (den != T(0) && den == den) {
+        return (__double_as_longlong(num) ^ __double_as_longlong(den)) < 0
+                   ? T(-0.0)
+                   : T(0.0);
+      }
+      return plain_div(num, den);
+    }
+    const T aq = fabs(q);
+    if (!(aq >= 0x1p-700 && aq < T(INFINITY))) return plain_div(num, den);
+    if (aq >= 0x1p-422) return q * 0x1p-600;
+    // a subnormal quotient: aq 2^474 is its multiple of the grid's step
+    // 2^-1074 (exact: below 2^52)
+    const T s = aq * 0x1p474;
+    const T k = floor(s);
+    if (s - k != T(0.5)) return q * 0x1p-600;
+    const T rem = fma(-q, den, nn);          // exact: nn - q den
+    if (rem == T(0)) return q * 0x1p-600;    // a tie: to even, as q 2^-600
+    // |num / den| above |q| where rem / den has q's sign
+    const bool up = ((rem > T(0)) == (den > T(0))) == (q > T(0));
+    const T mag = (up ? k + T(1) : k) * 0x1p-1074;
+    return q < T(0) ? -mag : mag;
+  } else {
+    return num / den;
+  }
+}
+
+// A divisor's divisions, its ratio through fast_div
 template <class T>
 __device__ __forceinline__ CDiv<T> cdivisor(Cx<T> z) {
   const T c = z.re, d = z.im;
   const bool big = fabs(c) >= fabs(d);  // false where either is NaN
   const T num = big ? d : c;
   const T den = big ? c : d;
-  const T rat = num / den;
+  const T rat = fast_div(num, den);
   T scl = T(1) / (den + num * rat);
   const bool zero = den == T(0);        // c = d = 0
   const T u = big ? T(1) : rat;

@@ -3,8 +3,8 @@
 // RowPoint; the twisted RPointTw), the RK4 step of the two-basis
 // system, the integration grid, the tables that a block fills chunk by
 // chunk in shared memory (Chunk, fill_chunk; the numeric exterior's exps,
-// cyl_exterior_scan), the end of the shoot (finish) and a kernel's
-// attributes (kernel_attrs). The density/axial-flow chain's kernels
+// cyl_exterior_scan) and the end of the shoot (finish). The
+// density/axial-flow chain's kernels
 // (cylinder_disp.cu), the twisted chain's (cylinder_twisted.cu) and the
 // complex-omega ones (cylinder_complex.cu) include it; cylinder_disp.cu's
 // C entries call the twisted launchers declared at the end when
@@ -383,29 +383,6 @@ __device__ W cyl_exterior_scan(const CylDispParams& p, W m_e, T k, T m,
     }
   }
   return quot(D, P);
-}
-
-// A kernel's registers, local (spill) bytes a thread and resident blocks
-// per SM with `smem` bytes of dynamic shared memory at `threads` a block
-template <class K>
-int kernel_attrs(K* kern, int threads, size_t smem, int* out) {
-  cudaFuncAttributes a;
-  cudaError_t err = cudaFuncGetAttributes(&a, kern);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(kern,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
-                                                      smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = a.numRegs;
-  out[1] = static_cast<int>(a.localSizeBytes);
-  out[2] = per_sm;
-  return 0;
 }
 
 // The axis condition, the interface values, the exterior, det, the %

@@ -51,6 +51,11 @@ _NEWTON_ARGS = ((_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P, _P, _P, _P,
 #  device, stream)
 _CYL_NEWTON_ARGS = ((_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P, _P, _P,
                      _P, _I, ctypes.c_double, _I, _I, _I, _P, _I, _P), _I)
+# the slab's flux form's, its shape built in: (om_re, om_im, k, parity,
+#  out_re, out_im, n, det_re, det_im, mism, valid, n_iter, damping,
+#  final_eval, params, device, stream)
+_FLUX_NEWTON_ARGS = ((_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P, _P,
+                      _P, _P, _I, ctypes.c_double, _I, _P, _I, _P), _I)
 _SIGNATURES = {
     # name: (argtypes, restype)
     "eigk_kve_ratio_f32": ((_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P),
@@ -106,6 +111,16 @@ _SIGNATURES = {
     "eigk_slab_spec_f64": _SPEC_ARGS,
     "eigk_slab_newton_f32": _NEWTON_ARGS,
     "eigk_slab_newton_f64": _NEWTON_ARGS,
+    "eigk_slab_newton_flux_f32": _FLUX_NEWTON_ARGS,
+    "eigk_slab_newton_flux_f64": _FLUX_NEWTON_ARGS,
+    # (f64)
+    "eigk_slab_newton_flux_smem": ((_I,), ctypes.c_longlong),
+    # (f64, numeric, out[6])
+    "eigk_slab_newton_flux_attrs": ((_I, _I, _P), _I),
+    # (device, out[2])
+    "eigk_slab_newton_flux_counts": ((_I, _P), _I),
+    # (num, den, fast, plain, n, device, stream)
+    "eigk_fast_div_f64": ((_P, _P, _P, _P, ctypes.c_longlong, _I, _P), _I),
     "eigk_error_string": ((ctypes.c_int,), ctypes.c_char_p),
 }
 

@@ -275,9 +275,9 @@ def analytic_spec_shape(n: int, dtype: torch.dtype, entry_bytes: int,
 
 
 class ComplexShape(NamedTuple):
-    """Block shape of the complex-omega kernel (`csrc/slab_complex.cu::
-    newton_kernel`: the Newton rounds and the value round); its producer
-    warps are fixed by the type (COMPLEX_PRODUCERS)."""
+    """Block shape of the shear form's complex-omega kernel (`csrc/
+    slab_complex.cu::newton_kernel`: the Newton rounds and the value
+    round); its producer warps are fixed by the type (COMPLEX_PRODUCERS)."""
     seeds: int       # B: seeds (candidates) a block, a power of two <= 32
     steps: int       # C: RK4 steps per ring stage
     stages: int      # S: ring stages, 1..6
@@ -297,47 +297,70 @@ _CX_ENTRY_BYTES = {(True, torch.float32): 16, (True, torch.float64): 32,
                    (False, torch.float32): 32, (False, torch.float64): 48}
 
 
-def complex_smem(shape: ComplexShape, dtype: torch.dtype,
-                 shear: bool = True) -> int:
-    """Bytes of dynamic shared memory of a complex-omega block: the head
-    and the ring of S stages of C steps x 24 values x B columns, then the
-    x-only table of the shear or the flux form, 2 x 3 C entries at a
-    16-byte boundary (csrc/slab_complex.cu::cx_table_offset)."""
+def complex_smem(shape: ComplexShape, dtype: torch.dtype) -> int:
+    """Bytes of dynamic shared memory of a shear-form complex-omega block:
+    the head and the ring of S stages of C steps x 24 values x B columns,
+    then the x-only table, 2 x 3 C entries at a 16-byte boundary
+    (csrc/slab_complex.cu::cx_table_offset)."""
     b, c, s = shape
     itemsize = torch.empty((), dtype=dtype).element_size()
     ring = (_CX_HEAD + s * c * _CX_VALUES * b) * itemsize
-    return (-(-ring // 16) * 16
-            + 2 * 3 * c * _CX_ENTRY_BYTES[(bool(shear), dtype)])
+    return -(-ring // 16) * 16 + 2 * 3 * c * _CX_ENTRY_BYTES[(True, dtype)]
 
 
 def complex_spec_shape(dtype: torch.dtype) -> ComplexShape:
-    """The block shape of the complex-omega kernel, one for every batch:
-    B = 32 seeds (or candidates) a block, so that the published KH sweep's
-    7,200 seeds (225 blocks) are resident at once at 2 blocks an SM (a
-    second wave would double the consumers' serial chains), and 2 ring
-    stages of a whole pass of the producers (B C = 32 P): at float64 C = 7
-    steps with P = 7 producer warps, at float32 C = 16 with P = 8. From
-    timings on an H100 (PERF.md section 6) of the 216 shapes whose 2 blocks
-    fit an SM (B 8-32, P 4, 6, 7, 8, C 2-32, S 2-4; `tools_torch/
-    tune_bisect.py --complex` with the kernel built at those four P for
-    that run, a build this tree does not hold: P is now fixed by the type
-    and the tool tunes B, C and S): the fastest on the KH sweep's Newton
-    launch (7,200 seeds x 30 steps with the final evaluation: 56.7 ms;
-    P = 8, C = 8 63.2), 4% from the fastest on the audit's 30,720 contour
-    points (3.52 ms; P = 8, C = 8 3.39) and 9% on its 7,200 roots (1.58
-    ms; B = 16, C = 14 1.44); at float32 the fastest on 8,191 contour
+    """The block shape of the shear form's complex-omega kernel, one for
+    every batch: B = 32 seeds (or candidates) a block, so that the
+    published KH sweep's 7,200 seeds (225 blocks) are resident at once at
+    2 blocks an SM (a second wave would double the consumers' serial
+    chains), and 2 ring stages of a whole pass of the producers (B C = 32
+    P): at float64 C = 7 steps with P = 7 producer warps, at float32 C = 16
+    with P = 8. From timings on an H100 (PERF.md section 6) of the 216
+    shapes whose 2 blocks fit an SM (B 8-32, P 4, 6, 7, 8, C 2-32, S 2-4;
+    `tools_torch/tune_bisect.py --complex` with the kernel built at those
+    four P for that run, a build this tree does not hold: P is now fixed by
+    the type and the tool tunes B, C and S): the fastest on the KH sweep's
+    Newton launch (7,200 seeds x 30 steps with the final evaluation: 56.7
+    ms; P = 8, C = 8 63.2), 4% from the fastest on the audit's 30,720
+    contour points (3.52 ms; P = 8, C = 8 3.39) and 9% on its 7,200 roots
+    (1.58 ms; B = 16, C = 14 1.44); at float32 the fastest on 8,191 contour
     points (0.600 ms; P = 7, C = 7 0.686)."""
     if dtype == torch.float32:
         return ComplexShape(seeds=32, steps=16, stages=2)
     return ComplexShape(seeds=32, steps=7, stages=2)
 
 
-def check_complex_shape(name: str, shape: ComplexShape, dtype: torch.dtype,
-                        shear: bool = True) -> None:
+def check_complex_shape(name: str, shape: ComplexShape,
+                        dtype: torch.dtype) -> None:
     b, c, s = shape
     if not (1 <= b <= 32 and b & (b - 1) == 0 and c >= 1 and 1 <= s <= 6
-            and complex_smem(shape, dtype, shear) <= MAX_SMEM):
+            and complex_smem(shape, dtype) <= MAX_SMEM):
         raise ValueError(f"{name}: unsupported block shape {shape}")
+
+
+class FluxNewtonShape(NamedTuple):
+    """Launch shape of the flux form's complex-omega kernel (`csrc/
+    slab_complex.cu::flux_kernel`, one thread a seed), fixed by the build
+    (FluxShape, the EIGK_CX_SLAB_* macros): the threads a block, the RK4
+    steps of a chunk of its x-only table, and the register budget of
+    min_blocks blocks an SM."""
+    threads: int
+    chunk: int
+    min_blocks: int
+
+
+# The flux kernel's shape by type, the source's FluxShape defaults
+# (`kernels.slab.flux_attrs` reads the build's); tools_torch/tune_disp.py
+# --kernel slab_newton_flux builds and times others
+FLUX_NEWTON_SHAPE = {torch.float32: FluxNewtonShape(96, 64, 3),
+                     torch.float64: FluxNewtonShape(128, 64, 2)}
+
+
+def flux_newton_smem(dtype: torch.dtype, chunk: int) -> int:
+    """Bytes of the flux kernel's x-only table in a block's shared memory
+    at `chunk` steps: 2 buffers of 3 chunk FluxPoint entries
+    (csrc/slab_complex.cu::flux_smem)."""
+    return 2 * 3 * chunk * _CX_ENTRY_BYTES[(False, dtype)]
 
 
 def spec_smem(shape: SpecShape, dtype: torch.dtype, entry_bytes: int) -> int:

@@ -20,17 +20,21 @@ producer warps read the x-only values from a table as the scan does, and a
 small batch speculates several levels a round.
 
 At complex omega (the Kelvin-Helmholtz growth rates, and any slab case the
-CLI's `sweep --complex` makes complex) one warp-specialised kernel
-(`csrc/slab_complex.cu`) serves both wrappers: `slab_newton` (kernel B7)
-runs every damped Newton step of a seed batch in one launch
+CLI's `sweep --complex` makes complex) two kernels of `csrc/slab_complex.cu`
+serve both wrappers, one a form: `slab_newton` (kernel B7) runs every
+damped Newton step of a seed batch in one launch
 (`eigensolver_tpu/search.py:581-603`), each step one pass of the shoot on
 dual numbers in omega, and, if asked, the evaluation of its roots in the
 same launch; `slab_disp_complex` is the kernel's evaluation mode, the same
-shoot on complex pairs (`cplx.C`): the shear form (kernel B5-complex) or
-the flux form (B2-complex), with the exact exterior or the numeric one
-(B6-complex), as the parameters pick. Producer warps compute each RK4
-step's coefficients, one consumer lane a seed runs the serial update (and
-the numeric exterior). Their plain versions are
+shoot on complex pairs (`cplx.C`), with the exact exterior or the numeric
+one (B6-complex), as the parameters pick. The shear form (kernel
+B5-complex, `newton_kernel`): producer warps compute each RK4 step's
+coefficients, one consumer lane a seed runs the serial update and the
+numeric exterior. The flux form (B2-complex, `flux_kernel`): one thread a
+seed carries its whole round, reading the x-only values from a table of
+its block, at the launch shape the build fixes
+(`common.FLUX_NEWTON_SHAPE`; `flux_attrs`, `flux_counts`,
+`flux_chain_kept`). Their plain versions are
 `SlabPhysics.make_dispersion_plain` at complex omega and
 `search.newton_loop` over `make_dispersion_dual_plain`.
 
@@ -49,12 +53,13 @@ import torch
 
 from ..config import CaseConfig, ProfileKind
 from . import _build
-from .common import (_SMS, EXTERIOR_FIELDS, ComplexShape, ProfileParams,
-                     ScanShape, analytic_spec_shape, as_pair,
-                     check_complex_shape, check_scan_shape,
-                     complex_spec_shape, density_flow_params,
-                     exterior_params, launch_complex, launch_disp,
-                     launch_spec, numeric_spec_shape)
+from .common import (_SMS, EXTERIOR_FIELDS, FLUX_NEWTON_SHAPE, ComplexShape,
+                     FluxNewtonShape, ProfileParams, ScanShape,
+                     analytic_spec_shape, as_pair, check_complex_shape,
+                     check_scan_shape, complex_spec_shape,
+                     density_flow_params, exterior_params, flux_newton_smem,
+                     launch_complex, launch_disp, launch_spec,
+                     numeric_spec_shape)
 
 # launches of the kernels since the last reset (one per kernel launch):
 # slab_disp (either variant), the fused bisection slab_bisect, and at
@@ -77,9 +82,13 @@ _PAIRS_ENTRY = {torch.float32: "eigk_slab_pairs_f32",
 # the fused bisection, with either exterior
 _SPEC_ENTRY = {torch.float32: "eigk_slab_spec_f32",
                torch.float64: "eigk_slab_spec_f64"}
-# the complex-omega kernel: Newton rounds, the value round, or both
+# the complex-omega kernels: Newton rounds, the value round, or both; the
+# shear form's (block shape B, C, S) and the flux form's (its shape built
+# in)
 _NEWTON_ENTRY = {torch.float32: "eigk_slab_newton_f32",
                  torch.float64: "eigk_slab_newton_f64"}
+_FLUX_NEWTON_ENTRY = {torch.float32: "eigk_slab_newton_flux_f32",
+                      torch.float64: "eigk_slab_newton_flux_f64"}
 
 
 class _SlabParams(ctypes.Structure):
@@ -270,25 +279,79 @@ def slab_bisect(lo: torch.Tensor, hi: torch.Tensor, k: torch.Tensor,
 
 def _launch_complex(name: str, omega, k, parity, params, n_iter,
                     damping: float, final_eval: bool, shape):
-    """One launch of the complex-omega kernel (`common.launch_complex`) in
-    the case's form and exterior, block shape `shape` (default
-    `common.complex_spec_shape`)."""
+    """One launch of the complex-omega kernel of the case's form
+    (`common.launch_complex`) with its exterior: the shear form's at block
+    shape `shape` (a `common.ComplexShape`, default
+    `common.complex_spec_shape`), the flux form's at the shape its build
+    fixes (`common.FLUX_NEWTON_SHAPE`), which takes no `shape`."""
     global complex_flux_launches, complex_numeric_launches
     from ..physics.slab import SlabInterface
     dtype = omega.re.dtype
     shear = bool(params.struct.shear)
+    numeric = bool(params.struct.exterior_numeric)
+    entries = _NEWTON_ENTRY if shear else _FLUX_NEWTON_ENTRY
     shape_args = ()
-    if dtype in _NEWTON_ENTRY:
+    if shear and dtype in entries:
         shape = ComplexShape(*(shape or complex_spec_shape(dtype)))
-        check_complex_shape(name, shape, dtype, shear)
+        check_complex_shape(name, shape, dtype)
         shape_args = tuple(shape)
-    out = launch_complex(name, _NEWTON_ENTRY, "eigk_slab_params_size",
+    elif not shear and shape is not None:
+        raise ValueError(f"{name}: the flux form's launch shape is built in "
+                         f"({FLUX_NEWTON_SHAPE.get(dtype)}), not {shape}")
+    out = launch_complex(name, entries, "eigk_slab_params_size",
                          params.struct, omega, k, parity, n_iter, damping,
                          final_eval, shape_args, SlabInterface)
     if omega.re.numel():
         complex_flux_launches += not shear
-        complex_numeric_launches += bool(params.struct.exterior_numeric)
+        complex_numeric_launches += numeric
     return out
+
+
+def flux_attrs(dtype: torch.dtype, numeric: bool) -> dict:
+    """The flux form's complex-omega kernel as the card runs it: registers,
+    local (spill) bytes a thread, blocks an SM, and the shape it is built
+    for (threads, min_blocks, chunk) with its table's bytes; raises unless
+    that shape is `common.FLUX_NEWTON_SHAPE`'s and the table takes the
+    bytes `common.flux_newton_smem` gives."""
+    lib = _build.library()
+    f64 = int(dtype == torch.float64)
+    out = (ctypes.c_int * 6)()
+    _build.check(lib.eigk_slab_newton_flux_attrs(f64, int(numeric), out),
+                 "slab_newton flux attributes")
+    shape = FluxNewtonShape(threads=out[3], chunk=out[5], min_blocks=out[4])
+    got = lib.eigk_slab_newton_flux_smem(f64)
+    if shape != FLUX_NEWTON_SHAPE[dtype] or \
+            got != flux_newton_smem(dtype, shape.chunk):
+        raise RuntimeError(f"slab_newton flux: built at {shape} with a "
+                           f"table of {got} B, not FLUX_NEWTON_SHAPE's")
+    return dict(registers=out[0], local_bytes=out[1], blocks_per_sm=out[2],
+                **shape._asdict(), smem=got)
+
+
+def flux_counts(device) -> dict:
+    """What thread 0 of block 0 of the flux form's complex-omega launches
+    on the CUDA `device` did since the last call, summed over its shoots
+    (a launch's rounds) and the launches: the RK4 steps it took (`steps`)
+    and those whose first chain it kept from the step before (`kept`).
+    Zeroes them; waits for the device's work."""
+    out = (ctypes.c_ulonglong * 2)()
+    dev = torch.device(device)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    _build.check(_build.library().eigk_slab_newton_flux_counts(index, out),
+                 "slab_newton flux counts")
+    return dict(kept=int(out[0]), steps=int(out[1]))
+
+
+def flux_chain_kept(n_interior: int) -> torch.Tensor:
+    """Per RK4 step of the flux kernel's shoot (x from 0 to 1), whether it
+    keeps the step before's last chain as its first
+    (csrc/common.cuh::chain_reuse(n_steps)): every step but the first where
+    n_interior is a power of two (there each step's first abscissa is the
+    step before's last, bit for bit), none elsewhere."""
+    keep = n_interior > 0 and n_interior & (n_interior - 1) == 0
+    kept = torch.full((n_interior,), keep, dtype=torch.bool)
+    kept[:1] = False
+    return kept
 
 
 def slab_disp_complex(omega, k: torch.Tensor, parity: torch.Tensor,
@@ -296,9 +359,8 @@ def slab_disp_complex(omega, k: torch.Tensor, parity: torch.Tensor,
     """SlabInterface(det (a `cplx.C`), mismatch_pct, valid) of 1-D candidate
     tensors at complex omega (a `cplx.C` of two real tensors, or a complex
     tensor, which is split), k and parity of omega's real dtype and device;
-    on the card one launch of the complex-omega kernel in its evaluation
-    mode (block shape `shape`, a common.ComplexShape; default
-    `common.complex_spec_shape`)."""
+    on the card one launch of the form's complex-omega kernel in its
+    evaluation mode (launch shape `shape`: `_launch_complex`)."""
     global complex_launches
     omega = as_pair(omega)
     if omega.re.device.type == "cpu":
@@ -316,8 +378,8 @@ def slab_newton(omega0, k: torch.Tensor, parity: torch.Tensor, n_iter: int,
     `cplx.C` or a complex tensor; k, parity of its real dtype and device):
     the final omega, a `cplx.C`; with final_eval, (omega, the
     SlabInterface of the value dispersion there). A CUDA tensor launches
-    the complex-omega kernel once, the final evaluation its last round
-    (block shape `shape`, default `common.complex_spec_shape`); a CPU
+    the form's complex-omega kernel once, the final evaluation its last
+    round (launch shape `shape`: `_launch_complex`); a CPU
     tensor runs `search.newton_loop` over the plain dual shoot, then the
     plain value dispersion."""
     global newton_launches

@@ -286,12 +286,11 @@ def test_newton_entry_final_eval_equals_loop_and_jax():
     np.testing.assert_array_equal(res.valid.numpy(), np.asarray(jres.valid))
 
 
-def _cpp_smem(dtype, shape, shear=True):
-    """The complex kernel's shared-memory bytes by the C++ source's own
-    expressions (csrc/slab_complex.cu: cx_table_offset and the table
-    behind it in launch_variant; the table's entry XPoint<T, kShear> a
-    ShearPoint of 3 values, or in the flux form a FluxPoint of 5, 16-byte
-    aligned), evaluated for shape."""
+def _cpp_smem(dtype, shape):
+    """The shear-form complex kernel's shared-memory bytes by the C++
+    source's own expressions (csrc/slab_complex.cu: cx_table_offset and
+    the table behind it in launch_shear; the table's entry a ShearPoint of
+    3 values, 16-byte aligned), evaluated for shape."""
     import re
     src = (Path(__file__).resolve().parent.parent / "eigensolver_tpu_torch"
            / "csrc" / "slab_complex.cu").read_text()
@@ -306,9 +305,9 @@ def _cpp_smem(dtype, shape, shear=True):
 
     def ev(expr, **names):
         expr = re.sub(r"static_cast<size_t>\((\w+)\)", r"\1", expr)
-        entry = -(-(3 if shear else 5) * item // 16) * 16
+        entry = -(-3 * item // 16) * 16
         expr = expr.replace("sizeof(T)", str(item)).replace(
-            "sizeof(XPoint<T, kShear>)", str(entry))
+            "sizeof(ShearPoint<T>)", str(entry))
         return eval(" ".join(expr.split()).replace("/", "//"), {},
                     {**consts, **names})
     b, c, s = shape
@@ -318,14 +317,14 @@ def _cpp_smem(dtype, shape, shear=True):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_complex_spec_shape(dtype):
-    """The complex kernel's block shape on the main path's batches (the KH
-    sweep's 7,200 seeds and roots, the audit's 30,720 contour points, the
-    ragged 8,191): the producer count the C++ source builds at the type
-    (kCxProducers), at most 512 threads a block, the shared memory of the
-    2 blocks an SM holds (__launch_bounds__(.., 2), 1 KiB reserved a
-    block) within an H100 SM's 228 KiB, a grid that covers n, the 7,200
-    seeds in one wave of 132 SMs; the Python byte count equal to the C++
-    source's, in the shear and the flux form."""
+    """The shear-form complex kernel's block shape on the main path's
+    batches (the KH sweep's 7,200 seeds and roots, the audit's 30,720
+    contour points, the ragged 8,191): the producer count the C++ source
+    builds at the type (kCxProducers), at most 512 threads a block, the
+    shared memory of the 2 blocks an SM holds (__launch_bounds__(.., 2), 1
+    KiB reserved a block) within an H100 SM's 228 KiB, a grid that covers
+    n, the 7,200 seeds in one wave of 132 SMs; the Python byte count equal
+    to the C++ source's."""
     import re
     from eigensolver_tpu_torch.kernels import common
     src = (Path(__file__).resolve().parent.parent / "eigensolver_tpu_torch"
@@ -338,11 +337,10 @@ def test_complex_spec_shape(dtype):
     assert 32 * (p + 1) <= 512
     shape = common.complex_spec_shape(dtype)
     b, c, s = shape
-    for shear in (True, False):
-        common.check_complex_shape("x", shape, dtype, shear)
-        smem = common.complex_smem(shape, dtype, shear)
-        assert smem == _cpp_smem(dtype, shape, shear)
-        assert 2 * (smem + 1024) <= 228 * 1024
+    common.check_complex_shape("x", shape, dtype)
+    smem = common.complex_smem(shape, dtype)
+    assert smem == _cpp_smem(dtype, shape)
+    assert 2 * (smem + 1024) <= 228 * 1024
     for n in (7_200, 30_720, 8_191):
         blocks = -(-n // b)
         assert blocks * b >= n > (blocks - 1) * b
@@ -350,9 +348,7 @@ def test_complex_spec_shape(dtype):
             assert blocks <= 2 * 132
     for shape in [common.ComplexShape(8, 5, 3),
                   common.ComplexShape(16, 32, 2)]:
-        for shear in (True, False):
-            assert common.complex_smem(shape, dtype, shear) == \
-                _cpp_smem(dtype, shape, shear)
+        assert common.complex_smem(shape, dtype) == _cpp_smem(dtype, shape)
 
 
 # -- search, dedup, the sweep ---------------------------------------------------

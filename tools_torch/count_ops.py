@@ -579,6 +579,20 @@ def complex_flux_ops() -> dict:
     return out
 
 
+def complex_flux_kernel_ops() -> dict:
+    """chip_smoke.py's OPS entries for the flux form's kernel of one
+    thread a seed (csrc/slab_complex.cu::flux_kernel): the serial RK4
+    update of a step, the step's count less its 3 chain evaluations
+    ("slab_cx_flux_update", "slab_cx_flux_dual_update"), traced from one
+    step of _rk4_linear over _apply_flux; a thread's step is the update
+    and the chains it forms, 2 where it keeps the step before's last."""
+    from eigensolver_tpu_torch.physics import slab
+    with _ComplexPatches():
+        return {f"slab_cx_flux_{d}update": _cx_update(slab._apply_flux,
+                                                      is_dual)
+                for is_dual, d in ((False, ""), (True, "dual_"))}
+
+
 # the complex numeric exterior's rescaling every 64th step, by hand from
 # csrc/slab_complex.cu::exterior_ratio: the two values' moduli (5 each),
 # their maximum and its test, and each real part divided by the scale (4;
@@ -868,7 +882,8 @@ def _tally_deps(outs) -> dict:
 def main() -> int:
     sys.path.insert(0, str(ROOT))
     ext = exterior_ops()
-    cx = {**complex_ops(), **complex_flux_ops(), **complex_exterior_ops(),
+    cx = {**complex_ops(), **complex_flux_ops(), **complex_flux_kernel_ops(),
+          **complex_exterior_ops(),
           **complex_cylinder_ops(), **complex_cylinder_table_ops()}
     cyl = cylinder_ops()
     sl = slab_ops()

@@ -33,7 +33,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 SRC = ROOT / "eigensolver_tpu_torch" / "csrc" / "slab_complex.cu"
 # the KH path's instantiation: the shear form with the exact exterior
-_KERNEL = re.compile(r"newton_kernelI([fd])Lb1ELb0EE")
+_KERNEL = re.compile(r"newton_kernelI([fd])Lb0EE")
 _INSN = re.compile(r"/\*([0-9a-f]+)\*/\s+(.*?)\s*;")
 _LABEL = re.compile(r"\s*(\.L_x_\d+):")
 _BRANCH = re.compile(r"BRA\s+`\((\.L_x_\d+)\)")

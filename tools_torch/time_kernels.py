@@ -4,7 +4,8 @@
     python3 tools_torch/time_kernels.py [--pkg-root DIR] [--label NAME]
                                         [--out PATH] [--complex]
                                         [--cylinder-scan] [--slab-scan]
-                                        [--cx-cylinder] [--roots PATH]
+                                        [--cx-cylinder] [--cx-slab]
+                                        [--roots PATH]
 
 Imports `eigensolver_tpu_torch` from DIR (default: this repository), builds
 its kernels and prints one JSON line of device times (CUDA events, mean of
@@ -79,6 +80,21 @@ several launches after a warm-up):
     of 2 after a first run) and their roots' digests (`chip_smoke.py::
     root_digest`, bit for bit); the kernel's ptxas lines, and where the
     checkout has them its launch shape, registers and spills;
+  - the complex-omega slab kernels (`--cx-slab` times only these):
+    `slab_newton` (30 steps; and with the roots' evaluation in the launch)
+    on the seeds of cx_ph_09 (the flux form) and cx_ph_09_num (with the
+    numeric exterior) in each mode, of kh_w1e5_num (the shear form's
+    numeric exterior) and kh_w1e5 (the exact one), kink (`tools_torch/
+    cx_slab.py`, `kh.py`, float64), per launch the roots that are not
+    finite, those with |Im omega| below 1e-290 and the warps of 32 seeds
+    holding one; cx_ph_09's first 8,640 seeds (a checkpointed block of 8
+    k) with the evaluation; `slab_disp_complex` on each sweep's audit
+    contour points; the four sweeps' walls (medians of 2 after a first
+    run) and root digests; cx_ph_09's Newton pass as 30 chained one-step
+    launches (`newton_chain`: per step its ms, the seeds with |Im omega|
+    below 1e-290 and their warps; a step on the roots with and without
+    those lifted to 1e-100); the kernels' ptxas lines and, where the
+    checkout has them, the flux kernel's attributes;
 To compare two commits on one card, unpack the other into a git-ignored
 directory and run both in turns (A B B A) on the same card; `--complex`
 times only the complex-omega kernels, `--roots PATH` saves the KH Newton
@@ -114,6 +130,30 @@ def cuda_ms(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def _warps(mask) -> int:
+    """The warps of 32 consecutive seeds that hold a seed of `mask`."""
+    import torch
+    pad = (-mask.numel()) % 32
+    m = torch.cat([mask, mask.new_zeros(pad)])
+    return int(m.view(-1, 32).any(dim=1).sum())
+
+
+def _event_ms(reps: int, fn):
+    """fn's last result and its mean device time over reps calls after a
+    warm-up call (CUDA events)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1) / reps
 
 
 def kve_sets():
@@ -286,26 +326,30 @@ def kh_walls(runs: int = 3) -> dict:
     return out
 
 
-def newton_chain(n_steps: int = 30) -> dict:
-    """The published KH sweep's Newton pass (width 1.0, 7,200 seeds,
-    float64) as n_steps chained slab_newton launches of one step each,
-    every launch from the previous one's output. Per step: its device ms
-    (mean of 3 launches from the same input), of its input omegas the
-    non-finite ones, those whose |Im| is below 1e-30, below 1e-290 (where a
-    division's quotient nears the bottom of the exponent range: the slow path
-    of CUDA's float64 division) and exactly 0, the warps of 32 seeds holding
-    such a seed, and the smallest |omega - k U| over the finite seeds with
-    U at x = 0 and at x = 1. Then whether the chain's last omega equals
-    one n_steps launch bit for bit, and slab_disp_complex's ms on the
-    seeds, on the roots, and on the roots with every |Im| below 1e-100 set
-    to 1e-100 (timing only: no result of it is kept)."""
+def newton_chain(name: str = "kh_w1", n_steps: int = 30) -> dict:
+    """A complex slab sweep's Newton pass as n_steps chained slab_newton
+    launches of one step each, every launch from the previous one's output,
+    float64: the published KH sweep at width 1.0 (`kh_w1`,
+    `tools_torch/kh.py`: 7,200 seeds, kink) or the density slab's
+    (`cx_ph_09`, `tools_torch/cx_slab.py`: 37,800 seeds, kink, the flux
+    form). Per step: its device ms (mean of 3 launches from the same
+    input), of its input omegas the non-finite ones, those whose |Im| is
+    below 1e-30, below 1e-290 (where a division's quotient nears the
+    bottom of the exponent range: the slow path of CUDA's float64
+    division), subnormal and exactly 0, the warps of 32 seeds holding such
+    a seed, and (KH) the smallest |omega - k U| over the finite seeds with
+    U at x = 0 and at x = 1. Then whether the chain's last omega equals one n_steps launch bit
+    for bit; one Newton step's ms on the roots as they are and with every
+    |Im| below 1e-100 set to 1e-100 (the slow path's cost; timing only: no
+    result of it is kept); slab_disp_complex's ms on the seeds, on the
+    roots and on the lifted roots."""
     import torch
     from eigensolver_tpu_torch import cases, sweep
     from eigensolver_tpu_torch.cplx import C, cabs
     from eigensolver_tpu_torch.kernels import slab as kslab
     from eigensolver_tpu_torch.profiles import make_profile
-    from tools_torch import kh
-    case, kw = kh.configure("kh_w1", cases)
+    from tools_torch import cx_slab, kh
+    case, kw = (kh if name in kh.CONFIGS else cx_slab).configure(name, cases)
     params = kslab.disp_params(case, True)
     rg = case.regime
     U = make_profile(case.flow_profile, rg.U_i0, rg.U_e)(
@@ -316,27 +360,24 @@ def newton_chain(n_steps: int = 30) -> dict:
     kk = torch.from_numpy(k0).cuda()
     par = torch.ones_like(kk)
 
-    def warps(mask):
-        pad = (-mask.numel()) % 32
-        m = torch.cat([mask, mask.new_zeros(pad)])
-        return int(m.view(-1, 32).any(dim=1).sum())
-
     steps, om = [], seeds
     for _ in range(n_steps):
         fin = om.re.isfinite() & om.im.isfinite()
         tiny = fin & (om.im.abs() < 1e-290)
         zero = fin & (om.im == 0)
+        sub = tiny & ~zero & (om.im.abs() < torch.finfo(om.im.dtype).tiny)
         small = fin & (om.im.abs() < 1e-30)
         nxt = kslab.slab_newton(om, kk, par, 1, 1.0, params)
         ms = cuda_ms(lambda: kslab.slab_newton(om, kk, par, 1, 1.0, params),
                      3)
         row = {"ms": ms, "non_finite": int((~fin).sum()),
                "small_im": int(small.sum()), "tiny_im": int(tiny.sum()),
-               "zero_im": int(zero.sum()),
-               "warps_non_finite": warps(~fin), "warps_tiny_im": warps(tiny)}
-        for x, u in zip((0, 1), U):
-            d = cabs(C(om.re - kk * u, om.im))
-            row[f"min_abs_Omega_x{x}"] = float(d[fin].min())
+               "zero_im": int(zero.sum()), "subnormal_im": int(sub.sum()),
+               "warps_non_finite": _warps(~fin), "warps_tiny_im": _warps(tiny)}
+        if name in kh.CONFIGS:
+            for x, u in zip((0, 1), U):
+                d = cabs(C(om.re - kk * u, om.im))
+                row[f"min_abs_Omega_x{x}"] = float(d[fin].min())
         steps.append(row)
         om = nxt
     fused = kslab.slab_newton(seeds, kk, par, n_steps, 1.0, params)
@@ -352,14 +393,111 @@ def newton_chain(n_steps: int = 30) -> dict:
     def eval_ms(z):
         return cuda_ms(lambda: kslab.slab_disp_complex(z, kk, par, params),
                        10)
-    return {"n": len(k0), "U_x0_x1": U, "steps": steps,
+
+    def step_ms(z):
+        return cuda_ms(lambda: kslab.slab_newton(z, kk, par, 1, 1.0, params),
+                       5)
+    tiny = om.im.abs() < 1e-290
+    return {"name": name, "n": len(k0), "U_x0_x1": U, "steps": steps,
             "chain_ms": sum(r["ms"] for r in steps),
             "fused_equals_chain": same,
             "roots_non_finite": int((~(om.re.isfinite()
                                        & om.im.isfinite())).sum()),
-            "roots_tiny_im": int((om.im.abs() < 1e-290).sum()),
+            "roots_tiny_im": int(tiny.sum()),
+            "roots_warps_tiny_im": _warps(tiny),
+            "warps": _warps(~tiny | tiny),
+            "step_roots_ms": step_ms(om),
+            "step_roots_lifted_ms": step_ms(lifted),
             "eval_seeds_ms": eval_ms(seeds), "eval_roots_ms": eval_ms(om),
             "eval_roots_lifted_ms": eval_ms(lifted)}
+
+
+def cx_slab_times() -> dict:
+    """The complex-omega slab kernels' launches and sweeps (see the module's
+    docstring)."""
+    import importlib.util
+    import statistics
+    import time
+    import torch
+    from eigensolver_tpu_torch import cases, sweep
+    from eigensolver_tpu_torch.cplx import C
+    from eigensolver_tpu_torch.kernels import slab as kslab
+    from tools_torch import cx_slab, kh
+
+    def pair(om, k):
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
+        return C(t(om.real), t(om.imag)), t(k)
+
+    # this repository's digest, whichever checkout is timed
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    out = {}
+    for name in ("cx_ph_09", "cx_ph_09_num", "kh_w1e5_num", "kh_w1e5"):
+        mod = kh if name in kh.CONFIGS else cx_slab
+        case, kw = mod.configure(name, cases)
+        params = kslab.disp_params(case, True)
+        om0, k0 = sweep.complex_seeds(case, kw["n_re"], kw["n_im"])
+        seeds, kk = pair(om0, k0)
+        n_iter = kw["newton_iters"]
+        r = {"n": len(k0), "n_iter": n_iter}
+        for mode in case.modes:
+            par = torch.full_like(kk, float(mode))
+            roots, ms = _event_ms(3, lambda: kslab.slab_newton(
+                seeds, kk, par, n_iter, 1.0, params))
+            _, ms_fe = _event_ms(3, lambda: kslab.slab_newton(
+                seeds, kk, par, n_iter, 1.0, params, final_eval=True))
+            fin = roots.re.isfinite() & roots.im.isfinite()
+            tiny = fin & (roots.im.abs() < 1e-290)
+            r[f"m{mode}"] = {
+                "ms": ms, "ms_final_eval": ms_fe,
+                "roots_non_finite": int((~fin).sum()),
+                "roots_tiny_im": int(tiny.sum()),
+                "warps_tiny_im": _warps(tiny), "warps": _warps(tiny | ~tiny)}
+        if name == "cx_ph_09":
+            # a checkpointed block (run_case_complex_checkpointed's 8 k):
+            # its first 8,640 seeds, the kink mode, with the evaluation
+            n_b = chip_smoke.CX_BLOCK_SEEDS
+            sb = C(seeds.re[:n_b].contiguous(), seeds.im[:n_b].contiguous())
+            kb = kk[:n_b].contiguous()
+            pb = torch.ones_like(kb)
+            _, r["block_ms_final_eval"] = _event_ms(
+                3, lambda: kslab.slab_newton(sb, kb, pb, n_iter, 1.0, params,
+                                             final_eval=True))
+            r["block_n"] = n_b
+        cells, paths, _, _ = sweep.audit_contours(
+            np.asarray(case.k_grid()), np.asarray(case.sorted_speeds()),
+            case.imag_band)
+        z, ka = pair(paths.reshape(-1),
+                     np.repeat(np.array([c[0] for c in cells]),
+                               paths.shape[1]))
+        pa = torch.full_like(ka, float(case.modes[-1]))
+        _, r["audit_ms"] = _event_ms(
+            3, lambda: kslab.slab_disp_complex(z, ka, pa, params))
+        r["audit_n"] = ka.numel()
+        rs, _ = sweep.run_case_complex(case, **kw, device="cuda")
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            sweep.run_case_complex(case, **kw, device="cuda")
+            walls.append(time.perf_counter() - t0)
+        r["sweep"] = {"wall_s": statistics.median(walls), "walls": walls,
+                      "counts": rs.counts(),
+                      "root_digest": chip_smoke.root_digest(rs)}
+        print(name, json.dumps(r), flush=True)
+        out[name] = r
+    out["cx_ph_09 newton chain"] = newton_chain("cx_ph_09")
+    print("cx_ph_09 newton chain", json.dumps(out["cx_ph_09 newton chain"]),
+          flush=True)
+    out["ptxas"] = ptxas_lines("slab_cx")
+    if hasattr(kslab, "flux_attrs"):
+        out["attrs"] = {f"{str(dt)[6:]}{' numeric' if num else ''}":
+                        kslab.flux_attrs(dt, num)
+                        for dt in (torch.float32, torch.float64)
+                        for num in (False, True)}
+    return out
 
 
 def cx_cylinder_times() -> dict:
@@ -378,23 +516,6 @@ def cx_cylinder_times() -> dict:
         def t(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to("cuda", dtype)
         return C(t(om.real), t(om.imag)), t(k)
-
-    def warps(mask):
-        pad = (-mask.numel()) % 32
-        m = torch.cat([mask, mask.new_zeros(pad)])
-        return int(m.view(-1, 32).any(dim=1).sum())
-
-    def event_ms(fn, reps=2):
-        fn()
-        torch.cuda.synchronize()
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        for _ in range(reps):
-            out = fn()
-        t1.record()
-        torch.cuda.synchronize()
-        return out, t0.elapsed_time(t1) / reps
 
     # this repository's digest, whichever checkout is timed
     spec = importlib.util.spec_from_file_location("chip_smoke",
@@ -418,9 +539,9 @@ def cx_cylinder_times() -> dict:
         for dtype, mode in runs:
             seeds, kk = pair(om0, k0, dtype)
             mm = torch.full_like(kk, float(mode))
-            roots, ms = event_ms(lambda: kcyl.cylinder_newton(
+            roots, ms = _event_ms(2, lambda: kcyl.cylinder_newton(
                 seeds, kk, mm, n_iter, 1.0, params))
-            _, ms_fe = event_ms(lambda: kcyl.cylinder_newton(
+            _, ms_fe = _event_ms(2, lambda: kcyl.cylinder_newton(
                 seeds, kk, mm, n_iter, 1.0, params, final_eval=True))
             fin = roots.re.isfinite() & roots.im.isfinite()
             tiny = fin & (roots.im.abs() < 1e-290)
@@ -428,7 +549,7 @@ def cx_cylinder_times() -> dict:
                 "ms": ms, "ms_final_eval": ms_fe,
                 "roots_non_finite": int((~fin).sum()),
                 "roots_tiny_im": int(tiny.sum()),
-                "warps_tiny_im": warps(tiny), "warps": warps(tiny | ~tiny)}
+                "warps_tiny_im": _warps(tiny), "warps": _warps(tiny | ~tiny)}
         cells, paths, _, _ = sweep.audit_contours(
             np.asarray(case.k_grid()), np.asarray(case.sorted_speeds()),
             case.imag_band)
@@ -436,8 +557,8 @@ def cx_cylinder_times() -> dict:
                      np.repeat(np.array([c[0] for c in cells]),
                                paths.shape[1]), torch.float64)
         ma = torch.full_like(ka, float(case.modes[-1]))
-        _, r["audit_ms"] = event_ms(
-            lambda: kcyl.cylinder_disp_complex(z, ka, ma, params))
+        _, r["audit_ms"] = _event_ms(
+            2, lambda: kcyl.cylinder_disp_complex(z, ka, ma, params))
         r["audit_n"] = ka.numel()
         if not case_kw:
             rs, _ = sweep.run_case_complex(case, **kw, device="cuda")
@@ -652,6 +773,9 @@ def main() -> int:
     ap.add_argument("--cx-cylinder", action="store_true",
                     help="time only the complex-omega cylinder kernel and "
                          "its sweeps")
+    ap.add_argument("--cx-slab", action="store_true",
+                    help="time only the complex-omega slab kernels and "
+                         "their sweeps")
     ap.add_argument("--roots", help="save the KH Newton roots here (.npz)")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.pkg_root).resolve()))
@@ -670,10 +794,12 @@ def main() -> int:
     lib = _build.build()
     out = {"label": args.label, "nvidia_smi": smi,
            "package": str(Path(_build.__file__).resolve().parents[1])}
-    if args.cylinder_scan or args.slab_scan or args.cx_cylinder:
+    if args.cylinder_scan or args.slab_scan or args.cx_cylinder \
+            or args.cx_slab:
         out.update(cylinder_scan_times(lib) if args.cylinder_scan
                    else slab_scan_times(lib) if args.slab_scan
-                   else cx_cylinder_times())
+                   else cx_cylinder_times() if args.cx_cylinder
+                   else cx_slab_times())
         print(json.dumps(out), flush=True)
         if args.out:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -683,7 +809,7 @@ def main() -> int:
         real_times(out, args.pkg_root)
     try:
         out["kh_w1 complex float64"] = complex_times(args.roots)
-        out["kh_w1 newton chain"] = newton_chain()
+        out["kh_w1 newton chain"] = newton_chain("kh_w1")
         out["kh walls"] = kh_walls()
     except (ImportError, AttributeError, NotImplementedError):
         # an older tree (--pkg-root) may lack the complex kernels

@@ -3,7 +3,8 @@
 
     python3 tools_torch/tune_disp.py [--kernel cylinder|cylinder_numeric|
                                               slab|slab_paired|twisted|
-                                              cylinder_newton|all]
+                                              cylinder_newton|
+                                              slab_newton_flux|all]
                                      [--pkg-root DIR] [--out PATH]
                                      [--shapes T:B,...] [--chunks C,...]
                                      [--rounds N]
@@ -62,6 +63,22 @@ and prints per set the default's time and the fastest shapes:
     kept); per build the registers, spill bytes and blocks an SM of each
     variant. A shape whose tables do not fit is listed as refused. ~12 s
     a build and chunk after the builds (~3 min).
+  - the flux form's complex-omega slab kernel (`slab_newton_flux`, not in
+    `all`: csrc/slab_complex.cu::flux_kernel, one thread a seed, built at
+    one launch shape a type, `FluxShape`): the tool builds
+    csrc/slab_complex.cu (with slab_disp.cu, whose entry the wrappers also
+    call) once for each (threads a block, __launch_bounds__' min blocks)
+    of `--shapes` (default `FLUX_SHAPES`, 12 shapes) and table chunk of
+    `--chunks` (default 64 alone: 16, 32 and 64 came within 2% of each
+    other; every build at once, each shape set for both types through the
+    source's EIGK_CX_SLAB_* macros), and times
+    each build: the Newton launch with the roots' evaluation (30
+    steps) on cx_ph_09's 37,800 kink seeds (`tools_torch/cx_slab.py`) at
+    float64 and float32 and on the 8,640 seeds of a checkpointed block of
+    8 k at float64, and the evaluation mode on its audit's 161,280 contour
+    points at float64, each checked bit-equal to the checkout's default
+    shape (`kernels.common.FLUX_NEWTON_SHAPE`; `--rounds N` as above); per
+    build the registers, spill bytes and blocks an SM of each variant.
 Run from the repository root; the first line is the card's nvidia-smi name
 and power limit.
 """
@@ -344,19 +361,148 @@ def tune_newton(out: dict, shapes, chunks, rounds: int = 1) -> None:
     print("cylinder_newton attrs", json.dumps(attrs), flush=True)
 
 
+# the flux form's complex-omega slab kernel (--kernel slab_newton_flux):
+# (threads, min_blocks) builds and table chunks
+FLUX_SHAPES = ((32, 8), (64, 4), (64, 6), (96, 3), (96, 4), (128, 2),
+               (128, 3), (128, 4), (192, 2), (256, 1), (256, 2), (512, 1))
+FLUX_CHUNKS = (64,)
+
+
+def tune_slab_flux(out: dict, shapes, chunks, rounds: int = 1) -> None:
+    """The flux form's complex-omega slab kernel's launch shapes (see the
+    module's docstring)."""
+    import contextlib
+    import torch
+    from eigensolver_tpu_torch import cases, sweep
+    from eigensolver_tpu_torch.cplx import C
+    from eigensolver_tpu_torch.kernels import _build, common
+    from eigensolver_tpu_torch.kernels import slab as kslab
+    from tools_torch import cx_slab
+
+    def macros(threads, min_blocks, chunk):
+        return [f"EIGK_CX_SLAB_{t}_{what}={v}" for t in ("F32", "F64")
+                for what, v in (("THREADS", threads),
+                                ("MIN_BLOCKS", min_blocks),
+                                ("CHUNK", chunk))]
+    # csrc/slab_complex.cu at each shape and chunk, with slab_disp.cu,
+    # whose entry the wrappers also call (the parameters' size)
+    units = ["slab_complex.cu", "slab_disp.cu"]
+    combos = [(threads, min_blocks, chunk) for threads, min_blocks in shapes
+              for chunk in chunks]
+    libs = _build.build_variants([(units, macros(*c)) for c in combos])
+
+    @contextlib.contextmanager
+    def built(path, threads, min_blocks, chunk):
+        # the wrappers launch the build at this shape, and its mirror
+        # (flux_attrs holds the build to it) says so
+        saved = _build._lib, dict(common.FLUX_NEWTON_SHAPE)
+        _build._lib = _build.load(path)
+        common.FLUX_NEWTON_SHAPE.update({
+            dt: common.FluxNewtonShape(threads, chunk, min_blocks)
+            for dt in saved[1]})
+        try:
+            yield _build._lib
+        finally:
+            _build._lib = saved[0]
+            common.FLUX_NEWTON_SHAPE.update(saved[1])
+
+    def pair(om, k, dtype):
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to("cuda", dtype)
+        return C(t(om.real), t(om.imag)), t(k)
+
+    case, kw = cx_slab.configure("cx_ph_09", cases)
+    params = kslab.disp_params(case, True)
+    om0, k0 = sweep.complex_seeds(case, kw["n_re"], kw["n_im"])
+    n_iter = kw["newton_iters"]
+    n_block = 8 * 9 * kw["n_re"] * kw["n_im"]
+    sets = {}
+    for dtype in (torch.float64, torch.float32):
+        seeds, kk = pair(om0, k0, dtype)
+        par = torch.ones_like(kk)
+        sets[f"cx_ph_09 newton {str(dtype)[6:]}"] = (
+            lambda s=seeds, k=kk, m=par:
+            kslab.slab_newton(s, k, m, n_iter, 1.0, params, final_eval=True))
+    seeds, kk = pair(om0[:n_block], k0[:n_block], torch.float64)
+    par = torch.ones_like(kk)
+    sets[f"cx_ph_09 block {n_block} float64"] = (
+        lambda s=seeds, k=kk, m=par:
+        kslab.slab_newton(s, k, m, n_iter, 1.0, params, final_eval=True))
+    cells, paths, _, _ = sweep.audit_contours(
+        np.asarray(case.k_grid()), np.asarray(case.sorted_speeds()),
+        case.imag_band)
+    z, ka = pair(paths.reshape(-1),
+                 np.repeat(np.array([c[0] for c in cells]), paths.shape[1]),
+                 torch.float64)
+    pa = torch.ones_like(ka)
+    sets["cx_ph_09 audit float64"] = (
+        lambda z=z, k=ka, m=pa:
+        (None, kslab.slab_disp_complex(z, k, m, params)))
+    ref = {label: fn() for label, fn in sets.items()}
+    torch.cuda.synchronize()
+
+    def same(a, b):
+        def parts(r):
+            om, res = r
+            xs = [res.det.re, res.det.im, res.mismatch_pct]
+            return xs + ([om.re, om.im] if om is not None else [])
+        it = torch.int32 if b[1].det.re.dtype == torch.float32 else \
+            torch.int64
+        return all(torch.equal(x.view(it), y.view(it))
+                   for x, y in zip(parts(a), parts(b)))
+    res = {label: {} for label in sets}
+    attrs, refused = {}, []
+    for (threads, min_blocks, chunk), path in list(zip(combos, libs)) * rounds:
+        key = f"{threads}:{min_blocks}:{chunk}"
+        if key in refused:
+            continue
+        with built(path, threads, min_blocks, chunk):
+            try:
+                attrs[key] = {
+                    f"{str(dt)[6:]}{' numeric' if num else ''}":
+                    kslab.flux_attrs(dt, num)
+                    for dt in (torch.float32, torch.float64)
+                    for num in (False, True)}
+            except (ValueError, RuntimeError):
+                refused.append(key)
+                continue
+            for label, fn in sets.items():
+                try:
+                    got = fn()
+                except (ValueError, RuntimeError):
+                    res[label][key] = None
+                    continue
+                if not same(got, ref[label]):
+                    raise AssertionError(f"{label}: shape {key} differs")
+                res[label].setdefault(key, []).append(cuda_ms(fn, 1))
+        print("slab_newton_flux", key, json.dumps(
+            {label: r.get(key) for label, r in res.items()}), flush=True)
+    for label, r in res.items():
+        timed = {k: float(np.median(v)) for k, v in r.items()
+                 if v is not None}
+        best = sorted(timed.items(), key=lambda kv: kv[1])[:5]
+        out[f"slab_newton_flux {label}"] = {"best": best, "all": r}
+        print(f"slab_newton_flux {label}", json.dumps({"best": best}),
+              flush=True)
+    out["slab_newton_flux attrs"] = attrs
+    out["slab_newton_flux refused"] = refused
+    print("slab_newton_flux attrs", json.dumps(attrs), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=("cylinder", "cylinder_numeric",
                                          "slab", "slab_paired", "twisted",
-                                         "cylinder_newton", "all"),
+                                         "cylinder_newton",
+                                         "slab_newton_flux", "all"),
                     default="all")
-    ap.add_argument("--shapes", help="cylinder_newton: threads:min_blocks "
-                    "pairs, comma-separated")
-    ap.add_argument("--chunks", help="cylinder_newton: table chunks, "
-                    "comma-separated")
+    ap.add_argument("--shapes", help="cylinder_newton, slab_newton_flux: "
+                    "threads:min_blocks pairs, comma-separated")
+    ap.add_argument("--chunks", help="cylinder_newton, slab_newton_flux: "
+                    "table chunks, comma-separated")
     ap.add_argument("--rounds", type=int, default=1,
-                    help="cylinder_newton: time every shape this many "
-                    "times, in turns, and keep the medians")
+                    help="cylinder_newton, slab_newton_flux: time every "
+                    "shape this many times, in turns, and keep the medians")
     ap.add_argument("--pkg-root", default=str(ROOT),
                     help="directory holding eigensolver_tpu_torch")
     ap.add_argument("--out", help="also write the report here as JSON")
@@ -450,6 +596,13 @@ def main() -> int:
         chunks = (tuple(int(c) for c in args.chunks.split(","))
                   if args.chunks else NEWTON_CHUNKS)
         tune_newton(out, shapes, chunks, args.rounds)
+    if args.kernel == "slab_newton_flux":
+        shapes = (tuple(tuple(int(v) for v in sh.split(":"))
+                        for sh in args.shapes.split(","))
+                  if args.shapes else FLUX_SHAPES)
+        chunks = (tuple(int(c) for c in args.chunks.split(","))
+                  if args.chunks else FLUX_CHUNKS)
+        tune_slab_flux(out, shapes, chunks, args.rounds)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(out, indent=1))
