@@ -5,7 +5,7 @@
 
 Run from the repository root. Phases, one line each (9, 12 and 13 in two,
 17 in five, 18 in two, 19 in four, 20 in eight or nine, 21 in
-seven, 22 in six, 23 in six, 24 in fifteen, 25 in five);
+seven, 22 in six, 23 in six, 24 in fifteen, 25 in five, 26 in seven);
 any failure raises and the script exits non-zero:
 
 1. device: a CUDA card is required; its nvidia-smi name and power limit.
@@ -311,6 +311,29 @@ any failure raises and the script exits non-zero:
    seeds' roots counted exactly. Then the density cylinder with the
    numeric exterior: its Newton launch on cx_cyl_co_09's seeds (m = 1)
    timed, and a sweep of its own on every 30th k (its launches).
+26. the profile paths that no shipped case takes (tools_torch/
+   profiles_cases.py: power-law density and flow profiles, Gaussian and
+   Epstein twists; pl_slab_flow, pl_cyl_flow, pl_cyl_density, tw_gauss,
+   tw_epstein_b, pl_slab_density, whose rho(0) = 0 makes every det
+   non-finite), one line each and one with the phase's seconds. For each,
+   at float32 and float64, every kernel bit-equal to its plain version
+   (non-finite where it is; at a quarter of the depth): the scan on
+   8,192 ladder candidates (the slab's unpaired and paired scans; the
+   cylinder's through its row table on half of them, and with the
+   numeric exterior; the twisted scan and its small-batch path), the
+   fused bisection (`spec_kernel`) at one iteration on 2,048 brackets to
+   the plain loop, and the complex-omega kernel (the slab's shear-form
+   newton_kernel or flux_kernel, the cylinder's newton_kernel on the
+   density, flow and twisted chains; n_interior 128 / 64) in its Newton
+   mode at one step with its value round and in its evaluation mode, on
+   96 of the sweep's seeds, to the plain Newton loop over the dual shoot
+   and the plain value dispersion; then the full sweep (n_omega=256,
+   n_bisect=18) counted (2 launches, the slab's scan paired; never the
+   plain dispersion) at float64, held to the JAX package's counts
+   exactly, and at float32, held to the IEEE-compiled JAX's within 1%
+   (cylinders) or 5% (slabs); run_case_complex of pl_slab_flow and
+   pl_cyl_density on their k subsets (2 launches a mode) held per seed to
+   the JAX package's float64 run, as phases 22 and 25 hold theirs.
 
 Then one JSON line of the kernels (with each one's bound: the operations
 the function needs on this run's inputs over the card's peak rate, or its
@@ -611,6 +634,21 @@ CX_CYL_VARIANTS = {
 CX_CYL_GRID = dict(n_interior=256, n_axis_log=32, n_exterior=128)
 CX_CYL_N_CHECK = 133                   # seeds of each variant's check
 CX_CYL_PLAIN_N_ITER = 2                # its Newton steps (+ the value round)
+# The profile paths that no shipped case takes (tools_torch/
+# profiles_cases.py): the real-omega kernels' checks on PROFILE_N_CHECK
+# candidates and PROFILE_N_BR brackets at a quarter of the depth; the
+# complex-omega kernels' on PROFILE_CX_N seeds at PROFILE_CX_GRID's depth,
+# for the configurations of PROFILE_CX_CHECKS (the slab's shear form and
+# flux form, the cylinder's density, axial-flow and twisted chains); the
+# float32 sweeps' bands per branch against the IEEE-compiled JAX package
+PROFILE_N_CHECK = 8192
+PROFILE_N_BR = 2048
+PROFILE_CX_N = 96
+PROFILE_CX_GRID = {"slab": dict(n_interior=128),
+                   "cylinder": dict(n_interior=64, n_axis_log=16)}
+PROFILE_CX_CHECKS = ("pl_slab_flow", "pl_slab_density", "pl_cyl_flow",
+                     "pl_cyl_density", "tw_gauss", "tw_epstein_b")
+PROFILE_BANDS = {"slab": 0.05, "cylinder": 0.01}
 # NVIDIA H100 SXM data sheet, outside the tensor cores, at 700 W; HBM3 rate
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 HBM_BYTES_S = 3.35e12
@@ -4706,6 +4744,335 @@ def phase_eigenfunctions(out: dict, sets: dict) -> dict:
     return res
 
 
+# -- phase 26: the profile paths no shipped case takes -----------------------
+
+def profiles_config(name: str, **grid):
+    """A tools_torch/profiles_cases.py configuration with the port's
+    modules; `grid` replaces fields of its GridConfig."""
+    from eigensolver_tpu_torch import cases, config
+    from tools_torch import profiles_cases
+    return profiles_cases.configure(name, cases, config, **grid)
+
+
+def _bits_equal(what: str, got, want) -> int:
+    """Hold a dispersion result's (det, mismatch_pct, valid) bit-equal to
+    want's, non-finite values where want's are (NaN where NaN); return
+    its non-finite dets."""
+    import torch
+    if not torch.equal(got.valid, want.valid):
+        raise AssertionError(f"{what}: valid differs")
+    for f in ("det", "mismatch_pct"):
+        a, b = (getattr(r, f).cpu().numpy() for r in (got, want))
+        bad = ~_same_bits(a, b)
+        if bad.any():
+            raise AssertionError(f"{what}: {int(bad.sum())} {f} values "
+                                 f"differ from the plain version")
+    return int((~got.det.isfinite()).sum())
+
+
+def _profile_brackets(case, n: int, seed: int, dtype):
+    """n brackets (lo, hi, k, mode) between neighbouring points of the
+    case's n_omega = 256 ladder, drawn at random, the mode from 0 and 1,
+    as CUDA tensors."""
+    import torch
+    from tools_torch import batches
+    om, ks, _ = batches.ladder_arrays(case, 256)
+    rng = np.random.default_rng(seed)
+    row = rng.integers(0, om.shape[0], n)
+    col = rng.integers(0, om.shape[1] - 1, n)
+    m = rng.integers(0, 2, n).astype(np.float64)
+    return [torch.from_numpy(np.ascontiguousarray(a)).to("cuda", dtype)
+            for a in (om[row, col], om[row, col + 1], ks[row], m)]
+
+
+def _profile_draws(case, n: int, dtype):
+    """PROFILE_N_CHECK candidates (omega, k, mode) of the case's ladder: a
+    slab's n / 2 random (omega, k) at parity 0, then the same at parity 1
+    (the paired scan's layout); a twisted tube's n random draws; a density
+    or axial-flow tube's n / 2 random draws, then n / 2 of the ladder in
+    ladder order (whole rows: the scan's row table)."""
+    import torch
+    from tools_torch import batches
+    if case.geometry.value == "slab":
+        om, k, _ = batches.ladder_draws(case, n // 2, 26, dtype)
+        par = torch.cat([torch.zeros_like(om), torch.ones_like(om)])
+        return [torch.cat([om, om]), torch.cat([k, k]), par]
+    if case.twist_profile is not None:
+        return batches.ladder_draws(case, n, 26, dtype)
+    draws = batches.ladder_draws(case, n // 2, 26, dtype)
+    rows = [x[:n // 2] for x in batches.flat_ladder(case, 256, dtype)]
+    return [torch.cat([a, b]) for a, b in zip(draws, rows)]
+
+
+def _profile_real_kernels(name: str, case, dtype) -> dict:
+    """Phase 26's real-omega checks of one configuration and type at a
+    quarter of the depth (`shallower`), each kernel bit-equal to its plain
+    version: the scan on PROFILE_N_CHECK candidates (`_profile_draws`; the
+    twisted chain's scan and small-batch path; a slab's paired scan on
+    their pairs; a density or axial-flow tube's scan with the numeric
+    exterior too), and the fused bisection at NUM_PLAIN_N_ITER on
+    PROFILE_N_BR brackets to the loop over the plain version, taken two
+    levels a round (`search.bisect_loop(levels=2)`, the loop's bits). The
+    plain version's time is set by the chain's serial steps, not by the
+    batch, so the scan's candidates ride in the bisection's one plain
+    call."""
+    import torch
+    from eigensolver_tpu_torch import search
+    from eigensolver_tpu_torch.kernels import cylinder as kcyl
+    dt = str(dtype).split(".")[1]
+    pcase = shallower(case)
+    kern, plain = (f(dtype) for f in _physics(pcase))
+    n = PROFILE_N_CHECK
+    twisted = pcase.twist_profile is not None
+    slab = pcase.geometry.value == "slab"
+    args = _profile_draws(pcase, n, dtype)
+    br = _profile_brackets(pcase, PROFILE_N_BR, 27, dtype)
+    scan = {}
+
+    def plain_too(om, k, mode):
+        # the loop's one call, with the scan's candidates first
+        res = plain(torch.cat([args[0], om]), torch.cat([args[1], k]),
+                    torch.cat([args[2], mode]))
+        scan["want"] = type(res)(*(getattr(res, f)[:n] for f in
+                                   ("det", "mismatch_pct", "valid")))
+        return type(res)(*(getattr(res, f)[n:] for f in
+                           ("det", "mismatch_pct", "valid")))
+    t0 = time.perf_counter()
+    loop = search.bisect_loop(plain_too, *br, NUM_PLAIN_N_ITER, levels=2)
+    torch.cuda.synchronize()
+    r = dict(n=n, brackets=PROFILE_N_BR,
+             plain_n_interior=pcase.grid.n_interior,
+             plain_ms=1e3 * (time.perf_counter() - t0))
+    want = scan["want"]
+    before = read_counters()
+    fused = kern.bisect(*br, NUM_PLAIN_N_ITER)
+    for x, y, f in zip(fused, loop, ("root", "mismatch")):
+        bad = ~_same_bits(x.cpu().numpy(), y.cpu().numpy())
+        if bad.any():
+            raise AssertionError(f"{name} {dt} bisection: {int(bad.sum())} "
+                                 f"{f} values differ from the plain loop")
+    launched = {f"{pcase.geometry.value}_bisect": 1}
+    if twisted:
+        params = kcyl.disp_params(pcase)
+        r["non_finite"] = _bits_equal(
+            f"{name} {dt} twisted scan", kcyl.cylinder_disp(
+                *args, params, shape=kcyl.TW_SCAN_SHAPE[dtype]), want)
+        _bits_equal(f"{name} {dt} twisted small batch",
+                    kcyl.cylinder_disp(*args, params), want)
+        launched.update(cylinder_disp=2, cylinder_disp_small=1)
+    else:
+        r["non_finite"] = _bits_equal(f"{name} {dt} scan", kern(*args), want)
+        launched[f"{pcase.geometry.value}_disp"] = 1
+    if slab:
+        # both parities of each (omega, k) of the first half in one thread
+        half = [x[:n // 2].contiguous() for x in args[:2]]
+        _bits_equal(f"{name} {dt} paired scan", kern.both_parities(*half),
+                    want)
+        launched.update(slab_disp=2, slab_paired=n)
+    if not slab and not twisted:
+        num = with_numeric(pcase, 3.0)
+        nk, npl = (f(dtype) for f in _physics(num))
+        t0 = time.perf_counter()
+        nwant = npl(*args)
+        torch.cuda.synchronize()
+        r["plain_numeric_ms"] = 1e3 * (time.perf_counter() - t0)
+        _bits_equal(f"{name} {dt} numeric scan", nk(*args), nwant)
+        launched["cylinder_disp"] = 2
+    # the kernels' launches (the plain versions' calls apart)
+    check_launches(f"phase 26 {name} {dt}",
+                   {k: v for k, v in counts_since(before).items()
+                    if not k.startswith("plain_")}, launched)
+    return r
+
+
+def _profile_complex_kernels(name: str, case, dtype) -> dict:
+    """Phase 26's complex-omega checks of one configuration and type at
+    PROFILE_CX_GRID's depth: the case's complex-omega kernel (the slab's
+    shear-form newton_kernel or flux_kernel, the cylinder's newton_kernel)
+    on PROFILE_CX_N of the sweep's seeds (mode i mod 2), its Newton mode
+    at NUM_PLAIN_N_ITER step with the value round in the launch and its
+    evaluation mode at the roots, bit-equal to the plain Newton loop over
+    the dual shoot and to the plain value dispersion."""
+    import torch
+    from eigensolver_tpu_torch import sweep
+    from eigensolver_tpu_torch.cplx import C
+    from eigensolver_tpu_torch.kernels import cylinder as kcyl
+    from eigensolver_tpu_torch.kernels import slab as kslab
+    from eigensolver_tpu_torch.physics.cylinder import CylinderPhysics
+    from eigensolver_tpu_torch.physics.slab import SlabPhysics
+    from eigensolver_tpu_torch.search import newton_loop
+    dt = str(dtype).split(".")[1]
+    slab = case.geometry.value == "slab"
+    grid = PROFILE_CX_GRID["slab" if slab else "cylinder"]
+    ccase = dataclasses.replace(case, complex_omega=True,
+                                grid=dataclasses.replace(case.grid, **grid))
+    om0, k0 = sweep.complex_seeds(ccase)
+    sel = np.random.default_rng(28).choice(len(k0), PROFILE_CX_N, False)
+    seeds, kk = _cx_pairs(om0[sel], k0[sel], dtype)
+    mode = (torch.arange(PROFILE_CX_N, device="cuda") % 2).to(dtype)
+    if slab:
+        ph, kmod = SlabPhysics.from_case(ccase), kslab
+        dual = ph.make_dispersion_dual_plain(parity=None, dtype=dtype)
+        plain = ph.make_dispersion_plain(parity=None, dtype=dtype)
+        newton, evaluate = kslab.slab_newton, kslab.slab_disp_complex
+    else:
+        ph, kmod = CylinderPhysics.from_case(ccase), kcyl
+        dual = ph.make_dispersion_dual_plain(m=None, dtype=dtype)
+        plain = ph.make_dispersion_plain(m=None, dtype=dtype)
+        newton, evaluate = kcyl.cylinder_newton, kcyl.cylinder_disp_complex
+    params = kmod.disp_params(ccase, True) if slab else kmod.disp_params(ccase)
+    t0 = time.perf_counter()
+    want = newton_loop(dual, seeds, kk, mode, NUM_PLAIN_N_ITER)
+    at_roots = plain(want, kk, mode)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    before = read_counters()
+    got, res = newton(seeds, kk, mode, NUM_PLAIN_N_ITER, 1.0, params,
+                      final_eval=True)
+    ev = evaluate(got, kk, mode, params)
+    torch.cuda.synchronize()
+    geo = "slab" if slab else "cylinder"
+    variant = {}
+    if slab and not params.struct.shear:
+        variant = {"slab_complex_flux": 2}
+    if not slab and case.twist_profile is not None:
+        variant = {"cylinder_complex_twisted": 2}
+    check_launches(f"phase 26 {name} {dt} complex", counts_since(before),
+                   {f"{geo}_newton": 1, f"{geo}_disp_complex": 1, **variant})
+    err = _cx_bits(f"phase 26 {name} {dt} {geo}_newton",
+                   {"re": got.re, "im": got.im},
+                   {"re": want.re, "im": want.im})
+    for what, r in (("value round", res), ("evaluation", ev)):
+        if not torch.equal(r.valid, at_roots.valid):
+            raise AssertionError(f"phase 26 {name} {dt} {what}: valid "
+                                 f"differs")
+        _cx_bits(f"phase 26 {name} {dt} {what}",
+                 {"det_re": r.det.re, "det_im": r.det.im,
+                  "mismatch": r.mismatch_pct},
+                 {"det_re": at_roots.det.re, "det_im": at_roots.det.im,
+                  "mismatch": at_roots.mismatch_pct})
+    return dict(n=PROFILE_CX_N, n_iter=NUM_PLAIN_N_ITER, grid=grid,
+                plain_ms=plain_ms, max_abs_err=err,
+                finite=float((got.re.isfinite() & got.im.isfinite())
+                             .float().mean()))
+
+
+def _profile_sweeps(name: str, case) -> dict:
+    """The configuration's full sweep on the card at float64, counted (2
+    launches: the scan, the slab's paired, and the fused bisection; never
+    the plain dispersion) and held to the JAX package's counts exactly,
+    and at float32 held to the IEEE-compiled JAX package's within
+    PROFILE_BANDS (to the port's own CPU run where the target gives one:
+    profiles_cases.py)."""
+    import torch
+    from eigensolver_tpu_torch import search, sweep
+    from tools_torch import profiles_cases
+    target = profiles_cases.TARGETS[name]
+    slab = case.geometry.value == "slab"
+    geo = "slab" if slab else "cylinder"
+    res = {}
+    for dtype in ("float64", "float32"):
+        cfg = profiles_cases.search_config(search.SearchConfig, dtype)
+        reset_counters()
+        rs, st = sweep.run_case(case, cfg, device="cuda")
+        torch.cuda.synchronize()
+        got = read_counters()
+        want = {f"{geo}_disp": 1, f"{geo}_bisect": 1}
+        if slab:
+            want["slab_paired"] = st.n_candidates
+        check_launches(f"phase 26 {name} {dtype} path", got, want)
+        if st.n_candidates != target["candidates"]:
+            raise AssertionError(f"{name}: {st.n_candidates} candidates")
+        _check_roots(rs, case)
+        if dtype == "float64":
+            refs = [("jax", target["float64"], 0.0)]
+        elif "float32_port_cpu" in target:
+            # the port's own plain versions on a CPU, where the twisted
+            # chain's tangents, ordered otherwise than jax.jvp's, move the
+            # IEEE-compiled JAX package's f32 count beyond the band
+            # (profiles_cases.py); JAX's printed beside
+            refs = [("port_cpu", target["float32_port_cpu"],
+                     PROFILE_BANDS[geo]),
+                    ("jax_ieee", target["float32_ieee"], None)]
+        else:
+            refs = [("jax_ieee", target["float32_ieee"],
+                     PROFILE_BANDS[geo])]
+        res[dtype] = dict(counts=rs.counts(), wall_s=st.wall_s,
+                          launches={k: v for k, v in got.items() if v},
+                          root_digest=root_digest(rs),
+                          minus_refs=_check_counts(f"{name} {dtype}",
+                                                   rs.counts(), refs))
+    return res
+
+
+def _profile_complex_sweep(name: str) -> dict:
+    """run_case_complex of a profiles_cases.COMPLEX configuration on its k
+    subset on the card (2 launches a mode), held to the JAX package's
+    float64 run: the roots off the axis and the audit exactly, per seed
+    (`_check_cx_seeds`), and each branch's count where the JAX package's
+    unconverged accepted seeds add no root."""
+    from eigensolver_tpu_torch import cases, config, sweep
+    from tools_torch import profiles_cases
+    case, kw = profiles_cases.complex_case(name, cases, config)
+    target = profiles_cases.COMPLEX_TARGETS[name]
+    slab = case.geometry.value == "slab"
+    geo = "slab" if slab else "cylinder"
+    n_modes = len(case.modes)
+    reset_counters()
+    rs, stats = sweep.run_case_complex(case, **kw, device="cuda")
+    got = read_counters()
+    check_launches(f"phase 26 {name} complex path", got, {
+        f"{geo}_newton": n_modes, f"{geo}_disp_complex": n_modes})
+    if stats.n_candidates != target["candidates"]:
+        raise AssertionError(f"{name}: {stats.n_candidates} seeds")
+    seeds = _check_cx_seeds(name, case, kw, rs, target)
+    exact = {b: target["counts_converged"][b] == n
+             for b, n in target["counts"].items()}
+    for b, n in rs.counts().items():
+        if exact[b] and n != target["counts"][b]:
+            raise AssertionError(f"{name} {b}: {n} roots, JAX "
+                                 f"{target['counts'][b]}")
+    margin = 0.05 * case.imag_band
+    off_axis = {b: int(np.sum(np.abs(br.omegas_imag) > margin))
+                for b, br in rs.branches.items()}
+    if off_axis != target["counts_off_axis"]:
+        raise AssertionError(f"{name}: off-axis counts {off_axis}, JAX "
+                             f"{target['counts_off_axis']}")
+    if stats.completeness != target["completeness"]:
+        raise AssertionError(f"{name}: completeness {stats.completeness}, "
+                             f"JAX {target['completeness']}")
+    return dict(k_stride=profiles_cases.COMPLEX[name], wall_s=stats.wall_s,
+                counts=rs.counts(), counts_jax=target["counts"],
+                counts_exact=exact, counts_off_axis=off_axis,
+                completeness=stats.completeness,
+                launches={k: v for k, v in got.items() if v}, seeds=seeds)
+
+
+def phase_profiles(out: dict) -> None:
+    """Phase 26 (see the module's docstring)."""
+    import torch
+    from tools_torch import profiles_cases
+    t0 = time.perf_counter()
+    res = {}
+    for name in profiles_cases.CONFIGS:
+        case = profiles_config(name)
+        r = {}
+        for dtype in (torch.float32, torch.float64):
+            dt = str(dtype).split(".")[1]
+            r[f"kernels {dt}"] = _profile_real_kernels(name, case, dtype)
+            if name in PROFILE_CX_CHECKS:
+                r[f"complex {dt}"] = _profile_complex_kernels(name, case,
+                                                              dtype)
+        r["sweeps"] = _profile_sweeps(name, case)
+        if name in profiles_cases.COMPLEX:
+            r["complex sweep"] = _profile_complex_sweep(name)
+        line(f"phase 26 profiles {name}", **r)
+        res[name] = r
+    res["seconds"] = time.perf_counter() - t0
+    line("phase 26 profiles", seconds=res["seconds"])
+    out["profiles"] = res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json-out", help="also write the full report here")
@@ -4775,6 +5142,7 @@ def main() -> int:
         phase_sharded(out, Path(tmp))
     phase_complex_cylinder_kernels(out)
     cx_cyl_launches = phase_complex_cylinder(out)
+    phase_profiles(out)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
@@ -5022,6 +5390,7 @@ def main() -> int:
     if args.json_out:
         Path(args.json_out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json_out).write_text(json.dumps(out, indent=1, default=float))
+    line("total", seconds=time.perf_counter() - _T0)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

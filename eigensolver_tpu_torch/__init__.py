@@ -8,9 +8,9 @@ Ported, every compute entry on an explicit device:
 
 - the real-omega sweeps (`sweep.run_case`) of every slab case (flux and
   shear forms), the cylinder density and axial-flow tubes and the twisted
-  tubes, with the f64 refinement, the reference-parity options (numeric
-  exteriors, continuum masks, fuzz acceptance, the pole pre-filter) and the
-  band-edge (needle) pass;
+  tubes, on either ladder shape, with the f64 refinement, the
+  reference-parity options (numeric exteriors, continuum masks, fuzz
+  acceptance, the pole pre-filter) and the band-edge (needle) pass;
 - the complex-omega sweeps (`sweep.run_case_complex`) of every slab and
   cylinder case: the Kelvin-Helmholtz growth rates, the density slabs,
   the density, axial-flow and twisted cylinders, with the exact or the
@@ -37,9 +37,6 @@ the complex-omega kernel behind `slab_newton` and `slab_disp_complex`
 (the shear and the flux form, either exterior), and the cylinder's behind
 `cylinder_newton` and `cylinder_disp_complex` (every chain, the K_m ratio
 at complex z or the numeric exterior). On a CPU tensor each wrapper runs
-its kernel's plain PyTorch version.
-
-Not ported to the card: power-law density or flow profiles and twist
-profiles other than power laws, which no case uses (ROADMAP A 2; the
-plain versions run them on the CPU).
+its kernel's plain PyTorch version. Every kernel takes every profile kind
+(`config.ProfileKind`) for the density, the flow and the twists.
 """

@@ -39,7 +39,7 @@ struct ProfileParams {
 
 // x ** e for a Python float e, as profiles.power evaluates it: the
 // exponents that PyTorch's pow special-cases written out, pow for the rest
-// (the twist profiles' powers; see profile's power law)
+// (every power law's power and its derivatives' powers)
 template <class T>
 __device__ __forceinline__ T tpow(T x, double e) {
   if (e == 0.0) return T(1);
@@ -53,86 +53,128 @@ __device__ __forceinline__ T tpow(T x, double e) {
   return pow(x, T(e));
 }
 
+// The closed forms of profiles.make_profile (order 0) and
+// make_profile_derivative (orders 1 and 2) of each kind, from the
+// constants of the order: a = fe, b = f0 - fe at order 0; a = a1 at order
+// 1; a = a2, b = b2 at order 2 (a power law: a = amplitude, a1, a2)
 template <class T>
+__device__ __forceinline__ T gaussian_form(T x, double center, double w2,
+                                           double a, double b, int order) {
+  const T d = x - T(center);
+  const T e = exp(-(d * d) / T(w2));
+  if (order == 0) return T(a) + T(b) * e;
+  if (order == 1) return T(a) * d * e;
+  return e * (T(a) * (d * d) - T(b));
+}
+
+template <class T>
+__device__ __forceinline__ T epstein_form(T x, double width, double a,
+                                          double b, int order) {
+  const T y = x / T(width);
+  const T c = cosh(y);
+  const T c2 = c * c;
+  const T c4 = c2 * c2;
+  if (order == 0) return T(a) + T(b) / (c4 * c4);
+  const T t = tanh(y);
+  if (order == 1) return T(a) * t / (c4 * c4);
+  return T(a) * (T(8) * (t * t) - T(1) / c2) / (c4 * c4);
+}
+
+template <class T>
+__device__ __forceinline__ T power_form(T x, double e, double a) {
+  return T(a) * tpow(x, e);
+}
+
+// The same, out of line
+template <class T>
+__device__ __noinline__ T gaussian_call(T x, double center, double w2,
+                                        double a, double b, int order) {
+  return gaussian_form(x, center, w2, a, b, order);
+}
+template <class T>
+__device__ __noinline__ T epstein_call(T x, double width, double a, double b,
+                                       int order) {
+  return epstein_form(x, width, a, b, order);
+}
+template <class T>
+__device__ __noinline__ T power_call(T x, double e, double a) {
+  return power_form(x, e, a);
+}
+
+// The kinds whose closed forms a call site inlines (profile<kInline>); the
+// others go out of line. Inlined or not, a kind's exps, cosh, divisions
+// and pow shape its kernel's register allocation whether or not a launch
+// takes it, so each kernel family takes the mask that times best on the
+// shipped cases (tools_torch/time_kernels.py, PERF.md section 6); the bits
+// are the same.
+enum : unsigned {
+  kInlineGaussian = 1u << kGaussian,
+  kInlineEpstein = 1u << kEpstein,
+  kInlinePowerLaw = 1u << kPowerLaw,
+  kInlineAll = kInlineGaussian | kInlineEpstein | kInlinePowerLaw,
+};
+
+// profiles.make_profile(cfg, f0, fe) at x (order 0) and its derivatives
+// (orders 1, 2), every kind: the kind is a launch-wide parameter, so no
+// warp diverges on it
+template <unsigned kInline, class T>
+__device__ __forceinline__ T profile_form(const ProfileParams& p, T x,
+                                          int order) {
+  const double a = order == 0 ? p.fe : (order == 1 ? p.d1 : p.d2);
+  const double b = order == 0 ? p.f0_minus_fe : p.d2_shift;
+  switch (p.kind) {
+    case kGaussian:
+      if constexpr ((kInline & kInlineGaussian) != 0) {
+        return gaussian_form(x, p.center, p.w2, a, b, order);
+      } else {
+        return gaussian_call(x, p.center, p.w2, a, b, order);
+      }
+    case kEpstein:
+      if constexpr ((kInline & kInlineEpstein) != 0) {
+        return epstein_form(x, p.width, a, b, order);
+      } else {
+        return epstein_call(x, p.width, a, b, order);
+      }
+    case kPowerLaw: {  // amplitude x^power: f0 and fe take no part
+      const double e = order == 0 ? p.power
+                                  : (order == 1 ? p.power_m1 : p.power_m2);
+      const double c = order == 0 ? p.amplitude : a;
+      if constexpr ((kInline & kInlinePowerLaw) != 0) {
+        return power_form(x, e, c);
+      } else {
+        return power_call(x, e, c);
+      }
+    }
+    default:  // f0 + 0.0 * x, for the finite x visited here; its
+              // derivatives 0
+      return order == 0 ? T(p.f0) : T(0);
+  }
+}
+
+template <unsigned kInline, class T>
 __device__ __forceinline__ T profile(const ProfileParams& p, T x) {
-  switch (p.kind) {
-    case kGaussian: {
-      const T d = x - T(p.center);
-      return T(p.fe) + T(p.f0_minus_fe) * exp(-(d * d) / T(p.w2));
-    }
-    case kEpstein: {
-      const T c = cosh(x / T(p.width));
-      const T c2 = c * c;
-      const T c4 = c2 * c2;
-      return T(p.fe) + T(p.f0_minus_fe) / (c4 * c4);
-    }
-    case kPowerLaw:  // refused for density and flow by the wrappers
-                     // (kernels/common.py::density_flow_params); the twist
-                     // profiles go through cylinder_disp.cu::tw_profile
-      return T(p.amplitude) * pow(x, T(p.power));
-    default:
-      return T(p.f0);  // f0 + 0.0 * x, for the finite x visited here
-  }
+  return profile_form<kInline>(p, x, 0);
 }
-
-// d profile / dx (profiles.make_profile_derivative, order 1)
-template <class T>
+template <unsigned kInline, class T>
 __device__ __forceinline__ T profile_d1(const ProfileParams& p, T x) {
-  switch (p.kind) {
-    case kGaussian: {
-      const T d = x - T(p.center);
-      const T e = exp(-(d * d) / T(p.w2));
-      return T(p.d1) * d * e;
-    }
-    case kEpstein: {
-      const T y = x / T(p.width);
-      const T c = cosh(y);
-      const T t = tanh(y);
-      const T c2 = c * c;
-      const T c4 = c2 * c2;
-      return T(p.d1) * t / (c4 * c4);
-    }
-    case kPowerLaw:
-      return T(p.d1) * pow(x, T(p.power_m1));
-    default:
-      return T(0);
-  }
+  return profile_form<kInline>(p, x, 1);
 }
-
-// d^2 profile / dx^2 (profiles.make_profile_derivative, order 2)
-template <class T>
+template <unsigned kInline, class T>
 __device__ __forceinline__ T profile_d2(const ProfileParams& p, T x) {
-  switch (p.kind) {
-    case kGaussian: {
-      const T d = x - T(p.center);
-      const T e = exp(-(d * d) / T(p.w2));
-      return e * (T(p.d2) * (d * d) - T(p.d2_shift));
-    }
-    case kEpstein: {
-      const T y = x / T(p.width);
-      const T c = cosh(y);
-      const T t = tanh(y);
-      const T c2 = c * c;
-      const T c4 = c2 * c2;
-      return T(p.d2) * (T(8) * (t * t) - T(1) / c2) / (c4 * c4);
-    }
-    case kPowerLaw:
-      return T(p.d2) * pow(x, T(p.power_m2));
-    default:
-      return T(0);
-  }
+  return profile_form<kInline>(p, x, 2);
 }
 
 // The density branch of equilibrium.make_equilibrium at x: rho_i, vA_i and
-// the pressure-balanced c_i (the regime constants for a uniform density).
-template <class T>
+// the pressure-balanced c_i (the regime constants for a uniform density);
+// the density's closed forms inlined for the kinds of kInline
+template <unsigned kInline = kInlineAll, class T>
 __device__ __forceinline__ void density_speeds(const ProfileParams& rho_p,
                                                int uniform_density,
                                                double vA_i0, double c_i0,
                                                double rho_i0, double c2_num,
                                                double half_g, T x, T& rho,
                                                T& vA, T& ci) {
-  rho = profile(rho_p, x);
+  rho = profile<kInline>(rho_p, x);
   if (uniform_density) {
     vA = T(vA_i0);
     ci = T(c_i0);

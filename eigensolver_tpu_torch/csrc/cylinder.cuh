@@ -71,13 +71,14 @@ struct alignas(16) RPoint {
   T r, rho, rho_csum, U, rr, sqrt_rho, ci, csum, sqrt_csum;
 };
 
-template <class T>
+// (kInline: the density's and the flow's kinds inlined, profile_form)
+template <unsigned kInline = kInlineAll, class T>
 __device__ __forceinline__ RPoint<T> r_point(const CylDispParams& p, T r) {
   RPoint<T> q;
   T vA;
-  density_speeds(p.rho, p.uniform_density, p.vA_i0, p.c_i0, p.rho_i0,
-                 p.c2_num, p.half_g, r, q.rho, vA, q.ci);
-  q.U = p.zero_flow ? T(0) : profile(p.flow, r);
+  density_speeds<kInline>(p.rho, p.uniform_density, p.vA_i0, p.c_i0,
+                          p.rho_i0, p.c2_num, p.half_g, r, q.rho, vA, q.ci);
+  q.U = p.zero_flow ? T(0) : profile<kInline>(p.flow, r);
   q.r = r;
   q.rr = r * r;
   q.sqrt_rho = sqrt(q.rho);
@@ -119,22 +120,14 @@ struct alignas(16) RPointTw {
   Dual<T> iR, v, b, Bz, csum, cr, U, rdc, iRR;
 };
 
-// A twist profile (v_phi, B_phi: profiles.make_profile with f0 = fe = 0)
-// or its derivative of `order` 1 or 2: a power law, with its powers as
-// profiles.power forms them, or uniform 0 (the wrapper refuses other kinds)
-template <class T>
-__device__ __forceinline__ T tw_profile(const ProfileParams& p, T x,
-                                        int order) {
-  if (p.kind != kPowerLaw) return order == 0 ? T(p.f0) : T(0);
-  if (order == 0) return T(p.amplitude) * tpow(x, p.power);
-  if (order == 1) return T(p.d1) * tpow(x, p.power_m1);
-  return T(p.d2) * tpow(x, p.power_m2);
-}
-
 // physics/cylinder.py::twisted_point_fn, operation for operation: the
-// profiles and their closed-form derivatives, then dual arithmetic; C3diff'
-// and its derivative from x = B_phi/r, y = v_phi/r and their derivatives
-template <class T>
+// profiles and their closed-form derivatives (the twist profiles v_phi
+// and B_phi of any kind, with f0 = fe = 0; B_phi uniform 0 without a
+// magnetic twist), then dual arithmetic; C3diff' and its derivative from
+// x = B_phi/r, y = v_phi/r and their derivatives (the kinds inlined,
+// profile_form: kInline of the twist profiles, kFlow of the flow's)
+template <unsigned kInline = kInlineAll, unsigned kFlow = kInlineAll,
+          class T>
 __device__ __forceinline__ RPointTw<T> r_point_tw(const CylDispParams& p,
                                                   T r) {
   RPointTw<T> q;
@@ -148,24 +141,29 @@ __device__ __forceinline__ RPointTw<T> r_point_tw(const CylDispParams& p,
   const Dual<T> P{rho_a2 * (tpow(r, p.pw2) / T(p.pw2)) + T(p.P_0),
                   rho_a2 * tpow(r, p.pw2_m1)};
   const Dual<T> ci = dsqrt(P * T(p.gamma) / q.rho);
-  const Dual<T> b{tw_profile(p.bphi, r, 0), tw_profile(p.bphi, r, 1)};
+  const Dual<T> b{profile<kInline>(p.bphi, r),
+                   profile_d1<kInline>(p.bphi, r)};
   q.b = b;
   q.Bz = T(p.B_0) * dsqrt(T(1) - T(2) * (b * b / T(p.B0_sq)));
   const Dual<T> vA = (q.Bz + b) / sqrt_rho;
   q.csum = ci * ci + vA * vA;
   q.cr = ci / dsqrt(q.csum);
-  const Dual<T> v{tw_profile(p.vphi, r, 0), tw_profile(p.vphi, r, 1)};
+  const Dual<T> v{profile<kInline>(p.vphi, r),
+                   profile_d1<kInline>(p.vphi, r)};
   q.v = v;
   const T x = b.v / r;
   const T x1 = (b.d - x) / r;
   const T y = v.v / r;
   const T y1 = (v.d - y) / r;
-  const Dual<T> X1{x1, (tw_profile(p.bphi, r, 2) - T(2) * x1) / r};
-  const Dual<T> Y1{y1, (tw_profile(p.vphi, r, 2) - T(2) * y1) / r};
+  const Dual<T> X1{
+      x1, (profile_d2<kInline>(p.bphi, r) - T(2) * x1) / r};
+  const Dual<T> Y1{
+      y1, (profile_d2<kInline>(p.vphi, r) - T(2) * y1) / r};
   const Dual<T> dC = T(2) * Dual<T>{x, x1} * X1
                    - q.rho * (T(2) * Dual<T>{y, y1} * Y1);
   q.U = p.zero_flow ? Dual<T>{T(0), T(0)}
-                    : Dual<T>{profile(p.flow, r), profile_d1(p.flow, r)};
+                    : Dual<T>{profile<kFlow>(p.flow, r),
+                              profile_d1<kFlow>(p.flow, r)};
   q.rdc = R * dC;
   q.iRR = drcp(R * R);
   return q;

@@ -335,7 +335,7 @@ struct Chain<T, true> {
   using Q = RPointTw<T>;
   using Row = RowPointTw<T>;
   __device__ static Q point(const CylDispParams& p, T r) {
-    return r_point_tw(p, r);
+    return r_point_tw<kInlinePowerLaw, kInlineGaussian>(p, r);
   }
   __device__ static Row row(const CylDispParams&, const Q& q, T k, T m) {
     return row_point_tw(q, k, m);
@@ -457,7 +457,8 @@ __device__ __forceinline__ W shoot(const CylDispParams& p, const Grid<T>& gr,
   // the chain's values at r = 1: F(1), xi_r of u1
   W F1, xi1;
   if constexpr (kTw) {
-    const RPointTw<T> q1 = r_point_tw(p, one);
+    const RPointTw<T> q1 =
+        r_point_tw<kInlinePowerLaw, kInlineGaussian>(p, one);
     const TwChainC<W> c1 = twisted_chain_c<T>(q1, row_point_tw(q1, k, m), om);
     F1 = quot(one * c1.D.v, c1.C3.v);
     xi1 = quot(c1.C1.v * one, c1.C3.v) + zero;
@@ -541,8 +542,8 @@ __device__ __forceinline__ W shoot(const CylDispParams& p, const Grid<T>& gr,
   // determinant with the twisted kink's jump term (P_e = 1)
   T J = zero;
   if constexpr (kTw) {
-    const T b1 = tw_profile(p.bphi, one, 0);
-    const T v1 = tw_profile(p.vphi, one, 0);
+    const T b1 = profile<kInlinePowerLaw>(p.bphi, one);
+    const T v1 = profile<kInlinePowerLaw>(p.vphi, one);
     J = b1 * b1 - T(p.rho_i0) * (v1 * v1);
   }
   if (sausage) J = zero;

@@ -136,7 +136,7 @@ template <class T>
 __device__ __forceinline__ void interface1(const CylDispParams& p,
                                            const Cand<T>& c, T& C3_1, T& F1) {
   const T one = T(1);
-  const RPoint<T> q = r_point(p, one);
+  const RPoint<T> q = r_point<kInlineGaussian>(p, one);
   T D1, A1, C2_1;
   hain_lust(q, row_point(q, c), c.omega, D1, A1, C2_1);
   C3_1 = D1 * A1 + T(0);
@@ -169,7 +169,8 @@ __device__ __forceinline__ void fill_chunk(const CylDispParams& p,
                                            RowPoint<T>* wdst) {
   const Cand<T> r0(p, T(0), km[0], km[1]), r1(p, T(0), km[2], km[3]);
   fill_chunk(
-      g, ch, rows, two, slot, dst, wdst, [&](T r) { return r_point(p, r); },
+      g, ch, rows, two, slot, dst, wdst,
+      [&](T r) { return r_point<kInlineGaussian>(p, r); },
       [&](const RPoint<T>& q, int j) { return row_point(q, j ? r1 : r0); });
 }
 
@@ -333,9 +334,10 @@ struct SpecChain {
   __device__ int n_steps() const { return g.n_int + g.n_log; }
   __device__ Entry entry(int i, int a) const {
     if (i < g.n_int) {
-      return r_point(p, rk4_abscissa(g.x0i, g.hi, g.hhi, i, a));
+      return r_point<kInlineGaussian>(
+          p, rk4_abscissa(g.x0i, g.hi, g.hhi, i, a));
     }
-    return r_point(p, radius<T, true>(
+    return r_point<kInlineGaussian>(p, radius<T, true>(
                           rk4_abscissa(g.x0l, g.hl, g.hhl, i - g.n_int, a)));
   }
   __device__ void coef(int i, const Entry& q, T omega, T k, T m, T& c0,

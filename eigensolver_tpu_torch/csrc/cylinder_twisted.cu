@@ -123,8 +123,8 @@ __device__ __forceinline__ IfaceTw<T> interface1_tw(const CylDispParams& p,
   const TwChain<T> t = twisted_chain(r_point_tw(p, one), omega, k, m);
   f.F1 = one * t.D.v / t.C3.v;
   f.xi1 = t.C1.v * one / t.C3.v + T(0);
-  const T b1 = tw_profile(p.bphi, one, 0);
-  const T v1 = tw_profile(p.vphi, one, 0);
+  const T b1 = profile<kInlineAll>(p.bphi, one);
+  const T v1 = profile<kInlineAll>(p.vphi, one);
   f.J = b1 * b1 - T(p.rho_i0) * (v1 * v1);
   return f;
 }

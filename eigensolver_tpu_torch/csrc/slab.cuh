@@ -55,16 +55,18 @@ template <class T, bool kShear>
 using XPoint =
     typename std::conditional<kShear, ShearPoint<T>, FluxPoint<T>>::type;
 
-template <class T, bool kShear>
+// (kInline: the density's kinds inlined, density_speeds)
+template <class T, bool kShear, unsigned kInline = kInlineAll>
 __device__ __forceinline__ XPoint<T, kShear> x_point(const SlabDispParams& p,
                                                      T x) {
   if constexpr (kShear) {
-    return {profile(p.flow, x), profile_d1(p.flow, x), profile_d2(p.flow, x)};
+    return {profile<kInlineAll>(p.flow, x), profile_d1<kInlineAll>(p.flow, x),
+            profile_d2<kInlineAll>(p.flow, x)};
   } else {
     FluxPoint<T> q;
     T vA, ci;
-    density_speeds(p.rho, p.uniform_density, p.vA_i0, p.c_i0, p.rho_i0,
-                   p.c2_num, p.half_g, x, q.rho, vA, ci);
+    density_speeds<kInline>(p.rho, p.uniform_density, p.vA_i0, p.c_i0,
+                            p.rho_i0, p.c2_num, p.half_g, x, q.rho, vA, ci);
     q.c2 = ci * ci;
     q.a2 = vA * vA;
     q.cT2 = q.c2 * q.a2 / (q.c2 + q.a2);

@@ -300,7 +300,8 @@ __device__ __forceinline__ void start(const SlabDispParams& p, Cx<T> omega,
     constant(T(1) - par, y1);
   } else {
     S F0;
-    flux_F(x_point<T, false>(p, T(0)), FluxCand<T>(omega, k), F0);
+    flux_F(x_point<T, false, kInlineGaussian>(p, T(0)),
+           FluxCand<T>(omega, k), F0);
     y1 = (T(1) - par) * F0;
   }
 }
@@ -355,7 +356,9 @@ __device__ __forceinline__ Edge<T, kDual> edge(const SlabDispParams& p,
   const Cx<T> p_e = (T(p.pe_coef) * X3) / iD2;
   const CDiv<T> iOm_e = cdivisor(Om_e);
   const Cx<T> xi_e = one / iOm_e;
-  const T U1 = p.zero_flow ? T(0) : profile(p.flow, one);
+  // the flux form has no flow (U == 0): its kernels inline no profile here
+  const T U1 = p.zero_flow ? T(0)
+                           : profile<(kShear ? kInlineAll : 0u)>(p.flow, one);
   const Cx<T> Om_i = omega - k * U1;
   const CDiv<T> iOm_i = cdivisor(Om_i);
   Cx<T> W, add, F1;
@@ -373,7 +376,7 @@ __device__ __forceinline__ Edge<T, kDual> edge(const SlabDispParams& p,
     iY2 = cdivisor(k2 * c2 - Om_i2);
     F1 = ((rho1 * (c2 + a2)) * (k2 * cT2 - Om_i2)) / iY2;
     W = F1 / iOm_i;
-    const T kdU1 = -(k * profile_d1(p.flow, one));
+    const T kdU1 = -(k * profile_d1<kInlineAll>(p.flow, one));
     add = kdU1 / iOm_i;
   }
   Edge<T, kDual> e;
@@ -913,8 +916,8 @@ __device__ __forceinline__ void flux_shoot(const SlabDispParams& p,
     const int cnt = min(chunk, n - i0);
     FluxPoint<T>* dst = tab + b * slot;
     for (int e = threadIdx.x; e < 3 * cnt; e += blockDim.x) {
-      dst[e] = x_point<T, false>(p, rk4_abscissa(T(0), h, hh, i0 + e / 3,
-                                                 e % 3));
+      dst[e] = x_point<T, false, kInlineGaussian>(
+          p, rk4_abscissa(T(0), h, hh, i0 + e / 3, e % 3));
     }
   };
   start<T, false>(p, om, k, par, y0, y1);

@@ -94,7 +94,7 @@ __device__ __forceinline__ void local(const SlabDispParams& p, T omega, T k,
   T vA, ci;
   density_speeds(p.rho, p.uniform_density, p.vA_i0, p.c_i0, p.rho_i0,
                  p.c2_num, p.half_g, x, rho, vA, ci);
-  const T U = p.zero_flow ? T(0) : profile(p.flow, x);
+  const T U = p.zero_flow ? T(0) : profile<kInlineAll>(p.flow, x);
   Om = omega - k * U;
   c2 = ci * ci;
   a2 = vA * vA;
@@ -291,7 +291,7 @@ __device__ __forceinline__ void finish_with(const SlabDispParams& p, T omega,
   } else {
     const T F1 = interior_F(p, omega, k, one);
     if (p.shear_pressure) {
-      const T add = -(k * profile_d1(p.flow, one)) / Om_i;
+      const T add = -(k * profile_d1<kInlineAll>(p.flow, one)) / Om_i;
       PT_i = (F1 / Om_i) * (y1_b - add * vx_b);
     } else {
       PT_i = (F1 / Om_i) * y1_b;

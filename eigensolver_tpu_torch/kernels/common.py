@@ -60,15 +60,9 @@ def exterior_params(case) -> dict:
                 n_exterior=gr.n_exterior)
 
 
-def density_flow_params(kernel: str, case) -> tuple:
-    """ProfileParams of a case's density and flow profiles. A power law
-    raises: the kernels' `profile` (csrc/common.cuh) forms its power with
-    `pow`, where the plain version's `profiles.power` writes some exponents
-    out, so the two would not agree bit for bit. No case uses one."""
-    if ProfileKind.POWER_LAW in (case.density_profile.kind,
-                                 case.flow_profile.kind):
-        raise NotImplementedError(
-            f"{kernel}: power-law density or flow profiles")
+def density_flow_params(case) -> tuple:
+    """ProfileParams of a case's density and flow profiles, of any kind
+    (a power law's with `csrc/common.cuh::tpow`, as `profiles.power`)."""
     rg = case.regime
     return (profile_params(case.density_profile, rg.rho_i0, rg.rho_e),
             profile_params(case.flow_profile, rg.U_i0, rg.U_e))

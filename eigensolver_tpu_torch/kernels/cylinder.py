@@ -130,17 +130,13 @@ def disp_params(case: CaseConfig) -> DispParams:
     rg = case.regime
     g = rg.gamma
     gr = case.grid
-    rho, flow = density_flow_params("cylinder_disp", case)
+    rho, flow = density_flow_params(case)
     zero_flow = (case.flow_profile.kind == ProfileKind.UNIFORM
                  and rg.U_i0 == rg.U_e == 0.0)
     twisted = is_twisted(case)
     uniform = ProfileConfig(kind=ProfileKind.UNIFORM)
     tp = case.twist_profile or uniform
     bp = case.b_twist_profile if twisted and case.b_twist_profile else uniform
-    if {tp.kind, bp.kind} - {ProfileKind.POWER_LAW, ProfileKind.UNIFORM}:
-        # the kernels' tw_profile (csrc/cylinder_disp.cu) evaluates these two
-        raise NotImplementedError(
-            "cylinder_disp: twist profiles other than power laws")
     s = _CylParams(
         rho=rho, flow=flow,
         uniform_density=int(case.density_profile.kind == ProfileKind.UNIFORM),

@@ -122,7 +122,7 @@ def disp_params(case: CaseConfig, include_shear_pressure: bool = False
                 ) -> DispParams:
     rg = case.regime
     g = rg.gamma
-    rho, flow = density_flow_params("slab_disp", case)
+    rho, flow = density_flow_params(case)
     zero_flow = (case.flow_profile.kind == ProfileKind.UNIFORM
                  and rg.U_i0 == rg.U_e == 0.0)
     c2, a2 = rg.c_i0 ** 2, rg.vA_i0 ** 2

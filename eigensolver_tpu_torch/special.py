@@ -1,11 +1,13 @@
-"""Modified-Bessel K logarithmic derivative for real and complex tensors.
+"""Modified Bessel functions I_m, K_m (m = 0, 1) and the logarithmic
+derivative of K_m for real and complex tensors, on any device.
 
-Port of `eigensolver_tpu.special.kve_ratio_both` / `kve_ratio` and their
-helpers `_series_ik` and `_cf2_h`: the same series, term counts, continued
-fraction and branch point, operation for operation. This is the plain
-version of the CUDA kernel behind `kernels.bessel.kve_ratio_both`. The
-unscaled `k0/k1/i0/i1` and `ive_ratio` serve only the JAX package's own
-tests and are not ported.
+Port of `eigensolver_tpu.special`: `kve_ratio_both` / `kve_ratio` and
+their helpers `_series_ik` and `_cf2_h`, the same series, term counts,
+continued fraction and branch point, operation for operation. This is the
+plain version of the CUDA kernel behind `kernels.bessel.kve_ratio_both`.
+The unscaled `k0`, `k1` (the series for |z| <= 9, the asymptotic expansion
+`_asymp_k_scaled` beyond), `i0`, `i1` and `ive_ratio` are the uniform
+limit's analytic checks.
 
 `kve_ratio_both_c` is the same evaluation at complex z (Re z > 0) on
 complex pairs (`cplx.C`), or on duals of them in omega (`dual.Dual`) for the
@@ -14,14 +16,17 @@ function `csrc/kve_complex.cuh`. The series runs all its 24 terms there.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .cplx import C, cabs
 from .dual import Dual, divn, dlog, dwhere, quot, rquot, value
-from .profiles import div, rdiv
+from .profiles import div, rdiv, sqrt
 
 _EULER_GAMMA = 0.5772156649015328606
 _N_SERIES = 24          # (z^2/4)^k / (k!)^2 converges ~1e-16 by k=24 at |z|=9
+_N_ASYMP = 10
 _N_CF2 = 60
 
 
@@ -105,6 +110,60 @@ def kve_ratio(m: int, z):
     """K_m'(z) / K_m(z) for m in {0, 1} (see kve_ratio_both)."""
     r0, r1 = kve_ratio_both(z)
     return r0 if m == 0 else r1
+
+
+def _asymp_k_scaled(z, m: int):
+    """K_m(z) e^{z} sqrt(2 z / pi) (the bracket of A&S 9.7.2), |z| >~ 9."""
+    mu = 4.0 * m * m
+    term = torch.ones_like(z)
+    s = torch.ones_like(z)
+    for k in range(1, _N_ASYMP + 1):
+        term = term * (mu - (2 * k - 1) ** 2) / (8.0 * k * z)
+        s = s + term
+    return s
+
+
+def _k(z, m: int):
+    """K_m(z) unscaled: the series where |z| <= 9, else the asymptotic
+    expansion (each on the arguments the JAX code gives it: 1 and 10 in
+    the other branch's lanes)."""
+    small = torch.abs(z) <= 9.0
+    zs = torch.where(small, z, 1.0)
+    zl = torch.where(small, 10.0, z)
+    _, Ks = _series_ik(zs, m)
+    large = (sqrt(rdiv(math.pi, 2.0 * zl)) * torch.exp(-zl)
+             * _asymp_k_scaled(zl, m))
+    return torch.where(small, Ks, large)
+
+
+def k0(z):
+    """K_0(z) (unscaled; overflows or underflows outside |z| <~ 700)."""
+    return _k(z, 0)
+
+
+def k1(z):
+    """K_1(z) (unscaled)."""
+    return _k(z, 1)
+
+
+def i0(z):
+    """I_0(z) by its series (accurate for |z| <~ 9)."""
+    return _series_ik(z, 0)[0]
+
+
+def i1(z):
+    """I_1(z) by its series (accurate for |z| <~ 9)."""
+    return _series_ik(z, 1)[0]
+
+
+def ive_ratio(m: int, z):
+    """I_m'(z) / I_m(z) by the series (the interior's uniform limit):
+    I_0' = I_1, I_1' = I_0 - I_1/z."""
+    I0v, _ = _series_ik(z, 0)
+    I1v, _ = _series_ik(z, 1)
+    if m == 0:
+        return I1v / I0v
+    return I0v / I1v - rdiv(1.0, z)
 
 
 # -- complex z (the cylinder exterior at complex omega) ---------------------

@@ -77,12 +77,13 @@ def build_ladders(case: CaseConfig, n_omega: Optional[int] = None,
     speeds = np.asarray(case.sorted_speeds())
     if len(speeds) < 2:
         raise ValueError(f"case {case.name} needs >= 2 speed band edges")
-    if case.grid.ladder_shape == "chebyshev":
-        raise NotImplementedError("ladder_shape='chebyshev': no case uses it "
-                                  "(ROADMAP A, do-not-port list)")
-    if case.grid.ladder_shape != "uniform":
-        raise ValueError(f"unknown ladder_shape {case.grid.ladder_shape!r}")
     t = np.linspace(0.0, 1.0, n_omega)
+    if case.grid.ladder_shape == "chebyshev":
+        # cluster seeds quadratically toward both band edges (body-mode
+        # families accumulate at the characteristic speeds the edges sit on)
+        t = 0.5 * (1.0 - np.cos(np.pi * t))
+    elif case.grid.ladder_shape != "uniform":
+        raise ValueError(f"unknown ladder_shape {case.grid.ladder_shape!r}")
     rows_k = []
     rows_om = []
     for k in ks:

@@ -1,4 +1,5 @@
-"""Per-stage wall-clock timing (port of `eigensolver_tpu.utils.StageTimer`).
+"""Per-stage wall-clock timing and device profiling (port of
+`eigensolver_tpu.utils`: `StageTimer`, `device_trace`, `block_and_time`).
 
 PyTorch returns before a CUDA device finishes, so a stage that ends in device
 work must end with `synchronize(device)` for its time to include that work;
@@ -9,7 +10,8 @@ from __future__ import annotations
 import contextlib
 import logging
 import time
-from typing import Dict
+from pathlib import Path
+from typing import Dict, Optional
 
 import torch
 
@@ -44,3 +46,40 @@ def synchronize(device) -> None:
     device = torch.device(device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: Optional[str] = None):
+    """`torch.profiler` trace of the host and, where there is one, the CUDA
+    device around a block, written to `log_dir/trace.json` as a Chrome
+    trace (chrome://tracing, Perfetto); a no-op when log_dir is None."""
+    if log_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    Path(log_dir).mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(Path(log_dir) / "trace.json"))
+
+
+def block_and_time(fn, *args, n: int = 1, device=None, **kwargs):
+    """Run fn once, then n times, each call followed by `synchronize`
+    (of `device`; of the current CUDA device where it is None and CUDA
+    has been initialised); return (last result, seconds per timed call)."""
+    def sync():
+        if device is not None:
+            synchronize(device)
+        elif torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+
+    out = fn(*args, **kwargs)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        out = fn(*args, **kwargs)
+        sync()
+    return out, (time.perf_counter() - t0) / max(n, 1)

@@ -208,7 +208,7 @@ def test_unported_sweep_options_raise(make_case, search_kw, what,
     lambda: dataclasses.replace(_tiny_slab(), complex_omega=True),
     lambda: cases.slab_flow_complex_coronal(),
 ])
-def test_unported_geometry_and_ladder_raise(make_case):
+def test_unported_geometry_and_ladder_raise(make_case, monkeypatch):
     case = make_case()
     with pytest.raises(ValueError, match="run_case_complex"):
         sweep.run_case(case, device="cpu")
@@ -220,17 +220,24 @@ def test_unported_geometry_and_ladder_raise(make_case):
     assert st.n_candidates == len(tiny.modes) * n_bands * 2 * 2
     assert st.completeness["cells"] == len(tiny.modes) * n_bands
     assert all(br.omegas_imag is not None for br in rs.branches.values())
-    cheb = _reduced(cases.cylinder_density_coronal(), ladder_shape="chebyshev")
-    with pytest.raises(NotImplementedError, match="chebyshev"):
-        sweep.build_ladders(cheb)
+    # the Chebyshev ladder (ported since): a small sweep on it gives the
+    # JAX package's roots
+    cheb = dataclasses.replace(
+        _reduced(cases.slab_density_photospheric(), n_interior=64,
+                 ladder_shape="chebyshev"), k_values=(0.5, 2.0))
+    rs = _sweep_equals_jax(cheb, search.SearchConfig(n_omega=32, n_bisect=20),
+                           False, monkeypatch)
+    assert sum(rs.counts().values()) > 0
 
 
-def test_build_ladders_equal_jax():
+@pytest.mark.parametrize("ladder_shape", ["uniform", "chebyshev"])
+def test_build_ladders_equal_jax(ladder_shape):
     from eigensolver_tpu.sweep import build_ladders as jbuild
     import numpy as np
-    case = cases.cylinder_density_coronal(0.9)
+    case = _reduced(cases.cylinder_density_coronal(0.9),
+                    ladder_shape=ladder_shape)
     om, ks = sweep.build_ladders(case, 32)
-    jom, jks = jbuild(jcases.cylinder_density_coronal(0.9), 32)
+    jom, jks = jbuild(_to_jax(case), 32)
     assert om.dtype == np.float64 and om.shape == (90 * 12, 32)
     np.testing.assert_array_equal(om, np.asarray(jom))
     np.testing.assert_array_equal(ks, np.asarray(jks))

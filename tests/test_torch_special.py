@@ -105,3 +105,57 @@ def test_kernel_matches_plain_on_card(dtype):
         bessel.kve_ratio_both(z[::2])
     with pytest.raises(TypeError):
         bessel.kve_ratio_both(z.to(torch.complex128))
+
+
+# -- the unscaled functions and the I_m ratio (the uniform limit's analytic
+# checks), on the arguments of tests/test_special.py, against the JAX
+# package's: the same series and expansion, to rounding
+
+@pytest.mark.parametrize("m", [0, 1])
+def test_ive_ratio_matches_jax(m):
+    z = np.array([0.1, 1.0, 4.0, 8.0])
+    want = np.asarray(jspecial.ive_ratio(m, jnp.asarray(z)))
+    got = special.ive_ratio(m, torch.from_numpy(z)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-14)
+
+
+@pytest.mark.parametrize("fn", ["k0", "k1", "i0", "i1"])
+def test_unscaled_bessel_matches_jax(fn):
+    # tests/test_special.py's small arguments, and both sides of the
+    # series' range |z| <= 9 for K (the asymptotic expansion beyond)
+    z = np.array([0.1, 0.7, 1.9, 5.0, 8.9, 9.0, 9.1, 15.0, 50.0])
+    if fn.startswith("i"):
+        z = z[z <= 9.0]
+    want = np.asarray(getattr(jspecial, fn)(jnp.asarray(z)))
+    got = getattr(special, fn)(torch.from_numpy(z))
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-14)
+
+
+def test_asymp_k_scaled_matches_jax():
+    z = np.array([9.5, 12.0, 30.0, 200.0])
+    for m in (0, 1):
+        want = np.asarray(jspecial._asymp_k_scaled(jnp.asarray(z), m))
+        got = special._asymp_k_scaled(torch.from_numpy(z), m).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-15)
+
+
+def test_block_and_time_and_device_trace(tmp_path):
+    """utils.block_and_time runs fn once and then n times, each call waited
+    for; utils.device_trace writes a Chrome trace, and does nothing
+    without a directory."""
+    from eigensolver_tpu_torch import utils
+    calls = []
+
+    def fn(x, scale=1.0):
+        calls.append(1)
+        return x * scale
+    x = torch.arange(4.0)
+    out, sec = utils.block_and_time(fn, x, n=3, device="cpu", scale=2.0)
+    assert len(calls) == 4 and torch.equal(out, 2 * x) and sec >= 0.0
+    with utils.device_trace(None):
+        special.k0(torch.ones(3, dtype=torch.float64))
+    with utils.device_trace(str(tmp_path / "trace")):
+        special.k0(torch.ones(3, dtype=torch.float64))
+    trace = tmp_path / "trace" / "trace.json"
+    assert trace.is_file() and "traceEvents" in trace.read_text()

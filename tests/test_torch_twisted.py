@@ -196,22 +196,6 @@ def test_twisted_scan_shape_fits_the_card(dtype):
         kcyl._check_scan_shape(kcyl.ScanShape(256, 32), dtype, twisted=True)
 
 
-@pytest.mark.parametrize("geometry", ["slab", "cylinder"])
-@pytest.mark.parametrize("field", ["density_profile", "flow_profile"])
-def test_power_law_density_and_flow_are_refused(geometry, field):
-    """Only the twist profiles may be power laws: the kernels' density and
-    flow profiles form a power with pow, not as profiles.power does."""
-    from eigensolver_tpu_torch.kernels import slab as kslab
-    base = (cases.slab_density_photospheric() if geometry == "slab"
-            else cases.cylinder_density_coronal())
-    kmod = kslab if geometry == "slab" else kcyl
-    kmod.disp_params(base)
-    law = config.ProfileConfig(kind=config.ProfileKind.POWER_LAW,
-                               amplitude=0.1, power=1.25)
-    with pytest.raises(NotImplementedError, match="power-law"):
-        kmod.disp_params(dataclasses.replace(base, **{field: law}))
-
-
 @pytest.mark.parametrize("name", sorted(FAMILIES))
 def test_rowfn_matches_jax(name):
     jcase = FAMILIES[name]()

@@ -5,7 +5,7 @@
                                         [--out PATH] [--complex]
                                         [--cylinder-scan] [--slab-scan]
                                         [--cx-cylinder] [--cx-slab]
-                                        [--roots PATH]
+                                        [--digests] [--roots PATH]
 
 Imports `eigensolver_tpu_torch` from DIR (default: this repository), builds
 its kernels and prints one JSON line of device times (CUDA events, mean of
@@ -95,6 +95,14 @@ several launches after a warm-up):
     below 1e-290 and their warps; a step on the roots with and without
     those lifted to 1e-100); the kernels' ptxas lines and, where the
     checkout has them, the flux kernel's attributes;
+  - the shipped real-omega sweeps' roots (`--digests` runs only these):
+    counts and root digests (`chip_smoke.py::root_digest`) of every
+    real-omega `run_case` of chip_smoke.py's phases 5, 7, 11 and 14
+    (slab_ph_09 at float32, float64 and float32 refined; the two flow
+    slabs at float64; cyl_co_09 at float32 and float64; twist_v01_p1 at
+    float32, float64 and float32 refined; the magnetic twist at float64;
+    the parity sweeps of slab_ph_09 and cyl_flow_1 at float64 and float32
+    refined), with each sweep's wall (one run after a first);
 To compare two commits on one card, unpack the other into a git-ignored
 directory and run both in turns (A B B A) on the same card; `--complex`
 times only the complex-omega kernels, `--roots PATH` saves the KH Newton
@@ -776,6 +784,9 @@ def main() -> int:
     ap.add_argument("--cx-slab", action="store_true",
                     help="time only the complex-omega slab kernels and "
                          "their sweeps")
+    ap.add_argument("--digests", action="store_true",
+                    help="only the shipped real-omega sweeps' counts and "
+                         "root digests")
     ap.add_argument("--roots", help="save the KH Newton roots here (.npz)")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.pkg_root).resolve()))
@@ -795,11 +806,12 @@ def main() -> int:
     out = {"label": args.label, "nvidia_smi": smi,
            "package": str(Path(_build.__file__).resolve().parents[1])}
     if args.cylinder_scan or args.slab_scan or args.cx_cylinder \
-            or args.cx_slab:
+            or args.cx_slab or args.digests:
         out.update(cylinder_scan_times(lib) if args.cylinder_scan
                    else slab_scan_times(lib) if args.slab_scan
                    else cx_cylinder_times() if args.cx_cylinder
-                   else cx_slab_times())
+                   else cx_slab_times() if args.cx_slab
+                   else sweep_digests())
         print(json.dumps(out), flush=True)
         if args.out:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -824,6 +836,59 @@ def main() -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(out, indent=1))
     return 0
+
+
+def sweep_digests() -> dict:
+    """Counts, root digests and walls of the shipped real-omega sweeps
+    (see the module's docstring)."""
+    import importlib.util
+    import time
+    import torch
+    from eigensolver_tpu_torch import cases, equilibrium, search, sweep
+    from tools_torch import parity
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+
+    def cfg(dtype):
+        return search.SearchConfig(n_omega=256, n_bisect=18,
+                                   scan_dtype=dtype, polish_dtype=dtype)
+    runs = []
+    for name, case in (
+            ("slab_ph_09", cases.slab_density_photospheric(0.9)),
+            ("cyl_co_09", cases.cylinder_density_coronal(0.9)),
+            ("twist_v01_p1",
+             cases.cylinder_twisted_photospheric(0.1, 1.0, 1))):
+        runs += [(f"{name} float32", case, cfg("float32"), False),
+                 (f"{name} float64", case, cfg("float64"), False)]
+        if name != "cyl_co_09":
+            runs.append((f"{name} float32 refined", case, cfg("float32"),
+                         True))
+    for name, case in (
+            ("slab_flow_gaussian_coronal", cases.slab_flow_gaussian_coronal()),
+            ("slab_flow_uniform_photospheric",
+             cases.slab_flow_uniform_photospheric()),
+            ("magnetic_p125",
+             cases.cylinder_twisted_magnetic(0.1, 0.15, 1.25, 1))):
+        runs.append((f"{name} float64", case, cfg("float64"), False))
+    for name in ("slab_ph_09", "cyl_flow_1"):
+        for dtype in ("float64", "float32"):
+            case, c, refine = parity.configure(
+                name, cases, search.SearchConfig,
+                equilibrium.genuine_continua, dtype)
+            runs.append((f"{name} parity {dtype}", case, c, refine))
+    out = {}
+    for what, case, c, refine in runs:
+        sweep.run_case(case, c, device="cuda", refine_f64=refine)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rs, _ = sweep.run_case(case, c, device="cuda", refine_f64=refine)
+        out[what] = {"counts": rs.counts(),
+                     "wall_s": time.perf_counter() - t0,
+                     "root_digest": chip_smoke.root_digest(rs)}
+        print(what, json.dumps(out[what]), flush=True)
+    return out
 
 
 def real_times(out: dict, pkg_root: str) -> None:
