@@ -131,7 +131,12 @@ any failure raises and the script exits non-zero:
    tables) on the parity sweeps' own brackets (21,840 and 47,520)
    bit-equal to the launch loop, at a quarter of the depth on that
    configuration's own brackets to the plain loop (1 iteration), and
-   on their first 600 at the speculative default L to the launch loop; the
+   on their first 600 at the speculative default L to the launch loop;
+   cylinder_bisect with its block shape, its launch's columns through
+   the row table and the tabled exps (kernels.cylinder.bisect_counts,
+   held to bisect_tabled_columns: every column of the parity batches),
+   its kept chains, its bound with them and with 3 chains a step, and
+   the ptxas registers and spills of both SpecChain instantiations; the
    twisted scan, its small-batch path and its speculative bisection at a
    reduced depth (twist_v01_p1 at 3 wavelengths, n_interior=384, 600
    brackets; the plain loop at the default L); then the twisted variant on
@@ -500,7 +505,11 @@ NEEDLE_ORACLE = (("slab_density_photospheric", 3.0, 0.43303, 0.367977),
 # (k, m, r) and not on omega (k U, alpha^2, cusp^2, (c^2 + vA^2)(m^2/r^2 +
 # k^2)) once per distinct (k, m) row of the batch and step ("cyl_row_step",
 # "cyl_log_row_step": tools_torch/count_ops.py traces them from the plain
-# chain, and "cyl_step", "cyl_log_step" are the hand counts less them);
+# chain, and "cyl_step", "cyl_log_step" are the hand counts less them; for
+# the fused bisection, which keeps a step's first chain where its abscissa
+# is the step before's last, per candidate the rest of one evaluation,
+# "cyl_chain", 3 a step or 2 where kept, and the update, "cyl_update",
+# "cyl_log_update");
 # per evaluation, the start state and the epilogue
 # ("*_ends"), the cylinder's without the K_m ratio, which `kve_ops` counts
 # from its arguments (csrc/kve_ratio.cuh: one branch per argument, the
@@ -536,6 +545,7 @@ OPS = {"slab_x_step": 67, "slab_chain": 9, "slab_update": 34,
        "slab_shear_update": 38, "slab_shear_ends": 64,
        "cyl_r_step": 70, "cyl_log_r_step": 73, "cyl_step": 128,
        "cyl_log_step": 134, "cyl_row_step": 27, "cyl_log_row_step": 27,
+       "cyl_chain": 20, "cyl_update": 68, "cyl_log_update": 74,
        "cyl_ends": 98,
        "cyl_tw_r_step": 298, "cyl_tw_step": 590, "cyl_tw_ends": 84,
        "cyl_tw_launch": 99, "cyl_tw_b0_step": 425, "cyl_tw_b0_ends": 74,
@@ -757,14 +767,24 @@ def distinct(k, m=None) -> int:
 
 
 def cyl_ops(n: int, n_evals: int, n_interior: int, n_axis_log: int,
-            z_ext, rows: int) -> int:
+            z_ext, rows: int, kept=None) -> int:
     """Operations of n_evals cylinder chains on each of n candidates with
     the exterior arguments z_ext (those of one evaluation), the (k, m, r)
     values once per row of the `rows` distinct (k, m) rows, and the r-only
-    values once."""
-    return (n * n_evals * (n_interior * OPS["cyl_step"]
-                           + n_axis_log * OPS["cyl_log_step"]
-                           + OPS["cyl_ends"])
+    values once. kept: per step of the interior and of the log tail,
+    whether its first chain is the step before's last
+    (kernels.cylinder.chain_kept), which a candidate then needs once; None:
+    3 chains a step."""
+    if kept is None:
+        per = (n_interior * OPS["cyl_step"]
+               + n_axis_log * OPS["cyl_log_step"])
+    else:
+        interior, tail = kept
+        per = (n_interior * OPS["cyl_update"]
+               + n_axis_log * OPS["cyl_log_update"]
+               + (3 * (n_interior + n_axis_log) - int(interior.sum())
+                  - int(tail.sum())) * OPS["cyl_chain"])
+    return (n * n_evals * (per + OPS["cyl_ends"])
             + n_evals * kve_ops(z_ext)
             + rows * (n_interior * OPS["cyl_row_step"]
                       + n_axis_log * OPS["cyl_log_row_step"])
@@ -1641,12 +1661,15 @@ def bisect_fn(case):
 def wrapper_shape(case, n: int, dtype):
     """The block shape the case's bisection wrapper launches for n
     brackets: the twisted chain's spec_shape, the numeric exterior's
-    numeric_spec_shape, else analytic_spec_shape."""
-    from eigensolver_tpu_torch.kernels import common
+    numeric_spec_shape (the density/axial-flow cylinder's
+    numeric_bisect_shape), else analytic_spec_shape."""
+    from eigensolver_tpu_torch.kernels import common, cylinder
     params = bisect_fn(case)[1].struct
     eb = entry_bytes(case, dtype)
     if getattr(params, "twisted", 0):
         return common.spec_shape(n, dtype, eb)
+    if params.exterior_numeric and case.geometry.value == "cylinder":
+        return cylinder.numeric_bisect_shape(n, dtype)
     if params.exterior_numeric:
         return common.numeric_spec_shape(n, dtype, eb)
     return common.analytic_spec_shape(n, dtype, eb,
@@ -1656,7 +1679,7 @@ def wrapper_shape(case, n: int, dtype):
 def phase_bisect(out: dict, phase: str, name: str, case, n_br: int, ops,
                  key: str = None, plain_n_iter: int = PLAIN_N_ITER,
                  plain_types=("float32", "float64"), loop_small: bool = False,
-                 refine=None, chain: str = None):
+                 refine=None, chain: str = None, ops_every_chain=None):
     """The fused bracket stage `name` on the case's own brackets: (root,
     mismatch) bit-equal to the loop of scan launches at float32 and float64
     (both timed), and at the types of plain_types with n_iter=plain_n_iter
@@ -1665,9 +1688,11 @@ def phase_bisect(out: dict, phase: str, name: str, case, n_br: int, ops,
     bound from `ops(brackets, dtype, evaluations)`, the operations of the
     evaluations the loop needs. With `refine` (the refine stage's float64
     brackets), that batch too (`_refine_bisect`); with `chain`, the ptxas
-    report of the fused kernel's instantiations over its Model. The report
-    goes to out[key or name]. loop_small: the loop's launches take the
-    twisted chain's small-batch path (cylinder_disp_small)."""
+    report of the fused kernel's instantiations over its Model; with
+    `ops_every_chain`, the bound of that count too (bound_every_chain_ms:
+    3 chains a step). The report goes to out[key or name]. loop_small: the
+    loop's launches take the twisted chain's small-batch path
+    (cylinder_disp_small)."""
     import torch
     from eigensolver_tpu_torch import search, sweep
     res = {}
@@ -1697,6 +1722,10 @@ def phase_bisect(out: dict, phase: str, name: str, case, n_br: int, ops,
                                                             N_BISECT), 2),
                  **bound(ops(br, dtype, N_BISECT + 2),
                          n_br * 6 * br[0].element_size(), dname))
+        if ops_every_chain is not None:
+            r["bound_every_chain_ms"] = bound(
+                ops_every_chain(br, dtype, N_BISECT + 2),
+                n_br * 6 * br[0].element_size(), dname)["bound_ms"]
         if dname in plain_types:
             pcase = shallower(case)
             pdisp = sweep.make_dispersion_moded(pcase, dtype)
@@ -2216,12 +2245,13 @@ def _physics(case):
 
 
 def numeric_ops(case, n: int, n_evals: int, k, m, n_chains: int = None,
-                every_chain: bool = False) -> int:
+                every_chain: bool = False, kept=None) -> int:
     """Operations of n_evals evaluations of each of n candidates (k, m: the
     batch's columns) of the case's chain with its numeric exterior (no K_m
     ratio); the slab's chain and exterior once for each of n_chains
     distinct (omega, k) (default n), or with every_chain (the count before
-    the paired scan) for each candidate, 3 chains a step."""
+    the paired scan) for each candidate, 3 chains a step; the density/
+    axial-flow cylinder's with the steps' `kept` chains (cyl_ops)."""
     import torch
     from eigensolver_tpu_torch.physics.slab import SlabPhysics
     g = case.grid
@@ -2236,7 +2266,7 @@ def numeric_ops(case, n: int, n_evals: int, k, m, n_chains: int = None,
         chain = cyl_tw_ops(case, n, n_evals, none)
     else:
         chain = cyl_ops(n, n_evals, g.n_interior, g.n_axis_log, none,
-                        distinct(k, m))
+                        distinct(k, m), kept)
     return chain + ext_ops(case, n, n_evals, distinct(k))
 
 
@@ -2298,16 +2328,27 @@ def _numeric_bisect(what: str, case, br, n_iter=N_BISECT, final_eval=True,
                     shape=None) -> dict:
     """The fused bisection with the numeric exterior on the brackets br:
     bit-equal to the loop of one-thread launches at n_iter; timed, with
-    its bound (the evaluations the loop needs)."""
+    its bound (the evaluations the loop needs). The density/axial-flow
+    cylinder's also with its block shape and its launch's counts
+    (kernels.cylinder.bisect_counts: the columns through the row table,
+    held to bisect_tabled_columns, and through the tabled exps, the chains
+    kept), its bound with the kept chains and without (3 a step,
+    bound_every_chain_ms)."""
     import torch
     from eigensolver_tpu_torch import search
+    from eigensolver_tpu_torch.kernels import cylinder as kcyl
     kern = _physics(case)[0]
     dtype = br[0].dtype
     dname = str(dtype).split(".")[-1]
     n = br[0].numel()
     disp = kern(dtype)
     fused = _fused_bisect(case, br, final_eval, shape)
+    tabled = (case.geometry.value == "cylinder"
+              and case.twist_profile is None)
+    if tabled:
+        kcyl.bisect_counts("cuda")
     got = fused(n_iter)
+    counts = kcyl.bisect_counts("cuda") if tabled else None
     loop = search.bisect_loop(disp, *br, n_iter, final_eval)
     torch.cuda.synchronize()
     differ = [int((~_same_bits(a.cpu().numpy(), b.cpu().numpy())).sum())
@@ -2316,11 +2357,21 @@ def _numeric_bisect(what: str, case, br, n_iter=N_BISECT, final_eval=True,
         raise AssertionError(f"{what}: {differ} (root, mismatch) values "
                              f"differ from the launch loop")
     evals = int(n_iter > 0) + n_iter + int(final_eval)
+    kept = kcyl.chain_kept(case, dtype) if tabled else None
     r = dict(n=n, n_iter=n_iter, ms=cuda_ms(lambda: fused(n_iter), 3),
              loop_ms=cuda_ms(lambda: search.bisect_loop(
                  disp, *br, n_iter, final_eval), 1),
-             **bound(numeric_ops(case, n, evals, br[2], br[3]),
+             **bound(numeric_ops(case, n, evals, br[2], br[3], kept=kept),
                      n * 6 * br[0].element_size(), dname))
+    if tabled:
+        sh = shape or wrapper_shape(case, n, dtype)
+        want = kcyl.bisect_tabled_columns(br[2], br[3], sh)
+        if counts["rows"] != want or counts["exterior"] != want:
+            raise AssertionError(f"{what}: {counts} through the tables, "
+                                 f"not {want} columns")
+        r.update(shape=list(sh), tabled=counts, bound_every_chain_ms=bound(
+            numeric_ops(case, n, evals, br[2], br[3]),
+            n * 6 * br[0].element_size(), dname)["bound_ms"])
     return r
 
 
@@ -2348,14 +2399,17 @@ def _bisect_vs_plain(what: str, case, br, final_eval=True,
 
 
 def entry_bytes(case, dtype) -> int:
-    """Bytes of an x-only (slab) or r-only (cylinder) table entry of the
-    case's chain at dtype, as its kernels lay it out."""
+    """Bytes per abscissa of the fused bisection's tables of the case's
+    chain at dtype, as its kernels lay them out: the slab's x-only entry,
+    the twisted cylinder's r-only entry, the density/axial-flow
+    cylinder's r-only entry with its rows' (and exps') tables."""
     from eigensolver_tpu_torch.kernels import cylinder as kcyl, slab as kslab
     if case.geometry.value == "slab":
         shear = bool(kslab.disp_params(case).struct.shear)
         return kslab._ENTRY_BYTES[(shear, dtype)]
-    twisted = bool(kcyl.disp_params(case).struct.twisted)
-    return kcyl._ENTRY_BYTES[dtype, twisted]
+    st = kcyl.disp_params(case).struct
+    return kcyl.bisect_entry_bytes(dtype, bool(st.twisted),
+                                   bool(st.exterior_numeric))
 
 
 def twisted_numeric_case():
@@ -2441,8 +2495,7 @@ def phase_numeric_kernels(out: dict):
                 f"{name} numeric {dname} (n_interior "
                 f"{low.grid.n_interior})", low, sweep_brackets(low, dtype,
                                                                cfg)))
-            shape = common.numeric_spec_shape(600, dtype,
-                                              entry_bytes(case, dtype))
+            shape = wrapper_shape(case, 600, dtype)
             res[f"{name} 600 L{shape.levels} {dname}"] = _numeric_bisect(
                 f"{name} numeric 600 L{shape.levels} {dname}", case,
                 [x[:600].contiguous() for x in br], shape=shape)
@@ -2480,7 +2533,9 @@ def phase_numeric_kernels(out: dict):
         "slab_disp_kernel").items() if "numeric" in k},
                     **{f"cylinder_disp {k}": v for k, v in ptxas_report(
                         "cylinder_disp_kernel", CYL_FORMS).items()
-                       if "numeric" in k}}
+                       if "numeric" in k},
+                    **{f"cylinder_bisect {k}": v
+                       for k, v in spec_ptxas("cylinder").items()}}
     out["numeric_kernels"] = res
     line("phase 13 numeric exteriors vs plain", **res)
 
@@ -3621,13 +3676,24 @@ def numeric_kernel_entries(res: dict, par: dict, tw: dict) -> list:
               float64_bound_ms=res["cylinder_disp full float64"]["bound_ms"],
               tabled_rows=cd["tabled_rows"],
               tabled_exterior=cd["tabled_exterior"]),
+        # the block's (k, m, r) row table and its k's exps in the
+        # producers, the exterior on a producer row group's lanes: its
+        # shape, tabled counts, bound with the kept chains (3 chains a step
+        # beside it) and registers and spills
         entry("cylinder_bisect_numeric", src + "cylinder_disp.cu",
               "eigensolver_tpu/ode.py:22", cyl_path["cylinder_bisect"], cb,
               cb["max_abs_err_vs_plain"], plain_n_iter=cb["plain_n_iter"],
               plain_n_interior=cb["plain_n_interior"],
               ms_plain_n_iter=cb["ms_plain_n_iter"],
-              launch_loop_ms=cb["loop_ms"],
-              float64_ms=res["cylinder_bisect float64"]["ms"]),
+              launch_loop_ms=cb["loop_ms"], shape=cb["shape"],
+              tabled=cb["tabled"],
+              bound_every_chain_ms=cb["bound_every_chain_ms"],
+              float64_ms=res["cylinder_bisect float64"]["ms"],
+              float64_launch_loop_ms=res["cylinder_bisect float64"][
+                  "loop_ms"],
+              float64_bound_ms=res["cylinder_bisect float64"]["bound_ms"],
+              ptxas={k: v for k, v in res["ptxas"].items()
+                     if k.startswith("cylinder_bisect")}),
         # the twisted chain's, reduced (n_interior=384, 8,191 candidates,
         # 600 brackets): launches on its own reduced path
         entry("cylinder_disp_twisted_numeric", src + "cylinder_twisted.cu",
@@ -5097,14 +5163,19 @@ def main() -> int:
     slab_case = cases.slab_density_photospheric(0.9)
     flow_case = cases.slab_flow_gaussian_coronal()
     cg, sg, fg = cyl_case.grid, slab_case.grid, flow_case.grid
-    # the K_m ratio of each evaluation counted at the bracket's lower end
+    # the K_m ratio of each evaluation counted at the bracket's lower end;
+    # a step's first chain once where the kernel keeps it (and, for the
+    # count before, 3 chains a step)
+    from eigensolver_tpu_torch.kernels import cylinder as kcyl
+
+    def cyl_bisect_ops(br, dt, ne, every_chain=False):
+        return cyl_ops(br[0].numel(), ne, cg.n_interior, cg.n_axis_log,
+                       exterior_args(cyl_case, br[0], br[2], dt),
+                       distinct(br[2], br[3]),
+                       None if every_chain else kcyl.chain_kept(cyl_case, dt))
     phase_bisect(out, "phase 8 cylinder_bisect", "cylinder_bisect", cyl_case,
-                 N_BR_CYL,
-                 lambda br, dt, ne: cyl_ops(
-                     br[0].numel(), ne, cg.n_interior, cg.n_axis_log,
-                     exterior_args(cyl_case, br[0], br[2], dt),
-                     distinct(br[2], br[3])),
-                 chain="cylinder")
+                 N_BR_CYL, cyl_bisect_ops, chain="cylinder",
+                 ops_every_chain=lambda *a: cyl_bisect_ops(*a, True))
     _, slab_refine = refine_stage(slab_case)
     phase_bisect(out, "phase 9 slab_bisect flux", "slab_bisect", slab_case,
                  N_BR_SLAB,
@@ -5303,7 +5374,9 @@ def main() -> int:
         "plain_n_interior": cbis["plain_n_interior"],
         "ms_plain_n_iter": cbis["ms_plain_n_iter"],
         "launch_loop_ms": cbis["loop_ms"],
+        # a step's first chain once where the kernel keeps it; 3 a step
         "bound_ms": cbis["bound_ms"],
+        "bound_every_chain_ms": cbis["bound_every_chain_ms"],
         "bound_by": cbis["bound_by"],
         "library_ms": None,
         **float64_of(out["cylinder_bisect"]["float64"]),

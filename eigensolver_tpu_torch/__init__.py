@@ -40,3 +40,15 @@ at complex z or the numeric exterior). On a CPU tensor each wrapper runs
 its kernel's plain PyTorch version. Every kernel takes every profile kind
 (`config.ProfileKind`) for the density, the flow and the twists.
 """
+from . import analytic, config, profiles, equilibrium, ode  # noqa: F401
+from .config import (  # noqa: F401
+    CaseConfig,
+    Geometry,
+    GridConfig,
+    ProfileConfig,
+    ProfileKind,
+    Regime,
+    Tolerances,
+)
+
+__version__ = "0.1.0"

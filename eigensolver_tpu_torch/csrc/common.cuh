@@ -184,10 +184,23 @@ __device__ __forceinline__ void density_speeds(const ProfileParams& rho_p,
   }
 }
 
-// 0 / x without a division: NaN where x is 0 or NaN, else zero.
+// 0 / x, the plain version's zeros_like(x) / x, without a division: NaN
+// where x is 0 or NaN, else +0 (the division's zero takes x's sign; a
+// signed zero here costs the scan a sixth of its time, and the two differ
+// only where what they are added to is an exact zero). At float64 the NaN
+// has the division's bits, which a bisection's sign test reads: where x
+// is NaN that NaN (0 + x propagates it as the division does), where x is
+// 0 CUDART_NAN (0xfff8...). At float32 any FP32 operation gives the one
+// canonical NaN (0x7fffffff), so the plain select has the same bits there
+// once the chain adds it to anything, and is the cheaper.
 template <class T>
 __device__ __forceinline__ T zero_over(T x) {
-  return (x == T(0) || x != x) ? T(NAN) : T(0);
+  if constexpr (sizeof(T) == 8) {
+    if (x == T(0)) return __longlong_as_double(0xfff8000000000000ULL);
+    return x != x ? T(0) + x : T(0);
+  } else {
+    return (x == T(0) || x != x) ? T(NAN) : T(0);
+  }
 }
 
 // RK4 step sizes (h, h/2, h/6) of n steps from x0 to x1
@@ -208,6 +221,17 @@ __device__ __forceinline__ T rk4_abscissa(T x0, T h, T hh, int i, int a) {
   return a == 0 ? x : (a == 1 ? x + hh : x + h);
 }
 
+// Bitwise equality: a candidate is in a tabled row when its (k, m) have
+// the row's bits, so that the row's values are the ones it would compute
+template <class T>
+__device__ __forceinline__ bool same_bits(T a, T b) {
+  if constexpr (sizeof(T) == 4) {
+    return __float_as_uint(a) == __float_as_uint(b);
+  } else {
+    return __double_as_longlong(a) == __double_as_longlong(b);
+  }
+}
+
 // Whether step i's first abscissa is step i - 1's last, bit for bit
 // (rk4_abscissa(x0, h, hh, i, 0) against rk4_abscissa(x0, h, hh, i - 1,
 // 2); i >= 1). A chain that depends on the abscissa alone has the same
@@ -221,13 +245,8 @@ __device__ __forceinline__ T rk4_abscissa(T x0, T h, T hh, int i, int a) {
 // kernels: 2 chains a step, not 3).
 template <class T>
 __device__ __forceinline__ bool chain_reuse(T x0, T h, T hh, int i) {
-  const T a = rk4_abscissa(x0, h, hh, i, 0);
-  const T b = rk4_abscissa(x0, h, hh, i - 1, 2);
-  if constexpr (sizeof(T) == 4) {
-    return __float_as_uint(a) == __float_as_uint(b);
-  } else {
-    return __double_as_longlong(a) == __double_as_longlong(b);
-  }
+  return same_bits(rk4_abscissa(x0, h, hh, i, 0),
+                   rk4_abscissa(x0, h, hh, i - 1, 2));
 }
 __host__ __device__ __forceinline__ bool chain_reuse(int n_steps) {
   return n_steps > 0 && (n_steps & (n_steps - 1)) == 0;
@@ -373,6 +392,11 @@ __device__ __forceinline__ T slab_exterior(T m_e, T k, double wavelengths,
 // The cylinder exterior's span and grid: r_far = W 2 pi / k, t0 = ln r_far
 // and the RK4 spacing (h, h/2, h/6) of n steps from t0 to 0; they depend
 // on k alone
+template <class T>
+struct CylExtK {
+  T r_far, t0, h, hh, h6;
+};
+
 template <class T>
 __device__ __forceinline__ void cyl_ext_grid(T k, double wavelengths, int n,
                                              T& r_far, T& t0, T& h, T& hh,

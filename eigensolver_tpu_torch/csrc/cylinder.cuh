@@ -248,17 +248,6 @@ __device__ __forceinline__ Chunk chunk_at(const Grid<T>& g, int nci, int C,
 // candidate of it.
 constexpr int kRows = 2;
 
-// bitwise equality: a candidate is in a tabled row when its (k, m) have
-// the row's bits, so that the row's values are the ones it would compute
-template <class T>
-__device__ __forceinline__ bool same_bits(T a, T b) {
-  if constexpr (sizeof(T) == 4) {
-    return __float_as_uint(a) == __float_as_uint(b);
-  } else {
-    return __double_as_longlong(a) == __double_as_longlong(b);
-  }
-}
-
 // The rows of a block of `threads` candidates from b0 (of n): its first
 // and last candidates' (k, m), published in the block's shared km[4], two
 // unless they are one, filled (`fill`) unless no warp reads them; returns
@@ -383,6 +372,17 @@ __device__ W cyl_exterior_scan(const CylDispParams& p, W m_e, T k, T m,
   return quot(D, P);
 }
 
+// The exterior's m_e at (omega, k) (cylinder.py:304), in finish_with's
+// order: the fused bisection's producers form it for their exterior
+template <class T>
+__device__ __forceinline__ T exterior_m_e(const CylDispParams& p, T omega,
+                                          T k) {
+  const T k2 = k * k;
+  const T om2 = omega * omega;
+  return (k2 * T(p.vA_e2) - om2) * (k2 * T(p.c_e2) - om2)
+       / (T(p.vAc_e2) * (k2 * T(p.cT_e2) - om2));
+}
+
 // The axis condition, the interface values, the exterior, det, the %
 // mismatch and valid from the basis states at the axis (cylinder.py:
 // 319-385); xi1 = C1(1) / C3(1), J the kink's jump term. ext(m_e) is the
@@ -407,8 +407,7 @@ __device__ __forceinline__ void finish_with(const CylDispParams& p, T omega,
 
   const T k2 = k * k;
   const T om2 = omega * omega;
-  const T m_e = (k2 * T(p.vA_e2) - om2) * (k2 * T(p.c_e2) - om2)
-              / (T(p.vAc_e2) * (k2 * T(p.cT_e2) - om2));
+  const T m_e = exterior_m_e(p, omega, k);
   const T dP_e = ext(m_e);
   const T P_e = one;
   const T xi_e = dP_e / (T(p.rho_e) * (om2 - k2 * T(p.vA_e2)));

@@ -313,13 +313,26 @@ cylinder_disp_kernel(const T* __restrict__ omega_, const T* __restrict__ k_,
   }
 }
 
+// The fused bisection's counts since the host last read them
+// (eigk_cylinder_bisect_counts): columns through their block's row table,
+// columns whose exterior read the tabled exps (a launch's columns once),
+// and of each launch's block 0 in its first round, the steps whose first
+// chain a producer kept and its steps
+__device__ unsigned long long g_bisect_counts[4];
+
 // The chain as bisect.cuh::spec_kernel runs it, with the exterior of kNum
 // (the K_m ratio or the numeric one): steps 0 .. n_interior - 1 in r from
 // 1 to eps, then the log tail in t = ln r; the producers compute an
 // abscissa's r-only entry (r_point; on the log tail at r = exp(t)) once per
-// block and each column's (1/F, g) from it (invF_g), the consumer runs
-// interface1 / rk4_step2 / finish, the exterior included, in the scan's
-// order, so every value is the scan's.
+// block, and the (k, m, r) values of each row of the block's brackets
+// (row_point, the scan's row table) where they form at most kRows runs of
+// one (k, m); each column's (1/F, g) from them (invF_g), a step's first
+// chain kept from the step before's last where their abscissae have the
+// same bits (common.cuh::chain_reuse); the numeric exterior in the last
+// producer row group's lanes, its exps from a table of the block's
+// distinct k (cyl_exterior's operations, in its order). The consumer runs
+// interface1 / rk4_step2 / finish in the scan's order, so every value is
+// the scan's.
 template <class T_, bool kNum>
 struct SpecChain {
   using T = T_;
@@ -327,10 +340,19 @@ struct SpecChain {
   using Entry = RPoint<T>;
   static constexpr int kState = 4;  // (P1, w1, P2, w2)
   using Ctx = Iface<T>;
+  // 32 columns of rows of 8 brackets; of 24, up to 3
+  static constexpr int kRows = 4;
+  static constexpr bool kSideExt = kNum;
+  using Row = RowPoint<T>;
+  using ExtK = CylExtK<T>;
+  struct ExtState {
+    T m_e, mm, P, D;
+  };
   const Params& p;
   Grid<T> g;
 
   __device__ explicit SpecChain(const Params& p_) : p(p_), g(p_) {}
+  static __device__ unsigned long long* counts() { return g_bisect_counts; }
   __device__ int n_steps() const { return g.n_int + g.n_log; }
   __device__ Entry entry(int i, int a) const {
     if (i < g.n_int) {
@@ -340,14 +362,27 @@ struct SpecChain {
     return r_point<kInlineGaussian>(p, radius<T, true>(
                           rk4_abscissa(g.x0l, g.hl, g.hhl, i - g.n_int, a)));
   }
-  __device__ void coef(int i, const Entry& q, T omega, T k, T m, T& c0,
-                       T& c1) const {
-    const RowPoint<T> w = row_point(q, Cand<T>(p, omega, k, m));
+  __device__ Row row(const Entry& q, T k, T m) const {
+    return row_point(q, Cand<T>(p, T(0), k, m));
+  }
+  __device__ void coef_row(int i, const Entry& q, const Row& w, T omega,
+                           T& c0, T& c1) const {
     if (i < g.n_int) {
       invF_g<T, false>(q, w, omega, c0, c1);
     } else {
       invF_g<T, true>(q, w, omega, c0, c1);
     }
+  }
+  __device__ void coef(int i, const Entry& q, T omega, T k, T m, T& c0,
+                       T& c1) const {
+    coef_row(i, q, row_point(q, Cand<T>(p, omega, k, m)), omega, c0, c1);
+  }
+  // step i's first abscissa is step i - 1's last, bit for bit (the join
+  // of r and the log tail is not crossed)
+  __device__ bool kept(int i) const {
+    return i < g.n_int ? i >= 1 && chain_reuse(g.x0i, g.hi, g.hhi, i)
+                       : i > g.n_int
+                             && chain_reuse(g.x0l, g.hl, g.hhl, i - g.n_int);
   }
   __device__ void start(T omega, T k, T m, T* y, Ctx& ctx) const {
     interface1(p, Cand<T>(p, omega, k, m), ctx.C3_1, ctx.F1);
@@ -366,6 +401,36 @@ struct SpecChain {
                          T& mism, bool& valid) const {
     eigk::finish<T, kNum>(p, omega, k, m, zero_over(ctx.C3_1) + T(0), ctx.F1,
                           T(0), y[0], y[1], y[2], y[3], det, mism, valid);
+  }
+  // the numeric exterior (common.cuh::cyl_exterior) in steps
+  __device__ int n_ext() const { return p.n_exterior; }
+  __device__ ExtK ext_k(T k) const {
+    ExtK e;
+    cyl_ext_grid(k, p.exterior_wavelengths, p.n_exterior, e.r_far, e.t0, e.h,
+                 e.hh, e.h6);
+    return e;
+  }
+  __device__ T ext_exp(const ExtK& e, int i, int a) const {
+    return cyl_ext_exp(e.t0, e.h, e.hh, i, a);
+  }
+  __device__ void ext_start(T omega, T k, T m, const ExtK& e,
+                            ExtState& s) const {
+    s.m_e = exterior_m_e(p, omega, k);
+    s.mm = m * m;
+    s.P = T(1e-8);
+    s.D = T(-1e-8) * e.r_far;
+  }
+  __device__ void ext_step(ExtState& s, const ExtK& e, T eA, T eM,
+                           T eB) const {
+    cyl_ext_step(s.mm, s.m_e, eA, eM, eB, e.h, e.hh, e.h6, s.P, s.D);
+  }
+  __device__ T ext_end(const ExtState& s) const { return s.D / s.P; }
+  // finish with the exterior ext that the producers integrated
+  __device__ void finish_side(T omega, T k, T m, const T* y, const Ctx& ctx,
+                              T ext, T& det, T& mism, bool& valid) const {
+    finish_with(p, omega, k, m, zero_over(ctx.C3_1) + T(0), ctx.F1, T(0),
+                y[0], y[1], y[2], y[3], [&](T) { return ext; }, det, mism,
+                valid);
   }
 };
 
@@ -551,6 +616,39 @@ int eigk_cylinder_scan_tabled(int device, unsigned long long* out) {
     err = cudaMemcpyToSymbol(eigk::g_scan_tabled, zero, sizeof(zero));
   }
   return static_cast<int>(err);
+}
+
+// The fused bisection's counts on `device` since the last read
+// (g_bisect_counts: out[0] columns through a row table, out[1] columns
+// whose exterior read the tabled exps, out[2] kept chains and out[3]
+// steps of the launches' block 0 in their first round); then zeroes them.
+// Waits for the device's work. Returns the cudaError_t.
+int eigk_cylinder_bisect_counts(int device, unsigned long long* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = cudaDeviceSynchronize();
+  if (err == cudaSuccess) {
+    err = cudaMemcpyFromSymbol(out, eigk::g_bisect_counts,
+                               sizeof(eigk::g_bisect_counts));
+  }
+  if (err == cudaSuccess) {
+    const unsigned long long zero[4] = {0, 0, 0, 0};
+    err = cudaMemcpyToSymbol(eigk::g_bisect_counts, zero, sizeof(zero));
+  }
+  return static_cast<int>(err);
+}
+
+// The fused bisection's dynamic shared memory (bisect.cuh::spec_smem) at
+// NC columns, C steps a stage and S stages, with the numeric exterior or
+// the K_m ratio (f64: double, else float), for the Python mirror's check
+long long eigk_cylinder_bisect_smem(int f64, int numeric, int NC, int C,
+                                    int S) {
+  using namespace eigk;
+  const size_t b =
+      f64 ? (numeric ? spec_smem<SpecChain<double, true>>(NC, C, S)
+                     : spec_smem<SpecChain<double, false>>(NC, C, S))
+          : (numeric ? spec_smem<SpecChain<float, true>>(NC, C, S)
+                     : spec_smem<SpecChain<float, false>>(NC, C, S));
+  return static_cast<long long>(b);
 }
 
 // scan_smem: the bytes of the density/axial-flow scan's tables at

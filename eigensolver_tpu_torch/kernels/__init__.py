@@ -1,4 +1,5 @@
 """Hand-written CUDA kernels (sources in ../csrc) and their wrappers."""
+from . import bessel  # noqa: F401
 
 
 def launch_counts() -> dict:

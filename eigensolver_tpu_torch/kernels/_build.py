@@ -92,6 +92,10 @@ _SIGNATURES = {
     "eigk_cylinder_newton_counts": ((_I, _P), _I),
     # (device, out[2])
     "eigk_cylinder_scan_tabled": ((_I, _P), _I),
+    # (device, out[4])
+    "eigk_cylinder_bisect_counts": ((_I, _P), _I),
+    # (f64, numeric, NC, C, S)
+    "eigk_cylinder_bisect_smem": ((_I, _I, _I, _I, _I), ctypes.c_longlong),
     # (f64, chunk)
     "eigk_cylinder_scan_smem": ((_I, _I), ctypes.c_longlong),
     # (omega, k, parity, det, mism, valid, n, threads, chunk, params,

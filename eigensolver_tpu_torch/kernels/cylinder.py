@@ -17,8 +17,12 @@ candidates that took the tables). `cylinder_bisect` (same file,
 `csrc/bisect.cuh::spec_kernel`) runs a whole fixed-count bisection of a
 bracket batch over the same chain in one launch
 (`eigensolver_tpu/search.py:142-169`, :468-522), with either exterior: its
-producer warps read the r-only values from a table as the scan does, and a
-small batch speculates several levels a round.
+producer warps read the r-only values, and the (k, m, r) values of up to
+BISECT_ROWS rows of their block's brackets, from tables as the scan does,
+keep a step's first chain where its abscissa is the step before's last,
+and integrate the numeric exterior beside the consumer's interior, its
+exps from a table of the block's k (`bisect_counts`); a small batch
+speculates several levels a round.
 
 The twisted chain has kernels of its own (`csrc/cylinder_twisted.cu`),
 which the same wrappers pick from the parameters: the scan
@@ -58,8 +62,8 @@ from ..config import CaseConfig, ProfileConfig, ProfileKind
 from .common import (EXTERIOR_FIELDS, ProfileParams, ScanShape, SpecShape,
                      analytic_spec_shape, as_pair, check_scan_shape,
                      density_flow_params, exterior_params, launch_complex,
-                     launch_disp, launch_spec, numeric_spec_shape,
-                     profile_params)
+                     launch_disp, launch_spec, profile_params,
+                     spec_shape)
 
 # launches of the kernels since the last reset (one per kernel launch):
 # cylinder_disp (of them, small_launches through the twisted fused
@@ -169,6 +173,51 @@ _ENTRY_BYTES = {(torch.float32, False): 48, (torch.float64, False): 80,
 _SCAN_ENTRY_BYTES = {dtype: _ENTRY_BYTES[dtype, False] + 2 * 4 * size
                      for dtype, size in ((torch.float32, 4),
                                          (torch.float64, 8))}
+# the density/axial-flow bisection's tables per abscissa of a stage
+# (csrc/bisect.cuh::spec_smem over SpecChain): the r-only entry, the
+# entries of its BISECT_ROWS rows (RowPoint<T>) and, with the numeric
+# exterior, an exp of each of its rows' k; by (dtype, numeric exterior)
+BISECT_ROWS = 4
+_BISECT_ENTRY_BYTES = {
+    (dtype, numeric): _ENTRY_BYTES[dtype, False]
+    + BISECT_ROWS * (4 * size + (size if numeric else 0))
+    for dtype, size in ((torch.float32, 4), (torch.float64, 8))
+    for numeric in (False, True)}
+
+
+def bisect_entry_bytes(dtype: torch.dtype, twisted: bool,
+                       numeric: bool) -> int:
+    """Bytes per abscissa of a stage of the fused bisection's tables
+    (`common.spec_smem`'s entry_bytes): the twisted chain's r-only entry,
+    or the density/axial-flow chain's entry, rows and exps."""
+    if twisted:
+        return _ENTRY_BYTES[dtype, True]
+    return _BISECT_ENTRY_BYTES[dtype, bool(numeric)]
+
+
+# The numeric exterior's density/axial-flow bisection at the loop's
+# schedule (L = 0): (P producer warps, C steps a stage) by type, at 128
+# registers a thread
+_NUMERIC_BISECT = {torch.float32: (4, 24), torch.float64: (4, 16)}
+
+
+def numeric_bisect_shape(n: int, dtype: torch.dtype) -> SpecShape:
+    """The block shape of the numeric exterior's density/axial-flow
+    bisection of n brackets (its producers' row, exps' and kept-chain
+    tables): `common.spec_shape`'s L and B; at the loop's schedule 4
+    producer warps, C = 24 steps a stage at float32 (16 at float64) at 128
+    registers a thread (64 spill the chain: at float64 1.5x slower), the
+    fastest of 150 shapes on cyl_flow_1 parity's 47,520 brackets at both
+    types (31.5 ms; float64 58.5); where spec_shape speculates, 7 producer
+    warps and C = 32: 4% from the fastest of 750 shapes on those brackets'
+    first 600 at float32 (2.19 ms), the fastest at float64 (3.57 ms). From
+    timings on an H100 (`tools_torch/tune_bisect.py --numeric`, PERF.md
+    section 6)."""
+    shape = spec_shape(n, dtype, _BISECT_ENTRY_BYTES[dtype, True])
+    if shape.levels:
+        return shape._replace(producers=7, steps=32)
+    p, c = _NUMERIC_BISECT[dtype]
+    return shape._replace(producers=p, steps=c, min_blocks=1)
 
 
 # The scan's launch shape: within 1% of the fastest of 15 shapes at both
@@ -379,6 +428,79 @@ def scan_tabled(device) -> tuple:
     return int(out[0]), int(out[1])
 
 
+def bisect_counts(device) -> dict:
+    """What the density/axial-flow fused bisections on the CUDA `device`
+    did since the last call: the columns (brackets, 2^L a bracket where it
+    speculates) that read their block's row table (`rows`: every column of
+    a block whose brackets form at most BISECT_ROWS runs of one (k, m),
+    such as rows of 8 or 24 brackets, or of a block's length or more) and
+    those whose numeric exterior read the tabled exps (`exterior`); and,
+    summed over the launches, block 0's steps in its first round
+    (`steps`) and those whose first chain a producer kept (`kept`; see
+    `bisect_chain_kept`). Zeroes them; waits for the device's work."""
+    from . import _build
+    out = (ctypes.c_ulonglong * 4)()
+    dev = torch.device(device)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    _build.check(_build.library().eigk_cylinder_bisect_counts(index, out),
+                 "cylinder_bisect counts")
+    return dict(rows=int(out[0]), exterior=int(out[1]), kept=int(out[2]),
+                steps=int(out[3]))
+
+
+def bisect_tabled_columns(k: torch.Tensor, m: torch.Tensor, shape) -> int:
+    """The columns of one launch of the density/axial-flow fused bisection
+    at block shape `shape` on brackets of the (k, m) columns `k`, `m` that
+    read their block's row table (`bisect_counts`' `rows`): 2^L for each
+    bracket of every block whose B brackets form at most BISECT_ROWS runs
+    of one (k, m), compared bit for bit (csrc/bisect.cuh::find_rows)."""
+    b, lv = shape[0], shape[1]
+    n = k.numel()
+    if n == 0:
+        return 0
+    it = torch.int32 if k.dtype == torch.float32 else torch.int64
+    kb, mb = k.contiguous().view(it), m.contiguous().view(it)
+    at = torch.arange(n, device=k.device)
+    start = torch.zeros(n, dtype=torch.bool, device=k.device)
+    start[1:] = (kb[1:] != kb[:-1]) | (mb[1:] != mb[:-1])
+    block = at // b
+    runs = 1 + torch.bincount(block, weights=(start & (at % b != 0)).double())
+    size = torch.bincount(block)
+    return int(size[runs <= BISECT_ROWS].sum()) << lv
+
+
+def bisect_chain_kept(case: CaseConfig, dtype: torch.dtype, shape,
+                      device="cpu") -> int:
+    """The steps of one shoot of the density/axial-flow fused bisection
+    at block shape `shape` whose first chain a producer keeps: a producer
+    row group of the 32 P / (B 2^L) takes a run of ceil(C / groups)
+    consecutive steps of a stage (csrc/bisect.cuh::spec_kernel) and keeps
+    a step's first chain from the step before's where `chain_kept` says
+    their abscissae have the same bits, except at its run's first step."""
+    b, lv, p, c, _, _ = shape
+    groups = 32 * p // (b << lv)
+    spg = -(-c // groups)
+    kept = torch.cat(chain_kept(case, dtype, device)).cpu()
+    offset = torch.arange(kept.numel()) % c
+    return int((kept & (offset % spg != 0)).sum())
+
+
+def _check_bisect_smem(shape: SpecShape, dtype: torch.dtype,
+                       numeric: bool) -> None:
+    """Raise unless the density/axial-flow bisection's shared memory at
+    `shape` is what `common.spec_smem` gives with _BISECT_ENTRY_BYTES
+    (csrc/bisect.cuh::spec_smem)."""
+    from . import _build
+    from .common import spec_smem
+    b, lv, _, c, s, _ = shape
+    got = _build.library().eigk_cylinder_bisect_smem(
+        int(dtype == torch.float64), int(numeric), b << lv, c, s)
+    want = spec_smem(shape, dtype, _BISECT_ENTRY_BYTES[dtype, numeric])
+    if got != want:
+        raise RuntimeError(f"cylinder_bisect: its tables take {got} B in "
+                           f"CUDA, not the {want} of _BISECT_ENTRY_BYTES")
+
+
 def _plain(params: DispParams, dtype: torch.dtype):
     from ..physics.cylinder import CylinderPhysics
     return CylinderPhysics.from_case(params.case).make_dispersion_plain(
@@ -393,7 +515,7 @@ def cylinder_bisect(lo: torch.Tensor, hi: torch.Tensor, k: torch.Tensor,
     None without final_eval. A CUDA tensor launches the fused kernel
     `cylinder_bisect` once (block shape `shape`, a common.SpecShape;
     default `common.analytic_spec_shape`, with the numeric exterior
-    `common.numeric_spec_shape`, for the twisted chain
+    `numeric_bisect_shape`, for the twisted chain
     `common.spec_shape`); a CPU tensor runs `search.bisect_loop` over the
     plain dispersion."""
     global bisect_launches
@@ -405,18 +527,21 @@ def cylinder_bisect(lo: torch.Tensor, hi: torch.Tensor, k: torch.Tensor,
         return bisect_loop(_plain(params, lo.dtype), lo, hi, k, m, n_iter,
                            final_eval)
     twisted = bool(params.struct.twisted)
-    eb = _ENTRY_BYTES[lo.dtype, twisted]
+    numeric = bool(params.struct.exterior_numeric)
+    eb = bisect_entry_bytes(lo.dtype, twisted, numeric)
     if twisted:
         out = launch_spec("cylinder_bisect", _SPEC_ENTRY,
                           "eigk_cylinder_params_size", params.struct, eb, lo,
                           hi, k, m, n_iter, final_eval, shape)
     else:
-        rule = (numeric_spec_shape if params.struct.exterior_numeric
-                else analytic_spec_shape)
+        shape = SpecShape(*(shape or (
+            numeric_bisect_shape(lo.numel(), lo.dtype) if numeric
+            else analytic_spec_shape(lo.numel(), lo.dtype, eb))))
+        if lo.is_cuda and lo.numel():
+            _check_bisect_smem(shape, lo.dtype, numeric)
         out = launch_spec("cylinder_bisect", _BISECT_SPEC_ENTRY,
                           "eigk_cylinder_params_size", params.struct, eb, lo,
-                          hi, k, m, n_iter, final_eval,
-                          shape or rule(lo.numel(), lo.dtype, eb))
+                          hi, k, m, n_iter, final_eval, shape)
     bisect_launches += lo.numel() > 0
     return out
 

@@ -17,6 +17,8 @@ n_iter=0, at block shapes of L = 0, 1, 2 and 4 levels a round and both
 register budgets.
 """
 import dataclasses
+import sys
+from pathlib import Path
 
 import numpy as np
 import jax
@@ -225,17 +227,19 @@ def test_bisect_wrappers_raise_on_unsupported_dtype(name, dtype):
 
 # The main path's bracket batches: cyl_co_09's and slab_ph_09's bracket
 # stages, slab_flow_gaussian_coronal's (the shear form), and the refine
-# stage of the slab_ph_09 float32 sweep (its roots), with each one's table
-# entry (x-only or r-only) size in bytes at float32 and float64
-SHAPE_BATCHES = {"cyl_co_09": (17_280, (48, 80)),
+# stage of the slab_ph_09 float32 sweep (its roots), with the bytes of each
+# one's tables per abscissa (the slab's x-only entry; the cylinder's r-only
+# entry and its 4 rows' entries) at float32 and float64
+SHAPE_BATCHES = {"cyl_co_09": (17_280, (112, 208)),
                  "slab_ph_09": (5_040, (32, 48)),
                  "flow_gauss": (5_600, (16, 32)),
                  "slab_ph_09 refine": (153, (32, 48))}
 # analytic_spec_shape's picks, (B, L, P, C, S, register budget): the
-# fastest shapes on an H100 (tools_torch/tune_bisect.py, PERF.md section 6)
+# fastest shapes on an H100 (tools_torch/tune_bisect.py, PERF.md section 6);
+# cyl_co_09's C the fit of its row table's larger blocks (21, not 28)
 ANALYTIC_SHAPES = {
-    ("cyl_co_09", "float32"): (32, 0, 7, 28, 2, 0),
-    ("cyl_co_09", "float64"): (32, 0, 7, 28, 2, 1),
+    ("cyl_co_09", "float32"): (32, 0, 7, 21, 2, 0),
+    ("cyl_co_09", "float64"): (32, 0, 7, 21, 2, 1),
     ("slab_ph_09", "float32"): (16, 0, 7, 56, 2, 0),
     ("slab_ph_09", "float64"): (32, 0, 7, 28, 2, 1),
     ("flow_gauss", "float32"): (16, 0, 7, 56, 2, 0),
@@ -255,7 +259,7 @@ def test_analytic_spec_shape(batch, dtype):
     n, entry = SHAPE_BATCHES[batch]
     dt = getattr(torch, dtype)
     eb = entry[dt == torch.float64]
-    assert eb == {"cyl_co_09": kcyl._ENTRY_BYTES[dt, False],
+    assert eb == {"cyl_co_09": kcyl.bisect_entry_bytes(dt, False, False),
                   "flow_gauss": kslab._ENTRY_BYTES[(True, dt)]}.get(
                       batch, kslab._ENTRY_BYTES[(False, dt)])
     got = kcommon.analytic_spec_shape(n, dt, eb, shear=batch == "flow_gauss")
@@ -340,3 +344,209 @@ def test_fused_bisect_bit_equal_to_launch_loop_on_card(name, dtype):
             assert (got[1] is None) == (not final_eval)
             if final_eval:
                 assert _same(got[1], want[1]), shape
+
+
+# -- the density/axial-flow cylinder_bisect's tables -----------------------------
+
+def _cpp_bisect_smem(dtype, numeric: bool, nc: int, c: int, s: int) -> int:
+    """csrc/bisect.cuh::spec_smem over csrc/cylinder_disp.cu::SpecChain,
+    written out: the 32 omegas and the ring (S stages x C steps x 6 values
+    x NC columns) to a 16-byte boundary, then per abscissa of the 2
+    buffers x 3 C the r-only entry (RPoint<T>, 9 values), the kRows = 4
+    rows' entries (RowPoint<T>, 4 values), each 16-byte aligned, and with
+    the numeric exterior an exp of each row's k."""
+    t = 4 if dtype == torch.float32 else 8
+
+    def aligned(n):
+        return -(-n // 16) * 16
+    per = aligned(9 * t) + 4 * (aligned(4 * t) + (t if numeric else 0))
+    return aligned((32 + s * c * 6 * nc) * t) + 2 * 3 * c * per
+
+
+@pytest.mark.parametrize("numeric", [False, True], ids=["bessel", "numeric"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cylinder_bisect_smem_mirror(dtype, numeric):
+    """The Python mirror of the density/axial-flow bisection's tables
+    (kernels.cylinder.bisect_entry_bytes with common.spec_smem) is the C++
+    formula at every block shape, and the wrapper's shapes fit a block."""
+    eb = kcyl.bisect_entry_bytes(dtype, False, numeric)
+    assert eb == {(torch.float32, False): 112, (torch.float32, True): 128,
+                  (torch.float64, False): 208,
+                  (torch.float64, True): 240}[dtype, numeric]
+    assert kcyl.bisect_entry_bytes(dtype, True, numeric) == \
+        kcyl._ENTRY_BYTES[dtype, True]
+    for b, lv in ((32, 0), (16, 0), (8, 2), (1, 5), (4, 3)):
+        for c in (1, 7, 16, 21, 32, 45, 64):
+            for s in (1, 2, 6):
+                shape = kcommon.SpecShape(b, lv, 7, c, s, 0)
+                assert kcommon.spec_smem(shape, dtype, eb) == \
+                    _cpp_bisect_smem(dtype, numeric, b << lv, c, s)
+    for n in (45, 600, 17_280, 47_520):
+        shape = (kcyl.numeric_bisect_shape(n, dtype)
+                 if numeric else kcommon.analytic_spec_shape(n, dtype, eb))
+        kcommon._check_spec_shape("x", shape, dtype, eb, False)
+
+
+# numeric_bisect_shape's picks for the density/axial-flow cylinder, (B, L, P,
+# C, S, register budget): the fastest shapes on an H100 on cyl_flow_1
+# parity's 47,520 brackets and their first 600 (tools_torch/tune_bisect.py
+# --numeric, PERF.md section 6)
+NUMERIC_CYL_SHAPES = {
+    (47_520, "float32"): (32, 0, 4, 24, 2, 1),
+    (47_520, "float64"): (32, 0, 4, 16, 2, 1),
+    (600, "float32"): (8, 2, 7, 32, 2, 0),
+    (600, "float64"): (8, 2, 7, 32, 2, 1),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("n", [47_520, 600])
+def test_numeric_cylinder_spec_shape(n, dtype):
+    """The numeric exterior's cylinder bisection takes the tuned block
+    shape on the parity sweep's bracket stage and on a refine-sized batch:
+    B 2^L columns within a warp, the exterior's row group a whole number of
+    the producers' lanes; at the loop's schedule its blocks at 128
+    registers (the 64 of the other budget spill the chain) fit an SM's
+    shared memory as often as its registers allow (a speculative batch,
+    75 blocks here, fills no SM twice)."""
+    dt = getattr(torch, dtype)
+    eb = kcyl.bisect_entry_bytes(dt, False, True)
+    got = kcyl.numeric_bisect_shape(n, dt)
+    assert tuple(got) == NUMERIC_CYL_SHAPES[n, dtype]
+    b, lv, p, c, s, min_blocks = got
+    assert (b << lv) <= 32 and 32 * p % (b << lv) == 0
+    if lv == 0:
+        blocks = min(32, 65536 // (128 * 32 * (p + 1)))
+        assert blocks * kcommon.spec_smem(got, dt, eb) <= kcommon.MAX_SMEM
+    else:
+        assert -(-n // b) < kcommon._SMS
+    kcommon._check_spec_shape("x", got, dt, eb, False)
+    # the slab's rule is not the cylinder's
+    assert kcommon.numeric_spec_shape(n, dt, eb) != got
+
+
+def test_bisect_tabled_columns_mirror():
+    """kernels.cylinder.bisect_tabled_columns (the mirror of csrc/
+    bisect.cuh::find_rows): a block's columns read its row table where its
+    brackets form at most 4 runs of one (k, m), bit for bit; 2^L columns a
+    bracket; the last block's brackets alone."""
+    def cols(k, m, b, lv=0):
+        k = torch.tensor(k, dtype=torch.float64)
+        return kcyl.bisect_tabled_columns(k, torch.tensor(
+            m, dtype=torch.float64), kcommon.SpecShape(b, lv, 7, 16, 2, 0))
+    k8 = [float(i // 8) for i in range(96)]       # rows of 8: 4 a block
+    assert cols(k8, [0.0] * 96, 32) == 96
+    assert cols(k8[3:], [0.0] * 93, 32) == 29     # 5 runs but in the last
+    k24 = [float(i // 24) for i in range(100)]
+    assert cols(k24, [1.0] * 100, 32) == 100
+    assert cols(k24, [1.0] * 100, 8, 2) == 400
+    # the mode and the bits count: -0.0 is another row than 0.0
+    m = [float(i % 2) for i in range(32)]
+    assert cols([1.0] * 32, m, 32) == 0
+    assert cols([0.0] * 16 + [-0.0] * 16, [0.0] * 32, 32) == 32
+    assert cols([0.0, -0.0] * 16, [0.0] * 32, 32) == 0
+    assert cols([], [], 32) == 0
+
+
+def _bisect_layout_case(exterior: str, dtype):
+    """The density/axial-flow tube at a reduced depth with the K_m ratio
+    (cyl_co_09) or the numeric exterior (cyl_flow_1's tube), 3 k values,
+    both modes."""
+    if exterior == "bessel":
+        full = config.from_jax(jcases.cylinder_density_coronal(0.9))
+        grid = dataclasses.replace(full.grid, n_interior=250, n_axis_log=30)
+    else:
+        full = config.from_jax(jcases.cylinder_flow_coronal(0.05, 1.0))
+        grid = dataclasses.replace(
+            full.grid, n_interior=250, n_axis_log=30,
+            exterior_method="numeric", exterior_wavelengths=3.0,
+            n_exterior=200)
+    return dataclasses.replace(full, grid=grid, k_values=(0.15, 1.3, 3.9))
+
+
+def _bisect_layouts(case, dtype) -> dict:
+    """Bracket batches (lo, hi, k, m) on the card of tools_torch.batches'
+    row layouts, lo the layout's omega and hi 1.01 lo: rows of 8 and 24
+    brackets from the batch's first (4 and 2-3 a block of 32), of 37, the
+    runs through the continua (NaN and inf at the poles), rows of 8 from
+    batches.ROW_OFFSET (5 runs a block: none tabled), random draws; and a
+    speculative batch of 600 brackets of rows of 24."""
+    from tools_torch import batches
+    lay = batches.row_layout_batches(case, dtype, runs=(
+        (8, 40), (24, 30), (37, 12)), n_continua=200, n_draws=300,
+        n_windows=1, offset=0)
+    lay.pop("refine windows")
+    lay["rows 8 offset"] = batches.row_layout_batches(
+        case, dtype, runs=((8, 40),), n_continua=1, n_draws=1,
+        n_windows=1)["rows 8"]
+    out = {name: [om, om * 1.01, k, m] for name, (om, k, m) in lay.items()}
+    out["speculative 600"] = [x[:600].contiguous() for x in out["rows 24"]]
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA card")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("exterior", ["bessel", "numeric"])
+def test_cylinder_bisect_row_layouts_bit_equal_on_card(exterior, dtype):
+    """The density/axial-flow cylinder_bisect, at the wrapper's shape (L >
+    0 below 2,112 brackets) and at the parity sweeps' loop schedule (L =
+    0, B = 32), gives the roots and mismatches of the launch loop and of
+    the plain loop bit for bit on every row layout; its launch's columns
+    through the row table (and the tabled exps) are bisect_tabled_columns':
+    every column where the rows are contiguous (rows of 8, 24, 37, the
+    continua, the speculative batch); at the loop schedule none on the
+    random draws and on the rows of 8 off the blocks but the last block's
+    (blocks of a few brackets at L > 0 hold few runs, and read rows). Its
+    producers keep the chains that kernels.cylinder.bisect_chain_kept
+    says. The scan's dets at the lower ends equal the plain version's bit
+    for bit, a NaN's sign included (csrc/common.cuh::zero_over)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    case = _bisect_layout_case(exterior, dtype)
+    ph = tcyl.CylinderPhysics.from_case(case)
+    disp = ph.make_dispersion(m=None, dtype=dtype)
+    plain = ph.make_dispersion_plain(m=None, dtype=dtype)
+    params = kcyl.disp_params(case)
+    eb = kcyl.bisect_entry_bytes(dtype, False, exterior == "numeric")
+
+    def rule(n_br, dt, entry):          # the wrapper's default shape
+        if exterior == "numeric":
+            return kcyl.numeric_bisect_shape(n_br, dt)
+        return kcommon.analytic_spec_shape(n_br, dt, entry)
+    loop_shape = rule(47_520, dtype, eb)
+    assert loop_shape.levels == 0 and loop_shape.brackets == 32
+    n_iter = 8
+    kcyl.bisect_counts("cuda")
+    for name, br in _bisect_layouts(case, dtype).items():
+        n = br[0].numel()
+        want = search.bisect_loop(disp, *br, n_iter)
+        for shape in (rule(n, dtype, eb), loop_shape):
+            got = kcyl.cylinder_bisect(*br, n_iter, params, shape=shape)
+            counts = kcyl.bisect_counts("cuda")
+            for a, b in zip(got, want):
+                assert _same(a, b), (name, shape)
+            tabled = kcyl.bisect_tabled_columns(br[2], br[3], shape)
+            assert counts["rows"] == tabled, (name, shape, counts)
+            assert counts["exterior"] == (tabled if exterior == "numeric"
+                                          else 0), (name, counts)
+            if name not in ("random draws", "rows 8 offset"):
+                assert tabled == n << shape.levels, (name, shape)
+            elif shape == loop_shape:
+                # 5 runs a block of 32 (the last block of the rows of 8
+                # off the blocks holds 3)
+                assert tabled == (0 if name == "random draws"
+                                  else n % 32), (name, tabled)
+            # block 0's first round: every step, and the first chains kept
+            # where their abscissae have the bits of the step before's last
+            assert counts["steps"] == 280
+            assert counts["kept"] == kcyl.bisect_chain_kept(
+                case, dtype, shape, "cuda") > 0
+        want_plain = search.bisect_loop(plain, *br, n_iter)
+        for a, b in zip(want, want_plain):
+            assert _same(a, b), name
+        # the loop's sign test reads a NaN det's sign bit: the scan's dets
+        # at the brackets' lower ends are the plain version's to the bit,
+        # NaNs (the continua's edges) included
+        it = torch.int32 if dtype == torch.float32 else torch.int64
+        assert torch.equal(disp(*br[::2], br[3]).det.view(it),
+                           plain(*br[::2], br[3]).det.view(it)), name

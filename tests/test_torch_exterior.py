@@ -327,13 +327,16 @@ def test_every_entry_has_its_signature(module):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_numeric_spec_shape(dtype):
     """The numeric exterior's speculative bisection keeps spec_shape's
-    speculation on small batches and takes the tuned loop schedule (32
-    brackets, 7 producer warps, 32 or 16 steps a stage) on the parity
-    sweeps' batches; every shape fits the card."""
+    speculation on small batches and takes the tuned loop schedule on the
+    parity sweeps' batches: the slab's 32 brackets, 7 producer warps, 32
+    or 16 steps a stage; the density/axial-flow cylinder's
+    (`kernels.cylinder.numeric_bisect_shape`, its row and exps' tables) 32
+    brackets, 4 producer warps, 24 or 16 steps a stage at 128 registers,
+    and 7 producer warps and 32 steps where it speculates; every shape
+    fits the card."""
     from eigensolver_tpu_torch.kernels import common
     steps = 32 if dtype == torch.float32 else 16
-    for eb in {kslab._ENTRY_BYTES[(shear, dtype)] for shear in (False, True)
-               } | {kcyl._ENTRY_BYTES[dtype, False]}:
+    for eb in {kslab._ENTRY_BYTES[(shear, dtype)] for shear in (False, True)}:
         for n in (45, 600, 2111):
             got = common.numeric_spec_shape(n, dtype, eb)
             assert got == common.spec_shape(n, dtype, eb) and got.levels >= 2
@@ -342,6 +345,17 @@ def test_numeric_spec_shape(dtype):
             got = common.numeric_spec_shape(n, dtype, eb)
             assert tuple(got) == (32, 0, 7, steps, 2, 0)
             common._check_spec_shape("x", got, dtype, eb, False)
+    eb = kcyl.bisect_entry_bytes(dtype, False, True)
+    for n in (45, 600, 2111):
+        got = kcyl.numeric_bisect_shape(n, dtype)
+        assert got == common.spec_shape(n, dtype, eb)._replace(
+            producers=7, steps=32) and got.levels >= 2
+        common._check_spec_shape("x", got, dtype, eb, False)
+    for n in (17_920, 47_520):
+        got = kcyl.numeric_bisect_shape(n, dtype)
+        assert tuple(got) == (32, 0, 4, 24 if dtype == torch.float32 else 16,
+                              2, 1)
+        common._check_spec_shape("x", got, dtype, eb, False)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -462,7 +476,7 @@ def test_numeric_bisect_bit_equal_to_plain_on_card(name, dtype):
         eb = kslab._ENTRY_BYTES[(bool(params.struct.shear), dtype)]
     else:
         fn, params = kcyl.cylinder_bisect, kcyl.disp_params(case)
-        eb = kcyl._ENTRY_BYTES[dtype, name == "twisted"]
+        eb = kcyl.bisect_entry_bytes(dtype, name == "twisted", True)
     for shape in (None, common.spec_shape(45, dtype, eb, levels=0)):
         if shape is None:
             got = disp.bisect(lo, hi, k, m, 3)

@@ -68,12 +68,13 @@ def ladder_draws(case, n: int, seed: int, dtype=torch.float64,
     return _tensors((om[row, col], ks[row], m), dtype, device)
 
 
-def row_runs(case, length: int, n_rows: int) -> list:
+def row_runs(case, length: int, n_rows: int,
+             offset: int = ROW_OFFSET) -> list:
     """n_rows runs of `length` candidates that share (k, m), each run's
     (k, m) another than the run before's: every 91st of the case's pairs,
     k major, so that the modes alternate (and where the case has fewer
     than 91 pairs, a run at m = 1 follows one of the same k at m = 0);
-    its omegas spread over its k's ladder; from ROW_OFFSET candidates into
+    its omegas spread over its k's ladder; from `offset` candidates into
     the first run. float64 numpy (omega, k, m)."""
     from eigensolver_tpu_torch import sweep
     om, ks = sweep.build_ladders(case, 256)
@@ -84,7 +85,7 @@ def row_runs(case, length: int, n_rows: int) -> list:
         w = om[ks == k].reshape(-1)
         w = w[np.linspace(0, w.size - 1, length).astype(int)]
         runs.append((w, np.full(length, k), np.full(length, m)))
-    return [np.concatenate(x)[ROW_OFFSET:] for x in zip(*runs)]
+    return [np.concatenate(x)[offset:] for x in zip(*runs)]
 
 
 def pole_omegas(case, k: float, dtype, n_pts: int = 8) -> list:
@@ -116,20 +117,22 @@ def pole_omegas(case, k: float, dtype, n_pts: int = 8) -> list:
 def row_layout_batches(case, dtype, runs=((1519, 3), (256, 9), (37, 40),
                                           (1, 1000)),
                        n_continua: int = 1500, n_draws: int = 1000,
-                       n_windows: int = 150, device="cuda") -> dict:
+                       n_windows: int = 150, device="cuda",
+                       offset: int = ROW_OFFSET) -> dict:
     """Batches (omega, k, mode) of dtype on device of the density/axial-
     flow scan's row layouts: for each (length, count) of `runs`, row_runs
-    (runs of 1519 and 256 candidates are at least a block: the block's
-    row table covers every candidate; of 37 a block spans up to 8 runs, and
-    the warps with a lane outside its first and last take the
-    per-candidate path; of 1 every warp does); a run of the median k at
+    from `offset` (runs of 1519 and 256 candidates are at least a block:
+    the block's row table covers every candidate; of 37 a block spans up
+    to 8 runs, and the warps with a lane outside its first and last take
+    the per-candidate path; of 1 every warp does); a run of the median k at
     m = 0 and one at m = 1 through every characteristic speed (n_continua
     points between the extreme speeds, the band edges exactly, and
     pole_omegas: NaN and inf); n_draws random ladder draws (ladder_draws);
     the refine windows' ends (10 a root, root after root) of n_windows
     ladder points."""
     from eigensolver_tpu_torch import search
-    out = {f"rows {n}": _tensors(row_runs(case, n, r), dtype, device)
+    out = {f"rows {n}": _tensors(row_runs(case, n, r, offset), dtype,
+                                 device)
            for n, r in runs}
     sp = np.asarray(case.sorted_speeds())
     k = float(np.median(case.k_grid()))

@@ -31,7 +31,11 @@ what each operation depends on. k U, alpha^2, cusp^2 and (c^2 + vA^2)
 m) row and abscissa ("cyl_row_step", "cyl_log_row_step", 3 evaluations a
 step), once for every candidate of the row. The per-candidate counts
 ("cyl_step", "cyl_log_step") are the chain's hand counts (`CYL_STEP`)
-less that class.
+less that class. For a kernel that keeps a step's first chain where its
+abscissa is the step before's last (the fused bisection), the same counts
+apart: the rest of one evaluation per candidate ("cyl_chain", 3 a step, or
+2 where the chain is kept) and the update ("cyl_update", on the log tail
+"cyl_log_update").
 
 Traces `physics/cylinder.py::CylinderPhysics.twisted_chain` (the order of
 operations that csrc/cylinder_disp.cu::twisted_chain follows) on symbols
@@ -128,8 +132,10 @@ EXT_K_ENDS = 7       # the cylinder's set-up, which depends on k alone
 # csrc/cylinder_disp.cu: 3 evaluations of invF_g (29 each, the tests of the
 # zero-valued terms included) and the update; on the log tail also (r iF,
 # r g) (6)
-CYL_STEP = {"cyl_step": 3 * 29 + RK4_UPDATE,
-            "cyl_log_step": 3 * 29 + RK4_UPDATE + 6}
+CYL_EVAL = 29
+CYL_LOG_EXTRA = 6
+CYL_STEP = {"cyl_step": 3 * CYL_EVAL + RK4_UPDATE,
+            "cyl_log_step": 3 * CYL_EVAL + RK4_UPDATE + CYL_LOG_EXTRA}
 # the same counts, traced from the chain in its quotient form (commit
 # 6809e05: dual quotients by r, r^2, sqrt(rho) and sqrt(c^2 + vA^2))
 QUOTIENT_FORM = {"cyl_tw_step": 590, "cyl_tw_ends": 85,
@@ -371,12 +377,16 @@ def cylinder_ops() -> dict:
     """chip_smoke.py's OPS entries for the density/axial-flow chain: per
     distinct (k, m) row and RK4 step, the (k, m, r) values of its 3
     evaluations ("cyl_row_step", on the log tail "cyl_log_row_step"); per
-    candidate and step the hand counts less them."""
+    candidate and step the hand counts less them; apart, per candidate
+    the rest of one evaluation ("cyl_chain") and a step's update
+    ("cyl_update", "cyl_log_update")."""
     t = chain_tally()
     row = 3 * sum(n for d, n in t.items()
                   if "r" in d and "w" not in d and set(d) & {"k", "m"})
     return {"cyl_row_step": row, "cyl_log_row_step": row,
-            **{key: n - row for key, n in CYL_STEP.items()}}
+            **{key: n - row for key, n in CYL_STEP.items()},
+            "cyl_chain": CYL_EVAL - row // 3, "cyl_update": RK4_UPDATE,
+            "cyl_log_update": RK4_UPDATE + CYL_LOG_EXTRA}
 
 
 def _sym_divisor(z):

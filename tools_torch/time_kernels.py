@@ -4,6 +4,7 @@
     python3 tools_torch/time_kernels.py [--pkg-root DIR] [--label NAME]
                                         [--out PATH] [--complex]
                                         [--cylinder-scan] [--slab-scan]
+                                        [--cylinder-bisect]
                                         [--cx-cylinder] [--cx-slab]
                                         [--digests] [--roots PATH]
 
@@ -95,6 +96,16 @@ several launches after a warm-up):
     below 1e-290 and their warps; a step on the roots with and without
     those lifted to 1e-100); the kernels' ptxas lines and, where the
     checkout has them, the flux kernel's attributes;
+  - the density/axial-flow fused bisection cylinder_bisect
+    (`--cylinder-bisect` times only this), float32 and float64, at the
+    wrapper's block shape, beside the launch loop it replaces (the loop of
+    cylinder_disp launches, `search.bisect_loop`), each held bit for bit
+    to the loop: with the numeric exterior on the cyl_flow_1 parity
+    sweep's 47,520 brackets (18 iterations; at float64 also the sweep's own
+    50) and on their first 600 (the wrapper's speculative shape), with the
+    K_m ratio on cyl_co_09's 17,280 (18 iterations); per launch, where
+    the checkout has them, its tabled counts (`kernels.cylinder.
+    bisect_counts`); the fused kernel's ptxas lines (registers, spills);
   - the shipped real-omega sweeps' roots (`--digests` runs only these):
     counts and root digests (`chip_smoke.py::root_digest`) of every
     real-omega `run_case` of chip_smoke.py's phases 5, 7, 11 and 14
@@ -644,11 +655,13 @@ def sass_counts(lib: Path, kernel: str) -> dict:
     return out
 
 
-def ptxas_lines(kernel: str) -> dict:
+def ptxas_lines(kernel: str, lib=None) -> dict:
     """The ptxas report (-Xptxas -v) of each instantiation of `kernel`:
-    its registers, spills and shared memory lines."""
+    its registers, spills and shared memory lines, in the build of the
+    library `lib` (default: the package's)."""
     from eigensolver_tpu_torch.kernels import _build
-    log = _build.library_path().with_suffix(".log").read_text()
+    lib = _build.library_path() if lib is None else Path(lib)
+    log = lib.with_suffix(".log").read_text()
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
@@ -711,6 +724,52 @@ def cylinder_scan_times(lib: Path) -> dict:
                                 polish_dtype="float32"), False)
     out["ptxas"] = ptxas_lines("cylinder_disp_kernel")
     out["sass"] = sass_counts(lib, "cylinder_disp_kernel")
+    return out
+
+
+def cylinder_bisect_times() -> dict:
+    """The density/axial-flow cylinder_bisect's times (see the module's
+    docstring)."""
+    import torch
+    from eigensolver_tpu_torch import cases, search
+    from eigensolver_tpu_torch.kernels import cylinder as kcyl
+    counts = getattr(kcyl, "bisect_counts", None)
+    out = {}
+
+    def bits(a, b):
+        return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+    def entry(name, disp, br, n_iter, reps, loop=True):
+        # the fused launch against the launch loop, bit for bit; its ms and
+        # the tabled counts of one launch
+        got = disp.bisect(*br, n_iter)
+        want = search.bisect_loop(disp, *br, n_iter)
+        if not all(bits(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{name}: fused != launch loop")
+        r = {"n": br[0].numel(), "n_iter": n_iter}
+        if counts is not None:
+            counts("cuda")
+            disp.bisect(*br, n_iter)
+            r["counts"] = counts("cuda")
+        r["ms"] = cuda_ms(lambda: disp.bisect(*br, n_iter), reps)
+        if loop:
+            r["loop_ms"] = cuda_ms(lambda: search.bisect_loop(
+                disp, *br, n_iter), 1)
+        print(name, json.dumps(r), flush=True)
+        out[name] = r
+
+    co = cases.cylinder_density_coronal(0.9)
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype)[6:]
+        disp, br = parity_brackets("cyl_flow_1", dtype)
+        entry(f"numeric {dname}", disp, br, 18, 3)
+        if dtype == torch.float64:
+            entry(f"numeric {dname} n_iter 50", disp, br, 50, 2, loop=False)
+        entry(f"numeric 600 {dname}", disp,
+              [x[:600].contiguous() for x in br], 18, 5)
+        disp, _, br = scan_and_brackets(co, dtype)
+        entry(f"analytic cyl_co_09 {dname}", disp, br, 18, 5)
+    out["ptxas"] = ptxas_lines("9SpecChainI")
     return out
 
 
@@ -778,6 +837,8 @@ def main() -> int:
                     help="time only the scan cylinder_disp and its sweeps")
     ap.add_argument("--slab-scan", action="store_true",
                     help="time only the scan slab_disp and its sweeps")
+    ap.add_argument("--cylinder-bisect", action="store_true",
+                    help="time only the density/axial-flow cylinder_bisect")
     ap.add_argument("--cx-cylinder", action="store_true",
                     help="time only the complex-omega cylinder kernel and "
                          "its sweeps")
@@ -806,9 +867,10 @@ def main() -> int:
     out = {"label": args.label, "nvidia_smi": smi,
            "package": str(Path(_build.__file__).resolve().parents[1])}
     if args.cylinder_scan or args.slab_scan or args.cx_cylinder \
-            or args.cx_slab or args.digests:
+            or args.cx_slab or args.digests or args.cylinder_bisect:
         out.update(cylinder_scan_times(lib) if args.cylinder_scan
                    else slab_scan_times(lib) if args.slab_scan
+                   else cylinder_bisect_times() if args.cylinder_bisect
                    else cx_cylinder_times() if args.cx_cylinder
                    else cx_slab_times() if args.cx_slab
                    else sweep_digests())

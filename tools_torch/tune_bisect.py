@@ -43,15 +43,16 @@ C steps a stage, S stages) whose 2 blocks fit an SM, each checked against
 the default's bits (the producer warps P are fixed by the type,
 `kernels.common.COMPLEX_PRODUCERS`).
 
-    python3 tools_torch/tune_bisect.py --numeric [--out PATH]
+    python3 tools_torch/tune_bisect.py --numeric [--target NAME] [--out PATH]
 
 times the numeric exterior's slab_bisect and cylinder_bisect instead, on
 the bracket stages of the reference-parity sweeps slab_ph_09 (21,840
 brackets) and cyl_flow_1 (47,520; `tools_torch/parity.py`, float32 and
 float64, 18 iterations) and on their first 600 brackets (a refine-sized
-batch), at the default shape (`kernels.common.numeric_spec_shape`) and a
-grid of (L, B, P, C, register budget), each checked against the default's
-bits, beside the launch loop.
+batch), at the default shape (`kernels.common.numeric_spec_shape`; the
+cylinder's `kernels.cylinder.numeric_bisect_shape`) and a grid of (L, B,
+P, C, register budget), each checked against the default's bits, beside
+the launch loop. `--target` times one of the two sweeps.
 """
 import argparse
 import dataclasses
@@ -134,6 +135,11 @@ def main() -> int:
                        help="the exact exterior's best shapes, in turns")
     chain.add_argument("--complex", action="store_true",
                        help="the complex-omega kernel on the KH batches")
+    ap.add_argument("--target",
+                    choices=("slab_ph_09", "flow_gauss", "cyl_co_09",
+                             "cyl_flow_1"),
+                    help="this sweep's batches only (--numeric: slab_ph_09 "
+                         "or cyl_flow_1; else the exact exterior's three)")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     import torch
@@ -151,7 +157,10 @@ def main() -> int:
     f64 = dataclasses.replace(f32, scan_dtype="float64", polish_dtype="float64")
     out = {"nvidia_smi": smi}
     if args.numeric:
-        tune_numeric(out)
+        if args.target not in (None, "slab_ph_09", "cyl_flow_1"):
+            ap.error("--numeric --target: slab_ph_09 or cyl_flow_1")
+        tune_numeric(out, (args.target,) if args.target
+                     else ("slab_ph_09", "cyl_flow_1"))
     elif args.twisted:
         tune_twisted(out, f32, f64)
     elif args.confirm:
@@ -159,7 +168,7 @@ def main() -> int:
     elif args.complex:
         tune_complex(out)
     else:
-        tune_analytic(out, f32, f64)
+        tune_analytic(out, f32, f64, args.target)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(out, indent=1))
@@ -289,12 +298,15 @@ def analytic_batches(f32, f64):
            torch.float64, 30, False)
 
 
-def tune_analytic(out: dict, f32, f64) -> None:
-    """The exact exterior's fused bisections on the main path's batches,
-    each default checked against the launch loop."""
+def tune_analytic(out: dict, f32, f64, target=None) -> None:
+    """The exact exterior's fused bisections on the main path's batches
+    (those of `target` alone, if given), each default checked against the
+    launch loop."""
     from eigensolver_tpu_torch import search, sweep
     from eigensolver_tpu_torch.kernels import common
     for name, case, args_, dtype, n_iter, final in analytic_batches(f32, f64):
+        if target and name.split()[0] != target:
+            continue
         n = args_[0].numel()
         eb = _entry_bytes(case, dtype)
         fn, params = _fn(case), _params(case)
@@ -369,15 +381,16 @@ def confirm_analytic(out: dict, f32, f64, rounds: int = 3,
         out[f"confirm {name}"] = r
 
 
-def tune_numeric(out: dict) -> None:
+def tune_numeric(out: dict, targets) -> None:
     """The numeric exterior's fused bisections (the speculative kernel) on
-    the bracket stages of the parity sweeps slab_ph_09 and cyl_flow_1 at
-    both types, 18 iterations each, and on their first 600 brackets."""
+    the bracket stages of the parity sweeps `targets` (slab_ph_09,
+    cyl_flow_1) at both types, 18 iterations each, and on their first 600
+    brackets."""
     import torch
     from eigensolver_tpu_torch import cases, equilibrium, search, sweep
-    from eigensolver_tpu_torch.kernels import common
+    from eigensolver_tpu_torch.kernels import common, cylinder
     from tools_torch import parity
-    for target in ("slab_ph_09", "cyl_flow_1"):
+    for target in targets:
         for dtype in (torch.float32, torch.float64):
             dname = str(dtype).split(".")[-1]
             case, cfg, _ = parity.configure(
@@ -398,11 +411,13 @@ def tune_numeric(out: dict) -> None:
                 levels = (0,) if n >= 2 * common._SPEC_COLUMNS else range(5)
                 grid = [common.SpecShape(b, lv, p, c, 2, mb)
                         for lv in levels for b in (32 >> lv, 16 >> lv)
-                        if b >= 1 for p in (3, 7, 15) for c in (16, 32, 60)
-                        for mb in (0, 1, 2)]
+                        if b >= 1 for p in (3, 4, 7, 8, 15)
+                        for c in (16, 24, 32, 48, 64) for mb in (0, 1, 2)]
+                default = (cylinder.numeric_bisect_shape(n, dtype)
+                           if case.geometry.value == "cylinder"
+                           else common.numeric_spec_shape(n, dtype, eb))
                 tune_batch(out, name, fused, lambda a=args_: search.bisect_loop(
-                    disp, *a, 18, True), common.numeric_spec_shape(
-                        n, dtype, eb), grid, dtype, eb)
+                    disp, *a, 18, True), default, grid, dtype, eb)
 
 
 def tune_twisted(out: dict, f32, f64) -> None:
@@ -478,13 +493,16 @@ def _built(case, dtype, min_blocks: int) -> bool:
 
 
 def _entry_bytes(case, dtype) -> int:
-    """Bytes of the case's table entry (x-only or r-only) at dtype."""
+    """Bytes per abscissa of the fused bisection's tables of the case at
+    dtype: the slab's x-only entry, the cylinder's r-only entry with its
+    rows' (and exps') tables."""
     from eigensolver_tpu_torch.kernels import cylinder, slab
     if case.geometry.value == "slab":
         return slab._ENTRY_BYTES[(bool(slab.disp_params(case).struct.shear),
                                   dtype)]
-    return cylinder._ENTRY_BYTES[dtype, bool(
-        cylinder.disp_params(case).struct.twisted)]
+    st = cylinder.disp_params(case).struct
+    return cylinder.bisect_entry_bytes(dtype, bool(st.twisted),
+                                       bool(st.exterior_numeric))
 
 
 def _same_bits(a, b):
